@@ -11,18 +11,31 @@ It imports neither jax nor ``paddle_tpu``. Phases, each fatal on failure:
 2. build: every ``paddle_tpu_torch/csrc/*.cu`` compiled with nvcc for
    sm_90a, seconds and library path printed;
 3. kernels: each hand-written kernel against its plain PyTorch version
-   on the card, at the Llama-2-7B shapes of the serving path, in bf16
-   and fp32, with the tolerance stated per kernel, and timed (CUDA
-   events, median);
+   on the card, at the Llama-2-7B shapes of the serving and training
+   paths, in bf16 and fp32, with the tolerance stated per kernel, and
+   timed (CUDA events, median) beside its bound, its plain version and,
+   where one PyTorch call computes the same function, that call; the
+   backward kernels must repeat bit for bit;
 4. small parity: a tiny fp32 Llama on the card, whose paged-engine
    greedy streams must equal ``generate`` with an fp32 slab cache
    token for token;
-5. serving: Llama-2-7B at full width and depth (random bf16 weights
+5. tiny train parity: a 2-layer fp32 Llama takes one
+   ``CompiledTrainStep`` on the card and the same step on the CPU (the
+   plain versions) from the same weights; the loss and every parameter
+   after the step must agree;
+6. training: Llama-2-7B widths with 8 of its 32 layers (1.88B fp32
+   parameters from a seeded generator), AdamW with weight decay 0.01, a
+   linear warmup and global-norm clipping at 1.0, AMP O1 bf16, 10 steps
+   on one fixed batch of 2 x 2048 tokens; every loss finite, the last
+   below the first, and every training kernel launched the number of
+   times per step the model's structure gives;
+7. serving: Llama-2-7B at full width and depth (random bf16 weights
    from a seeded generator) served by ``PagedServingEngine`` (8 rows,
    2048 slots, page size 16, bf16 arena) for 12 staggered requests of
-   64 new tokens; every kernel must have launched during this phase, no
-   page may leak, and every generated token must pass a teacher-forced
-   check against the cache-free forward.
+   64 new tokens; every serving kernel must have launched during this
+   phase, no page may leak, and every generated token must pass a
+   teacher-forced check against the cache-free forward (which attends
+   through the flash attention kernel).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -62,8 +75,30 @@ NEAR_TIE = 0.125
 #   probability may round to the neighbouring bf16 value before the
 #   value product); fp32 1e-5 (fp32 sums over up to 2048 slots in
 #   another order).
+# - the backward kernels and flash attention (both sides compute in fp32
+#   and cast once): fp32 1e-5 * max|plain| for O, RMSNorm dx and rope,
+#   1e-4 * max|plain| for sums over thousands of rows that cancel
+#   (RMSNorm dw, flash dQ/dK/dV); LSE 1e-5 * max|plain|. bf16 holds EACH
+#   entry: |kernel_i - plain_i| <= 2^-7 * |plain_i| (at least one bf16
+#   ulp of that entry, under two) + the fp32 tolerance (the fp32 values
+#   before the cast differ by that much, so the cast may round them one
+#   ulp apart; at the bottom of a binade that comes to just under the
+#   entry's tolerance).
 REL_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
 PAGED_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
+SUM_TOL32 = 1e-4
+
+# the training phase: Llama-2-7B widths, 8 of 32 layers (fp32 parameters,
+# gradients and two Adam moments of the full depth take 16 B x 6.74B =
+# 108 GB, more than the card's 80 GB; 8 layers take 30 GB), B 2 x S 2048
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2, 2048, 10
+
+# tiny train parity on the card against the CPU: the loss within 1e-5
+# relative and every parameter within 1e-5 absolute after one AdamW step
+# (fp32 math in other orders; epsilon 1e-3 keeps the update a smooth
+# function of the gradient, so a gradient that differs by 1e-7 moves its
+# parameter by about as much instead of flipping a sign near zero)
+TINY_LOSS_RTOL, TINY_PARAM_ATOL = 1e-5, 1e-5
 
 
 def fail(msg):
@@ -106,6 +141,48 @@ def bound(bytes_moved, flops, dtype):
 
 def max_err(torch, a, b):
     return float((a.float() - b.float()).abs().max())
+
+
+def cast_once(name, got, want, tol32, dname):
+    """The check of an output that both sides compute in fp32 and cast
+    once: fp32 within ``tol32 * max|want|``; bf16 entry by entry within
+    2^-7 of the entry plus that fp32 tolerance."""
+    if dname == "float32":
+        return name, got, want, tol32, None
+    return name, got, want, 2.0 ** -7, tol32
+
+
+def checks(torch, pairs):
+    """[{output, max_abs_err, tolerance, err_over_tol}] for (name, got,
+    want, rel, floor): with ``floor`` None every entry is held to ``rel *
+    max|want|``; else entry i to ``rel * |want_i| + floor * max|want|``,
+    and ``tolerance`` is the largest of those. ``err_over_tol`` is the
+    largest ratio of an entry's error to its tolerance (a check passes at
+    <= 1). Returns the checks and the tightest one, whose numbers the case
+    reports."""
+    out = []
+    for n, g, w, rel, floor in pairs:
+        err = (g.float() - w.float()).abs()
+        ref = w.float().abs()
+        top = float(ref.max())
+        if floor is None:
+            tol = rel * top
+            ratio = float(err.max()) / max(tol, 1e-30)
+        else:
+            tol_i = rel * ref + floor * top
+            tol = float(tol_i.max())
+            ratio = float((err / tol_i).max())
+        out.append({"output": n, "max_abs_err": float(err.max()),
+                    "tolerance": tol, "err_over_tol": ratio,
+                    "per_entry": floor is not None})
+    worst = max(out, key=lambda c: c["err_over_tol"])
+    return out, worst
+
+
+def grad_time_ms(torch, outputs, inputs, grads, n=5, repeats=5):
+    """Device time of the autograd backward of a graph built once."""
+    return gpu_time_ms(torch, lambda: torch.autograd.grad(
+        outputs, inputs, grads, retain_graph=True), n=n, repeats=repeats)
 
 
 # ------------------------------------------------------------ kernels
@@ -238,16 +315,239 @@ def paged_cases(torch, mod, dev):
     return out
 
 
+def rms_norm_bwd_cases(torch, mod, dev):
+    """[4096, 4096]: the 7B training batch's rows (2 x 2048) at hidden
+    4096, fp32 (the O1 residual stream the norms see) and bf16."""
+    out = []
+    g = torch.Generator(device=dev).manual_seed(7)
+    rows, h = TRAIN_BATCH * TRAIN_SEQ, 4096
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        x = torch.randn(rows, h, generator=g, device=dev).to(dtype)
+        w = (1 + 0.1 * torch.randn(h, generator=g, device=dev)).to(dtype)
+        gy = torch.randn(rows, h, generator=g, device=dev).to(dtype)
+        _, rstd = mod.rms_norm_cuda(x, w, 1e-5, return_rstd=True)
+        dx, dw = mod.rms_norm_backward_cuda(x, w, gy, rstd)
+        rdx, rdw = mod.rms_norm_backward_reference(x, w, gy, rstd)
+        dx2, dw2 = mod.rms_norm_backward_cuda(x, w, gy, rstd)
+        if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+            fail(f"rms_norm backward {dname} does not repeat bit for bit")
+        cs, worst = checks(torch, [
+            cast_once("dx", dx, rdx, REL_TOL["float32"], dname),
+            cast_once("dw", dw, rdw, SUM_TOL32, dname)])
+        es = x.element_size()
+        b_ms, b_by = bound(3 * rows * h * es + 2 * h * es + 4 * rows,
+                           10 * rows * h, dname)
+        xl = x.clone().requires_grad_(True)
+        wl = w.clone().requires_grad_(True)
+        yl = torch.nn.functional.rms_norm(xl, (h,), wl, 1e-5)
+        out.append({
+            "shape": [rows, h], "dtype": dname, "checks": cs,
+            "max_abs_err": worst["max_abs_err"],
+            "tolerance": worst["tolerance"],
+            "err_over_tol": worst["err_over_tol"], "repeats_bitwise": True,
+            "ms": gpu_time_ms(torch, lambda: mod.rms_norm_backward_cuda(
+                x, w, gy, rstd)),
+            "plain_ms": gpu_time_ms(
+                torch, lambda: mod.rms_norm_backward_reference(
+                    x, w, gy, rstd)),
+            "library_ms": grad_time_ms(torch, yl, (xl, wl), gy, n=20,
+                                       repeats=7),
+            "library_call": "autograd backward of F.rms_norm",
+            "bound_ms": b_ms, "bound_by": b_by,
+        })
+        del xl, wl, yl
+    return out
+
+
+def rope_bwd_cases(torch, mod, dev):
+    """The training shape: q and k gradients [2, 2048, 32, 128] bf16 with
+    the shared [1, 2048, 1, 64] table."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    b, s, h, d = TRAIN_BATCH, TRAIN_SEQ, 32, 128
+    cos, sin = mod.build_rope_cache(s, d, device=dev)
+    out = []
+    for dtype in (torch.bfloat16,):
+        dname = str(dtype).replace("torch.", "")
+        gq = torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
+        gk = torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
+        dq, dk = mod.rope_cuda(gq, gk, cos, sin, inverse=True)
+        rq = mod.rope_backward_reference(gq, cos, sin)
+        rk = mod.rope_backward_reference(gk, cos, sin)
+        cs, worst = checks(torch, [
+            cast_once("dq", dq, rq, REL_TOL["float32"], dname),
+            cast_once("dk", dk, rk, REL_TOL["float32"], dname)])
+        es = gq.element_size()
+        b_ms, b_by = bound(4 * gq.numel() * es + 2 * s * (d // 2) * 4,
+                           3 * 2 * gq.numel(), dname)
+        out.append({
+            "shape": [b, s, h, d], "dtype": dname, "tables": "shared",
+            "checks": cs, "max_abs_err": worst["max_abs_err"],
+            "tolerance": worst["tolerance"],
+            "err_over_tol": worst["err_over_tol"],
+            "ms": gpu_time_ms(torch, lambda: mod.rope_cuda(
+                gq, gk, cos, sin, inverse=True)),
+            "plain_ms": gpu_time_ms(torch, lambda: (
+                mod.rope_backward_reference(gq, cos, sin),
+                mod.rope_backward_reference(gk, cos, sin))),
+            "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by,
+        })
+    return out
+
+
+def _visible_pairs(sq, sk, causal):
+    """(row, key) pairs a head attends: all of them, or the causal
+    bottom-right triangle."""
+    if not causal:
+        return sq * sk
+    return sum(min(sk, r + (sk - sq) + 1) for r in range(sq))
+
+
+def _library_attention(torch, q, k, v, causal):
+    """F.scaled_dot_product_attention on [B, H, S, D] views, with the
+    bottom-right causal mask for Sq != Sk."""
+    F = torch.nn.functional
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sq, sk = int(q.shape[1]), int(k.shape[1])
+    if causal and sq != sk:
+        from torch.nn.attention.bias import causal_lower_right
+
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=causal_lower_right(sq, sk))
+    return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+
+FLASH_SHAPES = (
+    # dtype, causal, sq, sk: the training shape in bf16 and fp32, and a
+    # chunk of 512 queries over 2048 keys (bottom-right causal)
+    ("bfloat16", True, 2048, 2048),
+    ("float32", True, 2048, 2048),
+    ("bfloat16", True, 512, 2048),
+)
+
+
+def flash_cases(torch, mod, dev):
+    """Both flash kernels at B 2, H 32, D 128: returns (forward cases,
+    backward cases)."""
+    fwd, bwd = [], []
+    b, h, d = TRAIN_BATCH, 32, 128
+    g = torch.Generator(device=dev).manual_seed(9)
+    for dname, causal, sq, sk in FLASH_SHAPES:
+        dtype = getattr(torch, dname)
+        q = torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
+        k = torch.randn(b, sk, h, d, generator=g, device=dev).to(dtype)
+        v = torch.randn(b, sk, h, d, generator=g, device=dev).to(dtype)
+        do = torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
+        o, lse = mod.flash_attention_cuda(q, k, v, causal)
+        ro, rlse = mod.flash_attention_reference(q, k, v, causal)
+        if not (torch.isfinite(o).all() and torch.isfinite(lse).all()):
+            fail(f"flash forward {dname} produced non-finite values")
+        cs, worst = checks(torch, [
+            cast_once("o", o, ro, REL_TOL["float32"], dname),
+            ("lse", lse, rlse, 1e-5, None)])
+        del ro, rlse
+        pairs = _visible_pairs(sq, sk, causal) * b * h
+        es = q.element_size()
+        shape = {"b": b, "h": h, "d": d, "sq": sq, "sk": sk,
+                 "causal": causal}
+        b_ms, b_by = bound(es * b * h * d * (2 * sq + 2 * sk) + 4 * b * h * sq,
+                           4 * d * pairs, dname)
+        ms = gpu_time_ms(torch, lambda: mod.flash_attention_cuda(
+            q, k, v, causal), n=5, repeats=5)
+        plain = gpu_time_ms(torch, lambda: mod.flash_attention_reference(
+            q, k, v, causal), n=3, repeats=3)
+        lib = gpu_time_ms(torch, lambda: _library_attention(
+            torch, q, k, v, causal), n=5, repeats=5)
+        fwd.append({"shape": shape, "dtype": dname, "checks": cs,
+                    "max_abs_err": worst["max_abs_err"],
+                    "tolerance": worst["tolerance"],
+                    "err_over_tol": worst["err_over_tol"], "ms": ms,
+                    "plain_ms": plain, "library_ms": lib,
+                    "library_call": "F.scaled_dot_product_attention",
+                    "bound_ms": b_ms, "bound_by": b_by})
+
+        grads = mod.flash_attention_backward_cuda(q, k, v, o, lse, do, causal)
+        again = mod.flash_attention_backward_cuda(q, k, v, o, lse, do, causal)
+        if not all(torch.equal(a, c) for a, c in zip(grads, again)):
+            fail(f"flash backward {dname} does not repeat bit for bit")
+        del again
+        want = mod.flash_attention_backward_reference(q, k, v, o, lse, do,
+                                                      causal)
+        cs, worst = checks(torch, [
+            cast_once(n, gr, w, SUM_TOL32, dname)
+            for n, gr, w in zip(("dq", "dk", "dv"), grads, want)])
+        if not all(torch.isfinite(gr).all() for gr in grads):
+            fail(f"flash backward {dname} produced non-finite values")
+        del want, grads
+        b_ms, b_by = bound(es * b * h * d * (4 * sq + 4 * sk) + 4 * b * h * sq,
+                           10 * d * pairs, dname)
+        ms = gpu_time_ms(torch, lambda: mod.flash_attention_backward_cuda(
+            q, k, v, o, lse, do, causal), n=3, repeats=5)
+        plain = gpu_time_ms(
+            torch, lambda: mod.flash_attention_backward_reference(
+                q, k, v, o, lse, do, causal), n=2, repeats=3)
+        ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
+        lo = _library_attention(torch, ql, kl, vl, causal)
+        dot = do.transpose(1, 2)
+        lib = grad_time_ms(torch, lo, (ql, kl, vl), dot)
+
+        def ours_fwd_bwd():
+            o2, lse2 = mod.flash_attention_cuda(q, k, v, causal)
+            mod.flash_attention_backward_cuda(q, k, v, o2, lse2, do, causal)
+
+        def lib_fwd_bwd():
+            out = _library_attention(torch, ql, kl, vl, causal)
+            torch.autograd.grad(out, (ql, kl, vl), dot)
+
+        fb = gpu_time_ms(torch, ours_fwd_bwd, n=3, repeats=5)
+        lib_fb = gpu_time_ms(torch, lib_fwd_bwd, n=3, repeats=5)
+        del ql, kl, vl, lo, dot
+        bwd.append({"shape": shape, "dtype": dname, "checks": cs,
+                    "max_abs_err": worst["max_abs_err"],
+                    "tolerance": worst["tolerance"],
+                    "err_over_tol": worst["err_over_tol"],
+                    "repeats_bitwise": True,
+                    "ms": ms, "plain_ms": plain, "library_ms": lib,
+                    "library_call": "autograd backward of "
+                                    "F.scaled_dot_product_attention",
+                    "fwd_bwd_ms": fb, "library_fwd_bwd_ms": lib_fb,
+                    "bound_ms": b_ms, "bound_by": b_by})
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    return fwd, bwd
+
+
 KERNELS = [
-    # name, module, source, replaces (file:line of the TPU kernel)
-    ("rms_norm", "rms_norm", "paddle_tpu_torch/csrc/rms_norm.cu",
+    # name, source, replaces (file:line of the TPU kernel)
+    ("rms_norm", "paddle_tpu_torch/csrc/rms_norm.cu",
      "paddle_tpu/kernels/rms_norm.py:45"),
-    ("rope", "rope", "paddle_tpu_torch/csrc/rope.cu",
+    ("rope", "paddle_tpu_torch/csrc/rope.cu",
      "paddle_tpu/kernels/rope.py:60"),
-    ("paged_attention", "paged_attention",
-     "paddle_tpu_torch/csrc/paged_attention.cu",
+    ("paged_attention", "paddle_tpu_torch/csrc/paged_attention.cu",
      "paddle_tpu/kernels/paged_attention.py:341"),
+    ("rms_norm_bwd", "paddle_tpu_torch/csrc/rms_norm.cu",
+     "paddle_tpu/kernels/rms_norm.py:93"),
+    ("rope_bwd", "paddle_tpu_torch/csrc/rope.cu",
+     "paddle_tpu/kernels/rope.py:88"),
+    ("flash_attention_fwd", "paddle_tpu_torch/csrc/flash_attention.cu",
+     "jax/experimental/pallas/ops/tpu/flash_attention.py:758 "
+     "(via paddle_tpu/kernels/flash_attention.py:260)"),
+    ("flash_attention_bwd", "paddle_tpu_torch/csrc/flash_attention.cu",
+     "jax/experimental/pallas/ops/tpu/flash_attention.py:1121 and :1456 "
+     "(via paddle_tpu/kernels/flash_attention.py:260)"),
 ]
+# the kernels each main-path phase must launch
+SERVING_KERNELS = ("rms_norm", "rope", "paged_attention")
+# launches per training step, from the model's structure: two RMSNorms
+# per layer and the final one; one rope launch (q and k) per layer; one
+# flash attention per layer; forward and backward each
+TRAIN_PER_STEP = {
+    "rms_norm": 2 * TRAIN_LAYERS + 1, "rms_norm_bwd": 2 * TRAIN_LAYERS + 1,
+    "rope": TRAIN_LAYERS, "rope_bwd": TRAIN_LAYERS,
+    "flash_attention_fwd": TRAIN_LAYERS, "flash_attention_bwd": TRAIN_LAYERS,
+    "paged_attention": 0,
+}
 
 
 # ------------------------------------------------------- small parity
@@ -281,6 +581,151 @@ def small_parity(torch, np, dev):
             fail("small parity: pages leaked")
     log("small parity: tiny fp32 Llama (MHA and GQA kvH=2), paged engine "
         "== generate token for token")
+
+
+# -------------------------------------------------- tiny train parity
+def _tiny_step(torch, np, cfg, dev, weights, ids):
+    from paddle_tpu_torch.convert import load_numpy_state, numpy_state
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.models import LlamaForCausalLM, causal_lm_loss
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+
+    net = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=0)
+    load_numpy_state(net, weights)
+    opt = AdamW(1e-3, epsilon=1e-3, parameters=net.named_parameters(),
+                weight_decay=0.01, grad_clip=ClipGradByGlobalNorm(1.0))
+    step = CompiledTrainStep(
+        net, lambda lo, lb: causal_lm_loss(lo, lb).mean(), opt)
+    t = torch.as_tensor(ids, dtype=torch.long, device=dev)
+    loss, _ = step([t[:, :-1]], [t[:, 1:]])
+    return float(loss), numpy_state(net)
+
+
+def tiny_train_parity(torch, np, dev):
+    """One fp32 CompiledTrainStep of a 2-layer GQA Llama (head_dim 64,
+    100 tokens: a ragged second 64-row block) on the card and on the CPU
+    from the same weights."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.convert import numpy_state
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.tiny(vocab_size=256, hidden_size=256,
+                           intermediate_size=512, num_hidden_layers=2,
+                           num_attention_heads=4, num_key_value_heads=2,
+                           max_position_embeddings=128)
+    weights = numpy_state(LlamaForCausalLM(cfg, device="cpu", seed=11))
+    ids = np.random.RandomState(12).randint(0, 256, (2, 101))
+    kernels.reset_launch_counts()
+    loss_gpu, after_gpu = _tiny_step(torch, np, cfg, dev, weights, ids)
+    counts = kernels.launch_counts()
+    loss_cpu, after_cpu = _tiny_step(torch, np, cfg, "cpu", weights, ids)
+    loss_again, after_again = _tiny_step(torch, np, cfg, dev, weights, ids)
+    missing = [k for k, n in counts.items()
+               if n <= 0 and k != "paged_attention"]
+    if missing:
+        fail(f"tiny train parity: kernels not launched on the card: "
+             f"{missing}")
+    if not abs(loss_gpu - loss_cpu) <= TINY_LOSS_RTOL * abs(loss_cpu):
+        fail(f"tiny train parity: loss {loss_gpu} on the card, {loss_cpu} "
+             f"on the CPU")
+    worst, worst_name = 0.0, ""
+    for k, want in after_cpu.items():
+        err = float(np.abs(after_gpu[k] - want).max())
+        if err > worst:
+            worst, worst_name = err, k
+    if not worst <= TINY_PARAM_ATOL:
+        fail(f"tiny train parity: {worst_name} differs by {worst} after "
+             f"the step (> {TINY_PARAM_ATOL})")
+    repeats = loss_again == loss_gpu and all(
+        np.array_equal(after_again[k], v) for k, v in after_gpu.items())
+    log("tiny train parity: " + json.dumps({
+        "loss_card": loss_gpu, "loss_cpu": loss_cpu,
+        "max_param_diff": worst, "param": worst_name,
+        "tolerance": {"loss_rtol": TINY_LOSS_RTOL,
+                      "param_atol": TINY_PARAM_ATOL},
+        "card_step_repeats_bitwise": repeats, "launches": counts}))
+
+
+# ----------------------------------------------------------- training
+def training_phase(torch, np, dev, card, profile_train_steps=0):
+    """10 AdamW steps, AMP O1 bf16, of Llama-2-7B widths at 8 layers on
+    one fixed batch; returns the launch counts of the 10 steps. With
+    ``profile_train_steps`` that many more steps run under the profiler
+    after the counts are read."""
+    import gc
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         causal_lm_loss)
+    from paddle_tpu_torch.optimizer import (AdamW, ClipGradByGlobalNorm,
+                                            LinearWarmup)
+
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    net = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=0)
+    torch.cuda.synchronize()
+    n_params = net.num_params()
+    log(f"training: Llama-2-7B widths, {TRAIN_LAYERS} of 32 layers, "
+        f"{n_params / 1e9:.3f}B params fp32, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    sched = LinearWarmup(3e-4, 3, 3e-5, 3e-4)
+    opt = AdamW(sched, parameters=net.named_parameters(), weight_decay=0.01,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    step = CompiledTrainStep(
+        net, lambda lo, lb: causal_lm_loss(lo, lb).mean(), opt,
+        amp_level="O1", amp_dtype="bfloat16")
+    ids = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))
+    ids = torch.as_tensor(ids, dtype=torch.long, device=dev)
+    inputs, labels = ids[:, :-1].contiguous(), ids[:, 1:].contiguous()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss, _ = step([inputs], [labels])
+        sched.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)):
+        fail(f"training: non-finite loss in {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"training: the last loss {losses[-1]} is not below the first "
+             f"{losses[0]} on a fixed batch")
+    want = {k: n * TRAIN_STEPS for k, n in TRAIN_PER_STEP.items()}
+    if counts != want:
+        fail(f"training: launches {counts}, expected {want} "
+             f"({TRAIN_STEPS} steps)")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    p50 = statistics.median(times)
+    flops = net.flops_per_token(TRAIN_SEQ) * tokens
+    res = {
+        "card": card,
+        "model": f"Llama-2-7B widths, {TRAIN_LAYERS} layers, fp32 params, "
+                 f"AMP O1 bf16, random weights",
+        "params": n_params, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+        "steps": TRAIN_STEPS, "losses": losses, "step_s": times,
+        "step_p50_s": p50, "tokens_per_s": tokens / p50,
+        "model_tflop_per_step": flops / 1e12,
+        "model_tflop_per_s": flops / p50 / 1e12,
+        "peak_mem_bytes": peak,
+        "launches": counts,
+        "launches_per_step": {k: n / TRAIN_STEPS for k, n in counts.items()},
+    }
+    log("training: " + json.dumps(res))
+    if profile_train_steps:
+        prof = profile_steps(torch, lambda: step([inputs], [labels]),
+                             profile_train_steps)
+        log("profile: " + json.dumps(dict(prof, kind="train")))
+    del step, opt, net, sched, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 # ------------------------------------------------------------ serving
@@ -326,7 +771,7 @@ def serving_phase(torch, np, dev, card, profile_steps=0):
                  f"{len(h.tokens)} tokens")
     if eng.page_pool.pages_in_use:
         fail(f"{eng.page_pool.pages_in_use} pages leaked")
-    missing = [k for k, n in counts.items() if n <= 0]
+    missing = [k for k in SERVING_KERNELS if counts[k] <= 0]
     if missing:
         fail(f"kernels not launched in the serving phase: {missing}")
     late = [h.admitted_step for h in handles[6:]]
@@ -387,24 +832,19 @@ def serving_phase(torch, np, dev, card, profile_steps=0):
     return counts
 
 
-def profile_decode(torch, np, eng, cfg, steps):
-    """Device time by kernel over ``steps`` decode steps with all 8 rows
-    busy (torch.profiler), and the device's idle share of that window
-    (1 - summed kernel time / wall time; the profiler's own overhead
-    makes the wall time an upper bound)."""
+def profile_steps(torch, step_fn, steps):
+    """Device time by kernel group over ``steps`` calls of ``step_fn``
+    (torch.profiler), and the device's idle share of that window (1 -
+    summed kernel time / wall time; the profiler's own overhead makes
+    the wall time an upper bound)."""
     from torch.profiler import ProfilerActivity, profile
 
-    rng = np.random.RandomState(99)
-    hs = [eng.submit(rng.randint(0, cfg.vocab_size, (int(n),)), 64)
-          for n in rng.randint(32, 1025, size=8)]
-    while any(h.status == "QUEUED" for h in hs):
-        eng.step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            eng.step()
+            step_fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups = {}
@@ -422,8 +862,12 @@ def profile_decode(torch, np, eng, cfg, steps):
         name = e.key
         low = name.lower()
         group = ("paged_attention" if "paged_attention_kernel" in low
+                 else "flash_attention_fwd" if "flash_fwd_kernel" in low
+                 else "flash_attention_bwd" if "flash_bwd_" in low
                  else "rms_norm" if "rms_norm_fwd_kernel" in low
-                 else "rope" if "rope_fwd_kernel" in low
+                 else "rms_norm_bwd" if ("rms_norm_bwd_kernel" in low
+                                         or "rms_norm_dw_kernel" in low)
+                 else "rope" if "rope_kernel" in low
                  else "gemm" if any(s in low for s in (
                      "gemm", "nvjet", "xmma", "cutlass", "gemv", "splitk"))
                  else "other")
@@ -431,14 +875,25 @@ def profile_decode(torch, np, eng, cfg, steps):
         kernels.append((dev_us / 1e3, e.count, name[:90]))
     busy = sum(groups.values())
     kernels.sort(reverse=True)
-    log("profile: " + json.dumps({
-        "decode_steps": steps, "rows": 8, "wall_ms": wall_ms,
+    return {
+        "steps": steps, "wall_ms": wall_ms,
         "device_busy_ms": busy, "idle_share": 1.0 - busy / wall_ms,
         "ms_per_step_by_group": {k: v / steps for k, v in
                                  sorted(groups.items())},
         "top_kernels": [{"ms": ms, "count": c, "name": n}
                         for ms, c, n in kernels[:12]],
-    }))
+    }
+
+
+def profile_decode(torch, np, eng, cfg, steps):
+    """The decode-step profile with all 8 rows busy."""
+    rng = np.random.RandomState(99)
+    hs = [eng.submit(rng.randint(0, cfg.vocab_size, (int(n),)), 64)
+          for n in rng.randint(32, 1025, size=8)]
+    while any(h.status == "QUEUED" for h in hs):
+        eng.step()
+    prof = profile_steps(torch, eng.step, steps)
+    log("profile: " + json.dumps(dict(prof, rows=8, kind="decode")))
     eng.run_until_idle()
     if eng.page_pool.pages_in_use:
         fail("pages leaked after the profiled steps")
@@ -449,6 +904,9 @@ def main():
     ap.add_argument("--profile-steps", type=int, default=0,
                     help="after the serving phase, profile this many "
                          "decode steps with every row busy")
+    ap.add_argument("--profile-train-steps", type=int, default=0,
+                    help="after the training phase, profile this many "
+                         "more training steps")
     args = ap.parse_args()
 
     import numpy as np
@@ -486,21 +944,37 @@ def main():
     log(f"build: {_build.build_seconds:.1f} s, {_build.LIB_PATH}")
 
     results = {}
-    for name, cases_fn in (("rms_norm", rms_norm_cases),
-                           ("rope", rope_cases),
-                           ("paged_attention", paged_cases)):
-        mod = getattr(kernels, name)
-        cases = cases_fn(torch, mod, dev)
+    for name, modname, cases_fn in (
+            ("rms_norm", "rms_norm", rms_norm_cases),
+            ("rope", "rope", rope_cases),
+            ("paged_attention", "paged_attention", paged_cases),
+            ("rms_norm_bwd", "rms_norm", rms_norm_bwd_cases),
+            ("rope_bwd", "rope", rope_bwd_cases),
+            ("flash_attention", "flash_attention", flash_cases)):
+        cases = cases_fn(torch, getattr(kernels, modname), dev)
         torch.cuda.synchronize()
-        for c in cases:
-            log(f"kernel {name}: " + json.dumps(c))
-            if not c["max_abs_err"] <= c["tolerance"]:
-                fail(f"{name} {c['dtype']} {c['shape']}: max_abs_err "
-                     f"{c['max_abs_err']} > tolerance {c['tolerance']}")
-        results[name] = cases
+        named = (dict(zip(("flash_attention_fwd", "flash_attention_bwd"),
+                          cases)) if name == "flash_attention"
+                 else {name: cases})
+        for kname, kcases in named.items():
+            for c in kcases:
+                log(f"kernel {kname}: " + json.dumps(c))
+                for chk in c.get("checks", [c]):
+                    if not (chk["max_abs_err"] <= chk["tolerance"]
+                            and chk.get("err_over_tol", 0.0) <= 1.0):
+                        fail(f"{kname} {c['dtype']} {c['shape']} "
+                             f"{chk.get('output', '')}: max_abs_err "
+                             f"{chk['max_abs_err']}, tolerance "
+                             f"{chk['tolerance']}, largest error over "
+                             f"its entry's tolerance "
+                             f"{chk.get('err_over_tol')}")
+            results[kname] = kcases
 
     small_parity(torch, np, dev)
-    counts = serving_phase(torch, np, dev, card, args.profile_steps)
+    tiny_train_parity(torch, np, dev)
+    train_counts = training_phase(torch, np, dev, card,
+                                  args.profile_train_steps)
+    serve_counts = serving_phase(torch, np, dev, card, args.profile_steps)
 
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "paddle_tpu."))
@@ -509,13 +983,20 @@ def main():
         fail(f"the port imported {leaked[:5]}")
 
     line = []
-    for name, modname, src, replaces in KERNELS:
-        main_case = results[name][0]  # bf16 at the decode shape
+    for name, src, replaces in KERNELS:
+        # the first case is the main path's shape: bf16 at the decode
+        # shape for the serving kernels, the training shape for the rest
+        # (fp32 [4096, 4096] for the RMSNorm backward, the O1 residual)
+        main_case = results[name][0]
         line.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": counts[modname],
+            "replaces": replaces,
+            "launches": serve_counts[name] + train_counts[name],
+            "launches_by_phase": {"serving": serve_counts[name],
+                                  "training": train_counts[name]},
             "max_abs_err": main_case["max_abs_err"],
             "tolerance": main_case["tolerance"],
+            "err_over_tol": main_case.get("err_over_tol"),
             "ms": main_case["ms"], "kernel_ms": main_case["ms"],
             "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],

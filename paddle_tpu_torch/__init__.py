@@ -1,11 +1,13 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu for NVIDIA Hopper.
 
 This package stands beside ``paddle_tpu`` (the JAX reference, which it
-never imports) and mirrors its module paths. This slice serves the
+never imports) and mirrors its module paths. It serves and trains the
 Llama family: the model (``models.llama``), KV-cache generation
-(``models.generation``), and the slab and paged continuous-batching
-engines (``serving``), with hand-written Hopper kernels for RMSNorm,
-rope and paged decode attention (``kernels``, sources in ``csrc/``).
+(``models.generation``), the slab and paged continuous-batching engines
+(``serving``), and the train step (``jit.CompiledTrainStep`` with
+``optimizer`` and ``amp``), with hand-written Hopper kernels for RMSNorm
+and rope (forward and backward), paged decode attention and flash
+attention (forward and backward) (``kernels``, sources in ``csrc/``).
 
 Entry points run on the first CUDA card unless the caller passes
 ``device="cpu"``; without a card and without a device they raise.

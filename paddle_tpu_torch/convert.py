@@ -11,13 +11,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import resolve_device
 
-def state_dict_from_numpy(arrays, config=None, device="cpu",
+
+def state_dict_from_numpy(arrays, config=None, device=None,
                           dtype=torch.float32):
-    """``{name: np.ndarray}`` -> ``{name: torch.Tensor}`` on ``device``;
-    floating arrays become ``dtype``. ``config`` is accepted for the
+    """``{name: np.ndarray}`` -> ``{name: torch.Tensor}`` on ``device``
+    (None: the first CUDA card, or a raise without one); floating arrays
+    become ``dtype``. ``config`` is accepted for the
     caller's symmetry with the model constructor and not needed: the
     names carry over unchanged."""
+    device = resolve_device(device)
     out = {}
     for name, arr in arrays.items():
         a = np.asarray(arr)
@@ -49,3 +53,10 @@ def load_numpy_state(net, arrays):
         for k, p in own.items():
             p.copy_(sd[k])
     return net
+
+
+def numpy_state(net):
+    """The inverse of :func:`load_numpy_state`: ``{name: np.ndarray}`` of
+    every parameter, as fp32 host arrays (numpy has no bfloat16)."""
+    return {k: p.detach().float().cpu().numpy()
+            for k, p in net.named_parameters()}

@@ -1,9 +1,13 @@
 // Rotary position embedding (neox half-split) for Hopper (sm_90a).
 //
 // Replaces: paddle_tpu/kernels/rope.py rope_fused -> _rope_apply
-// (pl.pallas_call at :60, body _rope_kernel at :21), forward.
+// (pl.pallas_call at :60, body _rope_kernel at :21), forward, and its
+// backward _rope_bwd (:85-88: the same kernel over the incoming gradient
+// with -sin, the inverse rotation).
 //   o1 = x1 * cos - x2 * sin,  o2 = x2 * cos + x1 * sin   (fp32)
-// with x1 = x[..., :D/2], x2 = x[..., D/2:], cast back to x's type.
+// with x1 = x[..., :D/2], x2 = x[..., D/2:], cast back to x's type. The
+// backward entry point (ptt_rope_bwd) is the same kernel instantiated
+// with the sign of sin flipped in registers: no negated table is built.
 //
 // What bounds it on the H100: bytes (6 flops per 2 elements in and out).
 // At decode ([8, 1, 32, 128]) the launch dominates.
@@ -23,8 +27,8 @@
 
 namespace {
 
-template <typename T>
-__global__ void rope_fwd_kernel(const T* __restrict__ q, T* __restrict__ q_out,
+template <typename T, bool kInverse>
+__global__ void rope_kernel(const T* __restrict__ q, T* __restrict__ q_out,
                                 int heads_q, const T* __restrict__ k,
                                 T* __restrict__ k_out, int heads_k,
                                 const float* __restrict__ cos_tab,
@@ -71,6 +75,10 @@ __global__ void rope_fwd_kernel(const T* __restrict__ q, T* __restrict__ q_out,
         ((size_t)(tab_batch == 1 ? 0 : b) * tab_rows + row) * half + j0;
     ptt::load_floats<float, V>(cos_tab + tab, c);
     ptt::load_floats<float, V>(sin_tab + tab, sn);
+    if constexpr (kInverse) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) sn[j] = -sn[j];
+    }
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       o1[j] = __fsub_rn(__fmul_rn(x1[j], c[j]), __fmul_rn(x2[j], sn[j]));
@@ -81,7 +89,7 @@ __global__ void rope_fwd_kernel(const T* __restrict__ q, T* __restrict__ q_out,
   ptt::store_floats<T, V>(dst + half + j0, o2);
 }
 
-template <typename T>
+template <typename T, bool kInverse>
 cudaError_t launch(const void* q, void* q_out, int heads_q, const void* k,
                    void* k_out, int heads_k, const void* cos_tab,
                    const void* sin_tab, const void* pos_ids, int batch,
@@ -93,13 +101,31 @@ cudaError_t launch(const void* q, void* q_out, int heads_q, const void* k,
   if (total == 0) return cudaSuccess;
   const int threads = 256;
   const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  rope_fwd_kernel<T><<<blocks, threads, 0, stream>>>(
+  rope_kernel<T, kInverse><<<blocks, threads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<T*>(q_out), heads_q,
       static_cast<const T*>(k), static_cast<T*>(k_out), heads_k,
       static_cast<const float*>(cos_tab), static_cast<const float*>(sin_tab),
       static_cast<const int*>(pos_ids), batch, seq, head_dim, tab_batch,
       tab_rows);
   return cudaGetLastError();
+}
+
+template <bool kInverse>
+int dispatch(const void* q, void* q_out, int heads_q, const void* k,
+             void* k_out, int heads_k, const void* cos_tab,
+             const void* sin_tab, const void* pos_ids, int batch, int seq,
+             int head_dim, int tab_batch, int tab_rows, int dtype,
+             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == ptt::kF32)
+    return launch<float, kInverse>(q, q_out, heads_q, k, k_out, heads_k,
+                                   cos_tab, sin_tab, pos_ids, batch, seq,
+                                   head_dim, tab_batch, tab_rows, s);
+  if (dtype == ptt::kBF16)
+    return launch<__nv_bfloat16, kInverse>(
+        q, q_out, heads_q, k, k_out, heads_k, cos_tab, sin_tab, pos_ids,
+        batch, seq, head_dim, tab_batch, tab_rows, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -115,14 +141,20 @@ extern "C" int ptt_rope_fwd(const void* q, void* q_out, int heads_q,
                             const void* pos_ids, int batch, int seq,
                             int head_dim, int tab_batch, int tab_rows,
                             int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == ptt::kF32)
-    return launch<float>(q, q_out, heads_q, k, k_out, heads_k, cos_tab,
+  return dispatch<false>(q, q_out, heads_q, k, k_out, heads_k, cos_tab,
                          sin_tab, pos_ids, batch, seq, head_dim, tab_batch,
-                         tab_rows, s);
-  if (dtype == ptt::kBF16)
-    return launch<__nv_bfloat16>(q, q_out, heads_q, k, k_out, heads_k,
-                                 cos_tab, sin_tab, pos_ids, batch, seq,
-                                 head_dim, tab_batch, tab_rows, s);
-  return cudaErrorInvalidValue;
+                         tab_rows, dtype, stream);
+}
+
+// The backward: the incoming gradients of q and k (same layout as above)
+// rotated by -theta.
+extern "C" int ptt_rope_bwd(const void* dq, void* dq_out, int heads_q,
+                            const void* dk, void* dk_out, int heads_k,
+                            const void* cos_tab, const void* sin_tab,
+                            const void* pos_ids, int batch, int seq,
+                            int head_dim, int tab_batch, int tab_rows,
+                            int dtype, void* stream) {
+  return dispatch<true>(dq, dq_out, heads_q, dk, dk_out, heads_k, cos_tab,
+                        sin_tab, pos_ids, batch, seq, head_dim, tab_batch,
+                        tab_rows, dtype, stream);
 }

@@ -38,21 +38,35 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", *ARCH_FLAGS]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 # name -> argtypes of every C entry point in csrc/ (restype is int: the
 # cudaError_t of the launch). Without argtypes ctypes would pass Python
 # ints as 32-bit C ints and cut the pointers.
 SIGNATURES = {
-    # x, w, y, rows, hidden, dtype, eps, stream
-    "ptt_rms_norm_fwd": [_P, _P, _P, _I, _I, _I, _F, _P],
+    # x, w, y, rstd (or null), rows, hidden, dtype, eps, stream
+    "ptt_rms_norm_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # x, w, g, rstd, dx, dw, partials, rows, hidden, ctas, dtype, stream
+    "ptt_rms_norm_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # q, q_out, heads_q, k, k_out, heads_k, cos, sin, pos_ids,
     # batch, seq, head_dim, tab_batch, tab_rows, dtype, stream
     "ptt_rope_fwd": [_P, _P, _I, _P, _P, _I, _P, _P, _P,
+                     _I, _I, _I, _I, _I, _I, _P],
+    # the same with the gradients of q and k in and out
+    "ptt_rope_bwd": [_P, _P, _I, _P, _P, _I, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _P],
     # q, k_pages, v_pages, table, pos, out, batch, heads, kv_heads,
     # head_dim, page_size, table_width, q_dtype, kv_dtype, scale, stream
     "ptt_paged_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _F, _P],
+    # q, k, v, o, lse, batch, heads, sq, sk, head_dim, (batch, seq, head)
+    # strides of q, k, v, causal, scale, dtype, stream
+    "ptt_flash_attention_fwd": [_P] * 5 + [_I] * 5 + [_L] * 9
+    + [_I, _F, _I, _P],
+    # q, k, v, o, dout, lse, delta, dq, dk, dv, batch, heads, sq, sk,
+    # head_dim, strides of q, k, v, o, dout, causal, scale, dtype, stream
+    "ptt_flash_attention_bwd": [_P] * 10 + [_I] * 5 + [_L] * 15
+    + [_I, _F, _I, _P],
 }
 
 # dtype codes shared with csrc/common.cuh

@@ -1,0 +1,247 @@
+"""Flash attention, forward and backward: the hand-written Hopper kernels
+and their plain versions.
+
+Counterpart of ``paddle_tpu/kernels/flash_attention.py``
+(``flash_attention_fwd``), which on a TPU runs jax's stock Pallas flash
+attention (``_pallas_fa``): one forward and two backward kernels (dK/dV
+and dQ). The CUDA source is ``paddle_tpu_torch/csrc/flash_attention.cu``;
+its header says what bounds it on the H100 and how the design answers
+that.
+
+Shape contract (the paddle layout, as in the TPU module): q ``[B, Sq, H,
+D]``, k and v ``[B, Sk, H, D]`` with equal head counts, read through
+their strides (the last axis contiguous). Causal masking is aligned
+bottom-right, ``tril(k = Sk - Sq)``, as the JAX package's composed path
+(``_composed``) and the port's composed attention do; on ``Sq == Sk`` it
+equals the stock kernel's top-left mask. A causal call needs ``Sk >=
+Sq`` (every row then sees at least one key). The forward returns ``O``
+in the inputs' dtype and the fp32 log-sum-exp ``LSE`` ``[B, H, Sq]``.
+
+:func:`flash_attention` is a ``torch.autograd.Function``: CPU tensors
+run :func:`flash_attention_reference` and
+:func:`flash_attention_backward_reference` (plain PyTorch in the
+kernel's math: fp32 scores, P from LSE, no rounding of P before the
+value product), CUDA tensors launch the kernels or raise. The TPU
+module's size policy (``_select``'s v5e thresholds) is not ported: a
+CUDA tensor always runs the kernel.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build
+
+# kernel launches made by this process: forward, and backward (one per
+# backward call: its Delta, dK/dV and dQ passes)
+launches = 0
+bwd_launches = 0
+
+HEAD_DIMS = (64, 128)
+
+
+def _scale_of(q, scale):
+    if scale is None:
+        return 1.0 / math.sqrt(int(q.shape[-1]))
+    return float(scale)
+
+
+def _check_shapes(q, k, v, causal):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash attention takes [B, S, H, D] q, k and v")
+    b, sq, h, d = (int(s) for s in q.shape)
+    if tuple(k.shape) != tuple(v.shape) or k.shape[0] != b \
+            or k.shape[2] != h or k.shape[3] != d:
+        raise ValueError(
+            f"flash attention needs k and v of shape [{b}, Sk, {h}, {d}] "
+            f"(repeat kv heads first), got {tuple(k.shape)} and "
+            f"{tuple(v.shape)}"
+        )
+    sk = int(k.shape[1])
+    if sk == 0:
+        raise ValueError("flash attention needs at least one key")
+    if causal and sk < sq:
+        raise ValueError(
+            f"causal flash attention is aligned bottom-right and needs "
+            f"Sk >= Sq (a row must see a key), got Sq={sq}, Sk={sk}"
+        )
+    return b, sq, sk, h, d
+
+
+def _scores(q, k, causal, scale):
+    """fp32 scores ``[B, H, Sq, Sk]`` with the causal mask applied."""
+    s = torch.matmul(q.float().transpose(1, 2),
+                     k.float().permute(0, 2, 3, 1)) * scale
+    if causal:
+        sq, sk = int(s.shape[-2]), int(s.shape[-1])
+        keep = torch.ones((sq, sk), dtype=torch.bool,
+                          device=s.device).tril(sk - sq)
+        s = s.masked_fill(~keep, float("-inf"))
+    return s
+
+
+def flash_attention_reference(q, k, v, causal=False, scale=None):
+    """Plain PyTorch version of the forward: ``(O, LSE)``."""
+    _check_shapes(q, k, v, causal)
+    scale = _scale_of(q, scale)
+    s = _scores(q, k, causal, scale)
+    lse = torch.logsumexp(s, dim=-1)                        # [B, H, Sq]
+    p = torch.exp(s - lse[..., None])
+    o = torch.matmul(p, v.float().transpose(1, 2))          # [B, H, Sq, D]
+    return o.transpose(1, 2).to(q.dtype), lse
+
+
+def flash_attention_backward_reference(q, k, v, o, lse, do, causal=False,
+                                       scale=None):
+    """Plain PyTorch version of the backward: ``(dq, dk, dv)`` in the
+    inputs' dtypes. ``Delta = rowsum(dO * O)`` with O as the forward
+    stored it; ``P = exp(S - LSE)``; ``dS = P * (dO V^T - Delta)``."""
+    _check_shapes(q, k, v, causal)
+    scale = _scale_of(q, scale)
+    s = _scores(q, k, causal, scale)
+    p = torch.exp(s - lse[..., None])                       # [B, H, Sq, Sk]
+    g = do.float().transpose(1, 2)                          # [B, H, Sq, D]
+    delta = (g * o.float().transpose(1, 2)).sum(dim=-1)     # [B, H, Sq]
+    dv = torch.matmul(p.transpose(-1, -2), g)               # [B, H, Sk, D]
+    dp = torch.matmul(g, v.float().permute(0, 2, 3, 1))     # [B, H, Sq, Sk]
+    ds = p * (dp - delta[..., None])
+    dq = torch.matmul(ds, k.float().transpose(1, 2)) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.float().transpose(1, 2)) \
+        * scale
+    return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        if q.device.type == "cpu":
+            o, lse = flash_attention_reference(q, k, v, causal, scale)
+        else:
+            o, lse = flash_attention_cuda(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_attention_backward_reference(
+                q, k, v, o, lse, do, ctx.causal, ctx.scale)
+        else:
+            dq, dk, dv = flash_attention_backward_cuda(
+                q, k, v, o, lse, do, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, causal=False, scale=None, return_lse=False):
+    """Attention over ``[B, S, H, D]`` q, k, v; differentiable in all
+    three. Returns O, or ``(O, LSE)`` with ``return_lse``."""
+    o, lse = _FlashAttention.apply(q, k, v, bool(causal),
+                                   _scale_of(q, scale))
+    return (o, lse) if return_lse else o
+
+
+# ------------------------------------------------------------------ kernels
+def _strides(t, name, vec):
+    if t.stride(-1) != 1:
+        raise ValueError(f"flash attention: {name}'s last axis must be "
+                         f"contiguous, got strides {tuple(t.stride())}")
+    st = [int(x) for x in t.stride()[:3]]
+    if any(x % vec for x in st) or t.data_ptr() % 16:
+        raise ValueError(
+            f"flash attention reads {name} in 16-byte vectors: its "
+            f"strides {tuple(st)} must be multiples of {vec} and its data "
+            f"16-byte aligned"
+        )
+    return st
+
+
+def _check_cuda(tensors, dtype):
+    dev = tensors[0][1].device
+    if dev.type != "cuda":
+        raise ValueError(f"flash attention kernel needs CUDA tensors, got "
+                         f"{dev}")
+    for name, t in tensors:
+        if t.device != dev:
+            raise ValueError(f"flash attention: {name} on {t.device}, q on "
+                             f"{dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"flash attention kernel takes one dtype: "
+                            f"{name} is {t.dtype}, q is {dtype}")
+    if dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"flash attention kernel takes float32/bfloat16, "
+                        f"got {dtype}")
+    return dev
+
+
+def flash_attention_cuda(q, k, v, causal=False, scale=None):
+    """Launch the forward of ``csrc/flash_attention.cu``: ``(O, LSE)``."""
+    global launches
+    b, sq, sk, h, d = _check_shapes(q, k, v, causal)
+    dev = _check_cuda((("q", q), ("k", k), ("v", v)), q.dtype)
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash attention kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got {d}")
+    vec = 16 // q.element_size()
+    st = [_strides(t, n, vec) for n, t in (("q", q), ("k", k), ("v", v))]
+    lib = _build.load()
+    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.ptt_flash_attention_fwd(
+            _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),
+            _build.ptr(lse), b, h, sq, sk, d, *st[0], *st[1], *st[2],
+            int(bool(causal)), _scale_of(q, scale),
+            _build.DTYPE_CODES[q.dtype], _build.stream_of(q),
+        )
+    _build.check(err, "ptt_flash_attention_fwd")
+    launches += 1
+    return o, lse
+
+
+def flash_attention_backward_cuda(q, k, v, o, lse, do, causal=False,
+                                  scale=None):
+    """Launch the backward of ``csrc/flash_attention.cu`` (Delta, dK/dV
+    and dQ passes): ``(dq, dk, dv)``."""
+    global bwd_launches
+    b, sq, sk, h, d = _check_shapes(q, k, v, causal)
+    do = do.to(q.dtype)
+    vec = 16 // q.element_size()
+    if do.stride(-1) != 1 or any(int(x) % vec for x in do.stride()[:3]):
+        # e.g. the expanded gradient of a sum: the kernel reads vectors
+        do = do.contiguous()
+    dev = _check_cuda((("q", q), ("k", k), ("v", v), ("o", o),
+                       ("dout", do)), q.dtype)
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash attention kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got {d}")
+    if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
+        raise ValueError("flash attention backward: o and dout must have "
+                         "q's shape")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, sq) \
+            or not lse.is_contiguous() or lse.device != dev:
+        raise ValueError(f"flash attention backward: lse must be the "
+                         f"forward's contiguous fp32 [{b}, {h}, {sq}]")
+    st = [_strides(t, n, vec) for n, t in
+          (("q", q), ("k", k), ("v", v), ("o", o), ("dout", do))]
+    lib = _build.load()
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
+    dk = torch.empty((b, sk, h, d), dtype=q.dtype, device=dev)
+    dv = torch.empty((b, sk, h, d), dtype=q.dtype, device=dev)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.ptt_flash_attention_bwd(
+            _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),
+            _build.ptr(do), _build.ptr(lse), _build.ptr(delta),
+            _build.ptr(dq), _build.ptr(dk), _build.ptr(dv), b, h, sq, sk, d,
+            *st[0], *st[1], *st[2], *st[3], *st[4], int(bool(causal)),
+            _scale_of(q, scale), _build.DTYPE_CODES[q.dtype],
+            _build.stream_of(q),
+        )
+    _build.check(err, "ptt_flash_attention_bwd")
+    bwd_launches += 1
+    return dq, dk, dv

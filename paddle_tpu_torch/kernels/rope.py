@@ -1,17 +1,20 @@
 """Rotary position embedding (neox half-split): the hand-written Hopper
 kernel, its plain version, and the rope tables.
 
-Counterpart of ``paddle_tpu/kernels/rope.py`` (``rope_fused``; the TPU
-kernel is ``_rope_kernel``, launched from ``_rope_apply``) and of
-``build_rope_cache``. The CUDA source is ``paddle_tpu_torch/csrc/rope.cu``.
-It rotates q and k in one launch, and takes position ids itself: with
-``position_ids`` the table rows are looked up in the kernel instead of
-being gathered first (the same function with one tensor fewer). The
-backward pass (the same rotation with -sin) ports with training.
+Counterpart of ``paddle_tpu/kernels/rope.py`` (``rope_fused``, a
+``jax.custom_vjp``; the TPU kernel is ``_rope_kernel``, launched from
+``_rope_apply``, and the backward ``_rope_bwd`` is the same kernel with
+-sin) and of ``build_rope_cache``. The CUDA source is
+``paddle_tpu_torch/csrc/rope.cu``. It rotates q and k in one launch, and
+takes position ids itself: with ``position_ids`` the table rows are
+looked up in the kernel instead of being gathered first (the same
+function with one tensor fewer). Its backward entry point flips the sign
+of sin in registers, so no negated table is ever built.
 
-:func:`rope_fused` routes on the device: CPU tensors go to
-:func:`rope_reference`, CUDA tensors to the kernel, which launches or
-raises.
+:func:`rope_fused` is a ``torch.autograd.Function`` that routes on the
+device in both directions: CPU tensors go to :func:`rope_reference` (and
+:func:`rope_backward_reference`), CUDA tensors to the kernel, which
+launches or raises.
 """
 from __future__ import annotations
 
@@ -19,7 +22,9 @@ import torch
 
 from . import _build
 
+# kernel launches made by this process: forward and backward entry points
 launches = 0
+bwd_launches = 0
 
 
 def build_rope_cache(seq_len, head_dim, base=10000.0, dtype=torch.float32,
@@ -58,14 +63,47 @@ def rope_reference(x, cos, sin, position_ids=None):
     return torch.cat([o1, o2], dim=-1).to(x.dtype)
 
 
+def rope_backward_reference(g, cos, sin, position_ids=None):
+    """Plain PyTorch backward: the gradient rotated by -theta
+    (``rope.py:85-88``)."""
+    return rope_reference(g, cos, -sin, position_ids)
+
+
+def _rotate(q, k, cos, sin, position_ids, inverse):
+    if q.device.type == "cpu":
+        fn = rope_backward_reference if inverse else rope_reference
+        return (fn(q, cos, sin, position_ids),
+                None if k is None else fn(k, cos, sin, position_ids))
+    return rope_cuda(q, k, cos, sin, position_ids, inverse=inverse)
+
+
+class _Rope(torch.autograd.Function):
+    """Outputs ``q_out`` alone when k is None, else ``(q_out, k_out)``;
+    the tables and ids take no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, cos, sin, position_ids):
+        q_out, k_out = _rotate(q, k, cos, sin, position_ids, inverse=False)
+        ctx.save_for_backward(cos, sin, position_ids)
+        ctx.has_k = k is not None
+        return q_out if k is None else (q_out, k_out)
+
+    @staticmethod
+    def backward(ctx, gq, gk=None):
+        # an unused output's gradient arrives as zeros (materialized)
+        cos, sin, position_ids = ctx.saved_tensors
+        dq, dk = _rotate(gq.contiguous(),
+                         gk.contiguous() if ctx.has_k else None,
+                         cos, sin, position_ids, inverse=True)
+        return dq, dk, None, None, None
+
+
 def rope_fused(q, k, cos, sin, position_ids=None):
     """Rotate ``q`` and (when not None) ``k``; returns ``(q_out, k_out)``.
-    Shapes as in :func:`rope_reference`; q and k may differ in heads."""
-    if q.device.type == "cpu":
-        return (rope_reference(q, cos, sin, position_ids),
-                None if k is None else rope_reference(k, cos, sin,
-                                                      position_ids))
-    return rope_cuda(q, k, cos, sin, position_ids)
+    Shapes as in :func:`rope_reference`; q and k may differ in heads.
+    Differentiable in q and k."""
+    out = _Rope.apply(q, k, cos, sin, position_ids)
+    return (out, None) if k is None else out
 
 
 def _check_x(x, name, dtype, b, s, d):
@@ -79,9 +117,10 @@ def _check_x(x, name, dtype, b, s, d):
         raise ValueError(f"rope: {name} must be contiguous, 16-byte aligned")
 
 
-def rope_cuda(q, k, cos, sin, position_ids=None):
-    """Launch ``csrc/rope.cu`` over q (and k) in one go."""
-    global launches
+def rope_cuda(q, k, cos, sin, position_ids=None, inverse=False):
+    """Launch ``csrc/rope.cu`` over q (and k) in one go; with ``inverse``
+    the backward entry point (rotation by -theta)."""
+    global launches, bwd_launches
     dev = q.device
     for t in (k, cos, sin, position_ids):
         if t is not None and t.device != dev:
@@ -90,12 +129,6 @@ def rope_cuda(q, k, cos, sin, position_ids=None):
             )
     if dev.type != "cuda":
         raise ValueError(f"rope kernel needs CUDA tensors, got {dev}")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (q, k)):
-        raise RuntimeError(
-            "rope: the CUDA backward kernel is not ported yet; run "
-            "forward passes under torch.inference_mode()"
-        )
     if q.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"rope kernel takes float32/bfloat16, got {q.dtype}")
     b, s, _, d = (int(v) for v in q.shape)
@@ -138,8 +171,9 @@ def rope_cuda(q, k, cos, sin, position_ids=None):
     q_out = torch.empty_like(q)
     k_out = None if k is None else torch.empty_like(k)
     null = None
+    name = "ptt_rope_bwd" if inverse else "ptt_rope_fwd"
     with torch.cuda.device(dev):
-        err = lib.ptt_rope_fwd(
+        err = getattr(lib, name)(
             _build.ptr(q), _build.ptr(q_out), int(q.shape[2]),
             null if k is None else _build.ptr(k),
             null if k is None else _build.ptr(k_out),
@@ -149,6 +183,9 @@ def rope_cuda(q, k, cos, sin, position_ids=None):
             b, s, d, tab_b, tab_rows, _build.DTYPE_CODES[q.dtype],
             _build.stream_of(q),
         )
-    _build.check(err, "ptt_rope_fwd")
-    launches += 1
+    _build.check(err, name)
+    if inverse:
+        bwd_launches += 1
+    else:
+        launches += 1
     return q_out, k_out

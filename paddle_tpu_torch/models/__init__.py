@@ -7,4 +7,5 @@ from .llama import (  # noqa: F401
     LlamaForCausalLM,
     LlamaMLP,
     LlamaModel,
+    causal_lm_loss,
 )

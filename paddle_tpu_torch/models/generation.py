@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..quantization.kv import INT8_SLICE
 
 DEFAULT_CACHE_DTYPE = "bfloat16"
@@ -89,9 +90,11 @@ def cache_torch_dtype(cache_dtype):
     return _DTYPES[normalize_cache_dtype(cache_dtype)]
 
 
-def alloc_kv_caches(cfg, B, S_max, cache_dtype=None, device="cpu"):
+def alloc_kv_caches(cfg, B, S_max, cache_dtype=None, device=None):
     """Per-layer zeroed KV buffers ``[B, S_max, kvH, D]`` x2 on
-    ``device`` (``generation.py:105``)."""
+    ``device`` (``generation.py:105``; None: the first CUDA card, or a
+    raise without one)."""
+    device = resolve_device(device)
     dtype = cache_torch_dtype(cache_dtype)
     shape = (B, S_max, cfg.kv_heads, cfg.head_dim)
     return [

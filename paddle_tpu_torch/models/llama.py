@@ -11,11 +11,19 @@ JAX model, so a state dict crosses between the packages unchanged
   (``kernels/rope.py``), with per-row position ids looked up inside it;
 - the paged decode step attends through the paged attention kernel
   (``kernels/paged_attention.py``);
-- prefill, the slab decode step and the cache-free forward attend
-  through the composed masked attention (plain PyTorch, the op order of
-  the JAX ``_sdpa_ref``), as the JAX model does whenever a mask is given;
+- the cache-free forward without a mask (training, and the serving
+  checks' reference) attends through the flash attention kernels
+  (``kernels/flash_attention.py``), as the JAX model does on its
+  accelerator;
+- prefill and the slab decode step attend through the composed masked
+  attention (plain PyTorch, the op order of the JAX ``_sdpa_ref``), as
+  the JAX model does whenever a mask is given;
 - the projections and the head are ``torch.matmul``, the plain products
   XLA ran.
+
+The RMSNorm, rope and flash attention kernels have backward kernels
+(``torch.autograd.Function``), so the cache-free forward carries
+gradients; :func:`causal_lm_loss` is the training loss.
 
 Caches are written in place (see ``quantization/kv.py``). The tune-cache
 opt-ins of the JAX model (the fused rope+attention and the fused
@@ -76,6 +84,15 @@ class LlamaConfig:
         )
         base.update(kw)
         return LlamaConfig(**base)
+
+
+def causal_lm_loss(logits, labels, ignore_index=-100):
+    """Per-token cross entropy over the flattened ``[..., V]`` logits,
+    zero at ``ignore_index`` labels; the caller owns the reduction
+    (``paddle_tpu/models/llama.py:72``, its single-device branch)."""
+    v = int(logits.shape[-1])
+    return F.cross_entropy(logits.reshape(-1, v), labels.reshape(-1),
+                           ignore_index=ignore_index, reduction="none")
 
 
 def _is_row_vector(pos):
@@ -337,9 +354,17 @@ class LlamaForCausalLM(nn.Module):
     def num_params(self):
         return sum(p.numel() for p in self.parameters())
 
+    def flops_per_token(self, seq_len):
+        """Training FLOPs per token: 6 * params plus the attention term
+        12 * layers * hidden * seq_len (``LlamaFlopsMixin``,
+        ``paddle_tpu/models/llama.py:405-419``)."""
+        cfg = self.config
+        return (6 * self.num_params()
+                + 12 * cfg.num_hidden_layers * cfg.hidden_size * seq_len)
+
     def _head(self, h):
         if self.lm_head is None:
-            return torch.matmul(h, self.model.embed_tokens.weight.t())
+            return F.linear(h, self.model.embed_tokens.weight.t())
         return self.lm_head(h)
 
     def forward(self, input_ids, attn_mask=None, caches=None, pos=None,

@@ -1,12 +1,15 @@
-"""The functionals the Llama serving path calls.
+"""The functionals the Llama serving and training paths call.
 
 Counterpart of the used parts of ``paddle_tpu/nn/functional/norm.py``
 (``rms_norm``), ``nn/functional/attention.py``
 (``scaled_dot_product_attention``), ``nn/functional/common.py``
-(``linear``) and ``incubate/nn/functional/__init__.py``
-(``fused_rotary_position_embedding``, ``swiglu``). Layouts follow
-paddle: attention tensors are ``[batch, seq, heads, head_dim]`` and
-Linear weights ``[in, out]``.
+(``linear``), ``nn/functional/loss.py`` (``cross_entropy``) and
+``incubate/nn/functional/__init__.py`` (``fused_rotary_position_embedding``,
+``swiglu``). Layouts follow paddle: attention tensors are ``[batch, seq,
+heads, head_dim]`` and Linear weights ``[in, out]``. Under
+:func:`paddle_tpu_torch.amp.auto_cast` the inputs are cast where the
+JAX package's dispatch hook casts them (``amp/auto_cast.py``), under the
+same op names.
 """
 from __future__ import annotations
 
@@ -14,6 +17,8 @@ import math
 
 import torch
 
+from ..amp.auto_cast import amp_cast
+from ..kernels import flash_attention as _flash
 from ..kernels import rms_norm as _rms
 from ..kernels import rope as _rope
 
@@ -21,23 +26,40 @@ from ..kernels import rope as _rope
 def linear(x, weight):
     """``x @ weight`` with paddle's ``[in, out]`` weight (the Llama
     projections carry no bias)."""
+    x, weight = amp_cast("linear", x, weight)
     return torch.matmul(x, weight)
 
 
 def rms_norm(x, weight, epsilon=1e-6):
-    """RMSNorm over the last axis, through the RMSNorm kernel on a CUDA
-    tensor (the TPU path's ``rms_norm_fused``)."""
+    """RMSNorm over the last axis, through the RMSNorm kernels on a CUDA
+    tensor (the TPU path's ``rms_norm_fused``, dispatched as
+    ``fused_rms_norm``: on neither AMP list, so it runs in the types it
+    is given)."""
     return _rms.rms_norm(x, weight, float(epsilon))
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  is_causal=False):
-    """Composed attention in plain PyTorch, in the op order of
-    ``_sdpa_ref`` (``attention.py:21-42``): score product in the inputs'
-    dtype, scale, causal mask aligned bottom-right (``tril`` with
-    ``k = sk - sq``), additive or boolean ``attn_mask``, fp32 softmax
-    cast back, value product. No dropout: the slice serves."""
+    """Attention over ``[B, S, H, D]`` tensors (``attention.py:54-86``).
+
+    Without ``attn_mask`` on a CUDA tensor it runs the flash attention
+    kernels (the route the JAX package takes on its accelerator,
+    ``attention.py:68-74``), with q, k and v aligned to their promoted
+    dtype as ``flash_attention_fwd`` does. Otherwise, and on the CPU as
+    in the JAX package, it is composed attention in plain PyTorch, in the
+    op order of ``_sdpa_ref`` (``attention.py:21-42``): score product in
+    the inputs' dtype, scale, causal mask aligned bottom-right (``tril``
+    with ``k = sk - sq``), additive or boolean ``attn_mask``, fp32
+    softmax cast back, value product. No dropout."""
+    query, key, value, attn_mask = amp_cast(
+        "scaled_dot_product_attention", query, key, value, attn_mask)
     scale = 1.0 / math.sqrt(int(query.shape[-1]))
+    if attn_mask is None and query.device.type == "cuda":
+        ct = torch.promote_types(torch.promote_types(query.dtype, key.dtype),
+                                 value.dtype)
+        query, key, value = (t.to(ct) for t in (query, key, value))
+        return _flash.flash_attention(query, key, value, causal=is_causal,
+                                      scale=scale)
     qt = query.transpose(1, 2)
     kt = key.transpose(1, 2)
     vt = value.transpose(1, 2)
@@ -94,6 +116,41 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
     v_out = None if v is None else _rope.rope_fused(
         v, None, cos_h, sin_h, position_ids)[0]
     return q_out, k_out, v_out
+
+
+def cross_entropy(input, label, ignore_index=-100, reduction="mean", axis=-1):
+    """Hard-label cross entropy (``loss.py:26-70``): log-softmax over
+    ``axis`` in the input's dtype (fp32 under AMP, where the op is
+    black-listed), the label's entry picked, zero at ``ignore_index``;
+    ``mean`` divides by the count of kept labels (at least 1)."""
+    if reduction not in ("mean", "sum", "none"):
+        raise ValueError(f"reduction must be 'mean', 'sum' or 'none', got "
+                         f"{reduction!r}")
+    if label.dtype.is_floating_point:
+        raise TypeError(f"cross_entropy takes integer (hard) labels, got "
+                        f"{label.dtype}; soft labels are not ported")
+    input = amp_cast("cross_entropy", input)
+    ax = axis % input.dim()
+    lbl = label
+    if lbl.dim() == input.dim() and int(lbl.shape[ax]) == 1:
+        lbl = lbl.squeeze(ax)
+    if lbl.dim() != input.dim() - 1:
+        raise ValueError(
+            f"hard label expected ndim {input.dim() - 1} (or {input.dim()} "
+            f"with size 1 on the class axis), got label shape "
+            f"{tuple(label.shape)} for input shape {tuple(input.shape)}"
+        )
+    lbl = lbl.long()
+    valid = lbl != ignore_index
+    safe = torch.where(valid, lbl, torch.zeros_like(lbl))
+    logp = torch.log_softmax(input, dim=ax)
+    loss = -torch.gather(logp, ax, safe.unsqueeze(ax)).squeeze(ax)
+    loss = torch.where(valid, loss, torch.zeros_like(loss))
+    if reduction == "mean":
+        return loss.sum() / valid.sum().to(loss.dtype).clamp_min(1.0)
+    if reduction == "sum":
+        return loss.sum()
+    return loss
 
 
 def swiglu(x, y=None):

@@ -18,9 +18,8 @@ from . import functional as F
 
 
 def _param(shape, device, dtype):
-    # the serving slice has no backward kernels: parameters start frozen
-    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
-                        requires_grad=False)
+    # trainable; the serving paths run under torch.inference_mode()
+    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
 
 
 class Linear(nn.Module):

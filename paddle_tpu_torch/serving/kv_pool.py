@@ -12,6 +12,7 @@
 """
 from __future__ import annotations
 
+from ..device import resolve_device
 from ..models.generation import alloc_kv_caches, cache_torch_dtype
 
 
@@ -82,12 +83,12 @@ class KVCachePool:
     claimed slots; a drained server reads 0."""
 
     def __init__(self, config, *, dtype=None, min_bucket=16,
-                 max_seq_len=4096, device="cpu"):
+                 max_seq_len=4096, device=None):
         self.config = config
         self.dtype = cache_torch_dtype(dtype)
         self.min_bucket = int(min_bucket)
         self.max_seq_len = int(max_seq_len)
-        self.device = device
+        self.device = resolve_device(device)
         self._freelists = {}
         self._live_blocks = 0
         self._slabs = []

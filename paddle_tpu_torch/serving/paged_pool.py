@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..device import resolve_device
 from ..models.generation import cache_torch_dtype
 
 
@@ -29,7 +30,7 @@ class PagedKVPool:
     release or a foreign id raises."""
 
     def __init__(self, config, *, page_size=16, num_pages, dtype=None,
-                 max_seq_len=4096, device="cpu"):
+                 max_seq_len=4096, device=None):
         ps = int(page_size)
         if ps < 1 or (ps & (ps - 1)):
             raise ValueError(
@@ -42,7 +43,7 @@ class PagedKVPool:
             raise ValueError("need at least one usable page")
         self.max_seq_len = int(max_seq_len)
         self.dtype = cache_torch_dtype(dtype)
-        self.device = device
+        self.device = resolve_device(device)
         self._free = list(range(1, self.num_pages + 1))[::-1]
         self._in_use = set()
         self.claims = 0

@@ -9,13 +9,20 @@ jax-importing conftest:
 
 Tolerances as in chip_smoke.py: bf16 RMSNorm and rope within one bf16
 ulp of the largest output (2^-7 relative), fp32 within 1e-5 relative;
-paged attention 1e-2 (bf16) and 1e-5 (fp32) absolute.
+paged attention 1e-2 (bf16) and 1e-5 (fp32) absolute. Backward kernels
+and flash attention (both sides compute in fp32 and cast once; the sums
+run in other orders): fp32 within 1e-4 of the largest entry for sums
+over rows (RMSNorm dw, flash dK/dV/dQ, which cancel) and 1e-5
+elsewhere; bf16 entry by entry, within 2^-7 of the entry (one to two
+of its ulps: the cast may round the two sides one ulp apart) plus that
+fp32 tolerance, by which the values before the cast may differ.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from paddle_tpu_torch.kernels import flash_attention as tfa  # noqa: E402
 from paddle_tpu_torch.kernels import paged_attention as tpa  # noqa: E402
 from paddle_tpu_torch.kernels import rms_norm as trms  # noqa: E402
 from paddle_tpu_torch.kernels import rope as trope  # noqa: E402
@@ -34,6 +41,20 @@ def dev():
 
 def _err(a, b):
     return float((a.float() - b.float()).abs().max())
+
+
+def _rel_ok(got, want, tol):
+    return _err(got, want) <= tol * float(want.float().abs().max())
+
+
+def _cast_once_ok(got, want, tol32):
+    """fp32: within ``tol32`` of the largest entry; bf16: each entry
+    within 2^-7 of it plus that fp32 tolerance."""
+    if got.dtype == torch.float32:
+        return _rel_ok(got, want, tol32)
+    ref = want.float().abs()
+    tol = 2.0 ** -7 * ref + tol32 * float(ref.max())
+    return bool(((got.float() - want.float()).abs() <= tol).all())
 
 
 @pytest.mark.cuda
@@ -110,11 +131,109 @@ def test_kernels_count_launches(dev):
     from paddle_tpu_torch import kernels
 
     kernels.reset_launch_counts()
-    x = torch.randn(2, 64, device=dev)
-    trms.rms_norm(x, torch.ones(64, device=dev))
+    x = torch.randn(2, 64, device=dev, requires_grad=True)
+    y = trms.rms_norm(x, torch.ones(64, device=dev))
     trms.rms_norm_reference(x, torch.ones(64, device=dev))
-    assert kernels.launch_counts() == {
-        "rms_norm": 1, "rope": 0, "paged_attention": 0}
+    y.sum().backward()
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update(rms_norm=1, rms_norm_bwd=1)
+    assert kernels.launch_counts() == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_rms_norm_backward_kernel(dev, dtype):
+    g = torch.Generator(device=dev).manual_seed(5)
+    dt = DTYPES[dtype]
+    x = torch.randn(300, 512, generator=g, device=dev).to(dt)
+    w = (1 + 0.1 * torch.randn(512, generator=g, device=dev)).to(dt)
+    gy = torch.randn(300, 512, generator=g, device=dev).to(dt)
+    _, rstd = trms.rms_norm_cuda(x, w, 1e-5, return_rstd=True)
+    _, rstd_ref = trms.rms_norm_reference(x, w, 1e-5, return_rstd=True)
+    assert _rel_ok(rstd, rstd_ref, 1e-6)
+    dx, dw = trms.rms_norm_backward_cuda(x, w, gy, rstd)
+    rdx, rdw = trms.rms_norm_backward_reference(x, w, gy, rstd)
+    assert dx.dtype == dt and dw.dtype == dt
+    assert _cast_once_ok(dx, rdx, 1e-5)
+    assert _cast_once_ok(dw, rdw, 1e-4)
+    # no float atomics: a second run is bit-equal
+    dx2, dw2 = trms.rms_norm_backward_cuda(x, w, gy, rstd)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_rope_backward_kernel(dev, dtype):
+    g = torch.Generator(device=dev).manual_seed(6)
+    dt = DTYPES[dtype]
+    q = torch.randn(2, 5, 4, 64, generator=g, device=dev).to(dt)
+    k = torch.randn(2, 5, 2, 64, generator=g, device=dev).to(dt)
+    cos, sin = trope.build_rope_cache(5, 64, device=dev)
+    dq, dk = trope.rope_cuda(q, k, cos, sin, inverse=True)
+    assert torch.equal(dq, trope.rope_backward_reference(q, cos, sin))
+    assert torch.equal(dk, trope.rope_backward_reference(k, cos, sin))
+    # through autograd: the forward then the inverse rotation
+    qg = q.clone().requires_grad_(True)
+    qo, _ = trope.rope_fused(qg, None, cos, sin)
+    qo.backward(q)
+    assert torch.equal(qg.grad, dq)
+
+
+def _flash_inputs(dev, dtype, b, sq, sk, h, d, seed, strided=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if strided:
+        # q, k, v as views of one fused [B, S, 3, H, D] projection
+        qkv = torch.randn(b, sq, 3, h, d, generator=g, device=dev).to(dtype)
+        q, k, v = qkv.unbind(2)
+    else:
+        q = torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
+        k = torch.randn(b, sk, h, d, generator=g, device=dev).to(dtype)
+        v = torch.randn(b, sk, h, d, generator=g, device=dev).to(dtype)
+    do = torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
+    return q, k, v, do
+
+
+FLASH_CASES = {
+    # causal, sq, sk, head_dim, strided q/k/v views
+    "causal": (True, 130, 130, 128, False),
+    "causal_sq_lt_sk": (True, 70, 200, 64, False),
+    "full": (False, 100, 77, 128, False),
+    "causal_strided": (True, 96, 96, 64, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_attention_kernels(dev, dtype, case):
+    causal, sq, sk, d, strided = FLASH_CASES[case]
+    dt = DTYPES[dtype]
+    q, k, v, do = _flash_inputs(dev, dt, 2, sq, sk, 3, d, seed=sq + sk,
+                                strided=strided)
+    o, lse = tfa.flash_attention_cuda(q, k, v, causal)
+    ro, rlse = tfa.flash_attention_reference(q, k, v, causal)
+    assert o.dtype == dt and torch.isfinite(o).all()
+    assert _cast_once_ok(o, ro, 1e-5)
+    assert _err(lse, rlse) <= 1e-5 * float(rlse.abs().max())
+    grads = tfa.flash_attention_backward_cuda(q, k, v, o, lse, do, causal)
+    want = tfa.flash_attention_backward_reference(q, k, v, o, lse, do,
+                                                  causal)
+    for got, ref in zip(grads, want):
+        assert got.dtype == dt and torch.isfinite(got).all()
+        assert _cast_once_ok(got, ref, 1e-4)
+    # no float atomics: the gradients repeat bit for bit
+    again = tfa.flash_attention_backward_cuda(q, k, v, o, lse, do, causal)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_what_it_does_not_take(dev):
+    q = torch.randn(1, 8, 2, 256, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_attention_cuda(q, q, q)
+    q = torch.randn(1, 8, 2, 64, device=dev)
+    with pytest.raises(TypeError, match="one dtype"):
+        tfa.flash_attention_cuda(q, q.bfloat16(), q)
 
 
 @pytest.mark.cuda

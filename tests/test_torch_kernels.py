@@ -14,6 +14,21 @@ Tolerances:
 - bf16 paged attention: 3e-2, the bound the JAX package holds between
   its own kernel and its composed path (tests/test_kernel_autotune.py).
 
+Backward passes, against ``jax.vjp`` of the JAX kernels:
+
+- RMSNorm: fp32 1e-6 relative; bf16 ``dx`` one bf16 ulp; bf16 ``dw``
+  2^-6 relative to the largest entry, because the fp32 sum over the rows
+  runs in another order (row blocks in the Pallas kernel, one reduction
+  here) before the cast, which may flip one rounding of a small entry.
+- Rope: fp32 1e-6 relative, bf16 one ulp (the same rotation by -theta).
+- Flash attention (``flash_attention_fwd`` through its CPU path
+  ``_composed``), O, LSE and dq/dk/dv: fp32 1e-5 (scores and softmax in
+  fp32, summed in another order; LSE against ``logsumexp`` of the
+  composed scores). bf16 3e-2 absolute plus 3e-2 relative, the bound
+  the repo already uses between kernel and composed paths: ``_composed``
+  rounds the scores and P to bf16 before the value product and does its
+  backward products in bf16, the port keeps every product in fp32.
+
 The CUDA kernels themselves are compared with their plain versions on
 the card, by tests/test_torch_cuda.py and chip_smoke.py.
 """
@@ -26,12 +41,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from paddle_tpu.kernels import flash_attention as jfa  # noqa: E402
 from paddle_tpu.kernels import paged_attention as jpa  # noqa: E402
 from paddle_tpu.kernels import rope as jrope  # noqa: E402
 from paddle_tpu.kernels.rms_norm import rms_norm_fused  # noqa: E402
 from paddle_tpu_torch.kernels import _build  # noqa: E402
+from paddle_tpu_torch.kernels import flash_attention as tfa  # noqa: E402
 from paddle_tpu_torch.kernels import paged_attention as tpa  # noqa: E402
 from paddle_tpu_torch.kernels import rms_norm as trms  # noqa: E402
 from paddle_tpu_torch.kernels import rope as trope  # noqa: E402
@@ -51,7 +69,7 @@ def _both(a, dtype):
 
 def _np(x):
     if isinstance(x, torch.Tensor):
-        return x.float().numpy()
+        return x.detach().float().numpy()
     return np.asarray(jnp.asarray(x).astype(jnp.float32))
 
 
@@ -169,6 +187,115 @@ def test_paged_attention_ignores_garbage_page():
     kp2[tbl[1, 3], 4:] = 7.0  # row 1 attends slots <= 27 of page 4's 0..3
     np.testing.assert_array_equal(
         tpa.paged_attention(q, kp2, vp2, tbl, pos).numpy(), base.numpy())
+
+
+def _closer(got, want, rtol, atol):
+    np.testing.assert_allclose(_np(got), _np(want), rtol=rtol, atol=atol)
+
+
+# ------------------------------------------------------ RMSNorm backward
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(6, 64), (2, 5, 128)])
+def test_rms_norm_backward_matches_pallas_vjp(dtype, shape):
+    rng = np.random.RandomState(10)
+    xj, xt = _both(rng.randn(*shape), dtype)
+    wj, wt = _both(1 + 0.1 * rng.randn(shape[-1]), dtype)
+    gj, gt = _both(rng.randn(*shape), dtype)
+    _, vjp = jax.vjp(lambda x, w: rms_norm_fused(x, w, 1e-5), xj, wj)
+    want_dx, want_dw = vjp(gj)
+    # through the autograd Function (the plain forward keeps rstd)
+    xg = xt.clone().requires_grad_(True)
+    wg = wt.clone().requires_grad_(True)
+    trms.rms_norm(xg, wg, 1e-5).backward(gt)
+    _, rstd = trms.rms_norm_reference(xt, wt, 1e-5, return_rstd=True)
+    dx, dw = trms.rms_norm_backward_reference(xt, wt, gt, rstd)
+    assert torch.equal(xg.grad, dx) and torch.equal(wg.grad, dw)
+    assert dx.dtype == xt.dtype and dw.dtype == wt.dtype
+    if dtype == "float32":
+        _closer(dx, want_dx, 1e-6, 1e-6)
+        _closer(dw, want_dw, 1e-6, 1e-6)
+    else:
+        _closer(dx, want_dx, BF16_ULP, 1e-6)
+        np.testing.assert_allclose(
+            _np(dw), _np(want_dw), rtol=0,
+            atol=2.0 ** -6 * float(np.abs(_np(want_dw)).max()))
+
+
+# --------------------------------------------------------- rope backward
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rope_backward_matches_pallas_vjp(dtype):
+    rng = np.random.RandomState(11)
+    b, s, h, kh, d = 2, 6, 4, 2, 16
+    qj, qt = _both(rng.randn(b, s, h, d), dtype)
+    kj, kt = _both(rng.randn(b, s, kh, d), dtype)
+    gqj, gqt = _both(rng.randn(b, s, h, d), dtype)
+    gkj, gkt = _both(rng.randn(b, s, kh, d), dtype)
+    cj, sj = jrope.build_rope_cache(s, d)
+    ct, st = trope.build_rope_cache(s, d)
+    _, vq = jax.vjp(lambda x: jrope.rope_fused(x, cj, sj), qj)
+    _, vk = jax.vjp(lambda x: jrope.rope_fused(x, cj, sj), kj)
+    qg = qt.clone().requires_grad_(True)
+    kg = kt.clone().requires_grad_(True)
+    qo, ko = trope.rope_fused(qg, kg, ct, st)
+    torch.autograd.backward([qo, ko], [gqt, gkt])
+    rtol = BF16_ULP if dtype == "bfloat16" else 1e-6
+    _closer(qg.grad, vq(gqj)[0], rtol, 1e-6)
+    _closer(kg.grad, vk(gkj)[0], rtol, 1e-6)
+    assert torch.equal(qg.grad, trope.rope_backward_reference(gqt, ct, st))
+
+
+# ------------------------------------------------------- flash attention
+FLASH_CASES = {
+    "causal": (True, 8, 8),
+    "causal_sq_lt_sk": (True, 5, 9),
+    "full": (False, 6, 9),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_attention_matches_jax(dtype, case):
+    causal, sq, sk = FLASH_CASES[case]
+    rng = np.random.RandomState(12)
+    b, h, d = 2, 3, 16
+    qn, kn, vn = (rng.randn(b, n, h, d) for n in (sq, sk, sk))
+    gn = rng.randn(b, sq, h, d)
+    (qj, qt), (kj, kt), (vj, vt), (gj, gt) = (
+        _both(a, dtype) for a in (qn, kn, vn, gn))
+    scale = 1.0 / np.sqrt(d)
+    want_o, vjp = jax.vjp(
+        lambda q, k, v: jfa.flash_attention_fwd(q, k, v, causal=causal,
+                                                scale=scale), qj, kj, vj)
+    want = vjp(gj)
+    ts = [t.clone().requires_grad_(True) for t in (qt, kt, vt)]
+    o, lse = tfa.flash_attention(*ts, causal=causal, return_lse=True)
+    o.backward(gt)
+    assert o.dtype == qt.dtype and lse.dtype == torch.float32
+    assert tuple(lse.shape) == (b, h, sq)
+    # LSE against logsumexp of the composed fp32 scores
+    qf, kf = (_np(t) for t in (qt, kt))
+    s = np.einsum("bqhd,bkhd->bhqk", qf, kf).astype(np.float64) * scale
+    if causal:
+        s = np.where(np.tril(np.ones((sq, sk), bool), sk - sq), s, -np.inf)
+    mx = s.max(-1, keepdims=True)
+    want_lse = (mx + np.log(np.exp(s - mx).sum(-1, keepdims=True)))[..., 0]
+    np.testing.assert_allclose(_np(lse), want_lse, rtol=1e-5, atol=1e-5)
+    tol = 3e-2 if dtype == "bfloat16" else 1e-5
+    _closer(o, want_o, tol, tol)
+    for got, w in zip(ts, want):
+        _closer(got.grad, w, tol, tol)
+    # the plain backward is what the Function ran
+    dq, dk, dv = tfa.flash_attention_backward_reference(
+        qt, kt, vt, o.detach(), lse, gt, causal)
+    assert torch.equal(ts[0].grad, dq) and torch.equal(ts[2].grad, dv)
+
+
+def test_flash_attention_refuses_shapes():
+    q = torch.zeros(1, 4, 2, 16)
+    with pytest.raises(ValueError, match="Sk >= Sq"):
+        tfa.flash_attention(q, q[:, :3], q[:, :3], causal=True)
+    with pytest.raises(ValueError, match="repeat kv heads"):
+        tfa.flash_attention(q, q[:, :, :1], q[:, :, :1])
 
 
 # ------------------------------------------------- no jax in the package

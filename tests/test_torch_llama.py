@@ -95,7 +95,7 @@ def test_prefill_and_decode_slab_logits_match(nets):
     cfg = tnet.config
     ids = _ids(2, 6, 1)
     jc = jgen.alloc_kv_caches(jnet.config, 2, 16, "float32")
-    tc = tgen.alloc_kv_caches(cfg, 2, 16, "float32")
+    tc = tgen.alloc_kv_caches(cfg, 2, 16, "float32", device="cpu")
     jl, jc = jgen.prefill(jnet, jnp.asarray(ids), jc)
     tl, tc = tgen.prefill(tnet, torch.from_numpy(ids).long(), tc)
     _close(tl, jl)
