@@ -11,14 +11,18 @@ It imports neither jax nor ``paddle_tpu``. Phases, each fatal on failure:
 2. build: every ``paddle_tpu_torch/csrc/*.cu`` compiled with nvcc for
    sm_90a, seconds and library path printed;
 3. kernels: each hand-written kernel against its plain PyTorch version
-   on the card, at the Llama-2-7B shapes of the serving and training
-   paths, in bf16 and fp32, with the tolerance stated per kernel, and
-   timed (CUDA events, median) beside its bound, its plain version and,
-   where one PyTorch call computes the same function, that call; the
-   backward kernels must repeat bit for bit;
+   on the card, at the Llama-2-7B shapes of the serving, training and
+   quantized-serving paths, in bf16 and fp32, with the tolerance stated
+   per kernel, and timed (CUDA events, median) beside its bound, its
+   plain version and, where one PyTorch call computes the same function,
+   that call (the W8A16 matmul: beside the composed dequantize-then-
+   ``torch.matmul`` and the float weight's ``torch.matmul``); the
+   backward kernels and the W8A16 matmul must repeat bit for bit;
 4. small parity: a tiny fp32 Llama on the card, whose paged-engine
    greedy streams must equal ``generate`` with an fp32 slab cache
-   token for token;
+   token for token; then the same model quantized
+   (``quantize_for_serving``), whose paged and slab engines' streams
+   with an int8 cache must equal ``generate(cache_dtype="int8")``;
 5. tiny train parity: a 2-layer fp32 Llama takes one
    ``CompiledTrainStep`` on the card and the same step on the CPU (the
    plain versions) from the same weights; the loss and every parameter
@@ -35,7 +39,16 @@ It imports neither jax nor ``paddle_tpu``. Phases, each fatal on failure:
    64 new tokens; every serving kernel must have launched during this
    phase, no page may leak, and every generated token must pass a
    teacher-forced check against the cache-free forward (which attends
-   through the flash attention kernel).
+   through the flash attention kernel);
+8. quantized serving: the same Llama-2-7B weights through
+   ``quantize_for_serving`` (int8 weights, W8A16 kernel) and the same 12
+   requests through ``PagedServingEngine`` with an int8 KV arena; the
+   int8 paged attention and the W8A16 kernels must have launched the
+   counts the structure gives (32 and 6 x 32 + 1 per decode step, 193
+   per prefill), no page may leak, and every generated token must pass
+   a teacher-forced check against one slab prefill of the whole
+   sequence with an int8 cache (the same quantization, composed
+   attention).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -71,10 +84,14 @@ NEAR_TIE = 0.125
 #   max|plain| (the sum of squares is reduced in another order, so rstd
 #   may differ in the last fp32 bit and flip one rounding); fp32:
 #   1e-5 * max|plain| (rsqrtf is within 2 ulp, the order differs);
-# - paged attention: bf16 1e-2 (scores are summed in another order, so a
-#   probability may round to the neighbouring bf16 value before the
-#   value product); fp32 1e-5 (fp32 sums over up to 2048 slots in
-#   another order).
+# - paged attention, float and int8 arenas: bf16 1e-2 (scores are summed
+#   in another order, so a probability may round to the neighbouring bf16
+#   value before the value product); fp32 1e-5 (fp32 sums over up to 2048
+#   slots in another order). Both sides dequantize an int8 row the same
+#   way, float(q) * scale in fp32.
+# - the W8A16 matmul: cast once (below), fp32 1e-5 * max|plain| (both
+#   sides take the same dequantized weight and sum up to 11008 fp32
+#   products in another order).
 # - the backward kernels and flash attention (both sides compute in fp32
 #   and cast once): fp32 1e-5 * max|plain| for O, RMSNorm dx and rope,
 #   1e-4 * max|plain| for sums over thousands of rows that cancel
@@ -396,6 +413,135 @@ def rope_bwd_cases(torch, mod, dev):
     return out
 
 
+def paged_int8_cases(torch, mod, dev):
+    """Kernel A at the decode shapes of the float flavour: arenas made in
+    fp32 (garbage page 0 at 1e4) and quantized with quantize_kv; q bf16
+    and fp32."""
+    from paddle_tpu_torch.quantization.kv import QuantizedKV, quantize_kv
+
+    out = []
+    g = torch.Generator(device=dev).manual_seed(4)
+    for dtype, kvh in ((torch.bfloat16, 32), (torch.float32, 32),
+                       (torch.bfloat16, 8), (torch.float32, 8)):
+        dname = str(dtype).replace("torch.", "")
+        q, kp, vp, tbl, pos = paged_inputs(torch, dev, torch.float32, kvh, g)
+        q = q.to(dtype)
+        kq, vq = QuantizedKV(*quantize_kv(kp)), QuantizedKV(*quantize_kv(vp))
+        del kp, vp
+        o = mod.paged_attention_int8_cuda(q, kq, vq, tbl, pos)
+        ref = mod.paged_attention_reference(q, kq, vq, tbl, pos)
+        if not torch.isfinite(o).all():
+            fail("int8 paged attention kernel produced non-finite values")
+        es = q.element_size()
+        slots = int((pos.long() + 1).sum())
+        d = 128
+        nbytes = (2 * slots * kvh * (d + 4) + 2 * q.numel() * es
+                  + int((pos.long() // 16 + 1).sum()) * 4 + 4 * 8)
+        b_ms, b_by = bound(nbytes, 4 * slots * 32 * d, dname)
+        out.append({
+            "shape": {"q": list(q.shape), "pages": list(kq.q.shape),
+                      "scales": list(kq.scale.shape),
+                      "pos": [int(p) for p in pos]},
+            "dtype": dname, "kv_heads": kvh, "arena": "int8",
+            "max_abs_err": max_err(torch, o, ref),
+            "tolerance": PAGED_TOL[dname],
+            "ms": gpu_time_ms(torch, lambda: mod.paged_attention_int8_cuda(
+                q, kq, vq, tbl, pos)),
+            "plain_ms": gpu_time_ms(
+                torch, lambda: mod.paged_attention_reference(
+                    q, kq, vq, tbl, pos), n=5, repeats=5),
+            "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by,
+        })
+        del q, kq, vq, o, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+# W8A16 shapes: the 7B decode step's four weight shapes at 8 rows (q/k/v/o,
+# gate+up, down, lm_head) and one prefill bucket through gate+up
+INT8_MM_SHAPES = ((8, 4096, 4096), (8, 4096, 22016), (8, 11008, 4096),
+                  (8, 4096, 32000), (1024, 4096, 22016))
+# weight copies cycled through so that every timed call reads its weight
+# from device memory, not from the 50 MB L2 (as each layer's projection
+# does in a decode step)
+L2_FLUSH_BYTES = 120 * 2 ** 20
+
+
+def cycled(fns):
+    """One call of the next function of ``fns`` per call, round robin."""
+    state = [0]
+
+    def call():
+        fns[state[0] % len(fns)]()
+        state[0] += 1
+    return call
+
+
+def int8_matmul_cases(torch, mod, dev):
+    """Kernel B at the decode and prefill shapes, bf16 and fp32 x, against
+    its plain version; timed beside the composed dequantize-then-matmul
+    and the float weight's torch.matmul in x's dtype (the float path's
+    cost), each over enough weight copies to miss in L2."""
+    out = []
+    g = torch.Generator(device=dev).manual_seed(10)
+    for rows, h, n in INT8_MM_SHAPES:
+        w = torch.randn(h, n, generator=g, device=dev) * 0.02
+        wq, sc = mod.quantize_weight(w)
+        del w
+        copies = max(1, -(-L2_FLUSH_BYTES // wq.numel()))
+        wqs = [wq] + [wq.clone() for _ in range(copies - 1)]
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).replace("torch.", "")
+            x = torch.randn(rows, h, generator=g, device=dev).to(dtype)
+            y = mod.int8_matmul_cuda(x, wq, sc)
+            ref = mod.int8_matmul_reference(x, wq, sc)
+            if not torch.isfinite(y).all():
+                fail(f"int8 matmul {dname} {[rows, h, n]} produced "
+                     f"non-finite values")
+            if not torch.equal(y, mod.int8_matmul_cuda(x, wq, sc)):
+                fail(f"int8 matmul {dname} {[rows, h, n]} does not repeat "
+                     f"bit for bit")
+            cs, worst = checks(torch, [
+                cast_once("out", y, ref, REL_TOL["float32"], dname)])
+            del y, ref
+            es = x.element_size()
+            # the int8 weight, its scales, x and the output, once each
+            b_ms, b_by = bound(h * n + 4 * n + rows * (h + n) * es,
+                               2 * rows * h * n, dname)
+            fcopies = max(1, -(-L2_FLUSH_BYTES // (h * n * es)))
+            wfs = [mod._dequant(wq, sc, dtype) for _ in range(fcopies)]
+            n_t = 20 if rows <= 16 else 5
+            ms = gpu_time_ms(torch, cycled([
+                (lambda wi=wi: mod.int8_matmul_cuda(x, wi, sc))
+                for wi in wqs]), n=n_t)
+            plain = gpu_time_ms(torch, lambda: mod.int8_matmul_reference(
+                x, wq, sc), n=3, repeats=5)
+            composed = gpu_time_ms(torch, cycled([
+                (lambda wi=wi: torch.matmul(x, mod._dequant(wi, sc, dtype)))
+                for wi in wqs]), n=n_t)
+            float_mm = gpu_time_ms(torch, cycled([
+                (lambda wf=wf: torch.matmul(x, wf)) for wf in wfs]), n=n_t)
+            del wfs
+            out.append({
+                "shape": {"rows": rows, "h": h, "n": n}, "dtype": dname,
+                "checks": cs, "max_abs_err": worst["max_abs_err"],
+                "tolerance": worst["tolerance"],
+                "err_over_tol": worst["err_over_tol"],
+                "repeats_bitwise": True, "weight_copies": copies,
+                "ms": ms, "plain_ms": plain, "library_ms": None,
+                "composed_ms": composed,
+                "composed_call": "dequantize, then torch.matmul",
+                "float_matmul_ms": float_mm,
+                "float_matmul_call": f"torch.matmul of the {dname} weight",
+                "bound_ms": b_ms, "bound_by": b_by,
+            })
+            del x
+        del wq, sc, wqs
+        torch.cuda.empty_cache()
+    return out
+
+
 def _visible_pairs(sq, sk, causal):
     """(row, key) pairs a head attends: all of them, or the causal
     bottom-right triangle."""
@@ -536,6 +682,11 @@ KERNELS = [
     ("flash_attention_bwd", "paddle_tpu_torch/csrc/flash_attention.cu",
      "jax/experimental/pallas/ops/tpu/flash_attention.py:1121 and :1456 "
      "(via paddle_tpu/kernels/flash_attention.py:260)"),
+    ("paged_attention_int8", "paddle_tpu_torch/csrc/paged_attention.cu",
+     "paddle_tpu/kernels/paged_attention.py:341 "
+     "(int8 flavour _paged_kernel_quant :253)"),
+    ("int8_matmul", "paddle_tpu_torch/csrc/int8_matmul.cu",
+     "paddle_tpu/kernels/int8_matmul.py:84"),
 ]
 # the kernels each main-path phase must launch
 SERVING_KERNELS = ("rms_norm", "rope", "paged_attention")
@@ -546,14 +697,18 @@ TRAIN_PER_STEP = {
     "rms_norm": 2 * TRAIN_LAYERS + 1, "rms_norm_bwd": 2 * TRAIN_LAYERS + 1,
     "rope": TRAIN_LAYERS, "rope_bwd": TRAIN_LAYERS,
     "flash_attention_fwd": TRAIN_LAYERS, "flash_attention_bwd": TRAIN_LAYERS,
-    "paged_attention": 0,
+    "paged_attention": 0, "paged_attention_int8": 0, "int8_matmul": 0,
 }
+# W8A16 launches per forward of the quantized 7B (decode step or prefill):
+# q, k, v, o, gate+up and down in each of 32 layers, and the head
+QUANT_MM_PER_FORWARD = 6 * 32 + 1
 
 
 # ------------------------------------------------------- small parity
 def small_parity(torch, np, dev):
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
-    from paddle_tpu_torch.serving import PagedServingEngine
+    from paddle_tpu_torch.quantization import quantize_for_serving
+    from paddle_tpu_torch.serving import PagedServingEngine, ServingEngine
 
     for kvh in (None, 2):
         cfg = LlamaConfig.tiny(vocab_size=256, hidden_size=256,
@@ -579,8 +734,29 @@ def small_parity(torch, np, dev):
                      f"{want.tolist()}")
         if eng.page_pool.pages_in_use:
             fail("small parity: pages leaked")
+        # the same model quantized: int8 weights and an int8 KV cache
+        quantize_for_serving(net, inplace=True)
+        for kind, eng in (
+                ("paged", PagedServingEngine(
+                    net, max_batch_size=2, max_seq_len=64, page_size=8,
+                    min_bucket=8, cache_dtype="int8")),
+                ("slab", ServingEngine(net, max_batch_size=2, max_seq_len=64,
+                                       min_bucket=8, cache_dtype="int8"))):
+            hs = [eng.submit(p, m) for p, m in zip(prompts, news)]
+            eng.run_until_idle()
+            for h, p, m in zip(hs, prompts, news):
+                want = net.generate(p[None], max_new_tokens=m,
+                                    cache_dtype="int8")[0].cpu().numpy()
+                if h.status != "DONE" or not np.array_equal(h.output_ids,
+                                                            want):
+                    fail(f"small int8 parity (kvH={kvh}): {kind} engine "
+                         f"stream {h.output_ids.tolist()} != generate "
+                         f"{want.tolist()}")
+            if eng.pool.occupancy:
+                fail(f"small int8 parity: the {kind} engine leaked")
     log("small parity: tiny fp32 Llama (MHA and GQA kvH=2), paged engine "
-        "== generate token for token")
+        "== generate token for token; quantized (int8 weights, int8 KV), "
+        "paged and slab engines == generate(cache_dtype='int8')")
 
 
 # -------------------------------------------------- tiny train parity
@@ -620,8 +796,9 @@ def tiny_train_parity(torch, np, dev):
     counts = kernels.launch_counts()
     loss_cpu, after_cpu = _tiny_step(torch, np, cfg, "cpu", weights, ids)
     loss_again, after_again = _tiny_step(torch, np, cfg, dev, weights, ids)
+    serving_only = ("paged_attention", "paged_attention_int8", "int8_matmul")
     missing = [k for k, n in counts.items()
-               if n <= 0 and k != "paged_attention"]
+               if n <= 0 and k not in serving_only]
     if missing:
         fail(f"tiny train parity: kernels not launched on the card: "
              f"{missing}")
@@ -729,8 +906,101 @@ def training_phase(torch, np, dev, card, profile_train_steps=0):
 
 
 # ------------------------------------------------------------ serving
-def serving_phase(torch, np, dev, card, profile_steps=0):
+SERVE_MAX_NEW = 64
+
+
+def drive_requests(torch, np, eng, cfg):
+    """The serving traffic: 12 requests, prompts of 32-1024 tokens from
+    seed 1234, 64 new tokens each, six at once and six more after 24
+    steps, so late requests take rows that early ones free. The launch
+    counts are zeroed just before and read just after. Returns (handles,
+    prompt lengths, steps, wall seconds, launch counts, peak bytes)."""
     from paddle_tpu_torch import kernels
+
+    rng = np.random.RandomState(1234)
+    lens = rng.randint(32, 1025, size=12)
+    prompts = [rng.randint(0, cfg.vocab_size, (int(n),)) for n in lens]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    handles = [eng.submit(p, SERVE_MAX_NEW) for p in prompts[:6]]
+    for _ in range(24):
+        eng.step()
+    handles += [eng.submit(p, SERVE_MAX_NEW) for p in prompts[6:]]
+    steps = 24 + eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for h in handles:
+        if h.status != "DONE" or len(h.tokens) != SERVE_MAX_NEW:
+            fail(f"request {h.request.request_id}: status {h.status}, "
+                 f"{len(h.tokens)} tokens")
+    if eng.page_pool.pages_in_use:
+        fail(f"{eng.page_pool.pages_in_use} pages leaked")
+    if min(h.admitted_step for h in handles[6:]) < 24:
+        fail("late requests were not admitted after the first wave")
+    return handles, lens, steps, wall, counts, peak
+
+
+def teacher_forced(torch, dev, handles, logits_of, label):
+    """Every generated token must be the argmax of ``logits_of(ids)``
+    ([S, V] logits of the whole sequence) at its position, or trail it
+    by less than NEAR_TIE. Returns (near-ties, largest gap)."""
+    ties, worst_gap = 0, 0.0
+    with torch.inference_mode():
+        for h in handles:
+            ids = torch.as_tensor(h.output_ids, dtype=torch.long,
+                                  device=dev)[None]
+            logits = logits_of(ids).float()
+            if not torch.isfinite(logits).all():
+                fail(f"{label}: the reference produced non-finite logits")
+            p = h.request.prompt_len
+            rows = logits[p - 1:p - 1 + SERVE_MAX_NEW]
+            gen = ids[0, p:p + SERVE_MAX_NEW]
+            top = rows.argmax(dim=-1)
+            gap = rows.max(dim=-1).values - rows.gather(
+                1, gen[:, None])[:, 0]
+            miss = top != gen
+            if miss.any():
+                g = float(gap[miss].max())
+                worst_gap = max(worst_gap, g)
+                ties += int(miss.sum())
+                if g >= NEAR_TIE:
+                    fail(f"{label}: request {h.request.request_id}: a "
+                         f"generated token trails the reference argmax by "
+                         f"{g:.4f} >= {NEAR_TIE}")
+    log(f"{label}: teacher-forced check passed for "
+        f"{len(handles) * SERVE_MAX_NEW} tokens; {ties} near-ties (largest "
+        f"gap {worst_gap:.4f} < {NEAR_TIE})")
+    return ties, worst_gap
+
+
+def serving_result(eng, handles, lens, steps, wall, counts, peak, ties,
+                   worst_gap, **extra):
+    m = eng.metrics
+    return dict(extra, **{
+        "requests": len(handles), "prompt_lens": [int(n) for n in lens],
+        "max_new_tokens": SERVE_MAX_NEW, "steps": steps, "wall_s": wall,
+        "prefill_tokens": m.prefill_tokens.value,
+        "prefill_s": m.prefill_time.sum,
+        "prefill_tok_per_s": m.prefill_tokens.value / m.prefill_time.sum,
+        "decode_tokens": m.decode_tokens.value,
+        "decode_s": m.decode_step_time.sum,
+        "decode_tok_per_s": m.decode_tokens.value / m.decode_step_time.sum,
+        "ttft_p50_s": m.ttft.percentile(50),
+        "prefill_p50_s": m.prefill_time.percentile(50),
+        "itl_p50_s": m.itl.percentile(50),
+        "decode_step_p50_s": m.decode_step_time.percentile(50),
+        "peak_mem_bytes": peak,
+        "arena_bytes": eng.page_pool.arena_bytes(),
+        "launches": counts,
+        "near_ties": ties, "near_tie_max_gap": worst_gap,
+    })
+
+
+def serving_phase(torch, np, dev, card, profile_steps=0):
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.serving import PagedServingEngine
 
@@ -746,89 +1016,90 @@ def serving_phase(torch, np, dev, card, profile_steps=0):
                              page_size=16, cache_dtype="bfloat16")
     log(f"serving: page arena {eng.page_pool.num_pages + 1} pages x 16 "
         f"slots, {eng.page_pool.arena_bytes() / 1e9:.2f} GB")
-    rng = np.random.RandomState(1234)
-    lens = rng.randint(32, 1025, size=12)
-    prompts = [rng.randint(0, cfg.vocab_size, (int(n),)) for n in lens]
-    max_new = 64
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    # staggered arrivals: six now, six more once the first ones are
-    # decoding, so late requests take rows that early ones free
-    handles = [eng.submit(p, max_new) for p in prompts[:6]]
-    for _ in range(24):
-        eng.step()
-    handles += [eng.submit(p, max_new) for p in prompts[6:]]
-    steps = 24 + eng.run_until_idle()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = kernels.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    for h in handles:
-        if h.status != "DONE" or len(h.tokens) != max_new:
-            fail(f"request {h.request.request_id}: status {h.status}, "
-                 f"{len(h.tokens)} tokens")
-    if eng.page_pool.pages_in_use:
-        fail(f"{eng.page_pool.pages_in_use} pages leaked")
+    handles, lens, steps, wall, counts, peak = drive_requests(
+        torch, np, eng, cfg)
     missing = [k for k in SERVING_KERNELS if counts[k] <= 0]
     if missing:
         fail(f"kernels not launched in the serving phase: {missing}")
-    late = [h.admitted_step for h in handles[6:]]
-    if min(late) < 24:
-        fail("late requests were not admitted after the first wave")
-
     # teacher-forced check against the cache-free forward
-    ties, worst_gap = 0, 0.0
-    with torch.inference_mode():
-        for h in handles:
-            ids = torch.as_tensor(h.output_ids, dtype=torch.long,
-                                  device=dev)[None]
-            logits = net(ids)[0].float()
-            if not torch.isfinite(logits).all():
-                fail("cache-free forward produced non-finite logits")
-            p = h.request.prompt_len
-            rows = logits[p - 1:p - 1 + max_new]
-            gen = ids[0, p:p + max_new]
-            top = rows.argmax(dim=-1)
-            gap = rows.max(dim=-1).values - rows.gather(
-                1, gen[:, None])[:, 0]
-            miss = top != gen
-            if miss.any():
-                g = float(gap[miss].max())
-                worst_gap = max(worst_gap, g)
-                ties += int(miss.sum())
-                if g >= NEAR_TIE:
-                    fail(f"request {h.request.request_id}: a generated "
-                         f"token trails the cache-free argmax by {g:.4f} "
-                         f">= {NEAR_TIE}")
-    n_gen = len(handles) * max_new
-    log(f"serving: teacher-forced check passed for {n_gen} tokens; "
-        f"{ties} near-ties (largest gap {worst_gap:.4f} < {NEAR_TIE})")
-
-    m = eng.metrics
-    res = {
-        "card": card,
-        "model": f"Llama-2-7B, {layers} layers, bf16, random weights",
-        "requests": len(handles), "prompt_lens": [int(n) for n in lens],
-        "max_new_tokens": max_new, "steps": steps, "wall_s": wall,
-        "prefill_tokens": m.prefill_tokens.value,
-        "prefill_s": m.prefill_time.sum,
-        "prefill_tok_per_s": m.prefill_tokens.value / m.prefill_time.sum,
-        "decode_tokens": m.decode_tokens.value,
-        "decode_s": m.decode_step_time.sum,
-        "decode_tok_per_s": m.decode_tokens.value / m.decode_step_time.sum,
-        "ttft_p50_s": m.ttft.percentile(50),
-        "prefill_p50_s": m.prefill_time.percentile(50),
-        "itl_p50_s": m.itl.percentile(50),
-        "decode_step_p50_s": m.decode_step_time.percentile(50),
-        "peak_mem_bytes": peak,
-        "launches": counts,
-        "near_ties": ties, "near_tie_max_gap": worst_gap,
-    }
+    ties, worst_gap = teacher_forced(torch, dev, handles,
+                                     lambda ids: net(ids)[0], "serving")
+    res = serving_result(
+        eng, handles, lens, steps, wall, counts, peak, ties, worst_gap,
+        card=card, model=f"Llama-2-7B, {layers} layers, bf16, random "
+                         f"weights")
     log("serving: " + json.dumps(res))
     if profile_steps:
-        profile_decode(torch, np, eng, cfg, profile_steps)
+        profile_decode(torch, np, eng, cfg, profile_steps, "decode")
+    return counts
+
+
+def quant_serving_phase(torch, np, dev, card, profile_steps=0):
+    """Llama-2-7B at full width and depth, quantized: the serving phase's
+    random bf16 weights (seed 0) through quantize_for_serving in place,
+    an int8 KV arena of 1025 pages x 16 slots, the same 12 requests."""
+    import gc
+
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.generation import alloc_kv_caches
+    from paddle_tpu_torch.quantization import quantize_for_serving
+    from paddle_tpu_torch.serving import PagedServingEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = LlamaConfig.llama2_7b()
+    layers = cfg.num_hidden_layers
+    net = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    quantize_for_serving(net, inplace=True)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    weight_bytes = sum(b.numel() * b.element_size() for b in net.buffers())
+    log(f"quantized serving: Llama-2-7B, {layers} layers, int8 weights "
+        f"({weight_bytes / 1e9:.2f} GB with scales) + bf16 embeddings and "
+        f"norms, built and quantized in {time.perf_counter() - t_phase:.1f}"
+        f" s")
+    eng = PagedServingEngine(net, max_batch_size=8, max_seq_len=2048,
+                             page_size=16, cache_dtype="int8")
+    log(f"quantized serving: int8 page arena {eng.page_pool.num_pages + 1} "
+        f"pages x 16 slots, {eng.page_pool.arena_bytes() / 1e9:.2f} GB")
+    handles, lens, steps, wall, counts, peak = drive_requests(
+        torch, np, eng, cfg)
+    m = eng.metrics
+    n_decode, n_prefill = m.decode_step_time.count, m.prefill_time.count
+    want = {k: 0 for k in counts}
+    want.update(rms_norm=(2 * layers + 1) * (n_decode + n_prefill),
+                rope=layers * (n_decode + n_prefill),
+                paged_attention_int8=layers * n_decode,
+                int8_matmul=QUANT_MM_PER_FORWARD * (n_decode + n_prefill))
+    if counts != want:
+        fail(f"quantized serving: launches {counts}, expected {want} "
+             f"({n_decode} decode steps, {n_prefill} prefills)")
+
+    # teacher-forced check against one slab prefill of the whole sequence
+    # with an int8 cache: the same quantization on write, dequantized on
+    # read, composed attention
+    def slab_prefill(ids):
+        caches = alloc_kv_caches(cfg, 1, int(ids.shape[1]), "int8",
+                                 device=dev)
+        return net(ids, caches=caches, pos=0)[0][0]
+
+    ties, worst_gap = teacher_forced(torch, dev, handles, slab_prefill,
+                                     "quantized serving")
+    res = serving_result(
+        eng, handles, lens, steps, wall, counts, peak, ties, worst_gap,
+        card=card, model=f"Llama-2-7B, {layers} layers, int8 weights "
+                         f"(W8A16) and int8 KV cache, random weights",
+        weight_bytes=weight_bytes, decode_steps=n_decode,
+        prefills=n_prefill,
+        launches_per_decode_step={
+            "paged_attention_int8": layers,
+            "int8_matmul": QUANT_MM_PER_FORWARD},
+        phase_s=time.perf_counter() - t_phase)
+    log("quantized serving: " + json.dumps(res))
+    if profile_steps:
+        profile_decode(torch, np, eng, cfg, profile_steps, "decode_int8")
     return counts
 
 
@@ -861,7 +1132,10 @@ def profile_steps(torch, step_fn, steps):
             continue
         name = e.key
         low = name.lower()
-        group = ("paged_attention" if "paged_attention_kernel" in low
+        group = ("paged_attention_int8" if "paged_attention_kernel" in low
+                 and "signed char" in low
+                 else "int8_matmul" if "int8_matmul" in low
+                 else "paged_attention" if "paged_attention_kernel" in low
                  else "flash_attention_fwd" if "flash_fwd_kernel" in low
                  else "flash_attention_bwd" if "flash_bwd_" in low
                  else "rms_norm" if "rms_norm_fwd_kernel" in low
@@ -885,7 +1159,7 @@ def profile_steps(torch, step_fn, steps):
     }
 
 
-def profile_decode(torch, np, eng, cfg, steps):
+def profile_decode(torch, np, eng, cfg, steps, kind):
     """The decode-step profile with all 8 rows busy."""
     rng = np.random.RandomState(99)
     hs = [eng.submit(rng.randint(0, cfg.vocab_size, (int(n),)), 64)
@@ -893,7 +1167,7 @@ def profile_decode(torch, np, eng, cfg, steps):
     while any(h.status == "QUEUED" for h in hs):
         eng.step()
     prof = profile_steps(torch, eng.step, steps)
-    log("profile: " + json.dumps(dict(prof, rows=8, kind="decode")))
+    log("profile: " + json.dumps(dict(prof, rows=8, kind=kind)))
     eng.run_until_idle()
     if eng.page_pool.pages_in_use:
         fail("pages leaked after the profiled steps")
@@ -902,8 +1176,9 @@ def profile_decode(torch, np, eng, cfg, steps):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile-steps", type=int, default=0,
-                    help="after the serving phase, profile this many "
-                         "decode steps with every row busy")
+                    help="after each serving phase (bf16, quantized), "
+                         "profile this many decode steps with every row "
+                         "busy")
     ap.add_argument("--profile-train-steps", type=int, default=0,
                     help="after the training phase, profile this many "
                          "more training steps")
@@ -950,7 +1225,9 @@ def main():
             ("paged_attention", "paged_attention", paged_cases),
             ("rms_norm_bwd", "rms_norm", rms_norm_bwd_cases),
             ("rope_bwd", "rope", rope_bwd_cases),
-            ("flash_attention", "flash_attention", flash_cases)):
+            ("flash_attention", "flash_attention", flash_cases),
+            ("paged_attention_int8", "paged_attention", paged_int8_cases),
+            ("int8_matmul", "int8_matmul", int8_matmul_cases)):
         cases = cases_fn(torch, getattr(kernels, modname), dev)
         torch.cuda.synchronize()
         named = (dict(zip(("flash_attention_fwd", "flash_attention_bwd"),
@@ -975,6 +1252,8 @@ def main():
     train_counts = training_phase(torch, np, dev, card,
                                   args.profile_train_steps)
     serve_counts = serving_phase(torch, np, dev, card, args.profile_steps)
+    quant_counts = quant_serving_phase(torch, np, dev, card,
+                                       args.profile_steps)
 
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "paddle_tpu."))
@@ -985,15 +1264,18 @@ def main():
     line = []
     for name, src, replaces in KERNELS:
         # the first case is the main path's shape: bf16 at the decode
-        # shape for the serving kernels, the training shape for the rest
+        # shape for the serving kernels (the W8A16 matmul: q/k/v/o's
+        # [8, 4096] x [4096, 4096]), the training shape for the rest
         # (fp32 [4096, 4096] for the RMSNorm backward, the O1 residual)
         main_case = results[name][0]
+        by_phase = {"serving": serve_counts[name],
+                    "training": train_counts[name],
+                    "quantized_serving": quant_counts[name]}
         line.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": serve_counts[name] + train_counts[name],
-            "launches_by_phase": {"serving": serve_counts[name],
-                                  "training": train_counts[name]},
+            "launches": sum(by_phase.values()),
+            "launches_by_phase": by_phase,
             "max_abs_err": main_case["max_abs_err"],
             "tolerance": main_case["tolerance"],
             "err_over_tol": main_case.get("err_over_tol"),

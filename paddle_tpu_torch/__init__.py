@@ -4,10 +4,12 @@ This package stands beside ``paddle_tpu`` (the JAX reference, which it
 never imports) and mirrors its module paths. It serves and trains the
 Llama family: the model (``models.llama``), KV-cache generation
 (``models.generation``), the slab and paged continuous-batching engines
-(``serving``), and the train step (``jit.CompiledTrainStep`` with
+(``serving``), quantized serving (int8 KV caches and int8 weights,
+``quantization``), and the train step (``jit.CompiledTrainStep`` with
 ``optimizer`` and ``amp``), with hand-written Hopper kernels for RMSNorm
-and rope (forward and backward), paged decode attention and flash
-attention (forward and backward) (``kernels``, sources in ``csrc/``).
+and rope (forward and backward), paged decode attention (float and int8
+arenas), flash attention (forward and backward) and the W8A16 matmul
+(``kernels``, sources in ``csrc/``).
 
 Entry points run on the first CUDA card unless the caller passes
 ``device="cpu"``; without a card and without a device they raise.

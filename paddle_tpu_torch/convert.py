@@ -4,7 +4,10 @@ Parameter names and layouts are the same in both packages (Paddle's
 names, ``[in, out]`` Linear weights, one fused ``[H, 2 * FFN]``
 gate+up matrix), so conversion is a dtype and device move per array.
 The JAX side gives ``{k: np.asarray(p.value) for k, p in
-net.named_parameters()}``.
+net.named_parameters()}``. A model that ``quantize_for_serving`` has
+converted (in both packages) also carries its ``QuantizedLinear``
+buffers, ``weight_q`` (int8) and ``weight_scale`` (fp32): add the JAX
+side's ``named_buffers()`` to the dict, and they cross as they are.
 """
 from __future__ import annotations
 
@@ -33,11 +36,21 @@ def state_dict_from_numpy(arrays, config=None, device=None,
     return out
 
 
-def load_numpy_state(net, arrays):
-    """Load ``{name: np.ndarray}`` into ``net`` in place (in the net's
-    device and dtype). Raises ``KeyError`` on a missing or an extra name
-    and ``ValueError`` on a wrong shape; nothing is loaded then."""
+def _named_state(net):
+    """Every parameter and buffer of ``net`` by name."""
     own = dict(net.named_parameters())
+    own.update(net.named_buffers())
+    return own
+
+
+def load_numpy_state(net, arrays):
+    """Load ``{name: np.ndarray}`` into ``net``'s parameters and buffers
+    in place (floating arrays in each tensor's device and dtype; integer
+    arrays, the int8 weight codes, unchanged). Raises ``KeyError`` on a
+    missing or an extra name, ``ValueError`` on a wrong shape and
+    ``TypeError`` on a float array for an integer tensor; nothing is
+    loaded then."""
+    own = _named_state(net)
     missing = sorted(set(own) - set(arrays))
     extra = sorted(set(arrays) - set(own))
     if missing or extra:
@@ -48,15 +61,24 @@ def load_numpy_state(net, arrays):
     ]
     if bad:
         raise ValueError("state shape mismatch: " + "; ".join(bad))
-    sd = state_dict_from_numpy(arrays, device=net.device, dtype=net.dtype)
+    src = {}
+    for k, p in own.items():
+        a = np.asarray(arrays[k])
+        is_float = a.dtype.kind == "f" or a.dtype.name == "bfloat16"
+        if is_float != p.dtype.is_floating_point:
+            raise TypeError(f"{k}: array of {a.dtype} for a {p.dtype} "
+                            f"tensor")
+        src[k] = torch.tensor(np.asarray(a, np.float32) if is_float else a)
     with torch.no_grad():
         for k, p in own.items():
-            p.copy_(sd[k])
+            p.copy_(src[k])
     return net
 
 
 def numpy_state(net):
     """The inverse of :func:`load_numpy_state`: ``{name: np.ndarray}`` of
-    every parameter, as fp32 host arrays (numpy has no bfloat16)."""
-    return {k: p.detach().float().cpu().numpy()
-            for k, p in net.named_parameters()}
+    every parameter and buffer, floating ones as fp32 host arrays (numpy
+    has no bfloat16), integer ones unchanged."""
+    return {k: (p.detach().float() if p.dtype.is_floating_point
+                else p.detach()).cpu().numpy()
+            for k, p in _named_state(net).items()}

@@ -14,11 +14,14 @@
 namespace ptt {
 
 // dtype codes, shared with paddle_tpu_torch/kernels/_build.py DTYPE_CODES
-enum DType : int { kF32 = 0, kBF16 = 1 };
+enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_float(int8_t v) {
+  return static_cast<float>(v);
 }
 
 template <typename T>
@@ -34,7 +37,8 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
 }
 
 // Load N consecutive elements of T starting at p (aligned to N*sizeof(T)
-// bytes, at most 16) as floats, in 16-, 8- or 4-byte transactions.
+// bytes, at most 16) as floats, in 16-, 8- or 4-byte transactions (an
+// int8 element becomes its exact integer value).
 template <typename T, int N>
 __device__ __forceinline__ void load_floats(const T* __restrict__ p,
                                             float (&out)[N]) {
@@ -50,6 +54,11 @@ __device__ __forceinline__ void load_floats(const T* __restrict__ p,
     }
   } else if constexpr (kBytes == 8) {
     const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const T* v = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int j = 0; j < N; ++j) out[j] = to_float(v[j]);
+  } else if constexpr (kBytes == 4) {
+    const uint32_t raw = *reinterpret_cast<const uint32_t*>(p);
     const T* v = reinterpret_cast<const T*>(&raw);
 #pragma unroll
     for (int j = 0; j < N; ++j) out[j] = to_float(v[j]);

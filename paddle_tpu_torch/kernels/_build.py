@@ -59,6 +59,12 @@ SIGNATURES = {
     # head_dim, page_size, table_width, q_dtype, kv_dtype, scale, stream
     "ptt_paged_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _F, _P],
+    # q, k_q, k_scale, v_q, v_scale, table, pos, out, batch, heads,
+    # kv_heads, head_dim, page_size, table_width, q_dtype, scale, stream
+    "ptt_paged_attention_int8_fwd": [_P] * 8 + [_I] * 7 + [_F, _P],
+    # x, w_q, scale, out, partial (or null), rows, K, N, kchunk, x_dtype,
+    # stream
+    "ptt_int8_matmul": [_P] * 5 + [_I] * 5 + [_P],
     # q, k, v, o, lse, batch, heads, sq, sk, head_dim, (batch, seq, head)
     # strides of q, k, v, causal, scale, dtype, stream
     "ptt_flash_attention_fwd": [_P] * 5 + [_I] * 5 + [_L] * 9
@@ -70,7 +76,7 @@ SIGNATURES = {
 }
 
 # dtype codes shared with csrc/common.cuh
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 _LIB = None
 _LOCK = threading.Lock()

@@ -19,11 +19,12 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..quantization.kv import INT8_SLICE
+from ..quantization.kv import QUANT_CACHE_DTYPES, alloc_quantized
 
 DEFAULT_CACHE_DTYPE = "bfloat16"
-ALLOWED_CACHE_DTYPES = ("float32", "bfloat16")
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+ALLOWED_CACHE_DTYPES = ("float32", "bfloat16") + QUANT_CACHE_DTYPES
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "int8": torch.int8}
 
 
 def filter_logits(logits, temperature, top_k, top_p):
@@ -60,8 +61,8 @@ def _select_next(logits, do_sample, temperature, top_k, top_p, keys=None):
 
 def normalize_cache_dtype(cache_dtype):
     """``cache_dtype`` knob -> canonical name; ``None`` is the default.
-    int8 is not ported yet (NotImplementedError); any other unknown
-    dtype is a ValueError naming the allowed set."""
+    ``"int8"`` is the quantized cache (:class:`QuantizedKV` pairs); any
+    other dtype is a ValueError naming the allowed set."""
     if cache_dtype is None:
         return DEFAULT_CACHE_DTYPE
     if isinstance(cache_dtype, torch.dtype):
@@ -76,8 +77,6 @@ def normalize_cache_dtype(cache_dtype):
                 f"unknown cache_dtype {cache_dtype!r}; allowed: "
                 f"{ALLOWED_CACHE_DTYPES}"
             ) from None
-    if name == "int8":
-        raise NotImplementedError(f"cache_dtype='int8': {INT8_SLICE}")
     if name not in ALLOWED_CACHE_DTYPES:
         raise ValueError(
             f"cache_dtype {cache_dtype!r} is not a supported KV-cache "
@@ -93,10 +92,13 @@ def cache_torch_dtype(cache_dtype):
 def alloc_kv_caches(cfg, B, S_max, cache_dtype=None, device=None):
     """Per-layer zeroed KV buffers ``[B, S_max, kvH, D]`` x2 on
     ``device`` (``generation.py:105``; None: the first CUDA card, or a
-    raise without one)."""
+    raise without one); ``QuantizedKV`` pairs for ``"int8"``."""
     device = resolve_device(device)
     dtype = cache_torch_dtype(cache_dtype)
     shape = (B, S_max, cfg.kv_heads, cfg.head_dim)
+    if dtype == torch.int8:
+        return [(alloc_quantized(shape, device), alloc_quantized(shape, device))
+                for _ in range(cfg.num_hidden_layers)]
     return [
         (torch.zeros(shape, dtype=dtype, device=device),
          torch.zeros(shape, dtype=dtype, device=device))
@@ -140,7 +142,8 @@ def generate(net, input_ids, max_new_tokens=32, do_sample=False,
     ``[B, S + max_new_tokens]`` on the net's device. Rows that emitted
     ``eos_token_id`` keep emitting it. ``cache_dtype`` is the KV storage
     dtype (bf16 by default; ``"float32"`` for exact parity with the
-    cache-free forward of an fp32 net). Sampled row ``b`` draws as the
+    cache-free forward of an fp32 net; ``"int8"`` for the quantized
+    cache). Sampled row ``b`` draws as the
     ``b``-th request of a serving engine seeded with ``seed`` would."""
     if max_new_tokens < 1:
         raise ValueError("max_new_tokens must be >= 1")

@@ -10,24 +10,29 @@ JAX model, so a state dict crosses between the packages unchanged
 - q and k rotate through the rope kernel in one launch per layer
   (``kernels/rope.py``), with per-row position ids looked up inside it;
 - the paged decode step attends through the paged attention kernel
-  (``kernels/paged_attention.py``);
+  (``kernels/paged_attention.py``), its int8 flavour over an int8
+  (``QuantizedKV``) arena;
 - the cache-free forward without a mask (training, and the serving
   checks' reference) attends through the flash attention kernels
   (``kernels/flash_attention.py``), as the JAX model does on its
   accelerator;
 - prefill and the slab decode step attend through the composed masked
   attention (plain PyTorch, the op order of the JAX ``_sdpa_ref``), as
-  the JAX model does whenever a mask is given;
+  the JAX model does whenever a mask is given; an int8 slab cache
+  dequantizes to the compute dtype on read;
 - the projections and the head are ``torch.matmul``, the plain products
-  XLA ran.
+  XLA ran, or, after ``quantization.quantize_for_serving``, the W8A16
+  kernel (``kernels/int8_matmul.py``) of each ``QuantizedLinear``.
 
 The RMSNorm, rope and flash attention kernels have backward kernels
 (``torch.autograd.Function``), so the cache-free forward carries
 gradients; :func:`causal_lm_loss` is the training loss.
 
-Caches are written in place (see ``quantization/kv.py``). The tune-cache
-opt-ins of the JAX model (the fused rope+attention and the fused
-norm+head) are not ported: they have no measured entries there either.
+Caches, float or int8, are written in place (see
+``quantization/kv.py``). The tune-cache opt-ins of the JAX model (the
+fused rope+attention and the fused norm+head) are not ported: they have
+no measured entries there either, and a quantized head has no fused
+norm+head at all (``llama.py:434-448``).
 """
 from __future__ import annotations
 

@@ -2,7 +2,8 @@
 ``paddle_tpu/serving/paged_pool.py``).
 
 K/V live in a page arena (``[num_pages + 1, page_size, kvH, D]`` per
-layer x2) and a request claims only ``ceil(total_tokens / page_size)``
+layer x2; an int8 arena is a ``QuantizedKV`` with ``[num_pages + 1,
+page_size, kvH]`` fp32 scales beside the values) and a request claims only ``ceil(total_tokens / page_size)``
 pages. Page id **0 is the reserved garbage page**: unallocated table
 entries and free decode rows point at it, and it sits behind the
 position mask (the paged attention kernel never reads it inside a row's
@@ -17,6 +18,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.generation import cache_torch_dtype
+from ..quantization.kv import alloc_quantized, kv_token_bytes
 
 
 class PagesExhausted(RuntimeError):
@@ -60,10 +62,15 @@ class PagedKVPool:
         return -(-self.max_seq_len // self.page_size)
 
     def alloc_arena_arrays(self):
-        """Zeroed ``[num_pages + 1, page_size, kvH, D]`` x2 per layer."""
+        """Zeroed ``[num_pages + 1, page_size, kvH, D]`` x2 per layer
+        (``QuantizedKV`` pairs for an int8 pool)."""
         cfg = self.config
         shape = (self.num_pages + 1, self.page_size, cfg.kv_heads,
                  cfg.head_dim)
+        if self.dtype == torch.int8:
+            return [(alloc_quantized(shape, self.device),
+                     alloc_quantized(shape, self.device))
+                    for _ in range(cfg.num_hidden_layers)]
         return [
             (torch.zeros(shape, dtype=self.dtype, device=self.device),
              torch.zeros(shape, dtype=self.dtype, device=self.device))
@@ -111,11 +118,11 @@ class PagedKVPool:
         self.releases += len(ids)
 
     def page_bytes(self):
-        """Device bytes of one page across every layer's K and V."""
+        """Device bytes of one page across every layer's K and V (an
+        int8 page counts its fp32 scales)."""
         cfg = self.config
-        item = torch.empty((), dtype=self.dtype).element_size()
-        return (2 * cfg.num_hidden_layers * self.page_size * cfg.kv_heads
-                * cfg.head_dim * item)
+        return (2 * cfg.num_hidden_layers * self.page_size
+                * kv_token_bytes(cfg.kv_heads, cfg.head_dim, self.dtype))
 
     def arena_bytes(self):
         return (self.num_pages + 1) * self.page_bytes()

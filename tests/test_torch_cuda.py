@@ -15,7 +15,11 @@ run in other orders): fp32 within 1e-4 of the largest entry for sums
 over rows (RMSNorm dw, flash dK/dV/dQ, which cancel) and 1e-5
 elsewhere; bf16 entry by entry, within 2^-7 of the entry (one to two
 of its ulps: the cast may round the two sides one ulp apart) plus that
-fp32 tolerance, by which the values before the cast may differ.
+fp32 tolerance, by which the values before the cast may differ. The
+int8 paged attention kernel: as the float one (both sides dequantize in
+fp32 the same way). The W8A16 matmul: cast once, fp32 1e-5 of the
+largest entry (fp32 sums over K in another order), bf16 entry by entry
+as above.
 """
 import numpy as np
 import pytest
@@ -23,6 +27,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from paddle_tpu_torch.kernels import flash_attention as tfa  # noqa: E402
+from paddle_tpu_torch.kernels import int8_matmul as tim  # noqa: E402
 from paddle_tpu_torch.kernels import paged_attention as tpa  # noqa: E402
 from paddle_tpu_torch.kernels import rms_norm as trms  # noqa: E402
 from paddle_tpu_torch.kernels import rope as trope  # noqa: E402
@@ -124,6 +129,77 @@ def test_paged_attention_kernel_mixed_dtypes(dev):
                 tpa.paged_attention_reference(*args)) <= 1e-5
     with pytest.raises(TypeError, match="arenas"):
         tpa.paged_attention(q, kp.float(), vp.float(), tbl, pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("kvh", [8, 2])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_int8_paged_attention_kernel(dev, dtype, kvh, d):
+    from paddle_tpu_torch.quantization.kv import QuantizedKV, quantize_kv
+
+    q, kp, vp, tbl, pos = _arena(dev, torch.float32, kvh, d,
+                                 seed=kvh * 100 + d)
+    kq, vq = QuantizedKV(*quantize_kv(kp)), QuantizedKV(*quantize_kv(vp))
+    q = q.to(DTYPES[dtype])
+    before = tpa.int8_launches
+    got = tpa.paged_attention(q, kq, vq, tbl, pos)
+    assert tpa.int8_launches == before + 1
+    want = tpa.paged_attention_reference(q, kq, vq, tbl, pos)
+    assert got.dtype == q.dtype and torch.isfinite(got).all()
+    assert _err(got, want) <= PAGED[dtype]
+
+
+@pytest.mark.cuda
+def test_int8_paged_attention_refuses(dev):
+    from paddle_tpu_torch.quantization.kv import QuantizedKV, quantize_kv
+
+    q, kp, vp, tbl, pos = _arena(dev, torch.float32, 2, 64, seed=7)
+    kq, vq = QuantizedKV(*quantize_kv(kp)), QuantizedKV(*quantize_kv(vp))
+    with pytest.raises(TypeError, match="float32 or bfloat16 q"):
+        tpa.paged_attention(q.half(), kq, vq, tbl, pos)
+    bad = QuantizedKV(kq.q, kq.scale[..., :1].contiguous())
+    with pytest.raises(ValueError, match="scales"):
+        tpa.paged_attention(q, bad, vq, tbl, pos)
+    with pytest.raises(ValueError, match="share quantization"):
+        tpa.paged_attention(q, kq, vp, tbl, pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("rows", [1, 3, 8, 17, 130])
+def test_int8_matmul_kernel(dev, dtype, rows):
+    """K 1040 (three K chunks of the narrow kernel, the last ragged), N
+    200 (not a multiple of the 128-column tile)."""
+    g = torch.Generator(device=dev).manual_seed(rows)
+    k, n = 1040, 200
+    x = torch.randn(rows, k, generator=g, device=dev).to(DTYPES[dtype])
+    wq, sc = tim.quantize_weight(torch.randn(k, n, generator=g, device=dev))
+    before = tim.launches
+    y = tim.int8_matmul(x, wq, sc)
+    assert tim.launches == before + 1
+    ref = tim.int8_matmul_reference(x, wq, sc)
+    assert y.dtype == x.dtype and y.shape == (rows, n)
+    assert torch.isfinite(y).all()
+    assert _cast_once_ok(y, ref, 1e-5)
+    # no atomics: a second run is bit-equal
+    assert torch.equal(y, tim.int8_matmul(x, wq, sc))
+
+
+@pytest.mark.cuda
+def test_int8_matmul_leading_dims_and_refusals(dev):
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(2, 5, 64, generator=g, device=dev)
+    wq, sc = tim.quantize_weight(torch.randn(64, 48, generator=g, device=dev))
+    y = tim.int8_matmul(x, wq, sc)
+    assert y.shape == (2, 5, 48)
+    assert _cast_once_ok(y, tim.int8_matmul_reference(x, wq, sc), 1e-5)
+    with pytest.raises(TypeError, match="float32 or bfloat16 x"):
+        tim.int8_matmul(x.half(), wq, sc)
+    with pytest.raises(TypeError, match="int8 weight"):
+        tim.int8_matmul(x, wq.float(), sc)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tim.int8_matmul(x[..., :60], wq[:60], sc)
 
 
 @pytest.mark.cuda
@@ -257,3 +333,33 @@ def test_tiny_paged_engine_matches_generate(dev):
                             cache_dtype="float32")[0].cpu().numpy()
         np.testing.assert_array_equal(h.output_ids, want)
     assert eng.page_pool.pages_in_use == 0
+
+
+@pytest.mark.cuda
+def test_tiny_int8_engines_match_generate(dev):
+    """A quantized tiny model (W8A16 kernel) with int8 caches: the paged
+    engine (int8 paged kernel) and the slab engine stream what
+    ``generate(cache_dtype="int8")`` gives."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.quantization import quantize_for_serving
+    from paddle_tpu_torch.serving import PagedServingEngine, ServingEngine
+
+    cfg = LlamaConfig.tiny(vocab_size=256, hidden_size=256,
+                           intermediate_size=512, num_attention_heads=4,
+                           num_key_value_heads=2)
+    net = quantize_for_serving(LlamaForCausalLM(cfg, device=dev, seed=4),
+                               inplace=True)
+    rng = np.random.RandomState(6)
+    prompts = [rng.randint(0, 256, (n,)) for n in (9, 17, 30, 5)]
+    wants = [net.generate(p[None], max_new_tokens=10, cache_dtype="int8")
+             [0].cpu().numpy() for p in prompts]
+    for eng in (PagedServingEngine(net, max_batch_size=2, max_seq_len=64,
+                                   page_size=8, min_bucket=8,
+                                   cache_dtype="int8"),
+                ServingEngine(net, max_batch_size=2, max_seq_len=64,
+                              min_bucket=8, cache_dtype="int8")):
+        handles = [eng.submit(p, 10) for p in prompts]
+        eng.run_until_idle()
+        for h, want in zip(handles, wants):
+            np.testing.assert_array_equal(h.output_ids, want)
+        assert eng.pool.occupancy == 0

@@ -347,12 +347,17 @@ def test_entry_points_raise_without_device():
 
 
 def test_cache_dtype_int8_not_ported():
+    """int8, once refused here, is now an accepted cache dtype (the
+    quantized cache, tests/test_torch_quant.py); an unknown dtype still
+    raises ValueError naming the allowed set."""
     from paddle_tpu_torch.models.generation import normalize_cache_dtype
 
-    with pytest.raises(NotImplementedError, match="int8"):
-        normalize_cache_dtype("int8")
+    assert normalize_cache_dtype("int8") == "int8"
+    assert normalize_cache_dtype(torch.int8) == "int8"
     with pytest.raises(ValueError, match="allowed"):
         normalize_cache_dtype("float16")
+    with pytest.raises(ValueError, match="cache_dtype"):
+        normalize_cache_dtype("floatnope")
     assert normalize_cache_dtype(None) == "bfloat16"
     assert normalize_cache_dtype(torch.float32) == "float32"
 
