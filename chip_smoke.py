@@ -50,6 +50,19 @@ It imports neither jax nor ``paddle_tpu``. Phases, each fatal on failure:
    sequence with an int8 cache (the same quantization, composed
    attention).
 
+The float fusions (``LlamaForCausalLM.fusions``) add: their two kernels
+to phase 3 (timed also beside the unfused pair of kernels they replace);
+a fused tiny fp32 Llama's logits on the card against the CPU after phase
+4; after phase 6, the same model reset to its seed, 3 O1 steps with both
+fusions (step-1 loss within 1e-3 of the unfused one, the last loss below
+the first, per step the fused attention 8, the fused head 1, RMSNorm
+16 + 16 and no rope or flash launch); after phase 7, the same model and
+engine with both fusions serving the same 12 requests (per decode step
+the fused head 1, RMSNorm 64, rope 32, paged attention 32; no page leak)
+and its teacher-forced check through the fused cache-free forward (the
+fused attention 32 times a sequence, no flash), with the count of tokens
+that differ from the unfused streams printed.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
 rest of the repository beside it, the script exits non-zero and prints
@@ -101,6 +114,14 @@ NEAR_TIE = 0.125
 #   before the cast differ by that much, so the cast may round them one
 #   ulp apart; at the bottom of a binade that comes to just under the
 #   entry's tolerance).
+# - the fused RMSNorm + matmul and rope + attention: cast once with the
+#   1e-4 fp32 tolerance (products over K = 4096, attention over up to
+#   2048 keys). The fused head rounds its normed row to x's dtype BEFORE
+#   the product, and the kernel's rstd (its own sum of squares) can send
+#   an entry near a rounding midpoint the other way: each bf16 entry also
+#   gets that entry's slack, the sum over such k of ulp(y_k) * |wm_kn|
+#   (``fused_norm_matmul.normed_rounding_slack``, for rstd within 2^-20
+#   relative; zero in fp32).
 REL_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
 PAGED_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 SUM_TOL32 = 1e-4
@@ -160,33 +181,39 @@ def max_err(torch, a, b):
     return float((a.float() - b.float()).abs().max())
 
 
-def cast_once(name, got, want, tol32, dname):
+def cast_once(name, got, want, tol32, dname, slack=None):
     """The check of an output that both sides compute in fp32 and cast
     once: fp32 within ``tol32 * max|want|``; bf16 entry by entry within
-    2^-7 of the entry plus that fp32 tolerance."""
+    2^-7 of the entry plus that fp32 tolerance. ``slack`` (per entry)
+    adds what the inputs' own rounding before the product may move an
+    entry by (the fused head's normed row)."""
     if dname == "float32":
-        return name, got, want, tol32, None
-    return name, got, want, 2.0 ** -7, tol32
+        return name, got, want, tol32, None, slack
+    return name, got, want, 2.0 ** -7, tol32, slack
 
 
 def checks(torch, pairs):
     """[{output, max_abs_err, tolerance, err_over_tol}] for (name, got,
-    want, rel, floor): with ``floor`` None every entry is held to ``rel *
-    max|want|``; else entry i to ``rel * |want_i| + floor * max|want|``,
-    and ``tolerance`` is the largest of those. ``err_over_tol`` is the
-    largest ratio of an entry's error to its tolerance (a check passes at
-    <= 1). Returns the checks and the tightest one, whose numbers the case
+    want, rel, floor[, slack]): with ``floor`` None every entry is held
+    to ``rel * max|want|``; else entry i to ``rel * |want_i| + floor *
+    max|want|``; a per-entry ``slack`` is added to either. ``tolerance``
+    is the largest entry's tolerance. ``err_over_tol`` is the largest
+    ratio of an entry's error to its tolerance (a check passes at <= 1).
+    Returns the checks and the tightest one, whose numbers the case
     reports."""
     out = []
-    for n, g, w, rel, floor in pairs:
+    for n, g, w, rel, floor, *extra in pairs:
+        slack = extra[0] if extra else None
         err = (g.float() - w.float()).abs()
         ref = w.float().abs()
         top = float(ref.max())
-        if floor is None:
+        if floor is None and slack is None:
             tol = rel * top
             ratio = float(err.max()) / max(tol, 1e-30)
         else:
-            tol_i = rel * ref + floor * top
+            tol_i = rel * top if floor is None else rel * ref + floor * top
+            if slack is not None:
+                tol_i = tol_i + slack
             tol = float(tol_i.max())
             ratio = float((err / tol_i).max())
         out.append({"output": n, "max_abs_err": float(err.max()),
@@ -664,6 +691,141 @@ def flash_cases(torch, mod, dev):
     return fwd, bwd
 
 
+# the fused RMSNorm + matmul at the Llama head's shapes: the bf16 decode
+# head (its weight alone is past the L2, and is cycled like the W8A16
+# case's), a bf16 prefill bucket, and the O1 training head (fp32: the op
+# is on neither AMP list, so it gets the fp32 residual and weights)
+NORM_MATMUL_SHAPES = (("bfloat16", 8), ("bfloat16", 1024),
+                      ("float32", TRAIN_BATCH * TRAIN_SEQ))
+
+
+def norm_matmul_cases(torch, mod, dev):
+    """The fused norm + head against its plain version; timed beside
+    the unfused path (the port's RMSNorm kernel, then torch.matmul)."""
+    from paddle_tpu_torch.kernels import rms_norm as rms
+
+    out = []
+    g = torch.Generator(device=dev).manual_seed(11)
+    h, n = 4096, 32000
+    for dname, rows in NORM_MATMUL_SHAPES:
+        dtype = getattr(torch, dname)
+        x = torch.randn(rows, h, generator=g, device=dev).to(dtype)
+        w = (1 + 0.1 * torch.randn(h, generator=g, device=dev)).to(dtype)
+        wm = (0.02 * torch.randn(h, n, generator=g, device=dev)).to(dtype)
+        y = mod.rms_norm_matmul_cuda(x, w, wm, 1e-5)
+        ref = mod.rms_norm_matmul_reference(x, w, wm, 1e-5)
+        if not torch.isfinite(y).all():
+            fail(f"rms_norm_matmul {dname} {[rows, h, n]} produced "
+                 f"non-finite values")
+        if not torch.equal(y, mod.rms_norm_matmul_cuda(x, w, wm, 1e-5)):
+            fail(f"rms_norm_matmul {dname} {[rows, h, n]} does not repeat "
+                 f"bit for bit")
+        # the normed row is rounded to x's dtype before the product, and
+        # the kernel's rstd (its own sum of squares) may round an entry
+        # near a midpoint the other way: that entry's ulp times |wm| is
+        # the slack (zero in fp32)
+        slack = mod.normed_rounding_slack(x, w, wm, 1e-5)
+        cs, worst = checks(torch, [
+            cast_once("out", y, ref, SUM_TOL32, dname, slack)])
+        cs[0]["slack_max"] = float(slack.max())
+        del y, ref, slack
+        es = x.element_size()
+        b_ms, b_by = bound(rows * h * es + h * es + h * n * es
+                           + rows * n * es, 2 * rows * h * n + 4 * rows * h,
+                           dname)
+        copies = max(1, -(-L2_FLUSH_BYTES // (h * n * es)))
+        wms = [wm] + [wm.clone() for _ in range(copies - 1)]
+        n_t, reps = (20, 7) if rows <= 16 else (3, 3)
+        ms = gpu_time_ms(torch, cycled([
+            (lambda wi=wi: mod.rms_norm_matmul_cuda(x, w, wi, 1e-5))
+            for wi in wms]), n=n_t, repeats=reps)
+        unfused = gpu_time_ms(torch, cycled([
+            (lambda wi=wi: torch.matmul(rms.rms_norm_cuda(x, w, 1e-5), wi))
+            for wi in wms]), n=n_t, repeats=reps)
+        plain = gpu_time_ms(torch, lambda: mod.rms_norm_matmul_reference(
+            x, w, wm, 1e-5), n=3, repeats=3)
+        out.append({
+            "shape": {"rows": rows, "h": h, "n": n}, "dtype": dname,
+            "checks": cs, "max_abs_err": worst["max_abs_err"],
+            "tolerance": worst["tolerance"],
+            "err_over_tol": worst["err_over_tol"], "repeats_bitwise": True,
+            "weight_copies": copies, "ms": ms, "plain_ms": plain,
+            "library_ms": None, "unfused_ms": unfused,
+            "unfused_call": "the port's rms_norm kernel, then torch.matmul",
+            "bound_ms": b_ms, "bound_by": b_by,
+        })
+        del x, w, wm, wms
+        torch.cuda.empty_cache()
+    return out
+
+
+ROPE_ATTENTION_SHAPES = (
+    # dtype, causal, batch, S (heads 32, head_dim 128): the training shape
+    # in bf16 (the O1 projections' dtype) and fp32, a ragged tail, and a
+    # non-causal case
+    ("bfloat16", True, TRAIN_BATCH, TRAIN_SEQ),
+    ("float32", True, TRAIN_BATCH, TRAIN_SEQ),
+    ("bfloat16", True, 1, 1000),
+    ("bfloat16", False, 1, 1024),
+)
+
+
+def rope_attention_cases(torch, mod, dev):
+    """The rope-on-load attention against its plain version; timed
+    beside the unfused path (the port's rope kernel, then its flash
+    forward kernel)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import rope
+
+    out = []
+    h, d = 32, 128
+    g = torch.Generator(device=dev).manual_seed(12)
+    cos_full, sin_full = rope.build_rope_cache(4096, d, device=dev)
+    for dname, causal, b, s in ROPE_ATTENTION_SHAPES:
+        dtype = getattr(torch, dname)
+        q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
+                   for _ in range(3))
+        # leading rows of a longer table, as the model passes them
+        cos, sin = cos_full[:, :s], sin_full[:, :s]
+        o = mod.rope_attention_cuda(q, k, v, cos, sin, causal)
+        ref = mod.rope_attention_reference(q, k, v, cos, sin, causal)
+        if not torch.isfinite(o).all():
+            fail(f"rope_attention {dname} produced non-finite values")
+        cs, worst = checks(torch, [
+            cast_once("o", o, ref, SUM_TOL32, dname)])
+        del o, ref
+        pairs = _visible_pairs(s, s, causal) * b * h
+        es = q.element_size()
+        b_ms, b_by = bound(4 * b * s * h * d * es + 2 * s * (d // 2) * 4,
+                           4 * d * pairs + 2 * 6 * b * s * h * (d // 2),
+                           dname)
+
+        def unfused():
+            rq, rk = rope.rope_cuda(q, k, cos, sin)
+            fa.flash_attention_cuda(rq, rk, v, causal)
+
+        out.append({
+            "shape": {"b": b, "h": h, "d": d, "s": s, "causal": causal},
+            "dtype": dname, "checks": cs,
+            "max_abs_err": worst["max_abs_err"],
+            "tolerance": worst["tolerance"],
+            "err_over_tol": worst["err_over_tol"],
+            "ms": gpu_time_ms(torch, lambda: mod.rope_attention_cuda(
+                q, k, v, cos, sin, causal), n=5, repeats=5),
+            "plain_ms": gpu_time_ms(
+                torch, lambda: mod.rope_attention_reference(
+                    q, k, v, cos, sin, causal), n=3, repeats=3),
+            "library_ms": None,
+            "unfused_ms": gpu_time_ms(torch, unfused, n=5, repeats=5),
+            "unfused_call": "the port's rope kernel, then its flash "
+                            "forward kernel",
+            "bound_ms": b_ms, "bound_by": b_by,
+        })
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
 KERNELS = [
     # name, source, replaces (file:line of the TPU kernel)
     ("rms_norm", "paddle_tpu_torch/csrc/rms_norm.cu",
@@ -687,6 +849,10 @@ KERNELS = [
      "(int8 flavour _paged_kernel_quant :253)"),
     ("int8_matmul", "paddle_tpu_torch/csrc/int8_matmul.cu",
      "paddle_tpu/kernels/int8_matmul.py:84"),
+    ("rms_norm_matmul", "paddle_tpu_torch/csrc/fused_norm_matmul.cu",
+     "paddle_tpu/kernels/fused_norm_matmul.py:55"),
+    ("rope_attention", "paddle_tpu_torch/csrc/flash_attention.cu",
+     "paddle_tpu/kernels/fused_rope_attention.py:111"),
 ]
 # the kernels each main-path phase must launch
 SERVING_KERNELS = ("rms_norm", "rope", "paged_attention")
@@ -698,7 +864,26 @@ TRAIN_PER_STEP = {
     "rope": TRAIN_LAYERS, "rope_bwd": TRAIN_LAYERS,
     "flash_attention_fwd": TRAIN_LAYERS, "flash_attention_bwd": TRAIN_LAYERS,
     "paged_attention": 0, "paged_attention_int8": 0, "int8_matmul": 0,
+    "rms_norm_matmul": 0, "rope_attention": 0,
 }
+# the same with both fusions: the final norm goes into the fused head, and
+# rope + flash into the fused attention, whose backward (like the head's)
+# is the plain version's VJP and launches no kernel
+FUSED_TRAIN_PER_STEP = dict(
+    TRAIN_PER_STEP, rms_norm=2 * TRAIN_LAYERS,
+    rms_norm_bwd=2 * TRAIN_LAYERS, rope=0, rope_bwd=0,
+    flash_attention_fwd=0, flash_attention_bwd=0, rms_norm_matmul=1,
+    rope_attention=TRAIN_LAYERS)
+FUSED_TRAIN_STEPS = 3
+BOTH_FUSIONS = ("rms_norm_matmul", "rope_attention")
+# the fused O1 training step-1 loss against the unfused one, relative: the
+# unfused head multiplies in bf16 (``linear`` is white-listed) and rounds
+# the logits to bf16, and the unfused rope rounds the rotated q and k to
+# bf16; the fused path keeps all three in fp32, as the JAX package does.
+# Round-to-nearest errors of 2^-9 per logit average out over 4096 tokens;
+# the bound is the one the CPU O1 trajectory test holds against JAX
+# (tests/test_torch_train.py, 1e-3) for rounding at other places
+FUSED_LOSS_RTOL = 1e-3
 # W8A16 launches per forward of the quantized 7B (decode step or prefill):
 # q, k, v, o, gate+up and down in each of 32 layers, and the head
 QUANT_MM_PER_FORWARD = 6 * 32 + 1
@@ -759,6 +944,42 @@ def small_parity(torch, np, dev):
         "paged and slab engines == generate(cache_dtype='int8')")
 
 
+def fused_parity(torch, np, dev):
+    """A tiny fp32 MHA Llama (head_dim 64: the attention kernel refuses
+    16) with both fusions: its cache-free logits on the card against the
+    same model's on the CPU, 2e-5 absolute + 1e-4 relative (the CPU
+    tests' model bound)."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.convert import load_numpy_state, numpy_state
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.tiny(vocab_size=256, hidden_size=256,
+                           intermediate_size=512, num_hidden_layers=2,
+                           num_attention_heads=4)
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=13,
+                           fusions=BOTH_FUSIONS)
+    net = LlamaForCausalLM(cfg, device=dev, fusions=BOTH_FUSIONS)
+    load_numpy_state(net, numpy_state(cpu))
+    ids = np.random.RandomState(14).randint(0, 256, (2, 100))
+    with torch.inference_mode():
+        want = cpu(torch.as_tensor(ids)).numpy()
+        kernels.reset_launch_counts()
+        got = net(torch.as_tensor(ids, device=dev)).float().cpu().numpy()
+        counts = kernels.launch_counts()
+    if counts["rope_attention"] != cfg.num_hidden_layers \
+            or counts["rms_norm_matmul"] != 1 or counts["flash_attention_fwd"]:
+        fail(f"fused parity: launches {counts}")
+    err = np.abs(got - want)
+    tol = 2e-5 + 1e-4 * np.abs(want)
+    if not (err <= tol).all():
+        fail(f"fused parity: logits differ by {float(err.max())} (largest "
+             f"error over tolerance {float((err / tol).max())})")
+    log("fused parity: " + json.dumps({
+        "max_abs_err": float(err.max()),
+        "err_over_tol": float((err / tol).max()),
+        "tolerance": "2e-5 absolute + 1e-4 relative", "launches": counts}))
+
+
 # -------------------------------------------------- tiny train parity
 def _tiny_step(torch, np, cfg, dev, weights, ids):
     from paddle_tpu_torch.convert import load_numpy_state, numpy_state
@@ -796,9 +1017,10 @@ def tiny_train_parity(torch, np, dev):
     counts = kernels.launch_counts()
     loss_cpu, after_cpu = _tiny_step(torch, np, cfg, "cpu", weights, ids)
     loss_again, after_again = _tiny_step(torch, np, cfg, dev, weights, ids)
-    serving_only = ("paged_attention", "paged_attention_int8", "int8_matmul")
+    not_here = ("paged_attention", "paged_attention_int8", "int8_matmul",
+                *BOTH_FUSIONS)  # serving only, and the unfused model
     missing = [k for k, n in counts.items()
-               if n <= 0 and k not in serving_only]
+               if n <= 0 and k not in not_here]
     if missing:
         fail(f"tiny train parity: kernels not launched on the card: "
              f"{missing}")
@@ -899,9 +1121,80 @@ def training_phase(torch, np, dev, card, profile_train_steps=0):
         prof = profile_steps(torch, lambda: step([inputs], [labels]),
                              profile_train_steps)
         log("profile: " + json.dumps(dict(prof, kind="train")))
-    del step, opt, net, sched, loss
+    del step, opt, sched, loss
     gc.collect()
     torch.cuda.empty_cache()
+    fused_counts = fused_training(torch, np, net, inputs, labels, losses[0],
+                                  card, profile_train_steps)
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, fused_counts
+
+
+def fused_training(torch, np, net, inputs, labels, unfused_loss0, card,
+                   profile_train_steps=0):
+    """The training phase's model reset to its seed-0 weights, with both
+    fusions, a fresh AdamW and schedule: FUSED_TRAIN_STEPS O1 steps on the
+    same batch. Returns the launch counts of those steps."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.models import causal_lm_loss
+    from paddle_tpu_torch.optimizer import (AdamW, ClipGradByGlobalNorm,
+                                            LinearWarmup)
+
+    net.reset_parameters(0)
+    net.fusions = BOTH_FUSIONS
+    sched = LinearWarmup(3e-4, 3, 3e-5, 3e-4)
+    opt = AdamW(sched, parameters=net.named_parameters(), weight_decay=0.01,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    step = CompiledTrainStep(
+        net, lambda lo, lb: causal_lm_loss(lo, lb).mean(), opt,
+        amp_level="O1", amp_dtype="bfloat16")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(FUSED_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss, _ = step([inputs], [labels])
+        sched.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)):
+        fail(f"fused training: non-finite loss in {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"fused training: the last loss {losses[-1]} is not below the "
+             f"first {losses[0]} on a fixed batch")
+    rel = abs(losses[0] - unfused_loss0) / abs(unfused_loss0)
+    if not rel <= FUSED_LOSS_RTOL:
+        fail(f"fused training: step-1 loss {losses[0]}, unfused "
+             f"{unfused_loss0} (relative {rel} > {FUSED_LOSS_RTOL})")
+    want = {k: n * FUSED_TRAIN_STEPS for k, n in FUSED_TRAIN_PER_STEP.items()}
+    if counts != want:
+        fail(f"fused training: launches {counts}, expected {want} "
+             f"({FUSED_TRAIN_STEPS} steps)")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    p50 = statistics.median(times)
+    res = {
+        "card": card, "fusions": sorted(net.fusions),
+        "steps": FUSED_TRAIN_STEPS, "losses": losses, "step_s": times,
+        "step_p50_s": p50, "tokens_per_s": tokens / p50,
+        "step1_loss_unfused": unfused_loss0, "step1_loss_rel_diff": rel,
+        "step1_loss_rtol": FUSED_LOSS_RTOL, "peak_mem_bytes": peak,
+        "launches": counts,
+        "launches_per_step": {k: n / FUSED_TRAIN_STEPS
+                              for k, n in counts.items()},
+    }
+    log("fused training: " + json.dumps(res))
+    if profile_train_steps:
+        prof = profile_steps(torch, lambda: step([inputs], [labels]),
+                             profile_train_steps)
+        log("profile: " + json.dumps(dict(prof, kind="train_fused")))
+    net.fusions = ()
     return counts
 
 
@@ -1031,6 +1324,65 @@ def serving_phase(torch, np, dev, card, profile_steps=0):
     log("serving: " + json.dumps(res))
     if profile_steps:
         profile_decode(torch, np, eng, cfg, profile_steps, "decode")
+    fused_counts = fused_serving(torch, np, dev, card, net, eng, cfg,
+                                 handles, profile_steps)
+    return counts, fused_counts
+
+
+def fused_serving(torch, np, dev, card, net, eng, cfg, unfused_handles,
+                  profile_steps=0):
+    """The serving phase's model and engine with both fusions: the same
+    12 requests; per forward (decode step or prefill) the fused head once
+    and two RMSNorms a layer (no final norm). The teacher-forced check
+    runs the fused cache-free forward (rope_attention once a layer, no
+    flash). Returns the launch counts of the requests."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.serving.metrics import ServingMetrics
+
+    layers = cfg.num_hidden_layers
+    net.fusions = BOTH_FUSIONS
+    eng.metrics = ServingMetrics()  # this phase's numbers only
+    t_phase = time.perf_counter()
+    handles, lens, steps, wall, counts, peak = drive_requests(
+        torch, np, eng, cfg)
+    m = eng.metrics
+    n_decode, n_prefill = m.decode_step_time.count, m.prefill_time.count
+    want = {k: 0 for k in counts}
+    want.update(rms_norm=2 * layers * (n_decode + n_prefill),
+                rope=layers * (n_decode + n_prefill),
+                paged_attention=layers * n_decode,
+                rms_norm_matmul=n_decode + n_prefill)
+    if counts != want:
+        fail(f"fused serving: launches {counts}, expected {want} "
+             f"({n_decode} decode steps, {n_prefill} prefills)")
+    kernels.reset_launch_counts()
+    ties, worst_gap = teacher_forced(torch, dev, handles,
+                                     lambda ids: net(ids)[0],
+                                     "fused serving")
+    check_counts = kernels.launch_counts()
+    n_seq = len(handles)
+    want_check = {k: 0 for k in check_counts}
+    want_check.update(rms_norm=2 * layers * n_seq,
+                      rope_attention=layers * n_seq, rms_norm_matmul=n_seq)
+    if check_counts != want_check:
+        fail(f"fused serving: teacher-forced check launched "
+             f"{check_counts}, expected {want_check}")
+    differ = sum(int((np.asarray(a.output_ids) != np.asarray(
+        b.output_ids)).sum()) for a, b in zip(handles, unfused_handles))
+    res = serving_result(
+        eng, handles, lens, steps, wall, counts, peak, ties, worst_gap,
+        card=card, fusions=sorted(net.fusions), decode_steps=n_decode,
+        prefills=n_prefill,
+        launches_per_decode_step={
+            "rms_norm_matmul": 1, "rms_norm": 2 * layers, "rope": layers,
+            "paged_attention": layers},
+        check_launches=check_counts,
+        tokens_differing_from_unfused=differ,
+        phase_s=time.perf_counter() - t_phase)
+    log("fused serving: " + json.dumps(res))
+    if profile_steps:
+        profile_decode(torch, np, eng, cfg, profile_steps, "decode_fused")
+    net.fusions = ()
     return counts
 
 
@@ -1135,6 +1487,9 @@ def profile_steps(torch, step_fn, steps):
         group = ("paged_attention_int8" if "paged_attention_kernel" in low
                  and "signed char" in low
                  else "int8_matmul" if "int8_matmul" in low
+                 else "rms_norm_matmul" if "norm_matmul" in low
+                 else "rope_attention" if "flash_fwd_kernel" in low
+                 and "true" in low
                  else "paged_attention" if "paged_attention_kernel" in low
                  else "flash_attention_fwd" if "flash_fwd_kernel" in low
                  else "flash_attention_bwd" if "flash_bwd_" in low
@@ -1227,7 +1582,10 @@ def main():
             ("rope_bwd", "rope", rope_bwd_cases),
             ("flash_attention", "flash_attention", flash_cases),
             ("paged_attention_int8", "paged_attention", paged_int8_cases),
-            ("int8_matmul", "int8_matmul", int8_matmul_cases)):
+            ("int8_matmul", "int8_matmul", int8_matmul_cases),
+            ("rms_norm_matmul", "fused_norm_matmul", norm_matmul_cases),
+            ("rope_attention", "fused_rope_attention",
+             rope_attention_cases)):
         cases = cases_fn(torch, getattr(kernels, modname), dev)
         torch.cuda.synchronize()
         named = (dict(zip(("flash_attention_fwd", "flash_attention_bwd"),
@@ -1248,10 +1606,12 @@ def main():
             results[kname] = kcases
 
     small_parity(torch, np, dev)
+    fused_parity(torch, np, dev)
     tiny_train_parity(torch, np, dev)
-    train_counts = training_phase(torch, np, dev, card,
-                                  args.profile_train_steps)
-    serve_counts = serving_phase(torch, np, dev, card, args.profile_steps)
+    train_counts, fused_train_counts = training_phase(
+        torch, np, dev, card, args.profile_train_steps)
+    serve_counts, fused_serve_counts = serving_phase(
+        torch, np, dev, card, args.profile_steps)
     quant_counts = quant_serving_phase(torch, np, dev, card,
                                        args.profile_steps)
 
@@ -1265,12 +1625,15 @@ def main():
     for name, src, replaces in KERNELS:
         # the first case is the main path's shape: bf16 at the decode
         # shape for the serving kernels (the W8A16 matmul: q/k/v/o's
-        # [8, 4096] x [4096, 4096]), the training shape for the rest
-        # (fp32 [4096, 4096] for the RMSNorm backward, the O1 residual)
+        # [8, 4096] x [4096, 4096]; the fused head: [8, 4096] x [4096,
+        # 32000]), the training shape for the rest (fp32 [4096, 4096]
+        # for the RMSNorm backward, the O1 residual)
         main_case = results[name][0]
         by_phase = {"serving": serve_counts[name],
                     "training": train_counts[name],
-                    "quantized_serving": quant_counts[name]}
+                    "quantized_serving": quant_counts[name],
+                    "fused_serving": fused_serve_counts[name],
+                    "fused_training": fused_train_counts[name]}
         line.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
@@ -1284,6 +1647,7 @@ def main():
             "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"],
+            "unfused_ms": main_case.get("unfused_ms"),
             "card": card, "cases": results[name],
         })
     print(json.dumps({"kernels": line}), flush=True)

@@ -42,6 +42,23 @@
 // owner: no float atomics, and the gradients repeat bit for bit. Shared
 // memory at D = 128: forward 116 KB, dK/dV 166 KB, dQ 149 KB (of 227 KB);
 // D = 256 does not fit and is refused.
+//
+// Rope-on-load forward (ptt_rope_attention_fwd). Replaces: paddle_tpu/
+// kernels/fused_rope_attention.py rope_attention_fused (:167;
+// pl.pallas_call at :111 over _fused_kernel :84, _rotate :58, _attn_rows
+// :69). The same forward kernel, instantiated with kRope: it rotates each
+// q tile once and each k tile as it is loaded (neox half split, by the
+// fp32 half-dim tables' row of that tile row's position), so the rotated
+// q and k never exist in device memory. A lane loads a row's vector at
+// column c together with the one at c + D/2 and the tables' entries c..,
+// rotates in fp32 in _rotate's op order and stores both halves to the
+// fp32 tile: the rotated values are never rounded to the input type, as
+// _fused_kernel keeps them in VMEM. Self-attention only (Sq == Sk, so the
+// causal mask is c <= r); no LSE is written, since the backward is the
+// plain version's VJP (the JAX custom_vjp's design). The TPU kernel's
+// softmax is exact over the whole row; this one is online, the same
+// function summed in another order. What bounds it is as for the
+// forward: operations, far from the tensor cores here.
 #include "common.cuh"
 
 namespace {
@@ -76,6 +93,47 @@ __device__ __forceinline__ void load_tile(float* __restrict__ tile,
     }
 #pragma unroll
     for (int j = 0; j < V; ++j) tile[r * (D + 1) + c + j] = vals[j];
+  }
+}
+
+// As load_tile, with every row rotated by its position's table row
+// (neox: out[:D/2] = x1 cos - x2 sin, out[D/2:] = x2 cos + x1 sin, fp32, in
+// _rotate's op order, no fused multiply-add); cos/sin are fp32 [S, D/2]
+// with row stride tab_stride (elements)
+template <typename T, int D>
+__device__ __forceinline__ void load_tile_rope(
+    float* __restrict__ tile, const T* __restrict__ base, long long s_stride,
+    int row0, int seq, const float* __restrict__ cos,
+    const float* __restrict__ sin, long long tab_stride) {
+  constexpr int V = 16 / (int)sizeof(T);
+  constexpr int H2 = D / 2;
+  constexpr int kVecPerHalf = H2 / V;
+  for (int idx = threadIdx.x; idx < kBlock * kVecPerHalf; idx += kThreads) {
+    const int r = idx / kVecPerHalf;
+    const int c = (idx % kVecPerHalf) * V;
+    float o1[V], o2[V];
+    if (row0 + r < seq) {
+      const T* xr = base + (long long)(row0 + r) * s_stride;
+      float x1[V], x2[V], cv[V], sv[V];
+      ptt::load_floats<T, V>(xr + c, x1);
+      ptt::load_floats<T, V>(xr + H2 + c, x2);
+      const long long t = (long long)(row0 + r) * tab_stride + c;
+      ptt::load_floats<float, V>(cos + t, cv);
+      ptt::load_floats<float, V>(sin + t, sv);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        o1[j] = __fsub_rn(__fmul_rn(x1[j], cv[j]), __fmul_rn(x2[j], sv[j]));
+        o2[j] = __fadd_rn(__fmul_rn(x2[j], cv[j]), __fmul_rn(x1[j], sv[j]));
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) o1[j] = o2[j] = 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      tile[r * (D + 1) + c + j] = o1[j];
+      tile[r * (D + 1) + H2 + c + j] = o2[j];
+    }
   }
 }
 
@@ -129,13 +187,16 @@ __device__ __forceinline__ bool visible(int r, int c, int sq, int sk,
 }
 
 // ----------------------------------------------------------------- forward
-template <typename T, int D>
+// kRope: q and k rotated on load by the tables (cos, sin, tab_stride;
+// unused otherwise); lse may be null (not written)
+template <typename T, int D, bool kRope>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, Strides qs, Strides ks,
                      Strides vs, int heads, int sq, int sk, float scale,
-                     int causal) {
+                     int causal, const float* __restrict__ cos,
+                     const float* __restrict__ sin, long long tab_stride) {
   constexpr int LD = D + 1;
   constexpr int NO = D / 16;  // output columns per thread
   extern __shared__ float smem[];
@@ -148,7 +209,11 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.y / heads, h = blockIdx.y % heads;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
-  load_tile<T, D>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, sq);
+  if constexpr (kRope)
+    load_tile_rope<T, D>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, sq, cos, sin,
+                         tab_stride);
+  else
+    load_tile<T, D>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, sq);
   const T* kbase = k + b * ks.b + h * ks.h;
   const T* vbase = v + b * vs.b + h * vs.h;
 
@@ -165,7 +230,10 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int k0 = 0; k0 < k_end; k0 += kBlock) {
     __syncthreads();  // the previous block's readers are done
-    load_tile<T, D>(sK, kbase, ks.s, k0, sk);
+    if constexpr (kRope)
+      load_tile_rope<T, D>(sK, kbase, ks.s, k0, sk, cos, sin, tab_stride);
+    else
+      load_tile<T, D>(sK, kbase, ks.s, k0, sk);
     load_tile<T, D>(sV, vbase, vs.s, k0, sk);
     __syncthreads();
     float s[4][4];
@@ -225,7 +293,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int n = 0; n < NO; ++n)
       orow[tx + 16 * n] = ptt::from_float<T>(acc[i][n] / l[i]);
-    if (tx == 0) lse[((long long)b * heads + h) * sq + r] = m[i] + logf(l[i]);
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * heads + h) * sq + r] = m[i] + logf(l[i]);
   }
 }
 
@@ -476,18 +545,22 @@ struct FwdArgs {
   Strides qs, ks, vs;
   int batch, heads, sq, sk, causal;
   float scale;
+  const void *cos, *sin;  // the rope tables (rope-on-load only)
+  long long tab_stride;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool kRope>
 cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t stream) {
-  cudaError_t err = allow_smem(flash_fwd_kernel<T, D>, fwd_smem<D>());
+  cudaError_t err =
+      allow_smem(flash_fwd_kernel<T, D, kRope>, fwd_smem<D>());
   if (err != cudaSuccess) return err;
   dim3 grid((a.sq + kBlock - 1) / kBlock, a.batch * a.heads);
-  flash_fwd_kernel<T, D><<<grid, kThreads, fwd_smem<D>(), stream>>>(
+  flash_fwd_kernel<T, D, kRope><<<grid, kThreads, fwd_smem<D>(), stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.o),
       static_cast<float*>(a.lse), a.qs, a.ks, a.vs, a.heads, a.sq, a.sk,
-      a.scale, a.causal);
+      a.scale, a.causal, static_cast<const float*>(a.cos),
+      static_cast<const float*>(a.sin), a.tab_stride);
   return cudaGetLastError();
 }
 
@@ -549,7 +622,13 @@ cudaError_t dispatch(const Args& a, int head_dim, int dtype,
 template <typename T, int D>
 struct Fwd {
   static cudaError_t run(const FwdArgs& a, cudaStream_t s) {
-    return launch_fwd<T, D>(a, s);
+    return launch_fwd<T, D, false>(a, s);
+  }
+};
+template <typename T, int D>
+struct RopeFwd {
+  static cudaError_t run(const FwdArgs& a, cudaStream_t s) {
+    return launch_fwd<T, D, true>(a, s);
   }
 };
 template <typename T, int D>
@@ -575,8 +654,29 @@ extern "C" int ptt_flash_attention_fwd(
     int causal, float scale, int dtype, void* stream) {
   if (batch == 0 || heads == 0 || sq == 0) return cudaSuccess;
   FwdArgs a{q, k, v, o, lse, {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh},
-            {v_sb, v_ss, v_sh}, batch, heads, sq, sk, causal, scale};
+            {v_sb, v_ss, v_sh}, batch, heads, sq, sk, causal, scale,
+            nullptr, nullptr, 0};
   return dispatch<Fwd>(a, head_dim, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// Rope-on-load forward: q, k, v [batch, seq, heads, head_dim] with their
+// strides as above (one sequence length); cos and sin fp32 [seq,
+// head_dim / 2] with row stride tab_stride (a multiple of 4, 16-byte
+// aligned); o contiguous [batch, seq, heads, head_dim] of q's type. No
+// LSE. head_dim 64 or 128 (the Python wrapper checks all of this).
+extern "C" int ptt_rope_attention_fwd(
+    const void* q, const void* k, const void* v, void* o, const void* cos,
+    const void* sin, long long tab_stride, int batch, int heads, int seq,
+    int head_dim, long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+    long long v_ss, long long v_sh, int causal, float scale, int dtype,
+    void* stream) {
+  if (batch == 0 || heads == 0 || seq == 0) return cudaSuccess;
+  FwdArgs a{q, k, v, o, nullptr, {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh},
+            {v_sb, v_ss, v_sh}, batch, heads, seq, seq, causal, scale,
+            cos, sin, tab_stride};
+  return dispatch<RopeFwd>(a, head_dim, dtype,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // The three backward passes in order (Delta, dK/dV, dQ). o and dout have

@@ -11,14 +11,23 @@ PyTorch version (counterpart of ``paddle_tpu/kernels``).
   ``kernels/flash_attention.py``, forward and backward
 - :mod:`.int8_matmul` (``csrc/int8_matmul.cu``) <-
   ``kernels/int8_matmul.py``, the W8A16 matmul
+- :mod:`.fused_norm_matmul` (``csrc/fused_norm_matmul.cu``) <-
+  ``kernels/fused_norm_matmul.py``, RMSNorm + matmul (the Llama head);
+  its backward is the plain version's VJP, as in JAX
+- :mod:`.fused_rope_attention` (``csrc/flash_attention.cu``, the
+  rope-on-load forward) <- ``kernels/fused_rope_attention.py``; its
+  backward is the plain version's VJP, as in JAX
 
-Each module counts the kernel launches it made (``launches`` for the
-forward, ``bwd_launches`` for the backward, ``int8_launches`` for the
-int8 paged attention); :mod:`._build` compiles
+With these every ``pl.pallas_call`` of the JAX package has a hand-written
+counterpart. Each module counts the kernel launches it made
+(``launches`` for the forward, ``bwd_launches`` for the backward,
+``int8_launches`` for the int8 paged attention); :mod:`._build` compiles
 ``csrc/`` with nvcc at first use.
 """
 from . import (  # noqa: F401
     flash_attention,
+    fused_norm_matmul,
+    fused_rope_attention,
     int8_matmul,
     paged_attention,
     rms_norm,
@@ -36,6 +45,8 @@ KERNELS = {
     "flash_attention_bwd": (flash_attention, "bwd_launches"),
     "paged_attention_int8": (paged_attention, "int8_launches"),
     "int8_matmul": (int8_matmul, "launches"),
+    "rms_norm_matmul": (fused_norm_matmul, "launches"),
+    "rope_attention": (fused_rope_attention, "launches"),
 }
 
 

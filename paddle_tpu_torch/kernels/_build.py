@@ -69,6 +69,14 @@ SIGNATURES = {
     # strides of q, k, v, causal, scale, dtype, stream
     "ptt_flash_attention_fwd": [_P] * 5 + [_I] * 5 + [_L] * 9
     + [_I, _F, _I, _P],
+    # q, k, v, o, cos, sin, table row stride, batch, heads, seq,
+    # head_dim, (batch, seq, head) strides of q, k, v, causal, scale,
+    # dtype, stream
+    "ptt_rope_attention_fwd": [_P] * 6 + [_L] + [_I] * 4 + [_L] * 9
+    + [_I, _F, _I, _P],
+    # x, w, wm, out, partial (or null), rows, K, N, kchunk, x_dtype,
+    # w_dtype, eps, stream
+    "ptt_rms_norm_matmul": [_P] * 5 + [_I] * 6 + [_F, _P],
     # q, k, v, o, dout, lse, delta, dq, dk, dv, batch, heads, sq, sk,
     # head_dim, strides of q, k, v, o, dout, causal, scale, dtype, stream
     "ptt_flash_attention_bwd": [_P] * 10 + [_I] * 5 + [_L] * 15

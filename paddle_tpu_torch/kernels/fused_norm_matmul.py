@@ -1,0 +1,174 @@
+"""Fused RMSNorm + matmul (the norm + lm_head of the Llama head): the
+hand-written Hopper kernel and its plain version.
+
+Counterpart of ``paddle_tpu/kernels/fused_norm_matmul.py``
+(``rms_norm_matmul``, a ``jax.custom_vjp`` over ``_norm_matmul``, whose
+TPU kernel is ``_fused_kernel``; ``rms_norm_matmul_composed`` and
+``_composed_2d`` for the plain version). The CUDA source is
+``paddle_tpu_torch/csrc/fused_norm_matmul.cu``; its header says what
+bounds it on the H100 and how the design answers that.
+
+The function: ``rms_norm(x, w) @ wm`` with x ``[..., H]``, w ``[H]`` and
+wm ``[H, N]``. The norm is fp32, multiplied by ``w`` in fp32 and rounded
+ONCE to x's dtype before the product (``_normed_rows``); the product
+sums in fp32 and is cast once to ``promote(x, wm)``.
+
+:func:`rms_norm_matmul` is a ``torch.autograd.Function``. Its forward
+runs the kernel on a CUDA tensor (or raises) and the plain version on a
+CPU tensor. Its backward is autograd through the plain version,
+recomputed from the saved inputs: that is the JAX package's own design
+(the ``custom_vjp``'s ``_bwd`` is the VJP of ``_composed_2d``), not a
+fallback, so there is no backward kernel.
+
+In the port this kernel runs where the model selects the fusion
+(``LlamaForCausalLM(fusions={"rms_norm_matmul"})``): the JAX package
+selects its TPU kernel through the tune cache (``head_fusion_select``),
+which is not ported.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+launches = 0  # one per call (the decode split-K sum is part of it)
+
+X_DTYPES = (torch.float32, torch.bfloat16)
+K_CHUNK = 512  # K rows per CTA of the narrow (rows <= 16) kernel
+NARROW_ROWS = 16
+VEC = 8  # elements of the wide kernel's vectors: H and N are multiples
+
+
+def _scaled_rows(x2d, w, eps):
+    """fp32 RMSNorm of ``[rows, H]`` times ``w`` in fp32, before the
+    rounding (``fused_norm_matmul.py:35-41``)."""
+    xf = x2d.float()
+    ms = (xf * xf).mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(ms + eps)
+    return (xf * rstd) * w.float()
+
+
+def _normed_rows(x2d, w, eps):
+    """The normed rows rounded to x's dtype (``:42``)."""
+    return _scaled_rows(x2d, w, eps).to(x2d.dtype)
+
+
+def rms_norm_matmul_reference(x, w, wm, eps=1e-6):
+    """Plain PyTorch version in ``_composed_2d``'s op order: the rounded
+    norm, then the product summed in fp32 and cast once to
+    ``promote(x, wm)``."""
+    h = int(x.shape[-1])
+    n = int(wm.shape[1])
+    y = _normed_rows(x.reshape(-1, h), w.reshape(1, h), float(eps))
+    out_dtype = torch.promote_types(x.dtype, wm.dtype)
+    out = torch.matmul(y.float(), wm.float()).to(out_dtype)
+    return out.reshape(tuple(x.shape[:-1]) + (n,))
+
+
+def normed_rounding_slack(x, w, wm, eps=1e-6, rel=2.0 ** -20):
+    """Per-output bound on how far the rounding of the normed row may
+    move the product when two implementations' rstd differ by less than
+    ``rel`` (relative: the sum of squares is reduced in another order).
+    An entry of ``(x * rstd) * w`` within ``rel`` of a rounding midpoint
+    of x's dtype may round to either neighbour, one ulp apart, so output
+    ``(r, n)`` may move by the sum over such ``k`` of ``ulp(y_rk) *
+    |wm_kn|`` before its cast. Zero for fp32 x, where nothing is rounded
+    before the product. Used to hold the kernel against the plain
+    version."""
+    h = int(x.shape[-1])
+    n = int(wm.shape[1])
+    shape = tuple(x.shape[:-1]) + (n,)
+    if x.dtype == torch.float32:
+        return torch.zeros(shape, dtype=torch.float32, device=x.device)
+    v = _scaled_rows(x.reshape(-1, h), w.reshape(1, h), float(eps))
+    b = v.to(x.dtype).float()
+    # |v| in [2^(e-1), 2^e): one ulp is eps * 2^(e-1)
+    _, e = torch.frexp(torch.maximum(v.abs(), b.abs()))
+    ulp = torch.ldexp(torch.full_like(v, torch.finfo(x.dtype).eps), e - 1)
+    near = ulp / 2 - (v - b).abs() <= rel * v.abs()
+    slack = torch.matmul(torch.where(near, ulp, torch.zeros_like(ulp)),
+                         wm.float().abs())
+    return slack.reshape(shape)
+
+
+class _RmsNormMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, wm, eps):
+        if x.device.type == "cpu":
+            out = rms_norm_matmul_reference(x, w, wm, eps)
+        else:
+            out = rms_norm_matmul_cuda(x, w, wm, eps)
+        ctx.save_for_backward(x, w, wm)
+        ctx.eps = eps
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        # the VJP of the plain version, as the JAX _bwd takes the VJP of
+        # _composed_2d: recomputed from the saved inputs
+        x, w, wm = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(True) for t in (x, w, wm)]
+            out = rms_norm_matmul_reference(*ins, ctx.eps)
+            dx, dw, dwm = torch.autograd.grad(out, ins, g)
+        return dx, dw, dwm, None
+
+
+def rms_norm_matmul(x, w, wm, eps=1e-6):
+    """``rms_norm(x, w) @ wm``; differentiable in all three. Routes on
+    x's device (CPU: the plain version; CUDA: the kernel, or a raise)."""
+    return _RmsNormMatmul.apply(x, w, wm, float(eps))
+
+
+def rms_norm_matmul_cuda(x, w, wm, eps=1e-6):
+    """Launch ``csrc/fused_norm_matmul.cu``; raises on anything it does
+    not take."""
+    global launches
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"rms_norm_matmul kernel needs CUDA tensors, got "
+                         f"{dev}")
+    for name, t in (("w", w), ("wm", wm)):
+        if t.device != dev:
+            raise ValueError(f"rms_norm_matmul: {name} on {t.device}, x on "
+                             f"{dev}")
+    if x.dtype not in X_DTYPES or wm.dtype != x.dtype \
+            or w.dtype not in (x.dtype, torch.float32):
+        raise TypeError(
+            f"rms_norm_matmul kernel takes x and wm of one dtype (float32 "
+            f"or bfloat16) and w in x's dtype or float32, got x {x.dtype}, "
+            f"w {w.dtype}, wm {wm.dtype}")
+    h = int(x.shape[-1])
+    if wm.dim() != 2 or int(wm.shape[0]) != h or tuple(w.shape) != (h,):
+        raise ValueError(f"rms_norm_matmul: x [..., H], w [H], wm [H, N]; "
+                         f"got x {tuple(x.shape)}, w {tuple(w.shape)}, wm "
+                         f"{tuple(wm.shape)}")
+    n = int(wm.shape[1])
+    if h % VEC or n % VEC:
+        raise ValueError(f"rms_norm_matmul kernel reads {VEC}-element "
+                         f"vectors: H and N must be multiples of {VEC}, got "
+                         f"x {tuple(x.shape)}, wm {tuple(wm.shape)}")
+    if not (w.is_contiguous() and wm.is_contiguous()):
+        raise ValueError("rms_norm_matmul kernel needs contiguous w and wm")
+    x2 = x.reshape(-1, h).contiguous()
+    if any(t.data_ptr() % 16 for t in (x2, w, wm)):
+        raise ValueError("rms_norm_matmul kernel needs 16-byte aligned x, "
+                         "w and wm")
+    rows = int(x2.shape[0])
+    out = torch.empty((rows, n), dtype=x.dtype, device=dev)
+    chunks = -(-h // K_CHUNK)
+    partial = None
+    if rows <= NARROW_ROWS and chunks > 1:
+        partial = torch.empty((chunks, rows, n), dtype=torch.float32,
+                              device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.ptt_rms_norm_matmul(
+            _build.ptr(x2), _build.ptr(w), _build.ptr(wm), _build.ptr(out),
+            None if partial is None else _build.ptr(partial),
+            rows, h, n, K_CHUNK, _build.DTYPE_CODES[x.dtype],
+            _build.DTYPE_CODES[w.dtype], float(eps), _build.stream_of(x),
+        )
+    _build.check(err, "ptt_rms_norm_matmul")
+    launches += 1
+    return out.reshape(tuple(x.shape[:-1]) + (n,))

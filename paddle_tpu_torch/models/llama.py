@@ -29,10 +29,27 @@ The RMSNorm, rope and flash attention kernels have backward kernels
 gradients; :func:`causal_lm_loss` is the training loss.
 
 Caches, float or int8, are written in place (see
-``quantization/kv.py``). The tune-cache opt-ins of the JAX model (the
-fused rope+attention and the fused norm+head) are not ported: they have
-no measured entries there either, and a quantized head has no fused
-norm+head at all (``llama.py:434-448``).
+``quantization/kv.py``).
+
+The JAX model's two tune-cache opt-ins are selected here by
+``LlamaForCausalLM(fusions=...)`` (an attribute, so a built model can
+be switched), whose names are the JAX cache's kernel names. The
+default ``()`` is the unfused path. A selected fusion runs its kernel
+on a CUDA tensor or raises, under the JAX eligibility rules:
+
+- ``"rms_norm_matmul"``: the final norm and a dense float ``lm_head`` as
+  one kernel (``kernels/fused_norm_matmul.py``), in every forward; the
+  decoder then skips its final norm, also under ``exit_layer``. A tied
+  head or a quantized one (``QuantizedLinear``, no dense weight) stays
+  unfused (``llama.py:434-448``);
+- ``"rope_attention"``: q and k rotated inside the attention kernel
+  (``kernels/fused_rope_attention.py``) in the cache-free forward
+  without a mask, MHA only, with an even head_dim and S >= 8
+  (``llama.py:133-152``, ``fused_rope_attention.py:219``); the rope and
+  flash kernels do not run there then.
+
+Both fusions' backward passes are autograd through their plain versions,
+as the JAX ``custom_vjp`` functions are.
 """
 from __future__ import annotations
 
@@ -125,7 +142,8 @@ class LlamaAttention(nn.Module):
         return k, v
 
     def forward(self, x, rope_cos=None, rope_sin=None, attn_mask=None,
-                cache=None, pos=None, page_table=None):
+                cache=None, pos=None, page_table=None,
+                fuse_rope_attention=False):
         """Cache-free when ``cache`` is None. With ``cache=(k, v)``
         ([B, S_max, kvH, D] each) and ``pos`` (an int: tokens already
         cached, or an int [B] tensor: every row at its own depth), the
@@ -133,7 +151,9 @@ class LlamaAttention(nn.Module):
         runs over the cache behind a position mask; returns
         ``(out, cache)``. With ``page_table`` ([B, P] int32) the cache
         pair is a page arena ([num_pages, page_size, kvH, D] each), S is
-        1, and attention runs through the paged attention kernel."""
+        1, and attention runs through the paged attention kernel.
+        ``fuse_rope_attention`` selects the fused rope+attention kernel
+        where the JAX model would take it."""
         cfg = self.cfg
         B, S = int(x.shape[0]), int(x.shape[1])
         if page_table is not None and cache is None:
@@ -142,6 +162,12 @@ class LlamaAttention(nn.Module):
                                    cfg.head_dim)
         k = self.k_proj(x).reshape(B, S, cfg.kv_heads, cfg.head_dim)
         v = self.v_proj(x).reshape(B, S, cfg.kv_heads, cfg.head_dim)
+        if (fuse_rope_attention and cache is None and attn_mask is None
+                and cfg.kv_heads == cfg.num_attention_heads
+                and rope_cos is not None and rope_sin is not None
+                and cfg.head_dim % 2 == 0 and S >= 8):
+            out = F.rope_attention(q, k, v, rope_cos, rope_sin, causal=True)
+            return self.o_proj(out.reshape(B, S, -1))
         pos_ids = None
         if cache is not None and _is_row_vector(pos):
             # per-row decode depths: the rope kernel reads each row's
@@ -247,7 +273,8 @@ class LlamaDecoderLayer(nn.Module):
         self.mlp = LlamaMLP(config, **kw)
 
     def forward(self, x, rope_cos=None, rope_sin=None, attn_mask=None,
-                cache=None, pos=None, page_table=None):
+                cache=None, pos=None, page_table=None,
+                fuse_rope_attention=False):
         if cache is not None:
             a, new_cache = self.self_attn(
                 self.input_layernorm(x), rope_cos, rope_sin, attn_mask,
@@ -256,7 +283,8 @@ class LlamaDecoderLayer(nn.Module):
             h = x + a
             return h + self.mlp(self.post_attention_layernorm(h)), new_cache
         h = x + self.self_attn(self.input_layernorm(x), rope_cos, rope_sin,
-                               attn_mask)
+                               attn_mask,
+                               fuse_rope_attention=fuse_rope_attention)
         return h + self.mlp(self.post_attention_layernorm(h))
 
 
@@ -290,12 +318,15 @@ class LlamaModel(nn.Module):
         return tabs[0][:, :seq_len], tabs[1][:, :seq_len]
 
     def forward(self, input_ids, attn_mask=None, caches=None, pos=None,
-                apply_final_norm=True, page_table=None, exit_layer=None):
+                apply_final_norm=True, page_table=None, exit_layer=None,
+                fuse_rope_attention=False):
         """``caches``: per-layer (k, v) caches for prefill/decode
         (returns ``(hidden, caches)``), None for the cache-free forward.
         With ``page_table`` the caches are per-layer page arenas.
         ``apply_final_norm=False`` returns the pre-norm hidden state;
-        ``exit_layer=N`` runs only the first N decoder layers."""
+        ``exit_layer=N`` runs only the first N decoder layers;
+        ``fuse_rope_attention`` selects the fused rope+attention kernel in
+        the cache-free forward's eligible layers."""
         S = int(input_ids.shape[1])
         dev = input_ids.device
         layers = (list(self.layers) if exit_layer is None
@@ -304,7 +335,8 @@ class LlamaModel(nn.Module):
         if caches is None:
             cos, sin = self.rope_tables(S, dev)
             for layer in layers:
-                h = layer(h, cos, sin, attn_mask)
+                h = layer(h, cos, sin, attn_mask,
+                          fuse_rope_attention=fuse_rope_attention)
             return self.norm(h) if apply_final_norm else h
         if page_table is not None:
             # the rope table covers every addressable position
@@ -323,22 +355,43 @@ class LlamaModel(nn.Module):
         return (self.norm(h) if apply_final_norm else h), new_caches
 
 
+# the fusions a model can select: the JAX tune cache's kernel names
+FUSIONS = frozenset({"rms_norm_matmul", "rope_attention"})
+
+
 class LlamaForCausalLM(nn.Module):
     """Llama causal LM. ``device`` defaults to the first CUDA card (and
     raises without one); pass ``device="cpu"`` for the plain path.
     Weights are drawn from a ``torch.Generator`` on the device seeded
-    with ``seed``."""
+    with ``seed``. ``fusions`` (names from :data:`FUSIONS`; any other
+    raises) selects the fused kernels where the JAX model would take them
+    with a tune-cache entry for every shape; it can be reassigned on a
+    built model."""
 
     def __init__(self, config: LlamaConfig, *, device=None,
-                 dtype=torch.float32, seed=0):
+                 dtype=torch.float32, seed=0, fusions=()):
         super().__init__()
         device = resolve_device(device)
         self.config = config
+        self.fusions = fusions
         self.model = LlamaModel(config, device=device, dtype=dtype)
         self.lm_head = None if config.tie_word_embeddings else Linear(
             config.hidden_size, config.vocab_size, device=device,
             dtype=dtype)
         self.reset_parameters(seed)
+
+    @property
+    def fusions(self):
+        return self._fusions
+
+    @fusions.setter
+    def fusions(self, names):
+        names = frozenset(names)
+        unknown = sorted(names - FUSIONS)
+        if unknown:
+            raise ValueError(f"unknown fusions {unknown}; the port has "
+                             f"{sorted(FUSIONS)}")
+        self._fusions = names
 
     @torch.no_grad()
     def reset_parameters(self, seed=0):
@@ -367,21 +420,37 @@ class LlamaForCausalLM(nn.Module):
         return (6 * self.num_params()
                 + 12 * cfg.num_hidden_layers * cfg.hidden_size * seq_len)
 
-    def _head(self, h):
+    def _head_fused(self):
+        """Whether the final norm and the head run as one kernel: only
+        with ``"rms_norm_matmul"`` selected and a dense float ``lm_head``
+        (not tied, not a ``QuantizedLinear``)."""
+        return ("rms_norm_matmul" in self._fusions
+                and self.lm_head is not None
+                and getattr(self.lm_head, "weight", None) is not None)
+
+    def _head(self, h, fused):
+        if fused:
+            return F.rms_norm_matmul(h, self.model.norm.weight,
+                                     self.lm_head.weight,
+                                     self.config.rms_norm_eps)
         if self.lm_head is None:
             return F.linear(h, self.model.embed_tokens.weight.t())
         return self.lm_head(h)
 
     def forward(self, input_ids, attn_mask=None, caches=None, pos=None,
                 page_table=None, exit_layer=None):
+        fused = self._head_fused()
         if caches is not None:
             h, new_caches = self.model(
                 input_ids, attn_mask, caches=caches, pos=pos,
-                page_table=page_table, exit_layer=exit_layer,
+                apply_final_norm=not fused, page_table=page_table,
+                exit_layer=exit_layer,
             )
-            return self._head(h), new_caches
-        return self._head(self.model(input_ids, attn_mask,
-                                     exit_layer=exit_layer))
+            return self._head(h, fused), new_caches
+        h = self.model(input_ids, attn_mask, apply_final_norm=not fused,
+                       exit_layer=exit_layer,
+                       fuse_rope_attention="rope_attention" in self._fusions)
+        return self._head(h, fused)
 
     def generate(self, input_ids, max_new_tokens=32, do_sample=False,
                  temperature=1.0, top_k=0, top_p=1.0, eos_token_id=None,

@@ -3,10 +3,13 @@
 Counterpart of the used parts of ``paddle_tpu/nn/functional/norm.py``
 (``rms_norm``), ``nn/functional/attention.py``
 (``scaled_dot_product_attention``), ``nn/functional/common.py``
-(``linear``), ``nn/functional/loss.py`` (``cross_entropy``) and
+(``linear``), ``nn/functional/loss.py`` (``cross_entropy``),
 ``incubate/nn/functional/__init__.py`` (``fused_rotary_position_embedding``,
-``swiglu``). Layouts follow paddle: attention tensors are ``[batch, seq,
-heads, head_dim]`` and Linear weights ``[in, out]``. Under
+``swiglu``) and the two fusions' tensor-level entries
+(``kernels/fused_norm_matmul.py`` ``rms_norm_matmul_apply``,
+``kernels/fused_rope_attention.py`` ``rope_attention_apply``). Layouts
+follow paddle: attention tensors are ``[batch, seq, heads, head_dim]``
+and Linear weights ``[in, out]``. Under
 :func:`paddle_tpu_torch.amp.auto_cast` the inputs are cast where the
 JAX package's dispatch hook casts them (``amp/auto_cast.py``), under the
 same op names.
@@ -19,6 +22,8 @@ import torch
 
 from ..amp.auto_cast import amp_cast
 from ..kernels import flash_attention as _flash
+from ..kernels import fused_norm_matmul as _fnm
+from ..kernels import fused_rope_attention as _fra
 from ..kernels import rms_norm as _rms
 from ..kernels import rope as _rope
 
@@ -36,6 +41,26 @@ def rms_norm(x, weight, epsilon=1e-6):
     ``fused_rms_norm``: on neither AMP list, so it runs in the types it
     is given)."""
     return _rms.rms_norm(x, weight, float(epsilon))
+
+
+def rms_norm_matmul(x, weight, matmul_weight, epsilon=1e-6):
+    """``rms_norm(x, weight) @ matmul_weight`` in one kernel on a CUDA
+    tensor (``fused_norm_matmul.rms_norm_matmul_apply``, dispatched as
+    ``rms_norm_matmul``: on neither AMP list, so under O1 it multiplies
+    the fp32 residual stream by the fp32 weight, in fp32)."""
+    x, weight, matmul_weight = amp_cast("rms_norm_matmul", x, weight,
+                                        matmul_weight)
+    return _fnm.rms_norm_matmul(x, weight, matmul_weight, float(epsilon))
+
+
+def rope_attention(q, k, v, cos, sin, causal=True, scale=None):
+    """Rotate q and k by the rope tables, then attention, in one kernel
+    on a CUDA tensor (``fused_rope_attention.rope_attention_apply``,
+    dispatched as ``rope_attention``: on neither AMP list, so the inputs
+    run in the types they are given)."""
+    q, k, v, cos, sin = amp_cast("rope_attention", q, k, v, cos, sin)
+    return _fra.rope_attention_fused(q, k, v, cos, sin, causal=causal,
+                                     scale=scale)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,

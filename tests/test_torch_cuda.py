@@ -19,7 +19,13 @@ fp32 tolerance, by which the values before the cast may differ. The
 int8 paged attention kernel: as the float one (both sides dequantize in
 fp32 the same way). The W8A16 matmul: cast once, fp32 1e-5 of the
 largest entry (fp32 sums over K in another order), bf16 entry by entry
-as above.
+as above. The fused RMSNorm + matmul and the fused rope + attention:
+cast once, fp32 1e-5 of the largest entry at the small shapes and 1e-4
+for the fp32 products over K = 4096 and attention over 2048 keys (sums
+in another order over thousands of terms), bf16 entry by entry as above;
+the fused RMSNorm + matmul adds, per entry, what the rounding of the
+normed row may move it by when the kernel's rstd rounds an entry near a
+midpoint the other way (``normed_rounding_slack``).
 """
 import numpy as np
 import pytest
@@ -27,6 +33,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from paddle_tpu_torch.kernels import flash_attention as tfa  # noqa: E402
+from paddle_tpu_torch.kernels import fused_norm_matmul as tfnm  # noqa: E402
+from paddle_tpu_torch.kernels import fused_rope_attention as tfra  # noqa
 from paddle_tpu_torch.kernels import int8_matmul as tim  # noqa: E402
 from paddle_tpu_torch.kernels import paged_attention as tpa  # noqa: E402
 from paddle_tpu_torch.kernels import rms_norm as trms  # noqa: E402
@@ -363,3 +371,139 @@ def test_tiny_int8_engines_match_generate(dev):
         for h, want in zip(handles, wants):
             np.testing.assert_array_equal(h.output_ids, want)
         assert eng.pool.occupancy == 0
+
+
+NORM_MATMUL_CASES = {
+    # rows, K, N, the norm weight in fp32 (else in x's dtype), tolerance:
+    # the narrow kernel with three K chunks (the last ragged) and the
+    # wide one over a ragged tile, then the 7B decode and prefill heads
+    "narrow": (3, 1040, 200, False, 1e-5),
+    "wide_fp32_w": (130, 520, 136, True, 1e-5),
+    "7b_decode": (8, 4096, 32000, False, 1e-4),
+    "7b_prefill": (256, 4096, 32000, True, 1e-4),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(NORM_MATMUL_CASES))
+def test_rms_norm_matmul_kernel(dev, dtype, case):
+    rows, k, n, w32, tol = NORM_MATMUL_CASES[case]
+    dt = DTYPES[dtype]
+    g = torch.Generator(device=dev).manual_seed(rows + k)
+    x = torch.randn(rows, k, generator=g, device=dev).to(dt)
+    w = (1 + 0.1 * torch.randn(k, generator=g, device=dev)).to(
+        torch.float32 if w32 else dt)
+    wm = (0.02 * torch.randn(k, n, generator=g, device=dev)).to(dt)
+    before = tfnm.launches
+    y = tfnm.rms_norm_matmul(x, w, wm, 1e-5)
+    assert tfnm.launches == before + 1
+    ref = tfnm.rms_norm_matmul_reference(x, w, wm, 1e-5).float()
+    assert y.dtype == dt and y.shape == (rows, n)
+    assert torch.isfinite(y).all()
+    # cast once, plus what the kernel's own rstd may move the rounding of
+    # the normed row by (zero in fp32)
+    top = float(ref.abs().max())
+    bound = (tol * top if dt == torch.float32
+             else 2.0 ** -7 * ref.abs() + tol * top)
+    bound = bound + tfnm.normed_rounding_slack(x, w, wm, 1e-5)
+    assert bool(((y.float() - ref).abs() <= bound).all())
+    # no atomics: a second run is bit-equal
+    assert torch.equal(y, tfnm.rms_norm_matmul_cuda(x, w, wm, 1e-5))
+
+
+@pytest.mark.cuda
+def test_rms_norm_matmul_grads_and_refusals(dev):
+    g = torch.Generator(device=dev).manual_seed(3)
+    x, w, wm = (torch.randn(*sh, generator=g, device=dev).requires_grad_(True)
+                for sh in ((2, 5, 64), (64,), (64, 48)))
+    y = tfnm.rms_norm_matmul(x, w, wm)
+    assert y.shape == (2, 5, 48)
+    gy = torch.randn(2, 5, 48, generator=g, device=dev)
+    got = torch.autograd.grad(y, (x, w, wm), gy)
+    want = torch.autograd.grad(tfnm.rms_norm_matmul_reference(x, w, wm),
+                               (x, w, wm), gy)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)  # the backward IS the plain version's
+    x, w, wm = x.detach(), w.detach(), wm.detach()
+    with pytest.raises(TypeError, match="one dtype"):
+        tfnm.rms_norm_matmul_cuda(x.bfloat16(), w, wm)
+    with pytest.raises(TypeError, match="one dtype"):
+        tfnm.rms_norm_matmul_cuda(x, w.bfloat16(), wm)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tfnm.rms_norm_matmul_cuda(x, w, wm[:, :44].contiguous())
+
+
+ROPE_ATTENTION_CASES = {
+    # causal, S, head_dim, tolerance, strided q/k/v views: a ragged tail,
+    # non-causal, views of one fused projection, the 7B training shape's
+    # sequence
+    "causal_ragged": (True, 130, 128, 1e-5, False),
+    "full_d64": (False, 100, 64, 1e-5, False),
+    "causal_strided": (True, 96, 64, 1e-5, True),
+    "causal_2048": (True, 2048, 128, 1e-4, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(ROPE_ATTENTION_CASES))
+def test_rope_attention_kernel(dev, dtype, case):
+    causal, s, d, tol, strided = ROPE_ATTENTION_CASES[case]
+    dt = DTYPES[dtype]
+    q, k, v, _ = _flash_inputs(dev, dt, 1, s, s, 4, d, seed=s + d,
+                               strided=strided)
+    # leading rows of a longer table, as the model passes them
+    cos, sin = trope.build_rope_cache(s + 64, d, device=dev)
+    cos, sin = cos[:, :s], sin[:, :s]
+    before = tfra.launches
+    o = tfra.rope_attention_fused(q, k, v, cos, sin, causal=causal)
+    assert tfra.launches == before + 1
+    ref = tfra.rope_attention_reference(q, k, v, cos, sin, causal=causal)
+    assert o.dtype == dt and o.shape == q.shape and torch.isfinite(o).all()
+    assert _cast_once_ok(o, ref, tol)
+
+
+@pytest.mark.cuda
+def test_rope_attention_refuses_what_it_does_not_take(dev):
+    q = torch.randn(1, 8, 2, 32, device=dev)
+    cos, sin = trope.build_rope_cache(8, 32, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfra.rope_attention_cuda(q, q, q, cos, sin)
+    q = torch.randn(1, 8, 2, 64, device=dev)
+    cos, sin = trope.build_rope_cache(8, 64, device=dev)
+    with pytest.raises(TypeError, match="one dtype"):
+        tfra.rope_attention_cuda(q, q.bfloat16(), q, cos, sin)
+    with pytest.raises(TypeError, match="float32 tables"):
+        tfra.rope_attention_cuda(q, q, q, cos.bfloat16(), sin.bfloat16())
+    with pytest.raises(ValueError, match="self-attention"):
+        tfra.rope_attention_cuda(q, q[:, :4], q[:, :4], cos, sin)
+
+
+@pytest.mark.cuda
+def test_tiny_fused_model_matches_cpu(dev):
+    """Both fusions on the card (head_dim 64: the attention kernel refuses
+    16): the cache-free logits against the same model on the CPU, 2e-5
+    absolute + 1e-4 relative; greedy streams equal to the unfused ones."""
+    from paddle_tpu_torch.convert import load_numpy_state, numpy_state
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.tiny(vocab_size=256, hidden_size=256,
+                           intermediate_size=512, num_attention_heads=4)
+    both = ("rms_norm_matmul", "rope_attention")
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=4, fusions=both)
+    net = LlamaForCausalLM(cfg, device=dev, fusions=both)
+    load_numpy_state(net, numpy_state(cpu))
+    ids = np.random.RandomState(7).randint(0, 256, (2, 40))
+    with torch.inference_mode():
+        want = cpu(torch.as_tensor(ids))
+        before = (tfnm.launches, tfra.launches)
+        got = net(torch.as_tensor(ids, device=dev))
+        assert (tfnm.launches, tfra.launches) == (
+            before[0] + 1, before[1] + cfg.num_hidden_layers)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.numpy(),
+                               atol=2e-5, rtol=1e-4)
+    fused = net.generate(ids[:, :9], max_new_tokens=8, cache_dtype="float32")
+    net.fusions = ()
+    plain = net.generate(ids[:, :9], max_new_tokens=8, cache_dtype="float32")
+    assert torch.equal(fused, plain)
