@@ -12,8 +12,9 @@ It imports neither jax nor ``paddle_tpu``. Phases, each fatal on failure:
    sm_90a, seconds and library path printed;
 3. kernels: each hand-written kernel against its plain PyTorch version
    on the card, at the Llama-2-7B shapes of the serving, training and
-   quantized-serving paths, in bf16 and fp32, with the tolerance stated
-   per kernel, and timed (CUDA events, median) beside its bound, its
+   quantized-serving paths, in bf16 and fp32 (flash attention: bf16 on
+   the tensor-core kernels, fp32 on the CUDA-core ones), with the
+   tolerance stated per kernel, and timed (CUDA events, median) beside its bound, its
    plain version and, where one PyTorch call computes the same function,
    that call (the W8A16 matmul: beside the composed dequantize-then-
    ``torch.matmul`` and the float weight's ``torch.matmul``); the
@@ -32,7 +33,8 @@ It imports neither jax nor ``paddle_tpu``. Phases, each fatal on failure:
    linear warmup and global-norm clipping at 1.0, AMP O1 bf16, 10 steps
    on one fixed batch of 2 x 2048 tokens; every loss finite, the last
    below the first, and every training kernel launched the number of
-   times per step the model's structure gives;
+   times per step the model's structure gives (flash attention all on
+   its tensor-core kernels);
 7. serving: Llama-2-7B at full width and depth (random bf16 weights
    from a seeded generator) served by ``PagedServingEngine`` (8 rows,
    2048 slots, page size 16, bf16 arena) for 12 staggered requests of
@@ -113,7 +115,12 @@ NEAR_TIE = 0.125
 #   ulp of that entry, under two) + the fp32 tolerance (the fp32 values
 #   before the cast differ by that much, so the cast may round them one
 #   ulp apart; at the bottom of a binade that comes to just under the
-#   entry's tolerance).
+#   entry's tolerance). bf16 flash attention (the tensor-core kernels)
+#   rounds P before the value product and dV, and dS before dK and dQ,
+#   as the plain version and the stock Pallas kernel do, but the kernel
+#   rounds the unnormalised P of each tile: each bf16 entry also gets
+#   the slack of rounding at other points, 2^-7 times the product of
+#   absolute values (``flash_attention.probability_rounding_slack``).
 # - the fused RMSNorm + matmul and rope + attention: cast once with the
 #   1e-4 fp32 tolerance (products over K = 4096, attention over up to
 #   2048 keys). The fused head rounds its normed row to x's dtype BEFORE
@@ -592,22 +599,31 @@ def _library_attention(torch, q, k, v, causal):
 
 
 FLASH_SHAPES = (
-    # dtype, causal, sq, sk: the training shape in bf16 and fp32, and a
-    # chunk of 512 queries over 2048 keys (bottom-right causal)
-    ("bfloat16", True, 2048, 2048),
-    ("float32", True, 2048, 2048),
-    ("bfloat16", True, 512, 2048),
+    # dtype, causal, batch, sq, sk, head_dim (heads 32): the training
+    # shape in bf16 (the tensor-core kernels) and fp32 (the CUDA-core
+    # ones), a chunk of 512 queries over 2048 keys (bottom-right causal),
+    # a ragged causal S 1000, a non-causal Sq 1024 over Sk 1000, and the
+    # tensor-core kernels at head_dim 64
+    ("bfloat16", True, TRAIN_BATCH, 2048, 2048, 128),
+    ("float32", True, TRAIN_BATCH, 2048, 2048, 128),
+    ("bfloat16", True, TRAIN_BATCH, 512, 2048, 128),
+    ("bfloat16", True, 1, 1000, 1000, 128),
+    ("bfloat16", False, 1, 1024, 1000, 128),
+    ("bfloat16", True, TRAIN_BATCH, 2048, 2048, 64),
 )
 
 
 def flash_cases(torch, mod, dev):
-    """Both flash kernels at B 2, H 32, D 128: returns (forward cases,
-    backward cases)."""
+    """Both flash kernels at H 32 and the shapes above: returns (forward
+    cases, backward cases). bf16 entries also get the slack of rounding P
+    and dS at other points than the plain version (the tensor-core
+    kernels round the unnormalised P tile by tile)."""
     fwd, bwd = [], []
-    b, h, d = TRAIN_BATCH, 32, 128
+    h = 32
     g = torch.Generator(device=dev).manual_seed(9)
-    for dname, causal, sq, sk in FLASH_SHAPES:
+    for dname, causal, b, sq, sk, d in FLASH_SHAPES:
         dtype = getattr(torch, dname)
+        design = mod.DESIGNS[dtype]
         q = torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
         k = torch.randn(b, sk, h, d, generator=g, device=dev).to(dtype)
         v = torch.randn(b, sk, h, d, generator=g, device=dev).to(dtype)
@@ -616,10 +632,13 @@ def flash_cases(torch, mod, dev):
         ro, rlse = mod.flash_attention_reference(q, k, v, causal)
         if not (torch.isfinite(o).all() and torch.isfinite(lse).all()):
             fail(f"flash forward {dname} produced non-finite values")
+        o_slack, slacks = mod.probability_rounding_slack(q, k, v, lse, o, do,
+                                                         causal)
         cs, worst = checks(torch, [
-            cast_once("o", o, ro, REL_TOL["float32"], dname),
+            cast_once("o", o, ro, REL_TOL["float32"], dname, o_slack),
             ("lse", lse, rlse, 1e-5, None)])
-        del ro, rlse
+        cs[0]["slack_max"] = float(o_slack.max())
+        del ro, rlse, o_slack
         pairs = _visible_pairs(sq, sk, causal) * b * h
         es = q.element_size()
         shape = {"b": b, "h": h, "d": d, "sq": sq, "sk": sk,
@@ -632,7 +651,8 @@ def flash_cases(torch, mod, dev):
             q, k, v, causal), n=3, repeats=3)
         lib = gpu_time_ms(torch, lambda: _library_attention(
             torch, q, k, v, causal), n=5, repeats=5)
-        fwd.append({"shape": shape, "dtype": dname, "checks": cs,
+        fwd.append({"shape": shape, "dtype": dname, "design": design,
+                    "checks": cs,
                     "max_abs_err": worst["max_abs_err"],
                     "tolerance": worst["tolerance"],
                     "err_over_tol": worst["err_over_tol"], "ms": ms,
@@ -648,11 +668,13 @@ def flash_cases(torch, mod, dev):
         want = mod.flash_attention_backward_reference(q, k, v, o, lse, do,
                                                       causal)
         cs, worst = checks(torch, [
-            cast_once(n, gr, w, SUM_TOL32, dname)
-            for n, gr, w in zip(("dq", "dk", "dv"), grads, want)])
+            cast_once(n, gr, w, SUM_TOL32, dname, sl)
+            for n, gr, w, sl in zip(("dq", "dk", "dv"), grads, want, slacks)])
+        for c, sl in zip(cs, slacks):
+            c["slack_max"] = float(sl.max())
         if not all(torch.isfinite(gr).all() for gr in grads):
             fail(f"flash backward {dname} produced non-finite values")
-        del want, grads
+        del want, grads, slacks
         b_ms, b_by = bound(es * b * h * d * (4 * sq + 4 * sk) + 4 * b * h * sq,
                            10 * d * pairs, dname)
         ms = gpu_time_ms(torch, lambda: mod.flash_attention_backward_cuda(
@@ -676,7 +698,8 @@ def flash_cases(torch, mod, dev):
         fb = gpu_time_ms(torch, ours_fwd_bwd, n=3, repeats=5)
         lib_fb = gpu_time_ms(torch, lib_fwd_bwd, n=3, repeats=5)
         del ql, kl, vl, lo, dot
-        bwd.append({"shape": shape, "dtype": dname, "checks": cs,
+        bwd.append({"shape": shape, "dtype": dname, "design": design,
+                    "checks": cs,
                     "max_abs_err": worst["max_abs_err"],
                     "tolerance": worst["tolerance"],
                     "err_over_tol": worst["err_over_tol"],
@@ -1100,6 +1123,15 @@ def training_phase(torch, np, dev, card, profile_train_steps=0):
     if counts != want:
         fail(f"training: launches {counts}, expected {want} "
              f"({TRAIN_STEPS} steps)")
+    # O1 attends in bf16: every flash launch went to the tensor cores
+    designs = kernels.flash_design_counts()
+    want_designs = {
+        "tc_launches": want["flash_attention_fwd"],
+        "tc_bwd_launches": want["flash_attention_bwd"],
+        "cc_launches": 0, "cc_bwd_launches": 0}
+    if designs != want_designs:
+        fail(f"training: flash launches by design {designs}, expected "
+             f"{want_designs}")
     tokens = TRAIN_BATCH * TRAIN_SEQ
     p50 = statistics.median(times)
     flops = net.flops_per_token(TRAIN_SEQ) * tokens
@@ -1115,6 +1147,7 @@ def training_phase(torch, np, dev, card, profile_train_steps=0):
         "peak_mem_bytes": peak,
         "launches": counts,
         "launches_per_step": {k: n / TRAIN_STEPS for k, n in counts.items()},
+        "flash_launches_by_design": designs,
     }
     log("training: " + json.dumps(res))
     if profile_train_steps:
@@ -1484,14 +1517,20 @@ def profile_steps(torch, step_fn, steps):
             continue
         name = e.key
         low = name.lower()
+        # flash by kernel name: flash_fwd_tc_kernel<D> (bf16) and
+        # flash_fwd_kernel<float, D, false> are the forward,
+        # flash_fwd_kernel<T, D, true> the rope-on-load forward,
+        # flash_bwd_* (both designs) the backward passes
         group = ("paged_attention_int8" if "paged_attention_kernel" in low
                  and "signed char" in low
                  else "int8_matmul" if "int8_matmul" in low
                  else "rms_norm_matmul" if "norm_matmul" in low
-                 else "rope_attention" if "flash_fwd_kernel" in low
-                 and "true" in low
+                 else "flash_attention_fwd" if "flash_fwd_tc_kernel" in low
+                 else "rope_attention" if "flash_fwd_kernel<" in low
+                 and ", true>" in low
+                 else "flash_attention_fwd" if "flash_fwd_kernel<" in low
+                 and ", false>" in low
                  else "paged_attention" if "paged_attention_kernel" in low
-                 else "flash_attention_fwd" if "flash_fwd_kernel" in low
                  else "flash_attention_bwd" if "flash_bwd_" in low
                  else "rms_norm" if "rms_norm_fwd_kernel" in low
                  else "rms_norm_bwd" if ("rms_norm_bwd_kernel" in low
@@ -1650,6 +1689,15 @@ def main():
             "unfused_ms": main_case.get("unfused_ms"),
             "card": card, "cases": results[name],
         })
+        if name.startswith("flash_attention"):
+            # the design each dtype ran, at the training shape
+            line[-1]["design"] = main_case["design"]
+            line[-1]["by_design"] = {
+                c["design"]: {key: c[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                for c in results[name]
+                if c["shape"]["sq"] == c["shape"]["sk"] == TRAIN_SEQ
+                and c["shape"]["d"] == 128}
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

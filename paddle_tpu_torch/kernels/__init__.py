@@ -8,7 +8,8 @@ PyTorch version (counterpart of ``paddle_tpu/kernels``).
 - :mod:`.paged_attention` (``csrc/paged_attention.cu``) <-
   ``kernels/paged_attention.py``, float and int8 arenas
 - :mod:`.flash_attention` (``csrc/flash_attention.cu``) <-
-  ``kernels/flash_attention.py``, forward and backward
+  ``kernels/flash_attention.py``, forward and backward; bf16 on the
+  tensor cores (wgmma, TMA), fp32 on the CUDA cores
 - :mod:`.int8_matmul` (``csrc/int8_matmul.cu``) <-
   ``kernels/int8_matmul.py``, the W8A16 matmul
 - :mod:`.fused_norm_matmul` (``csrc/fused_norm_matmul.cu``) <-
@@ -21,7 +22,8 @@ PyTorch version (counterpart of ``paddle_tpu/kernels``).
 With these every ``pl.pallas_call`` of the JAX package has a hand-written
 counterpart. Each module counts the kernel launches it made
 (``launches`` for the forward, ``bwd_launches`` for the backward,
-``int8_launches`` for the int8 paged attention); :mod:`._build` compiles
+``int8_launches`` for the int8 paged attention; flash attention also
+per design, :func:`flash_design_counts`); :mod:`._build` compiles
 ``csrc/`` with nvcc at first use.
 """
 from . import (  # noqa: F401
@@ -53,8 +55,17 @@ KERNELS = {
 def reset_launch_counts():
     for mod, attr in KERNELS.values():
         setattr(mod, attr, 0)
+    for attr in flash_attention.DESIGN_COUNTERS:
+        setattr(flash_attention, attr, 0)
 
 
 def launch_counts():
     return {name: getattr(mod, attr) for name, (mod, attr) in
             KERNELS.items()}
+
+
+def flash_design_counts():
+    """Flash attention launches by design: ``tc_*`` the tensor-core
+    kernels (bf16), ``cc_*`` the CUDA-core kernels (fp32)."""
+    return {attr: getattr(flash_attention, attr)
+            for attr in flash_attention.DESIGN_COUNTERS}

@@ -5,8 +5,15 @@ Counterpart of ``paddle_tpu/kernels/flash_attention.py``
 (``flash_attention_fwd``), which on a TPU runs jax's stock Pallas flash
 attention (``_pallas_fa``): one forward and two backward kernels (dK/dV
 and dQ). The CUDA source is ``paddle_tpu_torch/csrc/flash_attention.cu``;
-its header says what bounds it on the H100 and how the design answers
+its header says what bounds it on the H100 and how the designs answer
 that.
+
+Two designs, chosen by dtype and by nothing else: bf16 tensors run the
+tensor-core kernels (wgmma products with fp32 accumulators, TMA tile
+loads); fp32 tensors run the CUDA-core kernels (fp32 FMAs), because the
+tensor cores take fp32 only as TF32, about three decimal digits, and the
+fp32 models are held to 1e-5 against the CPU. Each design counts its own
+launches beside the totals.
 
 Shape contract (the paddle layout, as in the TPU module): q ``[B, Sq, H,
 D]``, k and v ``[B, Sk, H, D]`` with equal head counts, read through
@@ -20,10 +27,13 @@ in the inputs' dtype and the fp32 log-sum-exp ``LSE`` ``[B, H, Sq]``.
 :func:`flash_attention` is a ``torch.autograd.Function``: CPU tensors
 run :func:`flash_attention_reference` and
 :func:`flash_attention_backward_reference` (plain PyTorch in the
-kernel's math: fp32 scores, P from LSE, no rounding of P before the
-value product), CUDA tensors launch the kernels or raise. The TPU
-module's size policy (``_select``'s v5e thresholds) is not ported: a
-CUDA tensor always runs the kernel.
+kernels' math: fp32 scores, P from LSE, P and dS rounded to the inputs'
+dtype before their second products, at the stock Pallas kernel's four
+points), CUDA tensors launch the kernels or raise. The TPU module's size
+policy (``_select``'s v5e thresholds) is not ported: a CUDA tensor
+always runs a kernel. :func:`probability_rounding_slack` bounds what
+rounding P and dS at other points (the bf16 kernel rounds unnormalised
+P tile by tile) can move each output entry.
 """
 from __future__ import annotations
 
@@ -34,9 +44,17 @@ import torch
 from . import _build
 
 # kernel launches made by this process: forward, and backward (one per
-# backward call: its Delta, dK/dV and dQ passes)
+# backward call: its Delta, dK/dV and dQ passes); the same split by
+# design: tensor cores (bf16) and CUDA cores (fp32)
 launches = 0
 bwd_launches = 0
+tc_launches = 0
+tc_bwd_launches = 0
+cc_launches = 0
+cc_bwd_launches = 0
+DESIGN_COUNTERS = ("tc_launches", "tc_bwd_launches", "cc_launches",
+                   "cc_bwd_launches")
+DESIGNS = {torch.bfloat16: "wgmma", torch.float32: "cuda-core fp32"}
 
 HEAD_DIMS = (64, 128)
 
@@ -81,13 +99,21 @@ def _scores(q, k, causal, scale):
     return s
 
 
+def _rounded(x, dtype):
+    """``x`` rounded to ``dtype`` and back to fp32 (the stock kernel's
+    ``.astype`` before a product; a no-op for fp32)."""
+    return x.to(dtype).float()
+
+
 def flash_attention_reference(q, k, v, causal=False, scale=None):
-    """Plain PyTorch version of the forward: ``(O, LSE)``."""
+    """Plain PyTorch version of the forward: ``(O, LSE)``. P is rounded
+    to v's dtype before the value product (stock ``p.astype(v.dtype)``,
+    here the normalised P)."""
     _check_shapes(q, k, v, causal)
     scale = _scale_of(q, scale)
     s = _scores(q, k, causal, scale)
     lse = torch.logsumexp(s, dim=-1)                        # [B, H, Sq]
-    p = torch.exp(s - lse[..., None])
+    p = _rounded(torch.exp(s - lse[..., None]), v.dtype)
     o = torch.matmul(p, v.float().transpose(1, 2))          # [B, H, Sq, D]
     return o.transpose(1, 2).to(q.dtype), lse
 
@@ -96,21 +122,72 @@ def flash_attention_backward_reference(q, k, v, o, lse, do, causal=False,
                                        scale=None):
     """Plain PyTorch version of the backward: ``(dq, dk, dv)`` in the
     inputs' dtypes. ``Delta = rowsum(dO * O)`` with O as the forward
-    stored it; ``P = exp(S - LSE)``; ``dS = P * (dO V^T - Delta)``."""
+    stored it; ``P = exp(S - LSE)``; ``dS = P * (dO V^T - Delta) *
+    scale``. P is rounded to the inputs' dtype before ``dV = P^T dO``
+    (stock ``p.T.astype``), dS before ``dK = dS^T Q`` and ``dQ = dS K``
+    (stock ``ds.T.astype``, ``ds.astype``; scaled first, as there)."""
     _check_shapes(q, k, v, causal)
     scale = _scale_of(q, scale)
+    p, ds, g = _probabilities(q, k, v, o, lse, do, causal, scale)
+    dv = torch.matmul(_rounded(p, q.dtype).transpose(-1, -2), g)
+    ds = _rounded(ds * scale, q.dtype)
+    dq = torch.matmul(ds, k.float().transpose(1, 2))        # [B, H, Sq, D]
+    dk = torch.matmul(ds.transpose(-1, -2), q.float().transpose(1, 2))
+    return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
+
+
+def _probabilities(q, k, v, o, lse, do, causal, scale):
+    """fp32 ``P = exp(S - LSE)`` and the unscaled ``dS = P * (dO V^T -
+    Delta)`` ``[B, H, Sq, Sk]``, and dO as ``[B, H, Sq, D]``."""
     s = _scores(q, k, causal, scale)
     p = torch.exp(s - lse[..., None])                       # [B, H, Sq, Sk]
     g = do.float().transpose(1, 2)                          # [B, H, Sq, D]
     delta = (g * o.float().transpose(1, 2)).sum(dim=-1)     # [B, H, Sq]
-    dv = torch.matmul(p.transpose(-1, -2), g)               # [B, H, Sk, D]
     dp = torch.matmul(g, v.float().permute(0, 2, 3, 1))     # [B, H, Sq, Sk]
-    ds = p * (dp - delta[..., None])
-    dq = torch.matmul(ds, k.float().transpose(1, 2)) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), q.float().transpose(1, 2)) \
-        * scale
-    return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
-            dv.transpose(1, 2).to(v.dtype))
+    return p, p * (dp - delta[..., None]), g
+
+
+def probability_rounding_slack(q, k, v, lse, o=None, do=None, causal=False,
+                               scale=None):
+    """Per output entry, what rounding P and dS to the inputs' dtype at
+    other points than the plain version can move it by: ``o_slack`` ``[B,
+    Sq, H, D]``, and with ``o`` and ``do`` also ``(dq, dk, dv)`` slacks
+    in the shapes of q, k, v; all fp32, zero for fp32 inputs.
+
+    Derivation. bf16 keeps 8 significant bits: rounding x to nearest
+    moves it by at most ``u |x|``, ``u = 2^-8``. Each side rounds every
+    entry of P (or dS) once, from fp32 values that agree to a few fp32
+    ulps (scores summed in another order, the hardware exp2 for exp), so
+    the two rounded entries differ by at most ``2u |x| = 2^-7 |x|`` (both
+    round the same way, or to neighbouring bf16 values). Through a
+    product with fp32 sums that bounds an output entry's difference by
+    ``2^-7`` times the product of the absolute values: O ``2^-7 (|P|
+    |V|)``, dV ``2^-7 (|P^T| |dO|)``, dK ``2^-7 scale (|dS^T| |Q|)``, dQ
+    ``2^-7 scale (|dS| |K|)`` (dS unscaled). The bf16 kernel's forward
+    rounds the unnormalised P of each tile (``exp2(S - m_j)``, m_j the
+    running max) and rescales in fp32 afterwards; a relative rounding
+    error survives that rescaling unchanged, so the same bound holds. The
+    fp32 rescaling and the cast of the result are covered by the
+    cast-once tolerance beside this slack."""
+    _check_shapes(q, k, v, causal)
+    scale = _scale_of(q, scale)
+    rel = 0.0 if q.dtype == torch.float32 else 2.0 ** -7
+    backward = o is not None and do is not None
+    if backward:
+        p, ds, g = _probabilities(q, k, v, o, lse, do, causal, scale)
+    else:
+        p = torch.exp(_scores(q, k, causal, scale) - lse[..., None])
+    o_slack = rel * torch.matmul(p, v.float().abs().transpose(1, 2))
+    if not backward:
+        return o_slack.transpose(1, 2)
+    ds = ds.abs()
+    dv = rel * torch.matmul(p.transpose(-1, -2), g.abs())
+    dq = rel * scale * torch.matmul(ds, k.float().abs().transpose(1, 2))
+    dk = rel * scale * torch.matmul(ds.transpose(-1, -2),
+                                    q.float().abs().transpose(1, 2))
+    return o_slack.transpose(1, 2), tuple(
+        t.transpose(1, 2) for t in (dq, dk, dv))
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -172,15 +249,25 @@ def _check_cuda(tensors, dtype):
         if t.dtype != dtype:
             raise TypeError(f"flash attention kernel takes one dtype: "
                             f"{name} is {t.dtype}, q is {dtype}")
-    if dtype not in _build.DTYPE_CODES:
+    if dtype not in DESIGNS:
         raise TypeError(f"flash attention kernel takes float32/bfloat16, "
                         f"got {dtype}")
     return dev
 
 
+def _count(dtype, backward):
+    """Add one launch to the total and to the counter of the design that
+    ``dtype`` runs (the C entry points dispatch on the same dtype)."""
+    total = "bwd_launches" if backward else "launches"
+    design = "tc_" if dtype == torch.bfloat16 else "cc_"
+    counters = globals()
+    counters[total] += 1
+    counters[design + total] += 1
+
+
 def flash_attention_cuda(q, k, v, causal=False, scale=None):
-    """Launch the forward of ``csrc/flash_attention.cu``: ``(O, LSE)``."""
-    global launches
+    """Launch the forward of ``csrc/flash_attention.cu``: ``(O, LSE)``;
+    bf16 runs the tensor-core kernel, fp32 the CUDA-core one."""
     b, sq, sk, h, d = _check_shapes(q, k, v, causal)
     dev = _check_cuda((("q", q), ("k", k), ("v", v)), q.dtype)
     if d not in HEAD_DIMS:
@@ -199,15 +286,15 @@ def flash_attention_cuda(q, k, v, causal=False, scale=None):
             _build.DTYPE_CODES[q.dtype], _build.stream_of(q),
         )
     _build.check(err, "ptt_flash_attention_fwd")
-    launches += 1
+    _count(q.dtype, backward=False)
     return o, lse
 
 
 def flash_attention_backward_cuda(q, k, v, o, lse, do, causal=False,
                                   scale=None):
     """Launch the backward of ``csrc/flash_attention.cu`` (Delta, dK/dV
-    and dQ passes): ``(dq, dk, dv)``."""
-    global bwd_launches
+    and dQ passes): ``(dq, dk, dv)``; bf16 runs the tensor-core kernels,
+    fp32 the CUDA-core ones."""
     b, sq, sk, h, d = _check_shapes(q, k, v, causal)
     do = do.to(q.dtype)
     vec = 16 // q.element_size()
@@ -243,5 +330,5 @@ def flash_attention_backward_cuda(q, k, v, o, lse, do, causal=False,
             _build.stream_of(q),
         )
     _build.check(err, "ptt_flash_attention_bwd")
-    bwd_launches += 1
+    _count(q.dtype, backward=True)
     return dq, dk, dv

@@ -25,7 +25,10 @@ for the fp32 products over K = 4096 and attention over 2048 keys (sums
 in another order over thousands of terms), bf16 entry by entry as above;
 the fused RMSNorm + matmul adds, per entry, what the rounding of the
 normed row may move it by when the kernel's rstd rounds an entry near a
-midpoint the other way (``normed_rounding_slack``).
+midpoint the other way (``normed_rounding_slack``). bf16 flash attention
+adds, per entry, what rounding P and dS at other points than the plain
+version may move it by (``probability_rounding_slack``: the tensor-core
+kernels round the unnormalised P of each tile).
 """
 import numpy as np
 import pytest
@@ -60,13 +63,16 @@ def _rel_ok(got, want, tol):
     return _err(got, want) <= tol * float(want.float().abs().max())
 
 
-def _cast_once_ok(got, want, tol32):
+def _cast_once_ok(got, want, tol32, slack=None):
     """fp32: within ``tol32`` of the largest entry; bf16: each entry
-    within 2^-7 of it plus that fp32 tolerance."""
+    within 2^-7 of it plus that fp32 tolerance, plus its ``slack`` (what
+    rounding an operand at another point may move it by)."""
     if got.dtype == torch.float32:
         return _rel_ok(got, want, tol32)
     ref = want.float().abs()
     tol = 2.0 ** -7 * ref + tol32 * float(ref.max())
+    if slack is not None:
+        tol = tol + slack
     return bool(((got.float() - want.float()).abs() <= tol).all())
 
 
@@ -283,6 +289,9 @@ FLASH_CASES = {
     "causal_sq_lt_sk": (True, 70, 200, 64, False),
     "full": (False, 100, 77, 128, False),
     "causal_strided": (True, 96, 96, 64, True),
+    "causal_ragged_1000": (True, 1000, 1000, 128, False),
+    "full_sk_gt_sq": (False, 300, 1000, 128, False),
+    "causal_d64_sq_lt_sk": (True, 200, 333, 64, False),
 }
 
 
@@ -296,18 +305,38 @@ def test_flash_attention_kernels(dev, dtype, case):
                                 strided=strided)
     o, lse = tfa.flash_attention_cuda(q, k, v, causal)
     ro, rlse = tfa.flash_attention_reference(q, k, v, causal)
+    # bf16: the kernels round P and dS where the plain version does not
+    # (unnormalised P tile by tile); each entry gets that slack
+    o_slack, slacks = tfa.probability_rounding_slack(q, k, v, lse, o, do,
+                                                     causal)
     assert o.dtype == dt and torch.isfinite(o).all()
-    assert _cast_once_ok(o, ro, 1e-5)
+    assert _cast_once_ok(o, ro, 1e-5, o_slack)
     assert _err(lse, rlse) <= 1e-5 * float(rlse.abs().max())
     grads = tfa.flash_attention_backward_cuda(q, k, v, o, lse, do, causal)
     want = tfa.flash_attention_backward_reference(q, k, v, o, lse, do,
                                                   causal)
-    for got, ref in zip(grads, want):
+    for got, ref, slack in zip(grads, want, slacks):
         assert got.dtype == dt and torch.isfinite(got).all()
-        assert _cast_once_ok(got, ref, 1e-4)
+        assert _cast_once_ok(got, ref, 1e-4, slack)
     # no float atomics: the gradients repeat bit for bit
     again = tfa.flash_attention_backward_cuda(q, k, v, o, lse, do, causal)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.cuda
+def test_flash_attention_dispatches_by_dtype(dev):
+    from paddle_tpu_torch import kernels
+
+    for dt, design in ((torch.bfloat16, "tc"), (torch.float32, "cc")):
+        q, k, v, do = _flash_inputs(dev, dt, 1, 64, 64, 2, 128, seed=3)
+        kernels.reset_launch_counts()
+        o, lse = tfa.flash_attention_cuda(q, k, v, True)
+        tfa.flash_attention_backward_cuda(q, k, v, o, lse, do, True)
+        other = "cc" if design == "tc" else "tc"
+        assert kernels.flash_design_counts() == {
+            f"{design}_launches": 1, f"{design}_bwd_launches": 1,
+            f"{other}_launches": 0, f"{other}_bwd_launches": 0}
+        assert tfa.launches == 1 and tfa.bwd_launches == 1
 
 
 @pytest.mark.cuda

@@ -27,11 +27,20 @@ Backward passes, against ``jax.vjp`` of the JAX kernels:
   composed scores). bf16 3e-2 absolute plus 3e-2 relative, the bound
   the repo already uses between kernel and composed paths: ``_composed``
   rounds the scores and P to bf16 before the value product and does its
-  backward products in bf16, the port keeps every product in fp32.
+  backward products in bf16, the port keeps the scores in fp32.
+- Flash attention's plain forward and backward against jax's stock
+  Pallas flash kernel itself (interpret mode): fp32 1e-5 of the largest
+  entry; bf16 1e-2 of it (the stock kernel rounds the unnormalised P of
+  each block, the plain version the normalised P), dV 1e-3 plus each
+  entry's own cast (both round P^T at the same point).
+- The bf16 tensor-core kernels' order of work, emulated, within
+  cast-once plus ``probability_rounding_slack`` of the plain version;
+  three seeded faults must fall outside it.
 
 The CUDA kernels themselves are compared with their plain versions on
 the card, by tests/test_torch_cuda.py and chip_smoke.py.
 """
+import math
 import os
 import subprocess
 import sys
@@ -288,6 +297,187 @@ def test_flash_attention_matches_jax(dtype, case):
     dq, dk, dv = tfa.flash_attention_backward_reference(
         qt, kt, vt, o.detach(), lse, gt, causal)
     assert torch.equal(ts[0].grad, dq) and torch.equal(ts[2].grad, dv)
+
+
+# ------------------------------------- flash against the stock TPU kernel
+def _stock_flash(qn, kn, vn, gn, dtype, causal):
+    """jax's stock Pallas flash attention (the kernel the JAX package
+    reaches on a TPU), forward and ``jax.vjp``, in TPU interpret mode with
+    every block 128 and 32-bit indices (the kernel's own; the suite turns
+    x64 on); [B, S, H, D] numpy in, [B, S, H, D] numpy out."""
+    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas.ops.tpu import flash_attention as stock
+
+    blocks = stock.BlockSizes(
+        block_q=128, block_k_major=128, block_k=128, block_b=1,
+        block_q_major_dkv=128, block_k_major_dkv=128, block_k_dkv=128,
+        block_q_dkv=128, block_k_major_dq=128, block_k_dq=128,
+        block_q_dq=128)
+    q, k, v, g = (_both(a, dtype)[0].transpose(0, 2, 1, 3)
+                  for a in (qn, kn, vn, gn))
+    scale = 1.0 / np.sqrt(qn.shape[-1])
+    with pltpu.force_tpu_interpret_mode(), jax.enable_x64(False):
+        o, vjp = jax.vjp(lambda q, k, v: stock.flash_attention(
+            q, k, v, causal=causal, sm_scale=scale, block_sizes=blocks),
+            q, k, v)
+        grads = vjp(g)
+    return [_np(x).transpose(0, 2, 1, 3) for x in (o, *grads)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_plain_matches_stock_pallas_kernel(dtype, causal):
+    """The plain forward and backward (what the CUDA kernels are held to)
+    against the stock TPU kernel itself. bf16: O, dQ, dK, dV within 1e-2
+    of the largest entry (the stock kernel rounds the unnormalised P of
+    each block, the plain version the normalised P), dV within 1e-3 of
+    the largest entry plus the cast of each entry to bf16 (2^-7 of it:
+    both round P^T at the same point from fp32 values that agree, and
+    the two fp32 results may still round one ulp apart); fp32 1e-5 of
+    the largest entry (the same arithmetic summed in another order)."""
+    rng = np.random.RandomState(12)
+    b, s, h, d = 1, 256, 2, 128
+    qn, kn, vn, gn = (rng.randn(b, s, h, d).astype(np.float32)
+                      for _ in range(4))
+    want = _stock_flash(qn, kn, vn, gn, dtype, causal)
+    q, k, v, g = (_both(a, dtype)[1] for a in (qn, kn, vn, gn))
+    o, lse = tfa.flash_attention_reference(q, k, v, causal)
+    got = [o, *tfa.flash_attention_backward_reference(q, k, v, o, lse, g,
+                                                      causal)]
+    tol = 1e-2 if dtype == "bfloat16" else 1e-5
+    for name, x, w in zip(("o", "dq", "dk", "dv"), got, want):
+        top = np.abs(w).max()
+        err = np.abs(_np(x) - w)
+        assert err.max() <= tol * top, (name, err.max() / top)
+        if dtype == "bfloat16" and name == "dv":
+            assert (err <= 1e-3 * top + BF16_ULP * np.abs(w)).all(), name
+
+
+# ------------------------------------------- the bf16 rounding slack
+def _round_bits(x, bits):
+    """x rounded to ``bits`` explicit mantissa bits (bf16 has 7)."""
+    m, e = torch.frexp(x)
+    return torch.ldexp(torch.round(m * 2.0 ** (bits + 1)) / 2.0 ** (bits + 1),
+                       e)
+
+
+def _emulate_tc_flash(q, k, v, g, causal, fault=None):
+    """The tensor-core kernels' order of work in plain PyTorch (fp32 sums
+    of bf16 operands): the forward over q tiles of 64 rows and k tiles of
+    128 with a running max, P = exp2(S - m) rounded to bf16 unnormalised
+    tile by tile, l summed from the unrounded P; the dK/dV pass over k
+    tiles of 64 and q blocks of 64 with P^T and dS^T (scaled) rounded per
+    tile; the dQ pass over q tiles of 64 and k blocks of 64 with dS
+    rounded per tile. ``fault``: "skip_tile" (the forward skips its second
+    k tile), "diagonal" (the causal mask lets each row see one more key),
+    "p_bits" (P rounded to 4 mantissa bits). Returns (o, lse, dq, dk,
+    dv) in the plain version's layouts and dtypes."""
+    dt = q.dtype
+    qf, kf, vf, gf = (t.float().transpose(1, 2) for t in (q, k, v, g))
+    sq, sk, d = qf.shape[2], kf.shape[2], qf.shape[3]
+    scale = 1.0 / math.sqrt(d)
+    sl2 = scale * math.log2(math.e)
+    shift = sk - sq + (1 if fault == "diagonal" else 0)
+
+    def rnd(p):
+        p = _round_bits(p, 4) if fault == "p_bits" else p
+        return p.to(dt).float()
+
+    def visible(r0, rows, c0, cols):
+        r = torch.arange(r0, r0 + rows)[:, None]
+        c = torch.arange(c0, c0 + cols)[None, :]
+        keep = c < sk
+        return keep & (c <= r + shift) if causal else keep
+
+    o = torch.zeros_like(qf)
+    lse = torch.zeros(qf.shape[:3])
+    for q0 in range(0, sq, 64):
+        qt = qf[:, :, q0:q0 + 64]
+        rows = qt.shape[2]
+        m = torch.full(qt.shape[:3] + (1,), -math.inf)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qt)
+        for t, k0 in enumerate(range(0, sk, 128)):
+            if fault == "skip_tile" and t == 1:
+                continue
+            if causal and k0 > q0 + rows - 1 + shift:
+                break
+            s = qt @ kf[:, :, k0:k0 + 128].transpose(-1, -2) * sl2
+            s = s.masked_fill(~visible(q0, rows, k0, s.shape[-1]), -math.inf)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + rnd(p) @ vf[:, :, k0:k0 + 128]
+            m = m_new
+        o[:, :, q0:q0 + 64] = acc / l
+        lse[:, :, q0:q0 + 64] = (m * math.log(2) + torch.log(l))[..., 0]
+    o = o.to(dt)
+    delta = (gf * o.float()).sum(-1)
+    lse2 = lse * math.log2(math.e)
+
+    def p_ds(q0, rows, k0, cols):
+        s = qf[:, :, q0:q0 + rows] @ kf[:, :, k0:k0 + cols].transpose(-1, -2)
+        p = torch.exp2(s * sl2 - lse2[:, :, q0:q0 + rows, None])
+        p = p * visible(q0, rows, k0, cols)
+        dp = gf[:, :, q0:q0 + rows] @ vf[:, :, k0:k0 + cols].transpose(-1, -2)
+        return p, p * (dp - delta[:, :, q0:q0 + rows, None]) * scale
+
+    dq, dk, dv = (torch.zeros_like(t) for t in (qf, kf, vf))
+    for k0 in range(0, sk, 64):
+        cols = min(64, sk - k0)
+        for q0 in range(0, sq, 64):
+            rows = min(64, sq - q0)
+            p, ds = p_ds(q0, rows, k0, cols)
+            dv[:, :, k0:k0 + cols] += rnd(p).transpose(-1, -2) \
+                @ gf[:, :, q0:q0 + rows]
+            dk[:, :, k0:k0 + cols] += ds.to(dt).float().transpose(-1, -2) \
+                @ qf[:, :, q0:q0 + rows]
+    for q0 in range(0, sq, 64):
+        rows = min(64, sq - q0)
+        for k0 in range(0, sk, 64):
+            _, ds = p_ds(q0, rows, k0, min(64, sk - k0))
+            dq[:, :, q0:q0 + rows] += ds.to(dt).float() \
+                @ kf[:, :, k0:k0 + 64]
+    back = [t.transpose(1, 2).to(dt) for t in (o.float(), dq, dk, dv)]
+    return back[0], lse, back[1], back[2], back[3]
+
+
+def _within_slack(got, q, k, v, g, causal):
+    """Largest error over tolerance of (o, dq, dk, dv) against the plain
+    version fed the same O and LSE: per entry 2^-7 |plain| + (1e-5 for O,
+    1e-4 for the gradients) * max |plain| + the rounding slack."""
+    o, lse, *grads = got
+    want = [tfa.flash_attention_reference(q, k, v, causal)[0],
+            *tfa.flash_attention_backward_reference(q, k, v, o, lse, g,
+                                                    causal)]
+    o_slack, slacks = tfa.probability_rounding_slack(q, k, v, lse, o, g,
+                                                     causal)
+    worst = 0.0
+    for x, w, tol32, sl in zip((o, *grads), want, (1e-5, 1e-4, 1e-4, 1e-4),
+                               (o_slack, *slacks)):
+        w = w.float()
+        tol = BF16_ULP * w.abs() + tol32 * float(w.abs().max()) + sl
+        worst = max(worst, float(((x.float() - w).abs() / tol).max()))
+    return worst
+
+
+@pytest.mark.parametrize("fault", [None, "skip_tile", "diagonal", "p_bits"])
+def test_flash_rounding_slack_holds_emulated_kernel(fault):
+    """The bf16 tensor-core kernels' order of work (emulated) lies within
+    cast-once plus ``probability_rounding_slack`` of the plain version;
+    three seeded faults each fall outside it, so the slack does not hide
+    a wrong kernel."""
+    rng = np.random.RandomState(5)
+    b, s, h, d = 1, 200, 2, 64
+    q, k, v, g = (torch.from_numpy(rng.randn(b, s, h, d).astype(np.float32))
+                  .to(torch.bfloat16) for _ in range(4))
+    ratio = _within_slack(_emulate_tc_flash(q, k, v, g, True, fault),
+                          q, k, v, g, True)
+    if fault is None:
+        assert ratio <= 1.0
+    else:
+        assert ratio > 1.0
 
 
 def test_flash_attention_refuses_shapes():
