@@ -17,8 +17,12 @@ It imports neither jax nor ``paddle_tpu``. Phases, each fatal on failure:
    tolerance stated per kernel, and timed (CUDA events, median) beside its bound, its
    plain version and, where one PyTorch call computes the same function,
    that call (the W8A16 matmul: beside the composed dequantize-then-
-   ``torch.matmul`` and the float weight's ``torch.matmul``); the
-   backward kernels and the W8A16 matmul must repeat bit for bit;
+   ``torch.matmul``, the float weight's ``torch.matmul``, the CUDA-core
+   kernels on the same bf16 inputs, and ``torch._weight_int8pack_mm``
+   where this PyTorch runs it; with a sweep of its two tensor-core
+   kernels over 16-512 rows); the backward kernels and the W8A16 matmul
+   must repeat bit for bit; flash attention and paged attention also at
+   head dims 16 and 256;
 4. small parity: a tiny fp32 Llama on the card, whose paged-engine
    greedy streams must equal ``generate`` with an fp32 slab cache
    token for token; then the same model quantized
@@ -47,7 +51,8 @@ It imports neither jax nor ``paddle_tpu``. Phases, each fatal on failure:
    requests through ``PagedServingEngine`` with an int8 KV arena; the
    int8 paged attention and the W8A16 kernels must have launched the
    counts the structure gives (32 and 6 x 32 + 1 per decode step, 193
-   per prefill), no page may leak, and every generated token must pass
+   per prefill), every W8A16 launch on its tensor-core design (bf16),
+   no page may leak, and every generated token must pass
    a teacher-forced check against one slab prefill of the whole
    sequence with an int8 cache (the same quantization, composed
    attention).
@@ -64,6 +69,10 @@ the fused head 1, RMSNorm 64, rope 32, paged attention 32; no page leak)
 and its teacher-forced check through the fused cache-free forward (the
 fused attention 32 times a sequence, no flash), with the count of tokens
 that differ from the unfused streams printed.
+
+``--profile-steps N`` profiles N decode steps after each serving phase,
+and one 1024-bucket prefill (three times) of the bf16 and the quantized
+model.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -310,8 +319,8 @@ def rope_cases(torch, mod, dev):
     return out
 
 
-def paged_inputs(torch, dev, dtype, kvh, g):
-    b, h, d, ps, width = 8, 32, 128, 16, 128
+def paged_inputs(torch, dev, dtype, kvh, g, d=128):
+    b, h, ps, width = 8, 32, 16, 128
     pos = torch.tensor([0, 15, 300, 777, 1024, 1500, 2000, 2047],
                        dtype=torch.int32, device=dev)
     n_pages = b * width + 1
@@ -335,24 +344,24 @@ def paged_inputs(torch, dev, dtype, kvh, g):
 def paged_cases(torch, mod, dev):
     out = []
     g = torch.Generator(device=dev).manual_seed(3)
-    for dtype, kvh in ((torch.bfloat16, 32), (torch.float32, 32),
-                       (torch.bfloat16, 8), (torch.float32, 8)):
+    for dtype, kvh, d in ((torch.bfloat16, 32, 128), (torch.float32, 32, 128),
+                          (torch.bfloat16, 8, 128), (torch.float32, 8, 128),
+                          (torch.bfloat16, 32, 16), (torch.bfloat16, 32, 256)):
         dname = str(dtype).replace("torch.", "")
-        q, kp, vp, tbl, pos = paged_inputs(torch, dev, dtype, kvh, g)
+        q, kp, vp, tbl, pos = paged_inputs(torch, dev, dtype, kvh, g, d)
         o = mod.paged_attention_cuda(q, kp, vp, tbl, pos)
         ref = mod.paged_attention_reference(q, kp, vp, tbl, pos)
         if not torch.isfinite(o).all():
             fail("paged attention kernel produced non-finite values")
         es = q.element_size()
         slots = int((pos.long() + 1).sum())
-        d = 128
         nbytes = (2 * slots * kvh * d * es + 2 * q.numel() * es
                   + int((pos.long() // 16 + 1).sum()) * 4 + 4 * 8)
         b_ms, b_by = bound(nbytes, 4 * slots * 32 * d, dname)
         out.append({
             "shape": {"q": list(q.shape), "pages": list(kp.shape),
                       "pos": [int(p) for p in pos]},
-            "dtype": dname, "kv_heads": kvh,
+            "dtype": dname, "kv_heads": kvh, "head_dim": d,
             "max_abs_err": max_err(torch, o, ref),
             "tolerance": PAGED_TOL[dname],
             "ms": gpu_time_ms(torch, lambda: mod.paged_attention_cuda(
@@ -363,6 +372,8 @@ def paged_cases(torch, mod, dev):
             "library_ms": None,
             "bound_ms": b_ms, "bound_by": b_by,
         })
+        del q, kp, vp, o, ref
+    torch.cuda.empty_cache()
     return out
 
 
@@ -493,9 +504,10 @@ def paged_int8_cases(torch, mod, dev):
 
 
 # W8A16 shapes: the 7B decode step's four weight shapes at 8 rows (q/k/v/o,
-# gate+up, down, lm_head) and one prefill bucket through gate+up
+# gate+up, down, lm_head) and three prefill buckets (64, 256, 1024 rows)
 INT8_MM_SHAPES = ((8, 4096, 4096), (8, 4096, 22016), (8, 11008, 4096),
-                  (8, 4096, 32000), (1024, 4096, 22016))
+                  (8, 4096, 32000), (64, 4096, 4096), (256, 4096, 22016),
+                  (1024, 4096, 22016))
 # weight copies cycled through so that every timed call reads its weight
 # from device memory, not from the 50 MB L2 (as each layer's projection
 # does in a decode step)
@@ -512,11 +524,34 @@ def cycled(fns):
     return call
 
 
+def int8pack_ms(torch, x, wqs, sc, n_t):
+    """``torch._weight_int8pack_mm`` (one PyTorch call: x times an int8
+    ``[N, K]`` weight, scaled per column AFTER the product) on transposed
+    copies of the weights, timed as a yardstick of time only (it rounds
+    otherwise, so it is no parity oracle): ``(ms, None)``, or ``(None,
+    why)`` where this PyTorch does not run it on the card."""
+    try:
+        wts = [w.t().contiguous() for w in wqs]
+        s = sc.to(x.dtype)
+        torch._weight_int8pack_mm(x, wts[0], s)
+        torch.cuda.synchronize()
+    except Exception as e:  # a yardstick this PyTorch lacks
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    ms = gpu_time_ms(torch, cycled([
+        (lambda wt=wt: torch._weight_int8pack_mm(x, wt, s)) for wt in wts]),
+        n=n_t)
+    del wts
+    return ms, None
+
+
 def int8_matmul_cases(torch, mod, dev):
-    """Kernel B at the decode and prefill shapes, bf16 and fp32 x, against
-    its plain version; timed beside the composed dequantize-then-matmul
-    and the float weight's torch.matmul in x's dtype (the float path's
-    cost), each over enough weight copies to miss in L2."""
+    """Kernel B at the decode and prefill shapes against its plain version:
+    bf16 x on the tensor-core design (the kernel its row count selects:
+    swap-AB up to SWAP_MAX_ROWS, tiled above), fp32 x on the CUDA-core
+    one. Timed beside the composed dequantize-then-matmul, the float
+    weight's torch.matmul in x's dtype (the float path's cost), and for
+    bf16 torch._weight_int8pack_mm where it runs, each over enough
+    weight copies to miss in L2."""
     out = []
     g = torch.Generator(device=dev).manual_seed(10)
     for rows, h, n in INT8_MM_SHAPES:
@@ -527,6 +562,8 @@ def int8_matmul_cases(torch, mod, dev):
         wqs = [wq] + [wq.clone() for _ in range(copies - 1)]
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).replace("torch.", "")
+            kernel = ("cc" if mod.design(dtype) == "cc" else
+                      "swap" if rows <= mod.SWAP_MAX_ROWS else "tiled")
             x = torch.randn(rows, h, generator=g, device=dev).to(dtype)
             y = mod.int8_matmul_cuda(x, wq, sc)
             ref = mod.int8_matmul_reference(x, wq, sc)
@@ -557,8 +594,17 @@ def int8_matmul_cases(torch, mod, dev):
             float_mm = gpu_time_ms(torch, cycled([
                 (lambda wf=wf: torch.matmul(x, wf)) for wf in wfs]), n=n_t)
             del wfs
-            out.append({
+            extra = {}
+            if kernel != "cc":
+                # the library's one call
+                lib, why = int8pack_ms(torch, x, wqs, sc, n_t)
+                extra.update(library_ms=lib,
+                             library_call="torch._weight_int8pack_mm "
+                                          "(scales after the product)",
+                             library_unavailable=why)
+            out.append(dict({
                 "shape": {"rows": rows, "h": h, "n": n}, "dtype": dname,
+                "design": mod.design(dtype), "kernel": kernel,
                 "checks": cs, "max_abs_err": worst["max_abs_err"],
                 "tolerance": worst["tolerance"],
                 "err_over_tol": worst["err_over_tol"],
@@ -569,11 +615,65 @@ def int8_matmul_cases(torch, mod, dev):
                 "float_matmul_ms": float_mm,
                 "float_matmul_call": f"torch.matmul of the {dname} weight",
                 "bound_ms": b_ms, "bound_by": b_by,
-            })
+            }, **extra))
             del x
         del wq, sc, wqs
         torch.cuda.empty_cache()
     return out
+
+
+# the crossover of the two tensor-core W8A16 kernels: bf16 x of each
+# prefill bucket's row count through each kernel at each of the 7B
+# model's projection shapes (q/k/v/o, gate+up, down, lm_head), weights
+# cycled past the L2
+CROSSOVER_ROWS = (16, 32, 64, 128, 256, 512)
+CROSSOVER_SHAPES = ((4096, 4096), (4096, 22016), (11008, 4096),
+                    (4096, 32000))
+
+
+def int8_crossover(torch, mod, dev):
+    """ms of the swap-AB and tiled kernels (and the float weight's
+    torch.matmul) at each row count and shape; the swap-AB kernel takes
+    up to SWAP_MAX_ROWS rows. Each kernel's output is held within
+    cast-once of the plain version and must repeat bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    out = []
+    for h, n in CROSSOVER_SHAPES:
+        wq, sc = mod.quantize_weight(
+            0.02 * torch.randn(h, n, generator=g, device=dev))
+        wqs = [wq] + [wq.clone()
+                      for _ in range(L2_FLUSH_BYTES // wq.numel())]
+        wfs = [mod._dequant(wq, sc, torch.bfloat16)
+               for _ in range(-(-L2_FLUSH_BYTES // (2 * h * n)))]
+        rows_out = []
+        for rows in CROSSOVER_ROWS:
+            x = torch.randn(rows, h, generator=g, device=dev).bfloat16()
+            ref = mod.int8_matmul_reference(x, wq, sc)
+            rec = {"rows": rows}
+            for kernel in ("swap", "tiled"):
+                if kernel == "swap" and rows > mod.SWAP_MAX_ROWS:
+                    continue
+                y = mod._tc_kernel(x, wq, sc, kernel)
+                what = f"int8 matmul {kernel} {[rows, h, n]}"
+                if not torch.equal(y, mod._tc_kernel(x, wq, sc, kernel)):
+                    fail(f"{what} does not repeat bit for bit")
+                _, worst = checks(torch, [cast_once(
+                    "out", y, ref, REL_TOL["float32"], "bfloat16")])
+                if worst["err_over_tol"] > 1.0:
+                    fail(f"{what}: largest error over its entry's "
+                         f"tolerance {worst['err_over_tol']}")
+                rec[f"{kernel}_err_over_tol"] = worst["err_over_tol"]
+                rec[f"{kernel}_ms"] = gpu_time_ms(torch, cycled([
+                    (lambda wi=wi: mod._tc_kernel(x, wi, sc, kernel))
+                    for wi in wqs]))
+            rec["float_matmul_ms"] = gpu_time_ms(torch, cycled([
+                (lambda wf=wf: torch.matmul(x, wf)) for wf in wfs]))
+            rows_out.append(rec)
+            del x, ref
+        out.append({"shape": {"h": h, "n": n}, "rows": rows_out})
+        del wq, sc, wqs, wfs
+        torch.cuda.empty_cache()
+    return {"swap_max_rows": mod.SWAP_MAX_ROWS, "shapes": out}
 
 
 def _visible_pairs(sq, sk, causal):
@@ -602,14 +702,17 @@ FLASH_SHAPES = (
     # dtype, causal, batch, sq, sk, head_dim (heads 32): the training
     # shape in bf16 (the tensor-core kernels) and fp32 (the CUDA-core
     # ones), a chunk of 512 queries over 2048 keys (bottom-right causal),
-    # a ragged causal S 1000, a non-causal Sq 1024 over Sk 1000, and the
-    # tensor-core kernels at head_dim 64
+    # a ragged causal S 1000, a non-causal Sq 1024 over Sk 1000, the
+    # tensor-core kernels at head_dim 64, and head dims 16 (CUDA cores)
+    # and 256 (tensor-core forward, CUDA-core backward)
     ("bfloat16", True, TRAIN_BATCH, 2048, 2048, 128),
     ("float32", True, TRAIN_BATCH, 2048, 2048, 128),
     ("bfloat16", True, TRAIN_BATCH, 512, 2048, 128),
     ("bfloat16", True, 1, 1000, 1000, 128),
     ("bfloat16", False, 1, 1024, 1000, 128),
     ("bfloat16", True, TRAIN_BATCH, 2048, 2048, 64),
+    ("bfloat16", True, TRAIN_BATCH, 2048, 2048, 16),
+    ("bfloat16", True, TRAIN_BATCH, 2048, 2048, 256),
 )
 
 
@@ -623,7 +726,8 @@ def flash_cases(torch, mod, dev):
     g = torch.Generator(device=dev).manual_seed(9)
     for dname, causal, b, sq, sk, d in FLASH_SHAPES:
         dtype = getattr(torch, dname)
-        design = mod.DESIGNS[dtype]
+        design = mod.DESIGNS[mod.design(dtype, d)]
+        bwd_design = mod.DESIGNS[mod.design(dtype, d, backward=True)]
         q = torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
         k = torch.randn(b, sk, h, d, generator=g, device=dev).to(dtype)
         v = torch.randn(b, sk, h, d, generator=g, device=dev).to(dtype)
@@ -698,7 +802,7 @@ def flash_cases(torch, mod, dev):
         fb = gpu_time_ms(torch, ours_fwd_bwd, n=3, repeats=5)
         lib_fb = gpu_time_ms(torch, lib_fwd_bwd, n=3, repeats=5)
         del ql, kl, vl, lo, dot
-        bwd.append({"shape": shape, "dtype": dname, "design": design,
+        bwd.append({"shape": shape, "dtype": dname, "design": bwd_design,
                     "checks": cs,
                     "max_abs_err": worst["max_abs_err"],
                     "tolerance": worst["tolerance"],
@@ -968,8 +1072,8 @@ def small_parity(torch, np, dev):
 
 
 def fused_parity(torch, np, dev):
-    """A tiny fp32 MHA Llama (head_dim 64: the attention kernel refuses
-    16) with both fusions: its cache-free logits on the card against the
+    """A tiny fp32 MHA Llama (head_dim 64) with both fusions: its
+    cache-free logits on the card against the
     same model's on the CPU, 2e-5 absolute + 1e-4 relative (the CPU
     tests' model bound)."""
     from paddle_tpu_torch import kernels
@@ -1357,6 +1461,7 @@ def serving_phase(torch, np, dev, card, profile_steps=0):
     log("serving: " + json.dumps(res))
     if profile_steps:
         profile_decode(torch, np, eng, cfg, profile_steps, "decode")
+        profile_prefill(torch, np, eng, cfg, "prefill_1024")
     fused_counts = fused_serving(torch, np, dev, card, net, eng, cfg,
                                  handles, profile_steps)
     return counts, fused_counts
@@ -1425,6 +1530,7 @@ def quant_serving_phase(torch, np, dev, card, profile_steps=0):
     an int8 KV arena of 1025 pages x 16 slots, the same 12 requests."""
     import gc
 
+    from paddle_tpu_torch import kernels
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.models.generation import alloc_kv_caches
     from paddle_tpu_torch.quantization import quantize_for_serving
@@ -1461,6 +1567,11 @@ def quant_serving_phase(torch, np, dev, card, profile_steps=0):
     if counts != want:
         fail(f"quantized serving: launches {counts}, expected {want} "
              f"({n_decode} decode steps, {n_prefill} prefills)")
+    # bf16 activations: every W8A16 launch on the tensor-core design
+    designs = kernels.int8_matmul_design_counts()
+    if designs != {"tc_launches": want["int8_matmul"], "cc_launches": 0}:
+        fail(f"quantized serving: W8A16 launches by design {designs}, "
+             f"expected all {want['int8_matmul']} on the tensor cores")
 
     # teacher-forced check against one slab prefill of the whole sequence
     # with an int8 cache: the same quantization on write, dequantized on
@@ -1477,7 +1588,7 @@ def quant_serving_phase(torch, np, dev, card, profile_steps=0):
         card=card, model=f"Llama-2-7B, {layers} layers, int8 weights "
                          f"(W8A16) and int8 KV cache, random weights",
         weight_bytes=weight_bytes, decode_steps=n_decode,
-        prefills=n_prefill,
+        prefills=n_prefill, int8_matmul_launches_by_design=designs,
         launches_per_decode_step={
             "paged_attention_int8": layers,
             "int8_matmul": QUANT_MM_PER_FORWARD},
@@ -1485,6 +1596,7 @@ def quant_serving_phase(torch, np, dev, card, profile_steps=0):
     log("quantized serving: " + json.dumps(res))
     if profile_steps:
         profile_decode(torch, np, eng, cfg, profile_steps, "decode_int8")
+        profile_prefill(torch, np, eng, cfg, "prefill_1024_int8")
     return counts
 
 
@@ -1567,12 +1679,36 @@ def profile_decode(torch, np, eng, cfg, steps, kind):
         fail("pages leaked after the profiled steps")
 
 
+PREFILL_PROFILE_LEN, PREFILL_PROFILES = 1000, 3
+
+
+def profile_prefill(torch, np, eng, cfg, kind):
+    """The prefill profile: PREFILL_PROFILES engine steps on an idle
+    engine, each admitting one request of PREFILL_PROFILE_LEN prompt
+    tokens (the 1024 bucket) and one new token, so the step is the
+    prefill and nothing else."""
+    rng = np.random.RandomState(98)
+    prompt = rng.randint(0, cfg.vocab_size, (PREFILL_PROFILE_LEN,))
+
+    def one_prefill():
+        h = eng.submit(prompt, 1)
+        eng.step()
+        if h.status != "DONE":
+            fail(f"{kind}: the profiled step did not finish its request")
+
+    prof = profile_steps(torch, one_prefill, PREFILL_PROFILES)
+    log("profile: " + json.dumps(dict(prof, prompt_len=PREFILL_PROFILE_LEN,
+                                      kind=kind)))
+    if eng.page_pool.pages_in_use:
+        fail("pages leaked after the profiled prefills")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile-steps", type=int, default=0,
                     help="after each serving phase (bf16, quantized), "
                          "profile this many decode steps with every row "
-                         "busy")
+                         "busy, and a 1024-bucket prefill")
     ap.add_argument("--profile-train-steps", type=int, default=0,
                     help="after the training phase, profile this many "
                          "more training steps")
@@ -1643,6 +1779,8 @@ def main():
                              f"its entry's tolerance "
                              f"{chk.get('err_over_tol')}")
             results[kname] = kcases
+    crossover = int8_crossover(torch, kernels.int8_matmul, dev)
+    log("kernel int8_matmul crossover: " + json.dumps(crossover))
 
     small_parity(torch, np, dev)
     fused_parity(torch, np, dev)
@@ -1689,9 +1827,10 @@ def main():
             "unfused_ms": main_case.get("unfused_ms"),
             "card": card, "cases": results[name],
         })
+        if "design" in main_case:
+            line[-1]["design"] = main_case["design"]
         if name.startswith("flash_attention"):
             # the design each dtype ran, at the training shape
-            line[-1]["design"] = main_case["design"]
             line[-1]["by_design"] = {
                 c["design"]: {key: c[key] for key in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

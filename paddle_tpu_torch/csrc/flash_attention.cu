@@ -29,9 +29,11 @@
 // orders above the ridge; the card's bound is the tensor cores (989
 // TFLOP/s bf16).
 //
-// Two designs, chosen by the inputs' dtype (ptt_flash_attention_fwd/_bwd):
+// Two designs, chosen by the inputs' dtype and head dim
+// (ptt_flash_attention_fwd/_bwd; head dims 16, 32, 64, 128 and 256):
 //
-// bf16: the tensor-core design (namespace tc, below; hopper.cuh). Every
+// bf16 at D 64, 128 and 256 (forward) and D 64 and 128 (backward): the
+// tensor-core design (namespace tc, below; hopper.cuh). Every
 // product is wgmma with fp32 accumulators; tiles arrive by TMA into
 // 128-byte-swizzled shared memory, two stages in flight, issued by one
 // warp of a producer warpgroup beside two consumer warpgroups (setmaxnreg
@@ -39,7 +41,8 @@
 // on the accumulator fragment, and P / dS are rounded to bf16 in
 // registers and fed back as wgmma's A operand (the rounding points
 // above). Forward: a
-// CTA owns 128 q rows and walks k/v blocks of 128. Backward: the Delta
+// CTA owns 128 q rows and walks k/v blocks of 128 (64 at D = 256, whose
+// P V product runs as two m64n128 halves). Backward: the Delta
 // row pass, a dK/dV pass (a CTA owns 128 k rows and walks q blocks of 64)
 // and a dQ pass (a CTA owns 128 q rows and walks k blocks of 64): two
 // passes recompute S and dP (14 D flops per visible pair, not 10) so
@@ -47,10 +50,15 @@
 // gradients repeat bit for bit. Causal blocks wholly above the diagonal
 // are skipped; only blocks that cross it or the ragged end are masked.
 //
-// fp32: the CUDA-core design (the port's first flash kernels, below).
-// The tensor cores take fp32 only as TF32 (about three decimal digits),
-// and the fp32 models are held to 1e-5 against the CPU, so fp32 runs on
-// the CUDA cores (fp32 FMAs, 67 TFLOP/s at most). One CTA of 256 threads
+// fp32, and bf16 where the tensor-core design does not run: the CUDA-core
+// design (the port's first flash kernels, below). The tensor cores take
+// fp32 only as TF32 (about three decimal digits), and the fp32 models are
+// held to 1e-5 against the CPU, so fp32 runs on the CUDA cores (fp32
+// FMAs, 67 TFLOP/s at most). bf16 runs here at D 16 and 32 (below one
+// 128-byte swizzle span, the tensor-core tiles' unit) and in the D 256
+// backward (its two D/2 accumulators would not fit in a consumer's
+// registers beside the score tiles); it keeps P and dS in fp32, which
+// moves an entry by less than probability_rounding_slack. One CTA of 256 threads
 // owns a 64-row q-block (forward, dQ) or a 64-row k-block (dK/dV) and
 // loops over the other side's 64-row blocks itself, from the causal start
 // to the causal end. Tiles are staged in shared memory as fp32 with a row
@@ -59,8 +67,10 @@
 // ty*4+i, columns tx+16j) and a 4 x D/16 patch of the output rows; a
 // row's max and sum are reduced over the 16 lanes that share it with
 // shuffles. The same two backward passes, no atomics. Shared memory at D
-// = 128: forward 116 KB, dK/dV 166 KB, dQ 149 KB (of 227 KB); D = 256
-// does not fit and is refused.
+// = 128: forward 116 KB, dK/dV 166 KB, dQ 149 KB (of 227 KB). At D = 256
+// the blocks have 32 rows (a thread a 2 x 2 patch): forward 101 KB, dK/dV
+// 137 KB, dQ 133 KB. At D 16 and 32 a thread owns one or two output
+// columns.
 //
 // Rope-on-load forward (ptt_rope_attention_fwd, fp32 and bf16). Replaces:
 // paddle_tpu/kernels/fused_rope_attention.py rope_attention_fused (:167;
@@ -84,24 +94,31 @@
 namespace {
 
 // ============================================ fp32 (and rope): CUDA cores
-constexpr int kBlock = 64;     // rows of a q-block and of a k-block
 constexpr int kThreads = 256;  // 16 x 16 threads
-constexpr int kLP = kBlock + 1;
+
+// Rows of a q-block and of a k-block: 64, or 32 at D = 256 (four fp32
+// tiles of 64 rows would not fit in shared memory). A thread owns an
+// I x I patch of the score tile, I = rows / 16.
+template <int D>
+__host__ __device__ constexpr int block_rows() {
+  return D > 128 ? 32 : 64;
+}
 
 struct Strides {
   long long b, s, h;  // elements
 };
 
-// rows [row0, row0 + 64) of one head (base already at (b, h)) into a fp32
+// rows [row0, row0 + BR) of one head (base already at (b, h)) into a fp32
 // tile with row stride D + 1; rows at or past `seq` are zero
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(float* __restrict__ tile,
                                           const T* __restrict__ base,
                                           long long s_stride, int row0,
                                           int seq) {
+  constexpr int BR = block_rows<D>();
   constexpr int V = 16 / (int)sizeof(T);
   constexpr int kVecPerRow = D / V;
-  for (int idx = threadIdx.x; idx < kBlock * kVecPerRow; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < BR * kVecPerRow; idx += kThreads) {
     const int r = idx / kVecPerRow;
     const int c = (idx % kVecPerRow) * V;
     float vals[V];
@@ -126,10 +143,11 @@ __device__ __forceinline__ void load_tile_rope(
     float* __restrict__ tile, const T* __restrict__ base, long long s_stride,
     int row0, int seq, const float* __restrict__ cos,
     const float* __restrict__ sin, long long tab_stride) {
+  constexpr int BR = block_rows<D>();
   constexpr int V = 16 / (int)sizeof(T);
   constexpr int H2 = D / 2;
   constexpr int kVecPerHalf = H2 / V;
-  for (int idx = threadIdx.x; idx < kBlock * kVecPerHalf; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < BR * kVecPerHalf; idx += kThreads) {
     const int r = idx / kVecPerHalf;
     const int c = (idx % kVecPerHalf) * V;
     float o1[V], o2[V];
@@ -158,11 +176,12 @@ __device__ __forceinline__ void load_tile_rope(
   }
 }
 
-// 64 fp32 values of a [B, H, S] row vector (zero past `seq`)
+// BR fp32 values of a [B, H, S] row vector (zero past `seq`)
+template <int BR>
 __device__ __forceinline__ void load_row_vec(float* __restrict__ dst,
                                              const float* __restrict__ src,
                                              int row0, int seq) {
-  if (threadIdx.x < kBlock) {
+  if (threadIdx.x < BR) {
     const int r = row0 + threadIdx.x;
     dst[threadIdx.x] = r < seq ? src[r] : 0.0f;
   }
@@ -181,24 +200,24 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-// a[r][c] (+)= sum_d x[r][d] * y[c][d] over the thread's 4 x 4 patch,
-// r = ty*4+i, c = tx+16j (x, y: fp32 tiles with row stride D + 1)
-template <int D>
+// a[r][c] (+)= sum_d x[r][d] * y[c][d] over the thread's I x I patch,
+// r = ty*I+i, c = tx+16j (x, y: fp32 tiles with row stride D + 1)
+template <int D, int I = block_rows<D>() / 16>
 __device__ __forceinline__ void tile_dot(const float* __restrict__ x,
                                          const float* __restrict__ y,
-                                         float (&a)[4][4], int tx, int ty) {
+                                         float (&a)[I][I], int tx, int ty) {
   constexpr int LD = D + 1;
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
-    float xv[4], yv[4];
+    float xv[I], yv[I];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) xv[i] = x[(ty * 4 + i) * LD + d];
+    for (int i = 0; i < I; ++i) xv[i] = x[(ty * I + i) * LD + d];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) yv[j] = y[(tx + 16 * j) * LD + d];
+    for (int j = 0; j < I; ++j) yv[j] = y[(tx + 16 * j) * LD + d];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < I; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) a[i][j] = fmaf(xv[i], yv[j], a[i][j]);
+      for (int j = 0; j < I; ++j) a[i][j] = fmaf(xv[i], yv[j], a[i][j]);
   }
 }
 
@@ -220,13 +239,14 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ sin, long long tab_stride) {
   constexpr int LD = D + 1;
   constexpr int NO = D / 16;  // output columns per thread
+  constexpr int BR = block_rows<D>(), I = BR / 16, LP = BR + 1;
   extern __shared__ float smem[];
   float* sQ = smem;
-  float* sK = sQ + kBlock * LD;
-  float* sV = sK + kBlock * LD;
-  float* sP = sV + kBlock * LD;
+  float* sK = sQ + BR * LD;
+  float* sV = sK + BR * LD;
+  float* sP = sV + BR * LD;
 
-  const int q0 = blockIdx.x * kBlock;
+  const int q0 = blockIdx.x * BR;
   const int b = blockIdx.y / heads, h = blockIdx.y % heads;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
@@ -238,18 +258,18 @@ __global__ void __launch_bounds__(kThreads)
   const T* kbase = k + b * ks.b + h * ks.h;
   const T* vbase = v + b * vs.b + h * vs.h;
 
-  float m[4], l[4], acc[4][NO];
+  float m[I], l[I], acc[I][NO];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < I; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.0f;
 #pragma unroll
     for (int n = 0; n < NO; ++n) acc[i][n] = 0.0f;
   }
   // columns past the last row's causal limit are never visible
-  const int k_end = causal ? min(sk, q0 + kBlock + (sk - sq)) : sk;
+  const int k_end = causal ? min(sk, q0 + BR + (sk - sq)) : sk;
 
-  for (int k0 = 0; k0 < k_end; k0 += kBlock) {
+  for (int k0 = 0; k0 < k_end; k0 += BR) {
     __syncthreads();  // the previous block's readers are done
     if constexpr (kRope)
       load_tile_rope<T, D>(sK, kbase, ks.s, k0, sk, cos, sin, tab_stride);
@@ -257,18 +277,18 @@ __global__ void __launch_bounds__(kThreads)
       load_tile<T, D>(sK, kbase, ks.s, k0, sk);
     load_tile<T, D>(sV, vbase, vs.s, k0, sk);
     __syncthreads();
-    float s[4][4];
+    float s[I][I];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < I; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+      for (int j = 0; j < I; ++j) s[i][j] = 0.0f;
     tile_dot<D>(sQ, sK, s, tx, ty);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty * 4 + i;
+    for (int i = 0; i < I; ++i) {
+      const int r = q0 + ty * I + i;
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < I; ++j) {
         const int c = k0 + tx + 16 * j;
         // rows past sq are padding: any finite value will do
         const bool ok = c < sk && (!causal || c <= r + (sk - sq));
@@ -280,7 +300,7 @@ __global__ void __launch_bounds__(kThreads)
       const float alpha = expf(m[i] - m_new);
       float rs = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < I; ++j) {
         s[i][j] = expf(s[i][j] - m_new);
         rs += s[i][j];
       }
@@ -289,17 +309,17 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int n = 0; n < NO; ++n) acc[i][n] *= alpha;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sP[(ty * 4 + i) * kLP + tx + 16 * j] = s[i][j];
+      for (int j = 0; j < I; ++j) sP[(ty * I + i) * LP + tx + 16 * j] = s[i][j];
     }
     __syncthreads();
 #pragma unroll 4
-    for (int c = 0; c < kBlock; ++c) {
+    for (int c = 0; c < BR; ++c) {
       float vv[NO];
 #pragma unroll
       for (int n = 0; n < NO; ++n) vv[n] = sV[c * LD + tx + 16 * n];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = sP[(ty * 4 + i) * kLP + c];
+      for (int i = 0; i < I; ++i) {
+        const float p = sP[(ty * I + i) * LP + c];
 #pragma unroll
         for (int n = 0; n < NO; ++n) acc[i][n] = fmaf(p, vv[n], acc[i][n]);
       }
@@ -307,8 +327,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
+  for (int i = 0; i < I; ++i) {
+    const int r = q0 + ty * I + i;
     if (r >= sq) continue;
     T* orow = o + (((long long)b * sq + r) * heads + h) * D;
 #pragma unroll
@@ -356,17 +376,18 @@ __global__ void __launch_bounds__(kThreads)
                           int sq, int sk, float scale, int causal) {
   constexpr int LD = D + 1;
   constexpr int NO = D / 16;
+  constexpr int BR = block_rows<D>(), I = BR / 16, LP = BR + 1;
   extern __shared__ float smem[];
   float* sK = smem;
-  float* sV = sK + kBlock * LD;
-  float* sQ = sV + kBlock * LD;
-  float* sG = sQ + kBlock * LD;  // dO
-  float* sP = sG + kBlock * LD;
-  float* sS = sP + kBlock * kLP;  // dS
-  float* sL = sS + kBlock * kLP;  // LSE of the q-block's rows
-  float* sD = sL + kBlock;        // Delta of the q-block's rows
+  float* sV = sK + BR * LD;
+  float* sQ = sV + BR * LD;
+  float* sG = sQ + BR * LD;  // dO
+  float* sP = sG + BR * LD;
+  float* sS = sP + BR * LP;  // dS
+  float* sL = sS + BR * LP;  // LSE of the q-block's rows
+  float* sD = sL + BR;        // Delta of the q-block's rows
 
-  const int k0 = blockIdx.x * kBlock;
+  const int k0 = blockIdx.x * BR;
   const int b = blockIdx.y / heads, h = blockIdx.y % heads;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const long long rowvec = ((long long)b * heads + h) * sq;
@@ -376,47 +397,47 @@ __global__ void __launch_bounds__(kThreads)
   const T* qbase = q + b * qs.b + h * qs.h;
   const T* gbase = dout + b * dos.b + h * dos.h;
 
-  float adk[4][NO], adv[4][NO];
+  float adk[I][NO], adv[I][NO];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < I; ++i)
 #pragma unroll
     for (int n = 0; n < NO; ++n) adk[i][n] = adv[i][n] = 0.0f;
 
   // the first row that sees column k0 is k0 - (sk - sq)
   int q_first = causal ? k0 - (sk - sq) : 0;
-  q_first = q_first < 0 ? 0 : (q_first / kBlock) * kBlock;
+  q_first = q_first < 0 ? 0 : (q_first / BR) * BR;
 
-  for (int q0 = q_first; q0 < sq; q0 += kBlock) {
+  for (int q0 = q_first; q0 < sq; q0 += BR) {
     __syncthreads();
     load_tile<T, D>(sQ, qbase, qs.s, q0, sq);
     load_tile<T, D>(sG, gbase, dos.s, q0, sq);
-    load_row_vec(sL, lse + rowvec, q0, sq);
-    load_row_vec(sD, delta + rowvec, q0, sq);
+    load_row_vec<BR>(sL, lse + rowvec, q0, sq);
+    load_row_vec<BR>(sD, delta + rowvec, q0, sq);
     __syncthreads();
-    float s[4][4], dp[4][4];
+    float s[I][I], dp[I][I];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < I; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
+      for (int j = 0; j < I; ++j) s[i][j] = dp[i][j] = 0.0f;
     tile_dot<D>(sQ, sK, s, tx, ty);   // rows: q, columns: k
     tile_dot<D>(sG, sV, dp, tx, ty);  // dO V^T
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int ri = ty * 4 + i;
+    for (int i = 0; i < I; ++i) {
+      const int ri = ty * I + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < I; ++j) {
         const int cj = tx + 16 * j;
         const float p = visible(q0 + ri, k0 + cj, sq, sk, causal)
                             ? expf(s[i][j] * scale - sL[ri])
                             : 0.0f;
-        sP[ri * kLP + cj] = p;
-        sS[ri * kLP + cj] = p * (dp[i][j] - sD[ri]);
+        sP[ri * LP + cj] = p;
+        sS[ri * LP + cj] = p * (dp[i][j] - sD[ri]);
       }
     }
     __syncthreads();
     // this thread's k rows c = ty*4+i, columns tx+16n
 #pragma unroll 2
-    for (int r = 0; r < kBlock; ++r) {
+    for (int r = 0; r < BR; ++r) {
       float gv[NO], qv[NO];
 #pragma unroll
       for (int n = 0; n < NO; ++n) {
@@ -424,9 +445,9 @@ __global__ void __launch_bounds__(kThreads)
         qv[n] = sQ[r * LD + tx + 16 * n];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = sP[r * kLP + ty * 4 + i];
-        const float ds = sS[r * kLP + ty * 4 + i];
+      for (int i = 0; i < I; ++i) {
+        const float p = sP[r * LP + ty * I + i];
+        const float ds = sS[r * LP + ty * I + i];
 #pragma unroll
         for (int n = 0; n < NO; ++n) {
           adv[i][n] = fmaf(p, gv[n], adv[i][n]);
@@ -437,8 +458,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = k0 + ty * 4 + i;
+  for (int i = 0; i < I; ++i) {
+    const int c = k0 + ty * I + i;
     if (c >= sk) continue;
     const long long off = (((long long)b * sk + c) * heads + h) * D;
 #pragma unroll
@@ -460,67 +481,68 @@ __global__ void __launch_bounds__(kThreads)
                         int heads, int sq, int sk, float scale, int causal) {
   constexpr int LD = D + 1;
   constexpr int NO = D / 16;
+  constexpr int BR = block_rows<D>(), I = BR / 16, LP = BR + 1;
   extern __shared__ float smem[];
   float* sQ = smem;
-  float* sG = sQ + kBlock * LD;
-  float* sK = sG + kBlock * LD;
-  float* sV = sK + kBlock * LD;
-  float* sS = sV + kBlock * LD;
-  float* sL = sS + kBlock * kLP;
-  float* sD = sL + kBlock;
+  float* sG = sQ + BR * LD;
+  float* sK = sG + BR * LD;
+  float* sV = sK + BR * LD;
+  float* sS = sV + BR * LD;
+  float* sL = sS + BR * LP;
+  float* sD = sL + BR;
 
-  const int q0 = blockIdx.x * kBlock;
+  const int q0 = blockIdx.x * BR;
   const int b = blockIdx.y / heads, h = blockIdx.y % heads;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const long long rowvec = ((long long)b * heads + h) * sq;
 
   load_tile<T, D>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, sq);
   load_tile<T, D>(sG, dout + b * dos.b + h * dos.h, dos.s, q0, sq);
-  load_row_vec(sL, lse + rowvec, q0, sq);
-  load_row_vec(sD, delta + rowvec, q0, sq);
+  load_row_vec<BR>(sL, lse + rowvec, q0, sq);
+  load_row_vec<BR>(sD, delta + rowvec, q0, sq);
   const T* kbase = k + b * ks.b + h * ks.h;
   const T* vbase = v + b * vs.b + h * vs.h;
 
-  float adq[4][NO];
+  float adq[I][NO];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < I; ++i)
 #pragma unroll
     for (int n = 0; n < NO; ++n) adq[i][n] = 0.0f;
-  const int k_end = causal ? min(sk, q0 + kBlock + (sk - sq)) : sk;
+  const int k_end = causal ? min(sk, q0 + BR + (sk - sq)) : sk;
 
-  for (int k0 = 0; k0 < k_end; k0 += kBlock) {
+  for (int k0 = 0; k0 < k_end; k0 += BR) {
     __syncthreads();
     load_tile<T, D>(sK, kbase, ks.s, k0, sk);
     load_tile<T, D>(sV, vbase, vs.s, k0, sk);
     __syncthreads();
-    float s[4][4], dp[4][4];
+    float s[I][I], dp[I][I];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < I; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
+      for (int j = 0; j < I; ++j) s[i][j] = dp[i][j] = 0.0f;
     tile_dot<D>(sQ, sK, s, tx, ty);
     tile_dot<D>(sG, sV, dp, tx, ty);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int ri = ty * 4 + i;
+    for (int i = 0; i < I; ++i) {
+      const int ri = ty * I + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < I; ++j) {
         const int cj = tx + 16 * j;
         const float p = visible(q0 + ri, k0 + cj, sq, sk, causal)
                             ? expf(s[i][j] * scale - sL[ri])
                             : 0.0f;
-        sS[ri * kLP + cj] = p * (dp[i][j] - sD[ri]);
+        sS[ri * LP + cj] = p * (dp[i][j] - sD[ri]);
       }
     }
     __syncthreads();
 #pragma unroll 4
-    for (int c = 0; c < kBlock; ++c) {
+    for (int c = 0; c < BR; ++c) {
       float kv[NO];
 #pragma unroll
       for (int n = 0; n < NO; ++n) kv[n] = sK[c * LD + tx + 16 * n];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ds = sS[(ty * 4 + i) * kLP + c];
+      for (int i = 0; i < I; ++i) {
+        const float ds = sS[(ty * I + i) * LP + c];
 #pragma unroll
         for (int n = 0; n < NO; ++n) adq[i][n] = fmaf(ds, kv[n], adq[i][n]);
       }
@@ -528,8 +550,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
+  for (int i = 0; i < I; ++i) {
+    const int r = q0 + ty * I + i;
     if (r >= sq) continue;
     const long long off = (((long long)b * sq + r) * heads + h) * D;
 #pragma unroll
@@ -539,17 +561,17 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------- launches
-template <int D>
+template <int D, int BR = block_rows<D>(), int LP = BR + 1>
 constexpr size_t fwd_smem() {
-  return sizeof(float) * (3 * kBlock * (D + 1) + kBlock * kLP);
+  return sizeof(float) * (3 * BR * (D + 1) + BR * LP);
 }
-template <int D>
+template <int D, int BR = block_rows<D>(), int LP = BR + 1>
 constexpr size_t dkdv_smem() {
-  return sizeof(float) * (4 * kBlock * (D + 1) + 2 * kBlock * kLP + 2 * kBlock);
+  return sizeof(float) * (4 * BR * (D + 1) + 2 * BR * LP + 2 * BR);
 }
-template <int D>
+template <int D, int BR = block_rows<D>(), int LP = BR + 1>
 constexpr size_t dq_smem() {
-  return sizeof(float) * (4 * kBlock * (D + 1) + kBlock * kLP + 2 * kBlock);
+  return sizeof(float) * (4 * BR * (D + 1) + BR * LP + 2 * BR);
 }
 
 // dynamic shared memory above 48 KB has to be allowed per kernel
@@ -575,7 +597,8 @@ cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t stream) {
   cudaError_t err =
       allow_smem(flash_fwd_kernel<T, D, kRope>, fwd_smem<D>());
   if (err != cudaSuccess) return err;
-  dim3 grid((a.sq + kBlock - 1) / kBlock, a.batch * a.heads);
+  constexpr int BR = block_rows<D>();
+  dim3 grid((a.sq + BR - 1) / BR, a.batch * a.heads);
   flash_fwd_kernel<T, D, kRope><<<grid, kThreads, fwd_smem<D>(), stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.o),
@@ -605,7 +628,8 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
 
   err = allow_smem(flash_bwd_dkdv_kernel<T, D>, dkdv_smem<D>());
   if (err != cudaSuccess) return err;
-  dim3 grid_k((a.sk + kBlock - 1) / kBlock, a.batch * a.heads);
+  constexpr int BR = block_rows<D>();
+  dim3 grid_k((a.sk + BR - 1) / BR, a.batch * a.heads);
   flash_bwd_dkdv_kernel<T, D><<<grid_k, kThreads, dkdv_smem<D>(), stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
@@ -617,7 +641,7 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
 
   err = allow_smem(flash_bwd_dq_kernel<T, D>, dq_smem<D>());
   if (err != cudaSuccess) return err;
-  dim3 grid_q((a.sq + kBlock - 1) / kBlock, a.batch * a.heads);
+  dim3 grid_q((a.sq + BR - 1) / BR, a.batch * a.heads);
   flash_bwd_dq_kernel<T, D><<<grid_q, kThreads, dq_smem<D>(), stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
@@ -651,8 +675,12 @@ constexpr int kStages = 2;
 // it spills 448 bytes at 168 registers and still 312 at 240, and ptxas
 // serialises its wgmma there (C7512).
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
-// rows of a k/v block in the forward
-constexpr int kFwdKeys = 128;
+// rows of a k/v block in the forward: 128, or 64 at D = 256 (two stages
+// of 128-row K and V tiles would not fit beside Q)
+template <int D>
+__host__ __device__ constexpr int fwd_keys() {
+  return D > 128 ? 64 : 128;
+}
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -681,11 +709,11 @@ struct Layout {
   }
 };
 
-// forward: Q (128 rows) resident, K and V blocks of kFwdKeys rows per
+// forward: Q (128 rows) resident, K and V blocks of fwd_keys rows per
 // stage
 template <int D>
 __host__ __device__ constexpr Layout fwd_layout() {
-  return {tile_bytes<D>(128), 2 * tile_bytes<D>(kFwdKeys), 0};
+  return {tile_bytes<D>(128), 2 * tile_bytes<D>(fwd_keys<D>()), 0};
 }
 // dK/dV: K and V (128 rows) resident, Q and dO blocks of 64 rows per
 // stage, and each stage's LSE and Delta (64 fp32 each)
@@ -743,6 +771,24 @@ __device__ __forceinline__ void to_a_operand(const float* acc,
       a[kk][i] = pack_bf16(acc[8 * kk + 2 * i], acc[8 * kk + 2 * i + 1]);
 }
 
+// O (+)= P V for k-step kk of a V tile of R rows (MN-major): D = 256
+// runs as two m64n128 products over V's column halves, whose fragments
+// laid end to end are the m64n256 fragment (entries 4j.. of 8-column
+// block j)
+template <int D, int R>
+__device__ __forceinline__ void pv_step(float (&acc)[D / 2],
+                                        const uint32_t (&p)[4], uint32_t sV,
+                                        int kk) {
+  if constexpr (D <= 128) {
+    wgmma_rs<D>(acc, p, desc_mn_major<R>(sV, kk));
+  } else {
+#pragma unroll
+    for (int h = 0; h < D / 128; ++h)
+      wgmma_rs<128>(*reinterpret_cast<float(*)[64]>(acc + 64 * h), p,
+                    desc_mn_major<R>(sV + h * 2 * R * 128, kk));
+  }
+}
+
 // 2^x in fp32 (the softmax runs in the log2 domain): the MUFU
 // approximation, within 2 ulp; results below 2^-126 flush to zero. The
 // accurate exp2f's extra registers made ptxas serialise the forward's
@@ -791,7 +837,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                         bf16* __restrict__ o, float* __restrict__ lse,
                         int heads, int sq, int sk, float scale_log2,
                         int causal) {
-  constexpr int kM = 128, kN = kFwdKeys;
+  constexpr int kM = 128, kN = fwd_keys<D>();
   constexpr Layout L = fwd_layout<D>();
   extern __shared__ uint8_t smem_raw[];
   Bars bars;
@@ -905,8 +951,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         to_a_operand<kN / 16>(sc, p);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kN / 16; ++kk)
-          wgmma_rs<D>(acc, p[kk], desc_mn_major<kN>(sV, kk));
+        for (int kk = 0; kk < kN / 16; ++kk) pv_step<D, kN>(acc, p[kk], sV, kk);
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(acc);
@@ -1170,11 +1215,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss_n64(sc, desc_k_major<kM>(sQ, 64 * wg, kk),
+          wgmma_ss<kN>(sc, desc_k_major<kM>(sQ, 64 * wg, kk),
                        desc_k_major<kN>(sK, 0, kk), kk > 0);
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss_n64(dp, desc_k_major<kM>(sG, 64 * wg, kk),
+          wgmma_ss<kN>(dp, desc_k_major<kM>(sG, 64 * wg, kk),
                        desc_k_major<kN>(sV, 0, kk), kk > 0);
         wgmma_commit();
         wgmma_wait_all();
@@ -1221,37 +1266,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ------------------------------------------------------------ launches
-// cuTensorMapEncodeTiled lives in libcuda, not in the runtime: it is
-// looked up at run time (cudaGetDriverEntryPoint), so the library links
-// no -lcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-cudaError_t encoder(EncodeTiled* fn) {
-  static EncodeTiled cached = nullptr;
-  if (cached == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || p == nullptr)
-      return cudaErrorSymbolNotFound;
-    cached = reinterpret_cast<EncodeTiled>(p);
-  }
-  *fn = cached;
-  return cudaSuccess;
-}
-
 // The tensor map of a bf16 [batch, seq, heads, D] tensor read through its
 // strides (elements; multiples of 8, so 16-byte multiples in bytes, as
 // TMA needs), as (D, heads, seq, batch) innermost first: boxes of 64
@@ -1259,21 +1273,13 @@ cudaError_t encoder(EncodeTiled* fn) {
 // zero-filled.
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int batch, int seq,
                      int heads, int d, Strides st, int box_rows) {
-  EncodeTiled encode;
-  cudaError_t err = encoder(&encode);
-  if (err != cudaSuccess) return err;
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
                               (cuuint64_t)seq, (cuuint64_t)batch};
   const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2,
                                  (cuuint64_t)st.b * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr, dims,
+                    strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int D>
@@ -1281,8 +1287,10 @@ cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   cudaError_t err;
   if ((err = make_map(&mq, a.q, a.batch, a.sq, a.heads, D, a.qs, 128)) ||
-      (err = make_map(&mk, a.k, a.batch, a.sk, a.heads, D, a.ks, kFwdKeys)) ||
-      (err = make_map(&mv, a.v, a.batch, a.sk, a.heads, D, a.vs, kFwdKeys)))
+      (err = make_map(&mk, a.k, a.batch, a.sk, a.heads, D, a.ks,
+                      fwd_keys<D>())) ||
+      (err = make_map(&mv, a.v, a.batch, a.sk, a.heads, D, a.vs,
+                      fwd_keys<D>())))
     return err;
   constexpr int smem = fwd_layout<D>().bytes();
   if ((err = allow_smem(flash_fwd_tc_kernel<D>, smem))) return err;
@@ -1339,14 +1347,29 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
 
 }  // namespace tc
 
-template <typename Args>
-using Launch = cudaError_t (*)(const Args&, cudaStream_t);
+// The CUDA-core kernels at every served head dim (fp32, the rope-on-load
+// forward, and bf16 where the tensor-core design does not run)
+template <typename T, bool kRope>
+cudaError_t cc_fwd(int head_dim, const FwdArgs& a, cudaStream_t s) {
+  switch (head_dim) {
+    case 16: return launch_fwd<T, 16, kRope>(a, s);
+    case 32: return launch_fwd<T, 32, kRope>(a, s);
+    case 64: return launch_fwd<T, 64, kRope>(a, s);
+    case 128: return launch_fwd<T, 128, kRope>(a, s);
+    case 256: return launch_fwd<T, 256, kRope>(a, s);
+  }
+  return cudaErrorInvalidValue;
+}
 
-template <typename Args>
-cudaError_t by_head_dim(int head_dim, Launch<Args> d64, Launch<Args> d128,
-                        const Args& a, cudaStream_t s) {
-  if (head_dim == 64) return d64(a, s);
-  if (head_dim == 128) return d128(a, s);
+template <typename T>
+cudaError_t cc_bwd(int head_dim, const BwdArgs& a, cudaStream_t s) {
+  switch (head_dim) {
+    case 16: return launch_bwd<T, 16>(a, s);
+    case 32: return launch_bwd<T, 32>(a, s);
+    case 64: return launch_bwd<T, 64>(a, s);
+    case 128: return launch_bwd<T, 128>(a, s);
+    case 256: return launch_bwd<T, 256>(a, s);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -1356,7 +1379,8 @@ cudaError_t by_head_dim(int head_dim, Launch<Args> d64, Launch<Args> d128,
 // each with its (batch, seq, head) strides in elements and a unit stride
 // over head_dim; all strides multiples of the 16-byte vector width and the
 // pointers 16-byte aligned. o: contiguous [batch, sq, heads, head_dim] of
-// q's type; lse: fp32 [batch, heads, sq]. head_dim 64 or 128; sk >= sq
+// q's type; lse: fp32 [batch, heads, sq]. head_dim 16, 32, 64, 128 or
+// 256; sk >= sq
 // when causal (the Python wrapper checks all of this).
 extern "C" int ptt_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
@@ -1369,12 +1393,13 @@ extern "C" int ptt_flash_attention_fwd(
             {v_sb, v_ss, v_sh}, batch, heads, sq, sk, causal, scale,
             nullptr, nullptr, 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == ptt::kBF16)  // tensor cores
-    return by_head_dim<FwdArgs>(head_dim, tc::launch_fwd<64>,
-                                tc::launch_fwd<128>, a, s);
-  if (dtype == ptt::kF32)  // CUDA cores
-    return by_head_dim<FwdArgs>(head_dim, launch_fwd<float, 64, false>,
-                                launch_fwd<float, 128, false>, a, s);
+  if (dtype == ptt::kBF16) {  // tensor cores from one 128-byte span on
+    if (head_dim == 64) return tc::launch_fwd<64>(a, s);
+    if (head_dim == 128) return tc::launch_fwd<128>(a, s);
+    if (head_dim == 256) return tc::launch_fwd<256>(a, s);
+    return cc_fwd<__nv_bfloat16, false>(head_dim, a, s);
+  }
+  if (dtype == ptt::kF32) return cc_fwd<float, false>(head_dim, a, s);
   return cudaErrorInvalidValue;
 }
 
@@ -1382,7 +1407,8 @@ extern "C" int ptt_flash_attention_fwd(
 // strides as above (one sequence length); cos and sin fp32 [seq,
 // head_dim / 2] with row stride tab_stride (a multiple of 4, 16-byte
 // aligned); o contiguous [batch, seq, heads, head_dim] of q's type. No
-// LSE. head_dim 64 or 128 (the Python wrapper checks all of this).
+// LSE. head_dim 16, 32, 64, 128 or 256 (the Python wrapper checks all of
+// this).
 extern "C" int ptt_rope_attention_fwd(
     const void* q, const void* k, const void* v, void* o, const void* cos,
     const void* sin, long long tab_stride, int batch, int heads, int seq,
@@ -1395,12 +1421,8 @@ extern "C" int ptt_rope_attention_fwd(
             {v_sb, v_ss, v_sh}, batch, heads, seq, seq, causal, scale,
             cos, sin, tab_stride};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == ptt::kBF16)
-    return by_head_dim<FwdArgs>(head_dim, launch_fwd<__nv_bfloat16, 64, true>,
-                                launch_fwd<__nv_bfloat16, 128, true>, a, s);
-  if (dtype == ptt::kF32)
-    return by_head_dim<FwdArgs>(head_dim, launch_fwd<float, 64, true>,
-                                launch_fwd<float, 128, true>, a, s);
+  if (dtype == ptt::kBF16) return cc_fwd<__nv_bfloat16, true>(head_dim, a, s);
+  if (dtype == ptt::kF32) return cc_fwd<float, true>(head_dim, a, s);
   return cudaErrorInvalidValue;
 }
 
@@ -1422,11 +1444,11 @@ extern "C" int ptt_flash_attention_bwd(
             {o_sb, o_ss, o_sh}, {g_sb, g_ss, g_sh},
             batch, heads, sq, sk, causal, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == ptt::kBF16)  // tensor cores
-    return by_head_dim<BwdArgs>(head_dim, tc::launch_bwd<64>,
-                                tc::launch_bwd<128>, a, s);
-  if (dtype == ptt::kF32)  // CUDA cores
-    return by_head_dim<BwdArgs>(head_dim, launch_bwd<float, 64>,
-                                launch_bwd<float, 128>, a, s);
+  if (dtype == ptt::kBF16) {  // tensor cores at 64 and 128
+    if (head_dim == 64) return tc::launch_bwd<64>(a, s);
+    if (head_dim == 128) return tc::launch_bwd<128>(a, s);
+    return cc_bwd<__nv_bfloat16>(head_dim, a, s);
+  }
+  if (dtype == ptt::kF32) return cc_bwd<float>(head_dim, a, s);
   return cudaErrorInvalidValue;
 }

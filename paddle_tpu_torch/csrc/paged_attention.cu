@@ -35,7 +35,8 @@
 // - a slot's K or V row (D values) is spread over the 32 lanes of a warp,
 //   D/32 contiguous values per lane, so one warp load moves the whole row
 //   (256 B for bf16 at D = 128, 128 B for int8, plus one broadcast 4-byte
-//   scale load); warp w takes kUnroll consecutive slots at a time
+//   scale load); at D = 16 the first 16 lanes hold one value each and the
+//   others hold zeros and load nothing; warp w takes kUnroll consecutive slots at a time
 //   (kUnroll * 8 slots apart) and issues all their loads before using
 //   any, ~64 bytes in flight per lane;
 // - phase 1: each slot's G dot products are reduced with shuffles into an
@@ -66,15 +67,21 @@ __device__ __forceinline__ size_t arena_slot(const int* trow, int t,
 }
 
 // Issue the loads of this lane's E values of the K or V row of arena slot
-// `slot` (as fp32) and, for an int8 arena, of its (slot, kv head) scale.
+// `slot` (as fp32; zeros on a lane past the row, `on` false) and, for an
+// int8 arena, of its (slot, kv head) scale.
 template <typename TKV, int E>
 __device__ __forceinline__ void load_row(const TKV* __restrict__ pages,
                                          const float* __restrict__ scales,
                                          size_t slot, size_t slot_stride,
                                          size_t head_off, int kvh,
-                                         int kv_heads, float (&out)[E],
-                                         float& s) {
-  ptt::load_floats<TKV, E>(pages + slot * slot_stride + head_off, out);
+                                         int kv_heads, bool on,
+                                         float (&out)[E], float& s) {
+  if (on) {
+    ptt::load_floats<TKV, E>(pages + slot * slot_stride + head_off, out);
+  } else {
+#pragma unroll
+    for (int e = 0; e < E; ++e) out[e] = 0.0f;
+  }
   if constexpr (kQuant<TKV>) s = scales[slot * (size_t)kv_heads + kvh];
 }
 
@@ -88,9 +95,10 @@ __device__ __forceinline__ void dequant_row(float (&row)[E], float s) {
   }
 }
 
-// E = head_dim / 32 values per lane; MAXG >= query heads per kv head.
-// k_scale / v_scale are read only for an int8 arena (TKV = int8_t).
-template <typename TQ, typename TKV, int E, int MAXG>
+// D = head_dim; E = D / 32 values per lane (one at D = 16, on the first
+// 16 lanes); MAXG >= query heads per kv head. k_scale / v_scale are read
+// only for an int8 arena (TKV = int8_t).
+template <typename TQ, typename TKV, int D, int MAXG>
 __global__ void __launch_bounds__(kThreads)
     paged_attention_kernel(const TQ* __restrict__ q,
                            const TKV* __restrict__ k_pages,
@@ -101,11 +109,11 @@ __global__ void __launch_bounds__(kThreads)
                            const int* __restrict__ pos, TQ* __restrict__ out,
                            int heads, int kv_heads, int page_size,
                            int table_width, float scale) {
-  constexpr int D = 32 * E;
+  constexpr int E = D >= 32 ? D / 32 : 1;
   // slots whose loads a warp issues before using any: about 64 bytes in
-  // flight per lane whatever the dtype and head_dim
-  constexpr int kUnroll =
-      64 / (E * (int)sizeof(TKV)) < 4 ? 4 : 64 / (E * (int)sizeof(TKV));
+  // flight per lane whatever the dtype and head_dim, from 4 to 32 slots
+  constexpr int kPer = 64 / (E * (int)sizeof(TKV));
+  constexpr int kUnroll = kPer < 4 ? 4 : kPer > 32 ? 32 : kPer;
   extern __shared__ float smem[];
   __shared__ float scratch[32];
   const int kvh = blockIdx.x;
@@ -120,6 +128,7 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int col = lane * E;  // this lane's first head-dim column
+  const bool on = col < D;   // false only past a D = 16 row
 
   int n = pos[b] + 1;  // live slots [0, pos]
   n = n > s_cap ? s_cap : n;
@@ -140,7 +149,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int u = 0; u < kUnroll; ++u) {
       const int t = min(t0 + u, n - 1);
       load_row<TKV, E>(k_pages, k_scale, arena_slot(trow, t, shift),
-                       slot_stride, head_off, kvh, kv_heads, kv[u], ks[u]);
+                       slot_stride, head_off, kvh, kv_heads, on, kv[u],
+                       ks[u]);
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -152,7 +162,8 @@ __global__ void __launch_bounds__(kThreads)
         if (g < G) {
           float acc = 0.0f;
 #pragma unroll
-          for (int e = 0; e < E; ++e) acc += q_s[g * D + col + e] * kv[u][e];
+          for (int e = 0; e < E; ++e)
+            acc += on ? q_s[g * D + col + e] * kv[u][e] : 0.0f;
           acc = ptt::warp_sum(acc);
           if (lane == 0) s_s[g * s_cap + t] = acc * scale;
         }
@@ -192,7 +203,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int u = 0; u < kUnroll; ++u) {
       const int t = min(t0 + u, n - 1);
       load_row<TKV, E>(v_pages, v_scale, arena_slot(trow, t, shift),
-                       slot_stride, head_off, kvh, kv_heads, vv[u], vs[u]);
+                       slot_stride, head_off, kvh, kv_heads, on, vv[u],
+                       vs[u]);
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -213,8 +225,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
     if (g < G) {
+      if (on) {
 #pragma unroll
-      for (int e = 0; e < E; ++e) red[warp * D + col + e] = acc[g][e];
+        for (int e = 0; e < E; ++e) red[warp * D + col + e] = acc[g][e];
+      }
       __syncthreads();
       for (int d = tid; d < D; d += kThreads) {
         float s = 0.0f;
@@ -227,18 +241,17 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename TQ, typename TKV, int E, int MAXG>
+template <typename TQ, typename TKV, int D, int MAXG>
 cudaError_t launch_g(const void* q, const void* k_pages, const void* k_scale,
                      const void* v_pages, const void* v_scale,
                      const void* table, const void* pos, void* out,
                      int batch, int heads, int kv_heads, int page_size,
                      int table_width, float scale, cudaStream_t stream) {
-  constexpr int D = 32 * E;
   const int G = heads / kv_heads;
   const size_t smem =
       sizeof(float) * ((size_t)G * D + (size_t)kWarps * D +
                        (size_t)G * table_width * page_size);
-  auto kernel = paged_attention_kernel<TQ, TKV, E, MAXG>;
+  auto kernel = paged_attention_kernel<TQ, TKV, D, MAXG>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -254,15 +267,15 @@ cudaError_t launch_g(const void* q, const void* k_pages, const void* k_scale,
   return cudaGetLastError();
 }
 
-template <typename TQ, typename TKV, int E>
-cudaError_t launch_e(const void* q, const void* k_pages, const void* k_scale,
+template <typename TQ, typename TKV, int D>
+cudaError_t launch_d(const void* q, const void* k_pages, const void* k_scale,
                      const void* v_pages, const void* v_scale,
                      const void* table, const void* pos, void* out,
                      int batch, int heads, int kv_heads, int page_size,
                      int table_width, float scale, cudaStream_t stream) {
   const int G = heads / kv_heads;
 #define PTT_LAUNCH_G(MG)                                                    \
-  return launch_g<TQ, TKV, E, MG>(q, k_pages, k_scale, v_pages, v_scale,    \
+  return launch_g<TQ, TKV, D, MG>(q, k_pages, k_scale, v_pages, v_scale,    \
                                   table, pos, out, batch, heads, kv_heads,  \
                                   page_size, table_width, scale, stream)
   // one instantiation for MHA and one guarded one for every GQA group
@@ -279,14 +292,16 @@ cudaError_t launch(const void* q, const void* k_pages, const void* k_scale,
                    const void* table, const void* pos, void* out, int batch,
                    int heads, int kv_heads, int head_dim, int page_size,
                    int table_width, float scale, cudaStream_t stream) {
-#define PTT_LAUNCH_E(E)                                                     \
-  return launch_e<TQ, TKV, E>(q, k_pages, k_scale, v_pages, v_scale, table, \
+#define PTT_LAUNCH_D(D)                                                     \
+  return launch_d<TQ, TKV, D>(q, k_pages, k_scale, v_pages, v_scale, table, \
                               pos, out, batch, heads, kv_heads, page_size,  \
                               table_width, scale, stream)
-  if (head_dim == 64) PTT_LAUNCH_E(2);
-  if (head_dim == 128) PTT_LAUNCH_E(4);
-  if (head_dim == 256) PTT_LAUNCH_E(8);
-#undef PTT_LAUNCH_E
+  if (head_dim == 16) PTT_LAUNCH_D(16);
+  if (head_dim == 32) PTT_LAUNCH_D(32);
+  if (head_dim == 64) PTT_LAUNCH_D(64);
+  if (head_dim == 128) PTT_LAUNCH_D(128);
+  if (head_dim == 256) PTT_LAUNCH_D(256);
+#undef PTT_LAUNCH_D
   return cudaErrorInvalidValue;
 }
 
@@ -295,7 +310,7 @@ cudaError_t launch(const void* q, const void* k_pages, const void* k_scale,
 // q/out: [batch, 1, heads, head_dim] (q_dtype); k_pages/v_pages:
 // [N, page_size, kv_heads, head_dim] (kv_dtype); table: int32 [batch,
 // table_width]; pos: int32 [batch]. All contiguous and 16-byte aligned;
-// head_dim in {64, 128, 256}; heads a multiple of kv_heads with at most
+// head_dim in {16, 32, 64, 128, 256}; heads a multiple of kv_heads with at most
 // 8 query heads per kv head; q_dtype equal to kv_dtype, or fp32 q over a
 // bf16 arena (the Python wrapper checks).
 extern "C" int ptt_paged_attention_fwd(

@@ -11,7 +11,9 @@ PyTorch version (counterpart of ``paddle_tpu/kernels``).
   ``kernels/flash_attention.py``, forward and backward; bf16 on the
   tensor cores (wgmma, TMA), fp32 on the CUDA cores
 - :mod:`.int8_matmul` (``csrc/int8_matmul.cu``) <-
-  ``kernels/int8_matmul.py``, the W8A16 matmul
+  ``kernels/int8_matmul.py``, the W8A16 matmul; bf16 on the tensor
+  cores (wgmma on the weight dequantized in shared memory), fp32 on the
+  CUDA cores
 - :mod:`.fused_norm_matmul` (``csrc/fused_norm_matmul.cu``) <-
   ``kernels/fused_norm_matmul.py``, RMSNorm + matmul (the Llama head);
   its backward is the plain version's VJP, as in JAX
@@ -22,8 +24,9 @@ PyTorch version (counterpart of ``paddle_tpu/kernels``).
 With these every ``pl.pallas_call`` of the JAX package has a hand-written
 counterpart. Each module counts the kernel launches it made
 (``launches`` for the forward, ``bwd_launches`` for the backward,
-``int8_launches`` for the int8 paged attention; flash attention also
-per design, :func:`flash_design_counts`); :mod:`._build` compiles
+``int8_launches`` for the int8 paged attention; flash attention and
+the W8A16 matmul also per design, :func:`flash_design_counts` and
+:func:`int8_matmul_design_counts`); :mod:`._build` compiles
 ``csrc/`` with nvcc at first use.
 """
 from . import (  # noqa: F401
@@ -55,8 +58,9 @@ KERNELS = {
 def reset_launch_counts():
     for mod, attr in KERNELS.values():
         setattr(mod, attr, 0)
-    for attr in flash_attention.DESIGN_COUNTERS:
-        setattr(flash_attention, attr, 0)
+    for mod in (flash_attention, int8_matmul):
+        for attr in mod.DESIGN_COUNTERS:
+            setattr(mod, attr, 0)
 
 
 def launch_counts():
@@ -66,6 +70,14 @@ def launch_counts():
 
 def flash_design_counts():
     """Flash attention launches by design: ``tc_*`` the tensor-core
-    kernels (bf16), ``cc_*`` the CUDA-core kernels (fp32)."""
+    kernels, ``cc_*`` the CUDA-core kernels (``flash_attention.design``
+    says which runs)."""
     return {attr: getattr(flash_attention, attr)
             for attr in flash_attention.DESIGN_COUNTERS}
+
+
+def int8_matmul_design_counts():
+    """W8A16 launches by design: ``tc_launches`` the tensor-core kernels
+    (bf16 x), ``cc_launches`` the CUDA-core kernels (fp32 x)."""
+    return {attr: getattr(int8_matmul, attr)
+            for attr in int8_matmul.DESIGN_COUNTERS}

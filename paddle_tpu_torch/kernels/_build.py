@@ -62,9 +62,12 @@ SIGNATURES = {
     # q, k_q, k_scale, v_q, v_scale, table, pos, out, batch, heads,
     # kv_heads, head_dim, page_size, table_width, q_dtype, scale, stream
     "ptt_paged_attention_int8_fwd": [_P] * 8 + [_I] * 7 + [_F, _P],
-    # x, w_q, scale, out, partial (or null), rows, K, N, kchunk, x_dtype,
+    # x (fp32), w_q, scale, out, partial (or null), rows, K, N, kchunk,
     # stream
-    "ptt_int8_matmul": [_P] * 5 + [_I] * 5 + [_P],
+    "ptt_int8_matmul": [_P] * 5 + [_I] * 4 + [_P],
+    # x, w_q, scale, out, partial (or null), rows, K, N, kchunk,
+    # swap_rows (0: the tiled kernel), stream
+    "ptt_int8_matmul_tc": [_P] * 5 + [_I] * 5 + [_P],
     # q, k, v, o, lse, batch, heads, sq, sk, head_dim, (batch, seq, head)
     # strides of q, k, v, causal, scale, dtype, stream
     "ptt_flash_attention_fwd": [_P] * 5 + [_I] * 5 + [_L] * 9
@@ -206,3 +209,14 @@ def stream_of(t):
 
 def ptr(t):
     return ctypes.c_void_p(t.data_ptr())
+
+
+_SMS = {}
+
+
+def sm_count(dev):
+    """Streaming multiprocessors of CUDA device ``dev`` (cached)."""
+    idx = torch.device(dev).index or 0
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]

@@ -8,12 +8,16 @@ and dQ). The CUDA source is ``paddle_tpu_torch/csrc/flash_attention.cu``;
 its header says what bounds it on the H100 and how the designs answer
 that.
 
-Two designs, chosen by dtype and by nothing else: bf16 tensors run the
-tensor-core kernels (wgmma products with fp32 accumulators, TMA tile
-loads); fp32 tensors run the CUDA-core kernels (fp32 FMAs), because the
+Two designs, chosen by dtype and head dim (:func:`design`): bf16 tensors
+run the tensor-core kernels (wgmma products with fp32 accumulators, TMA
+tile loads) at D 64, 128 and 256 forward and D 64 and 128 backward;
+everything else runs the CUDA-core kernels (fp32 FMAs): fp32, because the
 tensor cores take fp32 only as TF32, about three decimal digits, and the
-fp32 models are held to 1e-5 against the CPU. Each design counts its own
-launches beside the totals.
+fp32 models are held to 1e-5 against the CPU; bf16 at D 16 and 32 (below
+the tensor-core tiles' 64-column unit) and the bf16 D 256 backward (its
+accumulators do not fit a consumer's registers). Each design counts its
+own launches beside the totals. Head dims outside :data:`HEAD_DIMS` are
+refused (ROADMAP.md queue C lists them).
 
 Shape contract (the paddle layout, as in the TPU module): q ``[B, Sq, H,
 D]``, k and v ``[B, Sk, H, D]`` with equal head counts, read through
@@ -54,9 +58,26 @@ cc_launches = 0
 cc_bwd_launches = 0
 DESIGN_COUNTERS = ("tc_launches", "tc_bwd_launches", "cc_launches",
                    "cc_bwd_launches")
-DESIGNS = {torch.bfloat16: "wgmma", torch.float32: "cuda-core fp32"}
+DESIGNS = {"tc": "wgmma", "cc": "cuda-core"}
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
+# bf16 head dims the tensor-core kernels take, forward and backward
+TC_HEAD_DIMS = {False: (64, 128, 256), True: (64, 128)}
+
+
+def design(dtype, head_dim, backward=False):
+    """``"tc"`` (tensor cores) or ``"cc"`` (CUDA cores): the design the C
+    entry points run for this dtype and head dim."""
+    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS[backward]:
+        return "tc"
+    return "cc"
+
+
+def _check_head_dim(d):
+    if d not in HEAD_DIMS:
+        raise ValueError(
+            f"flash attention kernel takes head_dim in {HEAD_DIMS}, got {d} "
+            f"(other head dims are refused: ROADMAP.md queue C)")
 
 
 def _scale_of(q, scale):
@@ -249,30 +270,28 @@ def _check_cuda(tensors, dtype):
         if t.dtype != dtype:
             raise TypeError(f"flash attention kernel takes one dtype: "
                             f"{name} is {t.dtype}, q is {dtype}")
-    if dtype not in DESIGNS:
+    if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash attention kernel takes float32/bfloat16, "
                         f"got {dtype}")
     return dev
 
 
-def _count(dtype, backward):
+def _count(dtype, head_dim, backward):
     """Add one launch to the total and to the counter of the design that
-    ``dtype`` runs (the C entry points dispatch on the same dtype)."""
+    ``dtype`` and ``head_dim`` run (:func:`design`, the C entry points'
+    dispatch)."""
     total = "bwd_launches" if backward else "launches"
-    design = "tc_" if dtype == torch.bfloat16 else "cc_"
     counters = globals()
     counters[total] += 1
-    counters[design + total] += 1
+    counters[f"{design(dtype, head_dim, backward)}_{total}"] += 1
 
 
 def flash_attention_cuda(q, k, v, causal=False, scale=None):
     """Launch the forward of ``csrc/flash_attention.cu``: ``(O, LSE)``;
-    bf16 runs the tensor-core kernel, fp32 the CUDA-core one."""
+    :func:`design` says which kernel runs."""
     b, sq, sk, h, d = _check_shapes(q, k, v, causal)
     dev = _check_cuda((("q", q), ("k", k), ("v", v)), q.dtype)
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash attention kernel takes head_dim in "
-                         f"{HEAD_DIMS}, got {d}")
+    _check_head_dim(d)
     vec = 16 // q.element_size()
     st = [_strides(t, n, vec) for n, t in (("q", q), ("k", k), ("v", v))]
     lib = _build.load()
@@ -286,15 +305,15 @@ def flash_attention_cuda(q, k, v, causal=False, scale=None):
             _build.DTYPE_CODES[q.dtype], _build.stream_of(q),
         )
     _build.check(err, "ptt_flash_attention_fwd")
-    _count(q.dtype, backward=False)
+    _count(q.dtype, d, backward=False)
     return o, lse
 
 
 def flash_attention_backward_cuda(q, k, v, o, lse, do, causal=False,
                                   scale=None):
     """Launch the backward of ``csrc/flash_attention.cu`` (Delta, dK/dV
-    and dQ passes): ``(dq, dk, dv)``; bf16 runs the tensor-core kernels,
-    fp32 the CUDA-core ones."""
+    and dQ passes): ``(dq, dk, dv)``; :func:`design` says which kernels
+    run."""
     b, sq, sk, h, d = _check_shapes(q, k, v, causal)
     do = do.to(q.dtype)
     vec = 16 // q.element_size()
@@ -303,9 +322,7 @@ def flash_attention_backward_cuda(q, k, v, o, lse, do, causal=False,
         do = do.contiguous()
     dev = _check_cuda((("q", q), ("k", k), ("v", v), ("o", o),
                        ("dout", do)), q.dtype)
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash attention kernel takes head_dim in "
-                         f"{HEAD_DIMS}, got {d}")
+    _check_head_dim(d)
     if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
         raise ValueError("flash attention backward: o and dout must have "
                          "q's shape")
@@ -330,5 +347,5 @@ def flash_attention_backward_cuda(q, k, v, o, lse, do, causal=False,
             _build.stream_of(q),
         )
     _build.check(err, "ptt_flash_attention_bwd")
-    _count(q.dtype, backward=True)
+    _count(q.dtype, d, backward=True)
     return dq, dk, dv

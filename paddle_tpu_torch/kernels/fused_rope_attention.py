@@ -43,7 +43,7 @@ from . import _build
 
 launches = 0
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)  # others: ROADMAP.md queue C
 
 
 def _table_2d(t):
@@ -186,7 +186,8 @@ def rope_attention_cuda(q, k, v, cos, sin, causal=True, scale=None):
                         f"{cos2.dtype} and {sin2.dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"rope attention kernel takes head_dim in "
-                         f"{HEAD_DIMS}, got {d}")
+                         f"{HEAD_DIMS}, got {d} (other head dims are "
+                         f"refused: ROADMAP.md queue C)")
     tab = int(cos2.stride(0))
     if cos2.stride(1) != 1 or sin2.stride(1) != 1 \
             or int(sin2.stride(0)) != tab or tab % 4 \

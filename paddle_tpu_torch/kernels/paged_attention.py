@@ -35,7 +35,7 @@ launches = 0
 int8_launches = 0
 
 MAX_GROUP = 8             # query heads per kv head the kernel takes
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 128, 256)  # others: ROADMAP.md queue C
 WARPS = 8                 # warps per CTA (kWarps in the source)
 SMEM_LIMIT = 232448 - 256  # dynamic shared memory a CTA may use, bytes
 # (q dtype, arena dtype) pairs the kernel is built for
@@ -140,7 +140,8 @@ def _check_common(q, arenas, page_table, pos):
                          f"page_size, got {ps}")
     if d not in HEAD_DIMS:
         raise ValueError(f"paged attention kernel takes head_dim in "
-                         f"{HEAD_DIMS}, got {d}")
+                         f"{HEAD_DIMS}, got {d} (other head dims are "
+                         f"refused: ROADMAP.md queue C)")
     if any(t.data_ptr() % 16 for t in (q, *(a for _, a in arenas))):
         raise ValueError("paged attention kernel needs 16-byte aligned "
                          "q, arenas and scales")

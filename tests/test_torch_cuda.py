@@ -124,7 +124,7 @@ def _arena(dev, dtype, kvh, d, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("kvh", [8, 2, 1])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 def test_paged_attention_kernel(dev, dtype, kvh, d):
     args = _arena(dev, DTYPES[dtype], kvh, d, seed=kvh * 1000 + d)
     got = tpa.paged_attention(*args)
@@ -148,7 +148,7 @@ def test_paged_attention_kernel_mixed_dtypes(dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("kvh", [8, 2])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 def test_int8_paged_attention_kernel(dev, dtype, kvh, d):
     from paddle_tpu_torch.quantization.kv import QuantizedKV, quantize_kv
 
@@ -183,15 +183,19 @@ def test_int8_paged_attention_refuses(dev):
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("rows", [1, 3, 8, 17, 130])
 def test_int8_matmul_kernel(dev, dtype, rows):
-    """K 1040 (three K chunks of the narrow kernel, the last ragged), N
-    200 (not a multiple of the 128-column tile)."""
+    """K 1040 (three K chunks of the narrow kernel, the last ragged; not
+    a multiple of the tensor-core k-tile), N 200 (not a multiple of the
+    128-column tile, nor of 16)."""
     g = torch.Generator(device=dev).manual_seed(rows)
     k, n = 1040, 200
     x = torch.randn(rows, k, generator=g, device=dev).to(DTYPES[dtype])
     wq, sc = tim.quantize_weight(torch.randn(k, n, generator=g, device=dev))
     before = tim.launches
+    counter = f"{tim.design(x.dtype)}_launches"
+    before_design = getattr(tim, counter)
     y = tim.int8_matmul(x, wq, sc)
     assert tim.launches == before + 1
+    assert getattr(tim, counter) == before_design + 1
     ref = tim.int8_matmul_reference(x, wq, sc)
     assert y.dtype == x.dtype and y.shape == (rows, n)
     assert torch.isfinite(y).all()
@@ -214,6 +218,54 @@ def test_int8_matmul_leading_dims_and_refusals(dev):
         tim.int8_matmul(x, wq.float(), sc)
     with pytest.raises(ValueError, match="multiples of 8"):
         tim.int8_matmul(x[..., :60], wq[:60], sc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8, 16, 17, 64, 130, 1024])
+@pytest.mark.parametrize("k", [1040, 4096])
+@pytest.mark.parametrize("n", [264, 22016])
+def test_int8_matmul_tensor_cores(dev, rows, k, n):
+    """The bf16 design: the swap-AB kernel up to SWAP_MAX_ROWS rows, the
+    tiled one above; K 1040 is not a multiple of the 64-row k-tile (its
+    ragged tile is zero-filled), N 264 is not a multiple of 16 nor of the
+    128-column tile. Cast once (bf16 entry by entry), bit-equal on
+    repeat, and counted on the tensor-core design."""
+    from paddle_tpu_torch import kernels
+
+    g = torch.Generator(device=dev).manual_seed(rows * 7 + k + n)
+    x = torch.randn(rows, k, generator=g, device=dev).to(torch.bfloat16)
+    wq, sc = tim.quantize_weight(
+        0.02 * torch.randn(k, n, generator=g, device=dev))
+    kernels.reset_launch_counts()
+    y = tim.int8_matmul(x, wq, sc)
+    assert kernels.int8_matmul_design_counts() == {"tc_launches": 1,
+                                                   "cc_launches": 0}
+    ref = tim.int8_matmul_reference(x, wq, sc)
+    assert y.dtype == x.dtype and y.shape == (rows, n)
+    assert torch.isfinite(y).all()
+    assert _cast_once_ok(y, ref, 1e-5)
+    assert torch.equal(y, tim.int8_matmul(x, wq, sc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["swap", "tiled"])
+@pytest.mark.parametrize("rows", [8, 64])
+def test_int8_matmul_each_kernel(dev, kernel, rows):
+    """Each tensor-core kernel named explicitly (as chip_smoke.py's
+    crossover sweep runs them side by side) at the 7B decode widths,
+    within cast-once of the plain version, bit-equal on repeat and
+    counted on the tensor-core design."""
+    g = torch.Generator(device=dev).manual_seed(rows)
+    x = torch.randn(rows, 4096, generator=g, device=dev).to(torch.bfloat16)
+    wq, sc = tim.quantize_weight(
+        0.02 * torch.randn(4096, 4096, generator=g, device=dev))
+    before = (tim.tc_launches, tim.cc_launches)
+    y = tim._tc_kernel(x, wq, sc, kernel)
+    assert (tim.tc_launches, tim.cc_launches) == (before[0] + 1, before[1])
+    assert _cast_once_ok(y, tim.int8_matmul_reference(x, wq, sc), 1e-5)
+    assert torch.equal(y, tim._tc_kernel(x, wq, sc, kernel))
+    with pytest.raises(ValueError, match="no 'swap' kernel"):
+        tim._tc_kernel(x.float(), wq, sc, "swap")
 
 
 @pytest.mark.cuda
@@ -286,6 +338,10 @@ def _flash_inputs(dev, dtype, b, sq, sk, h, d, seed, strided=False):
 FLASH_CASES = {
     # causal, sq, sk, head_dim, strided q/k/v views
     "causal": (True, 130, 130, 128, False),
+    "causal_d16": (True, 130, 130, 16, False),
+    "full_d32": (False, 100, 77, 32, False),
+    "causal_d256": (True, 130, 130, 256, False),
+    "causal_d256_sq_lt_sk": (True, 70, 200, 256, False),
     "causal_sq_lt_sk": (True, 70, 200, 64, False),
     "full": (False, 100, 77, 128, False),
     "causal_strided": (True, 96, 96, 64, True),
@@ -324,26 +380,38 @@ def test_flash_attention_kernels(dev, dtype, case):
 
 
 @pytest.mark.cuda
-def test_flash_attention_dispatches_by_dtype(dev):
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+def test_flash_attention_dispatches_by_dtype(dev, d):
+    """bf16 runs the tensor-core forward at D 64, 128, 256 and backward at
+    64, 128; everything else (fp32, bf16 D 16 and 32, the bf16 D 256
+    backward) the CUDA-core kernels."""
     from paddle_tpu_torch import kernels
 
-    for dt, design in ((torch.bfloat16, "tc"), (torch.float32, "cc")):
-        q, k, v, do = _flash_inputs(dev, dt, 1, 64, 64, 2, 128, seed=3)
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, do = _flash_inputs(dev, dt, 1, 64, 64, 2, d, seed=3)
         kernels.reset_launch_counts()
         o, lse = tfa.flash_attention_cuda(q, k, v, True)
         tfa.flash_attention_backward_cuda(q, k, v, o, lse, do, True)
-        other = "cc" if design == "tc" else "tc"
-        assert kernels.flash_design_counts() == {
-            f"{design}_launches": 1, f"{design}_bwd_launches": 1,
-            f"{other}_launches": 0, f"{other}_bwd_launches": 0}
+        fwd = "tc" if dt == torch.bfloat16 and d >= 64 else "cc"
+        bwd = "tc" if dt == torch.bfloat16 and d in (64, 128) else "cc"
+        want = dict.fromkeys(tfa.DESIGN_COUNTERS, 0)
+        want[f"{fwd}_launches"] += 1
+        want[f"{bwd}_bwd_launches"] += 1
+        assert kernels.flash_design_counts() == want
+        assert (tfa.design(dt, d), tfa.design(dt, d, True)) == (fwd, bwd)
         assert tfa.launches == 1 and tfa.bwd_launches == 1
 
 
 @pytest.mark.cuda
 def test_flash_attention_refuses_what_it_does_not_take(dev):
-    q = torch.randn(1, 8, 2, 256, device=dev)
-    with pytest.raises(ValueError, match="head_dim"):
+    """An unserved head dim (80, as in some public models) is refused,
+    naming the queue that lists it, in both directions."""
+    q = torch.randn(1, 8, 2, 80, device=dev)
+    with pytest.raises(ValueError, match="head_dim.*ROADMAP.md queue C"):
         tfa.flash_attention_cuda(q, q, q)
+    lse = torch.zeros(1, 2, 8, device=dev)
+    with pytest.raises(ValueError, match="head_dim.*ROADMAP.md queue C"):
+        tfa.flash_attention_backward_cuda(q, q, q, q, lse, q)
     q = torch.randn(1, 8, 2, 64, device=dev)
     with pytest.raises(TypeError, match="one dtype"):
         tfa.flash_attention_cuda(q, q.bfloat16(), q)
@@ -471,6 +539,9 @@ ROPE_ATTENTION_CASES = {
     "full_d64": (False, 100, 64, 1e-5, False),
     "causal_strided": (True, 96, 64, 1e-5, True),
     "causal_2048": (True, 2048, 128, 1e-4, False),
+    "causal_d16": (True, 130, 16, 1e-5, False),
+    "full_d32": (False, 100, 32, 1e-5, False),
+    "causal_d256": (True, 130, 256, 1e-5, False),
 }
 
 
@@ -495,9 +566,9 @@ def test_rope_attention_kernel(dev, dtype, case):
 
 @pytest.mark.cuda
 def test_rope_attention_refuses_what_it_does_not_take(dev):
-    q = torch.randn(1, 8, 2, 32, device=dev)
-    cos, sin = trope.build_rope_cache(8, 32, device=dev)
-    with pytest.raises(ValueError, match="head_dim"):
+    q = torch.randn(1, 8, 2, 80, device=dev)
+    cos, sin = trope.build_rope_cache(8, 80, device=dev)
+    with pytest.raises(ValueError, match="head_dim.*ROADMAP.md queue C"):
         tfra.rope_attention_cuda(q, q, q, cos, sin)
     q = torch.randn(1, 8, 2, 64, device=dev)
     cos, sin = trope.build_rope_cache(8, 64, device=dev)
@@ -511,9 +582,9 @@ def test_rope_attention_refuses_what_it_does_not_take(dev):
 
 @pytest.mark.cuda
 def test_tiny_fused_model_matches_cpu(dev):
-    """Both fusions on the card (head_dim 64: the attention kernel refuses
-    16): the cache-free logits against the same model on the CPU, 2e-5
-    absolute + 1e-4 relative; greedy streams equal to the unfused ones."""
+    """Both fusions on the card (head_dim 64): the cache-free logits
+    against the same model on the CPU, 2e-5 absolute + 1e-4 relative;
+    greedy streams equal to the unfused ones."""
     from paddle_tpu_torch.convert import load_numpy_state, numpy_state
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
@@ -536,3 +607,58 @@ def test_tiny_fused_model_matches_cpu(dev):
     net.fusions = ()
     plain = net.generate(ids[:, :9], max_new_tokens=8, cache_dtype="float32")
     assert torch.equal(fused, plain)
+
+
+@pytest.mark.cuda
+def test_tiny_default_model_on_the_card(dev):
+    """``LlamaConfig.tiny()`` at its default head_dim 16, fp32: the
+    cache-free logits (flash at D 16) against the CPU, 2e-5 absolute +
+    1e-4 relative; one AdamW train step (flash backward at D 16): loss
+    within 1e-5 relative and every parameter within 1e-5 absolute of the
+    CPU's; the paged engine's greedy streams (paged attention at D 16)
+    equal to the same engine's on the CPU."""
+    from paddle_tpu_torch.convert import load_numpy_state, numpy_state
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         causal_lm_loss)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.serving import PagedServingEngine
+
+    cfg = LlamaConfig.tiny()
+    assert cfg.hidden_size // cfg.num_attention_heads == 16
+    weights = numpy_state(LlamaForCausalLM(cfg, device="cpu", seed=21))
+    rng = np.random.RandomState(22)
+    ids = rng.randint(0, cfg.vocab_size, (2, 41))
+
+    def built(device):
+        net = LlamaForCausalLM(cfg, device=device, dtype=torch.float32)
+        load_numpy_state(net, weights)
+        return net
+
+    def step(net, device):
+        opt = AdamW(1e-3, epsilon=1e-3, parameters=net.named_parameters())
+        train = CompiledTrainStep(
+            net, lambda lo, lb: causal_lm_loss(lo, lb).mean(), opt)
+        t = torch.as_tensor(ids, dtype=torch.long, device=device)
+        loss, _ = train([t[:, :-1]], [t[:, 1:]])
+        return float(loss), numpy_state(net)
+
+    def streams(net):
+        eng = PagedServingEngine(net, max_batch_size=2, max_seq_len=64,
+                                 page_size=8, min_bucket=8,
+                                 cache_dtype="float32")
+        hs = [eng.submit(p, 8) for p in (ids[0, :9], ids[1, :20], ids[0])]
+        eng.run_until_idle()
+        return [h.output_ids.tolist() for h in hs]
+
+    loss_card, after_card = step(built(dev), dev)
+    loss_cpu, after_cpu = step(built("cpu"), "cpu")
+    cpu, card = built("cpu"), built(dev)
+    with torch.inference_mode():
+        want = cpu(torch.as_tensor(ids)).numpy()
+        got = card(torch.as_tensor(ids, device=dev)).float().cpu().numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-4)
+    assert streams(card) == streams(cpu)
+    assert abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu)
+    for name, w in after_cpu.items():
+        np.testing.assert_allclose(after_card[name], w, atol=1e-5, rtol=0)

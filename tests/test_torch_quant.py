@@ -12,7 +12,15 @@ Tolerances:
   interpret) and ``int8_matmul_composed``: fp32 1e-6 relative (the same
   dequantized weight, sums in another order); bf16 one bf16 ulp (2^-7
   relative: the fp32 sums before the one cast may differ in the last
-  bit and round apart);
+  bit and round apart); also at the tensor-core kernels' shapes (64 and
+  130 rows, K 1040, not a multiple of their 64-row k-tile), where entries
+  near zero of sums over 1040 terms also get 1e-6 of the largest entry;
+- an emulation of the bf16 tensor-core kernels' order of work (the
+  weight dequantized tile by tile, fp32 sums k-tile by k-tile, split-K
+  partials summed in chunk order) against the plain version: the card's
+  cast-once tolerance, 2^-7 of each entry + 1e-5 of the largest; two
+  seeded faults (a skipped k-tile, a column's scale taken from its
+  neighbour) must fall outside it;
 - the int8 paged attention's plain version against
   ``paged_attention_fused`` over ``QuantizedKV`` arenas (Pallas,
   interpret): fp32 1e-5, bf16 3e-2, the bounds of the float flavour;
@@ -135,6 +143,84 @@ def test_int8_matmul_plain_matches_jax(dtype):
     # leading dims pass through, as in the JAX function
     got3 = tim.int8_matmul(xt.reshape(2, 8, 64), wqt, sct)
     assert torch.equal(got3.reshape(16, 256), got)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("rows", [64, 130])
+def test_int8_matmul_plain_matches_jax_at_kernel_shapes(dtype, rows):
+    """The tensor-core kernels' row counts (64: one swap-AB x tile; 130:
+    a ragged one) and K 1040, not a multiple of their 64-row k-tile."""
+    rng = np.random.RandomState(rows)
+    k, n = 1040, 256
+    xj, xt = _both(rng.randn(rows, k), dtype)
+    w = (0.02 * rng.randn(k, n)).astype(np.float32)
+    wqj, scj = jim.quantize_weight(jnp.asarray(w))
+    wqt, sct = tim.quantize_weight(torch.from_numpy(w))
+    got = tim.int8_matmul(xt, wqt, sct)
+    rtol = BF16_ULP if dtype == "bfloat16" else 1e-6
+    for want in (jim.int8_matmul_composed(xj, wqj, scj),
+                 jim.int8_matmul(xj, wqj, scj, block_rows=rows,
+                                 block_cols=128)):
+        # fp32 sums over 1040 terms in another order: entries near zero
+        # also get 1e-6 of the largest entry
+        want = _np(want)
+        np.testing.assert_allclose(_np(got), want, rtol=rtol,
+                                   atol=1e-6 * float(np.abs(want).max()))
+
+
+def _emulate_tc_int8(x, wq, sc, kchunk, fault=None):
+    """The bf16 tensor-core W8A16 kernels' order of work on the CPU: each
+    64-row k-tile of the weight dequantized on its own (``_dequant``'s
+    order, to bf16), its product with x's k-tile summed in fp32 into the
+    chunk's accumulator, the K chunks of ``kchunk`` rows (the swap-AB
+    kernel's split; all of K for the tiled one) summed in chunk order,
+    and one cast to bf16. ``fault``: "skip_tile" drops the second k-tile,
+    "neighbour_scale" dequantizes column n with column n ^ 1's scale."""
+    k = int(wq.shape[0])
+    if fault == "neighbour_scale":
+        sc = sc.reshape(-1, 2).flip(1).reshape(-1)
+    total = torch.zeros(int(x.shape[0]), int(wq.shape[1]))
+    for c0 in range(0, k, kchunk):
+        acc = torch.zeros_like(total)
+        for k0 in range(c0, min(k, c0 + kchunk), tim.TC_KTILE):
+            if fault == "skip_tile" and k0 == tim.TC_KTILE:
+                continue
+            tile = tim._dequant(wq[k0:k0 + tim.TC_KTILE], sc, torch.bfloat16)
+            acc += x[:, k0:k0 + tim.TC_KTILE].float() @ tile.float()
+        total += acc
+    return total.to(torch.bfloat16)
+
+
+def _cast_once_ratio(got, want):
+    """Largest error over the card's cast-once tolerance: each entry
+    within 2^-7 of it plus 1e-5 of the largest entry."""
+    want = want.float()
+    tol = BF16_ULP * want.abs() + 1e-5 * float(want.abs().max())
+    return float(((got.float() - want).abs() / tol).max())
+
+
+@pytest.mark.parametrize("kernel", ["swap", "tiled"])
+@pytest.mark.parametrize("fault", [None, "skip_tile", "neighbour_scale"])
+def test_int8_tc_order_of_work_within_tolerance(kernel, fault):
+    """The emulated tensor-core kernels lie within the card's cast-once
+    tolerance of the plain version (swap-AB: 64 rows over K chunks of 256,
+    the last ragged; tiled: one chunk); each seeded fault falls outside
+    it, so the tolerance does not hide a wrong kernel."""
+    rng = np.random.RandomState(11)
+    rows, k, n = (64, 1040, 256) if kernel == "swap" else (130, 1040, 256)
+    x = torch.from_numpy(rng.randn(rows, k).astype(np.float32)).to(
+        torch.bfloat16)
+    wq, sc = tim.quantize_weight(
+        torch.from_numpy((0.02 * rng.randn(k, n)).astype(np.float32)))
+    kchunk = 256 if kernel == "swap" else k
+    ratio = _cast_once_ratio(_emulate_tc_int8(x, wq, sc, kchunk, fault),
+                             tim.int8_matmul_reference(x, wq, sc))
+    print(f"int8 tc emulation {kernel} fault={fault}: error over "
+          f"tolerance {ratio:.4g}")
+    if fault is None:
+        assert ratio <= 1.0
+    else:
+        assert ratio > 1.0
 
 
 # ------------------------------------------------ int8 paged attention
