@@ -14,18 +14,22 @@ It imports neither jax nor ``paddle_tpu``. Phases, each fatal on failure:
    on the card, at the Llama-2-7B shapes of the serving, training and
    quantized-serving paths, in bf16 and fp32 (flash attention: bf16 on
    the tensor-core kernels, fp32 on the CUDA-core ones), with the
-   tolerance stated per kernel, and timed (CUDA events, median) beside its bound, its
-   plain version and, where one PyTorch call computes the same function,
-   that call (the W8A16 matmul: beside the composed dequantize-then-
-   ``torch.matmul``, the float weight's ``torch.matmul``, the CUDA-core
-   kernels on the same bf16 inputs, and ``torch._weight_int8pack_mm``
-   where this PyTorch runs it; with a sweep of its two tensor-core
-   kernels over 16-512 rows); the backward kernels and the W8A16 matmul
-   must repeat bit for bit; flash attention and paged attention also at
-   head dims 16 and 256;
-4. small parity: a tiny fp32 Llama on the card, whose paged-engine
-   greedy streams must equal ``generate`` with an fp32 slab cache
-   token for token; then the same model quantized
+   tolerance stated per kernel, and timed (CUDA events, median) beside
+   its bound, its plain version and, where one PyTorch call computes
+   the same function, that call (the W8A16 matmul: beside the composed
+   dequantize-then-``torch.matmul``, the float weight's
+   ``torch.matmul``, the CUDA-core kernels on the same bf16 inputs, and
+   ``torch._weight_int8pack_mm`` where this PyTorch runs it; with a
+   sweep of its two tensor-core kernels over 16-512 rows, and paged
+   attention over chunks of 16-256 slots); the backward kernels, the
+   W8A16 matmul and paged attention must repeat bit for bit; flash
+   attention and paged attention also at head dims 16, 80, 96 and 256
+   (flash also 192), paged attention also with 32 query heads on one kv
+   head and one 8192-slot row at groups of 4 and 8;
+4. small parity: tiny fp32 Llamas on the card (MHA, GQA, and head dims
+   96 with MQA, 80 with GQA, 16 with 16 query heads on one kv head),
+   whose paged-engine greedy streams must equal ``generate`` with an
+   fp32 slab cache token for token; then the MHA and GQA models quantized
    (``quantize_for_serving``), whose paged and slab engines' streams
    with an int8 cache must equal ``generate(cache_dtype="int8")``;
 5. tiny train parity: a 2-layer fp32 Llama takes one
@@ -319,10 +323,34 @@ def rope_cases(torch, mod, dev):
     return out
 
 
-def paged_inputs(torch, dev, dtype, kvh, g, d=128):
-    b, h, ps, width = 8, 32, 16, 128
-    pos = torch.tensor([0, 15, 300, 777, 1024, 1500, 2000, 2047],
-                       dtype=torch.int32, device=dev)
+# the 7B decode step's rows: 8 rows at these positions of 2048 slots
+DECODE_POS = (0, 15, 300, 777, 1024, 1500, 2000, 2047)
+# paged attention cases: (q dtype, query heads, kv heads, head_dim, live
+# slots of each row) over a page-16 arena. The 7B decode shape first (the
+# main path's), in bf16 and fp32, with GQA kvH 8; head dims 16, 256, 80
+# and 96; one 8192-slot row at kvH 8 with Llama-3-8B's group of 4 and
+# Llama-2-70B's of 8 (past the earlier design's shared-memory cap); and
+# MQA with 32 query heads on one kv head.
+PAGED_SHAPES = (
+    ("bfloat16", 32, 32, 128, DECODE_POS),
+    ("float32", 32, 32, 128, DECODE_POS),
+    ("bfloat16", 32, 8, 128, DECODE_POS),
+    ("float32", 32, 8, 128, DECODE_POS),
+    ("bfloat16", 32, 32, 16, DECODE_POS),
+    ("bfloat16", 32, 32, 256, DECODE_POS),
+    ("bfloat16", 32, 32, 80, DECODE_POS),
+    ("bfloat16", 32, 32, 96, DECODE_POS),
+    ("bfloat16", 32, 8, 128, (8191,)),
+    ("bfloat16", 64, 8, 128, (8191,)),
+    ("bfloat16", 32, 1, 128, DECODE_POS),
+)
+
+
+def paged_inputs(torch, dev, dtype, kvh, g, d=128, h=32, positions=None):
+    positions = DECODE_POS if positions is None else positions
+    b, ps = len(positions), 16
+    width = (max(positions) + ps) // ps
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
     n_pages = b * width + 1
     k_pages = torch.randn(n_pages, ps, kvh, d, generator=g,
                           device=dev).to(dtype)
@@ -341,27 +369,39 @@ def paged_inputs(torch, dev, dtype, kvh, g, d=128):
     return q, k_pages, v_pages, table.contiguous(), pos
 
 
+def paged_bound(pos, q, kvh, d, kv_bytes, dname):
+    """(bound_ms, bound_by) of one paged attention call: each live slot's
+    K and V rows of every kv head read once (``kv_bytes`` per row: D
+    values, and an int8 row's 4-byte scale), q read and the output
+    written once, the live table entries and pos read; 4 flops per live
+    slot, query head and head dim column (q . k and p v)."""
+    slots = int((pos.long() + 1).sum())
+    h = int(q.shape[2])
+    nbytes = (2 * slots * kvh * kv_bytes + 2 * q.numel() * q.element_size()
+              + int((pos.long() // 16 + 1).sum()) * 4 + 4 * int(pos.numel()))
+    return bound(nbytes, 4 * slots * h * d, dname)
+
+
 def paged_cases(torch, mod, dev):
     out = []
     g = torch.Generator(device=dev).manual_seed(3)
-    for dtype, kvh, d in ((torch.bfloat16, 32, 128), (torch.float32, 32, 128),
-                          (torch.bfloat16, 8, 128), (torch.float32, 8, 128),
-                          (torch.bfloat16, 32, 16), (torch.bfloat16, 32, 256)):
-        dname = str(dtype).replace("torch.", "")
-        q, kp, vp, tbl, pos = paged_inputs(torch, dev, dtype, kvh, g, d)
+    for dname, h, kvh, d, positions in PAGED_SHAPES:
+        dtype = getattr(torch, dname)
+        q, kp, vp, tbl, pos = paged_inputs(torch, dev, dtype, kvh, g, d, h,
+                                           positions)
         o = mod.paged_attention_cuda(q, kp, vp, tbl, pos)
         ref = mod.paged_attention_reference(q, kp, vp, tbl, pos)
         if not torch.isfinite(o).all():
             fail("paged attention kernel produced non-finite values")
-        es = q.element_size()
-        slots = int((pos.long() + 1).sum())
-        nbytes = (2 * slots * kvh * d * es + 2 * q.numel() * es
-                  + int((pos.long() // 16 + 1).sum()) * 4 + 4 * 8)
-        b_ms, b_by = bound(nbytes, 4 * slots * 32 * d, dname)
+        if not torch.equal(o, mod.paged_attention_cuda(q, kp, vp, tbl, pos)):
+            fail(f"paged attention {dname} H {h} kvH {kvh} D {d} does not "
+                 f"repeat bit for bit")
+        b_ms, b_by = paged_bound(pos, q, kvh, d, d * q.element_size(), dname)
         out.append({
             "shape": {"q": list(q.shape), "pages": list(kp.shape),
                       "pos": [int(p) for p in pos]},
-            "dtype": dname, "kv_heads": kvh, "head_dim": d,
+            "dtype": dname, "heads": h, "kv_heads": kvh, "head_dim": d,
+            "repeats_bitwise": True,
             "max_abs_err": max_err(torch, o, ref),
             "tolerance": PAGED_TOL[dname],
             "ms": gpu_time_ms(torch, lambda: mod.paged_attention_cuda(
@@ -458,6 +498,20 @@ def rope_bwd_cases(torch, mod, dev):
     return out
 
 
+# the int8 arena at the float flavour's shapes (q bf16 and fp32)
+PAGED_INT8_SHAPES = (
+    ("bfloat16", 32, 32, 128, DECODE_POS),
+    ("float32", 32, 32, 128, DECODE_POS),
+    ("bfloat16", 32, 8, 128, DECODE_POS),
+    ("float32", 32, 8, 128, DECODE_POS),
+    ("bfloat16", 32, 32, 80, DECODE_POS),
+    ("bfloat16", 32, 32, 96, DECODE_POS),
+    ("bfloat16", 32, 8, 128, (8191,)),
+    ("bfloat16", 64, 8, 128, (8191,)),
+    ("bfloat16", 32, 1, 128, DECODE_POS),
+)
+
+
 def paged_int8_cases(torch, mod, dev):
     """Kernel A at the decode shapes of the float flavour: arenas made in
     fp32 (garbage page 0 at 1e4) and quantized with quantize_kv; q bf16
@@ -466,10 +520,10 @@ def paged_int8_cases(torch, mod, dev):
 
     out = []
     g = torch.Generator(device=dev).manual_seed(4)
-    for dtype, kvh in ((torch.bfloat16, 32), (torch.float32, 32),
-                       (torch.bfloat16, 8), (torch.float32, 8)):
-        dname = str(dtype).replace("torch.", "")
-        q, kp, vp, tbl, pos = paged_inputs(torch, dev, torch.float32, kvh, g)
+    for dname, h, kvh, d, positions in PAGED_INT8_SHAPES:
+        dtype = getattr(torch, dname)
+        q, kp, vp, tbl, pos = paged_inputs(torch, dev, torch.float32, kvh, g,
+                                           d, h, positions)
         q = q.to(dtype)
         kq, vq = QuantizedKV(*quantize_kv(kp)), QuantizedKV(*quantize_kv(vp))
         del kp, vp
@@ -477,17 +531,17 @@ def paged_int8_cases(torch, mod, dev):
         ref = mod.paged_attention_reference(q, kq, vq, tbl, pos)
         if not torch.isfinite(o).all():
             fail("int8 paged attention kernel produced non-finite values")
-        es = q.element_size()
-        slots = int((pos.long() + 1).sum())
-        d = 128
-        nbytes = (2 * slots * kvh * (d + 4) + 2 * q.numel() * es
-                  + int((pos.long() // 16 + 1).sum()) * 4 + 4 * 8)
-        b_ms, b_by = bound(nbytes, 4 * slots * 32 * d, dname)
+        if not torch.equal(o, mod.paged_attention_int8_cuda(q, kq, vq, tbl,
+                                                            pos)):
+            fail(f"int8 paged attention {dname} H {h} kvH {kvh} D {d} does "
+                 f"not repeat bit for bit")
+        b_ms, b_by = paged_bound(pos, q, kvh, d, d + 4, dname)
         out.append({
             "shape": {"q": list(q.shape), "pages": list(kq.q.shape),
                       "scales": list(kq.scale.shape),
                       "pos": [int(p) for p in pos]},
-            "dtype": dname, "kv_heads": kvh, "arena": "int8",
+            "dtype": dname, "heads": h, "kv_heads": kvh, "head_dim": d,
+            "arena": "int8", "repeats_bitwise": True,
             "max_abs_err": max_err(torch, o, ref),
             "tolerance": PAGED_TOL[dname],
             "ms": gpu_time_ms(torch, lambda: mod.paged_attention_int8_cuda(
@@ -501,6 +555,54 @@ def paged_int8_cases(torch, mod, dev):
         del q, kq, vq, o, ref
     torch.cuda.empty_cache()
     return out
+
+
+PAGED_SWEEP_CHUNKS = (16, 32, 64, 128, 256)
+
+
+def paged_chunk_sweep(torch, mod, dev):
+    """Paged attention's time at chunks of 16..256 slots and at the
+    wrapper's own choice (``chunk_slots``), both flavours with a bf16 q
+    over the shapes above, each output within the paged tolerance of the
+    plain version: the evidence for ``chunk_slots``. One row per
+    shape."""
+    from paddle_tpu_torch.quantization.kv import QuantizedKV, quantize_kv
+
+    own = mod.chunk_slots
+    g = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    shapes = [("bf16", *c[1:]) for c in PAGED_SHAPES if c[0] == "bfloat16"]
+    shapes += [("int8", *c[1:]) for c in PAGED_INT8_SHAPES
+               if c[0] == "bfloat16"]
+    try:
+        for arena, h, kvh, d, positions in shapes:
+            dt = torch.float32 if arena == "int8" else torch.bfloat16
+            q, kp, vp, tbl, pos = paged_inputs(torch, dev, dt, kvh, g, d, h,
+                                               positions)
+            if arena == "int8":
+                kp = QuantizedKV(*quantize_kv(kp))
+                vp = QuantizedKV(*quantize_kv(vp))
+                q = q.bfloat16()
+            ref = mod.paged_attention_reference(q, kp, vp, tbl, pos)
+            row = {"arena": arena, "heads": h, "kv_heads": kvh,
+                   "head_dim": d, "rows": len(positions),
+                   "own_chunk": own(16, d, 1 if arena == "int8" else 2,
+                                    h // kvh), "ms": {}}
+            for chunk in (None, *PAGED_SWEEP_CHUNKS):
+                mod.chunk_slots = own if chunk is None else (
+                    lambda *a, c=chunk: c)
+                o = mod.paged_attention(q, kp, vp, tbl, pos)
+                if max_err(torch, o, ref) > PAGED_TOL["bfloat16"]:
+                    fail(f"paged chunk sweep {row} chunk {chunk}: "
+                         f"{max_err(torch, o, ref)}")
+                row["ms"][str(chunk or "own")] = gpu_time_ms(
+                    torch, lambda: mod.paged_attention(q, kp, vp, tbl, pos))
+            rows.append(row)
+            del q, kp, vp, ref
+    finally:
+        mod.chunk_slots = own
+    torch.cuda.empty_cache()
+    return rows
 
 
 # W8A16 shapes: the 7B decode step's four weight shapes at 8 rows (q/k/v/o,
@@ -713,6 +815,14 @@ FLASH_SHAPES = (
     ("bfloat16", True, TRAIN_BATCH, 2048, 2048, 64),
     ("bfloat16", True, TRAIN_BATCH, 2048, 2048, 16),
     ("bfloat16", True, TRAIN_BATCH, 2048, 2048, 256),
+    # head dims on the padded kernels: 80 and 96 (the 128-wide tensor-core
+    # kernels both ways in bf16; fp32 on the CUDA cores), 192 (the 256-wide
+    # tensor-core forward, CUDA-core backward)
+    ("bfloat16", True, TRAIN_BATCH, 2048, 2048, 80),
+    ("bfloat16", True, TRAIN_BATCH, 2048, 2048, 96),
+    ("float32", True, TRAIN_BATCH, 2048, 2048, 80),
+    ("float32", True, TRAIN_BATCH, 2048, 2048, 96),
+    ("bfloat16", True, TRAIN_BATCH, 2048, 2048, 192),
 )
 
 
@@ -887,13 +997,16 @@ def norm_matmul_cases(torch, mod, dev):
 
 
 ROPE_ATTENTION_SHAPES = (
-    # dtype, causal, batch, S (heads 32, head_dim 128): the training shape
-    # in bf16 (the O1 projections' dtype) and fp32, a ragged tail, and a
-    # non-causal case
-    ("bfloat16", True, TRAIN_BATCH, TRAIN_SEQ),
-    ("float32", True, TRAIN_BATCH, TRAIN_SEQ),
-    ("bfloat16", True, 1, 1000),
-    ("bfloat16", False, 1, 1024),
+    # dtype, causal, batch, S, head_dim (heads 32): the training shape in
+    # bf16 (the O1 projections' dtype) and fp32, a ragged tail, a
+    # non-causal case, and head dims 80 and 96 (the 128-wide kernel, each
+    # column paired with the one d/2 on)
+    ("bfloat16", True, TRAIN_BATCH, TRAIN_SEQ, 128),
+    ("float32", True, TRAIN_BATCH, TRAIN_SEQ, 128),
+    ("bfloat16", True, 1, 1000, 128),
+    ("bfloat16", False, 1, 1024, 128),
+    ("bfloat16", True, TRAIN_BATCH, TRAIN_SEQ, 80),
+    ("float32", True, TRAIN_BATCH, TRAIN_SEQ, 96),
 )
 
 
@@ -905,10 +1018,10 @@ def rope_attention_cases(torch, mod, dev):
     from paddle_tpu_torch.kernels import rope
 
     out = []
-    h, d = 32, 128
+    h = 32
     g = torch.Generator(device=dev).manual_seed(12)
-    cos_full, sin_full = rope.build_rope_cache(4096, d, device=dev)
-    for dname, causal, b, s in ROPE_ATTENTION_SHAPES:
+    for dname, causal, b, s, d in ROPE_ATTENTION_SHAPES:
+        cos_full, sin_full = rope.build_rope_cache(4096, d, device=dev)
         dtype = getattr(torch, dname)
         q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
                    for _ in range(3))
@@ -1017,35 +1130,57 @@ QUANT_MM_PER_FORWARD = 6 * 32 + 1
 
 
 # ------------------------------------------------------- small parity
+# tiny fp32 models beyond the two below: (hidden, heads, kv heads), head
+# dim 96 with MQA, head dim 80 with GQA, and 16 query heads on one kv head
+SMALL_PARITY_SHAPES = ((384, 4, 1), (320, 4, 2), (256, 16, 1))
+
+
+def _paged_equals_generate(torch, np, dev, cfg, label):
+    """A tiny fp32 model's paged-engine greedy streams against
+    ``generate`` with an fp32 slab cache, token for token; returns the
+    model."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.serving import PagedServingEngine
+
+    net = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=4)
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, 256, (n,)) for n in (9, 17, 30, 5)]
+    news = [12, 5, 9, 16]
+    eng = PagedServingEngine(net, max_batch_size=2, max_seq_len=64,
+                             page_size=8, min_bucket=8,
+                             cache_dtype="float32")
+    hs = [eng.submit(p, m) for p, m in zip(prompts, news)]
+    eng.run_until_idle()
+    for h, p, m in zip(hs, prompts, news):
+        want = net.generate(p[None], max_new_tokens=m,
+                            cache_dtype="float32")[0].cpu().numpy()
+        if h.status != "DONE" or not np.array_equal(h.output_ids, want):
+            fail(f"small parity ({label}): paged engine stream "
+                 f"{h.output_ids.tolist()} != generate {want.tolist()}")
+    if eng.page_pool.pages_in_use:
+        fail(f"small parity ({label}): pages leaked")
+    return net, prompts, news
+
+
 def small_parity(torch, np, dev):
-    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models import LlamaConfig
     from paddle_tpu_torch.quantization import quantize_for_serving
     from paddle_tpu_torch.serving import PagedServingEngine, ServingEngine
 
+    for hidden, heads, kvh in SMALL_PARITY_SHAPES:
+        cfg = LlamaConfig.tiny(vocab_size=256, hidden_size=hidden,
+                               intermediate_size=512, num_hidden_layers=2,
+                               num_attention_heads=heads,
+                               num_key_value_heads=kvh)
+        _paged_equals_generate(torch, np, dev, cfg,
+                               f"D={hidden // heads}, H={heads}, kvH={kvh}")
     for kvh in (None, 2):
         cfg = LlamaConfig.tiny(vocab_size=256, hidden_size=256,
                                intermediate_size=512, num_hidden_layers=2,
                                num_attention_heads=4,
                                num_key_value_heads=kvh)
-        net = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=4)
-        rng = np.random.RandomState(5)
-        prompts = [rng.randint(0, 256, (n,)) for n in (9, 17, 30, 5)]
-        news = [12, 5, 9, 16]
-        eng = PagedServingEngine(net, max_batch_size=2, max_seq_len=64,
-                                 page_size=8, min_bucket=8,
-                                 cache_dtype="float32")
-        hs = [eng.submit(p, m) for p, m in zip(prompts, news)]
-        eng.run_until_idle()
-        for h, p, m in zip(hs, prompts, news):
-            want = net.generate(p[None], max_new_tokens=m,
-                                cache_dtype="float32")[0].cpu().numpy()
-            if h.status != "DONE" or not np.array_equal(h.output_ids,
-                                                        want):
-                fail(f"small parity (kvH={kvh}): paged engine stream "
-                     f"{h.output_ids.tolist()} != generate "
-                     f"{want.tolist()}")
-        if eng.page_pool.pages_in_use:
-            fail("small parity: pages leaked")
+        net, prompts, news = _paged_equals_generate(torch, np, dev, cfg,
+                                                    f"kvH={kvh}")
         # the same model quantized: int8 weights and an int8 KV cache
         quantize_for_serving(net, inplace=True)
         for kind, eng in (
@@ -1066,9 +1201,10 @@ def small_parity(torch, np, dev):
                          f"{want.tolist()}")
             if eng.pool.occupancy:
                 fail(f"small int8 parity: the {kind} engine leaked")
-    log("small parity: tiny fp32 Llama (MHA and GQA kvH=2), paged engine "
-        "== generate token for token; quantized (int8 weights, int8 KV), "
-        "paged and slab engines == generate(cache_dtype='int8')")
+    log("small parity: tiny fp32 Llama (MHA and GQA kvH=2; D 96 MQA, D 80 "
+        "GQA kvH=2, 16 heads on 1 kv head), paged engine == generate token "
+        "for token; quantized (int8 weights, int8 KV; MHA and GQA), paged "
+        "and slab engines == generate(cache_dtype='int8')")
 
 
 def fused_parity(torch, np, dev):
@@ -1633,8 +1769,10 @@ def profile_steps(torch, step_fn, steps):
         # flash_fwd_kernel<float, D, false> are the forward,
         # flash_fwd_kernel<T, D, true> the rope-on-load forward,
         # flash_bwd_* (both designs) the backward passes
-        group = ("paged_attention_int8" if "paged_attention_kernel" in low
-                 and "signed char" in low
+        # paged attention: its scores and values kernels, the int8
+        # flavour's instantiated over signed char
+        paged = "paged_scores_kernel" in low or "paged_values_kernel" in low
+        group = ("paged_attention_int8" if paged and "signed char" in low
                  else "int8_matmul" if "int8_matmul" in low
                  else "rms_norm_matmul" if "norm_matmul" in low
                  else "flash_attention_fwd" if "flash_fwd_tc_kernel" in low
@@ -1642,7 +1780,7 @@ def profile_steps(torch, step_fn, steps):
                  and ", true>" in low
                  else "flash_attention_fwd" if "flash_fwd_kernel<" in low
                  and ", false>" in low
-                 else "paged_attention" if "paged_attention_kernel" in low
+                 else "paged_attention" if paged
                  else "flash_attention_bwd" if "flash_bwd_" in low
                  else "rms_norm" if "rms_norm_fwd_kernel" in low
                  else "rms_norm_bwd" if ("rms_norm_bwd_kernel" in low
@@ -1781,6 +1919,8 @@ def main():
             results[kname] = kcases
     crossover = int8_crossover(torch, kernels.int8_matmul, dev)
     log("kernel int8_matmul crossover: " + json.dumps(crossover))
+    for row in paged_chunk_sweep(torch, kernels.paged_attention, dev):
+        log("kernel paged_attention chunk sweep: " + json.dumps(row))
 
     small_parity(torch, np, dev)
     fused_parity(torch, np, dev)

@@ -30,9 +30,15 @@
 // TFLOP/s bf16).
 //
 // Two designs, chosen by the inputs' dtype and head dim
-// (ptt_flash_attention_fwd/_bwd; head dims 16, 32, 64, 128 and 256):
+// (ptt_flash_attention_fwd/_bwd). Every head dim d that is a multiple of
+// 16 up to 256 runs: a kernel is instantiated at the next of 16, 32, 64,
+// 128 and 256 (its width D) and takes d as an argument; its tiles hold
+// zeros in the columns from d to D (TMA zero-fills them, the CUDA-core
+// loaders write them), which add nothing to the scores, and its stores
+// skip those columns (d 80, 96, 112 run the D 128 kernels, 160 and 192
+// the D 256 ones).
 //
-// bf16 at D 64, 128 and 256 (forward) and D 64 and 128 (backward): the
+// bf16 at d 64 to 256 (forward) and d 64 to 128 (backward): the
 // tensor-core design (namespace tc, below; hopper.cuh). Every
 // product is wgmma with fp32 accumulators; tiles arrive by TMA into
 // 128-byte-swizzled shared memory, two stages in flight, issued by one
@@ -54,11 +60,12 @@
 // design (the port's first flash kernels, below). The tensor cores take
 // fp32 only as TF32 (about three decimal digits), and the fp32 models are
 // held to 1e-5 against the CPU, so fp32 runs on the CUDA cores (fp32
-// FMAs, 67 TFLOP/s at most). bf16 runs here at D 16 and 32 (below one
-// 128-byte swizzle span, the tensor-core tiles' unit) and in the D 256
-// backward (its two D/2 accumulators would not fit in a consumer's
-// registers beside the score tiles); it keeps P and dS in fp32, which
-// moves an entry by less than probability_rounding_slack. One CTA of 256 threads
+// FMAs, 67 TFLOP/s at most). bf16 runs here at d below 64 (below one
+// 128-byte swizzle span, the tensor-core tiles' unit) and in the backward
+// above d 128 (at D 256 its two D/2 accumulators would not fit in a
+// consumer's registers beside the score tiles); it keeps P and dS in
+// fp32, which moves an entry by less than probability_rounding_slack.
+// One CTA of 256 threads
 // owns a 64-row q-block (forward, dQ) or a 64-row k-block (dK/dV) and
 // loops over the other side's 64-row blocks itself, from the causal start
 // to the causal end. Tiles are staged in shared memory as fp32 with a row
@@ -109,12 +116,13 @@ struct Strides {
 };
 
 // rows [row0, row0 + BR) of one head (base already at (b, h)) into a fp32
-// tile with row stride D + 1; rows at or past `seq` are zero
+// tile of the template's width D with row stride D + 1; rows at or past
+// `seq` and columns at or past the head dim d (<= D) are zero
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(float* __restrict__ tile,
                                           const T* __restrict__ base,
                                           long long s_stride, int row0,
-                                          int seq) {
+                                          int seq, int d) {
   constexpr int BR = block_rows<D>();
   constexpr int V = 16 / (int)sizeof(T);
   constexpr int kVecPerRow = D / V;
@@ -122,7 +130,7 @@ __device__ __forceinline__ void load_tile(float* __restrict__ tile,
     const int r = idx / kVecPerRow;
     const int c = (idx % kVecPerRow) * V;
     float vals[V];
-    if (row0 + r < seq) {
+    if (row0 + r < seq && c < d) {
       ptt::load_floats<T, V>(base + (long long)(row0 + r) * s_stride + c,
                              vals);
     } else {
@@ -135,18 +143,31 @@ __device__ __forceinline__ void load_tile(float* __restrict__ tile,
 }
 
 // As load_tile, with every row rotated by its position's table row
-// (neox: out[:D/2] = x1 cos - x2 sin, out[D/2:] = x2 cos + x1 sin, fp32, in
-// _rotate's op order, no fused multiply-add); cos/sin are fp32 [S, D/2]
-// with row stride tab_stride (elements)
+// (neox: out[:d/2] = x1 cos - x2 sin, out[d/2:d] = x2 cos + x1 sin, fp32,
+// in _rotate's op order, no fused multiply-add); cos/sin are fp32 [S,
+// d/2] with row stride tab_stride (elements). Column c pairs with c + d/2
+// at the TRUE head dim d, not the template's D (the TPU kernel's pairing);
+// columns [d, D) are zero.
 template <typename T, int D>
 __device__ __forceinline__ void load_tile_rope(
     float* __restrict__ tile, const T* __restrict__ base, long long s_stride,
     int row0, int seq, const float* __restrict__ cos,
-    const float* __restrict__ sin, long long tab_stride) {
+    const float* __restrict__ sin, long long tab_stride, int d) {
   constexpr int BR = block_rows<D>();
   constexpr int V = 16 / (int)sizeof(T);
-  constexpr int H2 = D / 2;
-  constexpr int kVecPerHalf = H2 / V;
+  const int H2 = d / 2;
+  const int kVecPerHalf = H2 / V;
+  if (d < D) {
+    constexpr int kVecPerRow = D / V;
+    for (int idx = threadIdx.x; idx < BR * kVecPerRow; idx += kThreads) {
+      const int c = (idx % kVecPerRow) * V;
+      if (c >= d) {
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          tile[(idx / kVecPerRow) * (D + 1) + c + j] = 0.0f;
+      }
+    }
+  }
   for (int idx = threadIdx.x; idx < BR * kVecPerHalf; idx += kThreads) {
     const int r = idx / kVecPerHalf;
     const int c = (idx % kVecPerHalf) * V;
@@ -234,8 +255,8 @@ __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, Strides qs, Strides ks,
-                     Strides vs, int heads, int sq, int sk, float scale,
-                     int causal, const float* __restrict__ cos,
+                     Strides vs, int heads, int sq, int sk, int d,
+                     float scale, int causal, const float* __restrict__ cos,
                      const float* __restrict__ sin, long long tab_stride) {
   constexpr int LD = D + 1;
   constexpr int NO = D / 16;  // output columns per thread
@@ -252,9 +273,9 @@ __global__ void __launch_bounds__(kThreads)
 
   if constexpr (kRope)
     load_tile_rope<T, D>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, sq, cos, sin,
-                         tab_stride);
+                         tab_stride, d);
   else
-    load_tile<T, D>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, sq);
+    load_tile<T, D>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, sq, d);
   const T* kbase = k + b * ks.b + h * ks.h;
   const T* vbase = v + b * vs.b + h * vs.h;
 
@@ -272,10 +293,10 @@ __global__ void __launch_bounds__(kThreads)
   for (int k0 = 0; k0 < k_end; k0 += BR) {
     __syncthreads();  // the previous block's readers are done
     if constexpr (kRope)
-      load_tile_rope<T, D>(sK, kbase, ks.s, k0, sk, cos, sin, tab_stride);
+      load_tile_rope<T, D>(sK, kbase, ks.s, k0, sk, cos, sin, tab_stride, d);
     else
-      load_tile<T, D>(sK, kbase, ks.s, k0, sk);
-    load_tile<T, D>(sV, vbase, vs.s, k0, sk);
+      load_tile<T, D>(sK, kbase, ks.s, k0, sk, d);
+    load_tile<T, D>(sV, vbase, vs.s, k0, sk, d);
     __syncthreads();
     float s[I][I];
 #pragma unroll
@@ -330,23 +351,25 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < I; ++i) {
     const int r = q0 + ty * I + i;
     if (r >= sq) continue;
-    T* orow = o + (((long long)b * sq + r) * heads + h) * D;
+    T* orow = o + (((long long)b * sq + r) * heads + h) * d;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
-      orow[tx + 16 * n] = ptt::from_float<T>(acc[i][n] / l[i]);
+      if (tx + 16 * n < d)
+        orow[tx + 16 * n] = ptt::from_float<T>(acc[i][n] / l[i]);
     if (lse != nullptr && tx == 0)
       lse[((long long)b * heads + h) * sq + r] = m[i] + logf(l[i]);
   }
 }
 
 // ------------------------------------------------------- backward: Delta
-// one warp per (b, row, h): Delta = sum_d dO * O in fp32
+// one warp per (b, row, h): Delta = sum over the d columns (d <= D) of
+// dO * O in fp32
 template <typename T, int D>
 __global__ void flash_bwd_delta_kernel(const T* __restrict__ o,
                                        const T* __restrict__ dout,
                                        float* __restrict__ delta, Strides os,
                                        Strides dos, int batch, int heads,
-                                       int sq) {
+                                       int sq, int d) {
   const long long row =
       (long long)blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -358,8 +381,8 @@ __global__ void flash_bwd_delta_kernel(const T* __restrict__ o,
   const T* grow = dout + b * dos.b + (long long)r * dos.s + h * dos.h;
   float acc = 0.0f;
 #pragma unroll
-  for (int d = lane; d < D; d += 32)
-    acc += ptt::to_float(grow[d]) * ptt::to_float(orow[d]);
+  for (int c = lane; c < D; c += 32)
+    if (c < d) acc += ptt::to_float(grow[c]) * ptt::to_float(orow[c]);
   acc = ptt::warp_sum(acc);
   if (lane == 0) delta[((long long)b * heads + h) * sq + r] = acc;
 }
@@ -373,7 +396,7 @@ __global__ void __launch_bounds__(kThreads)
                           const float* __restrict__ delta,
                           T* __restrict__ dk, T* __restrict__ dv, Strides qs,
                           Strides ks, Strides vs, Strides dos, int heads,
-                          int sq, int sk, float scale, int causal) {
+                          int sq, int sk, int d, float scale, int causal) {
   constexpr int LD = D + 1;
   constexpr int NO = D / 16;
   constexpr int BR = block_rows<D>(), I = BR / 16, LP = BR + 1;
@@ -392,8 +415,8 @@ __global__ void __launch_bounds__(kThreads)
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const long long rowvec = ((long long)b * heads + h) * sq;
 
-  load_tile<T, D>(sK, k + b * ks.b + h * ks.h, ks.s, k0, sk);
-  load_tile<T, D>(sV, v + b * vs.b + h * vs.h, vs.s, k0, sk);
+  load_tile<T, D>(sK, k + b * ks.b + h * ks.h, ks.s, k0, sk, d);
+  load_tile<T, D>(sV, v + b * vs.b + h * vs.h, vs.s, k0, sk, d);
   const T* qbase = q + b * qs.b + h * qs.h;
   const T* gbase = dout + b * dos.b + h * dos.h;
 
@@ -409,8 +432,8 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int q0 = q_first; q0 < sq; q0 += BR) {
     __syncthreads();
-    load_tile<T, D>(sQ, qbase, qs.s, q0, sq);
-    load_tile<T, D>(sG, gbase, dos.s, q0, sq);
+    load_tile<T, D>(sQ, qbase, qs.s, q0, sq, d);
+    load_tile<T, D>(sG, gbase, dos.s, q0, sq, d);
     load_row_vec<BR>(sL, lse + rowvec, q0, sq);
     load_row_vec<BR>(sD, delta + rowvec, q0, sq);
     __syncthreads();
@@ -461,9 +484,10 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < I; ++i) {
     const int c = k0 + ty * I + i;
     if (c >= sk) continue;
-    const long long off = (((long long)b * sk + c) * heads + h) * D;
+    const long long off = (((long long)b * sk + c) * heads + h) * d;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
+      if (tx + 16 * n >= d) continue;
       dk[off + tx + 16 * n] = ptt::from_float<T>(adk[i][n] * scale);
       dv[off + tx + 16 * n] = ptt::from_float<T>(adv[i][n]);
     }
@@ -478,7 +502,8 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dq,
                         Strides qs, Strides ks, Strides vs, Strides dos,
-                        int heads, int sq, int sk, float scale, int causal) {
+                        int heads, int sq, int sk, int d, float scale,
+                        int causal) {
   constexpr int LD = D + 1;
   constexpr int NO = D / 16;
   constexpr int BR = block_rows<D>(), I = BR / 16, LP = BR + 1;
@@ -496,8 +521,8 @@ __global__ void __launch_bounds__(kThreads)
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const long long rowvec = ((long long)b * heads + h) * sq;
 
-  load_tile<T, D>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, sq);
-  load_tile<T, D>(sG, dout + b * dos.b + h * dos.h, dos.s, q0, sq);
+  load_tile<T, D>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, sq, d);
+  load_tile<T, D>(sG, dout + b * dos.b + h * dos.h, dos.s, q0, sq, d);
   load_row_vec<BR>(sL, lse + rowvec, q0, sq);
   load_row_vec<BR>(sD, delta + rowvec, q0, sq);
   const T* kbase = k + b * ks.b + h * ks.h;
@@ -512,8 +537,8 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int k0 = 0; k0 < k_end; k0 += BR) {
     __syncthreads();
-    load_tile<T, D>(sK, kbase, ks.s, k0, sk);
-    load_tile<T, D>(sV, vbase, vs.s, k0, sk);
+    load_tile<T, D>(sK, kbase, ks.s, k0, sk, d);
+    load_tile<T, D>(sV, vbase, vs.s, k0, sk, d);
     __syncthreads();
     float s[I][I], dp[I][I];
 #pragma unroll
@@ -553,10 +578,11 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < I; ++i) {
     const int r = q0 + ty * I + i;
     if (r >= sq) continue;
-    const long long off = (((long long)b * sq + r) * heads + h) * D;
+    const long long off = (((long long)b * sq + r) * heads + h) * d;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
-      dq[off + tx + 16 * n] = ptt::from_float<T>(adq[i][n] * scale);
+      if (tx + 16 * n < d)
+        dq[off + tx + 16 * n] = ptt::from_float<T>(adq[i][n] * scale);
   }
 }
 
@@ -586,7 +612,7 @@ struct FwdArgs {
   const void *q, *k, *v;
   void *o, *lse;
   Strides qs, ks, vs;
-  int batch, heads, sq, sk, causal;
+  int batch, heads, sq, sk, d, causal;  // d: the head dim (<= the template's)
   float scale;
   const void *cos, *sin;  // the rope tables (rope-on-load only)
   long long tab_stride;
@@ -602,7 +628,7 @@ cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t stream) {
   flash_fwd_kernel<T, D, kRope><<<grid, kThreads, fwd_smem<D>(), stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.o),
-      static_cast<float*>(a.lse), a.qs, a.ks, a.vs, a.heads, a.sq, a.sk,
+      static_cast<float*>(a.lse), a.qs, a.ks, a.vs, a.heads, a.sq, a.sk, a.d,
       a.scale, a.causal, static_cast<const float*>(a.cos),
       static_cast<const float*>(a.sin), a.tab_stride);
   return cudaGetLastError();
@@ -612,7 +638,7 @@ struct BwdArgs {
   const void *q, *k, *v, *o, *dout, *lse;
   void *delta, *dq, *dk, *dv;
   Strides qs, ks, vs, os, dos;
-  int batch, heads, sq, sk, causal;
+  int batch, heads, sq, sk, d, causal;  // d: the head dim
   float scale;
 };
 
@@ -622,7 +648,8 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   flash_bwd_delta_kernel<T, D><<<(unsigned)((rows + 7) / 8), 256, 0,
                                   stream>>>(
       static_cast<const T*>(a.o), static_cast<const T*>(a.dout),
-      static_cast<float*>(a.delta), a.os, a.dos, a.batch, a.heads, a.sq);
+      static_cast<float*>(a.delta), a.os, a.dos, a.batch, a.heads, a.sq,
+      a.d);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -635,7 +662,7 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.qs, a.ks, a.vs, a.dos,
-      a.heads, a.sq, a.sk, a.scale, a.causal);
+      a.heads, a.sq, a.sk, a.d, a.scale, a.causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -647,7 +674,7 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<T*>(a.dq), a.qs, a.ks, a.vs, a.dos, a.heads, a.sq, a.sk,
-      a.scale, a.causal);
+      a.d, a.scale, a.causal);
   return cudaGetLastError();
 }
 
@@ -809,15 +836,17 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // one output row of a thread's accumulator (entries 4j + half*2 + {0,1})
-// to a contiguous bf16 [.., D] row, times `mul`
+// to a contiguous bf16 [.., d] row, times `mul`; the columns from the head
+// dim d (a multiple of 16) to the template's D are not stored
 template <int D>
 __device__ __forceinline__ void store_row(bf16* __restrict__ row,
                                           const float (&acc)[D / 2], int half,
-                                          int cq, float mul) {
+                                          int cq, float mul, int d) {
 #pragma unroll
   for (int j = 0; j < D / 8; ++j)
-    *reinterpret_cast<uint32_t*>(row + 8 * j + cq) =
-        pack_bf16(acc[4 * j + 2 * half] * mul, acc[4 * j + 2 * half + 1] * mul);
+    if (8 * j < d)
+      *reinterpret_cast<uint32_t*>(row + 8 * j + cq) = pack_bf16(
+          acc[4 * j + 2 * half] * mul, acc[4 * j + 2 * half + 1] * mul);
 }
 
 // ----------------------------------------------------------------- forward
@@ -829,14 +858,15 @@ __device__ __forceinline__ void store_row(bf16* __restrict__ row,
 // exp2(S - m) rounded to bf16 in registers (unnormalised, tile by tile,
 // as the stock kernel's p.astype(v.dtype)) and O += P V (wgmma
 // m64nDk16, P from registers, V MN-major). l sums the unrounded p.
-template <int D>
+template <int D, bool kPad>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq,
                         const __grid_constant__ CUtensorMap mk,
                         const __grid_constant__ CUtensorMap mv,
                         bf16* __restrict__ o, float* __restrict__ lse,
-                        int heads, int sq, int sk, float scale_log2,
+                        int heads, int sq, int sk, int d, float scale_log2,
                         int causal) {
+  if (!kPad) d = D;  // a compile-time head dim where the width is exact
   constexpr int kM = 128, kN = fwd_keys<D>();
   constexpr Layout L = fwd_layout<D>();
   extern __shared__ uint8_t smem_raw[];
@@ -965,13 +995,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     lb = quad_sum(lb);
     const long long rowvec = ((long long)b * heads + h) * sq;
     if (ra < sq) {
-      store_row<D>(o + (((long long)b * sq + ra) * heads + h) * D, acc, 0, cq,
-                   1.0f / la);
+      store_row<D>(o + (((long long)b * sq + ra) * heads + h) * d, acc, 0, cq,
+                   1.0f / la, d);
       if (cq == 0) lse[rowvec + ra] = ma * kLn2 + logf(la);
     }
     if (rb < sq) {
-      store_row<D>(o + (((long long)b * sq + rb) * heads + h) * D, acc, 1, cq,
-                   1.0f / lb);
+      store_row<D>(o + (((long long)b * sq + rb) * heads + h) * d, acc, 1, cq,
+                   1.0f / lb, d);
       if (cq == 0) lse[rowvec + rb] = mb * kLn2 + logf(lb);
     }
   }
@@ -987,7 +1017,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // dO and dK += bf16(dS^T) Q (wgmma m64nDk16, the rounded tiles from
 // registers, dO and Q MN-major): the stock kernel's p.T.astype and
 // ds.T.astype, with ds scaled first as it does.
-template <int D>
+template <int D, bool kPad>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap mq,
                              const __grid_constant__ CUtensorMap mdo,
@@ -996,8 +1026,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
                              bf16* __restrict__ dk, bf16* __restrict__ dv,
-                             int heads, int sq, int sk, float scale,
+                             int heads, int sq, int sk, int d, float scale,
                              float scale_log2, int causal) {
+  if (!kPad) d = D;
   constexpr int kN = 128, kM = 64;  // k rows per CTA, q rows per block
   constexpr Layout L = dkdv_layout<D>();
   extern __shared__ uint8_t smem_raw[];
@@ -1124,14 +1155,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     if (!live) return;
     if (ca < sk) {
-      const long long off = (((long long)b * sk + ca) * heads + h) * D;
-      store_row<D>(dk + off, adk, 0, cq, 1.0f);
-      store_row<D>(dv + off, adv, 0, cq, 1.0f);
+      const long long off = (((long long)b * sk + ca) * heads + h) * d;
+      store_row<D>(dk + off, adk, 0, cq, 1.0f, d);
+      store_row<D>(dv + off, adv, 0, cq, 1.0f, d);
     }
     if (cb < sk) {
-      const long long off = (((long long)b * sk + cb) * heads + h) * D;
-      store_row<D>(dk + off, adk, 1, cq, 1.0f);
-      store_row<D>(dv + off, adv, 1, cq, 1.0f);
+      const long long off = (((long long)b * sk + cb) * heads + h) * d;
+      store_row<D>(dk + off, adk, 1, cq, 1.0f, d);
+      store_row<D>(dv + off, adv, 1, cq, 1.0f, d);
     }
   }
 }
@@ -1142,7 +1173,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // warpgroup: S = Q K^T and dP = dO V^T (wgmma m64n64k16), P and dS =
 // P (dP - Delta) scale in fp32 registers, dQ += bf16(dS) K (wgmma
 // m64nDk16, dS from registers, K MN-major: the stock ds.astype(k.dtype)).
-template <int D>
+template <int D, bool kPad>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap mq,
                            const __grid_constant__ CUtensorMap mdo,
@@ -1151,7 +1182,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
                            bf16* __restrict__ dq, int heads, int sq, int sk,
-                           float scale, float scale_log2, int causal) {
+                           int d, float scale, float scale_log2, int causal) {
+  if (!kPad) d = D;
   constexpr int kM = 128, kN = 64;  // q rows per CTA, k rows per block
   constexpr Layout L = dq_layout<D>();
   extern __shared__ uint8_t smem_raw[];
@@ -1257,20 +1289,23 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     if (!live) return;
     if (ra < sq)
-      store_row<D>(dq + (((long long)b * sq + ra) * heads + h) * D, adq, 0, cq,
-                   1.0f);
+      store_row<D>(dq + (((long long)b * sq + ra) * heads + h) * d, adq, 0, cq,
+                   1.0f, d);
     if (rb < sq)
-      store_row<D>(dq + (((long long)b * sq + rb) * heads + h) * D, adq, 1, cq,
-                   1.0f);
+      store_row<D>(dq + (((long long)b * sq + rb) * heads + h) * d, adq, 1, cq,
+                   1.0f, d);
   }
 }
 
 // ------------------------------------------------------------ launches
-// The tensor map of a bf16 [batch, seq, heads, D] tensor read through its
+// The tensor map of a bf16 [batch, seq, heads, d] tensor read through its
 // strides (elements; multiples of 8, so 16-byte multiples in bytes, as
-// TMA needs), as (D, heads, seq, batch) innermost first: boxes of 64
+// TMA needs), as (d, heads, seq, batch) innermost first: boxes of 64
 // columns x `box_rows` rows of one head, 128-byte swizzle, rows past seq
-// zero-filled.
+// and columns past the head dim d zero-filled. A kernel instantiated at a
+// wider D (d 80 runs the D 128 kernel) so reads its tiles with zeros from
+// d to D: they add nothing to q . k, and the P V columns they give are
+// never stored.
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int batch, int seq,
                      int heads, int d, Strides st, int box_rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
@@ -1282,95 +1317,108 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int batch, int seq,
                     strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-template <int D>
+template <int D, bool kPad>
 cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   cudaError_t err;
-  if ((err = make_map(&mq, a.q, a.batch, a.sq, a.heads, D, a.qs, 128)) ||
-      (err = make_map(&mk, a.k, a.batch, a.sk, a.heads, D, a.ks,
+  if ((err = make_map(&mq, a.q, a.batch, a.sq, a.heads, a.d, a.qs, 128)) ||
+      (err = make_map(&mk, a.k, a.batch, a.sk, a.heads, a.d, a.ks,
                       fwd_keys<D>())) ||
-      (err = make_map(&mv, a.v, a.batch, a.sk, a.heads, D, a.vs,
+      (err = make_map(&mv, a.v, a.batch, a.sk, a.heads, a.d, a.vs,
                       fwd_keys<D>())))
     return err;
   constexpr int smem = fwd_layout<D>().bytes();
-  if ((err = allow_smem(flash_fwd_tc_kernel<D>, smem))) return err;
+  if ((err = allow_smem(flash_fwd_tc_kernel<D, kPad>, smem))) return err;
   dim3 grid((a.sq + 127) / 128, a.batch * a.heads);
-  flash_fwd_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_tc_kernel<D, kPad><<<grid, kThreads, smem, stream>>>(
       mq, mk, mv, static_cast<bf16*>(a.o), static_cast<float*>(a.lse),
-      a.heads, a.sq, a.sk, a.scale * kLog2e, a.causal);
+      a.heads, a.sq, a.sk, a.d, a.scale * kLog2e, a.causal);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kPad>
 cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   const long long rows = (long long)a.batch * a.heads * a.sq;
   flash_bwd_delta_kernel<bf16, D><<<(unsigned)((rows + 7) / 8), 256, 0,
-                                    stream>>>(
+                                     stream>>>(
       static_cast<const bf16*>(a.o), static_cast<const bf16*>(a.dout),
-      static_cast<float*>(a.delta), a.os, a.dos, a.batch, a.heads, a.sq);
+      static_cast<float*>(a.delta), a.os, a.dos, a.batch, a.heads, a.sq,
+      a.d);
   cudaError_t err = cudaGetLastError();
   if (err) return err;
 
   // dK/dV: q and dO in blocks of 64 rows, k and v resident (128 rows)
   CUtensorMap mq, mdo, mk, mv;
-  if ((err = make_map(&mq, a.q, a.batch, a.sq, a.heads, D, a.qs, 64)) ||
-      (err = make_map(&mdo, a.dout, a.batch, a.sq, a.heads, D, a.dos, 64)) ||
-      (err = make_map(&mk, a.k, a.batch, a.sk, a.heads, D, a.ks, 128)) ||
-      (err = make_map(&mv, a.v, a.batch, a.sk, a.heads, D, a.vs, 128)))
+  if ((err = make_map(&mq, a.q, a.batch, a.sq, a.heads, a.d, a.qs, 64)) ||
+      (err = make_map(&mdo, a.dout, a.batch, a.sq, a.heads, a.d, a.dos, 64)) ||
+      (err = make_map(&mk, a.k, a.batch, a.sk, a.heads, a.d, a.ks, 128)) ||
+      (err = make_map(&mv, a.v, a.batch, a.sk, a.heads, a.d, a.vs, 128)))
     return err;
   constexpr int smem_kv = dkdv_layout<D>().bytes();
-  if ((err = allow_smem(flash_bwd_dkdv_tc_kernel<D>, smem_kv))) return err;
+  if ((err = allow_smem(flash_bwd_dkdv_tc_kernel<D, kPad>, smem_kv)))
+    return err;
   dim3 grid_k((a.sk + 127) / 128, a.batch * a.heads);
   const float scale_log2 = a.scale * kLog2e;
-  flash_bwd_dkdv_tc_kernel<D><<<grid_k, kThreads, smem_kv, stream>>>(
+  flash_bwd_dkdv_tc_kernel<D, kPad><<<grid_k, kThreads, smem_kv, stream>>>(
       mq, mdo, mk, mv, static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), static_cast<bf16*>(a.dk),
-      static_cast<bf16*>(a.dv), a.heads, a.sq, a.sk, a.scale, scale_log2,
-      a.causal);
+      static_cast<bf16*>(a.dv), a.heads, a.sq, a.sk, a.d, a.scale,
+      scale_log2, a.causal);
   if ((err = cudaGetLastError())) return err;
 
   // dQ: q and dO resident (128 rows), k and v in blocks of 64 rows
-  if ((err = make_map(&mq, a.q, a.batch, a.sq, a.heads, D, a.qs, 128)) ||
-      (err = make_map(&mdo, a.dout, a.batch, a.sq, a.heads, D, a.dos, 128)) ||
-      (err = make_map(&mk, a.k, a.batch, a.sk, a.heads, D, a.ks, 64)) ||
-      (err = make_map(&mv, a.v, a.batch, a.sk, a.heads, D, a.vs, 64)))
+  if ((err = make_map(&mq, a.q, a.batch, a.sq, a.heads, a.d, a.qs, 128)) ||
+      (err = make_map(&mdo, a.dout, a.batch, a.sq, a.heads, a.d, a.dos,
+                      128)) ||
+      (err = make_map(&mk, a.k, a.batch, a.sk, a.heads, a.d, a.ks, 64)) ||
+      (err = make_map(&mv, a.v, a.batch, a.sk, a.heads, a.d, a.vs, 64)))
     return err;
   constexpr int smem_q = dq_layout<D>().bytes();
-  if ((err = allow_smem(flash_bwd_dq_tc_kernel<D>, smem_q))) return err;
+  if ((err = allow_smem(flash_bwd_dq_tc_kernel<D, kPad>, smem_q))) return err;
   dim3 grid_q((a.sq + 127) / 128, a.batch * a.heads);
-  flash_bwd_dq_tc_kernel<D><<<grid_q, kThreads, smem_q, stream>>>(
+  flash_bwd_dq_tc_kernel<D, kPad><<<grid_q, kThreads, smem_q, stream>>>(
       mq, mdo, mk, mv, static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), static_cast<bf16*>(a.dq), a.heads,
-      a.sq, a.sk, a.scale, scale_log2, a.causal);
+      a.sq, a.sk, a.d, a.scale, scale_log2, a.causal);
   return cudaGetLastError();
 }
 
 }  // namespace tc
 
+// Head dims: any multiple of 16 up to 256. A kernel is instantiated at
+// the next of 16, 32, 64, 128, 256 (its padded width D) and takes the
+// true head dim d as an argument: loads zero the columns from d to D,
+// stores skip them, and the rope-on-load loader pairs column c with c +
+// d/2.
+inline bool served(int d) { return d % 16 == 0 && d >= 16 && d <= 256; }
+inline int padded(int d) {
+  return d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 256;
+}
+
 // The CUDA-core kernels at every served head dim (fp32, the rope-on-load
 // forward, and bf16 where the tensor-core design does not run)
 template <typename T, bool kRope>
-cudaError_t cc_fwd(int head_dim, const FwdArgs& a, cudaStream_t s) {
-  switch (head_dim) {
+cudaError_t cc_fwd(const FwdArgs& a, cudaStream_t s) {
+  if (!served(a.d)) return cudaErrorInvalidValue;
+  switch (padded(a.d)) {
     case 16: return launch_fwd<T, 16, kRope>(a, s);
     case 32: return launch_fwd<T, 32, kRope>(a, s);
     case 64: return launch_fwd<T, 64, kRope>(a, s);
     case 128: return launch_fwd<T, 128, kRope>(a, s);
-    case 256: return launch_fwd<T, 256, kRope>(a, s);
+    default: return launch_fwd<T, 256, kRope>(a, s);
   }
-  return cudaErrorInvalidValue;
 }
 
 template <typename T>
-cudaError_t cc_bwd(int head_dim, const BwdArgs& a, cudaStream_t s) {
-  switch (head_dim) {
+cudaError_t cc_bwd(const BwdArgs& a, cudaStream_t s) {
+  if (!served(a.d)) return cudaErrorInvalidValue;
+  switch (padded(a.d)) {
     case 16: return launch_bwd<T, 16>(a, s);
     case 32: return launch_bwd<T, 32>(a, s);
     case 64: return launch_bwd<T, 64>(a, s);
     case 128: return launch_bwd<T, 128>(a, s);
-    case 256: return launch_bwd<T, 256>(a, s);
+    default: return launch_bwd<T, 256>(a, s);
   }
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1379,9 +1427,8 @@ cudaError_t cc_bwd(int head_dim, const BwdArgs& a, cudaStream_t s) {
 // each with its (batch, seq, head) strides in elements and a unit stride
 // over head_dim; all strides multiples of the 16-byte vector width and the
 // pointers 16-byte aligned. o: contiguous [batch, sq, heads, head_dim] of
-// q's type; lse: fp32 [batch, heads, sq]. head_dim 16, 32, 64, 128 or
-// 256; sk >= sq
-// when causal (the Python wrapper checks all of this).
+// q's type; lse: fp32 [batch, heads, sq]. head_dim a multiple of 16 up to
+// 256; sk >= sq when causal (the Python wrapper checks all of this).
 extern "C" int ptt_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int batch, int heads, int sq, int sk, int head_dim, long long q_sb,
@@ -1390,16 +1437,20 @@ extern "C" int ptt_flash_attention_fwd(
     int causal, float scale, int dtype, void* stream) {
   if (batch == 0 || heads == 0 || sq == 0) return cudaSuccess;
   FwdArgs a{q, k, v, o, lse, {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh},
-            {v_sb, v_ss, v_sh}, batch, heads, sq, sk, causal, scale,
-            nullptr, nullptr, 0};
+            {v_sb, v_ss, v_sh}, batch, heads, sq, sk, head_dim, causal,
+            scale, nullptr, nullptr, 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == ptt::kBF16) {  // tensor cores from one 128-byte span on
-    if (head_dim == 64) return tc::launch_fwd<64>(a, s);
-    if (head_dim == 128) return tc::launch_fwd<128>(a, s);
-    if (head_dim == 256) return tc::launch_fwd<256>(a, s);
-    return cc_fwd<__nv_bfloat16, false>(head_dim, a, s);
+  if (dtype == ptt::kBF16 && served(head_dim) && head_dim >= 64) {
+    // tensor cores from one 128-byte span on, at the padded width
+    // (a separate instantiation where the head dim fills the width)
+    if (head_dim == 64) return tc::launch_fwd<64, false>(a, s);
+    if (head_dim == 128) return tc::launch_fwd<128, false>(a, s);
+    if (head_dim < 128) return tc::launch_fwd<128, true>(a, s);
+    if (head_dim == 256) return tc::launch_fwd<256, false>(a, s);
+    return tc::launch_fwd<256, true>(a, s);
   }
-  if (dtype == ptt::kF32) return cc_fwd<float, false>(head_dim, a, s);
+  if (dtype == ptt::kBF16) return cc_fwd<__nv_bfloat16, false>(a, s);
+  if (dtype == ptt::kF32) return cc_fwd<float, false>(a, s);
   return cudaErrorInvalidValue;
 }
 
@@ -1407,8 +1458,8 @@ extern "C" int ptt_flash_attention_fwd(
 // strides as above (one sequence length); cos and sin fp32 [seq,
 // head_dim / 2] with row stride tab_stride (a multiple of 4, 16-byte
 // aligned); o contiguous [batch, seq, heads, head_dim] of q's type. No
-// LSE. head_dim 16, 32, 64, 128 or 256 (the Python wrapper checks all of
-// this).
+// LSE. head_dim a multiple of 16 up to 256 (the Python wrapper checks all
+// of this).
 extern "C" int ptt_rope_attention_fwd(
     const void* q, const void* k, const void* v, void* o, const void* cos,
     const void* sin, long long tab_stride, int batch, int heads, int seq,
@@ -1418,11 +1469,11 @@ extern "C" int ptt_rope_attention_fwd(
     void* stream) {
   if (batch == 0 || heads == 0 || seq == 0) return cudaSuccess;
   FwdArgs a{q, k, v, o, nullptr, {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh},
-            {v_sb, v_ss, v_sh}, batch, heads, seq, seq, causal, scale,
-            cos, sin, tab_stride};
+            {v_sb, v_ss, v_sh}, batch, heads, seq, seq, head_dim, causal,
+            scale, cos, sin, tab_stride};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == ptt::kBF16) return cc_fwd<__nv_bfloat16, true>(head_dim, a, s);
-  if (dtype == ptt::kF32) return cc_fwd<float, true>(head_dim, a, s);
+  if (dtype == ptt::kBF16) return cc_fwd<__nv_bfloat16, true>(a, s);
+  if (dtype == ptt::kF32) return cc_fwd<float, true>(a, s);
   return cudaErrorInvalidValue;
 }
 
@@ -1442,13 +1493,15 @@ extern "C" int ptt_flash_attention_bwd(
   BwdArgs a{q, k, v, o, dout, lse, delta, dq, dk, dv,
             {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh},
             {o_sb, o_ss, o_sh}, {g_sb, g_ss, g_sh},
-            batch, heads, sq, sk, causal, scale};
+            batch, heads, sq, sk, head_dim, causal, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == ptt::kBF16) {  // tensor cores at 64 and 128
-    if (head_dim == 64) return tc::launch_bwd<64>(a, s);
-    if (head_dim == 128) return tc::launch_bwd<128>(a, s);
-    return cc_bwd<__nv_bfloat16>(head_dim, a, s);
+  if (dtype == ptt::kBF16 && served(head_dim) && head_dim >= 64 &&
+      head_dim <= 128) {  // tensor cores at 64, and 80 to 128 padded to 128
+    if (head_dim == 64) return tc::launch_bwd<64, false>(a, s);
+    if (head_dim == 128) return tc::launch_bwd<128, false>(a, s);
+    return tc::launch_bwd<128, true>(a, s);
   }
-  if (dtype == ptt::kF32) return cc_bwd<float>(head_dim, a, s);
+  if (dtype == ptt::kBF16) return cc_bwd<__nv_bfloat16>(a, s);
+  if (dtype == ptt::kF32) return cc_bwd<float>(a, s);
   return cudaErrorInvalidValue;
 }

@@ -8,55 +8,120 @@
 // slot written this step) that its page-table row addresses in the
 // [N, page_size, kvH, D] arena:
 //   scores = (q . k) * scale in fp32, exact softmax (max, exp, sum) over
-//   the assembled row, probabilities rounded to q's dtype, then the value
-//   product in fp32, cast to q's dtype. GQA is kv-head-major: query head
-//   h reads kv head h / (H / kvH).
+//   the whole row, the NORMALISED probabilities rounded to q's dtype,
+//   then the value product in fp32, cast to q's dtype. GQA is
+//   kv-head-major: query head h reads kv head h / (H / kvH).
 // The int8 flavour (ptt_paged_attention_int8_fwd) reads int8 K/V rows
-// and their fp32 scales ([N, page_size, kvH]) and dequantizes in
-// registers as float(q) * scale, in fp32 and without rounding to q's
-// dtype, as the TPU kernel's load epilogue does (:262-263); the rest of
-// the body is the float flavour's.
+// and their fp32 scales ([N, page_size, kvH]) and dequantizes each value
+// as float(q) * scale in fp32, never rounded to q's dtype, as the TPU
+// kernel's load epilogue does (:262-263); the rest is the same body.
 //
 // What bounds it on the H100: bytes. Every live K and V element is read
-// once and costs 2 flops (bf16: 1 flop per byte), so the floor is the
-// live K/V bytes, sum_b (pos_b + 1) * kvH * D * 2 * 2 (int8: (D + 4)
-// bytes per slot and kv head, with the scale), over 3.35 TB/s. The
-// design therefore aims at keeping many wide, coalesced loads in flight;
-// the arithmetic is incidental.
+// once and costs 2 flops per query head of its group (bf16 MHA: 1 flop
+// per byte), so the floor is the live K/V bytes, sum_b (pos_b + 1) * kvH
+// * D * 2 * 2 (int8: (D + 4) bytes per slot and kv head, with the
+// scale), over 3.35 TB/s. The design keeps many bytes in flight on every
+// SM and splits long rows over many CTAs.
 //
-// Design (exact softmax, no split across CTAs; TMA, wgmma and split-K
-// over long rows are later work):
-// - one CTA of 8 warps per (kv head, row); the kv head's G query heads
-//   are loaded once into shared memory as fp32;
-// - only the pages holding slots <= pos are read (the TPU kernel walks
-//   every table column and masks; skipping the masked ones is the same
-//   function with fewer bytes), so the garbage page 0 in a table's unused
-//   tail is never touched;
-// - a slot's K or V row (D values) is spread over the 32 lanes of a warp,
-//   D/32 contiguous values per lane, so one warp load moves the whole row
-//   (256 B for bf16 at D = 128, 128 B for int8, plus one broadcast 4-byte
-//   scale load); at D = 16 the first 16 lanes hold one value each and the
-//   others hold zeros and load nothing; warp w takes kUnroll consecutive slots at a time
-//   (kUnroll * 8 slots apart) and issues all their loads before using
-//   any, ~64 bytes in flight per lane;
-// - phase 1: each slot's G dot products are reduced with shuffles into an
-//   fp32 score row kept in shared memory ([G, P * page_size] floats);
-// - phase 2: block-wide max and sum per query head, probabilities
-//   written back rounded to q's dtype;
-// - phase 3: each warp accumulates p * V over its slots in registers;
-//   the 8 partial rows are summed through shared memory per head.
-// A row whose score row does not fit in shared memory is refused by the
-// Python wrapper.
+// Design: two kernels a call, one body per kernel for both flavours.
+// - Each row's live slots [0, n), n = min(pos + 1, P * page_size), are
+//   cut into chunks of `chunk` slots (a whole number of pages; the
+//   wrapper sizes it so one chunk's K or V rows fill about 32 KB of
+//   shared memory, at most 256 slots and 2048 / G: fewer, larger chunks
+//   beat more CTAs, since each chunk costs a CTA's fixed latency and a
+//   partial row to sum). A CTA owns one (chunk, kv head, row); CTAs whose
+//   chunk starts at or past n exit at once, so only the pages holding
+//   slots <= pos are read, and the garbage page 0 is never touched.
+// - A CTA brings its chunk's K (kernel 1) or V (kernel 2) rows of its kv
+//   head into shared memory with cp.async, 16 bytes a copy and all of
+//   the chunk in flight at once (an int8 arena's scales, 4 bytes each,
+//   with 4-byte cp.async), one row per (D * size + pad) bytes: the pad
+//   makes the row stride an odd number of 16-byte units, so eight lanes
+//   reading eight rows at one column hit distinct banks. cp.async rather
+//   than TMA: a row of one kv head is contiguous and a warp's copies
+//   coalesce, the 4-byte scales are below TMA's 16-byte box minimum
+//   anyway, and no swizzle is needed for the readers.
+// - The kv head's G query heads run in blocks of up to 16 against the
+//   chunk already in shared memory, so K and V are read from device
+//   memory once per kv head whatever G is, and G is unbounded.
+// - Kernel 1 (scores): a thread takes one slot and up to HB query heads
+//   (HB 1 for MHA, 4 otherwise), dequantizes each K value in fp32 and
+//   sums q . k over D in fp32; the scaled scores go to a global fp32
+//   scratch [B, H, P * page_size] (L2-resident) and to shared memory,
+//   from which each warp takes a head's chunk max m_c and sum of exp(s -
+//   m_c) (stats [B, H, chunks]).
+// - Kernel 2 (values): each CTA combines its row's chunk statistics
+//   into the row's m and l (a warp per head, lane k over chunks k, k +
+//   32, ..., then a butterfly: the same fixed order in every CTA of the
+//   row, so they agree bit for bit), takes p = round_to_q(exp(s - m) /
+//   l) over its chunk (the TPU kernel's rounding point: the normalised
+//   probability), and the fp32 partial P V of its chunk: a thread owns 8
+//   value columns of HB heads over every SG-th slot, and the SG lanes of
+//   a group are summed with a fixed butterfly. A row of one chunk writes
+//   its output at once; otherwise the partials go to an fp32 scratch
+//   [B, H, chunks, D] and the last CTA of (row, kv head) to arrive (an
+//   arrival counter that it resets to 0 for the next call) sums them in
+//   chunk order and writes q's dtype. No float atomics and no order that
+//   depends on timing: a call repeats bit for bit.
+// Any D that is a multiple of 16 up to 256 (a runtime argument), any G,
+// any row length up to the scratch the wrapper allocates from the table.
 #include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kHeadBlock = 16;  // query heads per pass over a chunk
 template <typename TKV>
 constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
+
+// bytes between two staged rows: D values, padded to an odd number of
+// 16-byte units (conflict-free 16-byte reads of eight rows at a column)
+__host__ __device__ inline int row_stride(int d, int elem) {
+  const int b = d * elem;
+  return (b / 16) % 2 ? b : b + 16;
+}
+
+__host__ __device__ inline int head_block(int g) {
+  return g < kHeadBlock ? g : kHeadBlock;
+}
+
+// shared memory of kernel 1 (scores) and kernel 2 (values), bytes: the
+// chunk's rows, their int8 scales, then per head block q [GB, D] and the
+// scores [GB, chunk] (kernel 1), or (m, l) [GB, 2] and the probabilities
+// [GB, chunk] (kernel 2)
+__host__ __device__ inline int scores_smem(int chunk, int d, int elem,
+                                           int g) {
+  const int gb = head_block(g);
+  return chunk * row_stride(d, elem) + 4 * chunk + 4 * gb * d +
+         4 * gb * chunk;
+}
+__host__ __device__ inline int values_smem(int chunk, int d, int elem,
+                                           int g) {
+  const int gb = head_block(g);
+  return chunk * row_stride(d, elem) + 4 * chunk + 8 * gb + 4 * gb * chunk;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
 
 // The arena slot of logical slot t: page trow[t >> shift], offset
 // t & (page_size - 1).
@@ -66,264 +131,379 @@ __device__ __forceinline__ size_t arena_slot(const int* trow, int t,
          (size_t)(t & ((1 << shift) - 1));
 }
 
-// Issue the loads of this lane's E values of the K or V row of arena slot
-// `slot` (as fp32; zeros on a lane past the row, `on` false) and, for an
-// int8 arena, of its (slot, kv head) scale.
-template <typename TKV, int E>
-__device__ __forceinline__ void load_row(const TKV* __restrict__ pages,
-                                         const float* __restrict__ scales,
-                                         size_t slot, size_t slot_stride,
-                                         size_t head_off, int kvh,
-                                         int kv_heads, bool on,
-                                         float (&out)[E], float& s) {
-  if (on) {
-    ptt::load_floats<TKV, E>(pages + slot * slot_stride + head_off, out);
-  } else {
-#pragma unroll
-    for (int e = 0; e < E; ++e) out[e] = 0.0f;
+// Issue the copies of the chunk's `cn` rows (slots t0 ..) of kv head kvh
+// into `tile` (rows `ld` bytes apart) and, for an int8 arena, of their
+// scales into `sc`. Completes at cp_async_wait_all.
+template <typename TKV>
+__device__ __forceinline__ void stage_rows(uint8_t* tile, float* sc,
+                                           const TKV* __restrict__ pages,
+                                           const float* __restrict__ scales,
+                                           const int* trow, int t0, int cn,
+                                           int shift, int kv_heads, int kvh,
+                                           int d, int ld) {
+  const int vecs = d * (int)sizeof(TKV) / 16;  // 16-byte copies per row
+  for (int i = threadIdx.x; i < cn * vecs; i += kThreads) {
+    const int r = i / vecs, v = i - r * vecs;
+    const size_t slot = arena_slot(trow, t0 + r, shift);
+    const uint8_t* src = reinterpret_cast<const uint8_t*>(
+        pages + (slot * kv_heads + kvh) * (size_t)d);
+    cp_async16(tile + r * ld + 16 * v, src + 16 * v);
   }
-  if constexpr (kQuant<TKV>) s = scales[slot * (size_t)kv_heads + kvh];
+  if constexpr (kQuant<TKV>) {
+    for (int r = threadIdx.x; r < cn; r += kThreads)
+      cp_async4(sc + r,
+                scales + arena_slot(trow, t0 + r, shift) * kv_heads + kvh);
+  }
 }
 
-// Dequantize a loaded int8 row in registers: float(q) * scale in fp32,
-// not rounded to q's dtype (a float row passes through).
-template <typename TKV, int E>
-__device__ __forceinline__ void dequant_row(float (&row)[E], float s) {
+// Eight values of a staged row from column c, as fp32 (an int8 value
+// dequantized as float(q) * scale)
+template <typename TKV>
+__device__ __forceinline__ void row8(const uint8_t* row, int c, float s,
+                                     float (&v)[8]) {
+  ptt::load_floats<TKV, 8>(reinterpret_cast<const TKV*>(row) + c, v);
   if constexpr (kQuant<TKV>) {
 #pragma unroll
-    for (int e = 0; e < E; ++e) row[e] *= s;
+    for (int e = 0; e < 8; ++e) v[e] *= s;
   }
 }
 
-// D = head_dim; E = D / 32 values per lane (one at D = 16, on the first
-// 16 lanes); MAXG >= query heads per kv head. k_scale / v_scale are read
-// only for an int8 arena (TKV = int8_t).
-template <typename TQ, typename TKV, int D, int MAXG>
+struct Geometry {
+  int heads, kv_heads, d, page_size, table_width, chunk, max_chunks;
+};
+
+// ------------------------------------------------------ kernel 1: scores
+template <typename TQ, typename TKV, int HB>
 __global__ void __launch_bounds__(kThreads)
-    paged_attention_kernel(const TQ* __restrict__ q,
-                           const TKV* __restrict__ k_pages,
-                           const float* __restrict__ k_scale,
-                           const TKV* __restrict__ v_pages,
-                           const float* __restrict__ v_scale,
-                           const int* __restrict__ table,
-                           const int* __restrict__ pos, TQ* __restrict__ out,
-                           int heads, int kv_heads, int page_size,
-                           int table_width, float scale) {
-  constexpr int E = D >= 32 ? D / 32 : 1;
-  // slots whose loads a warp issues before using any: about 64 bytes in
-  // flight per lane whatever the dtype and head_dim, from 4 to 32 slots
-  constexpr int kPer = 64 / (E * (int)sizeof(TKV));
-  constexpr int kUnroll = kPer < 4 ? 4 : kPer > 32 ? 32 : kPer;
-  extern __shared__ float smem[];
-  __shared__ float scratch[32];
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int G = heads / kv_heads;
-  const int s_cap = table_width * page_size;
-  const int shift = __ffs(page_size) - 1;  // page_size is a power of two
-  float* q_s = smem;                 // [G, D]
-  float* red = q_s + G * D;          // [kWarps, D] partial value rows
-  float* s_s = red + kWarps * D;     // [G, s_cap] scores, then probs
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int col = lane * E;  // this lane's first head-dim column
-  const bool on = col < D;   // false only past a D = 16 row
+    paged_scores_kernel(const TQ* __restrict__ q,
+                        const TKV* __restrict__ k_pages,
+                        const float* __restrict__ k_scale,
+                        const int* __restrict__ table,
+                        const int* __restrict__ pos,
+                        float* __restrict__ scores,
+                        float2* __restrict__ stats, Geometry geo,
+                        float scale) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int c = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int d = geo.d, chunk = geo.chunk;
+  const int s_virt = geo.table_width * geo.page_size;
+  const int n = min(pos[b] + 1, s_virt);
+  const int t0 = c * chunk;
+  if (t0 >= n) return;
+  const int cn = min(chunk, n - t0);
+  const int G = geo.heads / geo.kv_heads;
+  const int GB = head_block(G);
+  const int ld = row_stride(d, (int)sizeof(TKV));
+  uint8_t* tile = smem;                                  // [chunk, ld]
+  float* sc = reinterpret_cast<float*>(tile + chunk * ld);  // [chunk]
+  float* qs = sc + chunk;                                // [GB, D]
+  float* ss = qs + GB * d;                               // [GB, chunk]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  int n = pos[b] + 1;  // live slots [0, pos]
-  n = n > s_cap ? s_cap : n;
-  const int* trow = table + (size_t)b * table_width;
-  const size_t slot_stride = (size_t)kv_heads * D;  // elements per slot
-  const size_t head_off = (size_t)kvh * D + col;
+  stage_rows<TKV>(tile, sc, k_pages, k_scale,
+                  table + (size_t)b * geo.table_width, t0, cn,
+                  __ffs(geo.page_size) - 1, geo.kv_heads, kvh, d, ld);
+  // [B * H] row of this kv head's first query head
+  const size_t head0 = (size_t)b * geo.heads + (size_t)kvh * G;
 
-  const TQ* qb = q + ((size_t)b * heads + (size_t)kvh * G) * D;
-  for (int i = tid; i < G * D; i += kThreads) q_s[i] = ptt::to_float(qb[i]);
-  __syncthreads();
+  for (int g0 = 0; g0 < G; g0 += GB) {
+    const int gb = min(GB, G - g0);
+    const TQ* qb = q + (head0 + g0) * d;
+    for (int i = tid; i < gb * d; i += kThreads) qs[i] = ptt::to_float(qb[i]);
+    if (g0 == 0) cp_async_wait_all();
+    __syncthreads();
 
-  // phase 1: scores. Loads past the row's end re-read its last slot
-  // (always valid), so every load is issued unconditionally.
-  for (int t0 = warp * kUnroll; t0 < n; t0 += kWarps * kUnroll) {
-    float kv[kUnroll][E];
-    float ks[kUnroll] = {};
+    // a thread: one slot (neighbouring threads, neighbouring slots) and
+    // HB query heads
+    const int hblocks = (gb + HB - 1) / HB;
+    for (int i = tid; i < cn * hblocks; i += kThreads) {
+      const int r = i % cn, g1 = (i / cn) * HB;
+      const uint8_t* row = tile + r * ld;
+      const float s_r = kQuant<TKV> ? sc[r] : 1.0f;
+      float acc[HB];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = min(t0 + u, n - 1);
-      load_row<TKV, E>(k_pages, k_scale, arena_slot(trow, t, shift),
-                       slot_stride, head_off, kvh, kv_heads, on, kv[u],
-                       ks[u]);
-    }
+      for (int j = 0; j < HB; ++j) acc[j] = 0.0f;
+      for (int col = 0; col < d; col += 8) {
+        float kv[8];
+        row8<TKV>(row, col, s_r, kv);
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = t0 + u;
-      if (t >= n) break;  // warp-uniform
-      dequant_row<TKV, E>(kv[u], ks[u]);
+        for (int j = 0; j < HB; ++j) {
+          if (g1 + j < gb) {
+            const float* qr = qs + (g1 + j) * d + col;
 #pragma unroll
-      for (int g = 0; g < MAXG; ++g) {
-        if (g < G) {
-          float acc = 0.0f;
+            for (int e = 0; e < 8; ++e) acc[j] = fmaf(qr[e], kv[e], acc[j]);
+          }
+        }
+      }
 #pragma unroll
-          for (int e = 0; e < E; ++e)
-            acc += on ? q_s[g * D + col + e] * kv[u][e] : 0.0f;
-          acc = ptt::warp_sum(acc);
-          if (lane == 0) s_s[g * s_cap + t] = acc * scale;
+      for (int j = 0; j < HB; ++j) {
+        if (g1 + j < gb) {
+          const float s = acc[j] * scale;
+          ss[(g1 + j) * chunk + r] = s;
+          scores[(head0 + g0 + g1 + j) * s_virt + t0 + r] = s;
         }
       }
     }
-  }
-  __syncthreads();
+    __syncthreads();
 
-  // phase 2: exact softmax per query head, rounded to q's dtype
-  for (int g = 0; g < G; ++g) {
-    float* row = s_s + g * s_cap;
-    float m = -INFINITY;
-    for (int t = tid; t < n; t += kThreads) m = fmaxf(m, row[t]);
-    m = ptt::block_reduce<true>(m, scratch);
-    float sum = 0.0f;
-    for (int t = tid; t < n; t += kThreads) {
-      const float e = expf(row[t] - m);
-      row[t] = e;
-      sum += e;
+    // the chunk's max and sum of exp(s - max), a warp per head
+    for (int g = warp; g < gb; g += kWarps) {
+      const float* row = ss + g * chunk;
+      float m = -INFINITY;
+      for (int r = lane; r < cn; r += 32) m = fmaxf(m, row[r]);
+      m = ptt::warp_max(m);
+      float l = 0.0f;
+      for (int r = lane; r < cn; r += 32) l += expf(row[r] - m);
+      l = ptt::warp_sum(l);
+      if (lane == 0)
+        stats[(head0 + g0 + g) * geo.max_chunks + c] = make_float2(m, l);
     }
-    sum = ptt::block_reduce<false>(sum, scratch);
-    for (int t = tid; t < n; t += kThreads)
-      row[t] = ptt::to_float(ptt::from_float<TQ>(row[t] / sum));
-  }
-  __syncthreads();
-
-  // phase 3: value product, per-warp partial rows in registers
-  float acc[MAXG][E];
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g)
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[g][e] = 0.0f;
-  for (int t0 = warp * kUnroll; t0 < n; t0 += kWarps * kUnroll) {
-    float vv[kUnroll][E];
-    float vs[kUnroll] = {};
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = min(t0 + u, n - 1);
-      load_row<TKV, E>(v_pages, v_scale, arena_slot(trow, t, shift),
-                       slot_stride, head_off, kvh, kv_heads, on, vv[u],
-                       vs[u]);
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = t0 + u;
-      if (t >= n) break;
-      dequant_row<TKV, E>(vv[u], vs[u]);
-#pragma unroll
-      for (int g = 0; g < MAXG; ++g) {
-        if (g < G) {
-          const float p = s_s[g * s_cap + t];
-#pragma unroll
-          for (int e = 0; e < E; ++e) acc[g][e] += p * vv[u][e];
-        }
-      }
-    }
-  }
-  TQ* ob = out + ((size_t)b * heads + (size_t)kvh * G) * D;
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g) {
-    if (g < G) {
-      if (on) {
-#pragma unroll
-        for (int e = 0; e < E; ++e) red[warp * D + col + e] = acc[g][e];
-      }
-      __syncthreads();
-      for (int d = tid; d < D; d += kThreads) {
-        float s = 0.0f;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) s += red[w * D + d];
-        ob[(size_t)g * D + d] = ptt::from_float<TQ>(s);
-      }
-      __syncthreads();
-    }
+    __syncthreads();  // qs and ss are refilled by the next head block
   }
 }
 
-template <typename TQ, typename TKV, int D, int MAXG>
-cudaError_t launch_g(const void* q, const void* k_pages, const void* k_scale,
-                     const void* v_pages, const void* v_scale,
-                     const void* table, const void* pos, void* out,
-                     int batch, int heads, int kv_heads, int page_size,
-                     int table_width, float scale, cudaStream_t stream) {
-  const int G = heads / kv_heads;
-  const size_t smem =
-      sizeof(float) * ((size_t)G * D + (size_t)kWarps * D +
-                       (size_t)G * table_width * page_size);
-  auto kernel = paged_attention_kernel<TQ, TKV, D, MAXG>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+// ------------------------------------------------------ kernel 2: values
+template <typename TQ, typename TKV, int HB>
+__global__ void __launch_bounds__(kThreads)
+    paged_values_kernel(const TKV* __restrict__ v_pages,
+                        const float* __restrict__ v_scale,
+                        const int* __restrict__ table,
+                        const int* __restrict__ pos,
+                        const float* __restrict__ scores,
+                        const float2* __restrict__ stats,
+                        float* __restrict__ partials,
+                        unsigned* __restrict__ counters, TQ* __restrict__ out,
+                        Geometry geo) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int is_last;
+  const int c = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int d = geo.d, chunk = geo.chunk;
+  const int s_virt = geo.table_width * geo.page_size;
+  const int n = min(pos[b] + 1, s_virt);
+  const int t0 = c * chunk;
+  if (t0 >= n) return;
+  const int cn = min(chunk, n - t0);
+  const int nch = (n + chunk - 1) / chunk;  // the row's live chunks
+  const int G = geo.heads / geo.kv_heads;
+  const int GB = head_block(G);
+  const int ld = row_stride(d, (int)sizeof(TKV));
+  uint8_t* tile = smem;                                  // [chunk, ld]
+  float* sc = reinterpret_cast<float*>(tile + chunk * ld);  // [chunk]
+  float* ml = sc + chunk;                                // [GB, 2]
+  float* pr = ml + 2 * GB;                               // [GB, chunk]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  stage_rows<TKV>(tile, sc, v_pages, v_scale,
+                  table + (size_t)b * geo.table_width, t0, cn,
+                  __ffs(geo.page_size) - 1, geo.kv_heads, kvh, d, ld);
+  const size_t head0 = (size_t)b * geo.heads + (size_t)kvh * G;
+
+  // the value product's work split: a thread owns 8 columns of HB heads
+  // over every SG-th slot; SG lanes (a power of two, aligned in a warp)
+  // share their (columns, heads) and are summed by a butterfly
+  const int cgs = d / 8;
+  for (int g0 = 0; g0 < G; g0 += GB) {
+    const int gb = min(GB, G - g0);
+    // the chunk's scores, in flight beside the statistics' loads
+    for (int i = tid; i < gb * cn; i += kThreads) {
+      const int g = i / cn, r = i - g * cn;
+      pr[g * chunk + r] = scores[(head0 + g0 + g) * s_virt + t0 + r];
+    }
+    // the row's max and sum from its chunks' statistics, a warp per head:
+    // lane k takes chunks k, k + 32, ... in order, then a butterfly (a
+    // fixed order, the same in every CTA of the row)
+    for (int g = warp; g < gb; g += kWarps) {
+      const float2* st = stats + (head0 + g0 + g) * geo.max_chunks;
+      float m = -INFINITY;
+      for (int k = lane; k < nch; k += 32) m = fmaxf(m, st[k].x);
+      m = ptt::warp_max(m);
+      float l = 0.0f;
+      for (int k = lane; k < nch; k += 32) l += st[k].y * expf(st[k].x - m);
+      l = ptt::warp_sum(l);
+      if (lane == 0) {
+        ml[2 * g] = m;
+        ml[2 * g + 1] = l;
+      }
+    }
+    __syncthreads();
+    // normalised probabilities, rounded to q's dtype (each thread
+    // rewrites the scores it loaded)
+    for (int i = tid; i < gb * cn; i += kThreads) {
+      const int g = i / cn, r = i - g * cn;
+      const float p = expf(pr[g * chunk + r] - ml[2 * g]) / ml[2 * g + 1];
+      pr[g * chunk + r] = ptt::to_float(ptt::from_float<TQ>(p));
+    }
+    if (g0 == 0) cp_async_wait_all();
+    __syncthreads();
+
+    const int hblocks = (gb + HB - 1) / HB;
+    const int base = cgs * hblocks;
+    int sg_n = 32;
+    while (sg_n > 1 && base * sg_n > kThreads) sg_n >>= 1;
+    const bool on = tid < base * sg_n;
+    const int sg = tid & (sg_n - 1), item = tid / sg_n;
+    const int col = (item % cgs) * 8, g1 = (item / cgs) * HB;
+    float acc[HB][8];
+#pragma unroll
+    for (int j = 0; j < HB; ++j)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[j][e] = 0.0f;
+    if (on) {
+      for (int r = sg; r < cn; r += sg_n) {
+        float vv[8];
+        row8<TKV>(tile + r * ld, col, kQuant<TKV> ? sc[r] : 1.0f, vv);
+#pragma unroll
+        for (int j = 0; j < HB; ++j) {
+          if (g1 + j < gb) {
+            const float p = pr[(g1 + j) * chunk + r];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) acc[j][e] = fmaf(p, vv[e], acc[j][e]);
+          }
+        }
+      }
+    }
+    // every lane of the warp takes part (a group is wholly on or off)
+    for (int o = sg_n / 2; o > 0; o >>= 1)
+#pragma unroll
+      for (int j = 0; j < HB; ++j)
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          acc[j][e] += __shfl_xor_sync(0xffffffffu, acc[j][e], o);
+    if (on && sg == 0) {
+#pragma unroll
+      for (int j = 0; j < HB; ++j) {
+        if (g1 + j < gb) {
+          const size_t h = head0 + g0 + g1 + j;
+          if (nch == 1)
+            ptt::store_floats<TQ, 8>(out + h * d + col, acc[j]);
+          else
+            ptt::store_floats<float, 8>(
+                partials + (h * geo.max_chunks + c) * d + col, acc[j]);
+        }
+      }
+    }
+    __syncthreads();  // ml and pr are refilled by the next head block
   }
-  dim3 grid(kv_heads, batch);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  if (nch == 1) return;
+
+  // the last CTA of (row, kv head) to arrive sums the partials in chunk
+  // order (the classic fence-and-count pattern), and resets the counter
+  __threadfence();
+  __syncthreads();
+  unsigned* counter = counters + (size_t)b * geo.kv_heads + kvh;
+  if (tid == 0) is_last = atomicAdd(counter, 1u) == (unsigned)(nch - 1);
+  __syncthreads();
+  if (!is_last) return;
+  if (tid == 0) *counter = 0u;
+  __threadfence();
+  const int d4 = d / 4;  // four columns a thread, in 16-byte loads
+  for (int i = tid; i < G * d4; i += kThreads) {
+    const int g = i / d4, c4 = i - g * d4;
+    const float4* pp = reinterpret_cast<const float4*>(
+                           partials + (head0 + g) * geo.max_chunks * d) +
+                       c4;
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 8
+    for (int k = 0; k < nch; ++k) {
+      const float4 v = __ldcg(pp + (size_t)k * d4);
+      s[0] += v.x;
+      s[1] += v.y;
+      s[2] += v.z;
+      s[3] += v.w;
+    }
+    ptt::store_floats<TQ, 4>(out + (head0 + g) * d + 4 * c4, s);
+  }
+}
+
+struct Scratch {
+  float* scores;     // [B, H, P * page_size]
+  float2* stats;     // [B, H, max_chunks]
+  float* partials;   // [B, H, max_chunks, D]
+  unsigned* counters;  // [B, kvH], zero between calls
+};
+
+template <typename K>
+cudaError_t allow_smem(K* kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <typename TQ, typename TKV, int HB>
+cudaError_t launch_hb(const void* q, const void* k_pages, const void* k_scale,
+                      const void* v_pages, const void* v_scale,
+                      const void* table, const void* pos, void* out,
+                      const Scratch& ws, int batch, const Geometry& geo,
+                      float scale, cudaStream_t stream) {
+  const int G = geo.heads / geo.kv_heads;
+  const int es = (int)sizeof(TKV);
+  const int smem1 = scores_smem(geo.chunk, geo.d, es, G);
+  const int smem2 = values_smem(geo.chunk, geo.d, es, G);
+  auto k1 = paged_scores_kernel<TQ, TKV, HB>;
+  auto k2 = paged_values_kernel<TQ, TKV, HB>;
+  cudaError_t err;
+  if ((err = allow_smem(k1, smem1)) || (err = allow_smem(k2, smem2)))
+    return err;
+  const dim3 grid(geo.max_chunks, geo.kv_heads, batch);
+  k1<<<grid, kThreads, smem1, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k_pages),
-      static_cast<const float*>(k_scale), static_cast<const TKV*>(v_pages),
-      static_cast<const float*>(v_scale), static_cast<const int*>(table),
-      static_cast<const int*>(pos), static_cast<TQ*>(out), heads, kv_heads,
-      page_size, table_width, scale);
+      static_cast<const float*>(k_scale), static_cast<const int*>(table),
+      static_cast<const int*>(pos), ws.scores, ws.stats, geo, scale);
+  if ((err = cudaGetLastError())) return err;
+  k2<<<grid, kThreads, smem2, stream>>>(
+      static_cast<const TKV*>(v_pages), static_cast<const float*>(v_scale),
+      static_cast<const int*>(table), static_cast<const int*>(pos),
+      ws.scores, ws.stats, ws.partials, ws.counters, static_cast<TQ*>(out),
+      geo);
   return cudaGetLastError();
-}
-
-template <typename TQ, typename TKV, int D>
-cudaError_t launch_d(const void* q, const void* k_pages, const void* k_scale,
-                     const void* v_pages, const void* v_scale,
-                     const void* table, const void* pos, void* out,
-                     int batch, int heads, int kv_heads, int page_size,
-                     int table_width, float scale, cudaStream_t stream) {
-  const int G = heads / kv_heads;
-#define PTT_LAUNCH_G(MG)                                                    \
-  return launch_g<TQ, TKV, D, MG>(q, k_pages, k_scale, v_pages, v_scale,    \
-                                  table, pos, out, batch, heads, kv_heads,  \
-                                  page_size, table_width, scale, stream)
-  // one instantiation for MHA and one guarded one for every GQA group
-  // up to 8 (idle register slots cost less than the build of each size)
-  if (G == 1) PTT_LAUNCH_G(1);
-  if (G <= 8) PTT_LAUNCH_G(8);
-#undef PTT_LAUNCH_G
-  return cudaErrorInvalidValue;
 }
 
 template <typename TQ, typename TKV>
 cudaError_t launch(const void* q, const void* k_pages, const void* k_scale,
                    const void* v_pages, const void* v_scale,
-                   const void* table, const void* pos, void* out, int batch,
-                   int heads, int kv_heads, int head_dim, int page_size,
-                   int table_width, float scale, cudaStream_t stream) {
-#define PTT_LAUNCH_D(D)                                                     \
-  return launch_d<TQ, TKV, D>(q, k_pages, k_scale, v_pages, v_scale, table, \
-                              pos, out, batch, heads, kv_heads, page_size,  \
-                              table_width, scale, stream)
-  if (head_dim == 16) PTT_LAUNCH_D(16);
-  if (head_dim == 32) PTT_LAUNCH_D(32);
-  if (head_dim == 64) PTT_LAUNCH_D(64);
-  if (head_dim == 128) PTT_LAUNCH_D(128);
-  if (head_dim == 256) PTT_LAUNCH_D(256);
-#undef PTT_LAUNCH_D
-  return cudaErrorInvalidValue;
+                   const void* table, const void* pos, void* out,
+                   const Scratch& ws, int batch, const Geometry& geo,
+                   float scale, cudaStream_t stream) {
+  if (geo.d % 16 || geo.d < 16 || geo.d > 256 || geo.chunk < 1 ||
+      geo.heads % geo.kv_heads)
+    return cudaErrorInvalidValue;
+  // MHA keeps one head per thread; a group runs 4 heads per thread
+  if (geo.heads == geo.kv_heads)
+    return launch_hb<TQ, TKV, 1>(q, k_pages, k_scale, v_pages, v_scale,
+                                 table, pos, out, ws, batch, geo, scale,
+                                 stream);
+  return launch_hb<TQ, TKV, 4>(q, k_pages, k_scale, v_pages, v_scale, table,
+                               pos, out, ws, batch, geo, scale, stream);
 }
 
 }  // namespace
 
 // q/out: [batch, 1, heads, head_dim] (q_dtype); k_pages/v_pages:
 // [N, page_size, kv_heads, head_dim] (kv_dtype); table: int32 [batch,
-// table_width]; pos: int32 [batch]. All contiguous and 16-byte aligned;
-// head_dim in {16, 32, 64, 128, 256}; heads a multiple of kv_heads with at most
-// 8 query heads per kv head; q_dtype equal to kv_dtype, or fp32 q over a
-// bf16 arena (the Python wrapper checks).
+// table_width]; pos: int32 [batch]; scores: fp32 [batch, heads,
+// table_width * page_size]; stats: fp32 [batch, heads, max_chunks, 2];
+// partials: fp32 [batch, heads, max_chunks, head_dim]; counters: uint32
+// [batch, kv_heads], zero (the kernels leave them zero). All contiguous
+// and 16-byte aligned; head_dim a multiple of 16 up to 256; heads a
+// multiple of kv_heads; page_size a power of two; max_chunks * chunk >=
+// table_width * page_size; q_dtype equal to kv_dtype, or fp32 q over a
+// bf16 arena (the Python wrapper checks all of this).
 extern "C" int ptt_paged_attention_fwd(
     const void* q, const void* k_pages, const void* v_pages,
-    const void* table, const void* pos, void* out, int batch, int heads,
-    int kv_heads, int head_dim, int page_size, int table_width, int q_dtype,
-    int kv_dtype, float scale, void* stream) {
+    const void* table, const void* pos, void* out, void* scores, void* stats,
+    void* partials, void* counters, int batch, int heads, int kv_heads,
+    int head_dim, int page_size, int table_width, int chunk, int max_chunks,
+    int q_dtype, int kv_dtype, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch == 0) return cudaSuccess;
-#define PTT_DISPATCH(TQ, TKV)                                                \
-  return launch<TQ, TKV>(q, k_pages, nullptr, v_pages, nullptr, table, pos,  \
-                         out, batch, heads, kv_heads, head_dim, page_size,   \
-                         table_width, scale, s)
+  const Geometry geo{heads, kv_heads, head_dim, page_size, table_width,
+                     chunk, max_chunks};
+  const Scratch ws{static_cast<float*>(scores), static_cast<float2*>(stats),
+                   static_cast<float*>(partials),
+                   static_cast<unsigned*>(counters)};
+#define PTT_DISPATCH(TQ, TKV)                                               \
+  return launch<TQ, TKV>(q, k_pages, nullptr, v_pages, nullptr, table, pos, \
+                         out, ws, batch, geo, scale, s)
   if (q_dtype == ptt::kBF16 && kv_dtype == ptt::kBF16)
     PTT_DISPATCH(__nv_bfloat16, __nv_bfloat16);
   if (q_dtype == ptt::kF32 && kv_dtype == ptt::kF32) PTT_DISPATCH(float, float);
@@ -339,14 +519,19 @@ extern "C" int ptt_paged_attention_fwd(
 extern "C" int ptt_paged_attention_int8_fwd(
     const void* q, const void* k_q, const void* k_scale, const void* v_q,
     const void* v_scale, const void* table, const void* pos, void* out,
-    int batch, int heads, int kv_heads, int head_dim, int page_size,
-    int table_width, int q_dtype, float scale, void* stream) {
+    void* scores, void* stats, void* partials, void* counters, int batch,
+    int heads, int kv_heads, int head_dim, int page_size, int table_width,
+    int chunk, int max_chunks, int q_dtype, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch == 0) return cudaSuccess;
-#define PTT_DISPATCH(TQ)                                                      \
-  return launch<TQ, int8_t>(q, k_q, k_scale, v_q, v_scale, table, pos, out,  \
-                            batch, heads, kv_heads, head_dim, page_size,     \
-                            table_width, scale, s)
+  const Geometry geo{heads, kv_heads, head_dim, page_size, table_width,
+                     chunk, max_chunks};
+  const Scratch ws{static_cast<float*>(scores), static_cast<float2*>(stats),
+                   static_cast<float*>(partials),
+                   static_cast<unsigned*>(counters)};
+#define PTT_DISPATCH(TQ)                                                     \
+  return launch<TQ, int8_t>(q, k_q, k_scale, v_q, v_scale, table, pos, out, \
+                            ws, batch, geo, scale, s)
   if (q_dtype == ptt::kBF16) PTT_DISPATCH(__nv_bfloat16);
   if (q_dtype == ptt::kF32) PTT_DISPATCH(float);
 #undef PTT_DISPATCH

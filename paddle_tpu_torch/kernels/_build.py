@@ -55,13 +55,14 @@ SIGNATURES = {
     # the same with the gradients of q and k in and out
     "ptt_rope_bwd": [_P, _P, _I, _P, _P, _I, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _P],
-    # q, k_pages, v_pages, table, pos, out, batch, heads, kv_heads,
-    # head_dim, page_size, table_width, q_dtype, kv_dtype, scale, stream
-    "ptt_paged_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                _I, _I, _I, _I, _F, _P],
-    # q, k_q, k_scale, v_q, v_scale, table, pos, out, batch, heads,
-    # kv_heads, head_dim, page_size, table_width, q_dtype, scale, stream
-    "ptt_paged_attention_int8_fwd": [_P] * 8 + [_I] * 7 + [_F, _P],
+    # q, k_pages, v_pages, table, pos, out, scores, stats, partials,
+    # counters, batch, heads, kv_heads, head_dim, page_size, table_width,
+    # chunk, max_chunks, q_dtype, kv_dtype, scale, stream
+    "ptt_paged_attention_fwd": [_P] * 10 + [_I] * 10 + [_F, _P],
+    # q, k_q, k_scale, v_q, v_scale, table, pos, out, scores, stats,
+    # partials, counters, batch, heads, kv_heads, head_dim, page_size,
+    # table_width, chunk, max_chunks, q_dtype, scale, stream
+    "ptt_paged_attention_int8_fwd": [_P] * 12 + [_I] * 9 + [_F, _P],
     # x (fp32), w_q, scale, out, partial (or null), rows, K, N, kchunk,
     # stream
     "ptt_int8_matmul": [_P] * 5 + [_I] * 4 + [_P],

@@ -10,14 +10,16 @@ that.
 
 Two designs, chosen by dtype and head dim (:func:`design`): bf16 tensors
 run the tensor-core kernels (wgmma products with fp32 accumulators, TMA
-tile loads) at D 64, 128 and 256 forward and D 64 and 128 backward;
-everything else runs the CUDA-core kernels (fp32 FMAs): fp32, because the
-tensor cores take fp32 only as TF32, about three decimal digits, and the
-fp32 models are held to 1e-5 against the CPU; bf16 at D 16 and 32 (below
-the tensor-core tiles' 64-column unit) and the bf16 D 256 backward (its
-accumulators do not fit a consumer's registers). Each design counts its
-own launches beside the totals. Head dims outside :data:`HEAD_DIMS` are
-refused (ROADMAP.md queue C lists them).
+tile loads) at D 64 to 256 forward and D 64 to 128 backward; everything
+else runs the CUDA-core kernels (fp32 FMAs): fp32, because the tensor
+cores take fp32 only as TF32, about three decimal digits, and the fp32
+models are held to 1e-5 against the CPU; bf16 below D 64 (below the
+tensor-core tiles' 64-column unit) and the bf16 backward above D 128
+(its accumulators do not fit a consumer's registers). Each design counts
+its own launches beside the totals. Every head dim that is a multiple of
+16 up to 256 runs: a kernel is built at the next of 16, 32, 64, 128 and
+256 and masks the columns past D (D 80 runs the 128-wide kernels); any
+other head dim is refused (ROADMAP.md queue C).
 
 Shape contract (the paddle layout, as in the TPU module): q ``[B, Sq, H,
 D]``, k and v ``[B, Sk, H, D]`` with equal head counts, read through
@@ -60,24 +62,38 @@ DESIGN_COUNTERS = ("tc_launches", "tc_bwd_launches", "cc_launches",
                    "cc_bwd_launches")
 DESIGNS = {"tc": "wgmma", "cc": "cuda-core"}
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
-# bf16 head dims the tensor-core kernels take, forward and backward
-TC_HEAD_DIMS = {False: (64, 128, 256), True: (64, 128)}
+# head dims the kernels take: multiples of HEAD_DIM_STEP up to
+# MAX_HEAD_DIM; the tensor-core kernels take bf16 from TC_MIN_HEAD_DIM up
+# to TC_MAX_HEAD_DIM (forward, backward)
+HEAD_DIM_STEP, MAX_HEAD_DIM = 16, 256
+TC_MIN_HEAD_DIM = 64
+TC_MAX_HEAD_DIM = {False: 256, True: 128}
+
+
+def served(head_dim):
+    """Whether the kernels take ``head_dim`` (a multiple of 16 up to
+    256)."""
+    return head_dim % HEAD_DIM_STEP == 0 \
+        and HEAD_DIM_STEP <= head_dim <= MAX_HEAD_DIM
 
 
 def design(dtype, head_dim, backward=False):
     """``"tc"`` (tensor cores) or ``"cc"`` (CUDA cores): the design the C
     entry points run for this dtype and head dim."""
-    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS[backward]:
+    if dtype == torch.bfloat16 and served(head_dim) \
+            and TC_MIN_HEAD_DIM <= head_dim <= TC_MAX_HEAD_DIM[backward]:
         return "tc"
     return "cc"
 
 
-def _check_head_dim(d):
-    if d not in HEAD_DIMS:
+def check_head_dim(d, what="flash attention kernel"):
+    """Raise for a head dim the attention kernels (flash, rope-on-load,
+    paged) do not take, naming the queue that lists it."""
+    if not served(d):
         raise ValueError(
-            f"flash attention kernel takes head_dim in {HEAD_DIMS}, got {d} "
-            f"(other head dims are refused: ROADMAP.md queue C)")
+            f"{what} takes a head_dim that is a multiple of "
+            f"{HEAD_DIM_STEP} up to {MAX_HEAD_DIM}, got {d} (other head "
+            f"dims are refused: ROADMAP.md queue C)")
 
 
 def _scale_of(q, scale):
@@ -291,7 +307,7 @@ def flash_attention_cuda(q, k, v, causal=False, scale=None):
     :func:`design` says which kernel runs."""
     b, sq, sk, h, d = _check_shapes(q, k, v, causal)
     dev = _check_cuda((("q", q), ("k", k), ("v", v)), q.dtype)
-    _check_head_dim(d)
+    check_head_dim(d)
     vec = 16 // q.element_size()
     st = [_strides(t, n, vec) for n, t in (("q", q), ("k", k), ("v", v))]
     lib = _build.load()
@@ -322,7 +338,7 @@ def flash_attention_backward_cuda(q, k, v, o, lse, do, causal=False,
         do = do.contiguous()
     dev = _check_cuda((("q", q), ("k", k), ("v", v), ("o", o),
                        ("dout", do)), q.dtype)
-    _check_head_dim(d)
+    check_head_dim(d)
     if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
         raise ValueError("flash attention backward: o and dout must have "
                          "q's shape")

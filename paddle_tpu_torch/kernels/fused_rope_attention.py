@@ -40,10 +40,9 @@ import math
 import torch
 
 from . import _build
+from .flash_attention import check_head_dim
 
 launches = 0
-
-HEAD_DIMS = (16, 32, 64, 128, 256)  # others: ROADMAP.md queue C
 
 
 def _table_2d(t):
@@ -184,10 +183,7 @@ def rope_attention_cuda(q, k, v, cos, sin, causal=True, scale=None):
     if cos2.dtype != torch.float32 or sin2.dtype != torch.float32:
         raise TypeError(f"rope attention kernel takes float32 tables, got "
                         f"{cos2.dtype} and {sin2.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"rope attention kernel takes head_dim in "
-                         f"{HEAD_DIMS}, got {d} (other head dims are "
-                         f"refused: ROADMAP.md queue C)")
+    check_head_dim(d, "rope attention kernel")
     tab = int(cos2.stride(0))
     if cos2.stride(1) != 1 or sin2.stride(1) != 1 \
             or int(sin2.stride(0)) != tab or tab % 4 \

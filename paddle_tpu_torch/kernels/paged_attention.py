@@ -20,7 +20,12 @@ scale`` in fp32, not rounded to q's dtype (``paged_attention.py:262``).
 In the port these kernels ARE the paged decode attention on the card;
 the JAX package only selects its TPU kernel through the tune cache
 (``paged_attention_select``), which is not ported. ``launches`` counts
-the float flavour, ``int8_launches`` the int8 one.
+the float flavour's calls, ``int8_launches`` the int8 one's; a call
+launches two kernels (scores, then values), split over chunks of each
+row's live slots (:func:`chunk_slots`). The card takes any head dim
+that is a multiple of 16 up to 256, any number of query heads per kv
+head and any row length; the wrapper allocates the kernels' fp32
+scratch from the table's shape.
 """
 from __future__ import annotations
 
@@ -30,17 +35,36 @@ import torch
 
 from ..quantization.kv import is_quantized
 from . import _build
+from .flash_attention import check_head_dim
 
 launches = 0
 int8_launches = 0
 
-MAX_GROUP = 8             # query heads per kv head the kernel takes
-HEAD_DIMS = (16, 32, 64, 128, 256)  # others: ROADMAP.md queue C
-WARPS = 8                 # warps per CTA (kWarps in the source)
-SMEM_LIMIT = 232448 - 256  # dynamic shared memory a CTA may use, bytes
 # (q dtype, arena dtype) pairs the kernel is built for
 KV_DTYPES = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
              (torch.float32, torch.bfloat16))
+CHUNK_BYTES = 32 * 1024   # K or V rows of one chunk staged in shared memory
+MAX_CHUNK = 256           # slots of a chunk, at most
+CHUNK_WORK = 2048         # slots x query heads of one chunk, at most
+
+_COUNTERS = {}            # device -> the kernels' arrival counters (zero)
+
+
+def chunk_slots(page_size, head_dim, kv_itemsize, group):
+    """Slots of a chunk: one CTA's share of a row. As many as fill about
+    ``CHUNK_BYTES`` of K or V rows (at most ``MAX_CHUNK``), and at most
+    ``CHUNK_WORK / group`` so that a CTA's products stay near the same
+    whatever the number of query heads per kv head; a whole number of
+    pages, or (a page larger than that) a power of two that divides the
+    page. (On the H100, fewer and larger chunks beat more CTAs: every
+    chunk costs a CTA's fixed latency and a partial row to sum;
+    ``chip_smoke.py`` sweeps the chunk size.)"""
+    cap = min(MAX_CHUNK, CHUNK_BYTES // (head_dim * kv_itemsize),
+              CHUNK_WORK // group)
+    c = max(cap, min(page_size, 16), 1)
+    if c >= page_size:
+        return c - c % page_size
+    return 1 << (c.bit_length() - 1)
 
 
 def gather_pages(pages, page_table):
@@ -138,34 +162,42 @@ def _check_common(q, arenas, page_table, pos):
     if ps < 1 or ps & (ps - 1):
         raise ValueError(f"paged attention kernel needs a power-of-two "
                          f"page_size, got {ps}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"paged attention kernel takes head_dim in "
-                         f"{HEAD_DIMS}, got {d} (other head dims are "
-                         f"refused: ROADMAP.md queue C)")
+    check_head_dim(d, "paged attention kernel")
     if any(t.data_ptr() % 16 for t in (q, *(a for _, a in arenas))):
         raise ValueError("paged attention kernel needs 16-byte aligned "
                          "q, arenas and scales")
-    if h % kvh or h // kvh > MAX_GROUP:
-        raise ValueError(
-            f"paged attention kernel needs H a multiple of kvH with at most "
-            f"{MAX_GROUP} query heads per kv head, got H={h}, kvH={kvh}"
-        )
+    if h % kvh:
+        raise ValueError(f"paged attention kernel needs H a multiple of "
+                         f"kvH, got H={h}, kvH={kvh}")
     if page_table.dim() != 2 or page_table.shape[0] != b \
             or tuple(pos.shape) != (b,):
         raise ValueError(
             f"paged attention: page_table [{b}, P] and pos [{b}], got "
             f"{tuple(page_table.shape)} and {tuple(pos.shape)}"
         )
-    width = int(page_table.shape[1])
-    g = h // kvh
-    smem = 4 * (g * d + WARPS * d + g * width * ps)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"paged attention kernel keeps the score row in shared memory: "
-            f"{g} heads x {width * ps} slots needs {smem} bytes, more than "
-            f"{SMEM_LIMIT}"
-        )
-    return b, h, d, ps, kvh, width
+    return b, h, d, ps, kvh, int(page_table.shape[1])
+
+
+def _workspace(q, kv_itemsize, b, h, d, ps, kvh, width):
+    """The kernels' scratch for one call: ``(chunk, max_chunks, scores,
+    stats, partials, counters)``. Scores fp32 ``[B, H, P * ps]``, chunk
+    statistics fp32 ``[B, H, max_chunks, 2]``, partial value rows fp32
+    ``[B, H, max_chunks, D]`` (one allocation, 16-byte aligned parts),
+    and the per-device arrival counters ``[B, kvH]``, which the kernels
+    leave at zero."""
+    dev = q.device
+    chunk = chunk_slots(ps, d, kv_itemsize, h // kvh)
+    s_virt = width * ps
+    max_chunks = -(-s_virt // chunk)
+    sizes = [b * h * s_virt, b * h * max_chunks * 2, b * h * max_chunks * d]
+    sizes = [-(-n // 4) * 4 for n in sizes]
+    ws = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    parts = torch.split(ws, sizes)
+    counters = _COUNTERS.get(dev)
+    if counters is None or counters.numel() < b * kvh:
+        counters = torch.zeros(b * kvh, dtype=torch.int32, device=dev)
+        _COUNTERS[dev] = counters
+    return (chunk, max_chunks, *parts, counters)
 
 
 def paged_attention_cuda(q, k_pages, v_pages, page_table, pos, scale=None):
@@ -185,12 +217,15 @@ def paged_attention_cuda(q, k_pages, v_pages, page_table, pos, scale=None):
         scale = 1.0 / math.sqrt(d)
     lib = _build.load()
     out = torch.empty_like(q)
+    chunk, max_chunks, *ws = _workspace(q, k_pages.element_size(), b, h, d,
+                                        ps, kvh, width)
     with torch.cuda.device(q.device):
         err = lib.ptt_paged_attention_fwd(
             _build.ptr(q), _build.ptr(k_pages), _build.ptr(v_pages),
             _build.ptr(page_table), _build.ptr(pos), _build.ptr(out),
-            b, h, kvh, d, ps, width, codes[q.dtype], codes[k_pages.dtype],
-            float(scale), _build.stream_of(q),
+            *(_build.ptr(t) for t in ws), b, h, kvh, d, ps, width, chunk,
+            max_chunks, codes[q.dtype], codes[k_pages.dtype], float(scale),
+            _build.stream_of(q),
         )
     _build.check(err, "ptt_paged_attention_fwd")
     launches += 1
@@ -225,13 +260,15 @@ def paged_attention_int8_cuda(q, k_pages, v_pages, page_table, pos,
         scale = 1.0 / math.sqrt(d)
     lib = _build.load()
     out = torch.empty_like(q)
+    chunk, max_chunks, *ws = _workspace(q, 1, b, h, d, ps, kvh, width)
     with torch.cuda.device(q.device):
         err = lib.ptt_paged_attention_int8_fwd(
             _build.ptr(q), _build.ptr(k_pages.q), _build.ptr(k_pages.scale),
             _build.ptr(v_pages.q), _build.ptr(v_pages.scale),
             _build.ptr(page_table), _build.ptr(pos), _build.ptr(out),
-            b, h, kvh, d, ps, width, _build.DTYPE_CODES[q.dtype],
-            float(scale), _build.stream_of(q),
+            *(_build.ptr(t) for t in ws), b, h, kvh, d, ps, width, chunk,
+            max_chunks, _build.DTYPE_CODES[q.dtype], float(scale),
+            _build.stream_of(q),
         )
     _build.check(err, "ptt_paged_attention_int8_fwd")
     int8_launches += 1

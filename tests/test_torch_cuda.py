@@ -124,13 +124,83 @@ def _arena(dev, dtype, kvh, d, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("kvh", [8, 2, 1])
-@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256, 80, 96])
 def test_paged_attention_kernel(dev, dtype, kvh, d):
     args = _arena(dev, DTYPES[dtype], kvh, d, seed=kvh * 1000 + d)
     got = tpa.paged_attention(*args)
     want = tpa.paged_attention_reference(*args)
     assert got.dtype == args[0].dtype and torch.isfinite(got).all()
     assert _err(got, want) <= PAGED[dtype]
+    # the chunks' partials are summed in chunk order: bit-equal repeats
+    assert torch.equal(tpa.paged_attention(*args), got)
+
+
+def _long_arena(dev, dtype, h, kvh, d, slots, seed, ps=16):
+    """One row of ``slots`` live slots (pos = slots - 1) and one short
+    row, pages shuffled over the arena, the garbage page at 1e4."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    width = slots // ps
+    n = 2 * width + 1
+    kp = torch.randn(n, ps, kvh, d, generator=g, device=dev).to(dtype)
+    vp = torch.randn(n, ps, kvh, d, generator=g, device=dev).to(dtype)
+    kp[0] = 1e4
+    vp[0] = 1e4
+    tbl = (torch.randperm(n - 1, generator=g, device=dev) + 1)
+    tbl = tbl.reshape(2, width).to(torch.int32)
+    pos = torch.tensor([slots - 1, 40], dtype=torch.int32, device=dev)
+    tbl[1, 40 // ps + 1:] = 0
+    q = torch.randn(2, 1, h, d, generator=g, device=dev).to(dtype)
+    return q, kp, vp, tbl.contiguous(), pos
+
+
+# query heads, kv heads, head_dim, live slots of the long row: MQA with 16
+# and 32 query heads per kv head, Llama-2-70B's group of 8 and Llama-3-8B's
+# group of 4 at 8192 slots (past the earlier design's shared-memory cap
+# of about 7,000 slots at group 8), head dim 80 at 4096 slots
+PAGED_LONG_CASES = {
+    "mqa_g16": (16, 1, 128, 2048),
+    "mqa_g32": (32, 1, 128, 2048),
+    "g8_8192": (64, 8, 128, 8192),
+    "g4_8192": (32, 8, 128, 8192),
+    "d80_g4_4096": (16, 4, 80, 4096),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arena", ["bfloat16", "float32", "int8"])
+@pytest.mark.parametrize("case", list(PAGED_LONG_CASES))
+def test_paged_attention_groups_and_long_rows(dev, arena, case):
+    """Any group size and any row length: within the paged tolerance of
+    the plain version, one count a call, bit-equal on repeat."""
+    from paddle_tpu_torch.quantization.kv import QuantizedKV, quantize_kv
+
+    h, kvh, d, slots = PAGED_LONG_CASES[case]
+    dt = torch.float32 if arena == "int8" else DTYPES[arena]
+    q, kp, vp, tbl, pos = _long_arena(dev, dt, h, kvh, d, slots,
+                                      seed=h + kvh + d + slots)
+    if arena == "int8":
+        kp, vp = QuantizedKV(*quantize_kv(kp)), QuantizedKV(*quantize_kv(vp))
+        q = q.bfloat16()
+    before = (tpa.launches, tpa.int8_launches)
+    got = tpa.paged_attention(q, kp, vp, tbl, pos)
+    after = (tpa.launches, tpa.int8_launches)
+    assert after == ((before[0], before[1] + 1) if arena == "int8"
+                     else (before[0] + 1, before[1]))
+    want = tpa.paged_attention_reference(q, kp, vp, tbl, pos)
+    assert got.dtype == q.dtype and torch.isfinite(got).all()
+    tol = PAGED["float32" if q.dtype == torch.float32 else "bfloat16"]
+    assert _err(got, want) <= tol
+    assert torch.equal(tpa.paged_attention(q, kp, vp, tbl, pos), got)
+
+
+@pytest.mark.cuda
+def test_paged_attention_refuses_head_dims(dev):
+    """A head dim that is not a multiple of 16, or above 256, is refused
+    naming the queue that lists it."""
+    for d in (72, 272):
+        q, kp, vp, tbl, pos = _arena(dev, torch.bfloat16, 2, d, seed=d)
+        with pytest.raises(ValueError, match="head_dim.*ROADMAP.md queue C"):
+            tpa.paged_attention(q, kp, vp, tbl, pos)
 
 
 @pytest.mark.cuda
@@ -148,7 +218,7 @@ def test_paged_attention_kernel_mixed_dtypes(dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("kvh", [8, 2])
-@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256, 80, 96])
 def test_int8_paged_attention_kernel(dev, dtype, kvh, d):
     from paddle_tpu_torch.quantization.kv import QuantizedKV, quantize_kv
 
@@ -162,6 +232,7 @@ def test_int8_paged_attention_kernel(dev, dtype, kvh, d):
     want = tpa.paged_attention_reference(q, kq, vq, tbl, pos)
     assert got.dtype == q.dtype and torch.isfinite(got).all()
     assert _err(got, want) <= PAGED[dtype]
+    assert torch.equal(tpa.paged_attention(q, kq, vq, tbl, pos), got)
 
 
 @pytest.mark.cuda
@@ -348,6 +419,17 @@ FLASH_CASES = {
     "causal_ragged_1000": (True, 1000, 1000, 128, False),
     "full_sk_gt_sq": (False, 300, 1000, 128, False),
     "causal_d64_sq_lt_sk": (True, 200, 333, 64, False),
+    # head dims on the padded kernels: 80, 96 (128 wide; bf16 on the
+    # tensor cores both ways), 160 and 192 (256 wide; the bf16 forward on
+    # the tensor cores, the backward on the CUDA cores), 48 (64 wide, CUDA
+    # cores)
+    "causal_d80": (True, 130, 130, 80, False),
+    "full_d96": (False, 100, 77, 96, False),
+    "causal_d96_sq_lt_sk": (True, 70, 200, 96, False),
+    "causal_d80_strided": (True, 96, 96, 80, True),
+    "causal_d160": (True, 130, 130, 160, False),
+    "causal_d192": (True, 130, 130, 192, False),
+    "full_d48": (False, 100, 77, 48, False),
 }
 
 
@@ -380,11 +462,11 @@ def test_flash_attention_kernels(dev, dtype, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256, 80, 96, 160, 192])
 def test_flash_attention_dispatches_by_dtype(dev, d):
-    """bf16 runs the tensor-core forward at D 64, 128, 256 and backward at
-    64, 128; everything else (fp32, bf16 D 16 and 32, the bf16 D 256
-    backward) the CUDA-core kernels."""
+    """bf16 runs the tensor-core forward at D 64 to 256 and backward at 64
+    to 128; everything else (fp32, bf16 below 64, the bf16 backward above
+    128) the CUDA-core kernels."""
     from paddle_tpu_torch import kernels
 
     for dt in (torch.bfloat16, torch.float32):
@@ -393,7 +475,7 @@ def test_flash_attention_dispatches_by_dtype(dev, d):
         o, lse = tfa.flash_attention_cuda(q, k, v, True)
         tfa.flash_attention_backward_cuda(q, k, v, o, lse, do, True)
         fwd = "tc" if dt == torch.bfloat16 and d >= 64 else "cc"
-        bwd = "tc" if dt == torch.bfloat16 and d in (64, 128) else "cc"
+        bwd = "tc" if dt == torch.bfloat16 and 64 <= d <= 128 else "cc"
         want = dict.fromkeys(tfa.DESIGN_COUNTERS, 0)
         want[f"{fwd}_launches"] += 1
         want[f"{bwd}_bwd_launches"] += 1
@@ -404,14 +486,22 @@ def test_flash_attention_dispatches_by_dtype(dev, d):
 
 @pytest.mark.cuda
 def test_flash_attention_refuses_what_it_does_not_take(dev):
-    """An unserved head dim (80, as in some public models) is refused,
-    naming the queue that lists it, in both directions."""
+    """Head dim 80 (public models' width, once refused) runs and matches
+    its plain version; a head dim that is not a multiple of 16 (72) or is
+    above 256 (272) is refused, naming the queue that lists it, in both
+    directions."""
     q = torch.randn(1, 8, 2, 80, device=dev)
-    with pytest.raises(ValueError, match="head_dim.*ROADMAP.md queue C"):
-        tfa.flash_attention_cuda(q, q, q)
-    lse = torch.zeros(1, 2, 8, device=dev)
-    with pytest.raises(ValueError, match="head_dim.*ROADMAP.md queue C"):
-        tfa.flash_attention_backward_cuda(q, q, q, q, lse, q)
+    o, lse = tfa.flash_attention_cuda(q, q, q)
+    ro, rlse = tfa.flash_attention_reference(q, q, q)
+    assert _cast_once_ok(o, ro, 1e-5)
+    assert _err(lse, rlse) <= 1e-5 * float(rlse.abs().max())
+    for d in (72, 272):
+        q = torch.randn(1, 8, 2, d, device=dev)
+        with pytest.raises(ValueError, match="head_dim.*ROADMAP.md queue C"):
+            tfa.flash_attention_cuda(q, q, q)
+        lse = torch.zeros(1, 2, 8, device=dev)
+        with pytest.raises(ValueError, match="head_dim.*ROADMAP.md queue C"):
+            tfa.flash_attention_backward_cuda(q, q, q, q, lse, q)
     q = torch.randn(1, 8, 2, 64, device=dev)
     with pytest.raises(TypeError, match="one dtype"):
         tfa.flash_attention_cuda(q, q.bfloat16(), q)
@@ -542,6 +632,9 @@ ROPE_ATTENTION_CASES = {
     "causal_d16": (True, 130, 16, 1e-5, False),
     "full_d32": (False, 100, 32, 1e-5, False),
     "causal_d256": (True, 130, 256, 1e-5, False),
+    # padded to the 128-wide kernel: column c pairs with c + d/2
+    "causal_d80": (True, 130, 80, 1e-5, False),
+    "full_d96": (False, 100, 96, 1e-5, False),
 }
 
 
@@ -566,10 +659,18 @@ def test_rope_attention_kernel(dev, dtype, case):
 
 @pytest.mark.cuda
 def test_rope_attention_refuses_what_it_does_not_take(dev):
+    """Head dim 80 runs and matches its plain version; 72 and 272 are
+    refused naming ROADMAP.md queue C."""
     q = torch.randn(1, 8, 2, 80, device=dev)
     cos, sin = trope.build_rope_cache(8, 80, device=dev)
-    with pytest.raises(ValueError, match="head_dim.*ROADMAP.md queue C"):
-        tfra.rope_attention_cuda(q, q, q, cos, sin)
+    assert _cast_once_ok(tfra.rope_attention_cuda(q, q, q, cos, sin),
+                         tfra.rope_attention_reference(q, q, q, cos, sin),
+                         1e-5)
+    for d in (72, 272):
+        q = torch.randn(1, 8, 2, d, device=dev)
+        cos, sin = trope.build_rope_cache(8, d - d % 2, device=dev)
+        with pytest.raises(ValueError, match="head_dim.*ROADMAP.md queue C"):
+            tfra.rope_attention_cuda(q, q, q, cos, sin)
     q = torch.randn(1, 8, 2, 64, device=dev)
     cos, sin = trope.build_rope_cache(8, 64, device=dev)
     with pytest.raises(TypeError, match="one dtype"):

@@ -94,8 +94,8 @@ def test_norm_matmul_plain_matches_jax_kernel(dtype):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_rope_attention_plain_matches_jax_kernel(dtype, causal):
-    b, s, h, d = 2, 64, 4, 16
+def test_rope_attention_plain_matches_jax_kernel(dtype, causal, d=16):
+    b, s, h = 2, 64, 4
     rng = np.random.RandomState(1)
     (jq, tq), (jk, tk), (jv, tv) = (_both(rng.randn(b, s, h, d), dtype)
                                     for _ in range(3))
@@ -110,6 +110,14 @@ def test_rope_attention_plain_matches_jax_kernel(dtype, causal):
     got2 = tfra.rope_attention_reference(tq, tk, tv, tcos[0, :, 0],
                                          tsin[0, :, 0], causal=causal)
     assert torch.equal(got, got2)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_rope_attention_plain_matches_jax_kernel_d80(dtype):
+    """Head dim 80 (the card runs it on the 128-wide kernel): the TPU
+    kernel rotates column c with c + 40, the true half; a pairing at the
+    padded half would give finite, wrong outputs."""
+    test_rope_attention_plain_matches_jax_kernel(dtype, True, d=80)
 
 
 # ------------------------------------------------- the two backward passes

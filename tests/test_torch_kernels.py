@@ -147,16 +147,29 @@ def test_rope_position_ids_match_gathered_tables(dtype):
 
 
 # ------------------------------------------------------ paged attention
-def _paged_inputs(dtype, kvh, h=4, d=16):
+# case: (query heads, kv heads, head_dim, table width in pages); row 0
+# holds 2 pages (its tail points at the garbage page 0), row 1 attends up
+# to slot 8 * width - 5
+PAGED_CASES = {
+    "mha": (4, 4, 16, 4),
+    "gqa": (4, 2, 16, 4),
+    "d80": (4, 2, 80, 4),
+    "d96": (4, 4, 96, 4),
+    "mqa_g16": (16, 1, 16, 4),
+    "long": (2, 1, 16, 72),   # a row of more than 64 pages
+}
+
+
+def _paged_inputs(dtype, kvh, h=4, d=16, pages=4):
     rng = np.random.RandomState(5)
-    b, pages, ps = 2, 4, 8
+    b, ps = 2, 8
     n = b * pages + 1
     q = rng.randn(b, 1, h, d)
     kp = rng.randn(n, ps, kvh, d)
     vp = rng.randn(n, ps, kvh, d)
     tbl = (1 + np.arange(b * pages).reshape(b, pages)).astype(np.int32)
     tbl[0, 2:] = 0  # row 0 holds 2 pages; its tail points at page 0
-    pos = np.array([13, 27], np.int32)
+    pos = np.array([13, 8 * pages - 5], np.int32)
     j = [_both(a, dtype)[0] for a in (q, kp, vp)]
     t = [_both(a, dtype)[1] for a in (q, kp, vp)]
     j += [jnp.asarray(tbl), jnp.asarray(pos)]
@@ -165,10 +178,15 @@ def _paged_inputs(dtype, kvh, h=4, d=16):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("kvh", [4, 2], ids=["mha", "gqa"])
+@pytest.mark.parametrize("case", list(PAGED_CASES))
 @pytest.mark.parametrize("ref", ["fused", "reference", "composed"])
-def test_paged_attention_plain_matches_jax(dtype, kvh, ref):
-    (qj, kj, vj, tj, pj), (qt, kt, vt, tt, pt) = _paged_inputs(dtype, kvh)
+def test_paged_attention_plain_matches_jax(dtype, case, ref):
+    """MHA, GQA, head dims 80 and 96, MQA with 16 query heads per kv
+    head, and a row of 72 pages, against the TPU kernel (interpret mode)
+    and the JAX package's two plain paths."""
+    h, kvh, d, pages = PAGED_CASES[case]
+    (qj, kj, vj, tj, pj), (qt, kt, vt, tt, pt) = _paged_inputs(
+        dtype, kvh, h, d, pages)
     fn = {"fused": jpa.paged_attention_fused,
           "reference": jpa.paged_attention_reference,
           "composed": jpa.paged_attention_composed}[ref]
@@ -177,6 +195,115 @@ def test_paged_attention_plain_matches_jax(dtype, kvh, ref):
     assert got.dtype == qt.dtype and tuple(got.shape) == tuple(qt.shape)
     tol = 3e-2 if dtype == "bfloat16" else 1e-5
     np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+# ------------------------------- the paged kernels' order of work
+PAGED_TOL = {"float32": 1e-5, "bfloat16": 1e-2}  # chip_smoke.py's
+
+
+def _emulate_paged_kernels(q, k_pages, v_pages, table, pos, chunk,
+                           fault=None):
+    """The two paged kernels' order of work in plain PyTorch: each row's
+    live slots cut into chunks of ``chunk``; per chunk the fp32 scores,
+    their max m_c and sum of exp(s - m_c) (kernel 1); the row's m and l
+    combined from the chunks' statistics (lane k of a warp takes chunks
+    k, k + 32, ... in order, then a butterfly over the 32 lanes), p =
+    exp(s - m) / l rounded to q's dtype, the fp32 partial P V of each
+    chunk, and the partials summed in chunk order (kernel 2).
+    ``fault``: "skip_chunk" (chunk 1's partial is lost), "neighbour_max"
+    (a chunk's sum is rescaled with the next chunk's max),
+    "pos_off_by_one" (a row attends slot pos + 1 too)."""
+    b, _, h, d = (int(v) for v in q.shape)
+    kvh = int((k_pages.q if hasattr(k_pages, "q") else k_pages).shape[2])
+    g = h // kvh
+    scale = 1.0 / math.sqrt(d)
+    kk = tpa.gather_pages_fp32(k_pages, table)       # [B, S, kvH, D]
+    vv = tpa.gather_pages_fp32(v_pages, table)
+    s_virt = int(kk.shape[1])
+    out = torch.empty(b, 1, h, d, dtype=q.dtype)
+    for r in range(b):
+        n = min(int(pos[r]) + (2 if fault == "pos_off_by_one" else 1),
+                s_virt)
+        bounds = [(c0, min(c0 + chunk, n)) for c0 in range(0, n, chunk)]
+        for kh in range(kvh):
+            qg = q[r, 0, kh * g:(kh + 1) * g].float()          # [G, D]
+            sc = (qg @ kk[r, :n, kh].T) * scale                # [G, n]
+            stats = []
+            for c0, c1 in bounds:
+                m_c = sc[:, c0:c1].amax(-1)
+                stats.append((m_c, torch.exp(sc[:, c0:c1]
+                                             - m_c[:, None]).sum(-1)))
+            m = torch.stack([st[0] for st in stats]).amax(0)
+            lanes = torch.zeros(32, g)
+            for c, (m_c, l_c) in enumerate(stats):
+                if fault == "neighbour_max":
+                    m_c = stats[min(c + 1, len(stats) - 1)][0]
+                lanes[c % 32] = lanes[c % 32] + l_c * torch.exp(m_c - m)
+            for o in (16, 8, 4, 2, 1):
+                lanes = lanes + lanes[torch.arange(32) ^ o]
+            l = lanes[0]
+            p = (torch.exp(sc - m[:, None]) / l[:, None]).to(q.dtype).float()
+            acc = torch.zeros(g, d)
+            for c, (c0, c1) in enumerate(bounds):
+                if fault == "skip_chunk" and c == 1:
+                    continue
+                acc = acc + p[:, c0:c1] @ vv[r, c0:c1, kh]
+            out[r, 0, kh * g:(kh + 1) * g] = acc.to(q.dtype)
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arena", ["float", "int8"])
+@pytest.mark.parametrize("fault", [None, "skip_chunk", "neighbour_max",
+                                   "pos_off_by_one"])
+def test_paged_kernels_order_of_work_within_tolerance(dtype, arena, fault):
+    """The emulated paged kernels (chunks of one 8-slot page: rows of 1,
+    6 and 12 chunks; the kernels take any chunk size) lie within
+    chip_smoke.py's ``PAGED_TOL`` of ``paged_attention_reference``; each
+    seeded fault falls outside it, so the tolerance does not hide a wrong
+    kernel."""
+    from paddle_tpu_torch.quantization.kv import QuantizedKV, quantize_kv
+
+    rng = np.random.RandomState(21)
+    b, h, kvh, d, ps, width = 3, 8, 2, 80, 8, 12
+    td = DTYPES[dtype][1]
+    q = torch.from_numpy(rng.randn(b, 1, h, d).astype(np.float32)).to(td)
+    kp, vp = (torch.from_numpy(rng.randn(b * width + 1, ps, kvh, d)
+                               .astype(np.float32)) for _ in range(2))
+    if arena == "int8":
+        kp, vp = (QuantizedKV(*quantize_kv(t)) for t in (kp, vp))
+    else:
+        kp, vp = kp.to(td), vp.to(td)
+    tbl = torch.from_numpy(
+        (1 + np.arange(b * width).reshape(b, width)).astype(np.int32))
+    pos = torch.tensor([3, 40, 90], dtype=torch.int32)
+    tbl[0, 1:] = 0  # row 0 holds one page; its tail is the garbage page
+    tbl[1, 6:] = 0
+    got = _emulate_paged_kernels(q, kp, vp, tbl, pos, ps, fault)
+    want = tpa.paged_attention_reference(q, kp, vp, tbl, pos)
+    ratio = float((got.float() - want.float()).abs().max()) / PAGED_TOL[dtype]
+    print(f"paged kernels emulation {arena} {dtype} fault={fault}: error "
+          f"over tolerance {ratio:.4g}")
+    if fault is None:
+        assert ratio <= 1.0
+    else:
+        assert ratio > 1.0
+
+
+@pytest.mark.parametrize("shape", [(16, 128, 2, 1), (16, 128, 1, 1),
+                                   (16, 128, 2, 32), (16, 16, 2, 1),
+                                   (8, 80, 2, 4), (256, 256, 4, 1)])
+def test_paged_chunk_slots(shape):
+    """A chunk is a whole number of pages (or, a page larger than the
+    chunk's budget, a power of two dividing it), its K or V rows fit the
+    shared-memory budget, and a group of G query heads gets at most
+    CHUNK_WORK / G slots."""
+    ps, d, itemsize, group = shape
+    c = tpa.chunk_slots(ps, d, itemsize, group)
+    assert c >= 1 and (c % ps == 0 if c >= ps else ps % c == 0)
+    assert c <= tpa.MAX_CHUNK and c * d * itemsize <= max(
+        tpa.CHUNK_BYTES, ps * d * itemsize)
+    assert c <= max(tpa.CHUNK_WORK // group, min(ps, 16))
 
 
 def test_gather_pages_matches():
@@ -255,18 +382,23 @@ def test_rope_backward_matches_pallas_vjp(dtype):
 
 # ------------------------------------------------------- flash attention
 FLASH_CASES = {
-    "causal": (True, 8, 8),
-    "causal_sq_lt_sk": (True, 5, 9),
-    "full": (False, 6, 9),
+    # causal, sq, sk, head_dim (80 and 96: public models' widths, which
+    # the card runs on the 128-wide kernels with the columns past D masked)
+    "causal": (True, 8, 8, 16),
+    "causal_sq_lt_sk": (True, 5, 9, 16),
+    "full": (False, 6, 9, 16),
+    "causal_d80": (True, 8, 8, 80),
+    "causal_sq_lt_sk_d96": (True, 5, 9, 96),
+    "full_d80": (False, 6, 9, 80),
 }
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", sorted(FLASH_CASES))
 def test_flash_attention_matches_jax(dtype, case):
-    causal, sq, sk = FLASH_CASES[case]
+    causal, sq, sk, d = FLASH_CASES[case]
     rng = np.random.RandomState(12)
-    b, h, d = 2, 3, 16
+    b, h = 2, 3
     qn, kn, vn = (rng.randn(b, n, h, d) for n in (sq, sk, sk))
     gn = rng.randn(b, sq, h, d)
     (qj, qt), (kj, kt), (vj, vt), (gj, gt) = (

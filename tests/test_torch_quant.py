@@ -225,18 +225,19 @@ def test_int8_tc_order_of_work_within_tolerance(kernel, fault):
 
 # ------------------------------------------------ int8 paged attention
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_int8_paged_attention_plain_matches_jax(dtype):
+def test_int8_paged_attention_plain_matches_jax(dtype, h=4, kvh=2, d=16,
+                                                pages=4):
     """GQA (2 kv heads for 4 query heads), as the JAX package's own pin;
     the tiny Llama's streams below cover MHA through the same path."""
     rng = np.random.RandomState(5)
-    b, pages, ps, h, kvh, d = 2, 4, 8, 4, 2, 16
+    b, ps = 2, 8
     n = b * pages + 1
     qj, qt = _both(rng.randn(b, 1, h, d), dtype)
     kj, kt = _both(rng.randn(n, ps, kvh, d), dtype)
     vj, vt = _both(rng.randn(n, ps, kvh, d), dtype)
     tbl = (1 + np.arange(b * pages).reshape(b, pages)).astype(np.int32)
     tbl[0, 2:] = 0  # row 0 holds 2 pages; its tail points at page 0
-    pos = np.array([13, 27], np.int32)
+    pos = np.array([13, 8 * pages - 5], np.int32)
     kq_j = jkv.QuantizedKV(*jkv.quantize_kv(kj))
     vq_j = jkv.QuantizedKV(*jkv.quantize_kv(vj))
     kq_t = tkv.QuantizedKV(*tkv.quantize_kv(kt))
@@ -248,6 +249,24 @@ def test_int8_paged_attention_plain_matches_jax(dtype):
     assert got.dtype == qt.dtype and tuple(got.shape) == tuple(qt.shape)
     tol = 3e-2 if dtype == "bfloat16" else 1e-5
     np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+# query heads, kv heads, head_dim, table width in pages
+INT8_PAGED_CASES = {
+    "d80": (4, 2, 80, 4),
+    "d96": (4, 4, 96, 4),
+    "mqa_g16": (16, 1, 16, 4),
+    "long": (2, 1, 16, 72),   # a row of more than 64 pages
+}
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", list(INT8_PAGED_CASES))
+def test_int8_paged_attention_plain_matches_jax_shapes(dtype, case):
+    """Head dims 80 and 96, MQA with 16 query heads per kv head, and a
+    row of 72 pages, as the GQA pin above."""
+    test_int8_paged_attention_plain_matches_jax(dtype,
+                                                *INT8_PAGED_CASES[case])
 
 
 # ----------------------------------------------- the tiny quantized Llama
