@@ -23,11 +23,14 @@ It imports neither jax nor ``paddle_tpu``. Phases, each fatal on failure:
    sweep of its two tensor-core kernels over 16-512 rows, and paged
    attention over chunks of 16-256 slots); the backward kernels, the
    W8A16 matmul and paged attention must repeat bit for bit; flash
-   attention and paged attention also at head dims 16, 80, 96 and 256
-   (flash also 192), paged attention also with 32 query heads on one kv
-   head and one 8192-slot row at groups of 4 and 8;
+   attention and paged attention also at head dims 16, 80, 96, 256 and
+   72 (not a multiple of 16: the wrappers pad it; flash also 192), paged
+   attention also with 32 query heads on one kv head and one 8192-slot
+   row at groups of 4 and 8; the library's empty kernel, timed the same
+   way (the launch floor);
 4. small parity: tiny fp32 Llamas on the card (MHA, GQA, and head dims
-   96 with MQA, 80 with GQA, 16 with 16 query heads on one kv head),
+   96 with MQA, 80 with GQA, 72 with GQA, 16 with 16 query heads on one
+   kv head),
    whose paged-engine greedy streams must equal ``generate`` with an
    fp32 slab cache token for token; then the MHA and GQA models quantized
    (``quantize_for_serving``), whose paged and slab engines' streams
@@ -62,21 +65,26 @@ It imports neither jax nor ``paddle_tpu``. Phases, each fatal on failure:
    attention).
 
 The float fusions (``LlamaForCausalLM.fusions``) add: their two kernels
-to phase 3 (timed also beside the unfused pair of kernels they replace);
+to phase 3 (timed also beside the unfused pair of kernels they replace;
+bf16 on their tensor-core designs, fp32 on the CUDA-core ones, each
+case holding the design counter; the fused head also swept over 16-512
+rows: its swap-AB and tiled kernels and the unfused pair);
 a fused tiny fp32 Llama's logits on the card against the CPU after phase
 4; after phase 6, the same model reset to its seed, 3 O1 steps with both
 fusions (step-1 loss within 1e-3 of the unfused one, the last loss below
-the first, per step the fused attention 8, the fused head 1, RMSNorm
-16 + 16 and no rope or flash launch); after phase 7, the same model and
-engine with both fusions serving the same 12 requests (per decode step
-the fused head 1, RMSNorm 64, rope 32, paged attention 32; no page leak)
+the first, per step the fused attention 8 on its tensor-core design, the
+fused head 1 on its CUDA-core design (fp32 under O1), RMSNorm 16 + 16
+and no rope or flash launch); after phase 7, the same model and engine
+with both fusions serving the same 12 requests (per decode step the
+fused head 1, on its tensor-core design at every decode step and
+prefill, RMSNorm 64, rope 32, paged attention 32; no page leak)
 and its teacher-forced check through the fused cache-free forward (the
 fused attention 32 times a sequence, no flash), with the count of tokens
 that differ from the unfused streams printed.
 
 ``--profile-steps N`` profiles N decode steps after each serving phase,
-and one 1024-bucket prefill (three times) of the bf16 and the quantized
-model.
+and one 1024-bucket prefill (three times) of the bf16, the fused and the
+quantized model.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -141,7 +149,10 @@ NEAR_TIE = 0.125
 #   an entry near a rounding midpoint the other way: each bf16 entry also
 #   gets that entry's slack, the sum over such k of ulp(y_k) * |wm_kn|
 #   (``fused_norm_matmul.normed_rounding_slack``, for rstd within 2^-20
-#   relative; zero in fp32).
+#   relative; zero in fp32). The bf16 rope-on-load kernel (tensor cores)
+#   splits the rotated q and k and P into bf16 hi and lo parts: each bf16
+#   entry also gets what those split products may move it by
+#   (``fused_rope_attention.split_product_slack``).
 REL_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
 PAGED_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 SUM_TOL32 = 1e-4
@@ -329,8 +340,9 @@ DECODE_POS = (0, 15, 300, 777, 1024, 1500, 2000, 2047)
 # slots of each row) over a page-16 arena. The 7B decode shape first (the
 # main path's), in bf16 and fp32, with GQA kvH 8; head dims 16, 256, 80
 # and 96; one 8192-slot row at kvH 8 with Llama-3-8B's group of 4 and
-# Llama-2-70B's of 8 (past the earlier design's shared-memory cap); and
-# MQA with 32 query heads on one kv head.
+# Llama-2-70B's of 8 (past the earlier design's shared-memory cap); MQA
+# with 32 query heads on one kv head; and head dim 72 at group 4 (not a
+# multiple of 16: the arena's rows are staged in smaller pieces).
 PAGED_SHAPES = (
     ("bfloat16", 32, 32, 128, DECODE_POS),
     ("float32", 32, 32, 128, DECODE_POS),
@@ -343,6 +355,7 @@ PAGED_SHAPES = (
     ("bfloat16", 32, 8, 128, (8191,)),
     ("bfloat16", 64, 8, 128, (8191,)),
     ("bfloat16", 32, 1, 128, DECODE_POS),
+    ("bfloat16", 32, 8, 72, DECODE_POS),
 )
 
 
@@ -509,6 +522,7 @@ PAGED_INT8_SHAPES = (
     ("bfloat16", 32, 8, 128, (8191,)),
     ("bfloat16", 64, 8, 128, (8191,)),
     ("bfloat16", 32, 1, 128, DECODE_POS),
+    ("bfloat16", 32, 8, 72, DECODE_POS),
 )
 
 
@@ -614,6 +628,20 @@ INT8_MM_SHAPES = ((8, 4096, 4096), (8, 4096, 22016), (8, 11008, 4096),
 # from device memory, not from the 50 MB L2 (as each layer's projection
 # does in a decode step)
 L2_FLUSH_BYTES = 120 * 2 ** 20
+
+
+def launch_floor(torch, dev, results):
+    """The library's empty kernel, launched through the same ctypes path
+    and timed the same way as every kernel (back to back, CUDA events):
+    the floor under any launch's time, beside the two smallest kernels'
+    main-path times (RMSNorm and rope at the decode shape)."""
+    from paddle_tpu_torch.kernels import _build
+
+    ms = gpu_time_ms(torch, lambda: _build.launch_empty(dev))
+    rows = {name: results[name][0]["ms"] for name in ("rms_norm", "rope")}
+    return {"empty_kernel_ms": ms,
+            "main_case_ms": rows,
+            "main_case_over_floor": {k: v / ms for k, v in rows.items()}}
 
 
 def cycled(fns):
@@ -823,6 +851,8 @@ FLASH_SHAPES = (
     ("float32", True, TRAIN_BATCH, 2048, 2048, 80),
     ("float32", True, TRAIN_BATCH, 2048, 2048, 96),
     ("bfloat16", True, TRAIN_BATCH, 2048, 2048, 192),
+    # head dim 72: not a multiple of 16, zero-padded to 80 by the wrapper
+    ("bfloat16", True, TRAIN_BATCH, 2048, 2048, 72),
 )
 
 
@@ -949,7 +979,13 @@ def norm_matmul_cases(torch, mod, dev):
         x = torch.randn(rows, h, generator=g, device=dev).to(dtype)
         w = (1 + 0.1 * torch.randn(h, generator=g, device=dev)).to(dtype)
         wm = (0.02 * torch.randn(h, n, generator=g, device=dev)).to(dtype)
+        design = mod.design(dtype)
+        before = getattr(mod, f"{design}_launches")
         y = mod.rms_norm_matmul_cuda(x, w, wm, 1e-5)
+        if getattr(mod, f"{design}_launches") != before + 1 or design != (
+                "tc" if dname == "bfloat16" else "cc"):
+            fail(f"rms_norm_matmul {dname} {[rows, h, n]} did not run its "
+                 f"{design} design")
         ref = mod.rms_norm_matmul_reference(x, w, wm, 1e-5)
         if not torch.isfinite(y).all():
             fail(f"rms_norm_matmul {dname} {[rows, h, n]} produced "
@@ -983,6 +1019,9 @@ def norm_matmul_cases(torch, mod, dev):
             x, w, wm, 1e-5), n=3, repeats=3)
         out.append({
             "shape": {"rows": rows, "h": h, "n": n}, "dtype": dname,
+            "design": design,
+            "kernel": (("swap" if rows <= mod.SWAP_MAX_ROWS else "tiled")
+                       if design == "tc" else "cuda-core"),
             "checks": cs, "max_abs_err": worst["max_abs_err"],
             "tolerance": worst["tolerance"],
             "err_over_tol": worst["err_over_tol"], "repeats_bitwise": True,
@@ -996,6 +1035,59 @@ def norm_matmul_cases(torch, mod, dev):
     return out
 
 
+HEAD_CROSSOVER_ROWS = (8, 16, 32, 64, 128, 256, 512)
+
+
+def norm_matmul_crossover(torch, mod, dev):
+    """ms of the fused head's swap-AB and tiled tensor-core kernels, and
+    of the unfused pair (the port's RMSNorm kernel, then torch.matmul),
+    at the Llama head's [rows, 4096] x [4096, 32000] in bf16 (8 rows: the
+    decode step), weights
+    cycled past the L2; the swap-AB kernel at every row count it takes
+    (up to 256). Each kernel's output is held within cast-once plus
+    normed_rounding_slack of the plain version and must repeat bit for
+    bit. Sets where the wrapper switches kernels (SWAP_MAX_ROWS)."""
+    from paddle_tpu_torch.kernels import rms_norm as rms
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    h, n = 4096, 32000
+    w = (1 + 0.1 * torch.randn(h, generator=g, device=dev)).bfloat16()
+    wm = (0.02 * torch.randn(h, n, generator=g, device=dev)).bfloat16()
+    wms = [wm] + [wm.clone() for _ in range(-(-L2_FLUSH_BYTES //
+                                              (2 * h * n)) - 1)]
+    rows_out = []
+    for rows in HEAD_CROSSOVER_ROWS:
+        x = torch.randn(rows, h, generator=g, device=dev).bfloat16()
+        ref = mod.rms_norm_matmul_reference(x, w, wm, 1e-5)
+        slack = mod.normed_rounding_slack(x, w, wm, 1e-5)
+        rec = {"rows": rows}
+        for kernel in ("swap", "tiled"):
+            if kernel == "swap" and rows > mod.SWAP_TILES[-1]:
+                continue
+            y = mod._tc_kernel(x, w, wm, 1e-5, kernel)
+            what = f"rms_norm_matmul {kernel} {[rows, h, n]}"
+            if not torch.equal(y, mod._tc_kernel(x, w, wm, 1e-5, kernel)):
+                fail(f"{what} does not repeat bit for bit")
+            _, worst = checks(torch, [cast_once(
+                "out", y, ref, SUM_TOL32, "bfloat16", slack)])
+            if worst["err_over_tol"] > 1.0:
+                fail(f"{what}: largest error over its entry's tolerance "
+                     f"{worst['err_over_tol']}")
+            rec[f"{kernel}_err_over_tol"] = worst["err_over_tol"]
+            rec[f"{kernel}_ms"] = gpu_time_ms(torch, cycled([
+                (lambda wi=wi: mod._tc_kernel(x, w, wi, 1e-5, kernel))
+                for wi in wms]), n=10, repeats=5)
+        rec["unfused_ms"] = gpu_time_ms(torch, cycled([
+            (lambda wi=wi: torch.matmul(rms.rms_norm_cuda(x, w, 1e-5), wi))
+            for wi in wms]), n=10, repeats=5)
+        rows_out.append(rec)
+        del x, ref, slack
+    del wm, wms
+    torch.cuda.empty_cache()
+    return {"swap_max_rows": mod.SWAP_MAX_ROWS, "shape": {"h": h, "n": n},
+            "rows": rows_out}
+
+
 ROPE_ATTENTION_SHAPES = (
     # dtype, causal, batch, S, head_dim (heads 32): the training shape in
     # bf16 (the O1 projections' dtype) and fp32, a ragged tail, a
@@ -1007,6 +1099,8 @@ ROPE_ATTENTION_SHAPES = (
     ("bfloat16", False, 1, 1024, 128),
     ("bfloat16", True, TRAIN_BATCH, TRAIN_SEQ, 80),
     ("float32", True, TRAIN_BATCH, TRAIN_SEQ, 96),
+    # head dim 72: each half zero-padded to 40 by the wrapper
+    ("bfloat16", True, TRAIN_BATCH, TRAIN_SEQ, 72),
 )
 
 
@@ -1027,13 +1121,24 @@ def rope_attention_cases(torch, mod, dev):
                    for _ in range(3))
         # leading rows of a longer table, as the model passes them
         cos, sin = cos_full[:, :s], sin_full[:, :s]
+        design = mod.design(dtype, d)
+        before = getattr(mod, f"{design}_launches")
         o = mod.rope_attention_cuda(q, k, v, cos, sin, causal)
+        if getattr(mod, f"{design}_launches") != before + 1 or design != (
+                "tc" if dname == "bfloat16" else "cc"):
+            fail(f"rope_attention {dname} D {d} did not run its {design} "
+                 f"design")
         ref = mod.rope_attention_reference(q, k, v, cos, sin, causal)
         if not torch.isfinite(o).all():
             fail(f"rope_attention {dname} produced non-finite values")
+        # the tensor-core kernel's split products: their own slack
+        slack = (mod.split_product_slack(q, k, v, cos, sin, causal)
+                 if design == "tc" else None)
         cs, worst = checks(torch, [
-            cast_once("o", o, ref, SUM_TOL32, dname)])
-        del o, ref
+            cast_once("o", o, ref, SUM_TOL32, dname, slack)])
+        if slack is not None:
+            cs[0]["slack_max"] = float(slack.max())
+        del o, ref, slack
         pairs = _visible_pairs(s, s, causal) * b * h
         es = q.element_size()
         b_ms, b_by = bound(4 * b * s * h * d * es + 2 * s * (d // 2) * 4,
@@ -1046,7 +1151,7 @@ def rope_attention_cases(torch, mod, dev):
 
         out.append({
             "shape": {"b": b, "h": h, "d": d, "s": s, "causal": causal},
-            "dtype": dname, "checks": cs,
+            "dtype": dname, "design": design, "checks": cs,
             "max_abs_err": worst["max_abs_err"],
             "tolerance": worst["tolerance"],
             "err_over_tol": worst["err_over_tol"],
@@ -1131,8 +1236,9 @@ QUANT_MM_PER_FORWARD = 6 * 32 + 1
 
 # ------------------------------------------------------- small parity
 # tiny fp32 models beyond the two below: (hidden, heads, kv heads), head
-# dim 96 with MQA, head dim 80 with GQA, and 16 query heads on one kv head
-SMALL_PARITY_SHAPES = ((384, 4, 1), (320, 4, 2), (256, 16, 1))
+# dim 96 with MQA, head dim 80 with GQA, 16 query heads on one kv head,
+# and head dim 72 (not a multiple of 16: padded on the card) with GQA
+SMALL_PARITY_SHAPES = ((384, 4, 1), (320, 4, 2), (256, 16, 1), (288, 4, 2))
 
 
 def _paged_equals_generate(torch, np, dev, cfg, label):
@@ -1202,9 +1308,9 @@ def small_parity(torch, np, dev):
             if eng.pool.occupancy:
                 fail(f"small int8 parity: the {kind} engine leaked")
     log("small parity: tiny fp32 Llama (MHA and GQA kvH=2; D 96 MQA, D 80 "
-        "GQA kvH=2, 16 heads on 1 kv head), paged engine == generate token "
-        "for token; quantized (int8 weights, int8 KV; MHA and GQA), paged "
-        "and slab engines == generate(cache_dtype='int8')")
+        "GQA kvH=2, 16 heads on 1 kv head, D 72 GQA kvH=2), paged engine "
+        "== generate token for token; quantized (int8 weights, int8 KV; MHA "
+        "and GQA), paged and slab engines == generate(cache_dtype='int8')")
 
 
 def fused_parity(torch, np, dev):
@@ -1450,6 +1556,17 @@ def fused_training(torch, np, net, inputs, labels, unfused_loss0, card,
     if counts != want:
         fail(f"fused training: launches {counts}, expected {want} "
              f"({FUSED_TRAIN_STEPS} steps)")
+    # O1: the attention's q, k, v are bf16 (tensor cores), the head's
+    # input is the fp32 residual (CUDA cores)
+    designs = kernels.fusion_design_counts()
+    want_designs = {
+        "rms_norm_matmul": {"tc_launches": 0,
+                            "cc_launches": want["rms_norm_matmul"]},
+        "rope_attention": {"tc_launches": want["rope_attention"],
+                           "cc_launches": 0}}
+    if designs != want_designs:
+        fail(f"fused training: fusion launches by design {designs}, "
+             f"expected {want_designs}")
     tokens = TRAIN_BATCH * TRAIN_SEQ
     p50 = statistics.median(times)
     res = {
@@ -1461,6 +1578,7 @@ def fused_training(torch, np, net, inputs, labels, unfused_loss0, card,
         "launches": counts,
         "launches_per_step": {k: n / FUSED_TRAIN_STEPS
                               for k, n in counts.items()},
+        "fusion_launches_by_design": designs,
     }
     log("fused training: " + json.dumps(res))
     if profile_train_steps:
@@ -1629,6 +1747,13 @@ def fused_serving(torch, np, dev, card, net, eng, cfg, unfused_handles,
     if counts != want:
         fail(f"fused serving: launches {counts}, expected {want} "
              f"({n_decode} decode steps, {n_prefill} prefills)")
+    # bf16 serving: the fused head on the tensor cores at every step
+    designs = kernels.fusion_design_counts()
+    if designs["rms_norm_matmul"] != {"tc_launches": n_decode + n_prefill,
+                                      "cc_launches": 0}:
+        fail(f"fused serving: fused head launches by design "
+             f"{designs['rms_norm_matmul']}, expected all "
+             f"{n_decode + n_prefill} on the tensor cores")
     kernels.reset_launch_counts()
     ties, worst_gap = teacher_forced(torch, dev, handles,
                                      lambda ids: net(ids)[0],
@@ -1651,11 +1776,13 @@ def fused_serving(torch, np, dev, card, net, eng, cfg, unfused_handles,
             "rms_norm_matmul": 1, "rms_norm": 2 * layers, "rope": layers,
             "paged_attention": layers},
         check_launches=check_counts,
+        fusion_launches_by_design=designs,
         tokens_differing_from_unfused=differ,
         phase_s=time.perf_counter() - t_phase)
     log("fused serving: " + json.dumps(res))
     if profile_steps:
         profile_decode(torch, np, eng, cfg, profile_steps, "decode_fused")
+        profile_prefill(torch, np, eng, cfg, "prefill_1024_fused")
     net.fusions = ()
     return counts
 
@@ -1767,6 +1894,7 @@ def profile_steps(torch, step_fn, steps):
         low = name.lower()
         # flash by kernel name: flash_fwd_tc_kernel<D> (bf16) and
         # flash_fwd_kernel<float, D, false> are the forward,
+        # rope_attention_fwd_tc_kernel<D> (bf16) and
         # flash_fwd_kernel<T, D, true> the rope-on-load forward,
         # flash_bwd_* (both designs) the backward passes
         # paged attention: its scores and values kernels, the int8
@@ -1774,7 +1902,9 @@ def profile_steps(torch, step_fn, steps):
         paged = "paged_scores_kernel" in low or "paged_values_kernel" in low
         group = ("paged_attention_int8" if paged and "signed char" in low
                  else "int8_matmul" if "int8_matmul" in low
-                 else "rms_norm_matmul" if "norm_matmul" in low
+                 else "rms_norm_matmul" if ("norm_matmul" in low
+                                            or "norm_rstd" in low)
+                 else "rope_attention" if "rope_attention_fwd_tc" in low
                  else "flash_attention_fwd" if "flash_fwd_tc_kernel" in low
                  else "rope_attention" if "flash_fwd_kernel<" in low
                  and ", true>" in low
@@ -1919,6 +2049,10 @@ def main():
             results[kname] = kcases
     crossover = int8_crossover(torch, kernels.int8_matmul, dev)
     log("kernel int8_matmul crossover: " + json.dumps(crossover))
+    crossover = norm_matmul_crossover(torch, kernels.fused_norm_matmul, dev)
+    log("kernel rms_norm_matmul crossover: " + json.dumps(crossover))
+    floor = launch_floor(torch, dev, results)
+    log("launch floor: " + json.dumps(floor))
     for row in paged_chunk_sweep(torch, kernels.paged_attention, dev):
         log("kernel paged_attention chunk sweep: " + json.dumps(row))
 

@@ -36,7 +36,9 @@
 // zeros in the columns from d to D (TMA zero-fills them, the CUDA-core
 // loaders write them), which add nothing to the scores, and its stores
 // skip those columns (d 80, 96, 112 run the D 128 kernels, 160 and 192
-// the D 256 ones).
+// the D 256 ones). Any other head dim up to 256 is zero-padded by the
+// Python wrapper to the next multiple of 16 (zero columns add exact zeros
+// to every fp32 sum), and its outputs sliced back.
 //
 // bf16 at d 64 to 256 (forward) and d 64 to 128 (backward): the
 // tensor-core design (namespace tc, below; hopper.cuh). Every
@@ -82,19 +84,29 @@
 // Rope-on-load forward (ptt_rope_attention_fwd, fp32 and bf16). Replaces:
 // paddle_tpu/kernels/fused_rope_attention.py rope_attention_fused (:167;
 // pl.pallas_call at :111 over _fused_kernel :84, _rotate :58, _attn_rows
-// :69). The CUDA-core forward, instantiated with kRope: it rotates each
-// q tile once and each k tile as it is loaded (neox half split, by the
-// fp32 half-dim tables' row of that tile row's position), so the rotated
-// q and k never exist in device memory. A lane loads a row's vector at
-// column c together with the one at c + D/2 and the tables' entries c..,
-// rotates in fp32 in _rotate's op order and stores both halves to the
-// fp32 tile: the rotated values are never rounded to the input type, as
-// _fused_kernel keeps them in VMEM (so it stays on the CUDA cores in
-// bf16 too). Self-attention only (Sq == Sk, so the causal mask is c <=
-// r); no LSE is written, since the backward is the plain version's VJP
-// (the JAX custom_vjp's design). The TPU kernel's softmax is exact over
-// the whole row; this one is online, the same function summed in another
-// order.
+// :69). q and k are rotated as they are loaded (neox half split, by the
+// fp32 half-dim tables' row of that tile row's position, in _rotate's op
+// order), so the rotated q and k never exist in device memory, and they
+// and P stay fp32 through both products, as _fused_kernel keeps them.
+// Self-attention only (Sq == Sk, so the causal mask is c <= r); no LSE
+// is written, since the backward is the plain version's VJP (the JAX
+// custom_vjp's design). The TPU kernel's softmax is exact over the whole
+// row; these are online, the same function summed in another order.
+// Column c pairs with c + d/2 of the head dim d the kernel is given (the
+// wrapper pads each half of a head dim that is not a multiple of 16, so
+// the pairing is the true one). Two designs:
+// - bf16 at d 64 to 128: the tensor-core kernel
+//   (tc::rope_attention_fwd_tc_kernel, below): the rotated q and k and
+//   P are split into bf16 hi and lo parts and multiplied in five bf16
+//   products with fp32 accumulators (S = q_hi k_hi^T + q_hi k_lo^T +
+//   q_lo k_hi^T, O = P_hi V + P_lo V), which keeps about 16 bits of each
+//   fp32 value (fused_rope_attention.split_product_slack bounds the
+//   rest); its bound is still the algorithm's 4 d flops a visible pair,
+//   so it can reach at most 40% of it;
+// - fp32, and bf16 at other head dims: the CUDA-core forward,
+//   instantiated with kRope: a lane loads a row's vector at column c
+//   together with the one at c + d/2 and the tables' entries c..,
+//   rotates in fp32 and stores both halves to the fp32 tile.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -1297,6 +1309,310 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ------------------------------------------------- rope-on-load forward
+// The JAX kernel rotates q and k in fp32 and keeps them, and P, in fp32
+// through both products (fused_rope_attention.py:84-103). Here each fp32
+// value x is split into hi = bf16(x) and lo = bf16(x - hi) (x - hi is
+// exact in fp32), which keeps about 16 of its 24 significant bits, and
+// every product runs on the tensor cores with fp32 accumulators:
+//   S = q_hi k_lo^T + q_lo k_hi^T + q_hi k_hi^T   (q_lo k_lo^T dropped)
+//   O += P_lo V + P_hi V                          (V is a bf16 input)
+// Five bf16 products where plain flash has two; the error bound is
+// fused_rope_attention.split_product_slack. Nothing is rounded to bf16
+// as a value: the rotated q and k and P are only ever split.
+//
+// A CTA owns 128 q rows (64 per consumer warpgroup) and walks the k/v
+// blocks of 128 rows from 0 to its causal end (self-attention: column c
+// is visible to row r iff c <= r). The raw bf16 Q tile, and each stage's
+// raw K and V tiles, arrive by TMA. The two consumer warpgroups rotate
+// a raw tile together, 8 columns and their partners d/2 on a thread at a
+// time, in _rotate's op order: the hi parts over the raw tile (in place;
+// a K stage is refilled only after every consumer is done with it), the
+// lo parts into a tile of their own. Q is rotated once; each K tile
+// before its products, into the one k_lo tile: a barrier after the
+// score products keeps the next rotation from overwriting k_lo while
+// the other warpgroup still reads it. The online softmax is the
+// tensor-core forward's; P_hi and P_lo are register A operands of the
+// two P V products. Shared memory at D = 128: Q hi and lo 64 KB, two
+// stages of K and V 128 KB, k_lo 32 KB (225 KB of 227).
+template <int D>
+__host__ __device__ constexpr Layout rope_layout() {
+  return {2 * tile_bytes<D>(128), 2 * tile_bytes<D>(128), tile_bytes<D>(128)};
+}
+
+// byte offset of element (r, c) in a 128-byte-swizzled tile of R rows
+template <int R>
+__device__ __forceinline__ int swz(int r, int c) {
+  return (c >> 6) * (R * 128) + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) +
+         (c & 7) * 2;
+}
+
+// hi = bf16(x), lo = bf16(x - hi) of two fp32 values, as bf16 pairs
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
+                                       uint32_t& lo) {
+  hi = pack_bf16(a, b);
+  lo = pack_bf16(a - __uint_as_float(hi << 16),
+                 b - __uint_as_float(hi & 0xffff0000u));
+}
+
+// the accumulator fragment of a score tile (to_a_operand's layout) split
+// into the register A operands P_hi and P_lo
+template <int KSTEPS>
+__device__ __forceinline__ void to_a_split(const float* acc,
+                                           uint32_t (*hi)[4],
+                                           uint32_t (*lo)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      split2(acc[8 * kk + 2 * i], acc[8 * kk + 2 * i + 1], hi[kk][i],
+             lo[kk][i]);
+}
+
+// Rotate a raw bf16 tile of R rows (generic address `xt`, positions p0 ..)
+// in place into its hi parts and write the lo parts into `lo` (same
+// layout), by the 256 consumer threads (ct): item (row r, 8-column chunk
+// c / 8 < d / 16) takes columns c .. c + 7 and their partners c + d/2 ..
+// (neox: out[:d/2] = x1 cos - x2 sin, out[d/2:] = x2 cos + x1 sin, the
+// tables' row of the position, fp32, no fused multiply-add). Rows past
+// seq hold TMA's zeros and rotate to zero; columns past d are left as
+// they are. (Holding two items' tables in registers, so that their L2
+// round trips overlap, takes 32 more and spills at D 128.)
+template <int R>
+__device__ __forceinline__ void rope_tile(uint8_t* xt, uint8_t* lo, int p0,
+                                          int seq, int d,
+                                          const float* __restrict__ cos,
+                                          const float* __restrict__ sin,
+                                          long long tab, int ct) {
+  const int h2 = d / 2, chunks = d / 16;
+  for (int i = ct; i < R * chunks; i += 128 * kConsumers) {
+    const int r = i / chunks, c = 8 * (i - r * chunks);
+    const int pos = p0 + r;
+    uint4* p1 = reinterpret_cast<uint4*>(xt + swz<R>(r, c));
+    uint4* p2 = reinterpret_cast<uint4*>(xt + swz<R>(r, c + h2));
+    const uint4 a = *p1, b = *p2;
+    float cv[8], sv[8];
+    if (pos < seq) {
+      ptt::load_floats<float, 8>(cos + pos * tab + c, cv);
+      ptt::load_floats<float, 8>(sin + pos * tab + c, sv);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) cv[j] = sv[j] = 0.0f;
+    }
+    const uint32_t x1[4] = {a.x, a.y, a.z, a.w};
+    const uint32_t x2[4] = {b.x, b.y, b.z, b.w};
+    uint32_t hi1[4], lo1[4], hi2[4], lo2[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      // a bf16 is the high half of its fp32 value
+      const float a0 = __uint_as_float(x1[j] << 16);
+      const float a1 = __uint_as_float(x1[j] & 0xffff0000u);
+      const float b0 = __uint_as_float(x2[j] << 16);
+      const float b1 = __uint_as_float(x2[j] & 0xffff0000u);
+      const float c0 = cv[2 * j], c1 = cv[2 * j + 1];
+      const float s0 = sv[2 * j], s1 = sv[2 * j + 1];
+      split2(__fsub_rn(__fmul_rn(a0, c0), __fmul_rn(b0, s0)),
+             __fsub_rn(__fmul_rn(a1, c1), __fmul_rn(b1, s1)), hi1[j], lo1[j]);
+      split2(__fadd_rn(__fmul_rn(b0, c0), __fmul_rn(a0, s0)),
+             __fadd_rn(__fmul_rn(b1, c1), __fmul_rn(a1, s1)), hi2[j], lo2[j]);
+    }
+    *p1 = make_uint4(hi1[0], hi1[1], hi1[2], hi1[3]);
+    *p2 = make_uint4(hi2[0], hi2[1], hi2[2], hi2[3]);
+    *reinterpret_cast<uint4*>(lo + swz<R>(r, c)) =
+        make_uint4(lo1[0], lo1[1], lo1[2], lo1[3]);
+    *reinterpret_cast<uint4*>(lo + swz<R>(r, c + h2)) =
+        make_uint4(lo2[0], lo2[1], lo2[2], lo2[3]);
+  }
+}
+
+template <int D, bool kPad>
+__global__ void __launch_bounds__(kThreads, 1)
+    rope_attention_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq,
+                                 const __grid_constant__ CUtensorMap mk,
+                                 const __grid_constant__ CUtensorMap mv,
+                                 bf16* __restrict__ o,
+                                 const float* __restrict__ cos,
+                                 const float* __restrict__ sin, long long tab,
+                                 int heads, int seq, int d, float scale_log2,
+                                 int causal) {
+  if (!kPad) d = D;  // a compile-time head dim where the width is exact
+  constexpr int kM = 128, kN = 128;
+  constexpr Layout L = rope_layout<D>();
+  extern __shared__ uint8_t smem_raw[];
+  Bars bars;
+  const uint32_t base = setup(smem_raw, L, 1, bars);
+  uint8_t* const gbase = smem_raw + (base - smem_addr(smem_raw));
+  const uint32_t sQ = base, sQlo = base + tile_bytes<D>(kM);
+  const uint32_t sKlo = base + L.extra_at();
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kM;  // longest rows first
+  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
+  const int k_end = causal ? min(seq, q0 + kM) : seq;
+  const int nblk = (k_end + kN - 1) / kN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (warp >= 4 * kConsumers) {  // the producer warpgroup: one warp loads
+    regs_release<kProducerRegs>();
+    if (warp == 4 * kConsumers && lane == 0) {
+      mbar_arrive_expect_tx(bars.resident, tile_bytes<D>(kM));
+      tma_load_tile<kM, D>(sQ, &mq, bars.resident, h, q0, b);
+      for (int it = 0; it < nblk; ++it) {
+        const int s = it % kStages;
+        if (it >= kStages) mbar_wait(bars.empty(s), ((it / kStages) & 1) ^ 1);
+        const uint32_t sK = base + L.stage_at(s);
+        mbar_arrive_expect_tx(bars.full(s), L.stage);
+        tma_load_tile<kN, D>(sK, &mk, bars.full(s), h, it * kN, b);
+        tma_load_tile<kN, D>(sK + tile_bytes<D>(kN), &mv, bars.full(s), h,
+                             it * kN, b);
+      }
+    }
+    return;
+  }
+  regs_claim<kConsumerRegs>();
+
+  const int wg = warp / 4, t = threadIdx.x % 128, ct = threadIdx.x;
+  const int wrow = q0 + 64 * wg;  // this warpgroup's first row
+  const int ra = wrow + (t / 32) * 16 + lane / 4, rb = ra + 8;
+  const int cq = 2 * (lane % 4);
+  const bool live = wrow < seq;
+  const int last_col = causal ? min(seq - 1, wrow + 63) : seq - 1;
+  uint8_t* const gQlo = gbase + tile_bytes<D>(kM);
+  uint8_t* const gKlo = gbase + L.extra_at();
+
+  // the lo tiles' columns past d: never written by a rotation, so they
+  // are zeroed once (the raw tiles' columns past d are TMA's zeros)
+  if (kPad) {
+    constexpr int kChunks = kN * (D / 8);  // kM == kN
+    for (int i = ct; i < 2 * kChunks; i += 128 * kConsumers) {
+      const int r = (i % kChunks) / (D / 8), c = 8 * (i % (D / 8));
+      if (c >= d)
+        *reinterpret_cast<uint4*>((i < kChunks ? gQlo : gKlo) +
+                                  swz<kN>(r, c)) = make_uint4(0, 0, 0, 0);
+    }
+  }
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  float ma = -INFINITY, mb = -INFINITY, sum_a = 0.0f, sum_b = 0.0f;
+
+  mbar_wait(bars.resident, 0);
+  rope_tile<kM>(gbase, gQlo, q0, seq, d, cos, sin, tab, ct);
+  mbar_wait(bars.full(0), 0);
+  rope_tile<kN>(gbase + L.stage_at(0), gKlo, 0, seq, d, cos, sin, tab, ct);
+  fence_proxy_async();
+  named_sync(1, 128 * kConsumers);
+  for (int it = 0; it < nblk; ++it) {
+    const int s = it % kStages;
+    const int k0 = it * kN;
+    const uint32_t sK = base + L.stage_at(s);
+    const uint32_t sV = sK + tile_bytes<D>(kN);
+    // blocks wholly past this warpgroup's last visible column are skipped
+    const bool work = live && k0 <= last_col;
+    float sc[kN / 2];
+    if (work) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<kN>(sc, desc_k_major<kM>(sQ, 64 * wg, kk),
+                     desc_k_major<kN>(sKlo, 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<kN>(sc, desc_k_major<kM>(sQlo, 64 * wg, kk),
+                     desc_k_major<kN>(sK, 0, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<kN>(sc, desc_k_major<kM>(sQ, 64 * wg, kk),
+                     desc_k_major<kN>(sK, 0, kk), 1);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+    }
+    // both warpgroups are done with k_lo: the next rotation may write it
+    named_sync(1, 128 * kConsumers);
+    if (work) {
+      // only blocks that cross the last key or the diagonal are masked;
+      // zero-filled rows past seq give scores of 0, so they are masked too
+      const bool mask = k0 + kN > seq || (causal && k0 + kN - 1 > wrow);
+      float mxa = -INFINITY, mxb = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float va = sc[4 * j + e] * scale_log2;
+          float vb = sc[4 * j + 2 + e] * scale_log2;
+          if (mask) {
+            const int c = k0 + 8 * j + cq + e;
+            if (c >= seq || (causal && c > ra)) va = -INFINITY;
+            if (c >= seq || (causal && c > rb)) vb = -INFINITY;
+          }
+          sc[4 * j + e] = va;
+          sc[4 * j + 2 + e] = vb;
+          mxa = fmaxf(mxa, va);
+          mxb = fmaxf(mxb, vb);
+        }
+      // finite from the first block on: column 0 is visible to every row
+      const float na = fmaxf(ma, quad_max(mxa));
+      const float nb = fmaxf(mb, quad_max(mxb));
+      const float alpha_a = exp2_(ma - na), alpha_b = exp2_(mb - nb);
+      ma = na;
+      mb = nb;
+      float sa = 0.0f, sb = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          sc[4 * j + e] = exp2_(sc[4 * j + e] - na);
+          sc[4 * j + 2 + e] = exp2_(sc[4 * j + 2 + e] - nb);
+          sa += sc[4 * j + e];
+          sb += sc[4 * j + 2 + e];
+        }
+      // per-thread partial sums of the unsplit P; the quad's are added at
+      // the end
+      sum_a = sum_a * alpha_a + sa;
+      sum_b = sum_b * alpha_b + sb;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j] *= alpha_a;
+        acc[4 * j + 1] *= alpha_a;
+        acc[4 * j + 2] *= alpha_b;
+        acc[4 * j + 3] *= alpha_b;
+      }
+      uint32_t ph[kN / 16][4], pl[kN / 16][4];
+      to_a_split<kN / 16>(sc, ph, pl);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk) pv_step<D, kN>(acc, pl[kk], sV, kk);
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk) pv_step<D, kN>(acc, ph[kk], sV, kk);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      fence_regs(ph);
+      fence_regs(pl);
+    }
+    mbar_arrive(bars.empty(s));
+    // the next block's K, rotated by both warpgroups before its products
+    if (it + 1 < nblk) {
+      mbar_wait(bars.full((it + 1) % kStages), ((it + 1) / kStages) & 1);
+      rope_tile<kN>(gbase + L.stage_at((it + 1) % kStages), gKlo, k0 + kN,
+                    seq, d, cos, sin, tab, ct);
+      fence_proxy_async();
+      named_sync(1, 128 * kConsumers);
+    }
+  }
+
+  if (!live) return;
+  sum_a = quad_sum(sum_a);
+  sum_b = quad_sum(sum_b);
+  if (ra < seq)
+    store_row<D>(o + (((long long)b * seq + ra) * heads + h) * d, acc, 0, cq,
+                 1.0f / sum_a, d);
+  if (rb < seq)
+    store_row<D>(o + (((long long)b * seq + rb) * heads + h) * d, acc, 1, cq,
+                 1.0f / sum_b, d);
+}
+
 // ------------------------------------------------------------ launches
 // The tensor map of a bf16 [batch, seq, heads, d] tensor read through its
 // strides (elements; multiples of 8, so 16-byte multiples in bytes, as
@@ -1380,6 +1696,25 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
       mq, mdo, mk, mv, static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), static_cast<bf16*>(a.dq), a.heads,
       a.sq, a.sk, a.d, a.scale, scale_log2, a.causal);
+  return cudaGetLastError();
+}
+
+template <int D, bool kPad>
+cudaError_t launch_rope_fwd(const FwdArgs& a, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  cudaError_t err;
+  if ((err = make_map(&mq, a.q, a.batch, a.sq, a.heads, a.d, a.qs, 128)) ||
+      (err = make_map(&mk, a.k, a.batch, a.sk, a.heads, a.d, a.ks, 128)) ||
+      (err = make_map(&mv, a.v, a.batch, a.sk, a.heads, a.d, a.vs, 128)))
+    return err;
+  constexpr int smem = rope_layout<D>().bytes();
+  if ((err = allow_smem(rope_attention_fwd_tc_kernel<D, kPad>, smem)))
+    return err;
+  dim3 grid((a.sq + 127) / 128, a.batch * a.heads);
+  rope_attention_fwd_tc_kernel<D, kPad><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<bf16*>(a.o), static_cast<const float*>(a.cos),
+      static_cast<const float*>(a.sin), a.tab_stride,
+      a.heads, a.sq, a.d, a.scale * kLog2e, a.causal);
   return cudaGetLastError();
 }
 
@@ -1472,6 +1807,12 @@ extern "C" int ptt_rope_attention_fwd(
             {v_sb, v_ss, v_sh}, batch, heads, seq, seq, head_dim, causal,
             scale, cos, sin, tab_stride};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == ptt::kBF16 && served(head_dim) && head_dim >= 64 &&
+      head_dim <= 128) {  // tensor cores, split products (d 80-112 padded)
+    if (head_dim == 64) return tc::launch_rope_fwd<64, false>(a, s);
+    if (head_dim == 128) return tc::launch_rope_fwd<128, false>(a, s);
+    return tc::launch_rope_fwd<128, true>(a, s);
+  }
   if (dtype == ptt::kBF16) return cc_fwd<__nv_bfloat16, true>(a, s);
   if (dtype == ptt::kF32) return cc_fwd<float, true>(a, s);
   return cudaErrorInvalidValue;

@@ -10,20 +10,50 @@
 // memory. The backward is autograd through the plain version (the JAX
 // _bwd is the VJP of _composed_2d), so there is no backward kernel.
 //
-// What bounds it on the H100: at the decode step (rows <= 16, the head
-// [8, 4096] x [4096, 32000]) bytes, the weight read once; at prefill and
-// in training (hundreds to thousands of rows) operations. Both kernels
-// below run on the CUDA cores in fp32 (67 TFLOP/s, not the tensor cores'
-// 989), so at prefill the operation rate keeps them far above their
-// bf16 bound; tensor cores (mma/wgmma) are the redesign's work.
+// What bounds it on the H100: at the decode step (the head [8, 4096] x
+// [4096, 32000]) bytes, the weight read once (262 MB); at prefill and
+// in training (hundreds to thousands of rows) operations (989 TFLOP/s
+// for bf16 on the tensor cores, 67 for fp32 on the CUDA cores).
 //
-// Two kernels, chosen by the row count, as the W8A16 matmul does:
+// Two designs, chosen by x's dtype:
+//
+// bf16: the tensor-core design (namespace tc, below; hopper.cuh). A
+// first kernel takes every row's rstd over the whole K into an fp32
+// [rows] buffer (a warp per row), so that no CTA re-reads its rows' whole
+// x before its first product. Then TMA brings the k-tiles of x and of wm
+// (128-byte swizzled; wm's [K, N] tiles, N contiguous, land directly in
+// the MN-major layout wgmma reads) into a ring of stages; the consumer
+// warpgroups build y = (x * rstd) * w in fp32, rounded to bf16 where
+// _normed_rows rounds, and multiply it with fp32 accumulators, the next
+// y built while the products before it run. Two kernels of one
+// template, as the W8A16 matmul's:
+// - swap-AB (rows up to 256: the decode step and short prefills): out^T
+//   = W^T y^T, the weight's 128 columns of a CTA fill wgmma's M side (64
+//   per consumer warpgroup) and the rows its N side (8 to 256); K is
+//   split into chunks so that the 250 column tiles of the Llama head
+//   give about two CTAs per SM, and the fp32 partials are summed in
+//   chunk order by a second kernel (no atomics: results repeat bit for
+//   bit);
+// - tiled (more rows, prefill): a CTA owns a 128 x 256 output tile (64
+//   rows per consumer warpgroup, one wgmma m64n256k16 per k-step) over
+//   all of K; the row tiles of one column tile are neighbours in the
+//   grid, so they share its weight tiles through the L2.
+// In both, each x tile is turned into the y tile in place in shared
+// memory and fenced for the async proxy, and one tile's products stay in
+// flight while the next tile is normalised. (Building y as wgmma's
+// register A operand instead, k-step by k-step, which keeps the normed
+// tile out of shared memory, measured slower on the tiled kernel: each
+// k-step's register fence waits for the products before it.)
+//
+// fp32 (O1 training's head: the op is on neither AMP list): the
+// CUDA-core design (the port's first kernels, below; the tensor cores
+// take fp32 only as TF32). Two kernels, chosen by the row count:
 // - narrow (rows <= 16): a CTA owns 128 columns and one chunk of at most
 //   kchunk K rows (split-K). Its prologue takes the rstd of every row
 //   over the whole K (a warp per row, 16-byte vectors, from L2 after the
-//   first CTA), then stages its chunk of y = round((x * rstd) * w) in
-//   shared memory as fp32 [k][row]. Each lane owns 4 columns and keeps
-//   two groups of kUnroll weight loads in flight (the next group's are
+//   first CTA), then stages its chunk of y = (x * rstd) * w in shared
+//   memory as fp32 [k][row]. Each lane owns 4 columns and keeps two
+//   groups of kUnroll weight loads in flight (the next group's are
 //   issued before the current group is used); the 8 warps take
 //   interleaved K rows and are summed through shared memory in warp
 //   order. With more than one chunk each chunk writes fp32 partials and
@@ -37,6 +67,7 @@
 //   held raw in registers during the current step's products), each
 //   thread an 8 x 8 register tile of fp32 FMAs.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -414,29 +445,377 @@ cudaError_t launch(const void* x, const void* w, const void* wm, void* out,
   return cudaGetLastError();
 }
 
+// rstd = rsqrt(mean(x^2) + eps) of every row, fp32 [rows]: a warp per row
+// (the tensor-core design's first kernel)
+template <typename TX>
+__global__ void __launch_bounds__(256)
+    norm_rstd_kernel(const TX* __restrict__ x, float* __restrict__ rstd,
+                     int rows, int K, float eps) {
+  const int r = blockIdx.x * 8 + threadIdx.x / 32;
+  if (r >= rows) return;
+  const float rs = row_rstd<TX>(x + (size_t)r * K, K, eps);
+  if ((threadIdx.x & 31) == 0) rstd[r] = rs;
+}
+
+// ================================================ bf16: tensor-core design
+// (ptt::hopper: TMA, mbarriers, wgmma with fp32 accumulators). A CTA owns
+// NT weight columns (128 swap-AB, 256 tiled); its producer warpgroup's
+// first thread keeps the k-tiles of x (XR rows x 64) and of wm (64 K rows
+// x NT columns, NT / 64 boxes) in flight through a ring of S stages
+// (full/empty mbarrier pair per stage); the two consumer warpgroups
+// build the normed y from each x tile in place in shared memory and run
+// wgmma on it.
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+using namespace ptt::hopper;
+
+constexpr int kKT = 64;    // K rows of a k-tile
+constexpr int kThreads = 384;
+constexpr int kConsumers = 256;
+
+// weight columns of a CTA: the swap-AB kernel's wgmma M side (64 per
+// consumer warpgroup), the tiled kernel's N side (one m64n256 product
+// per warpgroup: a 128 x 256 tile moves a quarter fewer shared-memory
+// bytes per product than 256 x 128, where the products and the
+// normalisation together outrun shared memory's 128 bytes a clock)
+template <bool kSwap>
+__host__ __device__ constexpr int cols() {
+  return kSwap ? 128 : 256;
+}
+
+// Shared memory: S stages of (x tile: XR rows x 64 bf16, 128-byte
+// swizzled; the wm tile: NT / 64 boxes of 64 K rows x 64 columns), the
+// barriers (full and empty per stage), and 1024 bytes to align the base.
+template <int XR, int S, int NT>
+struct Smem {
+  static constexpr int kX = XR * 128;
+  static constexpr int kW = kKT * NT * 2;
+  static constexpr int kStage = kX + kW;  // a multiple of 1024
+  static constexpr int kBars = S * kStage;
+  static constexpr int kBytes = kBars + 16 * S + 1024;
+};
+
+// stages of each design: the swap-AB kernel (few rows) keeps more weight
+// tiles in flight, and two of its CTAs share an SM up to 16 rows
+template <bool kSwap, int XR>
+__host__ __device__ constexpr int stages() {
+  return kSwap && XR <= 16 ? 6 : 4;
+}
+
+// _normed_rows' op order on a bf16 pair (lo in the low half): (x * rstd)
+// * w in fp32, rounded to bf16
+__device__ __forceinline__ uint32_t normed_pair(uint32_t x, float rs,
+                                                float w0, float w1) {
+  // a bf16 is the high half of its fp32 value
+  return pack_bf16(__fmul_rn(__fmul_rn(__uint_as_float(x << 16), rs), w0),
+                   __fmul_rn(__fmul_rn(__uint_as_float(x & 0xffff0000u), rs),
+                             w1));
+}
+
+// kSwap false (tiled, prefill; XR = 128): the CTA owns rows [row0, row0
+// + 128) (64 per consumer warpgroup) and weight columns [n0, n0 + 256),
+// over all of K: out = y W with wgmma m64n256k16, A = the y tile
+// (K-major), B = the wm tile (MN-major). Grid (row tiles, column tiles).
+// The producer warpgroup gives its registers to the consumers
+// (setmaxnreg), whose accumulators take 128.
+// kSwap true (swap-AB: decode, short prefills): the CTA owns weight
+// columns [n0, n0 + 128) (64 per consumer warpgroup) and the K rows of
+// one chunk, [kchunk * blockIdx.y, + kchunk): out^T = W^T y^T with wgmma
+// m64nXRk16, A = the consumer's 64-column box of the wm tile (MN-major:
+// the transpose flag), B = the y tile of XR rows (K-major). One chunk
+// writes out directly; more write fp32 partials that a second kernel
+// sums in chunk order.
+template <bool kSwap, int XR, typename TW>
+__global__ void __launch_bounds__(kThreads, kSwap && XR <= 16 ? 2 : 1)
+    norm_matmul_tc_kernel(const __grid_constant__ CUtensorMap mx,
+                          const __grid_constant__ CUtensorMap mw,
+                          const TW* __restrict__ w,
+                          const float* __restrict__ rstd,
+                          bf16* __restrict__ out, float* __restrict__ partial,
+                          int rows, int K, int N, int kchunk) {
+  constexpr int S = stages<kSwap, XR>();
+  constexpr int NT = cols<kSwap>();
+  using L = Smem<XR, S, NT>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - smem_addr(smem_raw));
+  const uint32_t full0 = base + L::kBars, empty0 = full0 + 8 * S;
+
+  const int n0 = (kSwap ? blockIdx.x : blockIdx.y) * NT;
+  const int row0 = kSwap ? 0 : blockIdx.x * XR;
+  const int k_begin = kSwap ? blockIdx.y * kchunk : 0;
+  const int k_end = kSwap ? min(K, k_begin + kchunk) : K;
+  const int ntiles = (k_end - k_begin + kKT - 1) / kKT;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers / 32) {  // the producer warpgroup: one thread loads
+    if constexpr (!kSwap) regs_release<40>();
+    if (warp == kConsumers / 32 && lane == 0) {
+      for (int it = 0; it < ntiles; ++it) {
+        const int s = it % S;
+        if (it >= S) mbar_wait(empty0 + 8 * s, ((it / S) & 1) ^ 1);
+        const uint32_t st = base + s * L::kStage;
+        const uint32_t bar = full0 + 8 * s;
+        const int k0 = k_begin + it * kKT;
+        mbar_arrive_expect_tx(bar, L::kStage);
+        tma_load_2d(st, &mx, bar, k0, row0);
+#pragma unroll
+        for (int j = 0; j < NT / 64; ++j)
+          tma_load_2d(st + L::kX + j * kKT * 128, &mw, bar, n0 + 64 * j, k0);
+      }
+    }
+    return;
+  }
+  if constexpr (!kSwap) regs_claim<232>();
+
+  const int t = threadIdx.x, wg = warp / 4, tw = t % 128;
+  // the accumulator (and register A) fragment of m64nW: thread tw holds
+  // fragment rows (tw / 32) * 16 + (tw % 32) / 4 (entries 4j, 4j + 1)
+  // and that + 8 (entries 4j + 2, 4j + 3), columns 8j + 2 (tw % 4) +
+  // {0, 1}
+  const int fr = (tw / 32) * 16 + lane / 4, cq = 2 * (lane % 4);
+  // accumulators: swap-AB one m64nXR tile; tiled one m64n256 tile, rows
+  // 64 wg of the CTA's rows
+  constexpr int kAcc = kSwap ? XR / 2 : NT / 2;
+  float acc[kAcc];
+#pragma unroll
+  for (int j = 0; j < kAcc; ++j) acc[j] = 0.0f;
+
+  // Normalisation in shared memory, in place: thread t owns the 16-byte
+  // chunk t % 8 of the x tile's rows t / 8 + 32 m; the swizzle puts the
+  // tile columns 8 (t % 8 ^ (t / 8) % 8) .. + 7 there in every such row,
+  // so a thread's 8 norm weights are the same for all its rows, and its
+  // rows' rstd stay in registers.
+  const int chunk = t % 8, r0 = t / 8;
+  const int kcol = 8 * (chunk ^ (r0 % 8));
+  constexpr int RM = XR >= 32 ? XR / 32 : 1;
+  const bool norm_on = r0 < XR;
+  float rs[RM];
+#pragma unroll
+  for (int m = 0; m < RM; ++m) {
+    const int r = row0 + r0 + 32 * m;
+    rs[m] = norm_on && r < rows ? rstd[r] : 0.0f;
+  }
+  // the tile's rows past `rows` and columns past K hold TMA's zeros
+  auto normalize = [&](int it) {
+    if (!norm_on) return;
+    const int k = k_begin + it * kKT + kcol;
+    float wv[8];
+    if (k < K) {  // K % 8 == 0: the 8 columns are all in or all out
+      ptt::load_floats<TW, 8>(w + k, wv);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) wv[j] = 0.0f;
+    }
+    uint8_t* xt = gbase + (it % S) * L::kStage + chunk * 16;
+#pragma unroll
+    for (int m = 0; m < RM; ++m) {
+      uint4* p = reinterpret_cast<uint4*>(xt + (r0 + 32 * m) * 128);
+      const uint4 raw = *p;
+      const uint32_t in[4] = {raw.x, raw.y, raw.z, raw.w};
+      uint32_t o[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        o[j] = normed_pair(in[j], rs[m], wv[2 * j], wv[2 * j + 1]);
+      *p = make_uint4(o[0], o[1], o[2], o[3]);
+    }
+  };
+
+  // one tile's products stay in flight while the next tile is normalised
+  // and its products issued: a stage is released once the products of
+  // the tile after it have been issued and its own are done
+  mbar_wait(full0, 0);
+  normalize(0);
+  fence_proxy_async();
+  named_sync(1, kConsumers);
+  wgmma_fence();
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % S;
+    const uint32_t sX = base + s * L::kStage;
+    const uint32_t sW = sX + L::kX;
+    // the accumulators stay where the products in flight write them
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < kKT / 16; ++kk) {
+      if constexpr (kSwap)
+        wgmma_ss_t<XR, 1, 0>(acc, desc_mn_major<kKT>(sW + wg * kKT * 128, kk),
+                             desc_k_major<XR>(sX, 0, kk), 1);
+      else
+        wgmma_ss_t<NT, 0, 1>(acc, desc_k_major<XR>(sX, 64 * wg, kk),
+                             desc_mn_major<kKT>(sW, kk), 1);
+    }
+    wgmma_commit();
+    fence_regs(acc);
+    if (it > 0) {  // the previous tile's products are done: free its stage
+      wgmma_wait<1>();
+      mbar_arrive(empty0 + 8 * ((it - 1) % S));
+    }
+    // the next tile is normalised while these products run
+    if (it + 1 < ntiles) {
+      mbar_wait(full0 + 8 * ((it + 1) % S), ((it + 1) / S) & 1);
+      normalize(it + 1);
+      fence_proxy_async();
+      named_sync(1, kConsumers);
+    }
+  }
+  wgmma_wait_all();
+  fence_regs(acc);
+
+  if constexpr (kSwap) {
+    // fragment rows are weight columns, fragment columns x rows
+    const bool direct = gridDim.y == 1;
+#pragma unroll
+    for (int j = 0; j < XR / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = n0 + 64 * wg + fr + (e >= 2 ? 8 : 0);
+        const int r = 8 * j + cq + (e & 1);
+        if (n >= N || r >= rows) continue;
+        const float v = acc[4 * j + e];
+        if (direct)
+          out[(size_t)r * N + n] = __float2bfloat16_rn(v);
+        else
+          partial[((size_t)blockIdx.y * rows + r) * N + n] = v;
+      }
+  } else {
+#pragma unroll
+    for (int j = 0; j < NT / 8; ++j) {
+      const int n = n0 + 8 * j + cq;  // N % 8 == 0: the pair is all in
+      if (n >= N) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = row0 + 64 * wg + fr + 8 * half;
+        if (r < rows)
+          *reinterpret_cast<uint32_t*>(out + (size_t)r * N + n) =
+              pack_bf16(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+      }
+    }
+  }
+}
+
+template <bool kSwap, int XR, typename TW>
+cudaError_t launch(const void* x, const void* w, const void* wm,
+                   const float* rstd, void* out, void* partial, int rows,
+                   int K, int N, int kchunk, cudaStream_t stream) {
+  CUtensorMap mx, mw;
+  cudaError_t err;
+  if ((err = make_map_2d(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, rows,
+                         (uint64_t)K * 2, 64, XR,
+                         CU_TENSOR_MAP_SWIZZLE_128B)) ||
+      (err = make_map_2d(&mw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, wm, N, K,
+                         (uint64_t)N * 2, 64, kKT,
+                         CU_TENSOR_MAP_SWIZZLE_128B)))
+    return err;
+  constexpr int NT = cols<kSwap>();
+  constexpr int smem = Smem<XR, stages<kSwap, XR>(), NT>::kBytes;
+  auto kernel = norm_matmul_tc_kernel<kSwap, XR, TW>;
+  if ((err = cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)))
+    return err;
+  const int col_tiles = (N + NT - 1) / NT;
+  const int chunks = kSwap ? (K + kchunk - 1) / kchunk : 1;
+  if (chunks > 1 && partial == nullptr) return cudaErrorInvalidValue;
+  const dim3 grid = kSwap ? dim3(col_tiles, chunks)
+                          : dim3((rows + XR - 1) / XR, col_tiles);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      mx, mw, static_cast<const TW*>(w), rstd, static_cast<bf16*>(out),
+      static_cast<float*>(partial), rows, K, N, kchunk);
+  if (chunks == 1) return cudaGetLastError();
+  if ((err = cudaGetLastError())) return err;
+  const int count = rows * N;
+  norm_matmul_split_sum_kernel<bf16><<<(count + 255) / 256, 256, 0, stream>>>(
+      static_cast<const float*>(partial), static_cast<bf16*>(out), chunks,
+      count);
+  return cudaGetLastError();
+}
+
+template <typename TW>
+cudaError_t dispatch(const void* x, const void* w, const void* wm,
+                     const float* rstd, void* out, void* partial, int rows,
+                     int K, int N, int kchunk, int swap_rows,
+                     cudaStream_t s) {
+  switch (swap_rows) {
+    case 0:
+      return launch<false, 128, TW>(x, w, wm, rstd, out, partial, rows, K, N,
+                                    kchunk, s);
+    case 8:
+      return launch<true, 8, TW>(x, w, wm, rstd, out, partial, rows, K, N,
+                                 kchunk, s);
+    case 16:
+      return launch<true, 16, TW>(x, w, wm, rstd, out, partial, rows, K, N,
+                                  kchunk, s);
+    case 32:
+      return launch<true, 32, TW>(x, w, wm, rstd, out, partial, rows, K, N,
+                                  kchunk, s);
+    case 64:
+      return launch<true, 64, TW>(x, w, wm, rstd, out, partial, rows, K, N,
+                                  kchunk, s);
+    case 128:
+      return launch<true, 128, TW>(x, w, wm, rstd, out, partial, rows, K, N,
+                                   kchunk, s);
+    case 256:
+      return launch<true, 256, TW>(x, w, wm, rstd, out, partial, rows, K, N,
+                                   kchunk, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace tc
+
+
 }  // namespace
 
-// x: [rows, K] and wm: [K, N] of x_dtype (fp32 or bf16); w: [K] of
-// w_dtype (x_dtype or fp32); out: [rows, N] of x_dtype. All contiguous
-// and 16-byte aligned; K and N multiples of 8 (the Python wrapper checks).
-// With rows <= 16 and K > kchunk, `partial` is fp32 scratch of
-// ceil(K / kchunk) * rows * N.
+// The CUDA-core design, fp32: x [rows, K], w [K] and wm [K, N] fp32,
+// out fp32 [rows, N]. All contiguous and 16-byte aligned; K and N
+// multiples of 8 (the Python wrapper checks). With rows <= 16 and K >
+// kchunk, `partial` is fp32 scratch of ceil(K / kchunk) * rows * N.
 extern "C" int ptt_rms_norm_matmul(const void* x, const void* w,
                                    const void* wm, void* out, void* partial,
                                    int rows, int K, int N, int kchunk,
-                                   int x_dtype, int w_dtype, float eps,
-                                   void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                                   float eps, void* stream) {
   if (rows == 0 || N == 0) return cudaSuccess;
   if (kchunk < 8 || kchunk % 8) return cudaErrorInvalidValue;
-  if (x_dtype == ptt::kBF16 && w_dtype == ptt::kBF16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(x, w, wm, out, partial, rows,
-                                                K, N, kchunk, eps, s);
-  if (x_dtype == ptt::kBF16 && w_dtype == ptt::kF32)
-    return launch<__nv_bfloat16, float>(x, w, wm, out, partial, rows, K, N,
-                                        kchunk, eps, s);
-  if (x_dtype == ptt::kF32 && w_dtype == ptt::kF32)
-    return launch<float, float>(x, w, wm, out, partial, rows, K, N, kchunk,
-                                eps, s);
-  return cudaErrorInvalidValue;
+  return launch<float, float>(x, w, wm, out, partial, rows, K, N, kchunk,
+                              eps, static_cast<cudaStream_t>(stream));
+}
+
+// The tensor-core design, bf16: x [rows, K] and wm [K, N] bf16, w [K]
+// of w_dtype (bf16 or fp32), out bf16 [rows, N]; rstd fp32 scratch of
+// rows (the first kernel writes it). All contiguous and 16-byte aligned,
+// K and N multiples of 8. swap_rows 0 runs the tiled kernel; 8, 16, 32,
+// 64, 128 or 256 the swap-AB kernel with a tile of that many rows (>=
+// rows), over K chunks of kchunk rows (a multiple of 64); with more than
+// one chunk, `partial` is fp32 scratch of ceil(K / kchunk) * rows * N.
+extern "C" int ptt_rms_norm_matmul_tc(const void* x, const void* w,
+                                      const void* wm, void* out, void* rstd,
+                                      void* partial, int rows, int K, int N,
+                                      int kchunk, int swap_rows, int w_dtype,
+                                      float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows == 0 || N == 0) return cudaSuccess;
+  if (K % 8 || N % 8 || kchunk < tc::kKT || kchunk % tc::kKT ||
+      (swap_rows != 0 && rows > swap_rows) ||
+      (w_dtype != ptt::kBF16 && w_dtype != ptt::kF32))
+    return cudaErrorInvalidValue;
+  norm_rstd_kernel<__nv_bfloat16><<<(rows + 7) / 8, 256, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<float*>(rstd), rows,
+      K, eps);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const float* rs = static_cast<const float*>(rstd);
+  if (w_dtype == ptt::kBF16)
+    return tc::dispatch<__nv_bfloat16>(x, w, wm, rs, out, partial, rows, K,
+                                       N, kchunk, swap_rows, s);
+  return tc::dispatch<float>(x, w, wm, rs, out, partial, rows, K, N, kchunk,
+                             swap_rows, s);
 }

@@ -37,7 +37,13 @@
 //   the chunk in flight at once (an int8 arena's scales, 4 bytes each,
 //   with 4-byte cp.async), one row per (D * size + pad) bytes: the pad
 //   makes the row stride an odd number of 16-byte units, so eight lanes
-//   reading eight rows at one column hit distinct banks. cp.async rather
+//   reading eight rows at one column hit distinct banks. A row whose
+//   bytes are not a multiple of 16 (int8 at a head dim of 8 mod 16, or
+//   any head dim that is not a multiple of 16) is copied in 8- or 4-byte
+//   cp.async pieces, or byte by byte where its bytes are odd, and its
+//   staged row is zero-filled from the arena's head dim to the compute
+//   width D (the next multiple of 16; the wrapper pads q to it and slices
+//   the output back). cp.async rather
 //   than TMA: a row of one kv head is contiguous and a warp's copies
 //   coalesce, the 4-byte scales are below TMA's 16-byte box minimum
 //   anyway, and no swizzle is needed for the readers.
@@ -63,8 +69,8 @@
 //   arrival counter that it resets to 0 for the next call) sums them in
 //   chunk order and writes q's dtype. No float atomics and no order that
 //   depends on timing: a call repeats bit for bit.
-// Any D that is a multiple of 16 up to 256 (a runtime argument), any G,
-// any row length up to the scratch the wrapper allocates from the table.
+// Any head dim up to 256 (a runtime argument), any G, any row length up
+// to the scratch the wrapper allocates from the table.
 #include <type_traits>
 
 #include "common.cuh"
@@ -113,6 +119,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                "l"(src)
                : "memory");
 }
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    smem_u32(dst)),
@@ -133,21 +145,55 @@ __device__ __forceinline__ size_t arena_slot(const int* trow, int t,
 
 // Issue the copies of the chunk's `cn` rows (slots t0 ..) of kv head kvh
 // into `tile` (rows `ld` bytes apart) and, for an int8 arena, of their
-// scales into `sc`. Completes at cp_async_wait_all.
+// scales into `sc`. A row holds dk values in the arena (its head dim)
+// and d in the tile (the compute width, a multiple of 16): rows of a
+// multiple of 16 bytes go in 16-byte copies, others in 8- or 4-byte
+// copies or, where their bytes are odd, byte by byte, and the tile's
+// columns from dk to d are zeroed. Completes at cp_async_wait_all (and
+// the barrier after it).
 template <typename TKV>
 __device__ __forceinline__ void stage_rows(uint8_t* tile, float* sc,
                                            const TKV* __restrict__ pages,
                                            const float* __restrict__ scales,
                                            const int* trow, int t0, int cn,
                                            int shift, int kv_heads, int kvh,
-                                           int d, int ld) {
-  const int vecs = d * (int)sizeof(TKV) / 16;  // 16-byte copies per row
-  for (int i = threadIdx.x; i < cn * vecs; i += kThreads) {
-    const int r = i / vecs, v = i - r * vecs;
+                                           int d, int dk, int ld) {
+  const int bytes = dk * (int)sizeof(TKV);  // of an arena row
+  auto src_row = [&](int r) {
     const size_t slot = arena_slot(trow, t0 + r, shift);
-    const uint8_t* src = reinterpret_cast<const uint8_t*>(
-        pages + (slot * kv_heads + kvh) * (size_t)d);
-    cp_async16(tile + r * ld + 16 * v, src + 16 * v);
+    return reinterpret_cast<const uint8_t*>(
+        pages + (slot * kv_heads + kvh) * (size_t)dk);
+  };
+  if (bytes % 16 == 0) {
+    const int vecs = bytes / 16;
+    for (int i = threadIdx.x; i < cn * vecs; i += kThreads) {
+      const int r = i / vecs, v = i - r * vecs;
+      cp_async16(tile + r * ld + 16 * v, src_row(r) + 16 * v);
+    }
+  } else if (bytes % 8 == 0) {
+    const int units = bytes / 8;
+    for (int i = threadIdx.x; i < cn * units; i += kThreads) {
+      const int r = i / units, v = i - r * units;
+      cp_async8(tile + r * ld + 8 * v, src_row(r) + 8 * v);
+    }
+  } else if (bytes % 4 == 0) {
+    const int units = bytes / 4;
+    for (int i = threadIdx.x; i < cn * units; i += kThreads) {
+      const int r = i / units, v = i - r * units;
+      cp_async4(tile + r * ld + 4 * v, src_row(r) + 4 * v);
+    }
+  } else {
+    for (int i = threadIdx.x; i < cn * bytes; i += kThreads) {
+      const int r = i / bytes, v = i - r * bytes;
+      tile[r * ld + v] = src_row(r)[v];
+    }
+  }
+  const int pad = d * (int)sizeof(TKV) - bytes;
+  if (pad > 0) {
+    for (int i = threadIdx.x; i < cn * pad; i += kThreads) {
+      const int r = i / pad;
+      tile[r * ld + bytes + (i - r * pad)] = 0;
+    }
   }
   if constexpr (kQuant<TKV>) {
     for (int r = threadIdx.x; r < cn; r += kThreads)
@@ -168,8 +214,10 @@ __device__ __forceinline__ void row8(const uint8_t* row, int c, float s,
   }
 }
 
+// d: the compute width (a multiple of 16: q, out and the staged rows);
+// dk: the arena's head dim (d - 15 .. d)
 struct Geometry {
-  int heads, kv_heads, d, page_size, table_width, chunk, max_chunks;
+  int heads, kv_heads, d, dk, page_size, table_width, chunk, max_chunks;
 };
 
 // ------------------------------------------------------ kernel 1: scores
@@ -202,7 +250,8 @@ __global__ void __launch_bounds__(kThreads)
 
   stage_rows<TKV>(tile, sc, k_pages, k_scale,
                   table + (size_t)b * geo.table_width, t0, cn,
-                  __ffs(geo.page_size) - 1, geo.kv_heads, kvh, d, ld);
+                  __ffs(geo.page_size) - 1, geo.kv_heads, kvh, d, geo.dk,
+                  ld);
   // [B * H] row of this kv head's first query head
   const size_t head0 = (size_t)b * geo.heads + (size_t)kvh * G;
 
@@ -295,7 +344,8 @@ __global__ void __launch_bounds__(kThreads)
 
   stage_rows<TKV>(tile, sc, v_pages, v_scale,
                   table + (size_t)b * geo.table_width, t0, cn,
-                  __ffs(geo.page_size) - 1, geo.kv_heads, kvh, d, ld);
+                  __ffs(geo.page_size) - 1, geo.kv_heads, kvh, d, geo.dk,
+                  ld);
   const size_t head0 = (size_t)b * geo.heads + (size_t)kvh * G;
 
   // the value product's work split: a thread owns 8 columns of HB heads
@@ -464,7 +514,8 @@ cudaError_t launch(const void* q, const void* k_pages, const void* k_scale,
                    const void* table, const void* pos, void* out,
                    const Scratch& ws, int batch, const Geometry& geo,
                    float scale, cudaStream_t stream) {
-  if (geo.d % 16 || geo.d < 16 || geo.d > 256 || geo.chunk < 1 ||
+  if (geo.d % 16 || geo.d < 16 || geo.d > 256 || geo.dk < 1 ||
+      geo.dk > geo.d || geo.d - geo.dk >= 16 || geo.chunk < 1 ||
       geo.heads % geo.kv_heads)
     return cudaErrorInvalidValue;
   // MHA keeps one head per thread; a group runs 4 heads per thread
@@ -479,7 +530,9 @@ cudaError_t launch(const void* q, const void* k_pages, const void* k_scale,
 }  // namespace
 
 // q/out: [batch, 1, heads, head_dim] (q_dtype); k_pages/v_pages:
-// [N, page_size, kv_heads, head_dim] (kv_dtype); table: int32 [batch,
+// [N, page_size, kv_heads, kv_dim] (kv_dtype), kv_dim the model's head
+// dim and head_dim the next multiple of 16 (q zero-padded to it); table:
+// int32 [batch,
 // table_width]; pos: int32 [batch]; scores: fp32 [batch, heads,
 // table_width * page_size]; stats: fp32 [batch, heads, max_chunks, 2];
 // partials: fp32 [batch, heads, max_chunks, head_dim]; counters: uint32
@@ -492,12 +545,12 @@ extern "C" int ptt_paged_attention_fwd(
     const void* q, const void* k_pages, const void* v_pages,
     const void* table, const void* pos, void* out, void* scores, void* stats,
     void* partials, void* counters, int batch, int heads, int kv_heads,
-    int head_dim, int page_size, int table_width, int chunk, int max_chunks,
-    int q_dtype, int kv_dtype, float scale, void* stream) {
+    int head_dim, int kv_dim, int page_size, int table_width, int chunk,
+    int max_chunks, int q_dtype, int kv_dtype, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch == 0) return cudaSuccess;
-  const Geometry geo{heads, kv_heads, head_dim, page_size, table_width,
-                     chunk, max_chunks};
+  const Geometry geo{heads,     kv_heads,    head_dim, kv_dim,
+                     page_size, table_width, chunk,    max_chunks};
   const Scratch ws{static_cast<float*>(scores), static_cast<float2*>(stats),
                    static_cast<float*>(partials),
                    static_cast<unsigned*>(counters)};
@@ -514,18 +567,19 @@ extern "C" int ptt_paged_attention_fwd(
 }
 
 // The int8 arena flavour: k_q/v_q int8 [N, page_size, kv_heads,
-// head_dim], k_scale/v_scale fp32 [N, page_size, kv_heads]; q fp32 or
+// kv_dim], k_scale/v_scale fp32 [N, page_size, kv_heads]; q fp32 or
 // bf16. Otherwise as ptt_paged_attention_fwd.
 extern "C" int ptt_paged_attention_int8_fwd(
     const void* q, const void* k_q, const void* k_scale, const void* v_q,
     const void* v_scale, const void* table, const void* pos, void* out,
     void* scores, void* stats, void* partials, void* counters, int batch,
-    int heads, int kv_heads, int head_dim, int page_size, int table_width,
-    int chunk, int max_chunks, int q_dtype, float scale, void* stream) {
+    int heads, int kv_heads, int head_dim, int kv_dim, int page_size,
+    int table_width, int chunk, int max_chunks, int q_dtype, float scale,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch == 0) return cudaSuccess;
-  const Geometry geo{heads, kv_heads, head_dim, page_size, table_width,
-                     chunk, max_chunks};
+  const Geometry geo{heads,     kv_heads,    head_dim, kv_dim,
+                     page_size, table_width, chunk,    max_chunks};
   const Scratch ws{static_cast<float*>(scores), static_cast<float2*>(stats),
                    static_cast<float*>(partials),
                    static_cast<unsigned*>(counters)};

@@ -16,17 +16,20 @@ PyTorch version (counterpart of ``paddle_tpu/kernels``).
   CUDA cores
 - :mod:`.fused_norm_matmul` (``csrc/fused_norm_matmul.cu``) <-
   ``kernels/fused_norm_matmul.py``, RMSNorm + matmul (the Llama head);
-  its backward is the plain version's VJP, as in JAX
+  bf16 on the tensor cores, fp32 on the CUDA cores; its backward is the
+  plain version's VJP, as in JAX
 - :mod:`.fused_rope_attention` (``csrc/flash_attention.cu``, the
-  rope-on-load forward) <- ``kernels/fused_rope_attention.py``; its
-  backward is the plain version's VJP, as in JAX
+  rope-on-load forward) <- ``kernels/fused_rope_attention.py``; bf16 on
+  the tensor cores (split products that keep the fp32 contract), fp32 on
+  the CUDA cores; its backward is the plain version's VJP, as in JAX
 
 With these every ``pl.pallas_call`` of the JAX package has a hand-written
 counterpart. Each module counts the kernel launches it made
 (``launches`` for the forward, ``bwd_launches`` for the backward,
-``int8_launches`` for the int8 paged attention; flash attention and
-the W8A16 matmul also per design, :func:`flash_design_counts` and
-:func:`int8_matmul_design_counts`); :mod:`._build` compiles
+``int8_launches`` for the int8 paged attention; flash attention, the
+W8A16 matmul and the two fusions also per design,
+:func:`flash_design_counts`, :func:`int8_matmul_design_counts` and
+:func:`fusion_design_counts`); :mod:`._build` compiles
 ``csrc/`` with nvcc at first use.
 """
 from . import (  # noqa: F401
@@ -55,10 +58,16 @@ KERNELS = {
 }
 
 
+# modules that also count their launches by design (tensor cores "tc",
+# CUDA cores "cc")
+DESIGN_MODULES = (flash_attention, int8_matmul, fused_norm_matmul,
+                  fused_rope_attention)
+
+
 def reset_launch_counts():
     for mod, attr in KERNELS.values():
         setattr(mod, attr, 0)
-    for mod in (flash_attention, int8_matmul):
+    for mod in DESIGN_MODULES:
         for attr in mod.DESIGN_COUNTERS:
             setattr(mod, attr, 0)
 
@@ -81,3 +90,12 @@ def int8_matmul_design_counts():
     (bf16 x), ``cc_launches`` the CUDA-core kernels (fp32 x)."""
     return {attr: getattr(int8_matmul, attr)
             for attr in int8_matmul.DESIGN_COUNTERS}
+
+
+def fusion_design_counts():
+    """The two fusions' launches by design: ``{"rms_norm_matmul": {...},
+    "rope_attention": {...}}``, each ``tc_launches`` (tensor cores: bf16)
+    and ``cc_launches`` (CUDA cores)."""
+    return {name: {attr: getattr(mod, attr) for attr in mod.DESIGN_COUNTERS}
+            for name, mod in (("rms_norm_matmul", fused_norm_matmul),
+                              ("rope_attention", fused_rope_attention))}

@@ -56,13 +56,15 @@ SIGNATURES = {
     "ptt_rope_bwd": [_P, _P, _I, _P, _P, _I, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _P],
     # q, k_pages, v_pages, table, pos, out, scores, stats, partials,
-    # counters, batch, heads, kv_heads, head_dim, page_size, table_width,
-    # chunk, max_chunks, q_dtype, kv_dtype, scale, stream
-    "ptt_paged_attention_fwd": [_P] * 10 + [_I] * 10 + [_F, _P],
+    # counters, batch, heads, kv_heads, head_dim (padded), kv_dim,
+    # page_size, table_width, chunk, max_chunks, q_dtype, kv_dtype, scale,
+    # stream
+    "ptt_paged_attention_fwd": [_P] * 10 + [_I] * 11 + [_F, _P],
     # q, k_q, k_scale, v_q, v_scale, table, pos, out, scores, stats,
-    # partials, counters, batch, heads, kv_heads, head_dim, page_size,
-    # table_width, chunk, max_chunks, q_dtype, scale, stream
-    "ptt_paged_attention_int8_fwd": [_P] * 12 + [_I] * 9 + [_F, _P],
+    # partials, counters, batch, heads, kv_heads, head_dim (padded),
+    # kv_dim, page_size, table_width, chunk, max_chunks, q_dtype, scale,
+    # stream
+    "ptt_paged_attention_int8_fwd": [_P] * 12 + [_I] * 10 + [_F, _P],
     # x (fp32), w_q, scale, out, partial (or null), rows, K, N, kchunk,
     # stream
     "ptt_int8_matmul": [_P] * 5 + [_I] * 4 + [_P],
@@ -78,9 +80,14 @@ SIGNATURES = {
     # dtype, stream
     "ptt_rope_attention_fwd": [_P] * 6 + [_L] + [_I] * 4 + [_L] * 9
     + [_I, _F, _I, _P],
-    # x, w, wm, out, partial (or null), rows, K, N, kchunk, x_dtype,
-    # w_dtype, eps, stream
-    "ptt_rms_norm_matmul": [_P] * 5 + [_I] * 6 + [_F, _P],
+    # x, w, wm, out, partial (or null), rows, K, N, kchunk, eps, stream
+    # (fp32)
+    "ptt_rms_norm_matmul": [_P] * 5 + [_I] * 4 + [_F, _P],
+    # x, w, wm, out, rstd, partial (or null), rows, K, N, kchunk,
+    # swap_rows (0: the tiled kernel), w_dtype, eps, stream (bf16)
+    "ptt_rms_norm_matmul_tc": [_P] * 6 + [_I] * 6 + [_F, _P],
+    # stream: an empty kernel (the launch floor)
+    "ptt_empty": [_P],
     # q, k, v, o, dout, lse, delta, dq, dk, dv, batch, heads, sq, sk,
     # head_dim, strides of q, k, v, o, dout, causal, scale, dtype, stream
     "ptt_flash_attention_bwd": [_P] * 10 + [_I] * 5 + [_L] * 15
@@ -201,6 +208,17 @@ def check(err, name):
             f"{name}: CUDA error {err}: "
             f"{msg.decode() if msg else 'unknown'}"
         )
+
+
+def launch_empty(device):
+    """Launch the library's empty kernel on ``device``'s current stream,
+    through the ctypes path every kernel takes: timed back to back, the
+    floor under any kernel's time."""
+    dev = torch.device(device)
+    with torch.cuda.device(dev):
+        err = load().ptt_empty(
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    check(err, "ptt_empty")
 
 
 def stream_of(t):

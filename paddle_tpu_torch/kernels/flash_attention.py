@@ -16,10 +16,14 @@ cores take fp32 only as TF32, about three decimal digits, and the fp32
 models are held to 1e-5 against the CPU; bf16 below D 64 (below the
 tensor-core tiles' 64-column unit) and the bf16 backward above D 128
 (its accumulators do not fit a consumer's registers). Each design counts
-its own launches beside the totals. Every head dim that is a multiple of
-16 up to 256 runs: a kernel is built at the next of 16, 32, 64, 128 and
-256 and masks the columns past D (D 80 runs the 128-wide kernels); any
-other head dim is refused (ROADMAP.md queue C).
+its own launches beside the totals. Every head dim up to 256 runs: one
+that is not a multiple of 16 is zero-padded into a copy up to the next
+multiple (:func:`pad_head_dim`; zero columns add exact zeros to every
+fp32 sum, and the softmax scale stays 1/sqrt of the true head dim), and
+the outputs and gradients are sliced back; a kernel is built at the next
+of 16, 32, 64, 128 and 256 and masks the columns past its width (D 80
+runs the 128-wide kernels). A head dim above 256 is refused (ROADMAP.md
+queue C item 1).
 
 Shape contract (the paddle layout, as in the TPU module): q ``[B, Sq, H,
 D]``, k and v ``[B, Sk, H, D]`` with equal head counts, read through
@@ -62,26 +66,66 @@ DESIGN_COUNTERS = ("tc_launches", "tc_bwd_launches", "cc_launches",
                    "cc_bwd_launches")
 DESIGNS = {"tc": "wgmma", "cc": "cuda-core"}
 
-# head dims the kernels take: multiples of HEAD_DIM_STEP up to
-# MAX_HEAD_DIM; the tensor-core kernels take bf16 from TC_MIN_HEAD_DIM up
-# to TC_MAX_HEAD_DIM (forward, backward)
+# head dims the kernels take: any up to MAX_HEAD_DIM, run at the next
+# multiple of HEAD_DIM_STEP; the tensor-core kernels take bf16 whose
+# padded head dim is from TC_MIN_HEAD_DIM up to TC_MAX_HEAD_DIM (forward,
+# backward)
 HEAD_DIM_STEP, MAX_HEAD_DIM = 16, 256
 TC_MIN_HEAD_DIM = 64
 TC_MAX_HEAD_DIM = {False: 256, True: 128}
 
 
 def served(head_dim):
-    """Whether the kernels take ``head_dim`` (a multiple of 16 up to
+    """Whether the attention kernels take ``head_dim`` (any from 1 up to
     256)."""
-    return head_dim % HEAD_DIM_STEP == 0 \
-        and HEAD_DIM_STEP <= head_dim <= MAX_HEAD_DIM
+    return 1 <= head_dim <= MAX_HEAD_DIM
+
+
+def padded_head_dim(head_dim):
+    """The head dim the kernels run at: the next multiple of 16."""
+    return -(-head_dim // HEAD_DIM_STEP) * HEAD_DIM_STEP
+
+
+def pad_head_dim(t, width):
+    """``t`` with its last axis zero-padded to ``width`` (a copy), or
+    ``t`` itself when it is that wide already."""
+    d = int(t.shape[-1])
+    if d == width:
+        return t
+    return torch.nn.functional.pad(t, (0, width - d))
+
+
+def padded_forward(fn, q, k, v, causal, scale):
+    """``fn(q, k, v, causal, scale) -> (O, LSE)`` at the padded head dim:
+    q, k, v zero-padded to it (when they are not that wide), O sliced
+    back. ``scale`` is the true head dim's."""
+    d = int(q.shape[-1])
+    dp = padded_head_dim(d)
+    if dp == d:
+        return fn(q, k, v, causal, scale)
+    o, lse = fn(*(pad_head_dim(t, dp) for t in (q, k, v)), causal, scale)
+    return o[..., :d].contiguous(), lse
+
+
+def padded_backward(fn, q, k, v, o, lse, do, causal, scale):
+    """``fn(q, k, v, o, lse, do, causal, scale) -> (dq, dk, dv)`` at the
+    padded head dim, the gradients sliced back (a zero column of q, k, v,
+    o and dO gives zero gradient columns and adds nothing to Delta)."""
+    d = int(q.shape[-1])
+    dp = padded_head_dim(d)
+    if dp == d:
+        return fn(q, k, v, o, lse, do, causal, scale)
+    grads = fn(*(pad_head_dim(t, dp) for t in (q, k, v, o)), lse,
+               pad_head_dim(do, dp), causal, scale)
+    return tuple(g[..., :d].contiguous() for g in grads)
 
 
 def design(dtype, head_dim, backward=False):
     """``"tc"`` (tensor cores) or ``"cc"`` (CUDA cores): the design the C
-    entry points run for this dtype and head dim."""
+    entry points run for this dtype and (padded) head dim."""
     if dtype == torch.bfloat16 and served(head_dim) \
-            and TC_MIN_HEAD_DIM <= head_dim <= TC_MAX_HEAD_DIM[backward]:
+            and TC_MIN_HEAD_DIM <= padded_head_dim(head_dim) \
+            <= TC_MAX_HEAD_DIM[backward]:
         return "tc"
     return "cc"
 
@@ -91,9 +135,9 @@ def check_head_dim(d, what="flash attention kernel"):
     paged) do not take, naming the queue that lists it."""
     if not served(d):
         raise ValueError(
-            f"{what} takes a head_dim that is a multiple of "
-            f"{HEAD_DIM_STEP} up to {MAX_HEAD_DIM}, got {d} (other head "
-            f"dims are refused: ROADMAP.md queue C)")
+            f"{what} takes a head_dim up to {MAX_HEAD_DIM}, got {d} (a "
+            f"wider head needs kernels tiled over the head dim: ROADMAP.md "
+            f"queue C item 1)")
 
 
 def _scale_of(q, scale):
@@ -305,9 +349,18 @@ def _count(dtype, head_dim, backward):
 def flash_attention_cuda(q, k, v, causal=False, scale=None):
     """Launch the forward of ``csrc/flash_attention.cu``: ``(O, LSE)``;
     :func:`design` says which kernel runs."""
-    b, sq, sk, h, d = _check_shapes(q, k, v, causal)
-    dev = _check_cuda((("q", q), ("k", k), ("v", v)), q.dtype)
+    _, _, _, _, d = _check_shapes(q, k, v, causal)
+    _check_cuda((("q", q), ("k", k), ("v", v)), q.dtype)
     check_head_dim(d)
+    out = padded_forward(_launch_fwd, q, k, v, causal, _scale_of(q, scale))
+    _count(q.dtype, d, backward=False)
+    return out
+
+
+def _launch_fwd(q, k, v, causal, scale):
+    """The forward launch at a head dim that is a multiple of 16."""
+    b, sq, sk, h, d = _check_shapes(q, k, v, causal)
+    dev = q.device
     vec = 16 // q.element_size()
     st = [_strides(t, n, vec) for n, t in (("q", q), ("k", k), ("v", v))]
     lib = _build.load()
@@ -317,11 +370,10 @@ def flash_attention_cuda(q, k, v, causal=False, scale=None):
         err = lib.ptt_flash_attention_fwd(
             _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),
             _build.ptr(lse), b, h, sq, sk, d, *st[0], *st[1], *st[2],
-            int(bool(causal)), _scale_of(q, scale),
-            _build.DTYPE_CODES[q.dtype], _build.stream_of(q),
+            int(bool(causal)), scale, _build.DTYPE_CODES[q.dtype],
+            _build.stream_of(q),
         )
     _build.check(err, "ptt_flash_attention_fwd")
-    _count(q.dtype, d, backward=False)
     return o, lse
 
 
@@ -346,6 +398,17 @@ def flash_attention_backward_cuda(q, k, v, o, lse, do, causal=False,
             or not lse.is_contiguous() or lse.device != dev:
         raise ValueError(f"flash attention backward: lse must be the "
                          f"forward's contiguous fp32 [{b}, {h}, {sq}]")
+    grads = padded_backward(_launch_bwd, q, k, v, o, lse, do, causal,
+                            _scale_of(q, scale))
+    _count(q.dtype, d, backward=True)
+    return grads
+
+
+def _launch_bwd(q, k, v, o, lse, do, causal, scale):
+    """The backward launch at a head dim that is a multiple of 16."""
+    b, sq, sk, h, d = _check_shapes(q, k, v, causal)
+    dev = q.device
+    vec = 16 // q.element_size()
     st = [_strides(t, n, vec) for n, t in
           (("q", q), ("k", k), ("v", v), ("o", o), ("dout", do))]
     lib = _build.load()
@@ -359,9 +422,7 @@ def flash_attention_backward_cuda(q, k, v, o, lse, do, causal=False,
             _build.ptr(do), _build.ptr(lse), _build.ptr(delta),
             _build.ptr(dq), _build.ptr(dk), _build.ptr(dv), b, h, sq, sk, d,
             *st[0], *st[1], *st[2], *st[3], *st[4], int(bool(causal)),
-            _scale_of(q, scale), _build.DTYPE_CODES[q.dtype],
-            _build.stream_of(q),
+            scale, _build.DTYPE_CODES[q.dtype], _build.stream_of(q),
         )
     _build.check(err, "ptt_flash_attention_bwd")
-    _count(q.dtype, d, backward=True)
     return dq, dk, dv

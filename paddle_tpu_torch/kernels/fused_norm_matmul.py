@@ -24,19 +24,47 @@ In the port this kernel runs where the model selects the fusion
 (``LlamaForCausalLM(fusions={"rms_norm_matmul"})``): the JAX package
 selects its TPU kernel through the tune cache (``head_fusion_select``),
 which is not ported.
+
+Two designs, chosen by x's dtype (:func:`design`): bf16 runs the
+tensor-core kernels (``ptt_rms_norm_matmul_tc``: an rstd pre-pass, then
+wgmma on the normed tile built in shared memory; the swap-AB kernel up
+to :data:`SWAP_MAX_ROWS` rows, split over K chunks, the tiled kernel
+above), fp32 the CUDA-core ones (``ptt_rms_norm_matmul``), because the
+tensor cores take fp32 only as TF32. ``tc_launches`` and
+``cc_launches`` count each design beside ``launches``.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
+from .int8_matmul import SWAP_TILES, TC_KTILE, swap_kchunk
 
-launches = 0  # one per call (the decode split-K sum is part of it)
+# one per call (the rstd pre-pass and the split-K sum are part of it),
+# and the same split by design: tensor cores (bf16), CUDA cores (fp32)
+launches = 0
+tc_launches = 0
+cc_launches = 0
+DESIGN_COUNTERS = ("tc_launches", "cc_launches")
 
 X_DTYPES = (torch.float32, torch.bfloat16)
-K_CHUNK = 512  # K rows per CTA of the narrow (rows <= 16) kernel
+K_CHUNK = 512  # K rows per CTA of the narrow (rows <= 16) CUDA-core kernel
 NARROW_ROWS = 16
-VEC = 8  # elements of the wide kernel's vectors: H and N are multiples
+VEC = 8  # elements of the kernels' vectors: H and N are multiples
+# rows up to which the tensor-core design runs the swap-AB kernel: the
+# crossover with the tiled kernel, measured by chip_smoke.py's sweep at
+# the Llama head (the swap-AB kernel is faster up to 64 rows, the tiled
+# one from 128)
+SWAP_MAX_ROWS = 64
+# CTAs per SM the swap-AB kernel's K split aims at: one is enough to fill
+# the card with the lm_head's 250 column tiles, and spares the second
+# kernel that sums the chunks
+SWAP_CTAS_PER_SM = 1
+
+
+def design(dtype):
+    """``"tc"`` (tensor cores, bf16 x) or ``"cc"`` (CUDA cores, fp32 x)."""
+    return "tc" if dtype == torch.bfloat16 else "cc"
 
 
 def _scaled_rows(x2d, w, eps):
@@ -121,9 +149,39 @@ def rms_norm_matmul(x, w, wm, eps=1e-6):
 
 
 def rms_norm_matmul_cuda(x, w, wm, eps=1e-6):
-    """Launch ``csrc/fused_norm_matmul.cu``; raises on anything it does
-    not take."""
-    global launches
+    """Launch ``csrc/fused_norm_matmul.cu``: the design :func:`design`
+    gives for x's dtype (bf16: the swap-AB kernel up to
+    :data:`SWAP_MAX_ROWS` rows, the tiled one above); raises on anything
+    it does not take."""
+    global launches, cc_launches
+    x2, h, n = _checked(x, w, wm)
+    rows = int(x2.shape[0])
+    if design(x.dtype) == "tc":
+        out = _tc_kernel(x2, w, wm, eps,
+                         "swap" if rows <= SWAP_MAX_ROWS else "tiled")
+    else:
+        dev = x.device
+        out = torch.empty((rows, n), dtype=x.dtype, device=dev)
+        chunks = -(-h // K_CHUNK)
+        partial = None
+        if rows <= NARROW_ROWS and chunks > 1:
+            partial = torch.empty((chunks, rows, n), dtype=torch.float32,
+                                  device=dev)
+        with torch.cuda.device(dev):
+            err = _build.load().ptt_rms_norm_matmul(
+                _build.ptr(x2), _build.ptr(w), _build.ptr(wm),
+                _build.ptr(out),
+                None if partial is None else _build.ptr(partial),
+                rows, h, n, K_CHUNK, float(eps), _build.stream_of(x),
+            )
+        _build.check(err, "ptt_rms_norm_matmul")
+        cc_launches += 1
+        launches += 1
+    return out.reshape(tuple(x.shape[:-1]) + (n,))
+
+
+def _checked(x, w, wm):
+    """The kernels' checks of their inputs: (x as ``[rows, H]``, H, N)."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"rms_norm_matmul kernel needs CUDA tensors, got "
@@ -154,21 +212,41 @@ def rms_norm_matmul_cuda(x, w, wm, eps=1e-6):
     if any(t.data_ptr() % 16 for t in (x2, w, wm)):
         raise ValueError("rms_norm_matmul kernel needs 16-byte aligned x, "
                          "w and wm")
-    rows = int(x2.shape[0])
-    out = torch.empty((rows, n), dtype=x.dtype, device=dev)
-    chunks = -(-h // K_CHUNK)
-    partial = None
-    if rows <= NARROW_ROWS and chunks > 1:
-        partial = torch.empty((chunks, rows, n), dtype=torch.float32,
-                              device=dev)
-    lib = _build.load()
+    return x2, h, n
+
+
+def _tc_kernel(x2, w, wm, eps, kernel):
+    """One tensor-core kernel, "swap" or "tiled" (each after the rstd
+    pre-pass), on checked bf16 x2 ``[rows, H]``: the out ``[rows, N]``.
+    :func:`rms_norm_matmul_cuda` picks the kernel; ``chip_smoke.py``'s
+    crossover sweep names each one."""
+    global launches, tc_launches
+    rows, h = (int(v) for v in x2.shape)
+    n = int(wm.shape[1])
+    if x2.dtype != torch.bfloat16 or kernel not in ("swap", "tiled") or (
+            kernel == "swap" and rows > SWAP_TILES[-1]):
+        raise ValueError(f"rms_norm_matmul: no {kernel!r} kernel for "
+                         f"{x2.dtype} x of {rows} rows")
+    dev = x2.device
+    out = torch.empty((rows, n), dtype=x2.dtype, device=dev)
+    rstd = torch.empty((rows,), dtype=torch.float32, device=dev)
+    swap_rows, kchunk, partial = 0, TC_KTILE, None
+    if kernel == "swap":
+        swap_rows = next(t for t in SWAP_TILES if t >= rows)
+        kchunk = swap_kchunk(h, n, _build.sm_count(dev), SWAP_CTAS_PER_SM)
+        chunks = -(-h // kchunk)
+        if chunks > 1:
+            partial = torch.empty((chunks, rows, n), dtype=torch.float32,
+                                  device=dev)
     with torch.cuda.device(dev):
-        err = lib.ptt_rms_norm_matmul(
+        err = _build.load().ptt_rms_norm_matmul_tc(
             _build.ptr(x2), _build.ptr(w), _build.ptr(wm), _build.ptr(out),
+            _build.ptr(rstd),
             None if partial is None else _build.ptr(partial),
-            rows, h, n, K_CHUNK, _build.DTYPE_CODES[x.dtype],
-            _build.DTYPE_CODES[w.dtype], float(eps), _build.stream_of(x),
+            rows, h, n, kchunk, swap_rows, _build.DTYPE_CODES[w.dtype],
+            float(eps), _build.stream_of(x2),
         )
-    _build.check(err, "ptt_rms_norm_matmul")
+    _build.check(err, "ptt_rms_norm_matmul_tc")
+    tc_launches += 1
     launches += 1
-    return out.reshape(tuple(x.shape[:-1]) + (n,))
+    return out

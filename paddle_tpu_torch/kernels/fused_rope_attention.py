@@ -32,6 +32,18 @@ selects its TPU kernel through the tune cache
 (``rope_attention_select``), which is not ported. The TPU kernel's
 ``S % block_q`` restriction is a tiling artefact and is not ported: the
 kernel takes any S and masks the ragged tail.
+
+Two designs, chosen by dtype and head dim (:func:`design`): bf16 whose
+padded head dim is 64 to 128 runs the tensor-core kernel
+(``tc::rope_attention_fwd_tc_kernel``), which keeps the fp32 contract by
+splitting each rotated q and k value and each probability into bf16 hi
+and lo parts (five bf16 products, fp32 accumulators;
+:func:`split_product_slack` bounds what that moves); fp32 and other
+bf16 head dims run the CUDA-core kernel (fp32 FMAs). ``tc_launches``
+and ``cc_launches`` count each design beside ``launches``. A head dim
+that is not a multiple of 16 is padded into a copy half by half
+(``[x1, 0, x2, 0]``, the tables with zero columns), so column c still
+pairs with c + D/2 of the true D, and the output is sliced back.
 """
 from __future__ import annotations
 
@@ -40,9 +52,27 @@ import math
 import torch
 
 from . import _build
-from .flash_attention import check_head_dim
+from .flash_attention import (TC_MIN_HEAD_DIM, check_head_dim,
+                              padded_head_dim)
+from .rope import pad_halves, unpad_halves
 
+# launches, and the same split by design: tensor cores (bf16 at a padded
+# head dim of 64 to 128), CUDA cores (the rest)
 launches = 0
+tc_launches = 0
+cc_launches = 0
+DESIGN_COUNTERS = ("tc_launches", "cc_launches")
+TC_MAX_HEAD_DIM = 128
+
+
+def design(dtype, head_dim):
+    """``"tc"`` (tensor cores, split products) or ``"cc"`` (CUDA cores):
+    the design ``ptt_rope_attention_fwd`` runs for this dtype and head
+    dim."""
+    if dtype == torch.bfloat16 and TC_MIN_HEAD_DIM <= padded_head_dim(
+            head_dim) <= TC_MAX_HEAD_DIM:
+        return "tc"
+    return "cc"
 
 
 def _table_2d(t):
@@ -108,6 +138,48 @@ def _composed(q, k, v, cos2, sin2, causal, scale):
     return torch.matmul(p, vt).to(q.dtype).transpose(1, 2)
 
 
+def split_product_slack(q, k, v, cos, sin, causal=True, scale=None):
+    """Per output entry ``[B, S, H, D]`` (fp32), how far the tensor-core
+    kernel's split products may move the output from the fp32 function
+    before its final cast.
+
+    Derivation. bf16 keeps 8 significant bits, so rounding to it moves x
+    by at most ``u |x|``, ``u = 2^-8``. The kernel writes an fp32 value x
+    as ``hi = bf16(x)`` and ``lo = bf16(x - hi)``; ``x - hi`` is exact,
+    so ``|x - hi - lo| <= u^2 |x| = 2^-16 |x|`` and ``|lo| <= u (1 + u)
+    |x|``. With q = q_hi + q_lo + e_q and k likewise, ``q . k`` minus the
+    three products the kernel takes (``q_hi k_hi + q_hi k_lo + q_lo
+    k_hi``) is ``q_lo k_lo + e_q k + (q_hi + q_lo) e_k`` term by term:
+    at most ``(u^2 (1 + u)^2 + 2^-16 + 2^-16 (1 + u)) |q_c| |k_c|``, under
+    ``3.02 * 2^-16 |q_c| |k_c|``. The tensor cores' fp32 sums over the
+    ``3 D / 16`` k-steps add at most ``2^-23`` of the running sum of
+    absolute values each, ``3 D / 16 * 2^-23 = 0.19 * 2^-16`` at D 128.
+    So each scaled score moves by at most ``E_rc = 2^-14 scale sum_c
+    |q_rc| |k_c|`` (the rotated q and k). A perturbation ``delta`` of the
+    scores, ``|delta_c| <= E_c``, scales ``p_c`` by ``e^delta_c / sum_j
+    p_j e^delta_j``, which lies within ``e^(+-(E_c + F))``, ``F = sum_j
+    p_j (e^E_j - 1)`` (Jensen above, ``1 + x <= e^x`` below), so the
+    output moves by at most ``sum_c p_c (e^(E_c + F) - 1) |v_c|``. P is
+    split the same way: ``P_hi + P_lo`` is within ``2^-16 p_c`` of p_c;
+    the hardware exp2 (2 ulp) and the fp32 scaling of the scores move
+    each p_c by under ``2^-20`` of itself; and the fp32 sums of P V over
+    the row's n keys add at most ``n 2^-24`` of ``sum_c p_c |v_c|``: that
+    adds ``(2^-16 + 2^-20 + n 2^-24) sum_c p_c |v_c|``. The plain
+    version's own fp32 sums are covered by the same terms."""
+    cos2, sin2 = _check(q, k, v, cos, sin)
+    scale = _scale_of(q, scale)
+    qt, kt, vt = (t.transpose(1, 2).float() for t in (q, k, v))
+    c = cos2.float()[None, None]
+    s = sin2.float()[None, None]
+    rq, rk = _rotate(qt, c, s), _rotate(kt, c, s)
+    e = 2.0 ** -14 * scale * torch.matmul(rq.abs(), rk.abs().transpose(-1, -2))
+    p = _attn_rows(torch.matmul(rq, rk.transpose(-1, -2)), bool(causal), scale)
+    f = (p * torch.expm1(e)).sum(-1, keepdim=True)
+    n = int(q.shape[1])
+    w = p * (torch.expm1(e + f) + 2.0 ** -16 + 2.0 ** -20 + n * 2.0 ** -24)
+    return torch.matmul(w, vt.abs()).transpose(1, 2)
+
+
 def rope_attention_reference(q, k, v, cos, sin, causal=True, scale=None):
     """Plain PyTorch version, in ``_composed_2d_tables``' order:
     everything fp32, rotate, scores, exact softmax, ``P @ V``, one
@@ -161,12 +233,30 @@ def _strides(t, name, vec):
     return st
 
 
+def padded_rope_attention(fn, q, k, v, cos2, sin2, causal, scale):
+    """``fn(q, k, v, cos2, sin2, causal, scale) -> O`` at the padded head
+    dim: q, k, v padded half by half and the ``[S, D/2]`` tables with
+    zero columns (a zero pair rotates to zero and adds nothing to the
+    scores), O's two halves sliced back. ``scale`` is the true head
+    dim's."""
+    d = int(q.shape[-1])
+    dp = padded_head_dim(d)
+    if dp == d:
+        return fn(q, k, v, cos2, sin2, causal, scale)
+    h2, hp = d // 2, dp // 2
+    o = fn(*(pad_halves(t, hp) for t in (q, k, v)),
+           *(torch.nn.functional.pad(t, (0, hp - h2)) for t in (cos2, sin2)),
+           causal, scale)
+    return unpad_halves(o, h2)
+
+
 def rope_attention_cuda(q, k, v, cos, sin, causal=True, scale=None):
-    """Launch ``ptt_rope_attention_fwd`` of ``csrc/flash_attention.cu``;
-    raises on anything it does not take."""
+    """Launch ``ptt_rope_attention_fwd`` of ``csrc/flash_attention.cu``:
+    the design :func:`design` gives; raises on anything it does not
+    take."""
     global launches
     cos2, sin2 = _check(q, k, v, cos, sin)
-    b, s, h, d = (int(x) for x in q.shape)
+    d = int(q.shape[3])
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"rope attention kernel needs CUDA tensors, got "
@@ -184,6 +274,16 @@ def rope_attention_cuda(q, k, v, cos, sin, causal=True, scale=None):
         raise TypeError(f"rope attention kernel takes float32 tables, got "
                         f"{cos2.dtype} and {sin2.dtype}")
     check_head_dim(d, "rope attention kernel")
+    o = padded_rope_attention(_launch, q, k, v, cos2, sin2, bool(causal),
+                              _scale_of(q, scale))
+    launches += 1
+    globals()[f"{design(q.dtype, d)}_launches"] += 1
+    return o
+
+
+def _launch(q, k, v, cos2, sin2, causal, scale):
+    """The launch at a head dim that is a multiple of 16."""
+    b, s, h, d = (int(x) for x in q.shape)
     tab = int(cos2.stride(0))
     if cos2.stride(1) != 1 or sin2.stride(1) != 1 \
             or int(sin2.stride(0)) != tab or tab % 4 \
@@ -196,14 +296,13 @@ def rope_attention_cuda(q, k, v, cos, sin, causal=True, scale=None):
     vec = 16 // q.element_size()
     st = [_strides(t, n, vec) for n, t in (("q", q), ("k", k), ("v", v))]
     lib = _build.load()
-    o = torch.empty((b, s, h, d), dtype=q.dtype, device=dev)
-    with torch.cuda.device(dev):
+    o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
         err = lib.ptt_rope_attention_fwd(
             _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),
             _build.ptr(cos2), _build.ptr(sin2), tab, b, h, s, d, *st[0],
-            *st[1], *st[2], int(bool(causal)), _scale_of(q, scale),
+            *st[1], *st[2], int(causal), scale,
             _build.DTYPE_CODES[q.dtype], _build.stream_of(q),
         )
     _build.check(err, "ptt_rope_attention_fwd")
-    launches += 1
     return o

@@ -54,12 +54,12 @@ def design(dtype):
     return "tc" if dtype == torch.bfloat16 else "cc"
 
 
-def swap_kchunk(h, n, sms):
+def swap_kchunk(h, n, sms, ctas_per_sm=SWAP_CTAS_PER_SM):
     """K rows per CTA of the swap-AB kernel: enough chunks that the
-    ``ceil(n / 128)`` column tiles give about SWAP_CTAS_PER_SM CTAs per
+    ``ceil(n / 128)`` column tiles give about ``ctas_per_sm`` CTAs per
     SM, each chunk a multiple of the 64-row k-tile."""
     col_tiles = -(-n // TC_COLS)
-    want = max(1, -(-SWAP_CTAS_PER_SM * sms // col_tiles))
+    want = max(1, -(-ctas_per_sm * sms // col_tiles))
     per = -(-h // want)
     return max(TC_KTILE, -(-per // TC_KTILE) * TC_KTILE)
 

@@ -22,10 +22,13 @@ the JAX package only selects its TPU kernel through the tune cache
 (``paged_attention_select``), which is not ported. ``launches`` counts
 the float flavour's calls, ``int8_launches`` the int8 one's; a call
 launches two kernels (scores, then values), split over chunks of each
-row's live slots (:func:`chunk_slots`). The card takes any head dim
-that is a multiple of 16 up to 256, any number of query heads per kv
-head and any row length; the wrapper allocates the kernels' fp32
-scratch from the table's shape.
+row's live slots (:func:`chunk_slots`). The card takes any head dim up
+to 256, any number of query heads per kv head and any row length; the
+wrapper allocates the kernels' fp32 scratch from the table's shape. The
+arena is never padded (its bytes stay the pool's): at a head dim that
+is not a multiple of 16 the kernels copy its rows in smaller pieces and
+zero-fill them in shared memory up to the next multiple, to which the
+wrapper pads q (a copy), and the output is sliced back.
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ import torch
 
 from ..quantization.kv import is_quantized
 from . import _build
-from .flash_attention import check_head_dim
+from .flash_attention import check_head_dim, pad_head_dim, padded_head_dim
 
 launches = 0
 int8_launches = 0
@@ -216,20 +219,22 @@ def paged_attention_cuda(q, k_pages, v_pages, page_table, pos, scale=None):
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     lib = _build.load()
-    out = torch.empty_like(q)
-    chunk, max_chunks, *ws = _workspace(q, k_pages.element_size(), b, h, d,
+    dp = padded_head_dim(d)
+    qp = pad_head_dim(q, dp)
+    out = torch.empty_like(qp)
+    chunk, max_chunks, *ws = _workspace(q, k_pages.element_size(), b, h, dp,
                                         ps, kvh, width)
     with torch.cuda.device(q.device):
         err = lib.ptt_paged_attention_fwd(
-            _build.ptr(q), _build.ptr(k_pages), _build.ptr(v_pages),
+            _build.ptr(qp), _build.ptr(k_pages), _build.ptr(v_pages),
             _build.ptr(page_table), _build.ptr(pos), _build.ptr(out),
-            *(_build.ptr(t) for t in ws), b, h, kvh, d, ps, width, chunk,
+            *(_build.ptr(t) for t in ws), b, h, kvh, dp, d, ps, width, chunk,
             max_chunks, codes[q.dtype], codes[k_pages.dtype], float(scale),
             _build.stream_of(q),
         )
     _build.check(err, "ptt_paged_attention_fwd")
     launches += 1
-    return out
+    return out if dp == d else out[..., :d].contiguous()
 
 
 def paged_attention_int8_cuda(q, k_pages, v_pages, page_table, pos,
@@ -259,17 +264,19 @@ def paged_attention_int8_cuda(q, k_pages, v_pages, page_table, pos,
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     lib = _build.load()
-    out = torch.empty_like(q)
-    chunk, max_chunks, *ws = _workspace(q, 1, b, h, d, ps, kvh, width)
+    dp = padded_head_dim(d)
+    qp = pad_head_dim(q, dp)
+    out = torch.empty_like(qp)
+    chunk, max_chunks, *ws = _workspace(q, 1, b, h, dp, ps, kvh, width)
     with torch.cuda.device(q.device):
         err = lib.ptt_paged_attention_int8_fwd(
-            _build.ptr(q), _build.ptr(k_pages.q), _build.ptr(k_pages.scale),
+            _build.ptr(qp), _build.ptr(k_pages.q), _build.ptr(k_pages.scale),
             _build.ptr(v_pages.q), _build.ptr(v_pages.scale),
             _build.ptr(page_table), _build.ptr(pos), _build.ptr(out),
-            *(_build.ptr(t) for t in ws), b, h, kvh, d, ps, width, chunk,
+            *(_build.ptr(t) for t in ws), b, h, kvh, dp, d, ps, width, chunk,
             max_chunks, _build.DTYPE_CODES[q.dtype], float(scale),
             _build.stream_of(q),
         )
     _build.check(err, "ptt_paged_attention_int8_fwd")
     int8_launches += 1
-    return out
+    return out if dp == d else out[..., :d].contiguous()

@@ -9,7 +9,11 @@ Counterpart of ``paddle_tpu/kernels/rope.py`` (``rope_fused``, a
 takes position ids itself: with ``position_ids`` the table rows are
 looked up in the kernel instead of being gathered first (the same
 function with one tensor fewer). Its backward entry point flips the sign
-of sin in registers, so no negated table is ever built.
+of sin in registers, so no negated table is ever built. The kernel reads
+each half of a row in 16-byte vectors; at a head dim whose half is not a
+multiple of the vector (bf16 72, say), the wrapper pads each half into
+a copy (:func:`pad_halves`, the tables with zero columns) and slices the
+output back, so the pairing of column c with c + D/2 is the true one.
 
 :func:`rope_fused` is a ``torch.autograd.Function`` that routes on the
 device in both directions: CPU tensors go to :func:`rope_reference` (and
@@ -37,6 +41,26 @@ def build_rope_cache(seq_len, head_dim, base=10000.0, dtype=torch.float32,
     freqs = torch.outer(t, inv)
     return (torch.cos(freqs)[None, :, None, :].to(dtype),
             torch.sin(freqs)[None, :, None, :].to(dtype))
+
+
+def pad_halves(x, half):
+    """``[..., D]`` -> ``[..., 2 half]``: each half zero-padded to
+    ``half`` columns (``[x1, 0, x2, 0]``), so that column c still pairs
+    with c + half (a zero pair rotates to zero)."""
+    h2 = int(x.shape[-1]) // 2
+    if h2 == half:
+        return x
+    z = x.new_zeros(tuple(x.shape[:-1]) + (half - h2,))
+    return torch.cat([x[..., :h2], z, x[..., h2:], z], dim=-1)
+
+
+def unpad_halves(x, h2):
+    """The inverse of :func:`pad_halves`: the first ``h2`` columns of each
+    half."""
+    half = int(x.shape[-1]) // 2
+    if h2 == half:
+        return x
+    return torch.cat([x[..., :h2], x[..., half:half + h2]], dim=-1)
 
 
 def _table_rows(cos, sin, position_ids):
@@ -132,15 +156,20 @@ def rope_cuda(q, k, cos, sin, position_ids=None, inverse=False):
     if q.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"rope kernel takes float32/bfloat16, got {q.dtype}")
     b, s, _, d = (int(v) for v in q.shape)
-    vec = 16 // q.element_size()
-    if d % 2 or (d // 2) % vec:
-        raise ValueError(
-            f"rope kernel needs head_dim/2 to be a multiple of {vec} for "
-            f"{q.dtype}, got head_dim {d}"
-        )
+    if d % 2:
+        raise ValueError(f"rope needs an even head_dim, got {d}")
     _check_x(q, "q", q.dtype, b, s, d)
     if k is not None:
         _check_x(k, "k", q.dtype, b, s, d)
+    # each half is read in 16-byte vectors: pad it to a whole number
+    vec = 16 // q.element_size()
+    h2 = d // 2
+    hp = -(-h2 // vec) * vec
+    if hp != h2:
+        q, k = (None if t is None else pad_halves(t, hp) for t in (q, k))
+        cos, sin = (torch.nn.functional.pad(t.float(), (0, hp - h2))
+                    for t in (cos, sin))
+        d = 2 * hp
     cos, sin = (t.float().contiguous() for t in (cos, sin))
     # the kernel reads the tables in 16-byte vectors
     cos, sin = (t.clone() if t.data_ptr() % 16 else t for t in (cos, sin))
@@ -188,4 +217,7 @@ def rope_cuda(q, k, cos, sin, position_ids=None, inverse=False):
         bwd_launches += 1
     else:
         launches += 1
+    if hp != h2:
+        q_out, k_out = (None if t is None else unpad_halves(t, h2)
+                        for t in (q_out, k_out))
     return q_out, k_out

@@ -25,7 +25,9 @@ for the fp32 products over K = 4096 and attention over 2048 keys (sums
 in another order over thousands of terms), bf16 entry by entry as above;
 the fused RMSNorm + matmul adds, per entry, what the rounding of the
 normed row may move it by when the kernel's rstd rounds an entry near a
-midpoint the other way (``normed_rounding_slack``). bf16 flash attention
+midpoint the other way (``normed_rounding_slack``); the bf16 rope-on-load
+tensor-core kernel adds what its split products may move an entry by
+(``split_product_slack``). bf16 flash attention
 adds, per entry, what rounding P and dS at other points than the plain
 version may move it by (``probability_rounding_slack``: the tensor-core
 kernels round the unnormalised P of each tile).
@@ -105,6 +107,29 @@ def test_rope_kernel_shared_and_position_ids(dev, dtype):
     assert torch.equal(qo, trope.rope_reference(q, cos, sin, ids))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("d", [72, 40])
+def test_rope_kernel_pads_unaligned_halves(dev, dtype, d):
+    """Head dims whose half is not a whole number of the kernel's 16-byte
+    vectors (bf16 72 and 40): the wrapper pads each half, and the
+    rotation, forward and backward, with position ids, equals the plain
+    version's."""
+    dt = DTYPES[dtype]
+    g = torch.Generator(device=dev).manual_seed(d)
+    q = torch.randn(2, 5, 4, d, generator=g, device=dev).to(dt)
+    k = torch.randn(2, 5, 2, d, generator=g, device=dev).to(dt)
+    cos, sin = trope.build_rope_cache(16, d, device=dev)
+    ids = torch.randint(0, 16, (2, 5), generator=g, device=dev)
+    qo, ko = trope.rope_cuda(q, k, cos, sin, ids)
+    assert qo.shape == q.shape and ko.shape == k.shape
+    assert _rel_ok(qo, trope.rope_reference(q, cos, sin, ids), REL[dtype])
+    assert _rel_ok(ko, trope.rope_reference(k, cos, sin, ids), REL[dtype])
+    gq, _ = trope.rope_cuda(q, None, cos, sin, ids, inverse=True)
+    assert _rel_ok(gq, trope.rope_backward_reference(q, cos, sin, ids),
+                   REL[dtype])
+
+
 def _arena(dev, dtype, kvh, d, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
     b, h, ps, width = 3, 8, 8, 5
@@ -124,7 +149,7 @@ def _arena(dev, dtype, kvh, d, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("kvh", [8, 2, 1])
-@pytest.mark.parametrize("d", [16, 32, 64, 128, 256, 80, 96])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256, 80, 96, 72, 40, 50])
 def test_paged_attention_kernel(dev, dtype, kvh, d):
     args = _arena(dev, DTYPES[dtype], kvh, d, seed=kvh * 1000 + d)
     got = tpa.paged_attention(*args)
@@ -195,12 +220,18 @@ def test_paged_attention_groups_and_long_rows(dev, arena, case):
 
 @pytest.mark.cuda
 def test_paged_attention_refuses_head_dims(dev):
-    """A head dim that is not a multiple of 16, or above 256, is refused
-    naming the queue that lists it."""
-    for d in (72, 272):
-        q, kp, vp, tbl, pos = _arena(dev, torch.bfloat16, 2, d, seed=d)
-        with pytest.raises(ValueError, match="head_dim.*ROADMAP.md queue C"):
-            tpa.paged_attention(q, kp, vp, tbl, pos)
+    """A head dim above 256 is refused naming the queue item that lists
+    it; one that is not a multiple of 16 (72) runs on an unpadded arena
+    and matches its plain version."""
+    q, kp, vp, tbl, pos = _arena(dev, torch.bfloat16, 2, 272, seed=272)
+    with pytest.raises(ValueError,
+                       match="head_dim.*ROADMAP.md queue C item 1"):
+        tpa.paged_attention(q, kp, vp, tbl, pos)
+    args = _arena(dev, torch.bfloat16, 2, 72, seed=72)
+    got = tpa.paged_attention(*args)
+    assert got.shape == args[0].shape
+    assert _err(got, tpa.paged_attention_reference(*args)) <= PAGED[
+        "bfloat16"]
 
 
 @pytest.mark.cuda
@@ -218,7 +249,7 @@ def test_paged_attention_kernel_mixed_dtypes(dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("kvh", [8, 2])
-@pytest.mark.parametrize("d", [16, 32, 64, 128, 256, 80, 96])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256, 80, 96, 72, 40, 51])
 def test_int8_paged_attention_kernel(dev, dtype, kvh, d):
     from paddle_tpu_torch.quantization.kv import QuantizedKV, quantize_kv
 
@@ -430,6 +461,11 @@ FLASH_CASES = {
     "causal_d160": (True, 130, 130, 160, False),
     "causal_d192": (True, 130, 130, 192, False),
     "full_d48": (False, 100, 77, 48, False),
+    # head dims that are not multiples of 16: zero-padded by the wrapper
+    # (72 to 80: the tensor cores both ways in bf16; 40 to 48: CUDA cores)
+    "causal_d72": (True, 130, 130, 72, False),
+    "full_d40": (False, 100, 77, 40, False),
+    "causal_d72_strided": (True, 96, 96, 72, True),
 }
 
 
@@ -462,11 +498,13 @@ def test_flash_attention_kernels(dev, dtype, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 32, 64, 128, 256, 80, 96, 160, 192])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256, 80, 96, 160, 192, 72,
+                               40])
 def test_flash_attention_dispatches_by_dtype(dev, d):
     """bf16 runs the tensor-core forward at D 64 to 256 and backward at 64
-    to 128; everything else (fp32, bf16 below 64, the bf16 backward above
-    128) the CUDA-core kernels."""
+    to 128 (a head dim that is not a multiple of 16 by its padded width);
+    everything else (fp32, bf16 below 64, the bf16 backward above 128) the
+    CUDA-core kernels."""
     from paddle_tpu_torch import kernels
 
     for dt in (torch.bfloat16, torch.float32):
@@ -474,8 +512,9 @@ def test_flash_attention_dispatches_by_dtype(dev, d):
         kernels.reset_launch_counts()
         o, lse = tfa.flash_attention_cuda(q, k, v, True)
         tfa.flash_attention_backward_cuda(q, k, v, o, lse, do, True)
-        fwd = "tc" if dt == torch.bfloat16 and d >= 64 else "cc"
-        bwd = "tc" if dt == torch.bfloat16 and 64 <= d <= 128 else "cc"
+        dp = tfa.padded_head_dim(d)
+        fwd = "tc" if dt == torch.bfloat16 and dp >= 64 else "cc"
+        bwd = "tc" if dt == torch.bfloat16 and 64 <= dp <= 128 else "cc"
         want = dict.fromkeys(tfa.DESIGN_COUNTERS, 0)
         want[f"{fwd}_launches"] += 1
         want[f"{bwd}_bwd_launches"] += 1
@@ -486,22 +525,24 @@ def test_flash_attention_dispatches_by_dtype(dev, d):
 
 @pytest.mark.cuda
 def test_flash_attention_refuses_what_it_does_not_take(dev):
-    """Head dim 80 (public models' width, once refused) runs and matches
-    its plain version; a head dim that is not a multiple of 16 (72) or is
-    above 256 (272) is refused, naming the queue that lists it, in both
-    directions."""
-    q = torch.randn(1, 8, 2, 80, device=dev)
-    o, lse = tfa.flash_attention_cuda(q, q, q)
-    ro, rlse = tfa.flash_attention_reference(q, q, q)
-    assert _cast_once_ok(o, ro, 1e-5)
-    assert _err(lse, rlse) <= 1e-5 * float(rlse.abs().max())
-    for d in (72, 272):
+    """Head dims 80 and 72 (once refused: 72 is not a multiple of 16, so
+    the wrapper pads it) run and match their plain versions; a head dim
+    above 256 (272) is refused, naming the queue item that lists it, in
+    both directions."""
+    for d in (80, 72):
         q = torch.randn(1, 8, 2, d, device=dev)
-        with pytest.raises(ValueError, match="head_dim.*ROADMAP.md queue C"):
-            tfa.flash_attention_cuda(q, q, q)
-        lse = torch.zeros(1, 2, 8, device=dev)
-        with pytest.raises(ValueError, match="head_dim.*ROADMAP.md queue C"):
-            tfa.flash_attention_backward_cuda(q, q, q, q, lse, q)
+        o, lse = tfa.flash_attention_cuda(q, q, q)
+        ro, rlse = tfa.flash_attention_reference(q, q, q)
+        assert o.shape == q.shape and _cast_once_ok(o, ro, 1e-5)
+        assert _err(lse, rlse) <= 1e-5 * float(rlse.abs().max())
+    q = torch.randn(1, 8, 2, 272, device=dev)
+    with pytest.raises(ValueError,
+                       match="head_dim.*ROADMAP.md queue C item 1"):
+        tfa.flash_attention_cuda(q, q, q)
+    lse = torch.zeros(1, 2, 8, device=dev)
+    with pytest.raises(ValueError,
+                       match="head_dim.*ROADMAP.md queue C item 1"):
+        tfa.flash_attention_backward_cuda(q, q, q, q, lse, q)
     q = torch.randn(1, 8, 2, 64, device=dev)
     with pytest.raises(TypeError, match="one dtype"):
         tfa.flash_attention_cuda(q, q.bfloat16(), q)
@@ -562,12 +603,17 @@ def test_tiny_int8_engines_match_generate(dev):
 
 NORM_MATMUL_CASES = {
     # rows, K, N, the norm weight in fp32 (else in x's dtype), tolerance:
-    # the narrow kernel with three K chunks (the last ragged) and the
-    # wide one over a ragged tile, then the 7B decode and prefill heads
+    # fp32: the narrow kernel with three K chunks (the last ragged) and
+    # the wide one over a ragged tile; bf16: the swap-AB kernel (K not a
+    # multiple of the 64-row k-tile, N not of the 128-column tile) and
+    # the tiled one over a ragged row tile; then the 7B decode and
+    # prefill heads (256 rows: the largest swap-AB tile; 1024: tiled)
     "narrow": (3, 1040, 200, False, 1e-5),
     "wide_fp32_w": (130, 520, 136, True, 1e-5),
+    "tiled_ragged": (300, 520, 136, True, 1e-5),
     "7b_decode": (8, 4096, 32000, False, 1e-4),
     "7b_prefill": (256, 4096, 32000, True, 1e-4),
+    "7b_prefill_1024": (1024, 4096, 32000, False, 1e-4),
 }
 
 
@@ -582,9 +628,10 @@ def test_rms_norm_matmul_kernel(dev, dtype, case):
     w = (1 + 0.1 * torch.randn(k, generator=g, device=dev)).to(
         torch.float32 if w32 else dt)
     wm = (0.02 * torch.randn(k, n, generator=g, device=dev)).to(dt)
-    before = tfnm.launches
+    before = tfnm.launches, getattr(tfnm, f"{tfnm.design(dt)}_launches")
     y = tfnm.rms_norm_matmul(x, w, wm, 1e-5)
-    assert tfnm.launches == before + 1
+    assert (tfnm.launches, getattr(tfnm, f"{tfnm.design(dt)}_launches")) \
+        == (before[0] + 1, before[1] + 1)
     ref = tfnm.rms_norm_matmul_reference(x, w, wm, 1e-5).float()
     assert y.dtype == dt and y.shape == (rows, n)
     assert torch.isfinite(y).all()
@@ -597,6 +644,26 @@ def test_rms_norm_matmul_kernel(dev, dtype, case):
     assert bool(((y.float() - ref).abs() <= bound).all())
     # no atomics: a second run is bit-equal
     assert torch.equal(y, tfnm.rms_norm_matmul_cuda(x, w, wm, 1e-5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["swap", "tiled"])
+@pytest.mark.parametrize("rows", [8, 64, 256])
+def test_rms_norm_matmul_each_kernel(dev, kernel, rows):
+    """Each bf16 tensor-core kernel by name at the rows the crossover
+    sweep visits: within cast-once plus the rounding slack, bit-equal on
+    repeat."""
+    g = torch.Generator(device=dev).manual_seed(rows)
+    k, n = 1040, 264
+    x = torch.randn(rows, k, generator=g, device=dev).bfloat16()
+    w = (1 + 0.1 * torch.randn(k, generator=g, device=dev)).bfloat16()
+    wm = (0.02 * torch.randn(k, n, generator=g, device=dev)).bfloat16()
+    y = tfnm._tc_kernel(x, w, wm, 1e-5, kernel)
+    ref = tfnm.rms_norm_matmul_reference(x, w, wm, 1e-5).float()
+    bound = 2.0 ** -7 * ref.abs() + 1e-5 * float(ref.abs().max()) \
+        + tfnm.normed_rounding_slack(x, w, wm, 1e-5)
+    assert bool(((y.float() - ref).abs() <= bound).all())
+    assert torch.equal(y, tfnm._tc_kernel(x, w, wm, 1e-5, kernel))
 
 
 @pytest.mark.cuda
@@ -635,6 +702,10 @@ ROPE_ATTENTION_CASES = {
     # padded to the 128-wide kernel: column c pairs with c + d/2
     "causal_d80": (True, 130, 80, 1e-5, False),
     "full_d96": (False, 100, 96, 1e-5, False),
+    # not multiples of 16: each half zero-padded by the wrapper (72 to
+    # the tensor cores at 80 in bf16, 40 to the CUDA cores at 48)
+    "causal_d72": (True, 130, 72, 1e-5, False),
+    "full_d40": (False, 100, 40, 1e-5, False),
 }
 
 
@@ -649,28 +720,36 @@ def test_rope_attention_kernel(dev, dtype, case):
     # leading rows of a longer table, as the model passes them
     cos, sin = trope.build_rope_cache(s + 64, d, device=dev)
     cos, sin = cos[:, :s], sin[:, :s]
-    before = tfra.launches
+    design = tfra.design(dt, d)
+    before = tfra.launches, getattr(tfra, f"{design}_launches")
     o = tfra.rope_attention_fused(q, k, v, cos, sin, causal=causal)
-    assert tfra.launches == before + 1
+    assert (tfra.launches, getattr(tfra, f"{design}_launches")) == (
+        before[0] + 1, before[1] + 1)
+    assert design == ("tc" if dt == torch.bfloat16 and 64 <= d <= 128
+                      else "cc")
     ref = tfra.rope_attention_reference(q, k, v, cos, sin, causal=causal)
     assert o.dtype == dt and o.shape == q.shape and torch.isfinite(o).all()
-    assert _cast_once_ok(o, ref, tol)
+    # the tensor-core kernel's split products: their own slack
+    slack = (tfra.split_product_slack(q, k, v, cos, sin, causal=causal)
+             if design == "tc" else None)
+    assert _cast_once_ok(o, ref, tol, slack)
 
 
 @pytest.mark.cuda
 def test_rope_attention_refuses_what_it_does_not_take(dev):
-    """Head dim 80 runs and matches its plain version; 72 and 272 are
-    refused naming ROADMAP.md queue C."""
-    q = torch.randn(1, 8, 2, 80, device=dev)
-    cos, sin = trope.build_rope_cache(8, 80, device=dev)
-    assert _cast_once_ok(tfra.rope_attention_cuda(q, q, q, cos, sin),
-                         tfra.rope_attention_reference(q, q, q, cos, sin),
-                         1e-5)
-    for d in (72, 272):
+    """Head dims 80 and 72 run and match their plain versions; 272 is
+    refused naming ROADMAP.md queue C item 1."""
+    for d in (80, 72):
         q = torch.randn(1, 8, 2, d, device=dev)
-        cos, sin = trope.build_rope_cache(8, d - d % 2, device=dev)
-        with pytest.raises(ValueError, match="head_dim.*ROADMAP.md queue C"):
-            tfra.rope_attention_cuda(q, q, q, cos, sin)
+        cos, sin = trope.build_rope_cache(8, d, device=dev)
+        assert _cast_once_ok(tfra.rope_attention_cuda(q, q, q, cos, sin),
+                             tfra.rope_attention_reference(q, q, q, cos,
+                                                           sin), 1e-5)
+    q = torch.randn(1, 8, 2, 272, device=dev)
+    cos, sin = trope.build_rope_cache(8, 272, device=dev)
+    with pytest.raises(ValueError,
+                       match="head_dim.*ROADMAP.md queue C item 1"):
+        tfra.rope_attention_cuda(q, q, q, cos, sin)
     q = torch.randn(1, 8, 2, 64, device=dev)
     cos, sin = trope.build_rope_cache(8, 64, device=dev)
     with pytest.raises(TypeError, match="one dtype"):

@@ -21,6 +21,8 @@ Tolerances:
 - the fused fp32 greedy ``generate``: token for token equal to the
   unfused one.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -297,3 +299,133 @@ def test_head_fusion_eligibility_and_names(monkeypatch):
     with pytest.raises(ValueError, match="unknown fusions"):
         dense.fusions = {"rope"}
     assert dense.fusions == frozenset({"rms_norm_matmul"})
+
+
+# ------------------------- the tensor-core kernels' order of work (bf16)
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _emulate_tc_head(x, w, wm, eps, kchunk, fault=None):
+    """The bf16 tensor-core fused head's order of work in plain PyTorch:
+    the rstd pre-pass (fp32 over the whole row), y = (x * rstd) * w in
+    fp32 rounded to bf16, the products over K in chunks of ``kchunk``
+    rows, each chunk's fp32 partial summed in chunk order, one cast.
+    ``fault``: "y_unrounded" (y kept in fp32), "neighbour_rstd" (each row
+    takes the previous row's rstd), "skip_chunk" (the second K chunk is
+    left out)."""
+    xf = x.float()
+    rstd = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    if fault == "neighbour_rstd":
+        rstd = torch.roll(rstd, 1, dims=0)
+    y = (xf * rstd) * w.float()
+    if fault != "y_unrounded":
+        y = _bf16(y)
+    out = torch.zeros(x.shape[0], wm.shape[1])
+    for i, k0 in enumerate(range(0, x.shape[1], kchunk)):
+        if fault == "skip_chunk" and i == 1:
+            continue
+        out = out + y[:, k0:k0 + kchunk] @ wm[k0:k0 + kchunk].float()
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", ["swap", "tiled", "y_unrounded",
+                                  "neighbour_rstd", "skip_chunk"])
+def test_tc_head_order_of_work_within_slack(case):
+    """The bf16 fused head's tensor-core order of work (emulated: the
+    swap-AB kernel's K chunks for the H100's 132 SMs, or the tiled
+    kernel's one pass over K) lies within cast-once plus
+    ``normed_rounding_slack`` of the Pallas kernel (interpret mode);
+    three seeded faults each fall outside it."""
+    rng = np.random.RandomState(10)
+    rows, h, n = 16, 512, 384
+    jx, tx = _both(rng.randn(rows, h), "bfloat16")
+    jw, tw = _both(1 + 0.1 * rng.randn(h), "bfloat16")
+    jm, tm = _both(0.05 * rng.randn(h, n), "bfloat16")
+    want = _np(jfnm.rms_norm_matmul(jx, jw, jm, eps=1e-5, block_rows=8,
+                                    block_cols=128))
+    kchunk = h if case == "tiled" else tfnm.swap_kchunk(
+        h, n, 132, tfnm.SWAP_CTAS_PER_SM)
+    assert case == "tiled" or h // kchunk >= 4  # several chunks to sum
+    fault = None if case in ("swap", "tiled") else case
+    got = _np(_emulate_tc_head(tx, tw, tm, 1e-5, kchunk, fault))
+    tol = 2.0 ** -7 * np.abs(want) + TOL32 * float(np.abs(want).max()) \
+        + _np(tfnm.normed_rounding_slack(tx, tw, tm, 1e-5))
+    ratio = float((np.abs(got - want) / tol).max())
+    assert (ratio <= 1.0) == (fault is None), ratio
+
+
+def _split(x):
+    """fp32 x -> (bf16(x), bf16(x - bf16(x))), both as fp32."""
+    hi = _bf16(x)
+    return hi, _bf16(x - hi)
+
+
+def _emulate_tc_rope(q, k, v, cos2, sin2, fault=None):
+    """The bf16 tensor-core rope-on-load kernel's order of work (causal)
+    in plain PyTorch, in fp32 before its final cast: q and k rotated in
+    fp32 and split into bf16 hi and lo parts, S = q_hi k_lo^T + q_lo
+    k_hi^T + q_hi k_hi^T, an online softmax over q tiles of 64 rows and
+    k blocks of 128 in the log2 domain, P split the same way and O += P_lo
+    V + P_hi V, l summed from the unsplit P. ``fault``: "drop_qlo_khi"
+    (the q_lo k_hi^T product left out), "p_bf16" (P rounded to bf16: the
+    departure from the JAX contract), "k_neighbour" (k rotated by the
+    previous position's table row)."""
+    qt, kt, vt = (t.transpose(1, 2).float() for t in (q, k, v))
+    c, s = cos2[None, None], sin2[None, None]
+    rq = tfra._rotate(qt, c, s)
+    if fault == "k_neighbour":
+        c, s = (torch.roll(t, 1, dims=2) for t in (c, s))
+    (qh, ql), (kh, kl) = _split(rq), _split(tfra._rotate(kt, c, s))
+    seq, d = qt.shape[2], qt.shape[3]
+    sl2 = math.log2(math.e) / math.sqrt(d)
+    out = torch.zeros_like(qt)
+    for q0 in range(0, seq, 64):
+        rows = slice(q0, q0 + 64)
+        n_r = min(64, seq - q0)
+        m = torch.full(qt.shape[:2] + (n_r, 1), -math.inf)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(qt.shape[:2] + (n_r, d))
+        for k0 in range(0, q0 + 64, 128):
+            cols = slice(k0, k0 + 128)
+            sc = qh[:, :, rows] @ kl[:, :, cols].transpose(-1, -2)
+            if fault != "drop_qlo_khi":
+                sc = sc + ql[:, :, rows] @ kh[:, :, cols].transpose(-1, -2)
+            sc = (sc + qh[:, :, rows] @ kh[:, :, cols].transpose(-1, -2)) \
+                * sl2
+            r = torch.arange(q0, q0 + n_r)[:, None]
+            cc = torch.arange(k0, k0 + sc.shape[-1])[None, :]
+            sc = sc.masked_fill(cc > r, -math.inf)
+            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(sc - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            ph, pl = ((_bf16(p), torch.zeros_like(p)) if fault == "p_bf16"
+                      else _split(p))
+            acc = acc * alpha + pl @ vt[:, :, cols] + ph @ vt[:, :, cols]
+            m = m_new
+        out[:, :, rows] = acc / l
+    return out.transpose(1, 2)
+
+
+@pytest.mark.parametrize("fault", [None, "drop_qlo_khi", "p_bf16",
+                                   "k_neighbour"])
+def test_tc_rope_attention_split_products_within_slack(fault):
+    """The bf16 rope-on-load kernel's split products (emulated) lie within
+    ``split_product_slack`` of the JAX kernel (interpret mode, fed the
+    same bf16 values in fp32, so both sides stop before the final cast);
+    three seeded faults each fall outside it, among them rounding P to
+    bf16, which shows that the slack holds the fp32 contract."""
+    rng = np.random.RandomState(11)
+    b, s, h, d = 1, 256, 2, 64
+    arrs = [_np(torch.from_numpy(rng.randn(b, s, h, d).astype(np.float32))
+                .bfloat16()) for _ in range(3)]
+    cos, sin = build_rope_cache(s, d)
+    want = _np(jfra.rope_attention_fused(*(jnp.asarray(a) for a in arrs),
+                                         cos, sin, causal=True, block_q=128))
+    tq, tk, tv = (torch.from_numpy(a.copy()) for a in arrs)
+    tcos, tsin = (torch.tensor(np.asarray(t))[0, :, 0] for t in (cos, sin))
+    slack = _np(tfra.split_product_slack(tq, tk, tv, tcos, tsin))
+    got = _np(_emulate_tc_rope(tq, tk, tv, tcos, tsin, fault))
+    ratio = float((np.abs(got - want) / slack).max())
+    assert (ratio <= 1.0) == (fault is None), ratio

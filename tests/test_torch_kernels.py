@@ -54,11 +54,14 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from paddle_tpu.kernels import flash_attention as jfa  # noqa: E402
+from paddle_tpu.kernels import fused_rope_attention as jfra  # noqa: E402
 from paddle_tpu.kernels import paged_attention as jpa  # noqa: E402
 from paddle_tpu.kernels import rope as jrope  # noqa: E402
 from paddle_tpu.kernels.rms_norm import rms_norm_fused  # noqa: E402
+from paddle_tpu.kernels.rope import build_rope_cache  # noqa: E402
 from paddle_tpu_torch.kernels import _build  # noqa: E402
 from paddle_tpu_torch.kernels import flash_attention as tfa  # noqa: E402
+from paddle_tpu_torch.kernels import fused_rope_attention as tfra  # noqa
 from paddle_tpu_torch.kernels import paged_attention as tpa  # noqa: E402
 from paddle_tpu_torch.kernels import rms_norm as trms  # noqa: E402
 from paddle_tpu_torch.kernels import rope as trope  # noqa: E402
@@ -157,6 +160,9 @@ PAGED_CASES = {
     "d96": (4, 4, 96, 4),
     "mqa_g16": (16, 1, 16, 4),
     "long": (2, 1, 16, 72),   # a row of more than 64 pages
+    # a head dim that is not a multiple of 16 (the card stages its rows
+    # in smaller pieces and zero-fills them to the next multiple)
+    "d72": (4, 2, 72, 4),
 }
 
 
@@ -429,6 +435,87 @@ def test_flash_attention_matches_jax(dtype, case):
     dq, dk, dv = tfa.flash_attention_backward_reference(
         qt, kt, vt, o.detach(), lse, gt, causal)
     assert torch.equal(ts[0].grad, dq) and torch.equal(ts[2].grad, dv)
+
+
+# ------------------------------- head dims that are not multiples of 16
+# The card runs them zero-padded to the next multiple of 16 through
+# ``padded_forward`` / ``padded_backward`` / ``padded_rope_attention``;
+# here those helpers wrap the plain versions. 72 and 40 (both 8 mod 16).
+ODD_HEAD_DIMS = (72, 40)
+
+
+class _Width:
+    """Wraps a kernel-shaped function, recording the head dims it saw."""
+
+    def __init__(self, fn):
+        self.fn, self.widths = fn, set()
+
+    def __call__(self, *args):
+        self.widths.add(int(args[0].shape[-1]))
+        return self.fn(*args)
+
+
+@pytest.mark.parametrize("d", ODD_HEAD_DIMS)
+def test_padded_flash_equals_unpadded_and_jax(d):
+    """fp32 forward and backward through the pad-and-slice helpers equal
+    the unpadded plain versions, and JAX's flash attention and its VJP
+    (the scale stays 1/sqrt of the true head dim)."""
+    rng = np.random.RandomState(d)
+    b, sq, sk, h = 2, 7, 9, 3
+    (qj, qt), (kj, kt), (vj, vt), (gj, gt) = (
+        _both(rng.randn(b, n, h, d), "float32") for n in (sq, sk, sk, sq))
+    scale = 1.0 / np.sqrt(d)
+    fwd = _Width(tfa.flash_attention_reference)
+    o, lse = tfa.padded_forward(fwd, qt, kt, vt, True, scale)
+    assert fwd.widths == {tfa.padded_head_dim(d)} and o.shape == qt.shape
+    ro, rlse = tfa.flash_attention_reference(qt, kt, vt, True, scale)
+    _closer(o, ro, 1e-6, 1e-6)
+    _closer(lse, rlse, 1e-6, 1e-6)
+    bwd = _Width(tfa.flash_attention_backward_reference)
+    grads = tfa.padded_backward(bwd, qt, kt, vt, o, lse, gt, True, scale)
+    assert bwd.widths == {tfa.padded_head_dim(d)}
+    want = tfa.flash_attention_backward_reference(qt, kt, vt, o, lse, gt,
+                                                  True, scale)
+    for got, w in zip(grads, want):
+        assert got.shape == w.shape
+        _closer(got, w, 1e-6, 1e-6)
+    want_o, vjp = jax.vjp(
+        lambda q, k, v: jfa.flash_attention_fwd(q, k, v, causal=True,
+                                                scale=scale), qj, kj, vj)
+    _closer(o, want_o, 1e-5, 1e-5)
+    for got, w in zip(grads, vjp(gj)):
+        _closer(got, w, 1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("d", ODD_HEAD_DIMS)
+def test_padded_rope_attention_equals_unpadded_and_jax(d):
+    """The rope-on-load padding, half by half (column c still pairs with
+    c + d/2 of the true d), equals the unpadded plain version and the JAX
+    kernel (interpret mode), fp32."""
+    rng = np.random.RandomState(d + 1)
+    b, s, h = 2, 32, 2
+    (qj, qt), (kj, kt), (vj, vt) = (_both(rng.randn(b, s, h, d), "float32")
+                                    for _ in range(3))
+    cos, sin = build_rope_cache(s, d)
+    tcos, tsin = (torch.tensor(np.asarray(t))[0, :, 0] for t in (cos, sin))
+    fn = _Width(tfra._composed)
+    got = tfra.padded_rope_attention(fn, qt, kt, vt, tcos, tsin, True,
+                                     1.0 / np.sqrt(d))
+    assert fn.widths == {tfa.padded_head_dim(d)} and got.shape == qt.shape
+    _closer(got, tfra.rope_attention_reference(qt, kt, vt, tcos, tsin),
+            1e-6, 1e-6)
+    want = jfra.rope_attention_fused(qj, kj, vj, cos, sin, causal=True,
+                                     block_q=16)
+    _closer(got, want, 1e-5, 1e-5)
+    # the unfused rope kernel's padding (each half to a whole number of
+    # 16-byte bf16 vectors): the same rotation
+    hp = -(-d // 2 // 8) * 8
+    padded = [torch.nn.functional.pad(torch.tensor(np.asarray(t)),
+                                      (0, hp - d // 2)) for t in (cos, sin)]
+    rot = trope.unpad_halves(trope.rope_reference(
+        trope.pad_halves(qt, hp), *padded), d // 2)
+    assert torch.equal(rot, trope.rope_reference(
+        qt, *(torch.tensor(np.asarray(t)) for t in (cos, sin))))
 
 
 # ------------------------------------- flash against the stock TPU kernel

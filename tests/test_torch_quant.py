@@ -123,6 +123,17 @@ def test_rounding_rules_bit_equal_jax(dtype):
            jkv.dequantize_kv(*jkv.quantize_kv(kj), jnp.float32))
 
 
+@pytest.mark.parametrize("d", [72, 40])
+def test_kv_codes_bit_equal_jax_at_odd_head_dims(d):
+    """The KV cache's int8 codes and scales at head dims that are not
+    multiples of 16 (the int8 arena's rows are then not a multiple of 16
+    bytes), bit-equal to JAX's."""
+    rng = np.random.RandomState(d)
+    kj, kt = _both(rng.randn(3, 5, 2, d) * 3.0, "float32")
+    for got, want in zip(tkv.quantize_kv(kt), jkv.quantize_kv(kj)):
+        _equal(got, want)
+
+
 # ------------------------------------------------------ W8A16 matmul
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_int8_matmul_plain_matches_jax(dtype):
@@ -257,6 +268,9 @@ INT8_PAGED_CASES = {
     "d96": (4, 4, 96, 4),
     "mqa_g16": (16, 1, 16, 4),
     "long": (2, 1, 16, 72),   # a row of more than 64 pages
+    # head dims that are not multiples of 16 (the arena stays unpadded)
+    "d72": (4, 2, 72, 4),
+    "d40": (4, 4, 40, 4),
 }
 
 

@@ -186,3 +186,27 @@ def test_paged_engine_close_releases_everything(nets):
     eng.close()
     assert all(h.status == "CANCELLED" for h in handles)
     assert eng.page_pool.pages_in_use == 0 and eng.free_rows == 2
+
+
+def test_paged_engine_at_head_dim_72_equals_jax_generate():
+    """A tiny fp32 GQA Llama at head dim 72 (not a multiple of 16: the
+    card pads it): the paged engine's greedy streams equal JAX
+    ``generate`` token for token."""
+    cfg = dict(CFG, hidden_size=288, num_key_value_heads=2,
+               num_hidden_layers=1)
+    paddle.seed(6)
+    jnet = JLlama(JConfig.tiny(**cfg))
+    jnet.eval()
+    tnet = LlamaForCausalLM(LlamaConfig.tiny(**cfg), device="cpu")
+    load_numpy_state(tnet, {k: np.asarray(p.value)
+                            for k, p in jnet.named_parameters()})
+    assert tnet.config.hidden_size // tnet.config.num_attention_heads == 72
+    eng = ENGINES["paged"](tnet)
+    handles = [eng.submit(p, m) for p, m in zip(PROMPTS[:2], (5, 4))]
+    eng.run_until_idle()
+    for h, p, m in zip(handles, PROMPTS, (5, 4)):
+        want = np.asarray(jnet.generate(
+            Tensor(jnp.asarray(p)), max_new_tokens=m,
+            cache_dtype="float32").numpy())[0]
+        assert h.status == "DONE"
+        np.testing.assert_array_equal(h.output_ids, want)
