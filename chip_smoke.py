@@ -12,11 +12,14 @@ It imports neither jax nor ``paddle_tpu``. Phases, each fatal on failure:
    sm_90a, seconds and library path printed;
 3. kernels: each hand-written kernel against its plain PyTorch version
    on the card, at the Llama-2-7B shapes of the serving, training and
-   quantized-serving paths, in bf16 and fp32 (flash attention: bf16 on
-   the tensor-core kernels, fp32 on the CUDA-core ones), with the
-   tolerance stated per kernel, and timed (CUDA events, median) beside
-   its bound, its plain version and, where one PyTorch call computes
-   the same function, that call (the W8A16 matmul: beside the composed
+   quantized-serving paths, in bf16 and fp32 (flash attention: both on
+   the tensor-core kernels, fp32 through split products, up to head dim
+   128; fp32 above on the CUDA-core ones), with the tolerance stated per
+   kernel, and timed (CUDA events, median) beside its bound, its plain
+   version and, where one PyTorch call computes the same function, that
+   call (flash attention also beside the CUDA-core design wherever the
+   tensor-core kernels replaced it, and fails unless faster; the W8A16
+   matmul: beside the composed
    dequantize-then-``torch.matmul``, the float weight's
    ``torch.matmul``, the CUDA-core kernels on the same bf16 inputs, and
    ``torch._weight_int8pack_mm`` where this PyTorch runs it; with a
@@ -24,7 +27,8 @@ It imports neither jax nor ``paddle_tpu``. Phases, each fatal on failure:
    attention over chunks of 16-256 slots); the backward kernels, the
    W8A16 matmul and paged attention must repeat bit for bit; flash
    attention and paged attention also at head dims 16, 80, 96, 256 and
-   72 (not a multiple of 16: the wrappers pad it; flash also 192), paged
+   72 (not a multiple of 16: the wrappers pad it; flash also 32, 64, 160
+   and 192, and fp32 at 16, 64, 80, 96 and 256), paged
    attention also with 32 query heads on one kv head and one 8192-slot
    row at groups of 4 and 8; the library's empty kernel, timed the same
    way (the launch floor);
@@ -45,7 +49,11 @@ It imports neither jax nor ``paddle_tpu``. Phases, each fatal on failure:
    on one fixed batch of 2 x 2048 tokens; every loss finite, the last
    below the first, and every training kernel launched the number of
    times per step the model's structure gives (flash attention all on
-   its tensor-core kernels);
+   its tensor-core kernels); then (after the fused steps below) the same
+   model reset to its seed takes 3 steps with ``amp_level=None``, the
+   trainer's default, fp32 end to end, under the same checks (flash
+   attention all on its tensor-core design: split products), with step
+   time and peak memory;
 7. serving: Llama-2-7B at full width and depth (random bf16 weights
    from a seeded generator) served by ``PagedServingEngine`` (8 rows,
    2048 slots, page size 16, bf16 arena) for 12 staggered requests of
@@ -105,9 +113,13 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bandwidth, and the
 # operation rate for each input type (bf16 on the tensor cores, fp32 on
-# the CUDA cores), the two floors every kernel here is held against
+# the CUDA cores), the two floors every kernel here is held against; a
+# kernel of flash attention's fp32 split design is held against its
+# products on the tensor cores: every fp32 product is six bf16 products,
+# so its operations count at a sixth of the bf16 rate
 HBM_BYTES_PER_S = 3.35e12
-FLOP_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+FLOP_PER_S = {"bfloat16": 989e12, "float32": 67e12,
+              "float32_split": 989e12 / 6}
 
 # teacher-forced check: a generated token that is not the argmax of the
 # cache-free forward's logits must trail it by less than this many
@@ -202,7 +214,8 @@ def gpu_time_ms(torch, fn, n=20, repeats=7):
 
 def bound(bytes_moved, flops, dtype):
     """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
-    operations over the card's peak rate for the inputs' ``dtype``."""
+    operations over the card's peak rate for ``dtype`` (a FLOP_PER_S key:
+    the inputs' dtype, or the design's rate)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FLOP_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -830,11 +843,11 @@ def _library_attention(torch, q, k, v, causal):
 
 FLASH_SHAPES = (
     # dtype, causal, batch, sq, sk, head_dim (heads 32): the training
-    # shape in bf16 (the tensor-core kernels) and fp32 (the CUDA-core
-    # ones), a chunk of 512 queries over 2048 keys (bottom-right causal),
-    # a ragged causal S 1000, a non-causal Sq 1024 over Sk 1000, the
-    # tensor-core kernels at head_dim 64, and head dims 16 (CUDA cores)
-    # and 256 (tensor-core forward, CUDA-core backward)
+    # shape in bf16 (O1) and fp32 (the trainer's default; split products
+    # on the tensor cores), a chunk of 512 queries over 2048 keys
+    # (bottom-right causal), a ragged causal S 1000, a non-causal Sq 1024
+    # over Sk 1000, head dims 64, 16 and 32 (the 64-wide kernels) and
+    # 256 (bf16 on the tensor cores both ways; fp32 on the CUDA cores)
     ("bfloat16", True, TRAIN_BATCH, 2048, 2048, 128),
     ("float32", True, TRAIN_BATCH, 2048, 2048, 128),
     ("bfloat16", True, TRAIN_BATCH, 512, 2048, 128),
@@ -842,18 +855,45 @@ FLASH_SHAPES = (
     ("bfloat16", False, 1, 1024, 1000, 128),
     ("bfloat16", True, TRAIN_BATCH, 2048, 2048, 64),
     ("bfloat16", True, TRAIN_BATCH, 2048, 2048, 16),
+    ("bfloat16", True, TRAIN_BATCH, 2048, 2048, 32),
     ("bfloat16", True, TRAIN_BATCH, 2048, 2048, 256),
-    # head dims on the padded kernels: 80 and 96 (the 128-wide tensor-core
-    # kernels both ways in bf16; fp32 on the CUDA cores), 192 (the 256-wide
-    # tensor-core forward, CUDA-core backward)
+    ("float32", True, TRAIN_BATCH, 2048, 2048, 64),
+    ("float32", True, TRAIN_BATCH, 2048, 2048, 16),
+    ("float32", True, TRAIN_BATCH, 2048, 2048, 256),
+    # head dims on the padded kernels: 80 and 96 (128 wide), 160 and 192
+    # (256 wide)
     ("bfloat16", True, TRAIN_BATCH, 2048, 2048, 80),
     ("bfloat16", True, TRAIN_BATCH, 2048, 2048, 96),
     ("float32", True, TRAIN_BATCH, 2048, 2048, 80),
     ("float32", True, TRAIN_BATCH, 2048, 2048, 96),
+    ("bfloat16", True, TRAIN_BATCH, 2048, 2048, 160),
     ("bfloat16", True, TRAIN_BATCH, 2048, 2048, 192),
     # head dim 72: not a multiple of 16, zero-padded to 80 by the wrapper
     ("bfloat16", True, TRAIN_BATCH, 2048, 2048, 72),
 )
+
+
+def _replaced_cc(mod, dtype, d, backward):
+    """Whether the tensor-core design now runs a case that ran on the CUDA
+    cores until the split design (fp32 up to D 128, bf16 below D 64, the
+    bf16 backward above D 128): such a case is also timed on the CUDA
+    cores (``cuda_core_ms``), in the same run."""
+    pd = mod.padded_head_dim(d)
+    return mod.design(dtype, d, backward) == "tc" and (
+        dtype.itemsize == 4 or pd < 64 or (backward and pd > 128))
+
+
+def _flash_bound(mod, dtype, dname, d, backward, bytes_moved, flops):
+    """The case's bound: bf16 on the tensor cores, fp32 on the design it
+    runs (split products: six bf16 products each; CUDA cores); fp32 rows
+    also carry the CUDA-core bound."""
+    split = dname == "float32" and mod.design(dtype, d, backward) == "tc"
+    rate = "float32_split" if split else dname
+    b_ms, b_by = bound(bytes_moved, flops, rate)
+    out = {"bound_ms": b_ms, "bound_by": b_by, "bound_rate": rate}
+    if dname == "float32":
+        out["bound_cuda_core_ms"] = bound(bytes_moved, flops, "float32")[0]
+    return out
 
 
 def flash_cases(torch, mod, dev):
@@ -887,10 +927,16 @@ def flash_cases(torch, mod, dev):
         es = q.element_size()
         shape = {"b": b, "h": h, "d": d, "sq": sq, "sk": sk,
                  "causal": causal}
-        b_ms, b_by = bound(es * b * h * d * (2 * sq + 2 * sk) + 4 * b * h * sq,
-                           4 * d * pairs, dname)
+        fb_bound = _flash_bound(
+            mod, dtype, dname, d, False,
+            es * b * h * d * (2 * sq + 2 * sk) + 4 * b * h * sq,
+            4 * d * pairs)
         ms = gpu_time_ms(torch, lambda: mod.flash_attention_cuda(
             q, k, v, causal), n=5, repeats=5)
+        cc_ms = None
+        if _replaced_cc(mod, dtype, d, False):
+            cc_ms = gpu_time_ms(torch, lambda: mod.flash_attention_cuda(
+                q, k, v, causal, cuda_cores=True), n=2, repeats=3)
         plain = gpu_time_ms(torch, lambda: mod.flash_attention_reference(
             q, k, v, causal), n=3, repeats=3)
         lib = gpu_time_ms(torch, lambda: _library_attention(
@@ -900,9 +946,10 @@ def flash_cases(torch, mod, dev):
                     "max_abs_err": worst["max_abs_err"],
                     "tolerance": worst["tolerance"],
                     "err_over_tol": worst["err_over_tol"], "ms": ms,
+                    "cuda_core_ms": cc_ms,
                     "plain_ms": plain, "library_ms": lib,
                     "library_call": "F.scaled_dot_product_attention",
-                    "bound_ms": b_ms, "bound_by": b_by})
+                    **fb_bound})
 
         grads = mod.flash_attention_backward_cuda(q, k, v, o, lse, do, causal)
         again = mod.flash_attention_backward_cuda(q, k, v, o, lse, do, causal)
@@ -919,10 +966,18 @@ def flash_cases(torch, mod, dev):
         if not all(torch.isfinite(gr).all() for gr in grads):
             fail(f"flash backward {dname} produced non-finite values")
         del want, grads, slacks
-        b_ms, b_by = bound(es * b * h * d * (4 * sq + 4 * sk) + 4 * b * h * sq,
-                           10 * d * pairs, dname)
+        bb_bound = _flash_bound(
+            mod, dtype, dname, d, True,
+            es * b * h * d * (4 * sq + 4 * sk) + 4 * b * h * sq,
+            10 * d * pairs)
         ms = gpu_time_ms(torch, lambda: mod.flash_attention_backward_cuda(
             q, k, v, o, lse, do, causal), n=3, repeats=5)
+        cc_ms = None
+        if _replaced_cc(mod, dtype, d, True):
+            cc_ms = gpu_time_ms(
+                torch, lambda: mod.flash_attention_backward_cuda(
+                    q, k, v, o, lse, do, causal, cuda_cores=True),
+                n=1, repeats=3)
         plain = gpu_time_ms(
             torch, lambda: mod.flash_attention_backward_reference(
                 q, k, v, o, lse, do, causal), n=2, repeats=3)
@@ -948,11 +1003,12 @@ def flash_cases(torch, mod, dev):
                     "tolerance": worst["tolerance"],
                     "err_over_tol": worst["err_over_tol"],
                     "repeats_bitwise": True,
-                    "ms": ms, "plain_ms": plain, "library_ms": lib,
+                    "ms": ms, "cuda_core_ms": cc_ms,
+                    "plain_ms": plain, "library_ms": lib,
                     "library_call": "autograd backward of "
                                     "F.scaled_dot_product_attention",
                     "fwd_bwd_ms": fb, "library_fwd_bwd_ms": lib_fb,
-                    "bound_ms": b_ms, "bound_by": b_by})
+                    **bb_bound})
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
     return fwd, bwd
@@ -1220,6 +1276,10 @@ FUSED_TRAIN_PER_STEP = dict(
     flash_attention_fwd=0, flash_attention_bwd=0, rms_norm_matmul=1,
     rope_attention=TRAIN_LAYERS)
 FUSED_TRAIN_STEPS = 3
+# the fp32 steps (``amp_level=None``, the trainer's default) on the reset
+# model after the fused ones: the unfused step's launches, flash on its
+# tensor-core (split) design
+FP32_TRAIN_STEPS = 3
 BOTH_FUSIONS = ("rms_norm_matmul", "rope_attention")
 # the fused O1 training step-1 loss against the unfused one, relative: the
 # unfused head multiplies in bf16 (``linear`` is white-listed) and rounds
@@ -1505,10 +1565,92 @@ def training_phase(torch, np, dev, card, profile_train_steps=0):
     torch.cuda.empty_cache()
     fused_counts = fused_training(torch, np, net, inputs, labels, losses[0],
                                   card, profile_train_steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp32_counts = fp32_training(torch, np, net, inputs, labels, card,
+                                profile_train_steps)
     del net
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, fused_counts
+    return counts, fused_counts, fp32_counts
+
+
+def fp32_training(torch, np, net, inputs, labels, card,
+                  profile_train_steps=0):
+    """The training phase's model reset to its seed-0 weights, a fresh
+    AdamW and schedule, FP32_TRAIN_STEPS steps with ``amp_level=None``
+    (the trainer's default: fp32 end to end, flash attention through the
+    split design) on the same batch. Returns the launch counts of those
+    steps."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.models import causal_lm_loss
+    from paddle_tpu_torch.optimizer import (AdamW, ClipGradByGlobalNorm,
+                                            LinearWarmup)
+
+    net.reset_parameters(0)
+    sched = LinearWarmup(3e-4, 3, 3e-5, 3e-4)
+    opt = AdamW(sched, parameters=net.named_parameters(), weight_decay=0.01,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    step = CompiledTrainStep(
+        net, lambda lo, lb: causal_lm_loss(lo, lb).mean(), opt)
+    if step.amp_level is not None:
+        fail(f"fp32 training: the trainer's default amp_level is "
+             f"{step.amp_level!r}, not None")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(FP32_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss, _ = step([inputs], [labels])
+        sched.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)):
+        fail(f"fp32 training: non-finite loss in {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"fp32 training: the last loss {losses[-1]} is not below the "
+             f"first {losses[0]} on a fixed batch")
+    want = {k: n * FP32_TRAIN_STEPS for k, n in TRAIN_PER_STEP.items()}
+    if counts != want:
+        fail(f"fp32 training: launches {counts}, expected {want} "
+             f"({FP32_TRAIN_STEPS} steps)")
+    # fp32 at head dim 128: every flash launch on the tensor cores
+    designs = kernels.flash_design_counts()
+    want_designs = {
+        "tc_launches": want["flash_attention_fwd"],
+        "tc_bwd_launches": want["flash_attention_bwd"],
+        "cc_launches": 0, "cc_bwd_launches": 0}
+    if designs != want_designs:
+        fail(f"fp32 training: flash launches by design {designs}, expected "
+             f"{want_designs}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    p50 = statistics.median(times)
+    res = {
+        "card": card, "amp_level": None, "steps": FP32_TRAIN_STEPS,
+        "losses": losses, "step_s": times, "step_p50_s": p50,
+        "tokens_per_s": tokens / p50, "peak_mem_bytes": peak,
+        "launches": counts,
+        "launches_per_step": {k: n / FP32_TRAIN_STEPS
+                              for k, n in counts.items()},
+        "flash_launches_by_design": designs,
+    }
+    log("fp32 training: " + json.dumps(res))
+    if profile_train_steps:
+        prof = profile_steps(torch, lambda: step([inputs], [labels]),
+                             profile_train_steps)
+        groups = prof["ms_per_step_by_group"]
+        prof["flash_ms_per_step"] = sum(
+            groups.get(k, 0.0) for k in ("flash_attention_fwd",
+                                         "flash_attention_bwd",
+                                         "flash_split_parts"))
+        log("profile: " + json.dumps(dict(prof, kind="train_fp32")))
+    del step, opt, sched, loss
+    return counts
 
 
 def fused_training(torch, np, net, inputs, labels, unfused_loss0, card,
@@ -1892,8 +2034,10 @@ def profile_steps(torch, step_fn, steps):
             continue
         name = e.key
         low = name.lower()
-        # flash by kernel name: flash_fwd_tc_kernel<D> (bf16) and
-        # flash_fwd_kernel<float, D, false> are the forward,
+        # flash by kernel name: flash_fwd_tc_kernel<D> (bf16),
+        # flash_fwd_split_kernel<D> (fp32) and flash_fwd_kernel<T, D,
+        # false> (CUDA cores) are the forward, split3_kernel the fp32
+        # split's pre-pass (forward and backward),
         # rope_attention_fwd_tc_kernel<D> (bf16) and
         # flash_fwd_kernel<T, D, true> the rope-on-load forward,
         # flash_bwd_* (both designs) the backward passes
@@ -1905,7 +2049,9 @@ def profile_steps(torch, step_fn, steps):
                  else "rms_norm_matmul" if ("norm_matmul" in low
                                             or "norm_rstd" in low)
                  else "rope_attention" if "rope_attention_fwd_tc" in low
-                 else "flash_attention_fwd" if "flash_fwd_tc_kernel" in low
+                 else "flash_attention_fwd" if ("flash_fwd_tc_kernel" in low
+                                                or "flash_fwd_split" in low)
+                 else "flash_split_parts" if "split3_kernel" in low
                  else "rope_attention" if "flash_fwd_kernel<" in low
                  and ", true>" in low
                  else "flash_attention_fwd" if "flash_fwd_kernel<" in low
@@ -2037,6 +2183,11 @@ def main():
         for kname, kcases in named.items():
             for c in kcases:
                 log(f"kernel {kname}: " + json.dumps(c))
+                if c.get("cuda_core_ms") is not None \
+                        and not c["ms"] < c["cuda_core_ms"]:
+                    fail(f"{kname} {c['dtype']} {c['shape']}: {c['ms']} ms, "
+                         f"not faster than the CUDA-core design it "
+                         f"replaced ({c['cuda_core_ms']} ms)")
                 for chk in c.get("checks", [c]):
                     if not (chk["max_abs_err"] <= chk["tolerance"]
                             and chk.get("err_over_tol", 0.0) <= 1.0):
@@ -2059,7 +2210,7 @@ def main():
     small_parity(torch, np, dev)
     fused_parity(torch, np, dev)
     tiny_train_parity(torch, np, dev)
-    train_counts, fused_train_counts = training_phase(
+    train_counts, fused_train_counts, fp32_train_counts = training_phase(
         torch, np, dev, card, args.profile_train_steps)
     serve_counts, fused_serve_counts = serving_phase(
         torch, np, dev, card, args.profile_steps)
@@ -2084,7 +2235,8 @@ def main():
                     "training": train_counts[name],
                     "quantized_serving": quant_counts[name],
                     "fused_serving": fused_serve_counts[name],
-                    "fused_training": fused_train_counts[name]}
+                    "fused_training": fused_train_counts[name],
+                    "fp32_training": fp32_train_counts[name]}
         line.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
@@ -2104,10 +2256,13 @@ def main():
         if "design" in main_case:
             line[-1]["design"] = main_case["design"]
         if name.startswith("flash_attention"):
-            # the design each dtype ran, at the training shape
+            # the design each dtype ran, at the training shape (fp32:
+            # the default training step's)
             line[-1]["by_design"] = {
-                c["design"]: {key: c[key] for key in (
-                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                f"{c['dtype']} {c['design']}": {key: c.get(key) for key in (
+                    "ms", "cuda_core_ms", "plain_ms", "bound_ms",
+                    "bound_by", "bound_rate", "bound_cuda_core_ms",
+                    "library_ms")}
                 for c in results[name]
                 if c["shape"]["sq"] == c["shape"]["sk"] == TRAIN_SEQ
                 and c["shape"]["d"] == 128}

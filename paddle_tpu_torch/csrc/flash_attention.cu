@@ -29,57 +29,67 @@
 // orders above the ridge; the card's bound is the tensor cores (989
 // TFLOP/s bf16).
 //
-// Two designs, chosen by the inputs' dtype and head dim
+// Designs, chosen by the inputs' dtype and head dim
 // (ptt_flash_attention_fwd/_bwd). Every head dim d that is a multiple of
-// 16 up to 256 runs: a kernel is instantiated at the next of 16, 32, 64,
-// 128 and 256 (its width D) and takes d as an argument; its tiles hold
-// zeros in the columns from d to D (TMA zero-fills them, the CUDA-core
-// loaders write them), which add nothing to the scores, and its stores
-// skip those columns (d 80, 96, 112 run the D 128 kernels, 160 and 192
-// the D 256 ones). Any other head dim up to 256 is zero-padded by the
-// Python wrapper to the next multiple of 16 (zero columns add exact zeros
-// to every fp32 sum), and its outputs sliced back.
+// 16 up to 256 runs: a kernel is instantiated at a padded width D (64,
+// 128 or 256 on the tensor cores; 16 and 32 too on the CUDA cores) and
+// takes d as an argument; its tiles hold zeros in the columns from d to
+// D (TMA zero-fills them, the split pre-pass and the CUDA-core loaders
+// write them), which add nothing to the scores, and its stores skip
+// those columns (d 16 to 48 run the D 64 kernels, 80 to 112 the D 128
+// ones, 160 to 240 the D 256 ones). Any other head dim up to 256 is
+// zero-padded by the Python wrapper to the next multiple of 16 (zero
+// columns add exact zeros to every fp32 sum), and its outputs sliced
+// back.
 //
-// bf16 at d 64 to 256 (forward) and d 64 to 128 (backward): the
-// tensor-core design (namespace tc, below; hopper.cuh). Every
-// product is wgmma with fp32 accumulators; tiles arrive by TMA into
-// 128-byte-swizzled shared memory, two stages in flight, issued by one
-// warp of a producer warpgroup beside two consumer warpgroups (setmaxnreg
-// moves the producer's registers to them); the softmax runs in registers
-// on the accumulator fragment, and P / dS are rounded to bf16 in
-// registers and fed back as wgmma's A operand (the rounding points
-// above). Forward: a
+// bf16, forward at every d and backward up to d 128: the tensor-core
+// design (namespace tc, below; hopper.cuh). Every product is wgmma with
+// fp32 accumulators; tiles arrive by TMA into 128-byte-swizzled shared
+// memory, two stages in flight, issued by one warp of a producer
+// warpgroup beside two consumer warpgroups (setmaxnreg moves the
+// producer's registers to them); the softmax runs in registers on the
+// accumulator fragment, and P / dS are rounded to bf16 in registers and
+// fed back as wgmma's A operand (the rounding points above). Forward: a
 // CTA owns 128 q rows and walks k/v blocks of 128 (64 at D = 256, whose
-// P V product runs as two m64n128 halves). Backward: the Delta
-// row pass, a dK/dV pass (a CTA owns 128 k rows and walks q blocks of 64)
-// and a dQ pass (a CTA owns 128 q rows and walks k blocks of 64): two
-// passes recompute S and dP (14 D flops per visible pair, not 10) so
-// that every output element has one owner: no float atomics, and the
-// gradients repeat bit for bit. Causal blocks wholly above the diagonal
-// are skipped; only blocks that cross it or the ragged end are masked.
+// P V product runs as two m64n128 halves). Backward: the Delta row pass,
+// a dK/dV pass (a CTA owns 128 k rows and walks q blocks of 64) and a dQ
+// pass (a CTA owns 128 q rows and walks k blocks of 64): two passes
+// recompute S and dP (14 D flops per visible pair, not 10) so that every
+// output element has one owner: no float atomics, and the gradients
+// repeat bit for bit. Causal blocks wholly above the diagonal are
+// skipped; only blocks that cross it or the ragged end are masked.
 //
-// fp32, and bf16 where the tensor-core design does not run: the CUDA-core
-// design (the port's first flash kernels, below). The tensor cores take
-// fp32 only as TF32 (about three decimal digits), and the fp32 models are
-// held to 1e-5 against the CPU, so fp32 runs on the CUDA cores (fp32
-// FMAs, 67 TFLOP/s at most). bf16 runs here at d below 64 (below one
-// 128-byte swizzle span, the tensor-core tiles' unit) and in the backward
-// above d 128 (at D 256 its two D/2 accumulators would not fit in a
-// consumer's registers beside the score tiles); it keeps P and dS in
-// fp32, which moves an entry by less than probability_rounding_slack.
-// One CTA of 256 threads
-// owns a 64-row q-block (forward, dQ) or a 64-row k-block (dK/dV) and
-// loops over the other side's 64-row blocks itself, from the causal start
-// to the causal end. Tiles are staged in shared memory as fp32 with a row
-// stride of D + 1 (the +1 keeps column reads of a tile on distinct
-// banks). Each thread owns a 4 x 4 patch of the 64 x 64 score tile (rows
-// ty*4+i, columns tx+16j) and a 4 x D/16 patch of the output rows; a
-// row's max and sum are reduced over the 16 lanes that share it with
-// shuffles. The same two backward passes, no atomics. Shared memory at D
-// = 128: forward 116 KB, dK/dV 166 KB, dQ 149 KB (of 227 KB). At D = 256
-// the blocks have 32 rows (a thread a 2 x 2 patch): forward 101 KB, dK/dV
-// 137 KB, dQ 133 KB. At D 16 and 32 a thread owns one or two output
-// columns.
+// fp32 up to d 128, and the bf16 backward above d 128: the split design
+// (tc, "the split design" below). fp32 reaches the tensor cores through
+// a three-part bf16 split of every operand, six bf16 products a product,
+// which keeps fp32's 24 bits (a single TF32 product would keep about
+// three decimal digits, and a two-part split about 16 bits, above the
+// 1e-5 the fp32 models are held to); the bf16 backward at D 256 runs the
+// same kernels with one part, where the two consumer warpgroups split D
+// between them because one warpgroup's dK and dV accumulators for 64
+// keys, 2 x 128 registers, would not fit beside its score tiles. The
+// same three passes, the same single owners.
+//
+// fp32 above d 128: the CUDA-core design (the port's first flash
+// kernels, below; fp32 FMAs, 67 TFLOP/s at most). The split design does
+// not fit there: a three-part tile of 64 rows at D 256 is 96 KB, so the
+// dK/dV pass's resident K and V for the 64 keys of one wgmma take 192
+// KB and the dQ pass's resident Q and dO as much, before any streamed
+// tile, of the 227 KB a CTA has (the forward alone would fit, with one
+// warpgroup and 32-key tiles). One CTA of 256 threads owns a 64-row
+// q-block (forward, dQ) or a 64-row k-block (dK/dV) and loops over the
+// other side's 64-row blocks itself, from the causal start to the causal
+// end. Tiles are staged in shared memory as fp32 with a row stride of D
+// + 1 (the +1 keeps column reads of a tile on distinct banks). Each
+// thread owns a 4 x 4 patch of the 64 x 64 score tile (rows ty*4+i,
+// columns tx+16j) and a 4 x D/16 patch of the output rows; a row's max
+// and sum are reduced over the 16 lanes that share it with shuffles. The
+// same two backward passes, no atomics. At D = 256 the blocks have 32
+// rows (a thread a 2 x 2 patch): shared memory forward 101 KB, dK/dV 137
+// KB, dQ 133 KB. These kernels also run at every other width and in bf16
+// when the caller asks for them (cuda_cores: the design the tensor-core
+// kernels replaced, kept to compare with; bf16 keeps P and dS in fp32
+// there, which moves an entry by less than probability_rounding_slack).
 //
 // Rope-on-load forward (ptt_rope_attention_fwd, fp32 and bf16). Replaces:
 // paddle_tpu/kernels/fused_rope_attention.py rope_attention_fused (:167;
@@ -112,7 +122,7 @@
 
 namespace {
 
-// ============================================ fp32 (and rope): CUDA cores
+// ============================== CUDA cores (fp32 at D 256, rope-on-load)
 constexpr int kThreads = 256;  // 16 x 16 threads
 
 // Rows of a q-block and of a k-block: 64, or 32 at D = 256 (four fp32
@@ -690,7 +700,7 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// ================================================ bf16: tensor-core design
+// ================================= tensor-core designs (bf16, and split)
 // (ptt::hopper: TMA into 128-byte-swizzled tiles, wgmma with fp32
 // accumulators). A CTA has two consumer warpgroups, each owning 64 rows of
 // the side it keeps (q rows in the forward and dQ passes, k rows in the
@@ -847,18 +857,84 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// one output row of a thread's accumulator (entries 4j + half*2 + {0,1})
-// to a contiguous bf16 [.., d] row, times `mul`; the columns from the head
-// dim d (a multiple of 16) to the template's D are not stored
-template <int D>
-__device__ __forceinline__ void store_row(bf16* __restrict__ row,
+// one output row of a thread's accumulator of D columns (entries 4j +
+// half*2 + {0,1}) to a contiguous bf16 or fp32 row, times `mul`; columns
+// from d (a multiple of 8; the head dim, less the row's first column) on
+// are not stored
+template <int D, typename T>
+__device__ __forceinline__ void store_row(T* __restrict__ row,
                                           const float (&acc)[D / 2], int half,
                                           int cq, float mul, int d) {
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-    if (8 * j < d)
-      *reinterpret_cast<uint32_t*>(row + 8 * j + cq) = pack_bf16(
-          acc[4 * j + 2 * half] * mul, acc[4 * j + 2 * half + 1] * mul);
+  for (int j = 0; j < D / 8; ++j) {
+    if (8 * j >= d) continue;
+    const float x = acc[4 * j + 2 * half] * mul;
+    const float y = acc[4 * j + 2 * half + 1] * mul;
+    if constexpr (sizeof(T) == 2)
+      *reinterpret_cast<uint32_t*>(row + 8 * j + cq) = pack_bf16(x, y);
+    else
+      *reinterpret_cast<float2*>(row + 8 * j + cq) = make_float2(x, y);
+  }
+}
+
+// One k block of the forward's online softmax on a thread's rows ra and
+// rb of a score tile of kN columns from k0 (the accumulator layout:
+// entries 4j + {0, 1} of row ra, 4j + {2, 3} of row rb, columns k0 + 8j +
+// cq + {0, 1}): scores to the log2 domain, masked past sk and above the
+// diagonal (column c visible to row r iff c <= r + shift) where `mask`,
+// the running maxima ma, mb (finite from the first block on: column 0 is
+// visible to every row), P = exp2(S - m) in place, the per-thread partial
+// sums la, lb of the unrounded P (the quad's are added at the end), and
+// the output accumulator rescaled.
+template <int kN, int DA>
+__device__ __forceinline__ void softmax_block(float (&sc)[kN / 2],
+                                              float (&acc)[DA], float& ma,
+                                              float& mb, float& la, float& lb,
+                                              bool mask, int k0, int cq,
+                                              int ra, int rb, int sk,
+                                              int shift, int causal,
+                                              float scale_log2) {
+  float mxa = -INFINITY, mxb = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float va = sc[4 * j + e] * scale_log2;
+      float vb = sc[4 * j + 2 + e] * scale_log2;
+      if (mask) {
+        const int c = k0 + 8 * j + cq + e;
+        if (c >= sk || (causal && c > ra + shift)) va = -INFINITY;
+        if (c >= sk || (causal && c > rb + shift)) vb = -INFINITY;
+      }
+      sc[4 * j + e] = va;
+      sc[4 * j + 2 + e] = vb;
+      mxa = fmaxf(mxa, va);
+      mxb = fmaxf(mxb, vb);
+    }
+  const float na = fmaxf(ma, quad_max(mxa));
+  const float nb = fmaxf(mb, quad_max(mxb));
+  const float alpha_a = exp2_(ma - na), alpha_b = exp2_(mb - nb);
+  ma = na;
+  mb = nb;
+  float sa = 0.0f, sb = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      sc[4 * j + e] = exp2_(sc[4 * j + e] - na);
+      sc[4 * j + 2 + e] = exp2_(sc[4 * j + 2 + e] - nb);
+      sa += sc[4 * j + e];
+      sb += sc[4 * j + 2 + e];
+    }
+  la = la * alpha_a + sa;
+  lb = lb * alpha_b + sb;
+#pragma unroll
+  for (int j = 0; j < DA / 4; ++j) {
+    acc[4 * j] *= alpha_a;
+    acc[4 * j + 1] *= alpha_a;
+    acc[4 * j + 2] *= alpha_b;
+    acc[4 * j + 3] *= alpha_b;
+  }
 }
 
 // ----------------------------------------------------------------- forward
@@ -946,49 +1022,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         // zero-filled rows past sk give scores of 0, so they are masked too
         const bool mask =
             k0 + kN > sk || (causal && k0 + kN - 1 > wrow + shift);
-        float mxa = -INFINITY, mxb = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < kN / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float va = sc[4 * j + e] * scale_log2;
-            float vb = sc[4 * j + 2 + e] * scale_log2;
-            if (mask) {
-              const int c = k0 + 8 * j + cq + e;
-              if (c >= sk || (causal && c > ra + shift)) va = -INFINITY;
-              if (c >= sk || (causal && c > rb + shift)) vb = -INFINITY;
-            }
-            sc[4 * j + e] = va;
-            sc[4 * j + 2 + e] = vb;
-            mxa = fmaxf(mxa, va);
-            mxb = fmaxf(mxb, vb);
-          }
-        // finite from the first block on: column 0 is visible to every row
-        const float na = fmaxf(ma, quad_max(mxa));
-        const float nb = fmaxf(mb, quad_max(mxb));
-        const float alpha_a = exp2_(ma - na), alpha_b = exp2_(mb - nb);
-        ma = na;
-        mb = nb;
-        float sa = 0.0f, sb = 0.0f;
-#pragma unroll
-        for (int j = 0; j < kN / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            sc[4 * j + e] = exp2_(sc[4 * j + e] - na);
-            sc[4 * j + 2 + e] = exp2_(sc[4 * j + 2 + e] - nb);
-            sa += sc[4 * j + e];
-            sb += sc[4 * j + 2 + e];
-          }
-        // per-thread partial sums; the quad's are added at the end
-        la = la * alpha_a + sa;
-        lb = lb * alpha_b + sb;
-#pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
-          acc[4 * j] *= alpha_a;
-          acc[4 * j + 1] *= alpha_a;
-          acc[4 * j + 2] *= alpha_b;
-          acc[4 * j + 3] *= alpha_b;
-        }
+        softmax_block<kN>(sc, acc, ma, mb, la, lb, mask, k0, cq, ra, rb, sk,
+                          shift, causal, scale_log2);
         uint32_t p[kN / 16][4];
         to_a_operand<kN / 16>(sc, p);
         wgmma_fence();
@@ -1534,50 +1569,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       // only blocks that cross the last key or the diagonal are masked;
       // zero-filled rows past seq give scores of 0, so they are masked too
       const bool mask = k0 + kN > seq || (causal && k0 + kN - 1 > wrow);
-      float mxa = -INFINITY, mxb = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kN / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float va = sc[4 * j + e] * scale_log2;
-          float vb = sc[4 * j + 2 + e] * scale_log2;
-          if (mask) {
-            const int c = k0 + 8 * j + cq + e;
-            if (c >= seq || (causal && c > ra)) va = -INFINITY;
-            if (c >= seq || (causal && c > rb)) vb = -INFINITY;
-          }
-          sc[4 * j + e] = va;
-          sc[4 * j + 2 + e] = vb;
-          mxa = fmaxf(mxa, va);
-          mxb = fmaxf(mxb, vb);
-        }
-      // finite from the first block on: column 0 is visible to every row
-      const float na = fmaxf(ma, quad_max(mxa));
-      const float nb = fmaxf(mb, quad_max(mxb));
-      const float alpha_a = exp2_(ma - na), alpha_b = exp2_(mb - nb);
-      ma = na;
-      mb = nb;
-      float sa = 0.0f, sb = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kN / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          sc[4 * j + e] = exp2_(sc[4 * j + e] - na);
-          sc[4 * j + 2 + e] = exp2_(sc[4 * j + 2 + e] - nb);
-          sa += sc[4 * j + e];
-          sb += sc[4 * j + 2 + e];
-        }
-      // per-thread partial sums of the unsplit P; the quad's are added at
-      // the end
-      sum_a = sum_a * alpha_a + sa;
-      sum_b = sum_b * alpha_b + sb;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        acc[4 * j] *= alpha_a;
-        acc[4 * j + 1] *= alpha_a;
-        acc[4 * j + 2] *= alpha_b;
-        acc[4 * j + 3] *= alpha_b;
-      }
+      // sums of the unsplit P
+      softmax_block<kN>(sc, acc, ma, mb, sum_a, sum_b, mask, k0, cq, ra, rb,
+                        seq, 0, causal, scale_log2);
       uint32_t ph[kN / 16][4], pl[kN / 16][4];
       to_a_split<kN / 16>(sc, ph, pl);
       wgmma_fence();
@@ -1611,6 +1605,642 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (rb < seq)
     store_row<D>(o + (((long long)b * seq + rb) * heads + h) * d, acc, 1, cq,
                  1.0f / sum_b, d);
+}
+
+// ------------------------------------------------------- the split design
+// fp32 at padded D 64 and 128, and the bf16 backward at D 256. An operand
+// here is NP bf16 tiles of the same rows, one after another: NP = 1 for a
+// bf16 input; NP = 3 for an fp32 one, whose value x is hi + mid + lo with
+// hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid) (each
+// difference exact in fp32: the three keep x's 24 significant bits). The
+// parts are written by a pre-pass (split3_kernel) to a bf16 scratch [NP,
+// batch, seq, heads, D] that TMA reads like any bf16 tensor, the part p
+// of batch b at the map's batch p * batch + b. A product of two operands
+// sums the terms (part i of A, part j of B) with i + j <= 2, each a
+// wgmma product with fp32 accumulators over all its k-steps in turn:
+// the six of a three-part split smallest first (hi·lo, mid·mid, lo·hi,
+// hi·mid, mid·hi, hi·hi), or hi·hi alone for NP = 1. The three dropped
+// terms (mid·lo, lo·mid, lo·lo) and the split's own residue come to about
+// 2^-22 of |a||b| a product, the size of a few fp32 roundings, so the
+// fp32 contract (1e-5 of max|plain|) holds; P and dS, fp32 in registers,
+// are split the same way into register A operands (to_a_parts). Six
+// products where a bf16 kernel has one: the bound of this design is
+// those products on the tensor cores, 6 x 2 flops a multiply-add at 989
+// TFLOP/s.
+//
+// Shared memory sets the tiles: a three-part tile of 64 rows at D 128 is
+// 48 KB. So K and V (forward, dQ pass) or Q and dO (dK/dV pass) stream
+// through two single-tile slots, each with its full/empty barrier pair,
+// loaded in the order of their first use and released at their last:
+//   forward: Q resident (128 rows, 96 KB at D 128), K and V tiles of 64
+//     keys (48 KB each): 192 KB;
+//   dK/dV: K and V resident (64 or 128 keys), dO and Q tiles of 64 rows
+//     (with the block's LSE and Delta), and at split_d the two
+//     exchanged fp32 score tiles (32 KB): 226 KB at fp32 D 128;
+//   dQ: Q and dO resident (64 or 128 rows), V and K tiles of 64 keys,
+//     the exchange: 225 KB at fp32 D 128.
+// Registers set the split of the work (split_d): where the resident
+// rows' accumulators of all D columns would not fit beside the score
+// tiles and the split P (fp32 D 128: dK and dV for 64 keys, 2 x 64, plus
+// two 32-entry score tiles, plus 48 for P's three parts; bf16 D 256:
+// 2 x 128), the two consumer warpgroups own the SAME 64 rows and each
+// accumulates the columns of its half of D; warpgroup 0 computes S (or
+// S^T) and warpgroup 1 dP (dP^T), and they trade the two fp32 tiles
+// through shared memory, so each holds both, and the products stay
+// those of one owner. Otherwise (fp32 D 64) each warpgroup owns 64 rows
+// of its own and all columns, as in the bf16 kernels.
+//
+// A CTA is the two consumer warpgroups alone, 256 threads, and a thread
+// of warpgroup 0 issues the loads: each next tile once both warpgroups
+// have released its slot (they run in step). So every thread may take
+// 255 registers (two warps on each of the SM's four register files of
+// 16,384), where the bf16 kernels' 384 threads get 168 (three warps a
+// file, a 288-thread CTA too): ptxas allocates the consumers at the
+// launch bound whatever setmaxnreg later moves, and at 168 registers it
+// serialized the split kernels' wgmma (C7512) and spilled up to 408 bytes
+// (the one-part D 256 dK/dV kernel).
+constexpr int kSplitThreads = 128 * kConsumers;
+
+template <int D, int NP>
+__host__ __device__ constexpr bool split_d() {
+  return NP * D >= 256;
+}
+// rows of the resident side a CTA owns
+template <int D, int NP>
+__host__ __device__ constexpr int owned_rows() {
+  return split_d<D, NP>() ? 64 : 128;
+}
+// columns of D a consumer warpgroup accumulates
+template <int D, int NP>
+__host__ __device__ constexpr int owned_cols() {
+  return split_d<D, NP>() ? D / 2 : D;
+}
+
+// the terms of a product, smallest first: (part of A, part of B)
+__host__ __device__ constexpr int term_a(int t) {
+  return t == 1 || t == 4 ? 1 : t == 2 ? 2 : 0;
+}
+__host__ __device__ constexpr int term_b(int t) {
+  return t == 0 ? 2 : t == 1 || t == 3 ? 1 : 0;
+}
+template <int NP>
+__host__ __device__ constexpr int first_term() {
+  return NP == 1 ? 5 : 0;
+}
+
+// the NP part tiles of R rows of one head (parts from the map's batches
+// b, b + batch, ..) into the split operand at `tile`
+template <int R, int D, int NP>
+__device__ __forceinline__ void load_split(uint32_t tile,
+                                           const CUtensorMap* map,
+                                           uint32_t bar, int head, int row,
+                                           int b, int batch) {
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+    tma_load_tile<R, D>(tile + p * tile_bytes<D>(R), map, bar, head, row,
+                        b + p * batch);
+}
+
+// acc = A B^T over the K axis D: A rows [row0, row0 + 64) of a split
+// operand of RA rows, B a split operand of N rows, both K-major
+// (wgmma m64nNk16, the terms in order)
+template <int NP, int D, int RA, int N>
+__device__ __forceinline__ void split_ss(float (&acc)[N / 2], uint32_t a,
+                                         int row0, uint32_t b) {
+#pragma unroll
+  for (int t = first_term<NP>(); t < 6; ++t)
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<N>(acc,
+                  desc_k_major<RA>(a + term_a(t) * tile_bytes<D>(RA), row0,
+                                   kk),
+                  desc_k_major<N>(b + term_b(t) * tile_bytes<D>(N), 0, kk),
+                  t > first_term<NP>() || kk > 0);
+}
+
+// acc += A B: A the register parts of a 64 x R score tile (K axis R), B a
+// split operand of R rows read MN-major, N of its columns from the
+// 64-column region at byte offset `region` of each part tile
+template <int NP, int D, int R, int N>
+__device__ __forceinline__ void split_rs(float (&acc)[N / 2],
+                                         const uint32_t (&a)[NP][R / 16][4],
+                                         uint32_t b, uint32_t region) {
+#pragma unroll
+  for (int t = first_term<NP>(); t < 6; ++t)
+#pragma unroll
+    for (int kk = 0; kk < R / 16; ++kk)
+      wgmma_rs<N>(acc, a[term_a(t)][kk],
+                  desc_mn_major<R>(b + term_b(t) * tile_bytes<D>(R) + region,
+                                   kk));
+}
+
+// the accumulator fragment of a score tile (to_a_operand's layout) as NP
+// register A operands: rounded to bf16 once (NP = 1, the stock kernel's
+// astype) or split into hi, mid, lo (NP = 3)
+template <int NP, int KSTEPS>
+__device__ __forceinline__ void to_a_parts(const float* acc,
+                                           uint32_t (&a)[NP][KSTEPS][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float x = acc[8 * kk + 2 * i], y = acc[8 * kk + 2 * i + 1];
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        const uint32_t v = pack_bf16(x, y);
+        a[p][kk][i] = v;
+        x -= __uint_as_float(v << 16);  // a bf16 is its fp32's top half
+        y -= __uint_as_float(v & 0xffff0000u);
+      }
+    }
+}
+
+// The two 64 x 64 score tiles of a backward block, x = A0 B0^T and y =
+// A1 B1^T (S and dP, or S^T and dP^T; A from rows row0 of RA-row
+// operands). At split_d warpgroup w computes product w alone (the same
+// instructions on its own operands: wgmma in a branch is serialized) and
+// the two trade their tiles through `xch` (two fp32 tiles,
+// thread-linear, one barrier; a later write waits for a slot that every
+// consumer releases after these reads). Otherwise each computes both.
+template <int NP, int D, int RA, bool kSplit>
+__device__ __forceinline__ void score_tiles(float (&x)[32], float (&y)[32],
+                                            uint32_t a0, uint32_t b0,
+                                            uint32_t a1, uint32_t b1,
+                                            int row0, float* xch, int wg,
+                                            int t) {
+  wgmma_fence();
+  if constexpr (kSplit) {
+    float mine[32];
+    split_ss<NP, D, RA, 64>(mine, wg ? a1 : a0, row0, wg ? b1 : b0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(mine);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) xch[wg * 4096 + i * 128 + t] = mine[i];
+    named_sync(1, 128 * kConsumers);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float other = xch[(1 - wg) * 4096 + i * 128 + t];
+      x[i] = wg ? other : mine[i];
+      y[i] = wg ? mine[i] : other;
+    }
+  } else {
+    split_ss<NP, D, RA, 64>(x, a0, row0, b0);
+    split_ss<NP, D, RA, 64>(y, a1, row0, b1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(x);
+    fence_regs(y);
+  }
+}
+
+// ------------------------------------------------- split design: forward
+// fp32 (NP = 3) at D 64 and 128. A CTA owns 128 q rows (64 per consumer
+// warpgroup, Q resident) and walks k/v blocks of 64 keys: slot 0 holds K,
+// slot 1 V. Per block and warpgroup: S = Q K^T (six products m64n64k16),
+// the online softmax, P split into three register operands, O += P V
+// (six products m64nDk16, V MN-major). No value is rounded.
+template <int D>
+__host__ __device__ constexpr Layout fwd_split_layout() {
+  return {3 * tile_bytes<D>(128), 3 * tile_bytes<D>(64), 0};
+}
+
+template <int D>
+__global__ void __launch_bounds__(kSplitThreads, 1)
+    flash_fwd_split_kernel(const __grid_constant__ CUtensorMap mq,
+                           const __grid_constant__ CUtensorMap mk,
+                           const __grid_constant__ CUtensorMap mv,
+                           float* __restrict__ o, float* __restrict__ lse,
+                           int batch, int heads, int sq, int sk, int d,
+                           float scale_log2, int causal) {
+  constexpr int NP = 3, kM = 128, kN = 64;
+  constexpr Layout L = fwd_split_layout<D>();
+  extern __shared__ uint8_t smem_raw[];
+  Bars bars;
+  const uint32_t base = setup(smem_raw, L, 1, bars);
+  const uint32_t sQ = base, sK = base + L.stage_at(0),
+                 sV = base + L.stage_at(1);
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kM;  // longest rows first
+  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
+  const int shift = sk - sq;  // row r sees column c iff c <= r + shift
+  const int k_end = causal ? min(sk, q0 + kM + shift) : sk;
+  const int nblk = (k_end + kN - 1) / kN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // thread 0 issues the loads: slot s's tile of block `it` once both
+  // warpgroups have released the slot's previous tile
+  const bool issuer = threadIdx.x == 0;
+  auto load = [&](int s, int it) {
+    if (it > 0) mbar_wait(bars.empty(s), (it - 1) & 1);
+    mbar_arrive_expect_tx(bars.full(s), L.stage);
+    load_split<kN, D, NP>(s ? sV : sK, s ? &mv : &mk, bars.full(s), h,
+                          it * kN, b, batch);
+  };
+  if (issuer) {
+    mbar_arrive_expect_tx(bars.resident, L.resident);
+    load_split<kM, D, NP>(sQ, &mq, bars.resident, h, q0, b, batch);
+    load(0, 0);
+    load(1, 0);
+  }
+
+  const int wg = warp / 4, t = threadIdx.x % 128;
+  const int wrow = q0 + 64 * wg;  // this warpgroup's first row
+  const int ra = wrow + (t / 32) * 16 + lane / 4, rb = ra + 8;
+  const int cq = 2 * (lane % 4);
+  const bool live = wrow < sq;
+  const int last_col =
+      causal ? min(sk - 1, min(wrow + 63, sq - 1) + shift) : sk - 1;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  float ma = -INFINITY, mb = -INFINITY, la = 0.0f, lb = 0.0f;
+
+  mbar_wait(bars.resident, 0);
+  for (int it = 0; it < nblk; ++it) {
+    const int k0 = it * kN;
+    // blocks wholly past this warpgroup's last visible column are skipped
+    const bool work = live && k0 <= last_col;
+    float sc[kN / 2];
+    uint32_t p[NP][kN / 16][4];
+    mbar_wait(bars.full(0), it & 1);
+    if (work) {
+      wgmma_fence();
+      split_ss<NP, D, kM, kN>(sc, sQ, 64 * wg, sK);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+    }
+    mbar_arrive(bars.empty(0));
+    if (issuer && it + 1 < nblk) load(0, it + 1);
+    if (work) {
+      const bool mask =
+          k0 + kN > sk || (causal && k0 + kN - 1 > wrow + shift);
+      softmax_block<kN>(sc, acc, ma, mb, la, lb, mask, k0, cq, ra, rb, sk,
+                        shift, causal, scale_log2);
+      to_a_parts<NP, kN / 16>(sc, p);
+    }
+    mbar_wait(bars.full(1), it & 1);
+    if (work) {
+      wgmma_fence();
+      split_rs<NP, D, kN, D>(acc, p, sV, 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      fence_regs(p);
+    }
+    mbar_arrive(bars.empty(1));
+    if (issuer && it + 1 < nblk) load(1, it + 1);
+  }
+
+  if (!live) return;
+  la = quad_sum(la);
+  lb = quad_sum(lb);
+  const long long rowvec = ((long long)b * heads + h) * sq;
+  if (ra < sq) {
+    store_row<D>(o + (((long long)b * sq + ra) * heads + h) * d, acc, 0, cq,
+                 1.0f / la, d);
+    if (cq == 0) lse[rowvec + ra] = ma * kLn2 + logf(la);
+  }
+  if (rb < sq) {
+    store_row<D>(o + (((long long)b * sq + rb) * heads + h) * d, acc, 1, cq,
+                 1.0f / lb, d);
+    if (cq == 0) lse[rowvec + rb] = mb * kLn2 + logf(lb);
+  }
+}
+
+// --------------------------------------------- split design: dK, dV pass
+// A CTA owns owned_rows keys (K and V resident) and walks the q blocks of
+// 64 rows from the causal start: slot 1 holds dO and the block's LSE (in
+// log2 units, +inf past sq so that P is 0 there) and Delta, slot 0 Q.
+// Per block: S^T = K Q^T and dP^T = V dO^T (m64n64k16; at split_d
+// warpgroup 0 computes the first, warpgroup 1 the second, and they trade
+// them: score_tiles), P^T and dS^T = P^T (dP^T - Delta) scale in fp32 registers, then
+// dV += P^T dO (slot 1 released) and dK += dS^T Q (slot 0 released), each
+// warpgroup over its columns (m64nCk16, the operands' parts from
+// registers, dO and Q MN-major). NP = 1 rounds P^T and dS^T to bf16
+// (the stock kernel's p.T.astype, ds.T.astype).
+template <int D, int NP>
+__host__ __device__ constexpr Layout dkdv_split_layout() {
+  return {2 * NP * tile_bytes<D>(owned_rows<D, NP>()), NP * tile_bytes<D>(64),
+          2 * 64 * 4 + (split_d<D, NP>() ? 2 * 64 * 64 * 4 : 0)};
+}
+
+template <typename T, int D, int NP>
+__global__ void __launch_bounds__(kSplitThreads, 1)
+    flash_bwd_dkdv_split_kernel(const __grid_constant__ CUtensorMap mq,
+                                const __grid_constant__ CUtensorMap mdo,
+                                const __grid_constant__ CUtensorMap mk,
+                                const __grid_constant__ CUtensorMap mv,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                T* __restrict__ dk, T* __restrict__ dv,
+                                int batch, int heads, int sq, int sk, int d,
+                                float scale, float scale_log2, int causal) {
+  constexpr bool kSplit = split_d<D, NP>();
+  constexpr int kR = owned_rows<D, NP>(), kC = owned_cols<D, NP>(), kM = 64;
+  constexpr Layout L = dkdv_split_layout<D, NP>();
+  extern __shared__ uint8_t smem_raw[];
+  Bars bars;
+  // each full barrier: the 32 lanes of warp 0, which loads (+ the TMA)
+  const uint32_t base = setup(smem_raw, L, 32, bars);
+  const uint32_t sK = base, sV = base + NP * tile_bytes<D>(kR);
+  const uint32_t sQ = base + L.stage_at(0), sG = base + L.stage_at(1);
+  float* vecs = reinterpret_cast<float*>(
+      smem_raw + (base - smem_addr(smem_raw)) + L.extra_at());
+  float* xch = vecs + 2 * kM;
+
+  const int k0 = blockIdx.x * kR;  // the first keys see the most rows
+  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
+  const int shift = sk - sq;
+  int q_first = causal ? max(0, k0 - shift) : 0;
+  q_first = (q_first / kM) * kM;
+  const int nblk = (sq - q_first + kM - 1) / kM;
+  const long long rowvec = ((long long)b * heads + h) * sq;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // warp 0 issues the loads (lane 0) and writes each q block's row
+  // vectors with slot 1's tile: slot s's tile of block `it` once both
+  // warpgroups have released the slot's previous tile
+  auto load = [&](int s, int it) {
+    const int q0 = q_first + it * kM;
+    if (it > 0) mbar_wait(bars.empty(s), (it - 1) & 1);
+    if (s == 1) {
+      for (int i = lane; i < kM; i += 32) {
+        const int r = q0 + i;
+        vecs[i] = r < sq ? lse[rowvec + r] * kLog2e : INFINITY;
+        vecs[kM + i] = r < sq ? delta[rowvec + r] : 0.0f;
+      }
+      __syncwarp();
+    }
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bars.full(s), L.stage);
+      load_split<kM, D, NP>(s ? sG : sQ, s ? &mdo : &mq, bars.full(s), h,
+                            q0, b, batch);
+    } else {
+      mbar_arrive(bars.full(s));
+    }
+  };
+  if (warp == 0) {
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bars.resident, L.resident);
+      load_split<kR, D, NP>(sK, &mk, bars.resident, h, k0, b, batch);
+      load_split<kR, D, NP>(sV, &mv, bars.resident, h, k0, b, batch);
+    }
+    load(1, 0);
+    load(0, 0);
+  }
+
+  const int wg = warp / 4, t = threadIdx.x % 128;
+  const int rk = kSplit ? 0 : 64 * wg;  // first resident row of this wg
+  const int wkey = k0 + rk;             // this warpgroup's first key
+  const int ca = wkey + (t / 32) * 16 + lane / 4, cb = ca + 8;
+  const int cq = 2 * (lane % 4);
+  const bool live = wkey < sk;
+  const int q_lo = causal ? wkey - shift : 0;  // the first row to see wkey
+  const int col0 = kSplit ? wg * kC : 0;       // first column of this wg
+  const uint32_t region = col0 / 64 * (kM * 128);
+
+  float adk[kC / 2], adv[kC / 2];
+#pragma unroll
+  for (int i = 0; i < kC / 2; ++i) adk[i] = adv[i] = 0.0f;
+
+  mbar_wait(bars.resident, 0);
+  for (int it = 0; it < nblk; ++it) {
+    const int q0 = q_first + it * kM;
+    // at split_d both warpgroups own the same keys: `work` agrees
+    const bool work = live && q0 + kM - 1 >= q_lo;
+    float st[kM / 2], dpt[kM / 2];
+    mbar_wait(bars.full(1), it & 1);
+    mbar_wait(bars.full(0), it & 1);
+    if (work) {
+      score_tiles<NP, D, kR, kSplit>(st, dpt, sK, sQ, sV, sG, rk, xch, wg,
+                                     t);
+      // masked: rows past sq, or rows above this warpgroup's last key
+      const bool mask = q0 + kM > sq || (causal && q0 < wkey + 63 - shift);
+#pragma unroll
+      for (int j = 0; j < kM / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int rl = 8 * j + cq + e, r = q0 + rl;
+          const float lr = vecs[rl], dr = vecs[kM + rl];
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int i = 4 * j + 2 * half + e;
+            const int c = half ? cb : ca;
+            float p = exp2_(st[i] * scale_log2 - lr);
+            if (mask && (r >= sq || (causal && c > r + shift))) p = 0.0f;
+            st[i] = p;
+            dpt[i] = p * (dpt[i] - dr) * scale;
+          }
+        }
+      uint32_t pa[NP][kM / 16][4];
+      to_a_parts<NP, kM / 16>(st, pa);
+      wgmma_fence();
+      split_rs<NP, D, kM, kC>(adv, pa, sG, region);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(adv);
+      fence_regs(pa);
+    }
+    mbar_arrive(bars.empty(1));
+    if (warp == 0 && it + 1 < nblk) load(1, it + 1);
+    if (work) {
+      uint32_t da[NP][kM / 16][4];
+      to_a_parts<NP, kM / 16>(dpt, da);
+      wgmma_fence();
+      split_rs<NP, D, kM, kC>(adk, da, sQ, region);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(adk);
+      fence_regs(da);
+    }
+    mbar_arrive(bars.empty(0));
+    if (warp == 0 && it + 1 < nblk) load(0, it + 1);
+  }
+
+  if (!live) return;
+  if (ca < sk) {
+    const long long off = (((long long)b * sk + ca) * heads + h) * d + col0;
+    store_row<kC>(dk + off, adk, 0, cq, 1.0f, d - col0);
+    store_row<kC>(dv + off, adv, 0, cq, 1.0f, d - col0);
+  }
+  if (cb < sk) {
+    const long long off = (((long long)b * sk + cb) * heads + h) * d + col0;
+    store_row<kC>(dk + off, adk, 1, cq, 1.0f, d - col0);
+    store_row<kC>(dv + off, adv, 1, cq, 1.0f, d - col0);
+  }
+}
+
+// ------------------------------------------------- split design: dQ pass
+// A CTA owns owned_rows q rows (Q and dO resident) and walks the k/v
+// blocks of 64 keys to its causal end: slot 1 holds V, slot 0 K. Per
+// block: S = Q K^T and dP = dO V^T (slot 1 released; at split_d
+// warpgroup 0 computes the first, warpgroup 1 the second, and they trade
+// them: score_tiles), P and dS = P (dP - Delta) scale in fp32 registers, dQ += dS K
+// over the warpgroup's columns (slot 0 released; K MN-major). NP = 1
+// rounds dS to bf16 (the stock ds.astype(k.dtype)).
+template <int D, int NP>
+__host__ __device__ constexpr Layout dq_split_layout() {
+  return {2 * NP * tile_bytes<D>(owned_rows<D, NP>()), NP * tile_bytes<D>(64),
+          split_d<D, NP>() ? 2 * 64 * 64 * 4 : 0};
+}
+
+template <typename T, int D, int NP>
+__global__ void __launch_bounds__(kSplitThreads, 1)
+    flash_bwd_dq_split_kernel(const __grid_constant__ CUtensorMap mq,
+                              const __grid_constant__ CUtensorMap mdo,
+                              const __grid_constant__ CUtensorMap mk,
+                              const __grid_constant__ CUtensorMap mv,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              T* __restrict__ dq, int batch, int heads,
+                              int sq, int sk, int d, float scale,
+                              float scale_log2, int causal) {
+  constexpr bool kSplit = split_d<D, NP>();
+  constexpr int kR = owned_rows<D, NP>(), kC = owned_cols<D, NP>(), kN = 64;
+  constexpr Layout L = dq_split_layout<D, NP>();
+  extern __shared__ uint8_t smem_raw[];
+  Bars bars;
+  const uint32_t base = setup(smem_raw, L, 1, bars);
+  const uint32_t sQ = base, sG = base + NP * tile_bytes<D>(kR);
+  const uint32_t sK = base + L.stage_at(0), sV = base + L.stage_at(1);
+  float* xch = reinterpret_cast<float*>(
+      smem_raw + (base - smem_addr(smem_raw)) + L.extra_at());
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kR;  // longest rows first
+  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
+  const int shift = sk - sq;
+  const int k_end = causal ? min(sk, q0 + kR + shift) : sk;
+  const int nblk = (k_end + kN - 1) / kN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // thread 0 issues the loads: slot s's tile of block `it` once both
+  // warpgroups have released the slot's previous tile
+  const bool issuer = threadIdx.x == 0;
+  auto load = [&](int s, int it) {
+    if (it > 0) mbar_wait(bars.empty(s), (it - 1) & 1);
+    mbar_arrive_expect_tx(bars.full(s), L.stage);
+    load_split<kN, D, NP>(s ? sV : sK, s ? &mv : &mk, bars.full(s), h,
+                          it * kN, b, batch);
+  };
+  if (issuer) {
+    mbar_arrive_expect_tx(bars.resident, L.resident);
+    load_split<kR, D, NP>(sQ, &mq, bars.resident, h, q0, b, batch);
+    load_split<kR, D, NP>(sG, &mdo, bars.resident, h, q0, b, batch);
+    load(1, 0);
+    load(0, 0);
+  }
+
+  const int wg = warp / 4, t = threadIdx.x % 128;
+  const int rq = kSplit ? 0 : 64 * wg;  // first resident row of this wg
+  const int wrow = q0 + rq;
+  const int ra = wrow + (t / 32) * 16 + lane / 4, rb = ra + 8;
+  const int cq = 2 * (lane % 4);
+  const bool live = wrow < sq;
+  const int last_col =
+      causal ? min(sk - 1, min(wrow + 63, sq - 1) + shift) : sk - 1;
+  const int col0 = kSplit ? wg * kC : 0;
+  const uint32_t region = col0 / 64 * (kN * 128);
+  const long long rowvec = ((long long)b * heads + h) * sq;
+  // rows past sq: P is 0 (LSE +inf); they are not written
+  const float la = ra < sq ? lse[rowvec + ra] * kLog2e : INFINITY;
+  const float lb = rb < sq ? lse[rowvec + rb] * kLog2e : INFINITY;
+  const float dea = ra < sq ? delta[rowvec + ra] : 0.0f;
+  const float deb = rb < sq ? delta[rowvec + rb] : 0.0f;
+
+  float adq[kC / 2];
+#pragma unroll
+  for (int i = 0; i < kC / 2; ++i) adq[i] = 0.0f;
+
+  mbar_wait(bars.resident, 0);
+  for (int it = 0; it < nblk; ++it) {
+    const int k0 = it * kN;
+    // at split_d both warpgroups own the same rows: `work` agrees
+    const bool work = live && k0 <= last_col;
+    float sc[kN / 2], dp[kN / 2];
+    mbar_wait(bars.full(1), it & 1);
+    mbar_wait(bars.full(0), it & 1);
+    if (work)
+      score_tiles<NP, D, kR, kSplit>(sc, dp, sQ, sK, sG, sV, rq, xch, wg, t);
+    mbar_arrive(bars.empty(1));
+    if (issuer && it + 1 < nblk) load(1, it + 1);
+    if (work) {
+      const bool mask =
+          k0 + kN > sk || (causal && k0 + kN - 1 > wrow + shift);
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = k0 + 8 * j + cq + e;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int i = 4 * j + 2 * half + e;
+            const int r = half ? rb : ra;
+            float p = exp2_(sc[i] * scale_log2 - (half ? lb : la));
+            if (mask && (c >= sk || (causal && c > r + shift))) p = 0.0f;
+            dp[i] = p * (dp[i] - (half ? deb : dea)) * scale;
+          }
+        }
+      uint32_t dsa[NP][kN / 16][4];
+      to_a_parts<NP, kN / 16>(dp, dsa);
+      wgmma_fence();
+      split_rs<NP, D, kN, kC>(adq, dsa, sK, region);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(adq);
+      fence_regs(dsa);
+    }
+    mbar_arrive(bars.empty(0));
+    if (issuer && it + 1 < nblk) load(0, it + 1);
+  }
+
+  if (!live) return;
+  if (ra < sq)
+    store_row<kC>(dq + (((long long)b * sq + ra) * heads + h) * d + col0, adq,
+                  0, cq, 1.0f, d - col0);
+  if (rb < sq)
+    store_row<kC>(dq + (((long long)b * sq + rb) * heads + h) * d + col0, adq,
+                  1, cq, 1.0f, d - col0);
+}
+
+// The three bf16 parts of an fp32 [batch, seq, heads, d] tensor (read
+// through its strides, d a multiple of 16) into the contiguous scratch
+// [3, batch, seq, heads, D], columns d to D zero. A thread splits 8
+// columns of a row.
+__global__ void split3_kernel(const float* __restrict__ x,
+                              bf16* __restrict__ out, Strides st, int batch,
+                              int seq, int heads, int d, int D) {
+  const long long rows = (long long)batch * seq * heads;
+  const int chunks = D / 8;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rows * chunks) return;
+  const long long row = i / chunks;  // (b * seq + s) * heads + h
+  const int c = (int)(i % chunks) * 8;
+  const int h = (int)(row % heads);
+  const long long bs = row / heads;
+  const int s = (int)(bs % seq), b = (int)(bs / seq);
+  float v[8];
+  if (c < d) {
+    ptt::load_floats<float, 8>(x + b * st.b + s * st.s + h * st.h + c, v);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = 0.0f;
+  }
+  bf16* dst = out + row * D + c;
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    uint32_t w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      w[j] = pack_bf16(v[2 * j], v[2 * j + 1]);
+      v[2 * j] -= __uint_as_float(w[j] << 16);
+      v[2 * j + 1] -= __uint_as_float(w[j] & 0xffff0000u);
+    }
+    *reinterpret_cast<uint4*>(dst + p * rows * D) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
 }
 
 // ------------------------------------------------------------ launches
@@ -1718,6 +2348,130 @@ cudaError_t launch_rope_fwd(const FwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// An operand of a split-design kernel as its tensor map reads it: a bf16
+// tensor as it is (NP = 1), or an fp32 one split by split3_kernel into
+// the next 3 x batch x seq x heads x D values of the workspace `*work`
+// (NP = 3), at the map's batch 3 x batch and head dim D.
+struct Operand {
+  const void* ptr;
+  Strides st;
+  int batch, d;
+};
+
+template <int D, int NP>
+cudaError_t operand(Operand* op, const void* x, Strides st, int batch,
+                    int seq, int heads, int d, bf16** work,
+                    cudaStream_t stream) {
+  if (NP == 1) {
+    *op = {x, st, batch, d};
+    return cudaSuccess;
+  }
+  bf16* out = *work;
+  *work += 3LL * batch * seq * heads * D;
+  const long long chunks = (long long)batch * seq * heads * (D / 8);
+  split3_kernel<<<(unsigned)((chunks + 255) / 256), 256, 0, stream>>>(
+      static_cast<const float*>(x), out, st, batch, seq, heads, d, D);
+  *op = {out, {(long long)seq * heads * D, (long long)heads * D, D},
+         3 * batch, D};
+  return cudaGetLastError();
+}
+
+cudaError_t make_map(CUtensorMap* map, const Operand& op, int seq, int heads,
+                     int box_rows) {
+  return make_map(map, op.ptr, op.batch, seq, heads, op.d, op.st, box_rows);
+}
+
+// fp32: the parts of q, k and v into the workspace, then the forward
+template <int D>
+cudaError_t launch_fwd_split(const FwdArgs& a, void* work,
+                             cudaStream_t stream) {
+  bf16* w = static_cast<bf16*>(work);
+  Operand q, k, v;
+  CUtensorMap mq, mk, mv;
+  cudaError_t err;
+  if ((err = operand<D, 3>(&q, a.q, a.qs, a.batch, a.sq, a.heads, a.d, &w,
+                           stream)) ||
+      (err = operand<D, 3>(&k, a.k, a.ks, a.batch, a.sk, a.heads, a.d, &w,
+                           stream)) ||
+      (err = operand<D, 3>(&v, a.v, a.vs, a.batch, a.sk, a.heads, a.d, &w,
+                           stream)) ||
+      (err = make_map(&mq, q, a.sq, a.heads, 128)) ||
+      (err = make_map(&mk, k, a.sk, a.heads, 64)) ||
+      (err = make_map(&mv, v, a.sk, a.heads, 64)))
+    return err;
+  constexpr int smem = fwd_split_layout<D>().bytes();
+  if ((err = allow_smem(flash_fwd_split_kernel<D>, smem))) return err;
+  dim3 grid((a.sq + 127) / 128, a.batch * a.heads);
+  flash_fwd_split_kernel<D><<<grid, kSplitThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<float*>(a.o), static_cast<float*>(a.lse),
+      a.batch, a.heads, a.sq, a.sk, a.d, a.scale * kLog2e, a.causal);
+  return cudaGetLastError();
+}
+
+// The Delta pass, the operands (fp32: split into the workspace), the dK/dV
+// pass and the dQ pass
+template <typename T, int D, int NP>
+cudaError_t launch_bwd_split(const BwdArgs& a, void* work,
+                             cudaStream_t stream) {
+  const long long rows = (long long)a.batch * a.heads * a.sq;
+  flash_bwd_delta_kernel<T, D><<<(unsigned)((rows + 7) / 8), 256, 0,
+                                  stream>>>(
+      static_cast<const T*>(a.o), static_cast<const T*>(a.dout),
+      static_cast<float*>(a.delta), a.os, a.dos, a.batch, a.heads, a.sq,
+      a.d);
+  cudaError_t err = cudaGetLastError();
+  if (err) return err;
+  bf16* w = static_cast<bf16*>(work);
+  Operand q, k, v, g;
+  if ((err = operand<D, NP>(&q, a.q, a.qs, a.batch, a.sq, a.heads, a.d, &w,
+                            stream)) ||
+      (err = operand<D, NP>(&k, a.k, a.ks, a.batch, a.sk, a.heads, a.d, &w,
+                            stream)) ||
+      (err = operand<D, NP>(&v, a.v, a.vs, a.batch, a.sk, a.heads, a.d, &w,
+                            stream)) ||
+      (err = operand<D, NP>(&g, a.dout, a.dos, a.batch, a.sq, a.heads, a.d,
+                            &w, stream)))
+    return err;
+  constexpr int kR = owned_rows<D, NP>();
+  const float scale_log2 = a.scale * kLog2e;
+
+  // dK/dV: q and dO in blocks of 64 rows, k and v resident
+  CUtensorMap mq, mdo, mk, mv;
+  if ((err = make_map(&mq, q, a.sq, a.heads, 64)) ||
+      (err = make_map(&mdo, g, a.sq, a.heads, 64)) ||
+      (err = make_map(&mk, k, a.sk, a.heads, kR)) ||
+      (err = make_map(&mv, v, a.sk, a.heads, kR)))
+    return err;
+  constexpr int smem_kv = dkdv_split_layout<D, NP>().bytes();
+  if ((err = allow_smem(flash_bwd_dkdv_split_kernel<T, D, NP>, smem_kv)))
+    return err;
+  dim3 grid_k((a.sk + kR - 1) / kR, a.batch * a.heads);
+  flash_bwd_dkdv_split_kernel<T, D, NP><<<grid_k, kSplitThreads, smem_kv,
+                                          stream>>>(
+      mq, mdo, mk, mv, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<T*>(a.dk),
+      static_cast<T*>(a.dv), a.batch, a.heads, a.sq, a.sk, a.d, a.scale,
+      scale_log2, a.causal);
+  if ((err = cudaGetLastError())) return err;
+
+  // dQ: q and dO resident, k and v in blocks of 64 rows
+  if ((err = make_map(&mq, q, a.sq, a.heads, kR)) ||
+      (err = make_map(&mdo, g, a.sq, a.heads, kR)) ||
+      (err = make_map(&mk, k, a.sk, a.heads, 64)) ||
+      (err = make_map(&mv, v, a.sk, a.heads, 64)))
+    return err;
+  constexpr int smem_q = dq_split_layout<D, NP>().bytes();
+  if ((err = allow_smem(flash_bwd_dq_split_kernel<T, D, NP>, smem_q)))
+    return err;
+  dim3 grid_q((a.sq + kR - 1) / kR, a.batch * a.heads);
+  flash_bwd_dq_split_kernel<T, D, NP><<<grid_q, kSplitThreads, smem_q,
+                                        stream>>>(
+      mq, mdo, mk, mv, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<T*>(a.dq), a.batch,
+      a.heads, a.sq, a.sk, a.d, a.scale, scale_log2, a.causal);
+  return cudaGetLastError();
+}
+
 }  // namespace tc
 
 // Head dims: any multiple of 16 up to 256. A kernel is instantiated at
@@ -1764,29 +2518,40 @@ cudaError_t cc_bwd(const BwdArgs& a, cudaStream_t s) {
 // pointers 16-byte aligned. o: contiguous [batch, sq, heads, head_dim] of
 // q's type; lse: fp32 [batch, heads, sq]. head_dim a multiple of 16 up to
 // 256; sk >= sq when causal (the Python wrapper checks all of this).
+// work: the split design's bf16 scratch for fp32 inputs at head_dim up
+// to 128, 3 x (batch x sq + 2 x batch x sk) x heads x W values, W = 64
+// up to head_dim 64, else 128 (null otherwise). cuda_cores: run the
+// CUDA-core kernels whatever the dtype and head dim (the design they
+// replaced, kept for comparison).
 extern "C" int ptt_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int batch, int heads, int sq, int sk, int head_dim, long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-    int causal, float scale, int dtype, void* stream) {
+    int causal, float scale, int dtype, void* work, int cuda_cores,
+    void* stream) {
   if (batch == 0 || heads == 0 || sq == 0) return cudaSuccess;
+  if (!served(head_dim) || (dtype != ptt::kF32 && dtype != ptt::kBF16))
+    return cudaErrorInvalidValue;
   FwdArgs a{q, k, v, o, lse, {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh},
             {v_sb, v_ss, v_sh}, batch, heads, sq, sk, head_dim, causal,
             scale, nullptr, nullptr, 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == ptt::kBF16 && served(head_dim) && head_dim >= 64) {
-    // tensor cores from one 128-byte span on, at the padded width
-    // (a separate instantiation where the head dim fills the width)
-    if (head_dim == 64) return tc::launch_fwd<64, false>(a, s);
-    if (head_dim == 128) return tc::launch_fwd<128, false>(a, s);
-    if (head_dim < 128) return tc::launch_fwd<128, true>(a, s);
-    if (head_dim == 256) return tc::launch_fwd<256, false>(a, s);
-    return tc::launch_fwd<256, true>(a, s);
-  }
-  if (dtype == ptt::kBF16) return cc_fwd<__nv_bfloat16, false>(a, s);
-  if (dtype == ptt::kF32) return cc_fwd<float, false>(a, s);
-  return cudaErrorInvalidValue;
+  const bool f32 = dtype == ptt::kF32;
+  if (cuda_cores || (f32 && head_dim > 128))
+    return f32 ? cc_fwd<float, false>(a, s)
+               : cc_fwd<__nv_bfloat16, false>(a, s);
+  if (f32)  // split products at width 64 or 128 (the pre-pass pads)
+    return head_dim <= 64 ? tc::launch_fwd_split<64>(a, work, s)
+                          : tc::launch_fwd_split<128>(a, work, s);
+  // bf16: tensor cores at the padded width, at least one 128-byte span
+  // (a separate instantiation where the head dim fills the width)
+  if (head_dim == 64) return tc::launch_fwd<64, false>(a, s);
+  if (head_dim < 64) return tc::launch_fwd<64, true>(a, s);
+  if (head_dim == 128) return tc::launch_fwd<128, false>(a, s);
+  if (head_dim < 128) return tc::launch_fwd<128, true>(a, s);
+  if (head_dim == 256) return tc::launch_fwd<256, false>(a, s);
+  return tc::launch_fwd<256, true>(a, s);
 }
 
 // Rope-on-load forward: q, k, v [batch, seq, heads, head_dim] with their
@@ -1820,7 +2585,10 @@ extern "C" int ptt_rope_attention_fwd(
 
 // The three backward passes in order (Delta, dK/dV, dQ). o and dout have
 // q's shape, lse is the forward's; delta is fp32 scratch [batch, heads,
-// sq]; dq, dk, dv are contiguous with the shapes of q, k, v.
+// sq]; dq, dk, dv are contiguous with the shapes of q, k, v. work: as in
+// the forward, for q, k, v and dout: 3 x (2 x batch x sq + 2 x batch x
+// sk) x heads x W values (fp32 up to head_dim 128; null otherwise);
+// cuda_cores as there.
 extern "C" int ptt_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
@@ -1829,20 +2597,26 @@ extern "C" int ptt_flash_attention_bwd(
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long o_sb, long long o_ss, long long o_sh,
     long long g_sb, long long g_ss, long long g_sh, int causal, float scale,
-    int dtype, void* stream) {
+    int dtype, void* work, int cuda_cores, void* stream) {
   if (batch == 0 || heads == 0 || sq == 0) return cudaSuccess;
+  if (!served(head_dim) || (dtype != ptt::kF32 && dtype != ptt::kBF16))
+    return cudaErrorInvalidValue;
   BwdArgs a{q, k, v, o, dout, lse, delta, dq, dk, dv,
             {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh},
             {o_sb, o_ss, o_sh}, {g_sb, g_ss, g_sh},
             batch, heads, sq, sk, head_dim, causal, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == ptt::kBF16 && served(head_dim) && head_dim >= 64 &&
-      head_dim <= 128) {  // tensor cores at 64, and 80 to 128 padded to 128
-    if (head_dim == 64) return tc::launch_bwd<64, false>(a, s);
-    if (head_dim == 128) return tc::launch_bwd<128, false>(a, s);
-    return tc::launch_bwd<128, true>(a, s);
-  }
-  if (dtype == ptt::kBF16) return cc_bwd<__nv_bfloat16>(a, s);
-  if (dtype == ptt::kF32) return cc_bwd<float>(a, s);
-  return cudaErrorInvalidValue;
+  const bool f32 = dtype == ptt::kF32;
+  if (cuda_cores || (f32 && head_dim > 128))
+    return f32 ? cc_bwd<float>(a, s) : cc_bwd<__nv_bfloat16>(a, s);
+  if (f32)  // split products at width 64 or 128
+    return head_dim <= 64 ? tc::launch_bwd_split<float, 64, 3>(a, work, s)
+                          : tc::launch_bwd_split<float, 128, 3>(a, work, s);
+  // bf16: the tensor-core kernels up to 128 (padded, at least 64), the
+  // split design's (one part) above
+  if (head_dim == 64) return tc::launch_bwd<64, false>(a, s);
+  if (head_dim < 64) return tc::launch_bwd<64, true>(a, s);
+  if (head_dim == 128) return tc::launch_bwd<128, false>(a, s);
+  if (head_dim < 128) return tc::launch_bwd<128, true>(a, s);
+  return tc::launch_bwd_split<__nv_bfloat16, 256, 1>(a, work, s);
 }

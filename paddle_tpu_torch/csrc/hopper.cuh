@@ -202,6 +202,11 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
+template <int P, int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[P][N][4]) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) fence_regs(a[p]);
+}
 
 // Moves registers between warpgroups (all four warps of a warpgroup
 // execute it): a producer warpgroup that only issues loads gives its

@@ -8,8 +8,10 @@ PyTorch version (counterpart of ``paddle_tpu/kernels``).
 - :mod:`.paged_attention` (``csrc/paged_attention.cu``) <-
   ``kernels/paged_attention.py``, float and int8 arenas
 - :mod:`.flash_attention` (``csrc/flash_attention.cu``) <-
-  ``kernels/flash_attention.py``, forward and backward; bf16 on the
-  tensor cores (wgmma, TMA), fp32 on the CUDA cores
+  ``kernels/flash_attention.py``, forward and backward; on the tensor
+  cores (wgmma, TMA): bf16 at every head dim, fp32 up to 128 through
+  split products that keep the fp32 contract; fp32 above 128 on the
+  CUDA cores
 - :mod:`.int8_matmul` (``csrc/int8_matmul.cu``) <-
   ``kernels/int8_matmul.py``, the W8A16 matmul; bf16 on the tensor
   cores (wgmma on the weight dequantized in shared memory), fp32 on the

@@ -72,9 +72,10 @@ SIGNATURES = {
     # swap_rows (0: the tiled kernel), stream
     "ptt_int8_matmul_tc": [_P] * 5 + [_I] * 5 + [_P],
     # q, k, v, o, lse, batch, heads, sq, sk, head_dim, (batch, seq, head)
-    # strides of q, k, v, causal, scale, dtype, stream
+    # strides of q, k, v, causal, scale, dtype, work (or null),
+    # cuda_cores, stream
     "ptt_flash_attention_fwd": [_P] * 5 + [_I] * 5 + [_L] * 9
-    + [_I, _F, _I, _P],
+    + [_I, _F, _I, _P, _I, _P],
     # q, k, v, o, cos, sin, table row stride, batch, heads, seq,
     # head_dim, (batch, seq, head) strides of q, k, v, causal, scale,
     # dtype, stream
@@ -89,9 +90,10 @@ SIGNATURES = {
     # stream: an empty kernel (the launch floor)
     "ptt_empty": [_P],
     # q, k, v, o, dout, lse, delta, dq, dk, dv, batch, heads, sq, sk,
-    # head_dim, strides of q, k, v, o, dout, causal, scale, dtype, stream
+    # head_dim, strides of q, k, v, o, dout, causal, scale, dtype, work
+    # (or null), cuda_cores, stream
     "ptt_flash_attention_bwd": [_P] * 10 + [_I] * 5 + [_L] * 15
-    + [_I, _F, _I, _P],
+    + [_I, _F, _I, _P, _I, _P],
 }
 
 # dtype codes shared with csrc/common.cuh

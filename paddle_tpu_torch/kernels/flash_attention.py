@@ -8,22 +8,29 @@ and dQ). The CUDA source is ``paddle_tpu_torch/csrc/flash_attention.cu``;
 its header says what bounds it on the H100 and how the designs answer
 that.
 
-Two designs, chosen by dtype and head dim (:func:`design`): bf16 tensors
-run the tensor-core kernels (wgmma products with fp32 accumulators, TMA
-tile loads) at D 64 to 256 forward and D 64 to 128 backward; everything
-else runs the CUDA-core kernels (fp32 FMAs): fp32, because the tensor
-cores take fp32 only as TF32, about three decimal digits, and the fp32
-models are held to 1e-5 against the CPU; bf16 below D 64 (below the
-tensor-core tiles' 64-column unit) and the bf16 backward above D 128
-(its accumulators do not fit a consumer's registers). Each design counts
-its own launches beside the totals. Every head dim up to 256 runs: one
-that is not a multiple of 16 is zero-padded into a copy up to the next
-multiple (:func:`pad_head_dim`; zero columns add exact zeros to every
-fp32 sum, and the softmax scale stays 1/sqrt of the true head dim), and
-the outputs and gradients are sliced back; a kernel is built at the next
-of 16, 32, 64, 128 and 256 and masks the columns past its width (D 80
-runs the 128-wide kernels). A head dim above 256 is refused (ROADMAP.md
-queue C item 1).
+Two designs, chosen by dtype and head dim (:func:`design`). The
+tensor-core design (``"tc"``: wgmma products with fp32 accumulators, TMA
+tile loads) runs every bf16 head dim and fp32 up to 128: bf16 at its
+padded width, at least 64 (the tensor-core tiles' 64-column unit; zero
+columns add exact zeros to every fp32 sum); fp32 through split products,
+each fp32 operand written as three bf16 parts (hi, mid, lo, which keep
+its 24 significant bits) and each product as the six bf16 products of
+parts whose terms are larger than about 2^-22 of it, so the result keeps
+the fp32 contract (1e-5 of the largest entry against the plain version);
+the parts go to a bf16 workspace by a pre-pass (at width 64, or 128
+above 64). fp32 at head dims above 128 runs the CUDA-core kernels
+(``"cc"``: fp32 FMAs): three parts of a 64-row tile at D 256 take 96 KB
+of shared memory, and no tiling of the split design fits there (the
+source's header). ``cuda_cores=True`` runs the CUDA-core kernels at any
+head dim and dtype: the design the tensor-core kernels replaced, kept to
+compare with. Each design counts its own launches beside the totals.
+Every head dim up to 256 runs: one that is not a multiple of 16 is
+zero-padded into a copy up to the next multiple (:func:`pad_head_dim`;
+the softmax scale stays 1/sqrt of the true head dim), and the outputs
+and gradients are sliced back; a kernel is built at the next of 64, 128
+and 256 (the CUDA-core ones also 16 and 32) and masks the columns past
+its width (D 80 runs the 128-wide kernels). A head dim above 256 is
+refused (ROADMAP.md queue C item 1).
 
 Shape contract (the paddle layout, as in the TPU module): q ``[B, Sq, H,
 D]``, k and v ``[B, Sk, H, D]`` with equal head counts, read through
@@ -47,6 +54,7 @@ P tile by tile) can move each output entry.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -55,7 +63,7 @@ from . import _build
 
 # kernel launches made by this process: forward, and backward (one per
 # backward call: its Delta, dK/dV and dQ passes); the same split by
-# design: tensor cores (bf16) and CUDA cores (fp32)
+# design: tensor cores ("tc") and CUDA cores ("cc"), as design() says
 launches = 0
 bwd_launches = 0
 tc_launches = 0
@@ -67,12 +75,12 @@ DESIGN_COUNTERS = ("tc_launches", "tc_bwd_launches", "cc_launches",
 DESIGNS = {"tc": "wgmma", "cc": "cuda-core"}
 
 # head dims the kernels take: any up to MAX_HEAD_DIM, run at the next
-# multiple of HEAD_DIM_STEP; the tensor-core kernels take bf16 whose
-# padded head dim is from TC_MIN_HEAD_DIM up to TC_MAX_HEAD_DIM (forward,
-# backward)
+# multiple of HEAD_DIM_STEP; the tensor-core tiles are at least
+# TC_MIN_HEAD_DIM wide (one 128-byte swizzle span of bf16); fp32 runs on
+# the tensor cores (split products) up to SPLIT_MAX_HEAD_DIM
 HEAD_DIM_STEP, MAX_HEAD_DIM = 16, 256
 TC_MIN_HEAD_DIM = 64
-TC_MAX_HEAD_DIM = {False: 256, True: 128}
+SPLIT_MAX_HEAD_DIM = 128
 
 
 def served(head_dim):
@@ -122,12 +130,32 @@ def padded_backward(fn, q, k, v, o, lse, do, causal, scale):
 
 def design(dtype, head_dim, backward=False):
     """``"tc"`` (tensor cores) or ``"cc"`` (CUDA cores): the design the C
-    entry points run for this dtype and (padded) head dim."""
-    if dtype == torch.bfloat16 and served(head_dim) \
-            and TC_MIN_HEAD_DIM <= padded_head_dim(head_dim) \
-            <= TC_MAX_HEAD_DIM[backward]:
-        return "tc"
-    return "cc"
+    entry points run for this dtype and head dim, forward or backward
+    (the same rule both ways)."""
+    if dtype == torch.float32 and padded_head_dim(head_dim) \
+            > SPLIT_MAX_HEAD_DIM:
+        return "cc"
+    return "tc"
+
+
+def split_width(head_dim):
+    """The width at which the split design runs an fp32 head dim (up to
+    128): 64, or 128 above 64."""
+    return TC_MIN_HEAD_DIM if head_dim <= TC_MIN_HEAD_DIM \
+        else SPLIT_MAX_HEAD_DIM
+
+
+def _workspace(q, sk, n_q, n_k, cuda_cores):
+    """The bf16 workspace of the split design's three-part operands, or
+    None where no split runs: ``3 x rows x heads x split_width`` values
+    (the C entry points' layout) for ``n_q`` operands of q's ``B x Sq``
+    rows and ``n_k`` of ``B x Sk``."""
+    b, sq, h, d = (int(x) for x in q.shape)
+    if cuda_cores or q.dtype != torch.float32 or design(q.dtype, d) != "tc":
+        return None
+    rows = b * (n_q * sq + n_k * sk)
+    return torch.empty(3 * rows * h * split_width(d), dtype=torch.bfloat16,
+                       device=q.device)
 
 
 def check_head_dim(d, what="flash attention kernel"):
@@ -336,28 +364,32 @@ def _check_cuda(tensors, dtype):
     return dev
 
 
-def _count(dtype, head_dim, backward):
+def _count(dtype, head_dim, backward, cuda_cores=False):
     """Add one launch to the total and to the counter of the design that
-    ``dtype`` and ``head_dim`` run (:func:`design`, the C entry points'
-    dispatch)."""
+    ran (:func:`design`, the C entry points' dispatch, or the CUDA cores
+    on request)."""
     total = "bwd_launches" if backward else "launches"
     counters = globals()
     counters[total] += 1
-    counters[f"{design(dtype, head_dim, backward)}_{total}"] += 1
+    kind = "cc" if cuda_cores else design(dtype, head_dim, backward)
+    counters[f"{kind}_{total}"] += 1
 
 
-def flash_attention_cuda(q, k, v, causal=False, scale=None):
+def flash_attention_cuda(q, k, v, causal=False, scale=None,
+                         cuda_cores=False):
     """Launch the forward of ``csrc/flash_attention.cu``: ``(O, LSE)``;
-    :func:`design` says which kernel runs."""
+    :func:`design` says which kernels run (``cuda_cores``: the CUDA-core
+    ones, to compare with)."""
     _, _, _, _, d = _check_shapes(q, k, v, causal)
     _check_cuda((("q", q), ("k", k), ("v", v)), q.dtype)
     check_head_dim(d)
-    out = padded_forward(_launch_fwd, q, k, v, causal, _scale_of(q, scale))
-    _count(q.dtype, d, backward=False)
+    out = padded_forward(functools.partial(_launch_fwd, cuda_cores=cuda_cores),
+                         q, k, v, causal, _scale_of(q, scale))
+    _count(q.dtype, d, False, cuda_cores)
     return out
 
 
-def _launch_fwd(q, k, v, causal, scale):
+def _launch_fwd(q, k, v, causal, scale, cuda_cores=False):
     """The forward launch at a head dim that is a multiple of 16."""
     b, sq, sk, h, d = _check_shapes(q, k, v, causal)
     dev = q.device
@@ -366,11 +398,13 @@ def _launch_fwd(q, k, v, causal, scale):
     lib = _build.load()
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    work = _workspace(q, sk, 1, 2, cuda_cores)  # q; k, v
     with torch.cuda.device(dev):
         err = lib.ptt_flash_attention_fwd(
             _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),
             _build.ptr(lse), b, h, sq, sk, d, *st[0], *st[1], *st[2],
             int(bool(causal)), scale, _build.DTYPE_CODES[q.dtype],
+            None if work is None else _build.ptr(work), int(cuda_cores),
             _build.stream_of(q),
         )
     _build.check(err, "ptt_flash_attention_fwd")
@@ -378,10 +412,10 @@ def _launch_fwd(q, k, v, causal, scale):
 
 
 def flash_attention_backward_cuda(q, k, v, o, lse, do, causal=False,
-                                  scale=None):
+                                  scale=None, cuda_cores=False):
     """Launch the backward of ``csrc/flash_attention.cu`` (Delta, dK/dV
     and dQ passes): ``(dq, dk, dv)``; :func:`design` says which kernels
-    run."""
+    run (``cuda_cores``: the CUDA-core ones, to compare with)."""
     b, sq, sk, h, d = _check_shapes(q, k, v, causal)
     do = do.to(q.dtype)
     vec = 16 // q.element_size()
@@ -398,13 +432,14 @@ def flash_attention_backward_cuda(q, k, v, o, lse, do, causal=False,
             or not lse.is_contiguous() or lse.device != dev:
         raise ValueError(f"flash attention backward: lse must be the "
                          f"forward's contiguous fp32 [{b}, {h}, {sq}]")
-    grads = padded_backward(_launch_bwd, q, k, v, o, lse, do, causal,
-                            _scale_of(q, scale))
-    _count(q.dtype, d, backward=True)
+    grads = padded_backward(
+        functools.partial(_launch_bwd, cuda_cores=cuda_cores), q, k, v, o,
+        lse, do, causal, _scale_of(q, scale))
+    _count(q.dtype, d, True, cuda_cores)
     return grads
 
 
-def _launch_bwd(q, k, v, o, lse, do, causal, scale):
+def _launch_bwd(q, k, v, o, lse, do, causal, scale, cuda_cores=False):
     """The backward launch at a head dim that is a multiple of 16."""
     b, sq, sk, h, d = _check_shapes(q, k, v, causal)
     dev = q.device
@@ -416,13 +451,16 @@ def _launch_bwd(q, k, v, o, lse, do, causal, scale):
     dk = torch.empty((b, sk, h, d), dtype=q.dtype, device=dev)
     dv = torch.empty((b, sk, h, d), dtype=q.dtype, device=dev)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    work = _workspace(q, sk, 2, 2, cuda_cores)  # q, dout; k, v
     with torch.cuda.device(dev):
         err = lib.ptt_flash_attention_bwd(
             _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),
             _build.ptr(do), _build.ptr(lse), _build.ptr(delta),
             _build.ptr(dq), _build.ptr(dk), _build.ptr(dv), b, h, sq, sk, d,
             *st[0], *st[1], *st[2], *st[3], *st[4], int(bool(causal)),
-            scale, _build.DTYPE_CODES[q.dtype], _build.stream_of(q),
+            scale, _build.DTYPE_CODES[q.dtype],
+            None if work is None else _build.ptr(work), int(cuda_cores),
+            _build.stream_of(q),
         )
     _build.check(err, "ptt_flash_attention_bwd")
     return dq, dk, dv

@@ -450,10 +450,10 @@ FLASH_CASES = {
     "causal_ragged_1000": (True, 1000, 1000, 128, False),
     "full_sk_gt_sq": (False, 300, 1000, 128, False),
     "causal_d64_sq_lt_sk": (True, 200, 333, 64, False),
-    # head dims on the padded kernels: 80, 96 (128 wide; bf16 on the
-    # tensor cores both ways), 160 and 192 (256 wide; the bf16 forward on
-    # the tensor cores, the backward on the CUDA cores), 48 (64 wide, CUDA
-    # cores)
+    # head dims on the padded kernels: 80, 96 (128 wide; the tensor cores
+    # both ways, fp32 through split products), 160 and 192 (256 wide; bf16
+    # on the tensor cores both ways, fp32 on the CUDA cores), 48 (64 wide,
+    # the tensor cores)
     "causal_d80": (True, 130, 130, 80, False),
     "full_d96": (False, 100, 77, 96, False),
     "causal_d96_sq_lt_sk": (True, 70, 200, 96, False),
@@ -462,7 +462,7 @@ FLASH_CASES = {
     "causal_d192": (True, 130, 130, 192, False),
     "full_d48": (False, 100, 77, 48, False),
     # head dims that are not multiples of 16: zero-padded by the wrapper
-    # (72 to 80: the tensor cores both ways in bf16; 40 to 48: CUDA cores)
+    # (72 to 80, 40 to 48: the tensor cores both ways)
     "causal_d72": (True, 130, 130, 72, False),
     "full_d40": (False, 100, 77, 40, False),
     "causal_d72_strided": (True, 96, 96, 72, True),
@@ -501,10 +501,11 @@ def test_flash_attention_kernels(dev, dtype, case):
 @pytest.mark.parametrize("d", [16, 32, 64, 128, 256, 80, 96, 160, 192, 72,
                                40])
 def test_flash_attention_dispatches_by_dtype(dev, d):
-    """bf16 runs the tensor-core forward at D 64 to 256 and backward at 64
-    to 128 (a head dim that is not a multiple of 16 by its padded width);
-    everything else (fp32, bf16 below 64, the bf16 backward above 128) the
-    CUDA-core kernels."""
+    """The tensor-core kernels run every bf16 head dim, both ways (below
+    64 at the 64-wide kernels, above 128 the backward on the split
+    design's one-part kernels), and fp32 up to 128 (split products); fp32
+    above 128 runs the CUDA-core kernels. ``cuda_cores=True`` runs the
+    CUDA-core kernels at any head dim and counts them there."""
     from paddle_tpu_torch import kernels
 
     for dt in (torch.bfloat16, torch.float32):
@@ -513,14 +514,20 @@ def test_flash_attention_dispatches_by_dtype(dev, d):
         o, lse = tfa.flash_attention_cuda(q, k, v, True)
         tfa.flash_attention_backward_cuda(q, k, v, o, lse, do, True)
         dp = tfa.padded_head_dim(d)
-        fwd = "tc" if dt == torch.bfloat16 and dp >= 64 else "cc"
-        bwd = "tc" if dt == torch.bfloat16 and 64 <= dp <= 128 else "cc"
+        kind = "cc" if dt == torch.float32 and dp > 128 else "tc"
         want = dict.fromkeys(tfa.DESIGN_COUNTERS, 0)
-        want[f"{fwd}_launches"] += 1
-        want[f"{bwd}_bwd_launches"] += 1
+        want[f"{kind}_launches"] += 1
+        want[f"{kind}_bwd_launches"] += 1
         assert kernels.flash_design_counts() == want
-        assert (tfa.design(dt, d), tfa.design(dt, d, True)) == (fwd, bwd)
+        assert (tfa.design(dt, d), tfa.design(dt, d, True)) == (kind, kind)
         assert tfa.launches == 1 and tfa.bwd_launches == 1
+        kernels.reset_launch_counts()
+        o2, lse2 = tfa.flash_attention_cuda(q, k, v, True, cuda_cores=True)
+        tfa.flash_attention_backward_cuda(q, k, v, o2, lse2, do, True,
+                                          cuda_cores=True)
+        assert kernels.flash_design_counts() == {
+            "tc_launches": 0, "tc_bwd_launches": 0, "cc_launches": 1,
+            "cc_bwd_launches": 1}
 
 
 @pytest.mark.cuda

@@ -36,6 +36,10 @@ Backward passes, against ``jax.vjp`` of the JAX kernels:
 - The bf16 tensor-core kernels' order of work, emulated, within
   cast-once plus ``probability_rounding_slack`` of the plain version;
   three seeded faults must fall outside it.
+- The fp32 split design's order of work (three bf16 parts a value, six
+  products a product), emulated, within the fp32 tolerances of the JAX
+  package's fp32 flash path (1e-5 of the largest O and LSE entry, 1e-4
+  for the gradients); three seeded faults must fall outside them.
 
 The CUDA kernels themselves are compared with their plain versions on
 the card, by tests/test_torch_cuda.py and chip_smoke.py.
@@ -698,6 +702,211 @@ def test_flash_rounding_slack_holds_emulated_kernel(fault):
     else:
         assert ratio > 1.0
 
+
+# ------------------------------------ the fp32 split design, emulated
+# the terms of a product of two three-part operands, smallest first
+# (hi.lo, mid.mid, lo.hi, hi.mid, mid.hi, hi.hi), as the kernels issue
+# them
+SPLIT_TERMS = ((0, 2), (1, 1), (2, 0), (0, 1), (1, 0), (0, 0))
+
+
+def _parts(x, n=3):
+    """fp32 ``x`` as ``n`` bf16 values (held in fp32): hi = bf16(x), mid =
+    bf16(x - hi), lo = bf16(x - hi - mid); each difference is exact."""
+    out = []
+    for _ in range(n):
+        p = x.to(torch.bfloat16).float()
+        out.append(p)
+        x = x - p
+    return out
+
+
+def _split_mm(a, b, acc=None, fault=None, p_operand=False):
+    """``acc + a @ b`` as the split design forms it: both operands in
+    three bf16 parts, the six terms in the kernels' order, each over
+    k-steps of 16 added to one fp32 accumulator. ``fault``: "two_part"
+    (hi and lo parts, three terms), "no_hm" (the hi.mid term dropped),
+    "p_bf16" (a P or P^T operand, ``p_operand``, taken as its hi part
+    alone: rounded to bf16), "p_lo" (its lo part skipped)."""
+    if fault == "two_part":
+        pa, pb, terms = _parts(a, 2), _parts(b, 2), ((0, 1), (1, 0), (0, 0))
+    else:
+        pa, pb, terms = _parts(a), _parts(b), SPLIT_TERMS
+        if fault == "no_hm":
+            terms = tuple(t for t in terms if t != (0, 1))
+        if p_operand and fault in ("p_bf16", "p_lo"):
+            terms = tuple(t for t in terms
+                          if t[0] == 0 or (fault == "p_lo" and t[0] == 1))
+    if acc is None:
+        acc = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for i, j in terms:
+        for k0 in range(0, a.shape[-1], 16):
+            acc = acc + pa[i][..., k0:k0 + 16] @ pb[j][..., k0:k0 + 16, :]
+    return acc
+
+
+def _emulate_split_flash(q, k, v, g, causal, fault=None):
+    """The fp32 split design's order of work (D 64: every warpgroup owns
+    64 rows of all columns) in plain PyTorch: the forward over q tiles of
+    64 rows and k blocks of 64 (S from six products, the online softmax in
+    the log2 domain, P split, O += P V from six products), Delta, the
+    dK/dV pass over k tiles of 64 and q blocks of 64 (S^T, dP^T, P^T, dS^T
+    = P^T (dP^T - Delta) scale, dV += P^T dO, dK += dS^T Q), the dQ pass
+    over q tiles of 64 and k blocks of 64. Returns (o, lse, dq, dk, dv)
+    in the plain version's layouts."""
+    qf, kf, vf, gf = (t.float().transpose(1, 2) for t in (q, k, v, g))
+    sq, sk, d = qf.shape[2], kf.shape[2], qf.shape[3]
+    scale = 1.0 / math.sqrt(d)
+    sl2 = scale * math.log2(math.e)
+
+    def mm(a, b, acc=None, p_operand=False):
+        return _split_mm(a, b, acc, fault, p_operand)
+
+    def visible(r0, rows, c0, cols):
+        r = torch.arange(r0, r0 + rows)[:, None]
+        c = torch.arange(c0, c0 + cols)[None, :]
+        return c <= r + (sk - sq) if causal else torch.ones(rows, cols,
+                                                            dtype=bool)
+
+    o = torch.zeros_like(qf)
+    lse = torch.zeros(qf.shape[:3])
+    for q0 in range(0, sq, 64):
+        qt = qf[:, :, q0:q0 + 64]
+        rows = qt.shape[2]
+        m = torch.full(qt.shape[:3] + (1,), -math.inf)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qt)
+        for k0 in range(0, sk, 64):
+            if causal and k0 > q0 + rows - 1 + sk - sq:
+                break
+            kt, vt = kf[:, :, k0:k0 + 64], vf[:, :, k0:k0 + 64]
+            s = mm(qt, kt.transpose(-1, -2)) * sl2
+            s = s.masked_fill(~visible(q0, rows, k0, s.shape[-1]), -math.inf)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = mm(p, vt, acc * alpha, p_operand=True)
+            m = m_new
+        o[:, :, q0:q0 + 64] = acc / l
+        lse[:, :, q0:q0 + 64] = (m * math.log(2) + torch.log(l))[..., 0]
+    delta = (gf * o).sum(-1)
+    lse2 = lse * math.log2(math.e)
+
+    def p_ds(s, dp, q0, rows, k0, cols):
+        p = torch.exp2(s * sl2 - lse2[:, :, q0:q0 + rows, None])
+        p = p * visible(q0, rows, k0, cols)
+        return p, p * (dp - delta[:, :, q0:q0 + rows, None]) * scale
+
+    dq, dk, dv = (torch.zeros_like(t) for t in (qf, kf, vf))
+    for k0 in range(0, sk, 64):
+        kt, vt = kf[:, :, k0:k0 + 64], vf[:, :, k0:k0 + 64]
+        cols = kt.shape[2]
+        for q0 in range(0, sq, 64):
+            qt, gt = qf[:, :, q0:q0 + 64], gf[:, :, q0:q0 + 64]
+            rows = qt.shape[2]
+            st = mm(kt, qt.transpose(-1, -2))
+            dpt = mm(vt, gt.transpose(-1, -2))
+            p, ds = p_ds(st.transpose(-1, -2), dpt.transpose(-1, -2), q0,
+                         rows, k0, cols)
+            dv[:, :, k0:k0 + cols] = mm(p.transpose(-1, -2), gt,
+                                        dv[:, :, k0:k0 + cols],
+                                        p_operand=True)
+            dk[:, :, k0:k0 + cols] = mm(ds.transpose(-1, -2), qt,
+                                        dk[:, :, k0:k0 + cols])
+    for q0 in range(0, sq, 64):
+        qt, gt = qf[:, :, q0:q0 + 64], gf[:, :, q0:q0 + 64]
+        rows = qt.shape[2]
+        for k0 in range(0, sk, 64):
+            kt, vt = kf[:, :, k0:k0 + 64], vf[:, :, k0:k0 + 64]
+            _, ds = p_ds(mm(qt, kt.transpose(-1, -2)),
+                         mm(gt, vt.transpose(-1, -2)), q0, rows, k0,
+                         kt.shape[2])
+            dq[:, :, q0:q0 + rows] = mm(ds, kt, dq[:, :, q0:q0 + rows])
+    back = [t.transpose(1, 2) for t in (o, dq, dk, dv)]
+    return back[0], lse, back[1], back[2], back[3]
+
+
+def _jax_flash_fp32(qn, kn, vn, gn, causal):
+    """The JAX package's fp32 flash path on the CPU (its forward and
+    ``jax.vjp``), and the float64 logsumexp of the scores: (o, lse, dq,
+    dk, dv) as numpy."""
+    (qj, _), (kj, _), (vj, _), (gj, _) = (_both(a, "float32")
+                                          for a in (qn, kn, vn, gn))
+    sq, sk, d = qn.shape[1], kn.shape[1], qn.shape[-1]
+    scale = 1.0 / np.sqrt(d)
+    o, vjp = jax.vjp(lambda q, k, v: jfa.flash_attention_fwd(
+        q, k, v, causal=causal, scale=scale), qj, kj, vj)
+    s = np.einsum("bqhd,bkhd->bhqk", qn.astype(np.float64),
+                  kn.astype(np.float64)) * scale
+    if causal:
+        s = np.where(np.tril(np.ones((sq, sk), bool), sk - sq), s, -np.inf)
+    mx = s.max(-1, keepdims=True)
+    lse = (mx + np.log(np.exp(s - mx).sum(-1, keepdims=True)))[..., 0]
+    return [_np(o), lse, *(_np(x) for x in vjp(gj))]
+
+
+def _split_flash_ratio(fault):
+    """The largest error over tolerance of the emulated fp32 split design
+    (with ``fault``) against the JAX package's fp32 flash path: O and LSE
+    within 1e-5 of the largest entry, dQ, dK, dV within 1e-4 (the fp32
+    tolerances, no slack). q and k have a standard deviation of 4, which
+    sharpens the softmax as trained attention does and lets an error in
+    the scores show in O."""
+    rng = np.random.RandomState(7)
+    b, s, h, d = 1, 160, 2, 64
+    qn, kn = (4.0 * rng.randn(b, s, h, d).astype(np.float32)
+              for _ in range(2))
+    vn, gn = (rng.randn(b, s, h, d).astype(np.float32) for _ in range(2))
+    want = _jax_flash_fp32(qn, kn, vn, gn, True)
+    got = _emulate_split_flash(*(torch.from_numpy(a) for a in
+                                 (qn, kn, vn, gn)), True, fault)
+    worst = 0.0
+    for x, w, tol in zip(got, want, (1e-5, 1e-5, 1e-4, 1e-4, 1e-4)):
+        err = np.abs(_np(x).astype(np.float64) - w).max()
+        worst = max(worst, err / (tol * np.abs(w).max()))
+    return worst
+
+
+@pytest.mark.parametrize("fault", [None, "two_part", "no_hm", "p_bf16"])
+def test_fp32_split_design_within_fp32_tolerance(fault):
+    """The fp32 split design's order of work (emulated: three-part
+    splits, six products in k-steps of 16, the kernels' tiles and online
+    softmax, both backward passes) lies within the fp32 tolerances of the
+    JAX package's fp32 flash path; three seeded faults each fall outside:
+    the two-part split (about 16 bits a value), the hi.mid term dropped,
+    and P taken as its hi part alone (before the value product and
+    dV)."""
+    if fault is None:
+        assert _split_flash_ratio(None) <= 1.0
+    else:
+        assert _split_flash_ratio(fault) > 1.0
+
+
+def test_fp32_split_p_lo_part_is_below_the_fp32_tolerance():
+    """P's lo part is the one part the fp32 contract does not need:
+    skipping it moves a P entry by at most 2^-17 of itself, so O and dV
+    by at most 2^-17 (7.6e-6) of max|V| and of the dO sums, below the 1e-5
+    and 1e-4 tolerances. The kernels keep it (three parts of P, as of
+    every fp32 operand); this pins the margin, so that a later PR that
+    drops it knows what it gives up."""
+    assert _split_flash_ratio("p_lo") <= 1.0
+
+
+@pytest.mark.parametrize("width", range(16, 257, 16))
+def test_flash_design_table(width):
+    """Every padded head dim (and the head dim 8 below it, padded to it),
+    both dtypes, forward and backward: bf16 runs the tensor-core design,
+    fp32 too up to a padded 128 (split products, at width 64 up to head
+    dim 64, else 128), fp32 above on the CUDA cores."""
+    for d in (width - 8, width):
+        assert tfa.padded_head_dim(d) == width
+        for backward in (False, True):
+            assert tfa.design(torch.bfloat16, d, backward) == "tc"
+            assert tfa.design(torch.float32, d, backward) == \
+                ("tc" if width <= 128 else "cc")
+        if width <= 128:
+            assert tfa.split_width(d) == (64 if d <= 64 else 128)
 
 def test_flash_attention_refuses_shapes():
     q = torch.zeros(1, 4, 2, 16)
