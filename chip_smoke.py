@@ -53,7 +53,8 @@ It imports neither jax nor ``paddle_tpu``. Phases, each fatal on failure:
    model reset to its seed takes 3 steps with ``amp_level=None``, the
    trainer's default, fp32 end to end, under the same checks (flash
    attention all on its tensor-core design: split products), with step
-   time and peak memory;
+   time and peak memory; then, reset again, 3 fp32 steps with both
+   fusions (below);
 7. serving: Llama-2-7B at full width and depth (random bf16 weights
    from a seeded generator) served by ``PagedServingEngine`` (8 rows,
    2048 slots, page size 16, bf16 arena) for 12 staggered requests of
@@ -74,15 +75,22 @@ It imports neither jax nor ``paddle_tpu``. Phases, each fatal on failure:
 
 The float fusions (``LlamaForCausalLM.fusions``) add: their two kernels
 to phase 3 (timed also beside the unfused pair of kernels they replace;
-bf16 on their tensor-core designs, fp32 on the CUDA-core ones, each
-case holding the design counter; the fused head also swept over 16-512
-rows: its swap-AB and tiled kernels and the unfused pair);
+bf16 on their tensor-core designs, fp32 (the 4096-row training head, the
+rope-on-load forward at head dims 64, 80, 96, 128 and a ragged S 1000) on
+their split designs, timed also beside the CUDA-core kernels they
+replaced, which they must beat; each case holding the design counter;
+the fused head also swept over 16-512 rows: its swap-AB and tiled
+kernels and the unfused pair in bf16, and over 16-512 and 4096 rows in
+fp32: the split design, the CUDA-core kernels and the unfused pair);
 a fused tiny fp32 Llama's logits on the card against the CPU after phase
 4; after phase 6, the same model reset to its seed, 3 O1 steps with both
 fusions (step-1 loss within 1e-3 of the unfused one, the last loss below
 the first, per step the fused attention 8 on its tensor-core design, the
-fused head 1 on its CUDA-core design (fp32 under O1), RMSNorm 16 + 16
-and no rope or flash launch); after phase 7, the same model and engine
+fused head 1 on its split design (fp32 under O1), RMSNorm 16 + 16
+and no rope or flash launch), and, after the fp32 steps, 3 fp32 steps
+with both fusions (step-1 loss within 1e-5 of the unfused fp32 one, the
+same launches, both fusions on their split designs; ``fused fp32
+training: {...}``); after phase 7, the same model and engine
 with both fusions serving the same 12 requests (per decode step the
 fused head 1, on its tensor-core design at every decode step and
 prefill, RMSNorm 64, rope 32, paged attention 32; no page leak)
@@ -1016,15 +1024,25 @@ def flash_cases(torch, mod, dev):
 
 # the fused RMSNorm + matmul at the Llama head's shapes: the bf16 decode
 # head (its weight alone is past the L2, and is cycled like the W8A16
-# case's), a bf16 prefill bucket, and the O1 training head (fp32: the op
-# is on neither AMP list, so it gets the fp32 residual and weights)
+# case's), a bf16 prefill bucket, and the training head (fp32: under O1
+# the op is on neither AMP list, so it gets the fp32 residual and
+# weights; without AMP everything is fp32), on the split design
 NORM_MATMUL_SHAPES = (("bfloat16", 8), ("bfloat16", 1024),
                       ("float32", TRAIN_BATCH * TRAIN_SEQ))
 
 
+def _norm_matmul_bound(rows, h, n, es, rate):
+    """The fused head's bound: its bytes, and 2 rows h n (the product) +
+    4 rows h (the norm) operations at ``rate``."""
+    return bound(rows * h * es + h * es + h * n * es + rows * n * es,
+                 2 * rows * h * n + 4 * rows * h, rate)
+
+
 def norm_matmul_cases(torch, mod, dev):
     """The fused norm + head against its plain version; timed beside
-    the unfused path (the port's RMSNorm kernel, then torch.matmul)."""
+    the unfused path (the port's RMSNorm kernel, then torch.matmul) and,
+    for the fp32 split design, beside the CUDA-core kernels it replaced
+    (``cuda_core_ms``, which it must beat)."""
     from paddle_tpu_torch.kernels import rms_norm as rms
 
     out = []
@@ -1035,11 +1053,11 @@ def norm_matmul_cases(torch, mod, dev):
         x = torch.randn(rows, h, generator=g, device=dev).to(dtype)
         w = (1 + 0.1 * torch.randn(h, generator=g, device=dev)).to(dtype)
         wm = (0.02 * torch.randn(h, n, generator=g, device=dev)).to(dtype)
-        design = mod.design(dtype)
+        design = mod.design(dtype, rows)
         before = getattr(mod, f"{design}_launches")
         y = mod.rms_norm_matmul_cuda(x, w, wm, 1e-5)
         if getattr(mod, f"{design}_launches") != before + 1 or design != (
-                "tc" if dname == "bfloat16" else "cc"):
+                "tc" if dname == "bfloat16" else "split"):
             fail(f"rms_norm_matmul {dname} {[rows, h, n]} did not run its "
                  f"{design} design")
         ref = mod.rms_norm_matmul_reference(x, w, wm, 1e-5)
@@ -1059,33 +1077,42 @@ def norm_matmul_cases(torch, mod, dev):
         cs[0]["slack_max"] = float(slack.max())
         del y, ref, slack
         es = x.element_size()
-        b_ms, b_by = bound(rows * h * es + h * es + h * n * es
-                           + rows * n * es, 2 * rows * h * n + 4 * rows * h,
-                           dname)
+        split = design == "split"
+        rate = "float32_split" if split else dname
+        b_ms, b_by = _norm_matmul_bound(rows, h, n, es, rate)
         copies = max(1, -(-L2_FLUSH_BYTES // (h * n * es)))
         wms = [wm] + [wm.clone() for _ in range(copies - 1)]
         n_t, reps = (20, 7) if rows <= 16 else (3, 3)
         ms = gpu_time_ms(torch, cycled([
             (lambda wi=wi: mod.rms_norm_matmul_cuda(x, w, wi, 1e-5))
             for wi in wms]), n=n_t, repeats=reps)
+        cc_ms = None
+        if split:
+            cc_ms = gpu_time_ms(torch, lambda: mod.rms_norm_matmul_cuda(
+                x, w, wm, 1e-5, cuda_cores=True), n=2, repeats=3)
         unfused = gpu_time_ms(torch, cycled([
             (lambda wi=wi: torch.matmul(rms.rms_norm_cuda(x, w, 1e-5), wi))
             for wi in wms]), n=n_t, repeats=reps)
         plain = gpu_time_ms(torch, lambda: mod.rms_norm_matmul_reference(
             x, w, wm, 1e-5), n=3, repeats=3)
-        out.append({
+        case = {
             "shape": {"rows": rows, "h": h, "n": n}, "dtype": dname,
             "design": design,
             "kernel": (("swap" if rows <= mod.SWAP_MAX_ROWS else "tiled")
-                       if design == "tc" else "cuda-core"),
+                       if design == "tc" else design),
             "checks": cs, "max_abs_err": worst["max_abs_err"],
             "tolerance": worst["tolerance"],
             "err_over_tol": worst["err_over_tol"], "repeats_bitwise": True,
-            "weight_copies": copies, "ms": ms, "plain_ms": plain,
+            "weight_copies": copies, "ms": ms, "cuda_core_ms": cc_ms,
+            "plain_ms": plain,
             "library_ms": None, "unfused_ms": unfused,
             "unfused_call": "the port's rms_norm kernel, then torch.matmul",
-            "bound_ms": b_ms, "bound_by": b_by,
-        })
+            "bound_ms": b_ms, "bound_by": b_by, "bound_rate": rate,
+        }
+        if dname == "float32":
+            case["bound_cuda_core_ms"] = _norm_matmul_bound(
+                rows, h, n, es, "float32")[0]
+        out.append(case)
         del x, w, wm, wms
         torch.cuda.empty_cache()
     return out
@@ -1144,10 +1171,69 @@ def norm_matmul_crossover(torch, mod, dev):
             "rows": rows_out}
 
 
+HEAD_FP32_CROSSOVER_ROWS = (16, 24, 32, 64, 128, 256, 512, 4096)
+
+
+def norm_matmul_fp32_crossover(torch, mod, dev):
+    """ms of the fp32 fused head's split design and CUDA-core kernels,
+    and of the unfused pair (the port's RMSNorm kernel, then fp32
+    torch.matmul), at the Llama head's [rows, 4096] x [4096, 32000]
+    (the fp32 weight, 524 MB, is past the L2). Each kernel's output is
+    held within SUM_TOL32 of the plain version, and the split design's
+    must repeat bit for bit. Reports the fewest rows from which the split
+    design is faster at every larger count swept, beside the wrapper's
+    SPLIT_MIN_ROWS."""
+    from paddle_tpu_torch.kernels import rms_norm as rms
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    h, n = 4096, 32000
+    w = 1 + 0.1 * torch.randn(h, generator=g, device=dev)
+    wm = 0.02 * torch.randn(h, n, generator=g, device=dev)
+    rows_out = []
+    for rows in HEAD_FP32_CROSSOVER_ROWS:
+        x = torch.randn(rows, h, generator=g, device=dev)
+        ref = mod.rms_norm_matmul_reference(x, w, wm, 1e-5)
+        rec = {"rows": rows}
+        n_t, reps = (10, 5) if rows <= 512 else (2, 3)
+        for kernel, fn in (
+                ("split", lambda: mod._split_kernel(x, w, wm, 1e-5)),
+                ("cc", lambda: mod.rms_norm_matmul_cuda(
+                    x, w, wm, 1e-5, cuda_cores=True))):
+            y = fn()
+            what = f"rms_norm_matmul fp32 {kernel} {[rows, h, n]}"
+            if kernel == "split" and not torch.equal(y, fn()):
+                fail(f"{what} does not repeat bit for bit")
+            _, worst = checks(torch, [cast_once(
+                "out", y, ref, SUM_TOL32, "float32")])
+            if worst["err_over_tol"] > 1.0:
+                fail(f"{what}: error over tolerance {worst['err_over_tol']}")
+            rec[f"{kernel}_err_over_tol"] = worst["err_over_tol"]
+            rec[f"{kernel}_ms"] = gpu_time_ms(torch, fn, n=n_t, repeats=reps)
+            del y
+        rec["unfused_ms"] = gpu_time_ms(
+            torch, lambda: torch.matmul(rms.rms_norm_cuda(x, w, 1e-5), wm),
+            n=n_t, repeats=reps)
+        rec["bound_split_ms"] = _norm_matmul_bound(rows, h, n, 4,
+                                                   "float32_split")[0]
+        rows_out.append(rec)
+        del x, ref
+    del wm
+    torch.cuda.empty_cache()
+    faster = None
+    for rec in reversed(rows_out):
+        if rec["split_ms"] >= rec["cc_ms"]:
+            break
+        faster = rec["rows"]
+    return {"split_min_rows": mod.SPLIT_MIN_ROWS,
+            "measured_split_faster_from_rows": faster,
+            "shape": {"h": h, "n": n}, "rows": rows_out}
+
+
 ROPE_ATTENTION_SHAPES = (
     # dtype, causal, batch, S, head_dim (heads 32): the training shape in
-    # bf16 (the O1 projections' dtype) and fp32, a ragged tail, a
-    # non-causal case, and head dims 80 and 96 (the 128-wide kernel, each
+    # bf16 (the O1 projections' dtype) and fp32 (the split design: the
+    # fused fp32 step's), a ragged tail, a non-causal case, and head dims
+    # 64 (the 64-wide split kernel), 80 and 96 (the 128-wide kernels, each
     # column paired with the one d/2 on)
     ("bfloat16", True, TRAIN_BATCH, TRAIN_SEQ, 128),
     ("float32", True, TRAIN_BATCH, TRAIN_SEQ, 128),
@@ -1157,13 +1243,17 @@ ROPE_ATTENTION_SHAPES = (
     ("float32", True, TRAIN_BATCH, TRAIN_SEQ, 96),
     # head dim 72: each half zero-padded to 40 by the wrapper
     ("bfloat16", True, TRAIN_BATCH, TRAIN_SEQ, 72),
+    ("float32", True, TRAIN_BATCH, TRAIN_SEQ, 64),
+    ("float32", True, TRAIN_BATCH, TRAIN_SEQ, 80),
+    ("float32", True, 1, 1000, 128),
 )
 
 
 def rope_attention_cases(torch, mod, dev):
     """The rope-on-load attention against its plain version; timed
     beside the unfused path (the port's rope kernel, then its flash
-    forward kernel)."""
+    forward kernel) and, for the fp32 split design, beside the CUDA-core
+    kernel it replaced (``cuda_core_ms``, which it must beat)."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import rope
 
@@ -1181,7 +1271,7 @@ def rope_attention_cases(torch, mod, dev):
         before = getattr(mod, f"{design}_launches")
         o = mod.rope_attention_cuda(q, k, v, cos, sin, causal)
         if getattr(mod, f"{design}_launches") != before + 1 or design != (
-                "tc" if dname == "bfloat16" else "cc"):
+                "tc" if dname == "bfloat16" else "split"):
             fail(f"rope_attention {dname} D {d} did not run its {design} "
                  f"design")
         ref = mod.rope_attention_reference(q, k, v, cos, sin, causal)
@@ -1197,15 +1287,16 @@ def rope_attention_cases(torch, mod, dev):
         del o, ref, slack
         pairs = _visible_pairs(s, s, causal) * b * h
         es = q.element_size()
-        b_ms, b_by = bound(4 * b * s * h * d * es + 2 * s * (d // 2) * 4,
-                           4 * d * pairs + 2 * 6 * b * s * h * (d // 2),
-                           dname)
+        rate = "float32_split" if design == "split" else dname
+        moved = 4 * b * s * h * d * es + 2 * s * (d // 2) * 4
+        flops = 4 * d * pairs + 2 * 6 * b * s * h * (d // 2)
+        b_ms, b_by = bound(moved, flops, rate)
 
         def unfused():
             rq, rk = rope.rope_cuda(q, k, cos, sin)
             fa.flash_attention_cuda(rq, rk, v, causal)
 
-        out.append({
+        case = {
             "shape": {"b": b, "h": h, "d": d, "s": s, "causal": causal},
             "dtype": dname, "design": design, "checks": cs,
             "max_abs_err": worst["max_abs_err"],
@@ -1213,6 +1304,7 @@ def rope_attention_cases(torch, mod, dev):
             "err_over_tol": worst["err_over_tol"],
             "ms": gpu_time_ms(torch, lambda: mod.rope_attention_cuda(
                 q, k, v, cos, sin, causal), n=5, repeats=5),
+            "cuda_core_ms": None,
             "plain_ms": gpu_time_ms(
                 torch, lambda: mod.rope_attention_reference(
                     q, k, v, cos, sin, causal), n=3, repeats=3),
@@ -1220,8 +1312,15 @@ def rope_attention_cases(torch, mod, dev):
             "unfused_ms": gpu_time_ms(torch, unfused, n=5, repeats=5),
             "unfused_call": "the port's rope kernel, then its flash "
                             "forward kernel",
-            "bound_ms": b_ms, "bound_by": b_by,
-        })
+            "bound_ms": b_ms, "bound_by": b_by, "bound_rate": rate,
+        }
+        if design == "split":
+            case["cuda_core_ms"] = gpu_time_ms(
+                torch, lambda: mod.rope_attention_cuda(
+                    q, k, v, cos, sin, causal, cuda_cores=True),
+                n=2, repeats=3)
+            case["bound_cuda_core_ms"] = bound(moved, flops, "float32")[0]
+        out.append(case)
         del q, k, v
         torch.cuda.empty_cache()
     return out
@@ -1278,8 +1377,10 @@ FUSED_TRAIN_PER_STEP = dict(
 FUSED_TRAIN_STEPS = 3
 # the fp32 steps (``amp_level=None``, the trainer's default) on the reset
 # model after the fused ones: the unfused step's launches, flash on its
-# tensor-core (split) design
+# tensor-core (split) design; then the same with both fusions: the fused
+# step's launches, both fusions on their split designs
 FP32_TRAIN_STEPS = 3
+FUSED_FP32_TRAIN_STEPS = 3
 BOTH_FUSIONS = ("rms_norm_matmul", "rope_attention")
 # the fused O1 training step-1 loss against the unfused one, relative: the
 # unfused head multiplies in bf16 (``linear`` is white-listed) and rounds
@@ -1289,6 +1390,14 @@ BOTH_FUSIONS = ("rms_norm_matmul", "rope_attention")
 # the bound is the one the CPU O1 trajectory test holds against JAX
 # (tests/test_torch_train.py, 1e-3) for rounding at other places
 FUSED_LOSS_RTOL = 1e-3
+# the fused fp32 step-1 loss against the unfused fp32 one, relative: both
+# sides are fp32 and nothing is rounded to a narrower type on either
+# (the rope-on-load pre-pass rotates in the rope kernel's op order and
+# keeps the rotated q and k whole in three parts, as the unfused path's
+# flash split does); only the head's fp32 sums run in another order
+# (split products against cuBLAS), which moves a logit by a few fp32
+# ulps: the tiny train parity's bound for fp32 math in other orders
+FUSED_FP32_LOSS_RTOL = TINY_LOSS_RTOL
 # W8A16 launches per forward of the quantized 7B (decode step or prefill):
 # q, k, v, o, gate+up and down in each of 32 layers, and the head
 QUANT_MM_PER_FORWARD = 6 * 32 + 1
@@ -1567,12 +1676,17 @@ def training_phase(torch, np, dev, card, profile_train_steps=0):
                                   card, profile_train_steps)
     gc.collect()
     torch.cuda.empty_cache()
-    fp32_counts = fp32_training(torch, np, net, inputs, labels, card,
-                                profile_train_steps)
+    fp32_counts, fp32_loss0 = fp32_training(torch, np, net, inputs, labels,
+                                            card, profile_train_steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fused_fp32_counts = fused_fp32_training(torch, np, net, inputs, labels,
+                                            fp32_loss0, card,
+                                            profile_train_steps)
     del net
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, fused_counts, fp32_counts
+    return counts, fused_counts, fp32_counts, fused_fp32_counts
 
 
 def fp32_training(torch, np, net, inputs, labels, card,
@@ -1647,9 +1761,96 @@ def fp32_training(torch, np, net, inputs, labels, card,
         prof["flash_ms_per_step"] = sum(
             groups.get(k, 0.0) for k in ("flash_attention_fwd",
                                          "flash_attention_bwd",
-                                         "flash_split_parts"))
+                                         "split_parts"))
         log("profile: " + json.dumps(dict(prof, kind="train_fp32")))
     del step, opt, sched, loss
+    return counts, losses[0]
+
+
+def fused_fp32_training(torch, np, net, inputs, labels, unfused_loss0, card,
+                        profile_train_steps=0):
+    """The training phase's model reset to its seed-0 weights again, with
+    both fusions and ``amp_level=None`` (fp32 end to end: the fused head
+    and the rope-on-load forward on their split designs), a fresh AdamW
+    and schedule: FUSED_FP32_TRAIN_STEPS steps on the same batch. Returns
+    the launch counts of those steps."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.models import causal_lm_loss
+    from paddle_tpu_torch.optimizer import (AdamW, ClipGradByGlobalNorm,
+                                            LinearWarmup)
+
+    net.reset_parameters(0)
+    net.fusions = BOTH_FUSIONS
+    sched = LinearWarmup(3e-4, 3, 3e-5, 3e-4)
+    opt = AdamW(sched, parameters=net.named_parameters(), weight_decay=0.01,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    step = CompiledTrainStep(
+        net, lambda lo, lb: causal_lm_loss(lo, lb).mean(), opt)
+    if step.amp_level is not None:
+        fail(f"fused fp32 training: the trainer's default amp_level is "
+             f"{step.amp_level!r}, not None")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(FUSED_FP32_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss, _ = step([inputs], [labels])
+        sched.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)):
+        fail(f"fused fp32 training: non-finite loss in {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"fused fp32 training: the last loss {losses[-1]} is not below "
+             f"the first {losses[0]} on a fixed batch")
+    rel = abs(losses[0] - unfused_loss0) / abs(unfused_loss0)
+    if not rel <= FUSED_FP32_LOSS_RTOL:
+        fail(f"fused fp32 training: step-1 loss {losses[0]}, unfused fp32 "
+             f"{unfused_loss0} (relative {rel} > {FUSED_FP32_LOSS_RTOL})")
+    want = {k: n * FUSED_FP32_TRAIN_STEPS
+            for k, n in FUSED_TRAIN_PER_STEP.items()}
+    if counts != want:
+        fail(f"fused fp32 training: launches {counts}, expected {want} "
+             f"({FUSED_FP32_TRAIN_STEPS} steps)")
+    # fp32 at head dim 128 and 4096 rows: both fusions on their split
+    # designs
+    designs = kernels.fusion_design_counts()
+    want_designs = {
+        name: {"tc_launches": 0, "split_launches": want[name],
+               "cc_launches": 0} for name in BOTH_FUSIONS}
+    if designs != want_designs:
+        fail(f"fused fp32 training: fusion launches by design {designs}, "
+             f"expected {want_designs}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    p50 = statistics.median(times)
+    res = {
+        "card": card, "amp_level": None, "fusions": sorted(net.fusions),
+        "steps": FUSED_FP32_TRAIN_STEPS, "losses": losses, "step_s": times,
+        "step_p50_s": p50, "tokens_per_s": tokens / p50,
+        "step1_loss_unfused_fp32": unfused_loss0,
+        "step1_loss_rel_diff": rel, "step1_loss_rtol": FUSED_FP32_LOSS_RTOL,
+        "peak_mem_bytes": peak, "launches": counts,
+        "launches_per_step": {k: n / FUSED_FP32_TRAIN_STEPS
+                              for k, n in counts.items()},
+        "fusion_launches_by_design": designs,
+    }
+    log("fused fp32 training: " + json.dumps(res))
+    if profile_train_steps:
+        prof = profile_steps(torch, lambda: step([inputs], [labels]),
+                             profile_train_steps)
+        groups = prof["ms_per_step_by_group"]
+        # no flash launch in this step (the counts above): the split
+        # forward's time is the rope-on-load forward's
+        prof["rope_attention_ms_per_step"] = groups.get(
+            "rope_attention", 0.0) + groups.get("flash_attention_fwd", 0.0)
+        log("profile: " + json.dumps(dict(prof, kind="train_fused_fp32")))
+    del step, opt, sched, loss
+    net.fusions = ()
     return counts
 
 
@@ -1699,13 +1900,14 @@ def fused_training(torch, np, net, inputs, labels, unfused_loss0, card,
         fail(f"fused training: launches {counts}, expected {want} "
              f"({FUSED_TRAIN_STEPS} steps)")
     # O1: the attention's q, k, v are bf16 (tensor cores), the head's
-    # input is the fp32 residual (CUDA cores)
+    # input is the fp32 residual (split products on the tensor cores)
     designs = kernels.fusion_design_counts()
     want_designs = {
         "rms_norm_matmul": {"tc_launches": 0,
-                            "cc_launches": want["rms_norm_matmul"]},
+                            "split_launches": want["rms_norm_matmul"],
+                            "cc_launches": 0},
         "rope_attention": {"tc_launches": want["rope_attention"],
-                           "cc_launches": 0}}
+                           "split_launches": 0, "cc_launches": 0}}
     if designs != want_designs:
         fail(f"fused training: fusion launches by design {designs}, "
              f"expected {want_designs}")
@@ -1892,6 +2094,7 @@ def fused_serving(torch, np, dev, card, net, eng, cfg, unfused_handles,
     # bf16 serving: the fused head on the tensor cores at every step
     designs = kernels.fusion_design_counts()
     if designs["rms_norm_matmul"] != {"tc_launches": n_decode + n_prefill,
+                                      "split_launches": 0,
                                       "cc_launches": 0}:
         fail(f"fused serving: fused head launches by design "
              f"{designs['rms_norm_matmul']}, expected all "
@@ -2035,11 +2238,16 @@ def profile_steps(torch, step_fn, steps):
         name = e.key
         low = name.lower()
         # flash by kernel name: flash_fwd_tc_kernel<D> (bf16),
-        # flash_fwd_split_kernel<D> (fp32) and flash_fwd_kernel<T, D,
-        # false> (CUDA cores) are the forward, split3_kernel the fp32
-        # split's pre-pass (forward and backward),
-        # rope_attention_fwd_tc_kernel<D> (bf16) and
-        # flash_fwd_kernel<T, D, true> the rope-on-load forward,
+        # flash_fwd_split_kernel<D> (fp32; also the fp32 rope-on-load
+        # forward's) and flash_fwd_kernel<T, D, false> (CUDA cores) are
+        # the forward, split3_kernel the split design's pre-pass (flash
+        # forward and backward, the rope-on-load forward's v, the fp32
+        # fused head's weight: "split_parts"),
+        # rope_attention_fwd_tc_kernel<D> (bf16), rope_split3_kernel
+        # (fp32's rotate-and-split pre-pass) and flash_fwd_kernel<T, D,
+        # true> the rope-on-load forward,
+        # norm_rstd_kernel, norm_split3t_kernel and norm_matmul_* the fused
+        # head,
         # flash_bwd_* (both designs) the backward passes
         # paged attention: its scores and values kernels, the int8
         # flavour's instantiated over signed char
@@ -2047,11 +2255,13 @@ def profile_steps(torch, step_fn, steps):
         group = ("paged_attention_int8" if paged and "signed char" in low
                  else "int8_matmul" if "int8_matmul" in low
                  else "rms_norm_matmul" if ("norm_matmul" in low
-                                            or "norm_rstd" in low)
-                 else "rope_attention" if "rope_attention_fwd_tc" in low
+                                            or "norm_rstd" in low
+                                            or "norm_split3t" in low)
+                 else "rope_attention" if ("rope_attention_fwd_tc" in low
+                                           or "rope_split3" in low)
                  else "flash_attention_fwd" if ("flash_fwd_tc_kernel" in low
                                                 or "flash_fwd_split" in low)
-                 else "flash_split_parts" if "split3_kernel" in low
+                 else "split_parts" if "split3_kernel" in low
                  else "rope_attention" if "flash_fwd_kernel<" in low
                  and ", true>" in low
                  else "flash_attention_fwd" if "flash_fwd_kernel<" in low
@@ -2202,6 +2412,9 @@ def main():
     log("kernel int8_matmul crossover: " + json.dumps(crossover))
     crossover = norm_matmul_crossover(torch, kernels.fused_norm_matmul, dev)
     log("kernel rms_norm_matmul crossover: " + json.dumps(crossover))
+    crossover = norm_matmul_fp32_crossover(torch, kernels.fused_norm_matmul,
+                                           dev)
+    log("kernel rms_norm_matmul fp32 crossover: " + json.dumps(crossover))
     floor = launch_floor(torch, dev, results)
     log("launch floor: " + json.dumps(floor))
     for row in paged_chunk_sweep(torch, kernels.paged_attention, dev):
@@ -2210,8 +2423,9 @@ def main():
     small_parity(torch, np, dev)
     fused_parity(torch, np, dev)
     tiny_train_parity(torch, np, dev)
-    train_counts, fused_train_counts, fp32_train_counts = training_phase(
-        torch, np, dev, card, args.profile_train_steps)
+    (train_counts, fused_train_counts, fp32_train_counts,
+     fused_fp32_train_counts) = training_phase(torch, np, dev, card,
+                                               args.profile_train_steps)
     serve_counts, fused_serve_counts = serving_phase(
         torch, np, dev, card, args.profile_steps)
     quant_counts = quant_serving_phase(torch, np, dev, card,
@@ -2236,7 +2450,8 @@ def main():
                     "quantized_serving": quant_counts[name],
                     "fused_serving": fused_serve_counts[name],
                     "fused_training": fused_train_counts[name],
-                    "fp32_training": fp32_train_counts[name]}
+                    "fp32_training": fp32_train_counts[name],
+                    "fused_fp32_training": fused_fp32_train_counts[name]}
         line.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
@@ -2266,6 +2481,19 @@ def main():
                 for c in results[name]
                 if c["shape"]["sq"] == c["shape"]["sk"] == TRAIN_SEQ
                 and c["shape"]["d"] == 128}
+        elif name in BOTH_FUSIONS:
+            # each design's case at the training shape (the fp32 one is
+            # the fused fp32 step's; the bf16 head's is the decode step's)
+            line[-1]["by_design"] = {
+                f"{c['dtype']} {c['design']}": {key: c.get(key) for key in (
+                    "ms", "cuda_core_ms", "plain_ms", "unfused_ms",
+                    "bound_ms", "bound_by", "bound_rate",
+                    "bound_cuda_core_ms", "max_abs_err", "err_over_tol")}
+                for c in results[name]
+                if c["shape"].get("rows", TRAIN_BATCH * TRAIN_SEQ) in (
+                    8, TRAIN_BATCH * TRAIN_SEQ)
+                and c["shape"].get("s", TRAIN_SEQ) == TRAIN_SEQ
+                and c["shape"].get("d", 128) == 128}
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,12 @@ namespace ptt {
 // dtype codes, shared with paddle_tpu_torch/kernels/_build.py DTYPE_CODES
 enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
+// the (batch, seq, head) strides of a [batch, seq, heads, d] tensor, in
+// elements
+struct Strides {
+  long long b, s, h;  // elements
+};
+
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);

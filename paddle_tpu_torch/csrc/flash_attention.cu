@@ -104,7 +104,18 @@
 // row; these are online, the same function summed in another order.
 // Column c pairs with c + d/2 of the head dim d the kernel is given (the
 // wrapper pads each half of a head dim that is not a multiple of 16, so
-// the pairing is the true one). Two designs:
+// the pairing is the true one). Three designs:
+// - fp32 at d up to 128: the split design. A pre-pass
+//   (tc::rope_split3_kernel) rotates q and k in fp32 in _rotate's op
+//   order and writes each rotated value as three bf16 parts (all 24
+//   bits: nothing is rounded, the JAX kernel's contract) into the
+//   workspace layout the split flash forward reads; v goes through
+//   split3_kernel; then flash_fwd_split_kernel runs as it is, with no
+//   LSE stored. The rotated q and k do go to device memory, as parts
+//   (0.2 GB at B 2, S 2048, H 32, D 128): rotating inside the kernel
+//   instead would redo each k tile's rotation in every q block's CTA (16
+//   times at S 2048) on the warpgroups whose issue slots the six
+//   products need, where the pre-pass does it once;
 // - bf16 at d 64 to 128: the tensor-core kernel
 //   (tc::rope_attention_fwd_tc_kernel, below): the rotated q and k and
 //   P are split into bf16 hi and lo parts and multiplied in five bf16
@@ -113,12 +124,14 @@
 //   fp32 value (fused_rope_attention.split_product_slack bounds the
 //   rest); its bound is still the algorithm's 4 d flops a visible pair,
 //   so it can reach at most 40% of it;
-// - fp32, and bf16 at other head dims: the CUDA-core forward,
-//   instantiated with kRope: a lane loads a row's vector at column c
-//   together with the one at c + d/2 and the tables' entries c..,
-//   rotates in fp32 and stores both halves to the fp32 tile.
+// - fp32 above d 128, bf16 at other head dims, and on request
+//   (cuda_cores, to compare with): the CUDA-core forward, instantiated
+//   with kRope: a lane loads a row's vector at column c together with the
+//   one at c + d/2 and the tables' entries c.., rotates in fp32 and
+//   stores both halves to the fp32 tile.
 #include "common.cuh"
 #include "hopper.cuh"
+#include "split.cuh"
 
 namespace {
 
@@ -133,9 +146,7 @@ __host__ __device__ constexpr int block_rows() {
   return D > 128 ? 32 : 64;
 }
 
-struct Strides {
-  long long b, s, h;  // elements
-};
+using ptt::Strides;
 
 // rows [row0, row0 + BR) of one head (base already at (b, h)) into a fp32
 // tile of the template's width D with row stride D + 1; rows at or past
@@ -713,6 +724,8 @@ namespace tc {
 
 using bf16 = __nv_bfloat16;
 using namespace ptt::hopper;
+using namespace ptt::split;  // term_a, term_b, first_term, to_a_parts,
+                             // split3_kernel (split.cuh)
 
 constexpr int kConsumers = 2;                    // warpgroups
 constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's
@@ -1676,18 +1689,6 @@ __host__ __device__ constexpr int owned_cols() {
   return split_d<D, NP>() ? D / 2 : D;
 }
 
-// the terms of a product, smallest first: (part of A, part of B)
-__host__ __device__ constexpr int term_a(int t) {
-  return t == 1 || t == 4 ? 1 : t == 2 ? 2 : 0;
-}
-__host__ __device__ constexpr int term_b(int t) {
-  return t == 0 ? 2 : t == 1 || t == 3 ? 1 : 0;
-}
-template <int NP>
-__host__ __device__ constexpr int first_term() {
-  return NP == 1 ? 5 : 0;
-}
-
 // the NP part tiles of R rows of one head (parts from the map's batches
 // b, b + batch, ..) into the split operand at `tile`
 template <int R, int D, int NP>
@@ -1734,27 +1735,6 @@ __device__ __forceinline__ void split_rs(float (&acc)[N / 2],
                                    kk));
 }
 
-// the accumulator fragment of a score tile (to_a_operand's layout) as NP
-// register A operands: rounded to bf16 once (NP = 1, the stock kernel's
-// astype) or split into hi, mid, lo (NP = 3)
-template <int NP, int KSTEPS>
-__device__ __forceinline__ void to_a_parts(const float* acc,
-                                           uint32_t (&a)[NP][KSTEPS][4]) {
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float x = acc[8 * kk + 2 * i], y = acc[8 * kk + 2 * i + 1];
-#pragma unroll
-      for (int p = 0; p < NP; ++p) {
-        const uint32_t v = pack_bf16(x, y);
-        a[p][kk][i] = v;
-        x -= __uint_as_float(v << 16);  // a bf16 is its fp32's top half
-        y -= __uint_as_float(v & 0xffff0000u);
-      }
-    }
-}
-
 // The two 64 x 64 score tiles of a backward block, x = A0 B0^T and y =
 // A1 B1^T (S and dP, or S^T and dP^T; A from rows row0 of RA-row
 // operands). At split_d warpgroup w computes product w alone (the same
@@ -1799,7 +1779,9 @@ __device__ __forceinline__ void score_tiles(float (&x)[32], float (&y)[32],
 // warpgroup, Q resident) and walks k/v blocks of 64 keys: slot 0 holds K,
 // slot 1 V. Per block and warpgroup: S = Q K^T (six products m64n64k16),
 // the online softmax, P split into three register operands, O += P V
-// (six products m64nDk16, V MN-major). No value is rounded.
+// (six products m64nDk16, V MN-major). No value is rounded. A null `lse`
+// stores no LSE (the rope-on-load forward, whose backward does not read
+// one).
 template <int D>
 __host__ __device__ constexpr Layout fwd_split_layout() {
   return {3 * tile_bytes<D>(128), 3 * tile_bytes<D>(64), 0};
@@ -1901,12 +1883,12 @@ __global__ void __launch_bounds__(kSplitThreads, 1)
   if (ra < sq) {
     store_row<D>(o + (((long long)b * sq + ra) * heads + h) * d, acc, 0, cq,
                  1.0f / la, d);
-    if (cq == 0) lse[rowvec + ra] = ma * kLn2 + logf(la);
+    if (cq == 0 && lse) lse[rowvec + ra] = ma * kLn2 + logf(la);
   }
   if (rb < sq) {
     store_row<D>(o + (((long long)b * sq + rb) * heads + h) * d, acc, 1, cq,
                  1.0f / lb, d);
-    if (cq == 0) lse[rowvec + rb] = mb * kLn2 + logf(lb);
+    if (cq == 0 && lse) lse[rowvec + rb] = mb * kLn2 + logf(lb);
   }
 }
 
@@ -2205,44 +2187,6 @@ __global__ void __launch_bounds__(kSplitThreads, 1)
                   1, cq, 1.0f, d - col0);
 }
 
-// The three bf16 parts of an fp32 [batch, seq, heads, d] tensor (read
-// through its strides, d a multiple of 16) into the contiguous scratch
-// [3, batch, seq, heads, D], columns d to D zero. A thread splits 8
-// columns of a row.
-__global__ void split3_kernel(const float* __restrict__ x,
-                              bf16* __restrict__ out, Strides st, int batch,
-                              int seq, int heads, int d, int D) {
-  const long long rows = (long long)batch * seq * heads;
-  const int chunks = D / 8;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rows * chunks) return;
-  const long long row = i / chunks;  // (b * seq + s) * heads + h
-  const int c = (int)(i % chunks) * 8;
-  const int h = (int)(row % heads);
-  const long long bs = row / heads;
-  const int s = (int)(bs % seq), b = (int)(bs / seq);
-  float v[8];
-  if (c < d) {
-    ptt::load_floats<float, 8>(x + b * st.b + s * st.s + h * st.h + c, v);
-  } else {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = 0.0f;
-  }
-  bf16* dst = out + row * D + c;
-#pragma unroll
-  for (int p = 0; p < 3; ++p) {
-    uint32_t w[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      w[j] = pack_bf16(v[2 * j], v[2 * j + 1]);
-      v[2 * j] -= __uint_as_float(w[j] << 16);
-      v[2 * j + 1] -= __uint_as_float(w[j] & 0xffff0000u);
-    }
-    *reinterpret_cast<uint4*>(dst + p * rows * D) =
-        make_uint4(w[0], w[1], w[2], w[3]);
-  }
-}
-
 // ------------------------------------------------------------ launches
 // The tensor map of a bf16 [batch, seq, heads, d] tensor read through its
 // strides (elements; multiples of 8, so 16-byte multiples in bytes, as
@@ -2381,21 +2325,13 @@ cudaError_t make_map(CUtensorMap* map, const Operand& op, int seq, int heads,
   return make_map(map, op.ptr, op.batch, seq, heads, op.d, op.st, box_rows);
 }
 
-// fp32: the parts of q, k and v into the workspace, then the forward
+// The forward on split operands q, k, v (three parts each)
 template <int D>
-cudaError_t launch_fwd_split(const FwdArgs& a, void* work,
-                             cudaStream_t stream) {
-  bf16* w = static_cast<bf16*>(work);
-  Operand q, k, v;
+cudaError_t fwd_split(const FwdArgs& a, const Operand& q, const Operand& k,
+                      const Operand& v, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   cudaError_t err;
-  if ((err = operand<D, 3>(&q, a.q, a.qs, a.batch, a.sq, a.heads, a.d, &w,
-                           stream)) ||
-      (err = operand<D, 3>(&k, a.k, a.ks, a.batch, a.sk, a.heads, a.d, &w,
-                           stream)) ||
-      (err = operand<D, 3>(&v, a.v, a.vs, a.batch, a.sk, a.heads, a.d, &w,
-                           stream)) ||
-      (err = make_map(&mq, q, a.sq, a.heads, 128)) ||
+  if ((err = make_map(&mq, q, a.sq, a.heads, 128)) ||
       (err = make_map(&mk, k, a.sk, a.heads, 64)) ||
       (err = make_map(&mv, v, a.sk, a.heads, 64)))
     return err;
@@ -2406,6 +2342,107 @@ cudaError_t launch_fwd_split(const FwdArgs& a, void* work,
       mq, mk, mv, static_cast<float*>(a.o), static_cast<float*>(a.lse),
       a.batch, a.heads, a.sq, a.sk, a.d, a.scale * kLog2e, a.causal);
   return cudaGetLastError();
+}
+
+// fp32: the parts of q, k and v into the workspace, then the forward
+template <int D>
+cudaError_t launch_fwd_split(const FwdArgs& a, void* work,
+                             cudaStream_t stream) {
+  bf16* w = static_cast<bf16*>(work);
+  Operand q, k, v;
+  cudaError_t err;
+  if ((err = operand<D, 3>(&q, a.q, a.qs, a.batch, a.sq, a.heads, a.d, &w,
+                           stream)) ||
+      (err = operand<D, 3>(&k, a.k, a.ks, a.batch, a.sk, a.heads, a.d, &w,
+                           stream)) ||
+      (err = operand<D, 3>(&v, a.v, a.vs, a.batch, a.sk, a.heads, a.d, &w,
+                           stream)))
+    return err;
+  return fwd_split<D>(a, q, k, v, stream);
+}
+
+// The rotate-and-split pre-pass of the fp32 rope-on-load forward: q or k,
+// fp32 [batch, seq, heads, d] read through its strides (d a multiple of
+// 16), every row rotated by its position's table row and written as
+// three bf16 parts into the contiguous scratch [3, batch, seq, heads, D]
+// (the layout operand<D, 3> builds), columns d to D zero. Neox: out[:d/2]
+// = x1 cos - x2 sin, out[d/2:d] = x2 cos + x1 sin, column c paired with c
+// + d/2 of the true d, fp32 in _rotate's op order with no fused
+// multiply-add (the rope kernel's arithmetic), so the rotated value is
+// the fp32 one and its three parts keep all of it. A thread rotates 8
+// columns of a row, all in one half (d / 2 is a multiple of 8).
+__global__ void rope_split3_kernel(const float* __restrict__ x,
+                                   bf16* __restrict__ out, Strides st,
+                                   const float* __restrict__ cos,
+                                   const float* __restrict__ sin,
+                                   long long tab, int batch, int seq,
+                                   int heads, int d, int D) {
+  const long long rows = (long long)batch * seq * heads;
+  const int chunks = D / 8;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rows * chunks) return;
+  const long long row = i / chunks;  // (b * seq + s) * heads + h
+  const int c = (int)(i % chunks) * 8;
+  const int h = (int)(row % heads);
+  const long long bs = row / heads;
+  const int s = (int)(bs % seq), b = (int)(bs / seq);
+  const int h2 = d / 2;
+  float v[8];
+  if (c < d) {
+    const bool first = c < h2;
+    const int c1 = first ? c : c - h2;  // the pair's first-half column
+    const float* xr = x + b * st.b + s * st.s + h * st.h;
+    float x1[8], x2[8], cv[8], sv[8];
+    ptt::load_floats<float, 8>(xr + c1, x1);
+    ptt::load_floats<float, 8>(xr + c1 + h2, x2);
+    ptt::load_floats<float, 8>(cos + s * tab + c1, cv);
+    ptt::load_floats<float, 8>(sin + s * tab + c1, sv);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      v[j] = first ? __fsub_rn(__fmul_rn(x1[j], cv[j]),
+                               __fmul_rn(x2[j], sv[j]))
+                   : __fadd_rn(__fmul_rn(x2[j], cv[j]),
+                               __fmul_rn(x1[j], sv[j]));
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = 0.0f;
+  }
+  store_parts8(out + row * D + c, rows * D, v);
+}
+
+// A rotated operand of the fp32 rope-on-load forward (q or k, the seq of
+// q): rope_split3_kernel into the next 3 x batch x seq x heads x D values
+// of the workspace
+template <int D>
+cudaError_t rope_operand(Operand* op, const FwdArgs& a, const void* x,
+                         Strides st, bf16** work, cudaStream_t stream) {
+  bf16* out = *work;
+  *work += 3LL * a.batch * a.sq * a.heads * D;
+  const long long chunks = (long long)a.batch * a.sq * a.heads * (D / 8);
+  rope_split3_kernel<<<(unsigned)((chunks + 255) / 256), 256, 0, stream>>>(
+      static_cast<const float*>(x), out, st,
+      static_cast<const float*>(a.cos), static_cast<const float*>(a.sin),
+      a.tab_stride, a.batch, a.sq, a.heads, a.d, D);
+  *op = {out, {(long long)a.sq * a.heads * D, (long long)a.heads * D, D},
+         3 * a.batch, D};
+  return cudaGetLastError();
+}
+
+// fp32 rope-on-load: q and k rotated and split, v split, into the
+// workspace (its layout is the flash forward's), then the split forward
+// with no LSE
+template <int D>
+cudaError_t launch_rope_fwd_split(const FwdArgs& a, void* work,
+                                  cudaStream_t stream) {
+  bf16* w = static_cast<bf16*>(work);
+  Operand q, k, v;
+  cudaError_t err;
+  if ((err = rope_operand<D>(&q, a, a.q, a.qs, &w, stream)) ||
+      (err = rope_operand<D>(&k, a, a.k, a.ks, &w, stream)) ||
+      (err = operand<D, 3>(&v, a.v, a.vs, a.batch, a.sk, a.heads, a.d, &w,
+                           stream)))
+    return err;
+  return fwd_split<D>(a, q, k, v, stream);
 }
 
 // The Delta pass, the operands (fp32: split into the workspace), the dK/dV
@@ -2559,28 +2596,38 @@ extern "C" int ptt_flash_attention_fwd(
 // head_dim / 2] with row stride tab_stride (a multiple of 4, 16-byte
 // aligned); o contiguous [batch, seq, heads, head_dim] of q's type. No
 // LSE. head_dim a multiple of 16 up to 256 (the Python wrapper checks all
-// of this).
+// of this). work: the split design's bf16 scratch for fp32 at head_dim up
+// to 128, as the flash forward's (3 x 3 x batch x seq x heads x W values,
+// W = 64 up to head_dim 64, else 128; null otherwise). cuda_cores: run
+// the CUDA-core kernel whatever the dtype and head dim (the design the
+// tensor-core ones replaced, kept for comparison).
 extern "C" int ptt_rope_attention_fwd(
     const void* q, const void* k, const void* v, void* o, const void* cos,
     const void* sin, long long tab_stride, int batch, int heads, int seq,
     int head_dim, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, int causal, float scale, int dtype,
-    void* stream) {
+    void* work, int cuda_cores, void* stream) {
   if (batch == 0 || heads == 0 || seq == 0) return cudaSuccess;
+  if (!served(head_dim) || (dtype != ptt::kF32 && dtype != ptt::kBF16))
+    return cudaErrorInvalidValue;
   FwdArgs a{q, k, v, o, nullptr, {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh},
             {v_sb, v_ss, v_sh}, batch, heads, seq, seq, head_dim, causal,
             scale, cos, sin, tab_stride};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == ptt::kBF16 && served(head_dim) && head_dim >= 64 &&
-      head_dim <= 128) {  // tensor cores, split products (d 80-112 padded)
-    if (head_dim == 64) return tc::launch_rope_fwd<64, false>(a, s);
-    if (head_dim == 128) return tc::launch_rope_fwd<128, false>(a, s);
-    return tc::launch_rope_fwd<128, true>(a, s);
+  const bool f32 = dtype == ptt::kF32;
+  if (cuda_cores || (f32 && head_dim > 128) ||
+      (!f32 && (head_dim < 64 || head_dim > 128)))
+    return f32 ? cc_fwd<float, true>(a, s) : cc_fwd<__nv_bfloat16, true>(a, s);
+  if (f32) {  // rotate-and-split pre-pass, split products at width 64, 128
+    if (work == nullptr) return cudaErrorInvalidValue;
+    return head_dim <= 64 ? tc::launch_rope_fwd_split<64>(a, work, s)
+                          : tc::launch_rope_fwd_split<128>(a, work, s);
   }
-  if (dtype == ptt::kBF16) return cc_fwd<__nv_bfloat16, true>(a, s);
-  if (dtype == ptt::kF32) return cc_fwd<float, true>(a, s);
-  return cudaErrorInvalidValue;
+  // bf16 at d 64 to 128: tensor cores, hi/lo products (d 80-112 padded)
+  if (head_dim == 64) return tc::launch_rope_fwd<64, false>(a, s);
+  if (head_dim == 128) return tc::launch_rope_fwd<128, false>(a, s);
+  return tc::launch_rope_fwd<128, true>(a, s);
 }
 
 // The three backward passes in order (Delta, dK/dV, dQ). o and dout have

@@ -13,9 +13,10 @@
 // What bounds it on the H100: at the decode step (the head [8, 4096] x
 // [4096, 32000]) bytes, the weight read once (262 MB); at prefill and
 // in training (hundreds to thousands of rows) operations (989 TFLOP/s
-// for bf16 on the tensor cores, 67 for fp32 on the CUDA cores).
+// for bf16 on the tensor cores; fp32 through six bf16 products a
+// product, 989 / 6; 67 for fp32 on the CUDA cores).
 //
-// Two designs, chosen by x's dtype:
+// Three designs, chosen by x's dtype and, in fp32, the row count:
 //
 // bf16: the tensor-core design (namespace tc, below; hopper.cuh). A
 // first kernel takes every row's rstd over the whole K into an fp32
@@ -45,9 +46,17 @@
 // tile out of shared memory, measured slower on the tiled kernel: each
 // k-step's register fence waits for the products before it.)
 //
-// fp32 (O1 training's head: the op is on neither AMP list): the
-// CUDA-core design (the port's first kernels, below; the tensor cores
-// take fp32 only as TF32). Two kernels, chosen by the row count:
+// fp32 from SPLIT_MIN_ROWS rows (kernels/fused_norm_matmul.py; the
+// training head, under O1 too: the op is on neither AMP list): the split
+// design (namespace sp, at the end): the tensor cores take fp32 only as
+// TF32, so the normed rows and the weight are split by pre-passes into
+// three bf16 parts each and every product is six bf16 products of parts
+// (split.cuh), which keeps fp32's 24 bits.
+//
+// fp32 below that (where the weight read bounds the call and a split of
+// the weight would write 1.5 times its bytes more), and on request
+// (cuda_cores, to compare with): the CUDA-core design (the port's first
+// kernels, below). Two kernels, chosen by the row count:
 // - narrow (rows <= 16): a CTA owns 128 columns and one chunk of at most
 //   kchunk K rows (split-K). Its prologue takes the rstd of every row
 //   over the whole K (a warp per row, 16-byte vectors, from L2 after the
@@ -68,6 +77,7 @@
 //   thread an 8 x 8 register tile of fp32 FMAs.
 #include "common.cuh"
 #include "hopper.cuh"
+#include "split.cuh"
 
 namespace {
 
@@ -772,6 +782,215 @@ cudaError_t dispatch(const void* x, const void* w, const void* wm,
 
 }  // namespace tc
 
+// =============================== fp32: the split design (tensor cores)
+// (split.cuh: three bf16 parts an fp32 value, six bf16 products a
+// product, smallest first.) Three pre-passes, then one tensor-core kernel:
+// - the rstd of every row over the whole K (norm_rstd_kernel<float>);
+// - y = (x * rstd) * w in fp32 (_normed_rows' op order; its rounding to
+//   x's dtype is a no-op in fp32), split into three parts and written
+//   transposed, [3, K, R8] (R8: the rows rounded up to 8, padding rows
+//   zero), so that a y tile is read like a weight tile (MN-major);
+// - wm split into three parts, [3, K, N] (split3_kernel). The weights
+//   change every training step, so this runs at every call: at the Llama
+//   head 524 MB read and 786 MB written, about 0.4 ms of a kernel's 6.5
+//   ms bound. Splitting from fp32 tiles inside the kernel instead would
+//   read 4 bytes a weight where the parts are 6, but every CTA of a
+//   column would split the same tile again (the 32 row tiles of the
+//   Llama head), on the warpgroups whose issue slots the products need;
+//   the pre-pass does it once.
+// The kernel: a CTA owns a 128 x 256 output tile (64 rows per consumer
+// warpgroup, one m64n256k16 accumulator of 128 registers a thread) over
+// all of K, in k-tiles of 32 K rows: a stage is the three parts of the
+// y tile (two 64-row boxes each) and of the wm tile (four 64-column
+// boxes), 72 KB, both MN-major 128-byte swizzled (the transpose flag for
+// both operands), three stages (216 KB). A k-tile of 64 would take 144 KB
+// a stage, one stage in all; a 128 x 128 tile at k-tile 64 fits two
+// stages but moves 75% more bytes from the L2 per product. Per k-tile
+// and warpgroup the six terms, each over the tile's two k-steps of 16,
+// are issued into the one accumulator, and one tile's products stay in
+// flight while the next tile's are issued. One thread of a producer
+// warpgroup issues the loads (it gives its registers to the two
+// consumer warpgroups, setmaxnreg, as the bf16 tiled kernel's does: 232
+// each). A CTA of the consumers alone, a consumer thread issuing each
+// next tile once its stage is free (flash's split kernels, 255
+// registers), serialized these products (ptxas C7518: that thread's
+// wait sits between two product groups in flight). The row tiles of one
+// column tile are neighbours in the grid and share its weight tiles
+// through the L2. No atomics, one owner per output: results repeat bit
+// for bit.
+namespace sp {
+
+using bf16 = __nv_bfloat16;
+using namespace ptt::hopper;
+using namespace ptt::split;
+
+constexpr int kRows = 128;                     // output rows of a CTA
+constexpr int kCols = 256;                     // output columns of a CTA
+constexpr int kKT = 32;                        // K rows of a k-tile
+constexpr int kStages = 3;
+constexpr int kConsumers = 256;                // two consumer warpgroups
+constexpr int kThreads = kConsumers + 128;     // + the producer's
+constexpr int kBox = kKT * 128;                // 64 columns x kKT rows
+constexpr int kA = 3 * (kRows / 64) * kBox;    // the y tile's parts
+constexpr int kB = 3 * (kCols / 64) * kBox;    // the wm tile's parts
+constexpr int kStage = kA + kB;                // 72 KB, a multiple of 1024
+constexpr int kBars = kStages * kStage;
+constexpr int kSmem = kBars + 16 * kStages + 1024;
+
+// y = (x * rstd) * w, transposed and split: yt [3, K, R8]. A thread takes
+// 8 rows of one column k (the threads of a warp neighbouring k, so each
+// of its 8 row reads is one coalesced line); rows past `rows` are zero.
+__global__ void norm_split3t_kernel(const float* __restrict__ x,
+                                    const float* __restrict__ w,
+                                    const float* __restrict__ rstd,
+                                    bf16* __restrict__ yt, int rows, int R8,
+                                    int K) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)(R8 / 8) * K) return;
+  const int k = (int)(i % K), r0 = (int)(i / K) * 8;
+  const float wk = w[k];
+  float v[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int r = r0 + j;
+    v[j] = r < rows ? __fmul_rn(__fmul_rn(x[(size_t)r * K + k], rstd[r]), wk)
+                    : 0.0f;
+  }
+  store_parts8(yt + (size_t)k * R8 + r0, (long long)K * R8, v);
+}
+
+// out [rows, N] fp32 = y wm from the parts: my maps yt (R8, K, 3), mw the
+// wm parts (N, K, 3); grid (row tiles, column tiles)
+__global__ void __launch_bounds__(kThreads, 1)
+    norm_matmul_split_kernel(const __grid_constant__ CUtensorMap my,
+                             const __grid_constant__ CUtensorMap mw,
+                             float* __restrict__ out, int rows, int K,
+                             int N) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t full0 = base + kBars, empty0 = full0 + 8 * kStages;
+  const int row0 = blockIdx.x * kRows, n0 = blockIdx.y * kCols;
+  const int ntiles = (K + kKT - 1) / kKT;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers / 32) {  // the producer warpgroup: one thread loads
+    regs_release<40>();
+    if (warp == kConsumers / 32 && lane == 0) {
+      // k-tile `it` into stage it % kStages, once both consumer
+      // warpgroups have released the stage's previous tile
+      for (int it = 0; it < ntiles; ++it) {
+        const int s = it % kStages;
+        if (it >= kStages) mbar_wait(empty0 + 8 * s, (it / kStages - 1) & 1);
+        const uint32_t st = base + s * kStage, bar = full0 + 8 * s;
+        const int k0 = it * kKT;
+        mbar_arrive_expect_tx(bar, kStage);
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+#pragma unroll
+          for (int j = 0; j < kRows / 64; ++j)
+            tma_load_3d(st + (p * (kRows / 64) + j) * kBox, &my, bar,
+                        row0 + 64 * j, k0, p);
+#pragma unroll
+          for (int j = 0; j < kCols / 64; ++j)
+            tma_load_3d(st + kA + (p * (kCols / 64) + j) * kBox, &mw, bar,
+                        n0 + 64 * j, k0, p);
+        }
+      }
+    }
+    return;
+  }
+  regs_claim<232>();
+
+  const int wg = warp / 4, tw = threadIdx.x % 128;
+  // the accumulator fragment of m64n256: thread tw holds rows (tw / 32) *
+  // 16 + (tw % 32) / 4 (entries 4j, 4j + 1) and that + 8 (entries 4j +
+  // 2, 4j + 3), columns 8j + 2 (tw % 4) + {0, 1}
+  const int fr = (tw / 32) * 16 + lane / 4, cq = 2 * (lane % 4);
+  float acc[kCols / 2];
+#pragma unroll
+  for (int j = 0; j < kCols / 2; ++j) acc[j] = 0.0f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % kStages;
+    // this warpgroup's 64-row box of each y part, and the wm parts
+    const uint32_t sA = base + s * kStage + wg * kBox;
+    const uint32_t sB = base + s * kStage + kA;
+    mbar_wait(full0 + 8 * s, (it / kStages) & 1);
+    wgmma_fence();
+    fence_regs(acc);
+#pragma unroll
+    for (int t = 0; t < 6; ++t)
+#pragma unroll
+      for (int kk = 0; kk < kKT / 16; ++kk)
+        wgmma_ss_t<kCols, 1, 1>(
+            acc,
+            desc_mn_major<kKT>(sA + term_a(t) * (kRows / 64) * kBox, kk),
+            desc_mn_major<kKT>(sB + term_b(t) * (kCols / 64) * kBox, kk), 1);
+    wgmma_commit();
+    fence_regs(acc);
+    if (it > 0) {  // the previous tile's products are done: free its stage
+      wgmma_wait<1>();
+      mbar_arrive(empty0 + 8 * ((it - 1) % kStages));
+    }
+  }
+  wgmma_wait_all();
+  fence_regs(acc);
+
+#pragma unroll
+  for (int j = 0; j < kCols / 8; ++j) {
+    const int n = n0 + 8 * j + cq;  // N % 8 == 0: the pair is all in
+    if (n >= N) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = row0 + 64 * wg + fr + 8 * half;
+      if (r < rows)
+        *reinterpret_cast<float2*>(out + (size_t)r * N + n) =
+            make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+    }
+  }
+}
+
+// the two split pre-passes into `work` (yt, then the wm parts), then the
+// kernel
+cudaError_t launch(const float* x, const float* w, const float* rstd,
+                   const float* wm, float* out, bf16* work, int rows, int K,
+                   int N, cudaStream_t stream) {
+  const int R8 = (rows + 7) / 8 * 8;
+  bf16* yt = work;
+  bf16* wp = work + 3LL * K * R8;
+  const long long ny = (long long)(R8 / 8) * K;
+  norm_split3t_kernel<<<(unsigned)((ny + 255) / 256), 256, 0, stream>>>(
+      x, w, rstd, yt, rows, R8, K);
+  cudaError_t err = cudaGetLastError();
+  if (err) return err;
+  const long long nw = (long long)K * (N / 8);
+  split3_kernel<<<(unsigned)((nw + 255) / 256), 256, 0, stream>>>(
+      wm, wp, ptt::Strides{(long long)K * N, N, N}, 1, K, 1, N, N);
+  if ((err = cudaGetLastError())) return err;
+  CUtensorMap my, mw;
+  if ((err = make_parts_map(&my, yt, R8, K, 3, 64, kKT)) ||
+      (err = make_parts_map(&mw, wp, N, K, 3, 64, kKT)))
+    return err;
+  if ((err = cudaFuncSetAttribute(norm_matmul_split_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  kSmem)))
+    return err;
+  const dim3 grid((R8 + kRows - 1) / kRows, (N + kCols - 1) / kCols);
+  norm_matmul_split_kernel<<<grid, kThreads, kSmem, stream>>>(my, mw, out,
+                                                               rows, K, N);
+  return cudaGetLastError();
+}
+
+}  // namespace sp
 
 }  // namespace
 
@@ -818,4 +1037,28 @@ extern "C" int ptt_rms_norm_matmul_tc(const void* x, const void* w,
                                        N, kchunk, swap_rows, s);
   return tc::dispatch<float>(x, w, wm, rs, out, partial, rows, K, N, kchunk,
                              swap_rows, s);
+}
+
+// The split design, fp32: x [rows, K], w [K] and wm [K, N] fp32, out fp32
+// [rows, N]; rstd fp32 scratch of rows (the first kernel writes it);
+// work bf16 scratch of 3 x K x (R8 + N) values, R8 = rows rounded up to 8
+// (the parts of y and of wm). All contiguous and 16-byte aligned, K and N
+// multiples of 8.
+extern "C" int ptt_rms_norm_matmul_split(const void* x, const void* w,
+                                         const void* wm, void* out,
+                                         void* rstd, void* work, int rows,
+                                         int K, int N, float eps,
+                                         void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows == 0 || N == 0) return cudaSuccess;
+  if (K % 8 || N % 8 || work == nullptr) return cudaErrorInvalidValue;
+  norm_rstd_kernel<float><<<(rows + 7) / 8, 256, 0, s>>>(
+      static_cast<const float*>(x), static_cast<float*>(rstd), rows, K, eps);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return sp::launch(static_cast<const float*>(x),
+                    static_cast<const float*>(w),
+                    static_cast<const float*>(rstd),
+                    static_cast<const float*>(wm), static_cast<float*>(out),
+                    static_cast<__nv_bfloat16*>(work), rows, K, N, s);
 }

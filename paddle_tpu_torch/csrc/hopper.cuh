@@ -118,6 +118,20 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       : "memory");
 }
 
+// One box of a 3-D tensor (coordinates c0 innermost, c1, c2) into shared
+// memory at `dst`, as tma_load_2d (the split design's parts: c2 is the
+// part, so a box never reads past its part's edge)
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
 // Shared-memory writes of this thread made by ordinary stores become
 // visible to the async proxy (wgmma reads its descriptors' operands
 // there); each writer fences before the barrier the readers wait on.
@@ -538,6 +552,21 @@ inline cudaError_t make_map_2d(CUtensorMap* map, CUtensorMapDataType type,
   const cuuint64_t strides[1] = {row_bytes};
   const cuuint32_t box[2] = {box_inner, box_outer};
   return encode_map(map, type, 2, ptr, dims, strides, box, swizzle);
+}
+
+// The map of a split operand's bf16 parts: `parts` stacked contiguous
+// matrices of `outer` rows of `inner` values, read in boxes of box_inner
+// x box_outer values of one part, 128-byte swizzled (a box never reads
+// past its part's edge: TMA zero-fills there)
+inline cudaError_t make_parts_map(CUtensorMap* map, const void* ptr,
+                                  uint64_t inner, uint64_t outer,
+                                  uint64_t parts, uint32_t box_inner,
+                                  uint32_t box_outer) {
+  const cuuint64_t dims[3] = {inner, outer, parts};
+  const cuuint64_t strides[2] = {inner * 2, inner * outer * 2};
+  const cuuint32_t box[3] = {box_inner, box_outer, 1};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, ptr, dims,
+                    strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace hopper

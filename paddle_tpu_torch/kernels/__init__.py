@@ -18,12 +18,16 @@ PyTorch version (counterpart of ``paddle_tpu/kernels``).
   CUDA cores
 - :mod:`.fused_norm_matmul` (``csrc/fused_norm_matmul.cu``) <-
   ``kernels/fused_norm_matmul.py``, RMSNorm + matmul (the Llama head);
-  bf16 on the tensor cores, fp32 on the CUDA cores; its backward is the
+  bf16 on the tensor cores, fp32 too from ``SPLIT_MIN_ROWS`` rows
+  (three-part split products), fewer fp32 rows on the CUDA cores; its
+  backward is the
   plain version's VJP, as in JAX
 - :mod:`.fused_rope_attention` (``csrc/flash_attention.cu``, the
   rope-on-load forward) <- ``kernels/fused_rope_attention.py``; bf16 on
-  the tensor cores (split products that keep the fp32 contract), fp32 on
-  the CUDA cores; its backward is the plain version's VJP, as in JAX
+  the tensor cores (hi/lo products that keep the fp32 contract), fp32 up
+  to head dim 128 too (q and k rotated and split into three parts, then
+  flash attention's split forward), fp32 above on the CUDA cores; its
+  backward is the plain version's VJP, as in JAX
 
 With these every ``pl.pallas_call`` of the JAX package has a hand-written
 counterpart. Each module counts the kernel launches it made
@@ -61,7 +65,7 @@ KERNELS = {
 
 
 # modules that also count their launches by design (tensor cores "tc",
-# CUDA cores "cc")
+# the fusions' fp32 split products "split", CUDA cores "cc")
 DESIGN_MODULES = (flash_attention, int8_matmul, fused_norm_matmul,
                   fused_rope_attention)
 
@@ -96,8 +100,9 @@ def int8_matmul_design_counts():
 
 def fusion_design_counts():
     """The two fusions' launches by design: ``{"rms_norm_matmul": {...},
-    "rope_attention": {...}}``, each ``tc_launches`` (tensor cores: bf16)
-    and ``cc_launches`` (CUDA cores)."""
+    "rope_attention": {...}}``, each ``tc_launches`` (tensor cores: bf16),
+    ``split_launches`` (tensor cores through three-part split products:
+    fp32) and ``cc_launches`` (CUDA cores)."""
     return {name: {attr: getattr(mod, attr) for attr in mod.DESIGN_COUNTERS}
             for name, mod in (("rms_norm_matmul", fused_norm_matmul),
                               ("rope_attention", fused_rope_attention))}

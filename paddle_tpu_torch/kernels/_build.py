@@ -78,15 +78,18 @@ SIGNATURES = {
     + [_I, _F, _I, _P, _I, _P],
     # q, k, v, o, cos, sin, table row stride, batch, heads, seq,
     # head_dim, (batch, seq, head) strides of q, k, v, causal, scale,
-    # dtype, stream
+    # dtype, work (or null), cuda_cores, stream
     "ptt_rope_attention_fwd": [_P] * 6 + [_L] + [_I] * 4 + [_L] * 9
-    + [_I, _F, _I, _P],
+    + [_I, _F, _I, _P, _I, _P],
     # x, w, wm, out, partial (or null), rows, K, N, kchunk, eps, stream
     # (fp32)
     "ptt_rms_norm_matmul": [_P] * 5 + [_I] * 4 + [_F, _P],
     # x, w, wm, out, rstd, partial (or null), rows, K, N, kchunk,
     # swap_rows (0: the tiled kernel), w_dtype, eps, stream (bf16)
     "ptt_rms_norm_matmul_tc": [_P] * 6 + [_I] * 6 + [_F, _P],
+    # x, w, wm, out, rstd, work, rows, K, N, eps, stream (fp32, the
+    # split design)
+    "ptt_rms_norm_matmul_split": [_P] * 6 + [_I] * 3 + [_F, _P],
     # stream: an empty kernel (the launch floor)
     "ptt_empty": [_P],
     # q, k, v, o, dout, lse, delta, dq, dk, dv, batch, heads, sq, sk,

@@ -145,7 +145,7 @@ def split_width(head_dim):
         else SPLIT_MAX_HEAD_DIM
 
 
-def _workspace(q, sk, n_q, n_k, cuda_cores):
+def split_workspace(q, sk, n_q, n_k, cuda_cores):
     """The bf16 workspace of the split design's three-part operands, or
     None where no split runs: ``3 x rows x heads x split_width`` values
     (the C entry points' layout) for ``n_q`` operands of q's ``B x Sq``
@@ -398,7 +398,7 @@ def _launch_fwd(q, k, v, causal, scale, cuda_cores=False):
     lib = _build.load()
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
-    work = _workspace(q, sk, 1, 2, cuda_cores)  # q; k, v
+    work = split_workspace(q, sk, 1, 2, cuda_cores)  # q; k, v
     with torch.cuda.device(dev):
         err = lib.ptt_flash_attention_fwd(
             _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),
@@ -451,7 +451,7 @@ def _launch_bwd(q, k, v, o, lse, do, causal, scale, cuda_cores=False):
     dk = torch.empty((b, sk, h, d), dtype=q.dtype, device=dev)
     dv = torch.empty((b, sk, h, d), dtype=q.dtype, device=dev)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
-    work = _workspace(q, sk, 2, 2, cuda_cores)  # q, dout; k, v
+    work = split_workspace(q, sk, 2, 2, cuda_cores)  # q, dout; k, v
     with torch.cuda.device(dev):
         err = lib.ptt_flash_attention_bwd(
             _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),

@@ -25,13 +25,23 @@ In the port this kernel runs where the model selects the fusion
 selects its TPU kernel through the tune cache (``head_fusion_select``),
 which is not ported.
 
-Two designs, chosen by x's dtype (:func:`design`): bf16 runs the
-tensor-core kernels (``ptt_rms_norm_matmul_tc``: an rstd pre-pass, then
-wgmma on the normed tile built in shared memory; the swap-AB kernel up
-to :data:`SWAP_MAX_ROWS` rows, split over K chunks, the tiled kernel
-above), fp32 the CUDA-core ones (``ptt_rms_norm_matmul``), because the
-tensor cores take fp32 only as TF32. ``tc_launches`` and
-``cc_launches`` count each design beside ``launches``.
+Three designs, chosen by x's dtype and row count (:func:`design`):
+bf16 runs the tensor-core kernels (``"tc"``, ``ptt_rms_norm_matmul_tc``:
+an rstd pre-pass, then wgmma on the normed tile built in shared memory;
+the swap-AB kernel up to :data:`SWAP_MAX_ROWS` rows, split over K
+chunks, the tiled kernel above). fp32 from :data:`SPLIT_MIN_ROWS` rows
+runs the split design (``"split"``, ``ptt_rms_norm_matmul_split``): the
+tensor cores take fp32 only as TF32, so the normed rows and the weight
+are each split into three bf16 parts (hi, mid, lo: all 24 bits) by
+pre-passes into a bf16 workspace, and every product is six bf16
+products of parts, smallest first, with fp32 accumulators; nothing is
+rounded, as in fp32 the normed row is not. fp32 below that runs the
+CUDA-core kernels (``"cc"``, ``ptt_rms_norm_matmul``): there the weight
+read bounds the call, and splitting it would add 1.5 times its bytes.
+``cuda_cores=True`` runs the CUDA-core kernels at any fp32 row count
+(the design the split one replaced, kept to compare with).
+``tc_launches``, ``split_launches`` and ``cc_launches`` count each
+design beside ``launches``.
 """
 from __future__ import annotations
 
@@ -40,12 +50,14 @@ import torch
 from . import _build
 from .int8_matmul import SWAP_TILES, TC_KTILE, swap_kchunk
 
-# one per call (the rstd pre-pass and the split-K sum are part of it),
-# and the same split by design: tensor cores (bf16), CUDA cores (fp32)
+# one per call (the pre-passes and the split-K sum are part of it), and
+# the same by design: tensor cores (bf16), split products on the tensor
+# cores (fp32 from SPLIT_MIN_ROWS rows), CUDA cores (fp32 below)
 launches = 0
 tc_launches = 0
+split_launches = 0
 cc_launches = 0
-DESIGN_COUNTERS = ("tc_launches", "cc_launches")
+DESIGN_COUNTERS = ("tc_launches", "split_launches", "cc_launches")
 
 X_DTYPES = (torch.float32, torch.bfloat16)
 K_CHUNK = 512  # K rows per CTA of the narrow (rows <= 16) CUDA-core kernel
@@ -60,11 +72,25 @@ SWAP_MAX_ROWS = 64
 # the card with the lm_head's 250 column tiles, and spares the second
 # kernel that sums the chunks
 SWAP_CTAS_PER_SM = 1
+# fp32 rows from which the split design runs: the crossover with the
+# CUDA-core kernels, measured by chip_smoke.py's fp32 sweep at the Llama
+# head. Up to NARROW_ROWS the narrow kernel is bound by the weight read
+# and beats the split design, whose pre-pass writes 1.5 times the
+# weight's bytes more; above, the wide kernel costs a whole 128-row tile
+# and the split design wins at every row count swept
+SPLIT_MIN_ROWS = NARROW_ROWS + 1
+# the workspace's normed rows are padded to a multiple of this (the row
+# pitch of its tensor map must be a multiple of 16 bytes)
+SPLIT_ROW_ALIGN = 8
 
 
-def design(dtype):
-    """``"tc"`` (tensor cores, bf16 x) or ``"cc"`` (CUDA cores, fp32 x)."""
-    return "tc" if dtype == torch.bfloat16 else "cc"
+def design(dtype, rows):
+    """``"tc"`` (tensor cores, bf16 x), ``"split"`` (split products on the
+    tensor cores, fp32 x of at least :data:`SPLIT_MIN_ROWS` rows) or
+    ``"cc"`` (CUDA cores, fp32 x of fewer rows)."""
+    if dtype == torch.bfloat16:
+        return "tc"
+    return "split" if rows >= SPLIT_MIN_ROWS else "cc"
 
 
 def _scaled_rows(x2d, w, eps):
@@ -148,36 +174,90 @@ def rms_norm_matmul(x, w, wm, eps=1e-6):
     return _RmsNormMatmul.apply(x, w, wm, float(eps))
 
 
-def rms_norm_matmul_cuda(x, w, wm, eps=1e-6):
+def rms_norm_matmul_cuda(x, w, wm, eps=1e-6, cuda_cores=False):
     """Launch ``csrc/fused_norm_matmul.cu``: the design :func:`design`
-    gives for x's dtype (bf16: the swap-AB kernel up to
-    :data:`SWAP_MAX_ROWS` rows, the tiled one above); raises on anything
-    it does not take."""
-    global launches, cc_launches
+    gives for x's dtype and row count (bf16: the swap-AB kernel up to
+    :data:`SWAP_MAX_ROWS` rows, the tiled one above; ``cuda_cores``: the
+    fp32 CUDA-core kernels at any row count, to compare with); raises on
+    anything it does not take."""
     x2, h, n = _checked(x, w, wm)
     rows = int(x2.shape[0])
-    if design(x.dtype) == "tc":
+    if cuda_cores:
+        if x.dtype != torch.float32:
+            raise ValueError(f"rms_norm_matmul: the CUDA-core kernels take "
+                             f"float32 x, got {x.dtype}")
+        kind = "cc"
+    else:
+        kind = design(x.dtype, rows)
+    if kind == "tc":
         out = _tc_kernel(x2, w, wm, eps,
                          "swap" if rows <= SWAP_MAX_ROWS else "tiled")
+    elif kind == "split":
+        out = _split_kernel(x2, w, wm, eps)
     else:
-        dev = x.device
-        out = torch.empty((rows, n), dtype=x.dtype, device=dev)
-        chunks = -(-h // K_CHUNK)
-        partial = None
-        if rows <= NARROW_ROWS and chunks > 1:
-            partial = torch.empty((chunks, rows, n), dtype=torch.float32,
-                                  device=dev)
-        with torch.cuda.device(dev):
-            err = _build.load().ptt_rms_norm_matmul(
-                _build.ptr(x2), _build.ptr(w), _build.ptr(wm),
-                _build.ptr(out),
-                None if partial is None else _build.ptr(partial),
-                rows, h, n, K_CHUNK, float(eps), _build.stream_of(x),
-            )
-        _build.check(err, "ptt_rms_norm_matmul")
-        cc_launches += 1
-        launches += 1
+        out = _cc_kernel(x2, w, wm, eps)
     return out.reshape(tuple(x.shape[:-1]) + (n,))
+
+
+def _cc_kernel(x2, w, wm, eps):
+    """The fp32 CUDA-core kernels on checked x2 ``[rows, H]`` (narrow up
+    to :data:`NARROW_ROWS` rows, split over K chunks; wide above)."""
+    global launches, cc_launches
+    rows, h = (int(v) for v in x2.shape)
+    n = int(wm.shape[1])
+    dev = x2.device
+    out = torch.empty((rows, n), dtype=x2.dtype, device=dev)
+    chunks = -(-h // K_CHUNK)
+    partial = None
+    if rows <= NARROW_ROWS and chunks > 1:
+        partial = torch.empty((chunks, rows, n), dtype=torch.float32,
+                              device=dev)
+    with torch.cuda.device(dev):
+        err = _build.load().ptt_rms_norm_matmul(
+            _build.ptr(x2), _build.ptr(w), _build.ptr(wm), _build.ptr(out),
+            None if partial is None else _build.ptr(partial),
+            rows, h, n, K_CHUNK, float(eps), _build.stream_of(x2),
+        )
+    _build.check(err, "ptt_rms_norm_matmul")
+    cc_launches += 1
+    launches += 1
+    return out
+
+
+def split_workspace_elems(rows, h, n):
+    """bf16 values of the split design's workspace: the three parts of
+    the normed rows (``[3, H, rows]``, rows padded to a multiple of
+    :data:`SPLIT_ROW_ALIGN`) and of the weight (``[3, H, N]``)."""
+    r8 = -(-rows // SPLIT_ROW_ALIGN) * SPLIT_ROW_ALIGN
+    return 3 * h * (r8 + n)
+
+
+def _split_kernel(x2, w, wm, eps):
+    """The fp32 split design on checked x2 ``[rows, H]``: the out ``[rows,
+    N]``. :func:`rms_norm_matmul_cuda` picks it from
+    :data:`SPLIT_MIN_ROWS` rows; ``chip_smoke.py``'s crossover sweep runs
+    it at every row count."""
+    global launches, split_launches
+    rows, h = (int(v) for v in x2.shape)
+    n = int(wm.shape[1])
+    if x2.dtype != torch.float32 or w.dtype != torch.float32:
+        raise ValueError(f"rms_norm_matmul: the split design takes float32 "
+                         f"x and w, got {x2.dtype} and {w.dtype}")
+    dev = x2.device
+    out = torch.empty((rows, n), dtype=torch.float32, device=dev)
+    rstd = torch.empty((rows,), dtype=torch.float32, device=dev)
+    work = torch.empty((split_workspace_elems(rows, h, n),),
+                       dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.load().ptt_rms_norm_matmul_split(
+            _build.ptr(x2), _build.ptr(w), _build.ptr(wm), _build.ptr(out),
+            _build.ptr(rstd), _build.ptr(work), rows, h, n, float(eps),
+            _build.stream_of(x2),
+        )
+    _build.check(err, "ptt_rms_norm_matmul_split")
+    split_launches += 1
+    launches += 1
+    return out
 
 
 def _checked(x, w, wm):

@@ -33,13 +33,21 @@ selects its TPU kernel through the tune cache
 ``S % block_q`` restriction is a tiling artefact and is not ported: the
 kernel takes any S and masks the ragged tail.
 
-Two designs, chosen by dtype and head dim (:func:`design`): bf16 whose
-padded head dim is 64 to 128 runs the tensor-core kernel
-(``tc::rope_attention_fwd_tc_kernel``), which keeps the fp32 contract by
+Three designs, chosen by dtype and head dim (:func:`design`): bf16 whose
+padded head dim is 64 to 128 runs the tensor-core kernel (``"tc"``,
+``tc::rope_attention_fwd_tc_kernel``), which keeps the fp32 contract by
 splitting each rotated q and k value and each probability into bf16 hi
 and lo parts (five bf16 products, fp32 accumulators;
-:func:`split_product_slack` bounds what that moves); fp32 and other
-bf16 head dims run the CUDA-core kernel (fp32 FMAs). ``tc_launches``
+:func:`split_product_slack` bounds what that moves); fp32 up to a padded
+head dim of 128 runs the split design (``"split"``): a pre-pass rotates
+q and k in fp32 in ``_rotate``'s op order and writes each rotated value
+as three bf16 parts (all 24 bits: nothing is rounded) into the bf16
+workspace that flash attention's split forward reads, v is split the
+same way, and that forward (six bf16 products a product) runs on them
+with no LSE stored; the rest (fp32 above 128, other bf16 head dims) runs
+the CUDA-core kernel (``"cc"``, fp32 FMAs). ``cuda_cores=True`` runs the
+CUDA-core kernel at any head dim and dtype (the design the tensor-core
+ones replaced, kept to compare with). ``tc_launches``, ``split_launches``
 and ``cc_launches`` count each design beside ``launches``. A head dim
 that is not a multiple of 16 is padded into a copy half by half
 (``[x1, 0, x2, 0]``, the tables with zero columns), so column c still
@@ -47,31 +55,39 @@ pairs with c + D/2 of the true D, and the output is sliced back.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from . import _build
-from .flash_attention import (TC_MIN_HEAD_DIM, check_head_dim,
-                              padded_head_dim)
+from .flash_attention import (SPLIT_MAX_HEAD_DIM, TC_MIN_HEAD_DIM,
+                              check_head_dim, padded_head_dim,
+                              split_workspace)
 from .rope import pad_halves, unpad_halves
 
-# launches, and the same split by design: tensor cores (bf16 at a padded
-# head dim of 64 to 128), CUDA cores (the rest)
+# launches, and the same by design: tensor cores (bf16 at a padded head
+# dim of 64 to 128), split products on the tensor cores (fp32 up to a
+# padded 128), CUDA cores (the rest, or on request)
 launches = 0
 tc_launches = 0
+split_launches = 0
 cc_launches = 0
-DESIGN_COUNTERS = ("tc_launches", "cc_launches")
+DESIGN_COUNTERS = ("tc_launches", "split_launches", "cc_launches")
 TC_MAX_HEAD_DIM = 128
 
 
 def design(dtype, head_dim):
-    """``"tc"`` (tensor cores, split products) or ``"cc"`` (CUDA cores):
-    the design ``ptt_rope_attention_fwd`` runs for this dtype and head
-    dim."""
-    if dtype == torch.bfloat16 and TC_MIN_HEAD_DIM <= padded_head_dim(
-            head_dim) <= TC_MAX_HEAD_DIM:
+    """``"tc"`` (tensor cores, bf16 hi/lo products), ``"split"`` (fp32:
+    the rotate-and-split pre-pass and flash attention's split forward) or
+    ``"cc"`` (CUDA cores): the design ``ptt_rope_attention_fwd`` runs for
+    this dtype and head dim."""
+    padded = padded_head_dim(head_dim)
+    if dtype == torch.bfloat16 and TC_MIN_HEAD_DIM <= padded \
+            <= TC_MAX_HEAD_DIM:
         return "tc"
+    if dtype == torch.float32 and padded <= SPLIT_MAX_HEAD_DIM:
+        return "split"
     return "cc"
 
 
@@ -250,13 +266,27 @@ def padded_rope_attention(fn, q, k, v, cos2, sin2, causal, scale):
     return unpad_halves(o, h2)
 
 
-def rope_attention_cuda(q, k, v, cos, sin, causal=True, scale=None):
+def rope_attention_cuda(q, k, v, cos, sin, causal=True, scale=None,
+                        cuda_cores=False):
     """Launch ``ptt_rope_attention_fwd`` of ``csrc/flash_attention.cu``:
-    the design :func:`design` gives; raises on anything it does not
-    take."""
+    the design :func:`design` gives (``cuda_cores``: the CUDA-core
+    kernel, to compare with); raises on anything it does not take."""
     global launches
     cos2, sin2 = _check(q, k, v, cos, sin)
     d = int(q.shape[3])
+    _check_cuda(q, k, v, cos2, sin2)
+    check_head_dim(d, "rope attention kernel")
+    o = padded_rope_attention(
+        functools.partial(_launch, cuda_cores=cuda_cores), q, k, v, cos2,
+        sin2, bool(causal), _scale_of(q, scale))
+    launches += 1
+    kind = "cc" if cuda_cores else design(q.dtype, d)
+    globals()[f"{kind}_launches"] += 1
+    return o
+
+
+def _check_cuda(q, k, v, cos2, sin2):
+    """The kernel's checks of its inputs' devices and dtypes."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"rope attention kernel needs CUDA tensors, got "
@@ -273,15 +303,9 @@ def rope_attention_cuda(q, k, v, cos, sin, causal=True, scale=None):
     if cos2.dtype != torch.float32 or sin2.dtype != torch.float32:
         raise TypeError(f"rope attention kernel takes float32 tables, got "
                         f"{cos2.dtype} and {sin2.dtype}")
-    check_head_dim(d, "rope attention kernel")
-    o = padded_rope_attention(_launch, q, k, v, cos2, sin2, bool(causal),
-                              _scale_of(q, scale))
-    launches += 1
-    globals()[f"{design(q.dtype, d)}_launches"] += 1
-    return o
 
 
-def _launch(q, k, v, cos2, sin2, causal, scale):
+def _launch(q, k, v, cos2, sin2, causal, scale, cuda_cores=False):
     """The launch at a head dim that is a multiple of 16."""
     b, s, h, d = (int(x) for x in q.shape)
     tab = int(cos2.stride(0))
@@ -297,12 +321,17 @@ def _launch(q, k, v, cos2, sin2, causal, scale):
     st = [_strides(t, n, vec) for n, t in (("q", q), ("k", k), ("v", v))]
     lib = _build.load()
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    # fp32 up to 128: the rotated q and k and v in three parts, laid out
+    # as flash attention's split forward reads them
+    work = split_workspace(q, s, 1, 2, cuda_cores)
     with torch.cuda.device(q.device):
         err = lib.ptt_rope_attention_fwd(
             _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),
             _build.ptr(cos2), _build.ptr(sin2), tab, b, h, s, d, *st[0],
             *st[1], *st[2], int(causal), scale,
-            _build.DTYPE_CODES[q.dtype], _build.stream_of(q),
+            _build.DTYPE_CODES[q.dtype],
+            None if work is None else _build.ptr(work), int(cuda_cores),
+            _build.stream_of(q),
         )
     _build.check(err, "ptt_rope_attention_fwd")
     return o

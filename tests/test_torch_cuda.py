@@ -635,9 +635,10 @@ def test_rms_norm_matmul_kernel(dev, dtype, case):
     w = (1 + 0.1 * torch.randn(k, generator=g, device=dev)).to(
         torch.float32 if w32 else dt)
     wm = (0.02 * torch.randn(k, n, generator=g, device=dev)).to(dt)
-    before = tfnm.launches, getattr(tfnm, f"{tfnm.design(dt)}_launches")
+    counter = f"{tfnm.design(dt, rows)}_launches"
+    before = tfnm.launches, getattr(tfnm, counter)
     y = tfnm.rms_norm_matmul(x, w, wm, 1e-5)
-    assert (tfnm.launches, getattr(tfnm, f"{tfnm.design(dt)}_launches")) \
+    assert (tfnm.launches, getattr(tfnm, counter)) \
         == (before[0] + 1, before[1] + 1)
     ref = tfnm.rms_norm_matmul_reference(x, w, wm, 1e-5).float()
     assert y.dtype == dt and y.shape == (rows, n)
@@ -671,6 +672,31 @@ def test_rms_norm_matmul_each_kernel(dev, kernel, rows):
         + tfnm.normed_rounding_slack(x, w, wm, 1e-5)
     assert bool(((y.float() - ref).abs() <= bound).all())
     assert torch.equal(y, tfnm._tc_kernel(x, w, wm, 1e-5, kernel))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8, 17, 130, 300])
+@pytest.mark.parametrize("k", [520, 1040])
+def test_rms_norm_matmul_split_kernel(dev, rows, k):
+    """The fp32 split design by name at every row count (rows not a
+    multiple of 8 or of the 128-row tile, K not a multiple of the 32-row
+    k-tile, N not of the 256-column tile): within 1e-5 of the largest
+    entry, bit-equal on repeat, and level with the CUDA-core kernels
+    within the same tolerance."""
+    g = torch.Generator(device=dev).manual_seed(rows * k)
+    n = 264
+    x = torch.randn(rows, k, generator=g, device=dev)
+    w = 1 + 0.1 * torch.randn(k, generator=g, device=dev)
+    wm = 0.02 * torch.randn(k, n, generator=g, device=dev)
+    before = tfnm.split_launches
+    y = tfnm._split_kernel(x, w, wm, 1e-5)
+    assert tfnm.split_launches == before + 1
+    ref = tfnm.rms_norm_matmul_reference(x, w, wm, 1e-5)
+    assert y.dtype == torch.float32 and y.shape == (rows, n)
+    assert _rel_ok(y, ref, 1e-5)
+    assert torch.equal(y, tfnm._split_kernel(x, w, wm, 1e-5))
+    cc = tfnm.rms_norm_matmul_cuda(x, w, wm, 1e-5, cuda_cores=True)
+    assert _rel_ok(y, cc, 1e-5)
 
 
 @pytest.mark.cuda
@@ -732,7 +758,9 @@ def test_rope_attention_kernel(dev, dtype, case):
     o = tfra.rope_attention_fused(q, k, v, cos, sin, causal=causal)
     assert (tfra.launches, getattr(tfra, f"{design}_launches")) == (
         before[0] + 1, before[1] + 1)
-    assert design == ("tc" if dt == torch.bfloat16 and 64 <= d <= 128
+    padded = -(-d // 16) * 16
+    assert design == ("tc" if dt == torch.bfloat16 and 64 <= padded <= 128
+                      else "split" if dt == torch.float32 and padded <= 128
                       else "cc")
     ref = tfra.rope_attention_reference(q, k, v, cos, sin, causal=causal)
     assert o.dtype == dt and o.shape == q.shape and torch.isfinite(o).all()
