@@ -13,8 +13,9 @@ It imports neither jax nor ``paddle_tpu``. Phases, each fatal on failure:
 3. kernels: each hand-written kernel against its plain PyTorch version
    on the card, at the Llama-2-7B shapes of the serving, training and
    quantized-serving paths, in bf16 and fp32 (flash attention: both on
-   the tensor-core kernels, fp32 through split products, up to head dim
-   128; fp32 above on the CUDA-core ones), with the tolerance stated per
+   the tensor-core kernels at every head dim, fp32 through split
+   products, above head dim 128 on pairs of CTAs), with the tolerance
+   stated per
    kernel, and timed (CUDA events, median) beside its bound, its plain
    version and, where one PyTorch call computes the same function, that
    call (flash attention also beside the CUDA-core design wherever the
@@ -28,7 +29,7 @@ It imports neither jax nor ``paddle_tpu``. Phases, each fatal on failure:
    W8A16 matmul and paged attention must repeat bit for bit; flash
    attention and paged attention also at head dims 16, 80, 96, 256 and
    72 (not a multiple of 16: the wrappers pad it; flash also 32, 64, 160
-   and 192, and fp32 at 16, 64, 80, 96 and 256), paged
+   and 192, and fp32 at 16, 64, 80, 96, 160, 192 and 256), paged
    attention also with 32 query heads on one kv head and one 8192-slot
    row at groups of 4 and 8; the library's empty kernel, timed the same
    way (the launch floor);
@@ -76,21 +77,27 @@ It imports neither jax nor ``paddle_tpu``. Phases, each fatal on failure:
 The float fusions (``LlamaForCausalLM.fusions``) add: their two kernels
 to phase 3 (timed also beside the unfused pair of kernels they replace;
 bf16 on their tensor-core designs, fp32 (the 4096-row training head, the
-rope-on-load forward at head dims 64, 80, 96, 128 and a ragged S 1000) on
-their split designs, timed also beside the CUDA-core kernels they
-replaced, which they must beat; each case holding the design counter;
+rope-on-load forward at head dims 64, 80, 96, 128, 256 and a ragged S
+1000) and the bf16 rope-on-load forward at head dims 32 and 256 on their
+split designs, timed also beside the CUDA-core kernels they replaced,
+which they must beat; each case holding the design counter; the fused
+attention's backward (the rope and flash kernels composed in fp32) at
+bf16 and fp32 head dim 128 and fp32 256, against the plain VJP on the
+card, bit for bit on a repeat, and timed beside it;
 the fused head also swept over 16-512 rows: its swap-AB and tiled
 kernels and the unfused pair in bf16, and over 16-512 and 4096 rows in
 fp32: the split design, the CUDA-core kernels and the unfused pair);
 a fused tiny fp32 Llama's logits on the card against the CPU after phase
 4; after phase 6, the same model reset to its seed, 3 O1 steps with both
 fusions (step-1 loss within 1e-3 of the unfused one, the last loss below
-the first, per step the fused attention 8 on its tensor-core design, the
-fused head 1 on its split design (fp32 under O1), RMSNorm 16 + 16
-and no rope or flash launch), and, after the fp32 steps, 3 fp32 steps
-with both fusions (step-1 loss within 1e-5 of the unfused fp32 one, the
-same launches, both fusions on their split designs; ``fused fp32
-training: {...}``); after phase 7, the same model and engine
+the first, per step the fused attention 8 on its tensor-core design and
+its backward 8, each one rope, one rope backward, one flash forward and
+one flash backward launch (all flash on the tensor-core design), the
+fused head 1 on its split design (fp32 under O1), RMSNorm 16 + 16),
+and, after the fp32 steps, 3 fp32 steps with both fusions (step-1 loss
+within 1e-5 of the unfused fp32 one, the same launches, both fusions on
+their split designs; ``fused fp32 training: {...}``); after phase 7,
+the same model and engine
 with both fusions serving the same 12 requests (per decode step the
 fused head 1, on its tensor-core design at every decode step and
 prefill, RMSNorm 64, rope 32, paged attention 32; no page leak)
@@ -855,7 +862,8 @@ FLASH_SHAPES = (
     # on the tensor cores), a chunk of 512 queries over 2048 keys
     # (bottom-right causal), a ragged causal S 1000, a non-causal Sq 1024
     # over Sk 1000, head dims 64, 16 and 32 (the 64-wide kernels) and
-    # 256 (bf16 on the tensor cores both ways; fp32 on the CUDA cores)
+    # 256 (bf16 on the tensor cores both ways; fp32 through split
+    # products on pairs of CTAs)
     ("bfloat16", True, TRAIN_BATCH, 2048, 2048, 128),
     ("float32", True, TRAIN_BATCH, 2048, 2048, 128),
     ("bfloat16", True, TRAIN_BATCH, 512, 2048, 128),
@@ -876,6 +884,8 @@ FLASH_SHAPES = (
     ("float32", True, TRAIN_BATCH, 2048, 2048, 96),
     ("bfloat16", True, TRAIN_BATCH, 2048, 2048, 160),
     ("bfloat16", True, TRAIN_BATCH, 2048, 2048, 192),
+    ("float32", True, TRAIN_BATCH, 2048, 2048, 160),
+    ("float32", True, TRAIN_BATCH, 2048, 2048, 192),
     # head dim 72: not a multiple of 16, zero-padded to 80 by the wrapper
     ("bfloat16", True, TRAIN_BATCH, 2048, 2048, 72),
 )
@@ -883,7 +893,7 @@ FLASH_SHAPES = (
 
 def _replaced_cc(mod, dtype, d, backward):
     """Whether the tensor-core design now runs a case that ran on the CUDA
-    cores until the split design (fp32 up to D 128, bf16 below D 64, the
+    cores until the split design (fp32 at every D, bf16 below D 64, the
     bf16 backward above D 128): such a case is also timed on the CUDA
     cores (``cuda_core_ms``), in the same run."""
     pd = mod.padded_head_dim(d)
@@ -1234,7 +1244,9 @@ ROPE_ATTENTION_SHAPES = (
     # bf16 (the O1 projections' dtype) and fp32 (the split design: the
     # fused fp32 step's), a ragged tail, a non-causal case, and head dims
     # 64 (the 64-wide split kernel), 80 and 96 (the 128-wide kernels, each
-    # column paired with the one d/2 on)
+    # column paired with the one d/2 on), 256 in fp32 and bf16 (the split
+    # design on pairs of CTAs) and 32 in bf16 (the split design: bf16
+    # outside 64 to 128)
     ("bfloat16", True, TRAIN_BATCH, TRAIN_SEQ, 128),
     ("float32", True, TRAIN_BATCH, TRAIN_SEQ, 128),
     ("bfloat16", True, 1, 1000, 128),
@@ -1246,13 +1258,16 @@ ROPE_ATTENTION_SHAPES = (
     ("float32", True, TRAIN_BATCH, TRAIN_SEQ, 64),
     ("float32", True, TRAIN_BATCH, TRAIN_SEQ, 80),
     ("float32", True, 1, 1000, 128),
+    ("float32", True, TRAIN_BATCH, TRAIN_SEQ, 256),
+    ("bfloat16", True, TRAIN_BATCH, TRAIN_SEQ, 32),
+    ("bfloat16", True, TRAIN_BATCH, TRAIN_SEQ, 256),
 )
 
 
 def rope_attention_cases(torch, mod, dev):
     """The rope-on-load attention against its plain version; timed
     beside the unfused path (the port's rope kernel, then its flash
-    forward kernel) and, for the fp32 split design, beside the CUDA-core
+    forward kernel) and, for the split design, beside the CUDA-core
     kernel it replaced (``cuda_core_ms``, which it must beat)."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import rope
@@ -1268,12 +1283,17 @@ def rope_attention_cases(torch, mod, dev):
         # leading rows of a longer table, as the model passes them
         cos, sin = cos_full[:, :s], sin_full[:, :s]
         design = mod.design(dtype, d)
+        # bf16 at a padded 64 to 128 on the tensor-core kernel, every
+        # other case on the split design
+        padded = -(-d // 16) * 16
+        want = ("tc" if dname == "bfloat16" and 64 <= padded <= 128
+                else "split")
         before = getattr(mod, f"{design}_launches")
         o = mod.rope_attention_cuda(q, k, v, cos, sin, causal)
-        if getattr(mod, f"{design}_launches") != before + 1 or design != (
-                "tc" if dname == "bfloat16" else "split"):
-            fail(f"rope_attention {dname} D {d} did not run its {design} "
-                 f"design")
+        if getattr(mod, f"{design}_launches") != before + 1 \
+                or design != want:
+            fail(f"rope_attention {dname} D {d} ran its {design} design, "
+                 f"expected {want}")
         ref = mod.rope_attention_reference(q, k, v, cos, sin, causal)
         if not torch.isfinite(o).all():
             fail(f"rope_attention {dname} produced non-finite values")
@@ -1326,6 +1346,90 @@ def rope_attention_cases(torch, mod, dev):
     return out
 
 
+# the fused attention's backward at the training shape (causal B 2, S
+# 2048, H 32): the O1 step's bf16 and the fused fp32 step's head dim 128,
+# and fp32 at 256 (the split design on pairs of CTAs)
+ROPE_ATTENTION_BWD_SHAPES = (("bfloat16", 128), ("float32", 128),
+                             ("float32", 256))
+
+
+def rope_attention_bwd_cases(torch, mod, dev):
+    """The fused attention's backward (``rope_attention_backward``: the
+    rope and flash kernels composed in fp32, the JAX ``_bwd``) against the
+    plain VJP on the card (autograd through the plain forward), within
+    the flash backward's fp32 tolerance (sums over rows); bit for bit on
+    a repeat; timed beside the plain VJP. Its bound: the VJP's 12 D flops
+    a visible pair (S and P V recomputed, dP, dV, dK, dQ) as six bf16
+    products each (it runs in fp32), and its inputs and outputs once."""
+    from paddle_tpu_torch.kernels import rope
+
+    out = []
+    h = 32
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    g = torch.Generator(device=dev).manual_seed(13)
+    for dname, d in ROPE_ATTENTION_BWD_SHAPES:
+        dtype = getattr(torch, dname)
+        q, k, v, gr = (torch.randn(b, s, h, d, generator=g, device=dev)
+                       .to(dtype) for _ in range(4))
+        cos, sin = (t.reshape(s, d // 2)
+                    for t in rope.build_rope_cache(s, d, device=dev))
+        scale = 1.0 / (d ** 0.5)
+
+        def ours():
+            return mod.rope_attention_backward(q, k, v, gr, cos, sin, True,
+                                               scale)
+
+        before = mod.bwd_launches
+        got = ours()
+        again = ours()
+        if mod.bwd_launches != before + 2:
+            fail(f"rope_attention backward {dname} D {d} did not count "
+                 f"its launches")
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            fail(f"rope_attention backward {dname} D {d} does not repeat "
+                 f"bit for bit")
+        del again
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        plain_out = mod.rope_attention_reference(*ins, cos, sin, True)
+        want = torch.autograd.grad(plain_out, ins, gr, retain_graph=True)
+        if not all(torch.isfinite(x).all() for x in got):
+            fail(f"rope_attention backward {dname} produced non-finite "
+                 f"values")
+        cs, worst = checks(torch, [
+            cast_once(n, x, w, SUM_TOL32, dname)
+            for n, x, w in zip(("dq", "dk", "dv"), got, want)])
+        del got, want
+        pairs = _visible_pairs(s, s, True) * b * h
+        es = q.element_size()
+        moved = 7 * b * s * h * d * es + 2 * s * (d // 2) * 4
+        flops = 12 * d * pairs + 4 * 6 * b * s * h * (d // 2)
+        b_ms, b_by = bound(moved, flops, "float32_split")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ours()
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        out.append({
+            "shape": {"b": b, "h": h, "d": d, "s": s, "causal": True},
+            "dtype": dname, "design": "rope + split flash, fp32",
+            "checks": cs, "max_abs_err": worst["max_abs_err"],
+            "tolerance": worst["tolerance"],
+            "err_over_tol": worst["err_over_tol"], "repeats_bitwise": True,
+            "ms": gpu_time_ms(torch, ours, n=3, repeats=5),
+            "plain_ms": grad_time_ms(torch, plain_out, ins, gr, n=1,
+                                     repeats=3),
+            "plain_call": "autograd through the plain fused forward",
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_rate": "float32_split",
+            "bound_cuda_core_ms": bound(moved, flops, "float32")[0],
+            "workspace_peak_bytes": extra,
+        })
+        del q, k, v, gr, ins, plain_out
+        torch.cuda.empty_cache()
+    return out
+
+
 KERNELS = [
     # name, source, replaces (file:line of the TPU kernel)
     ("rms_norm", "paddle_tpu_torch/csrc/rms_norm.cu",
@@ -1353,6 +1457,13 @@ KERNELS = [
      "paddle_tpu/kernels/fused_norm_matmul.py:55"),
     ("rope_attention", "paddle_tpu_torch/csrc/flash_attention.cu",
      "paddle_tpu/kernels/fused_rope_attention.py:111"),
+    # no TPU kernel: the JAX custom_vjp's backward is plain jax (the VJP
+    # of _composed_2d_tables), here the rope and flash kernels composed
+    ("rope_attention_bwd", "paddle_tpu_torch/csrc/flash_attention.cu and "
+     "paddle_tpu_torch/csrc/rope.cu, composed by "
+     "paddle_tpu_torch/kernels/fused_rope_attention.py",
+     "paddle_tpu/kernels/fused_rope_attention.py:153 (_bwd, plain jax; "
+     "no pl.pallas_call)"),
 ]
 # the kernels each main-path phase must launch
 SERVING_KERNELS = ("rms_norm", "rope", "paged_attention")
@@ -1364,16 +1475,17 @@ TRAIN_PER_STEP = {
     "rope": TRAIN_LAYERS, "rope_bwd": TRAIN_LAYERS,
     "flash_attention_fwd": TRAIN_LAYERS, "flash_attention_bwd": TRAIN_LAYERS,
     "paged_attention": 0, "paged_attention_int8": 0, "int8_matmul": 0,
-    "rms_norm_matmul": 0, "rope_attention": 0,
+    "rms_norm_matmul": 0, "rope_attention": 0, "rope_attention_bwd": 0,
 }
-# the same with both fusions: the final norm goes into the fused head, and
-# rope + flash into the fused attention, whose backward (like the head's)
-# is the plain version's VJP and launches no kernel
+# the same with both fusions: the final norm goes into the fused head
+# (whose backward is the plain version's VJP), and rope + flash into the
+# fused attention, whose backward composes one rope, one flash forward,
+# one flash backward (fp32, the split design) and one rope backward
+# launch a layer
 FUSED_TRAIN_PER_STEP = dict(
     TRAIN_PER_STEP, rms_norm=2 * TRAIN_LAYERS,
-    rms_norm_bwd=2 * TRAIN_LAYERS, rope=0, rope_bwd=0,
-    flash_attention_fwd=0, flash_attention_bwd=0, rms_norm_matmul=1,
-    rope_attention=TRAIN_LAYERS)
+    rms_norm_bwd=2 * TRAIN_LAYERS, rms_norm_matmul=1,
+    rope_attention=TRAIN_LAYERS, rope_attention_bwd=TRAIN_LAYERS)
 FUSED_TRAIN_STEPS = 3
 # the fp32 steps (``amp_level=None``, the trainer's default) on the reset
 # model after the fused ones: the unfused step's launches, flash on its
@@ -1556,7 +1668,8 @@ def tiny_train_parity(torch, np, dev):
     loss_cpu, after_cpu = _tiny_step(torch, np, cfg, "cpu", weights, ids)
     loss_again, after_again = _tiny_step(torch, np, cfg, dev, weights, ids)
     not_here = ("paged_attention", "paged_attention_int8", "int8_matmul",
-                *BOTH_FUSIONS)  # serving only, and the unfused model
+                *BOTH_FUSIONS, "rope_attention_bwd")  # serving only, and
+    # the unfused model
     missing = [k for k, n in counts.items()
                if n <= 0 and k not in not_here]
     if missing:
@@ -1584,6 +1697,20 @@ def tiny_train_parity(torch, np, dev):
 
 
 # ----------------------------------------------------------- training
+def _flash_on_tensor_cores(kernels, want, label):
+    """Fails unless every flash launch of a run (``want`` its counts) was
+    on the tensor-core design; returns the counts by design."""
+    designs = kernels.flash_design_counts()
+    want_designs = {
+        "tc_launches": want["flash_attention_fwd"],
+        "tc_bwd_launches": want["flash_attention_bwd"],
+        "cc_launches": 0, "cc_bwd_launches": 0}
+    if designs != want_designs:
+        fail(f"{label}: flash launches by design {designs}, expected "
+             f"{want_designs}")
+    return designs
+
+
 def training_phase(torch, np, dev, card, profile_train_steps=0):
     """10 AdamW steps, AMP O1 bf16, of Llama-2-7B widths at 8 layers on
     one fixed batch; returns the launch counts of the 10 steps. With
@@ -1639,14 +1766,7 @@ def training_phase(torch, np, dev, card, profile_train_steps=0):
         fail(f"training: launches {counts}, expected {want} "
              f"({TRAIN_STEPS} steps)")
     # O1 attends in bf16: every flash launch went to the tensor cores
-    designs = kernels.flash_design_counts()
-    want_designs = {
-        "tc_launches": want["flash_attention_fwd"],
-        "tc_bwd_launches": want["flash_attention_bwd"],
-        "cc_launches": 0, "cc_bwd_launches": 0}
-    if designs != want_designs:
-        fail(f"training: flash launches by design {designs}, expected "
-             f"{want_designs}")
+    designs = _flash_on_tensor_cores(kernels, want, "training")
     tokens = TRAIN_BATCH * TRAIN_SEQ
     p50 = statistics.median(times)
     flops = net.flops_per_token(TRAIN_SEQ) * tokens
@@ -1734,14 +1854,7 @@ def fp32_training(torch, np, net, inputs, labels, card,
         fail(f"fp32 training: launches {counts}, expected {want} "
              f"({FP32_TRAIN_STEPS} steps)")
     # fp32 at head dim 128: every flash launch on the tensor cores
-    designs = kernels.flash_design_counts()
-    want_designs = {
-        "tc_launches": want["flash_attention_fwd"],
-        "tc_bwd_launches": want["flash_attention_bwd"],
-        "cc_launches": 0, "cc_bwd_launches": 0}
-    if designs != want_designs:
-        fail(f"fp32 training: flash launches by design {designs}, expected "
-             f"{want_designs}")
+    designs = _flash_on_tensor_cores(kernels, want, "fp32 training")
     tokens = TRAIN_BATCH * TRAIN_SEQ
     p50 = statistics.median(times)
     res = {
@@ -1818,14 +1931,17 @@ def fused_fp32_training(torch, np, net, inputs, labels, unfused_loss0, card,
         fail(f"fused fp32 training: launches {counts}, expected {want} "
              f"({FUSED_FP32_TRAIN_STEPS} steps)")
     # fp32 at head dim 128 and 4096 rows: both fusions on their split
-    # designs
+    # designs, the attention backward's flash on the tensor cores
     designs = kernels.fusion_design_counts()
     want_designs = {
         name: {"tc_launches": 0, "split_launches": want[name],
                "cc_launches": 0} for name in BOTH_FUSIONS}
+    want_designs["rope_attention"]["bwd_launches"] = want[
+        "rope_attention_bwd"]
     if designs != want_designs:
         fail(f"fused fp32 training: fusion launches by design {designs}, "
              f"expected {want_designs}")
+    flash = _flash_on_tensor_cores(kernels, want, "fused fp32 training")
     tokens = TRAIN_BATCH * TRAIN_SEQ
     p50 = statistics.median(times)
     res = {
@@ -1838,16 +1954,12 @@ def fused_fp32_training(torch, np, net, inputs, labels, unfused_loss0, card,
         "launches_per_step": {k: n / FUSED_FP32_TRAIN_STEPS
                               for k, n in counts.items()},
         "fusion_launches_by_design": designs,
+        "flash_launches_by_design": flash,
     }
     log("fused fp32 training: " + json.dumps(res))
     if profile_train_steps:
         prof = profile_steps(torch, lambda: step([inputs], [labels]),
                              profile_train_steps)
-        groups = prof["ms_per_step_by_group"]
-        # no flash launch in this step (the counts above): the split
-        # forward's time is the rope-on-load forward's
-        prof["rope_attention_ms_per_step"] = groups.get(
-            "rope_attention", 0.0) + groups.get("flash_attention_fwd", 0.0)
         log("profile: " + json.dumps(dict(prof, kind="train_fused_fp32")))
     del step, opt, sched, loss
     net.fusions = ()
@@ -1900,17 +2012,20 @@ def fused_training(torch, np, net, inputs, labels, unfused_loss0, card,
         fail(f"fused training: launches {counts}, expected {want} "
              f"({FUSED_TRAIN_STEPS} steps)")
     # O1: the attention's q, k, v are bf16 (tensor cores), the head's
-    # input is the fp32 residual (split products on the tensor cores)
+    # input is the fp32 residual (split products on the tensor cores); the
+    # attention backward's flash runs in fp32 on the tensor cores
     designs = kernels.fusion_design_counts()
     want_designs = {
         "rms_norm_matmul": {"tc_launches": 0,
                             "split_launches": want["rms_norm_matmul"],
                             "cc_launches": 0},
         "rope_attention": {"tc_launches": want["rope_attention"],
-                           "split_launches": 0, "cc_launches": 0}}
+                           "split_launches": 0, "cc_launches": 0,
+                           "bwd_launches": want["rope_attention_bwd"]}}
     if designs != want_designs:
         fail(f"fused training: fusion launches by design {designs}, "
              f"expected {want_designs}")
+    flash = _flash_on_tensor_cores(kernels, want, "fused training")
     tokens = TRAIN_BATCH * TRAIN_SEQ
     p50 = statistics.median(times)
     res = {
@@ -1923,6 +2038,7 @@ def fused_training(torch, np, net, inputs, labels, unfused_loss0, card,
         "launches_per_step": {k: n / FUSED_TRAIN_STEPS
                               for k, n in counts.items()},
         "fusion_launches_by_design": designs,
+        "flash_launches_by_design": flash,
     }
     log("fused training: " + json.dumps(res))
     if profile_train_steps:
@@ -2384,7 +2500,9 @@ def main():
             ("int8_matmul", "int8_matmul", int8_matmul_cases),
             ("rms_norm_matmul", "fused_norm_matmul", norm_matmul_cases),
             ("rope_attention", "fused_rope_attention",
-             rope_attention_cases)):
+             rope_attention_cases),
+            ("rope_attention_bwd", "fused_rope_attention",
+             rope_attention_bwd_cases)):
         cases = cases_fn(torch, getattr(kernels, modname), dev)
         torch.cuda.synchronize()
         named = (dict(zip(("flash_attention_fwd", "flash_attention_bwd"),

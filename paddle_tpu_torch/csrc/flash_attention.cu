@@ -59,7 +59,7 @@
 // repeat bit for bit. Causal blocks wholly above the diagonal are
 // skipped; only blocks that cross it or the ragged end are masked.
 //
-// fp32 up to d 128, and the bf16 backward above d 128: the split design
+// fp32 at every d, and the bf16 backward above d 128: the split design
 // (tc, "the split design" below). fp32 reaches the tensor cores through
 // a three-part bf16 split of every operand, six bf16 products a product,
 // which keeps fp32's 24 bits (a single TF32 product would keep about
@@ -68,54 +68,47 @@
 // same kernels with one part, where the two consumer warpgroups split D
 // between them because one warpgroup's dK and dV accumulators for 64
 // keys, 2 x 128 registers, would not fit beside its score tiles. The
-// same three passes, the same single owners.
+// same three passes, the same single owners. fp32 at D 256 runs each
+// kernel on a cluster of two CTAs, each holding the three parts of half
+// of D and trading its partial score tiles with the other through
+// distributed shared memory: a three-part tile of 64 rows at D 256 is 96
+// KB, so the dK/dV pass's resident K and V alone would take 192 KB of the
+// 227 KB a CTA has (the split design's section says why this plan).
 //
-// fp32 above d 128: the CUDA-core design (the port's first flash
-// kernels, below; fp32 FMAs, 67 TFLOP/s at most). The split design does
-// not fit there: a three-part tile of 64 rows at D 256 is 96 KB, so the
-// dK/dV pass's resident K and V for the 64 keys of one wgmma take 192
-// KB and the dQ pass's resident Q and dO as much, before any streamed
-// tile, of the 227 KB a CTA has (the forward alone would fit, with one
-// warpgroup and 32-key tiles). One CTA of 256 threads owns a 64-row
-// q-block (forward, dQ) or a 64-row k-block (dK/dV) and loops over the
-// other side's 64-row blocks itself, from the causal start to the causal
-// end. Tiles are staged in shared memory as fp32 with a row stride of D
-// + 1 (the +1 keeps column reads of a tile on distinct banks). Each
-// thread owns a 4 x 4 patch of the 64 x 64 score tile (rows ty*4+i,
-// columns tx+16j) and a 4 x D/16 patch of the output rows; a row's max
-// and sum are reduced over the 16 lanes that share it with shuffles. The
-// same two backward passes, no atomics. At D = 256 the blocks have 32
-// rows (a thread a 2 x 2 patch): shared memory forward 101 KB, dK/dV 137
-// KB, dQ 133 KB. These kernels also run at every other width and in bf16
-// when the caller asks for them (cuda_cores: the design the tensor-core
-// kernels replaced, kept to compare with; bf16 keeps P and dS in fp32
-// there, which moves an entry by less than probability_rounding_slack).
+// The CUDA-core design (the port's first flash kernels, below; fp32
+// FMAs, 67 TFLOP/s at most) runs only on request (cuda_cores: the design
+// the tensor-core kernels replaced, kept to compare with), at every width
+// and in both dtypes (bf16 keeps P and dS in fp32 there, which moves an
+// entry by less than probability_rounding_slack). One CTA of 256 threads
+// owns a 64-row q-block (forward, dQ) or a 64-row k-block (dK/dV) and
+// loops over the other side's 64-row blocks itself, from the causal start
+// to the causal end. Tiles are staged in shared memory as fp32 with a row
+// stride of D + 1 (the +1 keeps column reads of a tile on distinct
+// banks). Each thread owns a 4 x 4 patch of the 64 x 64 score tile (rows
+// ty*4+i, columns tx+16j) and a 4 x D/16 patch of the output rows; a
+// row's max and sum are reduced over the 16 lanes that share it with
+// shuffles. The same two backward passes, no atomics. At D = 256 the
+// blocks have 32 rows (a thread a 2 x 2 patch): shared memory forward 101
+// KB, dK/dV 137 KB, dQ 133 KB.
 //
 // Rope-on-load forward (ptt_rope_attention_fwd, fp32 and bf16). Replaces:
 // paddle_tpu/kernels/fused_rope_attention.py rope_attention_fused (:167;
 // pl.pallas_call at :111 over _fused_kernel :84, _rotate :58, _attn_rows
-// :69). q and k are rotated as they are loaded (neox half split, by the
-// fp32 half-dim tables' row of that tile row's position, in _rotate's op
-// order), so the rotated q and k never exist in device memory, and they
-// and P stay fp32 through both products, as _fused_kernel keeps them.
+// :69). q and k are rotated in fp32 (neox half split, by the fp32
+// half-dim tables' row of each row's position, in _rotate's op order), on
+// load in the tensor-core and CUDA-core kernels, by a pre-pass into three
+// parts in the split design; the rotated q and k and P keep fp32's value
+// through both products (within split_product_slack in the tensor-core
+// kernel), as _fused_kernel keeps them.
 // Self-attention only (Sq == Sk, so the causal mask is c <= r); no LSE
-// is written, since the backward is the plain version's VJP (the JAX
-// custom_vjp's design). The TPU kernel's softmax is exact over the whole
-// row; these are online, the same function summed in another order.
-// Column c pairs with c + d/2 of the head dim d the kernel is given (the
-// wrapper pads each half of a head dim that is not a multiple of 16, so
-// the pairing is the true one). Three designs:
-// - fp32 at d up to 128: the split design. A pre-pass
-//   (tc::rope_split3_kernel) rotates q and k in fp32 in _rotate's op
-//   order and writes each rotated value as three bf16 parts (all 24
-//   bits: nothing is rounded, the JAX kernel's contract) into the
-//   workspace layout the split flash forward reads; v goes through
-//   split3_kernel; then flash_fwd_split_kernel runs as it is, with no
-//   LSE stored. The rotated q and k do go to device memory, as parts
-//   (0.2 GB at B 2, S 2048, H 32, D 128): rotating inside the kernel
-//   instead would redo each k tile's rotation in every q block's CTA (16
-//   times at S 2048) on the warpgroups whose issue slots the six
-//   products need, where the pre-pass does it once;
+// is written: the backward (fused_rope_attention.rope_attention_backward,
+// the JAX custom_vjp's VJP of the composed function) recomputes it with
+// the rope kernel and the split flash forward in fp32. The TPU kernel's
+// softmax is exact over the whole row; these are online, the same
+// function summed in another order. Column c pairs with c + d/2 of the
+// head dim d the kernel is given (the wrapper pads each half of a head
+// dim that is not a multiple of 16, so the pairing is the true one). Two
+// designs, and the CUDA cores on request:
 // - bf16 at d 64 to 128: the tensor-core kernel
 //   (tc::rope_attention_fwd_tc_kernel, below): the rotated q and k and
 //   P are split into bf16 hi and lo parts and multiplied in five bf16
@@ -124,18 +117,32 @@
 //   fp32 value (fused_rope_attention.split_product_slack bounds the
 //   rest); its bound is still the algorithm's 4 d flops a visible pair,
 //   so it can reach at most 40% of it;
-// - fp32 above d 128, bf16 at other head dims, and on request
-//   (cuda_cores, to compare with): the CUDA-core forward, instantiated
-//   with kRope: a lane loads a row's vector at column c together with the
-//   one at c + d/2 and the tables' entries c.., rotates in fp32 and
-//   stores both halves to the fp32 tile.
+// - everything else (fp32 at every d, bf16 below 64 and above 128): the
+//   split design. A pre-pass (tc::rope_split3_kernel) rotates q and k in
+//   fp32 in _rotate's op order (a bf16 input cast to fp32 exactly) and
+//   writes each rotated value as three bf16 parts (all 24 bits: nothing
+//   is rounded, the JAX kernel's contract) into the workspace layout the
+//   split flash forward reads; v goes through split3_kernel; then
+//   flash_fwd_split_kernel runs as it is (at d above 128 on a cluster of
+//   two CTAs), with no LSE stored, and writes O in the input type. The
+//   rotated q and k do go to device memory, as parts (0.2 GB at B 2, S
+//   2048, H 32, D 128): rotating inside the kernel instead would redo each
+//   k tile's rotation in every q block's CTA (16 times at S 2048) on the
+//   warpgroups whose issue slots the six products need, where the
+//   pre-pass does it once;
+// - on request (cuda_cores, to compare with): the CUDA-core forward,
+//   instantiated with kRope: a lane loads a row's vector at column c
+//   together with the one at c + d/2 and the tables' entries c..,
+//   rotates in fp32 and stores both halves to the fp32 tile.
+#include <utility>
+
 #include "common.cuh"
 #include "hopper.cuh"
 #include "split.cuh"
 
 namespace {
 
-// ============================== CUDA cores (fp32 at D 256, rope-on-load)
+// ========================= CUDA cores (on request: the replaced design)
 constexpr int kThreads = 256;  // 16 x 16 threads
 
 // Rows of a q-block and of a k-block: 64, or 32 at D = 256 (four fp32
@@ -1621,7 +1628,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ------------------------------------------------------- the split design
-// fp32 at padded D 64 and 128, and the bf16 backward at D 256. An operand
+// fp32 at every padded D (64, 128, 256), the bf16 rope-on-load forward
+// outside padded D 64 to 128, and the bf16 backward at D 256. An operand
 // here is NP bf16 tiles of the same rows, one after another: NP = 1 for a
 // bf16 input; NP = 3 for an fp32 one, whose value x is hi + mid + lo with
 // hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid) (each
@@ -1652,16 +1660,37 @@ __global__ void __launch_bounds__(kThreads, 1)
 //     exchanged fp32 score tiles (32 KB): 226 KB at fp32 D 128;
 //   dQ: Q and dO resident (64 or 128 rows), V and K tiles of 64 keys,
 //     the exchange: 225 KB at fp32 D 128.
+// At three parts and D 256 those tiles take twice as much (a 64-row tile
+// is 96 KB), and no tiling of one CTA fits them: K and V resident for the
+// 64 keys of one wgmma take 192 KB alone. So there each kernel runs on a
+// cluster of two CTAs (split_ctas), and CTA r holds the parts of columns
+// [128 r, 128 r + 128) of every operand: the tiles, the loop and the
+// shared memory of D 128 (230 KB with the exchange below). A score tile
+// (S, dP, or their transposes) is a product over all of D, so each CTA
+// forms its partial over its columns, sends it to the other CTA's
+// exchange slot through distributed shared memory (cluster_send), and
+// adds the one it receives (cluster_add): x0 + x1 in one, x1 + x0 in the
+// other, the same fp32 sum, so both CTAs hold the same tile and run the
+// same softmax. The products whose K axis is a key or a row (P V, P^T
+// dO, dS^T Q, dS K) need no exchange: each CTA accumulates and stores its
+// own columns. Each exchange costs two cluster barriers (stores visible;
+// the slot read, before the next stores), the second one's wait deferred
+// to the next exchange. The alternative plans cost more: the resident
+// operands in fp32 (64 KB a tile) split into register parts at every
+// k-step leave no room for the exchange beside 32-row streamed tiles in
+// the dK/dV pass (240 KB), and 16-row tiles would make every wgmma N 16.
+// The head dim stays a template parameter: a wider head (ROADMAP.md queue
+// C item 1) is a larger cluster of the same CTAs.
 // Registers set the split of the work (split_d): where the resident
-// rows' accumulators of all D columns would not fit beside the score
-// tiles and the split P (fp32 D 128: dK and dV for 64 keys, 2 x 64, plus
-// two 32-entry score tiles, plus 48 for P's three parts; bf16 D 256:
+// rows' accumulators of all of a CTA's columns would not fit beside the
+// score tiles and the split P (fp32 D 128: dK and dV for 64 keys, 2 x 64,
+// plus two 32-entry score tiles, plus 48 for P's three parts; bf16 D 256:
 // 2 x 128), the two consumer warpgroups own the SAME 64 rows and each
-// accumulates the columns of its half of D; warpgroup 0 computes S (or
-// S^T) and warpgroup 1 dP (dP^T), and they trade the two fp32 tiles
-// through shared memory, so each holds both, and the products stay
-// those of one owner. Otherwise (fp32 D 64) each warpgroup owns 64 rows
-// of its own and all columns, as in the bf16 kernels.
+// accumulates the columns of its half of the CTA's width; warpgroup 0
+// computes S (or S^T) and warpgroup 1 dP (dP^T), and they trade the two
+// fp32 tiles through shared memory, so each holds both, and the products
+// stay those of one owner. Otherwise (fp32 D 64) each warpgroup owns 64
+// rows of its own and all columns, as in the bf16 kernels.
 //
 // A CTA is the two consumer warpgroups alone, 256 threads, and a thread
 // of warpgroup 0 issues the loads: each next tile once both warpgroups
@@ -1674,55 +1703,67 @@ __global__ void __launch_bounds__(kThreads, 1)
 // (the one-part D 256 dK/dV kernel).
 constexpr int kSplitThreads = 128 * kConsumers;
 
+// CTAs a kernel of padded width D runs on (a cluster along x), and the
+// columns of D each holds
 template <int D, int NP>
+__host__ __device__ constexpr int split_ctas() {
+  return NP == 3 && D > 128 ? 2 : 1;
+}
+template <int D, int NP>
+__host__ __device__ constexpr int cta_cols() {
+  return D / split_ctas<D, NP>();
+}
+// W below is a CTA's width, cta_cols
+template <int W, int NP>
 __host__ __device__ constexpr bool split_d() {
-  return NP * D >= 256;
+  return NP * W >= 256;
 }
 // rows of the resident side a CTA owns
-template <int D, int NP>
+template <int W, int NP>
 __host__ __device__ constexpr int owned_rows() {
-  return split_d<D, NP>() ? 64 : 128;
+  return split_d<W, NP>() ? 64 : 128;
 }
-// columns of D a consumer warpgroup accumulates
-template <int D, int NP>
+// columns of the CTA's width a consumer warpgroup accumulates
+template <int W, int NP>
 __host__ __device__ constexpr int owned_cols() {
-  return split_d<D, NP>() ? D / 2 : D;
+  return split_d<W, NP>() ? W / 2 : W;
 }
 
-// the NP part tiles of R rows of one head (parts from the map's batches
-// b, b + batch, ..) into the split operand at `tile`
-template <int R, int D, int NP>
+// the NP part tiles of R rows and W columns from col0 of one head (parts
+// from the map's batches b, b + batch, ..) into the split operand at
+// `tile`
+template <int R, int W, int NP>
 __device__ __forceinline__ void load_split(uint32_t tile,
                                            const CUtensorMap* map,
                                            uint32_t bar, int head, int row,
-                                           int b, int batch) {
+                                           int b, int batch, int col0) {
 #pragma unroll
   for (int p = 0; p < NP; ++p)
-    tma_load_tile<R, D>(tile + p * tile_bytes<D>(R), map, bar, head, row,
-                        b + p * batch);
+    tma_load_tile<R, W>(tile + p * tile_bytes<W>(R), map, bar, head, row,
+                        b + p * batch, col0);
 }
 
-// acc = A B^T over the K axis D: A rows [row0, row0 + 64) of a split
+// acc = A B^T over the K axis W: A rows [row0, row0 + 64) of a split
 // operand of RA rows, B a split operand of N rows, both K-major
 // (wgmma m64nNk16, the terms in order)
-template <int NP, int D, int RA, int N>
+template <int NP, int W, int RA, int N>
 __device__ __forceinline__ void split_ss(float (&acc)[N / 2], uint32_t a,
                                          int row0, uint32_t b) {
 #pragma unroll
   for (int t = first_term<NP>(); t < 6; ++t)
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < W / 16; ++kk)
       wgmma_ss<N>(acc,
-                  desc_k_major<RA>(a + term_a(t) * tile_bytes<D>(RA), row0,
+                  desc_k_major<RA>(a + term_a(t) * tile_bytes<W>(RA), row0,
                                    kk),
-                  desc_k_major<N>(b + term_b(t) * tile_bytes<D>(N), 0, kk),
+                  desc_k_major<N>(b + term_b(t) * tile_bytes<W>(N), 0, kk),
                   t > first_term<NP>() || kk > 0);
 }
 
 // acc += A B: A the register parts of a 64 x R score tile (K axis R), B a
-// split operand of R rows read MN-major, N of its columns from the
-// 64-column region at byte offset `region` of each part tile
-template <int NP, int D, int R, int N>
+// split operand of R rows and W columns read MN-major, N of its columns
+// from the 64-column region at byte offset `region` of each part tile
+template <int NP, int W, int R, int N>
 __device__ __forceinline__ void split_rs(float (&acc)[N / 2],
                                          const uint32_t (&a)[NP][R / 16][4],
                                          uint32_t b, uint32_t region) {
@@ -1731,18 +1772,75 @@ __device__ __forceinline__ void split_rs(float (&acc)[N / 2],
 #pragma unroll
     for (int kk = 0; kk < R / 16; ++kk)
       wgmma_rs<N>(acc, a[term_a(t)][kk],
-                  desc_mn_major<R>(b + term_b(t) * tile_bytes<D>(R) + region,
+                  desc_mn_major<R>(b + term_b(t) * tile_bytes<W>(R) + region,
                                    kk));
+}
+
+// The exchange slot of warpgroup wg's thread t: 32 entries of a 64 x 64
+// fp32 tile in xch + wg * 4096, entry i at (i / 4) * 512 + 4 t + i % 4
+// (16 bytes a store, a warp's stores contiguous).
+__device__ __forceinline__ float* slot_of(float* xch, int wg, int t) {
+  return xch + wg * 4096 + 4 * t;
+}
+__device__ __forceinline__ void store_slot(float* slot, const float (&x)[32]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    *reinterpret_cast<float4*>(slot + 512 * j) =
+        make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+}
+__device__ __forceinline__ void load_slot(float (&x)[32], const float* slot) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float4 v = *reinterpret_cast<const float4*>(slot + 512 * j);
+    x[4 * j] = v.x;
+    x[4 * j + 1] = v.y;
+    x[4 * j + 2] = v.z;
+    x[4 * j + 3] = v.w;
+  }
+}
+
+// A split_ctas 2 kernel's partial score tile x (this CTA's columns) into
+// the same slot of the other CTA of the cluster. The kernel arrives at
+// the cluster barrier once before its first exchange, and after the last
+// read of each exchange's slots; so the wait here is for the other CTA to
+// have read the slot's previous tile, and the arrive and wait after the
+// stores make them visible there.
+__device__ __forceinline__ void cluster_send(const float (&x)[32],
+                                             float* slot) {
+  const uint32_t remote = cluster_addr(smem_addr(slot), cluster_rank() ^ 1);
+  cluster_wait();
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    st_cluster(remote + 2048 * j,
+               make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2],
+                           x[4 * j + 3]));
+  cluster_arrive();
+  cluster_wait();
+}
+// x += the other CTA's partial, from this thread's slot: the whole tile,
+// the same in both CTAs (fp32 addition commutes)
+__device__ __forceinline__ void cluster_add(float (&x)[32],
+                                            const float* slot) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float4 v = *reinterpret_cast<const float4*>(slot + 512 * j);
+    x[4 * j] += v.x;
+    x[4 * j + 1] += v.y;
+    x[4 * j + 2] += v.z;
+    x[4 * j + 3] += v.w;
+  }
 }
 
 // The two 64 x 64 score tiles of a backward block, x = A0 B0^T and y =
 // A1 B1^T (S and dP, or S^T and dP^T; A from rows row0 of RA-row
 // operands). At split_d warpgroup w computes product w alone (the same
-// instructions on its own operands: wgmma in a branch is serialized) and
-// the two trade their tiles through `xch` (two fp32 tiles,
-// thread-linear, one barrier; a later write waits for a slot that every
-// consumer releases after these reads). Otherwise each computes both.
-template <int NP, int D, int RA, bool kSplit>
+// instructions on its own operands: wgmma in a branch is serialized), at
+// split_ctas 2 completes it with the other CTA's partial, and the two
+// warpgroups trade their tiles through their slots (one barrier; a
+// later write waits for a slot that every consumer releases after these
+// reads, and the other CTA's next stores wait for the cluster arrival
+// after them). Otherwise each computes both.
+template <int NP, int W, int RA, bool kSplit, int CL>
 __device__ __forceinline__ void score_tiles(float (&x)[32], float (&y)[32],
                                             uint32_t a0, uint32_t b0,
                                             uint32_t a1, uint32_t b1,
@@ -1750,23 +1848,28 @@ __device__ __forceinline__ void score_tiles(float (&x)[32], float (&y)[32],
                                             int t) {
   wgmma_fence();
   if constexpr (kSplit) {
-    float mine[32];
-    split_ss<NP, D, RA, 64>(mine, wg ? a1 : a0, row0, wg ? b1 : b0);
+    float mine[32], other[32];
+    split_ss<NP, W, RA, 64>(mine, wg ? a1 : a0, row0, wg ? b1 : b0);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(mine);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) xch[wg * 4096 + i * 128 + t] = mine[i];
+    float* slot = slot_of(xch, wg, t);
+    if constexpr (CL > 1) {
+      cluster_send(mine, slot);
+      cluster_add(mine, slot);
+    }
+    store_slot(slot, mine);
     named_sync(1, 128 * kConsumers);
+    load_slot(other, slot_of(xch, 1 - wg, t));
+    if constexpr (CL > 1) cluster_arrive();
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      const float other = xch[(1 - wg) * 4096 + i * 128 + t];
-      x[i] = wg ? other : mine[i];
-      y[i] = wg ? mine[i] : other;
+      x[i] = wg ? other[i] : mine[i];
+      y[i] = wg ? mine[i] : other[i];
     }
   } else {
-    split_ss<NP, D, RA, 64>(x, a0, row0, b0);
-    split_ss<NP, D, RA, 64>(y, a1, row0, b1);
+    split_ss<NP, W, RA, 64>(x, a0, row0, b0);
+    split_ss<NP, W, RA, 64>(y, a1, row0, b1);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(x);
@@ -1775,35 +1878,46 @@ __device__ __forceinline__ void score_tiles(float (&x)[32], float (&y)[32],
 }
 
 // ------------------------------------------------- split design: forward
-// fp32 (NP = 3) at D 64 and 128. A CTA owns 128 q rows (64 per consumer
-// warpgroup, Q resident) and walks k/v blocks of 64 keys: slot 0 holds K,
-// slot 1 V. Per block and warpgroup: S = Q K^T (six products m64n64k16),
-// the online softmax, P split into three register operands, O += P V
-// (six products m64nDk16, V MN-major). No value is rounded. A null `lse`
-// stores no LSE (the rope-on-load forward, whose backward does not read
-// one).
+// Three parts (fp32, or the rotated bf16 rope-on-load operands) at D 64,
+// 128 and 256 (a cluster of two CTAs, each on 128 columns). A CTA owns
+// 128 q rows (64 per consumer warpgroup, Q resident) and walks k/v blocks
+// of 64 keys: slot 0 holds K, slot 1 V. Per block and warpgroup: S = Q
+// K^T (six products m64n64k16; at split_ctas 2 over the CTA's columns,
+// completed by the exchange, which every thread takes part in), the
+// online softmax, P split into three register operands, O += P V (six
+// products m64nWk16, V MN-major) over the CTA's columns. No value is
+// rounded before O is stored in T. A null `lse` stores no LSE (the
+// rope-on-load forward, whose backward recomputes it).
 template <int D>
 __host__ __device__ constexpr Layout fwd_split_layout() {
-  return {3 * tile_bytes<D>(128), 3 * tile_bytes<D>(64), 0};
+  constexpr int W = cta_cols<D, 3>();
+  return {3 * tile_bytes<W>(128), 3 * tile_bytes<W>(64),
+          split_ctas<D, 3>() > 1 ? 2 * 64 * 64 * 4 : 0};
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kSplitThreads, 1)
     flash_fwd_split_kernel(const __grid_constant__ CUtensorMap mq,
                            const __grid_constant__ CUtensorMap mk,
                            const __grid_constant__ CUtensorMap mv,
-                           float* __restrict__ o, float* __restrict__ lse,
+                           T* __restrict__ o, float* __restrict__ lse,
                            int batch, int heads, int sq, int sk, int d,
                            float scale_log2, int causal) {
   constexpr int NP = 3, kM = 128, kN = 64;
+  constexpr int CL = split_ctas<D, NP>(), W = cta_cols<D, NP>();
   constexpr Layout L = fwd_split_layout<D>();
   extern __shared__ uint8_t smem_raw[];
   Bars bars;
   const uint32_t base = setup(smem_raw, L, 1, bars);
   const uint32_t sQ = base, sK = base + L.stage_at(0),
                  sV = base + L.stage_at(1);
+  float* xch = reinterpret_cast<float*>(
+      smem_raw + (base - smem_addr(smem_raw)) + L.extra_at());
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kM;  // longest rows first
+  // longest rows first; the CTAs of a cluster share their rows
+  const int q0 = (gridDim.x / CL - 1 - blockIdx.x / CL) * kM;
+  const int rank = CL > 1 ? (int)cluster_rank() : 0;
+  const int colc = rank * W;  // this CTA's first column of D
   const int b = blockIdx.y / heads, h = blockIdx.y % heads;
   const int shift = sk - sq;  // row r sees column c iff c <= r + shift
   const int k_end = causal ? min(sk, q0 + kM + shift) : sk;
@@ -1816,12 +1930,12 @@ __global__ void __launch_bounds__(kSplitThreads, 1)
   auto load = [&](int s, int it) {
     if (it > 0) mbar_wait(bars.empty(s), (it - 1) & 1);
     mbar_arrive_expect_tx(bars.full(s), L.stage);
-    load_split<kN, D, NP>(s ? sV : sK, s ? &mv : &mk, bars.full(s), h,
-                          it * kN, b, batch);
+    load_split<kN, W, NP>(s ? sV : sK, s ? &mv : &mk, bars.full(s), h,
+                          it * kN, b, batch, colc);
   };
   if (issuer) {
     mbar_arrive_expect_tx(bars.resident, L.resident);
-    load_split<kM, D, NP>(sQ, &mq, bars.resident, h, q0, b, batch);
+    load_split<kM, W, NP>(sQ, &mq, bars.resident, h, q0, b, batch, colc);
     load(0, 0);
     load(1, 0);
   }
@@ -1834,11 +1948,12 @@ __global__ void __launch_bounds__(kSplitThreads, 1)
   const int last_col =
       causal ? min(sk - 1, min(wrow + 63, sq - 1) + shift) : sk - 1;
 
-  float acc[D / 2];
+  float acc[W / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < W / 2; ++i) acc[i] = 0.0f;
   float ma = -INFINITY, mb = -INFINITY, la = 0.0f, lb = 0.0f;
 
+  if constexpr (CL > 1) cluster_arrive();
   mbar_wait(bars.resident, 0);
   for (int it = 0; it < nblk; ++it) {
     const int k0 = it * kN;
@@ -1849,13 +1964,23 @@ __global__ void __launch_bounds__(kSplitThreads, 1)
     mbar_wait(bars.full(0), it & 1);
     if (work) {
       wgmma_fence();
-      split_ss<NP, D, kM, kN>(sc, sQ, 64 * wg, sK);
+      split_ss<NP, W, kM, kN>(sc, sQ, 64 * wg, sK);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(sc);
+    } else if constexpr (CL > 1) {
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) sc[i] = 0.0f;
     }
     mbar_arrive(bars.empty(0));
     if (issuer && it + 1 < nblk) load(0, it + 1);
+    if constexpr (CL > 1) {
+      // the other CTA's warpgroup of the same rows skips the same blocks
+      float* slot = slot_of(xch, wg, t);
+      cluster_send(sc, slot);
+      cluster_add(sc, slot);
+      cluster_arrive();
+    }
     if (work) {
       const bool mask =
           k0 + kN > sk || (causal && k0 + kN - 1 > wrow + shift);
@@ -1866,7 +1991,7 @@ __global__ void __launch_bounds__(kSplitThreads, 1)
     mbar_wait(bars.full(1), it & 1);
     if (work) {
       wgmma_fence();
-      split_rs<NP, D, kN, D>(acc, p, sV, 0);
+      split_rs<NP, W, kN, W>(acc, p, sV, 0);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(acc);
@@ -1875,38 +2000,41 @@ __global__ void __launch_bounds__(kSplitThreads, 1)
     mbar_arrive(bars.empty(1));
     if (issuer && it + 1 < nblk) load(1, it + 1);
   }
+  if constexpr (CL > 1) cluster_wait();
 
   if (!live) return;
   la = quad_sum(la);
   lb = quad_sum(lb);
   const long long rowvec = ((long long)b * heads + h) * sq;
   if (ra < sq) {
-    store_row<D>(o + (((long long)b * sq + ra) * heads + h) * d, acc, 0, cq,
-                 1.0f / la, d);
-    if (cq == 0 && lse) lse[rowvec + ra] = ma * kLn2 + logf(la);
+    store_row<W>(o + (((long long)b * sq + ra) * heads + h) * d + colc, acc,
+                 0, cq, 1.0f / la, d - colc);
+    if (cq == 0 && lse && rank == 0) lse[rowvec + ra] = ma * kLn2 + logf(la);
   }
   if (rb < sq) {
-    store_row<D>(o + (((long long)b * sq + rb) * heads + h) * d, acc, 1, cq,
-                 1.0f / lb, d);
-    if (cq == 0 && lse) lse[rowvec + rb] = mb * kLn2 + logf(lb);
+    store_row<W>(o + (((long long)b * sq + rb) * heads + h) * d + colc, acc,
+                 1, cq, 1.0f / lb, d - colc);
+    if (cq == 0 && lse && rank == 0) lse[rowvec + rb] = mb * kLn2 + logf(lb);
   }
 }
 
 // --------------------------------------------- split design: dK, dV pass
-// A CTA owns owned_rows keys (K and V resident) and walks the q blocks of
-// 64 rows from the causal start: slot 1 holds dO and the block's LSE (in
-// log2 units, +inf past sq so that P is 0 there) and Delta, slot 0 Q.
-// Per block: S^T = K Q^T and dP^T = V dO^T (m64n64k16; at split_d
-// warpgroup 0 computes the first, warpgroup 1 the second, and they trade
-// them: score_tiles), P^T and dS^T = P^T (dP^T - Delta) scale in fp32 registers, then
-// dV += P^T dO (slot 1 released) and dK += dS^T Q (slot 0 released), each
-// warpgroup over its columns (m64nCk16, the operands' parts from
-// registers, dO and Q MN-major). NP = 1 rounds P^T and dS^T to bf16
-// (the stock kernel's p.T.astype, ds.T.astype).
+// A CTA owns owned_rows keys (K and V resident, its columns) and walks the
+// q blocks of 64 rows from the causal start: slot 1 holds dO and the
+// block's LSE (in log2 units, +inf past sq so that P is 0 there) and
+// Delta, slot 0 Q. Per block: S^T = K Q^T and dP^T = V dO^T (m64n64k16;
+// at split_d warpgroup 0 computes the first, warpgroup 1 the second, and
+// they trade them, after the cluster's exchange at split_ctas 2:
+// score_tiles), P^T and dS^T = P^T (dP^T - Delta) scale in fp32
+// registers, then dV += P^T dO (slot 1 released) and dK += dS^T Q (slot 0
+// released), each warpgroup over its columns (m64nCk16, the operands'
+// parts from registers, dO and Q MN-major). NP = 1 rounds P^T and dS^T to
+// bf16 (the stock kernel's p.T.astype, ds.T.astype).
 template <int D, int NP>
 __host__ __device__ constexpr Layout dkdv_split_layout() {
-  return {2 * NP * tile_bytes<D>(owned_rows<D, NP>()), NP * tile_bytes<D>(64),
-          2 * 64 * 4 + (split_d<D, NP>() ? 2 * 64 * 64 * 4 : 0)};
+  constexpr int W = cta_cols<D, NP>();
+  return {2 * NP * tile_bytes<W>(owned_rows<W, NP>()), NP * tile_bytes<W>(64),
+          2 * 64 * 4 + (split_d<W, NP>() ? 2 * 64 * 64 * 4 : 0)};
 }
 
 template <typename T, int D, int NP>
@@ -1920,20 +2048,24 @@ __global__ void __launch_bounds__(kSplitThreads, 1)
                                 T* __restrict__ dk, T* __restrict__ dv,
                                 int batch, int heads, int sq, int sk, int d,
                                 float scale, float scale_log2, int causal) {
-  constexpr bool kSplit = split_d<D, NP>();
-  constexpr int kR = owned_rows<D, NP>(), kC = owned_cols<D, NP>(), kM = 64;
+  constexpr int CL = split_ctas<D, NP>(), W = cta_cols<D, NP>();
+  constexpr bool kSplit = split_d<W, NP>();
+  constexpr int kR = owned_rows<W, NP>(), kC = owned_cols<W, NP>(), kM = 64;
   constexpr Layout L = dkdv_split_layout<D, NP>();
   extern __shared__ uint8_t smem_raw[];
   Bars bars;
   // each full barrier: the 32 lanes of warp 0, which loads (+ the TMA)
   const uint32_t base = setup(smem_raw, L, 32, bars);
-  const uint32_t sK = base, sV = base + NP * tile_bytes<D>(kR);
+  const uint32_t sK = base, sV = base + NP * tile_bytes<W>(kR);
   const uint32_t sQ = base + L.stage_at(0), sG = base + L.stage_at(1);
   float* vecs = reinterpret_cast<float*>(
       smem_raw + (base - smem_addr(smem_raw)) + L.extra_at());
   float* xch = vecs + 2 * kM;
 
-  const int k0 = blockIdx.x * kR;  // the first keys see the most rows
+  // the first keys see the most rows; the CTAs of a cluster share keys
+  const int k0 = blockIdx.x / CL * kR;
+  const int rank = CL > 1 ? (int)cluster_rank() : 0;
+  const int colc = rank * W;  // this CTA's first column of D
   const int b = blockIdx.y / heads, h = blockIdx.y % heads;
   const int shift = sk - sq;
   int q_first = causal ? max(0, k0 - shift) : 0;
@@ -1958,8 +2090,8 @@ __global__ void __launch_bounds__(kSplitThreads, 1)
     }
     if (lane == 0) {
       mbar_arrive_expect_tx(bars.full(s), L.stage);
-      load_split<kM, D, NP>(s ? sG : sQ, s ? &mdo : &mq, bars.full(s), h,
-                            q0, b, batch);
+      load_split<kM, W, NP>(s ? sG : sQ, s ? &mdo : &mq, bars.full(s), h,
+                            q0, b, batch, colc);
     } else {
       mbar_arrive(bars.full(s));
     }
@@ -1967,8 +2099,8 @@ __global__ void __launch_bounds__(kSplitThreads, 1)
   if (warp == 0) {
     if (lane == 0) {
       mbar_arrive_expect_tx(bars.resident, L.resident);
-      load_split<kR, D, NP>(sK, &mk, bars.resident, h, k0, b, batch);
-      load_split<kR, D, NP>(sV, &mv, bars.resident, h, k0, b, batch);
+      load_split<kR, W, NP>(sK, &mk, bars.resident, h, k0, b, batch, colc);
+      load_split<kR, W, NP>(sV, &mv, bars.resident, h, k0, b, batch, colc);
     }
     load(1, 0);
     load(0, 0);
@@ -1981,24 +2113,27 @@ __global__ void __launch_bounds__(kSplitThreads, 1)
   const int cq = 2 * (lane % 4);
   const bool live = wkey < sk;
   const int q_lo = causal ? wkey - shift : 0;  // the first row to see wkey
-  const int col0 = kSplit ? wg * kC : 0;       // first column of this wg
-  const uint32_t region = col0 / 64 * (kM * 128);
+  const int cw = kSplit ? wg * kC : 0;  // this wg's first column of the CTA's
+  const int col0 = colc + cw;           // .. and of D
+  const uint32_t region = cw / 64 * (kM * 128);
 
   float adk[kC / 2], adv[kC / 2];
 #pragma unroll
   for (int i = 0; i < kC / 2; ++i) adk[i] = adv[i] = 0.0f;
 
+  if constexpr (CL > 1) cluster_arrive();
   mbar_wait(bars.resident, 0);
   for (int it = 0; it < nblk; ++it) {
     const int q0 = q_first + it * kM;
-    // at split_d both warpgroups own the same keys: `work` agrees
+    // at split_d both warpgroups (and both CTAs of a cluster) own the same
+    // keys: `work` agrees
     const bool work = live && q0 + kM - 1 >= q_lo;
     float st[kM / 2], dpt[kM / 2];
     mbar_wait(bars.full(1), it & 1);
     mbar_wait(bars.full(0), it & 1);
     if (work) {
-      score_tiles<NP, D, kR, kSplit>(st, dpt, sK, sQ, sV, sG, rk, xch, wg,
-                                     t);
+      score_tiles<NP, W, kR, kSplit, CL>(st, dpt, sK, sQ, sV, sG, rk, xch,
+                                         wg, t);
       // masked: rows past sq, or rows above this warpgroup's last key
       const bool mask = q0 + kM > sq || (causal && q0 < wkey + 63 - shift);
 #pragma unroll
@@ -2020,7 +2155,7 @@ __global__ void __launch_bounds__(kSplitThreads, 1)
       uint32_t pa[NP][kM / 16][4];
       to_a_parts<NP, kM / 16>(st, pa);
       wgmma_fence();
-      split_rs<NP, D, kM, kC>(adv, pa, sG, region);
+      split_rs<NP, W, kM, kC>(adv, pa, sG, region);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(adv);
@@ -2032,7 +2167,7 @@ __global__ void __launch_bounds__(kSplitThreads, 1)
       uint32_t da[NP][kM / 16][4];
       to_a_parts<NP, kM / 16>(dpt, da);
       wgmma_fence();
-      split_rs<NP, D, kM, kC>(adk, da, sQ, region);
+      split_rs<NP, W, kM, kC>(adk, da, sQ, region);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(adk);
@@ -2041,6 +2176,7 @@ __global__ void __launch_bounds__(kSplitThreads, 1)
     mbar_arrive(bars.empty(0));
     if (warp == 0 && it + 1 < nblk) load(0, it + 1);
   }
+  if constexpr (CL > 1) cluster_wait();
 
   if (!live) return;
   if (ca < sk) {
@@ -2056,17 +2192,19 @@ __global__ void __launch_bounds__(kSplitThreads, 1)
 }
 
 // ------------------------------------------------- split design: dQ pass
-// A CTA owns owned_rows q rows (Q and dO resident) and walks the k/v
-// blocks of 64 keys to its causal end: slot 1 holds V, slot 0 K. Per
-// block: S = Q K^T and dP = dO V^T (slot 1 released; at split_d
+// A CTA owns owned_rows q rows (Q and dO resident, its columns) and walks
+// the k/v blocks of 64 keys to its causal end: slot 1 holds V, slot 0 K.
+// Per block: S = Q K^T and dP = dO V^T (slot 1 released; at split_d
 // warpgroup 0 computes the first, warpgroup 1 the second, and they trade
-// them: score_tiles), P and dS = P (dP - Delta) scale in fp32 registers, dQ += dS K
-// over the warpgroup's columns (slot 0 released; K MN-major). NP = 1
-// rounds dS to bf16 (the stock ds.astype(k.dtype)).
+// them, after the cluster's exchange at split_ctas 2: score_tiles), P and
+// dS = P (dP - Delta) scale in fp32 registers, dQ += dS K over the
+// warpgroup's columns (slot 0 released; K MN-major). NP = 1 rounds dS to
+// bf16 (the stock ds.astype(k.dtype)).
 template <int D, int NP>
 __host__ __device__ constexpr Layout dq_split_layout() {
-  return {2 * NP * tile_bytes<D>(owned_rows<D, NP>()), NP * tile_bytes<D>(64),
-          split_d<D, NP>() ? 2 * 64 * 64 * 4 : 0};
+  constexpr int W = cta_cols<D, NP>();
+  return {2 * NP * tile_bytes<W>(owned_rows<W, NP>()), NP * tile_bytes<W>(64),
+          split_d<W, NP>() ? 2 * 64 * 64 * 4 : 0};
 }
 
 template <typename T, int D, int NP>
@@ -2080,18 +2218,22 @@ __global__ void __launch_bounds__(kSplitThreads, 1)
                               T* __restrict__ dq, int batch, int heads,
                               int sq, int sk, int d, float scale,
                               float scale_log2, int causal) {
-  constexpr bool kSplit = split_d<D, NP>();
-  constexpr int kR = owned_rows<D, NP>(), kC = owned_cols<D, NP>(), kN = 64;
+  constexpr int CL = split_ctas<D, NP>(), W = cta_cols<D, NP>();
+  constexpr bool kSplit = split_d<W, NP>();
+  constexpr int kR = owned_rows<W, NP>(), kC = owned_cols<W, NP>(), kN = 64;
   constexpr Layout L = dq_split_layout<D, NP>();
   extern __shared__ uint8_t smem_raw[];
   Bars bars;
   const uint32_t base = setup(smem_raw, L, 1, bars);
-  const uint32_t sQ = base, sG = base + NP * tile_bytes<D>(kR);
+  const uint32_t sQ = base, sG = base + NP * tile_bytes<W>(kR);
   const uint32_t sK = base + L.stage_at(0), sV = base + L.stage_at(1);
   float* xch = reinterpret_cast<float*>(
       smem_raw + (base - smem_addr(smem_raw)) + L.extra_at());
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kR;  // longest rows first
+  // longest rows first; the CTAs of a cluster share their rows
+  const int q0 = (gridDim.x / CL - 1 - blockIdx.x / CL) * kR;
+  const int rank = CL > 1 ? (int)cluster_rank() : 0;
+  const int colc = rank * W;  // this CTA's first column of D
   const int b = blockIdx.y / heads, h = blockIdx.y % heads;
   const int shift = sk - sq;
   const int k_end = causal ? min(sk, q0 + kR + shift) : sk;
@@ -2104,13 +2246,13 @@ __global__ void __launch_bounds__(kSplitThreads, 1)
   auto load = [&](int s, int it) {
     if (it > 0) mbar_wait(bars.empty(s), (it - 1) & 1);
     mbar_arrive_expect_tx(bars.full(s), L.stage);
-    load_split<kN, D, NP>(s ? sV : sK, s ? &mv : &mk, bars.full(s), h,
-                          it * kN, b, batch);
+    load_split<kN, W, NP>(s ? sV : sK, s ? &mv : &mk, bars.full(s), h,
+                          it * kN, b, batch, colc);
   };
   if (issuer) {
     mbar_arrive_expect_tx(bars.resident, L.resident);
-    load_split<kR, D, NP>(sQ, &mq, bars.resident, h, q0, b, batch);
-    load_split<kR, D, NP>(sG, &mdo, bars.resident, h, q0, b, batch);
+    load_split<kR, W, NP>(sQ, &mq, bars.resident, h, q0, b, batch, colc);
+    load_split<kR, W, NP>(sG, &mdo, bars.resident, h, q0, b, batch, colc);
     load(1, 0);
     load(0, 0);
   }
@@ -2123,8 +2265,9 @@ __global__ void __launch_bounds__(kSplitThreads, 1)
   const bool live = wrow < sq;
   const int last_col =
       causal ? min(sk - 1, min(wrow + 63, sq - 1) + shift) : sk - 1;
-  const int col0 = kSplit ? wg * kC : 0;
-  const uint32_t region = col0 / 64 * (kN * 128);
+  const int cw = kSplit ? wg * kC : 0;  // this wg's first column of the CTA's
+  const int col0 = colc + cw;           // .. and of D
+  const uint32_t region = cw / 64 * (kN * 128);
   const long long rowvec = ((long long)b * heads + h) * sq;
   // rows past sq: P is 0 (LSE +inf); they are not written
   const float la = ra < sq ? lse[rowvec + ra] * kLog2e : INFINITY;
@@ -2136,16 +2279,19 @@ __global__ void __launch_bounds__(kSplitThreads, 1)
 #pragma unroll
   for (int i = 0; i < kC / 2; ++i) adq[i] = 0.0f;
 
+  if constexpr (CL > 1) cluster_arrive();
   mbar_wait(bars.resident, 0);
   for (int it = 0; it < nblk; ++it) {
     const int k0 = it * kN;
-    // at split_d both warpgroups own the same rows: `work` agrees
+    // at split_d both warpgroups (and both CTAs of a cluster) own the same
+    // rows: `work` agrees
     const bool work = live && k0 <= last_col;
     float sc[kN / 2], dp[kN / 2];
     mbar_wait(bars.full(1), it & 1);
     mbar_wait(bars.full(0), it & 1);
     if (work)
-      score_tiles<NP, D, kR, kSplit>(sc, dp, sQ, sK, sG, sV, rq, xch, wg, t);
+      score_tiles<NP, W, kR, kSplit, CL>(sc, dp, sQ, sK, sG, sV, rq, xch, wg,
+                                         t);
     mbar_arrive(bars.empty(1));
     if (issuer && it + 1 < nblk) load(1, it + 1);
     if (work) {
@@ -2168,7 +2314,7 @@ __global__ void __launch_bounds__(kSplitThreads, 1)
       uint32_t dsa[NP][kN / 16][4];
       to_a_parts<NP, kN / 16>(dp, dsa);
       wgmma_fence();
-      split_rs<NP, D, kN, kC>(adq, dsa, sK, region);
+      split_rs<NP, W, kN, kC>(adq, dsa, sK, region);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(adq);
@@ -2177,6 +2323,7 @@ __global__ void __launch_bounds__(kSplitThreads, 1)
     mbar_arrive(bars.empty(0));
     if (issuer && it + 1 < nblk) load(0, it + 1);
   }
+  if constexpr (CL > 1) cluster_wait();
 
   if (!live) return;
   if (ra < sq)
@@ -2293,16 +2440,16 @@ cudaError_t launch_rope_fwd(const FwdArgs& a, cudaStream_t stream) {
 }
 
 // An operand of a split-design kernel as its tensor map reads it: a bf16
-// tensor as it is (NP = 1), or an fp32 one split by split3_kernel into
-// the next 3 x batch x seq x heads x D values of the workspace `*work`
-// (NP = 3), at the map's batch 3 x batch and head dim D.
+// tensor as it is (NP = 1), or an fp32 (or bf16: T) one split by
+// split3_kernel into the next 3 x batch x seq x heads x D values of the
+// workspace `*work` (NP = 3), at the map's batch 3 x batch and head dim D.
 struct Operand {
   const void* ptr;
   Strides st;
   int batch, d;
 };
 
-template <int D, int NP>
+template <int D, int NP, typename T = float>
 cudaError_t operand(Operand* op, const void* x, Strides st, int batch,
                     int seq, int heads, int d, bf16** work,
                     cudaStream_t stream) {
@@ -2313,8 +2460,8 @@ cudaError_t operand(Operand* op, const void* x, Strides st, int batch,
   bf16* out = *work;
   *work += 3LL * batch * seq * heads * D;
   const long long chunks = (long long)batch * seq * heads * (D / 8);
-  split3_kernel<<<(unsigned)((chunks + 255) / 256), 256, 0, stream>>>(
-      static_cast<const float*>(x), out, st, batch, seq, heads, d, D);
+  split3_kernel<T><<<(unsigned)((chunks + 255) / 256), 256, 0, stream>>>(
+      static_cast<const T*>(x), out, st, batch, seq, heads, d, D);
   *op = {out, {(long long)seq * heads * D, (long long)heads * D, D},
          3 * batch, D};
   return cudaGetLastError();
@@ -2325,8 +2472,31 @@ cudaError_t make_map(CUtensorMap* map, const Operand& op, int seq, int heads,
   return make_map(map, op.ptr, op.batch, seq, heads, op.d, op.st, box_rows);
 }
 
-// The forward on split operands q, k, v (three parts each)
-template <int D>
+// A split-design kernel on `grid` (x a multiple of CL) with 256 threads
+// and `smem` bytes, in clusters of CL CTAs along x
+template <int CL, typename... Params, typename... Args>
+cudaError_t launch_split(void (*kernel)(Params...), dim3 grid, int smem,
+                         cudaStream_t stream, Args&&... args) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kSplitThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = CL > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+  return err ? err : cudaGetLastError();
+}
+
+// The forward on split operands q, k, v (three parts each), O in T
+template <typename T, int D>
 cudaError_t fwd_split(const FwdArgs& a, const Operand& q, const Operand& k,
                       const Operand& v, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
@@ -2335,13 +2505,13 @@ cudaError_t fwd_split(const FwdArgs& a, const Operand& q, const Operand& k,
       (err = make_map(&mk, k, a.sk, a.heads, 64)) ||
       (err = make_map(&mv, v, a.sk, a.heads, 64)))
     return err;
-  constexpr int smem = fwd_split_layout<D>().bytes();
-  if ((err = allow_smem(flash_fwd_split_kernel<D>, smem))) return err;
-  dim3 grid((a.sq + 127) / 128, a.batch * a.heads);
-  flash_fwd_split_kernel<D><<<grid, kSplitThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<float*>(a.o), static_cast<float*>(a.lse),
-      a.batch, a.heads, a.sq, a.sk, a.d, a.scale * kLog2e, a.causal);
-  return cudaGetLastError();
+  constexpr int CL = split_ctas<D, 3>();
+  dim3 grid(CL * ((a.sq + 127) / 128), a.batch * a.heads);
+  return launch_split<CL>(flash_fwd_split_kernel<T, D>,
+                          grid, fwd_split_layout<D>().bytes(), stream, mq, mk,
+                          mv, static_cast<T*>(a.o),
+                          static_cast<float*>(a.lse), a.batch, a.heads, a.sq,
+                          a.sk, a.d, a.scale * kLog2e, a.causal);
 }
 
 // fp32: the parts of q, k and v into the workspace, then the forward
@@ -2358,20 +2528,22 @@ cudaError_t launch_fwd_split(const FwdArgs& a, void* work,
       (err = operand<D, 3>(&v, a.v, a.vs, a.batch, a.sk, a.heads, a.d, &w,
                            stream)))
     return err;
-  return fwd_split<D>(a, q, k, v, stream);
+  return fwd_split<float, D>(a, q, k, v, stream);
 }
 
-// The rotate-and-split pre-pass of the fp32 rope-on-load forward: q or k,
-// fp32 [batch, seq, heads, d] read through its strides (d a multiple of
-// 16), every row rotated by its position's table row and written as
-// three bf16 parts into the contiguous scratch [3, batch, seq, heads, D]
-// (the layout operand<D, 3> builds), columns d to D zero. Neox: out[:d/2]
-// = x1 cos - x2 sin, out[d/2:d] = x2 cos + x1 sin, column c paired with c
-// + d/2 of the true d, fp32 in _rotate's op order with no fused
-// multiply-add (the rope kernel's arithmetic), so the rotated value is
-// the fp32 one and its three parts keep all of it. A thread rotates 8
-// columns of a row, all in one half (d / 2 is a multiple of 8).
-__global__ void rope_split3_kernel(const float* __restrict__ x,
+// The rotate-and-split pre-pass of the split rope-on-load forward: q or k,
+// fp32 or bf16 (T) [batch, seq, heads, d] read through its strides (d a
+// multiple of 16), every row rotated by its position's table row in fp32
+// (a bf16 value is cast exactly) and written as three bf16 parts into the
+// contiguous scratch [3, batch, seq, heads, D] (the layout operand<D, 3>
+// builds), columns d to D zero. Neox: out[:d/2] = x1 cos - x2 sin,
+// out[d/2:d] = x2 cos + x1 sin, column c paired with c + d/2 of the true
+// d, fp32 in _rotate's op order with no fused multiply-add (the rope
+// kernel's arithmetic), so the rotated value is the fp32 one and its
+// three parts keep all of it. A thread rotates 8 columns of a row, all in
+// one half (d / 2 is a multiple of 8).
+template <typename T>
+__global__ void rope_split3_kernel(const T* __restrict__ x,
                                    bf16* __restrict__ out, Strides st,
                                    const float* __restrict__ cos,
                                    const float* __restrict__ sin,
@@ -2391,10 +2563,10 @@ __global__ void rope_split3_kernel(const float* __restrict__ x,
   if (c < d) {
     const bool first = c < h2;
     const int c1 = first ? c : c - h2;  // the pair's first-half column
-    const float* xr = x + b * st.b + s * st.s + h * st.h;
+    const T* xr = x + b * st.b + s * st.s + h * st.h;
     float x1[8], x2[8], cv[8], sv[8];
-    ptt::load_floats<float, 8>(xr + c1, x1);
-    ptt::load_floats<float, 8>(xr + c1 + h2, x2);
+    ptt::load_floats<T, 8>(xr + c1, x1);
+    ptt::load_floats<T, 8>(xr + c1 + h2, x2);
     ptt::load_floats<float, 8>(cos + s * tab + c1, cv);
     ptt::load_floats<float, 8>(sin + s * tab + c1, sv);
 #pragma unroll
@@ -2410,39 +2582,40 @@ __global__ void rope_split3_kernel(const float* __restrict__ x,
   store_parts8(out + row * D + c, rows * D, v);
 }
 
-// A rotated operand of the fp32 rope-on-load forward (q or k, the seq of
+// A rotated operand of the split rope-on-load forward (q or k, the seq of
 // q): rope_split3_kernel into the next 3 x batch x seq x heads x D values
 // of the workspace
-template <int D>
+template <typename T, int D>
 cudaError_t rope_operand(Operand* op, const FwdArgs& a, const void* x,
                          Strides st, bf16** work, cudaStream_t stream) {
   bf16* out = *work;
   *work += 3LL * a.batch * a.sq * a.heads * D;
   const long long chunks = (long long)a.batch * a.sq * a.heads * (D / 8);
-  rope_split3_kernel<<<(unsigned)((chunks + 255) / 256), 256, 0, stream>>>(
-      static_cast<const float*>(x), out, st,
-      static_cast<const float*>(a.cos), static_cast<const float*>(a.sin),
-      a.tab_stride, a.batch, a.sq, a.heads, a.d, D);
+  rope_split3_kernel<T><<<(unsigned)((chunks + 255) / 256), 256, 0,
+                          stream>>>(
+      static_cast<const T*>(x), out, st, static_cast<const float*>(a.cos),
+      static_cast<const float*>(a.sin), a.tab_stride, a.batch, a.sq,
+      a.heads, a.d, D);
   *op = {out, {(long long)a.sq * a.heads * D, (long long)a.heads * D, D},
          3 * a.batch, D};
   return cudaGetLastError();
 }
 
-// fp32 rope-on-load: q and k rotated and split, v split, into the
-// workspace (its layout is the flash forward's), then the split forward
-// with no LSE
-template <int D>
+// split rope-on-load (fp32, or bf16 outside padded d 64 to 128): q and k
+// rotated and split, v split, into the workspace (its layout is the flash
+// forward's), then the split forward with no LSE, O in T
+template <typename T, int D>
 cudaError_t launch_rope_fwd_split(const FwdArgs& a, void* work,
                                   cudaStream_t stream) {
   bf16* w = static_cast<bf16*>(work);
   Operand q, k, v;
   cudaError_t err;
-  if ((err = rope_operand<D>(&q, a, a.q, a.qs, &w, stream)) ||
-      (err = rope_operand<D>(&k, a, a.k, a.ks, &w, stream)) ||
-      (err = operand<D, 3>(&v, a.v, a.vs, a.batch, a.sk, a.heads, a.d, &w,
-                           stream)))
+  if ((err = rope_operand<T, D>(&q, a, a.q, a.qs, &w, stream)) ||
+      (err = rope_operand<T, D>(&k, a, a.k, a.ks, &w, stream)) ||
+      (err = operand<D, 3, T>(&v, a.v, a.vs, a.batch, a.sk, a.heads, a.d,
+                              &w, stream)))
     return err;
-  return fwd_split<D>(a, q, k, v, stream);
+  return fwd_split<T, D>(a, q, k, v, stream);
 }
 
 // The Delta pass, the operands (fp32: split into the workspace), the dK/dV
@@ -2469,7 +2642,8 @@ cudaError_t launch_bwd_split(const BwdArgs& a, void* work,
       (err = operand<D, NP>(&g, a.dout, a.dos, a.batch, a.sq, a.heads, a.d,
                             &w, stream)))
     return err;
-  constexpr int kR = owned_rows<D, NP>();
+  constexpr int CL = split_ctas<D, NP>();
+  constexpr int kR = owned_rows<cta_cols<D, NP>(), NP>();
   const float scale_log2 = a.scale * kLog2e;
 
   // dK/dV: q and dO in blocks of 64 rows, k and v resident
@@ -2479,17 +2653,15 @@ cudaError_t launch_bwd_split(const BwdArgs& a, void* work,
       (err = make_map(&mk, k, a.sk, a.heads, kR)) ||
       (err = make_map(&mv, v, a.sk, a.heads, kR)))
     return err;
-  constexpr int smem_kv = dkdv_split_layout<D, NP>().bytes();
-  if ((err = allow_smem(flash_bwd_dkdv_split_kernel<T, D, NP>, smem_kv)))
+  dim3 grid_k(CL * ((a.sk + kR - 1) / kR), a.batch * a.heads);
+  if ((err = launch_split<CL>(
+           flash_bwd_dkdv_split_kernel<T, D, NP>, grid_k,
+           dkdv_split_layout<D, NP>().bytes(), stream, mq, mdo, mk, mv,
+           static_cast<const float*>(a.lse),
+           static_cast<const float*>(a.delta), static_cast<T*>(a.dk),
+           static_cast<T*>(a.dv), a.batch, a.heads, a.sq, a.sk, a.d, a.scale,
+           scale_log2, a.causal)))
     return err;
-  dim3 grid_k((a.sk + kR - 1) / kR, a.batch * a.heads);
-  flash_bwd_dkdv_split_kernel<T, D, NP><<<grid_k, kSplitThreads, smem_kv,
-                                          stream>>>(
-      mq, mdo, mk, mv, static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), a.batch, a.heads, a.sq, a.sk, a.d, a.scale,
-      scale_log2, a.causal);
-  if ((err = cudaGetLastError())) return err;
 
   // dQ: q and dO resident, k and v in blocks of 64 rows
   if ((err = make_map(&mq, q, a.sq, a.heads, kR)) ||
@@ -2497,16 +2669,13 @@ cudaError_t launch_bwd_split(const BwdArgs& a, void* work,
       (err = make_map(&mk, k, a.sk, a.heads, 64)) ||
       (err = make_map(&mv, v, a.sk, a.heads, 64)))
     return err;
-  constexpr int smem_q = dq_split_layout<D, NP>().bytes();
-  if ((err = allow_smem(flash_bwd_dq_split_kernel<T, D, NP>, smem_q)))
-    return err;
-  dim3 grid_q((a.sq + kR - 1) / kR, a.batch * a.heads);
-  flash_bwd_dq_split_kernel<T, D, NP><<<grid_q, kSplitThreads, smem_q,
-                                        stream>>>(
-      mq, mdo, mk, mv, static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<T*>(a.dq), a.batch,
-      a.heads, a.sq, a.sk, a.d, a.scale, scale_log2, a.causal);
-  return cudaGetLastError();
+  dim3 grid_q(CL * ((a.sq + kR - 1) / kR), a.batch * a.heads);
+  return launch_split<CL>(
+      flash_bwd_dq_split_kernel<T, D, NP>, grid_q,
+      dq_split_layout<D, NP>().bytes(), stream, mq, mdo, mk, mv,
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<T*>(a.dq), a.batch, a.heads, a.sq, a.sk, a.d, a.scale,
+      scale_log2, a.causal);
 }
 
 }  // namespace tc
@@ -2521,8 +2690,8 @@ inline int padded(int d) {
   return d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 256;
 }
 
-// The CUDA-core kernels at every served head dim (fp32, the rope-on-load
-// forward, and bf16 where the tensor-core design does not run)
+// The CUDA-core kernels at every served head dim, both dtypes, flash and
+// rope-on-load (run on request only: cuda_cores)
 template <typename T, bool kRope>
 cudaError_t cc_fwd(const FwdArgs& a, cudaStream_t s) {
   if (!served(a.d)) return cudaErrorInvalidValue;
@@ -2555,11 +2724,11 @@ cudaError_t cc_bwd(const BwdArgs& a, cudaStream_t s) {
 // pointers 16-byte aligned. o: contiguous [batch, sq, heads, head_dim] of
 // q's type; lse: fp32 [batch, heads, sq]. head_dim a multiple of 16 up to
 // 256; sk >= sq when causal (the Python wrapper checks all of this).
-// work: the split design's bf16 scratch for fp32 inputs at head_dim up
-// to 128, 3 x (batch x sq + 2 x batch x sk) x heads x W values, W = 64
-// up to head_dim 64, else 128 (null otherwise). cuda_cores: run the
-// CUDA-core kernels whatever the dtype and head dim (the design they
-// replaced, kept for comparison).
+// work: the split design's bf16 scratch for fp32 inputs, 3 x (batch x sq
+// + 2 x batch x sk) x heads x W values, W = 64 up to head_dim 64, 128 up
+// to 128, else 256 (null for bf16). cuda_cores: run the CUDA-core kernels
+// whatever the dtype and head dim (the design they replaced, kept for
+// comparison).
 extern "C" int ptt_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int batch, int heads, int sq, int sk, int head_dim, long long q_sb,
@@ -2575,12 +2744,15 @@ extern "C" int ptt_flash_attention_fwd(
             scale, nullptr, nullptr, 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool f32 = dtype == ptt::kF32;
-  if (cuda_cores || (f32 && head_dim > 128))
+  if (cuda_cores)
     return f32 ? cc_fwd<float, false>(a, s)
                : cc_fwd<__nv_bfloat16, false>(a, s);
-  if (f32)  // split products at width 64 or 128 (the pre-pass pads)
-    return head_dim <= 64 ? tc::launch_fwd_split<64>(a, work, s)
-                          : tc::launch_fwd_split<128>(a, work, s);
+  if (f32) {  // split products at width 64, 128 or 256 (the pre-pass pads)
+    if (work == nullptr) return cudaErrorInvalidValue;
+    return head_dim <= 64    ? tc::launch_fwd_split<64>(a, work, s)
+           : head_dim <= 128 ? tc::launch_fwd_split<128>(a, work, s)
+                             : tc::launch_fwd_split<256>(a, work, s);
+  }
   // bf16: tensor cores at the padded width, at least one 128-byte span
   // (a separate instantiation where the head dim fills the width)
   if (head_dim == 64) return tc::launch_fwd<64, false>(a, s);
@@ -2591,16 +2763,26 @@ extern "C" int ptt_flash_attention_fwd(
   return tc::launch_fwd<256, true>(a, s);
 }
 
+// The split rope-on-load forward at the padded width of the head dim
+template <typename T>
+cudaError_t rope_fwd_split(const FwdArgs& a, void* work, cudaStream_t s) {
+  if (work == nullptr) return cudaErrorInvalidValue;
+  return a.d <= 64    ? tc::launch_rope_fwd_split<T, 64>(a, work, s)
+         : a.d <= 128 ? tc::launch_rope_fwd_split<T, 128>(a, work, s)
+                      : tc::launch_rope_fwd_split<T, 256>(a, work, s);
+}
+
 // Rope-on-load forward: q, k, v [batch, seq, heads, head_dim] with their
 // strides as above (one sequence length); cos and sin fp32 [seq,
 // head_dim / 2] with row stride tab_stride (a multiple of 4, 16-byte
 // aligned); o contiguous [batch, seq, heads, head_dim] of q's type. No
 // LSE. head_dim a multiple of 16 up to 256 (the Python wrapper checks all
-// of this). work: the split design's bf16 scratch for fp32 at head_dim up
-// to 128, as the flash forward's (3 x 3 x batch x seq x heads x W values,
-// W = 64 up to head_dim 64, else 128; null otherwise). cuda_cores: run
-// the CUDA-core kernel whatever the dtype and head dim (the design the
-// tensor-core ones replaced, kept for comparison).
+// of this). work: the split design's bf16 scratch (fp32, and bf16 outside
+// head_dim 64 to 128), as the flash forward's (3 x 3 x batch x seq x
+// heads x W values, W = 64 up to head_dim 64, 128 up to 128, else 256;
+// null otherwise). cuda_cores: run the CUDA-core kernel whatever the
+// dtype and head dim (the design the tensor-core ones replaced, kept for
+// comparison).
 extern "C" int ptt_rope_attention_fwd(
     const void* q, const void* k, const void* v, void* o, const void* cos,
     const void* sin, long long tab_stride, int batch, int heads, int seq,
@@ -2616,26 +2798,23 @@ extern "C" int ptt_rope_attention_fwd(
             scale, cos, sin, tab_stride};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool f32 = dtype == ptt::kF32;
-  if (cuda_cores || (f32 && head_dim > 128) ||
-      (!f32 && (head_dim < 64 || head_dim > 128)))
+  if (cuda_cores)
     return f32 ? cc_fwd<float, true>(a, s) : cc_fwd<__nv_bfloat16, true>(a, s);
-  if (f32) {  // rotate-and-split pre-pass, split products at width 64, 128
-    if (work == nullptr) return cudaErrorInvalidValue;
-    return head_dim <= 64 ? tc::launch_rope_fwd_split<64>(a, work, s)
-                          : tc::launch_rope_fwd_split<128>(a, work, s);
-  }
-  // bf16 at d 64 to 128: tensor cores, hi/lo products (d 80-112 padded)
+  if (f32) return rope_fwd_split<float>(a, work, s);
+  // bf16 at d 64 to 128: tensor cores, hi/lo products (d 80-112 padded);
+  // the other head dims: rotated in fp32 and split, as fp32
   if (head_dim == 64) return tc::launch_rope_fwd<64, false>(a, s);
   if (head_dim == 128) return tc::launch_rope_fwd<128, false>(a, s);
-  return tc::launch_rope_fwd<128, true>(a, s);
+  if (head_dim > 64 && head_dim < 128)
+    return tc::launch_rope_fwd<128, true>(a, s);
+  return rope_fwd_split<__nv_bfloat16>(a, work, s);
 }
 
 // The three backward passes in order (Delta, dK/dV, dQ). o and dout have
 // q's shape, lse is the forward's; delta is fp32 scratch [batch, heads,
 // sq]; dq, dk, dv are contiguous with the shapes of q, k, v. work: as in
 // the forward, for q, k, v and dout: 3 x (2 x batch x sq + 2 x batch x
-// sk) x heads x W values (fp32 up to head_dim 128; null otherwise);
-// cuda_cores as there.
+// sk) x heads x W values (fp32; null for bf16); cuda_cores as there.
 extern "C" int ptt_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
@@ -2654,11 +2833,14 @@ extern "C" int ptt_flash_attention_bwd(
             batch, heads, sq, sk, head_dim, causal, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool f32 = dtype == ptt::kF32;
-  if (cuda_cores || (f32 && head_dim > 128))
+  if (cuda_cores)
     return f32 ? cc_bwd<float>(a, s) : cc_bwd<__nv_bfloat16>(a, s);
-  if (f32)  // split products at width 64 or 128
-    return head_dim <= 64 ? tc::launch_bwd_split<float, 64, 3>(a, work, s)
-                          : tc::launch_bwd_split<float, 128, 3>(a, work, s);
+  if (f32) {  // split products at width 64, 128 or 256
+    if (work == nullptr) return cudaErrorInvalidValue;
+    return head_dim <= 64    ? tc::launch_bwd_split<float, 64, 3>(a, work, s)
+           : head_dim <= 128 ? tc::launch_bwd_split<float, 128, 3>(a, work, s)
+                             : tc::launch_bwd_split<float, 256, 3>(a, work, s);
+  }
   // bf16: the tensor-core kernels up to 128 (padded, at least 64), the
   // split design's (one part) above
   if (head_dim == 64) return tc::launch_bwd<64, false>(a, s);

@@ -973,7 +973,7 @@ cudaError_t launch(const float* x, const float* w, const float* rstd,
   cudaError_t err = cudaGetLastError();
   if (err) return err;
   const long long nw = (long long)K * (N / 8);
-  split3_kernel<<<(unsigned)((nw + 255) / 256), 256, 0, stream>>>(
+  split3_kernel<float><<<(unsigned)((nw + 255) / 256), 256, 0, stream>>>(
       wm, wp, ptt::Strides{(long long)K * N, N, N}, 1, K, 1, N, N);
   if ((err = cudaGetLastError())) return err;
   CUtensorMap my, mw;

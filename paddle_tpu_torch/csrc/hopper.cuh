@@ -94,15 +94,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// a whole tile of R rows x D columns (D / 64 boxes) into the layout above
+// a whole tile of R rows x D columns (D / 64 boxes) from column col0
+// into the layout above
 template <int R, int D>
 __device__ __forceinline__ void tma_load_tile(uint32_t tile,
                                               const CUtensorMap* map,
                                               uint32_t bar, int head, int row,
-                                              int batch) {
+                                              int batch, int col0 = 0) {
 #pragma unroll
   for (int j = 0; j < D / 64; ++j)
-    tma_load(tile + j * R * 128, map, bar, 64 * j, head, row, batch);
+    tma_load(tile + j * R * 128, map, bar, col0 + 64 * j, head, row, batch);
 }
 
 // One box of a 2-D tensor (inner coordinate c0, outer c1) into shared
@@ -137,6 +138,45 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
 // there); each writer fences before the barrier the readers wait on.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ------------------------------------------------ thread block clusters
+// This CTA's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The address in the cluster's shared window of the variable at `addr`
+// (this CTA's shared memory) in the CTA of rank `rank` (distributed
+// shared memory).
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr,
+                                                 uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+// 16 bytes to a cluster address (another CTA's shared memory)
+__device__ __forceinline__ void st_cluster(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// The cluster barrier in two halves: every thread of every CTA of the
+// cluster arrives (releasing its shared-memory writes, remote ones
+// included), then waits for the others (acquiring theirs). A thread
+// alternates the two; all threads of a warp execute them together.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // A barrier among `count` threads (a multiple of 32) on hardware barrier

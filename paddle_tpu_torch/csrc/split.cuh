@@ -70,13 +70,15 @@ __device__ __forceinline__ void store_parts8(__nv_bfloat16* dst,
   }
 }
 
-// The three bf16 parts of an fp32 [batch, seq, heads, d] tensor (read
-// through its strides, d a multiple of 8) into the contiguous scratch
-// [3, batch, seq, heads, D], columns d to D zero. A thread splits 8
-// columns of a row. (A contiguous [K, N] matrix is batch 1, seq K, heads
-// 1, d = D = N.) Static: every source that includes this header has its
-// own copy.
-static __global__ void split3_kernel(const float* __restrict__ x,
+// The three bf16 parts of an fp32 (or bf16: T) [batch, seq, heads, d]
+// tensor (read through its strides, d a multiple of 8) into the
+// contiguous scratch [3, batch, seq, heads, D], columns d to D zero. A
+// bf16 value becomes fp32 exactly and is its own hi part (mid and lo are
+// zero). A thread splits 8 columns of a row. (A contiguous [K, N] matrix
+// is batch 1, seq K, heads 1, d = D = N.) Static: every source that
+// includes this header has its own copy.
+template <typename T>
+static __global__ void split3_kernel(const T* __restrict__ x,
                                      __nv_bfloat16* __restrict__ out,
                                      Strides st, int batch, int seq,
                                      int heads, int d, int D) {
@@ -91,7 +93,7 @@ static __global__ void split3_kernel(const float* __restrict__ x,
   const int s = (int)(bs % seq), b = (int)(bs / seq);
   float v[8];
   if (c < d) {
-    load_floats<float, 8>(x + b * st.b + s * st.s + h * st.h + c, v);
+    load_floats<T, 8>(x + b * st.b + s * st.s + h * st.h + c, v);
   } else {
 #pragma unroll
     for (int j = 0; j < 8; ++j) v[j] = 0.0f;

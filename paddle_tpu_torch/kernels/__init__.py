@@ -9,9 +9,9 @@ PyTorch version (counterpart of ``paddle_tpu/kernels``).
   ``kernels/paged_attention.py``, float and int8 arenas
 - :mod:`.flash_attention` (``csrc/flash_attention.cu``) <-
   ``kernels/flash_attention.py``, forward and backward; on the tensor
-  cores (wgmma, TMA): bf16 at every head dim, fp32 up to 128 through
-  split products that keep the fp32 contract; fp32 above 128 on the
-  CUDA cores
+  cores (wgmma, TMA) at every head dim: bf16 as it is, fp32 through
+  split products that keep the fp32 contract (above 128 on pairs of
+  CTAs, each on half of the head dim)
 - :mod:`.int8_matmul` (``csrc/int8_matmul.cu``) <-
   ``kernels/int8_matmul.py``, the W8A16 matmul; bf16 on the tensor
   cores (wgmma on the weight dequantized in shared memory), fp32 on the
@@ -23,15 +23,17 @@ PyTorch version (counterpart of ``paddle_tpu/kernels``).
   backward is the
   plain version's VJP, as in JAX
 - :mod:`.fused_rope_attention` (``csrc/flash_attention.cu``, the
-  rope-on-load forward) <- ``kernels/fused_rope_attention.py``; bf16 on
-  the tensor cores (hi/lo products that keep the fp32 contract), fp32 up
-  to head dim 128 too (q and k rotated and split into three parts, then
-  flash attention's split forward), fp32 above on the CUDA cores; its
-  backward is the plain version's VJP, as in JAX
+  rope-on-load forward) <- ``kernels/fused_rope_attention.py``; bf16 at
+  head dims 64 to 128 on the tensor cores (hi/lo products that keep the
+  fp32 contract), the rest through split products (q and k rotated and
+  split into three parts, then flash attention's split forward); its
+  backward is the VJP of the plain version, as in JAX, composed of the
+  rope and flash attention kernels in fp32
 
 With these every ``pl.pallas_call`` of the JAX package has a hand-written
 counterpart. Each module counts the kernel launches it made
-(``launches`` for the forward, ``bwd_launches`` for the backward,
+(``launches`` for the forward, ``bwd_launches`` for the backward (the
+fused rope + attention's: one per composition of its kernels),
 ``int8_launches`` for the int8 paged attention; flash attention, the
 W8A16 matmul and the two fusions also per design,
 :func:`flash_design_counts`, :func:`int8_matmul_design_counts` and
@@ -61,6 +63,7 @@ KERNELS = {
     "int8_matmul": (int8_matmul, "launches"),
     "rms_norm_matmul": (fused_norm_matmul, "launches"),
     "rope_attention": (fused_rope_attention, "launches"),
+    "rope_attention_bwd": (fused_rope_attention, "bwd_launches"),
 }
 
 
@@ -102,7 +105,10 @@ def fusion_design_counts():
     """The two fusions' launches by design: ``{"rms_norm_matmul": {...},
     "rope_attention": {...}}``, each ``tc_launches`` (tensor cores: bf16),
     ``split_launches`` (tensor cores through three-part split products:
-    fp32) and ``cc_launches`` (CUDA cores)."""
+    fp32, and the rope-on-load forward's other bf16 head dims) and
+    ``cc_launches`` (CUDA cores); the rope attention's also
+    ``bwd_launches`` (its backward's compositions of the rope and flash
+    kernels)."""
     return {name: {attr: getattr(mod, attr) for attr in mod.DESIGN_COUNTERS}
             for name, mod in (("rms_norm_matmul", fused_norm_matmul),
                               ("rope_attention", fused_rope_attention))}

@@ -10,22 +10,24 @@ that.
 
 Two designs, chosen by dtype and head dim (:func:`design`). The
 tensor-core design (``"tc"``: wgmma products with fp32 accumulators, TMA
-tile loads) runs every bf16 head dim and fp32 up to 128: bf16 at its
-padded width, at least 64 (the tensor-core tiles' 64-column unit; zero
-columns add exact zeros to every fp32 sum); fp32 through split products,
-each fp32 operand written as three bf16 parts (hi, mid, lo, which keep
-its 24 significant bits) and each product as the six bf16 products of
-parts whose terms are larger than about 2^-22 of it, so the result keeps
-the fp32 contract (1e-5 of the largest entry against the plain version);
-the parts go to a bf16 workspace by a pre-pass (at width 64, or 128
-above 64). fp32 at head dims above 128 runs the CUDA-core kernels
-(``"cc"``: fp32 FMAs): three parts of a 64-row tile at D 256 take 96 KB
-of shared memory, and no tiling of the split design fits there (the
-source's header). ``cuda_cores=True`` runs the CUDA-core kernels at any
-head dim and dtype: the design the tensor-core kernels replaced, kept to
-compare with. Each design counts its own launches beside the totals.
-Every head dim up to 256 runs: one that is not a multiple of 16 is
-zero-padded into a copy up to the next multiple (:func:`pad_head_dim`;
+tile loads) runs every head dim in both dtypes: bf16 at its padded
+width, at least 64 (the tensor-core tiles' 64-column unit; zero columns
+add exact zeros to every fp32 sum); fp32 through split products, each
+fp32 operand written as three bf16 parts (hi, mid, lo, which keep its 24
+significant bits) and each product as the six bf16 products of parts
+whose terms are larger than about 2^-22 of it, so the result keeps the
+fp32 contract (1e-5 of the largest entry against the plain version); the
+parts go to a bf16 workspace by a pre-pass (at width 64, 128 or 256:
+:func:`split_width`). Above 128 an fp32 call runs each kernel as a pair
+of CTAs (a cluster), each holding the parts of one half of the head dim
+and trading its partial scores with the other through distributed shared
+memory: three parts of a 64-row tile at 256 columns take 96 KB, so no
+single CTA holds the tiles it needs (the source's header).
+``cuda_cores=True`` runs the CUDA-core kernels (``"cc"``: fp32 FMAs) at
+any head dim and dtype: the design the tensor-core kernels replaced,
+kept to compare with. Each design counts its own launches beside the
+totals. Every head dim up to 256 runs: one that is not a multiple of 16
+is zero-padded into a copy up to the next multiple (:func:`pad_head_dim`;
 the softmax scale stays 1/sqrt of the true head dim), and the outputs
 and gradients are sliced back; a kernel is built at the next of 64, 128
 and 256 (the CUDA-core ones also 16 and 32) and masks the columns past
@@ -76,11 +78,9 @@ DESIGNS = {"tc": "wgmma", "cc": "cuda-core"}
 
 # head dims the kernels take: any up to MAX_HEAD_DIM, run at the next
 # multiple of HEAD_DIM_STEP; the tensor-core tiles are at least
-# TC_MIN_HEAD_DIM wide (one 128-byte swizzle span of bf16); fp32 runs on
-# the tensor cores (split products) up to SPLIT_MAX_HEAD_DIM
+# TC_MIN_HEAD_DIM wide (one 128-byte swizzle span of bf16)
 HEAD_DIM_STEP, MAX_HEAD_DIM = 16, 256
 TC_MIN_HEAD_DIM = 64
-SPLIT_MAX_HEAD_DIM = 128
 
 
 def served(head_dim):
@@ -129,33 +129,33 @@ def padded_backward(fn, q, k, v, o, lse, do, causal, scale):
 
 
 def design(dtype, head_dim, backward=False):
-    """``"tc"`` (tensor cores) or ``"cc"`` (CUDA cores): the design the C
-    entry points run for this dtype and head dim, forward or backward
-    (the same rule both ways)."""
-    if dtype == torch.float32 and padded_head_dim(head_dim) \
-            > SPLIT_MAX_HEAD_DIM:
-        return "cc"
+    """``"tc"`` (tensor cores): the design the C entry points run for
+    every dtype and head dim they take, forward or backward (the CUDA
+    cores, ``"cc"``, run only on request)."""
     return "tc"
 
 
 def split_width(head_dim):
-    """The width at which the split design runs an fp32 head dim (up to
-    128): 64, or 128 above 64."""
-    return TC_MIN_HEAD_DIM if head_dim <= TC_MIN_HEAD_DIM \
-        else SPLIT_MAX_HEAD_DIM
+    """The width at which the split design runs a head dim: 64, 128 above
+    64, 256 above 128."""
+    return 64 if head_dim <= 64 else 128 if head_dim <= 128 else 256
+
+
+def split_workspace_elems(b, sq, sk, h, d, n_q, n_k):
+    """bf16 values of the split design's three-part operands: ``3 x rows
+    x heads x split_width`` (the C entry points' layout) for ``n_q``
+    operands of ``b x sq`` rows and ``n_k`` of ``b x sk``."""
+    return 3 * b * (n_q * sq + n_k * sk) * h * split_width(d)
 
 
 def split_workspace(q, sk, n_q, n_k, cuda_cores):
-    """The bf16 workspace of the split design's three-part operands, or
-    None where no split runs: ``3 x rows x heads x split_width`` values
-    (the C entry points' layout) for ``n_q`` operands of q's ``B x Sq``
-    rows and ``n_k`` of ``B x Sk``."""
+    """The bf16 workspace of an fp32 call's three-part operands (None for
+    bf16, or on the CUDA cores): :func:`split_workspace_elems` values."""
     b, sq, h, d = (int(x) for x in q.shape)
-    if cuda_cores or q.dtype != torch.float32 or design(q.dtype, d) != "tc":
+    if cuda_cores or q.dtype != torch.float32:
         return None
-    rows = b * (n_q * sq + n_k * sk)
-    return torch.empty(3 * rows * h * split_width(d), dtype=torch.bfloat16,
-                       device=q.device)
+    return torch.empty(split_workspace_elems(b, sq, sk, h, d, n_q, n_k),
+                       dtype=torch.bfloat16, device=q.device)
 
 
 def check_head_dim(d, what="flash attention kernel"):

@@ -20,11 +20,22 @@ q's dtype. The rotated q and k and P are never rounded.
 
 :func:`rope_attention_fused` is a ``torch.autograd.Function``. Its
 forward runs the kernel on a CUDA tensor (or raises) and the plain
-version on a CPU tensor. Its backward is autograd through the plain
-version, recomputed from the saved inputs: that is the JAX package's own
-design (the ``custom_vjp``'s ``_bwd`` is the VJP of
-``_composed_2d_tables``), not a fallback, so there is no backward kernel.
-The tables get no gradient.
+version on a CPU tensor. Its backward (:func:`rope_attention_backward`)
+is the JAX package's ``_bwd``: the VJP of ``_composed_2d_tables``,
+recomputed from the saved inputs. It is composed of the port's own
+kernels through their wrappers, in fp32 from end to end: q and k cast to
+fp32 and rotated by the rope kernel, the split flash forward recomputing
+the fp32 O and its LSE (the fused forward stores neither), the split
+flash backward on the rotated q and k, v and the gradient cast to fp32
+(Delta from that fp32 O), the rope backward kernel (-sin) on d(rq) and
+d(rk), and one cast of dq, dk, dv to the inputs' dtypes. Nothing the
+JAX ``_bwd`` keeps in fp32 is rounded: the flash kernels' rounding
+points (P and dS to the inputs' dtype) are no-ops in fp32. A CPU tensor
+runs the same composition through the plain versions of those kernels
+(``rope_reference``, ``flash_attention_reference``,
+``flash_attention_backward_reference``, ``rope_backward_reference``);
+autograd through the plain forward is only the tests' oracle. The
+tables get no gradient.
 
 In the port this kernel runs where the model selects the fusion
 (``LlamaForCausalLM(fusions={"rope_attention"})``): the JAX package
@@ -33,22 +44,26 @@ selects its TPU kernel through the tune cache
 ``S % block_q`` restriction is a tiling artefact and is not ported: the
 kernel takes any S and masks the ragged tail.
 
-Three designs, chosen by dtype and head dim (:func:`design`): bf16 whose
+Two designs, chosen by dtype and head dim (:func:`design`): bf16 whose
 padded head dim is 64 to 128 runs the tensor-core kernel (``"tc"``,
 ``tc::rope_attention_fwd_tc_kernel``), which keeps the fp32 contract by
 splitting each rotated q and k value and each probability into bf16 hi
 and lo parts (five bf16 products, fp32 accumulators;
-:func:`split_product_slack` bounds what that moves); fp32 up to a padded
-head dim of 128 runs the split design (``"split"``): a pre-pass rotates
-q and k in fp32 in ``_rotate``'s op order and writes each rotated value
-as three bf16 parts (all 24 bits: nothing is rounded) into the bf16
-workspace that flash attention's split forward reads, v is split the
-same way, and that forward (six bf16 products a product) runs on them
-with no LSE stored; the rest (fp32 above 128, other bf16 head dims) runs
-the CUDA-core kernel (``"cc"``, fp32 FMAs). ``cuda_cores=True`` runs the
-CUDA-core kernel at any head dim and dtype (the design the tensor-core
-ones replaced, kept to compare with). ``tc_launches``, ``split_launches``
-and ``cc_launches`` count each design beside ``launches``. A head dim
+:func:`split_product_slack` bounds what that moves); every other case
+(fp32 at every head dim, bf16 below a padded 64 and above 128) runs the
+split design (``"split"``): a pre-pass rotates q and k in fp32 in
+``_rotate``'s op order and writes each rotated value as three bf16 parts
+(all 24 bits: nothing is rounded; a bf16 input is cast to fp32 first,
+exactly) into the bf16 workspace that flash attention's split forward
+reads, v is split the same way, and that forward (six bf16 products a
+product; at a padded head dim above 128 a pair of CTAs, each on half of
+the head dim) runs on them with no LSE stored and writes O in the
+inputs' dtype. So bf16 outside 64 to 128 keeps the fp32 contract
+exactly, with no slack. ``cuda_cores=True`` runs the CUDA-core kernel
+(fp32 FMAs) at any head dim and dtype (the design the tensor-core ones
+replaced, kept to compare with). ``tc_launches``, ``split_launches`` and
+``cc_launches`` count each design beside ``launches``; ``bwd_launches``
+counts the backward's compositions on a CUDA tensor. A head dim
 that is not a multiple of 16 is padded into a copy half by half
 (``[x1, 0, x2, 0]``, the tables with zero columns), so column c still
 pairs with c + D/2 of the true D, and the output is sliced back.
@@ -61,34 +76,38 @@ import math
 import torch
 
 from . import _build
-from .flash_attention import (SPLIT_MAX_HEAD_DIM, TC_MIN_HEAD_DIM,
-                              check_head_dim, padded_head_dim,
-                              split_workspace)
-from .rope import pad_halves, unpad_halves
+from . import flash_attention as _flash
+from . import rope as _rope
+from .flash_attention import (TC_MIN_HEAD_DIM, check_head_dim,
+                              flash_attention_backward_reference,
+                              flash_attention_reference, padded_head_dim,
+                              split_workspace_elems)
+from .rope import (pad_halves, rope_backward_reference, rope_reference,
+                   unpad_halves)
 
 # launches, and the same by design: tensor cores (bf16 at a padded head
-# dim of 64 to 128), split products on the tensor cores (fp32 up to a
-# padded 128), CUDA cores (the rest, or on request)
+# dim of 64 to 128), split products on the tensor cores (the rest), CUDA
+# cores (on request); and the backward's compositions on a CUDA tensor
 launches = 0
 tc_launches = 0
 split_launches = 0
 cc_launches = 0
-DESIGN_COUNTERS = ("tc_launches", "split_launches", "cc_launches")
+bwd_launches = 0
+DESIGN_COUNTERS = ("tc_launches", "split_launches", "cc_launches",
+                   "bwd_launches")
 TC_MAX_HEAD_DIM = 128
 
 
 def design(dtype, head_dim):
-    """``"tc"`` (tensor cores, bf16 hi/lo products), ``"split"`` (fp32:
-    the rotate-and-split pre-pass and flash attention's split forward) or
-    ``"cc"`` (CUDA cores): the design ``ptt_rope_attention_fwd`` runs for
-    this dtype and head dim."""
+    """``"tc"`` (tensor cores, bf16 hi/lo products) or ``"split"`` (the
+    rotate-and-split pre-pass and flash attention's split forward): the
+    design ``ptt_rope_attention_fwd`` runs for this dtype and head dim
+    (the CUDA cores run only on request)."""
     padded = padded_head_dim(head_dim)
     if dtype == torch.bfloat16 and TC_MIN_HEAD_DIM <= padded \
             <= TC_MAX_HEAD_DIM:
         return "tc"
-    if dtype == torch.float32 and padded <= SPLIT_MAX_HEAD_DIM:
-        return "split"
-    return "cc"
+    return "split"
 
 
 def _table_2d(t):
@@ -217,14 +236,52 @@ class _RopeAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        # the VJP of the plain version, as the JAX _bwd takes the VJP of
-        # _composed_2d_tables: recomputed from the saved inputs
         q, k, v, cos2, sin2 = ctx.saved_tensors
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
-            out = _composed(*ins, cos2, sin2, ctx.causal, ctx.scale)
-            dq, dk, dv = torch.autograd.grad(out, ins, g)
+        dq, dk, dv = rope_attention_backward(q, k, v, g, cos2, sin2,
+                                             ctx.causal, ctx.scale)
         return dq, dk, dv, None, None, None, None
+
+
+def _kernel_steps():
+    """The backward's four steps on a CUDA tensor: the port's kernels."""
+    return (_rope.rope_cuda, _flash.flash_attention_cuda,
+            _flash.flash_attention_backward_cuda,
+            functools.partial(_rope.rope_cuda, inverse=True))
+
+
+def _plain_steps():
+    """The same four steps on a CPU tensor: the kernels' plain versions
+    (looked up when called, so that a test may replace one)."""
+    return (lambda q, k, c, s: (rope_reference(q, c, s),
+                                rope_reference(k, c, s)),
+            flash_attention_reference, flash_attention_backward_reference,
+            lambda q, k, c, s: (rope_backward_reference(q, c, s),
+                                rope_backward_reference(k, c, s)))
+
+
+def rope_attention_backward(q, k, v, g, cos2, sin2, causal, scale):
+    """``(dq, dk, dv)``: the VJP of :func:`rope_attention_reference` at
+    q, k, v for the output gradient ``g`` (the JAX ``_bwd``), composed of
+    the port's kernels on a CUDA tensor (or a raise) and of their plain
+    versions on the CPU, all in fp32: rotate q and k, the flash forward
+    for O and LSE, the flash backward, the rope backward, one cast."""
+    global bwd_launches
+    cuda = q.device.type == "cuda"
+    rope_fwd, flash_fwd, flash_bwd, rope_bwd = (
+        _kernel_steps() if cuda else _plain_steps())
+    tables = [t.float().reshape(1, t.shape[0], 1, t.shape[1])
+              for t in (cos2, sin2)]
+    f32 = [t.float().contiguous() for t in (q, k, v, g)]
+    rq, rk = rope_fwd(f32[0], f32[1], *tables)
+    del f32[:2]
+    o, lse = flash_fwd(rq, rk, f32[0], causal, scale)
+    drq, drk, dv = flash_bwd(rq, rk, f32[0], o, lse, f32[1], causal, scale)
+    del rq, rk, o, lse, f32
+    dq, dk = rope_bwd(drq, drk, *tables)
+    del drq, drk
+    if cuda:
+        bwd_launches += 1
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def rope_attention_fused(q, k, v, cos, sin, causal=True, scale=None):
@@ -321,9 +378,12 @@ def _launch(q, k, v, cos2, sin2, causal, scale, cuda_cores=False):
     st = [_strides(t, n, vec) for n, t in (("q", q), ("k", k), ("v", v))]
     lib = _build.load()
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    # fp32 up to 128: the rotated q and k and v in three parts, laid out
-    # as flash attention's split forward reads them
-    work = split_workspace(q, s, 1, 2, cuda_cores)
+    # the split design: the rotated q and k and v in three parts, laid
+    # out as flash attention's split forward reads them
+    work = None
+    if not cuda_cores and design(q.dtype, d) == "split":
+        work = torch.empty(split_workspace_elems(b, s, s, h, d, 1, 2),
+                           dtype=torch.bfloat16, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.ptt_rope_attention_fwd(
             _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),

@@ -28,18 +28,39 @@ from ..kernels import rms_norm as _rms
 from ..kernels import rope as _rope
 
 
-def linear(x, weight):
-    """``x @ weight`` with paddle's ``[in, out]`` weight (the Llama
-    projections carry no bias)."""
+def _not_ported(what):
+    """What the port does not compute yet is refused, never computed
+    another way."""
+    raise NotImplementedError(
+        f"{what} is not ported (ROADMAP.md queue A item 5)")
+
+
+def linear(x, weight, bias=None, name=None):
+    """``x @ weight`` with paddle's ``[in, out]`` weight, the reference's
+    parameter list (``common.py:31``); a bias is refused (the Llama
+    projections carry none)."""
+    if bias is not None:
+        _not_ported("linear's bias")
     x, weight = amp_cast("linear", x, weight)
     return torch.matmul(x, weight)
 
 
-def rms_norm(x, weight, epsilon=1e-6):
+def rms_norm(x, weight=None, bias=None, epsilon=1e-6, begin_norm_axis=-1,
+             name=None):
     """RMSNorm over the last axis, through the RMSNorm kernels on a CUDA
     tensor (the TPU path's ``rms_norm_fused``, dispatched as
     ``fused_rms_norm``: on neither AMP list, so it runs in the types it
-    is given)."""
+    is given). The reference's parameter list (``norm.py:150``); no
+    weight is a weight of ones (the same values: ``x * rstd * 1`` is
+    exact); a bias, or a norm over more than the last axis, is
+    refused."""
+    if bias is not None:
+        _not_ported("rms_norm's bias")
+    if begin_norm_axis % x.dim() != x.dim() - 1:
+        _not_ported(f"rms_norm over axes {begin_norm_axis}.. of a "
+                    f"{x.dim()}-d input (only the last axis)")
+    if weight is None:
+        weight = torch.ones(int(x.shape[-1]), dtype=x.dtype, device=x.device)
     return _rms.rms_norm(x, weight, float(epsilon))
 
 
@@ -64,8 +85,11 @@ def rope_attention(q, k, v, cos, sin, causal=True, scale=None):
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
-                                 is_causal=False):
-    """Attention over ``[B, S, H, D]`` tensors (``attention.py:54-86``).
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, name=None):
+    """Attention over ``[B, S, H, D]`` tensors (``attention.py:54-86``),
+    with the reference's parameter list. Dropout (``dropout_p > 0`` while
+    ``training``) is refused; outside training it is off, as there.
 
     Without ``attn_mask`` on a CUDA tensor it runs the flash attention
     kernels (the route the JAX package takes on its accelerator,
@@ -75,7 +99,10 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     op order of ``_sdpa_ref`` (``attention.py:21-42``): score product in
     the inputs' dtype, scale, causal mask aligned bottom-right (``tril``
     with ``k = sk - sq``), additive or boolean ``attn_mask``, fp32
-    softmax cast back, value product. No dropout."""
+    softmax cast back, value product."""
+    if float(dropout_p) > 0.0 and training:
+        _not_ported(f"dropout in scaled_dot_product_attention (dropout_p "
+                    f"{dropout_p})")
     query, key, value, attn_mask = amp_cast(
         "scaled_dot_product_attention", query, key, value, attn_mask)
     scale = 1.0 / math.sqrt(int(query.shape[-1]))
@@ -143,17 +170,24 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
     return q_out, k_out, v_out
 
 
-def cross_entropy(input, label, ignore_index=-100, reduction="mean", axis=-1):
-    """Hard-label cross entropy (``loss.py:26-70``): log-softmax over
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, label_smoothing=0.0, name=None):
+    """Hard-label cross entropy with the reference's parameter list
+    (``loss.py:73``; ``_cross_entropy`` ``:26-70``): log-softmax over
     ``axis`` in the input's dtype (fp32 under AMP, where the op is
-    black-listed), the label's entry picked, zero at ``ignore_index``;
-    ``mean`` divides by the count of kept labels (at least 1)."""
+    black-listed), or the log of the input clamped at 1e-30 without
+    ``use_softmax``; the label's entry picked, mixed with the mean over
+    classes by ``label_smoothing``, zero at ``ignore_index``; ``mean``
+    divides by the count of kept labels (at least 1). A class weight and
+    soft labels are refused."""
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"reduction must be 'mean', 'sum' or 'none', got "
                          f"{reduction!r}")
-    if label.dtype.is_floating_point:
-        raise TypeError(f"cross_entropy takes integer (hard) labels, got "
-                        f"{label.dtype}; soft labels are not ported")
+    if weight is not None:
+        _not_ported("cross_entropy's class weight")
+    if soft_label or label.dtype.is_floating_point:
+        _not_ported("cross_entropy with soft labels")
     input = amp_cast("cross_entropy", input)
     ax = axis % input.dim()
     lbl = label
@@ -168,8 +202,14 @@ def cross_entropy(input, label, ignore_index=-100, reduction="mean", axis=-1):
     lbl = lbl.long()
     valid = lbl != ignore_index
     safe = torch.where(valid, lbl, torch.zeros_like(lbl))
-    logp = torch.log_softmax(input, dim=ax)
+    if use_softmax:
+        logp = torch.log_softmax(input, dim=ax)
+    else:
+        logp = torch.log(torch.clamp_min(input, 1e-30))
     loss = -torch.gather(logp, ax, safe.unsqueeze(ax)).squeeze(ax)
+    if label_smoothing > 0:
+        loss = (1 - label_smoothing) * loss \
+            + label_smoothing * -logp.mean(dim=ax)
     loss = torch.where(valid, loss, torch.zeros_like(loss))
     if reduction == "mean":
         return loss.sum() / valid.sum().to(loss.dtype).clamp_min(1.0)

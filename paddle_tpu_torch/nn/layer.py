@@ -69,4 +69,4 @@ class RMSNorm(nn.Module):
         self.weight.fill_(1.0)
 
     def forward(self, x):
-        return F.rms_norm(x, self.weight, self._epsilon)
+        return F.rms_norm(x, self.weight, epsilon=self._epsilon)

@@ -452,8 +452,8 @@ FLASH_CASES = {
     "causal_d64_sq_lt_sk": (True, 200, 333, 64, False),
     # head dims on the padded kernels: 80, 96 (128 wide; the tensor cores
     # both ways, fp32 through split products), 160 and 192 (256 wide; bf16
-    # on the tensor cores both ways, fp32 on the CUDA cores), 48 (64 wide,
-    # the tensor cores)
+    # on the tensor cores both ways, fp32 through split products on pairs
+    # of CTAs), 48 (64 wide, the tensor cores)
     "causal_d80": (True, 130, 130, 80, False),
     "full_d96": (False, 100, 77, 96, False),
     "causal_d96_sq_lt_sk": (True, 70, 200, 96, False),
@@ -501,11 +501,11 @@ def test_flash_attention_kernels(dev, dtype, case):
 @pytest.mark.parametrize("d", [16, 32, 64, 128, 256, 80, 96, 160, 192, 72,
                                40])
 def test_flash_attention_dispatches_by_dtype(dev, d):
-    """The tensor-core kernels run every bf16 head dim, both ways (below
-    64 at the 64-wide kernels, above 128 the backward on the split
-    design's one-part kernels), and fp32 up to 128 (split products); fp32
-    above 128 runs the CUDA-core kernels. ``cuda_cores=True`` runs the
-    CUDA-core kernels at any head dim and counts them there."""
+    """The tensor-core kernels run every head dim in both dtypes, both
+    ways (bf16 below 64 at the 64-wide kernels, above 128 the backward on
+    the split design's one-part kernels; fp32 through split products,
+    above 128 on pairs of CTAs). ``cuda_cores=True`` runs the CUDA-core
+    kernels at any head dim and counts them there."""
     from paddle_tpu_torch import kernels
 
     for dt in (torch.bfloat16, torch.float32):
@@ -513,8 +513,7 @@ def test_flash_attention_dispatches_by_dtype(dev, d):
         kernels.reset_launch_counts()
         o, lse = tfa.flash_attention_cuda(q, k, v, True)
         tfa.flash_attention_backward_cuda(q, k, v, o, lse, do, True)
-        dp = tfa.padded_head_dim(d)
-        kind = "cc" if dt == torch.float32 and dp > 128 else "tc"
+        kind = "tc"
         want = dict.fromkeys(tfa.DESIGN_COUNTERS, 0)
         want[f"{kind}_launches"] += 1
         want[f"{kind}_bwd_launches"] += 1
@@ -736,7 +735,7 @@ ROPE_ATTENTION_CASES = {
     "causal_d80": (True, 130, 80, 1e-5, False),
     "full_d96": (False, 100, 96, 1e-5, False),
     # not multiples of 16: each half zero-padded by the wrapper (72 to
-    # the tensor cores at 80 in bf16, 40 to the CUDA cores at 48)
+    # the tensor cores at 80 in bf16, 40 to the split design at 48)
     "causal_d72": (True, 130, 72, 1e-5, False),
     "full_d40": (False, 100, 40, 1e-5, False),
 }
@@ -760,14 +759,53 @@ def test_rope_attention_kernel(dev, dtype, case):
         before[0] + 1, before[1] + 1)
     padded = -(-d // 16) * 16
     assert design == ("tc" if dt == torch.bfloat16 and 64 <= padded <= 128
-                      else "split" if dt == torch.float32 and padded <= 128
-                      else "cc")
+                      else "split")
     ref = tfra.rope_attention_reference(q, k, v, cos, sin, causal=causal)
     assert o.dtype == dt and o.shape == q.shape and torch.isfinite(o).all()
     # the tensor-core kernel's split products: their own slack
     slack = (tfra.split_product_slack(q, k, v, cos, sin, causal=causal)
              if design == "tc" else None)
     assert _cast_once_ok(o, ref, tol, slack)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("d", [16, 72, 128, 256])
+def test_rope_attention_backward_composes_the_kernels(dev, dtype, d):
+    """The fused backward on the card: one rope and one rope-backward
+    launch, one flash forward and one flash backward (the tensor-core
+    design), counted once as the composition; its gradients against the
+    plain VJP (autograd through the plain forward on the card) within the
+    flash backward's tolerance, and bit for bit on a repeat."""
+    from paddle_tpu_torch import kernels
+
+    dt = DTYPES[dtype]
+    s = 130
+    q, k, v, g = _flash_inputs(dev, dt, 2, s, s, 3, d, seed=d + 7)
+    cos, sin = trope.build_rope_cache(s, d, device=dev)
+
+    def grads(fn):
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        return torch.autograd.grad(fn(*ins), ins, g)
+
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = tfra.rope_attention_fused(*ins, cos, sin)
+    kernels.reset_launch_counts()
+    got = torch.autograd.grad(o, ins, g)
+    counts = kernels.launch_counts()
+    want_counts = dict.fromkeys(kernels.KERNELS, 0)
+    want_counts.update(rope=1, rope_bwd=1, flash_attention_fwd=1,
+                       flash_attention_bwd=1, rope_attention_bwd=1)
+    assert counts == want_counts
+    assert kernels.flash_design_counts() == {
+        "tc_launches": 1, "tc_bwd_launches": 1, "cc_launches": 0,
+        "cc_bwd_launches": 0}
+    again = grads(lambda *ins: tfra.rope_attention_fused(*ins, cos, sin))
+    plain = grads(lambda *ins: tfra.rope_attention_reference(*ins, cos, sin))
+    for a, b, w in zip(got, again, plain):
+        assert a.dtype == dt and torch.isfinite(a).all()
+        assert torch.equal(a, b)
+        assert _cast_once_ok(a, w, 1e-4)
 
 
 @pytest.mark.cuda

@@ -213,13 +213,13 @@ def test_head_wrapper_counts_the_design_it_runs(fake_head, dtype, rows):
 @pytest.mark.parametrize("width", range(16, 257, 16))
 def test_rope_attention_design_table(width):
     """Every padded head dim (and the head dim 8 below it): bf16 on the
-    tensor cores at a padded 64 to 128, fp32 on the split design up to a
-    padded 128, the rest on the CUDA cores."""
+    tensor cores at a padded 64 to 128, everything else (fp32 at every
+    head dim, bf16 below 64 and above 128) on the split design; never the
+    CUDA cores."""
     for d in (width - 8, width):
         assert tfra.design(torch.bfloat16, d) == (
-            "tc" if 64 <= width <= 128 else "cc")
-        assert tfra.design(torch.float32, d) == (
-            "split" if width <= 128 else "cc")
+            "tc" if 64 <= width <= 128 else "split")
+        assert tfra.design(torch.float32, d) == "split"
 
 
 @pytest.fixture

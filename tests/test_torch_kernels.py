@@ -726,14 +726,15 @@ def _split_mm(a, b, acc=None, fault=None, p_operand=False):
     three bf16 parts, the six terms in the kernels' order, each over
     k-steps of 16 added to one fp32 accumulator. ``fault``: "two_part"
     (hi and lo parts, three terms), "no_hm" (the hi.mid term dropped),
-    "p_bf16" (a P or P^T operand, ``p_operand``, taken as its hi part
-    alone: rounded to bf16), "p_lo" (its lo part skipped)."""
+    "no_mm" (the mid.mid term dropped), "p_bf16" (a P or P^T operand,
+    ``p_operand``, taken as its hi part alone: rounded to bf16), "p_lo"
+    (its lo part skipped)."""
     if fault == "two_part":
         pa, pb, terms = _parts(a, 2), _parts(b, 2), ((0, 1), (1, 0), (0, 0))
     else:
         pa, pb, terms = _parts(a), _parts(b), SPLIT_TERMS
-        if fault == "no_hm":
-            terms = tuple(t for t in terms if t != (0, 1))
+        drop = {"no_hm": (0, 1), "no_mm": (1, 1)}.get(fault)
+        terms = tuple(t for t in terms if t != drop)
         if p_operand and fault in ("p_bf16", "p_lo"):
             terms = tuple(t for t in terms
                           if t[0] == 0 or (fault == "p_lo" and t[0] == 1))
@@ -752,8 +753,12 @@ def _emulate_split_flash(q, k, v, g, causal, fault=None):
     the log2 domain, P split, O += P V from six products), Delta, the
     dK/dV pass over k tiles of 64 and q blocks of 64 (S^T, dP^T, P^T, dS^T
     = P^T (dP^T - Delta) scale, dV += P^T dO, dK += dS^T Q), the dQ pass
-    over q tiles of 64 and k blocks of 64. Returns (o, lse, dq, dk, dv)
-    in the plain version's layouts."""
+    over q tiles of 64 and k blocks of 64. Above D 128 (the pair of CTAs,
+    each holding 128 columns) a product over D is the sum of the two
+    CTAs' partials over their chunks of D, the first chunk's plus the
+    second's (``fault`` "drop_chunk": the second one lost); the products
+    over keys or rows only split their output columns. Returns (o, lse,
+    dq, dk, dv) in the plain version's layouts."""
     qf, kf, vf, gf = (t.float().transpose(1, 2) for t in (q, k, v, g))
     sq, sk, d = qf.shape[2], kf.shape[2], qf.shape[3]
     scale = 1.0 / math.sqrt(d)
@@ -761,6 +766,19 @@ def _emulate_split_flash(q, k, v, g, causal, fault=None):
 
     def mm(a, b, acc=None, p_operand=False):
         return _split_mm(a, b, acc, fault, p_operand)
+
+    def mm_d(a, b):
+        """``a @ b`` over the head dim: one partial a CTA's chunk"""
+        if d <= 128:
+            return mm(a, b)
+        parts = [mm(a[..., c:c + 128], b[..., c:c + 128, :])
+                 for c in range(0, d, 128)]
+        if fault == "drop_chunk":
+            parts = parts[:1]
+        out = parts[0]
+        for part in parts[1:]:
+            out = out + part
+        return out
 
     def visible(r0, rows, c0, cols):
         r = torch.arange(r0, r0 + rows)[:, None]
@@ -780,7 +798,7 @@ def _emulate_split_flash(q, k, v, g, causal, fault=None):
             if causal and k0 > q0 + rows - 1 + sk - sq:
                 break
             kt, vt = kf[:, :, k0:k0 + 64], vf[:, :, k0:k0 + 64]
-            s = mm(qt, kt.transpose(-1, -2)) * sl2
+            s = mm_d(qt, kt.transpose(-1, -2)) * sl2
             s = s.masked_fill(~visible(q0, rows, k0, s.shape[-1]), -math.inf)
             m_new = torch.maximum(m, s.amax(-1, keepdim=True))
             alpha = torch.exp2(m - m_new)
@@ -805,8 +823,8 @@ def _emulate_split_flash(q, k, v, g, causal, fault=None):
         for q0 in range(0, sq, 64):
             qt, gt = qf[:, :, q0:q0 + 64], gf[:, :, q0:q0 + 64]
             rows = qt.shape[2]
-            st = mm(kt, qt.transpose(-1, -2))
-            dpt = mm(vt, gt.transpose(-1, -2))
+            st = mm_d(kt, qt.transpose(-1, -2))
+            dpt = mm_d(vt, gt.transpose(-1, -2))
             p, ds = p_ds(st.transpose(-1, -2), dpt.transpose(-1, -2), q0,
                          rows, k0, cols)
             dv[:, :, k0:k0 + cols] = mm(p.transpose(-1, -2), gt,
@@ -819,8 +837,8 @@ def _emulate_split_flash(q, k, v, g, causal, fault=None):
         rows = qt.shape[2]
         for k0 in range(0, sk, 64):
             kt, vt = kf[:, :, k0:k0 + 64], vf[:, :, k0:k0 + 64]
-            _, ds = p_ds(mm(qt, kt.transpose(-1, -2)),
-                         mm(gt, vt.transpose(-1, -2)), q0, rows, k0,
+            _, ds = p_ds(mm_d(qt, kt.transpose(-1, -2)),
+                         mm_d(gt, vt.transpose(-1, -2)), q0, rows, k0,
                          kt.shape[2])
             dq[:, :, q0:q0 + rows] = mm(ds, kt, dq[:, :, q0:q0 + rows])
     back = [t.transpose(1, 2) for t in (o, dq, dk, dv)]
@@ -846,15 +864,15 @@ def _jax_flash_fp32(qn, kn, vn, gn, causal):
     return [_np(o), lse, *(_np(x) for x in vjp(gj))]
 
 
-def _split_flash_ratio(fault):
+def _split_flash_ratio(fault, d=64):
     """The largest error over tolerance of the emulated fp32 split design
-    (with ``fault``) against the JAX package's fp32 flash path: O and LSE
-    within 1e-5 of the largest entry, dQ, dK, dV within 1e-4 (the fp32
-    tolerances, no slack). q and k have a standard deviation of 4, which
-    sharpens the softmax as trained attention does and lets an error in
-    the scores show in O."""
+    (with ``fault``, at head dim ``d``) against the JAX package's fp32
+    flash path: O and LSE within 1e-5 of the largest entry, dQ, dK, dV
+    within 1e-4 (the fp32 tolerances, no slack). q and k have a standard
+    deviation of 4, which sharpens the softmax as trained attention does
+    and lets an error in the scores show in O."""
     rng = np.random.RandomState(7)
-    b, s, h, d = 1, 160, 2, 64
+    b, s, h = 1, 160, 2
     qn, kn = (4.0 * rng.randn(b, s, h, d).astype(np.float32)
               for _ in range(2))
     vn, gn = (rng.randn(b, s, h, d).astype(np.float32) for _ in range(2))
@@ -883,6 +901,17 @@ def test_fp32_split_design_within_fp32_tolerance(fault):
         assert _split_flash_ratio(fault) > 1.0
 
 
+@pytest.mark.parametrize("fault", [None, "drop_chunk", "no_mm", "two_part"])
+def test_fp32_split_d256_tiling_within_fp32_tolerance(fault):
+    """The split design at head dim 256 (each kernel a pair of CTAs, each
+    CTA's score partials over its 128 columns, summed through the
+    exchange) lies within the fp32 tolerances of the JAX package's fp32
+    flash path; seeded faults fall outside: a D chunk's partial dropped,
+    the mid.mid term dropped, and a two-part split."""
+    ratio = _split_flash_ratio(fault, d=256)
+    assert ratio <= 1.0 if fault is None else ratio > 1.0
+
+
 def test_fp32_split_p_lo_part_is_below_the_fp32_tolerance():
     """P's lo part is the one part the fp32 contract does not need:
     skipping it moves a P entry by at most 2^-17 of itself, so O and dV
@@ -896,17 +925,16 @@ def test_fp32_split_p_lo_part_is_below_the_fp32_tolerance():
 @pytest.mark.parametrize("width", range(16, 257, 16))
 def test_flash_design_table(width):
     """Every padded head dim (and the head dim 8 below it, padded to it),
-    both dtypes, forward and backward: bf16 runs the tensor-core design,
-    fp32 too up to a padded 128 (split products, at width 64 up to head
-    dim 64, else 128), fp32 above on the CUDA cores."""
+    both dtypes, forward and backward: the tensor-core design, fp32
+    through split products at width 64 up to head dim 64, 128 up to 128,
+    else 256 (a pair of CTAs, each on 128 columns)."""
     for d in (width - 8, width):
         assert tfa.padded_head_dim(d) == width
         for backward in (False, True):
             assert tfa.design(torch.bfloat16, d, backward) == "tc"
-            assert tfa.design(torch.float32, d, backward) == \
-                ("tc" if width <= 128 else "cc")
-        if width <= 128:
-            assert tfa.split_width(d) == (64 if d <= 64 else 128)
+            assert tfa.design(torch.float32, d, backward) == "tc"
+        assert tfa.split_width(d) == (64 if d <= 64 else
+                                      128 if d <= 128 else 256)
 
 def test_flash_attention_refuses_shapes():
     q = torch.zeros(1, 4, 2, 16)
