@@ -36,7 +36,8 @@ It imports neither jax nor ``paddle_tpu``. Phases, each fatal on failure:
 4. small parity: tiny fp32 Llamas on the card (MHA, GQA, and head dims
    96 with MQA, 80 with GQA, 72 with GQA, 16 with 16 query heads on one
    kv head),
-   whose paged-engine greedy streams must equal ``generate`` with an
+   whose paged-engine and slab-engine greedy streams (through their
+   programs, CUDA graphs) must equal ``generate`` with an
    fp32 slab cache token for token; then the MHA and GQA models quantized
    (``quantize_for_serving``), whose paged and slab engines' streams
    with an int8 cache must equal ``generate(cache_dtype="int8")``;
@@ -57,19 +58,30 @@ It imports neither jax nor ``paddle_tpu``. Phases, each fatal on failure:
    time and peak memory; then, reset again, 3 fp32 steps with both
    fusions (below);
 7. serving: Llama-2-7B at full width and depth (random bf16 weights
-   from a seeded generator) served by ``PagedServingEngine`` (8 rows,
-   2048 slots, page size 16, bf16 arena) for 12 staggered requests of
-   64 new tokens; every serving kernel must have launched during this
-   phase, no page may leak, and every generated token must pass a
-   teacher-forced check against the cache-free forward (which attends
-   through the flash attention kernel);
+   from a seeded generator) served by two ``PagedServingEngine``s (8
+   rows, 2048 slots, page size 16, bf16 arena each): one through its
+   fixed-shape programs (CUDA graphs, the default; ``warmup()`` first
+   must capture 17 programs, a second call none) and one with
+   ``graphs=False`` (eager), 12 staggered requests of 64 new tokens
+   through each in the order eager, graphs, eager, graphs; every run's
+   streams must equal the first's token for token, every run must
+   launch the counts the structure gives (RMSNorm 65 and rope 32 a
+   forward, paged attention 32 a decode step; a replay counts the
+   launches its capture recorded), the graph engine must capture
+   nothing during traffic, no page may leak, and every generated token
+   must pass a teacher-forced check against the cache-free forward
+   (which attends through the flash attention kernel); ITL, decode step
+   time, ``decode_s``, TTFT, prefill tokens/s, peak memory and
+   ``warmup()``'s seconds and memory are printed for both modes;
 8. quantized serving: the same Llama-2-7B weights through
    ``quantize_for_serving`` (int8 weights, W8A16 kernel) and the same 12
-   requests through ``PagedServingEngine`` with an int8 KV arena; the
+   requests through two ``PagedServingEngine``s with an int8 KV arena
+   (the graph engine warmed first), in the order eager, graphs; the
    int8 paged attention and the W8A16 kernels must have launched the
    counts the structure gives (32 and 6 x 32 + 1 per decode step, 193
-   per prefill), every W8A16 launch on its tensor-core design (bf16),
-   no page may leak, and every generated token must pass
+   per prefill) in both, every W8A16 launch on its tensor-core design
+   (bf16), the streams must be equal, no page may leak, and every
+   generated token must pass
    a teacher-forced check against one slab prefill of the whole
    sequence with an int8 cache (the same quantization, composed
    attention).
@@ -97,17 +109,21 @@ fused head 1 on its split design (fp32 under O1), RMSNorm 16 + 16),
 and, after the fp32 steps, 3 fp32 steps with both fusions (step-1 loss
 within 1e-5 of the unfused fp32 one, the same launches, both fusions on
 their split designs; ``fused fp32 training: {...}``); after phase 7,
-the same model and engine
-with both fusions serving the same 12 requests (per decode step the
-fused head 1, on its tensor-core design at every decode step and
-prefill, RMSNorm 64, rope 32, paged attention 32; no page leak)
+the same model and engines
+with both fusions serving the same 12 requests, graphs then eager (the
+graph engine's decode and prefill programs are captured again at their
+first use: one decode step and one prefill per bucket used; per decode
+step the fused head 1, on its tensor-core design at every decode step
+and prefill, RMSNorm 64, rope 32, paged attention 32; equal streams; no
+page leak)
 and its teacher-forced check through the fused cache-free forward (the
 fused attention 32 times a sequence, no flash), with the count of tokens
 that differ from the unfused streams printed.
 
-``--profile-steps N`` profiles N decode steps after each serving phase,
-and one 1024-bucket prefill (three times) of the bf16, the fused and the
-quantized model.
+``--profile-steps N`` profiles N decode steps after each serving phase
+(the graph engine's, and the bf16 and quantized eager engines'), with
+the graph's replay also timed by CUDA events, and one 1024-bucket
+prefill (three times) of the bf16, the fused and the quantized model.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -1465,8 +1481,6 @@ KERNELS = [
      "paddle_tpu/kernels/fused_rope_attention.py:153 (_bwd, plain jax; "
      "no pl.pallas_call)"),
 ]
-# the kernels each main-path phase must launch
-SERVING_KERNELS = ("rms_norm", "rope", "paged_attention")
 # launches per training step, from the model's structure: two RMSNorms
 # per layer and the final one; one rope launch (q and k) per layer; one
 # flash attention per layer; forward and backward each
@@ -1523,29 +1537,33 @@ SMALL_PARITY_SHAPES = ((384, 4, 1), (320, 4, 2), (256, 16, 1), (288, 4, 2))
 
 
 def _paged_equals_generate(torch, np, dev, cfg, label):
-    """A tiny fp32 model's paged-engine greedy streams against
-    ``generate`` with an fp32 slab cache, token for token; returns the
-    model."""
+    """A tiny fp32 model's paged-engine and slab-engine greedy streams,
+    both through their programs (CUDA graphs), against ``generate`` with
+    an fp32 slab cache, token for token; returns the model."""
     from paddle_tpu_torch.models import LlamaForCausalLM
-    from paddle_tpu_torch.serving import PagedServingEngine
+    from paddle_tpu_torch.serving import PagedServingEngine, ServingEngine
 
     net = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=4)
     rng = np.random.RandomState(5)
     prompts = [rng.randint(0, 256, (n,)) for n in (9, 17, 30, 5)]
     news = [12, 5, 9, 16]
-    eng = PagedServingEngine(net, max_batch_size=2, max_seq_len=64,
-                             page_size=8, min_bucket=8,
-                             cache_dtype="float32")
-    hs = [eng.submit(p, m) for p, m in zip(prompts, news)]
-    eng.run_until_idle()
-    for h, p, m in zip(hs, prompts, news):
-        want = net.generate(p[None], max_new_tokens=m,
-                            cache_dtype="float32")[0].cpu().numpy()
-        if h.status != "DONE" or not np.array_equal(h.output_ids, want):
-            fail(f"small parity ({label}): paged engine stream "
-                 f"{h.output_ids.tolist()} != generate {want.tolist()}")
-    if eng.page_pool.pages_in_use:
-        fail(f"small parity ({label}): pages leaked")
+    kw = dict(max_batch_size=2, max_seq_len=64, min_bucket=8,
+              cache_dtype="float32")
+    for kind, eng in (("paged", PagedServingEngine(net, page_size=8, **kw)),
+                      ("slab", ServingEngine(net, **kw))):
+        hs = [eng.submit(p, m) for p, m in zip(prompts, news)]
+        eng.run_until_idle()
+        for h, p, m in zip(hs, prompts, news):
+            want = net.generate(p[None], max_new_tokens=m,
+                                cache_dtype="float32")[0].cpu().numpy()
+            if h.status != "DONE" or not np.array_equal(h.output_ids, want):
+                fail(f"small parity ({label}): {kind} engine stream "
+                     f"{h.output_ids.tolist()} != generate {want.tolist()}")
+        if eng.pool.occupancy:
+            fail(f"small parity ({label}): the {kind} engine leaked")
+        if not eng.compile_counts()["serving::decode_step"]:
+            fail(f"small parity ({label}): the {kind} engine captured no "
+                 f"decode program")
     return net, prompts, news
 
 
@@ -1589,9 +1607,10 @@ def small_parity(torch, np, dev):
             if eng.pool.occupancy:
                 fail(f"small int8 parity: the {kind} engine leaked")
     log("small parity: tiny fp32 Llama (MHA and GQA kvH=2; D 96 MQA, D 80 "
-        "GQA kvH=2, 16 heads on 1 kv head, D 72 GQA kvH=2), paged engine "
-        "== generate token for token; quantized (int8 weights, int8 KV; MHA "
-        "and GQA), paged and slab engines == generate(cache_dtype='int8')")
+        "GQA kvH=2, 16 heads on 1 kv head, D 72 GQA kvH=2), paged and slab "
+        "engines (CUDA graphs) == generate token for token; quantized "
+        "(int8 weights, int8 KV; MHA and GQA), paged and slab engines "
+        "== generate(cache_dtype='int8')")
 
 
 def fused_parity(torch, np, dev):
@@ -2051,19 +2070,30 @@ def fused_training(torch, np, net, inputs, labels, unfused_loss0, card,
 
 # ------------------------------------------------------------ serving
 SERVE_MAX_NEW = 64
+# every serving phase's engines: 8 rows of 2048 slots, pages of 16
+ENGINE_KW = dict(max_batch_size=8, max_seq_len=2048, page_size=16)
+# the numbers each mode prints, run by run
+MODE_KEYS = ("itl_p50_s", "decode_step_p50_s", "decode_s", "ttft_p50_s",
+             "prefill_tok_per_s", "wall_s", "peak_mem_bytes",
+             "reserved_bytes")
 
 
-def drive_requests(torch, np, eng, cfg):
+def drive_requests(torch, np, eng, cfg, mode, label):
     """The serving traffic: 12 requests, prompts of 32-1024 tokens from
     seed 1234, 64 new tokens each, six at once and six more after 24
     steps, so late requests take rows that early ones free. The launch
-    counts are zeroed just before and read just after. Returns (handles,
-    prompt lengths, steps, wall seconds, launch counts, peak bytes)."""
+    counts are zeroed just before and read just after. Returns the run:
+    its handles, prompt lengths, decode steps and prefills, launch
+    counts (and by design), the engine's capture counts before and
+    after, and ``result``, the numbers it prints."""
     from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.serving.metrics import ServingMetrics
 
+    eng.metrics = ServingMetrics()  # this run's numbers only
     rng = np.random.RandomState(1234)
     lens = rng.randint(32, 1025, size=12)
     prompts = [rng.randint(0, cfg.vocab_size, (int(n),)) for n in lens]
+    captures = eng.compile_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -2076,16 +2106,41 @@ def drive_requests(torch, np, eng, cfg):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
+    designs = {"fusions": kernels.fusion_design_counts(),
+               "int8_matmul": kernels.int8_matmul_design_counts()}
     peak = torch.cuda.max_memory_allocated()
     for h in handles:
         if h.status != "DONE" or len(h.tokens) != SERVE_MAX_NEW:
-            fail(f"request {h.request.request_id}: status {h.status}, "
-                 f"{len(h.tokens)} tokens")
+            fail(f"{label} ({mode}): request {h.request.request_id}: "
+                 f"status {h.status}, {len(h.tokens)} tokens")
     if eng.page_pool.pages_in_use:
-        fail(f"{eng.page_pool.pages_in_use} pages leaked")
+        fail(f"{label} ({mode}): {eng.page_pool.pages_in_use} pages leaked")
     if min(h.admitted_step for h in handles[6:]) < 24:
-        fail("late requests were not admitted after the first wave")
-    return handles, lens, steps, wall, counts, peak
+        fail(f"{label} ({mode}): late requests were not admitted after "
+             f"the first wave")
+    m = eng.metrics
+    result = {
+        "mode": mode, "steps": steps, "wall_s": wall,
+        "prefill_tokens": m.prefill_tokens.value,
+        "prefill_s": m.prefill_time.sum,
+        "prefill_tok_per_s": m.prefill_tokens.value / m.prefill_time.sum,
+        "decode_tokens": m.decode_tokens.value,
+        "decode_s": m.decode_step_time.sum,
+        "decode_tok_per_s": m.decode_tokens.value / m.decode_step_time.sum,
+        "ttft_p50_s": m.ttft.percentile(50),
+        "prefill_p50_s": m.prefill_time.percentile(50),
+        "itl_p50_s": m.itl.percentile(50),
+        "decode_step_p50_s": m.decode_step_time.percentile(50),
+        "peak_mem_bytes": peak,
+        "reserved_bytes": torch.cuda.memory_reserved(),
+        "launches": counts, "captures": eng.compile_counts(),
+    }
+    log(f"{label} ({mode}): " + json.dumps(result))
+    return {"mode": mode, "handles": handles, "lens": lens,
+            "decode_steps": m.decode_step_time.count,
+            "prefills": m.prefill_time.count, "counts": counts,
+            "designs": designs, "captures_before": captures,
+            "captures": result["captures"], "result": result}
 
 
 def teacher_forced(torch, dev, handles, logits_of, label):
@@ -2121,27 +2176,81 @@ def teacher_forced(torch, dev, handles, logits_of, label):
     return ties, worst_gap
 
 
-def serving_result(eng, handles, lens, steps, wall, counts, peak, ties,
-                   worst_gap, **extra):
-    m = eng.metrics
-    return dict(extra, **{
-        "requests": len(handles), "prompt_lens": [int(n) for n in lens],
-        "max_new_tokens": SERVE_MAX_NEW, "steps": steps, "wall_s": wall,
-        "prefill_tokens": m.prefill_tokens.value,
-        "prefill_s": m.prefill_time.sum,
-        "prefill_tok_per_s": m.prefill_tokens.value / m.prefill_time.sum,
-        "decode_tokens": m.decode_tokens.value,
-        "decode_s": m.decode_step_time.sum,
-        "decode_tok_per_s": m.decode_tokens.value / m.decode_step_time.sum,
-        "ttft_p50_s": m.ttft.percentile(50),
-        "prefill_p50_s": m.prefill_time.percentile(50),
-        "itl_p50_s": m.itl.percentile(50),
-        "decode_step_p50_s": m.decode_step_time.percentile(50),
-        "peak_mem_bytes": peak,
-        "arena_bytes": eng.page_pool.arena_bytes(),
-        "launches": counts,
-        "near_ties": ties, "near_tie_max_gap": worst_gap,
-    })
+def warm_engine(torch, eng, label):
+    """``warmup()`` of a graph engine before its traffic: fails unless it
+    captures 1 + 2 x buckets programs (17 at 2048 slots from bucket 16)
+    and a second call none. Returns its seconds and the device memory
+    it took: ``memory_allocated`` (the pooled prefill blocks, one a
+    bucket, which an eager engine also allocates as it meets each
+    bucket, ``block_bytes``; and the programs' static outputs) and
+    ``memory_reserved`` (with the graph pool)."""
+    from paddle_tpu_torch.quantization.kv import kv_token_bytes
+
+    cfg = eng.config
+    buckets = eng._warmup_buckets()
+    block_bytes = sum(buckets) * 2 * cfg.num_hidden_layers * kv_token_bytes(
+        cfg.kv_heads, cfg.head_dim, eng.cache_dtype)
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated()
+    reserved0 = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    stats = eng.warmup()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    want = 1 + 2 * len(buckets)
+    if stats != {"programs": want, "aot_hits": 0, "aot_saves": 0}:
+        fail(f"{label}: warmup() gave {stats}, expected {want} programs")
+    if eng.warmup()["programs"]:
+        fail(f"{label}: a second warmup() captured programs")
+    res = {"warmup_s": seconds, "programs": stats["programs"],
+           "buckets": buckets, "captures": eng.compile_counts(),
+           "block_bytes": block_bytes,
+           "programs_alloc_bytes": torch.cuda.memory_allocated() - alloc0,
+           "programs_reserved_bytes": (torch.cuda.memory_reserved()
+                                       - reserved0)}
+    log(f"{label} warmup: " + json.dumps(res))
+    return res
+
+
+def serve_modes(torch, np, cfg, engines, order, label, want_counts,
+                recaptures=None):
+    """The 12 requests through ``engines[mode]`` ("graphs": the programs,
+    the default; "eager": ``graphs=False``) for each mode of ``order``,
+    in one call. Fails unless every run's streams equal the first run's
+    token for token, every run launched ``want_counts(run)`` (the graph
+    runs count each replay's captured launches), and the graph engine's
+    captures moved by ``recaptures(run)`` in its first run (by default
+    none: warmed before) and by none after it. Returns the runs and a
+    summary of each mode's numbers."""
+    runs, seen = [], set()
+    for mode in order:
+        run = drive_requests(torch, np, engines[mode], cfg, mode, label)
+        runs.append(run)
+        first = runs[0]
+        for h, ref in zip(run["handles"], first["handles"]):
+            if h.tokens != ref.tokens:
+                fail(f"{label}: the {mode} stream of request "
+                     f"{h.request.request_id} differs from the "
+                     f"{first['mode']} one: {h.tokens} != {ref.tokens}")
+        want = want_counts(run)
+        if run["counts"] != want:
+            fail(f"{label} ({mode}): launches {run['counts']}, expected "
+                 f"{want} ({run['decode_steps']} decode steps, "
+                 f"{run['prefills']} prefills)")
+        moved = {k: run["captures"][k] - run["captures_before"][k]
+                 for k in run["captures"]}
+        want_moved = dict.fromkeys(moved, 0)
+        if mode == "graphs" and mode not in seen and recaptures:
+            want_moved.update(recaptures(run))
+        if moved != want_moved:
+            fail(f"{label} ({mode}): captures moved {moved} during "
+                 f"traffic, expected {want_moved}")
+        seen.add(mode)
+    summary = {mode: {k: [r["result"][k] for r in runs
+                          if r["mode"] == mode] for k in MODE_KEYS}
+               for mode in dict.fromkeys(order)}
+    log(f"{label} modes: " + json.dumps(summary))
+    return runs, summary
 
 
 def serving_phase(torch, np, dev, card, profile_steps=0):
@@ -2156,71 +2265,91 @@ def serving_phase(torch, np, dev, card, profile_steps=0):
     log(f"serving: Llama-2-7B, {layers} layers, "
         f"{net.num_params() / 1e9:.3f}B params bf16, built in "
         f"{time.perf_counter() - t0:.1f} s")
-    eng = PagedServingEngine(net, max_batch_size=8, max_seq_len=2048,
-                             page_size=16, cache_dtype="bfloat16")
-    log(f"serving: page arena {eng.page_pool.num_pages + 1} pages x 16 "
-        f"slots, {eng.page_pool.arena_bytes() / 1e9:.2f} GB")
-    handles, lens, steps, wall, counts, peak = drive_requests(
-        torch, np, eng, cfg)
-    missing = [k for k in SERVING_KERNELS if counts[k] <= 0]
-    if missing:
-        fail(f"kernels not launched in the serving phase: {missing}")
+    eng = PagedServingEngine(net, cache_dtype="bfloat16", **ENGINE_KW)
+    eager = PagedServingEngine(net, cache_dtype="bfloat16", graphs=False,
+                               **ENGINE_KW)
+    log(f"serving: two engines (graphs, eager), each a page arena of "
+        f"{eng.page_pool.num_pages + 1} pages x 16 slots, "
+        f"{eng.page_pool.arena_bytes() / 1e9:.2f} GB")
+    warm = warm_engine(torch, eng, "serving")
+
+    def want_counts(run):
+        fwd = run["decode_steps"] + run["prefills"]
+        want = {k: 0 for k in run["counts"]}
+        want.update(rms_norm=(2 * layers + 1) * fwd, rope=layers * fwd,
+                    paged_attention=layers * run["decode_steps"])
+        return want
+
+    runs, summary = serve_modes(
+        torch, np, cfg, {"graphs": eng, "eager": eager},
+        ("eager", "graphs", "eager", "graphs"), "serving", want_counts)
+    graph_run = runs[1]
     # teacher-forced check against the cache-free forward
-    ties, worst_gap = teacher_forced(torch, dev, handles,
+    ties, worst_gap = teacher_forced(torch, dev, graph_run["handles"],
                                      lambda ids: net(ids)[0], "serving")
-    res = serving_result(
-        eng, handles, lens, steps, wall, counts, peak, ties, worst_gap,
-        card=card, model=f"Llama-2-7B, {layers} layers, bf16, random "
-                         f"weights")
+    res = {"card": card, "model": f"Llama-2-7B, {layers} layers, bf16, "
+                                  f"random weights",
+           "requests": len(graph_run["handles"]),
+           "prompt_lens": [int(n) for n in graph_run["lens"]],
+           "max_new_tokens": SERVE_MAX_NEW,
+           "decode_steps": graph_run["decode_steps"],
+           "prefills": graph_run["prefills"],
+           "arena_bytes": eng.page_pool.arena_bytes(),
+           "warmup": warm, "modes": summary,
+           "near_ties": ties, "near_tie_max_gap": worst_gap}
     log("serving: " + json.dumps(res))
     if profile_steps:
         profile_decode(torch, np, eng, cfg, profile_steps, "decode")
+        profile_decode(torch, np, eager, cfg, profile_steps, "decode_eager")
         profile_prefill(torch, np, eng, cfg, "prefill_1024")
-    fused_counts = fused_serving(torch, np, dev, card, net, eng, cfg,
-                                 handles, profile_steps)
-    return counts, fused_counts
+    fused = fused_serving(torch, np, dev, card, net, eng, eager, cfg,
+                          graph_run["handles"], profile_steps)
+    return graph_run["counts"], runs[0]["counts"], fused
 
 
-def fused_serving(torch, np, dev, card, net, eng, cfg, unfused_handles,
-                  profile_steps=0):
-    """The serving phase's model and engine with both fusions: the same
-    12 requests; per forward (decode step or prefill) the fused head once
+def fused_serving(torch, np, dev, card, net, eng, eager, cfg,
+                  unfused_handles, profile_steps=0):
+    """The serving phase's model and engines with both fusions: the same
+    12 requests through the graph engine, whose decode and prefill
+    programs are captured again at their first use (counted), and the
+    eager one; per forward (decode step or prefill) the fused head once
     and two RMSNorms a layer (no final norm). The teacher-forced check
     runs the fused cache-free forward (rope_attention once a layer, no
-    flash). Returns the launch counts of the requests."""
+    flash). Returns the launch counts of the graph and eager runs."""
     from paddle_tpu_torch import kernels
-    from paddle_tpu_torch.serving.metrics import ServingMetrics
 
     layers = cfg.num_hidden_layers
     net.fusions = BOTH_FUSIONS
-    eng.metrics = ServingMetrics()  # this phase's numbers only
     t_phase = time.perf_counter()
-    handles, lens, steps, wall, counts, peak = drive_requests(
-        torch, np, eng, cfg)
-    m = eng.metrics
-    n_decode, n_prefill = m.decode_step_time.count, m.prefill_time.count
-    want = {k: 0 for k in counts}
-    want.update(rms_norm=2 * layers * (n_decode + n_prefill),
-                rope=layers * (n_decode + n_prefill),
-                paged_attention=layers * n_decode,
-                rms_norm_matmul=n_decode + n_prefill)
-    if counts != want:
-        fail(f"fused serving: launches {counts}, expected {want} "
-             f"({n_decode} decode steps, {n_prefill} prefills)")
-    # bf16 serving: the fused head on the tensor cores at every step
-    designs = kernels.fusion_design_counts()
-    if designs["rms_norm_matmul"] != {"tc_launches": n_decode + n_prefill,
-                                      "split_launches": 0,
-                                      "cc_launches": 0}:
-        fail(f"fused serving: fused head launches by design "
-             f"{designs['rms_norm_matmul']}, expected all "
-             f"{n_decode + n_prefill} on the tensor cores")
+
+    def want_counts(run):
+        fwd = run["decode_steps"] + run["prefills"]
+        want = {k: 0 for k in run["counts"]}
+        want.update(rms_norm=2 * layers * fwd, rope=layers * fwd,
+                    paged_attention=layers * run["decode_steps"],
+                    rms_norm_matmul=fwd)
+        # bf16 serving: the fused head on the tensor cores at every step
+        heads = run["designs"]["fusions"]["rms_norm_matmul"]
+        if heads != {"tc_launches": fwd, "split_launches": 0,
+                     "cc_launches": 0}:
+            fail(f"fused serving ({run['mode']}): fused head launches by "
+                 f"design {heads}, expected all {fwd} on the tensor cores")
+        return want
+
+    def recaptures(run):
+        buckets = {eng.pool.bucket_for(int(n)) for n in run["lens"]}
+        return {"serving::decode_step": 1, "serving::prefill": len(buckets)}
+
+    runs, summary = serve_modes(
+        torch, np, cfg, {"graphs": eng, "eager": eager}, ("graphs", "eager"),
+        "fused serving", want_counts, recaptures)
+    graph_run = runs[0]
     kernels.reset_launch_counts()
-    ties, worst_gap = teacher_forced(torch, dev, handles,
+    ties, worst_gap = teacher_forced(torch, dev, graph_run["handles"],
                                      lambda ids: net(ids)[0],
                                      "fused serving")
     check_counts = kernels.launch_counts()
-    n_seq = len(handles)
+    n_seq = len(graph_run["handles"])
     want_check = {k: 0 for k in check_counts}
     want_check.update(rms_norm=2 * layers * n_seq,
                       rope_attention=layers * n_seq, rms_norm_matmul=n_seq)
@@ -2228,33 +2357,35 @@ def fused_serving(torch, np, dev, card, net, eng, cfg, unfused_handles,
         fail(f"fused serving: teacher-forced check launched "
              f"{check_counts}, expected {want_check}")
     differ = sum(int((np.asarray(a.output_ids) != np.asarray(
-        b.output_ids)).sum()) for a, b in zip(handles, unfused_handles))
-    res = serving_result(
-        eng, handles, lens, steps, wall, counts, peak, ties, worst_gap,
-        card=card, fusions=sorted(net.fusions), decode_steps=n_decode,
-        prefills=n_prefill,
-        launches_per_decode_step={
-            "rms_norm_matmul": 1, "rms_norm": 2 * layers, "rope": layers,
-            "paged_attention": layers},
-        check_launches=check_counts,
-        fusion_launches_by_design=designs,
-        tokens_differing_from_unfused=differ,
-        phase_s=time.perf_counter() - t_phase)
+        b.output_ids)).sum()) for a, b in zip(graph_run["handles"],
+                                              unfused_handles))
+    res = {"card": card, "fusions": sorted(net.fusions),
+           "decode_steps": graph_run["decode_steps"],
+           "prefills": graph_run["prefills"],
+           "launches_per_decode_step": {
+               "rms_norm_matmul": 1, "rms_norm": 2 * layers,
+               "rope": layers, "paged_attention": layers},
+           "check_launches": check_counts,
+           "fusion_launches_by_design": graph_run["designs"]["fusions"],
+           "captures": graph_run["captures"], "modes": summary,
+           "near_ties": ties, "near_tie_max_gap": worst_gap,
+           "tokens_differing_from_unfused": differ,
+           "phase_s": time.perf_counter() - t_phase}
     log("fused serving: " + json.dumps(res))
     if profile_steps:
         profile_decode(torch, np, eng, cfg, profile_steps, "decode_fused")
         profile_prefill(torch, np, eng, cfg, "prefill_1024_fused")
     net.fusions = ()
-    return counts
+    return graph_run["counts"], runs[1]["counts"]
 
 
 def quant_serving_phase(torch, np, dev, card, profile_steps=0):
     """Llama-2-7B at full width and depth, quantized: the serving phase's
     random bf16 weights (seed 0) through quantize_for_serving in place,
-    an int8 KV arena of 1025 pages x 16 slots, the same 12 requests."""
+    two engines (graphs, eager) each with an int8 KV arena of 1025 pages
+    x 16 slots, the same 12 requests through each."""
     import gc
 
-    from paddle_tpu_torch import kernels
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.models.generation import alloc_kv_caches
     from paddle_tpu_torch.quantization import quantize_for_serving
@@ -2275,27 +2406,33 @@ def quant_serving_phase(torch, np, dev, card, profile_steps=0):
         f"({weight_bytes / 1e9:.2f} GB with scales) + bf16 embeddings and "
         f"norms, built and quantized in {time.perf_counter() - t_phase:.1f}"
         f" s")
-    eng = PagedServingEngine(net, max_batch_size=8, max_seq_len=2048,
-                             page_size=16, cache_dtype="int8")
-    log(f"quantized serving: int8 page arena {eng.page_pool.num_pages + 1} "
-        f"pages x 16 slots, {eng.page_pool.arena_bytes() / 1e9:.2f} GB")
-    handles, lens, steps, wall, counts, peak = drive_requests(
-        torch, np, eng, cfg)
-    m = eng.metrics
-    n_decode, n_prefill = m.decode_step_time.count, m.prefill_time.count
-    want = {k: 0 for k in counts}
-    want.update(rms_norm=(2 * layers + 1) * (n_decode + n_prefill),
-                rope=layers * (n_decode + n_prefill),
-                paged_attention_int8=layers * n_decode,
-                int8_matmul=QUANT_MM_PER_FORWARD * (n_decode + n_prefill))
-    if counts != want:
-        fail(f"quantized serving: launches {counts}, expected {want} "
-             f"({n_decode} decode steps, {n_prefill} prefills)")
-    # bf16 activations: every W8A16 launch on the tensor-core design
-    designs = kernels.int8_matmul_design_counts()
-    if designs != {"tc_launches": want["int8_matmul"], "cc_launches": 0}:
-        fail(f"quantized serving: W8A16 launches by design {designs}, "
-             f"expected all {want['int8_matmul']} on the tensor cores")
+    eng = PagedServingEngine(net, cache_dtype="int8", **ENGINE_KW)
+    eager = PagedServingEngine(net, cache_dtype="int8", graphs=False,
+                               **ENGINE_KW)
+    log(f"quantized serving: two engines (graphs, eager), each an int8 "
+        f"page arena of {eng.page_pool.num_pages + 1} pages x 16 slots, "
+        f"{eng.page_pool.arena_bytes() / 1e9:.2f} GB")
+    warm = warm_engine(torch, eng, "quantized serving")
+
+    def want_counts(run):
+        fwd = run["decode_steps"] + run["prefills"]
+        want = {k: 0 for k in run["counts"]}
+        want.update(rms_norm=(2 * layers + 1) * fwd, rope=layers * fwd,
+                    paged_attention_int8=layers * run["decode_steps"],
+                    int8_matmul=QUANT_MM_PER_FORWARD * fwd)
+        # bf16 activations: every W8A16 launch on the tensor-core design
+        designs = run["designs"]["int8_matmul"]
+        if designs != {"tc_launches": want["int8_matmul"],
+                       "cc_launches": 0}:
+            fail(f"quantized serving ({run['mode']}): W8A16 launches by "
+                 f"design {designs}, expected all {want['int8_matmul']} "
+                 f"on the tensor cores")
+        return want
+
+    runs, summary = serve_modes(
+        torch, np, cfg, {"graphs": eng, "eager": eager}, ("eager", "graphs"),
+        "quantized serving", want_counts)
+    graph_run = runs[1]
 
     # teacher-forced check against one slab prefill of the whole sequence
     # with an int8 cache: the same quantization on write, dequantized on
@@ -2305,23 +2442,30 @@ def quant_serving_phase(torch, np, dev, card, profile_steps=0):
                                  device=dev)
         return net(ids, caches=caches, pos=0)[0][0]
 
-    ties, worst_gap = teacher_forced(torch, dev, handles, slab_prefill,
-                                     "quantized serving")
-    res = serving_result(
-        eng, handles, lens, steps, wall, counts, peak, ties, worst_gap,
-        card=card, model=f"Llama-2-7B, {layers} layers, int8 weights "
-                         f"(W8A16) and int8 KV cache, random weights",
-        weight_bytes=weight_bytes, decode_steps=n_decode,
-        prefills=n_prefill, int8_matmul_launches_by_design=designs,
-        launches_per_decode_step={
-            "paged_attention_int8": layers,
-            "int8_matmul": QUANT_MM_PER_FORWARD},
-        phase_s=time.perf_counter() - t_phase)
+    ties, worst_gap = teacher_forced(torch, dev, graph_run["handles"],
+                                     slab_prefill, "quantized serving")
+    res = {"card": card,
+           "model": f"Llama-2-7B, {layers} layers, int8 weights (W8A16) "
+                    f"and int8 KV cache, random weights",
+           "weight_bytes": weight_bytes,
+           "arena_bytes": eng.page_pool.arena_bytes(),
+           "decode_steps": graph_run["decode_steps"],
+           "prefills": graph_run["prefills"],
+           "int8_matmul_launches_by_design":
+               graph_run["designs"]["int8_matmul"],
+           "launches_per_decode_step": {
+               "paged_attention_int8": layers,
+               "int8_matmul": QUANT_MM_PER_FORWARD},
+           "warmup": warm, "modes": summary,
+           "near_ties": ties, "near_tie_max_gap": worst_gap,
+           "phase_s": time.perf_counter() - t_phase}
     log("quantized serving: " + json.dumps(res))
     if profile_steps:
         profile_decode(torch, np, eng, cfg, profile_steps, "decode_int8")
+        profile_decode(torch, np, eager, cfg, profile_steps,
+                       "decode_int8_eager")
         profile_prefill(torch, np, eng, cfg, "prefill_1024_int8")
-    return counts
+    return graph_run["counts"], runs[0]["counts"]
 
 
 def profile_steps(torch, step_fn, steps):
@@ -2405,15 +2549,53 @@ def profile_steps(torch, step_fn, steps):
     }
 
 
+def replay_ms(torch, graph, n=20, repeats=5):
+    """Device time of one replay of a captured program: CUDA events
+    around ``n`` back-to-back replays, the median of ``repeats``."""
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
 def profile_decode(torch, np, eng, cfg, steps, kind):
-    """The decode-step profile with all 8 rows busy."""
+    """The decode-step profile with all 8 rows busy: ``steps`` engine
+    steps under torch.profiler (whether it names the kernels a CUDA graph
+    replays: ``kernels_by_name``), then ``steps`` more on the host clock
+    alone; for a graph engine also its decode program's replay timed by
+    CUDA events (the device time of a step without the host's), and the
+    idle share that leaves of the host-clock step. The replays repeat
+    the last step's inputs, which rewrites the same cache slots with the
+    same values."""
     rng = np.random.RandomState(99)
     hs = [eng.submit(rng.randint(0, cfg.vocab_size, (int(n),)), 64)
           for n in rng.randint(32, 1025, size=8)]
     while any(h.status == "QUEUED" for h in hs):
         eng.step()
     prof = profile_steps(torch, eng.step, steps)
-    log("profile: " + json.dumps(dict(prof, rows=8, kind=kind)))
+    groups = prof["ms_per_step_by_group"]
+    prof["kernels_by_name"] = any(g.startswith("paged_attention")
+                                  for g in groups)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    prof["step_ms_host_clock"] = (time.perf_counter() - t0) * 1e3 / steps
+    prog = eng._programs.get(("decode",)) if eng.graphs else None
+    if prog is not None:
+        prof["replay_ms"] = replay_ms(torch, prog.graph)
+        prof["replay_idle_share"] = (1.0 - prof["replay_ms"]
+                                     / prof["step_ms_host_clock"])
+    log("profile: " + json.dumps(dict(prof, rows=8, kind=kind,
+                                      graphs=eng.graphs)))
     eng.run_until_idle()
     if eng.page_pool.pages_in_use:
         fail("pages leaked after the profiled steps")
@@ -2544,10 +2726,11 @@ def main():
     (train_counts, fused_train_counts, fp32_train_counts,
      fused_fp32_train_counts) = training_phase(torch, np, dev, card,
                                                args.profile_train_steps)
-    serve_counts, fused_serve_counts = serving_phase(
+    (serve_counts, serve_eager_counts,
+     (fused_serve_counts, fused_serve_eager_counts)) = serving_phase(
         torch, np, dev, card, args.profile_steps)
-    quant_counts = quant_serving_phase(torch, np, dev, card,
-                                       args.profile_steps)
+    quant_counts, quant_eager_counts = quant_serving_phase(
+        torch, np, dev, card, args.profile_steps)
 
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "paddle_tpu."))
@@ -2563,10 +2746,15 @@ def main():
         # 32000]), the training shape for the rest (fp32 [4096, 4096]
         # for the RMSNorm backward, the O1 residual)
         main_case = results[name][0]
+        # the serving phases: their first run through the programs (CUDA
+        # graphs, the default) and their first eager run
         by_phase = {"serving": serve_counts[name],
+                    "serving_eager": serve_eager_counts[name],
                     "training": train_counts[name],
                     "quantized_serving": quant_counts[name],
+                    "quantized_serving_eager": quant_eager_counts[name],
                     "fused_serving": fused_serve_counts[name],
+                    "fused_serving_eager": fused_serve_eager_counts[name],
                     "fused_training": fused_train_counts[name],
                     "fp32_training": fp32_train_counts[name],
                     "fused_fp32_training": fused_fp32_train_counts[name]}

@@ -37,8 +37,11 @@ fused rope + attention's: one per composition of its kernels),
 ``int8_launches`` for the int8 paged attention; flash attention, the
 W8A16 matmul and the two fusions also per design,
 :func:`flash_design_counts`, :func:`int8_matmul_design_counts` and
-:func:`fusion_design_counts`); :mod:`._build` compiles
-``csrc/`` with nvcc at first use.
+:func:`fusion_design_counts`); a serving program captured as a CUDA
+graph takes what its capture added to the counters off again and adds it
+at every replay (:func:`measure_launches`, :func:`add_launches`), so the
+counts are the launches the card ran. :mod:`._build` compiles ``csrc/``
+with nvcc at first use.
 """
 from . import (  # noqa: F401
     flash_attention,
@@ -73,12 +76,37 @@ DESIGN_MODULES = (flash_attention, int8_matmul, fused_norm_matmul,
                   fused_rope_attention)
 
 
+# every launch counter, once: (module, attribute)
+COUNTERS = tuple(dict.fromkeys(
+    [*KERNELS.values()]
+    + [(mod, attr) for mod in DESIGN_MODULES for attr in mod.DESIGN_COUNTERS]))
+
+
 def reset_launch_counts():
-    for mod, attr in KERNELS.values():
+    for mod, attr in COUNTERS:
         setattr(mod, attr, 0)
-    for mod in DESIGN_MODULES:
-        for attr in mod.DESIGN_COUNTERS:
-            setattr(mod, attr, 0)
+
+
+def measure_launches(fn):
+    """Run ``fn()`` and undo what it added to the launch counters: returns
+    ``(fn(), launches)``, the counters it moved as ``(module, attribute,
+    count)`` triples. A CUDA-graph capture records launches without
+    making them; :func:`add_launches` counts them at each replay."""
+    before = [getattr(mod, attr) for mod, attr in COUNTERS]
+    try:
+        out = fn()
+    finally:
+        after = [getattr(mod, attr) for mod, attr in COUNTERS]
+        for (mod, attr), n in zip(COUNTERS, before):
+            setattr(mod, attr, n)
+    return out, tuple((mod, attr, b - a) for (mod, attr), a, b in
+                      zip(COUNTERS, before, after) if b != a)
+
+
+def add_launches(launches):
+    """Add :func:`measure_launches`' counts to the counters."""
+    for mod, attr, n in launches:
+        setattr(mod, attr, getattr(mod, attr) + n)
 
 
 def launch_counts():

@@ -51,6 +51,8 @@ MAX_CHUNK = 256           # slots of a chunk, at most
 CHUNK_WORK = 2048         # slots x query heads of one chunk, at most
 
 _COUNTERS = {}            # device -> the kernels' arrival counters (zero)
+_REPLACED = []            # outgrown counters, kept (still zero) for the
+                          # CUDA graphs that captured them
 
 
 def chunk_slots(page_size, head_dim, kv_itemsize, group):
@@ -198,6 +200,8 @@ def _workspace(q, kv_itemsize, b, h, d, ps, kvh, width):
     parts = torch.split(ws, sizes)
     counters = _COUNTERS.get(dev)
     if counters is None or counters.numel() < b * kvh:
+        if counters is not None:
+            _REPLACED.append(counters)  # a captured program may use it
         counters = torch.zeros(b * kvh, dtype=torch.int32, device=dev)
         _COUNTERS[dev] = counters
     return (chunk, max_chunks, *parts, counters)

@@ -303,14 +303,18 @@ class LlamaModel(nn.Module):
         self.norm = RMSNorm(config.hidden_size, epsilon=config.rms_norm_eps,
                             **kw)
         self._rope = {}
+        self._rope_replaced = []
 
     def rope_tables(self, seq_len, device):
         """fp32 cos/sin ``[1, seq_len, 1, D/2]``: the leading rows of one
         table per device (row t depends only on t), built for at least
         ``max_position_embeddings`` rows and rebuilt only when a longer
-        one is asked for."""
+        one is asked for. A replaced table is kept: a captured serving
+        program may read it."""
         tabs = self._rope.get(str(device))
         if tabs is None or int(tabs[0].shape[1]) < seq_len:
+            if tabs is not None:
+                self._rope_replaced.append(tabs)
             n = max(int(seq_len), self.config.max_position_embeddings)
             tabs = self._rope[str(device)] = build_rope_cache(
                 n, self.config.head_dim, base=self.config.rope_theta,

@@ -156,7 +156,18 @@ def read_dense(cache, dtype):
 # ------------------------------------------------------------ adoption
 def adopt_into_slab(dst, blk, slot):
     """Copy a prefilled ``[1, bucket, ...]`` block into row ``slot`` of
-    the decode slab, in place (``kv.py:224``)."""
+    the decode slab, in place (``kv.py:224``). ``slot`` is an int, or a
+    one-element int64 device tensor (a captured adopt program's input:
+    the same copy by ``index_copy_``, with no host read)."""
+    if isinstance(slot, torch.Tensor):
+        if is_quantized(dst):
+            n = int(blk.q.shape[1])
+            dst.q.narrow(1, 0, n).index_copy_(0, slot, blk.q)
+            dst.scale.narrow(1, 0, n).index_copy_(0, slot, blk.scale)
+            return dst
+        dst.narrow(1, 0, int(blk.shape[1])).index_copy_(
+            0, slot, blk.to(dst.dtype))
+        return dst
     s = int(slot)
     if is_quantized(dst):
         n = int(blk.q.shape[1])

@@ -14,9 +14,20 @@ metrics) happens on the host between steps:
 - **decode step**: ``[max_batch]`` tokens at per-row positions -> next
   tokens; free rows ride along as masked garbage.
 
+Each of the three is a fixed-shape program (``programs.py``), as the
+JAX engine jits them: one decode step, and a prefill and an adopt per
+bucket. On a card each is captured once as a CUDA graph and replayed;
+on the CPU the same bodies run as plain calls. ``warmup()`` captures the
+whole inventory before traffic; without it a program is captured at its
+first use. ``compile_counts()`` counts the captures under the JAX trace
+guard's keys. ``graphs=False`` runs every step eagerly instead (the
+counterpart of ``jax.disable_jit``), the reference the programs are held
+against. Sampling runs outside the programs, on the decode step's
+logits.
+
 Greedy token streams equal ``generate`` on the same net and cache dtype.
-What the JAX engine adds around this core (live reload, AOT warmup, the
-trace guard, tracing spans, speculative decoding, sessions) is not
+What the JAX engine adds around this core (live reload, the AOT
+executable cache, tracing spans, speculative decoding, sessions) is not
 ported in this slice.
 """
 from __future__ import annotations
@@ -35,6 +46,7 @@ from ..models.generation import (
 from ..quantization.kv import adopt_into_slab
 from .kv_pool import KVCachePool
 from .metrics import ServingMetrics
+from .programs import Programs
 from .sampling_keys import SamplingKeySource
 from .scheduler import (
     CANCELLED,
@@ -76,13 +88,15 @@ class ServingEngine:
     ``max_batch_size`` rows of ``max_seq_len`` slots each; the engine
     runs on the net's device. Greedy by default; ``do_sample=True``
     samples with temperature/top_k/top_p from position-addressed keys
-    (``sampling_keys``), so streams reproduce per ``seed``."""
+    (``sampling_keys``), so streams reproduce per ``seed``. ``graphs``
+    (default True) runs the steps as fixed-shape programs, CUDA graphs
+    on a card; False runs them eagerly."""
 
     def __init__(self, net, *, max_batch_size=8, max_seq_len=256,
                  cache_dtype=None, do_sample=False, temperature=1.0,
                  top_k=0, top_p=1.0, seed=0, min_bucket=16,
                  max_queue_size=64, max_tokens_in_flight=None,
-                 clock=time.monotonic):
+                 clock=time.monotonic, graphs=True):
         self.net = net.eval()
         self.config = net.config
         self.device = net.device
@@ -94,6 +108,7 @@ class ServingEngine:
         self.top_k = int(top_k)
         self.top_p = float(top_p) if top_p is not None else 1.0
         self.max_tokens_in_flight = max_tokens_in_flight
+        self.graphs = bool(graphs)
         self.pool = KVCachePool(
             self.config, dtype=cache_dtype or DEFAULT_CACHE_DTYPE,
             min_bucket=min_bucket, max_seq_len=self.max_seq_len,
@@ -108,6 +123,8 @@ class ServingEngine:
         self.step_count = 0
         self._closed = False
         self._init_kv_backend()
+        self._programs = Programs(self.device)
+        self._net_key = None
 
     # ------------------------------------------------------- KV backend
     def _init_kv_backend(self):
@@ -127,16 +144,157 @@ class ServingEngine:
     def _release_slot(self, slot):
         self._slab.release(slot)
 
+    def _adopt_body(self, blk):
+        """Copy the prefilled block into the decode row ``row`` (an int,
+        or the adopt program's one-element tensor), in place."""
+        caches = self._caches
+
+        def body(row):
+            for (dk, dv), (bk, bv) in zip(caches, blk.caches):
+                adopt_into_slab(dk, bk, row)
+                adopt_into_slab(dv, bv, row)
+            return ()
+        return body
+
+    def _adopt_index(self, row, blk):
+        """The adopt program's input: the decode row."""
+        return np.array([row], np.int64)
+
+    def _adopt_zeros(self, blk):
+        """Zeros of the adopt program's input (the warm run's)."""
+        return np.zeros((1,), np.int64)
+
     def _adopt(self, row, blk):
-        """Copy a prefilled block into decode row ``row`` (in place)."""
-        for (dk, dv), (bk, bv) in zip(self._caches, blk.caches):
-            adopt_into_slab(dk, bk, row)
-            adopt_into_slab(dv, bv, row)
+        self._adopt_body(blk)(row)
+
+    def _decode_table(self):
+        """The decode step's page table (host; the paged engine's), None
+        without one."""
+        return None
 
     def _decode_extra(self):
-        """Extra keyword inputs of the decode step (the paged engine
-        passes its page table)."""
-        return {}
+        """Extra keyword inputs of the eager decode step."""
+        table = self._decode_table()
+        return ({} if table is None else
+                {"page_table": torch.from_numpy(table).to(self.device)})
+
+    def _decode_arrays(self, tok, pos):
+        """The decode program's host inputs."""
+        table = self._decode_table()
+        return (tok, pos) if table is None else (tok, pos, table)
+
+    # ------------------------------------------------------- programs
+    def _check_net(self):
+        """A change of ``net.fusions`` (or of ``net.training``) on a live
+        engine makes the decode and prefill programs captured without it
+        stale: they are captured again at their next call."""
+        key = (self.net.fusions, self.net.training)
+        if key != self._net_key:
+            self._programs.drop(("decode", "prefill"))
+            self._net_key = key
+
+    def _keep(self):
+        """What the model programs read besides their inputs."""
+        return (tuple(self.net.state_dict(keep_vars=True).values()),
+                self._caches)
+
+    def _build_decode(self):
+        b = self.max_batch_size
+        table = self._decode_table()
+        dev = self.device
+        inputs = [torch.zeros((b, 1), dtype=torch.int64, device=dev),
+                  torch.zeros((b,), dtype=torch.int32, device=dev)]
+        if table is not None:
+            inputs.append(torch.zeros(table.shape, dtype=torch.int32,
+                                      device=dev))
+        net, caches = self.net, self._caches
+
+        def body(tok, pos, page_table=None):
+            logits, _ = decode_step(net, tok, caches, pos,
+                                    page_table=page_table)
+            return logits, torch.argmax(logits, dim=-1)
+
+        return body, inputs, self._keep()
+
+    def _build_prefill(self, blk):
+        net = self.net
+        ids = torch.zeros((1, blk.bucket), dtype=torch.int64,
+                          device=self.device)
+
+        def body(ids):
+            return net(ids, caches=blk.caches, pos=0)[0]
+
+        return body, [ids], (self._keep(), blk.caches)
+
+    def _build_adopt(self, blk):
+        index = torch.from_numpy(self._adopt_zeros(blk)).to(self.device)
+        return self._adopt_body(blk), [index], (self._caches, blk.caches)
+
+    def compile_counts(self):
+        """Captures by program kind, under the JAX trace guard's keys
+        (``serving::decode_step``, ``serving::prefill``,
+        ``serving::adopt``); a program captured again after a change of
+        ``net.fusions`` counts again."""
+        return dict(self._programs.counts)
+
+    def warmup(self, aot_cache=None, buckets=None):
+        """Capture every fixed-shape program before traffic: the decode
+        step, and a prefill and an adopt per prompt bucket (``buckets``,
+        by default the pool's power-of-two ladder). Each body runs once
+        on zero inputs (so the decode step writes only the garbage page
+        0 or free slab rows, the prefill only its pooled block, the
+        adopt only page 0 or the free row 0), then is captured; programs
+        already captured are skipped. Returns ``{"programs", "aot_hits",
+        "aot_saves"}`` as the JAX ``warmup`` does; ``programs`` is 0 with
+        ``graphs=False``. The engine must be idle."""
+        if self._closed:
+            raise RuntimeError(f"{type(self).__name__} is closed")
+        if aot_cache is not None:
+            raise NotImplementedError(
+                "warmup(aot_cache=...): the AOT executable cache is not "
+                "ported (ROADMAP.md queue A item 7)")
+        stats = {"programs": 0, "aot_hits": 0, "aot_saves": 0}
+        if not self.graphs:
+            return stats
+        if self.active_slots:
+            raise RuntimeError(
+                "warmup() runs on an idle engine (its warm runs write the "
+                "free rows)")
+        self._check_net()
+        b = self.max_batch_size
+        with torch.inference_mode():
+            # an idle engine's page table is all zeros
+            warmed = [self._programs.warm(
+                ("decode",), self._build_decode, *self._decode_arrays(
+                    np.zeros((b, 1), np.int64), np.zeros((b,), np.int32)))]
+            for bucket in (self._warmup_buckets() if buckets is None
+                           else buckets):
+                blk = self.pool.alloc(bucket)
+                try:
+                    warmed.append(self._programs.warm(
+                        ("prefill", blk.bucket),
+                        lambda: self._build_prefill(blk),
+                        np.zeros((1, blk.bucket), np.int64)))
+                    warmed.append(self._programs.warm(
+                        ("adopt", blk.bucket),
+                        lambda: self._build_adopt(blk),
+                        self._adopt_zeros(blk)))
+                finally:
+                    self.pool.free(blk)
+        stats["programs"] = sum(warmed)
+        return stats
+
+    def _warmup_buckets(self):
+        """Every prompt bucket the pool admits (``engine.py:936``):
+        ``min_bucket``, doubling, up to ``max_seq_len``."""
+        out, n = [], self.pool.min_bucket
+        while True:
+            b = self.pool.bucket_for(min(n, self.max_seq_len))
+            if b not in out:
+                out.append(b)
+            if n >= self.max_seq_len:
+                return out
+            n *= 2
 
     # ---------------------------------------------------------- requests
     def _too_long(self, req):
@@ -222,10 +380,17 @@ class ServingEngine:
         blk = self.pool.alloc(req.prompt_len)
         try:
             with torch.inference_mode():
-                logits, blk.caches = prefill(
-                    self.net, torch.from_numpy(ids).to(self.device),
-                    blk.caches, length=req.prompt_len,
-                )
+                if self.graphs:
+                    self._check_net()
+                    logits = self._programs.run(
+                        ("prefill", bucket),
+                        lambda: self._build_prefill(blk), ids,
+                    )[:, req.prompt_len - 1, :]
+                else:
+                    logits, blk.caches = prefill(
+                        self.net, torch.from_numpy(ids).to(self.device),
+                        blk.caches, length=req.prompt_len,
+                    )
                 # the first sampled token lands at cache position
                 # prompt_len (the sampling_keys position address)
                 nxt = _select_next(
@@ -247,7 +412,13 @@ class ServingEngine:
             t0, blk = self._prefill(req, key)
             try:
                 with torch.inference_mode():
-                    self._adopt(row, blk)
+                    if self.graphs:
+                        self._programs.run(
+                            ("adopt", blk.bucket),
+                            lambda: self._build_adopt(blk),
+                            self._adopt_index(row, blk))
+                    else:
+                        self._adopt(row, blk)
             finally:
                 self.pool.free(blk)
             self.metrics.prefill_time.observe(self.clock() - t_start)
@@ -329,13 +500,22 @@ class ServingEngine:
             keys[i] = (seq.key, seq.pos + 1)
         t0 = self.clock()
         with torch.inference_mode():
-            logits, self._caches = decode_step(
-                self.net, torch.from_numpy(tok).to(self.device),
-                self._caches, torch.from_numpy(pos).to(self.device),
-                **self._decode_extra(),
-            )
-            nxt = _select_next(logits, self.do_sample, self.temperature,
-                               self.top_k, self.top_p, keys).cpu().numpy()
+            if self.graphs:
+                self._check_net()
+                logits, greedy = self._programs.run(
+                    ("decode",), self._build_decode,
+                    *self._decode_arrays(tok, pos))
+            else:
+                logits, self._caches = decode_step(
+                    self.net, torch.from_numpy(tok).to(self.device),
+                    self._caches, torch.from_numpy(pos).to(self.device),
+                    **self._decode_extra(),
+                )
+                greedy = None
+            nxt = (greedy if greedy is not None and not self.do_sample
+                   else _select_next(logits, self.do_sample,
+                                     self.temperature, self.top_k,
+                                     self.top_p, keys)).cpu().numpy()
         dt = self.clock() - t0
         self.metrics.decode_step_time.observe(dt)
         self.metrics.decode_tokens.inc(len(active))
@@ -389,4 +569,5 @@ class ServingEngine:
             self._seqs[i] = None
             self._release_slot(i)
             h._fire_terminal()
+        self._programs.drop(("decode", "prefill", "adopt"))
         self._caches = None

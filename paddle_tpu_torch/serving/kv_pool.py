@@ -2,11 +2,14 @@
 ``paddle_tpu/serving/kv_pool.py``).
 
 - **Blocks**: per-request prefill caches, their length rounded up to a
-  power-of-two bucket and recycled within the bucket. The buckets fix
-  the prefill shapes to O(log S_max) of them, which a CUDA-graph capture
-  of prefill will need. Recycled buffers are not zeroed: a slot is never
-  read before it is written (stale values sit behind the -inf position
-  mask).
+  power-of-two bucket, one block a bucket, reused by every request of
+  the bucket. The buckets fix the prefill shapes to O(log S_max) of
+  them, one captured prefill program each (``programs.py``), which is
+  bound to its bucket's block. The engines admit one request at a time
+  (alloc, prefill, adopt, free), so a second live block of a bucket is
+  never needed: asking for one raises. Reused buffers are not zeroed: a
+  slot is never read before it is written (stale values sit behind the
+  -inf position mask).
 - **Slabs**: the slab engine's resident decode buffer
   (``[num_slots, S_max, kvH, D]`` per layer x2), claimed slot by slot.
 """
@@ -78,9 +81,9 @@ class SlotSlab:
 
 
 class KVCachePool:
-    """Power-of-two prefill blocks with per-bucket freelists, plus slot
-    accounting for decode slabs. ``occupancy`` counts live blocks and
-    claimed slots; a drained server reads 0."""
+    """Power-of-two prefill blocks, one a bucket, plus slot accounting
+    for decode slabs. ``occupancy`` counts live blocks and claimed
+    slots; a drained server reads 0."""
 
     def __init__(self, config, *, dtype=None, min_bucket=16,
                  max_seq_len=4096, device=None):
@@ -89,7 +92,7 @@ class KVCachePool:
         self.min_bucket = int(min_bucket)
         self.max_seq_len = int(max_seq_len)
         self.device = resolve_device(device)
-        self._freelists = {}
+        self._blocks = {}  # bucket -> its KVBlock
         self._live_blocks = 0
         self._slabs = []
 
@@ -97,16 +100,19 @@ class KVCachePool:
         return bucket_for(seq_len, self.min_bucket, self.max_seq_len)
 
     def alloc(self, seq_len):
-        """A KVBlock whose bucket covers ``seq_len`` (a freed block of
-        the same bucket when there is one)."""
+        """The KVBlock of the bucket that covers ``seq_len``; a
+        RuntimeError while that block is live."""
         bucket = self.bucket_for(seq_len)
-        free = self._freelists.get(bucket)
-        if free:
-            blk = free.pop()
-            blk._live = True
-        else:
-            blk = KVBlock(bucket, alloc_kv_caches(
+        blk = self._blocks.get(bucket)
+        if blk is None:
+            blk = self._blocks[bucket] = KVBlock(bucket, alloc_kv_caches(
                 self.config, 1, bucket, self.dtype, device=self.device))
+        elif blk._live:
+            raise RuntimeError(
+                f"the block of bucket {bucket} is live: the pool holds one "
+                f"block a bucket (its captured prefill program is bound to "
+                f"it)")
+        blk._live = True
         self._live_blocks += 1
         return blk
 
@@ -114,7 +120,6 @@ class KVCachePool:
         if not block._live:
             raise ValueError("KVBlock double-free")
         block._live = False
-        self._freelists.setdefault(block.bucket, []).append(block)
         self._live_blocks -= 1
 
     def alloc_slab_arrays(self, num_slots, seq_len):

@@ -15,8 +15,12 @@ request claims only ``ceil(total_tokens / page_size)`` pages. Per step:
   layer writes this step's k/v at every row's (page, offset) and attends
   through the paged attention kernel (``kernels/paged_attention.py``).
 
-Not ported in this slice: the prefix cache, demand paging, KV tiering,
-remote prefill and speculative decoding.
+Each of the three is one of the engine's fixed-shape programs, CUDA
+graphs on a card (``programs.py``; the page table and the adopted page
+ids are their device inputs), and ``warmup()`` captures them all before
+traffic, as in the slab engine. Not ported in this slice: the prefix
+cache (and the gather and chunk-prefill programs its warmup adds),
+demand paging, KV tiering, remote prefill and speculative decoding.
 """
 from __future__ import annotations
 
@@ -42,7 +46,7 @@ class PagedServingEngine(ServingEngine):
                  do_sample=False, temperature=1.0, top_k=0, top_p=1.0,
                  seed=0, min_bucket=16, max_queue_size=64,
                  max_tokens_in_flight=None, max_prefills_per_step=1,
-                 clock=time.monotonic):
+                 clock=time.monotonic, graphs=True):
         ps = int(page_size)
         if ps < 1 or (ps & (ps - 1)):
             raise ValueError(
@@ -70,6 +74,7 @@ class PagedServingEngine(ServingEngine):
             temperature=temperature, top_k=top_k, top_p=top_p, seed=seed,
             min_bucket=min_bucket, max_queue_size=max_queue_size,
             max_tokens_in_flight=max_tokens_in_flight, clock=clock,
+            graphs=graphs,
         )
 
     # ------------------------------------------------------- KV backend
@@ -133,23 +138,37 @@ class PagedServingEngine(ServingEngine):
         self._tables[slot, :] = 0  # a free row reads/writes page 0
         self._free_rows.append(slot)
 
-    def _adopt(self, row, blk):
-        """Scatter the prefilled block into the row's pages; block pages
-        past the request's claim go to the garbage page 0."""
-        ps = self.page_size
-        n_blk = blk.bucket // ps
+    def _adopt_index(self, row, blk):
+        """The block's page ids: the row's pages, then the garbage page 0
+        for block pages past the request's claim."""
+        ids = self._adopt_zeros(blk)
         pages = self._row_pages[row]
-        ids = np.zeros((n_blk,), np.int64)
-        k1 = min(len(pages), n_blk)
+        k1 = min(len(pages), len(ids))
         ids[:k1] = pages[:k1]
-        page_ids = torch.from_numpy(ids).to(self.device)
-        for (ak, av), (bk, bv) in zip(self._caches, blk.caches):
-            adopt_into_pages(ak, bk, page_ids, n_blk, ps)
-            adopt_into_pages(av, bv, page_ids, n_blk, ps)
+        return ids
 
-    def _decode_extra(self):
-        return {"page_table": torch.from_numpy(self._tables)
-                .to(self.device)}
+    def _adopt_zeros(self, blk):
+        return np.zeros((blk.bucket // self.page_size,), np.int64)
+
+    def _adopt_body(self, blk):
+        """Scatter the prefilled block into the arena at ``page_ids`` (a
+        device tensor), whole pages, in place."""
+        ps, caches = self.page_size, self._caches
+        n_blk = blk.bucket // ps
+
+        def body(page_ids):
+            for (ak, av), (bk, bv) in zip(caches, blk.caches):
+                adopt_into_pages(ak, bk, page_ids, n_blk, ps)
+                adopt_into_pages(av, bv, page_ids, n_blk, ps)
+            return ()
+        return body
+
+    def _adopt(self, row, blk):
+        self._adopt_body(blk)(
+            torch.from_numpy(self._adopt_index(row, blk)).to(self.device))
+
+    def _decode_table(self):
+        return self._tables
 
     def close(self):
         super().close()

@@ -1,0 +1,195 @@
+"""The serving engines' fixed-shape programs (the torch counterpart of the
+JAX engines' jitted decode step, prefill and adopt programs and of their
+``warmup()``).
+
+A :class:`Program` holds one body (a function of fixed-shape tensors),
+its static input tensors and, on a CUDA device, a ``torch.cuda.CUDAGraph``
+captured from the body over those inputs. A call copies the step's host
+arrays into the static inputs and replays the graph; its result is the
+static outputs, which the next replay overwrites (read them first). On
+the CPU the same body runs as a plain call over the same static inputs,
+so the CPU tests drive the programs' bodies and their boundaries.
+
+Capture (at a program's first call, as ``jax.jit`` compiles at the
+first call, or from ``warmup()``):
+
+- the body runs once eagerly on the capture stream. That run IS the
+  call's step (its outputs are returned, its launches counted, its cache
+  writes the ones the eager engine makes), and it builds what the kernels
+  build lazily at their first call (the kernel library, the TMA entry
+  point, the rope tables, paged attention's arrival counters), so that
+  nothing is first created inside the capture;
+- then the body is captured, into one memory pool per engine: replays
+  never overlap, so graphs share their intermediates, while every
+  program keeps its static outputs referenced, so no later capture
+  reuses them. A capture launches nothing: the kernels' Python launch
+  counters move while the body is recorded, so their difference is
+  taken and undone, and added back at every replay
+  (``kernels.measure_launches``);
+- a capture or a replay that fails raises. Nothing falls back to the
+  eager step.
+
+A program reads the weights it was captured with: it keeps them
+referenced (the JAX engine serves the parameters it snapshot at
+construction), so a net whose weights are replaced needs a new engine.
+"""
+from __future__ import annotations
+
+import gc
+
+import numpy as np
+import torch
+
+from .. import kernels
+
+# the JAX trace guard's keys (``paddle_tpu/serving/engine.py``), under
+# which an engine counts its captures
+TRACE_KEYS = {"decode": "serving::decode_step",
+              "prefill": "serving::prefill",
+              "adopt": "serving::adopt"}
+
+
+# device -> the one side stream every engine's warm runs and captures
+# use: PyTorch keeps a cuBLAS workspace for each stream that ran a
+# product, for the life of the process, so a stream per engine would
+# leave one behind each engine
+_CAPTURE_STREAMS = {}
+
+
+def _tensors(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+class Program:
+    """One fixed-shape program: ``body(*inputs)`` over the static
+    ``inputs`` (device tensors), captured as a CUDA graph on a card.
+    ``keep`` holds what the graph reads besides its inputs (weights,
+    caches), so that it outlives the graph."""
+
+    def __init__(self, body, inputs, *, pool=None, stream=None, keep=()):
+        self.body = body
+        self.inputs = tuple(inputs)
+        self.cuda = self.inputs[0].device.type == "cuda"
+        # pinned host mirrors of the inputs: a copy from them is
+        # asynchronous. The engine reads every prefill's and decode
+        # step's output on the host before it fills a mirror again, and
+        # every adopt of a bucket follows that bucket's prefill, so no
+        # mirror is rewritten while its copy is pending.
+        self.host = tuple(
+            torch.empty(t.shape, dtype=t.dtype).pin_memory() if self.cuda
+            else None for t in self.inputs)
+        self.pool = pool
+        self.stream = stream
+        self.keep = keep
+        self.graph = None
+        self.outputs = None
+        self.launches = ()
+        self.captured = False
+
+    def _load(self, arrays):
+        for arr, host, static in zip(arrays, self.host, self.inputs):
+            src = torch.from_numpy(np.ascontiguousarray(arr))
+            if host is None:
+                static.copy_(src)
+            else:
+                host.copy_(src)
+                static.copy_(host, non_blocking=True)
+
+    def __call__(self, *arrays):
+        """This call's step over ``arrays`` (numpy, one per input): the
+        body's outputs (on a card after the first call, the static
+        outputs of a replay)."""
+        self._load(arrays)
+        if not self.captured:
+            return self._capture()
+        if self.graph is None:
+            return self.body(*self.inputs)
+        self.graph.replay()
+        kernels.add_launches(self.launches)
+        return self.outputs
+
+    def _capture(self):
+        if not self.cuda:
+            self.captured = True
+            return self.body(*self.inputs)
+        current = torch.cuda.current_stream(self.inputs[0].device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            out = self.body(*self.inputs)
+        current.wait_stream(self.stream)
+        for t in _tensors(out):
+            t.record_stream(current)
+        graph = torch.cuda.CUDAGraph()
+
+        def record():
+            # no garbage collection inside the capture: a collected cycle
+            # that holds another engine's graphs would destroy them there,
+            # a call the capture does not permit (it then fails)
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, pool=self.pool,
+                                      stream=self.stream):
+                    return self.body(*self.inputs)
+            finally:
+                if collecting:
+                    gc.enable()
+
+        self.outputs, self.launches = kernels.measure_launches(record)
+        self.graph = graph
+        self.captured = True
+        return out
+
+
+class Programs:
+    """An engine's program inventory, keyed ``(kind, bucket)`` with kind
+    ``"decode"``, ``"prefill"`` or ``"adopt"``, on one device: one memory
+    pool for all of them on a card, and the device's capture stream.
+    Counts its captures under the JAX trace guard's keys."""
+
+    def __init__(self, device):
+        self.device = device
+        cuda = device.type == "cuda"
+        self.pool = torch.cuda.graph_pool_handle() if cuda else None
+        self.stream = None
+        if cuda:
+            self.stream = _CAPTURE_STREAMS.get(device)
+            if self.stream is None:
+                self.stream = _CAPTURE_STREAMS[device] = torch.cuda.Stream(
+                    device)
+        self._progs = {}
+        self.counts = dict.fromkeys(TRACE_KEYS.values(), 0)
+
+    def get(self, key):
+        """The program ``key``, or None before its first call."""
+        return self._progs.get(key)
+
+    def run(self, key, build, *arrays):
+        """Call the program ``key`` on ``arrays``; ``build()`` gives its
+        ``(body, inputs, keep)`` the first time. A program's first call
+        captures it and is counted."""
+        prog = self._progs.get(key)
+        if prog is None:
+            body, inputs, keep = build()
+            prog = self._progs[key] = Program(
+                body, inputs, pool=self.pool, stream=self.stream, keep=keep)
+        fresh = not prog.captured
+        out = prog(*arrays)
+        if fresh:
+            self.counts[TRACE_KEYS[key[0]]] += 1
+        return out
+
+    def warm(self, key, build, *arrays):
+        """Capture the program ``key`` by a call on ``arrays`` unless it
+        is captured already; returns whether it was captured now."""
+        prog = self._progs.get(key)
+        if prog is not None and prog.captured:
+            return False
+        self.run(key, build, *arrays)
+        return True
+
+    def drop(self, kinds):
+        """Forget the programs of these kinds (they are captured again at
+        their next call)."""
+        for key in [k for k in self._progs if k[0] in kinds]:
+            del self._progs[key]

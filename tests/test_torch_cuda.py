@@ -30,7 +30,9 @@ tensor-core kernel adds what its split products may move an entry by
 (``split_product_slack``). bf16 flash attention
 adds, per entry, what rounding P and dS at other points than the plain
 version may move it by (``probability_rounding_slack``: the tensor-core
-kernels round the unnormalised P of each tile).
+kernels round the unnormalised P of each tile). The serving engines'
+decode program, a CUDA graph, is held bit-equal to the eager step it
+replays (the same kernels on the same inputs), with its launch counts.
 """
 import numpy as np
 import pytest
@@ -915,3 +917,128 @@ def test_tiny_default_model_on_the_card(dev):
     assert abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu)
     for name, w in after_cpu.items():
         np.testing.assert_allclose(after_card[name], w, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["bfloat16", "int8"])
+@pytest.mark.parametrize("kind", ["paged", "slab"])
+def test_decode_program_replays_equal_eager_step(dev, kind, cache):
+    """A tiny bf16 Llama's decode program (a CUDA graph) against the
+    eager step over a copy of the same caches: bit-equal logits and
+    caches at its capture and at 3 replays at other positions (and page
+    tables), and each replay counts the launches of one eager step."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.generation import decode_step
+    from paddle_tpu_torch.quantization.kv import QuantizedKV, is_quantized
+    from paddle_tpu_torch.serving import PagedServingEngine, ServingEngine
+
+    cfg = LlamaConfig.tiny(vocab_size=256, hidden_size=256,
+                           intermediate_size=512, num_hidden_layers=2,
+                           num_attention_heads=4, num_key_value_heads=2)
+    net = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=2)
+    kw = dict(max_batch_size=4, max_seq_len=64, min_bucket=8,
+              cache_dtype=cache)
+    eng = (PagedServingEngine(net, page_size=8, **kw) if kind == "paged"
+           else ServingEngine(net, **kw))
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def fill(t):
+        if is_quantized(t):
+            t.q.copy_(torch.randint(-127, 128, t.q.shape, generator=gen,
+                                    device=dev, dtype=torch.int32))
+            t.scale.copy_(torch.rand(t.scale.shape, generator=gen,
+                                     device=dev) * 0.02)
+        else:
+            t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+
+    def clone(t):
+        return (QuantizedKV(t.q.clone(), t.scale.clone())
+                if is_quantized(t) else t.clone())
+
+    def same(a, b):
+        return (torch.equal(a.q, b.q) and torch.equal(a.scale, b.scale)
+                if is_quantized(a) else torch.equal(a, b))
+
+    for pair in eng._caches:
+        for t in pair:
+            fill(t)
+    twin = [tuple(clone(t) for t in pair) for pair in eng._caches]
+    rng = np.random.RandomState(3)
+    for call in range(4):  # the capture, then 3 replays
+        tok = rng.randint(0, 256, (4, 1)).astype(np.int64)
+        pos = rng.randint(0, 64, (4,)).astype(np.int32)
+        arrays = [tok, pos]
+        extra = {}
+        if kind == "paged":
+            table = rng.permutation(np.arange(1, eng.page_pool.num_pages
+                                              + 1))[:32].reshape(4, 8)
+            arrays.append(table.astype(np.int32))
+            extra["page_table"] = torch.from_numpy(arrays[2]).to(dev)
+        with torch.inference_mode():
+            kernels.reset_launch_counts()
+            want, _ = decode_step(net, torch.from_numpy(tok).to(dev), twin,
+                                  torch.from_numpy(pos).to(dev), **extra)
+            eager_counts = kernels.launch_counts()
+            kernels.reset_launch_counts()
+            got, greedy = eng._programs.run(("decode",), eng._build_decode,
+                                            *arrays)
+            counts = kernels.launch_counts()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), call
+        assert torch.equal(greedy, want.argmax(dim=-1))
+        assert counts == eager_counts and counts["rms_norm"] == 5, call
+        for pair, tw in zip(eng._caches, twin):
+            assert all(same(a, b) for a, b in zip(pair, tw)), call
+    assert eng.compile_counts()["serving::decode_step"] == 1
+
+
+@pytest.mark.cuda
+def test_capture_runs_without_collecting_dead_graphs(dev):
+    """An engine dropped in a reference cycle keeps its graphs until a
+    collection; one during another engine's capture would destroy them
+    inside it, which the capture does not permit. Captures run with
+    automatic collection off: a body whose allocations would trigger one
+    captures all the same."""
+    import gc
+
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import PagedServingEngine
+
+    cfg = LlamaConfig.tiny(vocab_size=256, hidden_size=256,
+                           intermediate_size=512, num_hidden_layers=1,
+                           num_attention_heads=4)
+    net = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=2)
+    kw = dict(max_batch_size=2, max_seq_len=32, min_bucket=8, page_size=8,
+              cache_dtype="float32")
+    dead = PagedServingEngine(net, **kw)
+    dead.warmup()
+    dead.cycle = dead  # only a collection frees it now
+    del dead
+    eng = PagedServingEngine(net, **kw)
+    build, enabled = eng._build_decode, []
+
+    def build_collecting():
+        body, inputs, keep = build()
+
+        def collecting(*args, **kwargs):
+            enabled.append(gc.isenabled())
+            threshold = gc.get_threshold()
+            gc.set_threshold(1)
+            try:
+                _ = [[] for _ in range(1000)]  # a collection, if enabled
+                return body(*args, **kwargs)
+            finally:
+                gc.set_threshold(*threshold)
+
+        return collecting, inputs, keep
+
+    eng._build_decode = build_collecting
+    assert eng.warmup()["programs"] == 1 + 2 * len(eng._warmup_buckets())
+    assert enabled == [True, False]  # the warm run, then the capture
+    h = eng.submit(np.arange(1, 12), 6)
+    eng.run_until_idle()
+    want = net.generate(np.arange(1, 12)[None], max_new_tokens=6,
+                        cache_dtype="float32")
+    assert h.output_ids.tolist() == want[0].tolist()
+    gc.collect()

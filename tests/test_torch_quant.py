@@ -366,8 +366,9 @@ def test_quantize_for_serving_refuses_observed_layers():
 
 
 def test_int8_streams_equal_jax_generate():
-    """generate(cache_dtype="int8") and both engines with an int8 cache,
-    fp32 weights quantized to int8, against JAX ``generate``: two
+    """generate(cache_dtype="int8") and both engines with an int8 cache
+    (through their programs and with ``graphs=False``), fp32 weights
+    quantized to int8, against JAX ``generate``: two
     prompts in one JAX batch; the second request stops earlier (a greedy
     stream's prefix), and with one row it is admitted only when the
     first finishes, so its prefill is adopted into a used row."""
@@ -379,11 +380,15 @@ def test_int8_streams_equal_jax_generate():
     got = tq.generate(prompts, max_new_tokens=8, cache_dtype="int8")
     np.testing.assert_array_equal(got.numpy(), want)
     news = (8, 5)
-    for eng in (ServingEngine(tq, max_batch_size=1, max_seq_len=32,
-                              min_bucket=8, cache_dtype="int8"),
-                PagedServingEngine(tq, max_batch_size=1, max_seq_len=32,
-                                   min_bucket=8, page_size=4,
-                                   cache_dtype="int8")):
+    # each engine through its programs (the default) and eagerly
+    engines = [make(graphs=g) for g in (True, False) for make in (
+        lambda **kw: ServingEngine(tq, max_batch_size=1, max_seq_len=32,
+                                   min_bucket=8, cache_dtype="int8", **kw),
+        lambda **kw: PagedServingEngine(tq, max_batch_size=1,
+                                        max_seq_len=32, min_bucket=8,
+                                        page_size=4, cache_dtype="int8",
+                                        **kw))]
+    for eng in engines:
         assert isinstance(eng._caches[0][0], tkv.QuantizedKV)
         handles = [eng.submit(p, m) for p, m in zip(prompts, news)]
         eng.run_until_idle()

@@ -5,7 +5,11 @@ weights (the reference's own pin, tests/test_serving.py).
 A tiny fp32 Llama on the CPU, 2 rows, 4 staggered requests: late
 requests take rows freed by early completions, and every greedy stream
 (fp32 KV cache) is token-for-token equal to JAX's ``generate`` with an
-fp32 cache. No row or page leaks.
+fp32 cache, through the engines' fixed-shape programs (the default) and
+eagerly (``graphs=False``, the ``*_eager`` cases). ``warmup()``
+captures the JAX engine's inventory (one decode step, a prefill and an
+adopt per bucket of ``_warmup_buckets``), and traffic after it captures
+nothing. No row or page leaks.
 """
 import numpy as np
 import pytest
@@ -18,6 +22,8 @@ import paddle_tpu as paddle  # noqa: E402
 from paddle_tpu.core.tensor import Tensor  # noqa: E402
 from paddle_tpu.models import LlamaConfig as JConfig  # noqa: E402
 from paddle_tpu.models import LlamaForCausalLM as JLlama  # noqa: E402
+from paddle_tpu.serving import PagedServingEngine as JPaged  # noqa: E402
+from paddle_tpu.serving import ServingEngine as JEngine  # noqa: E402
 from paddle_tpu_torch.convert import load_numpy_state  # noqa: E402
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM  # noqa: E402
 from paddle_tpu_torch.serving import (  # noqa: E402
@@ -63,6 +69,9 @@ ENGINES = {
         net, max_batch_size=2, max_seq_len=64, min_bucket=8, page_size=4,
         cache_dtype="float32", **kw),
 }
+# the same engines stepping eagerly (the programs' reference)
+ENGINES.update({f"{k}_eager": (lambda make: lambda net, **kw: make(
+    net, graphs=False, **kw))(make) for k, make in list(ENGINES.items())})
 
 
 @pytest.mark.parametrize("kind", sorted(ENGINES))
@@ -83,7 +92,7 @@ def test_engine_streams_equal_jax_generate(nets, jax_streams, kind):
     assert eng.metrics.tokens_out.value == sum(MAX_NEWS)
     assert eng.metrics.ttft.count == 4 and eng.metrics.itl.count > 0
     assert eng.active_slots == 0 and eng.pool.occupancy == 0
-    if kind == "paged":
+    if kind.startswith("paged"):
         assert eng.page_pool.pages_in_use == 0
         assert eng.page_pool.claims == eng.page_pool.releases > 0
         assert not eng._tables.any()
@@ -210,3 +219,34 @@ def test_paged_engine_at_head_dim_72_equals_jax_generate():
             cache_dtype="float32").numpy())[0]
         assert h.status == "DONE"
         np.testing.assert_array_equal(h.output_ids, want)
+
+
+@pytest.mark.parametrize("kind", ["paged", "slab"])
+def test_warmup_captures_the_jax_inventory(nets, jax_streams, kind):
+    """``warmup()`` captures one decode step and a prefill and an adopt
+    per bucket of the JAX engine's ladder for the same geometry (the JAX
+    engine is built, not warmed: nothing compiles), once; traffic after
+    it captures nothing (the pin of tests/test_prefix_cache.py), and the
+    streams still equal JAX ``generate``."""
+    jnet, tnet = nets
+    jeng = (JPaged(jnet, max_batch_size=2, max_seq_len=64, min_bucket=8,
+                   page_size=4, cache_dtype="float32") if kind == "paged"
+            else JEngine(jnet, max_batch_size=2, max_seq_len=64,
+                         min_bucket=8, cache_dtype="float32"))
+    buckets = jeng._warmup_buckets()
+    assert buckets == [8, 16, 32, 64]
+    eng = ENGINES[kind](tnet)
+    assert eng.warmup() == {"programs": 1 + 2 * len(buckets),
+                            "aot_hits": 0, "aot_saves": 0}
+    counts = eng.compile_counts()
+    assert counts == {"serving::decode_step": 1,
+                      "serving::prefill": len(buckets),
+                      "serving::adopt": len(buckets)}
+    assert eng.warmup()["programs"] == 0
+    with pytest.raises(NotImplementedError, match="queue A item 7"):
+        eng.warmup(aot_cache="unused")
+    handles = [eng.submit(p, m) for p, m in zip(PROMPTS, MAX_NEWS)]
+    eng.run_until_idle()
+    for h, want in zip(handles, jax_streams):
+        np.testing.assert_array_equal(h.output_ids, want)
+    assert eng.compile_counts() == counts
