@@ -32,7 +32,18 @@ It imports neither jax nor ``paddle_tpu``. Phases, each fatal on failure:
    and 192, and fp32 at 16, 64, 80, 96, 160, 192 and 256), paged
    attention also with 32 query heads on one kv head and one 8192-slot
    row at groups of 4 and 8; the library's empty kernel, timed the same
-   way (the launch floor);
+   way (the launch floor); the four multi-tensor optimizer kernels
+   (``csrc/multi_tensor.cu``: ``mt_sumsq``, ``mt_adam``, ``mt_momentum``,
+   ``mt_lamb``) at the training model's parameter list (75 fp32 tensors,
+   1.881B elements) and on odd sizes, an empty tensor and an unaligned
+   slice in fp32 and bf16, through every prologue (unscale, the three
+   clips, L2, L1, the skip flag): ``mt_adam`` and ``mt_momentum`` bit for
+   bit, ``mt_sumsq`` within 1e-6 relative and bit-equal on a repeat (also
+   over a list mixing fp32 and bf16), ``mt_lamb`` within 1e-6 of the
+   tensor's largest |p| (bf16 one ulp) and bit-equal on a repeat (also
+   with no norm, every tensor in stats slot 0); timed beside their bound,
+   the plain versions, ``torch._foreach_norm``, ``torch._fused_adamw_``
+   and ``torch._fused_sgd_``;
 4. small parity: tiny fp32 Llamas on the card (MHA, GQA, and head dims
    96 with MQA, 80 with GQA, 72 with GQA, 16 with 16 query heads on one
    kv head),
@@ -44,7 +55,10 @@ It imports neither jax nor ``paddle_tpu``. Phases, each fatal on failure:
 5. tiny train parity: a 2-layer fp32 Llama takes one
    ``CompiledTrainStep`` on the card and the same step on the CPU (the
    plain versions) from the same weights; the loss and every parameter
-   after the step must agree;
+   after the step must agree; then the same for each optimizer case of
+   the optimizer sub-phase (below; the scaler case two steps, the
+   overflowing one and an update, its scaler state equal), each case's
+   multi-tensor launches counted;
 6. training: Llama-2-7B widths with 8 of its 32 layers (1.88B fp32
    parameters from a seeded generator), AdamW with weight decay 0.01, a
    linear warmup and global-norm clipping at 1.0, AMP O1 bf16, 10 steps
@@ -56,7 +70,19 @@ It imports neither jax nor ``paddle_tpu``. Phases, each fatal on failure:
    trainer's default, fp32 end to end, under the same checks (flash
    attention all on its tensor-core design: split products), with step
    time and peak memory; then, reset again, 3 fp32 steps with both
-   fusions (below);
+   fusions (below); per step the optimizer layer is three ``mt_sumsq``
+   launches (chunks, per-tensor sums, finalize) and one ``mt_adam`` launch
+   (75 tensors, one table each); then the optimizer sub-phase: the model
+   reset to its seed for each of SGD, Momentum with Nesterov and L2 decay,
+   Lamb with the global-norm clip, Lamb with no clip, Lamb with
+   ``ClipGradByValue``, Adam with ``ClipGradByNorm``, AdamW with
+   ``ClipGradByValue`` and an ``L2Decay`` group (two update calls a step),
+   and AdamW with the global-norm clip under a ``GradScaler`` (a summed
+   loss, initial scale 2^127: the first step overflows and must leave every
+   parameter and moment bit-equal and the step count at 0; the scale and
+   counts are checked after every step), 3 O1 steps each: every loss
+   finite, every launch count exact, step time and peak memory printed
+   (``optimizer <case>: {...}``);
 7. serving: Llama-2-7B at full width and depth (random bf16 weights
    from a seeded generator) served by two ``PagedServingEngine``s (8
    rows, 2048 slots, page size 16, bf16 arena each): one through its
@@ -1446,6 +1472,426 @@ def rope_attention_bwd_cases(torch, mod, dev):
     return out
 
 
+# ------------------------------------------- multi-tensor optimizer kernels
+# tensors a table holds (csrc/multi_tensor.cu Table<D>::kMax): the 4 KB of
+# kernel parameters; and the kernels a table launches (the sum of squares:
+# chunks and per-tensor sums, its call one finalize more; Lamb: moments,
+# per-tensor sums and apply)
+MT_TABLE = {"mt_sumsq": 159, "mt_adam": 79, "mt_momentum": 95,
+            "mt_lamb": 79}
+MT_PER_TABLE = {"mt_sumsq": 2, "mt_adam": 1, "mt_momentum": 1, "mt_lamb": 3}
+MT_KERNELS = tuple(MT_TABLE)
+# the CUDA kernels of csrc/multi_tensor.cu, by name (profile groups)
+MT_KERNEL_NAMES = ("mt_sumsq_kernel", "mt_reduce_kernel",
+                   "mt_finalize_kernel", "mt_adam_kernel",
+                   "mt_momentum_kernel", "mt_lamb_moments_kernel",
+                   "mt_lamb_apply_kernel")
+
+
+def train_param_shapes():
+    """The training model's parameter list (Llama-2-7B widths,
+    TRAIN_LAYERS layers): the embedding, per layer q, k, v, o, gate, up,
+    down and the two norms, the final norm and the head (75 tensors,
+    1.881B elements at 8 layers)."""
+    h, f, vocab = 4096, 11008, 32000
+    layer = [(h, h)] * 4 + [(h, f), (h, f), (f, h), (h,), (h,)]
+    return [(vocab, h)] + layer * TRAIN_LAYERS + [(h,), (h, vocab)]
+
+
+TRAIN_TENSORS = len(train_param_shapes())
+
+
+def mt_launches(kernel, tensors=TRAIN_TENSORS):
+    """Kernel launches of one call over ``tensors`` non-empty tensors of
+    one dtype."""
+    tables = -(-tensors // MT_TABLE[kernel])
+    return tables * MT_PER_TABLE[kernel] + (kernel == "mt_sumsq")
+
+
+# the checks' tensors: odd sizes, an empty one, and (added by the case) an
+# unaligned slice
+MT_SHAPES = ((1,), (7,), (1023,), (64, 33), (0,), (3, 4096), (4097,))
+# Lamb's norms are sums in another order: the ratio |p| / |r| moves by a
+# few fp32 ulps, so each updated entry by that much of its step: every
+# entry within 1e-6 of its tensor's largest |p| (fp32), and one bf16 ulp
+# of the entry, at most 2^-7 of it (bf16 parameters, where the sum's ulps
+# may flip a rounding)
+LAMB_TOL = {"float32": 1e-6, "bfloat16": 2.0 ** -7}
+# the sum of squares: each tensor's sum and the total within 1e-6
+# relative of the plain version's (fp32 sums in another order)
+SUMSQ_RTOL = 1e-6
+
+
+def _bitwise(torch, name, got, want):
+    """A check that ``got`` equals ``want`` bit for bit, tensor by
+    tensor."""
+    same = all(_bits_equal(torch, a, b) for a, b in zip(got, want))
+    err = max((float((a.float() - b.float()).abs().max()) if a.numel()
+               else 0.0) for a, b in zip(got, want))
+    return {"output": name, "max_abs_err": err, "tolerance": 0.0,
+            "err_over_tol": 0.0 if same else float("inf"), "bitwise": same}
+
+
+def _bits_equal(torch, a, b):
+    """Bit equality (NaNs included)."""
+    if a.dtype == torch.bfloat16:
+        return torch.equal(a.view(torch.int16), b.view(torch.int16))
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _mt_list(torch, dev, gen, dtype, shapes, scale=1.0, positive=False,
+             unaligned=True):
+    """Seeded tensors of ``shapes`` in ``dtype`` (and, with ``unaligned``,
+    one more: a 1000-element slice one element into its storage, whose
+    pointer is not 16-byte aligned)."""
+    out = []
+    for s in list(shapes) + ([(1001,)] if unaligned else []):
+        x = torch.randn(s, generator=gen, device=dev) * scale
+        if positive:
+            x = x.abs()
+        x = x.to(dtype)
+        out.append(x[1:] if unaligned and s == (1001,) else x)
+    return out
+
+
+def _clones(xs):
+    return [x.clone() for x in xs]
+
+
+def mt_check_cases(torch, mod, dev):
+    """Each family's kernel against its plain version on the card, on odd
+    sizes, an empty tensor and an unaligned slice, fp32 and bf16
+    parameters, through every prologue (unscale, the three clips, L2 and
+    L1, the skip flag set by a non-finite gradient): ``mt_adam`` and
+    ``mt_momentum`` bit for bit given the same stats, ``mt_sumsq`` within
+    SUMSQ_RTOL and bit-equal on a repeat (also over a list of both
+    dtypes), ``mt_lamb`` within LAMB_TOL (its moments bit for bit) and
+    bit-equal on a repeat (also with no norm and every tensor in stats
+    slot 0, as the optimizer calls it then)."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    out = {k: [] for k in MT_KERNELS}
+    inv = torch.full((), 0.25, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        ps = _mt_list(torch, dev, gen, dtype, MT_SHAPES)
+        gs = _mt_list(torch, dev, gen, dtype, MT_SHAPES, scale=2.0)
+        ms = _mt_list(torch, dev, gen, torch.float32, MT_SHAPES, scale=0.1)
+        vs = _mt_list(torch, dev, gen, torch.float32, MT_SHAPES, scale=0.1,
+                      positive=True)
+        shape = {"tensors": len(ps), "shapes": [list(p.shape) for p in ps],
+                 "unaligned": "the last, 1000 elements at offset 1"}
+        # sum of squares, unscaled by inv, with the clip coefficient
+        stats = mod.grad_sumsq_cuda(gs, inv=inv, clip_norm=1.0)
+        again = mod.grad_sumsq_cuda(gs, inv=inv, clip_norm=1.0)
+        ref = mod.grad_sumsq_reference(gs, inv=inv, clip_norm=1.0)
+        n = len(gs)
+        rel = float(((stats.buf[:4 + n] - ref.buf[:4 + n]).abs()
+                     / ref.buf[:4 + n].abs().clamp(min=1e-30)).max())
+        checks = [
+            {"output": "sums of squares, total, coefficient (relative)",
+             "max_abs_err": rel, "tolerance": SUMSQ_RTOL,
+             "err_over_tol": rel / SUMSQ_RTOL},
+            _bitwise(torch, "non-finite counts", [stats.buf[4 + n:]],
+                     [ref.buf[4 + n:]]),
+            _bitwise(torch, "repeat", [stats.buf], [again.buf])]
+        bad = _clones(gs)
+        bad[2][5] = float("inf")
+        flagged = mod.grad_sumsq_cuda(bad, inv=inv, clip_norm=1.0,
+                                      skip_nonfinite=True)
+        checks.append(_bitwise(torch, "inf flagged: count, skip", [
+            flagged.buf[1:2], flagged.buf[3:4]],
+            [torch.ones(1, device=dev), torch.ones(1, device=dev)]))
+        # every other gradient in the other dtype: one pass a dtype, each
+        # writing its tensors' slots, one finalize
+        other = (torch.bfloat16 if dtype == torch.float32
+                 else torch.float32)
+        mixed = [g if i % 2 == 0 else g.to(other) for i, g in enumerate(gs)]
+        got = mod.grad_sumsq_cuda(mixed, inv=inv, clip_norm=1.0)
+        ref = mod.grad_sumsq_reference(mixed, inv=inv, clip_norm=1.0)
+        rel = float(((got.buf[:4 + n] - ref.buf[:4 + n]).abs()
+                     / ref.buf[:4 + n].abs().clamp(min=1e-30)).max())
+        checks += [
+            {"output": "mixed dtypes: sums, total, coefficient (relative)",
+             "max_abs_err": rel, "tolerance": SUMSQ_RTOL,
+             "err_over_tol": rel / SUMSQ_RTOL},
+            _bitwise(torch, "mixed dtypes: repeat", [got.buf], [
+                mod.grad_sumsq_cuda(mixed, inv=inv, clip_norm=1.0).buf])]
+        out["mt_sumsq"].append(_mt_case(dname, shape, checks))
+
+        def run_both(fn, cols, kwargs):
+            """fn's kernel and plain version on clones of ``cols``."""
+            a, b = [_clones(c) for c in cols], [_clones(c) for c in cols]
+            getattr(mod, fn + "_cuda")(*a, **kwargs)
+            getattr(mod, fn + "_reference")(*b, **kwargs)
+            return a, b
+
+        norm_stats = mod.grad_sumsq_cuda(gs)
+        global_stats = mod.grad_sumsq_cuda(gs, inv=inv, clip_norm=1.0,
+                                           skip_nonfinite=True)
+        pro = {
+            "none": None,
+            "inv+global+skip flag clear": mod.Prologue(
+                inv, mod.CLIP_GLOBAL, global_stats, skip=True),
+            "norm": mod.Prologue(None, mod.CLIP_NORM, norm_stats,
+                                 clip_norm=0.5),
+            "value": mod.Prologue(None, mod.CLIP_VALUE, lo=-0.1, hi=0.2),
+            "skip flag set": mod.Prologue(inv, mod.CLIP_GLOBAL, flagged,
+                                          skip=True),
+        }
+        checks = []
+        for label, decoupled, wd, l1, p in (
+                ("AdamW wd 0.01", True, 0.01, 0.0, "none"),
+                ("Adam coupled wd 0.01", False, 0.01, 0.0,
+                 "inv+global+skip flag clear"),
+                ("AdamW L1 0.01", True, 0.0, 0.01, "norm"),
+                ("AdamW wd 0.1", True, 0.1, 0.0, "value"),
+                ("Adam", False, 0.0, 0.0, "skip flag set")):
+            grads = bad if p == "skip flag set" else gs
+            a, b = run_both("fused_adam_update", [ps, ms, vs], dict(
+                grads=grads, lr=1e-2, beta1=0.9, beta2=0.999, eps=1e-8,
+                t=3, decoupled=decoupled, weight_decay=wd, l1=l1,
+                prologue=pro[p]))
+            for j, col in enumerate(("p", "m", "v")):
+                checks.append(_bitwise(torch, f"{label}, {p}: {col}",
+                                       a[j], b[j]))
+            if p == "skip flag set":
+                checks.append(_bitwise(torch, "skipped: p, m, v untouched",
+                                       a[0] + a[1] + a[2], ps + ms + vs))
+        out["mt_adam"].append(_mt_case(dname, shape, checks))
+        checks = []
+        for label, vel, nest, wd, l1, p in (
+                ("SGD L2 0.01", None, False, 0.01, 0.0, "none"),
+                ("Momentum Nesterov L1 0.01", ms, True, 0.0, 0.01, "norm"),
+                ("Momentum", ms, False, 0.0, 0.0,
+                 "inv+global+skip flag clear"),
+                ("Momentum, value clip", ms, False, 0.0, 0.0, "value"),
+                ("Momentum", ms, True, 0.0, 0.0, "skip flag set")):
+            grads = bad if p == "skip flag set" else gs
+            kw = dict(grads=grads, lr=0.1, momentum=0.9,
+                      use_nesterov=nest, weight_decay=wd, l1=l1,
+                      prologue=pro[p])
+            if vel is None:
+                a, b = run_both("momentum_update", [ps],
+                                dict(kw, velocity=None))
+            else:
+                a, b = run_both("momentum_update", [ps, vel], kw)
+            checks.append(_bitwise(torch, f"{label}, {p}: p", a[0], b[0]))
+            if vel is not None:
+                checks.append(_bitwise(torch, f"{label}, {p}: velocity", a[1],
+                                       b[1]))
+        out["mt_momentum"].append(_mt_case(dname, shape, checks))
+        checks = []
+        for p in ("inv+global+skip flag clear", "norm", "skip flag set",
+                  "none", "value"):
+            grads = bad if p == "skip flag set" else gs
+            # without a norm the optimizer gives every tensor slot 0: the
+            # Lamb norms must not depend on it
+            kw = dict(grads=grads, lr=1e-2, beta1=0.9, beta2=0.999,
+                      eps=1e-6, t=3, lamb_weight_decay=0.01,
+                      prologue=pro[p], slots=[0] * len(ps) if p in (
+                          "none", "value") else None)
+            a, b = run_both("lamb_update", [ps, ms, vs], kw)
+            a2 = [_clones(c) for c in (ps, ms, vs)]
+            mod.lamb_update_cuda(*a2, **kw)
+            checks.append(_bitwise(torch, f"{p}: m, v", a[1] + a[2],
+                                   b[1] + b[2]))
+            checks.append(_bitwise(torch, f"{p}: repeat", a[0], a2[0]))
+            tol = LAMB_TOL[dname]
+            worst = 0.0
+            for x, y, p0 in zip(a[0], b[0], ps):
+                if not x.numel():
+                    continue
+                d = (x.float() - y.float()).abs()
+                lim = (tol * y.float().abs() if dtype == torch.bfloat16
+                       else tol * float(p0.float().abs().max())
+                       * torch.ones_like(d))
+                worst = max(worst, float((d / lim.clamp(min=1e-30)).max()))
+            checks.append({"output": f"{p}: p (ratio from sums in another "
+                                     f"order)", "max_abs_err": worst * tol,
+                           "tolerance": tol, "err_over_tol": worst})
+        out["mt_lamb"].append(_mt_case(dname, shape, checks))
+    return out
+
+
+def _mt_case(dname, shape, checks):
+    worst = max(checks, key=lambda c: c["err_over_tol"])
+    return {"shape": shape, "dtype": dname, "checks": checks,
+            "max_abs_err": worst["max_abs_err"],
+            "tolerance": worst["tolerance"],
+            "err_over_tol": worst["err_over_tol"]}
+
+
+def mt_main_cases(torch, mod, dev):
+    """Each family at the training model's parameter list (75 fp32 tensors,
+    1.881B elements; the O1 step's configuration: AdamW with the
+    global-norm clip): held against the plain version on the same inputs
+    (``mt_adam``, ``mt_momentum`` bit for bit, Lamb within LAMB_TOL, the
+    sums within SUMSQ_RTOL), then timed beside its bound (bytes at 3.35
+    TB/s: every input read once, every output written once), the plain
+    version and a PyTorch call for the same function that the port never
+    makes (``torch._foreach_norm``; ``torch._fused_adamw_``, torch's op
+    order on the same bytes; ``torch._fused_sgd_``)."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    shapes = train_param_shapes()
+    ps = [torch.empty(s, device=dev) for s in shapes]
+    gs = [torch.randn(s, generator=gen, device=dev) * 1e-3 for s in shapes]
+    ms = [torch.empty(s, device=dev) for s in shapes]
+    vs = [torch.empty(s, device=dev) for s in shapes]
+
+    def fresh():
+        """Seeded parameters and zero moments (each family's check starts
+        from them: the timed calls before it update in place)."""
+        gen.manual_seed(23)
+        for p in ps:
+            p.normal_(0.0, 0.02, generator=gen)
+        for x in ms + vs:
+            x.zero_()
+
+    n = sum(p.numel() for p in ps)
+    shape = {"tensors": len(ps), "elements": n, "dtype": "float32",
+             "model": f"Llama-2-7B widths, {TRAIN_LAYERS} layers"}
+    out = {}
+    slow = dict(n=2, repeats=3)
+
+    # sum of squares
+    stats = mod.grad_sumsq_cuda(gs, clip_norm=1.0)
+    again = mod.grad_sumsq_cuda(gs, clip_norm=1.0)
+    ref = mod.grad_sumsq_reference(gs, clip_norm=1.0)
+    k = 4 + len(gs)
+    rel = float(((stats.buf[:k] - ref.buf[:k]).abs()
+                 / ref.buf[:k].abs().clamp(min=1e-30)).max())
+    checks = [{"output": "sums of squares, total, coefficient (relative)",
+               "max_abs_err": rel, "tolerance": SUMSQ_RTOL,
+               "err_over_tol": rel / SUMSQ_RTOL},
+              _bitwise(torch, "repeat", [stats.buf], [again.buf])]
+    b_ms, b_by = bound(4 * n, 2 * n, "float32")
+    case = _mt_case("float32", shape, checks)
+    case.update(
+        ms=gpu_time_ms(torch, lambda: mod.grad_sumsq_cuda(gs, clip_norm=1.0)),
+        plain_ms=gpu_time_ms(torch, lambda: mod.grad_sumsq_reference(
+            gs, clip_norm=1.0), **slow),
+        library_ms=gpu_time_ms(torch, lambda: torch._foreach_norm(gs)),
+        library="torch._foreach_norm", bound_ms=b_ms, bound_by=b_by)
+    out["mt_sumsq"] = case
+
+    # AdamW with the global-norm clip (the O1 step's update)
+    fresh()
+    pro = mod.Prologue(None, mod.CLIP_GLOBAL, stats)
+    kw = dict(lr=3e-4, beta1=0.9, beta2=0.999, eps=1e-8, t=1,
+              decoupled=True, weight_decay=0.01, prologue=pro)
+    a = [_clones(c) for c in (ps, ms, vs)]
+    mod.fused_adam_update_cuda(a[0], a[1], a[2], gs, **kw)
+    checks = _per_tensor(torch, mod.fused_adam_update_reference, a,
+                         (ps, ms, vs), gs, kw, "pmv")
+    del a
+    b_ms, b_by = bound(7 * 4 * n, 15 * n, "float32")
+    case = _mt_case("float32", shape, checks)
+    steps = [torch.zeros((), device=dev) for _ in ps]
+
+    def fused_adamw():
+        torch._fused_adamw_(ps, gs, ms, vs, [], steps, lr=3e-4, beta1=0.9,
+                            beta2=0.999, weight_decay=0.01, eps=1e-8,
+                            amsgrad=False, maximize=False)
+
+    case.update(
+        ms=gpu_time_ms(torch, lambda: mod.fused_adam_update_cuda(
+            ps, ms, vs, gs, **kw)),
+        plain_ms=gpu_time_ms(torch, lambda: mod.fused_adam_update_reference(
+            ps, ms, vs, gs, **kw), **slow),
+        library_ms=_library_ms(torch, fused_adamw),
+        library="torch._fused_adamw_", bound_ms=b_ms, bound_by=b_by)
+    out["mt_adam"] = case
+
+    # Momentum with Nesterov (velocity in ms)
+    fresh()
+    kw = dict(lr=1e-2, momentum=0.9, use_nesterov=True)
+    a = [_clones(c) for c in (ps, ms)]
+    mod.momentum_update_cuda(a[0], a[1], gs, **kw)
+    checks = _per_tensor(torch, mod.momentum_update_reference, a, (ps, ms),
+                         gs, kw, ("p", "velocity"))
+    del a
+    b_ms, b_by = bound(5 * 4 * n, 5 * n, "float32")
+    case = _mt_case("float32", shape, checks)
+
+    def fused_sgd():
+        torch._fused_sgd_(ps, gs, ms, weight_decay=0.0, momentum=0.9,
+                          lr=1e-2, dampening=0.0, nesterov=True,
+                          maximize=False, is_first_step=False)
+
+    case.update(
+        ms=gpu_time_ms(torch, lambda: mod.momentum_update_cuda(
+            ps, ms, gs, **kw)),
+        plain_ms=gpu_time_ms(torch, lambda: mod.momentum_update_reference(
+            ps, ms, gs, **kw), **slow),
+        library_ms=_library_ms(torch, fused_sgd),
+        library="torch._fused_sgd_", bound_ms=b_ms, bound_by=b_by)
+    out["mt_momentum"] = case
+
+    # Lamb with the global-norm clip
+    fresh()
+    kw = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-6, t=1,
+              lamb_weight_decay=0.01, prologue=pro)
+    a = [_clones(c) for c in (ps, ms, vs)]
+    mod.lamb_update_cuda(a[0], a[1], a[2], gs, **kw)
+    checks = _per_tensor(torch, mod.lamb_update_reference, a, (ps, ms, vs),
+                         gs, kw, "pmv", p_tol=LAMB_TOL["float32"])
+    del a
+    b_ms, b_by = bound(7 * 4 * n, 22 * n, "float32")
+    case = _mt_case("float32", shape, checks)
+    case.update(
+        ms=gpu_time_ms(torch, lambda: mod.lamb_update_cuda(
+            ps, ms, vs, gs, **kw)),
+        plain_ms=gpu_time_ms(torch, lambda: mod.lamb_update_reference(
+            ps, ms, vs, gs, **kw), **slow),
+        library_ms=None, library=None, bound_ms=b_ms, bound_by=b_by)
+    out["mt_lamb"] = case
+    del ps, gs, ms, vs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _per_tensor(torch, reference, got, cols, gs, kw, names, p_tol=None):
+    """Checks of the kernel's outputs ``got`` (a list per column of
+    ``cols``) against the plain version run tensor by tensor on copies of
+    ``cols`` (each tensor's slot is its index): bit for bit, or for the
+    parameters with ``p_tol`` within that much of the tensor's largest
+    |p| (Lamb)."""
+    worst = {c: 0.0 for c in names}
+    for i in range(len(gs)):
+        mine = [[c[i].clone()] for c in cols]
+        reference(*mine, [gs[i]], slots=[i], **kw)
+        for j, c in enumerate(names):
+            d = float((got[j][i] - mine[j][0]).abs().max())
+            if j == 0 and p_tol is not None:
+                d /= p_tol * float(cols[0][i].abs().max())
+            elif d != 0.0 or not _bits_equal(torch, got[j][i], mine[j][0]):
+                d = float("inf")
+            worst[c] = max(worst[c], d)
+    return [{"output": c, "max_abs_err": worst[c] * (
+                p_tol if j == 0 and p_tol is not None else 1.0),
+             "tolerance": p_tol if j == 0 and p_tol is not None else 0.0,
+             "err_over_tol": worst[c]}
+            for j, c in enumerate(names)]
+
+
+def _library_ms(torch, fn):
+    """The yardstick's time, or None where this PyTorch does not run it
+    (the reason is printed)."""
+    try:
+        return gpu_time_ms(torch, fn)
+    except (RuntimeError, TypeError, AttributeError) as e:
+        log(f"library yardstick not timed: {type(e).__name__}: {e}")
+        return None
+
+
+def multi_tensor_cases(torch, mod, dev):
+    """{kernel: [main case, check cases...]}: the main case first (the
+    training model's parameter list), then :func:`mt_check_cases`."""
+    main = mt_main_cases(torch, mod, dev)
+    checks = mt_check_cases(torch, mod, dev)
+    return {k: [main[k]] + checks[k] for k in MT_KERNELS}
+
+
 KERNELS = [
     # name, source, replaces (file:line of the TPU kernel)
     ("rms_norm", "paddle_tpu_torch/csrc/rms_norm.cu",
@@ -1480,16 +1926,38 @@ KERNELS = [
      "paddle_tpu_torch/kernels/fused_rope_attention.py",
      "paddle_tpu/kernels/fused_rope_attention.py:153 (_bwd, plain jax; "
      "no pl.pallas_call)"),
+    # no TPU kernel: the optimizer layer is plain jax that XLA fuses into
+    # the jitted step; these are the port's counterpart of that fusion
+    ("mt_sumsq", "paddle_tpu_torch/csrc/multi_tensor.cu",
+     "paddle_tpu/jit/trainer.py:398-452 (the unscale, finite check and "
+     "clip norms XLA fuses into the step; plain jax, no pl.pallas_call)"),
+    ("mt_adam", "paddle_tpu_torch/csrc/multi_tensor.cu",
+     "paddle_tpu/kernels/fused_adam.py:21 (fused_adam_update; "
+     "_adam_update, paddle_tpu/optimizer/optimizer.py:44; plain jax, no "
+     "pl.pallas_call)"),
+    ("mt_momentum", "paddle_tpu_torch/csrc/multi_tensor.cu",
+     "paddle_tpu/optimizer/optimizer.py:28 and :33 (_sgd_update, "
+     "_momentum_update; plain jax, no pl.pallas_call)"),
+    ("mt_lamb", "paddle_tpu_torch/csrc/multi_tensor.cu",
+     "paddle_tpu/optimizer/optimizer.py:60 (_lamb_update; plain jax, no "
+     "pl.pallas_call)"),
 ]
 # launches per training step, from the model's structure: two RMSNorms
 # per layer and the final one; one rope launch (q and k) per layer; one
-# flash attention per layer; forward and backward each
+# flash attention per layer; forward and backward each; and from the
+# parameter list and the tables: AdamW with the global-norm clip is one
+# sum of squares over the 75 gradients and one update call (one bucket:
+# every parameter has the rate and weight decay 0.01), each one table:
+# three sum-of-squares launches (chunks, per-tensor sums, finalize) and one
+# Adam launch
 TRAIN_PER_STEP = {
     "rms_norm": 2 * TRAIN_LAYERS + 1, "rms_norm_bwd": 2 * TRAIN_LAYERS + 1,
     "rope": TRAIN_LAYERS, "rope_bwd": TRAIN_LAYERS,
     "flash_attention_fwd": TRAIN_LAYERS, "flash_attention_bwd": TRAIN_LAYERS,
     "paged_attention": 0, "paged_attention_int8": 0, "int8_matmul": 0,
     "rms_norm_matmul": 0, "rope_attention": 0, "rope_attention_bwd": 0,
+    "mt_sumsq": mt_launches("mt_sumsq"), "mt_adam": mt_launches("mt_adam"),
+    "mt_momentum": 0, "mt_lamb": 0,
 }
 # the same with both fusions: the final norm goes into the fused head
 # (whose backward is the plain version's VJP), and rope + flash into the
@@ -1650,27 +2118,140 @@ def fused_parity(torch, np, dev):
 
 
 # -------------------------------------------------- tiny train parity
-def _tiny_step(torch, np, cfg, dev, weights, ids):
+# the optimizer, clip, decay and scaler cases of the tiny train parity and
+# of the optimizer sub-phase (tests/test_torch_train.py holds the same
+# kinds against the JAX trainer on the CPU): name -> (rate, builder(
+# optimizer module, named parameters, rate, epsilon))
+def _mlp_groups(o, named):
+    """The MLP weights in a group with an ``L2Decay`` and half the rate."""
+    mlp = [x for x in named if ".mlp." in x[0]]
+    rest = [x for x in named if ".mlp." not in x[0]]
+    return [{"params": rest},
+            {"params": mlp, "weight_decay": o.L2Decay(0.05),
+             "learning_rate": 0.5}]
+
+
+OPT_CASES = {
+    "sgd": (0.1, lambda o, named, lr, eps: o.SGD(lr, parameters=named)),
+    "nesterov_l2": (0.05, lambda o, named, lr, eps: o.Momentum(
+        lr, 0.9, parameters=named, use_nesterov=True, weight_decay=1e-3)),
+    "lamb_global": (1e-3, lambda o, named, lr, eps: o.Lamb(
+        lr, 0.01, epsilon=eps, parameters=named,
+        grad_clip=o.ClipGradByGlobalNorm(1.0))),
+    # no sum of squares: every tensor's Lamb norms from the update alone
+    "lamb_none": (1e-3, lambda o, named, lr, eps: o.Lamb(
+        lr, 0.01, epsilon=eps, parameters=named)),
+    "lamb_value": (1e-3, lambda o, named, lr, eps: o.Lamb(
+        lr, 0.01, epsilon=eps, parameters=named,
+        grad_clip=o.ClipGradByValue(0.05))),
+    "adam_norm": (3e-4, lambda o, named, lr, eps: o.Adam(
+        lr, epsilon=eps, parameters=named,
+        grad_clip=o.ClipGradByNorm(1.0))),
+    "adamw_value_l2_group": (3e-4, lambda o, named, lr, eps: o.AdamW(
+        lr, epsilon=eps, parameters=_mlp_groups(o, named),
+        weight_decay=0.01, grad_clip=o.ClipGradByValue(0.05))),
+    "adamw_scaler": (3e-4, lambda o, named, lr, eps: o.AdamW(
+        lr, epsilon=eps, parameters=named, weight_decay=0.01,
+        grad_clip=o.ClipGradByGlobalNorm(1.0))),
+}
+# the scaler case's GradScaler, as in tests/test_torch_train.py: its first
+# step overflows (a summed loss: the logits' gradient is about the scale,
+# and 2^127 times an lm_head gradient entry above 2 is past fp32's largest
+# value), then the scale falls by 2^-20 and doubles after 2 good steps
+SCALER_KW = dict(init_loss_scaling=2.0 ** 127, decr_ratio=2.0 ** -20,
+                 incr_every_n_steps=2, decr_every_n_nan_or_inf=1)
+
+
+def opt_case_launches(case, layers):
+    """Multi-tensor launches per step of an optimizer case on a model of
+    ``layers`` layers (3 + 9 per layer parameters, 3 per layer in the MLP
+    group): those of its sum of squares and of each update call."""
+    n, mlp = 3 + 9 * layers, 3 * layers
+    want = dict.fromkeys(MT_KERNELS, 0)
+    sumsq = mt_launches("mt_sumsq", n)
+    if case in ("sgd", "nesterov_l2"):
+        want["mt_momentum"] = mt_launches("mt_momentum", n)
+    elif case == "lamb_global":
+        want.update(mt_sumsq=sumsq, mt_lamb=mt_launches("mt_lamb", n))
+    elif case in ("lamb_none", "lamb_value"):  # no norm
+        want["mt_lamb"] = mt_launches("mt_lamb", n)
+    elif case == "adamw_value_l2_group":  # two buckets, no norm
+        want["mt_adam"] = (mt_launches("mt_adam", n - mlp)
+                           + mt_launches("mt_adam", mlp))
+    else:  # adam_norm, adamw_scaler, and the AdamW + global clip steps
+        want.update(mt_sumsq=sumsq, mt_adam=mt_launches("mt_adam", n))
+    return want
+
+
+def _scaler_state(scaler, opt):
+    return [scaler._scale, scaler._good_steps, scaler._bad_steps,
+            scaler._found_inf, opt._step_count]
+
+
+def _tiny_step(torch, np, cfg, dev, weights, ids, case=None, steps=1):
+    """``steps`` fp32 CompiledTrainSteps of the tiny model from
+    ``weights``: AdamW with the global-norm clip (``case`` None) or an
+    OPT_CASES case. Returns the losses, the parameters after and the
+    scaler's state (or None)."""
+    from paddle_tpu_torch import optimizer as o
+    from paddle_tpu_torch.amp import GradScaler
     from paddle_tpu_torch.convert import load_numpy_state, numpy_state
     from paddle_tpu_torch.jit import CompiledTrainStep
     from paddle_tpu_torch.models import LlamaForCausalLM, causal_lm_loss
-    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
 
     net = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=0)
     load_numpy_state(net, weights)
-    opt = AdamW(1e-3, epsilon=1e-3, parameters=net.named_parameters(),
-                weight_decay=0.01, grad_clip=ClipGradByGlobalNorm(1.0))
-    step = CompiledTrainStep(
-        net, lambda lo, lb: causal_lm_loss(lo, lb).mean(), opt)
+    named = list(net.named_parameters())
+    if case is None:
+        opt = o.AdamW(1e-3, epsilon=1e-3, parameters=named,
+                      weight_decay=0.01,
+                      grad_clip=o.ClipGradByGlobalNorm(1.0))
+    else:
+        rate, build = OPT_CASES[case]
+        opt = build(o, named, rate, 1e-3)
+    scaler = GradScaler(**SCALER_KW) if case == "adamw_scaler" else None
+    if scaler is None:
+        def loss_fn(lo, lb):
+            return causal_lm_loss(lo, lb).mean()
+    else:
+        def loss_fn(lo, lb):
+            return causal_lm_loss(lo, lb).sum()
+    step = CompiledTrainStep(net, loss_fn, opt, scaler=scaler)
     t = torch.as_tensor(ids, dtype=torch.long, device=dev)
-    loss, _ = step([t[:, :-1]], [t[:, 1:]])
-    return float(loss), numpy_state(net)
+    losses = [float(step([t[:, :-1]], [t[:, 1:]])[0]) for _ in range(steps)]
+    state = None if scaler is None else _scaler_state(scaler, opt)
+    return losses, numpy_state(net), state
+
+
+def _tiny_compare(np, label, card, cpu):
+    """(worst parameter difference, its name); fails past the
+    tolerances."""
+    (l_gpu, p_gpu, s_gpu), (l_cpu, p_cpu, s_cpu) = card, cpu
+    for a, b in zip(l_gpu, l_cpu):
+        if not abs(a - b) <= TINY_LOSS_RTOL * abs(b):
+            fail(f"tiny train parity {label}: loss {a} on the card, {b} "
+                 f"on the CPU")
+    if s_gpu != s_cpu:
+        fail(f"tiny train parity {label}: scaler state {s_gpu} on the "
+             f"card, {s_cpu} on the CPU")
+    worst, worst_name = 0.0, ""
+    for k, want in p_cpu.items():
+        err = float(np.abs(p_gpu[k] - want).max())
+        if err > worst:
+            worst, worst_name = err, k
+    if not worst <= TINY_PARAM_ATOL:
+        fail(f"tiny train parity {label}: {worst_name} differs by {worst} "
+             f"after the step (> {TINY_PARAM_ATOL})")
+    return worst, worst_name
 
 
 def tiny_train_parity(torch, np, dev):
     """One fp32 CompiledTrainStep of a 2-layer GQA Llama (head_dim 64,
     100 tokens: a ragged second 64-row block) on the card and on the CPU
-    from the same weights."""
+    from the same weights, with AdamW and the global-norm clip; then the
+    same for each optimizer case (the scaler case two steps: the
+    overflowing one and one update), each case's multi-tensor launches
+    counted on the card."""
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.convert import numpy_state
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
@@ -1682,37 +2263,46 @@ def tiny_train_parity(torch, np, dev):
     weights = numpy_state(LlamaForCausalLM(cfg, device="cpu", seed=11))
     ids = np.random.RandomState(12).randint(0, 256, (2, 101))
     kernels.reset_launch_counts()
-    loss_gpu, after_gpu = _tiny_step(torch, np, cfg, dev, weights, ids)
+    gpu = _tiny_step(torch, np, cfg, dev, weights, ids)
     counts = kernels.launch_counts()
-    loss_cpu, after_cpu = _tiny_step(torch, np, cfg, "cpu", weights, ids)
-    loss_again, after_again = _tiny_step(torch, np, cfg, dev, weights, ids)
+    cpu = _tiny_step(torch, np, cfg, "cpu", weights, ids)
+    again = _tiny_step(torch, np, cfg, dev, weights, ids)
     not_here = ("paged_attention", "paged_attention_int8", "int8_matmul",
-                *BOTH_FUSIONS, "rope_attention_bwd")  # serving only, and
-    # the unfused model
+                *BOTH_FUSIONS, "rope_attention_bwd",  # serving only, and
+                # the unfused model
+                "mt_momentum", "mt_lamb")  # AdamW's step
     missing = [k for k, n in counts.items()
                if n <= 0 and k not in not_here]
     if missing:
         fail(f"tiny train parity: kernels not launched on the card: "
              f"{missing}")
-    if not abs(loss_gpu - loss_cpu) <= TINY_LOSS_RTOL * abs(loss_cpu):
-        fail(f"tiny train parity: loss {loss_gpu} on the card, {loss_cpu} "
-             f"on the CPU")
-    worst, worst_name = 0.0, ""
-    for k, want in after_cpu.items():
-        err = float(np.abs(after_gpu[k] - want).max())
-        if err > worst:
-            worst, worst_name = err, k
-    if not worst <= TINY_PARAM_ATOL:
-        fail(f"tiny train parity: {worst_name} differs by {worst} after "
-             f"the step (> {TINY_PARAM_ATOL})")
-    repeats = loss_again == loss_gpu and all(
-        np.array_equal(after_again[k], v) for k, v in after_gpu.items())
+    worst, worst_name = _tiny_compare(np, "AdamW", gpu, cpu)
+    repeats = again[0] == gpu[0] and all(
+        np.array_equal(again[1][k], v) for k, v in gpu[1].items())
+    cases = {}
+    for case in OPT_CASES:
+        steps = 2 if case == "adamw_scaler" else 1
+        kernels.reset_launch_counts()
+        card = _tiny_step(torch, np, cfg, dev, weights, ids, case, steps)
+        mt = {k: v for k, v in kernels.launch_counts().items()
+              if k in MT_KERNELS}
+        want = {k: v * steps for k, v in opt_case_launches(
+            case, cfg.num_hidden_layers).items()}
+        if mt != want:
+            fail(f"tiny train parity {case}: multi-tensor launches {mt}, "
+                 f"expected {want}")
+        cpu_ = _tiny_step(torch, np, cfg, "cpu", weights, ids, case, steps)
+        err, name = _tiny_compare(np, case, card, cpu_)
+        cases[case] = {"losses_card": card[0], "losses_cpu": cpu_[0],
+                       "max_param_diff": err, "param": name,
+                       "scaler_state": card[2], "launches": mt}
     log("tiny train parity: " + json.dumps({
-        "loss_card": loss_gpu, "loss_cpu": loss_cpu,
+        "loss_card": gpu[0][0], "loss_cpu": cpu[0][0],
         "max_param_diff": worst, "param": worst_name,
         "tolerance": {"loss_rtol": TINY_LOSS_RTOL,
                       "param_atol": TINY_PARAM_ATOL},
-        "card_step_repeats_bitwise": repeats, "launches": counts}))
+        "card_step_repeats_bitwise": repeats, "launches": counts,
+        "optimizer_cases": cases}))
 
 
 # ----------------------------------------------------------- training
@@ -1822,10 +2412,13 @@ def training_phase(torch, np, dev, card, profile_train_steps=0):
     fused_fp32_counts = fused_fp32_training(torch, np, net, inputs, labels,
                                             fp32_loss0, card,
                                             profile_train_steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt_counts = optimizer_phase(torch, np, net, inputs, labels, card)
     del net
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, fused_counts, fp32_counts, fused_fp32_counts
+    return counts, fused_counts, fp32_counts, fused_fp32_counts, opt_counts
 
 
 def fp32_training(torch, np, net, inputs, labels, card,
@@ -2066,6 +2659,101 @@ def fused_training(torch, np, net, inputs, labels, unfused_loss0, card,
         log("profile: " + json.dumps(dict(prof, kind="train_fused")))
     net.fusions = ()
     return counts
+
+
+OPT_STEPS = 3
+
+
+def optimizer_phase(torch, np, net, inputs, labels, card):
+    """The optimizer sub-phase: the training model reset to its seed-0
+    weights for each OPT_CASES case, AMP O1 bf16, OPT_STEPS steps on the
+    training batch. Every loss finite, and every kernel launched exactly
+    the count the structure gives (the forward and backward kernels as
+    the unfused O1 step, the multi-tensor kernels by the case's tables and
+    buckets). The scaler case (a summed loss, SCALER_KW) must overflow on
+    its first step and leave every parameter and moment bit-equal and the
+    step count at 0, then update: its scale, counts and step count after
+    each step are checked exactly. Returns the launch counts of all
+    cases."""
+    import gc
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch import optimizer as o
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.models import causal_lm_loss
+
+    total = dict.fromkeys(kernels.KERNELS, 0)
+    # the scaler case's state after each step: the overflow (the scale
+    # falls by 2^-20, the step does not count), then two good steps (the
+    # second doubles the scale)
+    scaler_want = [[2.0 ** 107, 0, 0, True, 0], [2.0 ** 107, 1, 0, False, 1],
+                   [2.0 ** 108, 0, 0, False, 2]]
+    for case, (rate, build) in OPT_CASES.items():
+        net.reset_parameters(0)
+        named = list(net.named_parameters())
+        opt = build(o, named, rate, 1e-8)
+        scaler = GradScaler(**SCALER_KW) if case == "adamw_scaler" else None
+        reduce = "sum" if scaler is not None else "mean"
+
+        def loss_fn(lo, lb, reduce=reduce):
+            return getattr(causal_lm_loss(lo, lb), reduce)()
+
+        step = CompiledTrainStep(net, loss_fn, opt, amp_level="O1",
+                                 amp_dtype="bfloat16", scaler=scaler)
+        before = ([p.detach().clone() for _, p in named]
+                  if scaler is not None else None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        losses, times, states = [], [], []
+        for i in range(OPT_STEPS):
+            t0 = time.perf_counter()
+            loss, _ = step([inputs], [labels])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+            if scaler is None:
+                continue
+            states.append(_scaler_state(scaler, opt))
+            if states[-1] != scaler_want[i]:
+                fail(f"optimizer {case}: scaler state after step {i + 1} "
+                     f"{states[-1]}, expected {scaler_want[i]}")
+            if i == 0:
+                same = all(_bits_equal(torch, a, p)
+                           for a, (_, p) in zip(before, named))
+                zero = all(not a.any() for a in opt._accumulators.values())
+                if not (same and zero and len(opt._accumulators)
+                        == 2 * len(named)):
+                    fail(f"optimizer {case}: the overflowing step changed "
+                         f"the parameters ({not same}) or the moments "
+                         f"({not zero})")
+                del before
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        if not all(np.isfinite(losses)):
+            fail(f"optimizer {case}: non-finite loss in {losses}")
+        want = {k: 0 if k in MT_KERNELS else n * OPT_STEPS
+                for k, n in TRAIN_PER_STEP.items()}
+        want.update({k: n * OPT_STEPS for k, n in opt_case_launches(
+            case, TRAIN_LAYERS).items()})
+        if counts != want:
+            fail(f"optimizer {case}: launches {counts}, expected {want} "
+                 f"({OPT_STEPS} steps)")
+        for k, n in counts.items():
+            total[k] += n
+        log(f"optimizer {case}: " + json.dumps({
+            "card": card, "amp_level": "O1", "optimizer": type(opt).__name__,
+            "clip": type(opt._grad_clip).__name__, "rate": rate,
+            "steps": OPT_STEPS, "losses": losses, "step_s": times,
+            "step_p50_s": statistics.median(times), "peak_mem_bytes": peak,
+            "scaler_states": states or None,
+            "launches_per_step": {k: counts[k] / OPT_STEPS
+                                  for k in MT_KERNELS}}))
+        del step, opt, scaler, named, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
 
 
 # ------------------------------------------------------------ serving
@@ -2510,7 +3198,10 @@ def profile_steps(torch, step_fn, steps):
         # head,
         # flash_bwd_* (both designs) the backward passes
         # paged attention: its scores and values kernels, the int8
-        # flavour's instantiated over signed char
+        # flavour's instantiated over signed char;
+        # the optimizer layer's kernels (csrc/multi_tensor.cu: the update,
+        # its sums of squares and Lamb's): "multi_tensor"; the rest of the
+        # elementwise work (casts, adds, SwiGLU, the loss): "other"
         paged = "paged_scores_kernel" in low or "paged_values_kernel" in low
         group = ("paged_attention_int8" if paged and "signed char" in low
                  else "int8_matmul" if "int8_matmul" in low
@@ -2532,6 +3223,7 @@ def profile_steps(torch, step_fn, steps):
                  else "rms_norm_bwd" if ("rms_norm_bwd_kernel" in low
                                          or "rms_norm_dw_kernel" in low)
                  else "rope" if "rope_kernel" in low
+                 else "multi_tensor" if any(s in low for s in MT_KERNEL_NAMES)
                  else "gemm" if any(s in low for s in (
                      "gemm", "nvjet", "xmma", "cutlass", "gemv", "splitk"))
                  else "other")
@@ -2684,12 +3376,13 @@ def main():
             ("rope_attention", "fused_rope_attention",
              rope_attention_cases),
             ("rope_attention_bwd", "fused_rope_attention",
-             rope_attention_bwd_cases)):
+             rope_attention_bwd_cases),
+            ("multi_tensor", "fused_adam", multi_tensor_cases)):
         cases = cases_fn(torch, getattr(kernels, modname), dev)
         torch.cuda.synchronize()
         named = (dict(zip(("flash_attention_fwd", "flash_attention_bwd"),
                           cases)) if name == "flash_attention"
-                 else {name: cases})
+                 else cases if isinstance(cases, dict) else {name: cases})
         for kname, kcases in named.items():
             for c in kcases:
                 log(f"kernel {kname}: " + json.dumps(c))
@@ -2724,8 +3417,8 @@ def main():
     fused_parity(torch, np, dev)
     tiny_train_parity(torch, np, dev)
     (train_counts, fused_train_counts, fp32_train_counts,
-     fused_fp32_train_counts) = training_phase(torch, np, dev, card,
-                                               args.profile_train_steps)
+     fused_fp32_train_counts, opt_counts) = training_phase(
+        torch, np, dev, card, args.profile_train_steps)
     (serve_counts, serve_eager_counts,
      (fused_serve_counts, fused_serve_eager_counts)) = serving_phase(
         torch, np, dev, card, args.profile_steps)
@@ -2757,7 +3450,8 @@ def main():
                     "fused_serving_eager": fused_serve_eager_counts[name],
                     "fused_training": fused_train_counts[name],
                     "fp32_training": fp32_train_counts[name],
-                    "fused_fp32_training": fused_fp32_train_counts[name]}
+                    "fused_fp32_training": fused_fp32_train_counts[name],
+                    "optimizers": opt_counts[name]}
         line.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
@@ -2776,6 +3470,9 @@ def main():
         })
         if "design" in main_case:
             line[-1]["design"] = main_case["design"]
+        if name in MT_KERNELS:
+            # measured in the O1 training steps
+            line[-1]["launches_per_o1_step"] = train_counts[name] / TRAIN_STEPS
         if name.startswith("flash_attention"):
             # the design each dtype ran, at the training shape (fp32:
             # the default training step's)

@@ -8,8 +8,9 @@ Llama family: the model (``models.llama``), KV-cache generation
 ``quantization``), and the train step (``jit.CompiledTrainStep`` with
 ``optimizer`` and ``amp``), with hand-written Hopper kernels for RMSNorm
 and rope (forward and backward), paged decode attention (float and int8
-arenas), flash attention (forward and backward) and the W8A16 matmul
-(``kernels``, sources in ``csrc/``).
+arenas), flash attention (forward and backward), the W8A16 matmul, the two
+fusions and the multi-tensor optimizer updates (``kernels``, sources in
+``csrc/``).
 
 Entry points run on the first CUDA card unless the caller passes
 ``device="cpu"``; without a card and without a device they raise.

@@ -7,3 +7,4 @@ from .auto_cast import (  # noqa: F401
     get_amp_dtype,
     is_auto_cast_enabled,
 )
+from .grad_scaler import AmpScaler, GradScaler  # noqa: F401

@@ -2,41 +2,64 @@
 ``paddle_tpu/jit/trainer.py``).
 
 The name is the JAX package's, so a reader finds the counterpart; here
-the step runs eagerly (capturing it in a CUDA graph around the hand
-kernels is later work). Each call runs, in the order of the JAX step
-(``trainer.py:319-500``):
+the step runs eagerly (capturing it in a CUDA graph is later work: the
+update kernels take their pointers as kernel arguments and read the
+scalars that change from step to step from device memory, so they can be
+captured as they are). Each call runs, in the order of the JAX step
+(``trainer.py:319-560``):
 
 1. the forward and the loss, under the O1 casts when ``amp_level`` is
    "O1" or "O2" (O2 behaves as O1 inside the step, as in the JAX
-   trainer: the parameters stay fp32);
+   trainer: the parameters stay fp32); with a ``scaler``, the loss times
+   the loss scale;
 2. the backward through torch autograd (the RMSNorm, rope and flash
-   attention kernels' backward kernels on the card);
-3. ``optimizer.step()``: the optimizer's clip, then its update of EVERY
-   parameter it owns (a parameter the loss does not reach gets a zero
-   gradient, as ``jax.value_and_grad`` gives it).
+   attention kernels' backward kernels on the card); a parameter the loss
+   does not reach gets a zero gradient, as ``jax.value_and_grad`` gives
+   it;
+3. the optimizer layer, every parameter the optimizer owns, through the
+   multi-tensor kernels (``kernels/fused_adam.py``): one ``mt_sumsq``
+   pass when the scaler or a norm clip needs it (the unscale ``G(g *
+   1/scale)``, the finite check, the norms), then one update call a
+   ``(lr x multiplier, weight decay)`` bucket, each of which unscales,
+   clips (every gradient: the step does not read ``need_clip``) and
+   decays as it updates. With a scaler and a non-finite gradient the
+   update writes nothing.
 
-The scheduler is not stepped here; the caller steps it, as in the JAX
-package. Returns ``(loss, outputs)``: the fp32 loss and the network's
-outputs, detached. Nothing is read back to the host.
+With a scaler, and only then, the step reads one value back, the finite
+flag (JAX reads back the new scale, counts and flag, ``trainer.py:815-
+825``), and updates the scale and the good and bad counts by the JAX
+step's fp32 formulas (``:527-556``); a skipped step does not count as an
+optimizer step. Without one, nothing is read back. The scheduler is not
+stepped here; the caller steps it, as in the JAX package. Returns ``(loss,
+outputs)``: the fp32 loss (unscaled) and the network's outputs, detached.
 """
 from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 from .. import optimizer as opt_mod
 from ..amp.auto_cast import auto_cast
 
+_F32 = np.float32
+
 
 class CompiledTrainStep:
     """Build once per (network, loss, optimizer); call with batches."""
 
-    SUPPORTED = (opt_mod.AdamW, opt_mod.Adam)
+    SUPPORTED = (
+        opt_mod.AdamW,  # subclasses before their parents
+        opt_mod.Adam,
+        opt_mod.Lamb,
+        opt_mod.Momentum,
+        opt_mod.SGD,
+    )
 
     def __init__(self, network, loss_fn, optimizer, amp_level=None,
-                 amp_dtype="bfloat16"):
-        if not any(type(optimizer) is cls for cls in self.SUPPORTED):
+                 amp_dtype="bfloat16", scaler=None, layout_policy=None):
+        if not any(isinstance(optimizer, cls) for cls in self.SUPPORTED):
             raise NotImplementedError(
                 f"CompiledTrainStep does not support "
                 f"{type(optimizer).__name__}; it takes "
@@ -45,11 +68,25 @@ class CompiledTrainStep:
         if amp_level not in (None, "O0", "O1", "O2"):
             raise NotImplementedError(
                 f"amp_level {amp_level!r} is not ported (None, O0, O1, O2)")
+        if layout_policy is not None:
+            raise NotImplementedError(
+                "layout_policy is not ported: sharded layouts wait for the "
+                "distributed port (ROADMAP.md queue A item 6)")
         self.network = network
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.amp_level = amp_level
         self.amp_dtype = amp_dtype
+        self.scaler = self._normalize_scaler(scaler)
+        self._plan = None
+        self._inv = {}
+
+    @staticmethod
+    def _normalize_scaler(scaler):
+        """A disabled GradScaler is the same as no scaler."""
+        if scaler is not None and getattr(scaler, "_enable", True):
+            return scaler
+        return None
 
     def _amp(self):
         if self.amp_level in ("O1", "O2"):
@@ -57,21 +94,77 @@ class CompiledTrainStep:
                              dtype=self.amp_dtype)
         return contextlib.nullcontext()
 
+    def _build_plan(self):
+        """``{id(p): (weight decay, lr multiplier)}``, fixed at the first
+        call as the JAX step fixes them at its trace (``trainer.py:284-
+        307``); an L1 decay is refused there, as in JAX."""
+        opt = self.optimizer
+        plan = {}
+        for group, p in opt._all_params():
+            coeff, l1 = opt._in_step_decay(group, p)
+            if l1:
+                raise NotImplementedError(
+                    "CompiledTrainStep does not support L1Decay "
+                    f"(parameter {opt.param_name(p)!r}); use the eager "
+                    "optimizer path")
+            plan[id(p)] = (float(coeff), opt.lr_multiplier(group, p))
+        return plan
+
+    def _inv_scale(self, device, scale):
+        """The fp32 device scalar ``1 / scale`` (``trainer.py:407``)."""
+        buf = self._inv.get(device)
+        if buf is None:
+            buf = self._inv[device] = torch.empty(
+                (), dtype=torch.float32, device=device)
+        return buf.fill_(float(_F32(1) / _F32(scale)))
+
+    def _update_scaler(self, finite):
+        """The JAX step's scale update in fp32 (``trainer.py:527-556``)."""
+        sc = self.scaler
+        scale = _F32(sc._scale)
+        good = sc._good_steps + 1 if finite else 0
+        bad = 0 if finite else sc._bad_steps + 1
+        scale2 = scale
+        if sc._dynamic:
+            if good >= sc._incr_every:
+                scale2 = scale * _F32(sc._incr_ratio)
+                good = 0
+            if bad >= sc._decr_every:
+                scale2 = max(scale * _F32(sc._decr_ratio), _F32(1.0))
+                bad = 0
+        sc._scale = float(scale2)
+        sc._good_steps = good
+        sc._bad_steps = bad
+        sc._found_inf = not finite
+        if not finite:
+            # the update was skipped: the bias-correction step stays
+            self.optimizer._step_count -= 1
+
     def __call__(self, inputs, labels):
         """One optimizer step over ``inputs`` (the network's positional
         arguments) and ``labels`` (the loss function's arguments after
         the network's outputs)."""
         opt = self.optimizer
+        if self._plan is None:
+            self._plan = self._build_plan()
         opt.clear_grad()
         self.network.train()
         with self._amp():
             out = self.network(*inputs)
             outs = list(out) if isinstance(out, (list, tuple)) else [out]
             loss = self.loss_fn(*outs, *labels).float()
-        loss.backward()
-        for _, p in opt._all_params():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        opt.step()
+        sc = self.scaler
+        if sc is not None:
+            (loss * float(_F32(sc._scale))).backward()
+        else:
+            loss.backward()
+        items = [(p, torch.zeros_like(p) if p.grad is None else p.grad, g)
+                 for g, p in opt._all_params()]
+        opt._step_count += 1
+        inv = (None if sc is None
+               else self._inv_scale(items[0][0].device, sc._scale))
+        stats = opt._apply(items, opt.get_lr(), plan=self._plan, inv=inv)
+        if sc is not None:
+            self._update_scaler(stats.finite())
         opt.clear_grad()
         return loss.detach(), [o.detach() for o in outs]

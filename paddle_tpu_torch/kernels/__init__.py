@@ -29,6 +29,11 @@ PyTorch version (counterpart of ``paddle_tpu/kernels``).
   split into three parts, then flash attention's split forward); its
   backward is the VJP of the plain version, as in JAX, composed of the
   rope and flash attention kernels in fp32
+- :mod:`.fused_adam` (``csrc/multi_tensor.cu``) <-
+  ``kernels/fused_adam.py`` ``fused_adam_update`` and the optimizer layer
+  XLA fuses into the JAX train step (no Pallas kernel): the multi-tensor
+  sum of squares and the Adam/AdamW, SGD/Momentum and Lamb updates, each a
+  few launches for a whole parameter list
 
 With these every ``pl.pallas_call`` of the JAX package has a hand-written
 counterpart. Each module counts the kernel launches it made
@@ -45,6 +50,7 @@ with nvcc at first use.
 """
 from . import (  # noqa: F401
     flash_attention,
+    fused_adam,
     fused_norm_matmul,
     fused_rope_attention,
     int8_matmul,
@@ -67,6 +73,10 @@ KERNELS = {
     "rms_norm_matmul": (fused_norm_matmul, "launches"),
     "rope_attention": (fused_rope_attention, "launches"),
     "rope_attention_bwd": (fused_rope_attention, "bwd_launches"),
+    "mt_sumsq": (fused_adam, "sumsq_launches"),
+    "mt_adam": (fused_adam, "adam_launches"),
+    "mt_momentum": (fused_adam, "momentum_launches"),
+    "mt_lamb": (fused_adam, "lamb_launches"),
 }
 
 

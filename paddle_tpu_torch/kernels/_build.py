@@ -40,6 +40,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_PI = ctypes.POINTER(ctypes.c_int)
 # name -> argtypes of every C entry point in csrc/ (restype is int: the
 # cudaError_t of the launch). Without argtypes ctypes would pass Python
 # ints as 32-bit C ints and cut the pointers.
@@ -97,6 +98,23 @@ SIGNATURES = {
     # (or null), cuda_cores, stream
     "ptt_flash_attention_bwd": [_P] * 10 + [_I] * 5 + [_L] * 15
     + [_I, _F, _I, _P, _I, _P],
+    # the multi-tensor kernels (csrc/multi_tensor.cu): host arrays of
+    # pointers and numels (and slots), the count, dtype codes, ...,
+    # kernels launched (out), stream.
+    # gradients, numels, dtype codes, count, inv, stats, partial,
+    # workspace chunks, clip_norm, skip_nonfinite, launches, stream
+    "ptt_mt_sumsq": [_P, _P, _P, _I, _P, _P, _P, _L, _F, _I, _PI, _P],
+    # (p, g, m, v) pointers, numels, slots, count, p dtype, g dtype,
+    # prologue pointers, floats, ints, hyper, decoupled, launches, stream
+    "ptt_mt_adam": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _PI, _P],
+    # (p, g, velocity) pointers, ..., prologue, lr, mu, nesterov,
+    # launches, stream
+    "ptt_mt_momentum": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _F, _F, _I,
+                        _PI, _P],
+    # (p, g, m, v) pointers, ..., prologue, hyper, sums, partial,
+    # workspace chunks, launches, stream
+    "ptt_mt_lamb": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _L,
+                    _PI, _P],
 }
 
 # dtype codes shared with csrc/common.cuh

@@ -1,6 +1,20 @@
-"""Optimizers, schedulers and clipping (counterpart of
-``paddle_tpu/optimizer``)."""
+"""Optimizers, schedulers, clipping and regularizers (counterpart of
+``paddle_tpu/optimizer`` and ``paddle_tpu/regularizer.py``)."""
 from . import lr  # noqa: F401
-from .clip import ClipGradByGlobalNorm  # noqa: F401
+from .clip import (  # noqa: F401
+    ClipGradBase,
+    ClipGradByGlobalNorm,
+    ClipGradByNorm,
+    ClipGradByValue,
+    clip_grad_norm_,
+)
 from .lr import CosineAnnealingDecay, LinearWarmup, LRScheduler  # noqa: F401
-from .optimizer import Adam, AdamW, Optimizer  # noqa: F401
+from .optimizer import (  # noqa: F401
+    SGD,
+    Adam,
+    AdamW,
+    Lamb,
+    Momentum,
+    Optimizer,
+)
+from .regularizer import L1Decay, L2Decay  # noqa: F401

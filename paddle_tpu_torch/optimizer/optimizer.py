@@ -1,21 +1,46 @@
-"""Optimizers: ``Optimizer``, ``Adam`` and ``AdamW`` (counterpart of
-``paddle_tpu/optimizer/optimizer.py``, ``:129``, ``:372`` and ``:459``).
+"""Optimizers: ``Optimizer``, ``SGD``, ``Momentum``, ``Adam``, ``AdamW`` and
+``Lamb`` (counterpart of ``paddle_tpu/optimizer/optimizer.py``, ``:129``,
+``:336``, ``:350``, ``:372``, ``:459`` and ``:488``).
 
-The update keeps the JAX package's fp32 op order (``_adam_update``,
-``:44-56``) exactly: decoupled decay multiplies the fp32 parameter by
-``1 - lr * weight_decay`` before the step is taken, the step is
-``lr * mhat / (sqrt(vhat) + eps)`` with the bias corrections
-``1 - beta ** t`` at a float step count ``t``, and the result is cast
-back once. (``torch.optim.AdamW`` computes ``lr / bc1 * m / (sqrt(v) /
-sqrt(bc2) + eps)`` and drifts from it at fp32.) The scalars are rounded
-to fp32 before they meet a tensor, as the JAX step's fp32 scalars are.
-Moments are fp32 tensors on the parameter's device, updated in place.
+Every update runs through the multi-tensor functions of
+``kernels/fused_adam.py`` (the hand-written kernels of
+``csrc/multi_tensor.cu`` on a CUDA tensor, their plain versions on a CPU
+one) in the JAX update rules' fp32 op order (``_sgd_update``,
+``_momentum_update``, ``_adam_update``, ``_lamb_update``,
+``optimizer.py:28-72``): decoupled decay multiplies the fp32 parameter by
+``1 - lr * weight_decay`` before the step is taken, the Adam step is ``lr
+* mhat / (sqrt(vhat) + eps)`` with the bias corrections ``1 - beta ** t``
+at a float step count ``t``, and the result is cast back once. (``torch.
+optim.AdamW`` computes ``lr / bc1 * m / (sqrt(v) / sqrt(bc2) + eps)`` and
+drifts from it at fp32.) The scalars are rounded to fp32 on the host before
+they meet a tensor, as the JAX step's fp32 scalars are. Moments are fp32
+tensors on the parameter's device, made before the first update and
+updated in place.
+
+The gradient clip is folded into the update (``fused_adam.Prologue``: the
+global and per-tensor norms from one ``mt_sumsq`` pass), and so is the
+decay: ``L2Decay`` or a float adds ``wd * p`` to the gradient (AdamW:
+decays the parameter), ``L1Decay`` adds ``coeff * sign(p)`` (JAX's
+``_apply_l1``, here in the kernels' prologue); a parameter's
+``regularizer`` attribute comes before its group's ``weight_decay``, which
+comes before the optimizer's (``_decay_value``, ``optimizer.py:212-226``).
+A parameter whose ``need_clip`` is False is not clipped; one with
+``requires_grad=False`` (or no gradient) is skipped, as JAX skips
+``stop_gradient``.
+
+The eager :meth:`Optimizer.step` updates each parameter with a call on a
+list of one, as the JAX optimizers update each parameter with one jitted
+call; ``Adam(use_multi_tensor=True)`` buckets the parameters by ``(lr x
+multiplier, weight decay)`` and makes one call a bucket
+(``optimizer.py:385-436``; an L1 parameter alone). The compiled train step
+(``jit/trainer.py``) makes one call a bucket for every optimizer.
 
 ``parameters`` is a list of tensors, of ``(name, tensor)`` pairs (what
 ``net.named_parameters()`` yields), or of group dicts ``{"params": [...],
-"learning_rate": multiplier, "weight_decay": coeff}``. A parameter's
-name (``param_<i>`` when none is given) keys its state and is what
-``apply_decay_param_fun`` receives.
+"learning_rate": multiplier, "weight_decay": coeff or regularizer}``. A
+parameter's name (``param_<i>`` when none is given) keys its state and is
+what ``apply_decay_param_fun`` receives; a tensor's ``optimize_attr``
+dict's ``learning_rate`` multiplies its rate, as a Paddle parameter's does.
 """
 from __future__ import annotations
 
@@ -24,41 +49,19 @@ import numbers
 import numpy as np
 import torch
 
+from ..kernels import fused_adam as fa
+from .clip import ClipGradBase
 from .lr import LRScheduler
+from .regularizer import L1Decay, L2Decay, WeightDecayRegularizer
 
 _F32 = np.float32
 
 
-def _f32(x):
-    """A Python float holding ``x`` rounded to fp32 (exact in a tensor op
-    with an fp32 tensor)."""
-    return float(_F32(x))
-
-
-@torch.no_grad()
-def adam_update_(p, m, v, g, lr, beta1, beta2, eps, t, weight_decay,
-                 decoupled):
-    """One Adam/AdamW step in place on ``p`` (any float dtype) and its
-    fp32 moments ``m``, ``v``, in the op order of ``_adam_update``."""
-    lr, beta1, beta2 = _F32(lr), _F32(beta1), _F32(beta2)
-    t, wd = _F32(t), _F32(weight_decay)
-    g32 = g.float()
-    p32 = p.float()
-    if not decoupled and wd:
-        g32 = g32 + float(wd) * p32
-    m2 = float(beta1) * m + float(_F32(1) - beta1) * g32
-    v2 = float(beta2) * v + float(_F32(1) - beta2) * torch.square(g32)
-    mhat = m2 / float(_F32(1) - np.power(beta1, t))
-    vhat = v2 / float(_F32(1) - np.power(beta2, t))
-    step = float(lr) * mhat / (torch.sqrt(vhat) + _f32(eps))
-    if decoupled:
-        p32 = p32 * float(_F32(1) - lr * wd)
-    p.copy_(p32 - step)
-    m.copy_(m2)
-    v.copy_(v2)
-
-
 class Optimizer:
+    # the eager step makes one update call a bucket (Adam's
+    # use_multi_tensor); else one a parameter
+    _use_multi_tensor = False
+
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None):
         op = type(self).__name__
@@ -76,11 +79,10 @@ class Optimizer:
         if isinstance(weight_decay, numbers.Real) and weight_decay < 0:
             raise ValueError(f"{op}: weight_decay expected >= 0, got "
                              f"{weight_decay}")
-        if weight_decay is not None and \
-                not isinstance(weight_decay, numbers.Real):
-            raise NotImplementedError(
-                f"{op}: weight_decay must be a float; L1Decay/L2Decay "
-                "regularizer objects are not ported")
+        if weight_decay is not None and not isinstance(
+                weight_decay, (numbers.Real, WeightDecayRegularizer)):
+            raise TypeError(f"{op}: weight_decay expected a float, L1Decay "
+                            f"or L2Decay, got {type(weight_decay).__name__}")
         self._lr = learning_rate
         self._param_groups, self._names = self._build_groups(parameters)
         self._grad_clip = grad_clip
@@ -134,33 +136,120 @@ class Optimizer:
     def set_lr_scheduler(self, scheduler):
         self._lr = scheduler
 
-    # -------------------------------------------------------------- update
-    def _decay_value(self, group, p):
-        """The weight-decay coefficient of ``p``: its group's, else the
-        optimizer's (0.0 when neither is set)."""
-        wd = group.get("weight_decay", self._weight_decay)
-        return 0.0 if wd is None else float(wd)
+    @staticmethod
+    def lr_multiplier(group, p=None):
+        """A group's ``learning_rate`` times the parameter's own
+        (``optimize_attr``): multipliers of the scheduled rate."""
+        own = getattr(p, "optimize_attr", None) or {}
+        return (float(group.get("learning_rate", 1.0))
+                * float(own.get("learning_rate", 1.0)))
 
-    def lr_multiplier(self, group):
-        # a group's 'learning_rate' multiplies the scheduled rate
-        return float(group.get("learning_rate", 1.0))
+    # --------------------------------------------------------------- decay
+    _OWN = object()
+
+    def _decay_value(self, group, p=None, default=_OWN):
+        """``(coeff, l1)`` of ``p``: its ``regularizer``, else its group's
+        ``weight_decay``, else ``default`` (the optimizer's own unless
+        given); ``l1`` is ``"l1"`` for an ``L1Decay``, else False (``(0.0,
+        False)`` when none is set)."""
+        if default is self._OWN:
+            default = self._weight_decay
+        wd = getattr(p, "regularizer", None) if p is not None else None
+        if wd is None:
+            wd = group.get("weight_decay", default)
+        if wd is None:
+            return 0.0, False
+        if isinstance(wd, L2Decay):
+            return float(wd.coeff), False
+        if isinstance(wd, L1Decay):
+            return float(wd.coeff), "l1"
+        return float(wd), False
+
+    def _eager_decay(self, group, p):
+        """``(L2 coefficient, L1 coefficient)`` of ``p`` in the eager
+        step."""
+        coeff, l1 = self._decay_value(group, p)
+        return (0.0, coeff) if l1 else (coeff, 0.0)
+
+    def _in_step_decay(self, group, p):
+        """``(coeff, l1)`` of ``p`` in the compiled train step
+        (``trainer.py:284-300``)."""
+        return self._decay_value(group, p)
+
+    # -------------------------------------------------------------- update
+    def _params_grads(self):
+        return [(p, p.grad, g) for g, p in self._all_params()
+                if p.grad is not None and p.requires_grad]
 
     def step(self):
-        """The eager step: parameters without a gradient are skipped,
-        the gradients are clipped, then each parameter is updated."""
-        params_grads = [(p, p.grad, g) for g, p in self._all_params()
-                        if p.grad is not None]
-        if not params_grads:
+        """The eager step: parameters without a gradient are skipped; the
+        clip, the decay and the update of each parameter."""
+        items = self._params_grads()
+        if not items:
             return
-        grads = [gr for _, gr, _ in params_grads]
-        if self._grad_clip is not None:
-            grads = self._grad_clip.clip(grads)
         self._step_count += 1
-        lr = self.get_lr()
-        for (p, _, group), gr in zip(params_grads, grads):
-            self._update_param(p, gr, lr * self.lr_multiplier(group), group)
+        self._apply(items, self.get_lr())
 
-    def _update_param(self, p, g, lr, group):
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        loss.backward()
+        self.step()
+        return None, [(p, p.grad) for _, p in self._all_params()]
+
+    @torch.no_grad()
+    def _apply(self, items, lr, plan=None, inv=None):
+        """Clip, decay and update ``items``, ``(param, grad, group)``
+        triples, at the scheduled rate ``lr``. Eager when ``plan`` is None
+        (the clip honours ``need_clip``; one call a parameter unless
+        ``_use_multi_tensor``); else the compiled step's: ``plan[id(p)]`` is
+        ``(wd, lr multiplier)``, every gradient is clipped, one call a
+        bucket, and ``inv`` (an fp32 device scalar) unscales every
+        gradient, whose non-finite values then skip the whole update.
+        Returns the ``mt_sumsq`` stats (None when no norm was needed)."""
+        clip = self._grad_clip
+        in_step = plan is not None
+        if clip is not None and (not isinstance(clip, ClipGradBase)
+                                 or clip.kind == fa.CLIP_NONE):
+            raise TypeError(f"grad_clip expected ClipGradByValue, "
+                            f"ClipGradByNorm or ClipGradByGlobalNorm, got "
+                            f"{type(clip).__name__}")
+        on = [clip is not None and (in_step or getattr(p, "need_clip", True))
+              for p, _, _ in items]
+        kind = fa.CLIP_NONE if clip is None else clip.kind
+        stats, slots = None, [0] * len(items)
+        if inv is not None or kind in (fa.CLIP_GLOBAL, fa.CLIP_NORM):
+            idx = [i for i in range(len(items)) if inv is not None or on[i]]
+            if idx:
+                stats = fa.grad_sumsq(
+                    [items[i][1] for i in idx], inv=inv,
+                    clip_norm=clip.clip_norm if kind == fa.CLIP_GLOBAL
+                    else 0.0,
+                    skip_nonfinite=inv is not None)
+            for s, i in enumerate(idx):
+                slots[i] = s
+        skip = inv is not None
+        pro_on = clip.prologue(inv, stats, skip) if any(on) else None
+        pro_off = fa.Prologue(inv, fa.CLIP_NONE, stats, skip=skip)
+        buckets = {}
+        for i, (p, g, group) in enumerate(items):
+            if in_step:
+                wd, mult = plan[id(p)]
+                l1 = 0.0
+                plr = float(_F32(lr) * _F32(mult))
+            else:
+                wd, l1 = self._eager_decay(group, p)
+                plr = lr * self.lr_multiplier(group, p)
+            pro = pro_on if on[i] else pro_off
+            key = ((plr, wd, l1, id(pro)) if in_step or (
+                self._use_multi_tensor and not l1) else i)
+            bucket = buckets.setdefault(key, (plr, wd, l1, pro, []))
+            bucket[4].append((p, g, slots[i]))
+        for plr, wd, l1, pro, rows in buckets.values():
+            self._update(rows, plr, wd, l1, pro)
+        return stats
+
+    def _update(self, rows, lr, wd, l1, prologue):
+        """One update call over ``rows``, ``(param, grad, slot)``."""
         raise NotImplementedError
 
     def clear_grad(self, set_to_zero=False):
@@ -206,47 +295,147 @@ class Optimizer:
     set_dict = set_state_dict
 
 
+def _columns(rows):
+    ps = [p for p, _, _ in rows]
+    gs = [g for _, g, _ in rows]
+    return ps, gs, [s for _, _, s in rows]
+
+
+class SGD(Optimizer):
+    """``p - lr * g`` (``_sgd_update``); ``multi_precision`` is taken and
+    not used, as in the JAX package."""
+
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, multi_precision=False,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+
+    def _update(self, rows, lr, wd, l1, prologue):
+        ps, gs, slots = _columns(rows)
+        fa.momentum_update(ps, None, gs, lr, weight_decay=wd, l1=l1,
+                           prologue=prologue, slots=slots)
+
+
+class Momentum(Optimizer):
+    """``v = mu * v + g``; ``p - lr * (g + mu * v)`` with Nesterov, else
+    ``p - lr * v`` (``_momentum_update``)."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 multi_precision=False, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+
+    def _update(self, rows, lr, wd, l1, prologue):
+        ps, gs, slots = _columns(rows)
+        vel = [self._acc(p, "velocity") for p in ps]
+        fa.momentum_update(ps, vel, gs, lr, self._momentum, self._nesterov,
+                           weight_decay=wd, l1=l1, prologue=prologue,
+                           slots=slots)
+
+
 class Adam(Optimizer):
+    """Adam (``_adam_update``, coupled decay: ``g + wd * p`` in fp32).
+    ``lazy_mode`` and ``multi_precision`` are taken and not used, as in the
+    JAX package; ``use_multi_tensor`` buckets the eager update."""
+
     _decoupled = False
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-08, parameters=None, weight_decay=None,
-                 grad_clip=None, name=None):
+                 grad_clip=None, lazy_mode=False, multi_precision=False,
+                 use_multi_tensor=False, name=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name)
         self._beta1 = beta1
         self._beta2 = beta2
         self._eps = epsilon
+        self._use_multi_tensor = bool(use_multi_tensor)
 
     def decay_of(self, group, p):
         """The weight decay ``p`` gets under this optimizer."""
-        return self._decay_value(group, p)
+        return self._in_step_decay(group, p)[0]
 
-    def _update_param(self, p, g, lr, group):
-        adam_update_(p, self._acc(p, "moment1"), self._acc(p, "moment2"), g,
-                     lr, self._beta1, self._beta2, self._eps,
-                     self._step_count, self.decay_of(group, p),
-                     self._decoupled)
+    def _update(self, rows, lr, wd, l1, prologue):
+        ps, gs, slots = _columns(rows)
+        ms = [self._acc(p, "moment1") for p in ps]
+        vs = [self._acc(p, "moment2") for p in ps]
+        fa.fused_adam_update(ps, ms, vs, gs, lr, self._beta1, self._beta2,
+                             self._eps, self._step_count, self._decoupled,
+                             wd, l1=l1, prologue=prologue, slots=slots)
 
 
 class AdamW(Adam):
     """Decoupled weight decay (paddle.optimizer.AdamW).
     ``apply_decay_param_fun(name)`` returning False exempts a parameter
-    from the optimizer-level decay (a group-level ``weight_decay`` still
-    applies, as in the JAX trainer)."""
+    from the optimizer-level decay (a group-level or per-parameter one
+    still applies, as in the JAX eager step and trainer; the JAX
+    multi-tensor path drops every decay of such a parameter, and so does
+    ``use_multi_tensor=True`` here). ``lr_ratio`` is taken and not used, as
+    in the JAX package."""
 
     _decoupled = True
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-08, parameters=None, weight_decay=0.01,
-                 apply_decay_param_fun=None, grad_clip=None, name=None):
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
+                 lazy_mode=False, multi_precision=False,
+                 use_multi_tensor=False, name=None):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         weight_decay, grad_clip, name=name)
+                         weight_decay, grad_clip, lazy_mode, multi_precision,
+                         use_multi_tensor, name=name)
         self._apply_decay_fun = apply_decay_param_fun
 
-    def decay_of(self, group, p):
-        if self._apply_decay_fun is not None and \
-                not self._apply_decay_fun(self.param_name(p)):
-            wd = group.get("weight_decay")
-            return 0.0 if wd is None else float(wd)
+    def _exempt(self, p):
+        return (self._apply_decay_fun is not None
+                and not self._apply_decay_fun(self.param_name(p)))
+
+    def _in_step_decay(self, group, p):
+        if self._exempt(p):
+            return self._decay_value(group, p, default=None)
         return self._decay_value(group, p)
+
+    def _eager_decay(self, group, p):
+        coeff, l1 = self._in_step_decay(group, p)
+        if l1:
+            return 0.0, coeff
+        if self._use_multi_tensor and self._exempt(p):
+            return 0.0, 0.0
+        return coeff, 0.0
+
+
+class Lamb(Optimizer):
+    """Lamb (``_lamb_update``): Adam's moments, ``r = mhat / (sqrt(vhat) +
+    eps) + lamb_weight_decay * p``, ``p - lr * (|p| / |r|) * r``.
+    ``exclude_from_weight_decay_fn(p)`` returning True gives ``p`` no decay
+    in the eager step; the compiled train step gives every parameter
+    ``lamb_weight_decay``, as the JAX trainer does (``trainer.py:495``)."""
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-06, parameters=None,
+                 grad_clip=None, exclude_from_weight_decay_fn=None,
+                 multi_precision=False, name=None):
+        super().__init__(learning_rate, parameters, None, grad_clip, name)
+        self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
+        self._lamb_wd = lamb_weight_decay
+        self._exclude_fn = exclude_from_weight_decay_fn
+
+    def _eager_decay(self, group, p):
+        if self._exclude_fn is not None and self._exclude_fn(p):
+            return 0.0, 0.0
+        return float(self._lamb_wd), 0.0
+
+    def _in_step_decay(self, group, p):
+        _, l1 = self._decay_value(group, p)
+        return float(self._lamb_wd), l1
+
+    def _update(self, rows, lr, wd, l1, prologue):
+        ps, gs, slots = _columns(rows)
+        ms = [self._acc(p, "moment1") for p in ps]
+        vs = [self._acc(p, "moment2") for p in ps]
+        fa.lamb_update(ps, ms, vs, gs, lr, self._beta1, self._beta2,
+                       self._eps, self._step_count, wd, prologue=prologue,
+                       slots=slots)

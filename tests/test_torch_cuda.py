@@ -33,6 +33,12 @@ version may move it by (``probability_rounding_slack``: the tensor-core
 kernels round the unnormalised P of each tile). The serving engines'
 decode program, a CUDA graph, is held bit-equal to the eager step it
 replays (the same kernels on the same inputs), with its launch counts.
+The multi-tensor optimizer kernels: Adam/AdamW and SGD/Momentum bit for
+bit given the same stats (every operation rounded once on both sides),
+the sums of squares within 1e-6 relative (fp32 sums in another order) and
+bit-equal on a repeat, Lamb's moments bit for bit and its parameters
+within 1e-6 of the tensor's largest |p| (its norms are sums in another
+order).
 """
 import numpy as np
 import pytest
@@ -40,6 +46,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from paddle_tpu_torch.kernels import flash_attention as tfa  # noqa: E402
+from paddle_tpu_torch.kernels import fused_adam as tfad  # noqa: E402
 from paddle_tpu_torch.kernels import fused_norm_matmul as tfnm  # noqa: E402
 from paddle_tpu_torch.kernels import fused_rope_attention as tfra  # noqa
 from paddle_tpu_torch.kernels import int8_matmul as tim  # noqa: E402
@@ -1042,3 +1049,158 @@ def test_capture_runs_without_collecting_dead_graphs(dev):
                         cache_dtype="float32")
     assert h.output_ids.tolist() == want[0].tolist()
     gc.collect()
+
+
+def _mt_lists(dev, dtype, seed):
+    """Odd sizes, an empty tensor and an unaligned slice (one element
+    into its storage): parameters and gradients in ``dtype``, fp32
+    moments."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shapes = ((1,), (7,), (1023,), (64, 33), (0,), (5000,))
+
+    def make(dt, scale=1.0, positive=False):
+        xs = []
+        for s in shapes:
+            x = torch.randn(s, generator=g, device=dev) * scale
+            xs.append((x.abs() if positive else x).to(dt))
+        xs[-1] = xs[-1][1:]
+        return xs
+
+    return (make(dtype), make(dtype, 2.0), make(torch.float32, 0.1),
+            make(torch.float32, 0.1, positive=True))
+
+
+def _clone(*cols):
+    return [[x.clone() for x in c] for c in cols]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_multi_tensor_updates_equal_plain_bitwise(dev, dtype):
+    ps, gs, ms, vs = _mt_lists(dev, DTYPES[dtype], 31)
+    inv = torch.full((), 0.5, device=dev)
+    stats = tfad.grad_sumsq(gs, inv=inv, clip_norm=1.0, skip_nonfinite=True)
+    for pro, l1 in ((None, 0.0),
+                    (tfad.Prologue(inv, tfad.CLIP_GLOBAL, stats,
+                                   skip=True), 0.0),
+                    (tfad.Prologue(None, tfad.CLIP_NORM, stats,
+                                   clip_norm=0.3), 0.01),
+                    (tfad.Prologue(None, tfad.CLIP_VALUE, lo=-0.1, hi=0.2),
+                     0.0)):
+        for decoupled in (False, True):
+            a, b = _clone(ps, ms, vs), _clone(ps, ms, vs)
+            kw = dict(lr=1e-2, beta1=0.9, beta2=0.999, eps=1e-8, t=2,
+                      decoupled=decoupled, weight_decay=0.01, l1=l1,
+                      prologue=pro)
+            tfad.fused_adam_update(a[0], a[1], a[2], gs, **kw)
+            tfad.fused_adam_update_reference(b[0], b[1], b[2], gs, **kw)
+            for x, y in zip(sum(a, []), sum(b, [])):
+                assert torch.equal(x, y)
+        a, b = _clone(ps, ms), _clone(ps, ms)
+        kw = dict(lr=0.1, momentum=0.9, use_nesterov=True,
+                  weight_decay=0.0 if l1 else 0.01, l1=l1, prologue=pro)
+        tfad.momentum_update(a[0], a[1], gs, **kw)
+        tfad.momentum_update_reference(b[0], b[1], gs, **kw)
+        for x, y in zip(sum(a, []), sum(b, [])):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_multi_tensor_sums_lamb_and_skip(dev):
+    from paddle_tpu_torch import kernels
+
+    ps, gs, ms, vs = _mt_lists(dev, torch.float32, 32)
+    kernels.reset_launch_counts()
+    stats = tfad.grad_sumsq(gs, clip_norm=1.0)
+    assert torch.equal(stats.buf, tfad.grad_sumsq(gs, clip_norm=1.0).buf)
+    ref = tfad.grad_sumsq_reference(gs, clip_norm=1.0)
+    k = 4 + len(gs)
+    torch.testing.assert_close(stats.buf[:k], ref.buf[:k], rtol=1e-6,
+                               atol=0)
+    a, b = _clone(ps, ms, vs), _clone(ps, ms, vs)
+    kw = dict(lr=1e-2, beta1=0.9, beta2=0.999, eps=1e-6, t=1,
+              lamb_weight_decay=0.01,
+              prologue=tfad.Prologue(None, tfad.CLIP_GLOBAL, stats))
+    tfad.lamb_update(a[0], a[1], a[2], gs, **kw)
+    tfad.lamb_update_reference(b[0], b[1], b[2], gs, **kw)
+    for x, y in zip(a[1] + a[2], b[1] + b[2]):
+        assert torch.equal(x, y)
+    for x, y, p in zip(a[0], b[0], ps):
+        if p.numel():
+            assert float((x - y).abs().max()) <= 1e-6 * float(p.abs().max())
+    # no norm: the optimizer gives every tensor stats slot 0, and each
+    # tensor's Lamb ratio must still be its own
+    for pro in (None, tfad.Prologue(None, tfad.CLIP_VALUE, lo=-0.1,
+                                    hi=0.2)):
+        a, b = _clone(ps, ms, vs), _clone(ps, ms, vs)
+        kw = dict(kw, prologue=pro, slots=[0] * len(ps))
+        tfad.lamb_update(a[0], a[1], a[2], gs, **kw)
+        tfad.lamb_update_reference(b[0], b[1], b[2], gs, **kw)
+        for x, y, p in zip(a[0], b[0], ps):
+            if p.numel():
+                assert float((x - y).abs().max()) \
+                    <= 1e-6 * float(p.abs().max())
+    # gradients of both dtypes in one list: one pass a dtype
+    mixed = [g if i % 2 == 0 else g.to(torch.bfloat16)
+             for i, g in enumerate(gs)]
+    got = tfad.grad_sumsq(mixed, clip_norm=1.0)
+    ref = tfad.grad_sumsq_reference(mixed, clip_norm=1.0)
+    torch.testing.assert_close(got.buf[:k], ref.buf[:k], rtol=1e-6, atol=0)
+    assert torch.equal(got.buf[k:], ref.buf[k:])
+    # a non-finite gradient under a scaler: nothing is written
+    bad = [g.clone() for g in gs]
+    bad[2][3] = float("nan")
+    inv = torch.ones((), device=dev)
+    flagged = tfad.grad_sumsq(bad, inv=inv, skip_nonfinite=True)
+    assert not flagged.finite()
+    a = _clone(ps, ms, vs)
+    tfad.fused_adam_update(a[0], a[1], a[2], bad, 1e-2, 0.9, 0.999, 1e-8, 1,
+                           prologue=tfad.Prologue(inv, skip=True,
+                                                  stats=flagged))
+    for x, y in zip(sum(a, []), ps + ms + vs):
+        assert torch.equal(x, y)
+    # kernels launched: each sum of squares over one dtype's table is 3
+    # (chunks, per-tensor sums, finalize), over two dtypes 5; a Lamb table
+    # 3; an Adam table 1 (it returns at once on the set skip flag)
+    counts = kernels.launch_counts()
+    assert (counts["mt_sumsq"], counts["mt_lamb"], counts["mt_adam"]) \
+        == (3 + 3 + 5 + 3, 3 * 3, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", ["none", "value", "global"])
+def test_lamb_train_step_on_the_card(dev, clip):
+    """Two CompiledTrainSteps of the tiny fp32 model with Lamb (one update
+    call over every parameter) on the card against the CPU: without a
+    norm (no clip, or ClipGradByValue) no sum of squares runs and every
+    tensor sits in stats slot 0; loss within 1e-5 relative and every
+    parameter within 1e-5 absolute, as the AdamW step above."""
+    from paddle_tpu_torch import optimizer as o
+    from paddle_tpu_torch.convert import load_numpy_state, numpy_state
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         causal_lm_loss)
+
+    cfg = LlamaConfig.tiny()
+    weights = numpy_state(LlamaForCausalLM(cfg, device="cpu", seed=23))
+    ids = np.random.RandomState(24).randint(0, cfg.vocab_size, (2, 33))
+    grad_clip = {"none": None, "value": o.ClipGradByValue(0.05),
+                 "global": o.ClipGradByGlobalNorm(1.0)}[clip]
+
+    def run(device):
+        net = LlamaForCausalLM(cfg, device=device, dtype=torch.float32)
+        load_numpy_state(net, weights)
+        opt = o.Lamb(1e-3, 0.01, epsilon=1e-3,
+                     parameters=net.named_parameters(), grad_clip=grad_clip)
+        train = CompiledTrainStep(
+            net, lambda lo, lb: causal_lm_loss(lo, lb).mean(), opt)
+        t = torch.as_tensor(ids, dtype=torch.long, device=device)
+        losses = [float(train([t[:, :-1]], [t[:, 1:]])[0]) for _ in range(2)]
+        return losses, numpy_state(net)
+
+    card, cpu = run(dev), run("cpu")
+    for a, b in zip(card[0], cpu[0]):
+        assert abs(a - b) <= 1e-5 * abs(b)
+    for name, w in cpu[1].items():
+        np.testing.assert_allclose(card[1][name], w, atol=1e-5, rtol=0)
+
