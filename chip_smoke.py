@@ -146,6 +146,36 @@ and its teacher-forced check through the fused cache-free forward (the
 fused attention 32 times a sequence, no flash), with the count of tokens
 that differ from the unfused streams printed.
 
+The paged engine's prefix cache (``prefix_cache=True``) adds: after
+phase 4, the prefix parity: a tiny fp32 GQA Llama on a prefix engine
+(graphs, warmed: 23 programs) of 2 rows x 64 slots and 12 pages of 8,
+with an fp32 arena, a bf16 arena and, after ``quantize_for_serving``,
+an int8 one, through traffic that forces 3 full-page hits, a
+copy-on-write clone, a second turn over decode-published pages,
+evictions and one ``pages_exhausted`` shed; the fp32 and int8 streams
+must equal ``generate`` token for token (the shed one its prefix), the
+pages the warm admissions share must keep their bytes, nothing may be
+captured during traffic, and the arena must drain after ``close()``;
+decode-published KV against one prefill of the same tokens is printed
+(bit-equal or the largest difference); after the fused serving, the
+prefix phase: the serving phase's graph engine (warmed again) as the
+cold twin, a prefix engine with graphs (``warmup()`` must capture 61
+programs: 17, a gather per bucket and a chunk prefill per (bucket, tail
+bucket)) and one with ``graphs=False``, 22 requests over a 1024-token
+prefix (16 first turns with tails of 16-256 tokens, 4 second turns over
+a first turn's answer, and the first 1000 and 1001 prefix tokens, which
+force a clone), in the order cold, prefix graphs, prefix eager, prefix
+graphs, the cache flushed before each prefix run: the prefix streams
+must be equal, every token must pass the teacher-forced check, every
+run must launch RMSNorm 65 and rope 32 a forward (a decode step, a
+prefill or a chunk prefill) and paged attention 32 a decode step,
+nothing may be captured during traffic, each prefix run must hit on 21
+requests and save at least 21 x 992 tokens, and the arenas must drain
+after a flush; warm and cold prefill p50, TTFT, ITL, ``decode_s``, peak
+and shared pages, ``warmup()``'s cost, the tokens that differ from the
+cold twin and decode-published KV against one prefill are printed (the
+latter also for the quantized model in phase 8, measured, not gated).
+
 ``--profile-steps N`` profiles N decode steps after each serving phase
 (the graph engine's, and the bf16 and quantized eager engines'), with
 the graph's replay also timed by CUDA events, and one 1024-bucket
@@ -2081,6 +2111,177 @@ def small_parity(torch, np, dev):
         "== generate(cache_dtype='int8')")
 
 
+# ------------------------------------------------------- prefix parity
+# the tiny prefix-cache engines: 2 rows of 64 slots, pages of 8 and an
+# arena of 12 pages (two rows at full depth need 16: a growth that
+# eviction cannot cover sheds a request)
+PREFIX_PARITY_KW = dict(max_batch_size=2, max_seq_len=64, min_bucket=8,
+                        page_size=8, num_pages=12)
+
+
+def _kv_leaves(caches):
+    """Every tensor of a cache list: K and V, an int8 cache's values and
+    scales."""
+    from paddle_tpu_torch.quantization.kv import is_quantized
+
+    out = []
+    for pair in caches:
+        for t in pair:
+            out += [t.q, t.scale] if is_quantized(t) else [t]
+    return out
+
+
+def published_vs_prefill(torch, eng, tokens, valid):
+    """The pages the prefix cache holds for ``tokens[:valid]`` (published
+    by a finished request: its prompt by the prefill, its answer by the
+    decode steps) against one prefill of the same tokens into a fresh
+    cache of the engine's dtype: whether they are bit-equal, the largest
+    |difference|, the elements that differ and the elements compared."""
+    from paddle_tpu_torch.models.generation import alloc_kv_caches
+
+    ps = eng.page_size
+    m = eng.prefix_cache.match(tokens, valid, eng.weights_version)
+    if m.covered != valid:
+        return {"not_measured": f"the cache covers {m.covered} of {valid} "
+                                f"published positions (evicted)"}
+    bucket = eng.pool.bucket_for(valid)
+    ids = torch.zeros((1, bucket), dtype=torch.long, device=eng.device)
+    ids[0, :valid] = torch.as_tensor(list(tokens[:valid]),
+                                     device=eng.device)
+    ref = alloc_kv_caches(eng.config, 1, bucket, eng.cache_dtype,
+                          device=eng.device)
+    with torch.inference_mode():
+        eng.net(ids, caches=ref, pos=0)
+    worst, differ, total = 0.0, 0, 0
+    for i, page in enumerate(m.pages):
+        rows = min(ps, valid - i * ps)
+        for a, r in zip(_kv_leaves(eng._caches), _kv_leaves(ref)):
+            got = a[page][:rows].float()
+            want = r[0][i * ps:i * ps + rows].float()
+            worst = max(worst, float((got - want).abs().max()))
+            differ += int((got != want).sum())
+            total += got.numel()
+    return {"bit_equal": differ == 0, "max_abs_diff": worst,
+            "elements_differing": differ, "elements": total}
+
+
+def _prefix_parity_run(torch, np, net, cache, label, gate):
+    """One tiny prefix engine (graphs, warmed) through traffic that forces
+    full-page hits, a copy-on-write clone, a second turn over
+    decode-published pages, evictions and one ``pages_exhausted`` shed.
+    Fails (when ``gate``) unless every finished stream equals
+    ``generate`` token for token (the shed one its prefix); always
+    unless the pages the warm admissions shared kept their bytes, the
+    counters moved and the arena drained. Returns the numbers it
+    prints."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.serving import (REASON_PAGES_EXHAUSTED,
+                                          PagedServingEngine)
+
+    eng = PagedServingEngine(net, cache_dtype=cache, prefix_cache=True,
+                             **PREFIX_PARITY_KW)
+    warmed = eng.warmup()["programs"]
+    captures = eng.compile_counts()
+    pc, pool = eng.prefix_cache, eng.page_pool
+    rng = np.random.RandomState(21)
+    vocab = net.config.vocab_size
+    prefix = rng.randint(0, vocab, (24,))
+    handles = []
+
+    def run(prompts, news):
+        hs = [eng.submit(p, m) for p, m in zip(prompts, news)]
+        eng.run_until_idle()
+        handles.extend(hs)
+        return hs
+
+    def tail(n):
+        return rng.randint(0, vocab, (n,))
+
+    kernels.reset_launch_counts()
+    (first,) = run([np.concatenate([prefix, tail(5)])], [10])
+    toks = [int(t) for t in first.output_ids]
+    valid = first.request.prompt_len + len(first.tokens) - 1
+    shared = pc.match(toks, valid, eng.weights_version).pages
+    before = [t[shared].clone() for t in _kv_leaves(eng._caches)]
+    published = published_vs_prefill(torch, eng, toks, valid)
+    if "not_measured" in published:
+        fail(f"prefix parity ({label}): {published['not_measured']}")
+    # warm: another tail (full pages), the first 21 prefix tokens (the
+    # boundary inside a cached page: a clone), a second turn over the
+    # first request's answer
+    run([np.concatenate([prefix, tail(6)]), prefix[:21],
+         np.concatenate([first.output_ids, tail(4)])], [8, 8, 6])
+    if not all(torch.equal(t[shared], b)
+               for t, b in zip(_kv_leaves(eng._caches), before)):
+        fail(f"prefix parity ({label}): a warm admission wrote a shared "
+             f"page")
+    # cold prompts fill the arena (evictions), then two rows that need
+    # 16 pages of 12: one sheds
+    run([tail(20) for _ in range(3)], [12] * 3)
+    run([tail(10), tail(10)], [54, 54])
+    counts = kernels.launch_counts()
+    st, ps = pc.stats(), pool.stats()
+    want = {"hits": 3, "misses": 6}
+    if {k: st[k] for k in want} != want or st["cow_clones"] < 1 \
+            or st["evictions"] < 1:
+        fail(f"prefix parity ({label}): prefix stats {st}, expected {want}"
+             f", a clone and evictions")
+    sheds = [h for h in handles if h.status != "DONE"]
+    if [(h.status, h.reason) for h in sheds] != [
+            ("CANCELLED", REASON_PAGES_EXHAUSTED)]:
+        fail(f"prefix parity ({label}): expected one pages_exhausted shed, "
+             f"got {[(h.status, h.reason) for h in sheds]}")
+    if eng.compile_counts() != captures:
+        fail(f"prefix parity ({label}): captures during traffic: "
+             f"{eng.compile_counts()} after warmup's {captures}")
+    mismatched = 0
+    for h in handles:
+        want_ids = net.generate(
+            h.request.input_ids[None], max_new_tokens=h.request.max_new_tokens,
+            cache_dtype=cache)[0].cpu().numpy()[:len(h.output_ids)]
+        if not np.array_equal(h.output_ids, want_ids):
+            mismatched += 1
+            if gate:
+                fail(f"prefix parity ({label}): request "
+                     f"{h.request.request_id} stream "
+                     f"{h.output_ids.tolist()} != generate "
+                     f"{want_ids.tolist()}")
+    eng.close()
+    end = pool.stats()
+    if end["pages_in_use"] or end["claims"] != end["releases"] \
+            or pool._refs:
+        fail(f"prefix parity ({label}): not drained after close: {end}")
+    res = {"cache": cache, "programs": warmed, "prefix": st,
+           "peak_pages_in_use": ps["peak_pages_in_use"],
+           "shed": len(sheds), "streams_unequal_generate": mismatched,
+           "decode_published": published,
+           "launches": {k: v for k, v in counts.items() if v}}
+    log(f"prefix parity ({label}): " + json.dumps(res))
+    return res
+
+
+def prefix_parity(torch, np, dev):
+    """The prefix cache's tiny card parity: a tiny fp32 GQA Llama on a
+    prefix engine with an fp32 arena (streams gated against
+    ``generate``) and a bf16 one (measured: streams and decode-published
+    KV), then the same model quantized (int8 weights and arena, gated
+    against ``generate(cache_dtype="int8")``)."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.quantization import quantize_for_serving
+
+    cfg = LlamaConfig.tiny(vocab_size=256, hidden_size=256,
+                           intermediate_size=512, num_hidden_layers=2,
+                           num_attention_heads=4, num_key_value_heads=2)
+    net = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=4)
+    out = {"float32": _prefix_parity_run(torch, np, net, "float32", "fp32",
+                                         True),
+           "bfloat16": _prefix_parity_run(torch, np, net, "bfloat16",
+                                          "fp32 model, bf16 arena", False)}
+    quantize_for_serving(net, inplace=True)
+    out["int8"] = _prefix_parity_run(torch, np, net, "int8", "int8", True)
+    return out
+
+
 def fused_parity(torch, np, dev):
     """A tiny fp32 MHA Llama (head_dim 64) with both fusions: its
     cache-free logits on the card against the
@@ -2942,6 +3143,8 @@ def serve_modes(torch, np, cfg, engines, order, label, want_counts,
 
 
 def serving_phase(torch, np, dev, card, profile_steps=0):
+    import gc
+
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.serving import PagedServingEngine
 
@@ -2992,7 +3195,13 @@ def serving_phase(torch, np, dev, card, profile_steps=0):
         profile_prefill(torch, np, eng, cfg, "prefill_1024")
     fused = fused_serving(torch, np, dev, card, net, eng, eager, cfg,
                           graph_run["handles"], profile_steps)
-    return graph_run["counts"], runs[0]["counts"], fused
+    # the eager engine's arena and blocks make room for the prefix engines
+    eager.close()
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    prefix = prefix_phase(torch, np, dev, card, net, eng)
+    return graph_run["counts"], runs[0]["counts"], fused, prefix
 
 
 def fused_serving(torch, np, dev, card, net, eng, eager, cfg,
@@ -3067,6 +3276,249 @@ def fused_serving(torch, np, dev, card, net, eng, eager, cfg,
     return graph_run["counts"], runs[1]["counts"]
 
 
+# ------------------------------------------------------- prefix serving
+# the prefix phase's traffic (seed 4321): a 1024-token shared prefix; 16
+# first turns, the prefix and a distinct tail of 16-256 tokens, 8 at
+# once and 8 more after 24 steps; then 4 second turns (a first turn's
+# prompt and answer plus 32 new tokens) and 2 prompts that are the first
+# 1000 and 1001 prefix tokens (they end inside a cached page, so the
+# recompute boundary falls inside it: a copy-on-write clone); 64 new
+# tokens each
+PREFIX_LEN, PREFIX_FIRST, PREFIX_SECOND = 1024, 16, 4
+PREFIX_PARTIAL = (1000, 1001)
+PREFIX_REQUESTS = PREFIX_FIRST + PREFIX_SECOND + len(PREFIX_PARTIAL)
+# every warm admission reuses at least 62 full pages of the prefix
+PREFIX_MIN_SAVED = (PREFIX_REQUESTS - 1) * 992
+PREFIX_COUNTERS = ("hits", "misses", "evictions", "cow_clones",
+                   "tokens_saved", "flushes")
+
+
+def prefix_traffic(np, cfg):
+    rng = np.random.RandomState(4321)
+    prefix = rng.randint(0, cfg.vocab_size, (PREFIX_LEN,))
+    tails = rng.randint(16, 257, size=PREFIX_FIRST)
+    first = [np.concatenate([prefix, rng.randint(0, cfg.vocab_size,
+                                                 (int(n),))])
+             for n in tails]
+    second = [rng.randint(0, cfg.vocab_size, (32,))
+              for _ in range(PREFIX_SECOND)]
+    return first, second, [prefix[:n] for n in PREFIX_PARTIAL]
+
+
+def drive_prefix(torch, np, eng, traffic, mode, label):
+    """The prefix traffic through ``eng`` (a prefix engine, flushed first
+    so that it starts with an empty cache, or the cold twin). The launch
+    counts are zeroed just before and read just after. Returns the run as
+    ``drive_requests`` does, with the prefix cache's and the pool's
+    numbers."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.serving.metrics import ServingMetrics
+
+    first, second, partial = traffic
+    pc, pool = getattr(eng, "prefix_cache", None), eng.page_pool
+    if pc is not None:
+        pc.flush()
+        before = pc.stats()
+    eng.metrics = ServingMetrics()
+    pool.peak_in_use = pool.pages_in_use
+    peak_shared = 0
+    captures = eng.compile_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+
+    def steps_until_idle():
+        nonlocal peak_shared
+        n = 0
+        while eng.scheduler.depth or eng.active_slots:
+            eng.step()
+            peak_shared = max(peak_shared, pool.shared_pages)
+            n += 1
+        return n
+
+    handles = [eng.submit(p, SERVE_MAX_NEW) for p in first[:8]]
+    for _ in range(24):
+        eng.step()
+        peak_shared = max(peak_shared, pool.shared_pages)
+    handles += [eng.submit(p, SERVE_MAX_NEW) for p in first[8:]]
+    steps = 24 + steps_until_idle()
+    handles += [eng.submit(np.concatenate([h.output_ids, new]),
+                           SERVE_MAX_NEW)
+                for h, new in zip(handles, second)]
+    handles += [eng.submit(p, SERVE_MAX_NEW) for p in partial]
+    steps += steps_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for h in handles:
+        if h.status != "DONE" or len(h.tokens) != SERVE_MAX_NEW:
+            fail(f"{label} ({mode}): request {h.request.request_id}: "
+                 f"status {h.status} ({h.reason}), {len(h.tokens)} tokens")
+    if pc is None and pool.pages_in_use:
+        fail(f"{label} ({mode}): {pool.pages_in_use} pages leaked")
+    m = eng.metrics
+    result = {
+        "mode": mode, "steps": steps, "wall_s": wall,
+        "requests": len(handles),
+        "prefill_tokens": m.prefill_tokens.value,
+        "prefill_s": m.prefill_time.sum,
+        "prefill_p50_s": m.prefill_time.percentile(50),
+        "warm_prefill_p50_s": m.warm_prefill_time.percentile(50),
+        "warm_prefills": m.warm_prefill_time.count,
+        "decode_tokens": m.decode_tokens.value,
+        "decode_s": m.decode_step_time.sum,
+        "ttft_p50_s": m.ttft.percentile(50),
+        "itl_p50_s": m.itl.percentile(50),
+        "decode_step_p50_s": m.decode_step_time.percentile(50),
+        "peak_pages_in_use": pool.peak_in_use,
+        "peak_shared_pages": peak_shared,
+        "peak_mem_bytes": peak,
+        "launches": counts, "captures": eng.compile_counts(),
+    }
+    if pc is not None:
+        # this run's counts (a flush has emptied the cache before it)
+        result["prefix"] = {k: v - before[k] if k in PREFIX_COUNTERS else v
+                            for k, v in pc.stats().items()}
+    log(f"{label} ({mode}): " + json.dumps(result))
+    return {"mode": mode, "handles": handles,
+            "decode_steps": m.decode_step_time.count,
+            "prefills": m.prefill_time.count, "counts": counts,
+            "captures_before": captures, "captures": result["captures"],
+            "result": result}
+
+
+def prefix_phase(torch, np, dev, card, net, cold):
+    """The paged engine's prefix cache at Llama-2-7B: two prefix engines
+    (graphs after ``warmup()``, and ``graphs=False``) beside the serving
+    phase's graph engine as the cold twin, the prefix traffic in the
+    order cold, prefix graphs, prefix eager, prefix graphs. Fails unless
+    the prefix runs' streams are equal, every token passes the
+    teacher-forced check, every run launched the counts the structure
+    gives (a chunk prefill is one forward), nothing is captured during
+    traffic, every prefix run hits on all but its first request and saves
+    at least 62 pages a hit, and the arena drains. Returns the launch
+    counts of the first prefix graph run and of the eager run."""
+    from paddle_tpu_torch.serving import PagedServingEngine
+
+    cfg = net.config
+    layers = cfg.num_hidden_layers
+    t_phase = time.perf_counter()
+    traffic = prefix_traffic(np, cfg)
+    cold.warmup()  # the fused serving's captures were dropped
+    eng = PagedServingEngine(net, cache_dtype="bfloat16", prefix_cache=True,
+                             **ENGINE_KW)
+    eager = PagedServingEngine(net, cache_dtype="bfloat16",
+                               prefix_cache=True, graphs=False, **ENGINE_KW)
+    buckets = eng._warmup_buckets()
+    nb = len(buckets)
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated()
+    reserved0 = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    stats = eng.warmup()
+    torch.cuda.synchronize()
+    warm = {"warmup_s": time.perf_counter() - t0,
+            "programs": stats["programs"],
+            "captures": eng.compile_counts(),
+            "programs_alloc_bytes": torch.cuda.memory_allocated() - alloc0,
+            "programs_reserved_bytes": (torch.cuda.memory_reserved()
+                                        - reserved0)}
+    want_programs = 1 + 2 * nb + nb + nb * (nb + 1) // 2
+    if stats["programs"] != want_programs or eng.warmup()["programs"]:
+        fail(f"prefix serving: warmup() captured {stats['programs']} "
+             f"programs, expected {want_programs} once")
+    log("prefix serving warmup: " + json.dumps(warm))
+
+    def want_counts(run):
+        fwd = run["decode_steps"] + run["prefills"]
+        want = {k: 0 for k in run["counts"]}
+        want.update(rms_norm=(2 * layers + 1) * fwd, rope=layers * fwd,
+                    paged_attention=layers * run["decode_steps"])
+        return want
+
+    runs = []
+    for mode, e in (("cold", cold), ("prefix graphs", eng),
+                    ("prefix eager", eager), ("prefix graphs", eng)):
+        run = drive_prefix(torch, np, e, traffic, mode, "prefix serving")
+        runs.append(run)
+        if run["counts"] != want_counts(run):
+            fail(f"prefix serving ({mode}): launches {run['counts']}, "
+                 f"expected {want_counts(run)}")
+        if run["captures"] != run["captures_before"]:
+            fail(f"prefix serving ({mode}): captures moved during traffic: "
+                 f"{run['captures_before']} -> {run['captures']}")
+        if mode == "cold":
+            continue
+        st = run["result"]["prefix"]
+        if st["hits"] != PREFIX_REQUESTS - 1 or st["misses"] != 1 \
+                or st["tokens_saved"] < PREFIX_MIN_SAVED:
+            fail(f"prefix serving ({mode}): {st}, expected "
+                 f"{PREFIX_REQUESTS - 1} hits, 1 miss and at least "
+                 f"{PREFIX_MIN_SAVED} tokens saved")
+        for h, ref in zip(run["handles"], runs[1]["handles"]):
+            if h.tokens != ref.tokens:
+                fail(f"prefix serving: the {mode} stream of request "
+                     f"{h.request.request_id} differs from the prefix "
+                     f"graphs one: {h.tokens} != {ref.tokens}")
+    graph_run, cold_run = runs[1], runs[0]
+    ties, worst_gap = teacher_forced(torch, dev, graph_run["handles"],
+                                     lambda ids: net(ids)[0],
+                                     "prefix serving")
+    # decode-published KV against one prefill of the same tokens, for the
+    # first request of the last run (its prompt and 63 answer tokens)
+    h = runs[-1]["handles"][0]
+    published = published_vs_prefill(
+        torch, eng, [int(t) for t in h.output_ids],
+        h.request.prompt_len + SERVE_MAX_NEW - 1)
+    differ_cold = sum(
+        int((np.asarray(a.output_ids) != np.asarray(b.output_ids)).sum())
+        for a, b in zip(graph_run["handles"], cold_run["handles"]))
+    for e in (eng, eager):
+        e.prefix_cache.flush()
+        st = e.page_pool.stats()
+        if st["pages_in_use"] or st["claims"] != st["releases"] \
+                or e.page_pool._refs:
+            fail(f"prefix serving: not drained after a flush: {st}")
+    # device time of one replay of each program of a warm admission at
+    # the 2048 bucket (the shortest and the longest tail of the traffic)
+    # and of the cold twin's prefill, CUDA events; the arenas hold no
+    # live page now, so the adopt's replays overwrite nothing in use
+    replays = {f"{k[0]}_{'_'.join(map(str, k[1:]))}": replay_ms(
+        torch, e._programs.get(k).graph) for e, k in (
+            (eng, ("gather", 2048)), (eng, ("chunk", 2048, 16)),
+            (eng, ("chunk", 2048, 256)), (eng, ("adopt", 2048)),
+            (cold, ("prefill", 2048)))}
+
+    def by_mode(key):
+        return {r["mode"] + f" {i}": r["result"][key]
+                for i, r in enumerate(runs)}
+
+    res = {"card": card,
+           "model": f"Llama-2-7B, {layers} layers, bf16, random weights",
+           "requests": PREFIX_REQUESTS, "prefix_tokens": PREFIX_LEN,
+           "prompt_lens": [h.request.prompt_len
+                           for h in graph_run["handles"]],
+           "warmup": warm, "replay_ms": replays,
+           "warm_prefill_p50_s": by_mode("warm_prefill_p50_s"),
+           "prefill_p50_s": by_mode("prefill_p50_s"),
+           "ttft_p50_s": by_mode("ttft_p50_s"),
+           "itl_p50_s": by_mode("itl_p50_s"),
+           "decode_s": by_mode("decode_s"),
+           "peak_pages_in_use": by_mode("peak_pages_in_use"),
+           "peak_shared_pages": by_mode("peak_shared_pages"),
+           "prefix": graph_run["result"]["prefix"],
+           "tokens_differing_from_cold": differ_cold,
+           "decode_published": published,
+           "near_ties": ties, "near_tie_max_gap": worst_gap,
+           "phase_s": time.perf_counter() - t_phase}
+    log("prefix serving: " + json.dumps(res))
+    for e in (eng, eager):
+        e.close()
+    return graph_run["counts"], runs[2]["counts"]
+
+
 def quant_serving_phase(torch, np, dev, card, profile_steps=0):
     """Llama-2-7B at full width and depth, quantized: the serving phase's
     random bf16 weights (seed 0) through quantize_for_serving in place,
@@ -3132,6 +3584,7 @@ def quant_serving_phase(torch, np, dev, card, profile_steps=0):
 
     ties, worst_gap = teacher_forced(torch, dev, graph_run["handles"],
                                      slab_prefill, "quantized serving")
+    published = quant_decode_published(torch, np, net)
     res = {"card": card,
            "model": f"Llama-2-7B, {layers} layers, int8 weights (W8A16) "
                     f"and int8 KV cache, random weights",
@@ -3146,6 +3599,7 @@ def quant_serving_phase(torch, np, dev, card, profile_steps=0):
                "int8_matmul": QUANT_MM_PER_FORWARD},
            "warmup": warm, "modes": summary,
            "near_ties": ties, "near_tie_max_gap": worst_gap,
+           "decode_published": published,
            "phase_s": time.perf_counter() - t_phase}
     log("quantized serving: " + json.dumps(res))
     if profile_steps:
@@ -3154,6 +3608,26 @@ def quant_serving_phase(torch, np, dev, card, profile_steps=0):
                        "decode_int8_eager")
         profile_prefill(torch, np, eng, cfg, "prefill_1024_int8")
     return graph_run["counts"], runs[0]["counts"]
+
+
+def quant_decode_published(torch, np, net):
+    """Decode-written KV against one prefill on the quantized 7B (int8
+    weights and arena): the prefix traffic's first prompt with 64 new
+    tokens through an eager prefix engine of 8 rows (the decode step's
+    row count) and a 256-page arena; measured, not gated."""
+    from paddle_tpu_torch.serving import PagedServingEngine
+
+    kw = dict(ENGINE_KW, num_pages=256)
+    eng = PagedServingEngine(net, cache_dtype="int8", prefix_cache=True,
+                             graphs=False, **kw)
+    prompt = prefix_traffic(np, net.config)[0][0]
+    h = eng.submit(prompt, SERVE_MAX_NEW)
+    eng.run_until_idle()
+    out = published_vs_prefill(
+        torch, eng, [int(t) for t in h.output_ids],
+        h.request.prompt_len + SERVE_MAX_NEW - 1)
+    eng.close()
+    return out
 
 
 def profile_steps(torch, step_fn, steps):
@@ -3414,13 +3888,15 @@ def main():
         log("kernel paged_attention chunk sweep: " + json.dumps(row))
 
     small_parity(torch, np, dev)
+    prefix_parity(torch, np, dev)
     fused_parity(torch, np, dev)
     tiny_train_parity(torch, np, dev)
     (train_counts, fused_train_counts, fp32_train_counts,
      fused_fp32_train_counts, opt_counts) = training_phase(
         torch, np, dev, card, args.profile_train_steps)
     (serve_counts, serve_eager_counts,
-     (fused_serve_counts, fused_serve_eager_counts)) = serving_phase(
+     (fused_serve_counts, fused_serve_eager_counts),
+     (prefix_counts, prefix_eager_counts)) = serving_phase(
         torch, np, dev, card, args.profile_steps)
     quant_counts, quant_eager_counts = quant_serving_phase(
         torch, np, dev, card, args.profile_steps)
@@ -3448,6 +3924,8 @@ def main():
                     "quantized_serving_eager": quant_eager_counts[name],
                     "fused_serving": fused_serve_counts[name],
                     "fused_serving_eager": fused_serve_eager_counts[name],
+                    "prefix_serving": prefix_counts[name],
+                    "prefix_serving_eager": prefix_eager_counts[name],
                     "fused_training": fused_train_counts[name],
                     "fp32_training": fp32_train_counts[name],
                     "fused_fp32_training": fused_fp32_train_counts[name],

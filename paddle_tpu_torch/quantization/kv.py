@@ -16,7 +16,9 @@ Unlike the JAX package, whose arrays are immutable, every write here
 updates the cache tensors IN PLACE and returns the cache, so callers
 keep the JAX call shape (``cache = write_...(cache, ...)``) while no
 copy of a multi-gigabyte arena is made per step. The prefix cache's
-``gather_block_from_pages`` is not ported (nor is the prefix cache).
+:func:`gather_block_from_pages` writes arena pages into the bucket's
+pooled prefill block in place too, where the JAX one returns a new
+block; the arena is only read, so shared pages survive either way.
 """
 from __future__ import annotations
 
@@ -176,6 +178,27 @@ def adopt_into_slab(dst, blk, slot):
         return dst
     dst[s:s + 1, : int(blk.shape[1])] = blk.to(dst.dtype)
     return dst
+
+
+def gather_block_from_pages(arena, page_ids, n_pages, page_size, blk):
+    """The inverse of :func:`adopt_into_pages`: copy ``n_pages`` arena
+    pages at ``page_ids`` into the prefilled-layout block ``blk``
+    (``[1, n_pages * page_size, ...]``), in place, and return it
+    (``kv.py:239``): the prefix cache's warm admission rebuilds a
+    request's cached-prefix KV there for the chunk prefill. Ids past the
+    cached span point at the garbage page 0, whose content sits behind
+    the position mask like any stale slot. The arena is only read."""
+    ids = page_ids.long()
+    if is_quantized(arena):
+        kvh, d = int(arena.q.shape[2]), int(arena.q.shape[3])
+        torch.index_select(arena.q, 0, ids, out=blk.q.view(
+            n_pages, page_size, kvh, d))
+        torch.index_select(arena.scale, 0, ids, out=blk.scale.view(
+            n_pages, page_size, kvh))
+        return blk
+    torch.index_select(arena, 0, ids, out=blk.view(
+        n_pages, page_size, int(arena.shape[2]), int(arena.shape[3])))
+    return blk
 
 
 def adopt_into_pages(arena, blk, page_ids, n_pages, page_size):

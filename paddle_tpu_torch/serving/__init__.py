@@ -1,11 +1,12 @@
 """Continuous-batching serving for the port (counterpart of
-``paddle_tpu/serving``): the slab engine, the paged engine, and the
-host-side pieces they share."""
+``paddle_tpu/serving``): the slab engine, the paged engine with its
+prefix cache, and the host-side pieces they share."""
 from .engine import ServingEngine  # noqa: F401
 from .kv_pool import KVBlock, KVCachePool, bucket_for  # noqa: F401
 from .metrics import ServingMetrics  # noqa: F401
 from .paged_engine import PagedServingEngine  # noqa: F401
 from .paged_pool import PagedKVPool, PagesExhausted  # noqa: F401
+from .prefix_cache import PrefixCache, PrefixEntry, PrefixMatch  # noqa
 from .sampling_keys import SamplingKeySource, position_key  # noqa: F401
 from .scheduler import (  # noqa: F401
     CANCELLED,

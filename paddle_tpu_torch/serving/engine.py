@@ -26,9 +26,10 @@ against. Sampling runs outside the programs, on the decode step's
 logits.
 
 Greedy token streams equal ``generate`` on the same net and cache dtype.
+The paged engine adds the prefix cache on top (``paged_engine.py``).
 What the JAX engine adds around this core (live reload, the AOT
-executable cache, tracing spans, speculative decoding, sessions) is not
-ported in this slice.
+executable cache, tracing spans, speculative decoding, beam search,
+sessions, remote prefill) is not ported yet (``ROADMAP.md`` queue A).
 """
 from __future__ import annotations
 
@@ -46,7 +47,7 @@ from ..models.generation import (
 from ..quantization.kv import adopt_into_slab
 from .kv_pool import KVCachePool
 from .metrics import ServingMetrics
-from .programs import Programs
+from .programs import BASE_KINDS, TRACE_KEYS, Programs
 from .sampling_keys import SamplingKeySource
 from .scheduler import (
     CANCELLED,
@@ -90,13 +91,14 @@ class ServingEngine:
     samples with temperature/top_k/top_p from position-addressed keys
     (``sampling_keys``), so streams reproduce per ``seed``. ``graphs``
     (default True) runs the steps as fixed-shape programs, CUDA graphs
-    on a card; False runs them eagerly."""
+    on a card; False runs them eagerly. ``weights_version`` (default
+    ``"v0"``) names the weights the engine serves."""
 
     def __init__(self, net, *, max_batch_size=8, max_seq_len=256,
                  cache_dtype=None, do_sample=False, temperature=1.0,
                  top_k=0, top_p=1.0, seed=0, min_bucket=16,
                  max_queue_size=64, max_tokens_in_flight=None,
-                 clock=time.monotonic, graphs=True):
+                 clock=time.monotonic, graphs=True, weights_version=None):
         self.net = net.eval()
         self.config = net.config
         self.device = net.device
@@ -109,6 +111,8 @@ class ServingEngine:
         self.top_p = float(top_p) if top_p is not None else 1.0
         self.max_tokens_in_flight = max_tokens_in_flight
         self.graphs = bool(graphs)
+        self.weights_version = ("v0" if weights_version is None
+                                else str(weights_version))
         self.pool = KVCachePool(
             self.config, dtype=cache_dtype or DEFAULT_CACHE_DTYPE,
             min_bucket=min_bucket, max_seq_len=self.max_seq_len,
@@ -123,7 +127,7 @@ class ServingEngine:
         self.step_count = 0
         self._closed = False
         self._init_kv_backend()
-        self._programs = Programs(self.device)
+        self._programs = Programs(self.device, self._program_kinds())
         self._net_key = None
 
     # ------------------------------------------------------- KV backend
@@ -145,8 +149,8 @@ class ServingEngine:
         self._slab.release(slot)
 
     def _adopt_body(self, blk):
-        """Copy the prefilled block into the decode row ``row`` (an int,
-        or the adopt program's one-element tensor), in place."""
+        """Copy the prefilled block into the decode row ``row`` (the
+        adopt program's one-element tensor), in place."""
         caches = self._caches
 
         def body(row):
@@ -156,16 +160,21 @@ class ServingEngine:
             return ()
         return body
 
-    def _adopt_index(self, row, blk):
-        """The adopt program's input: the decode row."""
-        return np.array([row], np.int64)
-
     def _adopt_zeros(self, blk):
         """Zeros of the adopt program's input (the warm run's)."""
         return np.zeros((1,), np.int64)
 
-    def _adopt(self, row, blk):
-        self._adopt_body(blk)(row)
+    def _run_adopt(self, blk, index):
+        """Adopt ``blk`` at ``index`` (the adopt program's input, numpy:
+        the slab row, or the paged engine's page ids), through the
+        program or, with ``graphs=False``, its body."""
+        with torch.inference_mode():
+            if self.graphs:
+                self._programs.run(("adopt", blk.bucket),
+                                   lambda: self._build_adopt(blk), index)
+            else:
+                self._adopt_body(blk)(
+                    torch.from_numpy(index).to(self.device))
 
     def _decode_table(self):
         """The decode step's page table (host; the paged engine's), None
@@ -184,13 +193,17 @@ class ServingEngine:
         return (tok, pos) if table is None else (tok, pos, table)
 
     # ------------------------------------------------------- programs
+    def _program_kinds(self):
+        """The program kinds this engine captures (and counts)."""
+        return BASE_KINDS
+
     def _check_net(self):
         """A change of ``net.fusions`` (or of ``net.training``) on a live
-        engine makes the decode and prefill programs captured without it
-        stale: they are captured again at their next call."""
+        engine makes the programs that run the model, captured without
+        it, stale: they are captured again at their next call."""
         key = (self.net.fusions, self.net.training)
         if key != self._net_key:
-            self._programs.drop(("decode", "prefill"))
+            self._programs.drop(("decode", "prefill", "chunk"))
             self._net_key = key
 
     def _keep(self):
@@ -233,8 +246,10 @@ class ServingEngine:
     def compile_counts(self):
         """Captures by program kind, under the JAX trace guard's keys
         (``serving::decode_step``, ``serving::prefill``,
-        ``serving::adopt``); a program captured again after a change of
-        ``net.fusions`` counts again."""
+        ``serving::adopt``; a prefix-cache engine adds
+        ``serving::gather_pages`` and ``serving::chunk_prefill``); a
+        program captured again after a change of ``net.fusions`` counts
+        again."""
         return dict(self._programs.counts)
 
     def warmup(self, aot_cache=None, buckets=None):
@@ -411,21 +426,21 @@ class ServingEngine:
             t_start = self.clock()
             t0, blk = self._prefill(req, key)
             try:
-                with torch.inference_mode():
-                    if self.graphs:
-                        self._programs.run(
-                            ("adopt", blk.bucket),
-                            lambda: self._build_adopt(blk),
-                            self._adopt_index(row, blk))
-                    else:
-                        self._adopt(row, blk)
+                self._run_adopt(blk, np.array([row], np.int64))
             finally:
                 self.pool.free(blk)
             self.metrics.prefill_time.observe(self.clock() - t_start)
         except BaseException:
             self._release_slot(row)
             raise
+        self._start_seq(handle, row, t0, key, now)
+
+    def _start_seq(self, handle, row, t0, key, now):
+        """An admitted request's first token ``t0`` in decode row ``row``:
+        its handle, metrics and sequence state."""
+        req = handle.request
         handle.status = RUNNING
+        handle.weights_version = self.weights_version
         handle.admit_time = now
         handle.admitted_step = self.step_count
         handle.first_token_time = self.clock()
@@ -447,6 +462,12 @@ class ServingEngine:
         """Prefills allowed per engine step (None = unbounded)."""
         return None
 
+    def _admission_fits(self):
+        """A per-request admission predicate for the scheduler's pop
+        (None: the token budget alone decides; the prefix-cache engine's
+        page need depends on the cache)."""
+        return None
+
     def step(self):
         """One engine iteration: retire expired, admit into free rows,
         run one decode step over the whole resident KV state."""
@@ -463,7 +484,8 @@ class ServingEngine:
         cap = self._max_admissions_per_step()
         admitted = 0
         while self._has_capacity() and (cap is None or admitted < cap):
-            handle = self.scheduler.pop_next(self._admission_budget())
+            handle = self.scheduler.pop_next(self._admission_budget(),
+                                             fits=self._admission_fits())
             if handle is None:
                 break
             try:
@@ -569,5 +591,5 @@ class ServingEngine:
             self._seqs[i] = None
             self._release_slot(i)
             h._fire_terminal()
-        self._programs.drop(("decode", "prefill", "adopt"))
+        self._programs.drop(tuple(TRACE_KEYS))
         self._caches = None

@@ -2,10 +2,10 @@
 (counterpart of ``paddle_tpu/serving/metrics.py``).
 
 The JAX package registers these in a process-wide Prometheus registry;
-that registry is not ported in this slice, so the port keeps its own
-small Counter and Histogram with the same reading surface (``value``,
-``by_label()``, ``count``, ``snapshot()``). Observing a sample is a list
-append; nothing here touches the device.
+that registry is not ported, so the port keeps its own small Counter,
+Gauge and Histogram with the same reading surface (``value``,
+``by_label()``, ``set()``, ``count``, ``snapshot()``). Observing a
+sample is a list append; nothing here touches the device.
 """
 from __future__ import annotations
 
@@ -28,6 +28,18 @@ class Counter:
 
     def by_label(self):
         return dict(self._by_label)
+
+
+class Gauge:
+    """A value that is set, not accumulated (the prefix cache's shared
+    bytes saved)."""
+
+    def __init__(self, name):
+        self.name = name
+        self.value = 0.0
+
+    def set(self, v):
+        self.value = float(v)
 
 
 class Histogram:
@@ -76,7 +88,10 @@ class ServingMetrics:
     """The engine's metric set, one instance per engine. Besides the
     JAX package's set it times every prefill (``prefill_time``) and
     every decode step (``decode_step_time``), host clock around work
-    that ends in a device sync, so throughput can be read per phase."""
+    that ends in a device sync, so throughput can be read per phase, and
+    the prefills of prefix-cache hits on their own
+    (``warm_prefill_time``: gather, chunk prefill and adopt; they are in
+    ``prefill_time`` too)."""
 
     def __init__(self):
         self.submitted = Counter("submitted")
@@ -84,6 +99,7 @@ class ServingMetrics:
         self.completed = Counter("completed")
         self.rejected = Counter("rejected")       # by reason
         self.timeouts = Counter("timeouts")
+        self.sheds = Counter("sheds")             # by reason
         self.tokens_out = Counter("tokens_out")
         self.prefill_tokens = Counter("prefill_tokens")
         self.decode_tokens = Counter("decode_tokens")
@@ -92,6 +108,7 @@ class ServingMetrics:
         self.e2e = Histogram("e2e")               # submit -> finished
         self.queue_wait = Histogram("queue_wait")  # submit -> admitted
         self.prefill_time = Histogram("prefill_time")
+        self.warm_prefill_time = Histogram("warm_prefill_time")
         self.decode_step_time = Histogram("decode_step_time")
         self.queue_depth = Histogram("queue_depth", unit="reqs")
         self.slot_occupancy = Histogram("slot_occupancy", unit="slots")
@@ -104,12 +121,14 @@ class ServingMetrics:
         counters = {
             name: getattr(self, name).value
             for name in ("submitted", "admitted", "completed", "rejected",
-                         "timeouts", "tokens_out",
+                         "timeouts", "sheds", "tokens_out",
                          "prefill_tokens", "decode_tokens")
         }
         counters["rejected_by_reason"] = self.rejected.by_label()
+        counters["sheds_by_reason"] = self.sheds.by_label()
         out = {"counters": counters}
         for name in ("ttft", "itl", "e2e", "queue_wait", "prefill_time",
-                     "decode_step_time", "queue_depth", "slot_occupancy"):
+                     "warm_prefill_time", "decode_step_time", "queue_depth",
+                     "slot_occupancy"):
             out[name] = getattr(self, name).snapshot()
         return out

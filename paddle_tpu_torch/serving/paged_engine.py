@@ -15,12 +15,37 @@ request claims only ``ceil(total_tokens / page_size)`` pages. Per step:
   layer writes this step's k/v at every row's (page, offset) and attends
   through the paged attention kernel (``kernels/paged_attention.py``).
 
-Each of the three is one of the engine's fixed-shape programs, CUDA
-graphs on a card (``programs.py``; the page table and the adopted page
-ids are their device inputs), and ``warmup()`` captures them all before
-traffic, as in the slab engine. Not ported in this slice: the prefix
-cache (and the gather and chunk-prefill programs its warmup adds),
-demand paging, KV tiering, remote prefill and speculative decoding.
+**Prefix cache** (``prefix_cache=True``, or a
+:class:`~.prefix_cache.PrefixCache` over the engine's ``page_pool``):
+full prompt pages are published under hash-chained keys at admission;
+a new request adopts every cached page of its prompt by reference and
+prefills only the tail:
+
+- **gather pages** (one program a bucket): the cached pages, copied into
+  the bucket's pooled block (``quantization.kv.gather_block_from_pages``);
+- **chunk prefill** (one program a (bucket, tail bucket)): the tail ids
+  ``[1, tail_bucket]`` at position ``c`` over that block, ``c`` a device
+  input (the model's per-row path: rope by position ids, writes by
+  rows), so one capture serves every ``c``;
+- then the adopt, whose ids for the shared pages are the garbage page 0:
+  a shared page is never written. A recompute boundary inside a cached
+  page copies that page into a fresh one (``cow_clones``).
+
+A finished request publishes the prompt and answer span its steps wrote
+and the partial last page, so a second turn reuses them. Prefix mode
+also grows decode pages on demand (``demand_paging=`` sets it apart):
+admission claims the prompt's pages only, a row claims the next page as
+it crosses a page boundary, evicting cold cached pages (leaf-first LRU)
+if it must, and a claim that still fails sheds that request with
+``pages_exhausted``.
+
+Every step is one of the engine's fixed-shape programs, CUDA graphs on a
+card (``programs.py``; the page table, page ids, tail ids and ``c`` are
+their device inputs), and ``warmup()`` captures them all before traffic.
+A failing program raises: the admission releases what it claimed, and
+nothing falls back to another path. Not ported: KV tiering, sessions,
+remote prefill, live reload, speculative decoding and beam search
+(``ROADMAP.md`` queue A item 1).
 """
 from __future__ import annotations
 
@@ -29,9 +54,13 @@ import time
 import numpy as np
 import torch
 
-from ..quantization.kv import adopt_into_pages
+from ..models.generation import _select_next
+from ..quantization.kv import adopt_into_pages, gather_block_from_pages
 from .engine import ServingEngine
-from .paged_pool import PagedKVPool
+from .paged_pool import PagedKVPool, PagesExhausted
+from .prefix_cache import PrefixCache
+from .programs import BASE_KINDS
+from .scheduler import CANCELLED, REASON_PAGES_EXHAUSTED
 
 
 class PagedServingEngine(ServingEngine):
@@ -39,14 +68,18 @@ class PagedServingEngine(ServingEngine):
     :class:`ServingEngine`. ``page_size`` is a power of two dividing
     ``min_bucket`` and ``max_seq_len``. ``num_pages`` (usable pages)
     defaults to full coverage, ``max_batch_size * max_seq_len /
-    page_size``."""
+    page_size``; ``page_pool`` passes a built pool instead.
+    ``prefix_cache`` (True, or a ``PrefixCache`` over ``page_pool``)
+    turns on prefix sharing; ``demand_paging`` defaults to it."""
 
     def __init__(self, net, *, max_batch_size=8, max_seq_len=256,
                  page_size=16, num_pages=None, cache_dtype=None,
                  do_sample=False, temperature=1.0, top_k=0, top_p=1.0,
                  seed=0, min_bucket=16, max_queue_size=64,
                  max_tokens_in_flight=None, max_prefills_per_step=1,
-                 clock=time.monotonic, graphs=True):
+                 clock=time.monotonic, graphs=True, weights_version=None,
+                 page_pool=None, prefix_cache=None, demand_paging=None,
+                 kv_tiering=None):
         ps = int(page_size)
         if ps < 1 or (ps & (ps - 1)):
             raise ValueError(
@@ -62,39 +95,82 @@ class PagedServingEngine(ServingEngine):
                 f"max_seq_len {max_seq_len} must be a multiple of "
                 f"page_size {ps}"
             )
+        if kv_tiering not in (None, False):
+            raise NotImplementedError(
+                "kv_tiering=...: KV tiering is not ported (ROADMAP.md "
+                "queue A item 1)")
         self.page_size = ps
         self._num_pages_arg = num_pages
+        self._page_pool_arg = page_pool
+        self._prefix_cache_arg = prefix_cache
+        self._demand_paging = (
+            bool(demand_paging) if demand_paging is not None
+            else prefix_cache not in (None, False)
+        )
         self.max_prefills_per_step = (
             None if max_prefills_per_step is None
             else int(max_prefills_per_step)
         )
+        self.local_prefills = 0
+        self.chunk_prefills = 0
+        # the prefix probe of the head the scheduler last asked about:
+        # (request, (match, plan)), used by the admission that follows
+        self._probe = None
         super().__init__(
             net, max_batch_size=max_batch_size, max_seq_len=max_seq_len,
             cache_dtype=cache_dtype, do_sample=do_sample,
             temperature=temperature, top_k=top_k, top_p=top_p, seed=seed,
             min_bucket=min_bucket, max_queue_size=max_queue_size,
             max_tokens_in_flight=max_tokens_in_flight, clock=clock,
-            graphs=graphs,
+            graphs=graphs, weights_version=weights_version,
         )
 
     # ------------------------------------------------------- KV backend
     def _init_kv_backend(self):
-        num_pages = self._num_pages_arg
-        if num_pages is None:
-            num_pages = (self.max_batch_size
-                         * (-(-self.max_seq_len // self.page_size)))
-        pp = PagedKVPool(
-            self.config, page_size=self.page_size, num_pages=num_pages,
-            dtype=self.cache_dtype, max_seq_len=self.max_seq_len,
-            device=self.device,
-        )
+        pp = self._page_pool_arg
+        if pp is None:
+            num_pages = self._num_pages_arg
+            if num_pages is None:
+                num_pages = (self.max_batch_size
+                             * (-(-self.max_seq_len // self.page_size)))
+            pp = PagedKVPool(
+                self.config, page_size=self.page_size, num_pages=num_pages,
+                dtype=self.cache_dtype, max_seq_len=self.max_seq_len,
+                device=self.device,
+            )
+        elif pp.page_size != self.page_size or pp.dtype != self.cache_dtype:
+            raise ValueError(
+                f"page_pool (page_size {pp.page_size}, {pp.dtype}) does not "
+                f"match the engine (page_size {self.page_size}, "
+                f"{self.cache_dtype})")
+        elif pp.table_width() * pp.page_size < self.max_seq_len:
+            raise ValueError(
+                f"page_pool covers {pp.table_width() * pp.page_size} tokens "
+                f"< max_seq_len {self.max_seq_len}")
         self.page_pool = pp
+        pc = self._prefix_cache_arg
+        if pc is True:
+            pc = PrefixCache(pp)
+        elif pc in (None, False):
+            pc = None
+        elif pc.pool is not pp:
+            raise ValueError(
+                "prefix_cache wraps another PagedKVPool than this engine's: "
+                "pass that pool as page_pool")
+        self.prefix_cache = pc
         self.table_width = pp.table_width()
         self._caches = pp.alloc_arena_arrays()
         self._tables = np.zeros((self.max_batch_size, self.table_width),
                                 np.int32)
         self._row_pages = [None] * self.max_batch_size
+        # (prompt tokens, prompt_len) of each row, for publishing
+        self._row_meta = [None] * self.max_batch_size
         self._free_rows = list(range(self.max_batch_size))[::-1]
+
+    def _program_kinds(self):
+        if self.prefix_cache is None:
+            return BASE_KINDS
+        return BASE_KINDS + ("gather", "chunk")
 
     @property
     def free_rows(self):
@@ -110,43 +186,335 @@ class PagedServingEngine(ServingEngine):
                 or self.page_pool.pages_for(req.total_tokens)
                 > self.page_pool.num_pages)
 
+    def _release_slot(self, slot):
+        pages = self._row_pages[slot]
+        meta = self._row_meta[slot]
+        if (pages and meta is not None and self.prefix_cache is not None
+                and not self._closed):
+            # the partial prompt-tail page becomes shareable once its
+            # owner stops writing it (its prompt slots only)
+            prompt, prompt_len = meta
+            k = prompt_len // self.page_size
+            if prompt_len % self.page_size and k < len(pages):
+                self.prefix_cache.publish_partial(
+                    prompt, prompt_len, pages[k], self.weights_version)
+        if pages:
+            self.page_pool.release(pages)
+        if self.prefix_cache is not None:
+            self.prefix_cache.update_gauges()
+        self._row_pages[slot] = None
+        self._row_meta[slot] = None
+        self._tables[slot, :] = 0  # a free row reads/writes page 0
+        self._free_rows.append(slot)
+
+    def _finish(self, slot, status, reason=None):
+        """Decode-publish, then the base transition: while the row's
+        pages are live, every page the request wrote, prompt and answer,
+        goes into the prefix chain. The last emitted token was never fed
+        back, so ``prompt_len + emitted - 1`` positions publish."""
+        seq = self._seqs[slot]
+        meta = self._row_meta[slot]
+        pages = self._row_pages[slot]
+        if (seq is not None and self.prefix_cache is not None
+                and not self._closed and pages and meta is not None):
+            prompt, prompt_len = meta
+            toks = prompt + tuple(int(t) for t in seq.handle.tokens)
+            valid = prompt_len + max(0, len(seq.handle.tokens) - 1)
+            if valid > prompt_len:
+                self.prefix_cache.publish(toks, valid, pages,
+                                          self.weights_version)
+                k = valid // self.page_size
+                if valid % self.page_size and k < len(pages):
+                    self.prefix_cache.publish_partial(
+                        toks, valid, pages[k], self.weights_version)
+        super()._finish(slot, status, reason=reason)
+
+    # --------------------------------------------------------- admission
+    def _pages_at_admission(self, prompt_len, total_tokens):
+        """Pages a request's table needs at admission: its whole span,
+        or under demand growth the prompt's only."""
+        return self.page_pool.pages_for(
+            prompt_len if self._demand_paging else total_tokens)
+
     def _admission_budget(self):
         """The head must fit the in-flight token cap AND the free pages
         (``total <= free_pages * page_size`` is exactly ``ceil(total /
-        page_size) <= free_pages``)."""
+        page_size) <= free_pages``). In prefix or demand mode the page
+        side is :meth:`_admission_fits`' (a warm request's need depends
+        on what the cache covers)."""
         base = ServingEngine._admission_budget(self)
+        if self._demand_paging or self.prefix_cache is not None:
+            return base
         page_budget = self.page_pool.free_pages * self.page_size
         return page_budget if base is None else min(base, page_budget)
+
+    def _admission_fits(self):
+        if self.prefix_cache is None and not self._demand_paging:
+            return None
+
+        def fits(req):
+            n_init = self._pages_at_admission(req.prompt_len,
+                                              req.total_tokens)
+            n_ref, ref_pages = 0, ()
+            match, plan = self._prefix_probe(req)
+            if plan is not None:
+                n_ref = plan[0] // self.page_size
+                ref_pages = match.pages[:n_ref]
+            need = n_init - n_ref
+            if need <= self.page_pool.free_pages:
+                return True
+            if self.prefix_cache is None:
+                return False
+            # the pages this request would adopt cannot be evicted for it
+            return need <= (self.page_pool.free_pages
+                            + self.prefix_cache.evictable_pages(
+                                exclude=ref_pages))
+
+        return fits
+
+    def _prefix_probe(self, req):
+        """One chain walk and chunk plan per admission attempt, shared by
+        the fits predicate and the admission right after it: ``(match,
+        plan)``, or ``(None, None)`` when no plan reuses anything."""
+        if self.prefix_cache is None:
+            return None, None
+        m = self.prefix_cache.match(req.input_ids, req.prompt_len,
+                                    self.weights_version)
+        plan = None
+        if m.covered > 0:
+            plan = self._chunk_plan(req.prompt_len,
+                                    self.pool.bucket_for(req.prompt_len),
+                                    m.covered)
+        out = (m if plan is not None else None, plan)
+        self._probe = (req, out)
+        return out
 
     def _max_admissions_per_step(self):
         return self.max_prefills_per_step
 
-    def _claim_row(self, req):
-        pages = self.page_pool.claim(
-            self.page_pool.pages_for(req.total_tokens))
-        row = self._free_rows.pop()
-        self._row_pages[row] = pages
-        self._tables[row, :] = 0
-        self._tables[row, :len(pages)] = pages
-        return row
+    def _tail_buckets(self, bucket):
+        """The tail ladder of one prompt bucket: the power-of-two
+        prefill ladder capped at the bucket."""
+        out, n = [], self.pool.min_bucket
+        while n < bucket:
+            out.append(n)
+            n *= 2
+        out.append(bucket)
+        return out
 
-    def _release_slot(self, slot):
-        pages = self._row_pages[slot]
-        if pages:
-            self.page_pool.release(pages)
-        self._row_pages[slot] = None
-        self._tables[slot, :] = 0  # a free row reads/writes page 0
-        self._free_rows.append(slot)
+    def _chunk_plan(self, prompt_len, bucket, covered):
+        """The warm admission's (recompute start ``c``, tail bucket): the
+        most cached span reused, under ``c + tail_bucket <= bucket`` (the
+        chunk writes ``[c, c + tail_bucket)`` of the block) and ``c <=
+        prompt_len - 1`` (the last prompt token always runs: its logits
+        give the first token). None when no plan reuses anything."""
+        best = None
+        for tb in self._tail_buckets(bucket):
+            c = min(int(covered), prompt_len - 1, bucket - tb)
+            if c <= 0 or prompt_len - c > tb:
+                continue
+            if best is None or c > best[0]:
+                best = (c, tb)
+        return best
 
-    def _adopt_index(self, row, blk):
-        """The block's page ids: the row's pages, then the garbage page 0
-        for block pages past the request's claim."""
-        ids = self._adopt_zeros(blk)
-        pages = self._row_pages[row]
-        k1 = min(len(pages), len(ids))
-        ids[:k1] = pages[:k1]
-        return ids
+    def _claim_pages(self, n):
+        """``n`` fresh pages, evicting cold cached pages if the freelist
+        is short; :class:`PagesExhausted` when both together cannot."""
+        try:
+            return self.page_pool.claim(n)
+        except PagesExhausted:
+            if self.prefix_cache is None:
+                raise
+            self.prefix_cache.evict(n - self.page_pool.free_pages)
+            return self.page_pool.claim(n)
 
+    def _admit_one(self, handle):
+        req = handle.request
+        now = self.clock()
+        ps = self.page_size
+        bucket = self.pool.bucket_for(req.prompt_len)
+        n_init = self._pages_at_admission(req.prompt_len, req.total_tokens)
+        key = self._next_key()
+        match = plan = None
+        if self.prefix_cache is not None:
+            probe = self._probe
+            if probe is None or probe[0] is not req:
+                probe = (req, self._prefix_probe(req))
+            self._probe = None
+            match, plan = probe[1]
+            if match is not None:
+                self.prefix_cache.hits.inc()
+                self.prefix_cache.tokens_saved.inc(plan[0])
+            else:
+                self.prefix_cache.misses.inc()
+        n_ref = 0 if match is None else plan[0] // ps
+        ref_pages = [] if match is None else match.pages[:n_ref]
+        row = None
+        owned = []
+        t_start = self.clock()
+        try:
+            if n_ref:
+                # reference the shared pages before any claim: a claim may
+                # evict, and must see them in use
+                self.page_pool.incref(ref_pages)
+                owned.extend(ref_pages)
+            fresh = self._claim_pages(n_init - n_ref)
+            owned.extend(fresh)
+            row = self._free_rows.pop()
+            row_pages = ref_pages + fresh
+            self._tables[row, :] = 0
+            self._tables[row, :n_init] = row_pages
+            if match is None:
+                self.local_prefills += 1
+                t0, blk = self._prefill(req, key)
+            else:
+                t0, blk = self._chunk_prefill(req, key, bucket, match, plan)
+            try:
+                # the fresh pages within the block land in the claim; the
+                # shared ones (indices < n_ref) and the block's pad pages
+                # go to the garbage page 0: a shared page is never written
+                ids = np.zeros((bucket // ps,), np.int64)
+                k1 = min(n_init, bucket // ps)
+                ids[n_ref:k1] = row_pages[n_ref:k1]
+                self._run_adopt(blk, ids)
+            finally:
+                self.pool.free(blk)
+            if self.prefix_cache is not None:
+                # full prompt pages are final once written (decode writes
+                # start at prompt_len): later requests hit them at once
+                self.prefix_cache.publish(req.input_ids, req.prompt_len,
+                                          row_pages, self.weights_version)
+        except BaseException:
+            if row is not None:
+                self._tables[row, :] = 0
+                self._free_rows.append(row)
+            if owned:
+                self.page_pool.release(owned)
+            raise
+        dt = self.clock() - t_start
+        self.metrics.prefill_time.observe(dt)
+        if match is not None:
+            self.metrics.warm_prefill_time.observe(dt)
+        self._row_pages[row] = row_pages
+        self._row_meta[row] = (tuple(int(t) for t in req.input_ids),
+                               req.prompt_len)
+        self._start_seq(handle, row, t0, key, now)
+
+    # --------------------------------------------------- the warm path
+    def _gather_body(self, blk):
+        """Copy ``bucket / page_size`` arena pages at ``page_ids`` (a
+        device tensor) into ``blk``, in place."""
+        ps, caches = self.page_size, self._caches
+        n_blk = blk.bucket // ps
+
+        def body(page_ids):
+            for (ak, av), (bk, bv) in zip(caches, blk.caches):
+                gather_block_from_pages(ak, page_ids, n_blk, ps, bk)
+                gather_block_from_pages(av, page_ids, n_blk, ps, bv)
+            return ()
+        return body
+
+    def _build_gather(self, blk):
+        ids = torch.zeros((blk.bucket // self.page_size,), dtype=torch.int64,
+                          device=self.device)
+        return self._gather_body(blk), [ids], (self._caches, blk.caches)
+
+    def _chunk_body(self, blk):
+        """The chunk prefill: tail ids ``[1, tail_bucket]`` at the
+        position in ``pos`` (a ``[1]`` device tensor, so that one capture
+        serves every start) over ``blk`` -> logits ``[1, tail_bucket,
+        V]``."""
+        net = self.net
+
+        def body(ids, pos):
+            return net(ids, caches=blk.caches, pos=pos)[0]
+        return body
+
+    def _build_chunk(self, blk, tail_bucket):
+        dev = self.device
+        inputs = [torch.zeros((1, tail_bucket), dtype=torch.int64, device=dev),
+                  torch.zeros((1,), dtype=torch.int32, device=dev)]
+        return self._chunk_body(blk), inputs, (self._keep(), blk.caches)
+
+    def _chunk_prefill(self, req, key, bucket, match, plan):
+        """The warm admission's prefill -> (first token, block): the
+        cached pages gathered into the bucket's block, then the tail
+        from ``c`` chunk-prefilled over it."""
+        ps = self.page_size
+        c, tb = plan
+        n = req.prompt_len - c
+        src = np.zeros((bucket // ps,), np.int64)
+        n_gather = -(-c // ps)
+        src[:n_gather] = match.pages[:n_gather]
+        tail = np.zeros((1, tb), np.int64)
+        tail[0, :n] = req.input_ids[c:]
+        pos = np.array([c], np.int32)
+        blk = self.pool.alloc(req.prompt_len)
+        try:
+            with torch.inference_mode():
+                if self.graphs:
+                    self._check_net()
+                    self._programs.run(("gather", bucket),
+                                       lambda: self._build_gather(blk), src)
+                    logits = self._programs.run(
+                        ("chunk", bucket, tb),
+                        lambda: self._build_chunk(blk, tb), tail, pos)
+                else:
+                    dev = self.device
+                    self._gather_body(blk)(torch.from_numpy(src).to(dev))
+                    logits = self._chunk_body(blk)(
+                        torch.from_numpy(tail).to(dev),
+                        torch.from_numpy(pos).to(dev))
+                # read on the host here, before any later admission
+                # refills the gather's, chunk's or adopt's pinned input
+                # mirrors (programs.py); the sampled token lands at
+                # c + n = prompt_len, as on the cold path
+                nxt = _select_next(
+                    logits[:, n - 1, :], self.do_sample, self.temperature,
+                    self.top_k, self.top_p, [(key, req.prompt_len)])
+                t0 = int(nxt[0])
+        except BaseException:
+            self.pool.free(blk)
+            raise
+        self.chunk_prefills += 1
+        if c % ps:
+            # the boundary lies inside a cached page: the gather copied
+            # it into the block, the adopt writes it into a fresh page
+            self.prefix_cache.cow_clones.inc()
+        return t0, blk
+
+    def warmup(self, aot_cache=None, buckets=None):
+        """The base inventory (decode step, a prefill and an adopt per
+        bucket), then with a prefix cache a gather per bucket and a chunk
+        prefill per (bucket, tail bucket), in the JAX engine's order
+        (``paged_engine.py:965-1013``); 17 + 8 + 36 programs at 2048
+        slots from bucket 16."""
+        stats = super().warmup(aot_cache=aot_cache, buckets=buckets)
+        if self.prefix_cache is None or not self.graphs:
+            return stats
+        warmed = []
+        ps = self.page_size
+        with torch.inference_mode():
+            for b in (self._warmup_buckets() if buckets is None
+                      else buckets):
+                blk = self.pool.alloc(b)
+                try:
+                    warmed.append(self._programs.warm(
+                        ("gather", blk.bucket),
+                        lambda: self._build_gather(blk),
+                        np.zeros((blk.bucket // ps,), np.int64)))
+                    for tb in self._tail_buckets(blk.bucket):
+                        warmed.append(self._programs.warm(
+                            ("chunk", blk.bucket, tb),
+                            lambda: self._build_chunk(blk, tb),
+                            np.zeros((1, tb), np.int64),
+                            np.zeros((1,), np.int32)))
+                finally:
+                    self.pool.free(blk)
+        stats["programs"] += sum(warmed)
+        return stats
+
+    # ------------------------------------------------------ the programs
     def _adopt_zeros(self, blk):
         return np.zeros((blk.bucket // self.page_size,), np.int64)
 
@@ -163,13 +531,38 @@ class PagedServingEngine(ServingEngine):
             return ()
         return body
 
-    def _adopt(self, row, blk):
-        self._adopt_body(blk)(
-            torch.from_numpy(self._adopt_index(row, blk)).to(self.device))
-
     def _decode_table(self):
         return self._tables
 
+    # ------------------------------------------------------ decode loop
+    def _grow_pages(self):
+        """Demand growth before the decode step: a row whose next write
+        crosses into an unclaimed page claims one (evicting if it must);
+        a claim that still fails sheds that request with
+        ``pages_exhausted`` (its tokens kept)."""
+        ps = self.page_size
+        for i, seq in enumerate(self._seqs):
+            if seq is None:
+                continue
+            pages = self._row_pages[i]
+            while seq.pos // ps >= len(pages):
+                try:
+                    new = self._claim_pages(1)
+                except PagesExhausted:
+                    self.metrics.sheds.inc(label=REASON_PAGES_EXHAUSTED)
+                    self._finish(i, CANCELLED,
+                                 reason=REASON_PAGES_EXHAUSTED)
+                    break
+                self._tables[i, len(pages)] = new[0]
+                pages.append(new[0])
+
+    def _decode_once(self):
+        if self._demand_paging:
+            self._grow_pages()
+        super()._decode_once()
+
     def close(self):
         super().close()
+        if self.prefix_cache is not None:
+            self.prefix_cache.flush()
         self._tables = None

@@ -7,10 +7,13 @@ page_size, kvH]`` fp32 scales beside the values) and a request claims only ``cei
 pages. Page id **0 is the reserved garbage page**: unallocated table
 entries and free decode rows point at it, and it sits behind the
 position mask (the paged attention kernel never reads it inside a row's
-live range). Pages are claimed up front at admission, so decode never
-runs out mid-sequence. The arena tensors live on the engine; the pool
-owns the freelist and the accounting, and a drained server reads
-``pages_in_use == 0``.
+live range). Pages are refcounted (``paged_pool.py:76-93``): a claim
+holds one reference, and the prefix cache and every request that adopts
+a cached page hold one more each (:meth:`PagedKVPool.incref`); a page
+returns to the freelist when its last reference drops. The arena
+tensors live on the engine; the pool owns the freelist and the
+accounting, and a drained server reads ``pages_in_use == 0`` and
+``claims == releases``.
 """
 from __future__ import annotations
 
@@ -27,9 +30,11 @@ class PagesExhausted(RuntimeError):
 
 class PagedKVPool:
     """Freelist and accounting over ``num_pages`` usable pages (page 0
-    comes on top). ``claim(n)`` returns n ids or raises
-    :class:`PagesExhausted`; ``release(ids)`` returns them. A double
-    release or a foreign id raises."""
+    comes on top). ``claim(n)`` returns n ids (one reference each) or
+    raises :class:`PagesExhausted`; ``incref(ids)`` adds a reference to
+    claimed pages; ``release(ids)`` drops one reference each, and a page
+    is free again at zero. A release or incref of an unclaimed id
+    raises."""
 
     def __init__(self, config, *, page_size=16, num_pages, dtype=None,
                  max_seq_len=4096, device=None):
@@ -47,9 +52,16 @@ class PagedKVPool:
         self.dtype = cache_torch_dtype(dtype)
         self.device = resolve_device(device)
         self._free = list(range(1, self.num_pages + 1))[::-1]
-        self._in_use = set()
+        self._refs = {}  # page id -> references held
         self.claims = 0
-        self.releases = 0
+        self.releases = 0  # pages returned to the freelist
+        self.increfs = 0
+        self.exhausted_events = 0
+        self.peak_in_use = 0
+        # sum of max(0, refcount - 2) over the pages: the private copies
+        # that sharing avoids beyond (cache + first holder), kept as the
+        # references move
+        self._extra_shared_refs = 0
 
     def pages_for(self, total_tokens):
         """Pages a request of ``total_tokens`` (prompt + max_new) needs."""
@@ -83,39 +95,75 @@ class PagedKVPool:
 
     @property
     def pages_in_use(self):
-        return len(self._in_use)
+        return len(self._refs)
+
+    @property
+    def shared_pages(self):
+        """Pages held by more than one reference."""
+        return sum(1 for v in self._refs.values() if v > 1)
+
+    @property
+    def shared_saved_pages(self):
+        """Private page copies that sharing avoids right now: the
+        references past (cache + first holder) of every page."""
+        return self._extra_shared_refs
+
+    def refcount(self, page_id):
+        return self._refs.get(int(page_id), 0)
 
     def claim(self, n):
-        """``n`` fresh page ids, or :class:`PagesExhausted` (nothing is
-        claimed on failure)."""
+        """``n`` fresh page ids (one reference each), or
+        :class:`PagesExhausted` (nothing is claimed on failure)."""
         n = int(n)
         if n < 1:
             raise ValueError(f"claim of {n} pages")
         if n > len(self._free):
+            self.exhausted_events += 1
             raise PagesExhausted(
                 f"need {n} pages, {len(self._free)} free "
-                f"({len(self._in_use)} in use)"
+                f"({len(self._refs)} in use)"
             )
         ids = [self._free.pop() for _ in range(n)]
-        self._in_use.update(ids)
+        for i in ids:
+            self._refs[i] = 1
         self.claims += n
+        self.peak_in_use = max(self.peak_in_use, len(self._refs))
         return ids
 
-    def release(self, ids):
-        """Return pages; the whole list is validated before any is
-        released."""
+    def _validate(self, ids, verb):
         ids = [int(i) for i in ids]
-        bad = [i for i in ids if i not in self._in_use]
+        bad = [i for i in ids if i not in self._refs]
         if bad:
             raise ValueError(
-                f"page(s) {bad} not claimed (double release or foreign id?)"
+                f"page(s) {bad} not claimed (cannot {verb} an unclaimed "
+                f"page: double release or foreign id?)"
             )
         if len(set(ids)) != len(ids):
-            raise ValueError(f"duplicate page ids in one release: {ids}")
-        for i in ids:
-            self._in_use.remove(i)
-            self._free.append(i)
-        self.releases += len(ids)
+            raise ValueError(f"duplicate page ids in one {verb}: {ids}")
+        return ids
+
+    def incref(self, ids):
+        """Add one reference to each of these claimed pages (the prefix
+        cache's hold on a published page, a request's on an adopted one);
+        the whole list is validated first."""
+        for i in self._validate(ids, "incref"):
+            if self._refs[i] >= 2:
+                self._extra_shared_refs += 1
+            self._refs[i] += 1
+            self.increfs += 1
+
+    def release(self, ids):
+        """Drop one reference per id; a page returns to the freelist at
+        its last. The whole list is validated before any is released, so
+        a raise releases nothing."""
+        for i in self._validate(ids, "release"):
+            if self._refs[i] >= 3:
+                self._extra_shared_refs -= 1
+            self._refs[i] -= 1
+            if self._refs[i] == 0:
+                del self._refs[i]
+                self._free.append(i)
+                self.releases += 1
 
     def page_bytes(self):
         """Device bytes of one page across every layer's K and V (an
@@ -126,3 +174,21 @@ class PagedKVPool:
 
     def arena_bytes(self):
         return (self.num_pages + 1) * self.page_bytes()
+
+    def stats(self):
+        return {
+            "dtype": str(self.dtype).replace("torch.", ""),
+            "page_size": self.page_size,
+            "num_pages": self.num_pages,
+            "table_width": self.table_width(),
+            "free_pages": self.free_pages,
+            "pages_in_use": self.pages_in_use,
+            "shared_pages": self.shared_pages,
+            "peak_pages_in_use": self.peak_in_use,
+            "increfs": self.increfs,
+            "page_bytes": self.page_bytes(),
+            "arena_bytes": self.arena_bytes(),
+            "claims": self.claims,
+            "releases": self.releases,
+            "exhausted_events": self.exhausted_events,
+        }

@@ -1,6 +1,6 @@
 """The serving engines' fixed-shape programs (the torch counterpart of the
-JAX engines' jitted decode step, prefill and adopt programs and of their
-``warmup()``).
+JAX engines' jitted decode step, prefill and adopt programs, the prefix
+cache's gather and chunk-prefill programs, and of their ``warmup()``).
 
 A :class:`Program` holds one body (a function of fixed-shape tensors),
 its static input tensors and, on a CUDA device, a ``torch.cuda.CUDAGraph``
@@ -46,7 +46,11 @@ from .. import kernels
 # which an engine counts its captures
 TRACE_KEYS = {"decode": "serving::decode_step",
               "prefill": "serving::prefill",
-              "adopt": "serving::adopt"}
+              "adopt": "serving::adopt",
+              "gather": "serving::gather_pages",
+              "chunk": "serving::chunk_prefill"}
+# the kinds every engine has; a prefix-cache engine adds gather and chunk
+BASE_KINDS = ("decode", "prefill", "adopt")
 
 
 # device -> the one side stream every engine's warm runs and captures
@@ -71,10 +75,11 @@ class Program:
         self.inputs = tuple(inputs)
         self.cuda = self.inputs[0].device.type == "cuda"
         # pinned host mirrors of the inputs: a copy from them is
-        # asynchronous. The engine reads every prefill's and decode
-        # step's output on the host before it fills a mirror again, and
-        # every adopt of a bucket follows that bucket's prefill, so no
-        # mirror is rewritten while its copy is pending.
+        # asynchronous. The engine reads every prefill's, chunk
+        # prefill's and decode step's output on the host before it fills
+        # a mirror again, and every adopt and gather of a bucket sits
+        # between two such reads in one admission, so no mirror is
+        # rewritten while its copy is pending.
         self.host = tuple(
             torch.empty(t.shape, dtype=t.dtype).pin_memory() if self.cuda
             else None for t in self.inputs)
@@ -143,11 +148,12 @@ class Program:
 
 class Programs:
     """An engine's program inventory, keyed ``(kind, bucket)`` with kind
-    ``"decode"``, ``"prefill"`` or ``"adopt"``, on one device: one memory
-    pool for all of them on a card, and the device's capture stream.
-    Counts its captures under the JAX trace guard's keys."""
+    ``"decode"``, ``"prefill"``, ``"adopt"`` or ``"gather"``, or
+    ``("chunk", bucket, tail_bucket)``, on one device: one memory pool
+    for all of them on a card, and the device's capture stream. Counts
+    its captures of ``kinds`` under the JAX trace guard's keys."""
 
-    def __init__(self, device):
+    def __init__(self, device, kinds=BASE_KINDS):
         self.device = device
         cuda = device.type == "cuda"
         self.pool = torch.cuda.graph_pool_handle() if cuda else None
@@ -158,7 +164,7 @@ class Programs:
                 self.stream = _CAPTURE_STREAMS[device] = torch.cuda.Stream(
                     device)
         self._progs = {}
-        self.counts = dict.fromkeys(TRACE_KEYS.values(), 0)
+        self.counts = dict.fromkeys((TRACE_KEYS[k] for k in kinds), 0)
 
     def get(self, key):
         """The program ``key``, or None before its first call."""

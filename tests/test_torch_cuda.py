@@ -32,7 +32,11 @@ adds, per entry, what rounding P and dS at other points than the plain
 version may move it by (``probability_rounding_slack``: the tensor-core
 kernels round the unnormalised P of each tile). The serving engines'
 decode program, a CUDA graph, is held bit-equal to the eager step it
-replays (the same kernels on the same inputs), with its launch counts.
+replays (the same kernels on the same inputs), with its launch counts;
+a prefix engine's warm admissions (gather, chunk prefill and adopt
+graphs) bit-equal to its eager run, and one chunk capture replayed at
+two starts bit-equal to the eager chunk there and within 1e-5 of the
+largest logit of the full prefill.
 The multi-tensor optimizer kernels: Adam/AdamW and SGD/Momentum bit for
 bit given the same stats (every operation rounded once on both sides),
 the sums of squares within 1e-6 relative (fp32 sums in another order) and
@@ -1049,6 +1053,122 @@ def test_capture_runs_without_collecting_dead_graphs(dev):
                         cache_dtype="float32")
     assert h.output_ids.tolist() == want[0].tolist()
     gc.collect()
+
+
+def _prefix_net(dev, dtype):
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.tiny(vocab_size=256, hidden_size=256,
+                           intermediate_size=512, num_hidden_layers=2,
+                           num_attention_heads=4, num_key_value_heads=2)
+    return LlamaForCausalLM(cfg, device=dev, dtype=dtype, seed=2)
+
+
+def _prefix_traffic(eng, rng):
+    """Two first turns over a 20-token prefix; then another tail, the
+    first 19 prefix tokens (a clone) and a second turn over the first
+    answer. Returns the handles."""
+    prefix = rng.randint(0, 256, (20,))
+    hs = [eng.submit(np.concatenate([prefix, rng.randint(0, 256, (4,))]), 6)
+          for _ in range(2)]
+    eng.run_until_idle()
+    hs += [eng.submit(p, 6) for p in (
+        np.concatenate([prefix, rng.randint(0, 256, (4,))]), prefix[:19],
+        np.concatenate([hs[0].output_ids, rng.randint(0, 256, (3,))]))]
+    eng.run_until_idle()
+    assert all(h.status == "DONE" for h in hs)
+    return hs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["bfloat16", "int8"])
+def test_warm_admissions_replay_equal_eager(dev, cache):
+    """A tiny bf16 Llama's prefix engine through its programs (gather,
+    chunk prefill and adopt as CUDA graphs, captured by ``warmup()``)
+    against the same engine stepping eagerly: equal streams and
+    counters, and every arena page but the garbage page bit-equal (the
+    same pages are claimed in the same order); nothing is captured
+    during traffic."""
+    from paddle_tpu_torch.quantization.kv import is_quantized
+    from paddle_tpu_torch.serving import PagedServingEngine
+
+    net = _prefix_net(dev, torch.bfloat16)
+    kw = dict(max_batch_size=2, max_seq_len=64, min_bucket=8, page_size=8,
+              cache_dtype=cache, prefix_cache=True)
+    graphs = PagedServingEngine(net, **kw)
+    graphs.warmup()
+    captures = graphs.compile_counts()
+    eager = PagedServingEngine(net, graphs=False, **kw)
+    hg = _prefix_traffic(graphs, np.random.RandomState(5))
+    he = _prefix_traffic(eager, np.random.RandomState(5))
+    assert [h.tokens for h in hg] == [h.tokens for h in he]
+    st = graphs.prefix_cache.stats()
+    assert st == eager.prefix_cache.stats()
+    assert st["hits"] == 4 and st["cow_clones"] >= 1
+    assert graphs.compile_counts() == captures
+    for pg, pe in zip(graphs._caches, eager._caches):
+        for a, b in zip(pg, pe):
+            for x, y in (((a.q, b.q), (a.scale, b.scale))
+                         if is_quantized(a) else ((a, b),)):
+                assert torch.equal(x[1:], y[1:])
+    for eng in (graphs, eager):
+        eng.close()
+        assert eng.page_pool.pages_in_use == 0
+
+
+@pytest.mark.cuda
+def test_chunk_capture_serves_every_start(dev):
+    """One chunk-prefill program, captured by ``warmup()`` at start 0,
+    replayed at starts 12 and 16 over a block gathered from arena pages:
+    each replay equals the eager chunk body at that start bit for bit
+    and the full prefill's logits row within 1e-5 of its largest entry
+    (fp32 products at another row count); a start frozen into the graph
+    would give another row."""
+    from paddle_tpu_torch.models.generation import alloc_kv_caches
+    from paddle_tpu_torch.quantization.kv import adopt_into_pages
+    from paddle_tpu_torch.serving import KVBlock, PagedServingEngine
+
+    net = _prefix_net(dev, torch.float32)
+    eng = PagedServingEngine(net, max_batch_size=2, max_seq_len=64,
+                             min_bucket=8, page_size=8,
+                             cache_dtype="float32", prefix_cache=True)
+    eng.warmup()
+    ids = torch.from_numpy(np.random.RandomState(6).randint(0, 256, (28,)))
+    full = torch.zeros((1, 32), dtype=torch.long, device=dev)
+    full[0, :28] = ids
+    with torch.inference_mode():
+        ref = alloc_kv_caches(net.config, 1, 32, "float32", device=dev)
+        want = net(full, caches=ref, pos=0)[0][0, 27]
+        pages = torch.tensor([3, 1, 4, 2], device=dev)
+        for (ak, av), (rk, rv) in zip(eng._caches, ref):
+            adopt_into_pages(ak, rk, pages, 4, 8)
+            adopt_into_pages(av, rv, pages, 4, 8)
+        for c in (12, 16):
+            src = np.zeros((4,), np.int64)
+            src[:-(-c // 8)] = pages.cpu().numpy()[:-(-c // 8)]
+            tail = np.zeros((1, 16), np.int64)
+            tail[0, :28 - c] = ids.numpy()[c:]
+            pos = np.array([c], np.int32)
+            # the programs warmup() captured over the bucket's one block
+            blk = eng.pool.alloc(28)
+            try:
+                eng._programs.run(("gather", 32), None, src)
+                got = eng._programs.run(("chunk", 32, 16), None, tail,
+                                        pos)[0, 27 - c].clone()
+            finally:
+                eng.pool.free(blk)
+            twin = KVBlock(32, alloc_kv_caches(net.config, 1, 32, "float32",
+                                               device=dev))
+            eng._gather_body(twin)(torch.from_numpy(src).to(dev))
+            eager = eng._chunk_body(twin)(
+                torch.from_numpy(tail).to(dev),
+                torch.from_numpy(pos).to(dev))[0, 27 - c]
+            torch.cuda.synchronize()
+            assert torch.equal(got, eager), c
+            tol = 1e-5 * float(want.abs().max())
+            assert float((got - want).abs().max()) <= tol, c
+    assert eng.compile_counts()["serving::chunk_prefill"] == 10
+    eng.close()
 
 
 def _mt_lists(dev, dtype, seed):
