@@ -176,7 +176,45 @@ and shared pages, ``warmup()``'s cost, the tokens that differ from the
 cold twin and decode-published KV against one prefill are printed (the
 latter also for the quantized model in phase 8, measured, not gated).
 
-``--profile-steps N`` profiles N decode steps after each serving phase
+Speculative decoding (``SpeculativeDecoder``) and beam search add:
+after the prefix parity, the spec parity: the same tiny fp32 GQA Llama
+with an fp32, a bf16 and an int8 cache, on the slab engine and on the
+paged engine with demand paging (pages of 4; graphs, warmed), with the
+early exit at layer 1 of 2 and with a separate 1-layer draft (k 3, 4),
+beside the vanilla engine of the same kind and cache: fp32 speculative
+streams must equal vanilla token for token, bf16 and int8 tokens must
+pass the teacher-forced check (differences and, on the slab, verify rows
+against vanilla rows at the same positions are printed), int8 must take
+the sequential verify, nothing may be captured during traffic and the
+paged pools must drain after rollbacks (at least one); the last-layer
+exit must accept every proposal; sampled fp32 streams must be equal on
+slab and paged; a tiny fp32 beam search (B 2, 3 beams) on the card must
+equal the CPU's, with and without an EOS, whose freeze must hold. After
+the prefix phase, the beam phase: ``generate`` on the 7B model with B 2,
+4 beams, prompt 128 and 64 new tokens beside greedy, ms a step printed,
+and the freeze with the winning beam's first token as EOS; then the spec
+phase: a paged engine with demand paging and ``SpeculativeDecoder(
+exit_layer=e, k=4)`` (``warmup()`` must capture 81 programs: 17, and per
+bucket a draft prefill, a gather and a verify for each of 1..5
+positions, and a draft decode per row) beside the serving phase's graph
+engine, for two legs: random weights with the exit at 8, then the same
+model with ``o_proj`` and ``down_proj`` zeroed from layer 4 on (layers
+4-31 add exact zeros, so the exit at 4 is a perfect draft); each leg
+runs 4 requests of 512 prompt and 128 new tokens one after another,
+then 8 at once, through both engines; gates: every run finishes with
+nothing captured and the arena drained, the speculative runs launch
+RMSNorm and rope the counts the structure gives (a verify is two
+forwards, a draft step one of the exit layers), every speculative token
+passes the teacher-forced check; printed: acceptance, ITL p50, tokens/s
+per request, ``decode_s``, verify rows against vanilla rows, tokens that
+differ from vanilla, pages claimed and rolled back, the warmup, and one
+replay of the verify (buckets 512 and 1024), the draft decode, the
+gather and the adopt (CUDA events). The ``kernels`` line's
+``launches_by_phase`` gains ``spec_parity``, ``spec_serving`` and
+``beam``.
+
+``--profile-steps N`` profiles N replays of the spec phase's verify
+(bucket 1024) and draft decode, and N decode steps after each serving phase
 (the graph engine's, and the bf16 and quantized eager engines'), with
 the graph's replay also timed by CUDA events, and one 1024-bucket
 prefill (three times) of the bf16, the fused and the quantized model.
@@ -2282,6 +2320,262 @@ def prefix_parity(torch, np, dev):
     return out
 
 
+# ------------------------------------------------------- spec parity
+# the tiny speculative engines: 2 rows of 64 slots from bucket 8; the
+# paged ones with demand paging and pages of 4 (a rejected tail often
+# crosses a page, so rollbacks happen)
+SPEC_PARITY_KW = dict(max_batch_size=2, max_seq_len=64, min_bucket=8)
+
+
+class RowRecorder:
+    """Records the logits rows an engine's programs compute for its
+    requests, keyed by (request index, position of the fed token): the
+    decode step's rows of every active row, and the verify's rows with
+    the ids they were scored with (a row is a stream's row only where the
+    stream holds those ids). Installed over ``eng._programs.run`` (and the
+    decoder's ``_round``, to know the verified row) until ``remove()``."""
+
+    def __init__(self, eng, handles):
+        self.eng = eng
+        self.index = {id(h): j for j, h in enumerate(handles)}
+        self.rows = {}
+        self.slot = None
+        run = eng._programs.run
+
+        def recording_run(key, build, *arrays):
+            out = run(key, build, *arrays)
+            self._record(key, arrays, out)
+            return out
+
+        eng._programs.run = recording_run
+        spec = eng.speculative
+        if spec is not None:
+            round_ = spec._round
+
+            def recording_round(e, slot):
+                self.slot = slot
+                return round_(e, slot)
+
+            spec._round = recording_round
+
+    def add(self, handles):
+        self.index.update({id(h): len(self.index) + j
+                           for j, h in enumerate(handles)})
+
+    def _record(self, key, arrays, out):
+        seqs = self.eng._seqs
+        if key[0] == "decode":
+            logits, pos = out[0], arrays[1]
+            for i, seq in enumerate(seqs):
+                j = None if seq is None else self.index.get(id(seq.handle))
+                if j is not None:
+                    self.rows[(j, int(pos[i]))] = (
+                        None, logits[i].float().cpu())
+        elif key[0] == "spec_verify":
+            seq = seqs[self.slot]
+            j = self.index.get(id(seq.handle))
+            if j is None:
+                return
+            ids, p = arrays[0][0], int(arrays[1][0])
+            rows = out.float().cpu()
+            for i in range(len(ids)):
+                self.rows[(j, p + i)] = ((p, tuple(int(t) for t in
+                                                   ids[:i + 1])), rows[i])
+
+    def remove(self):
+        del self.eng._programs.run
+        if self.eng.speculative is not None:
+            del self.eng.speculative._round
+
+
+def compare_rows(np, verify, vanilla, spec_handles, vanilla_handles):
+    """Verify rows against vanilla rows at the same position of the same
+    request, where both streams hold the same tokens up to it and the
+    verify row was scored with them: rows compared, rows bit-equal, the
+    largest |difference| and the rows whose argmax differs."""
+    n = same = flips = 0
+    worst = 0.0
+    for (j, q), (ctx, row) in verify.rows.items():
+        v = vanilla.rows.get((j, q))
+        if v is None or ctx is None:
+            continue
+        a = np.asarray(spec_handles[j].output_ids)
+        b = np.asarray(vanilla_handles[j].output_ids)
+        p, ids = ctx
+        if len(a) <= q or len(b) <= q or not np.array_equal(a[:q + 1],
+                                                              b[:q + 1]) \
+                or tuple(a[p:q + 1]) != ids:
+            continue
+        d = float((row - v[1]).abs().max())
+        n += 1
+        same += d == 0.0
+        worst = max(worst, d)
+        flips += int(row.argmax()) != int(v[1].argmax())
+    return {"rows": n, "rows_bit_equal": same, "max_abs_diff": worst,
+            "argmax_differs": flips}
+
+
+def _tokens_differing(np, a, b):
+    return sum(int((np.asarray(x.output_ids) != np.asarray(y.output_ids))
+                   .sum()) for x, y in zip(a, b))
+
+
+def spec_parity(torch, np, dev):
+    """Speculative decoding on tiny models: a GQA fp32 Llama with an fp32,
+    a bf16 and an int8 cache, on the slab engine and the paged engine with
+    demand paging (graphs, warmed), with the early exit at layer 1 of 2
+    and a separate 1-layer draft, against the vanilla engine of the same
+    kind and cache. Fails unless fp32 speculative streams equal vanilla
+    token for token, bf16 and int8 tokens pass the teacher-forced check
+    (differences counted), int8 takes the sequential verify, nothing is
+    captured during traffic, the paged pools drain (claims == releases)
+    after rollbacks; unless the last-layer exit accepts every proposal,
+    sampled fp32 speculative streams are equal on slab and paged; and
+    unless a tiny fp32 beam search on the card equals the CPU's with its
+    EOS freeze. Returns the phase's launch counts."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import (PagedServingEngine, ServingEngine,
+                                          SpeculativeDecoder)
+
+    cfg = LlamaConfig.tiny(vocab_size=256, hidden_size=256,
+                           intermediate_size=512, num_hidden_layers=2,
+                           num_attention_heads=4, num_key_value_heads=2)
+    net = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=4)
+    draft = LlamaForCausalLM(LlamaConfig.tiny(
+        vocab_size=256, hidden_size=128, intermediate_size=256,
+        num_hidden_layers=1, num_attention_heads=2), device=dev,
+        dtype=torch.float32, seed=9)
+    rng = np.random.RandomState(31)
+    prompts = [rng.randint(0, 256, (n,)) for n in (9, 17, 30, 5)]
+    news = [12, 20, 9, 16]
+
+    def make(kind, cache, spec=None, **kw):
+        if kind == "slab":
+            return ServingEngine(net, cache_dtype=cache, speculative=spec,
+                                 **SPEC_PARITY_KW, **kw)
+        return PagedServingEngine(net, cache_dtype=cache, page_size=4,
+                                  demand_paging=True, speculative=spec,
+                                  **SPEC_PARITY_KW, **kw)
+
+    def run(eng, label, record=False):
+        eng.warmup()
+        captures = eng.compile_counts()
+        hs = [eng.submit(p, m) for p, m in zip(prompts, news)]
+        rec = RowRecorder(eng, hs) if record else None
+        eng.run_until_idle()
+        if rec is not None:
+            rec.remove()
+        for h, m in zip(hs, news):
+            if h.status != "DONE" or len(h.tokens) != m:
+                fail(f"spec parity ({label}): status {h.status}, "
+                     f"{len(h.tokens)} of {m} tokens")
+        if eng.compile_counts() != captures:
+            fail(f"spec parity ({label}): captures during traffic: "
+                 f"{captures} -> {eng.compile_counts()}")
+        eng.close()
+        if hasattr(eng, "page_pool"):
+            st = eng.page_pool.stats()
+            if st["pages_in_use"] or st["claims"] != st["releases"]:
+                fail(f"spec parity ({label}): not drained: {st}")
+        return hs, rec
+
+    kernels.reset_launch_counts()
+    res, rolled_back = {}, 0
+    for cache in ("float32", "bfloat16", "int8"):
+        for kind in ("slab", "paged"):
+            van, van_rec = run(make(kind, cache), f"{kind} {cache} vanilla",
+                               record=kind == "slab")
+            for mode in ("exit", "draft"):
+                label = f"{kind} {cache} {mode}"
+                spec = (SpeculativeDecoder(exit_layer=1, k=3)
+                        if mode == "exit" else SpeculativeDecoder(draft, k=4))
+                eng = make(kind, cache, spec)
+                hs, rec = run(eng, label, record=kind == "slab")
+                st = spec.stats()
+                if st["sequential_verify"] != (cache == "int8"):
+                    fail(f"spec parity ({label}): sequential verify "
+                         f"{st['sequential_verify']}")
+                differ = _tokens_differing(np, hs, van)
+                if cache == "float32" and differ:
+                    fail(f"spec parity ({label}): {differ} tokens differ from "
+                         f"the vanilla engine: "
+                         f"{[h.tokens for h in hs]} != "
+                         f"{[h.tokens for h in van]}")
+                if cache != "float32":
+                    teacher_forced(torch, dev, hs, lambda ids: net(ids)[0],
+                                   f"spec parity ({label})")
+                if kind == "paged":
+                    rolled_back += eng.spec_pages_rolled_back
+                res[label] = {
+                    "tokens_differing_from_vanilla": differ,
+                    "rounds": st["rounds"], "proposed": st["proposed"],
+                    "accepted": st["accepted"],
+                    "mean_accept_length": st["mean_accept_length"]}
+                if rec is not None:
+                    res[label]["verify_rows_vs_vanilla"] = compare_rows(
+                        np, rec, van_rec, hs, van)
+    if not rolled_back:
+        fail("spec parity: no paged round rolled a page back")
+    # the last layer as the draft: it is the target, every proposal holds
+    spec = SpeculativeDecoder(exit_layer=2, k=3, draft_cache_dtype="float32")
+    hs, _ = run(make("slab", "float32", spec), "final layer")
+    st = spec.stats()
+    if not (st["proposed"] and st["accepted"] == st["proposed"]
+            and st["mean_accept_length"] > 1):
+        fail(f"spec parity (final layer): {st}")
+    res["final layer"] = st
+    # sampled: position-addressed keys make slab and paged streams equal
+    samp = dict(do_sample=True, temperature=0.9, top_k=20, top_p=0.95,
+                seed=7)
+    sampled = [run(make(kind, "float32", SpeculativeDecoder(draft, k=3),
+                        **samp), f"{kind} sampled")[0]
+               for kind in ("slab", "paged")]
+    if [h.tokens for h in sampled[0]] != [h.tokens for h in sampled[1]]:
+        fail("spec parity: sampled speculative streams differ between the "
+             "slab and the paged engine")
+    res["paged_pages_rolled_back"] = rolled_back
+    res["beam"] = _tiny_beam(torch, np, dev, net, cfg)
+    counts = kernels.launch_counts()
+    res["launches"] = {k: v for k, v in counts.items() if v}
+    log("spec parity: " + json.dumps(res))
+    return counts
+
+
+def _tiny_beam(torch, np, dev, net, cfg):
+    """The tiny net's beam search (B 2, 3 beams, fp32 cache) on the card
+    against the same weights on the CPU, token for token, without and
+    with an EOS (the winner's second token): after its first EOS a row
+    emits only EOS."""
+    from paddle_tpu_torch.convert import load_numpy_state, numpy_state
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    cpu = LlamaForCausalLM(cfg, device="cpu")
+    load_numpy_state(cpu, numpy_state(net))
+    ids = np.random.RandomState(32).randint(0, 256, (2, 11))
+    kw = dict(max_new_tokens=10, num_beams=3, cache_dtype="float32")
+
+    def both(**extra):
+        card = net.generate(torch.as_tensor(ids, device=dev), **kw,
+                            **extra).cpu().numpy()
+        want = cpu.generate(ids, **kw, **extra).numpy()
+        if not np.array_equal(card, want):
+            fail(f"spec parity: tiny beam search ({extra}) on the card "
+                 f"{card.tolist()} != the CPU's {want.tolist()}")
+        return card
+
+    free = both()
+    eos = int(free[0, 12])
+    frozen = both(eos_token_id=eos)
+    for row in frozen[:, 11:]:
+        hit = np.flatnonzero(row == eos)
+        if len(hit) and (row[hit[0]:] != eos).any():
+            fail(f"spec parity: a beam emitted past its EOS: {row.tolist()}")
+    return {"tokens": free[:, 11:].tolist(),
+            "tokens_eos": frozen[:, 11:].tolist(), "eos": eos,
+            "equal_to_cpu": True}
+
+
 def fused_parity(torch, np, dev):
     """A tiny fp32 MHA Llama (head_dim 64) with both fusions: its
     cache-free logits on the card against the
@@ -3044,9 +3338,9 @@ def teacher_forced(torch, dev, handles, logits_of, label):
             logits = logits_of(ids).float()
             if not torch.isfinite(logits).all():
                 fail(f"{label}: the reference produced non-finite logits")
-            p = h.request.prompt_len
-            rows = logits[p - 1:p - 1 + SERVE_MAX_NEW]
-            gen = ids[0, p:p + SERVE_MAX_NEW]
+            p, n = h.request.prompt_len, len(h.tokens)
+            rows = logits[p - 1:p - 1 + n]
+            gen = ids[0, p:p + n]
             top = rows.argmax(dim=-1)
             gap = rows.max(dim=-1).values - rows.gather(
                 1, gen[:, None])[:, 0]
@@ -3060,8 +3354,8 @@ def teacher_forced(torch, dev, handles, logits_of, label):
                          f"generated token trails the reference argmax by "
                          f"{g:.4f} >= {NEAR_TIE}")
     log(f"{label}: teacher-forced check passed for "
-        f"{len(handles) * SERVE_MAX_NEW} tokens; {ties} near-ties (largest "
-        f"gap {worst_gap:.4f} < {NEAR_TIE})")
+        f"{sum(len(h.tokens) for h in handles)} tokens; {ties} near-ties "
+        f"(largest gap {worst_gap:.4f} < {NEAR_TIE})")
     return ties, worst_gap
 
 
@@ -3201,7 +3495,11 @@ def serving_phase(torch, np, dev, card, profile_steps=0):
     gc.collect()
     torch.cuda.empty_cache()
     prefix = prefix_phase(torch, np, dev, card, net, eng)
-    return graph_run["counts"], runs[0]["counts"], fused, prefix
+    beam = beam_phase(torch, np, dev, card, net)
+    # the perfect-draft leg zeroes layers of this net: no later phase uses
+    # it (the quantized phase builds its own)
+    spec = spec_phase(torch, np, dev, card, net, eng, profile_steps)
+    return graph_run["counts"], runs[0]["counts"], fused, prefix, spec, beam
 
 
 def fused_serving(torch, np, dev, card, net, eng, eager, cfg,
@@ -3517,6 +3815,267 @@ def prefix_phase(torch, np, dev, card, net, cold):
     for e in (eng, eager):
         e.close()
     return graph_run["counts"], runs[2]["counts"]
+
+
+# ------------------------------------------------------- spec serving
+# the speculative phase (seed 5150): prompts of 512 tokens, 128 new tokens
+# each; at concurrency 1, 4 requests one after another, then 8 at once;
+# k 4 (each round proposes up to 4 tokens and verifies 5 positions)
+SPEC_PROMPT, SPEC_NEW, SPEC_K, SPEC_CONC1 = 512, 128, 4, 4
+# the two legs: (name, exit layer, zero o_proj and down_proj from the exit
+# layer on). Zeroed, layers 4-31 add exact zeros to the residual stream,
+# so the early exit at 4 computes what the target computes: a perfect
+# draft (JAX tools/spec_smoke.py leg 1). Unzeroed at 8: random weights,
+# acceptance is low and rollbacks run.
+SPEC_LEGS = (("random", 8, False), ("perfect", 4, True))
+
+
+def drive_spec(torch, np, eng, prompts, conc1, label, rec=None):
+    """``prompts`` through ``eng``: one after another (``conc1``) or all at
+    once, ``SPEC_NEW`` tokens each; launch counts zeroed just before and
+    read just after. Fails unless every request finishes, nothing is
+    captured and no page stays in use. Returns the handles, the counts
+    and the numbers it prints."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.serving.metrics import ServingMetrics
+
+    eng.metrics = ServingMetrics()
+    spec = eng.speculative
+    if spec is not None:
+        spec.reset_stats()
+        claimed0 = eng.spec_pages_claimed
+        rolled0 = eng.spec_pages_rolled_back
+    captures = eng.compile_counts()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    if conc1:
+        hs = []
+        for p in prompts:
+            hs.append(eng.submit(p, SPEC_NEW))
+            if rec is not None:
+                rec.add(hs[-1:])
+            eng.run_until_idle()
+    else:
+        hs = [eng.submit(p, SPEC_NEW) for p in prompts]
+        eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    for h in hs:
+        if h.status != "DONE" or len(h.tokens) != SPEC_NEW:
+            fail(f"{label}: status {h.status} ({h.reason}), "
+                 f"{len(h.tokens)} tokens")
+    if eng.compile_counts() != captures:
+        fail(f"{label}: captures during traffic: {captures} -> "
+             f"{eng.compile_counts()}")
+    if eng.page_pool.pages_in_use:
+        fail(f"{label}: {eng.page_pool.pages_in_use} pages in use after "
+             f"the traffic")
+    m = eng.metrics
+    per_req = [(len(h.tokens) - 1) / (h.finish_time - h.first_token_time)
+               for h in hs]
+    result = {
+        "requests": len(hs), "concurrency": 1 if conc1 else len(hs),
+        "wall_s": wall, "itl_p50_s": m.itl.percentile(50),
+        "decode_s": m.decode_step_time.sum,
+        "decode_tokens": m.decode_tokens.value,
+        "decode_tok_per_s": m.decode_tokens.value / m.decode_step_time.sum,
+        "tok_per_s_per_request": statistics.mean(per_req),
+        "ttft_p50_s": m.ttft.percentile(50),
+        "prefills": m.prefill_time.count}
+    if spec is not None:
+        result["spec"] = spec.stats()
+        result["spec_pages_claimed"] = eng.spec_pages_claimed - claimed0
+        result["spec_pages_rolled_back"] = (eng.spec_pages_rolled_back
+                                            - rolled0)
+    log(f"{label}: " + json.dumps(result))
+    return hs, counts, result
+
+
+def _spec_counts(layers, exit_layer, result, counts):
+    """The launches the structure gives a speculative bf16 run: a prefill
+    is one forward (RMSNorm 2L + 1, rope L), a verify two (the chunk
+    without the final norm and the re-read), a draft prefill or step one
+    forward of the exit layers; no paged attention (the verify attends
+    over the gathered block)."""
+    st, e = result["spec"], exit_layer
+    draft = st["draft_ingests"] + st["draft_steps"]
+    want = {k: 0 for k in counts}
+    want.update(
+        rms_norm=(result["prefills"] * (2 * layers + 1)
+                  + st["rounds"] * (4 * layers + 1) + draft * (2 * e + 1)),
+        rope=result["prefills"] * layers + st["rounds"] * 2 * layers
+        + draft * e)
+    return want
+
+
+def spec_phase(torch, np, dev, card, net, vanilla, profile=0):
+    """Speculative decoding at Llama-2-7B: a paged engine with demand
+    paging and ``SpeculativeDecoder(exit_layer=e, k=4)`` (graphs, after
+    ``warmup()``: the base 17 programs, a draft prefill, a gather and 5
+    verifies per bucket and a draft decode per row) beside ``vanilla``,
+    the serving phase's graph engine, on the same requests, for each leg
+    of ``SPEC_LEGS``. Fails unless every run finishes with nothing
+    captured and the arena drained, the speculative runs launch the
+    counts the structure gives, and every speculative token passes the
+    teacher-forced check. Prints acceptance, ITL, tokens/s per request,
+    ``decode_s``, the programs' replay times, warmup, pages claimed and
+    rolled back, and the tokens that differ from vanilla; with
+    ``profile``, that many replays of the verify (bucket 1024) and of the
+    draft decode by kernel group. Returns the speculative runs' launch
+    counts, summed."""
+    import gc
+
+    from paddle_tpu_torch.serving import PagedServingEngine, SpeculativeDecoder
+
+    cfg = net.config
+    layers = cfg.num_hidden_layers
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(5150)
+    prompts = [rng.randint(0, cfg.vocab_size, (SPEC_PROMPT,))
+               for _ in range(SPEC_CONC1 + ENGINE_KW["max_batch_size"])]
+    total = {}
+    out = {"card": card, "k": SPEC_K, "prompt": SPEC_PROMPT,
+           "new_tokens": SPEC_NEW}
+    for leg, exit_layer, perfect in SPEC_LEGS:
+        if perfect:
+            with torch.no_grad():
+                for layer in net.model.layers[exit_layer:]:
+                    layer.self_attn.o_proj.weight.zero_()
+                    layer.mlp.down_proj.weight.zero_()
+        spec = SpeculativeDecoder(exit_layer=exit_layer, k=SPEC_K)
+        eng = PagedServingEngine(net, cache_dtype="bfloat16",
+                                 demand_paging=True, speculative=spec,
+                                 **ENGINE_KW)
+        nb = len(eng._warmup_buckets())
+        torch.cuda.synchronize()
+        reserved0 = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        programs = eng.warmup()["programs"]
+        torch.cuda.synchronize()
+        warm = {"warmup_s": time.perf_counter() - t0, "programs": programs,
+                "captures": eng.compile_counts(),
+                "reserved_bytes": torch.cuda.memory_reserved() - reserved0}
+        want_programs = (1 + 2 * nb + nb + ENGINE_KW["max_batch_size"]
+                         + nb * (SPEC_K + 1) + nb)
+        if programs != want_programs or eng.warmup()["programs"]:
+            fail(f"spec serving ({leg}): warmup() captured {programs} "
+                 f"programs, expected {want_programs} once")
+        res = {"exit_layer": exit_layer, "warmup": warm}
+        for conc1 in (True, False):
+            group = prompts[:SPEC_CONC1] if conc1 else prompts[SPEC_CONC1:]
+            tag = "concurrency 1" if conc1 else "8 at once"
+            rv = rs = None
+            if conc1:
+                rv, rs = RowRecorder(vanilla, []), RowRecorder(eng, [])
+            van, _, van_res = drive_spec(torch, np, vanilla, group, conc1,
+                                         f"spec serving ({leg}, vanilla, "
+                                         f"{tag})", rv)
+            hs, counts, spec_res = drive_spec(torch, np, eng, group, conc1,
+                                              f"spec serving ({leg}, {tag})",
+                                              rs)
+            want = _spec_counts(layers, exit_layer, spec_res, counts)
+            if counts != want:
+                fail(f"spec serving ({leg}, {tag}): launches {counts}, "
+                     f"expected {want}")
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            ties, gap = teacher_forced(torch, dev, hs,
+                                       lambda ids: net(ids)[0],
+                                       f"spec serving ({leg}, {tag})")
+            res[tag] = {"vanilla": van_res, "speculative": spec_res,
+                        "tokens_differing_from_vanilla": _tokens_differing(
+                            np, hs, van),
+                        "tokens": sum(len(h.tokens) for h in hs),
+                        "near_ties": ties, "near_tie_max_gap": gap}
+            if conc1:
+                rv.remove()
+                rs.remove()
+                res[tag]["verify_rows_vs_vanilla"] = compare_rows(
+                    np, rs, rv, hs, van)
+        st = eng.page_pool.stats()
+        if st["pages_in_use"] or st["claims"] != st["releases"]:
+            fail(f"spec serving ({leg}): not drained: {st}")
+        # one replay of each program of a round, CUDA events; the arena
+        # holds no live page now, so the adopt's replays write free pages
+        res["replay_ms"] = {f"{k[0]}_{'_'.join(map(str, k[1:]))}": replay_ms(
+            torch, eng._programs.get(k).graph) for k in (
+                ("spec_verify", 512, SPEC_K + 1),
+                ("spec_verify", 1024, SPEC_K + 1),
+                ("spec_ddecode", 0), ("gather", 512), ("adopt", 512),
+                ("gather", 1024), ("adopt", 1024))}
+        if profile:
+            res["profile"] = {
+                f"{k[0]}_{'_'.join(map(str, k[1:]))}": profile_steps(
+                    torch, eng._programs.get(k).graph.replay, profile)
+                for k in (("spec_verify", 1024, SPEC_K + 1),
+                          ("spec_ddecode", 0))}
+        res["pages"] = {"claimed": eng.spec_pages_claimed,
+                        "rolled_back": eng.spec_pages_rolled_back}
+        out[leg] = res
+        log(f"spec serving ({leg}): " + json.dumps(res))
+        eng.close()
+        del eng, spec
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("spec serving: " + json.dumps(out))
+    return total
+
+
+# ------------------------------------------------------- beam search
+BEAM_B, BEAM_K, BEAM_PROMPT, BEAM_NEW = 2, 4, 128, 64
+
+
+def beam_phase(torch, np, dev, card, net):
+    """``generate`` at Llama-2-7B: beam search (B 2, 4 beams, prompt 128,
+    64 new tokens, bf16 cache) beside greedy on the same prompts, each
+    timed (host clock to a sync); then the beam search again with the
+    winning beam's first token as EOS. Fails unless the outputs are in
+    the vocabulary, the beam's kernels launched, and after its first EOS
+    a row emits only EOS (the freeze). Returns the launch counts of the
+    first beam search."""
+    from paddle_tpu_torch import kernels
+
+    ids = torch.as_tensor(np.random.RandomState(777).randint(
+        0, net.config.vocab_size, (BEAM_B, BEAM_PROMPT)), device=dev)
+
+    def timed(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = net.generate(ids, max_new_tokens=BEAM_NEW, **kw)
+        torch.cuda.synchronize()
+        return out.cpu().numpy(), time.perf_counter() - t0
+
+    greedy, greedy_s = timed()
+    kernels.reset_launch_counts()
+    beam, beam_s = timed(num_beams=BEAM_K)
+    counts = kernels.launch_counts()
+    if not (counts["rms_norm"] and counts["rope"]):
+        fail(f"beam: launches {counts}")
+    eos = int(beam[0, BEAM_PROMPT])
+    frozen, _ = timed(num_beams=BEAM_K, eos_token_id=eos)
+    for out in (greedy, beam, frozen):
+        if out.shape != (BEAM_B, BEAM_PROMPT + BEAM_NEW) or out.min() < 0 \
+                or out.max() >= net.config.vocab_size:
+            fail(f"beam: output of shape {out.shape}, ids "
+                 f"{out.min()}..{out.max()}")
+    for row in frozen[:, BEAM_PROMPT:]:
+        hit = np.flatnonzero(row == eos)
+        if len(hit) and (row[hit[0]:] != eos).any():
+            fail(f"beam: a row emitted past its EOS: {row.tolist()}")
+    res = {"card": card, "batch": BEAM_B, "num_beams": BEAM_K,
+           "prompt": BEAM_PROMPT, "new_tokens": BEAM_NEW,
+           "beam_ms_per_step": 1e3 * beam_s / BEAM_NEW,
+           "greedy_ms_per_step": 1e3 * greedy_s / BEAM_NEW,
+           "beam_s": beam_s, "greedy_s": greedy_s,
+           "tokens_differing_from_greedy": int(
+               (beam[:, BEAM_PROMPT:] != greedy[:, BEAM_PROMPT:]).sum()),
+           "eos": eos, "eos_row_0": frozen[0, BEAM_PROMPT:].tolist(),
+           "launches": {k: v for k, v in counts.items() if v}}
+    log("beam: " + json.dumps(res))
+    return counts
 
 
 def quant_serving_phase(torch, np, dev, card, profile_steps=0):
@@ -3889,6 +4448,7 @@ def main():
 
     small_parity(torch, np, dev)
     prefix_parity(torch, np, dev)
+    spec_parity_counts = spec_parity(torch, np, dev)
     fused_parity(torch, np, dev)
     tiny_train_parity(torch, np, dev)
     (train_counts, fused_train_counts, fp32_train_counts,
@@ -3896,8 +4456,8 @@ def main():
         torch, np, dev, card, args.profile_train_steps)
     (serve_counts, serve_eager_counts,
      (fused_serve_counts, fused_serve_eager_counts),
-     (prefix_counts, prefix_eager_counts)) = serving_phase(
-        torch, np, dev, card, args.profile_steps)
+     (prefix_counts, prefix_eager_counts), spec_counts,
+     beam_counts) = serving_phase(torch, np, dev, card, args.profile_steps)
     quant_counts, quant_eager_counts = quant_serving_phase(
         torch, np, dev, card, args.profile_steps)
 
@@ -3926,6 +4486,9 @@ def main():
                     "fused_serving_eager": fused_serve_eager_counts[name],
                     "prefix_serving": prefix_counts[name],
                     "prefix_serving_eager": prefix_eager_counts[name],
+                    "spec_parity": spec_parity_counts[name],
+                    "spec_serving": spec_counts.get(name, 0),
+                    "beam": beam_counts[name],
                     "fused_training": fused_train_counts[name],
                     "fp32_training": fp32_train_counts[name],
                     "fused_fp32_training": fused_fp32_train_counts[name],

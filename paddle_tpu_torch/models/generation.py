@@ -11,7 +11,13 @@ Sampling draws its randomness from :mod:`..serving.sampling_keys`: the
 token that lands at cache position ``j`` of request ``i`` is sampled
 with noise that depends only on (seed, i, j), so streams reproduce for a
 given seed and workload. They do not reproduce the JAX package's
-threefry bits. Beam search is not ported yet.
+threefry bits.
+
+Beam search (``num_beams > 1``, :func:`beam_search`) folds the beams into
+the batch, ``[B * num_beams]`` rows over one slab cache, and runs the
+same prefill and decode steps from a Python loop, where the JAX package
+scans them; its top-k keeps the lower index on a tie, as
+``jax.lax.top_k`` does.
 """
 from __future__ import annotations
 
@@ -19,7 +25,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..quantization.kv import QUANT_CACHE_DTYPES, alloc_quantized
+from ..quantization.kv import QUANT_CACHE_DTYPES, alloc_quantized, select_rows
 
 DEFAULT_CACHE_DTYPE = "bfloat16"
 ALLOWED_CACHE_DTYPES = ("float32", "bfloat16") + QUANT_CACHE_DTYPES
@@ -135,6 +141,76 @@ def _as_ids(input_ids, device):
                            device=device)
 
 
+def top_k_stable(x, k):
+    """``(values, indices)`` of the ``k`` largest entries of each row of
+    ``x`` ``[..., N]``, in descending order, the lower index first on a
+    tie (``jax.lax.top_k``'s rule, which ``torch.topk`` does not promise
+    on a card): a stable descending sort."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+# a frozen beam's log-probability of every token but EOS
+_NEG = -1e30
+
+
+def beam_search(net, ids, max_new, num_beams, eos_token_id=None,
+                cache_dtype=None):
+    """Beam search with the beams folded into the batch (the JAX
+    ``_beam_decode_ids``, ``generation.py:240-330``): ``[B * k]`` rows
+    share one slab cache; each step scores ``[B, k * V]`` in fp32, keeps
+    the top k continuations and gathers the caches by surviving beam
+    after the step's write. A finished beam is frozen: EOS at
+    log-probability 0, every other token at -1e30, so its score stays
+    comparable. Returns the best beam of each batch row (beam 0, the
+    top-k order keeps beams sorted by score), ``[B, S + max_new]``."""
+    B, S = int(ids.shape[0]), int(ids.shape[1])
+    k = int(num_beams)
+    has_eos = eos_token_id is not None
+    caches = alloc_kv_caches(net.config, B, S + max_new, cache_dtype,
+                             device=ids.device)
+    logits, caches = prefill(net, ids, caches)
+    logp = torch.log_softmax(logits.float(), dim=-1)            # [B, V]
+    V = int(logp.shape[-1])
+    # first expansion: the top-k tokens of each prompt seed the beams
+    scores, tok0 = top_k_stable(logp, k)                         # [B, k]
+    finished = (tok0 == eos_token_id) if has_eos else None
+    # the beams share the prompt's cache: each row repeated k times
+    rep = torch.arange(B, device=ids.device).repeat_interleave(k)
+    caches = [(select_rows(kc, rep), select_rows(vc, rep))
+              for kc, vc in caches]
+    beam_toks = torch.zeros((B, k, max_new), dtype=torch.long,
+                            device=ids.device)
+    beam_toks[:, :, 0] = tok0
+    if has_eos:
+        frozen = torch.full((V,), _NEG, dtype=torch.float32,
+                            device=ids.device)
+        frozen[eos_token_id] = 0.0
+    base = torch.arange(B, device=ids.device)[:, None] * k
+    for col in range(max_new - 1):
+        tok = beam_toks[:, :, col].reshape(B * k)
+        logits, caches = decode_step(net, tok[:, None], caches, S + col)
+        lp = torch.log_softmax(logits.float(), dim=-1).reshape(B, k, V)
+        if has_eos:
+            # frozen beams: only EOS continues, at no cost
+            lp = torch.where(finished[..., None], frozen, lp)
+        total = scores[..., None] + lp                           # [B, k, V]
+        scores, idx = top_k_stable(total.reshape(B, k * V), k)
+        src = idx // V              # [B, k] the beam each winner extends
+        tok2 = idx % V
+        beam_toks = torch.gather(beam_toks, 1,
+                                 src[..., None].expand(B, k, max_new))
+        beam_toks[:, :, col + 1] = tok2
+        if has_eos:
+            finished = torch.gather(finished, 1, src) | (
+                tok2 == eos_token_id)
+        # each surviving beam's cache row, from the post-write caches
+        rows = (base + src).reshape(B * k)
+        caches = [(select_rows(kc, rows), select_rows(vc, rows))
+                  for kc, vc in caches]
+    return torch.cat([ids, beam_toks[:, 0, :]], dim=1)
+
+
 def generate(net, input_ids, max_new_tokens=32, do_sample=False,
              temperature=1.0, top_k=0, top_p=1.0, eos_token_id=None,
              seed=0, num_beams=1, cache_dtype=None):
@@ -144,18 +220,25 @@ def generate(net, input_ids, max_new_tokens=32, do_sample=False,
     dtype (bf16 by default; ``"float32"`` for exact parity with the
     cache-free forward of an fp32 net; ``"int8"`` for the quantized
     cache). Sampled row ``b`` draws as the
-    ``b``-th request of a serving engine seeded with ``seed`` would."""
+    ``b``-th request of a serving engine seeded with ``seed`` would.
+    ``num_beams > 1`` runs deterministic beam search (:func:`beam_search`)
+    and returns each row's best beam; it refuses ``do_sample``."""
     if max_new_tokens < 1:
         raise ValueError("max_new_tokens must be >= 1")
-    if num_beams > 1:
-        raise NotImplementedError(
-            "beam search is not ported yet (greedy and sampling are)"
+    if num_beams > 1 and do_sample:
+        raise ValueError(
+            "num_beams > 1 is deterministic beam search; combine with "
+            "do_sample=False (sampled beam search is not implemented)"
         )
     from ..serving.sampling_keys import SamplingKeySource
 
     dev = net.device
     ids = _as_ids(input_ids, dev)
     B, S = int(ids.shape[0]), int(ids.shape[1])
+    if num_beams > 1:
+        with torch.inference_mode():
+            return beam_search(net, ids, int(max_new_tokens), num_beams,
+                               eos_token_id, cache_dtype)
     keys = None
     if do_sample:
         src = SamplingKeySource(seed)

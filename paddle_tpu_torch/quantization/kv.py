@@ -19,6 +19,10 @@ copy of a multi-gigabyte arena is made per step. The prefix cache's
 :func:`gather_block_from_pages` writes arena pages into the bucket's
 pooled prefill block in place too, where the JAX one returns a new
 block; the arena is only read, so shared pages survive either way.
+Speculative decoding's :func:`slab_row_block` copies a slab row into a
+block in place, and :func:`broadcast_rows` returns a copy, not a
+broadcast view: the verify's re-read writes each row (a write through a
+view would land in every row).
 """
 from __future__ import annotations
 
@@ -153,6 +157,42 @@ def read_dense(cache, dtype):
     if is_quantized(cache):
         return dequantize_kv(cache.q, cache.scale, dtype)
     return cache
+
+
+def slab_row_block(cache, slot, out):
+    """The inverse of :func:`adopt_into_slab` (``kv.py:196``): row
+    ``slot`` (a one-element int64 device tensor) of a decode slab copied
+    into the ``[1, S, ...]`` block ``out`` in place (the speculative
+    gather program's pooled block); returns ``out``."""
+    ids = slot.long()
+    if is_quantized(cache):
+        torch.index_select(cache.q, 0, ids, out=out.q)
+        torch.index_select(cache.scale, 0, ids, out=out.scale)
+        return out
+    torch.index_select(cache, 0, ids, out=out)
+    return out
+
+
+def broadcast_rows(cache, n):
+    """``[1, S, ...]`` block -> ``[n, S, ...]``, every row a copy of it
+    (``kv.py:208``): the speculative verify's re-read gives each scored
+    position its own batch row over the same written content. Each row
+    is its own storage, as each broadcast row is its own value in JAX:
+    the re-read writes row j's token at its own position only."""
+    if is_quantized(cache):
+        return QuantizedKV(
+            cache.q.expand((n,) + tuple(cache.q.shape[1:])).contiguous(),
+            cache.scale.expand(
+                (n,) + tuple(cache.scale.shape[1:])).contiguous())
+    return cache.expand((n,) + tuple(cache.shape[1:])).contiguous()
+
+
+def select_rows(cache, rows):
+    """Batch rows ``rows`` (an int64 tensor) of a cache, a new cache:
+    beam search reorders its caches by surviving beam (``a[rows]``)."""
+    if is_quantized(cache):
+        return QuantizedKV(cache.q[rows], cache.scale[rows])
+    return cache[rows]
 
 
 # ------------------------------------------------------------ adoption

@@ -27,9 +27,14 @@ logits.
 
 Greedy token streams equal ``generate`` on the same net and cache dtype.
 The paged engine adds the prefix cache on top (``paged_engine.py``).
-What the JAX engine adds around this core (live reload, the AOT
-executable cache, tracing spans, speculative decoding, beam search,
-sessions, remote prefill) is not ported yet (``ROADMAP.md`` queue A).
+``speculative=`` (a :class:`~.speculative.SpeculativeDecoder`) replaces
+the decode step by one propose-and-verify round per row, through the
+four backend seams below (``_spec_reserve``, ``_spec_gather``,
+``_spec_adopt``, ``_spec_rollback``); ``warmup()`` then also captures its
+programs. Beam search is ``generate(num_beams=)``'s
+(``models/generation.py``). What the JAX engine adds around this core
+(live reload, the AOT executable cache, tracing spans, sessions, remote
+prefill) is not ported yet (``ROADMAP.md`` queue A item 1).
 """
 from __future__ import annotations
 
@@ -44,10 +49,10 @@ from ..models.generation import (
     decode_step,
     prefill,
 )
-from ..quantization.kv import adopt_into_slab
+from ..quantization.kv import adopt_into_slab, slab_row_block
 from .kv_pool import KVCachePool
 from .metrics import ServingMetrics
-from .programs import BASE_KINDS, TRACE_KEYS, Programs
+from .programs import BASE_KINDS, SPEC_KINDS, TRACE_KEYS, Programs
 from .sampling_keys import SamplingKeySource
 from .scheduler import (
     CANCELLED,
@@ -92,13 +97,16 @@ class ServingEngine:
     (``sampling_keys``), so streams reproduce per ``seed``. ``graphs``
     (default True) runs the steps as fixed-shape programs, CUDA graphs
     on a card; False runs them eagerly. ``weights_version`` (default
-    ``"v0"``) names the weights the engine serves."""
+    ``"v0"``) names the weights the engine serves. ``speculative`` (a
+    :class:`~.speculative.SpeculativeDecoder`) is bound here and decodes
+    every row by propose-and-verify rounds."""
 
     def __init__(self, net, *, max_batch_size=8, max_seq_len=256,
                  cache_dtype=None, do_sample=False, temperature=1.0,
                  top_k=0, top_p=1.0, seed=0, min_bucket=16,
                  max_queue_size=64, max_tokens_in_flight=None,
-                 clock=time.monotonic, graphs=True, weights_version=None):
+                 clock=time.monotonic, graphs=True, weights_version=None,
+                 speculative=None):
         self.net = net.eval()
         self.config = net.config
         self.device = net.device
@@ -126,9 +134,12 @@ class ServingEngine:
         self._seqs = [None] * self.max_batch_size
         self.step_count = 0
         self._closed = False
+        self.speculative = speculative
         self._init_kv_backend()
         self._programs = Programs(self.device, self._program_kinds())
         self._net_key = None
+        if speculative is not None:
+            speculative.bind(self)
 
     # ------------------------------------------------------- KV backend
     def _init_kv_backend(self):
@@ -146,6 +157,8 @@ class ServingEngine:
         return self._slab.claim()
 
     def _release_slot(self, slot):
+        if self.speculative is not None:
+            self.speculative.reset_slot(slot)
         self._slab.release(slot)
 
     def _adopt_body(self, blk):
@@ -192,10 +205,94 @@ class ServingEngine:
         table = self._decode_table()
         return (tok, pos) if table is None else (tok, pos, table)
 
+    # ------------------------------------- speculative backend seams
+    #
+    # speculative.SpeculativeDecoder drives its verify through these
+    # four hooks. On the slab every row owns its whole span, so reserve
+    # always succeeds and rollback is free (the rejected tail's KV sits
+    # behind the position mask until the row overwrites it); the paged
+    # engine overrides them with demand-claimed pages.
+
+    def _spec_reserve(self, slot, hi):
+        """Hold KV capacity for verify writes up to position ``hi``;
+        returns the highest position held (clamped below ``hi`` when the
+        backend cannot cover it)."""
+        return min(hi, self.max_seq_len - 1)
+
+    def _spec_gather(self, slot, hi):
+        """Row ``slot``'s KV, positions [0, ``hi``] at least, as the pooled
+        prefill-layout block the verify runs over: here the whole slab
+        row, ``[1, max_seq_len]`` (the ``spec_gather`` program, the slot
+        a device input). Returns the block, live; the caller frees it."""
+        blk = self.pool.alloc(self.max_seq_len)
+        try:
+            with torch.inference_mode():
+                self._run_program(("spec_gather",),
+                                  lambda: self._build_spec_gather(blk),
+                                  np.array([slot], np.int64))
+        except BaseException:
+            self.pool.free(blk)
+            raise
+        return blk
+
+    def _build_spec_gather(self, blk):
+        caches = self._caches
+        inputs = [torch.zeros((1,), dtype=torch.int64, device=self.device)]
+
+        def body(slot):
+            for (sk, sv), (bk, bv) in zip(caches, blk.caches):
+                slab_row_block(sk, slot, bk)
+                slab_row_block(sv, slot, bv)
+            return ()
+        return body, inputs, (caches, blk.caches)
+
+    def _spec_adopt(self, slot, blk, pos):
+        """Land the verify-written block back as row ``slot``'s KV, through
+        the adopt program admission uses (positions below ``pos`` come
+        back unchanged)."""
+        self._run_adopt(blk, np.array([slot], np.int64))
+
+    def _spec_rollback(self, slot, new_pos):
+        """Drop verify writes past the accepted span (the row's next token
+        feeds at ``new_pos``): free on the slab."""
+
+    def _verify_widths(self, buckets):
+        """The block widths a verify sees: the slab gathers every row at
+        full width (the paged engine: its bucket ladder)."""
+        return [self.max_seq_len]
+
+    def _warm_spec_gather(self, buckets):
+        """Capture the gather the speculative round runs before each
+        verify, and the full-width adopt after it."""
+        blk = self.pool.alloc(self.max_seq_len)
+        try:
+            return (self._programs.warm(
+                        ("spec_gather",), lambda: self._build_spec_gather(blk),
+                        np.zeros((1,), np.int64))
+                    + self._programs.warm(
+                        ("adopt", blk.bucket), lambda: self._build_adopt(blk),
+                        self._adopt_zeros(blk)))
+        finally:
+            self.pool.free(blk)
+
     # ------------------------------------------------------- programs
     def _program_kinds(self):
         """The program kinds this engine captures (and counts)."""
-        return BASE_KINDS
+        if self.speculative is None:
+            return BASE_KINDS
+        return BASE_KINDS + ("spec_gather",) + SPEC_KINDS
+
+    def _run_program(self, key, build, *arrays):
+        """Call the program ``key`` on ``arrays`` (numpy) or, with
+        ``graphs=False``, run its body eagerly on device copies of them;
+        the caller holds ``inference_mode``."""
+        if self.graphs:
+            self._check_net()
+            return self._programs.run(key, build, *arrays)
+        body, inputs, _ = build()
+        for t, a in zip(inputs, arrays):
+            t.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+        return body(*inputs)
 
     def _check_net(self):
         """A change of ``net.fusions`` (or of ``net.training``) on a live
@@ -203,7 +300,7 @@ class ServingEngine:
         it, stale: they are captured again at their next call."""
         key = (self.net.fusions, self.net.training)
         if key != self._net_key:
-            self._programs.drop(("decode", "prefill", "chunk"))
+            self._programs.drop(("decode", "prefill", "chunk") + SPEC_KINDS)
             self._net_key = key
 
     def _keep(self):
@@ -247,9 +344,11 @@ class ServingEngine:
         """Captures by program kind, under the JAX trace guard's keys
         (``serving::decode_step``, ``serving::prefill``,
         ``serving::adopt``; a prefix-cache engine adds
-        ``serving::gather_pages`` and ``serving::chunk_prefill``); a
-        program captured again after a change of ``net.fusions`` counts
-        again."""
+        ``serving::gather_pages`` and ``serving::chunk_prefill``; a
+        speculative one ``serving::spec_draft_prefill``,
+        ``serving::spec_draft_decode``, ``serving::spec_verify`` and its
+        gather, ``serving::spec_gather`` on the slab); a program captured
+        again after a change of ``net.fusions`` counts again."""
         return dict(self._programs.counts)
 
     def warmup(self, aot_cache=None, buckets=None):
@@ -259,9 +358,11 @@ class ServingEngine:
         on zero inputs (so the decode step writes only the garbage page
         0 or free slab rows, the prefill only its pooled block, the
         adopt only page 0 or the free row 0), then is captured; programs
-        already captured are skipped. Returns ``{"programs", "aot_hits",
-        "aot_saves"}`` as the JAX ``warmup`` does; ``programs`` is 0 with
-        ``graphs=False``. The engine must be idle."""
+        already captured are skipped. A speculative engine then captures
+        the speculative inventory (``SpeculativeDecoder.warmup``). Returns
+        ``{"programs", "aot_hits", "aot_saves"}`` as the JAX ``warmup``
+        does; ``programs`` is 0 with ``graphs=False``. The engine must be
+        idle."""
         if self._closed:
             raise RuntimeError(f"{type(self).__name__} is closed")
         if aot_cache is not None:
@@ -277,13 +378,14 @@ class ServingEngine:
                 "free rows)")
         self._check_net()
         b = self.max_batch_size
+        if buckets is None:
+            buckets = self._warmup_buckets()
         with torch.inference_mode():
             # an idle engine's page table is all zeros
             warmed = [self._programs.warm(
                 ("decode",), self._build_decode, *self._decode_arrays(
                     np.zeros((b, 1), np.int64), np.zeros((b,), np.int32)))]
-            for bucket in (self._warmup_buckets() if buckets is None
-                           else buckets):
+            for bucket in buckets:
                 blk = self.pool.alloc(bucket)
                 try:
                     warmed.append(self._programs.warm(
@@ -296,8 +398,17 @@ class ServingEngine:
                         self._adopt_zeros(blk)))
                 finally:
                     self.pool.free(blk)
+            warmed.append(self._warm_more(buckets))
+            if self.speculative is not None:
+                warmed.append(self.speculative.warmup(self, buckets))
         stats["programs"] = sum(warmed)
         return stats
+
+    def _warm_more(self, buckets):
+        """The programs an engine adds to the base inventory before the
+        speculative ones (the paged engine's prefix cache); returns how
+        many it captured."""
+        return 0
 
     def _warmup_buckets(self):
         """Every prompt bucket the pool admits (``engine.py:936``):
@@ -507,9 +618,17 @@ class ServingEngine:
 
     def _decode_once(self):
         """One decode step over every row (free rows are masked garbage
-        whose writes land on slots that adoption overwrites)."""
+        whose writes land on slots that adoption overwrites); under
+        speculation, one propose-and-verify round per row instead."""
         active = [i for i, s in enumerate(self._seqs) if s is not None]
         if not active:
+            return
+        if self.speculative is not None:
+            t0 = self.clock()
+            with torch.inference_mode():
+                n = self.speculative.decode_once(self)
+            self.metrics.decode_step_time.observe(self.clock() - t0)
+            self.metrics.decode_tokens.inc(n)
             return
         tok = np.zeros((self.max_batch_size, 1), np.int64)
         pos = np.zeros((self.max_batch_size,), np.int32)
@@ -592,4 +711,6 @@ class ServingEngine:
             self._release_slot(i)
             h._fire_terminal()
         self._programs.drop(tuple(TRACE_KEYS))
+        if self.speculative is not None:
+            self.speculative.unbind()
         self._caches = None

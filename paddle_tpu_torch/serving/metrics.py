@@ -112,6 +112,15 @@ class ServingMetrics:
         self.decode_step_time = Histogram("decode_step_time")
         self.queue_depth = Histogram("queue_depth", unit="reqs")
         self.slot_occupancy = Histogram("slot_occupancy", unit="slots")
+        # speculative decoding (speculative.py): one round is one draft
+        # proposal pass and one target verify launch
+        self.spec_rounds = Counter("speculative_rounds")
+        self.spec_proposed = Counter("speculative_proposed_tokens")
+        self.spec_accepted = Counter("speculative_accepted_tokens")
+        # tokens emitted a round: the accepted prefix and the correction
+        # or bonus token (a mean above 1 is the whole win)
+        self.spec_accept_length = Histogram("speculative_accept_length",
+                                            unit="toks")
 
     def observe_step(self, queue_depth, active_slots):
         self.queue_depth.observe(queue_depth)
@@ -126,7 +135,12 @@ class ServingMetrics:
         }
         counters["rejected_by_reason"] = self.rejected.by_label()
         counters["sheds_by_reason"] = self.sheds.by_label()
-        out = {"counters": counters}
+        counters["speculative_rounds"] = self.spec_rounds.value
+        counters["speculative_proposed"] = self.spec_proposed.value
+        counters["speculative_accepted"] = self.spec_accepted.value
+        out = {"counters": counters,
+               "speculative_accept_length":
+                   self.spec_accept_length.snapshot()}
         for name in ("ttft", "itl", "e2e", "queue_wait", "prefill_time",
                      "warm_prefill_time", "decode_step_time", "queue_depth",
                      "slot_occupancy"):

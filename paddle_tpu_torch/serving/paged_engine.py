@@ -39,13 +39,21 @@ it crosses a page boundary, evicting cold cached pages (leaf-first LRU)
 if it must, and a claim that still fails sheds that request with
 ``pages_exhausted``.
 
+**Speculative decoding** (``speculative=``, ``speculative.py``): a
+round gathers the row's pages into the bucket's pooled block (the gather
+program above), verifies there and adopts back only the pages at or
+above ``pos // page_size``, so a shared prefix page is never written.
+Under demand paging the verify's pages are claimed before the round
+(evicting if it must; under pressure the round clamps its proposals
+instead of shedding anyone) and the rejected tail's pages are released
+after it (``spec_pages_claimed``, ``spec_pages_rolled_back``).
+
 Every step is one of the engine's fixed-shape programs, CUDA graphs on a
 card (``programs.py``; the page table, page ids, tail ids and ``c`` are
 their device inputs), and ``warmup()`` captures them all before traffic.
 A failing program raises: the admission releases what it claimed, and
 nothing falls back to another path. Not ported: KV tiering, sessions,
-remote prefill, live reload, speculative decoding and beam search
-(``ROADMAP.md`` queue A item 1).
+remote prefill and live reload (``ROADMAP.md`` queue A item 1).
 """
 from __future__ import annotations
 
@@ -59,7 +67,7 @@ from ..quantization.kv import adopt_into_pages, gather_block_from_pages
 from .engine import ServingEngine
 from .paged_pool import PagedKVPool, PagesExhausted
 from .prefix_cache import PrefixCache
-from .programs import BASE_KINDS
+from .programs import BASE_KINDS, SPEC_KINDS
 from .scheduler import CANCELLED, REASON_PAGES_EXHAUSTED
 
 
@@ -79,7 +87,7 @@ class PagedServingEngine(ServingEngine):
                  max_tokens_in_flight=None, max_prefills_per_step=1,
                  clock=time.monotonic, graphs=True, weights_version=None,
                  page_pool=None, prefix_cache=None, demand_paging=None,
-                 kv_tiering=None):
+                 kv_tiering=None, speculative=None):
         ps = int(page_size)
         if ps < 1 or (ps & (ps - 1)):
             raise ValueError(
@@ -123,6 +131,7 @@ class PagedServingEngine(ServingEngine):
             min_bucket=min_bucket, max_queue_size=max_queue_size,
             max_tokens_in_flight=max_tokens_in_flight, clock=clock,
             graphs=graphs, weights_version=weights_version,
+            speculative=speculative,
         )
 
     # ------------------------------------------------------- KV backend
@@ -166,11 +175,20 @@ class PagedServingEngine(ServingEngine):
         # (prompt tokens, prompt_len) of each row, for publishing
         self._row_meta = [None] * self.max_batch_size
         self._free_rows = list(range(self.max_batch_size))[::-1]
+        # the verify pages of speculative rounds: every page claimed either
+        # stays with the accepting request or comes back on rollback
+        self.spec_pages_claimed = 0
+        self.spec_pages_rolled_back = 0
 
     def _program_kinds(self):
-        if self.prefix_cache is None:
-            return BASE_KINDS
-        return BASE_KINDS + ("gather", "chunk")
+        kinds = BASE_KINDS
+        if self.prefix_cache is not None or self.speculative is not None:
+            kinds += ("gather",)
+        if self.prefix_cache is not None:
+            kinds += ("chunk",)
+        if self.speculative is not None:
+            kinds += SPEC_KINDS
+        return kinds
 
     @property
     def free_rows(self):
@@ -187,6 +205,8 @@ class PagedServingEngine(ServingEngine):
                 > self.page_pool.num_pages)
 
     def _release_slot(self, slot):
+        if self.speculative is not None:
+            self.speculative.reset_slot(slot)
         pages = self._row_pages[slot]
         meta = self._row_meta[slot]
         if (pages and meta is not None and self.prefix_cache is not None
@@ -483,36 +503,120 @@ class PagedServingEngine(ServingEngine):
             self.prefix_cache.cow_clones.inc()
         return t0, blk
 
-    def warmup(self, aot_cache=None, buckets=None):
-        """The base inventory (decode step, a prefill and an adopt per
-        bucket), then with a prefix cache a gather per bucket and a chunk
-        prefill per (bucket, tail bucket), in the JAX engine's order
-        (``paged_engine.py:965-1013``); 17 + 8 + 36 programs at 2048
-        slots from bucket 16."""
-        stats = super().warmup(aot_cache=aot_cache, buckets=buckets)
-        if self.prefix_cache is None or not self.graphs:
-            return stats
-        warmed = []
+    def _warm_more(self, buckets):
+        """With a prefix cache, a gather per bucket and a chunk prefill per
+        (bucket, tail bucket) after the base inventory, in the JAX
+        engine's order (``paged_engine.py:965-1013``); 17 + 8 + 36
+        programs at 2048 slots from bucket 16."""
+        if self.prefix_cache is None:
+            return 0
+        warmed = 0
+        for b in buckets:
+            blk = self.pool.alloc(b)
+            try:
+                warmed += self._warm_gather(blk)
+                for tb in self._tail_buckets(blk.bucket):
+                    warmed += self._programs.warm(
+                        ("chunk", blk.bucket, tb),
+                        lambda: self._build_chunk(blk, tb),
+                        np.zeros((1, tb), np.int64),
+                        np.zeros((1,), np.int32))
+            finally:
+                self.pool.free(blk)
+        return warmed
+
+    def _warm_gather(self, blk):
+        return self._programs.warm(
+            ("gather", blk.bucket), lambda: self._build_gather(blk),
+            np.zeros((blk.bucket // self.page_size,), np.int64))
+
+    # ------------------------------------- speculative backend seams
+    def _verify_widths(self, buckets):
+        """Paged verify blocks are the bucketed gathers: a verify program
+        per bucket."""
+        return list(buckets)
+
+    def _warm_spec_gather(self, buckets):
+        """The round's gather per bucket: the prefix cache's gather
+        programs (already captured when it is attached)."""
+        warmed = 0
+        for b in buckets:
+            blk = self.pool.alloc(b)
+            try:
+                warmed += self._warm_gather(blk)
+            finally:
+                self.pool.free(blk)
+        return warmed
+
+    def _spec_reserve(self, slot, hi):
+        """Claim pages so row ``slot`` holds KV through position ``hi``
+        (the verify writes ``[pos, hi]``), appended to the row's pages and
+        table like any demand growth (evicting cold cached pages if it
+        must). Under page pressure the round clamps to what the pool
+        covers, at worst the row's current position (a one-token verify),
+        instead of shedding anyone."""
+        hi = min(hi, self.max_seq_len - 1)
+        pages = self._row_pages[slot]
         ps = self.page_size
-        with torch.inference_mode():
-            for b in (self._warmup_buckets() if buckets is None
-                      else buckets):
-                blk = self.pool.alloc(b)
-                try:
-                    warmed.append(self._programs.warm(
-                        ("gather", blk.bucket),
-                        lambda: self._build_gather(blk),
-                        np.zeros((blk.bucket // ps,), np.int64)))
-                    for tb in self._tail_buckets(blk.bucket):
-                        warmed.append(self._programs.warm(
-                            ("chunk", blk.bucket, tb),
-                            lambda: self._build_chunk(blk, tb),
-                            np.zeros((1, tb), np.int64),
-                            np.zeros((1,), np.int32)))
-                finally:
-                    self.pool.free(blk)
-        stats["programs"] += sum(warmed)
-        return stats
+        while hi // ps >= len(pages):
+            try:
+                new = self._claim_pages(1)
+            except PagesExhausted:
+                break
+            self._tables[slot, len(pages)] = new[0]
+            pages.append(new[0])
+            self.spec_pages_claimed += 1
+        return min(hi, len(pages) * ps - 1)
+
+    def _spec_gather(self, slot, hi):
+        """Row ``slot``'s pages as the pooled block of the bucket that
+        covers position ``hi`` (the prefix cache's gather program; ids
+        past the row's pages read the garbage page 0, masked). Returns
+        the block, live; the caller frees it."""
+        ps = self.page_size
+        blk = self.pool.alloc(hi + 1)
+        try:
+            pages = self._row_pages[slot]
+            src = np.zeros((blk.bucket // ps,), np.int64)
+            n = min(len(pages), blk.bucket // ps)
+            src[:n] = pages[:n]
+            with torch.inference_mode():
+                self._run_program(("gather", blk.bucket),
+                                  lambda: self._build_gather(blk), src)
+        except BaseException:
+            self.pool.free(blk)
+            raise
+        return blk
+
+    def _spec_adopt(self, slot, blk, pos):
+        """Scatter the verify-written block back: only the pages the verify
+        may have written (index >= ``pos // page_size``, all the row's
+        own: ``pos >= prompt_len`` and shared prefix pages end at the
+        prompt's last full page). The ids below go to the garbage page 0,
+        so a shared page is never written, even with equal bytes."""
+        ps = self.page_size
+        pages = self._row_pages[slot]
+        ids = np.zeros((blk.bucket // ps,), np.int64)
+        lo = pos // ps
+        n = min(len(pages), blk.bucket // ps)
+        ids[lo:n] = pages[lo:n]
+        self._run_adopt(blk, ids)
+
+    def _spec_rollback(self, slot, new_pos):
+        """Release the rejected tail's pages (past the page that holds
+        ``new_pos``) and zero their table entries. Without demand paging
+        the row keeps its whole span."""
+        if not self._demand_paging:
+            return
+        pages = self._row_pages[slot]
+        keep = new_pos // self.page_size + 1
+        if len(pages) <= keep:
+            return
+        tail = pages[keep:]
+        del pages[keep:]
+        self._tables[slot, keep:keep + len(tail)] = 0
+        self.page_pool.release(tail)
+        self.spec_pages_rolled_back += len(tail)
 
     # ------------------------------------------------------ the programs
     def _adopt_zeros(self, blk):

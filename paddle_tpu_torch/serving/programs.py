@@ -1,6 +1,7 @@
 """The serving engines' fixed-shape programs (the torch counterpart of the
 JAX engines' jitted decode step, prefill and adopt programs, the prefix
-cache's gather and chunk-prefill programs, and of their ``warmup()``).
+cache's gather and chunk-prefill programs, speculative decoding's draft
+and verify programs, and of their ``warmup()``).
 
 A :class:`Program` holds one body (a function of fixed-shape tensors),
 its static input tensors and, on a CUDA device, a ``torch.cuda.CUDAGraph``
@@ -48,9 +49,17 @@ TRACE_KEYS = {"decode": "serving::decode_step",
               "prefill": "serving::prefill",
               "adopt": "serving::adopt",
               "gather": "serving::gather_pages",
-              "chunk": "serving::chunk_prefill"}
+              "chunk": "serving::chunk_prefill",
+              "spec_gather": "serving::spec_gather",
+              "spec_dprefill": "serving::spec_draft_prefill",
+              "spec_ddecode": "serving::spec_draft_decode",
+              "spec_verify": "serving::spec_verify"}
 # the kinds every engine has; a prefix-cache engine adds gather and chunk
 BASE_KINDS = ("decode", "prefill", "adopt")
+# a speculative engine's: draft prefill per bucket, draft decode per row,
+# verify per (width, k1); its gather is the slab's spec_gather or the
+# paged engine's gather
+SPEC_KINDS = ("spec_dprefill", "spec_ddecode", "spec_verify")
 
 
 # device -> the one side stream every engine's warm runs and captures
@@ -149,7 +158,10 @@ class Program:
 class Programs:
     """An engine's program inventory, keyed ``(kind, bucket)`` with kind
     ``"decode"``, ``"prefill"``, ``"adopt"`` or ``"gather"``, or
-    ``("chunk", bucket, tail_bucket)``, on one device: one memory pool
+    ``("chunk", bucket, tail_bucket)``, and the speculative kinds
+    (``("spec_verify", width, k1)``, ``("spec_ddecode", row)``,
+    ``("spec_dprefill", bucket)``, ``("spec_gather",)``), on one device:
+    one memory pool
     for all of them on a card, and the device's capture stream. Counts
     its captures of ``kinds`` under the JAX trace guard's keys."""
 

@@ -18,12 +18,26 @@ into a threefry key. The port keeps the property, not the bits:
 So a sampled token is a function of (seed, admission index, position)
 and of nothing else: not of the batch size, the row a request sits in,
 or the interleaving of prefills and decode steps.
+
+Speculative decoding draws from sub-streams of a position key: a
+``purpose key`` mixes one of ``DRAFT``, ``ACCEPT`` or ``RESIDUAL`` below
+the position key, so the undecorated position key stays the vanilla
+stream, and :func:`uniform` draws the one uniform an acceptance test or
+an inverse-CDF draw needs from such a key (a CPU ``torch.Generator``,
+so the draw does not depend on the engine's device).
 """
 from __future__ import annotations
 
 import torch
 
 _MASK = (1 << 64) - 1
+
+# speculative purpose folds (any distinct constants, the JAX package's;
+# mixed below the position key, so the undecorated position key IS the
+# vanilla stream)
+DRAFT = 0x5D
+ACCEPT = 0x5E
+RESIDUAL = 0x5F
 
 
 def _splitmix64(x):
@@ -55,6 +69,21 @@ def position_key(request_key, position):
     x = _splitmix64(x ^ (int(index) & _MASK))
     x = _splitmix64(x ^ (int(position) & _MASK))
     return x >> 1
+
+
+def purpose_key(request_key, position, purpose):
+    """A speculative sub-stream (``DRAFT``, ``ACCEPT`` or ``RESIDUAL``)
+    at one position: disjoint from the vanilla stream by construction."""
+    return _splitmix64(
+        (position_key(request_key, position) ^ int(purpose)) & _MASK) >> 1
+
+
+def uniform(key):
+    """One uniform in [0, 1) from a 63-bit key (a position or purpose
+    key), drawn on the host."""
+    gen = torch.Generator()
+    gen.manual_seed(int(key))
+    return float(torch.rand((), generator=gen, dtype=torch.float64))
 
 
 def sample_rows(scaled, keys):

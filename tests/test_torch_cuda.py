@@ -36,7 +36,10 @@ replays (the same kernels on the same inputs), with its launch counts;
 a prefix engine's warm admissions (gather, chunk prefill and adopt
 graphs) bit-equal to its eager run, and one chunk capture replayed at
 two starts bit-equal to the eager chunk there and within 1e-5 of the
-largest logit of the full prefill.
+largest logit of the full prefill. A speculative engine's verify
+program (bf16, parallel; int8, sequential), captured once by
+``warmup()``, replayed at two positions over the same block: logits and
+the written block bit-equal to the eager verify body at each.
 The multi-tensor optimizer kernels: Adam/AdamW and SGD/Momentum bit for
 bit given the same stats (every operation rounded once on both sides),
 the sums of squares within 1e-6 relative (fp32 sums in another order) and
@@ -1168,6 +1171,62 @@ def test_chunk_capture_serves_every_start(dev):
             tol = 1e-5 * float(want.abs().max())
             assert float((got - want).abs().max()) <= tol, c
     assert eng.compile_counts()["serving::chunk_prefill"] == 10
+    eng.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["bfloat16", "int8"])
+def test_verify_replay_equals_eager_at_every_pos(dev, cache):
+    """One verify program ``("spec_verify", 32, 4)``, captured by
+    ``warmup()``, replayed at positions 12 and 20 over a block holding a
+    28-token prefill: each replay's logits and written block are bit-equal
+    to the eager verify body at that position (the same kernels on the
+    same inputs), and nothing is captured again."""
+    from paddle_tpu_torch.quantization.kv import is_quantized
+    from paddle_tpu_torch.serving import (PagedServingEngine,
+                                          SpeculativeDecoder)
+    from paddle_tpu_torch.serving.speculative import build_verify_body
+
+    def leaves(caches):
+        return [x for pair in caches for t in pair
+                for x in ((t.q, t.scale) if is_quantized(t) else (t,))]
+
+    net = _prefix_net(dev, torch.bfloat16)
+    spec = SpeculativeDecoder(exit_layer=1, k=3)
+    eng = PagedServingEngine(net, max_batch_size=2, max_seq_len=64,
+                             min_bucket=8, page_size=8, cache_dtype=cache,
+                             demand_paging=True, speculative=spec)
+    eng.warmup()
+    captures = eng.compile_counts()
+    rng = np.random.RandomState(7)
+    full = torch.zeros((1, 32), dtype=torch.long, device=dev)
+    full[0, :28] = torch.from_numpy(rng.randint(0, 256, (28,)))
+    blk = eng.pool.alloc(28)
+    try:
+        with torch.inference_mode():
+            net(full, caches=blk.caches, pos=0)
+            start = [x.clone() for x in leaves(blk.caches)]
+            eager_body = build_verify_body(net, blk.caches, 4,
+                                           cache == "int8")
+            for p in (12, 20):
+                ids = rng.randint(0, 256, (1, 4))
+                pos = np.array([p], np.int32)
+                for x, y in zip(leaves(blk.caches), start):
+                    x.copy_(y)
+                got = eng._programs.run(("spec_verify", 32, 4), None, ids,
+                                        pos).clone()
+                got_block = [x.clone() for x in leaves(blk.caches)]
+                for x, y in zip(leaves(blk.caches), start):
+                    x.copy_(y)
+                want = eager_body(torch.from_numpy(ids).to(dev),
+                                  torch.from_numpy(pos).to(dev))
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), p
+                assert all(torch.equal(a, b) for a, b in zip(
+                    got_block, leaves(blk.caches))), p
+    finally:
+        eng.pool.free(blk)
+    assert eng.compile_counts() == captures
     eng.close()
 
 
