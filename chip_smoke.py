@@ -182,10 +182,11 @@ with an fp32, a bf16 and an int8 cache, on the slab engine and on the
 paged engine with demand paging (pages of 4; graphs, warmed), with the
 early exit at layer 1 of 2 and with a separate 1-layer draft (k 3, 4),
 beside the vanilla engine of the same kind and cache: fp32 speculative
-streams must equal vanilla token for token, bf16 and int8 tokens must
-pass the teacher-forced check (differences and, on the slab, verify rows
-against vanilla rows at the same positions are printed), int8 must take
-the sequential verify, nothing may be captured during traffic and the
+streams must equal vanilla token for token, and the paged ones in every
+cache, whose verify rows must equal the vanilla rows at the same
+positions bit for bit (the slab's rows are printed); bf16 and int8
+tokens must pass the teacher-forced check, the slab's int8 verify must
+be the sequential one, nothing may be captured during traffic and the
 paged pools must drain after rollbacks (at least one); the last-layer
 exit must accept every proposal; sampled fp32 streams must be equal on
 slab and paged; a tiny fp32 beam search (B 2, 3 beams) on the card must
@@ -194,27 +195,49 @@ the prefix phase, the beam phase: ``generate`` on the 7B model with B 2,
 4 beams, prompt 128 and 64 new tokens beside greedy, ms a step printed,
 and the freeze with the winning beam's first token as EOS; then the spec
 phase: a paged engine with demand paging and ``SpeculativeDecoder(
-exit_layer=e, k=4)`` (``warmup()`` must capture 81 programs: 17, and per
-bucket a draft prefill, a gather and a verify for each of 1..5
-positions, and a draft decode per row) beside the serving phase's graph
+exit_layer=e, k=4)`` (``warmup()`` must capture 33 programs: 17, a
+draft prefill per bucket and a draft decode per row; the verify is one
+replay of the decode program) beside the serving phase's graph
 engine, for two legs: random weights with the exit at 8, then the same
 model with ``o_proj`` and ``down_proj`` zeroed from layer 4 on (layers
 4-31 add exact zeros, so the exit at 4 is a perfect draft); each leg
 runs 4 requests of 512 prompt and 128 new tokens one after another,
 then 8 at once, through both engines; gates: every run finishes with
 nothing captured and the arena drained, the speculative runs launch
-RMSNorm and rope the counts the structure gives (a verify is two
-forwards, a draft step one of the exit layers), every speculative token
-passes the teacher-forced check; printed: acceptance, ITL p50, tokens/s
-per request, ``decode_s``, verify rows against vanilla rows, tokens that
-differ from vanilla, pages claimed and rolled back, the warmup, and one
-replay of the verify (buckets 512 and 1024), the draft decode, the
-gather and the adopt (CUDA events). The ``kernels`` line's
-``launches_by_phase`` gains ``spec_parity``, ``spec_serving`` and
-``beam``.
+RMSNorm, rope and paged attention the counts the structure gives (a
+verify is one decode step, a draft step one forward of the exit
+layers), every speculative stream equals the vanilla one token for
+token, every verify row equals the vanilla row bit for bit, and every
+speculative token passes the teacher-forced check; printed: acceptance,
+ITL p50, the round's time, tokens/s per request, ``decode_s``, pages
+claimed and rolled back, the warmup, and one replay of the decode
+program (the verify) and of the draft decode (CUDA events). The
+``kernels`` line's ``launches_by_phase`` gains ``spec_parity``,
+``spec_serving`` and ``beam``.
 
-``--profile-steps N`` profiles N replays of the spec phase's verify
-(bucket 1024) and draft decode, and N decode steps after each serving phase
+Sessions and the KV spill tier add, after the prefix phase, the session
+phase: two paged prefix engines with ``sessions=True`` on arenas of 400
+pages (3.36 GB at 7B), one with a 4 GiB host spill tier and one that
+evicts outright, beside the serving phase's graph engine as the cold
+reference, 16 conversations of 3 turns over a 512-token system prompt
+(32-192 user tokens and 64 new a turn, seed 2468) in two waves of 8
+that alternate turn by turn, every engine on the tier engine's prompts;
+gates: every turn finishes, the launches follow the structure, nothing
+is captured during traffic, the tier spilled and restored pages with no
+refused payload and its first restores read back bit-equal, every token
+passes the teacher-forced check, the stores count 16 sessions and 48
+turns, and the arenas drain; printed: TTFT p50 and p90 of turns 2-3,
+ITL, hits, tokens saved, spills, restores, a spill's and a restore's
+milliseconds, peak pages, the stores' stats, the tokens that differ
+from the cold streams by turn, and the cached KV of wave A's first
+turns against one prefill (the chunk-written and the decode-written
+spans apart). ``launches_by_phase`` gains ``session_serving``. After
+every ``warmup()`` a ``... memory_report:`` line gives the engine's
+program count, the largest capture peak, the graph pool growth summed
+and the five largest programs.
+
+``--profile-steps N`` profiles N replays of the spec phase's decode
+program (its verify) and draft decode, and N decode steps after each serving phase
 (the graph engine's, and the bf16 and quantized eager engines'), with
 the graph's replay also timed by CUDA events, and one 1024-bucket
 prefill (three times) of the bf16, the fused and the quantized model.
@@ -2219,6 +2242,7 @@ def _prefix_parity_run(torch, np, net, cache, label, gate):
     eng = PagedServingEngine(net, cache_dtype=cache, prefix_cache=True,
                              **PREFIX_PARITY_KW)
     warmed = eng.warmup()["programs"]
+    report_memory(eng, f"prefix parity ({label})")
     captures = eng.compile_counts()
     pc, pool = eng.prefix_cache, eng.page_pool
     rng = np.random.RandomState(21)
@@ -2328,64 +2352,66 @@ SPEC_PARITY_KW = dict(max_batch_size=2, max_seq_len=64, min_bucket=8)
 
 
 class RowRecorder:
-    """Records the logits rows an engine's programs compute for its
-    requests, keyed by (request index, position of the fed token): the
-    decode step's rows of every active row, and the verify's rows with
-    the ids they were scored with (a row is a stream's row only where the
-    stream holds those ids). Installed over ``eng._programs.run`` (and the
-    decoder's ``_round``, to know the verified row) until ``remove()``."""
+    """Records the logits rows an engine computes for its requests, keyed
+    by (request index, position of the fed token): the decode step's rows
+    of every active row (``eng._programs.run`` of ``("decode",)``), and the
+    verify's rows (``eng._spec_verify``) with the ids they were scored
+    with (a row is a stream's row only where the stream holds those ids).
+    A decode replay that serves a verify (the paged engine's) is recorded
+    as the verify's. Installed until ``remove()``."""
 
     def __init__(self, eng, handles):
         self.eng = eng
         self.index = {id(h): j for j, h in enumerate(handles)}
         self.rows = {}
-        self.slot = None
+        self.in_verify = False
         run = eng._programs.run
 
         def recording_run(key, build, *arrays):
             out = run(key, build, *arrays)
-            self._record(key, arrays, out)
+            if key == ("decode",) and not self.in_verify:
+                self._record_decode(arrays, out)
             return out
 
         eng._programs.run = recording_run
-        spec = eng.speculative
-        if spec is not None:
-            round_ = spec._round
+        if eng.speculative is not None:
+            verify = eng._spec_verify
 
-            def recording_round(e, slot):
-                self.slot = slot
-                return round_(e, slot)
+            def recording_verify(slot, ids, pos):
+                self.in_verify = True
+                try:
+                    out = verify(slot, ids, pos)
+                finally:
+                    self.in_verify = False
+                self._record_verify(slot, ids, pos, out)
+                return out
 
-            spec._round = recording_round
+            eng._spec_verify = recording_verify
 
     def add(self, handles):
         self.index.update({id(h): len(self.index) + j
                            for j, h in enumerate(handles)})
 
-    def _record(self, key, arrays, out):
-        seqs = self.eng._seqs
-        if key[0] == "decode":
-            logits, pos = out[0], arrays[1]
-            for i, seq in enumerate(seqs):
-                j = None if seq is None else self.index.get(id(seq.handle))
-                if j is not None:
-                    self.rows[(j, int(pos[i]))] = (
-                        None, logits[i].float().cpu())
-        elif key[0] == "spec_verify":
-            seq = seqs[self.slot]
-            j = self.index.get(id(seq.handle))
-            if j is None:
-                return
-            ids, p = arrays[0][0], int(arrays[1][0])
-            rows = out.float().cpu()
-            for i in range(len(ids)):
-                self.rows[(j, p + i)] = ((p, tuple(int(t) for t in
-                                                   ids[:i + 1])), rows[i])
+    def _record_decode(self, arrays, out):
+        logits, pos = out[0], arrays[1]
+        for i, seq in enumerate(self.eng._seqs):
+            j = None if seq is None else self.index.get(id(seq.handle))
+            if j is not None:
+                self.rows[(j, int(pos[i]))] = (None, logits[i].float().cpu())
+
+    def _record_verify(self, slot, ids, p, out):
+        j = self.index.get(id(self.eng._seqs[slot].handle))
+        if j is None:
+            return
+        rows = out.float().cpu()
+        for i in range(ids.shape[1]):
+            self.rows[(j, p + i)] = ((p, tuple(int(t) for t in
+                                               ids[0, :i + 1])), rows[i])
 
     def remove(self):
         del self.eng._programs.run
         if self.eng.speculative is not None:
-            del self.eng.speculative._round
+            del self.eng._spec_verify
 
 
 def compare_rows(np, verify, vanilla, spec_handles, vanilla_handles):
@@ -2415,6 +2441,16 @@ def compare_rows(np, verify, vanilla, spec_handles, vanilla_handles):
             "argmax_differs": flips}
 
 
+def traffic_captures(eng):
+    """``compile_counts()`` without the key that moves during traffic: a
+    paged speculative engine's ``serving::spec_verify`` counts its verify
+    replays of the decode program, not captures."""
+    counts = eng.compile_counts()
+    if eng._spec_verify_in_arena:
+        counts.pop("serving::spec_verify", None)
+    return counts
+
+
 def _tokens_differing(np, a, b):
     return sum(int((np.asarray(x.output_ids) != np.asarray(y.output_ids))
                    .sum()) for x, y in zip(a, b))
@@ -2427,9 +2463,13 @@ def spec_parity(torch, np, dev):
     and a separate 1-layer draft, against the vanilla engine of the same
     kind and cache. Fails unless fp32 speculative streams equal vanilla
     token for token, bf16 and int8 tokens pass the teacher-forced check
-    (differences counted), int8 takes the sequential verify, nothing is
-    captured during traffic, the paged pools drain (claims == releases)
-    after rollbacks; unless the last-layer exit accepts every proposal,
+    (differences counted), the slab's int8 verify is sequential, nothing
+    is captured during traffic, the paged pools drain (claims ==
+    releases) after rollbacks; unless the paged engine's verify rows (its
+    decode program replayed over the arena) equal its vanilla rows bit
+    for bit and its streams equal vanilla's in every cache (C item 3;
+    the slab's rows are printed); unless the last-layer exit accepts
+    every proposal,
     sampled fp32 speculative streams are equal on slab and paged; and
     unless a tiny fp32 beam search on the card equals the CPU's with its
     EOS freeze. Returns the phase's launch counts."""
@@ -2460,7 +2500,8 @@ def spec_parity(torch, np, dev):
 
     def run(eng, label, record=False):
         eng.warmup()
-        captures = eng.compile_counts()
+        report_memory(eng, f"spec parity ({label})")
+        captures = traffic_captures(eng)
         hs = [eng.submit(p, m) for p, m in zip(prompts, news)]
         rec = RowRecorder(eng, hs) if record else None
         eng.run_until_idle()
@@ -2470,9 +2511,9 @@ def spec_parity(torch, np, dev):
             if h.status != "DONE" or len(h.tokens) != m:
                 fail(f"spec parity ({label}): status {h.status}, "
                      f"{len(h.tokens)} of {m} tokens")
-        if eng.compile_counts() != captures:
+        if traffic_captures(eng) != captures:
             fail(f"spec parity ({label}): captures during traffic: "
-                 f"{captures} -> {eng.compile_counts()}")
+                 f"{captures} -> {traffic_captures(eng)}")
         eng.close()
         if hasattr(eng, "page_pool"):
             st = eng.page_pool.stats()
@@ -2485,19 +2526,20 @@ def spec_parity(torch, np, dev):
     for cache in ("float32", "bfloat16", "int8"):
         for kind in ("slab", "paged"):
             van, van_rec = run(make(kind, cache), f"{kind} {cache} vanilla",
-                               record=kind == "slab")
+                               record=True)
             for mode in ("exit", "draft"):
                 label = f"{kind} {cache} {mode}"
                 spec = (SpeculativeDecoder(exit_layer=1, k=3)
                         if mode == "exit" else SpeculativeDecoder(draft, k=4))
                 eng = make(kind, cache, spec)
-                hs, rec = run(eng, label, record=kind == "slab")
+                hs, rec = run(eng, label, record=True)
                 st = spec.stats()
-                if st["sequential_verify"] != (cache == "int8"):
+                if st["sequential_verify"] != (cache == "int8"
+                                               and kind == "slab"):
                     fail(f"spec parity ({label}): sequential verify "
                          f"{st['sequential_verify']}")
                 differ = _tokens_differing(np, hs, van)
-                if cache == "float32" and differ:
+                if (cache == "float32" or kind == "paged") and differ:
                     fail(f"spec parity ({label}): {differ} tokens differ from "
                          f"the vanilla engine: "
                          f"{[h.tokens for h in hs]} != "
@@ -2512,9 +2554,12 @@ def spec_parity(torch, np, dev):
                     "rounds": st["rounds"], "proposed": st["proposed"],
                     "accepted": st["accepted"],
                     "mean_accept_length": st["mean_accept_length"]}
-                if rec is not None:
-                    res[label]["verify_rows_vs_vanilla"] = compare_rows(
-                        np, rec, van_rec, hs, van)
+                rows = compare_rows(np, rec, van_rec, hs, van)
+                res[label]["verify_rows_vs_vanilla"] = rows
+                if kind == "paged" and not (
+                        rows["rows"] and rows["rows_bit_equal"] == rows["rows"]):
+                    fail(f"spec parity ({label}): paged verify rows against "
+                         f"vanilla rows: {rows}")
     if not rolled_back:
         fail("spec parity: no paged round rolled a page back")
     # the last layer as the draft: it is the target, every proposal holds
@@ -3359,6 +3404,25 @@ def teacher_forced(torch, dev, handles, logits_of, label):
     return ties, worst_gap
 
 
+def report_memory(eng, label):
+    """``memory_report()`` after a ``warmup()``, on a line of its own: the
+    programs it lists, the largest peak allocated during a capture, the
+    graph pool growth summed, and the five programs whose first call grew
+    the reserved memory most. Fails when it is None. Returns the line's
+    numbers."""
+    rep = eng.memory_report()
+    if rep is None:
+        fail(f"{label}: memory_report() is None after warmup()")
+    progs = rep["programs"]
+    top = sorted(progs.items(), key=lambda kv: -kv[1]["graph_pool_bytes"])
+    out = {"programs": len(progs), "max_peak_bytes": rep["max_peak_bytes"],
+           "graph_pool_bytes": sum(e["graph_pool_bytes"]
+                                   for e in progs.values()),
+           "largest": dict(top[:5])}
+    log(f"{label} memory_report: " + json.dumps(out))
+    return out
+
+
 def warm_engine(torch, eng, label):
     """``warmup()`` of a graph engine before its traffic: fails unless it
     captures 1 + 2 x buckets programs (17 at 2048 slots from bucket 16)
@@ -3385,12 +3449,14 @@ def warm_engine(torch, eng, label):
         fail(f"{label}: warmup() gave {stats}, expected {want} programs")
     if eng.warmup()["programs"]:
         fail(f"{label}: a second warmup() captured programs")
+    memory = report_memory(eng, label)
     res = {"warmup_s": seconds, "programs": stats["programs"],
            "buckets": buckets, "captures": eng.compile_counts(),
            "block_bytes": block_bytes,
            "programs_alloc_bytes": torch.cuda.memory_allocated() - alloc0,
            "programs_reserved_bytes": (torch.cuda.memory_reserved()
-                                       - reserved0)}
+                                       - reserved0),
+           "memory_report": memory}
     log(f"{label} warmup: " + json.dumps(res))
     return res
 
@@ -3495,11 +3561,13 @@ def serving_phase(torch, np, dev, card, profile_steps=0):
     gc.collect()
     torch.cuda.empty_cache()
     prefix = prefix_phase(torch, np, dev, card, net, eng)
+    session = session_phase(torch, np, dev, card, net, eng)
     beam = beam_phase(torch, np, dev, card, net)
     # the perfect-draft leg zeroes layers of this net: no later phase uses
     # it (the quantized phase builds its own)
     spec = spec_phase(torch, np, dev, card, net, eng, profile_steps)
-    return graph_run["counts"], runs[0]["counts"], fused, prefix, spec, beam
+    return (graph_run["counts"], runs[0]["counts"], fused, prefix, session,
+            spec, beam)
 
 
 def fused_serving(torch, np, dev, card, net, eng, eager, cfg,
@@ -3705,6 +3773,7 @@ def prefix_phase(torch, np, dev, card, net, cold):
     t_phase = time.perf_counter()
     traffic = prefix_traffic(np, cfg)
     cold.warmup()  # the fused serving's captures were dropped
+    report_memory(cold, "prefix serving (cold)")
     eng = PagedServingEngine(net, cache_dtype="bfloat16", prefix_cache=True,
                              **ENGINE_KW)
     eager = PagedServingEngine(net, cache_dtype="bfloat16",
@@ -3727,6 +3796,7 @@ def prefix_phase(torch, np, dev, card, net, cold):
     if stats["programs"] != want_programs or eng.warmup()["programs"]:
         fail(f"prefix serving: warmup() captured {stats['programs']} "
              f"programs, expected {want_programs} once")
+    warm["memory_report"] = report_memory(eng, "prefix serving")
     log("prefix serving warmup: " + json.dumps(warm))
 
     def want_counts(run):
@@ -3817,6 +3887,305 @@ def prefix_phase(torch, np, dev, card, net, cold):
     return graph_run["counts"], runs[2]["counts"]
 
 
+# ------------------------------------------------------- session serving
+# the multi-turn phase (seed 2468): 16 conversations of 3 turns over one
+# 512-token system prompt; each turn adds 32-192 user tokens and asks 64
+# new ones. Conversations 0-7 (wave A) and 8-15 (wave B) alternate turn
+# by turn, each wave's 8 turns at once: A1, B1, A2, B2, A3, B3. The prefix
+# engines' arena holds 400 pages, so a running wave evicts the idle
+# wave's pages by its third turn.
+SESSION_SYSTEM, SESSION_CONVS, SESSION_TURNS, SESSION_NEW = 512, 16, 3, 64
+SESSION_USER = (32, 192)
+SESSION_PAGES = 400
+SESSION_TIER = {"host_budget_bytes": 4 << 30}
+# spill and restore calls timed and restores read back: the first ones
+SESSION_SAMPLE = 16
+
+
+def session_traffic(np, cfg):
+    """The system prompt and every conversation's user messages, turn by
+    turn, from seed 2468."""
+    rng = np.random.RandomState(2468)
+    system = rng.randint(0, cfg.vocab_size, (SESSION_SYSTEM,))
+    users = [[rng.randint(0, cfg.vocab_size,
+                          (int(rng.randint(SESSION_USER[0],
+                                           SESSION_USER[1] + 1)),))
+              for _ in range(SESSION_TURNS)] for _ in range(SESSION_CONVS)]
+    return system, users
+
+
+def _spans_vs_prefill(torch, eng, tokens, lo, mid, valid):
+    """The cached pages of ``tokens[:valid]`` against one prefill of the
+    same tokens into a fresh cache at the bucket of ``valid``: the
+    elements that differ in ``[lo, mid)`` (written by the warm admission's
+    chunk prefill) and in ``[mid, valid)`` (written by the decode
+    steps), with the elements compared."""
+    from paddle_tpu_torch.models.generation import alloc_kv_caches
+
+    ps = eng.page_size
+    m = eng.prefix_cache.match(tokens, valid, eng.weights_version)
+    if m.covered != valid:
+        return {"not_measured": f"covered {m.covered} of {valid}"}
+    bucket = eng.pool.bucket_for(valid)
+    ids = torch.zeros((1, bucket), dtype=torch.long, device=eng.device)
+    ids[0, :valid] = torch.as_tensor(list(tokens[:valid]), device=eng.device)
+    ref = alloc_kv_caches(eng.config, 1, bucket, eng.cache_dtype,
+                          device=eng.device)
+    with torch.inference_mode():
+        eng.net(ids, caches=ref, pos=0)
+    out = {"chunk_written": [0, 0], "decode_written": [0, 0]}
+    for i, page in enumerate(m.pages):
+        for a, r in zip(_kv_leaves(eng._caches), _kv_leaves(ref)):
+            for name, s0, s1 in (("chunk_written", lo, mid),
+                                 ("decode_written", mid, valid)):
+                s0, s1 = max(s0, i * ps), min(s1, (i + 1) * ps)
+                if s0 >= s1:
+                    continue
+                got = a[page][s0 - i * ps:s1 - i * ps]
+                want = r[0][s0:s1]
+                out[name][0] += int((got != want).sum())
+                out[name][1] += got.numel()
+    return {k: {"differ": d, "elements": n} for k, (d, n) in out.items()}
+
+
+class TierProbe:
+    """Times the first ``SESSION_SAMPLE`` spills (the arena read and the
+    store's ``put``) and restores (host clock to a sync), and reads back
+    those restored pages: each must equal the arrays the checked frame
+    gave (the frame's CRC holds them equal to the page that spilled).
+    Installed over the prefix cache's hooks until ``remove()``."""
+
+    def __init__(self, torch, eng):
+        self.torch, self.eng = torch, eng
+        pc, tier = eng.prefix_cache, eng.kv_tier
+        self.spill_ms, self.restore_ms = [], []
+        self.checked = self.mismatched = 0
+        read, put, restore = pc._read_page, tier.put, pc._restore_page
+        pending = []
+
+        def timed_read(page):
+            t0 = time.perf_counter()
+            out = read(page)
+            pending.append(time.perf_counter() - t0)
+            return out
+
+        def timed_put(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = put(*args, **kwargs)
+            dt = time.perf_counter() - t0 + (pending.pop() if pending else 0)
+            if len(self.spill_ms) < SESSION_SAMPLE:
+                self.spill_ms.append(dt * 1e3)
+            return out
+
+        def timed_restore(arrays):
+            if len(self.restore_ms) >= SESSION_SAMPLE:
+                return restore(arrays)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            page = restore(arrays)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if page is not None:
+                self.restore_ms.append(dt * 1e3)
+                back = eng._tier_read_page(page)
+                self.checked += 1
+                self.mismatched += not all(
+                    torch.equal(a, b) for a, b in zip(back, arrays))
+            return page
+
+        pc._read_page, tier.put, pc._restore_page = (
+            timed_read, timed_put, timed_restore)
+        self._restore = (pc, tier, read, put, restore)
+
+    def remove(self):
+        pc, tier, read, put, restore = self._restore
+        pc._read_page, pc._restore_page = read, restore
+        del tier.put
+
+    def numbers(self):
+        med = statistics.median
+        return {"spill_ms_p50": med(self.spill_ms) if self.spill_ms else None,
+                "restore_ms_p50": (med(self.restore_ms) if self.restore_ms
+                                   else None),
+                "spills_timed": len(self.spill_ms),
+                "restores_timed": len(self.restore_ms),
+                "restores_read_back": self.checked,
+                "restores_not_bit_equal": self.mismatched}
+
+
+def _pctl(np, xs, q):
+    return float(np.percentile(xs, q)) if xs else None
+
+
+def session_phase(torch, np, dev, card, net, cold):
+    """Multi-turn serving at Llama-2-7B bf16 (32 layers, nothing cut): two
+    paged engines of 8 rows x 2048 slots, pages of 16, an arena of
+    ``SESSION_PAGES`` pages, ``prefix_cache=True, sessions=True``, one
+    with a host spill tier (``kv_tiering=SESSION_TIER``) and one that
+    evicts outright, beside ``cold`` (the serving phase's graph engine,
+    no prefix cache: the stream reference), through the session traffic
+    wave by wave, every engine on the tier engine's prompts. Fails unless
+    every turn finishes, the launches follow the structure (a chunk
+    prefill is one forward; spills and restores launch no kernel),
+    nothing is captured during traffic, the tier spilled and restored
+    pages with no CRC refusal and every sampled restore read back
+    bit-equal, every stream passes the teacher-forced check, the session
+    stores counted 16 sessions and 48 turns, and the arenas drain.
+    Prints TTFT p50 and p90 of turns 2-3, ITL p50, hits, tokens saved,
+    pages spilled, restored and dropped, the spill's and the restore's
+    milliseconds, peak pages, the stores' stats, and for C item 4 the
+    tokens that differ from the cold engine's streams by turn (turn 1's
+    warm hits cover prompt pages only, written by a prefill or a chunk
+    prefill; turns 2-3 also cover decode-written pages), with the cached
+    KV of wave A's first turns against one prefill (chunk-written and
+    decode-written spans apart). Returns the tier engine's launch
+    counts."""
+    import gc
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.serving import PagedServingEngine
+    from paddle_tpu_torch.serving.metrics import ServingMetrics
+
+    cfg = net.config
+    layers = cfg.num_hidden_layers
+    t_phase = time.perf_counter()
+    system, users = session_traffic(np, cfg)
+    kw = dict(ENGINE_KW, cache_dtype="bfloat16", num_pages=SESSION_PAGES,
+              prefix_cache=True, sessions=True)
+    engines = {"tier": PagedServingEngine(net, kv_tiering=SESSION_TIER,
+                                          **kw),
+               "no tier": PagedServingEngine(net, **kw)}
+    log(f"session serving: arenas of {SESSION_PAGES} pages x 16 slots, "
+        f"{engines['tier'].page_pool.arena_bytes() / 1e9:.2f} GB each; "
+        f"host tier budget {SESSION_TIER['host_budget_bytes'] / 2**30} GiB")
+    warm = {}
+    for name, eng in engines.items():
+        t0 = time.perf_counter()
+        warm[name] = {"programs": eng.warmup()["programs"],
+                      "warmup_s": time.perf_counter() - t0,
+                      "memory_report": report_memory(
+                          eng, f"session serving ({name})")}
+    all_engines = dict(engines, cold=cold)
+    for eng in all_engines.values():
+        eng.metrics = ServingMetrics()
+        eng.page_pool.peak_in_use = eng.page_pool.pages_in_use
+    captures = {n: e.compile_counts() for n, e in all_engines.items()}
+    handles = {n: [] for n in all_engines}  # (conv, turn, handle)
+    counts = {n: {} for n in all_engines}
+    probe = TierProbe(torch, engines["tier"])
+    convs = [np.asarray(system) for _ in range(SESSION_CONVS)]
+    kv_checks = []
+    waves = [(t, w) for t in range(SESSION_TURNS) for w in (0, 1)]
+    for turn, wave in waves:
+        ids = list(range(wave * 8, wave * 8 + 8))
+        prompts = {c: np.concatenate([convs[c], users[c][turn]])
+                   for c in ids}
+        for name, eng in all_engines.items():
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            sid = None if name == "cold" else "conv-{}"
+            hs = [eng.submit(prompts[c], SESSION_NEW, session_id=(
+                None if sid is None else sid.format(c))) for c in ids]
+            eng.run_until_idle()
+            torch.cuda.synchronize()
+            for k, v in kernels.launch_counts().items():
+                counts[name][k] = counts[name].get(k, 0) + v
+            for c, h in zip(ids, hs):
+                if h.status != "DONE" or len(h.tokens) != SESSION_NEW:
+                    fail(f"session serving ({name}): conversation {c} turn "
+                         f"{turn + 1}: {h.status} ({h.reason}), "
+                         f"{len(h.tokens)} tokens")
+                handles[name].append((c, turn, h))
+        for c, h in zip(ids, [h for c_, t_, h in handles["tier"][-8:]]):
+            convs[c] = np.asarray(h.output_ids)
+        if turn == 0 and wave == 0:
+            eng = engines["tier"]
+            for c, h in zip(ids, [h for _, _, h in handles["tier"][-8:]]):
+                p = h.request.prompt_len
+                kv_checks.append(dict(
+                    conversation=c, prompt_len=p,
+                    admission="cold" if c == ids[0] else "warm",
+                    tail_bucket=min(b for b in eng._tail_buckets(
+                        eng.pool.bucket_for(p)) if b >= p - SESSION_SYSTEM),
+                    **_spans_vs_prefill(torch, eng, h.output_ids,
+                                        SESSION_SYSTEM, p,
+                                        p + SESSION_NEW - 1)))
+    probe.remove()
+    res = {"card": card,
+           "model": f"Llama-2-7B, {layers} layers, bf16, random weights",
+           "conversations": SESSION_CONVS, "turns": SESSION_TURNS,
+           "system_prompt": SESSION_SYSTEM, "new_tokens": SESSION_NEW,
+           "arena_pages": SESSION_PAGES, "warmup": warm,
+           "tier_probe": probe.numbers(), "engines": {},
+           "decode_vs_chunk_kv_wave_a_turn_1": kv_checks}
+    for name, eng in all_engines.items():
+        m = eng.metrics
+        by_turn = {}
+        for c, t, h in handles[name]:
+            by_turn.setdefault(t, []).append(h.first_token_time
+                                             - h.submit_time)
+        late = by_turn.get(1, []) + by_turn.get(2, [])
+        fwd = m.decode_step_time.count + m.prefill_time.count
+        want = {k: 0 for k in counts[name]}
+        want.update(rms_norm=(2 * layers + 1) * fwd, rope=layers * fwd,
+                    paged_attention=layers * m.decode_step_time.count)
+        if counts[name] != want:
+            fail(f"session serving ({name}): launches {counts[name]}, "
+                 f"expected {want}")
+        if eng.compile_counts() != captures[name]:
+            fail(f"session serving ({name}): captures during traffic: "
+                 f"{captures[name]} -> {eng.compile_counts()}")
+        differ = {}
+        if name != "cold":
+            for (c, t, h), (c2, t2, h2) in zip(handles[name],
+                                                handles["cold"]):
+                n = int((np.asarray(h.output_ids)
+                         != np.asarray(h2.output_ids)).sum())
+                d = differ.setdefault(f"turn {t + 1}", {
+                    "tokens": 0, "streams": 0})
+                d["tokens"] += n
+                d["streams"] += n > 0
+        r = {"ttft_turns_2_3_p50_s": _pctl(np, late, 50),
+             "ttft_turns_2_3_p90_s": _pctl(np, late, 90),
+             "ttft_turn_1_p50_s": _pctl(np, by_turn[0], 50),
+             "itl_p50_s": m.itl.percentile(50),
+             "prefill_p50_s": m.prefill_time.percentile(50),
+             "warm_prefill_p50_s": m.warm_prefill_time.percentile(50),
+             "decode_s": m.decode_step_time.sum,
+             "peak_pages_in_use": eng.page_pool.peak_in_use,
+             "tokens_differing_from_cold": differ}
+        if name != "cold":
+            ties, gap = teacher_forced(torch, dev,
+                                       [h for _, _, h in handles[name]],
+                                       lambda ids: net(ids)[0],
+                                       f"session serving ({name})")
+            st = eng.sessions.stats()
+            if st["created"] != SESSION_CONVS or st["turns"] != len(
+                    handles[name]):
+                fail(f"session serving ({name}): session store {st}")
+            r.update(prefix=eng.prefix_cache.stats(), sessions=st,
+                     near_ties=ties, near_tie_max_gap=gap)
+        res["engines"][name] = r
+    tier = res["engines"]["tier"]["prefix"]["tier"]
+    if not (sum(tier["spills"].values()) and sum(tier["restores"].values())) \
+            or tier["crc_refused"] or tier["stale_refused"]:
+        fail(f"session serving: the tier spilled and restored nothing, or "
+             f"refused a payload: {tier}")
+    if not probe.checked or probe.mismatched:
+        fail(f"session serving: restored pages read back: {probe.numbers()}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log("session serving: " + json.dumps(res))
+    for eng in engines.values():
+        eng.close()
+        st = eng.page_pool.stats()
+        if st["pages_in_use"] or st["claims"] != st["releases"]:
+            fail(f"session serving: not drained after close: {st}")
+    del engines, all_engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts["tier"]
+
+
 # ------------------------------------------------------- spec serving
 # the speculative phase (seed 5150): prompts of 512 tokens, 128 new tokens
 # each; at concurrency 1, 4 requests one after another, then 8 at once;
@@ -3835,7 +4204,8 @@ def drive_spec(torch, np, eng, prompts, conc1, label, rec=None):
     once, ``SPEC_NEW`` tokens each; launch counts zeroed just before and
     read just after. Fails unless every request finishes, nothing is
     captured and no page stays in use. Returns the handles, the counts
-    and the numbers it prints."""
+    and the numbers it prints (a speculative run also the round's host
+    time, p50, and its verify replays)."""
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.serving.metrics import ServingMetrics
 
@@ -3845,7 +4215,8 @@ def drive_spec(torch, np, eng, prompts, conc1, label, rec=None):
         spec.reset_stats()
         claimed0 = eng.spec_pages_claimed
         rolled0 = eng.spec_pages_rolled_back
-    captures = eng.compile_counts()
+    captures = traffic_captures(eng)
+    replays0 = eng.compile_counts().get("serving::spec_verify", 0)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -3866,9 +4237,9 @@ def drive_spec(torch, np, eng, prompts, conc1, label, rec=None):
         if h.status != "DONE" or len(h.tokens) != SPEC_NEW:
             fail(f"{label}: status {h.status} ({h.reason}), "
                  f"{len(h.tokens)} tokens")
-    if eng.compile_counts() != captures:
+    if traffic_captures(eng) != captures:
         fail(f"{label}: captures during traffic: {captures} -> "
-             f"{eng.compile_counts()}")
+             f"{traffic_captures(eng)}")
     if eng.page_pool.pages_in_use:
         fail(f"{label}: {eng.page_pool.pages_in_use} pages in use after "
              f"the traffic")
@@ -3886,6 +4257,9 @@ def drive_spec(torch, np, eng, prompts, conc1, label, rec=None):
         "prefills": m.prefill_time.count}
     if spec is not None:
         result["spec"] = spec.stats()
+        result["round_p50_s"] = m.decode_step_time.percentile(50)
+        result["verify_replays"] = (eng.compile_counts()[
+            "serving::spec_verify"] - replays0)
         result["spec_pages_claimed"] = eng.spec_pages_claimed - claimed0
         result["spec_pages_rolled_back"] = (eng.spec_pages_rolled_back
                                             - rolled0)
@@ -3895,36 +4269,41 @@ def drive_spec(torch, np, eng, prompts, conc1, label, rec=None):
 
 def _spec_counts(layers, exit_layer, result, counts):
     """The launches the structure gives a speculative bf16 run: a prefill
-    is one forward (RMSNorm 2L + 1, rope L), a verify two (the chunk
-    without the final norm and the re-read), a draft prefill or step one
-    forward of the exit layers; no paged attention (the verify attends
-    over the gathered block)."""
+    is one forward (RMSNorm 2L + 1, rope L), a verify one decode replay a
+    round (k + 1 positions on 8 rows: the decode step's RMSNorm, rope and
+    paged attention), a draft prefill or step one forward of the exit
+    layers over the draft's slab (no paged attention)."""
     st, e = result["spec"], exit_layer
     draft = st["draft_ingests"] + st["draft_steps"]
+    if result["verify_replays"] != st["rounds"]:
+        fail(f"spec serving: {result['verify_replays']} verify replays for "
+             f"{st['rounds']} rounds")
+    fwd = result["prefills"] + st["rounds"]
     want = {k: 0 for k in counts}
     want.update(
-        rms_norm=(result["prefills"] * (2 * layers + 1)
-                  + st["rounds"] * (4 * layers + 1) + draft * (2 * e + 1)),
-        rope=result["prefills"] * layers + st["rounds"] * 2 * layers
-        + draft * e)
+        rms_norm=fwd * (2 * layers + 1) + draft * (2 * e + 1),
+        rope=fwd * layers + draft * e,
+        paged_attention=st["rounds"] * layers)
     return want
 
 
 def spec_phase(torch, np, dev, card, net, vanilla, profile=0):
     """Speculative decoding at Llama-2-7B: a paged engine with demand
     paging and ``SpeculativeDecoder(exit_layer=e, k=4)`` (graphs, after
-    ``warmup()``: the base 17 programs, a draft prefill, a gather and 5
-    verifies per bucket and a draft decode per row) beside ``vanilla``,
-    the serving phase's graph engine, on the same requests, for each leg
-    of ``SPEC_LEGS``. Fails unless every run finishes with nothing
-    captured and the arena drained, the speculative runs launch the
-    counts the structure gives, and every speculative token passes the
-    teacher-forced check. Prints acceptance, ITL, tokens/s per request,
-    ``decode_s``, the programs' replay times, warmup, pages claimed and
-    rolled back, and the tokens that differ from vanilla; with
-    ``profile``, that many replays of the verify (bucket 1024) and of the
-    draft decode by kernel group. Returns the speculative runs' launch
-    counts, summed."""
+    ``warmup()``: the base 17 programs, a draft prefill per bucket and a
+    draft decode per row; the verify replays the decode program) beside
+    ``vanilla``, the serving phase's graph engine, on the same requests,
+    for each leg of ``SPEC_LEGS``. Fails unless every run finishes with
+    nothing captured and the arena drained, the speculative runs launch
+    the counts the structure gives, every speculative stream equals the
+    vanilla one token for token and every verify row scored with a
+    stream's tokens equals the vanilla row bit for bit (C item 3), and
+    every speculative token passes the teacher-forced check. Prints
+    acceptance, ITL, the round's time, tokens/s per request,
+    ``decode_s``, the programs' replay times (the verify is one decode
+    replay), warmup, pages claimed and rolled back; with ``profile``,
+    that many replays of the decode program and of the draft decode by
+    kernel group. Returns the speculative runs' launch counts, summed."""
     import gc
 
     from paddle_tpu_torch.serving import PagedServingEngine, SpeculativeDecoder
@@ -3957,11 +4336,11 @@ def spec_phase(torch, np, dev, card, net, vanilla, profile=0):
         warm = {"warmup_s": time.perf_counter() - t0, "programs": programs,
                 "captures": eng.compile_counts(),
                 "reserved_bytes": torch.cuda.memory_reserved() - reserved0}
-        want_programs = (1 + 2 * nb + nb + ENGINE_KW["max_batch_size"]
-                         + nb * (SPEC_K + 1) + nb)
+        want_programs = 1 + 2 * nb + nb + ENGINE_KW["max_batch_size"]
         if programs != want_programs or eng.warmup()["programs"]:
             fail(f"spec serving ({leg}): warmup() captured {programs} "
                  f"programs, expected {want_programs} once")
+        warm["memory_report"] = report_memory(eng, f"spec serving ({leg})")
         res = {"exit_layer": exit_layer, "warmup": warm}
         for conc1 in (True, False):
             group = prompts[:SPEC_CONC1] if conc1 else prompts[SPEC_CONC1:]
@@ -3984,33 +4363,40 @@ def spec_phase(torch, np, dev, card, net, vanilla, profile=0):
             ties, gap = teacher_forced(torch, dev, hs,
                                        lambda ids: net(ids)[0],
                                        f"spec serving ({leg}, {tag})")
+            differ = _tokens_differing(np, hs, van)
             res[tag] = {"vanilla": van_res, "speculative": spec_res,
-                        "tokens_differing_from_vanilla": _tokens_differing(
-                            np, hs, van),
+                        "tokens_differing_from_vanilla": differ,
                         "tokens": sum(len(h.tokens) for h in hs),
                         "near_ties": ties, "near_tie_max_gap": gap}
+            if differ:
+                fail(f"spec serving ({leg}, {tag}): {differ} tokens differ "
+                     f"from the vanilla streams")
             if conc1:
                 rv.remove()
                 rs.remove()
-                res[tag]["verify_rows_vs_vanilla"] = compare_rows(
-                    np, rs, rv, hs, van)
+                rows = compare_rows(np, rs, rv, hs, van)
+                res[tag]["verify_rows_vs_vanilla"] = rows
+                if not (rows["rows"]
+                        and rows["rows_bit_equal"] == rows["rows"]):
+                    fail(f"spec serving ({leg}, {tag}): verify rows against "
+                         f"vanilla rows: {rows}")
         st = eng.page_pool.stats()
         if st["pages_in_use"] or st["claims"] != st["releases"]:
             fail(f"spec serving ({leg}): not drained: {st}")
-        # one replay of each program of a round, CUDA events; the arena
-        # holds no live page now, so the adopt's replays write free pages
-        res["replay_ms"] = {f"{k[0]}_{'_'.join(map(str, k[1:]))}": replay_ms(
-            torch, eng._programs.get(k).graph) for k in (
-                ("spec_verify", 512, SPEC_K + 1),
-                ("spec_verify", 1024, SPEC_K + 1),
-                ("spec_ddecode", 0), ("gather", 512), ("adopt", 512),
-                ("gather", 1024), ("adopt", 1024))}
+        # one replay of each program of a round, CUDA events: the verify
+        # is one replay of the decode program (its inputs are the last
+        # round's, whose pages are free again: the replays write only
+        # free pages and the garbage page)
+        res["replay_ms"] = {"verify_decode": replay_ms(
+            torch, eng._programs.get(("decode",)).graph),
+            "spec_ddecode_0": replay_ms(
+                torch, eng._programs.get(("spec_ddecode", 0)).graph)}
         if profile:
             res["profile"] = {
-                f"{k[0]}_{'_'.join(map(str, k[1:]))}": profile_steps(
-                    torch, eng._programs.get(k).graph.replay, profile)
-                for k in (("spec_verify", 1024, SPEC_K + 1),
-                          ("spec_ddecode", 0))}
+                name: profile_steps(torch, eng._programs.get(k).graph.replay,
+                                    profile)
+                for name, k in (("verify_decode", ("decode",)),
+                                ("spec_ddecode_0", ("spec_ddecode", 0)))}
         res["pages"] = {"claimed": eng.spec_pages_claimed,
                         "rolled_back": eng.spec_pages_rolled_back}
         out[leg] = res
@@ -4456,7 +4842,7 @@ def main():
         torch, np, dev, card, args.profile_train_steps)
     (serve_counts, serve_eager_counts,
      (fused_serve_counts, fused_serve_eager_counts),
-     (prefix_counts, prefix_eager_counts), spec_counts,
+     (prefix_counts, prefix_eager_counts), session_counts, spec_counts,
      beam_counts) = serving_phase(torch, np, dev, card, args.profile_steps)
     quant_counts, quant_eager_counts = quant_serving_phase(
         torch, np, dev, card, args.profile_steps)
@@ -4486,6 +4872,7 @@ def main():
                     "fused_serving_eager": fused_serve_eager_counts[name],
                     "prefix_serving": prefix_counts[name],
                     "prefix_serving_eager": prefix_eager_counts[name],
+                    "session_serving": session_counts.get(name, 0),
                     "spec_parity": spec_parity_counts[name],
                     "spec_serving": spec_counts.get(name, 0),
                     "beam": beam_counts[name],

@@ -1,9 +1,11 @@
 """Continuous-batching serving for the port (counterpart of
 ``paddle_tpu/serving``): the slab engine, the paged engine with its
-prefix cache, speculative decoding for both, and the host-side pieces
-they share."""
+prefix cache and the KV spill tier below it, speculative decoding for
+both, sessions, and the host-side pieces they share."""
 from .engine import ServingEngine  # noqa: F401
+from .fleet.kv_transfer import TransferError  # noqa: F401
 from .kv_pool import KVBlock, KVCachePool, bucket_for  # noqa: F401
+from .kv_tiering import TieredPageStore, pack_page, unpack_page  # noqa
 from .metrics import ServingMetrics  # noqa: F401
 from .paged_engine import PagedServingEngine  # noqa: F401
 from .paged_pool import PagedKVPool, PagesExhausted  # noqa: F401
@@ -34,4 +36,5 @@ from .scheduler import (  # noqa: F401
     RequestHandle,
     Scheduler,
 )
+from .sessions import Session, SessionStore  # noqa: F401
 from .speculative import SpeculativeDecoder  # noqa: F401

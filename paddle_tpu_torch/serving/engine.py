@@ -26,15 +26,22 @@ against. Sampling runs outside the programs, on the decode step's
 logits.
 
 Greedy token streams equal ``generate`` on the same net and cache dtype.
-The paged engine adds the prefix cache on top (``paged_engine.py``).
-``speculative=`` (a :class:`~.speculative.SpeculativeDecoder`) replaces
-the decode step by one propose-and-verify round per row, through the
-four backend seams below (``_spec_reserve``, ``_spec_gather``,
-``_spec_adopt``, ``_spec_rollback``); ``warmup()`` then also captures its
-programs. Beam search is ``generate(num_beams=)``'s
-(``models/generation.py``). What the JAX engine adds around this core
-(live reload, the AOT executable cache, tracing spans, sessions, remote
-prefill) is not ported yet (``ROADMAP.md`` queue A item 1).
+The paged engine adds the prefix cache and its spill tier on top
+(``paged_engine.py``). ``speculative=`` (a
+:class:`~.speculative.SpeculativeDecoder`) replaces the decode step by
+one propose-and-verify round per row, through the three backend seams
+below (``_spec_reserve``, ``_spec_verify``, ``_spec_rollback``);
+``warmup()`` then also captures its programs. ``sessions=`` keeps a
+:class:`~.sessions.SessionStore`: ``submit(session_id=)`` touches it and
+a finished turn records its tokens there. Beam search is
+``generate(num_beams=)``'s (``models/generation.py``).
+``memory_report()`` is the table of what each program's capture took.
+
+The constructor and ``submit`` take the JAX engine's parameters in its
+order, then ``graphs``. Those of modules not ported yet raise
+``NotImplementedError`` naming their ``ROADMAP.md`` queue A item: the
+trace guard (``recompile_guard_max``, item 1.6) and live reload
+(``reload_template``, item 1.5).
 """
 from __future__ import annotations
 
@@ -68,6 +75,7 @@ from .scheduler import (
     RequestHandle,
     Scheduler,
 )
+from .sessions import SessionStore
 
 
 class _Seq:
@@ -99,14 +107,31 @@ class ServingEngine:
     on a card; False runs them eagerly. ``weights_version`` (default
     ``"v0"``) names the weights the engine serves. ``speculative`` (a
     :class:`~.speculative.SpeculativeDecoder`) is bound here and decodes
-    every row by propose-and-verify rounds."""
+    every row by propose-and-verify rounds. ``scheduler``, ``metrics``
+    and ``pool`` pass built ones in; ``sessions`` is True (a
+    :class:`~.sessions.SessionStore` on the engine's clock), a built
+    store, or None."""
+
+    # the paged engine verifies by replaying its decode step over the
+    # arena; the slab engine over a gathered block (``_spec_verify``)
+    _spec_verify_in_arena = False
 
     def __init__(self, net, *, max_batch_size=8, max_seq_len=256,
                  cache_dtype=None, do_sample=False, temperature=1.0,
                  top_k=0, top_p=1.0, seed=0, min_bucket=16,
                  max_queue_size=64, max_tokens_in_flight=None,
-                 clock=time.monotonic, graphs=True, weights_version=None,
-                 speculative=None):
+                 scheduler=None, metrics=None, pool=None,
+                 clock=time.monotonic, recompile_guard_max=None,
+                 weights_version=None, reload_template=None,
+                 speculative=None, sessions=None, graphs=True):
+        if recompile_guard_max is not None:
+            raise NotImplementedError(
+                "recompile_guard_max=...: the trace guard is not ported "
+                "(ROADMAP.md queue A item 1.6)")
+        if reload_template is not None:
+            raise NotImplementedError(
+                "reload_template=...: live reload is not ported "
+                "(ROADMAP.md queue A item 1.5)")
         self.net = net.eval()
         self.config = net.config
         self.device = net.device
@@ -121,15 +146,22 @@ class ServingEngine:
         self.graphs = bool(graphs)
         self.weights_version = ("v0" if weights_version is None
                                 else str(weights_version))
-        self.pool = KVCachePool(
-            self.config, dtype=cache_dtype or DEFAULT_CACHE_DTYPE,
-            min_bucket=min_bucket, max_seq_len=self.max_seq_len,
-            device=self.device,
-        )
+        if pool is None:
+            pool = KVCachePool(
+                self.config, dtype=cache_dtype or DEFAULT_CACHE_DTYPE,
+                min_bucket=min_bucket, max_seq_len=self.max_seq_len,
+                device=self.device,
+            )
+        self.pool = pool
         self.cache_dtype = self.pool.dtype
-        self.scheduler = Scheduler(max_queue_size=max_queue_size,
-                                   clock=clock)
-        self.metrics = ServingMetrics()
+        self.scheduler = (Scheduler(max_queue_size=max_queue_size,
+                                    clock=clock)
+                          if scheduler is None else scheduler)
+        self.metrics = ServingMetrics() if metrics is None else metrics
+        if sessions is True:
+            sessions = SessionStore(clock=clock)
+        # None or False: no store (an empty store is falsy: len() 0)
+        self.sessions = None if sessions in (None, False) else sessions
         self.keys = SamplingKeySource(seed)
         self._seqs = [None] * self.max_batch_size
         self.step_count = 0
@@ -208,10 +240,11 @@ class ServingEngine:
     # ------------------------------------- speculative backend seams
     #
     # speculative.SpeculativeDecoder drives its verify through these
-    # four hooks. On the slab every row owns its whole span, so reserve
+    # three hooks. On the slab every row owns its whole span, so reserve
     # always succeeds and rollback is free (the rejected tail's KV sits
     # behind the position mask until the row overwrites it); the paged
-    # engine overrides them with demand-claimed pages.
+    # engine overrides them with demand-claimed pages and a verify over
+    # the arena.
 
     def _spec_reserve(self, slot, hi):
         """Hold KV capacity for verify writes up to position ``hi``;
@@ -219,21 +252,31 @@ class ServingEngine:
         backend cannot cover it)."""
         return min(hi, self.max_seq_len - 1)
 
-    def _spec_gather(self, slot, hi):
-        """Row ``slot``'s KV, positions [0, ``hi``] at least, as the pooled
-        prefill-layout block the verify runs over: here the whole slab
-        row, ``[1, max_seq_len]`` (the ``spec_gather`` program, the slot
-        a device input). Returns the block, live; the caller frees it."""
+    def _spec_verify(self, slot, ids, pos):
+        """Score ``ids`` (``[1, k1]``) at positions ``[pos, pos + k1)``
+        of row ``slot`` and write their KV there: the row gathered into
+        the full-width pooled block (the ``spec_gather`` program, the slot
+        a device input), the verify program over it (the JAX chunk-write
+        and broadcast re-read: a slab row cannot read another row's
+        writes), and the block adopted back through the adopt program
+        admission uses. Returns the logits ``[k1, V]``, valid until the
+        next call of the same verify program."""
+        spec = self.speculative
+        k1 = int(ids.shape[1])
         blk = self.pool.alloc(self.max_seq_len)
         try:
             with torch.inference_mode():
                 self._run_program(("spec_gather",),
                                   lambda: self._build_spec_gather(blk),
                                   np.array([slot], np.int64))
-        except BaseException:
+                logits = self._run_program(
+                    ("spec_verify", blk.bucket, k1),
+                    lambda: spec._build_verify(blk, k1), ids,
+                    np.array([pos], np.int32))
+            self._run_adopt(blk, np.array([slot], np.int64))
+        finally:
             self.pool.free(blk)
-            raise
-        return blk
+        return logits
 
     def _build_spec_gather(self, blk):
         caches = self._caches
@@ -246,27 +289,23 @@ class ServingEngine:
             return ()
         return body, inputs, (caches, blk.caches)
 
-    def _spec_adopt(self, slot, blk, pos):
-        """Land the verify-written block back as row ``slot``'s KV, through
-        the adopt program admission uses (positions below ``pos`` come
-        back unchanged)."""
-        self._run_adopt(blk, np.array([slot], np.int64))
-
     def _spec_rollback(self, slot, new_pos):
         """Drop verify writes past the accepted span (the row's next token
         feeds at ``new_pos``): free on the slab."""
 
-    def _verify_widths(self, buckets):
-        """The block widths a verify sees: the slab gathers every row at
-        full width (the paged engine: its bucket ladder)."""
-        return [self.max_seq_len]
-
-    def _warm_spec_gather(self, buckets):
-        """Capture the gather the speculative round runs before each
-        verify, and the full-width adopt after it."""
+    def _warm_spec_verify(self, spec, buckets):
+        """Capture the verify's programs: a verify per k1 in ``1..k+1``
+        over the full-width block, the gather before it and the
+        full-width adopt after it. Returns how many were captured."""
         blk = self.pool.alloc(self.max_seq_len)
         try:
-            return (self._programs.warm(
+            n = sum(self._programs.warm(
+                        ("spec_verify", blk.bucket, k1),
+                        lambda: spec._build_verify(blk, k1),
+                        np.zeros((1, k1), np.int64),
+                        np.zeros((1,), np.int32))
+                    for k1 in range(1, spec.k + 2))
+            return (n + self._programs.warm(
                         ("spec_gather",), lambda: self._build_spec_gather(blk),
                         np.zeros((1,), np.int64))
                     + self._programs.warm(
@@ -346,10 +385,32 @@ class ServingEngine:
         ``serving::adopt``; a prefix-cache engine adds
         ``serving::gather_pages`` and ``serving::chunk_prefill``; a
         speculative one ``serving::spec_draft_prefill``,
-        ``serving::spec_draft_decode``, ``serving::spec_verify`` and its
-        gather, ``serving::spec_gather`` on the slab); a program captured
-        again after a change of ``net.fusions`` counts again."""
+        ``serving::spec_draft_decode`` and ``serving::spec_verify``, and
+        on the slab its gather, ``serving::spec_gather``); a program
+        captured again after a change of ``net.fusions`` counts again.
+        The paged engine captures no verify program: its
+        ``serving::spec_verify`` counts the decode replays that served a
+        verify."""
         return dict(self._programs.counts)
+
+    def memory_report(self):
+        """What each program's capture took, by program name (the JAX
+        names: ``decode``, ``prefill_b{b}``, ``chunk_b{b}_t{tb}``, ...):
+        ``graph_pool_bytes`` (the growth of ``torch.cuda.memory_reserved()``
+        across its first call, the eager run and the capture into the
+        engine's graph pool, from an emptied cache), ``peak_bytes`` (the
+        most that call allocated above what was allocated when it began)
+        and ``static_bytes`` (its static inputs and outputs).
+        These are the card's own numbers, where JAX reads XLA's estimates;
+        on the CPU every count is 0. None before any capture (``warmup()``
+        or a program's first use); otherwise ``{"programs", "max_peak_
+        bytes"}``."""
+        table = self._programs.memory
+        if not table:
+            return None
+        return {"programs": dict(table),
+                "max_peak_bytes": max(e["peak_bytes"]
+                                      for e in table.values())}
 
     def warmup(self, aot_cache=None, buckets=None):
         """Capture every fixed-shape program before traffic: the decode
@@ -431,13 +492,19 @@ class ServingEngine:
 
     def submit(self, input_ids, max_new_tokens=32, *, eos_token_id=None,
                priority=0, deadline_s=None, slo_class=None,
-               on_token=None, on_event=None):
+               session_id=None, on_token=None, on_event=None):
         """Enqueue one request; always returns a RequestHandle (status
-        REJECTED with ``.reason`` set on backpressure)."""
+        REJECTED with ``.reason`` set on backpressure). ``session_id``
+        marks it as one turn of a conversation: the session store is
+        touched here and records the finished turn (never changing the
+        stream)."""
         req = Request(input_ids, max_new_tokens, eos_token_id=eos_token_id,
                       priority=priority, deadline_s=deadline_s,
-                      slo_class=slo_class)
+                      slo_class=slo_class, session_id=session_id)
         self.metrics.submitted.inc()
+        if session_id is not None and self.sessions is not None \
+                and not self._closed:
+            self.sessions.touch(session_id)
         reason = (REASON_ENGINE_CLOSED if self._closed
                   else REASON_TOO_LONG if self._too_long(req) else None)
         if reason is not None:
@@ -476,6 +543,12 @@ class ServingEngine:
         elif status == TIMEOUT:
             self.metrics.timeouts.inc()
         self.metrics.e2e.observe(now - h.submit_time)
+        sid = h.request.session_id
+        if sid is not None and self.sessions is not None \
+                and not self._closed:
+            # the finished turn's whole conversation (prompt and answer):
+            # the chain turn N+1's prompt extends
+            self.sessions.note_turn(sid, h.output_ids)
         self._seqs[slot] = None
         self._release_slot(slot)
         h._fire_terminal()
@@ -713,4 +786,6 @@ class ServingEngine:
         self._programs.drop(tuple(TRACE_KEYS))
         if self.speculative is not None:
             self.speculative.unbind()
+        if self.sessions is not None:
+            self.sessions.close()
         self._caches = None

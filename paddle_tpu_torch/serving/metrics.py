@@ -32,14 +32,22 @@ class Counter:
 
 class Gauge:
     """A value that is set, not accumulated (the prefix cache's shared
-    bytes saved)."""
+    bytes saved), optionally one a label (the spill tier's pages per
+    tier)."""
 
     def __init__(self, name):
         self.name = name
         self.value = 0.0
+        self._by_label = {}
 
-    def set(self, v):
-        self.value = float(v)
+    def set(self, v, label=None):
+        if label is None:
+            self.value = float(v)
+        else:
+            self._by_label[label] = float(v)
+
+    def by_label(self):
+        return dict(self._by_label)
 
 
 class Histogram:

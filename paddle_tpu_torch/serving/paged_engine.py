@@ -32,28 +32,38 @@ prefills only the tail:
   page copies that page into a fresh one (``cow_clones``).
 
 A finished request publishes the prompt and answer span its steps wrote
-and the partial last page, so a second turn reuses them. Prefix mode
+and the partial last page, so a second turn reuses them (``sessions=``
+keeps the conversations' bookkeeping, ``sessions.py``). Prefix mode
 also grows decode pages on demand (``demand_paging=`` sets it apart):
 admission claims the prompt's pages only, a row claims the next page as
 it crosses a page boundary, evicting cold cached pages (leaf-first LRU)
 if it must, and a claim that still fails sheds that request with
 ``pages_exhausted``.
 
+**The spill tier** (``kv_tiering=``, with a prefix cache): an evicted
+cached page's bytes spill to a :class:`~.kv_tiering.TieredPageStore` in
+host RAM (and disk), one frame a page id across every layer, and a
+walk that meets a spilled page restores it into a fresh page through
+the adopt program of the one-page bucket. A refused payload (budget,
+CRC, stale weights, no page for it) falls back to a cold prefill,
+counted.
+
 **Speculative decoding** (``speculative=``, ``speculative.py``): a
-round gathers the row's pages into the bucket's pooled block (the gather
-program above), verifies there and adopts back only the pages at or
-above ``pos // page_size``, so a shared prefix page is never written.
-Under demand paging the verify's pages are claimed before the round
-(evicting if it must; under pressure the round clamps its proposals
-instead of shedding anyone) and the rejected tail's pages are released
-after it (``spec_pages_claimed``, ``spec_pages_rolled_back``).
+round's verify is replays of the engine's own decode program, the
+round's positions on its rows, over the arena (``_spec_verify``), so its
+rows are the vanilla decode step's rows. Under demand paging the
+verify's pages are claimed before the round (evicting if it must; under
+pressure the round clamps its proposals instead of shedding anyone) and
+the rejected tail's pages are released after it
+(``spec_pages_claimed``, ``spec_pages_rolled_back``).
 
 Every step is one of the engine's fixed-shape programs, CUDA graphs on a
 card (``programs.py``; the page table, page ids, tail ids and ``c`` are
 their device inputs), and ``warmup()`` captures them all before traffic.
 A failing program raises: the admission releases what it claimed, and
-nothing falls back to another path. Not ported: KV tiering, sessions,
-remote prefill and live reload (``ROADMAP.md`` queue A item 1).
+nothing falls back to another path. Not ported: remote prefill
+(``prefill_transport``, ``ROADMAP.md`` queue A item 1.7) and live
+reload (item 1.5).
 """
 from __future__ import annotations
 
@@ -63,11 +73,16 @@ import numpy as np
 import torch
 
 from ..models.generation import _select_next
-from ..quantization.kv import adopt_into_pages, gather_block_from_pages
+from ..quantization.kv import (
+    adopt_into_pages,
+    gather_block_from_pages,
+    is_quantized,
+)
 from .engine import ServingEngine
+from .kv_tiering import TieredPageStore
 from .paged_pool import PagedKVPool, PagesExhausted
 from .prefix_cache import PrefixCache
-from .programs import BASE_KINDS, SPEC_KINDS
+from .programs import BASE_KINDS, SPEC_KINDS, TRACE_KEYS
 from .scheduler import CANCELLED, REASON_PAGES_EXHAUSTED
 
 
@@ -78,16 +93,24 @@ class PagedServingEngine(ServingEngine):
     defaults to full coverage, ``max_batch_size * max_seq_len /
     page_size``; ``page_pool`` passes a built pool instead.
     ``prefix_cache`` (True, or a ``PrefixCache`` over ``page_pool``)
-    turns on prefix sharing; ``demand_paging`` defaults to it."""
+    turns on prefix sharing; ``demand_paging`` defaults to it.
+    ``kv_tiering`` (True, a dict of ``TieredPageStore`` arguments, or a
+    built store) puts a spill tier below the prefix cache, which it
+    requires."""
+
+    _spec_verify_in_arena = True
 
     def __init__(self, net, *, max_batch_size=8, max_seq_len=256,
                  page_size=16, num_pages=None, cache_dtype=None,
                  do_sample=False, temperature=1.0, top_k=0, top_p=1.0,
                  seed=0, min_bucket=16, max_queue_size=64,
                  max_tokens_in_flight=None, max_prefills_per_step=1,
-                 clock=time.monotonic, graphs=True, weights_version=None,
-                 page_pool=None, prefix_cache=None, demand_paging=None,
-                 kv_tiering=None, speculative=None):
+                 scheduler=None, metrics=None, pool=None, page_pool=None,
+                 clock=time.monotonic, recompile_guard_max=None,
+                 weights_version=None, prefill_transport=None,
+                 reload_template=None, prefix_cache=None,
+                 demand_paging=None, speculative=None,
+                 kv_tiering=None, sessions=None, graphs=True):
         ps = int(page_size)
         if ps < 1 or (ps & (ps - 1)):
             raise ValueError(
@@ -103,11 +126,17 @@ class PagedServingEngine(ServingEngine):
                 f"max_seq_len {max_seq_len} must be a multiple of "
                 f"page_size {ps}"
             )
-        if kv_tiering not in (None, False):
+        if prefill_transport is not None:
             raise NotImplementedError(
-                "kv_tiering=...: KV tiering is not ported (ROADMAP.md "
-                "queue A item 1)")
+                "prefill_transport=...: remote prefill is not ported "
+                "(ROADMAP.md queue A item 1.7)")
+        if kv_tiering not in (None, False) \
+                and prefix_cache in (None, False):
+            raise ValueError(
+                "kv_tiering requires prefix_cache: the tier spills and "
+                "restores prefix-cache pages")
         self.page_size = ps
+        self._kv_tiering_arg = kv_tiering
         self._num_pages_arg = num_pages
         self._page_pool_arg = page_pool
         self._prefix_cache_arg = prefix_cache
@@ -129,9 +158,12 @@ class PagedServingEngine(ServingEngine):
             cache_dtype=cache_dtype, do_sample=do_sample,
             temperature=temperature, top_k=top_k, top_p=top_p, seed=seed,
             min_bucket=min_bucket, max_queue_size=max_queue_size,
-            max_tokens_in_flight=max_tokens_in_flight, clock=clock,
-            graphs=graphs, weights_version=weights_version,
-            speculative=speculative,
+            max_tokens_in_flight=max_tokens_in_flight, scheduler=scheduler,
+            metrics=metrics, pool=pool, clock=clock,
+            recompile_guard_max=recompile_guard_max,
+            weights_version=weights_version,
+            reload_template=reload_template, speculative=speculative,
+            sessions=sessions, graphs=graphs,
         )
 
     # ------------------------------------------------------- KV backend
@@ -167,6 +199,18 @@ class PagedServingEngine(ServingEngine):
                 "prefix_cache wraps another PagedKVPool than this engine's: "
                 "pass that pool as page_pool")
         self.prefix_cache = pc
+        tier = self._kv_tiering_arg
+        if tier is True:
+            tier = TieredPageStore()
+        elif isinstance(tier, dict):
+            tier = TieredPageStore(**tier)
+        elif tier in (None, False):
+            tier = None
+        self.kv_tier = tier
+        if tier is not None:
+            pc.attach_tier(tier, read_page=self._tier_read_page,
+                           restore_page=self._tier_restore_page,
+                           current_version=lambda: self.weights_version)
         self.table_width = pp.table_width()
         self._caches = pp.alloc_arena_arrays()
         self._tables = np.zeros((self.max_batch_size, self.table_width),
@@ -182,10 +226,8 @@ class PagedServingEngine(ServingEngine):
 
     def _program_kinds(self):
         kinds = BASE_KINDS
-        if self.prefix_cache is not None or self.speculative is not None:
-            kinds += ("gather",)
         if self.prefix_cache is not None:
-            kinds += ("chunk",)
+            kinds += ("gather", "chunk")
         if self.speculative is not None:
             kinds += SPEC_KINDS
         return kinds
@@ -507,14 +549,19 @@ class PagedServingEngine(ServingEngine):
         """With a prefix cache, a gather per bucket and a chunk prefill per
         (bucket, tail bucket) after the base inventory, in the JAX
         engine's order (``paged_engine.py:965-1013``); 17 + 8 + 36
-        programs at 2048 slots from bucket 16."""
+        programs at 2048 slots from bucket 16. With a spill tier, the
+        restore's adopt of the one-page bucket, which the base inventory
+        already holds when that bucket is warmed (the JAX engine dedups it
+        the same way, ``:1014-1020``)."""
         if self.prefix_cache is None:
             return 0
         warmed = 0
         for b in buckets:
             blk = self.pool.alloc(b)
             try:
-                warmed += self._warm_gather(blk)
+                warmed += self._programs.warm(
+                    ("gather", blk.bucket), lambda: self._build_gather(blk),
+                    np.zeros((blk.bucket // self.page_size,), np.int64))
                 for tb in self._tail_buckets(blk.bucket):
                     warmed += self._programs.warm(
                         ("chunk", blk.bucket, tb),
@@ -523,31 +570,78 @@ class PagedServingEngine(ServingEngine):
                         np.zeros((1,), np.int32))
             finally:
                 self.pool.free(blk)
-        return warmed
-
-    def _warm_gather(self, blk):
-        return self._programs.warm(
-            ("gather", blk.bucket), lambda: self._build_gather(blk),
-            np.zeros((blk.bucket // self.page_size,), np.int64))
-
-    # ------------------------------------- speculative backend seams
-    def _verify_widths(self, buckets):
-        """Paged verify blocks are the bucketed gathers: a verify program
-        per bucket."""
-        return list(buckets)
-
-    def _warm_spec_gather(self, buckets):
-        """The round's gather per bucket: the prefix cache's gather
-        programs (already captured when it is attached)."""
-        warmed = 0
-        for b in buckets:
-            blk = self.pool.alloc(b)
+        if self.kv_tier is not None:
+            blk = self._page_block()
             try:
-                warmed += self._warm_gather(blk)
+                warmed += self._programs.warm(
+                    ("adopt", blk.bucket), lambda: self._build_adopt(blk),
+                    self._adopt_zeros(blk))
             finally:
                 self.pool.free(blk)
         return warmed
 
+    # ------------------------------------------------------- KV tiering
+    @staticmethod
+    def _page_leaves(caches):
+        """The raw buffers of ``caches`` in frame order: per layer K then
+        V, an int8 cache's codes then scales."""
+        out = []
+        for pair in caches:
+            for t in pair:
+                out += [t.q, t.scale] if is_quantized(t) else [t]
+        return out
+
+    def _tier_read_page(self, page_id):
+        """One page id's bytes across every layer's arena, copied to the
+        host, one tensor a buffer (the spill side). Read-only: a shared
+        page is copied, never written."""
+        with torch.inference_mode():
+            return [t[page_id].to("cpu")
+                    for t in self._page_leaves(self._caches)]
+
+    def _page_block(self, arrays=None):
+        """The pooled block of the bucket that holds one page, its first
+        ``page_size`` slots holding the spilled ``arrays`` (a restore) or
+        zeros (warmup). Returns the block, live; the caller frees it."""
+        ps = self.page_size
+        blk = self.pool.alloc(ps)
+        # copies from pageable host memory wait for the stream: the last
+        # restore's adopt (and its page-id copy from the program's pinned
+        # mirror) has finished before the next restore refills the mirror
+        with torch.inference_mode():
+            for i, t in enumerate(self._page_leaves(blk.caches)):
+                if arrays is None:
+                    t[0, :ps].zero_()
+                else:
+                    t[0, :ps].copy_(arrays[i])
+        return blk
+
+    def _tier_restore_page(self, arrays):
+        """The restore side: claim one fresh page straight from the pool
+        (never through ``_claim_pages``, whose eviction could spill the
+        chain being walked), adopt the spilled bytes into it through the
+        adopt program of the one-page bucket (``("adopt", page_size)``
+        when the page is the smallest bucket; a copy, so the bytes land
+        bit-identical), and return its id; None when the pool has no free
+        page."""
+        try:
+            page = self.page_pool.claim(1)[0]
+        except PagesExhausted:
+            return None
+        try:
+            blk = self._page_block(arrays)
+            try:
+                ids = np.zeros((blk.bucket // self.page_size,), np.int64)
+                ids[0] = page
+                self._run_adopt(blk, ids)
+            finally:
+                self.pool.free(blk)
+        except BaseException:
+            self.page_pool.release([page])
+            raise
+        return page
+
+    # ------------------------------------- speculative backend seams
     def _spec_reserve(self, slot, hi):
         """Claim pages so row ``slot`` holds KV through position ``hi``
         (the verify writes ``[pos, hi]``), appended to the row's pages and
@@ -568,39 +662,51 @@ class PagedServingEngine(ServingEngine):
             self.spec_pages_claimed += 1
         return min(hi, len(pages) * ps - 1)
 
-    def _spec_gather(self, slot, hi):
-        """Row ``slot``'s pages as the pooled block of the bucket that
-        covers position ``hi`` (the prefix cache's gather program; ids
-        past the row's pages read the garbage page 0, masked). Returns
-        the block, live; the caller frees it."""
-        ps = self.page_size
-        blk = self.pool.alloc(hi + 1)
-        try:
-            pages = self._row_pages[slot]
-            src = np.zeros((blk.bucket // ps,), np.int64)
-            n = min(len(pages), blk.bucket // ps)
-            src[:n] = pages[:n]
+    def _spec_verify(self, slot, ids, pos):
+        """Score ``ids`` (``[1, k1]``) at positions ``[pos, pos + k1)`` of
+        row ``slot`` as replays of the engine's own decode program: rows
+        ``0..k1-1`` carry the row's page table and token ``ids[0, i]`` at
+        position ``pos + i``; the other rows the garbage page 0, as free
+        rows do. The step writes every row's K/V into the arena before
+        the paged kernel reads, so at every layer row i reads what rows
+        ``0..i-1`` wrote in the same step: the bytes the vanilla steps at
+        ``pos..pos+i-1`` write, through the vanilla step's row count, and
+        row i's logits are the vanilla step's row. More positions than
+        ``max_batch_size`` take more replays, each reading what the last
+        wrote. The writes land in the row's own pages (``pos >=
+        prompt_len``; shared prefix pages end below it). Each replay
+        counts under ``serving::spec_verify``. Returns the logits ``[k1,
+        V]``, valid until the next decode replay."""
+        b = self.max_batch_size
+        k1 = int(ids.shape[1])
+        rows = []
+        for lo in range(0, k1, b):
+            n = min(b, k1 - lo)
+            tok = np.zeros((b, 1), np.int64)
+            tok[:n, 0] = ids[0, lo:lo + n]
+            at = np.zeros((b,), np.int32)
+            at[:n] = pos + lo + np.arange(n)
+            table = np.zeros_like(self._tables)
+            table[:n] = self._tables[slot]
             with torch.inference_mode():
-                self._run_program(("gather", blk.bucket),
-                                  lambda: self._build_gather(blk), src)
-        except BaseException:
-            self.pool.free(blk)
-            raise
-        return blk
+                logits, _ = self._run_program(
+                    ("decode",), self._build_decode, tok, at, table)
+            if self.graphs and self.speculative is not None:
+                self._programs.counts[TRACE_KEYS["spec_verify"]] += 1
+            if lo + n < k1:
+                # the next replay overwrites these logits and refills the
+                # program's pinned input mirrors: keep a copy, and let this
+                # replay's input copies finish first
+                logits = logits.clone()
+                if self.device.type == "cuda":
+                    torch.cuda.current_stream(self.device).synchronize()
+            rows.append(logits[:n])
+        return rows[0] if len(rows) == 1 else torch.cat(rows)
 
-    def _spec_adopt(self, slot, blk, pos):
-        """Scatter the verify-written block back: only the pages the verify
-        may have written (index >= ``pos // page_size``, all the row's
-        own: ``pos >= prompt_len`` and shared prefix pages end at the
-        prompt's last full page). The ids below go to the garbage page 0,
-        so a shared page is never written, even with equal bytes."""
-        ps = self.page_size
-        pages = self._row_pages[slot]
-        ids = np.zeros((blk.bucket // ps,), np.int64)
-        lo = pos // ps
-        n = min(len(pages), blk.bucket // ps)
-        ids[lo:n] = pages[lo:n]
-        self._run_adopt(blk, ids)
+    def _warm_spec_verify(self, spec, buckets):
+        """The verify replays the decode program of the base inventory:
+        nothing more to capture."""
+        return 0
 
     def _spec_rollback(self, slot, new_pos):
         """Release the rejected tail's pages (past the page that holds
@@ -668,5 +774,5 @@ class PagedServingEngine(ServingEngine):
     def close(self):
         super().close()
         if self.prefix_cache is not None:
-            self.prefix_cache.flush()
+            self.prefix_cache.flush(reason="engine_closed")
         self._tables = None

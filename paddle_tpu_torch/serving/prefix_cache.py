@@ -19,6 +19,14 @@ Python in both packages; the port keeps its own copy).
   whose one reference is the cache's own, and only entries whose cached
   descendants are reclaimable too.
 
+- **Spill instead of drop** (:meth:`PrefixCache.attach_tier`, a
+  :class:`~.kv_tiering.TieredPageStore`): an evicted page's bytes go to
+  the tier, and a chain walk that breaks at a spilled page restores it
+  into a fresh arena page and walks on. Where the arena has no free page
+  for a restore, the port spills one colder page outside the walk to
+  make room (the JAX store leaves the record spilled then, so in a full
+  arena it never restores: ``ROADMAP.md`` queue C).
+
 What a published page holds is a function of its tokens under fixed
 weights: full prompt pages at admission, the partial prompt-tail page at
 release, and at finish the prompt and answer span the decode steps
@@ -26,9 +34,8 @@ wrote (``PagedServingEngine._finish``). Where decode-written KV is not
 bit-equal to a prefill of the same tokens (``ROADMAP.md`` queue C), a
 second turn reads the decode step's values, as the JAX engine does.
 
-Not ported: the spill tier (``attach_tier``, ``_restore``: KV tiering,
-``ROADMAP.md`` queue A item 1). The counters are the port's own
-(``metrics.py``), one set per cache, not a process-wide registry.
+The counters are the port's own (``metrics.py``), one set per cache,
+not a process-wide registry.
 """
 from __future__ import annotations
 
@@ -105,19 +112,65 @@ class PrefixCache:
         self.cow_clones = Counter("prefix_cow_clones")
         self.tokens_saved = Counter("prefix_tokens_saved")
         self.hbm_saved = Gauge("prefix_shared_hbm_saved")
+        self._tier = None
+        self._read_page = None
+        self._restore_page = None
+        self._current_version = None
 
     # ---------------------------------------------------------- keying
     def root_key(self, weights_version):
         return ("prefix-root", str(weights_version),
                 str(self.pool.dtype).replace("torch.", ""))
 
+    # ----------------------------------------------------------- tiering
+    def attach_tier(self, tier, *, read_page, restore_page,
+                    current_version):
+        """Attach a :class:`~.kv_tiering.TieredPageStore` below this
+        cache. ``read_page(page_id)`` gives the page's host arrays (the
+        spill side); ``restore_page(arrays)`` claims a fresh arena page,
+        adopts the bytes and returns its id, or None when the arena has
+        no free page; ``current_version()`` is the engine's weights
+        version, stamped into every spilled payload for the stale
+        refusal. The engine wires these at construction."""
+        self._tier = tier
+        self._read_page = read_page
+        self._restore_page = restore_page
+        self._current_version = current_version
+
+    def _restore(self, child_key, parent, weights_version, walked):
+        """Pull one spilled page back into the arena as a live entry, or
+        None (absent, refused, or no page for it). With no free page, one
+        reclaimable page outside ``walked`` (the pages this walk holds)
+        spills to make room. The tier record is consumed before the entry
+        lands, so a later publish of the key never meets stale bytes."""
+        tier = self._tier
+        if tier is None or self._restore_page is None:
+            return None
+        got = tier.get(child_key, weights_version=weights_version)
+        if got is None:
+            return None
+        rec, _meta, arrays = got
+        if self.pool.free_pages == 0:
+            self.evict(1, exclude=walked)
+        page = self._restore_page(arrays)
+        if page is None:
+            return None  # no page for it now: it stays spilled
+        tier.pop(child_key, restored=True)
+        e = self._add(child_key, parent, page, rec.tokens, rec.valid_len)
+        # _add holds the cache's reference; drop the restore's claim
+        self.pool.release([page])
+        self.update_gauges()
+        return e
+
     # --------------------------------------------------------- matching
     def match(self, tokens, prompt_len, weights_version):
         """Walk the chain for ``tokens[:prompt_len]``. Full pages match
         by exact chain key; a partial tail matches when one cached child
-        covers the whole remaining prompt within its valid span. Touches
-        matched entries for LRU; counts no hit or miss (the engine does,
-        once it knows whether the match is usable)."""
+        covers the whole remaining prompt within its valid span; with a
+        tier, a spilled page where the resident chain breaks restores and
+        the walk goes on. Touches matched entries for LRU; counts no hit
+        or miss (the engine does, once it knows whether the match is
+        usable)."""
         ps = self.page_size
         prompt_len = int(prompt_len)
         key = self.root_key(weights_version)
@@ -125,8 +178,12 @@ class PrefixCache:
         k = 0
         tick = next(self._tick)
         while (k + 1) * ps <= prompt_len:
-            child = self._entries.get(
-                (key, tuple(int(t) for t in tokens[k * ps:(k + 1) * ps])))
+            child_key = (
+                key, tuple(int(t) for t in tokens[k * ps:(k + 1) * ps]))
+            child = self._entries.get(child_key)
+            if child is None and self._tier is not None:
+                child = self._restore(child_key, key, weights_version,
+                                      [e.page for e in entries])
             if child is None or not child.full:
                 break
             child.last_hit = tick
@@ -145,6 +202,18 @@ class PrefixCache:
                     e.last_hit = tick
                     tail = e
                     break
+            if tail is None and self._tier is not None:
+                for ck in self._tier.children(key):
+                    rec = self._tier.peek(ck)
+                    if rec is None or rec.valid_len < r \
+                            or rec.tokens[:r] != rest:
+                        continue
+                    e = self._restore(ck, key, weights_version,
+                                      [x.page for x in entries])
+                    if e is not None:
+                        e.last_hit = tick
+                        tail = e
+                        break
         covered = k * ps + (r if tail is not None else 0)
         return PrefixMatch(entries, tail, covered)
 
@@ -155,6 +224,11 @@ class PrefixCache:
         self.pool.incref([page])
         self._entries[key] = e
         self._children.setdefault(parent, set()).add(key)
+        if self._tier is not None and self._tier.peek(key) is not None:
+            # a fresh publish supersedes a spilled copy of the key (one
+            # whose restore once found no page): a later match must never
+            # prefer the tier's bytes
+            self._tier.pop(key)
         return e
 
     def publish(self, tokens, prompt_len, page_ids, weights_version):
@@ -259,14 +333,16 @@ class PrefixCache:
         self._children.pop(entry.key, None)
         self.pool.release([entry.page])
 
-    def evict(self, n_pages):
+    def evict(self, n_pages, exclude=()):
         """Reclaim up to ``n_pages`` cached pages, leaf-first in LRU
-        order; a page some request still holds is never touched. Returns
-        the number freed. Reclaimability is computed once a pass (a
-        dropped leaf cannot change another entry's verdict); victims pop
-        off a last-hit heap, a parent pushed when its last cached child
-        goes."""
-        ok = self._reclaimable()
+        order; a page some request still holds, or one in ``exclude``, is
+        never touched. With a tier attached each victim's bytes spill
+        there first (best effort: a refusal or a failed read degrades to
+        plain eviction). Returns the number freed. Reclaimability is
+        computed once a pass (a dropped leaf cannot change another
+        entry's verdict); victims pop off a last-hit heap, a parent pushed
+        when its last cached child goes."""
+        ok = self._reclaimable(exclude)
         child_count = {
             key: sum(1 for ck in self._children.get(key, ())
                      if ck in self._entries)
@@ -285,6 +361,16 @@ class PrefixCache:
             if victim is None:
                 continue
             parent = victim.parent
+            if self._tier is not None and self._read_page is not None:
+                try:
+                    self._tier.put(
+                        victim.key, victim.parent, victim.tokens,
+                        victim.valid_len, self._read_page(victim.page),
+                        weights_version=self._current_version())
+                except Exception:
+                    # a spill is best effort: the page frees either way,
+                    # and the failure is counted
+                    self._tier.dropped.inc(label="spill_error")
             self._drop(victim)
             freed += 1
             self.evictions.inc()
@@ -297,14 +383,19 @@ class PrefixCache:
             self.update_gauges()
         return freed
 
-    def flush(self):
-        """Drop every entry and release the cache's references (part of
-        the engine's ``close``). Returns the number dropped."""
+    def flush(self, reason="flush"):
+        """Drop every entry and release the cache's references (a weight
+        swap, and part of the engine's ``close``), and flush the tier
+        under ``reason``. Returns the number of entries dropped."""
         n = len(self._entries)
         for e in list(self._entries.values()):
             self.pool.release([e.page])
         self._entries.clear()
         self._children.clear()
+        if self._tier is not None:
+            # spilled payloads go with the resident entries: after a
+            # weight swap they could never pass the stale check
+            self._tier.flush(reason=reason)
         if n:
             self.flushes += 1
         self.update_gauges()
@@ -335,4 +426,6 @@ class PrefixCache:
             "tokens_saved": int(self.tokens_saved.value),
             "hbm_saved_bytes": int(self.hbm_saved_bytes()),
             "flushes": self.flushes,
+            **({"tier": self._tier.stats()}
+               if self._tier is not None else {}),
         }

@@ -54,6 +54,14 @@ TRACE_KEYS = {"decode": "serving::decode_step",
               "spec_dprefill": "serving::spec_draft_prefill",
               "spec_ddecode": "serving::spec_draft_decode",
               "spec_verify": "serving::spec_verify"}
+# the JAX engine's names of the programs (its memory table's keys), by
+# kind, formatted with the key's remaining fields
+NAMES = {"decode": "decode", "prefill": "prefill_b{}", "adopt": "adopt_b{}",
+         "gather": "gather_b{}", "chunk": "chunk_b{}_t{}",
+         "spec_gather": "spec_gather",
+         "spec_dprefill": "spec_draft_prefill_b{}",
+         "spec_ddecode": "spec_draft_decode_r{}",
+         "spec_verify": "spec_verify_w{}_k{}"}
 # the kinds every engine has; a prefix-cache engine adds gather and chunk
 BASE_KINDS = ("decode", "prefill", "adopt")
 # a speculative engine's: draft prefill per bucket, draft decode per row,
@@ -163,7 +171,14 @@ class Programs:
     ``("spec_dprefill", bucket)``, ``("spec_gather",)``), on one device:
     one memory pool
     for all of them on a card, and the device's capture stream. Counts
-    its captures of ``kinds`` under the JAX trace guard's keys."""
+    its captures of ``kinds`` under the JAX trace guard's keys, and keeps
+    what each program's first call took (``memory``, by program name;
+    0 on the CPU): ``graph_pool_bytes``, the growth of the reserved
+    device memory across the call from an emptied cache (the capture
+    empties it too, ``torch.cuda.graph``); ``peak_bytes``, the most the
+    call allocated above what was allocated when it began; and
+    ``static_bytes``, its static inputs and outputs. Reading the peak
+    resets ``torch.cuda``'s peak statistic at each capture."""
 
     def __init__(self, device, kinds=BASE_KINDS):
         self.device = device
@@ -177,6 +192,7 @@ class Programs:
                     device)
         self._progs = {}
         self.counts = dict.fromkeys((TRACE_KEYS[k] for k in kinds), 0)
+        self.memory = {}
 
     def get(self, key):
         """The program ``key``, or None before its first call."""
@@ -192,9 +208,25 @@ class Programs:
             prog = self._progs[key] = Program(
                 body, inputs, pool=self.pool, stream=self.stream, keep=keep)
         fresh = not prog.captured
+        if fresh and prog.cuda:
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(self.device)
+            allocated = torch.cuda.memory_allocated(self.device)
+            torch.cuda.reset_peak_memory_stats(self.device)
         out = prog(*arrays)
         if fresh:
             self.counts[TRACE_KEYS[key[0]]] += 1
+            entry = dict.fromkeys(("graph_pool_bytes", "peak_bytes",
+                                   "static_bytes"), 0)
+            if prog.cuda:
+                entry["graph_pool_bytes"] = (
+                    torch.cuda.memory_reserved(self.device) - reserved)
+                entry["peak_bytes"] = torch.cuda.max_memory_allocated(
+                    self.device) - allocated
+                entry["static_bytes"] = sum(
+                    t.numel() * t.element_size()
+                    for t in prog.inputs + _tensors(prog.outputs))
+            self.memory[NAMES[key[0]].format(*key[1:])] = entry
         return out
 
     def warm(self, key, build, *arrays):

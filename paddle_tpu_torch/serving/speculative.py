@@ -6,24 +6,27 @@ A cheap draft proposes ``k`` tokens one at a time, the target scores all
 the longest valid prefix: every round emits between 1 and ``k + 1``
 tokens for one verify launch.
 
-The verify program runs over a ``[1, W]`` prefill-layout block of the
-request's KV (the slab engine gathers its row at ``W = max_seq_len``,
-the paged engine its pages into the bucket's pooled block) with the
-ids ``[last, d_1..d_k]`` at positions ``[pos, pos + k]``; ``pos`` is a
-``[1]`` device tensor, so one capture serves every position:
+The engine scores the ids ``[last, d_1..d_k]`` at positions ``[pos,
+pos + k]`` (its ``_spec_verify`` seam):
 
-1. **chunk-write**: the ids run through the cache path (the model's
-   per-row path, head skipped), writing their K/V into the block;
-2. **broadcast re-read**: the block is copied to ``k + 1`` rows
-   (:func:`~..quantization.kv.broadcast_rows`) and one decode step scores
-   row ``i`` at position ``pos + i``: decode-shaped rows over the written
-   KV, as the vanilla decode step scores them.
+- **the paged engine** replays its own decode program with the round's
+  positions on its rows, every row over the request's page table: the
+  step writes each row's K/V into the arena before the paged kernel
+  reads, so row ``i`` reads what rows ``0..i-1`` wrote and its logits
+  are the vanilla decode step's row (float and int8 arenas alike);
+- **the slab engine** (a slab row cannot read another row's writes)
+  runs the verify program of this module over a ``[1, max_seq_len]``
+  prefill-layout block of the row, ``pos`` a ``[1]`` device tensor so
+  one capture serves every position: **chunk-write** (the ids through
+  the cache path, head skipped, writing their K/V into the block), then
+  **broadcast re-read** (the block copied to ``k + 1`` rows by
+  :func:`~..quantization.kv.broadcast_rows` and one decode step scoring
+  row ``i`` at position ``pos + i``). An int8 cache keeps per-token fp32
+  scales, so its verify instead unrolls ``k + 1`` decode sub-steps in one
+  program, the vanilla data flow. The block then goes back through the
+  engine's adopt program.
 
-An int8 cache keeps per-token fp32 scales, so its verify instead unrolls
-``k + 1`` decode sub-steps in one program, the vanilla data flow. The
-block then goes back through the engine's adopt program (the paged
-engine writes only the pages at or above ``pos``: a shared prefix page
-is never written), and the rejected tail's pages are released.
+The paged engine releases the rejected tail's pages after the round.
 
 Greedy acceptance keeps each proposal that equals the target's argmax;
 with ``do_sample`` acceptance is the Leviathan/Chen rejection rule over
@@ -44,8 +47,8 @@ fixed addresses, so each row's view of the slab has its own).
 
 Every program is one of the engine's fixed-shape programs
 (``programs.py``), CUDA graphs on a card: ``warmup()`` captures draft
-prefill per bucket, draft decode per row, verify per (width, ``k1``) for
-``k1`` in ``1..k+1`` and the gather. A failing program raises; nothing
+prefill per bucket and draft decode per row, and on the slab a verify
+per ``k1`` in ``1..k+1`` and the gather. A failing program raises; nothing
 falls back to the vanilla decode step. Rounds run one row after another,
 which trades batched throughput for latency (the win is at low
 concurrency). Not ported: the AOT signature, tracing spans, live reload
@@ -297,7 +300,10 @@ class SpeculativeDecoder:
                     f"the draft is on {draft.device}, the engine on "
                     f"{engine.device}")
         self._draft = draft
-        self._sequential = engine.cache_dtype == torch.int8
+        # the slab's verify over an int8 block runs decode sub-steps; the
+        # paged engine replays its decode step over the arena
+        self._sequential = (engine.cache_dtype == torch.int8
+                            and not engine._spec_verify_in_arena)
         self._pool = KVCachePool(
             draft.config, dtype=self.draft_cache_dtype,
             min_bucket=engine.pool.min_bucket,
@@ -389,9 +395,11 @@ class SpeculativeDecoder:
     def warmup(self, eng, buckets):
         """Capture the speculative inventory (from the engine's
         ``warmup()``, after its own): draft prefill per bucket, draft
-        decode per engine row, verify per (width, k1) for k1 in
-        ``1..k+1`` (the shorter chunks serve a request's last rounds),
-        and the engine's gather. Returns the programs captured."""
+        decode per engine row, then the engine's verify programs
+        (``_warm_spec_verify``: on the slab a verify per k1 in ``1..k+1``,
+        the shorter chunks serving a request's last rounds, and its
+        gather; none on the paged engine). Returns the programs
+        captured."""
         n = 0
         for b in buckets:
             blk = self._pool.alloc(b)
@@ -407,18 +415,7 @@ class SpeculativeDecoder:
             n += eng._programs.warm(
                 ("spec_ddecode", slot), lambda: self._build_ddecode(slot),
                 np.zeros((1, 1), np.int64), np.zeros((1,), np.int32))
-        for w in eng._verify_widths(buckets):
-            blk = eng.pool.alloc(w)
-            try:
-                for k1 in range(1, self.k + 2):
-                    n += eng._programs.warm(
-                        ("spec_verify", blk.bucket, k1),
-                        lambda: self._build_verify(blk, k1),
-                        np.zeros((1, k1), np.int64),
-                        np.zeros((1,), np.int32))
-            finally:
-                eng.pool.free(blk)
-        n += eng._warm_spec_gather(buckets)
+        n += eng._warm_spec_verify(self, buckets)
         # the warm runs wrote the draft slab: every row ingests afresh
         for st in self._slots.values():
             st.fed = -1
@@ -514,21 +511,13 @@ class SpeculativeDecoder:
         ids = np.zeros((1, k1), np.int64)
         ids[0, 0] = seq.last_tok
         ids[0, 1:] = props
-        blk = eng._spec_gather(slot, pos + k_eff)
-        try:
-            logits = eng._run_program(
-                ("spec_verify", blk.bucket, k1),
-                lambda: self._build_verify(blk, k1), ids,
-                np.array([pos], np.int32))
-            if eng.do_sample:
-                a, out = accept_sampled(
-                    logits, qrows, props, seq.key, pos, eng.temperature,
-                    eng.top_k, eng.top_p)
-            else:
-                a, out = accept_greedy(logits.float().cpu().numpy(), props)
-            eng._spec_adopt(slot, blk, pos)
-        finally:
-            eng.pool.free(blk)
+        logits = eng._spec_verify(slot, ids, pos)
+        if eng.do_sample:
+            a, out = accept_sampled(
+                logits, qrows, props, seq.key, pos, eng.temperature,
+                eng.top_k, eng.top_p)
+        else:
+            a, out = accept_greedy(logits.float().cpu().numpy(), props)
         dt = eng.clock() - t0
         # bookkeeping before emission: _append may finish the request
         # (EOS or max_new_tokens) and retire the row

@@ -36,10 +36,14 @@ replays (the same kernels on the same inputs), with its launch counts;
 a prefix engine's warm admissions (gather, chunk prefill and adopt
 graphs) bit-equal to its eager run, and one chunk capture replayed at
 two starts bit-equal to the eager chunk there and within 1e-5 of the
-largest logit of the full prefill. A speculative engine's verify
+largest logit of the full prefill. The slab engine's speculative verify
 program (bf16, parallel; int8, sequential), captured once by
 ``warmup()``, replayed at two positions over the same block: logits and
-the written block bit-equal to the eager verify body at each.
+the written block bit-equal to the eager verify body at each. The paged
+engine's verify (decode replays over the arena) scores every position
+with the vanilla paged decode step's row bit for bit (bf16 and int8,
+also with more positions than rows). A page spilled to the host tier and
+restored lands bit-equal.
 The multi-tensor optimizer kernels: Adam/AdamW and SGD/Momentum bit for
 bit given the same stats (every operation rounded once on both sides),
 the sums of squares within 1e-6 relative (fp32 sums in another order) and
@@ -1177,14 +1181,13 @@ def test_chunk_capture_serves_every_start(dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cache", ["bfloat16", "int8"])
 def test_verify_replay_equals_eager_at_every_pos(dev, cache):
-    """One verify program ``("spec_verify", 32, 4)``, captured by
+    """One slab verify program ``("spec_verify", 64, 4)``, captured by
     ``warmup()``, replayed at positions 12 and 20 over a block holding a
     28-token prefill: each replay's logits and written block are bit-equal
     to the eager verify body at that position (the same kernels on the
     same inputs), and nothing is captured again."""
     from paddle_tpu_torch.quantization.kv import is_quantized
-    from paddle_tpu_torch.serving import (PagedServingEngine,
-                                          SpeculativeDecoder)
+    from paddle_tpu_torch.serving import ServingEngine, SpeculativeDecoder
     from paddle_tpu_torch.serving.speculative import build_verify_body
 
     def leaves(caches):
@@ -1193,15 +1196,14 @@ def test_verify_replay_equals_eager_at_every_pos(dev, cache):
 
     net = _prefix_net(dev, torch.bfloat16)
     spec = SpeculativeDecoder(exit_layer=1, k=3)
-    eng = PagedServingEngine(net, max_batch_size=2, max_seq_len=64,
-                             min_bucket=8, page_size=8, cache_dtype=cache,
-                             demand_paging=True, speculative=spec)
+    eng = ServingEngine(net, max_batch_size=2, max_seq_len=64, min_bucket=8,
+                        cache_dtype=cache, speculative=spec)
     eng.warmup()
     captures = eng.compile_counts()
     rng = np.random.RandomState(7)
-    full = torch.zeros((1, 32), dtype=torch.long, device=dev)
+    full = torch.zeros((1, 64), dtype=torch.long, device=dev)
     full[0, :28] = torch.from_numpy(rng.randint(0, 256, (28,)))
-    blk = eng.pool.alloc(28)
+    blk = eng.pool.alloc(64)
     try:
         with torch.inference_mode():
             net(full, caches=blk.caches, pos=0)
@@ -1213,7 +1215,7 @@ def test_verify_replay_equals_eager_at_every_pos(dev, cache):
                 pos = np.array([p], np.int32)
                 for x, y in zip(leaves(blk.caches), start):
                     x.copy_(y)
-                got = eng._programs.run(("spec_verify", 32, 4), None, ids,
+                got = eng._programs.run(("spec_verify", 64, 4), None, ids,
                                         pos).clone()
                 got_block = [x.clone() for x in leaves(blk.caches)]
                 for x, y in zip(leaves(blk.caches), start):
@@ -1228,6 +1230,114 @@ def test_verify_replay_equals_eager_at_every_pos(dev, cache):
         eng.pool.free(blk)
     assert eng.compile_counts() == captures
     eng.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache,rows", [
+    ("bfloat16", 4), ("int8", 4), ("bfloat16", 2)])
+def test_paged_verify_rows_equal_vanilla_rows_on_card(dev, cache, rows):
+    """The paged verify (replays of the decode program, CUDA graphs) on
+    the card: every verify row scored with a stream's own tokens equals
+    the vanilla paged engine's decode row at that position bit for bit,
+    also with k + 1 above the rows (consecutive replays); the streams are
+    equal and the pool drains after the rollbacks."""
+    from paddle_tpu_torch.serving import (PagedServingEngine,
+                                          SpeculativeDecoder)
+
+    net = _prefix_net(dev, torch.bfloat16)
+    kw = dict(max_batch_size=rows, max_seq_len=64, min_bucket=8,
+              page_size=4, cache_dtype=cache, demand_paging=True)
+    prompts = list(np.random.RandomState(17).randint(0, 256, (2, 7)))
+    vanilla = PagedServingEngine(net, **kw)
+    vanilla.warmup()
+    van_rows = {}
+    run = vanilla._programs.run
+
+    def recording_run(key, build, *arrays):
+        out = run(key, build, *arrays)
+        if key == ("decode",):
+            for i, seq in enumerate(vanilla._seqs):
+                if seq is not None:
+                    van_rows[(seq.handle.request.request_id,
+                              int(arrays[1][i]))] = out[0][i].clone()
+        return out
+
+    vanilla._programs.run = recording_run
+    van = vanilla.generate(prompts, max_new_tokens=12)
+    want = [h.tokens for h in van]
+    eng = PagedServingEngine(net, speculative=SpeculativeDecoder(
+        exit_layer=1, k=3), **kw)
+    eng.warmup()
+    verify, rec = eng._spec_verify, []
+
+    def recording_verify(slot, ids, pos):
+        out = verify(slot, ids, pos)
+        rid = eng._seqs[slot].handle.request.request_id
+        rec.extend((rid, pos + i, tuple(ids[0, :i + 1]), out[i].clone())
+                   for i in range(ids.shape[1]))
+        return out
+
+    eng._spec_verify = recording_verify
+    hs = eng.generate(prompts, max_new_tokens=12)
+    assert [h.tokens for h in hs] == want
+    # request ids -> prompt index, in each engine
+    spec_j = {h.request.request_id: j for j, h in enumerate(hs)}
+    van_id = [h.request.request_id for h in van]
+    compared = 0
+    for rid, q, ctx, row in rec:
+        j = spec_j[rid]
+        stream = list(prompts[j]) + want[j]
+        p = q - len(ctx) + 1
+        if q + 1 < len(stream) and tuple(stream[p:q + 1]) == ctx:
+            assert torch.equal(row, van_rows[(van_id[j], q)]), (j, q)
+            compared += 1
+    assert compared >= 10
+    for e in (eng, vanilla):
+        e.close()
+        assert e.page_pool.pages_in_use == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["bfloat16", "int8"])
+def test_tier_round_trip_bit_equal_on_card(dev, cache):
+    """A prefix engine with a host spill tier on the card: its cached
+    pages spilled (read to the host, framed) and restored by a chain walk
+    (the adopt program writes them into fresh pages) land bit-equal, and
+    a warm request over them runs to its end."""
+    from paddle_tpu_torch.quantization.kv import is_quantized
+    from paddle_tpu_torch.serving import PagedServingEngine
+
+    def page(eng, p):
+        return [x[p].clone() for pair in eng._caches for t in pair
+                for x in ((t.q, t.scale) if is_quantized(t) else (t,))]
+
+    net = _prefix_net(dev, torch.bfloat16)
+    kw = dict(max_batch_size=2, max_seq_len=64, min_bucket=8, page_size=8,
+              cache_dtype=cache)
+    eng = PagedServingEngine(net, prefix_cache=True, kv_tiering=True, **kw)
+    eng.warmup()
+    prompt = np.random.RandomState(9).randint(0, 256, (26,))
+    (h,) = eng.generate([prompt], max_new_tokens=6)
+    toks, pc = h.output_ids, eng.prefix_cache
+    m = pc.match(toks, 31, eng.weights_version)
+    assert m.covered == 31
+    before = [page(eng, p) for p in m.pages]
+    assert pc.evict(100) == len(before)
+    m = pc.match(toks, 31, eng.weights_version)
+    assert m.covered == 31
+    assert eng.kv_tier.stats()["restores"] == {"host": len(before)}
+    for p, want in zip(m.pages, before):
+        assert all(torch.equal(a, b) for a, b in zip(page(eng, p), want))
+    cold = PagedServingEngine(net, **kw)
+    follow = np.concatenate([toks, [5, 6, 7]])
+    (warm,) = eng.generate([follow], max_new_tokens=4)
+    assert pc.stats()["hits"] == 1
+    assert warm.status == "DONE" and len(warm.tokens) == 4
+    (ref,) = cold.generate([follow], max_new_tokens=4)
+    assert len(ref.tokens) == 4
+    for e in (eng, cold):
+        e.close()
+        assert e.page_pool.pages_in_use == 0
 
 
 def _mt_lists(dev, dtype, seed):

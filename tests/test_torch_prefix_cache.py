@@ -518,8 +518,8 @@ def test_warmup_captures_gather_and_chunk_inventory(nets):
     for a, b in zip(hg, he):
         np.testing.assert_array_equal(a.output_ids, b.output_ids)
     assert eng.compile_counts() == counts
-    with pytest.raises(NotImplementedError, match="queue A item 1"):
-        _warm(tnet, kv_tiering=True)
+    with pytest.raises(NotImplementedError, match="queue A item 1.7"):
+        _warm(tnet, prefill_transport=object())
     for e in (eng, eager):
         e.close()
         _drained(e)

@@ -236,15 +236,50 @@ def _leaves(x):
     return [np.asarray(x)]
 
 
-@pytest.mark.parametrize("dtype,sequential", [
-    ("float32", False), ("int8", True)])
-def test_verify_program_equals_jax_body(nets, dtype, sequential):
-    """(b) One verify body over a block (width 32, k1 3 at pos 9) and
-    JAX ``build_verify_body`` on the same block, outside any engine (one
-    ``jax.jit`` of the body: op-by-op JAX takes seconds here): logits and
-    the written block within 2e-5 + 1e-4 relative (int8: codes within
-    one step, scales within the tolerance; a code can land on the other
-    side of a rounding midpoint)."""
+def _paged_verify(tnet, dtype, tblock, ids, pos):
+    """The paged engine's verify over an arena whose row 0 holds
+    ``tblock`` (width 32, pages of 8): its logits, and the arena read back
+    as a ``[1, 32]`` block per layer."""
+    eng = PagedServingEngine(tnet, cache_dtype=dtype, max_batch_size=4,
+                             max_seq_len=32, min_bucket=8, page_size=8)
+    pages = eng.page_pool.claim(4)
+    eng._tables[0, :4] = pages
+    idx = torch.as_tensor(pages)
+    with torch.inference_mode():
+        for arena, blk in zip(eng._caches, tblock):
+            for a, b in zip(arena, blk):
+                for x, y in zip(_leaves_t(a), _leaves_t(b)):
+                    x[idx] = y[0].reshape((4, 8) + tuple(y.shape[2:]))
+        logits = eng._spec_verify(0, ids, pos)
+        back = [tuple(tkv.QuantizedKV(a.q[idx].reshape((1, 32)
+                                                       + a.q.shape[2:]),
+                                      a.scale[idx].reshape(
+                                          (1, 32) + a.scale.shape[2:]))
+                      if tkv.is_quantized(a) else
+                      a[idx].reshape((1, 32) + a.shape[2:]) for a in pair)
+                for pair in eng._caches]
+    eng.close()
+    return logits, back
+
+
+def _leaves_t(x):
+    return [x.q, x.scale] if tkv.is_quantized(x) else [x]
+
+
+@pytest.mark.parametrize("dtype,sequential,kind", [
+    pytest.param("float32", False, "slab", id="float32-False"),
+    pytest.param("int8", True, "slab", id="int8-True"),
+    pytest.param("float32", False, "paged", id="float32-paged"),
+    pytest.param("int8", True, "paged", id="int8-paged")])
+def test_verify_program_equals_jax_body(nets, dtype, sequential, kind):
+    """(b) One verify over a block (width 32, k1 3 at pos 9) and JAX
+    ``build_verify_body`` on the same block, outside any engine (one
+    ``jax.jit`` of the body: op-by-op JAX takes seconds here): the slab's
+    verify body over the block, and the paged engine's verify (decode
+    replays over an arena holding the block in its row's pages); logits
+    and the written block within 2e-5 + 1e-4 relative (int8: codes
+    within one step, scales within the tolerance; a code can land on the
+    other side of a rounding midpoint)."""
     jnet, tnet = nets
     cfg = tnet.config
     rng = np.random.RandomState(4)
@@ -262,9 +297,13 @@ def test_verify_program_equals_jax_body(nets, dtype, sequential):
         # concrete state back (the JAX engine's restore discipline)
         jnet.load_functional_state(params, buffers)
         jnet.eval()
-    body = tspec.build_verify_body(tnet, tblock, 3, sequential)
-    with torch.inference_mode():
-        logits = body(torch.as_tensor(ids), torch.tensor([9], dtype=torch.int32))
+    if kind == "slab":
+        body = tspec.build_verify_body(tnet, tblock, 3, sequential)
+        with torch.inference_mode():
+            logits = body(torch.as_tensor(ids),
+                          torch.tensor([9], dtype=torch.int32))
+    else:
+        logits, tblock = _paged_verify(tnet, dtype, tblock, ids, 9)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
                                atol=ATOL, rtol=RTOL)
     got = [x for pair in tblock for t in pair for x in _leaves(t)]
@@ -326,6 +365,68 @@ def test_verify_rows_equal_vanilla_rows_bf16():
             assert float((vanilla - verify).abs().max()) <= 1e-6
 
 
+@pytest.mark.parametrize("cache,rows", [
+    ("bfloat16", 4), ("int8", 4), ("bfloat16", 2)])
+def test_paged_verify_rows_equal_vanilla_rows(prompts, cache, rows):
+    """C item 3 on the CPU: the paged verify (decode replays over the
+    arena) scores each position with the vanilla paged decode step's row
+    bit for bit, bf16 and int8 caches, also where ``k + 1`` exceeds the
+    engine's rows (consecutive replays, ``rows`` 2 and k 3); the early
+    exit at layer 1 rejects, so rollbacks run and the pool drains."""
+    net = LlamaForCausalLM(LlamaConfig.tiny(**TARGET), device="cpu", seed=5,
+                           dtype=torch.bfloat16)
+    kw = dict(cache_dtype=cache, max_batch_size=rows, max_seq_len=64,
+              min_bucket=8, page_size=4, demand_paging=True)
+    vanilla = PagedServingEngine(net, **kw)
+    van_rows = {}
+    run = vanilla._programs.run
+
+    def recording_run(key, build, *arrays):
+        out = run(key, build, *arrays)
+        if key == ("decode",):
+            for i, seq in enumerate(vanilla._seqs):
+                if seq is not None:
+                    van_rows[(seq.handle.request.request_id,
+                              int(arrays[1][i]))] = out[0][i].clone()
+        return out
+
+    vanilla._programs.run = recording_run
+    van = vanilla.generate(prompts, max_new_tokens=MAX_NEW)
+    want = [list(h.tokens) for h in van]
+    spec = SpeculativeDecoder(exit_layer=1, k=3)
+    eng = PagedServingEngine(net, speculative=spec, **kw)
+    verify = eng._spec_verify
+    ver_rows = []
+
+    def recording_verify(slot, ids, pos):
+        out = verify(slot, ids, pos)
+        rid = eng._seqs[slot].handle.request.request_id
+        for i in range(ids.shape[1]):
+            ver_rows.append((rid, pos + i, tuple(ids[0, :i + 1]),
+                             out[i].clone()))
+        return out
+
+    eng._spec_verify = recording_verify
+    hs = eng.generate(prompts, max_new_tokens=MAX_NEW)
+    assert [list(h.tokens) for h in hs] == want
+    # request ids -> prompt index, in each engine
+    spec_j = {h.request.request_id: j for j, h in enumerate(hs)}
+    van_id = [h.request.request_id for h in van]
+    compared = 0
+    for rid, q, ctx, row in ver_rows:
+        j = spec_j[rid]
+        stream = list(prompts[j]) + want[j]
+        p = q - len(ctx) + 1
+        if q + 1 < len(stream) and tuple(stream[p:q + 1]) == ctx:
+            assert torch.equal(row, van_rows[(van_id[j], q)]), (j, q)
+            compared += 1
+    assert compared >= 10
+    assert eng.spec_pages_rolled_back > 0
+    for e in (eng, vanilla):
+        e.close()
+        _drained(e)
+
+
 # ------------------------------------------------------- greedy streams
 @pytest.mark.parametrize("kind", ["slab", "paged"])
 @pytest.mark.parametrize("mode", ["exit", "draft"])
@@ -352,7 +453,9 @@ def test_greedy_streams_equal_vanilla(nets, prompts, dtype, kind):
     _, tnet = nets
     spec = SpeculativeDecoder(exit_layer=2, k=3)
     eng = _engine(kind, tnet, dtype, speculative=spec)
-    assert spec._sequential == (dtype == "int8")
+    # the slab's int8 verify runs decode sub-steps over its block; the
+    # paged engine replays its decode step over the arena
+    assert spec._sequential == (dtype == "int8" and kind == "slab")
     assert _streams(eng, prompts) == _vanilla(tnet, prompts, dtype)
 
 
@@ -453,10 +556,14 @@ def test_bind_validations(nets, draft_net):
 @pytest.mark.parametrize("kind", ["slab", "paged"])
 def test_warmup_inventory_and_graphs_equal_eager(nets, draft_net, prompts,
                                                  kind):
-    """(j) ``warmup()`` captures draft prefill per bucket, draft decode
-    per row, verify per (width, k1 in 1..k+1) and the gather after the
-    base inventory, a second call nothing, traffic nothing more; the
-    program streams (sampled, a separate draft) equal ``graphs=False``."""
+    """(j) ``warmup()`` captures draft prefill per bucket and draft
+    decode per row after the base inventory, and on the slab a verify
+    per k1 in 1..k+1 over its full-width block and the gather (the paged
+    verify replays the decode program: no program of its own); a second
+    call nothing, traffic nothing more (the paged engine's
+    ``serving::spec_verify`` then counts its verify replays, one a
+    round at k1 <= rows); the program streams (sampled, a separate draft)
+    equal ``graphs=False``."""
     _, tnet = nets
     samp = dict(do_sample=True, temperature=0.9, seed=3)
     out = []
@@ -466,17 +573,18 @@ def test_warmup_inventory_and_graphs_equal_eager(nets, draft_net, prompts,
                       **samp)
         if graphs:
             nb = len(eng._warmup_buckets())
-            widths = 1 if kind == "slab" else nb
-            assert eng.warmup()["programs"] == (
-                1 + 2 * nb + nb + 4 + widths * 4 + (1 if kind == "slab"
-                                                    else nb))
+            verify = 4 + 1 if kind == "slab" else 0
+            assert eng.warmup()["programs"] == 1 + 2 * nb + nb + 4 + verify
             counts = eng.compile_counts()
             assert counts["serving::spec_draft_prefill"] == nb
             assert counts["serving::spec_draft_decode"] == 4
-            assert counts["serving::spec_verify"] == widths * 4
+            assert counts["serving::spec_verify"] == (4 if kind == "slab"
+                                                      else 0)
             assert eng.warmup()["programs"] == 0
         out.append(_streams(eng, prompts, close=False))
         if graphs:
+            if kind == "paged":
+                counts["serving::spec_verify"] = spec.stats()["rounds"]
             assert eng.compile_counts() == counts
         eng.close()
     assert out[0] == out[1]
