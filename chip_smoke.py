@@ -236,6 +236,48 @@ every ``warmup()`` a ``... memory_report:`` line gives the engine's
 program count, the largest capture peak, the graph pool growth summed
 and the five largest programs.
 
+Checkpoints, live reload and ``generate``'s programs add: after the
+training phase, the checkpoint phase (Llama-2-7B widths at 2 layers,
+fp32, AdamW, B 2 x S 2048: the depth is cut so that a checkpoint holds
+about 8 GB): 6 steps with a ``CheckpointManager`` (async saves, a save
+every 2 steps, the last 2 kept) attached to the trainer, and a
+synchronous host copy right after step 2; gates: step 2's committed
+checkpoint equals that copy bit for bit although steps 3-4 updated the
+tensors in place meanwhile, the launches follow the structure; printed:
+save, blocked and snapshot seconds, bytes, the write rate and the
+seconds of ``verify_checkpoint(level="full")``; then the trained net
+publishes into running engines: a warmed bf16 paged engine of the same
+architecture serves 8 requests, serves them again while
+``prepare_reload`` of the newest (fp32) checkpoint runs on another thread
+(the streams must not change), and has one more in flight when
+``commit_reload`` runs; gates: the in-flight request's tokens
+equal its pre-swap stream, the post-swap streams equal a fresh engine's
+on the trained net cast to bf16 token for token, and no program is
+captured again and the parameters keep their addresses; then the same
+for a quantized engine (int8 weights and arena) through a bf16
+``template_net``, against a fresh quantized engine; printed: prepare
+seconds (verify, read, copy), the pause and the swap's copy, and
+``torch.cuda.mem_get_info()``; then step 6's checkpoint is torn and a
+fresh trainer's ``restore_or_init()`` falls back to step 4 and takes
+steps 5-6 (gate: its losses within 1e-6 relative of the uninterrupted
+run's; printed: the largest parameter difference and whether the steps
+were bit-equal); the checkpoint root is deleted and the free disk space
+printed before and after. The beam phase runs
+``generate``'s greedy, sampled (temperature 0.8, top_p 0.9, seed 7) and
+beam modes each with ``graphs=False`` and as its program (one CUDA graph
+of the whole prefill and decode a signature); gates: the programs'
+tokens equal the eager loop's, a repeated signature captures nothing;
+printed: ms a step of both, the capturing call's seconds and the growth
+of reserved memory over it, and the greedy and beam graphs' node counts; the tiny beam of the spec
+parity also runs its program. After the spec phase, the full-depth
+reload: the serving phase's graph engine reloads a 13.5 GB bf16
+checkpoint of a second net (seed 1) that a fresh engine served first and
+a ``CheckpointManager`` saved; gates: the 12 serving requests' streams
+equal the fresh engine's and nothing is captured again; printed: the
+save, the prepare split into verify, read and host-to-device copy, the
+swap's copy and the peak memory during staging. ``launches_by_phase``
+gains ``checkpoint`` and ``full_reload``.
+
 ``--profile-steps N`` profiles N replays of the spec phase's decode
 program (its verify) and draft decode, and N decode steps after each serving phase
 (the graph engine's, and the bf16 and quantized eager engines'), with
@@ -2588,10 +2630,11 @@ def spec_parity(torch, np, dev):
 
 
 def _tiny_beam(torch, np, dev, net, cfg):
-    """The tiny net's beam search (B 2, 3 beams, fp32 cache) on the card
-    against the same weights on the CPU, token for token, without and
-    with an EOS (the winner's second token): after its first EOS a row
-    emits only EOS."""
+    """The tiny net's beam search (B 2, 3 beams, fp32 cache) on the card,
+    as its program (a CUDA graph) and with ``graphs=False``, against the
+    same weights on the CPU, token for token, without and with an EOS
+    (the winner's second token): after its first EOS a row emits only
+    EOS."""
     from paddle_tpu_torch.convert import load_numpy_state, numpy_state
     from paddle_tpu_torch.models import LlamaForCausalLM
 
@@ -2603,10 +2646,13 @@ def _tiny_beam(torch, np, dev, net, cfg):
     def both(**extra):
         card = net.generate(torch.as_tensor(ids, device=dev), **kw,
                             **extra).cpu().numpy()
+        eager = net.generate(torch.as_tensor(ids, device=dev), **kw,
+                             graphs=False, **extra).cpu().numpy()
         want = cpu.generate(ids, **kw, **extra).numpy()
-        if not np.array_equal(card, want):
+        if not (np.array_equal(card, want) and np.array_equal(eager, want)):
             fail(f"spec parity: tiny beam search ({extra}) on the card "
-                 f"{card.tolist()} != the CPU's {want.tolist()}")
+                 f"{card.tolist()} (program), {eager.tolist()} (eager) != "
+                 f"the CPU's {want.tolist()}")
         return card
 
     free = both()
@@ -3296,6 +3342,424 @@ def optimizer_phase(torch, np, net, inputs, labels, card):
     return total
 
 
+# --------------------------------------------------- checkpoints, publish
+# the checkpoint phase: Llama-2-7B widths at 2 of its 32 layers, fp32,
+# AdamW, B 2 x S 2048 (the depth is cut so that a checkpoint, fp32
+# parameters and both moments, is about 8 GB on disk: 666.9M parameters x
+# 12 B); a save every 2 steps, the last 2 kept
+CKPT_LAYERS, CKPT_STEPS, CKPT_EVERY, CKPT_KEEP = 2, 6, 2, 2
+# the publish legs: 8 requests (seed 2024) of 32-512 prompt tokens, 32 new
+CKPT_REQUESTS, CKPT_NEW = 8, 32
+# the resumed steps' losses against the uninterrupted run's, relative
+RESUME_RTOL = 1e-6
+# checkpoints are written inside the checkout (build/ is git-ignored)
+CKPT_DIR = os.path.join(HERE, "build", "chip_smoke_checkpoints")
+
+
+def _train_per_step(layers):
+    """An unfused fp32 or O1 step's launches at ``layers`` layers (the
+    optimizer over 9 tensors a layer and 3 more, one table)."""
+    tensors = 9 * layers + 3
+    return dict(TRAIN_PER_STEP, rms_norm=2 * layers + 1,
+                rms_norm_bwd=2 * layers + 1, rope=layers, rope_bwd=layers,
+                flash_attention_fwd=layers, flash_attention_bwd=layers,
+                mt_sumsq=mt_launches("mt_sumsq", tensors),
+                mt_adam=mt_launches("mt_adam", tensors))
+
+
+def _disk_free(path):
+    import shutil
+
+    return shutil.disk_usage(path).free
+
+
+def _add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _trainer(torch, net):
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.models import causal_lm_loss
+    from paddle_tpu_torch.optimizer import (AdamW, ClipGradByGlobalNorm,
+                                            LinearWarmup)
+
+    sched = LinearWarmup(3e-4, 3, 3e-5, 3e-4)
+    opt = AdamW(sched, parameters=net.named_parameters(), weight_decay=0.01,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    step = CompiledTrainStep(
+        net, lambda lo, lb: causal_lm_loss(lo, lb).mean(), opt)
+    return step, opt, sched
+
+
+def _state_on_host(net, opt):
+    """The checkpointed tensors (parameters and moments) as host copies,
+    by their metadata names."""
+    out = {f"model/{k}": v.detach().to("cpu", copy=True)
+           for k, v in net.state_dict().items()}
+    out.update({f"opt/{k}": v.detach().to("cpu", copy=True)
+                for k, v in opt.state_dict().items()
+                if hasattr(v, "detach")})
+    return out
+
+
+def _equals_checkpoint(np, path, host):
+    """Whether every tensor of the committed checkpoint at ``path`` equals
+    ``host`` (name -> CPU tensor) bit for bit; (equal, tensors, bytes)."""
+    from paddle_tpu_torch.distributed.checkpoint.metadata import Metadata
+
+    with open(os.path.join(path, "metadata.json")) as f:
+        meta = Metadata.from_json(f.read())
+    n = nbytes = 0
+    for name, t in host.items():
+        tm = meta.tensors.get(name)
+        if tm is None:
+            return False, name, 0
+        got = np.load(os.path.join(path, tm.shards[0].file), mmap_mode="r")
+        if not np.array_equal(got, t.numpy()):
+            return False, name, nbytes
+        n += 1
+        nbytes += got.nbytes
+    return True, n, nbytes
+
+
+def checkpoint_phase(torch, np, dev, card):
+    """Train, save, resume, publish at Llama-2-7B widths, CKPT_LAYERS
+    layers, fp32 (the depth cut keeps a checkpoint near 8 GB):
+
+    - CKPT_STEPS AdamW steps (B 2 x S 2048) with a ``CheckpointManager``
+      (async saves, ``CheckpointPolicy(save_every_steps=2,
+      keep_last_k=2)``) attached; a synchronous host copy of the state
+      right after step 2; gates: step 2's committed checkpoint equals
+      that copy bit for bit (steps 3-4 ran in place meanwhile), launches
+      by formula; prints save, blocked and snapshot seconds, bytes, the
+      write rate and ``verify_checkpoint(level="full")``'s seconds;
+    - a bf16 paged engine of the same architecture (random weights,
+      warmed) serves CKPT_REQUESTS requests, and again while the newest
+      checkpoint's ``prepare_reload`` runs on another thread (fp32, cast
+      on load); one more is in flight when ``commit_reload`` runs; gates: the in-flight request's tokens equal the pre-swap
+      stream of its prompt, the post-swap streams equal a fresh engine's
+      on the trained net cast to bf16, no capture and the same parameter
+      addresses across the swap; prints prepare seconds, the pause and
+      the swap's copy;
+    - a quantized engine (int8 weights and arena) reloads the same
+      checkpoint through a bf16 ``template_net``; gate: its streams equal
+      a fresh quantized engine's built from the trained net;
+    - then the newest checkpoint torn (``chaos.tear_checkpoint``): a fresh
+      trainer's ``restore_or_init()`` falls back to step 4 and takes steps
+      5-6; gate: its losses within RESUME_RTOL of the uninterrupted run's;
+      prints the largest parameter difference and whether the steps are
+      bit-equal.
+
+    The checkpoint root is deleted at the end. Returns the phase's launch
+    counts."""
+    import gc
+    import shutil
+
+    from paddle_tpu_torch import chaos, kernels
+    from paddle_tpu_torch.checkpoint import (CheckpointManager,
+                                             CheckpointPolicy, commit)
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    os.makedirs(CKPT_DIR)
+    free0 = _disk_free(CKPT_DIR)
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=CKPT_LAYERS)
+    net = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=0)
+    n_params = net.num_params()
+    ids = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))
+    ids = torch.as_tensor(ids, dtype=torch.long, device=dev)
+    inputs, labels = ids[:, :-1].contiguous(), ids[:, 1:].contiguous()
+    policy = CheckpointPolicy(save_every_steps=CKPT_EVERY,
+                              keep_last_k=CKPT_KEEP)
+    step, opt, sched = _trainer(torch, net)
+    mgr = step.attach_checkpoint(CheckpointManager(
+        CKPT_DIR, async_saves=True, policy=policy))
+    total = {}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    losses, times, busy = [], [], {}
+    host2 = copy_s = None
+    step2_check = None
+    for i in range(1, CKPT_STEPS + 1):
+        t0 = time.perf_counter()
+        loss, _ = step([inputs], [labels])
+        sched.step()
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+        busy[i] = mgr._saver.busy()
+        if i == 2:
+            t0 = time.perf_counter()
+            host2 = _state_on_host(net, opt)
+            copy_s = time.perf_counter() - t0
+        if i == 4:
+            # step 4's save waited for step 2's write (one in flight), so
+            # step 2 is committed now; steps 3 and 4 updated in place
+            path2 = commit.step_dir(CKPT_DIR, 2)
+            if commit.read_manifest(path2) is None:
+                fail(f"checkpoint: step 2 not committed after step 4")
+            step2_check = _equals_checkpoint(np, path2, host2)
+            del host2
+    counts = kernels.launch_counts()
+    _add_counts(total, counts)
+    mgr.close()
+    want = {k: n * CKPT_STEPS for k, n in _train_per_step(
+        CKPT_LAYERS).items()}
+    if counts != want:
+        fail(f"checkpoint: launches {counts}, expected {want}")
+    if not (step2_check and step2_check[0]):
+        fail(f"checkpoint: step 2's checkpoint differs from the host copy "
+             f"taken after step 2: {step2_check}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"checkpoint: losses {losses}")
+    committed = [s for s, _ in commit.list_committed(CKPT_DIR)]
+    if committed != [6, 4]:
+        fail(f"checkpoint: committed {committed}, expected [6, 4]")
+    path6 = commit.step_dir(CKPT_DIR, 6)
+    t0 = time.perf_counter()
+    problems = commit.verify_checkpoint(path6, level="full")
+    verify_s = time.perf_counter() - t0
+    if problems:
+        fail(f"checkpoint: step 6 does not verify: {problems}")
+    ckpt_bytes = sum(r["bytes"] for r in commit.read_manifest(
+        path6)["files"].values())
+    saves = mgr.save_seconds.snapshot()
+    train = {
+        "card": card, "model": f"Llama-2-7B widths, {CKPT_LAYERS} layers, "
+                               f"fp32, AdamW, random weights",
+        "params": n_params, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+        "losses": losses, "step_s": times,
+        "writer_busy_after_step": busy, "committed": committed,
+        "step2_equal_to_host_copy": {"tensors": step2_check[1],
+                                     "bytes": step2_check[2]},
+        "host_copy_s": copy_s,
+        "checkpoint_bytes": ckpt_bytes,
+        "save_s": saves, "blocked_s": mgr.blocked_seconds.snapshot(),
+        "snapshot_s": mgr.snapshot_seconds.snapshot(),
+        "saves": mgr.saves_total.by_label(),
+        "bytes_written": mgr.bytes_total.value,
+        "write_gb_per_s": mgr.bytes_total.value / mgr.save_seconds.sum / 1e9,
+        "verify_full_s": verify_s,
+        "verify_gb_per_s": ckpt_bytes / verify_s / 1e9,
+        "disk_free_bytes_before": free0,
+    }
+    log("checkpoint (train and save): " + json.dumps(train))
+    uninterrupted = losses
+    del step, opt, sched, mgr, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- publish: the trained net (step 6) into running engines
+    publish = publish_legs(torch, np, dev, card, cfg, net, total)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- resume past a torn newest checkpoint (its commit marker gone:
+    # rejected without reading it; the CPU tests tear every way)
+    chaos.tear_checkpoint(path6, "delete_manifest")
+    net2 = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=1)
+    step2, opt2, sched2 = _trainer(torch, net2)
+    mgr2 = CheckpointManager(CKPT_DIR, network=net2, optimizer=opt2,
+                             async_saves=False)
+    t0 = time.perf_counter()
+    res = mgr2.restore_or_init()
+    restore_s = time.perf_counter() - t0
+    mgr2.close()
+    if not (res.restored and res.step == 4 and opt2._step_count == 4
+            and mgr2.fallbacks_total.by_label() == {"manifest_missing": 1}):
+        fail(f"checkpoint: restore gave {res}, step count "
+             f"{opt2._step_count}, fallbacks "
+             f"{mgr2.fallbacks_total.by_label()}")
+    # the save ran inside step 4, before that iteration's sched.step()
+    sched2.step()
+    kernels.reset_launch_counts()
+    resumed = []
+    for _ in range(CKPT_STEPS - 4):
+        loss, _ = step2([inputs], [labels])
+        sched2.step()
+        resumed.append(float(loss))
+    _add_counts(total, kernels.launch_counts())
+    rel = [abs(a - b) / abs(b) for a, b in zip(resumed, uninterrupted[4:])]
+    if max(rel) > RESUME_RTOL:
+        fail(f"checkpoint: resumed losses {resumed} against the "
+             f"uninterrupted {uninterrupted[4:]} (relative {rel})")
+    with torch.no_grad():
+        diffs = {k: float((a - b).abs().max()) for (k, a), (_, b) in zip(
+            net2.named_parameters(), net.named_parameters())}
+    resume = {
+        "card": card, "restored_step": res.step, "restore_s": restore_s,
+        "fallbacks": mgr2.fallbacks_total.by_label(),
+        "losses": resumed, "uninterrupted_losses": uninterrupted[4:],
+        "relative": rel, "losses_bit_equal": resumed == uninterrupted[4:],
+        "max_param_diff": max(diffs.values()),
+        "params_bit_equal": all(d == 0.0 for d in diffs.values()),
+    }
+    log("checkpoint (resume): " + json.dumps(resume))
+    del net, net2, step2, opt2, sched2, mgr2, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    out = {"card": card, "phase_s": time.perf_counter() - t_phase,
+           "disk_free_bytes_before": free0,
+           "disk_free_bytes_after": _disk_free(os.path.dirname(CKPT_DIR)),
+           "publish": publish}
+    log("checkpoint phase: " + json.dumps(out))
+    return total
+
+
+def _timed_apply(eng):
+    """Time the engine's swap itself (host clock to a sync) on its next
+    apply; returns the dict the seconds land in."""
+    import torch
+
+    seen = {}
+    inner = eng._apply_reload
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inner()
+        torch.cuda.synchronize()
+        seen["apply_s"] = time.perf_counter() - t0
+
+    eng._apply_reload = timed
+    return seen
+
+
+def _weight_ptrs(net):
+    return [t.data_ptr() for t in net.state_dict(keep_vars=True).values()]
+
+
+def publish_legs(torch, np, dev, card, cfg, trained, total):
+    """The bf16 and int8 publish legs of ``checkpoint_phase``: each
+    engine's ``prepare_reload`` runs on a thread while the engine serves
+    its requests again (the streams must not change), then one request
+    is in flight at ``commit_reload``. Adds their launches to ``total``;
+    returns their numbers."""
+    import gc
+    import threading
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.quantization import quantize_for_serving
+    from paddle_tpu_torch.serving import PagedServingEngine
+
+    rng = np.random.RandomState(2024)
+    prompts = [rng.randint(0, cfg.vocab_size, (int(n),))
+               for n in rng.randint(32, 513, size=CKPT_REQUESTS)]
+    out = {}
+    # the reference: the trained net cast to bf16 (as the load casts)
+    fresh_net = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                                 seed=0)
+    with torch.no_grad():
+        for (k, p), (k2, q) in zip(fresh_net.state_dict().items(),
+                                   trained.state_dict().items()):
+            p.copy_(q)
+
+    def streams(eng):
+        hs = eng.generate(prompts, CKPT_NEW)
+        bad = [h for h in hs if h.status != "DONE"]
+        if bad:
+            fail(f"publish: request {bad[0].request.request_id} "
+                 f"{bad[0].status}")
+        return [h.tokens for h in hs]
+
+    for leg in ("bf16", "int8"):
+        kernels.reset_launch_counts()
+        cache = "bfloat16" if leg == "bf16" else "int8"
+        init = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                                seed=5)
+        if leg == "int8":
+            quantize_for_serving(init, inplace=True)
+            ref_net = quantize_for_serving(fresh_net)
+            template = LlamaForCausalLM(cfg, device=dev,
+                                        dtype=torch.bfloat16, seed=7)
+        else:
+            ref_net, template = fresh_net, None
+        eng = PagedServingEngine(init, cache_dtype=cache, **ENGINE_KW)
+        warm = warm_engine(torch, eng, f"publish ({leg})")
+        pre = streams(eng)
+        captures = eng.compile_counts()
+        ptrs = _weight_ptrs(init)
+        free, total_mem = torch.cuda.mem_get_info()
+        box = {}
+
+        def prepare():
+            t0 = time.perf_counter()
+            # the int8 leg reads the directory the bf16 leg verified in
+            # full
+            box["staged"] = eng.prepare_reload(
+                CKPT_DIR, template_net=template,
+                verify_level="full" if leg == "bf16" else "size")
+            box["prepare_s"] = time.perf_counter() - t0
+
+        # the prepare runs off the engine's thread while the engine serves
+        # the same requests again: its replays must not be disturbed
+        worker = threading.Thread(target=prepare)
+        t0 = time.perf_counter()
+        worker.start()
+        during = streams(eng)
+        traffic_s = time.perf_counter() - t0
+        overlapped = worker.is_alive()
+        worker.join()
+        if during != pre:
+            fail(f"publish ({leg}): streams served during the prepare "
+                 f"differ from the ones before it")
+        staged, prepare_s = box.get("staged"), box.get("prepare_s")
+        if staged is None or not staged.ok:
+            fail(f"publish ({leg}): prepare_reload: "
+                 f"{staged and staged.to_json()}")
+        h_in = eng.submit(prompts[0], CKPT_NEW)
+        eng.step()
+        if h_in.status != "RUNNING":
+            fail(f"publish ({leg}): the request is not in flight")
+        seen = _timed_apply(eng)
+        eng.commit_reload(staged)
+        if not eng.reload_in_progress:
+            fail(f"publish ({leg}): the swap applied with a request in "
+                 f"flight")
+        eng.run_until_idle()
+        post = streams(eng)
+        if h_in.tokens != pre[0] or h_in.weights_version != "v0":
+            fail(f"publish ({leg}): the in-flight request ran "
+                 f"{h_in.tokens} ({h_in.weights_version}), the pre-swap "
+                 f"stream is {pre[0]}")
+        ref = PagedServingEngine(ref_net, cache_dtype=cache, **ENGINE_KW)
+        want = streams(ref)
+        ref.close()
+        differ = sum(a != b for x, y in zip(post, want)
+                     for a, b in zip(x, y))
+        if post != want:
+            fail(f"publish ({leg}): {differ} post-swap tokens differ from a "
+                 f"fresh engine's on the trained weights")
+        if eng.compile_counts() != captures or _weight_ptrs(init) != ptrs:
+            fail(f"publish ({leg}): captures {eng.compile_counts()} (before "
+                 f"{captures}) or parameter addresses moved across the swap")
+        m = eng.metrics
+        res = {"card": card, "cache": cache, "weights_version":
+               eng.weights_version, "reloads": m.reloads.by_label(),
+               "prepare_s": prepare_s, "timings": staged.timings,
+               "traffic_during_prepare_s": traffic_s,
+               "prepare_outlasted_traffic": overlapped,
+               "pause_s": m.reload_ttft_spike.sum,
+               "apply_s": seen.get("apply_s"),
+               "mem_get_info_before_prepare": [free, total_mem],
+               "tokens_differing_from_pre_swap": sum(
+                   a != b for x, y in zip(post, pre) for a, b in zip(x, y)),
+               "warmup_s": warm["warmup_s"], "captures": captures}
+        log(f"publish ({leg}): " + json.dumps(res))
+        out[leg] = res
+        _add_counts(total, kernels.launch_counts())
+        eng.close()
+        del eng, init, ref_net, template, ref, staged
+        gc.collect()
+        torch.cuda.empty_cache()
+    del fresh_net
+    return out
+
+
 # ------------------------------------------------------------ serving
 SERVE_MAX_NEW = 64
 # every serving phase's engines: 8 rows of 2048 slots, pages of 16
@@ -3564,10 +4028,12 @@ def serving_phase(torch, np, dev, card, profile_steps=0):
     session = session_phase(torch, np, dev, card, net, eng)
     beam = beam_phase(torch, np, dev, card, net)
     # the perfect-draft leg zeroes layers of this net: no later phase uses
-    # it (the quantized phase builds its own)
+    # its weights (the full-depth reload replaces them; the quantized phase
+    # builds its own)
     spec = spec_phase(torch, np, dev, card, net, eng, profile_steps)
+    reload = full_reload_phase(torch, np, dev, card, eng)
     return (graph_run["counts"], runs[0]["counts"], fused, prefix, session,
-            spec, beam)
+            spec, beam, reload)
 
 
 def fused_serving(torch, np, dev, card, net, eng, eager, cfg,
@@ -4412,20 +4878,64 @@ def spec_phase(torch, np, dev, card, net, vanilla, profile=0):
 
 # ------------------------------------------------------- beam search
 BEAM_B, BEAM_K, BEAM_PROMPT, BEAM_NEW = 2, 4, 128, 64
+# generate's modes at 7B, each as the program and with graphs=False
+GENERATE_MODES = {
+    "greedy": dict(),
+    "sampled": dict(do_sample=True, temperature=0.8, top_p=0.9, seed=7),
+    "beam": dict(num_beams=BEAM_K),
+}
+
+
+def graph_nodes(body, inputs, pool, stream):
+    """The node count of ``body`` over ``inputs`` captured once more into
+    a kept graph (``keep_graph=True``; ``cuGraphGetNodes`` of
+    ``libcuda``), or None where this PyTorch or libcuda cannot say.
+    The capture is dropped after."""
+    import ctypes
+
+    import torch
+
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError:
+        return None
+    with torch.cuda.graph(graph, pool=pool, stream=stream):
+        body(*inputs)
+    try:
+        lib = ctypes.CDLL("libcuda.so.1")
+        n = ctypes.c_size_t(0)
+        rc = lib.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()),
+                                 None, ctypes.byref(n))
+        return int(n.value) if rc == 0 else None
+    except (OSError, AttributeError, RuntimeError):
+        return None
+    finally:
+        del graph
 
 
 def beam_phase(torch, np, dev, card, net):
-    """``generate`` at Llama-2-7B: beam search (B 2, 4 beams, prompt 128,
-    64 new tokens, bf16 cache) beside greedy on the same prompts, each
-    timed (host clock to a sync); then the beam search again with the
-    winning beam's first token as EOS. Fails unless the outputs are in
-    the vocabulary, the beam's kernels launched, and after its first EOS
-    a row emits only EOS (the freeze). Returns the launch counts of the
-    first beam search."""
+    """``generate`` at Llama-2-7B, B 2, prompt 128, 64 new tokens, bf16
+    cache: greedy, sampled (temperature 0.8, top_p 0.9, seed 7) and beam
+    search (4 beams), each with ``graphs=False`` (the eager loop) and as
+    its program (the whole prefill and decode, one CUDA graph per
+    signature: the first call captures, the second replays), timed (host
+    clock to a sync); then the beam search again (the eager loop) with
+    the winning beam's first token as EOS. Fails unless every program's
+    tokens equal the eager loop's, a repeated signature captures nothing,
+    the outputs are in the vocabulary, the beam's kernels launched, and
+    after its first EOS a row emits only EOS. Prints ms a step for both, the
+    capturing call's seconds (``capture_call_s``), the growth of reserved
+    memory over that call from an emptied cache (``graph_pool_bytes``)
+    and the node count of the greedy and beam graphs. Returns the launch counts of the phase."""
+    import gc
+
     from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models.generation import generate_programs
 
     ids = torch.as_tensor(np.random.RandomState(777).randint(
         0, net.config.vocab_size, (BEAM_B, BEAM_PROMPT)), device=dev)
+    cache = generate_programs(net)
+    t_phase = time.perf_counter()
 
     def timed(**kw):
         torch.cuda.synchronize()
@@ -4434,34 +4944,151 @@ def beam_phase(torch, np, dev, card, net):
         torch.cuda.synchronize()
         return out.cpu().numpy(), time.perf_counter() - t0
 
-    greedy, greedy_s = timed()
     kernels.reset_launch_counts()
-    beam, beam_s = timed(num_beams=BEAM_K)
+    res = {"card": card, "batch": BEAM_B, "num_beams": BEAM_K,
+           "prompt": BEAM_PROMPT, "new_tokens": BEAM_NEW}
+    outs = {}
+    for mode, kw in GENERATE_MODES.items():
+        eager, eager_s = timed(graphs=False, **kw)
+        n0, before = cache.captures, set(cache)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        first, first_s = timed(**kw)
+        pool_bytes = torch.cuda.memory_reserved() - reserved
+        n1 = cache.captures
+        again, again_s = timed(**kw)
+        if cache.captures != n1 or n1 != n0 + 1:
+            fail(f"beam ({mode}): captures {n0} -> {n1} -> "
+                 f"{cache.captures}; one capture a signature expected")
+        for got, when in ((first, "capturing"), (again, "replayed")):
+            if not np.array_equal(got, eager):
+                fail(f"beam ({mode}): the {when} program's tokens differ "
+                     f"from the eager loop's in "
+                     f"{int((got != eager).sum())} places")
+        if eager.shape != (BEAM_B, BEAM_PROMPT + BEAM_NEW) \
+                or eager.min() < 0 or eager.max() >= net.config.vocab_size:
+            fail(f"beam ({mode}): output of shape {eager.shape}, ids "
+                 f"{eager.min()}..{eager.max()}")
+        prog = cache[next(k for k in cache if k not in before)]
+        res[mode] = {"eager_ms_per_step": 1e3 * eager_s / BEAM_NEW,
+                     "program_ms_per_step": 1e3 * again_s / BEAM_NEW,
+                     "capture_call_s": first_s,
+                     "graph_pool_bytes": pool_bytes,
+                     "eager_s": eager_s, "program_s": again_s}
+        if mode in ("greedy", "beam") and prog.program.cuda:
+            p = prog.program
+            res[mode]["graph_nodes"] = graph_nodes(p.body, p.inputs, p.pool,
+                                                   p.stream)
+        outs[mode] = eager
     counts = kernels.launch_counts()
     if not (counts["rms_norm"] and counts["rope"]):
         fail(f"beam: launches {counts}")
+    beam = outs["beam"]
     eos = int(beam[0, BEAM_PROMPT])
-    frozen, _ = timed(num_beams=BEAM_K, eos_token_id=eos)
-    for out in (greedy, beam, frozen):
-        if out.shape != (BEAM_B, BEAM_PROMPT + BEAM_NEW) or out.min() < 0 \
-                or out.max() >= net.config.vocab_size:
-            fail(f"beam: output of shape {out.shape}, ids "
-                 f"{out.min()}..{out.max()}")
+    frozen, _ = timed(num_beams=BEAM_K, eos_token_id=eos, graphs=False)
     for row in frozen[:, BEAM_PROMPT:]:
         hit = np.flatnonzero(row == eos)
         if len(hit) and (row[hit[0]:] != eos).any():
             fail(f"beam: a row emitted past its EOS: {row.tolist()}")
-    res = {"card": card, "batch": BEAM_B, "num_beams": BEAM_K,
-           "prompt": BEAM_PROMPT, "new_tokens": BEAM_NEW,
-           "beam_ms_per_step": 1e3 * beam_s / BEAM_NEW,
-           "greedy_ms_per_step": 1e3 * greedy_s / BEAM_NEW,
-           "beam_s": beam_s, "greedy_s": greedy_s,
-           "tokens_differing_from_greedy": int(
-               (beam[:, BEAM_PROMPT:] != greedy[:, BEAM_PROMPT:]).sum()),
-           "eos": eos, "eos_row_0": frozen[0, BEAM_PROMPT:].tolist(),
-           "launches": {k: v for k, v in counts.items() if v}}
+    res.update({
+        "signatures": [list(s) for s in cache],
+        "captures": cache.captures,
+        "tokens_differing_from_greedy": int(
+            (beam[:, BEAM_PROMPT:] != outs["greedy"][:, BEAM_PROMPT:]).sum()),
+        "eos": eos, "eos_row_0": frozen[0, BEAM_PROMPT:].tolist(),
+        "launches": {k: v for k, v in counts.items() if v},
+        "phase_s": time.perf_counter() - t_phase})
     log("beam: " + json.dumps(res))
+    # the programs' graph pool goes back before the spec phase
+    cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
     return counts
+
+
+# ------------------------------------------------ full-depth live reload
+RELOAD_DIR = os.path.join(HERE, "build", "chip_smoke_reload")
+
+
+def full_reload_phase(torch, np, dev, card, eng):
+    """Live reload at full depth: the serving phase's graph engine
+    (Llama-2-7B bf16, 8 rows x 2048 slots, warmed) reloads a bf16
+    checkpoint (13.5 GB) of a second net from seed 1, which a fresh engine
+    served first (the reference streams), then was saved and committed by
+    a ``CheckpointManager`` and freed. Gates: the 12 serving requests'
+    post-swap streams equal the fresh engine's token for token, and no
+    program was captured again (nor during traffic) and the parameters'
+    addresses stayed. Prints the save, the prepare split into verify (the
+    CRCs), read and host-to-device copy, the swap's copy (the pause of an
+    idle engine), ``torch.cuda.mem_get_info()`` and the peak allocated
+    during staging. Returns the post-swap run's launch counts."""
+    import gc
+    import shutil
+
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.serving import PagedServingEngine
+
+    t_phase = time.perf_counter()
+    cfg = eng.config
+    shutil.rmtree(RELOAD_DIR, ignore_errors=True)
+    net1 = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=1)
+    fresh = PagedServingEngine(net1, cache_dtype="bfloat16", **ENGINE_KW)
+    ref = drive_requests(torch, np, fresh, cfg, "graphs",
+                         "full reload (fresh engine, seed 1)")
+    fresh.close()
+    mgr = CheckpointManager(RELOAD_DIR, network=net1, async_saves=False)
+    t0 = time.perf_counter()
+    mgr.save(1)
+    save_s = time.perf_counter() - t0
+    mgr.close()
+    del fresh, net1, mgr
+    gc.collect()
+    torch.cuda.empty_cache()
+    captures = eng.compile_counts()
+    ptrs = _weight_ptrs(eng.net)
+    torch.cuda.synchronize()
+    info = torch.cuda.mem_get_info()
+    torch.cuda.reset_peak_memory_stats()
+    alloc0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    staged = eng.prepare_reload(RELOAD_DIR)
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if not staged.ok:
+        fail(f"full reload: prepare_reload: {staged.to_json()}")
+    seen = _timed_apply(eng)
+    eng.commit_reload(staged)
+    if not staged.applied:
+        fail(f"full reload: an idle engine did not apply: "
+             f"{staged.to_json()}")
+    reloads = eng.metrics.reloads.by_label()
+    timings = dict(staged.timings)
+    del staged
+    gc.collect()
+    run = drive_requests(torch, np, eng, cfg, "graphs",
+                         "full reload (reloaded engine)")
+    differ = sum(a != b for h, r in zip(run["handles"], ref["handles"])
+                 for a, b in zip(h.tokens, r.tokens))
+    if differ:
+        fail(f"full reload: {differ} tokens differ from the fresh engine's")
+    if run["captures"] != captures or run["captures_before"] != captures \
+            or _weight_ptrs(eng.net) != ptrs:
+        fail(f"full reload: captures {captures} -> "
+             f"{run['captures_before']} -> {run['captures']}, or the "
+             f"parameters moved")
+    shutil.rmtree(RELOAD_DIR, ignore_errors=True)
+    res = {"card": card, "save_s": save_s, "prepare_s": prepare_s,
+           "timings": timings,
+           "read_gb_per_s": timings["bytes"] / timings["read_s"] / 1e9,
+           "reloads": reloads, "apply_s": seen.get("apply_s"),
+           "mem_get_info_before_prepare": list(info),
+           "peak_allocated_above_start_bytes": peak - alloc0,
+           "weights_version": eng.weights_version,
+           "phase_s": time.perf_counter() - t_phase}
+    log("full reload: " + json.dumps(res))
+    return run["counts"]
 
 
 def quant_serving_phase(torch, np, dev, card, profile_steps=0):
@@ -4840,10 +5467,12 @@ def main():
     (train_counts, fused_train_counts, fp32_train_counts,
      fused_fp32_train_counts, opt_counts) = training_phase(
         torch, np, dev, card, args.profile_train_steps)
+    checkpoint_counts = checkpoint_phase(torch, np, dev, card)
     (serve_counts, serve_eager_counts,
      (fused_serve_counts, fused_serve_eager_counts),
      (prefix_counts, prefix_eager_counts), session_counts, spec_counts,
-     beam_counts) = serving_phase(torch, np, dev, card, args.profile_steps)
+     beam_counts, reload_counts) = serving_phase(torch, np, dev, card,
+                                                 args.profile_steps)
     quant_counts, quant_eager_counts = quant_serving_phase(
         torch, np, dev, card, args.profile_steps)
 
@@ -4876,6 +5505,8 @@ def main():
                     "spec_parity": spec_parity_counts[name],
                     "spec_serving": spec_counts.get(name, 0),
                     "beam": beam_counts[name],
+                    "checkpoint": checkpoint_counts.get(name, 0),
+                    "full_reload": reload_counts.get(name, 0),
                     "fused_training": fused_train_counts[name],
                     "fp32_training": fp32_train_counts[name],
                     "fused_fp32_training": fused_fp32_train_counts[name],

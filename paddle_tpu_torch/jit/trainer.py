@@ -32,6 +32,15 @@ step's fp32 formulas (``:527-556``); a skipped step does not count as an
 optimizer step. Without one, nothing is read back. The scheduler is not
 stepped here; the caller steps it, as in the JAX package. Returns ``(loss,
 outputs)``: the fp32 loss (unscaled) and the network's outputs, detached.
+
+``attach_checkpoint(manager)`` binds a ``checkpoint.CheckpointManager``
+(``trainer.py:110-130``): after each step the manager's policy decides on
+a save (``on_step(optimizer._step_count)``, ``:859-864``), and before
+each update the step fences the last snapshot (``manager.fence()``), so
+the update, which writes parameters and moments in place, waits for the
+snapshot's device-to-host copies while the forward and backward overlap
+them. The fp8 extra state the JAX trainer registers waits for AMP O3
+(``ROADMAP.md`` queue A item 3).
 """
 from __future__ import annotations
 
@@ -80,6 +89,17 @@ class CompiledTrainStep:
         self.scaler = self._normalize_scaler(scaler)
         self._plan = None
         self._inv = {}
+        self._checkpoint = None
+
+    def attach_checkpoint(self, manager):
+        """Wire a ``checkpoint.CheckpointManager`` into the step loop: it
+        is bound to this trainer's network and optimizer if it was built
+        bare, fenced before each update and stepped after it. Returns the
+        manager."""
+        manager.bind(self.network, self.optimizer)
+        manager._step_fences = True
+        self._checkpoint = manager
+        return manager
 
     @staticmethod
     def _normalize_scaler(scaler):
@@ -163,8 +183,12 @@ class CompiledTrainStep:
         opt._step_count += 1
         inv = (None if sc is None
                else self._inv_scale(items[0][0].device, sc._scale))
+        if self._checkpoint is not None:
+            self._checkpoint.fence()
         stats = opt._apply(items, opt.get_lr(), plan=self._plan, inv=inv)
         if sc is not None:
             self._update_scaler(stats.finite())
         opt.clear_grad()
+        if self._checkpoint is not None:
+            self._checkpoint.on_step(opt._step_count)
         return loss.detach(), [o.detach() for o in outs]

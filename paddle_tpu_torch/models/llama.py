@@ -458,12 +458,12 @@ class LlamaForCausalLM(nn.Module):
 
     def generate(self, input_ids, max_new_tokens=32, do_sample=False,
                  temperature=1.0, top_k=0, top_p=1.0, eos_token_id=None,
-                 seed=0, num_beams=1, cache_dtype=None):
+                 seed=0, num_beams=1, cache_dtype=None, graphs=True):
         from .generation import generate as _generate
 
         return _generate(
             self, input_ids, max_new_tokens=max_new_tokens,
             do_sample=do_sample, temperature=temperature, top_k=top_k,
             top_p=top_p, num_beams=num_beams, eos_token_id=eos_token_id,
-            seed=seed, cache_dtype=cache_dtype,
+            seed=seed, cache_dtype=cache_dtype, graphs=graphs,
         )

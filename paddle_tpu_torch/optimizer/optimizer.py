@@ -61,6 +61,8 @@ class Optimizer:
     # the eager step makes one update call a bucket (Adam's
     # use_multi_tensor); else one a parameter
     _use_multi_tensor = False
+    # the accumulators the update keeps for each parameter
+    _acc_names = ()
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None):
@@ -269,16 +271,36 @@ class Optimizer:
                 p, dtype=torch.float32, memory_format=torch.contiguous_format)
         return self._accumulators[key]
 
+    def _state_names(self):
+        """``{state key name: parameter}``: JAX's ``p.name or
+        f"param_{i}"`` (``paddle_tpu/optimizer/optimizer.py:302-314``),
+        ``i`` the parameter's index across the groups. A torch tensor
+        has no ``name`` unless the caller set one, so the keys are the
+        reference's for the same model, whatever name a ``(name,
+        tensor)`` pair gave (that name stays what
+        ``apply_decay_param_fun`` receives)."""
+        return {getattr(p, "name", None) or f"param_{i}": p
+                for i, (_, p) in enumerate(self._all_params())}
+
     def state_dict(self):
-        sd = {f"{pname}__{acc}": v
-              for (pname, acc), v in self._accumulators.items()}
+        """Every accumulator under ``<state name>__<accumulator>`` (those
+        a step has not created yet as zeros, as the first step would
+        create them, so that a restore into a fresh optimizer fills every
+        one in place), ``@step_count`` and the LR scheduler's state."""
+        sd = {}
+        for pname, p in self._state_names().items():
+            for acc in self._acc_names:
+                sd[f"{pname}__{acc}"] = self._acc(p, acc)
         sd["@step_count"] = self._step_count
         if isinstance(self._lr, LRScheduler):
             sd["LR_Scheduler"] = self._lr.state_dict()
         return sd
 
     def set_state_dict(self, state):
-        by_name = {self._names[id(p)]: p for _, p in self._all_params()}
+        """Load :meth:`state_dict`'s keys: into the existing accumulator
+        in place where there is one, so tensors the optimizer hands out
+        stay valid."""
+        by_name = self._state_names()
         self._step_count = int(state.get("@step_count", 0))
         if "LR_Scheduler" in state and isinstance(self._lr, LRScheduler):
             self._lr.set_state_dict(state["LR_Scheduler"])
@@ -287,9 +309,18 @@ class Optimizer:
                 continue
             pname, acc = k.rsplit("__", 1)
             p = by_name.get(pname)
-            if p is not None:
-                self._accumulators[(pname, acc)] = torch.as_tensor(
-                    np.asarray(v) if not isinstance(v, torch.Tensor) else v,
+            if p is None:
+                continue
+            key = (self._names[id(p)], acc)
+            src = torch.as_tensor(
+                np.asarray(v) if not isinstance(v, torch.Tensor) else v)
+            cur = self._accumulators.get(key)
+            if cur is not None and tuple(cur.shape) == tuple(src.shape):
+                if src is not cur:
+                    with torch.no_grad():
+                        cur.copy_(src)
+            else:
+                self._accumulators[key] = src.to(
                     dtype=torch.float32, device=p.device).clone()
 
     set_dict = set_state_dict
@@ -329,6 +360,8 @@ class Momentum(Optimizer):
         self._momentum = momentum
         self._nesterov = use_nesterov
 
+    _acc_names = ("velocity",)
+
     def _update(self, rows, lr, wd, l1, prologue):
         ps, gs, slots = _columns(rows)
         vel = [self._acc(p, "velocity") for p in ps]
@@ -343,6 +376,7 @@ class Adam(Optimizer):
     JAX package; ``use_multi_tensor`` buckets the eager update."""
 
     _decoupled = False
+    _acc_names = ("moment1", "moment2")
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-08, parameters=None, weight_decay=None,
@@ -422,6 +456,8 @@ class Lamb(Optimizer):
         self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
         self._lamb_wd = lamb_weight_decay
         self._exclude_fn = exclude_from_weight_decay_fn
+
+    _acc_names = ("moment1", "moment2")
 
     def _eager_decay(self, group, p):
         if self._exclude_fn is not None and self._exclude_fn(p):

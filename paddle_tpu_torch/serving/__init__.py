@@ -1,7 +1,10 @@
 """Continuous-batching serving for the port (counterpart of
 ``paddle_tpu/serving``): the slab engine, the paged engine with its
 prefix cache and the KV spill tier below it, speculative decoding for
-both, sessions, and the host-side pieces they share."""
+both, sessions, live weight reload, and the host-side pieces they
+share. ``chaos`` is ``paddle_tpu_torch.chaos``, as the JAX package's
+``serving.chaos`` re-exports its harness."""
+from .. import chaos  # noqa: F401
 from .engine import ServingEngine  # noqa: F401
 from .fleet.kv_transfer import TransferError  # noqa: F401
 from .kv_pool import KVBlock, KVCachePool, bucket_for  # noqa: F401
@@ -10,6 +13,7 @@ from .metrics import ServingMetrics  # noqa: F401
 from .paged_engine import PagedServingEngine  # noqa: F401
 from .paged_pool import PagedKVPool, PagesExhausted  # noqa: F401
 from .prefix_cache import PrefixCache, PrefixEntry, PrefixMatch  # noqa
+from .reload import ReloadError, StagedReload  # noqa: F401
 from .sampling_keys import (  # noqa: F401
     ACCEPT,
     DRAFT,

@@ -37,11 +37,20 @@ a finished turn records its tokens there. Beam search is
 ``generate(num_beams=)``'s (``models/generation.py``).
 ``memory_report()`` is the table of what each program's capture took.
 
+Live reload (``reload.py``): ``prepare_reload`` verifies, loads and
+validates a committed checkpoint off the step loop, ``commit_reload``
+hands it to the loop, which pauses admission and applies the swap at the
+first step with nothing in flight (``reload_weights`` does both). The
+swap copies the new weights into the net's parameter and buffer storage,
+so the captured programs keep their addresses and are not captured
+again; ``weights_version``, ``generation`` and ``last_reload_step``
+move, and ``_on_weights_swapped`` fires (the paged engine flushes its
+prefix cache there, and speculation forgets its draft caches).
+
 The constructor and ``submit`` take the JAX engine's parameters in its
 order, then ``graphs``. Those of modules not ported yet raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` queue A item: the
-trace guard (``recompile_guard_max``, item 1.6) and live reload
-(``reload_template``, item 1.5).
+trace guard (``recompile_guard_max``, item 1.6).
 """
 from __future__ import annotations
 
@@ -110,7 +119,8 @@ class ServingEngine:
     every row by propose-and-verify rounds. ``scheduler``, ``metrics``
     and ``pool`` pass built ones in; ``sessions`` is True (a
     :class:`~.sessions.SessionStore` on the engine's clock), a built
-    store, or None."""
+    store, or None. ``reload_template`` is the default ``template_net``
+    of :meth:`prepare_reload`."""
 
     # the paged engine verifies by replaying its decode step over the
     # arena; the slab engine over a gathered block (``_spec_verify``)
@@ -128,10 +138,6 @@ class ServingEngine:
             raise NotImplementedError(
                 "recompile_guard_max=...: the trace guard is not ported "
                 "(ROADMAP.md queue A item 1.6)")
-        if reload_template is not None:
-            raise NotImplementedError(
-                "reload_template=...: live reload is not ported "
-                "(ROADMAP.md queue A item 1.5)")
         self.net = net.eval()
         self.config = net.config
         self.device = net.device
@@ -146,6 +152,11 @@ class ServingEngine:
         self.graphs = bool(graphs)
         self.weights_version = ("v0" if weights_version is None
                                 else str(weights_version))
+        self._reload_template = reload_template
+        self._pending_swap = None
+        self.reload_in_progress = False
+        self.generation = 0
+        self.last_reload_step = None
         if pool is None:
             pool = KVCachePool(
                 self.config, dtype=cache_dtype or DEFAULT_CACHE_DTYPE,
@@ -657,6 +668,8 @@ class ServingEngine:
         run one decode step over the whole resident KV state."""
         if self._closed:
             raise RuntimeError(f"{type(self).__name__} is closed")
+        # a staged weight swap applies the moment nothing is in flight
+        self._maybe_apply_reload()
         now = self.clock()
         for i, seq in enumerate(self._seqs):
             if seq is None:
@@ -667,7 +680,10 @@ class ServingEngine:
         self.scheduler.sweep_expired()
         cap = self._max_admissions_per_step()
         admitted = 0
-        while self._has_capacity() and (cap is None or admitted < cap):
+        # a pending reload pauses admission: in-flight requests drain on
+        # the old weights, queued ones wait for the swap
+        while self._pending_swap is None and self._has_capacity() and (
+                cap is None or admitted < cap):
             handle = self.scheduler.pop_next(self._admission_budget(),
                                              fits=self._admission_fits())
             if handle is None:
@@ -760,10 +776,120 @@ class ServingEngine:
         self.run_until_idle()
         return handles
 
+    # ------------------------------------------------------- live reload
+    def _weights(self):
+        """The net's parameters and buffers by name: the storage a swap
+        copies into."""
+        return (dict(self.net.named_parameters()),
+                dict(self.net.named_buffers()))
+
+    def prepare_reload(self, ckpt_dir, *, weights_version=None,
+                       template_net=None, verify_level="full"):
+        """Stage a weight swap from a committed checkpoint directory (or a
+        checkpoint root: the newest committed step wins): verify the
+        manifest and CRCs, load into staging tensors on the engine's
+        device (or into ``template_net``, quantized for serving when this
+        engine serves int8 weights), and validate against the engine's
+        parameters and buffers. Pure and thread-safe; pass the result to
+        :meth:`commit_reload`. Failures come back as a non-ok
+        :class:`~.reload.StagedReload`, counted by outcome, never an
+        exception."""
+        from .reload import prepare_state_swap
+
+        params, buffers = self._weights()
+        staged = prepare_state_swap(
+            self.net, params, buffers, ckpt_dir,
+            weights_version=weights_version,
+            template_net=(self._reload_template if template_net is None
+                          else template_net),
+            verify_level=verify_level,
+        )
+        if not staged.ok:
+            self.metrics.reloads.inc(label=staged.outcome)
+        return staged
+
+    def commit_reload(self, staged):
+        """Hand a prepared swap to the step loop (on the engine's thread).
+        Applies at once when nothing is in flight; otherwise admission
+        pauses and the swap lands at the first step boundary with no
+        request running. A swap committed over a still-pending one
+        supersedes it."""
+        if not staged.ok:
+            return staged
+        if self._closed:
+            staged.ok = False
+            staged.outcome = "engine_closed"
+            self.metrics.reloads.inc(label="engine_closed")
+            return staged
+        if self._pending_swap is not None:
+            self.metrics.reloads.inc(label="superseded")
+            self._pending_swap.outcome = "superseded"
+            self._pending_swap.params = self._pending_swap.buffers = None
+        staged.staged_at = self.clock()
+        self._pending_swap = staged
+        self.reload_in_progress = True
+        self._maybe_apply_reload()
+        return staged
+
+    def reload_weights(self, ckpt_dir, **kw):
+        """prepare + commit in one call (callers on the engine's own
+        thread)."""
+        return self.commit_reload(self.prepare_reload(ckpt_dir, **kw))
+
+    def _maybe_apply_reload(self):
+        if self._pending_swap is not None and self.active_slots == 0:
+            self._apply_reload()
+
+    def _apply_reload(self):
+        from .. import chaos as _chaos
+        from .reload import apply_state_swap
+
+        staged = self._pending_swap
+        try:
+            # the deterministic kill-mid-swap seam: a fault here leaves
+            # the engine fully on the old weights (nothing has changed)
+            _chaos.poke("reload.apply", step=staged.step,
+                        version=staged.weights_version)
+        except BaseException as e:
+            self._pending_swap = None
+            self.reload_in_progress = False
+            staged.ok = False
+            staged.outcome = "error"
+            staged.error = repr(e)
+            staged.params = staged.buffers = None
+            self.metrics.reloads.inc(label="error")
+            return
+        params, buffers = self._weights()
+        apply_state_swap(staged, params, buffers)
+        self.weights_version = staged.weights_version
+        self.generation += 1
+        self.last_reload_step = staged.step
+        self._pending_swap = None
+        self.reload_in_progress = False
+        self._on_weights_swapped()
+        if staged.staged_at is not None:
+            self.metrics.reload_ttft_spike.observe(
+                self.clock() - staged.staged_at)
+        self.metrics.reloads.inc(label="ok")
+        staged.outcome = "applied"
+
+    def _on_weights_swapped(self):
+        """Post-swap hook, with the new weights in place and nothing in
+        flight. The paged engine flushes its prefix cache here (and calls
+        up); speculation forgets its draft caches."""
+        if self.speculative is not None:
+            self.speculative.on_weights_swapped(self)
+
     def close(self):
         """Cancel queued and running requests (partial tokens kept),
-        release every row, and drop the KV state."""
+        release every row, and drop the KV state; a pending swap is
+        abandoned."""
         self._closed = True
+        if self._pending_swap is not None:
+            self._pending_swap.params = self._pending_swap.buffers = None
+            self._pending_swap = None
+            self.reload_in_progress = False
+            self.metrics.reloads.inc(label="abandoned")
         while True:
             h = self.scheduler.pop_next()
             if h is None:

@@ -129,6 +129,12 @@ class ServingMetrics:
         # or bonus token (a mean above 1 is the whole win)
         self.spec_accept_length = Histogram("speculative_accept_length",
                                             unit="toks")
+        # live reload (reload.py): outcomes by label (ok, verify_failed,
+        # load_error, incompatible, no_checkpoint, error, superseded,
+        # abandoned, engine_closed), and each swap's admission pause
+        # (staged -> applied): the worst extra TTFT a queued request saw
+        self.reloads = Counter("reloads")
+        self.reload_ttft_spike = Histogram("reload_ttft_spike")
 
     def observe_step(self, queue_depth, active_slots):
         self.queue_depth.observe(queue_depth)
@@ -146,11 +152,13 @@ class ServingMetrics:
         counters["speculative_rounds"] = self.spec_rounds.value
         counters["speculative_proposed"] = self.spec_proposed.value
         counters["speculative_accepted"] = self.spec_accepted.value
+        counters["reloads"] = self.reloads.value
+        counters["reloads_by_outcome"] = self.reloads.by_label()
         out = {"counters": counters,
                "speculative_accept_length":
                    self.spec_accept_length.snapshot()}
         for name in ("ttft", "itl", "e2e", "queue_wait", "prefill_time",
                      "warm_prefill_time", "decode_step_time", "queue_depth",
-                     "slot_occupancy"):
+                     "slot_occupancy", "reload_ttft_spike"):
             out[name] = getattr(self, name).snapshot()
         return out

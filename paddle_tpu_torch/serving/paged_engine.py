@@ -61,9 +61,10 @@ Every step is one of the engine's fixed-shape programs, CUDA graphs on a
 card (``programs.py``; the page table, page ids, tail ids and ``c`` are
 their device inputs), and ``warmup()`` captures them all before traffic.
 A failing program raises: the admission releases what it claimed, and
-nothing falls back to another path. Not ported: remote prefill
-(``prefill_transport``, ``ROADMAP.md`` queue A item 1.7) and live
-reload (item 1.5).
+nothing falls back to another path. A live reload (``engine.py``,
+``reload.py``) flushes the prefix cache, and with it the spill tier,
+with reason ``"weights_reload"``. Not ported: remote prefill
+(``prefill_transport``, ``ROADMAP.md`` queue A item 1.7).
 """
 from __future__ import annotations
 
@@ -770,6 +771,15 @@ class PagedServingEngine(ServingEngine):
         if self._demand_paging:
             self._grow_pages()
         super()._decode_once()
+
+    def _on_weights_swapped(self):
+        # every cached page (and every spilled one) holds KV computed
+        # under the weights that just rotated out; the swap applies with
+        # nothing in flight, so the cache holds the only reference to
+        # every page and the flush returns them all to the free list
+        if self.prefix_cache is not None:
+            self.prefix_cache.flush(reason="weights_reload")
+        super()._on_weights_swapped()
 
     def close(self):
         super().close()

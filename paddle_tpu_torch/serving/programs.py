@@ -30,9 +30,12 @@ first call, or from ``warmup()``):
 - a capture or a replay that fails raises. Nothing falls back to the
   eager step.
 
-A program reads the weights it was captured with: it keeps them
-referenced (the JAX engine serves the parameters it snapshot at
-construction), so a net whose weights are replaced needs a new engine.
+A program reads the weights it was captured with, at their addresses,
+and keeps them referenced. So new weights are copied INTO that storage:
+a live reload (``reload.py``) writes the staged tensors into the net's
+parameters and buffers in place and no program is captured again (the
+JAX engine swaps its parameter snapshot instead). A tensor that is
+replaced rather than written is not seen by the programs.
 """
 from __future__ import annotations
 
@@ -77,6 +80,14 @@ SPEC_KINDS = ("spec_dprefill", "spec_ddecode", "spec_verify")
 _CAPTURE_STREAMS = {}
 
 
+def capture_stream(device):
+    """The device's side stream for warm runs and captures."""
+    stream = _CAPTURE_STREAMS.get(device)
+    if stream is None:
+        stream = _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return stream
+
+
 def _tensors(out):
     return out if isinstance(out, tuple) else (out,)
 
@@ -110,6 +121,9 @@ class Program:
 
     def _load(self, arrays):
         for arr, host, static in zip(arrays, self.host, self.inputs):
+            if isinstance(arr, torch.Tensor):
+                static.copy_(arr)  # already a tensor (on the device)
+                continue
             src = torch.from_numpy(np.ascontiguousarray(arr))
             if host is None:
                 static.copy_(src)
@@ -184,12 +198,7 @@ class Programs:
         self.device = device
         cuda = device.type == "cuda"
         self.pool = torch.cuda.graph_pool_handle() if cuda else None
-        self.stream = None
-        if cuda:
-            self.stream = _CAPTURE_STREAMS.get(device)
-            if self.stream is None:
-                self.stream = _CAPTURE_STREAMS[device] = torch.cuda.Stream(
-                    device)
+        self.stream = capture_stream(device) if cuda else None
         self._progs = {}
         self.counts = dict.fromkeys((TRACE_KEYS[k] for k in kinds), 0)
         self.memory = {}

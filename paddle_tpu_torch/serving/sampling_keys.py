@@ -86,18 +86,31 @@ def uniform(key):
     return float(torch.rand((), generator=gen, dtype=torch.float64))
 
 
+def gumbel_noise(keys, vocab, device):
+    """``[len(keys), vocab]`` fp32 Gumbel noise: row ``b`` is
+    ``-log(-log(u))`` of the uniforms a generator seeded with the
+    position key of ``keys[b]``, a (request_key, position) pair, draws
+    on ``device``. Each row is drawn and transformed alone, so it does
+    not depend on the other rows."""
+    rows = []
+    for key in keys:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(position_key(*key))
+        u = torch.rand((vocab,), generator=gen, device=device)
+        rows.append(-torch.log(-torch.log(u)))
+    return torch.stack(rows)
+
+
 def sample_rows(scaled, keys):
     """One token per row of the filtered fp32 logits ``scaled`` [B, V]:
-    Gumbel-max with noise from row ``b``'s (request_key, position) pair
-    ``keys[b]``. A row whose key is None (a free engine row) gets 0."""
+    Gumbel-max with row ``b``'s noise from its (request_key, position)
+    pair ``keys[b]`` (:func:`gumbel_noise`). A row whose key is None (a
+    free engine row) gets 0."""
     b, v = (int(n) for n in scaled.shape)
     out = torch.zeros((b,), dtype=torch.long, device=scaled.device)
-    for i, key in enumerate(keys):
-        if key is None:
-            continue
-        gen = torch.Generator(device=scaled.device)
-        gen.manual_seed(position_key(*key))
-        u = torch.rand((v,), generator=gen, device=scaled.device)
-        gumbel = -torch.log(-torch.log(u))
-        out[i] = torch.argmax(scaled[i] + gumbel)
+    live = [i for i, key in enumerate(keys) if key is not None]
+    if live:
+        rows = torch.tensor(live, device=scaled.device)
+        noise = gumbel_noise([keys[i] for i in live], v, scaled.device)
+        out[rows] = torch.argmax(scaled[rows] + noise, dim=-1)
     return out

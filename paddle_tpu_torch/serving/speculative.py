@@ -51,7 +51,10 @@ prefill per bucket and draft decode per row, and on the slab a verify
 per ``k1`` in ``1..k+1`` and the gather. A failing program raises; nothing
 falls back to the vanilla decode step. Rounds run one row after another,
 which trades batched throughput for latency (the win is at low
-concurrency). Not ported: the AOT signature, tracing spans, live reload
+concurrency). After a live reload (:meth:`SpeculativeDecoder.
+on_weights_swapped`) every row's draft cache is stale; the self-speculative
+draft is the target net itself, whose weights the swap wrote in place, so
+it follows them with no copy. Not ported: the AOT signature, tracing spans
 and per-SLO-class histograms (``ROADMAP.md`` queue A item 1).
 """
 from __future__ import annotations
@@ -318,6 +321,14 @@ class SpeculativeDecoder:
         self._pool = None
         self._slab = None
         self._slots.clear()
+
+    def on_weights_swapped(self, engine):
+        """Live reload landed (``speculative.py:359``): every draft cache
+        was computed under the old weights, so each row re-ingests its
+        context at its next round. The early-exit draft reads the
+        target's own parameters, which the swap updated in place."""
+        for st in self._slots.values():
+            st.fed = -1
 
     def reset_slot(self, slot):
         """Row retired: its draft cache stays (stale content sits behind

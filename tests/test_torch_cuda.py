@@ -44,6 +44,12 @@ engine's verify (decode replays over the arena) scores every position
 with the vanilla paged decode step's row bit for bit (bf16 and int8,
 also with more positions than rows). A page spilled to the host tier and
 restored lands bit-equal.
+``generate``'s program (one CUDA graph a signature) equals its eager loop
+token for token (greedy, sampled, beam), an in-place weight update
+showing in the next replay; an async checkpoint save fenced by the
+trainer equals a host copy taken at the save although the next updates
+ran in place; a live reload keeps the parameters' addresses and the
+captures and serves the new net's streams.
 The multi-tensor optimizer kernels: Adam/AdamW and SGD/Momentum bit for
 bit given the same stats (every operation rounded once on both sides),
 the sums of squares within 1e-6 relative (fp32 sums in another order) and
@@ -1493,3 +1499,102 @@ def test_lamb_train_step_on_the_card(dev, clip):
     for name, w in cpu[1].items():
         np.testing.assert_allclose(card[1][name], w, atol=1e-5, rtol=0)
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["greedy", "sampled", "beam"])
+def test_generate_program_equals_eager_loop_on_card(dev, mode):
+    """``generate``'s program (one CUDA graph of the prefill and the whole
+    decode) against ``graphs=False`` on a tiny bf16 net: token for token
+    on the capturing call and on a replay, one capture; an in-place
+    weight update shows in the next replay without a capture."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.generation import generate_programs
+
+    net = LlamaForCausalLM(LlamaConfig.tiny(), device=dev,
+                           dtype=torch.bfloat16, seed=31)
+    ids = torch.as_tensor(np.random.RandomState(32).randint(0, 1000, (2, 9)),
+                          device=dev)
+    kw = {"greedy": {}, "beam": dict(num_beams=3),
+          "sampled": dict(do_sample=True, temperature=0.8, top_p=0.9,
+                          seed=7)}[mode]
+    kw.update(max_new_tokens=12)
+    want = net.generate(ids, graphs=False, **kw)
+    for _ in range(2):
+        assert torch.equal(net.generate(ids, **kw), want)
+    cache = generate_programs(net)
+    assert cache.captures == 1
+    with torch.no_grad():
+        net.lm_head.weight.mul_(-1.0)
+    assert torch.equal(net.generate(ids, **kw),
+                       net.generate(ids, graphs=False, **kw))
+    assert cache.captures == 1
+
+
+@pytest.mark.cuda
+def test_snapshot_under_in_place_updates_on_card(dev, tmp_path):
+    """An async save whose snapshot the trainer fences: the update right
+    after the save writes the tensors in place while the copies and the
+    write run; the committed checkpoint equals a host copy taken at the
+    save."""
+    from paddle_tpu_torch.checkpoint import (CheckpointManager,
+                                             CheckpointPolicy, commit)
+    from paddle_tpu_torch.distributed.checkpoint import load_state_dict
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         causal_lm_loss)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    net = LlamaForCausalLM(LlamaConfig.tiny(), device=dev,
+                           dtype=torch.float32, seed=33)
+    opt = AdamW(1e-3, parameters=net.named_parameters())
+    step = CompiledTrainStep(
+        net, lambda lo, lb: causal_lm_loss(lo, lb).mean(), opt)
+    mgr = step.attach_checkpoint(CheckpointManager(
+        str(tmp_path), policy=CheckpointPolicy(save_every_steps=1,
+                                               keep_last_k=5)))
+    t = torch.as_tensor(np.random.RandomState(34).randint(0, 1000, (2, 33)),
+                        device=dev)
+    step([t[:, :-1]], [t[:, 1:]])
+    want = {k: v.detach().to("cpu", copy=True)
+            for k, v in net.state_dict().items()}
+    for _ in range(3):
+        step([t[:, :-1]], [t[:, 1:]])
+    mgr.close()
+    got = {k: torch.zeros_like(v) for k, v in want.items()}
+    load_state_dict({"model": got}, commit.step_dir(str(tmp_path), 1))
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+
+
+@pytest.mark.cuda
+def test_reload_swap_keeps_addresses_on_card(dev, tmp_path):
+    """A warmed bf16 paged engine reloads a checkpoint of another net:
+    streams equal a fresh engine's on that net, the parameters keep their
+    addresses and nothing is captured again."""
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import PagedServingEngine
+
+    cfg = LlamaConfig.tiny()
+    kw = dict(cache_dtype="bfloat16", max_batch_size=2, max_seq_len=64,
+              min_bucket=8, page_size=8)
+    other = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=36)
+    mgr = CheckpointManager(str(tmp_path), network=other,
+                            async_saves=False)
+    mgr.save(1)
+    mgr.close()
+    prompts = [np.random.RandomState(37).randint(0, 1000, (n,))
+               for n in (5, 17)]
+    want = [h.tokens for h in PagedServingEngine(other, **kw).generate(
+        prompts, 6)]
+    net = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=35)
+    eng = PagedServingEngine(net, **kw)
+    eng.warmup()
+    captures = eng.compile_counts()
+    ptrs = [p.data_ptr() for p in net.state_dict(keep_vars=True).values()]
+    assert eng.reload_weights(str(tmp_path)).applied
+    assert [h.tokens for h in eng.generate(prompts, 6)] == want
+    assert eng.compile_counts() == captures
+    assert ptrs == [p.data_ptr()
+                    for p in net.state_dict(keep_vars=True).values()]

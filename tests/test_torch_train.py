@@ -464,7 +464,9 @@ def test_trainer_refuses_unported_optimizer_and_state_round_trips():
     step([torch.from_numpy(ids).long()], [torch.from_numpy(labels).long()])
     sd = opt.state_dict()
     assert sd["@step_count"] == 1
-    assert "model.norm.weight__moment1" in sd
+    # the reference's keys: ``param_<i>``, i the parameter's index
+    names = [n for n, _ in tnet.named_parameters()]
+    assert f"param_{names.index('model.norm.weight')}__moment1" in sd
     opt2 = topt.AdamW(1e-3, parameters=tnet.named_parameters())
     opt2.set_state_dict(sd)
     assert opt2._step_count == 1
