@@ -278,11 +278,44 @@ save, the prepare split into verify, read and host-to-device copy, the
 swap's copy and the peak memory during staging. ``launches_by_phase``
 gains ``checkpoint`` and ``full_reload``.
 
+Observability: the trainer publishes into the process
+``StepMeter``; the O1 and fp32 training legs each read a fresh meter
+(``training step meter: {...}``, ``fp32 training step meter: {...}``:
+``paddle_training_mfu`` against the card's bf16 dense peak, tokens/s,
+the device memory gauges; gates: every step observed, the first as
+warmup, 0 < MFU <= 1, and for O1 the meter's step_time p50 within 5% of
+the phase's synced p50). The checkpoint phase's manager publishes into
+the process registry (gate: its ``paddle_ckpt_*`` series in the
+exposition). After the bf16 serving modes, the front-end phase
+(``frontend (...)`` lines) puts the warmed 7B graph engine behind
+``ServingFrontend(eng, port=0)`` on 127.0.0.1: the 12 serving prompts as
+12 concurrent SSE streams, each with a client ``traceparent`` (gates:
+every stream ends ``done``; tokens equal the in-process run's, or each
+differing one passes the teacher-forced check; the kernels' launches by
+formula; ``/metrics`` parses, wire TTFT counts 12, wire ITL the tokens
+less 12, the ``slo_class="interactive"`` TTFT child 12; ``/trace`` holds
+``engine.queue_wait``, ``engine.prefill`` and ``engine.decode`` under
+the client's span, the decode ring one event a step; ``/healthz``
+``memory`` equals ``memory_report()``, ``compile_entries`` unchanged,
+no guard fire), then backpressure (a burst past ``max_queue_size`` while
+8 long streams hold every row: 429 ``queue_full``; a prompt past
+``max_seq_len``: 413) and the drain (503 ``draining`` while an in-flight
+stream finishes), ``driver_errors`` empty; printed: wire TTFT and ITL
+p50/p90 beside the engine's, the scrape's bytes and ms, each leg's
+seconds; then the 12 requests in process with tracing sampled at 1 and
+at 0, alternated three times each (ITL p50 of each run).
+``launches_by_phase`` gains ``frontend``.
+
 ``--profile-steps N`` profiles N replays of the spec phase's decode
 program (its verify) and draft decode, and N decode steps after each serving phase
 (the graph engine's, and the bf16 and quantized eager engines'), with
 the graph's replay also timed by CUDA events, and one 1024-bucket
-prefill (three times) of the bf16, the fused and the quantized model.
+prefill (three times) of the bf16, the fused and the quantized model;
+and it breaks the front end's decode step down (``frontend profile``
+line, ``frontend_profile``): the time inside ``step()``, the gap between
+steps and the device's idle share, in process and behind the front end,
+with and without per-token writer threads and with the clients in this
+process or a child one.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -2906,6 +2939,49 @@ def _flash_on_tensor_cores(kernels, want, label):
     return designs
 
 
+def step_meter_gates(step, meter, steps, times, card, label,
+                     gate_p50=True):
+    """The trainer's steps as the process ``StepMeter`` saw them: fails
+    unless it observed every step, the first as ``warmup``, its
+    ``step_time`` p50 lies within 5% of the phase's own synced p50 (with
+    ``gate_p50``), and 0 < MFU <= 1. Returns the numbers it prints (the MFU is against the
+    bf16 dense peak of the card, whatever the step's dtype)."""
+    from paddle_tpu_torch import observability as obs
+
+    pending = step.flush_telemetry()
+    st = meter.step_time.snapshot()
+    mfu = meter.mfu.value()
+    p50 = statistics.median(times)
+    res = {
+        "card": card, "steps_observed": meter.steps.value,
+        "warmup_steps": meter.compile_time.count, "pending": pending,
+        "step_time_p50_s": st.get("p50"), "phase_step_p50_s": p50,
+        "paddle_training_mfu": mfu,
+        "peak_flops": obs.peak_flops_per_device(),
+        "peak": "bf16 dense tensor-core peak of the card, for every dtype",
+        "tokens_per_second": meter.tokens_per_second.value(),
+        "paddle_device_bytes_in_use": {
+            s["labels"].get("device", ""): s["value"]
+            for s in meter.device_bytes_in_use.data()["series"]},
+        "paddle_device_peak_bytes_in_use": {
+            s["labels"].get("device", ""): s["value"]
+            for s in meter.device_peak_bytes.data()["series"]},
+        "paddle_device_live_arrays": meter.device_live_arrays.value(),
+    }
+    log(f"{label} step meter: " + json.dumps(res))
+    if meter.steps.value != steps or meter.compile_time.count != 1 \
+            or meter.step_time.count != steps - 1 or pending:
+        fail(f"{label}: the step meter observed {meter.steps.value} of "
+             f"{steps} steps ({meter.compile_time.count} as warmup, "
+             f"{pending} pending)")
+    if gate_p50 and not abs(st["p50"] - p50) <= 0.05 * p50:
+        fail(f"{label}: the step meter's step_time p50 {st['p50']} is not "
+             f"within 5% of the phase's synced p50 {p50}")
+    if mfu is None or not 0.0 < mfu <= 1.0:
+        fail(f"{label}: paddle_training_mfu {mfu} is not in (0, 1]")
+    return res
+
+
 def training_phase(torch, np, dev, card, profile_train_steps=0):
     """10 AdamW steps, AMP O1 bf16, of Llama-2-7B widths at 8 layers on
     one fixed batch; returns the launch counts of the 10 steps. With
@@ -2914,6 +2990,7 @@ def training_phase(torch, np, dev, card, profile_train_steps=0):
     import gc
 
     from paddle_tpu_torch import kernels
+    from paddle_tpu_torch import observability as obs
     from paddle_tpu_torch.jit import CompiledTrainStep
     from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                          causal_lm_loss)
@@ -2938,6 +3015,8 @@ def training_phase(torch, np, dev, card, profile_train_steps=0):
         0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))
     ids = torch.as_tensor(ids, dtype=torch.long, device=dev)
     inputs, labels = ids[:, :-1].contiguous(), ids[:, 1:].contiguous()
+    meter = obs.StepMeter()
+    obs.set_step_meter(meter)  # the steps publish into a fresh meter
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -2951,6 +3030,8 @@ def training_phase(torch, np, dev, card, profile_train_steps=0):
         losses.append(float(loss))
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    step_meter = step_meter_gates(step, meter, TRAIN_STEPS, times, card,
+                                  "training")
     if not all(np.isfinite(losses)):
         fail(f"training: non-finite loss in {losses}")
     if not losses[-1] < losses[0]:
@@ -2978,6 +3059,7 @@ def training_phase(torch, np, dev, card, profile_train_steps=0):
         "launches": counts,
         "launches_per_step": {k: n / TRAIN_STEPS for k, n in counts.items()},
         "flash_launches_by_design": designs,
+        "step_meter": step_meter,
     }
     log("training: " + json.dumps(res))
     if profile_train_steps:
@@ -3015,6 +3097,7 @@ def fp32_training(torch, np, net, inputs, labels, card,
     split design) on the same batch. Returns the launch counts of those
     steps."""
     from paddle_tpu_torch import kernels
+    from paddle_tpu_torch import observability as obs
     from paddle_tpu_torch.jit import CompiledTrainStep
     from paddle_tpu_torch.models import causal_lm_loss
     from paddle_tpu_torch.optimizer import (AdamW, ClipGradByGlobalNorm,
@@ -3029,6 +3112,8 @@ def fp32_training(torch, np, net, inputs, labels, card,
     if step.amp_level is not None:
         fail(f"fp32 training: the trainer's default amp_level is "
              f"{step.amp_level!r}, not None")
+    meter = obs.StepMeter()
+    obs.set_step_meter(meter)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -3042,6 +3127,10 @@ def fp32_training(torch, np, net, inputs, labels, card,
         losses.append(float(loss))
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    # three steps: the p50 of two meter samples against three synced ones
+    # is printed, not gated
+    step_meter = step_meter_gates(step, meter, FP32_TRAIN_STEPS, times,
+                                  card, "fp32 training", gate_p50=False)
     if not all(np.isfinite(losses)):
         fail(f"fp32 training: non-finite loss in {losses}")
     if not losses[-1] < losses[0]:
@@ -3063,6 +3152,7 @@ def fp32_training(torch, np, net, inputs, labels, card,
         "launches_per_step": {k: n / FP32_TRAIN_STEPS
                               for k, n in counts.items()},
         "flash_launches_by_design": designs,
+        "step_meter": step_meter,
     }
     log("fp32 training: " + json.dumps(res))
     if profile_train_steps:
@@ -3457,6 +3547,7 @@ def checkpoint_phase(torch, np, dev, card):
     import shutil
 
     from paddle_tpu_torch import chaos, kernels
+    from paddle_tpu_torch import observability as obs
     from paddle_tpu_torch.checkpoint import (CheckpointManager,
                                              CheckpointPolicy, commit)
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
@@ -3476,7 +3567,8 @@ def checkpoint_phase(torch, np, dev, card):
                               keep_last_k=CKPT_KEEP)
     step, opt, sched = _trainer(torch, net)
     mgr = step.attach_checkpoint(CheckpointManager(
-        CKPT_DIR, async_saves=True, policy=policy))
+        CKPT_DIR, async_saves=True, policy=policy,
+        registry=obs.get_registry()))
     total = {}
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -3545,6 +3637,22 @@ def checkpoint_phase(torch, np, dev, card):
         "verify_gb_per_s": ckpt_bytes / verify_s / 1e9,
         "disk_free_bytes_before": free0,
     }
+    # the manager published into the process registry under JAX's names
+    scrape = obs.parse_prometheus_text(obs.prometheus_text())
+    want_series = ("paddle_ckpt_save_seconds_count",
+                   "paddle_ckpt_blocked_seconds_count",
+                   "paddle_ckpt_snapshot_seconds_count",
+                   "paddle_ckpt_bytes_total", "paddle_ckpt_saves_total",
+                   "paddle_ckpt_last_step",
+                   "paddle_ckpt_restore_fallbacks_total",
+                   "paddle_ckpt_restores_total")
+    missing = [n for n in want_series if n not in scrape]
+    if missing or scrape["paddle_ckpt_last_step"][0][1] != 6 \
+            or scrape["paddle_ckpt_save_seconds_count"][0][1] != 3:
+        fail(f"checkpoint: the exposition lacks {missing}, or its last "
+             f"step is not 6, or it counts other than 3 saves")
+    train["exposition_series"] = sorted(
+        n for n in scrape if n.startswith("paddle_ckpt_"))
     log("checkpoint (train and save): " + json.dumps(train))
     uninterrupted = losses
     del step, opt, sched, mgr, loss
@@ -3766,8 +3874,29 @@ SERVE_MAX_NEW = 64
 ENGINE_KW = dict(max_batch_size=8, max_seq_len=2048, page_size=16)
 # the numbers each mode prints, run by run
 MODE_KEYS = ("itl_p50_s", "decode_step_p50_s", "decode_s", "ttft_p50_s",
-             "prefill_tok_per_s", "wall_s", "peak_mem_bytes",
-             "reserved_bytes")
+             "ttft_p50_ceil_rank_s", "prefill_tok_per_s", "wall_s",
+             "peak_mem_bytes", "reserved_bytes")
+
+
+def ceil_rank(xs, q):
+    """The ``q``-th percentile of ``xs`` at the rank ceil(q n / 100) - 1
+    of the sorted samples, which the port's serving histograms read
+    before they took the registry's round(q (n - 1) / 100): for 12
+    samples the p50 is the 6th, where the registry reads the 7th.
+    Printed beside the registry's p50 so that readings taken under
+    either rank compare."""
+    import math
+
+    s = sorted(xs)
+    return s[max(0, min(len(s) - 1, math.ceil(q / 100.0 * len(s)) - 1))]
+
+
+def serving_prompts(np, cfg):
+    """The serving traffic's 12 prompts, 32-1024 tokens, from seed 1234:
+    ``(lens, prompts)``."""
+    rng = np.random.RandomState(1234)
+    lens = rng.randint(32, 1025, size=12)
+    return lens, [rng.randint(0, cfg.vocab_size, (int(n),)) for n in lens]
 
 
 def drive_requests(torch, np, eng, cfg, mode, label):
@@ -3782,9 +3911,7 @@ def drive_requests(torch, np, eng, cfg, mode, label):
     from paddle_tpu_torch.serving.metrics import ServingMetrics
 
     eng.metrics = ServingMetrics()  # this run's numbers only
-    rng = np.random.RandomState(1234)
-    lens = rng.randint(32, 1025, size=12)
-    prompts = [rng.randint(0, cfg.vocab_size, (int(n),)) for n in lens]
+    lens, prompts = serving_prompts(np, cfg)
     captures = eng.compile_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3820,6 +3947,7 @@ def drive_requests(torch, np, eng, cfg, mode, label):
         "decode_s": m.decode_step_time.sum,
         "decode_tok_per_s": m.decode_tokens.value / m.decode_step_time.sum,
         "ttft_p50_s": m.ttft.percentile(50),
+        "ttft_p50_ceil_rank_s": ceil_rank([h.ttft for h in handles], 50),
         "prefill_p50_s": m.prefill_time.percentile(50),
         "itl_p50_s": m.itl.percentile(50),
         "decode_step_p50_s": m.decode_step_time.percentile(50),
@@ -4002,6 +4130,10 @@ def serving_phase(torch, np, dev, card, profile_steps=0):
     # teacher-forced check against the cache-free forward
     ties, worst_gap = teacher_forced(torch, dev, graph_run["handles"],
                                      lambda ids: net(ids)[0], "serving")
+    frontend_counts = frontend_phase(torch, np, dev, card, net, eng, cfg,
+                                     graph_run["handles"], want_counts)
+    if profile_steps:
+        frontend_profile(torch, np, eng, cfg, card)
     res = {"card": card, "model": f"Llama-2-7B, {layers} layers, bf16, "
                                   f"random weights",
            "requests": len(graph_run["handles"]),
@@ -4033,7 +4165,578 @@ def serving_phase(torch, np, dev, card, profile_steps=0):
     spec = spec_phase(torch, np, dev, card, net, eng, profile_steps)
     reload = full_reload_phase(torch, np, dev, card, eng)
     return (graph_run["counts"], runs[0]["counts"], fused, prefix, session,
-            spec, beam, reload)
+            spec, beam, reload, frontend_counts)
+
+
+# the front-end phase: long streams that hold every row while a burst
+# past max_queue_size arrives, and the burst's requests
+FE_LONG_NEW, FE_BURST_EXTRA, FE_SHORT_LEN, FE_SHORT_NEW = 256, 8, 16, 2
+
+
+def _sse(host, port, payload, traceparent=None, first_token=None,
+         timeout=600):
+    """POST ``payload`` to ``/v1/generate`` (with a ``traceparent``
+    header) and read the SSE stream: ``(status, events, body)``, with
+    ``events`` the ``(event, data, client_seconds)`` triples of a 200
+    and ``body`` the JSON body of any other status; ``first_token`` (an
+    Event) is set at the first token."""
+    import http.client
+
+    from paddle_tpu_torch.serving import read_sse_events
+
+    headers = {"Content-Type": "application/json"}
+    if traceparent is not None:
+        headers["traceparent"] = traceparent
+    conn = http.client.HTTPConnection(host, port, timeout=timeout)
+    t0 = time.perf_counter()
+    try:
+        conn.request("POST", "/v1/generate", body=json.dumps(payload),
+                     headers=headers)
+        resp = conn.getresponse()
+        if resp.status != 200:
+            return resp.status, [], json.loads(resp.read() or b"null")
+        events = []
+        for event, data in read_sse_events(resp):
+            events.append((event, data, time.perf_counter() - t0))
+            if event == "token" and first_token is not None:
+                first_token.set()
+            if event in ("done", "error"):
+                break
+        return 200, events, None
+    finally:
+        conn.close()
+
+
+def _http(host, port, method, path, body=None):
+    """One plain request: ``(status, bytes, seconds)``."""
+    import http.client
+
+    conn = http.client.HTTPConnection(host, port, timeout=120)
+    t0 = time.perf_counter()
+    try:
+        conn.request(method, path,
+                     body=None if body is None else json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read()
+        return resp.status, data, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def _in_threads(fns):
+    """Run the callables on threads of their own; their results in
+    order (an exception is re-raised)."""
+    import threading
+
+    out = [None] * len(fns)
+
+    def run(i, fn):
+        try:
+            out[i] = (True, fn())
+        except BaseException as e:  # re-raised on the main thread
+            out[i] = (False, e)
+
+    threads = [threading.Thread(target=run, args=(i, fn))
+               for i, fn in enumerate(fns)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for ok, v in out:
+        if not ok:
+            raise v
+    return [v for _, v in out]
+
+
+def _traced_itl(torch, np, eng, cfg, sample):
+    """The 12 serving prompts in process, all submitted at once, each
+    with a front-end-style root trace (``sample`` 1: traced, 0: sampled
+    out): the run's ITL and decode-step p50."""
+    from paddle_tpu_torch.observability.tracing import get_tracer
+    from paddle_tpu_torch.serving.metrics import ServingMetrics
+
+    os.environ["PADDLE_TPU_TRACE_SAMPLE"] = str(sample)
+    eng.metrics = ServingMetrics()
+    _, prompts = serving_prompts(np, cfg)
+    tr = get_tracer()
+    handles = []
+    for p in prompts:
+        h = eng.submit(p, SERVE_MAX_NEW)
+        h.trace = tr.start_trace("frontend.request",
+                                 request_id=h.request.request_id)
+        handles.append(h)
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    traced = sum(h.trace is not None for h in handles)
+    for h in handles:
+        if h.trace is not None:
+            h.trace.finish(status=h.status, tokens=len(h.tokens))
+    if traced != (12 if sample else 0):
+        fail(f"frontend: {traced} of 12 requests traced at sample {sample}")
+    m = eng.metrics
+    return {"sample": sample, "itl_p50_s": m.itl.percentile(50),
+            "decode_step_p50_s": m.decode_step_time.percentile(50)}
+
+
+def frontend_phase(torch, np, dev, card, net, eng, cfg, inproc, want_counts):
+    """The warmed 7B graph engine behind ``ServingFrontend`` on 127.0.0.1
+    (see the module docstring). ``inproc`` is the serving phase's graph
+    run (its handles, in prompt order); ``want_counts(run)`` the launch
+    formula. Returns the launch counts of the 12 streams."""
+    import secrets
+    import threading
+    import types
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.serving import ServingFrontend
+    from paddle_tpu_torch.serving.metrics import ServingMetrics
+
+    t_phase = time.perf_counter()
+    legs = {}
+    sample_env = os.environ.get("PADDLE_TPU_TRACE_SAMPLE")
+    os.environ["PADDLE_TPU_TRACE_SAMPLE"] = "1"
+    eng.metrics = ServingMetrics()  # this phase's numbers only
+    fe = ServingFrontend(eng, host="127.0.0.1", port=0).start()
+    host, port = "127.0.0.1", fe.port
+
+    def health():
+        st, data, _ = _http(host, port, "GET", "/healthz")
+        if st != 200:
+            fail(f"frontend: /healthz answered {st}")
+        return json.loads(data)
+
+    h0 = health()
+    entries0 = h0["compile_entries"]
+    # ---- 12 concurrent SSE streams, each under a client span
+    t0 = time.perf_counter()
+    lens, prompts = serving_prompts(np, cfg)
+    clients = [obs.SpanContext(secrets.token_hex(16), secrets.token_hex(8))
+               for _ in prompts]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    streams = _in_threads([
+        (lambda p=p, c=c: _sse(host, port, {
+            "input_ids": [int(t) for t in p],
+            "max_new_tokens": SERVE_MAX_NEW}, c.traceparent()))
+        for p, c in zip(prompts, clients)])
+    counts = kernels.launch_counts()
+    legs["streams_s"] = time.perf_counter() - t0
+    m = eng.metrics
+    run = {"counts": counts, "decode_steps": m.decode_step_time.count,
+           "prefills": m.prefill_time.count}
+    if counts != want_counts(run):
+        fail(f"frontend: launches {counts}, expected {want_counts(run)} "
+             f"({run['decode_steps']} decode steps, {run['prefills']} "
+             f"prefills)")
+    tokens, wire_ttft, wire_itl = [], [], []
+    for i, (st, events, body) in enumerate(streams):
+        if st != 200 or not events or events[-1][0] != "done":
+            fail(f"frontend: stream {i} ended {st} {body} "
+                 f"{events[-1][:2] if events else None}")
+        toks = [d["token"] for e, d, _ in events if e == "token"]
+        if toks != events[-1][1]["tokens"] or len(toks) != SERVE_MAX_NEW:
+            fail(f"frontend: stream {i}'s token events disagree with its "
+                 f"done event or count {len(toks)}")
+        tokens.append(toks)
+        times = [t for e, _, t in events if e == "token"]
+        wire_ttft.append(times[0])
+        wire_itl.extend(b - a for a, b in zip(times, times[1:]))
+    differ, check = 0, []
+    for i, (toks, h) in enumerate(zip(tokens, inproc)):
+        if toks != h.tokens:
+            differ += sum(a != b for a, b in zip(toks, h.tokens))
+            p = [int(t) for t in prompts[i]]
+            check.append(types.SimpleNamespace(
+                output_ids=p + toks, tokens=toks,
+                request=types.SimpleNamespace(prompt_len=len(p),
+                                              request_id=i)))
+    if check:
+        teacher_forced(torch, dev, check, lambda ids: net(ids)[0],
+                       "frontend")
+    # ---- /metrics
+    st, data, scrape_s = _http(host, port, "GET", "/metrics")
+    scrape_bytes = len(data)
+    scrape = obs.parse_prometheus_text(data.decode("utf-8"))
+    n_tok = sum(len(t) for t in tokens)
+
+    def sample(name, **labels):
+        for lab, v in scrape.get(name, ()):
+            if lab == labels:
+                return v
+        return None
+
+    got = {"wire_ttft": sample("paddle_serving_wire_ttft_seconds_count"),
+           "wire_itl": sample("paddle_serving_wire_itl_seconds_count"),
+           "ttft_interactive": sample("paddle_serving_ttft_seconds_count",
+                                      slo_class="interactive")}
+    if st != 200 or got != {"wire_ttft": 12, "wire_itl": n_tok - 12,
+                            "ttft_interactive": 12}:
+        fail(f"frontend: /metrics {st}: {got}, expected wire TTFT 12, wire "
+             f"ITL {n_tok - 12}, interactive TTFT 12")
+    # ---- /trace: the handler finishes its request span after the done
+    # event is written, so poll until all 12 are in
+    deadline = time.perf_counter() + 30
+    while True:
+        st, data, _ = _http(host, port, "GET", "/trace")
+        by_id = {t["trace_id"]: t["spans"]
+                 for t in json.loads(data)["traces"]}
+        if all(any(sp["name"] == "frontend.request"
+                   for sp in by_id.get(c.trace_id, ())) for c in clients):
+            break
+        if time.perf_counter() > deadline:
+            fail("frontend: /trace lacks a request span after 30 s")
+        time.sleep(0.05)
+    ring = obs.tracing.DEFAULT_EVENT_RING
+    for c, toks in zip(clients, tokens):
+        spans = {sp["name"]: sp for sp in by_id[c.trace_id]}
+        req = spans["frontend.request"]
+        if req["parent_id"] != c.span_id:
+            fail(f"frontend: trace {c.trace_id}: the request span's parent "
+                 f"{req['parent_id']} is not the client's {c.span_id}")
+        for name in ("engine.queue_wait", "engine.prefill",
+                     "engine.decode"):
+            sp = spans.get(name)
+            if sp is None or sp["parent_id"] != req["span_id"]:
+                fail(f"frontend: trace {c.trace_id}: {name} missing or not "
+                     f"under the request span: {sorted(spans)}")
+        steps = [e for e in spans["engine.decode"]["events"]
+                 if e["name"] == "decode_step"]
+        if len(steps) != min(len(toks) - 1, ring):
+            fail(f"frontend: trace {c.trace_id}: {len(steps)} decode_step "
+                 f"events for {len(toks) - 1} decode steps")
+    # ---- /healthz
+    h1 = health()
+    mem = json.loads(json.dumps(eng.memory_report()))
+    if h1.get("memory") != mem:
+        fail("frontend: /healthz memory differs from memory_report()")
+    if h1["compile_entries"] != entries0 or eng.trace_guard.findings \
+            or eng.metrics.guard_fires.value:
+        fail(f"frontend: compile_entries {entries0} -> "
+             f"{h1['compile_entries']}, guard findings "
+             f"{eng.trace_guard.findings}")
+    in_process = {"ttft_p50_s": m.ttft.percentile(50),
+                  # the window's samples: the streams' handles live in
+                  # the server
+                  "ttft_p50_ceil_rank_s": ceil_rank(list(m.ttft._samples),
+                                                    50),
+                  "itl_p50_s": m.itl.percentile(50)}
+    # ---- backpressure: long streams hold every row, then a burst
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(99)
+    long_started = [threading.Event() for _ in range(eng.max_batch_size)]
+    long_threads, long_out = [], [None] * eng.max_batch_size
+
+    def long_stream(i):
+        long_out[i] = _sse(host, port, {
+            "input_ids": [int(t) for t in rng.randint(0, cfg.vocab_size,
+                                                       (32,))],
+            "max_new_tokens": FE_LONG_NEW}, first_token=long_started[i])
+
+    for i in range(eng.max_batch_size):
+        long_threads.append(threading.Thread(target=long_stream, args=(i,)))
+        long_threads[-1].start()
+    for ev in long_started:
+        if not ev.wait(120):
+            fail("frontend: a long stream did not start")
+    qmax = eng.scheduler.max_queue_size
+    burst = _in_threads([
+        (lambda: _sse(host, port, {
+            "input_ids": [1 + j for j in range(FE_SHORT_LEN)],
+            "max_new_tokens": FE_SHORT_NEW}))
+        for _ in range(qmax + FE_BURST_EXTRA)])
+    too_long = _sse(host, port, {
+        "input_ids": [1] * (eng.max_seq_len + 1), "max_new_tokens": 8})
+    for t in long_threads:
+        t.join()
+    codes = {}
+    for st, events, body in burst:
+        codes[st] = codes.get(st, 0) + 1
+        if st == 200 and events[-1][0] != "done":
+            fail(f"frontend: an accepted burst stream ended {events[-1]}")
+        if st != 200 and (st, body.get("reason")) != (429, "queue_full"):
+            fail(f"frontend: a burst request got {st} {body}")
+    if not codes.get(429):
+        fail(f"frontend: a burst of {qmax + FE_BURST_EXTRA} past "
+             f"max_queue_size {qmax} got no 429: {codes}")
+    if any(o[0] != 200 or o[1][-1][0] != "done" for o in long_out):
+        fail("frontend: a long stream did not finish")
+    if (too_long[0], (too_long[2] or {}).get("reason")) != (413, "too_long"):
+        fail(f"frontend: a prompt past max_seq_len got {too_long[0]} "
+             f"{too_long[2]}")
+    legs["backpressure_s"] = time.perf_counter() - t0
+    # ---- drain: the in-flight stream finishes, a new request gets 503
+    t0 = time.perf_counter()
+    started = threading.Event()
+    inflight = []
+    th = threading.Thread(target=lambda: inflight.append(_sse(
+        host, port, {"input_ids": [int(t) for t in prompts[0][:64]],
+                     "max_new_tokens": SERVE_MAX_NEW},
+        first_token=started)))
+    th.start()
+    if not started.wait(120):
+        fail("frontend: the in-flight stream did not start")
+    st_drain = _http(host, port, "POST", "/drain")[0]
+    rejected = _sse(host, port, {"input_ids": [1, 2, 3],
+                                 "max_new_tokens": 4})
+    th.join()
+    st_undrain = _http(host, port, "POST", "/undrain")[0]
+    if (st_drain, st_undrain) != (200, 200) \
+            or (rejected[0], (rejected[2] or {}).get("reason")) \
+            != (503, "draining") \
+            or inflight[0][0] != 200 or inflight[0][1][-1][0] != "done":
+        fail(f"frontend: drain {st_drain}, the new request {rejected[0]} "
+             f"{rejected[2]}, the in-flight one {inflight[0][0]} "
+             f"{inflight[0][1][-1][:2] if inflight[0][1] else None}")
+    legs["drain_s"] = time.perf_counter() - t0
+    fe.stop(close_engine=False)
+    if fe.driver_errors:
+        fail(f"frontend: driver errors {list(fe.driver_errors)}")
+    # ---- traced against untraced, in process, alternated
+    t0 = time.perf_counter()
+    traced = [_traced_itl(torch, np, eng, cfg, s) for s in (1, 0) * 3]
+    legs["traced_untraced_s"] = time.perf_counter() - t0
+    if sample_env is None:
+        os.environ.pop("PADDLE_TPU_TRACE_SAMPLE", None)
+    else:
+        os.environ["PADDLE_TPU_TRACE_SAMPLE"] = sample_env
+
+    def p(xs, q):
+        return float(np.percentile(np.asarray(xs), q))
+
+    res = {
+        "card": card, "streams": len(streams), "tokens": n_tok,
+        "tokens_differing_from_in_process": differ,
+        "requests_differing": len(check),
+        "wire_ttft_p50_s": p(wire_ttft, 50), "wire_ttft_p90_s":
+            p(wire_ttft, 90),
+        "wire_itl_p50_s": p(wire_itl, 50), "wire_itl_p90_s": p(wire_itl, 90),
+        "engine": in_process,
+        "scrape_bytes": scrape_bytes,
+        "scrape_s": scrape_s, "burst_codes": codes,
+        "traced_itl_p50_s": [r["itl_p50_s"] for r in traced if r["sample"]],
+        "untraced_itl_p50_s": [r["itl_p50_s"] for r in traced
+                               if not r["sample"]],
+        "traced_runs": traced, "legs_s": legs,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    log("frontend: " + json.dumps(res))
+    return counts
+
+
+# the front end's step breakdown (``--profile-steps``): a stdlib-only SSE
+# client for a child process, whose threads then do not take this
+# interpreter's lock beside the engine's driver thread; it prints, per
+# stream, its status, its last event and the client clock at each token
+_SSE_CLIENT = r"""
+import http.client, json, sys, threading, time
+host, port = sys.argv[1], int(sys.argv[2])
+payloads = json.load(sys.stdin)
+out = [None] * len(payloads)
+
+
+def run(i):
+    conn = http.client.HTTPConnection(host, port, timeout=600)
+    try:
+        conn.request("POST", "/v1/generate", body=json.dumps(payloads[i]),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        times, event, last = [], None, None
+        for raw in resp:
+            line = raw.decode("utf-8").rstrip("\r\n")
+            if line.startswith("event:"):
+                event = line[6:].strip()
+            elif line.startswith("data:"):
+                last = event
+                if event == "token":
+                    times.append(time.perf_counter())
+                elif event in ("done", "error"):
+                    break
+        out[i] = {"status": resp.status, "last": last, "times": times}
+    finally:
+        conn.close()
+
+
+threads = [threading.Thread(target=run, args=(i,))
+           for i in range(len(payloads))]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+print(json.dumps(out))
+"""
+FE_PROFILE_ROUNDS = 2
+
+
+def frontend_profile(torch, np, eng, cfg, card):
+    """Where the front end's extra ITL goes: one request a row (every row
+    busy) of SERVE_MAX_NEW tokens, tracing off, in four settings
+    alternated FE_PROFILE_ROUNDS times in one call: ``in_process`` (this
+    thread steps the engine); ``in_process_writers`` (the same, with one
+    thread a request doing an SSE handler's work for each token: format
+    the event and write it to a socket, no HTTP); ``frontend`` (behind
+    ``ServingFrontend``, the clients' threads in this process, as the
+    gate leg runs them); ``frontend_child_clients`` (the clients in a
+    child process). Over the decode-only steps (every row busy, no
+    prefill in the step or the next) it reads the host clock's time
+    inside ``step()``, the gap to the next ``step()`` and the interval
+    between step starts (a token's ITL), each p50 and mean, beside the
+    decode program's replay alone (CUDA events, ``replay_ms``) and the
+    device's idle share of the interval that leaves, as
+    ``profile_decode`` reads it."""
+    import queue
+    import socket
+    import threading
+
+    from paddle_tpu_torch.serving import ServingFrontend
+    from paddle_tpu_torch.serving.metrics import ServingMetrics
+
+    sample_env = os.environ.get("PADDLE_TPU_TRACE_SAMPLE")
+    os.environ["PADDLE_TPU_TRACE_SAMPLE"] = "0"
+    rows = eng.max_batch_size
+    rng = np.random.RandomState(99)
+    prompts = [rng.randint(0, cfg.vocab_size, (int(n),))
+               for n in rng.randint(32, 1025, size=rows)]
+    payloads = [{"input_ids": [int(t) for t in p],
+                 "max_new_tokens": SERVE_MAX_NEW} for p in prompts]
+    real_step = eng.step
+    marks = []  # (start, end, rows busy before, prefills in the step)
+    replay = []
+
+    def timed_step():
+        busy, pf = eng.active_slots, eng.metrics.prefill_time.count
+        t0 = time.perf_counter()
+        out = real_step()
+        marks.append((t0, time.perf_counter(), busy,
+                      eng.metrics.prefill_time.count - pf))
+        return out
+
+    def sse_writer(q, sock):
+        idx = 0
+        while True:
+            tok = q.get()
+            if tok is None:
+                return
+            sock.sendall(f"event: token\ndata: "
+                         f"{json.dumps({'index': idx, 'token': tok})}\n\n"
+                         .encode("utf-8"))
+            idx += 1
+
+    def in_process(writers):
+        sinks, threads = [], []
+        if writers:
+            for _ in range(rows):
+                sinks.append((queue.Queue(), *socket.socketpair()))
+                threads.append(threading.Thread(
+                    target=sse_writer, args=sinks[-1][:2]))
+                threads[-1].start()
+        hs = [eng.submit(p, SERVE_MAX_NEW, on_token=None if not writers
+                         else (lambda tok, h, q=sinks[i][0]: q.put(tok)))
+              for i, p in enumerate(prompts)]
+        while eng.active_slots or eng.scheduler.depth:
+            timed_step()
+            if not replay and len(marks) == 3 * rows:
+                # the decode program alone, mid-run (its replays rewrite
+                # the same slots with the same values); the sentinel
+                # keeps the steps around it out of the pairs
+                replay.append(replay_ms(
+                    torch, eng._programs.get(("decode",)).graph))
+                marks.append((0.0, 0.0, -1, 0))
+        for q, a, b in sinks:
+            q.put(None)
+        for t in threads:
+            t.join()
+        for q, a, b in sinks:
+            a.close()
+            b.close()
+        if any(h.status != "DONE" or len(h.tokens) != SERVE_MAX_NEW
+               for h in hs):
+            fail("frontend profile: an in-process request did not finish")
+        return []
+
+    def behind_frontend(child):
+        eng.step = timed_step  # the driver thread takes it at start()
+        fe = ServingFrontend(eng, host="127.0.0.1", port=0).start()
+        try:
+            if child:
+                proc = subprocess.Popen(
+                    [sys.executable, "-c", _SSE_CLIENT, "127.0.0.1",
+                     str(fe.port)], stdin=subprocess.PIPE,
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)
+                try:
+                    out, err = proc.communicate(json.dumps(payloads),
+                                                timeout=600)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.communicate()
+                    fail("frontend profile: the child client timed out")
+                if proc.returncode:
+                    fail(f"frontend profile: the child client exited "
+                         f"{proc.returncode}: {err[-2000:]}")
+                streams = [(s or {}).get("times") for s in json.loads(out)
+                           if (s or {}).get("status") == 200
+                           and s.get("last") == "done"]
+            else:
+                streams = [[t for e, _, t in ev if e == "token"]
+                           for st, ev, _ in _in_threads([
+                               (lambda p=p: _sse("127.0.0.1", fe.port, p))
+                               for p in payloads])
+                           if st == 200 and ev and ev[-1][0] == "done"]
+        finally:
+            fe.stop(close_engine=False)
+            del eng.step
+        if fe.driver_errors:
+            fail(f"frontend profile: driver errors {fe.driver_errors}")
+        if len(streams) != rows or any(len(t) != SERVE_MAX_NEW
+                                       for t in streams):
+            fail(f"frontend profile: {len(streams)} of {rows} streams "
+                 f"ended done with {SERVE_MAX_NEW} tokens")
+        return [b - a for t in streams for a, b in zip(t, t[1:])]
+
+    def ms(xs, how):
+        return float(how(np.asarray(xs))) * 1e3
+
+    t_phase = time.perf_counter()
+    legs = {"in_process": lambda: in_process(False),
+            "in_process_writers": lambda: in_process(True),
+            "frontend": lambda: behind_frontend(False),
+            "frontend_child_clients": lambda: behind_frontend(True)}
+    runs = []
+    for _ in range(FE_PROFILE_ROUNDS):
+        for name, leg in legs.items():
+            eng.metrics = ServingMetrics()
+            marks.clear()
+            wire = leg()
+            pairs = [(a, b) for a, b in zip(marks, marks[1:])
+                     if a[2] == b[2] == rows and not a[3] and not b[3]]
+            if len(pairs) < SERVE_MAX_NEW // 2:
+                fail(f"frontend profile ({name}): {len(pairs)} decode-only "
+                     f"step pairs")
+            if eng.page_pool.pages_in_use:
+                fail(f"frontend profile ({name}): pages leaked")
+            m = eng.metrics
+            r = {"setting": name, "pairs": len(pairs)}
+            for key, xs in (("step", [a[1] - a[0] for a, b in pairs]),
+                            ("gap", [b[0] - a[1] for a, b in pairs]),
+                            ("interval", [b[0] - a[0] for a, b in pairs]),
+                            ("wire_itl", wire)):
+                if xs:
+                    r[f"{key}_p50_ms"] = ms(xs, np.median)
+                    r[f"{key}_mean_ms"] = ms(xs, np.mean)
+            r["engine_itl_p50_ms"] = m.itl.percentile(50) * 1e3
+            r["engine_itl_mean_ms"] = m.itl.sum / m.itl.count * 1e3
+            r["idle_share"] = 1.0 - replay[0] / r["interval_p50_ms"]
+            runs.append(r)
+    if sample_env is None:
+        os.environ.pop("PADDLE_TPU_TRACE_SAMPLE", None)
+    else:
+        os.environ["PADDLE_TPU_TRACE_SAMPLE"] = sample_env
+    log("frontend profile: " + json.dumps({
+        "card": card, "rows": rows, "max_new_tokens": SERVE_MAX_NEW,
+        "replay_ms": replay[0], "runs": runs,
+        "phase_s": time.perf_counter() - t_phase}))
 
 
 def fused_serving(torch, np, dev, card, net, eng, eager, cfg,
@@ -5471,8 +6174,8 @@ def main():
     (serve_counts, serve_eager_counts,
      (fused_serve_counts, fused_serve_eager_counts),
      (prefix_counts, prefix_eager_counts), session_counts, spec_counts,
-     beam_counts, reload_counts) = serving_phase(torch, np, dev, card,
-                                                 args.profile_steps)
+     beam_counts, reload_counts, frontend_counts) = serving_phase(
+        torch, np, dev, card, args.profile_steps)
     quant_counts, quant_eager_counts = quant_serving_phase(
         torch, np, dev, card, args.profile_steps)
 
@@ -5507,6 +6210,7 @@ def main():
                     "beam": beam_counts[name],
                     "checkpoint": checkpoint_counts.get(name, 0),
                     "full_reload": reload_counts.get(name, 0),
+                    "frontend": frontend_counts.get(name, 0),
                     "fused_training": fused_train_counts[name],
                     "fp32_training": fp32_train_counts[name],
                     "fused_fp32_training": fused_fp32_train_counts[name],

@@ -25,10 +25,11 @@ Differences from the JAX manager:
 - one process: the process count and index are 1 and 0, so the
   multi-process agreement, barriers and gathers of the JAX manager are
   absent until ``ROADMAP.md`` queue A item 6;
-- the metrics are the port's own ``Counter``, ``Gauge`` and
-  ``Histogram`` (``serving/metrics.py``) under the JAX names, on the
-  manager; ``registry=`` other than None raises (the registry is queue A
-  item 4), and the flight-recorder events are left out with it;
+- the metrics register in the process registry (or ``registry=``)
+  under JAX's ``paddle_ckpt_*`` names, plus ``snapshot_seconds`` (the
+  caller thread's share of an async save); the flight-recorder events
+  are JAX's, in the process recorder, and so is the emergency save's
+  flight dump under ``root/flight/``;
 - the ``rng`` entry: the JAX manager saves the global key's data,
   uint32[2] (``core/random.py:74``). The port has no global key (its
   generators are explicit), so it writes an entry of the same name,
@@ -58,6 +59,8 @@ from ..distributed.checkpoint.save_load import (
     load_state_dict,
     save_state_dict,
 )
+from ..observability import get_flight_recorder, get_registry
+from ..observability import get_step_meter
 from ..serving.metrics import Counter, Gauge, Histogram
 from . import commit as commit_mod
 from .async_saver import AsyncSaver
@@ -70,9 +73,9 @@ logger = logging.getLogger("paddle_tpu_torch.checkpoint")
 # older ones
 ORPHAN_TMP_MIN_AGE_S = 300.0
 
-REGISTRY_NOT_PORTED = (
-    "registry=...: the metrics registry is not ported (ROADMAP.md queue A "
-    "item 4); the manager keeps its metrics as attributes")
+SAVE_SECONDS_BUCKETS = (
+    0.01, 0.05, 0.25, 1.0, 5.0, 15.0, 60.0, 300.0, 1800.0,
+)
 
 
 class CheckpointPolicy:
@@ -195,8 +198,6 @@ class CheckpointManager:
                  state_fn=None, policy=None, async_saves=True,
                  registry=None, manifest_extra_fn=None,
                  coordinator_rank=0):
-        if registry is not None:
-            raise NotImplementedError(REGISTRY_NOT_PORTED)
         self.root = str(root)
         os.makedirs(self.root, exist_ok=True)
         self.network = network
@@ -220,7 +221,7 @@ class CheckpointManager:
         self._prev_handlers = {}
         self._preempt_rethrow = {}
         self._preempt_thread = None
-        self._init_metrics()
+        self._init_metrics(registry or get_registry())
         self._saver = (
             AsyncSaver(on_error=self._on_writer_error)
             if self.async_saves else None
@@ -232,21 +233,86 @@ class CheckpointManager:
             for p in removed:
                 logger.warning("checkpoint: removed orphaned save %s", p)
                 self.fallbacks_total.inc(label="orphan_tmp")
+                self._note_event("checkpoint_orphan_gc", path=p)
 
     # ------------------------------------------------------------- plumbing
-    def _init_metrics(self):
-        self.registry = None
-        self.save_seconds = Histogram("ckpt_save_seconds")
-        self.blocked_seconds = Histogram("ckpt_blocked_seconds")
+    def _init_metrics(self, reg):
+        self.registry = reg
+        self.save_seconds = Histogram(
+            "ckpt_save_seconds", unit="s", buckets=SAVE_SECONDS_BUCKETS,
+            prom_name="paddle_ckpt_save_seconds",
+            help="wall time of one checkpoint write+commit (writer-side)",
+        )
+        self.blocked_seconds = Histogram(
+            "ckpt_blocked_seconds", unit="s",
+            prom_name="paddle_ckpt_blocked_seconds",
+            help="train-loop stalls caused by checkpointing (writer "
+                 "backpressure, synchronous/emergency saves) — excluded "
+                 "from paddle_training_step_time_seconds",
+        )
         # the caller thread's share of an async save (the pinned buffer
         # and the copies' launch): the JAX snapshot's is microseconds
-        self.snapshot_seconds = Histogram("ckpt_snapshot_seconds")
-        self.bytes_total = Counter("ckpt_bytes")
-        self.saves_total = Counter("ckpt_saves")            # by mode
-        self.save_failures_total = Counter("ckpt_save_failures")
-        self.last_step = Gauge("ckpt_last_step")
-        self.fallbacks_total = Counter("ckpt_restore_fallbacks")  # reason
-        self.restores_total = Counter("ckpt_restores")      # by outcome
+        self.snapshot_seconds = Histogram(
+            "ckpt_snapshot_seconds", unit="s",
+            prom_name="paddle_ckpt_snapshot_seconds",
+            help="caller-thread time of one save's snapshot (pinned "
+                 "buffers and the device-to-host copies' launch)",
+        )
+        self.bytes_total = Counter(
+            "ckpt_bytes", prom_name="paddle_ckpt_bytes_total",
+            help="checkpoint bytes committed to storage",
+        )
+        self.saves_total = Counter(
+            "ckpt_saves", labelname="mode",
+            prom_name="paddle_ckpt_saves_total",
+            help="committed checkpoints by mode (async|sync|emergency)",
+        )
+        self.save_failures_total = Counter(
+            "ckpt_save_failures",
+            prom_name="paddle_ckpt_save_failures_total",
+            help="checkpoint saves that errored (training continued)",
+        )
+        self.last_step = Gauge(
+            "ckpt_last_step", prom_name="paddle_ckpt_last_step",
+            help="step of the newest committed checkpoint",
+        )
+        self.fallbacks_total = Counter(
+            "ckpt_restore_fallbacks", labelname="reason",
+            prom_name="paddle_ckpt_restore_fallbacks_total",
+            help="restore candidates rejected (torn/corrupt/orphaned) "
+                 "by reason",
+        )
+        self.restores_total = Counter(
+            "ckpt_restores", labelname="outcome",
+            prom_name="paddle_ckpt_restores_total",
+            help="restore_or_init outcomes (restored|init)",
+        )
+        reg.register_all([
+            self.save_seconds, self.blocked_seconds, self.snapshot_seconds,
+            self.bytes_total, self.saves_total, self.save_failures_total,
+            self.last_step, self.fallbacks_total, self.restores_total,
+        ])
+
+    @staticmethod
+    def _note_event(kind, **info):
+        try:
+            get_flight_recorder().note(kind, **info)
+        except Exception:
+            pass
+
+    def _note_blocked(self, seconds, reason):
+        """A train-loop stall attributable to checkpointing: publish the
+        dedicated histogram and tell the StepMeter to EXCLUDE it from
+        the next step_time interval, so tokens/sec and MFU are not
+        silently deflated by save stalls."""
+        self.blocked_seconds.observe(seconds)
+        try:
+            get_step_meter().note_blocked(seconds)
+        except Exception:
+            pass
+        self._note_event(
+            "checkpoint_blocked", seconds=seconds, reason=reason
+        )
 
     def _should_gc_orphans(self):
         """Startup GC touches a shared directory: under a launcher every
@@ -260,6 +326,7 @@ class CheckpointManager:
 
     def _on_writer_error(self, exc):
         self.save_failures_total.inc()
+        self._note_event("checkpoint_save_failed", error=repr(exc))
         logger.error("checkpoint: background save failed: %r", exc)
 
     # ---------------------------------------------------------------- state
@@ -384,12 +451,12 @@ class CheckpointManager:
         if blocking or self._saver is None:
             t0 = time.perf_counter()
             write()
-            self.blocked_seconds.observe(time.perf_counter() - t0)
+            self._note_blocked(time.perf_counter() - t0, reason=mode)
         else:
             blocked = self._saver.submit(write)
             if blocked > 1e-4:
                 # backpressure: the previous save was still in flight
-                self.blocked_seconds.observe(blocked)
+                self._note_blocked(blocked, reason="backpressure")
         return step
 
     def _write_and_commit(self, step, snap, mode, extra_state=None):
@@ -418,6 +485,10 @@ class CheckpointManager:
         self.bytes_total.inc(nbytes)
         self.saves_total.inc(label=mode)
         self.last_step.set(step)
+        self._note_event(
+            "checkpoint_commit", step=step, seconds=dt, bytes=nbytes,
+            mode=mode, path=path or commit_mod.step_dir(self.root, step),
+        )
         return path
 
     def _apply_retention(self):
@@ -426,6 +497,7 @@ class CheckpointManager:
         for s, path in committed:
             if s not in keep:
                 shutil.rmtree(path, ignore_errors=True)
+                self._note_event("checkpoint_retired", step=s, path=path)
 
     def wait(self, timeout=None):
         """Drain any in-flight background save."""
@@ -499,16 +571,24 @@ class CheckpointManager:
                         "applicable: %r", name, path, e,
                     )
             self.restores_total.inc(label="restored")
+            self._note_event(
+                "checkpoint_restore", step=restored_step, path=path
+            )
             logger.info(
                 "checkpoint: resumed from %s (step %d)", path, restored_step
             )
             return RestoreResult(True, restored_step, path)
         self.restores_total.inc(label="init")
+        self._note_event("checkpoint_restore", step=0, path=None)
         return RestoreResult(False, 0, None)
 
     def _reject(self, path, problems, reason=None):
         reason = reason or _fallback_reason(problems)
         self.fallbacks_total.inc(label=reason)
+        self._note_event(
+            "checkpoint_fallback", path=path, reason=reason,
+            problems=problems[:4],
+        )
         logger.warning(
             "checkpoint: skipping %s (%s): %s", path, reason, problems[:4]
         )
@@ -563,7 +643,9 @@ class CheckpointManager:
 
     def emergency_save(self, grace_seconds=30.0):
         """Synchronous best-effort save of the current step (preemption
-        path). Never raises."""
+        path). Never raises. The flight recorder's bundle is dumped next
+        to the checkpoints (``root/flight/``) either way."""
+        t0 = time.perf_counter()
         try:
             drained = self.wait(timeout=grace_seconds)
             if not drained:
@@ -579,8 +661,30 @@ class CheckpointManager:
             return self.save(blocking=True, mode="emergency")
         except Exception as e:
             self.save_failures_total.inc()
+            self._note_event("checkpoint_save_failed", error=repr(e),
+                             mode="emergency")
             logger.error("checkpoint: emergency save failed: %r", e)
             return None
+        finally:
+            self._note_event(
+                "checkpoint_preempted",
+                seconds=time.perf_counter() - t0,
+                step=self._last_step,
+            )
+            # nonblocking: a step may still be in flight inside the grace
+            # window; under root/flight/, where no step directory is
+            try:
+                path = get_flight_recorder().dump(
+                    path=os.path.join(
+                        self.root, "flight",
+                        f"preemption_{os.getpid()}.json",
+                    ),
+                    reason="preemption", sync=False,
+                )
+                self._note_event("flight_dump", path=path,
+                                 reason="preemption")
+            except Exception:
+                pass
 
     # -------------------------------------------------------------- context
     def __enter__(self):

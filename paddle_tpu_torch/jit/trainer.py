@@ -41,10 +41,23 @@ the update, which writes parameters and moments in place, waits for the
 snapshot's device-to-host copies while the forward and backward overlap
 them. The fp8 extra state the JAX trainer registers waits for AMP O3
 (``ROADMAP.md`` queue A item 3).
+
+Each step is published into the process ``StepMeter``
+(``observability.get_step_meter()``, JAX ``trainer.py:717-740``): batch
+geometry from the inputs' shapes, the loss as a lazy device value, the
+first call as ``warmup``. A host clock that stops at the step's last
+launch would overstate throughput and MFU on a card, and a
+synchronization would slow the loop, so on a card the step's time is
+taken between two CUDA events recorded at its start and end, and the
+step is published once its end event has completed: at a later call,
+or at :meth:`flush_telemetry`. On the CPU the host clock is the step's
+time and the step is published at once. Telemetry never fails a step.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import time
 
 import numpy as np
 import torch
@@ -90,6 +103,8 @@ class CompiledTrainStep:
         self._plan = None
         self._inv = {}
         self._checkpoint = None
+        self._telemetry = collections.deque()  # steps not published yet
+        self._calls = 0
 
     def attach_checkpoint(self, manager):
         """Wire a ``checkpoint.CheckpointManager`` into the step loop: it
@@ -160,11 +175,65 @@ class CompiledTrainStep:
             # the update was skipped: the bias-correction step stays
             self.optimizer._step_count -= 1
 
+    # ------------------------------------------------------------ telemetry
+    def _begin_telemetry(self, device):
+        """The step's start mark: a CUDA event on the card, else the host
+        clock."""
+        if device.type != "cuda":
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _end_telemetry(self, start, inputs, loss):
+        try:
+            warmup = self._calls == 0
+            self._calls += 1
+            if isinstance(start, float):
+                end = time.perf_counter()
+            else:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+            self._telemetry.append((start, end, inputs, loss, warmup))
+            self.flush_telemetry(wait=False)
+        except Exception:
+            pass
+
+    def flush_telemetry(self, wait=True):
+        """Publish the steps whose time is known into the process
+        ``StepMeter``, oldest first: every pending step with ``wait``
+        (its end event is waited for), else those whose end event has
+        completed (a query, no synchronization). Returns how many are
+        still pending."""
+        from .. import observability as obs
+
+        pending = self._telemetry
+        try:
+            meter = obs.get_step_meter()
+            meter.auto_configure(self.network)  # MFU from model config
+            while pending:
+                start, end, inputs, loss, warmup = pending[0]
+                if isinstance(start, float):
+                    dt = end - start
+                else:
+                    if not wait and not end.query():
+                        break
+                    end.synchronize()
+                    dt = start.elapsed_time(end) / 1e3
+                pending.popleft()
+                examples, tokens = obs.batch_geometry(inputs)
+                meter.observe_step(dt, examples=examples, tokens=tokens,
+                                   loss=loss, warmup=warmup)
+        except Exception:
+            pending.clear()
+        return len(pending)
+
     def __call__(self, inputs, labels):
         """One optimizer step over ``inputs`` (the network's positional
         arguments) and ``labels`` (the loss function's arguments after
         the network's outputs)."""
         opt = self.optimizer
+        mark = self._begin_telemetry(next(self.network.parameters()).device)
         if self._plan is None:
             self._plan = self._build_plan()
         opt.clear_grad()
@@ -189,6 +258,8 @@ class CompiledTrainStep:
         if sc is not None:
             self._update_scaler(stats.finite())
         opt.clear_grad()
+        loss = loss.detach()
+        self._end_telemetry(mark, inputs, loss)
         if self._checkpoint is not None:
             self._checkpoint.on_step(opt._step_count)
-        return loss.detach(), [o.detach() for o in outs]
+        return loss, [o.detach() for o in outs]

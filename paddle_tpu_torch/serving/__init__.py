@@ -1,12 +1,19 @@
 """Continuous-batching serving for the port (counterpart of
 ``paddle_tpu/serving``): the slab engine, the paged engine with its
 prefix cache and the KV spill tier below it, speculative decoding for
-both, sessions, live weight reload, and the host-side pieces they
-share. ``chaos`` is ``paddle_tpu_torch.chaos``, as the JAX package's
+both, sessions, live weight reload, the HTTP/SSE front end
+(``ServingFrontend``), and the host-side pieces they share. ``chaos`` is ``paddle_tpu_torch.chaos``, as the JAX package's
 ``serving.chaos`` re-exports its harness."""
 from .. import chaos  # noqa: F401
 from .engine import ServingEngine  # noqa: F401
 from .fleet.kv_transfer import TransferError  # noqa: F401
+from .http_frontend import (  # noqa: F401
+    FrontendMetrics,
+    HTTPRejected,
+    ServingFrontend,
+    read_sse_events,
+    stream_generate,
+)
 from .kv_pool import KVBlock, KVCachePool, bucket_for  # noqa: F401
 from .kv_tiering import TieredPageStore, pack_page, unpack_page  # noqa
 from .metrics import ServingMetrics  # noqa: F401

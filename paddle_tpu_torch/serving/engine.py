@@ -47,13 +47,26 @@ again; ``weights_version``, ``generation`` and ``last_reload_step``
 move, and ``_on_weights_swapped`` fires (the paged engine flushes its
 prefix cache there, and speculation forgets its draft caches).
 
+Observability, as the JAX engine wires it: the metrics register in the
+process registry (``metrics.py``), with per-SLO-class TTFT, ITL and E2E
+children bound once at admission; a request the front end traced
+(``handle.trace``) gets an ``engine.queue_wait`` span, an
+``engine.prefill`` span and one open ``engine.decode`` span whose
+bounded ring takes one ``decode_step`` event a step (a sampled-out
+request allocates nothing: the step loop checks one integer); every
+capture is recorded in the engine's ``trace_guard`` (a
+``recompile-storm`` past ``recompile_guard_max`` distinct signatures of
+one program counts in ``metrics.guard_fires``); a reload records an
+``engine.reload_pause`` trace and a ``weights_reload`` flight note; and
+``memory_report()`` publishes ``paddle_serving_program_peak_bytes`` by
+program.
+
 The constructor and ``submit`` take the JAX engine's parameters in its
-order, then ``graphs``. Those of modules not ported yet raise
-``NotImplementedError`` naming their ``ROADMAP.md`` queue A item: the
-trace guard (``recompile_guard_max``, item 1.6).
+order, then ``graphs``.
 """
 from __future__ import annotations
 
+import math
 import time
 
 import numpy as np
@@ -65,6 +78,9 @@ from ..models.generation import (
     decode_step,
     prefill,
 )
+from ..analysis.trace_guard import TraceGuard
+from ..observability import get_flight_recorder, get_registry
+from ..observability.tracing import get_tracer
 from ..quantization.kv import adopt_into_slab, slab_row_block
 from .kv_pool import KVCachePool
 from .metrics import ServingMetrics
@@ -90,13 +106,19 @@ from .sessions import SessionStore
 class _Seq:
     """Host-side state of one running sequence (one decode row)."""
 
-    __slots__ = ("handle", "last_tok", "emitted", "key")
+    __slots__ = ("handle", "last_tok", "emitted", "key", "slo_itl",
+                 "slo_e2e")
 
-    def __init__(self, handle, first_tok, key=None):
+    def __init__(self, handle, first_tok, key=None, slo_itl=None,
+                 slo_e2e=None):
         self.handle = handle
         self.last_tok = first_tok
         self.emitted = 0
         self.key = key  # the request's sampling key (sampling_keys)
+        # the request's SLO-class histogram children, bound at admission:
+        # the per-token path resolves no label
+        self.slo_itl = slo_itl
+        self.slo_e2e = slo_e2e
 
     @property
     def pos(self):
@@ -120,7 +142,9 @@ class ServingEngine:
     and ``pool`` pass built ones in; ``sessions`` is True (a
     :class:`~.sessions.SessionStore` on the engine's clock), a built
     store, or None. ``reload_template`` is the default ``template_net``
-    of :meth:`prepare_reload`."""
+    of :meth:`prepare_reload`. ``recompile_guard_max`` is the trace
+    guard's storm bar (JAX's default: ``max(4, buckets + 2)`` from the
+    pool's geometry, widened by the prefix cache and speculation)."""
 
     # the paged engine verifies by replaying its decode step over the
     # arena; the slab engine over a gathered block (``_spec_verify``)
@@ -134,10 +158,6 @@ class ServingEngine:
                  clock=time.monotonic, recompile_guard_max=None,
                  weights_version=None, reload_template=None,
                  speculative=None, sessions=None, graphs=True):
-        if recompile_guard_max is not None:
-            raise NotImplementedError(
-                "recompile_guard_max=...: the trace guard is not ported "
-                "(ROADMAP.md queue A item 1.6)")
         self.net = net.eval()
         self.config = net.config
         self.device = net.device
@@ -177,12 +197,35 @@ class ServingEngine:
         self._seqs = [None] * self.max_batch_size
         self.step_count = 0
         self._closed = False
+        # in-flight requests that carry an open decode span: the decode
+        # step checks this one integer and, when zero, allocates nothing
+        self._traced_live = 0
         self.speculative = speculative
         self._init_kv_backend()
-        self._programs = Programs(self.device, self._program_kinds())
+        if recompile_guard_max is None:
+            # one prefill and one adopt per power-of-two bucket of the
+            # POOL's geometry, one decode step (``engine.py:257-275``)
+            pool_min = getattr(self.pool, "min_bucket", min_bucket)
+            pool_max = getattr(self.pool, "max_seq_len", None) \
+                or self.max_seq_len
+            buckets = 1 + max(
+                0, int(math.log2(max(pool_max, 1)))
+                - int(math.log2(max(pool_min, 1)))
+            )
+            recompile_guard_max = max(4, buckets + 2)
+        self.trace_guard = TraceGuard(max_compiles=recompile_guard_max)
+        self.trace_guard.on_fire(self._on_guard_fire)
+        self._programs = Programs(self.device, self._program_kinds(),
+                                  guard=self.trace_guard)
         self._net_key = None
         if speculative is not None:
             speculative.bind(self)
+
+    def _on_guard_fire(self, finding):
+        """A capture storm at run time: counted by program on the
+        engine's metrics (JAX also emits a profiler span, which waits
+        with ``ROADMAP.md`` queue A item 7)."""
+        self.metrics.guard_fires.inc(label=finding.graph)
 
     # ------------------------------------------------------- KV backend
     def _init_kv_backend(self):
@@ -419,9 +462,21 @@ class ServingEngine:
         table = self._programs.memory
         if not table:
             return None
+        self._publish_memory_gauges(table)
         return {"programs": dict(table),
                 "max_peak_bytes": max(e["peak_bytes"]
                                       for e in table.values())}
+
+    @staticmethod
+    def _publish_memory_gauges(table):
+        g = get_registry().gauge(
+            "paddle_serving_program_peak_bytes",
+            help="peak allocated bytes of each serving program's first "
+                 "call (its capture)",
+            unit="bytes",
+        )
+        for name, entry in table.items():
+            g.set(float(entry["peak_bytes"]), program=name)
 
     def warmup(self, aot_cache=None, buckets=None):
         """Capture every fixed-shape program before traffic: the decode
@@ -474,6 +529,8 @@ class ServingEngine:
             if self.speculative is not None:
                 warmed.append(self.speculative.warmup(self, buckets))
         stats["programs"] = sum(warmed)
+        if self._programs.memory:
+            self._publish_memory_gauges(self._programs.memory)
         return stats
 
     def _warm_more(self, buckets):
@@ -543,7 +600,8 @@ class ServingEngine:
                    for s in self._seqs if s is not None)
 
     def _finish(self, slot, status, reason=None):
-        h = self._seqs[slot].handle
+        seq = self._seqs[slot]
+        h = seq.handle
         now = self.clock()
         h.status = status
         h.reason = reason
@@ -553,7 +611,15 @@ class ServingEngine:
             self.metrics.completed.inc()
         elif status == TIMEOUT:
             self.metrics.timeouts.inc()
-        self.metrics.e2e.observe(now - h.submit_time)
+        tid = None if h.trace is None else h.trace.trace_id
+        (seq.slo_e2e or self.metrics.e2e).observe(
+            now - h.submit_time, trace_id=tid)
+        sp = h._decode_span
+        if sp is not None:
+            h._decode_span = None
+            self._traced_live -= 1
+            sp.finish(status=status, tokens=len(h.tokens),
+                      **({"error": reason} if reason else {}))
         sid = h.request.session_id
         if sid is not None and self.sessions is not None \
                 and not self._closed:
@@ -616,6 +682,9 @@ class ServingEngine:
         req = handle.request
         now = self.clock()
         row = self._claim_row(req)
+        psp = None if handle.trace is None else get_tracer().start_span(
+            "engine.prefill", handle.trace, mode="local",
+            bucket=self.pool.bucket_for(req.prompt_len))
         try:
             key = self._next_key()
             t_start = self.clock()
@@ -626,9 +695,29 @@ class ServingEngine:
                 self.pool.free(blk)
             self.metrics.prefill_time.observe(self.clock() - t_start)
         except BaseException:
+            if psp is not None:
+                psp.finish(error="admission_error")
             self._release_slot(row)
             raise
+        if psp is not None:
+            psp.finish()
         self._start_seq(handle, row, t0, key, now)
+
+    def _trace_admitted(self, handle, slot, wait):
+        """Admission-time spans under the request's trace context: the
+        queue wait rendered retroactively (its duration is the
+        ``queue_wait`` histogram's sample), and the one open decode span
+        whose bounded event ring the step loop feeds. Nothing when the
+        request is sampled out (``handle.trace is None``)."""
+        tspan = handle.trace
+        if tspan is None:
+            return
+        tr = get_tracer()
+        tr.record_span("engine.queue_wait", tspan, wait)
+        handle._decode_span = tr.start_span("engine.decode", tspan,
+                                            slot=slot)
+        if handle._decode_span is not None:
+            self._traced_live += 1
 
     def _start_seq(self, handle, row, t0, key, now):
         """An admitted request's first token ``t0`` in decode row ``row``:
@@ -639,12 +728,18 @@ class ServingEngine:
         handle.admit_time = now
         handle.admitted_step = self.step_count
         handle.first_token_time = self.clock()
+        wait = now - handle.submit_time
+        tid = None if handle.trace is None else handle.trace.trace_id
         self.metrics.admitted.inc()
         self.metrics.prefill_tokens.inc(req.prompt_len)
-        self.metrics.queue_wait.observe(now - handle.submit_time)
-        self.metrics.ttft.observe(handle.first_token_time
-                                  - handle.submit_time)
-        self._seqs[row] = _Seq(handle, t0, key=key)
+        self.metrics.queue_wait.observe(wait, trace_id=tid)
+        slo_ttft, slo_itl, slo_e2e = self.metrics.slo_children(
+            req.slo_class)
+        slo_ttft.observe(handle.first_token_time - handle.submit_time,
+                         trace_id=tid)
+        self._trace_admitted(handle, row, wait)
+        self._seqs[row] = _Seq(handle, t0, key=key, slo_itl=slo_itl,
+                               slo_e2e=slo_e2e)
         self._append(row, t0)
 
     def _admission_budget(self):
@@ -749,10 +844,20 @@ class ServingEngine:
         dt = self.clock() - t0
         self.metrics.decode_step_time.observe(dt)
         self.metrics.decode_tokens.inc(len(active))
+        if self._traced_live:
+            # one bounded-ring event per traced request per step; a
+            # sampled-out run never reaches this branch
+            occ = len(active)
+            for i in active:
+                sp = self._seqs[i].handle._decode_span
+                if sp is not None:
+                    sp.event("decode_step", step=self.step_count,
+                             occupancy=occ, dt_s=dt)
         for i in active:
-            if self._seqs[i] is None:
-                continue
-            self.metrics.itl.observe(dt)
+            seq = self._seqs[i]
+            if seq is None:
+                continue  # finished by an earlier row this step
+            (seq.slo_itl or self.metrics.itl).observe(dt)
             self._append(i, nxt[i])
 
     def run_until_idle(self, max_steps=100_000):
@@ -868,10 +973,24 @@ class ServingEngine:
         self.reload_in_progress = False
         self._on_weights_swapped()
         if staged.staged_at is not None:
-            self.metrics.reload_ttft_spike.observe(
-                self.clock() - staged.staged_at)
+            pause = self.clock() - staged.staged_at
+            self.metrics.reload_ttft_spike.observe(pause)
+            # the admission pause as a (head-sampled) root span, in the
+            # same timeline as the requests it delayed
+            get_tracer().record_trace(
+                "engine.reload_pause", pause,
+                version=staged.weights_version, step=staged.step,
+            )
         self.metrics.reloads.inc(label="ok")
         staged.outcome = "applied"
+        try:
+            get_flight_recorder().note(
+                "weights_reload", step=staged.step,
+                version=staged.weights_version, path=staged.path,
+                generation=self.generation,
+            )
+        except Exception:
+            pass
 
     def _on_weights_swapped(self):
         """Post-swap hook, with the new weights in place and nothing in

@@ -95,6 +95,10 @@ class KVCachePool:
         self._blocks = {}  # bucket -> its KVBlock
         self._live_blocks = 0
         self._slabs = []
+        self._block_bytes = 0  # every block created (they stay resident)
+        self._slab_bytes = 0
+        self.allocs = 0
+        self.reuse_hits = 0
 
     def bucket_for(self, seq_len):
         return bucket_for(seq_len, self.min_bucket, self.max_seq_len)
@@ -107,11 +111,15 @@ class KVCachePool:
         if blk is None:
             blk = self._blocks[bucket] = KVBlock(bucket, alloc_kv_caches(
                 self.config, 1, bucket, self.dtype, device=self.device))
+            self.allocs += 1
+            self._block_bytes += _nbytes(blk.caches)
         elif blk._live:
             raise RuntimeError(
                 f"the block of bucket {bucket} is live: the pool holds one "
                 f"block a bucket (its captured prefill program is bound to "
                 f"it)")
+        else:
+            self.reuse_hits += 1
         blk._live = True
         self._live_blocks += 1
         return blk
@@ -123,8 +131,10 @@ class KVCachePool:
         self._live_blocks -= 1
 
     def alloc_slab_arrays(self, num_slots, seq_len):
-        return alloc_kv_caches(self.config, num_slots, seq_len, self.dtype,
-                               device=self.device)
+        caches = alloc_kv_caches(self.config, num_slots, seq_len,
+                                 self.dtype, device=self.device)
+        self._slab_bytes += _nbytes(caches)
+        return caches
 
     def register_slab(self, num_slots, seq_len):
         slab = SlotSlab(num_slots, seq_len)
@@ -134,3 +144,27 @@ class KVCachePool:
     @property
     def occupancy(self):
         return self._live_blocks + sum(s.claimed for s in self._slabs)
+
+    def stats(self):
+        """JAX's pool readout (the ``/healthz`` ``pool`` block);
+        ``reserved_bytes`` counts the tensors the pool allocated."""
+        return {
+            "dtype": str(self.dtype).replace("torch.", ""),
+            "live_blocks": self._live_blocks,
+            "free_blocks": len(self._blocks) - self._live_blocks,
+            "claimed_slots": sum(s.claimed for s in self._slabs),
+            "slab_slots": sum(s.num_slots for s in self._slabs),
+            "occupancy": self.occupancy,
+            "reserved_bytes": int(self._block_bytes + self._slab_bytes),
+            "allocs": self.allocs,
+            "reuse_hits": self.reuse_hits,
+        }
+
+
+def _nbytes(tensors):
+    """Bytes of every tensor in a (nested) cache structure."""
+    if isinstance(tensors, (list, tuple)):
+        return sum(_nbytes(t) for t in tensors)
+    if hasattr(tensors, "element_size"):
+        return tensors.numel() * tensors.element_size()
+    return _nbytes(tensors.q) + _nbytes(tensors.scale)  # QuantizedKV

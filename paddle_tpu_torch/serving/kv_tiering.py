@@ -22,11 +22,11 @@ is counted: the tier saves prefill work and never decides a stream. A
 restore also refuses a payload whose recorded ``weights_version`` is
 not the requesting engine's.
 
-Left out: the flight-recorder events (``kv_spill``, ``kv_demote``,
-``kv_restore``, ``kv_restore_refused``) and the process-wide registry
-(``ROADMAP.md`` queue A item 4): the counters and gauges are the port's
-own (``metrics.py``), one set a store. Driven from the engine's loop
-only, like the cache that owns it.
+The counters and gauges register in the process registry (or
+``registry=``) under JAX's names, and the store notes JAX's
+flight-recorder events (``kv_spill``, ``kv_demote``, ``kv_restore``,
+``kv_restore_refused``) in the process recorder (or ``recorder=``).
+Driven from the engine's loop only, like the cache that owns it.
 """
 from __future__ import annotations
 
@@ -47,17 +47,11 @@ from .fleet.kv_transfer import (
     _HLEN,
     _itemsize,
 )
+from ..observability import get_flight_recorder, get_registry
 from .metrics import Counter, Gauge
 
 TIER_HOST = "host"
 TIER_DISK = "disk"
-
-
-def _refuse_runtime(registry, recorder):
-    if registry is not None or recorder is not None:
-        raise NotImplementedError(
-            "registry=/recorder=: the metrics registry and the flight "
-            "recorder are not ported (ROADMAP.md queue A item 4)")
 
 
 # ------------------------------------------------------------------ frames
@@ -149,13 +143,11 @@ class TieredPageStore:
     ``get`` returns ``(record, meta, arrays)`` after checking the frame,
     or None with the refusal counted. Keys are the prefix cache's chain
     keys, so the parent index serves the same partial-tail search
-    ``match`` runs over resident entries. ``registry`` and ``recorder``
-    must be None (queue A item 4)."""
+    ``match`` runs over resident entries."""
 
     def __init__(self, *, host_budget_bytes=64 << 20, disk_dir=None,
                  disk_budget_bytes=None, registry=None,
                  namespace="paddle_serving", recorder=None):
-        _refuse_runtime(registry, recorder)
         self.host_budget_bytes = int(host_budget_bytes)
         self.disk_dir = disk_dir
         self.disk_budget_bytes = (
@@ -167,14 +159,46 @@ class TieredPageStore:
         self._children = {}             # parent -> set of keys
         self._bytes = {TIER_HOST: 0, TIER_DISK: 0}
         self._file_seq = 0
+        self._rec = recorder if recorder is not None \
+            else get_flight_recorder()
         ns = namespace
-        self.tier_pages = Gauge(f"{ns}_kv_tier_pages")
-        self.tier_bytes = Gauge(f"{ns}_kv_tier_bytes")
-        self.spills = Counter(f"{ns}_kv_tier_spills_total")
-        self.restores = Counter(f"{ns}_kv_tier_restores_total")
-        self.crc_refused = Counter(f"{ns}_kv_tier_crc_refused_total")
-        self.stale_refused = Counter(f"{ns}_kv_tier_stale_refused_total")
-        self.dropped = Counter(f"{ns}_kv_tier_dropped_total")
+        self.tier_pages = Gauge(
+            "kv_tier_pages", prom_name=f"{ns}_kv_tier_pages",
+            help="spilled prefix pages resident per tier")
+        self.tier_bytes = Gauge(
+            "kv_tier_bytes", prom_name=f"{ns}_kv_tier_bytes",
+            help="spilled payload bytes resident per tier")
+        self.spills = Counter(
+            "kv_tier_spills", labelname="tier",
+            prom_name=f"{ns}_kv_tier_spills_total",
+            help="prefix pages spilled into a tier (host admit, disk "
+                 "demote)")
+        self.restores = Counter(
+            "kv_tier_restores", labelname="tier",
+            prom_name=f"{ns}_kv_tier_restores_total",
+            help="spilled pages restored into the HBM arena, by "
+                 "source tier")
+        self.crc_refused = Counter(
+            "kv_tier_crc_refused",
+            prom_name=f"{ns}_kv_tier_crc_refused_total",
+            help="spilled pages REFUSED at restore: frame damage "
+                 "(magic/length/CRC/header) — request falls back to "
+                 "cold prefill")
+        self.stale_refused = Counter(
+            "kv_tier_stale_refused",
+            prom_name=f"{ns}_kv_tier_stale_refused_total",
+            help="spilled pages REFUSED at restore: weights_version "
+                 "mismatch")
+        self.dropped = Counter(
+            "kv_tier_dropped", labelname="reason",
+            prom_name=f"{ns}_kv_tier_dropped_total",
+            help="spilled pages dropped without restore (budget "
+                 "pressure, flush, damage)")
+        (registry or get_registry()).register_all([
+            self.tier_pages, self.tier_bytes, self.spills,
+            self.restores, self.crc_refused, self.stale_refused,
+            self.dropped,
+        ])
         self._update_gauges()
 
     # ------------------------------------------------------------ admit
@@ -207,6 +231,8 @@ class TieredPageStore:
             self._children.setdefault(parent, set()).add(key)
             self._bytes[TIER_HOST] += rec.nbytes
             self.spills.inc(label=TIER_HOST)
+            self._rec.note("kv_spill", tier=TIER_HOST, bytes=rec.nbytes,
+                           tokens=len(rec.tokens))
             self._update_gauges()
             return True
         # the host cannot hold it even after moving records (a payload
@@ -261,6 +287,7 @@ class TieredPageStore:
         rec.path = path
         rec.tier = TIER_DISK
         self.spills.inc(label=TIER_DISK)
+        self._rec.note("kv_demote", tier=TIER_DISK, bytes=rec.nbytes)
         # the record keeps its LRU place: a move is not a touch
         return True
 
@@ -278,8 +305,10 @@ class TieredPageStore:
         """Resident spill records, coldest first (read-only)."""
         return tuple(self._records.values())
 
-    def _refuse(self, rec, counter):
+    def _refuse(self, rec, counter, **note):
         counter.inc()
+        if note:
+            self._rec.note("kv_restore_refused", **note)
         self._records.pop(rec.key, None)
         self._discard(rec)
         self._update_gauges()
@@ -294,7 +323,7 @@ class TieredPageStore:
             return None
         if weights_version is not None \
                 and rec.weights_version != str(weights_version):
-            self._refuse(rec, self.stale_refused)
+            self._refuse(rec, self.stale_refused, reason="stale_weights")
             return None
         frame = rec.frame
         if frame is None and rec.path is not None:
@@ -306,7 +335,8 @@ class TieredPageStore:
         try:
             meta, arrays = unpack_page(frame)
         except TransferError:
-            self._refuse(rec, self.crc_refused)
+            self._refuse(rec, self.crc_refused, reason="frame_damage",
+                         tier=rec.tier)
             return None
         if weights_version is not None and str(
                 meta.get("weights_version")) != str(weights_version):
@@ -324,6 +354,8 @@ class TieredPageStore:
             return
         if restored:
             self.restores.inc(label=rec.tier)
+            self._rec.note("kv_restore", tier=rec.tier,
+                           bytes=rec.nbytes, tokens=len(rec.tokens))
             self._discard(rec, count=False)
         else:
             self._discard(rec)
@@ -362,8 +394,8 @@ class TieredPageStore:
         for tier in (TIER_HOST, TIER_DISK):
             self.tier_pages.set(
                 float(sum(1 for r in self._records.values()
-                          if r.tier == tier)), label=tier)
-            self.tier_bytes.set(float(self._bytes[tier]), label=tier)
+                          if r.tier == tier)), tier=tier)
+            self.tier_bytes.set(float(self._bytes[tier]), tier=tier)
 
     def stats(self):
         host = sum(1 for r in self._records.values()

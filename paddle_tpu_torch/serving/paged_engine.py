@@ -74,6 +74,7 @@ import numpy as np
 import torch
 
 from ..models.generation import _select_next
+from ..observability.tracing import get_tracer
 from ..quantization.kv import (
     adopt_into_pages,
     gather_block_from_pages,
@@ -166,6 +167,17 @@ class PagedServingEngine(ServingEngine):
             reload_template=reload_template, speculative=speculative,
             sessions=sessions, graphs=graphs,
         )
+        if self.prefix_cache is not None and recompile_guard_max is None:
+            # a gather per bucket and a chunk per (bucket, tail bucket)
+            # are the steady-state inventory, not a storm; a spill tier
+            # adds the one-page restore adopt (``paged_engine.py:176-
+            # 185``)
+            nb = len(self._warmup_buckets())
+            self.trace_guard.max_compiles = max(
+                self.trace_guard.max_compiles,
+                nb * (nb + 3) // 2 + 2
+                + (1 if self.kv_tier is not None else 0),
+            )
 
     # ------------------------------------------------------- KV backend
     def _init_kv_backend(self):
@@ -415,6 +427,16 @@ class PagedServingEngine(ServingEngine):
         row = None
         owned = []
         t_start = self.clock()
+        # the admission's prefill span, with the warm path's plan; None
+        # (nothing allocated) when sampled out
+        psp = None if handle.trace is None else get_tracer().start_span(
+            "engine.prefill", handle.trace, bucket=bucket,
+            prefix_hit=match is not None,
+        )
+        if psp is not None and plan is not None:
+            psp.set(chunk_start=plan[0], tail_bucket=plan[1],
+                    cached_tokens=plan[0])
+        asp = None
         try:
             if n_ref:
                 # reference the shared pages before any claim: a claim may
@@ -431,7 +453,13 @@ class PagedServingEngine(ServingEngine):
                 self.local_prefills += 1
                 t0, blk = self._prefill(req, key)
             else:
-                t0, blk = self._chunk_prefill(req, key, bucket, match, plan)
+                t0, blk = self._chunk_prefill(req, key, bucket, match, plan,
+                                              span=psp)
+            if psp is not None:
+                psp.finish()
+                psp = None
+                asp = get_tracer().start_span("engine.adopt", handle.trace,
+                                              bucket=bucket)
             try:
                 # the fresh pages within the block land in the claim; the
                 # shared ones (indices < n_ref) and the block's pad pages
@@ -448,12 +476,17 @@ class PagedServingEngine(ServingEngine):
                 self.prefix_cache.publish(req.input_ids, req.prompt_len,
                                           row_pages, self.weights_version)
         except BaseException:
+            for sp in (psp, asp):
+                if sp is not None:
+                    sp.finish(error="admission_error")
             if row is not None:
                 self._tables[row, :] = 0
                 self._free_rows.append(row)
             if owned:
                 self.page_pool.release(owned)
             raise
+        if asp is not None:
+            asp.finish()
         dt = self.clock() - t_start
         self.metrics.prefill_time.observe(dt)
         if match is not None:
@@ -499,10 +532,11 @@ class PagedServingEngine(ServingEngine):
                   torch.zeros((1,), dtype=torch.int32, device=dev)]
         return self._chunk_body(blk), inputs, (self._keep(), blk.caches)
 
-    def _chunk_prefill(self, req, key, bucket, match, plan):
+    def _chunk_prefill(self, req, key, bucket, match, plan, span=None):
         """The warm admission's prefill -> (first token, block): the
         cached pages gathered into the bucket's block, then the tail
-        from ``c`` chunk-prefilled over it."""
+        from ``c`` chunk-prefilled over it. ``span`` (the admission's
+        prefill span) parents an ``engine.gather`` span."""
         ps = self.page_size
         c, tb = plan
         n = req.prompt_len - c
@@ -515,16 +549,22 @@ class PagedServingEngine(ServingEngine):
         blk = self.pool.alloc(req.prompt_len)
         try:
             with torch.inference_mode():
+                gsp = None if span is None else get_tracer().start_span(
+                    "engine.gather", span, pages=n_gather)
                 if self.graphs:
                     self._check_net()
                     self._programs.run(("gather", bucket),
                                        lambda: self._build_gather(blk), src)
+                    if gsp is not None:
+                        gsp.finish()
                     logits = self._programs.run(
                         ("chunk", bucket, tb),
                         lambda: self._build_chunk(blk, tb), tail, pos)
                 else:
                     dev = self.device
                     self._gather_body(blk)(torch.from_numpy(src).to(dev))
+                    if gsp is not None:
+                        gsp.finish()
                     logits = self._chunk_body(blk)(
                         torch.from_numpy(tail).to(dev),
                         torch.from_numpy(pos).to(dev))

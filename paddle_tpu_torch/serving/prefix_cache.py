@@ -34,14 +34,15 @@ wrote (``PagedServingEngine._finish``). Where decode-written KV is not
 bit-equal to a prefill of the same tokens (``ROADMAP.md`` queue C), a
 second turn reads the decode step's values, as the JAX engine does.
 
-The counters are the port's own (``metrics.py``), one set per cache,
-not a process-wide registry.
+The counters are one set per cache, registered in the process registry
+(or ``registry=``) under JAX's names with replace-on-register.
 """
 from __future__ import annotations
 
 import heapq
 import itertools
 
+from ..observability import get_registry
 from .metrics import Counter, Gauge
 
 
@@ -99,19 +100,44 @@ class PrefixCache:
     releases at finish). A page is evictable only while the cache's
     reference is its last. Not thread-safe: the engine's loop owns it."""
 
-    def __init__(self, pool):
+    def __init__(self, pool, *, registry=None,
+                 namespace="paddle_serving"):
         self.pool = pool
         self.page_size = int(pool.page_size)
         self._entries = {}    # key -> PrefixEntry
         self._children = {}   # parent key -> set of child keys
         self._tick = itertools.count()
         self.flushes = 0
-        self.hits = Counter("prefix_hits")
-        self.misses = Counter("prefix_misses")
-        self.evictions = Counter("prefix_evictions")
-        self.cow_clones = Counter("prefix_cow_clones")
-        self.tokens_saved = Counter("prefix_tokens_saved")
-        self.hbm_saved = Gauge("prefix_shared_hbm_saved")
+        ns = namespace
+        self.hits = Counter(
+            "prefix_hits", prom_name=f"{ns}_prefix_hits_total",
+            help="admissions that adopted at least one cached prefix "
+                 "page")
+        self.misses = Counter(
+            "prefix_misses", prom_name=f"{ns}_prefix_misses_total",
+            help="admissions that found no usable cached prefix")
+        self.evictions = Counter(
+            "prefix_evictions",
+            prom_name=f"{ns}_prefix_evictions_total",
+            help="cached prefix pages reclaimed under arena pressure")
+        self.cow_clones = Counter(
+            "prefix_cow_clones",
+            prom_name=f"{ns}_prefix_cow_clones_total",
+            help="shared pages copy-on-write cloned for a divergent "
+                 "tail")
+        self.tokens_saved = Counter(
+            "prefix_tokens_saved",
+            prom_name=f"{ns}_prefix_tokens_saved_total",
+            help="prompt tokens NOT re-prefilled thanks to cache hits")
+        self.hbm_saved = Gauge(
+            "prefix_shared_hbm_saved",
+            prom_name=f"{ns}_prefix_shared_hbm_saved_bytes",
+            help="arena bytes saved by page sharing: pages that would "
+                 "be private copies without the prefix cache")
+        (registry or get_registry()).register_all([
+            self.hits, self.misses, self.evictions, self.cow_clones,
+            self.tokens_saved, self.hbm_saved,
+        ])
         self._tier = None
         self._read_page = None
         self._restore_page = None

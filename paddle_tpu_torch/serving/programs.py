@@ -192,9 +192,12 @@ class Programs:
     empties it too, ``torch.cuda.graph``); ``peak_bytes``, the most the
     call allocated above what was allocated when it began; and
     ``static_bytes``, its static inputs and outputs. Reading the peak
-    resets ``torch.cuda``'s peak statistic at each capture."""
+    resets ``torch.cuda``'s peak statistic at each capture. With a
+    ``guard`` (an ``analysis.TraceGuard``), every capture is recorded
+    there under its JAX key, the rest of the program key as its
+    signature."""
 
-    def __init__(self, device, kinds=BASE_KINDS):
+    def __init__(self, device, kinds=BASE_KINDS, guard=None):
         self.device = device
         cuda = device.type == "cuda"
         self.pool = torch.cuda.graph_pool_handle() if cuda else None
@@ -202,6 +205,7 @@ class Programs:
         self._progs = {}
         self.counts = dict.fromkeys((TRACE_KEYS[k] for k in kinds), 0)
         self.memory = {}
+        self.guard = guard
 
     def get(self, key):
         """The program ``key``, or None before its first call."""
@@ -225,6 +229,9 @@ class Programs:
         out = prog(*arrays)
         if fresh:
             self.counts[TRACE_KEYS[key[0]]] += 1
+            if self.guard is not None:
+                self.guard.record_compile(TRACE_KEYS[key[0]], key[1:],
+                                          origin="serving/programs.py")
             entry = dict.fromkeys(("graph_pool_bytes", "peak_bytes",
                                    "static_bytes"), 0)
             if prog.cuda:

@@ -13,14 +13,16 @@ The scheduler is deliberately clock-injectable (``clock=``) so timeout
 behavior is deterministically testable on CPU.
 
 A pure-Python copy of ``paddle_tpu/serving/scheduler.py`` (the port
-imports nothing from the JAX package); only the SLO class default is
-defined here instead of in an observability module.
+imports nothing from the JAX package).
 """
 from __future__ import annotations
 
 import heapq
 import itertools
 import time
+
+# the SLO traffic class a request carries when the caller names none
+from ..observability.slo import DEFAULT_CLASS  # noqa: F401
 
 # rejection / completion reasons (machine-readable, stable strings)
 REASON_QUEUE_FULL = "queue_full"
@@ -33,10 +35,6 @@ REASON_ENGINE_CLOSED = "engine_closed"
 # with this reason (partial tokens kept, terminal event fired) — an
 # overcommitted arena degrades one request, never crashes the engine
 REASON_PAGES_EXHAUSTED = "pages_exhausted"
-
-# the SLO traffic class a request carries when the caller names none
-# (paddle_tpu/observability/slo.py DEFAULT_CLASS)
-DEFAULT_CLASS = "interactive"
 
 # request lifecycle states
 QUEUED = "QUEUED"

@@ -21,17 +21,17 @@ first-class:
 Sessions never change a token stream: matching is by token content
 through the prefix cache, and a request without a ``session_id`` is
 served as before. The clock is injectable; the store is driven from
-the engine's loop only. Left out: the flight-recorder events
-(``session_open``, ``session_retired``) and the process-wide registry
-(``ROADMAP.md`` queue A item 4): the counters are the port's own
-(``metrics.py``).
+the engine's loop only. The counters register in the process registry
+(or ``registry=``) under JAX's names, and the store notes JAX's
+flight-recorder events (``session_open``, ``session_retired``) in the
+process recorder (or ``recorder=``).
 """
 from __future__ import annotations
 
 import time
 from collections import OrderedDict
 
-from .kv_tiering import _refuse_runtime
+from ..observability import get_flight_recorder, get_registry
 from .metrics import Counter, Gauge
 
 
@@ -59,24 +59,40 @@ class SessionStore:
     """Bounded TTL and LRU map of live conversations.
 
     ``max_sessions`` caps residency (the oldest idle retires first);
-    ``ttl_s=None`` turns idle expiry off. ``registry`` and ``recorder``
-    must be None (queue A item 4)."""
+    ``ttl_s=None`` turns idle expiry off. All counters/gauges register
+    under the serving namespace with replace-on-register, like every
+    per-engine instrument."""
 
     def __init__(self, *, max_sessions=1024, ttl_s=None,
                  clock=time.monotonic, registry=None,
                  namespace="paddle_serving", recorder=None):
-        _refuse_runtime(registry, recorder)
         self.max_sessions = int(max_sessions)
         if self.max_sessions < 1:
             raise ValueError("max_sessions must be >= 1")
         self.ttl_s = None if ttl_s is None else float(ttl_s)
         self.clock = clock
         self._sessions = OrderedDict()  # session_id -> Session, LRU
+        self._rec = recorder if recorder is not None \
+            else get_flight_recorder()
         ns = namespace
-        self.active = Gauge(f"{ns}_sessions_active")
-        self.created = Counter(f"{ns}_sessions_created_total")
-        self.retired = Counter(f"{ns}_sessions_retired_total")
-        self.turns = Counter(f"{ns}_session_turns_total")
+        self.active = Gauge(
+            "sessions_active", prom_name=f"{ns}_sessions_active",
+            help="conversations resident in the session store")
+        self.created = Counter(
+            "sessions_created",
+            prom_name=f"{ns}_sessions_created_total",
+            help="new sessions admitted")
+        self.retired = Counter(
+            "sessions_retired", labelname="reason",
+            prom_name=f"{ns}_sessions_retired_total",
+            help="sessions retired from the store, by reason "
+                 "(ttl | lru)")
+        self.turns = Counter(
+            "session_turns", prom_name=f"{ns}_session_turns_total",
+            help="finished turns recorded against a session")
+        (registry or get_registry()).register_all([
+            self.active, self.created, self.retired, self.turns,
+        ])
         self.active.set(0.0)
 
     def __len__(self):
@@ -98,9 +114,10 @@ class SessionStore:
             s = Session(sid, now)
             self._sessions[sid] = s
             self.created.inc()
+            self._rec.note("session_open", session_id=sid)
             while len(self._sessions) > self.max_sessions:
-                self._sessions.popitem(last=False)
-                self.retired.inc(label="lru")
+                _, old = self._sessions.popitem(last=False)
+                self._retire(old, "lru")
         else:
             self._sessions.move_to_end(sid)
         s.last_active = now
@@ -122,6 +139,12 @@ class SessionStore:
         self.turns.inc()
         return s
 
+    def _retire(self, session, reason):
+        self.retired.inc(label=reason)
+        self._rec.note("session_retired",
+                       session_id=session.session_id, reason=reason,
+                       turns=session.turns)
+
     def sweep(self, now=None):
         """Retire every session idle past the TTL; returns how many."""
         if self.ttl_s is None:
@@ -131,8 +154,7 @@ class SessionStore:
         dead = [sid for sid, s in self._sessions.items()
                 if now - s.last_active > self.ttl_s]
         for sid in dead:
-            del self._sessions[sid]
-            self.retired.inc(label="ttl")
+            self._retire(self._sessions.pop(sid), "ttl")
         if dead:
             self.active.set(float(len(self._sessions)))
         return len(dead)

@@ -54,8 +54,10 @@ which trades batched throughput for latency (the win is at low
 concurrency). After a live reload (:meth:`SpeculativeDecoder.
 on_weights_swapped`) every row's draft cache is stale; the self-speculative
 draft is the target net itself, whose weights the swap wrote in place, so
-it follows them with no copy. Not ported: the AOT signature, tracing spans
-and per-SLO-class histograms (``ROADMAP.md`` queue A item 1).
+it follows them with no copy. A traced request's round is an
+``engine.verify`` span; the round's ITL lands in the request's SLO-class
+child, bound at admission. Not ported: the AOT signature (``ROADMAP.md``
+queue A item 7).
 """
 from __future__ import annotations
 
@@ -65,6 +67,7 @@ import numpy as np
 import torch
 
 from ..models.generation import decode_step, filter_logits
+from ..observability.tracing import get_tracer
 from ..quantization.kv import QuantizedKV, adopt_into_slab, broadcast_rows
 from ..quantization.kv import is_quantized
 from .kv_pool import KVCachePool
@@ -313,6 +316,11 @@ class SpeculativeDecoder:
             max_seq_len=engine.max_seq_len, device=engine.device)
         self._slab = self._pool.alloc_slab_arrays(engine.max_batch_size,
                                                   engine.max_seq_len)
+        # the speculative inventory widens the engine's storm bar as in
+        # JAX (``speculative.py:348``): draft prefill per bucket, verify
+        # per (width, k1), draft decode and the gathers
+        nb = len(engine._warmup_buckets())
+        engine.trace_guard.max_compiles += nb * (self.k + 3) + 4
         self._eng = engine
 
     def unbind(self):
@@ -522,6 +530,9 @@ class SpeculativeDecoder:
         ids = np.zeros((1, k1), np.int64)
         ids[0, 0] = seq.last_tok
         ids[0, 1:] = props
+        vsp = None if h.trace is None else get_tracer().start_span(
+            "engine.verify", h.trace, slot=slot, pos=pos,
+        )
         logits = eng._spec_verify(slot, ids, pos)
         if eng.do_sample:
             a, out = accept_sampled(
@@ -538,12 +549,16 @@ class SpeculativeDecoder:
         self.emitted += len(out)
         h.spec_rounds = getattr(h, "spec_rounds", 0) + 1
         h.spec_emitted = getattr(h, "spec_emitted", 0) + len(out)
+        tid = None if h.trace is None else h.trace.trace_id
         m = eng.metrics
         m.spec_rounds.inc()
         m.spec_proposed.inc(k_eff)
         m.spec_accepted.inc(a)
-        m.spec_accept_length.observe(len(out))
-        m.itl.observe(dt / len(out))
+        m.spec_accept_length.observe(len(out), trace_id=tid)
+        # per-SLO-class child bound at admission (zero label work here)
+        (seq.slo_itl or m.itl).observe(dt / len(out))
+        if vsp is not None:
+            vsp.finish(proposed=k_eff, accepted=a, emitted=len(out))
         appended = 0
         for t in out:
             if eng._seqs[slot] is None:

@@ -22,6 +22,7 @@ from paddle_tpu.models import LlamaForCausalLM as JLlama  # noqa: E402
 from paddle_tpu_torch.convert import load_numpy_state  # noqa: E402
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM  # noqa
 from paddle_tpu_torch.models.generation import top_k_stable  # noqa: E402
+from test_torch_kernels import _one_thread  # noqa: E402,F401  (autouse)
 
 CFG = dict(vocab_size=97, hidden_size=32, intermediate_size=64,
            num_hidden_layers=1, num_attention_heads=2)

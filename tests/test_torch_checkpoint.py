@@ -44,6 +44,9 @@ from paddle_tpu.models import LlamaForCausalLM as JLlama  # noqa: E402
 from paddle_tpu.models import causal_lm_loss as jloss  # noqa: E402
 from paddle_tpu_torch import chaos as tchaos  # noqa: E402
 from paddle_tpu_torch import optimizer as topt  # noqa: E402
+from paddle_tpu_torch.observability import (  # noqa: E402
+    MetricsRegistry as TMetricsRegistry,
+)
 from paddle_tpu_torch.checkpoint import (  # noqa: E402
     CheckpointManager,
     CheckpointPolicy,
@@ -57,20 +60,13 @@ from paddle_tpu_torch.distributed.checkpoint import (  # noqa: E402
 from paddle_tpu_torch.jit import CompiledTrainStep  # noqa: E402
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM  # noqa
 from paddle_tpu_torch.models import causal_lm_loss  # noqa: E402
+from test_torch_kernels import _one_thread  # noqa: E402,F401  (autouse)
 
 CFG = dict(vocab_size=64, hidden_size=32, intermediate_size=64,
            num_hidden_layers=2, num_attention_heads=4,
            max_position_embeddings=32)
 TEAR_MODES = ("truncate_shard", "bitflip_shard", "delete_shard",
               "delete_manifest")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ------------------------------------------------------------- the format
@@ -303,8 +299,12 @@ def test_retention_orphan_gc_and_fallback_past_torn_newest(tmp_path):
                        torch.full_like(net2.model.norm.weight, 5.0))
     assert mgr2.restores_total.by_label() == {"restored": 1}
     mgr2.close()
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        CheckpointManager(str(tmp_path), registry=object())
+    # ``registry=`` is taken, as in JAX: the series land there by name
+    reg = TMetricsRegistry()
+    mgr3 = CheckpointManager(str(tmp_path), registry=reg, async_saves=False)
+    assert reg.get("paddle_ckpt_restore_fallbacks_total") is \
+        mgr3.fallbacks_total
+    mgr3.close()
 
 
 def test_preemption_signal_takes_an_emergency_save(tmp_path):

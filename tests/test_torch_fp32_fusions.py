@@ -11,6 +11,8 @@ inputs) within the fp32 tolerance the card's checks use at small shapes:
 1e-5 of the largest output entry, no slack. Seeded faults must each fall
 outside it, so the tolerance does not hide a wrong order of work.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -25,7 +27,7 @@ from paddle_tpu_torch import kernels  # noqa: E402
 from paddle_tpu_torch.kernels import fused_norm_matmul as tfnm  # noqa: E402
 from paddle_tpu_torch.kernels import fused_rope_attention as tfra  # noqa
 from test_torch_kernels import (SPLIT_TERMS, _emulate_split_flash,  # noqa
-                                _parts)
+                                _one_thread, _parts)
 
 TOL32 = 1e-5
 # K rows of the split head kernel's k-tile (csrc/fused_norm_matmul.cu,
@@ -67,7 +69,10 @@ def _emulate_split_head(x, w, wm, eps, fault=None):
     return acc
 
 
-def _split_head_ratio(fault):
+@functools.lru_cache(maxsize=None)
+def _split_head_case():
+    """The inputs (seed 20) and the JAX package's fp32 ``rms_norm_matmul``
+    on them (interpret mode), computed once for the three cases."""
     rng = np.random.RandomState(20)
     rows, h, n = 64, 256, 512
     x = rng.randn(rows, h).astype(np.float32)
@@ -76,6 +81,11 @@ def _split_head_ratio(fault):
     want = np.asarray(jfnm.rms_norm_matmul(
         jnp.asarray(x), jnp.asarray(w), jnp.asarray(wm), eps=1e-5,
         block_rows=16, block_cols=128))
+    return x, w, wm, want
+
+
+def _split_head_ratio(fault):
+    x, w, wm, want = _split_head_case()
     got = _emulate_split_head(*(torch.from_numpy(a) for a in (x, w, wm)),
                               1e-5, fault)
     return _ratio(got.numpy(), want)
@@ -106,12 +116,11 @@ def _rotated(x, cos2, sin2, fault=None):
     return out.transpose(1, 2)
 
 
-def _rope_split_ratio(fault):
-    """The emulated fp32 rope-on-load split design (q and k rotated and
-    split, then flash attention's split forward: ``_emulate_split_flash``)
-    against the JAX package's fp32 ``rope_attention_fused``. q and k have
-    a standard deviation of 4, which sharpens the softmax and lets an
-    error in the scores show in O."""
+@functools.lru_cache(maxsize=None)
+def _rope_split_case():
+    """The inputs (seed 21) and the JAX package's fp32
+    ``rope_attention_fused`` on them (interpret mode), computed once for
+    the three cases of ``_rope_split_ratio``."""
     rng = np.random.RandomState(21)
     b, s, h, d = 1, 160, 2, 64
     qn, kn = (4.0 * rng.randn(b, s, h, d).astype(np.float32)
@@ -121,6 +130,16 @@ def _rope_split_ratio(fault):
     want = np.asarray(jfra.rope_attention_fused(
         *(jnp.asarray(a) for a in (qn, kn, vn)), cos, sin, causal=True,
         block_q=32))
+    return qn, kn, vn, cos, sin, want
+
+
+def _rope_split_ratio(fault):
+    """The emulated fp32 rope-on-load split design (q and k rotated and
+    split, then flash attention's split forward: ``_emulate_split_flash``)
+    against the JAX package's fp32 ``rope_attention_fused``. q and k have
+    a standard deviation of 4, which sharpens the softmax and lets an
+    error in the scores show in O."""
+    qn, kn, vn, cos, sin, want = _rope_split_case()
     tcos, tsin = (torch.tensor(np.asarray(t))[0, :, 0] for t in (cos, sin))
     q, k, v = (torch.from_numpy(a) for a in (qn, kn, vn))
     rope_fault = fault if fault == "hi_only" else None

@@ -20,6 +20,7 @@ import jax.numpy as jnp  # noqa: E402
 from paddle_tpu.core.tensor import Tensor  # noqa: E402
 from paddle_tpu.nn import functional as JF  # noqa: E402
 from paddle_tpu_torch.nn import functional as TF  # noqa: E402
+from test_torch_kernels import _one_thread  # noqa: E402,F401  (autouse)
 
 QUEUE = "ROADMAP.md queue A item 5"
 RNG = np.random.RandomState(21)

@@ -28,6 +28,7 @@ from paddle_tpu.kernels import fused_rope_attention as jfra  # noqa: E402
 from paddle_tpu.kernels.rope import build_rope_cache  # noqa: E402
 from paddle_tpu_torch.kernels import fused_rope_attention as tfra  # noqa
 from paddle_tpu_torch.kernels import rope as trope  # noqa: E402
+from test_torch_kernels import _one_thread  # noqa: E402,F401  (autouse)
 
 TOL32 = 1e-5
 DTYPES = {"float32": (jnp.float32, torch.float32),

@@ -29,6 +29,7 @@ from paddle_tpu_torch.models import generation as gen  # noqa: E402
 from paddle_tpu_torch.serving.sampling_keys import (  # noqa: E402
     SamplingKeySource,
 )
+from test_torch_kernels import _one_thread  # noqa: E402,F401  (autouse)
 
 CFG = dict(vocab_size=96, hidden_size=32, intermediate_size=64,
            num_hidden_layers=2, num_attention_heads=4,
@@ -44,14 +45,6 @@ CASES = {
     "greedy_eos": dict(eos_token_id=None),   # the EOS is found below
     "beam_eos": dict(num_beams=3, eos_token_id=None),
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

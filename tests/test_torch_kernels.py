@@ -70,6 +70,18 @@ from paddle_tpu_torch.kernels import paged_attention as tpa  # noqa: E402
 from paddle_tpu_torch.kernels import rms_norm as trms  # noqa: E402
 from paddle_tpu_torch.kernels import rope as trope  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread per module: the suite runs several workers at
+    once, and each torch process would otherwise use every core. The
+    other port test modules import it, which makes it theirs too."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BF16_ULP = 2.0 ** -7
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}

@@ -38,19 +38,12 @@ from paddle_tpu_torch.serving import (  # noqa: E402
     unpack_page,
 )
 from paddle_tpu_torch.serving.fleet import kv_transfer as tkt  # noqa: E402
+from test_torch_kernels import _one_thread  # noqa: E402,F401  (autouse)
 
 CFG = dict(vocab_size=64, hidden_size=32, intermediate_size=64,
            num_hidden_layers=2, num_attention_heads=4)
 GEOM = dict(max_batch_size=2, max_seq_len=64, min_bucket=8, page_size=8)
 META = {"weights_version": "v0", "valid_len": 7}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

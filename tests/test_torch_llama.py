@@ -24,6 +24,7 @@ from paddle_tpu_torch.convert import (  # noqa: E402
 )
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM  # noqa: E402
 from paddle_tpu_torch.models import generation as tgen  # noqa: E402
+from test_torch_kernels import _one_thread  # noqa: E402,F401  (autouse)
 
 ATOL, RTOL = 2e-5, 1e-4
 CFG = dict(vocab_size=96, hidden_size=32, intermediate_size=64,

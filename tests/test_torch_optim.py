@@ -41,6 +41,7 @@ from paddle_tpu_torch import optimizer as topt  # noqa: E402
 from paddle_tpu_torch.amp import GradScaler  # noqa: E402
 from paddle_tpu_torch.incubate.optimizer import fused_adam_update  # noqa
 from paddle_tpu_torch.kernels import fused_adam as fa  # noqa: E402
+from test_torch_kernels import _one_thread  # noqa: E402,F401  (autouse)
 
 SHAPES = ((1,), (7,), (1023,), (64, 33))
 DTYPES = {"float32": (jnp.float32, torch.float32),

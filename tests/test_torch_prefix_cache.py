@@ -44,6 +44,7 @@ from paddle_tpu_torch.serving import (  # noqa: E402
     PagedServingEngine,
     PrefixCache,
 )
+from test_torch_kernels import _one_thread  # noqa: E402,F401  (autouse)
 
 CFG = dict(vocab_size=64, hidden_size=32, intermediate_size=64,
            num_hidden_layers=2, num_attention_heads=4)

@@ -66,6 +66,7 @@ from paddle_tpu_torch.serving import (  # noqa: E402
     PagedServingEngine,
     ServingEngine,
 )
+from test_torch_kernels import _one_thread  # noqa: E402,F401  (autouse)
 
 BF16_ULP = 2.0 ** -7
 DTYPES = {"float32": (jnp.float32, torch.float32),

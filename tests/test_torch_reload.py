@@ -43,19 +43,12 @@ from paddle_tpu_torch.serving import (  # noqa: E402
     ServingEngine,
     SpeculativeDecoder,
 )
+from test_torch_kernels import _one_thread  # noqa: E402,F401  (autouse)
 
 CFG = dict(vocab_size=64, hidden_size=32, intermediate_size=64,
            num_hidden_layers=2, num_attention_heads=4)
 GEOM = dict(max_batch_size=2, max_seq_len=64, min_bucket=8)
 IDS = [3, 7, 11, 2]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def build_net(seed=5, hidden=32, layers=2):

@@ -20,6 +20,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from paddle_tpu.observability.registry import MetricsRegistry  # noqa: E402
+from paddle_tpu_torch.observability import (  # noqa: E402
+    FlightRecorder as TFlightRecorder,
+    MetricsRegistry as TMetricsRegistry,
+)
 from paddle_tpu.serving import PagedServingEngine as JPaged  # noqa: E402
 from paddle_tpu.serving import ServingEngine as JSlab  # noqa: E402
 from paddle_tpu.serving import SessionStore as JSessionStore  # noqa: E402
@@ -30,18 +34,11 @@ from paddle_tpu_torch.serving import (  # noqa: E402
     SessionStore,
     TieredPageStore,
 )
+from test_torch_kernels import _one_thread  # noqa: E402,F401  (autouse)
 
 CFG = dict(vocab_size=64, hidden_size=32, intermediate_size=64,
            num_hidden_layers=2, num_attention_heads=4)
 GEOM = dict(max_batch_size=2, max_seq_len=64, min_bucket=8)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -174,10 +171,16 @@ def test_parameter_lists_equal_jax(port, ref, extra):
 def test_refusals_name_their_items(net, kind, kw, item):
     """Unported parameters raise naming their item. Live reload (item
     1.5) is ported since: ``reload_template`` is taken, as the default
-    template of ``prepare_reload``."""
+    template of ``prepare_reload``; so is the trace guard (item 1.6):
+    ``recompile_guard_max`` sets its storm bar."""
     if item == "queue A item 1.5":
         eng = _engine(kind, net, **kw)
         assert eng._reload_template is kw["reload_template"]
+        eng.close()
+        return
+    if item == "queue A item 1.6":
+        eng = _engine(kind, net, **kw)
+        assert eng.trace_guard.max_compiles == kw["recompile_guard_max"]
         eng.close()
         return
     with pytest.raises(NotImplementedError, match=item):
@@ -185,12 +188,15 @@ def test_refusals_name_their_items(net, kind, kw, item):
 
 
 def test_store_refusals_and_tier_needs_prefix_cache(net):
-    """The stores' ``registry=`` and ``recorder=`` wait with queue A item
-    4; a tier without a prefix cache is refused as JAX refuses it."""
-    for cls in (SessionStore, TieredPageStore):
-        for kw in (dict(registry=MetricsRegistry()), dict(recorder=object())):
-            with pytest.raises(NotImplementedError, match="queue A item 4"):
-                cls(**kw)
+    """The stores take ``registry=`` and ``recorder=`` as JAX's do (their
+    series land in the registry given); a tier without a prefix cache is
+    refused as JAX refuses it."""
+    for cls, name in ((SessionStore, "paddle_serving_sessions_active"),
+                      (TieredPageStore, "paddle_serving_kv_tier_pages")):
+        reg = TMetricsRegistry()
+        store = cls(registry=reg, recorder=TFlightRecorder(registry=reg))
+        assert reg.get(name) is not None
+        assert store._rec.registry is reg
     with pytest.raises(ValueError, match="requires prefix_cache"):
         PagedServingEngine(net, page_size=8, kv_tiering=True, **GEOM)
     # the accepted scheduler/metrics/pool are used as given

@@ -47,6 +47,7 @@ from paddle_tpu_torch.serving import (  # noqa: E402
 )
 from paddle_tpu_torch.serving import speculative as tspec  # noqa: E402
 from paddle_tpu_torch.serving.sampling_keys import uniform  # noqa: E402
+from test_torch_kernels import _one_thread  # noqa: E402,F401  (autouse)
 
 TARGET = dict(vocab_size=97, hidden_size=64, intermediate_size=128,
               num_hidden_layers=3, num_attention_heads=4)
@@ -59,17 +60,6 @@ ATOL, RTOL = 2e-5, 1e-4
 SLAB = dict(max_batch_size=4, max_seq_len=64, min_bucket=8)
 PAGED = dict(max_batch_size=4, max_seq_len=64, min_bucket=8, page_size=8,
              demand_paging=True)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for these tiny models: an engine round is many
-    small ops, which more threads only slow when test workers share the
-    cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _carry(seed, cfg):

@@ -45,6 +45,7 @@ from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM  # noqa
 from paddle_tpu_torch.models import causal_lm_loss  # noqa: E402
 from paddle_tpu_torch.nn import functional as TF  # noqa: E402
 from paddle_tpu_torch import optimizer as topt  # noqa: E402
+from test_torch_kernels import _one_thread  # noqa: E402,F401  (autouse)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
