@@ -306,6 +306,43 @@ seconds; then the 12 requests in process with tracing sampled at 1 and
 at 0, alternated three times each (ITL p50 of each run).
 ``launches_by_phase`` gains ``frontend``.
 
+The fleet and the resilient training runtime add, after the checkpoint
+phase, the resilience phase (``resilience: {...}``, the checkpoint
+phase's 2-layer fp32 AdamW model, a batch of its own each step): a skip
+with ``sync=True`` and a NaN through ``train.loss`` at step 3 (gate: the
+parameters and moments equal a run that never took batch 3, bit for
+bit), a skip with ``sync=False`` (the detection lag in steps, printed), a
+rollback of a NaN at step 5 to the commit of step 4 through
+``run_resilient`` (gate: the losses and every parameter and moment equal
+the uninterrupted run's, bit for bit), and a started ``TrainWatchdog``
+(``stall_seconds`` 2: a 3 s block at ``train.step_begin`` fires
+``wedged_step`` once, with a flight bundle; a 3 s stall reported through
+``note_blocked`` fires none); every trainer call launches the training
+kernels by formula. After the fused serving, the fleet phase (``fleet
+(...)`` lines): (a) a ``PrefillWorker`` over the 7B net, its programs
+captured before traffic by ``launch._warmup``, and a graph engine with
+``prefill_transport=RemotePrefillClient``: the 12 serving requests all
+remote, their streams equal the serving phase's graph run, launches by
+formula, nothing captured in traffic, the adopted pages of the shortest
+and the longest prompt bit-equal to a local prefill's; bytes and seconds
+per transfer and TTFT against the graph run printed; the worker stopped,
+one fallback and the stream unchanged; (c) two prefix-cache engines
+behind ``ServingFrontend``s and a ``FleetRouter``: 12 SSE streams through
+the router equal the graph run, both replicas serve, 6 same-prefix
+requests converge on one replica (5 prefix hits there), ``/metrics``
+carries the per-replica series; wire TTFT and ITL printed beside the
+front end's; (d) the fleet as the README starts it: ``launch.spawn``
+children on the card (a prefill worker, two replicas attached to it, a
+router, at 7B widths with 4 layers and 128 positions): streams through
+the router equal an in-process engine over the same seeded weights, a
+replica SIGKILLed mid-stream ends that stream ``replica_failed`` while
+unstarted requests complete on the survivor, which leaks no page, and
+every other child exits 0 on SIGTERM. After the quantized phase, the
+fleet's int8 leg: 4 requests through a worker and a disaggregated int8
+engine, streams equal the quantized graph engine's, adopted codes and
+scales bit-equal. ``launches_by_phase`` gains ``fleet``, ``fleet_int8``
+and ``resilience``; the script's total seconds are printed.
+
 ``--profile-steps N`` profiles N replays of the spec phase's decode
 program (its verify) and draft decode, and N decode steps after each serving phase
 (the graph engine's, and the bf16 and quantized eager engines'), with
@@ -4130,8 +4167,9 @@ def serving_phase(torch, np, dev, card, profile_steps=0):
     # teacher-forced check against the cache-free forward
     ties, worst_gap = teacher_forced(torch, dev, graph_run["handles"],
                                      lambda ids: net(ids)[0], "serving")
-    frontend_counts = frontend_phase(torch, np, dev, card, net, eng, cfg,
-                                     graph_run["handles"], want_counts)
+    frontend_counts, fe_res = frontend_phase(
+        torch, np, dev, card, net, eng, cfg, graph_run["handles"],
+        want_counts)
     if profile_steps:
         frontend_profile(torch, np, eng, cfg, card)
     res = {"card": card, "model": f"Llama-2-7B, {layers} layers, bf16, "
@@ -4151,11 +4189,14 @@ def serving_phase(torch, np, dev, card, profile_steps=0):
         profile_prefill(torch, np, eng, cfg, "prefill_1024")
     fused = fused_serving(torch, np, dev, card, net, eng, eager, cfg,
                           graph_run["handles"], profile_steps)
-    # the eager engine's arena and blocks make room for the prefix engines
+    # the eager engine's arena and blocks make room for the fleet's and the
+    # prefix engines
     eager.close()
     del eager
     gc.collect()
     torch.cuda.empty_cache()
+    fleet_counts = fleet_phase(torch, np, dev, card, net, eng, cfg,
+                               graph_run, want_counts, fe_res)
     prefix = prefix_phase(torch, np, dev, card, net, eng)
     session = session_phase(torch, np, dev, card, net, eng)
     beam = beam_phase(torch, np, dev, card, net)
@@ -4165,7 +4206,7 @@ def serving_phase(torch, np, dev, card, profile_steps=0):
     spec = spec_phase(torch, np, dev, card, net, eng, profile_steps)
     reload = full_reload_phase(torch, np, dev, card, eng)
     return (graph_run["counts"], runs[0]["counts"], fused, prefix, session,
-            spec, beam, reload, frontend_counts)
+            spec, beam, reload, frontend_counts, fleet_counts)
 
 
 # the front-end phase: long streams that hold every row while a burst
@@ -4283,7 +4324,8 @@ def frontend_phase(torch, np, dev, card, net, eng, cfg, inproc, want_counts):
     """The warmed 7B graph engine behind ``ServingFrontend`` on 127.0.0.1
     (see the module docstring). ``inproc`` is the serving phase's graph
     run (its handles, in prompt order); ``want_counts(run)`` the launch
-    formula. Returns the launch counts of the 12 streams."""
+    formula. Returns the launch counts of the 12 streams and the phase's
+    printed numbers."""
     import secrets
     import threading
     import types
@@ -4522,7 +4564,7 @@ def frontend_phase(torch, np, dev, card, net, eng, cfg, inproc, want_counts):
         "phase_s": time.perf_counter() - t_phase,
     }
     log("frontend: " + json.dumps(res))
-    return counts
+    return counts, res
 
 
 # the front end's step breakdown (``--profile-steps``): a stdlib-only SSE
@@ -5882,7 +5924,14 @@ def quant_serving_phase(torch, np, dev, card, profile_steps=0):
         profile_decode(torch, np, eager, cfg, profile_steps,
                        "decode_int8_eager")
         profile_prefill(torch, np, eng, cfg, "prefill_1024_int8")
-    return graph_run["counts"], runs[0]["counts"]
+    # the fleet's int8 transfer leg, beside this phase's graph engine
+    eager.close()
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8_fleet_counts = fleet_int8_leg(torch, np, card, net, eng, cfg,
+                                       graph_run)
+    return graph_run["counts"], runs[0]["counts"], int8_fleet_counts
 
 
 def quant_decode_published(torch, np, net):
@@ -6066,6 +6115,776 @@ def profile_prefill(torch, np, eng, cfg, kind):
         fail("pages leaked after the profiled prefills")
 
 
+# ------------------------------------------------------------------ fleet
+# the launched fleet's knobs: Llama-2-7B widths at 4 layers
+# (``LlamaConfig.tiny`` caps positions at 128), the launch's defaults else
+FLEET_CLI = ["--hidden", "4096", "--heads", "32", "--vocab", "32000",
+             "--layers", "4", "--max-seq", "128", "--min-bucket", "16",
+             "--page-size", "16"]
+# the same-prefix leg through the router: requests over one shared prefix
+FLEET_PREFIX_REQUESTS, FLEET_PREFIX_LEN, FLEET_PREFIX_NEW = 6, 512, 8
+# the launched fleet's traffic: prompts (seed 31) and new tokens
+FLEET_LAUNCH_PROMPTS, FLEET_LAUNCH_NEW = 6, 16
+
+
+def _row_pages(eng, handle):
+    """The page ids of the arena row ``handle`` runs in."""
+    for i, seq in enumerate(eng._seqs):
+        if seq is not None and seq.handle is handle:
+            return list(eng._row_pages[i])
+    fail(f"no row holds request {handle.request.request_id}")
+
+
+def adopted_pages_equal(torch, local, remote, prompt, label):
+    """Admit ``prompt`` (2 new tokens) into ``local`` and into ``remote``
+    (prefill and adopt, no decode step), and compare the two rows' pages
+    across every arena buffer (codes and scales of an int8 arena alike);
+    then drain both. Fails unless bit-equal. Returns the bytes compared."""
+    handles = []
+    for eng in (local, remote):
+        h = eng.submit(prompt, 2)
+        popped = eng.scheduler.pop_next(eng._admission_budget(),
+                                        fits=eng._admission_fits())
+        if popped is not h:
+            fail(f"{label}: the admission popped another request")
+        eng._admit_one(h)
+        handles.append(h)
+    pl, pr = (_row_pages(e, h) for e, h in zip((local, remote), handles))
+    nbytes = 0
+    with torch.inference_mode():
+        for a, b in zip(local._page_leaves(local._caches),
+                        remote._page_leaves(remote._caches)):
+            x, y = a[pl], b[pr]
+            if not torch.equal(x, y):
+                fail(f"{label}: the adopted pages of a {len(prompt)}-token "
+                     f"prompt differ from a local prefill's "
+                     f"(max {float((x.float() - y.float()).abs().max())})")
+            nbytes += x.numel() * x.element_size()
+    for eng in (local, remote):
+        eng.run_until_idle()
+    return nbytes
+
+
+def transfer_stats(eng, client, handles):
+    """Per remote admission (in admission order): the bucket, the bytes
+    on the wire and the seconds of the admission (the transfer, the
+    staging copy and the adopt); and the client's totals."""
+    order = sorted(handles, key=lambda h: h.admitted_step)
+    secs = list(eng.metrics.prefill_time._samples)[-len(order):]
+    cfg = eng.config
+    rows = []
+    for h, s in zip(order, secs):
+        b = eng.pool.bucket_for(h.request.prompt_len)
+        rows.append({"prompt_len": h.request.prompt_len, "bucket": b,
+                     "bytes": b * 2 * cfg.num_hidden_layers * cfg.kv_heads
+                     * cfg.head_dim * eng.pool.dtype.itemsize,
+                     "seconds": s})
+    return {"transfers": client.transfers.by_label(),
+            "bytes_total": client.transfer_bytes.value, "per_request": rows}
+
+
+def fleet_phase(torch, np, dev, card, net, eng, cfg, graph_run, want_counts,
+                fe_res):
+    """The fleet at Llama-2-7B (the serving phase's net and warmed graph
+    engine ``eng``; ``graph_run`` its 12-request run, ``fe_res`` the front
+    end's numbers):
+
+    (a) a ``PrefillWorker`` over the net, its programs captured before
+        traffic (one request a bucket, ``launch._warmup``), and a graph
+        engine with ``prefill_transport=RemotePrefillClient``: the 12
+        serving requests all prefill remotely (no fallback, no local
+        prefill), their streams equal ``graph_run``'s, the launches follow
+        the structure, nothing is captured in traffic; two prompts'
+        adopted pages equal a local prefill's bit for bit; then the worker
+        stops and the next request falls back exactly once, its stream
+        unchanged;
+    (c) two prefix-cache engines over the net behind ``ServingFrontend``s
+        and a ``FleetRouter``: 12 SSE streams through the router equal
+        ``graph_run``'s, both replicas serve some, same-prefix requests
+        converge on one replica (its prefix hits), and ``/metrics``
+        carries the per-replica series;
+    (d) the fleet as the README starts it: ``launch.spawn`` children on
+        the card (a prefill worker, two replicas attached to it, a
+        router) at FLEET_CLI; streams through the router equal an
+        in-process engine over the same seeded weights; a replica killed
+        mid-stream ends that stream ``replica_failed`` while unstarted
+        requests complete on the survivor, which leaks no page; every
+        other child exits 0 on SIGTERM.
+
+    Returns the launch counts of (a) and (c) (the launched children count
+    in their own processes)."""
+    import gc
+    import types
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.serving import (FleetRouter, PagedServingEngine,
+                                          PrefillWorker, RemotePrefillClient,
+                                          ServingFrontend)
+    from paddle_tpu_torch.serving.fleet import launch
+
+    t_phase = time.perf_counter()
+    legs, total = {}, {}
+    # ---- (a) in-process disaggregation
+    t0 = time.perf_counter()
+    worker = PrefillWorker(net, weights_version="v0").start()
+    client = RemotePrefillClient("127.0.0.1", worker.port, timeout_s=600,
+                                 expected_weights_version="v0")
+    disagg = PagedServingEngine(net, cache_dtype="bfloat16",
+                                prefill_transport=client, **ENGINE_KW)
+    warm = warm_engine(torch, disagg, "fleet (remote)")
+    t1 = time.perf_counter()
+    launch._warmup(disagg, types.SimpleNamespace(
+        min_bucket=disagg.pool.min_bucket, max_seq=disagg.max_seq_len))
+    worker_warm_s = time.perf_counter() - t1
+    caps = worker.compile_counts()
+    nb = len(disagg._warmup_buckets())
+    if caps != {"serving::prefill": nb}:
+        fail(f"fleet: the worker captured {caps}, expected {nb} prefill "
+             f"programs before traffic")
+    run = drive_requests(torch, np, disagg, cfg, "remote", "fleet")
+    _add_counts(total, run["counts"])
+    if run["counts"] != want_counts(run):
+        fail(f"fleet (remote): launches {run['counts']}, expected "
+             f"{want_counts(run)}")
+    moved = {k: run["captures"][k] - run["captures_before"][k]
+             for k in run["captures"]}
+    if any(moved.values()) or worker.compile_counts() != caps:
+        fail(f"fleet (remote): captures in traffic: engine {moved}, "
+             f"worker {worker.compile_counts()}")
+    if (disagg.remote_prefills, disagg.remote_prefill_fallbacks,
+            disagg.local_prefills) != (12, 0, 0):
+        fail(f"fleet (remote): {disagg.remote_prefills} remote, "
+             f"{disagg.remote_prefill_fallbacks} fallbacks, "
+             f"{disagg.local_prefills} local prefills; expected 12, 0, 0")
+    for h, ref in zip(run["handles"], graph_run["handles"]):
+        if h.tokens != ref.tokens:
+            fail(f"fleet (remote): request {h.request.request_id}'s stream "
+                 f"differs from the serving phase's graph run")
+    stats = transfer_stats(disagg, client, run["handles"])
+    lens, prompts = serving_prompts(np, cfg)
+    order = np.argsort(lens)
+    kernels.reset_launch_counts()
+    compared = [adopted_pages_equal(torch, eng, disagg, prompts[i],
+                                    "fleet (remote)")
+                for i in (order[0], order[-1])]
+    _add_counts(total, kernels.launch_counts())
+    worker.stop()
+    fb0 = (disagg.remote_prefill_fallbacks, disagg.local_prefills)
+    kernels.reset_launch_counts()
+    h = disagg.submit(prompts[0], SERVE_MAX_NEW)
+    disagg.run_until_idle()
+    _add_counts(total, kernels.launch_counts())
+    fb = (disagg.remote_prefill_fallbacks - fb0[0],
+          disagg.local_prefills - fb0[1])
+    if fb != (1, 1) or client.available() \
+            or h.tokens != graph_run["handles"][0].tokens:
+        fail(f"fleet (remote): after the worker stopped, {fb} fallbacks and "
+             f"local prefills (expected one each), the client "
+             f"{'available' if client.available() else 'cooling down'}, "
+             f"the stream {'equal' if h.tokens == graph_run['handles'][0].tokens else 'different'}")
+    if disagg.page_pool.pages_in_use:
+        fail(f"fleet (remote): {disagg.page_pool.pages_in_use} pages leaked")
+    remote = {
+        "card": card, "warmup": {"engine_s": warm["warmup_s"],
+                                 "worker_s": worker_warm_s,
+                                 "worker_programs": caps},
+        "remote_prefills": 12, "fallback_after_stop": fb[0],
+        "ttft_p50_s": run["result"]["ttft_p50_s"],
+        "ttft_p50_local_s": graph_run["result"]["ttft_p50_s"],
+        "itl_p50_s": run["result"]["itl_p50_s"],
+        "itl_p50_local_s": graph_run["result"]["itl_p50_s"],
+        "prefill_p50_s": run["result"]["prefill_p50_s"],
+        "adopted_pages_bit_equal_bytes": compared, **stats}
+    log("fleet (remote): " + json.dumps(remote))
+    disagg.close()
+    del disagg, worker, client
+    gc.collect()
+    torch.cuda.empty_cache()
+    legs["remote_s"] = time.perf_counter() - t0
+
+    # ---- (c) the router over two prefix-cache replicas
+    t0 = time.perf_counter()
+    reps = [PagedServingEngine(net, cache_dtype="bfloat16", prefix_cache=True,
+                               **ENGINE_KW) for _ in range(2)]
+    fes = [ServingFrontend(e, host="127.0.0.1", port=0).start() for e in reps]
+    router = FleetRouter([("127.0.0.1", fe.port) for fe in fes],
+                         health_interval_s=0.05).start()
+    warm_s = time.perf_counter() - t0
+    try:
+        for e in reps:
+            e.metrics = type(e.metrics)()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t1 = time.perf_counter()
+        streams = _in_threads([
+            (lambda p=p: _sse("127.0.0.1", router.port, {
+                "input_ids": [int(t) for t in p],
+                "max_new_tokens": SERVE_MAX_NEW}))
+            for p in prompts])
+        counts = kernels.launch_counts()
+        streams_s = time.perf_counter() - t1
+        _add_counts(total, counts)
+        run = {"counts": counts,
+               "decode_steps": sum(e.metrics.decode_step_time.count
+                                   for e in reps),
+               "prefills": sum(e.metrics.prefill_time.count for e in reps)}
+        if counts != want_counts(run):
+            fail(f"fleet (router): launches {counts}, expected "
+                 f"{want_counts(run)}")
+        wire_ttft, wire_itl = [], []
+        for i, (st, events, body) in enumerate(streams):
+            if st != 200 or not events or events[-1][0] != "done":
+                fail(f"fleet (router): stream {i} ended {st} {body}")
+            toks = [d["token"] for e, d, _ in events if e == "token"]
+            if toks != graph_run["handles"][i].tokens:
+                fail(f"fleet (router): stream {i} differs from the serving "
+                     f"phase's graph run")
+            times = [t for e, _, t in events if e == "token"]
+            wire_ttft.append(times[0])
+            wire_itl.extend(b - a for a, b in zip(times, times[1:]))
+        routed = router.metrics.requests.by_label()
+        if sorted(routed) != ["0", "1"] or min(routed.values()) < 1:
+            fail(f"fleet (router): requests by replica {routed}")
+        # same-prefix requests converge on the replica holding the prefix
+        rng = np.random.RandomState(77)
+        prefix = [int(t) for t in rng.randint(0, cfg.vocab_size,
+                                              (FLEET_PREFIX_LEN,))]
+        # both caches emptied first: cached pages count against a
+        # replica's free pages, and the score's capacity term would
+        # otherwise weigh the 12 streams' leftovers against the bonus
+        for fe, e in zip(fes, reps):
+            with fe._lock:
+                e.prefix_cache.flush()
+        hits0 = [e.prefix_cache.hits.value for e in reps]
+        routed0 = dict(routed)
+        for _ in range(FLEET_PREFIX_REQUESTS):
+            router._scrape_all()  # every placement sees an idle fleet
+            st, events, body = _sse("127.0.0.1", router.port, {
+                "input_ids": prefix + [int(t) for t in rng.randint(
+                    0, cfg.vocab_size, (32,))],
+                "max_new_tokens": FLEET_PREFIX_NEW})
+            if st != 200 or events[-1][0] != "done":
+                fail(f"fleet (router): a same-prefix request ended {st} "
+                     f"{body}")
+        hits = [e.prefix_cache.hits.value - h for e, h in zip(reps, hits0)]
+        routed = router.metrics.requests.by_label()
+        moved = sorted(routed.get(k, 0) - routed0.get(k, 0)
+                       for k in ("0", "1"))
+        if sorted(hits) != [0, FLEET_PREFIX_REQUESTS - 1] \
+                or moved != [0, FLEET_PREFIX_REQUESTS]:
+            fail(f"fleet (router): same-prefix requests placed {moved}, "
+                 f"prefix hits {hits}: they did not converge")
+        st, data, scrape_s = _http("127.0.0.1", router.port, "GET",
+                                   "/metrics")
+        scrape = obs.parse_prometheus_text(data.decode("utf-8"))
+        for name in ("paddle_fleet_replica_free_pages",
+                     "paddle_fleet_replica_prefix_hits",
+                     "paddle_fleet_replica_healthy"):
+            if sorted(lab.get("replica") for lab, _ in scrape.get(name, ())
+                      ) != ["0", "1"]:
+                fail(f"fleet (router): /metrics lacks {name} by replica")
+        if "paddle_fleet_requests_total" not in scrape:
+            fail("fleet (router): /metrics lacks paddle_fleet_requests_total")
+    finally:
+        router.stop()
+        for fe in fes:
+            fe.stop(close_engine=True)
+            if fe.driver_errors:
+                fail(f"fleet (router): driver errors "
+                     f"{list(fe.driver_errors)}")
+
+    def p(xs, q):
+        return float(np.percentile(np.asarray(xs), q))
+
+    res = {"card": card, "warmup_s": warm_s, "streams_s": streams_s,
+           "requests_by_replica": routed0, "prefix_hits": hits,
+           "prefix_placed": moved,
+           "wire_ttft_p50_s": p(wire_ttft, 50),
+           "wire_itl_p50_s": p(wire_itl, 50),
+           "wire_itl_p90_s": p(wire_itl, 90),
+           "frontend_wire_ttft_p50_s": fe_res["wire_ttft_p50_s"],
+           "frontend_wire_itl_p50_s": fe_res["wire_itl_p50_s"],
+           "scrape_bytes": len(data), "scrape_s": scrape_s}
+    log("fleet (router): " + json.dumps(res))
+    del reps, fes, router
+    gc.collect()
+    torch.cuda.empty_cache()
+    legs["router_s"] = time.perf_counter() - t0
+
+    # ---- (d) the fleet as the README starts it
+    t0 = time.perf_counter()
+    launched = launch_leg(torch, np, dev, card)
+    legs["launched_s"] = time.perf_counter() - t0
+    log("fleet phase: " + json.dumps({
+        "card": card, "legs_s": legs, "launched": launched,
+        "phase_s": time.perf_counter() - t_phase}))
+    return total
+
+
+def launch_leg(torch, np, dev, card):
+    """``python -m paddle_tpu_torch.serving.fleet.launch`` children on the
+    card (the kernels are built: the children load the library): a
+    prefill worker, two replicas attached to it, a router; see
+    :func:`fleet_phase` (d)."""
+    import threading
+
+    from paddle_tpu_torch.serving import PagedServingEngine
+    from paddle_tpu_torch.serving.fleet import launch
+
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        procs.append(launch.spawn("prefill", FLEET_CLI, timeout_s=300))
+        worker = f"127.0.0.1:{procs[0].port}"
+        procs += launch.spawn_all(
+            [("replica", FLEET_CLI + ["--prefill-worker", worker])] * 2,
+            timeout_s=300)
+        replicas = procs[1:3]
+        procs.append(launch.spawn("router", [
+            "--replicas", ",".join(f"127.0.0.1:{r.port}" for r in replicas)],
+            timeout_s=120))
+        router = procs[3]
+        spawn_s = time.perf_counter() - t0
+        # the in-process reference over the same seeded weights
+        args = launch._parser().parse_args(["--role", "replica",
+                                            *FLEET_CLI])
+        ref_net = launch.build_net(args)
+        ref = PagedServingEngine(
+            ref_net, max_batch_size=args.max_batch, max_seq_len=args.max_seq,
+            min_bucket=args.min_bucket, page_size=args.page_size,
+            cache_dtype=args.cache_dtype)
+        rng = np.random.RandomState(31)
+        prompts = [[int(t) for t in rng.randint(0, args.vocab, (int(n),))]
+                   for n in rng.randint(4, args.max_seq - FLEET_LAUNCH_NEW,
+                                        FLEET_LAUNCH_PROMPTS)]
+        # one request at a time (each alone in its batch, through the
+        # router and in process): token for token
+        alone = [ref.generate([np.asarray(p)], FLEET_LAUNCH_NEW)[0].tokens
+                 for p in prompts]
+        for i, p in enumerate(prompts):
+            st, events, body = _sse("127.0.0.1", router.port, {
+                "input_ids": p, "max_new_tokens": FLEET_LAUNCH_NEW})
+            toks = [d["token"] for e, d, _ in events if e == "token"]
+            if st != 200 or events[-1][0] != "done" or toks != alone[i]:
+                fail(f"fleet (launched): request {i} alone through the "
+                     f"router ended {st} {body} "
+                     f"{events[-1][:2] if events else None}, tokens "
+                     f"{'equal' if toks == alone[i] else 'different'} to "
+                     f"the in-process engine's")
+        # all at once, through the router and in process (which rows
+        # share a decode step differs): token for token
+        want = [h.tokens for h in ref.generate(
+            [np.asarray(p) for p in prompts], FLEET_LAUNCH_NEW)]
+
+        def at_once(n, label):
+            """The first ``n`` prompts through the router at once: each
+            stream done and equal to ``want``."""
+            streams = _in_threads([
+                (lambda p=p: _sse("127.0.0.1", router.port, {
+                    "input_ids": p, "max_new_tokens": FLEET_LAUNCH_NEW}))
+                for p in prompts[:n]])
+            got = [[d["token"] for e, d, _ in ev if e == "token"]
+                   for _, ev, _ in streams]
+            if got != want[:n] or any(st != 200 or ev[-1][0] != "done"
+                                      for st, ev, _ in streams):
+                log(f"fleet (launched, {label}) mismatch: " + json.dumps({
+                    "ends": [(st, ev[-1][:2] if ev else None)
+                             for st, ev, _ in streams],
+                    "got": got, "want": want[:n]}))
+                fail(f"fleet (launched): the streams sent {label} through "
+                     f"the router differ from the in-process engine's")
+
+        at_once(len(prompts), "at once")
+        # in process: the same prompt alone and beside another request,
+        # and the prompts at once in the reverse order (which rows share
+        # a decode step changes), measured
+        paired = ref.generate([np.asarray(prompts[1]),
+                               np.asarray(prompts[0])], FLEET_LAUNCH_NEW)
+        beside = paired[1].tokens
+        reverse = [h.tokens for h in ref.generate(
+            [np.asarray(p) for p in prompts[::-1]], FLEET_LAUNCH_NEW)][::-1]
+        reorder = sum(a != b for x, y in zip(reverse, want)
+                      for a, b in zip(x, y))
+        # a replica killed mid-stream: its stream ends replica_failed,
+        # unstarted requests complete on the survivor
+        started = threading.Event()
+        victim = []
+        long_new = args.max_seq - 2
+        th = threading.Thread(target=lambda: victim.append(_sse(
+            "127.0.0.1", router.port, {"input_ids": [1],
+                                       "max_new_tokens": long_new},
+            first_token=started)))
+        th.start()
+        if not started.wait(120):
+            fail("fleet (launched): the long stream did not start")
+        st, data, _ = _http("127.0.0.1", router.port, "GET", "/replicas")
+        busy = [r["port"] for r in json.loads(data)["replicas"]
+                if r["in_flight_routed"]]
+        dead = [r for r in replicas if r.port in busy]
+        if len(dead) != 1:
+            fail(f"fleet (launched): the long stream is on ports {busy}")
+        dead[0].kill()
+        survivor = [r for r in replicas if r is not dead[0]][0]
+        at_once(3, "after the kill")
+        th.join(300)
+        st, events, _ = victim[0]
+        n_tok = sum(e == "token" for e, _, _ in events)
+        if st != 200 or events[-1][0] != "error" \
+                or events[-1][1].get("reason") != "replica_failed" \
+                or not 0 < n_tok < long_new:
+            fail(f"fleet (launched): the killed replica's stream ended "
+                 f"{st} {events[-1][:2] if events else None} after {n_tok} "
+                 f"tokens")
+        health = json.loads(_http("127.0.0.1", survivor.port, "GET",
+                                  "/healthz")[1])
+        if health["page_pool"]["pages_in_use"] or health["active"]:
+            fail(f"fleet (launched): the survivor holds "
+                 f"{health['page_pool']['pages_in_use']} pages, "
+                 f"{health['active']} rows after its streams")
+        st, data, _ = _http("127.0.0.1", router.port, "GET", "/metrics")
+        text = data.decode("utf-8")
+        out = {"card": card, "spawn_s": spawn_s,
+               "alone_equal": len(prompts),
+               "at_once_equal": len(prompts),
+               "after_kill_equal": 3,
+               "in_process_alone_vs_beside_another_equal":
+                   beside == alone[0],
+               "in_process_reverse_order_tokens_differing": reorder,
+               "killed_after_tokens": n_tok,
+               "unstarted_completed": 3,
+               "router_retries": [ln for ln in text.splitlines()
+                                  if ln.startswith("paddle_fleet_retries")],
+               "router_stream_aborts": [
+                   ln for ln in text.splitlines()
+                   if ln.startswith("paddle_fleet_stream_aborts")]}
+    finally:
+        rcs = {}
+        for p in procs:
+            if p.alive:
+                rcs[f"{p.role}:{p.port}"] = p.terminate(timeout_s=60)
+            else:
+                rcs[f"{p.role}:{p.port}"] = p.proc.returncode
+    if sorted(rcs.values()) != [-9, 0, 0, 0]:
+        fail(f"fleet (launched): exit codes {rcs} (the killed replica -9, "
+             f"every other child 0 on SIGTERM)")
+    out["exit_codes"] = rcs
+    out["leg_s"] = time.perf_counter() - t0
+    del ref, ref_net
+    return out
+
+
+def fleet_int8_leg(torch, np, card, net, eng, cfg, graph_run):
+    """The int8 transfer leg of the fleet phase, on the quantized serving
+    phase's net (int8 weights) and warmed graph engine ``eng`` (int8
+    arena): a worker and a disaggregated int8 graph engine; 4 requests
+    remote, their streams equal ``eng``'s for the same requests at once
+    and, printed, the quantized phase's run; two prompts' adopted pages
+    (codes and scales) equal a local prefill's bit for bit. Returns the
+    launch counts."""
+    import types
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.serving import (PagedServingEngine, PrefillWorker,
+                                          RemotePrefillClient)
+    from paddle_tpu_torch.serving.fleet import launch
+
+    t0 = time.perf_counter()
+    total = {}
+    worker = PrefillWorker(net, weights_version="v0").start()
+    client = RemotePrefillClient("127.0.0.1", worker.port, timeout_s=600,
+                                 expected_weights_version="v0")
+    disagg = PagedServingEngine(net, cache_dtype="int8",
+                                prefill_transport=client, **ENGINE_KW)
+    disagg.warmup()
+    launch._warmup(disagg, types.SimpleNamespace(
+        min_bucket=disagg.pool.min_bucket, max_seq=disagg.max_seq_len))
+    caps = worker.compile_counts()
+    lens, prompts = serving_prompts(np, cfg)
+    kernels.reset_launch_counts()
+    runs = {}
+    for name, e in (("local", eng), ("remote", disagg)):
+        hs = [e.submit(p, SERVE_MAX_NEW) for p in prompts[:4]]
+        e.run_until_idle()
+        runs[name] = [h.tokens for h in hs]
+    order = np.argsort(lens[:4])
+    compared = [adopted_pages_equal(torch, eng, disagg, prompts[i],
+                                    "fleet (int8)")
+                for i in (order[0], order[-1])]
+    _add_counts(total, kernels.launch_counts())
+    if runs["remote"] != runs["local"]:
+        fail("fleet (int8): the remote streams differ from the local ones")
+    if (disagg.remote_prefills, disagg.remote_prefill_fallbacks,
+            disagg.local_prefills) != (6, 0, 0) \
+            or worker.compile_counts() != caps:
+        fail(f"fleet (int8): {disagg.remote_prefills} remote, "
+             f"{disagg.remote_prefill_fallbacks} fallbacks, "
+             f"{disagg.local_prefills} local; worker captures "
+             f"{worker.compile_counts()} after {caps}")
+    res = {"card": card, "requests": 4,
+           "streams_equal_quantized_phase": runs["remote"] == [
+               h.tokens for h in graph_run["handles"][:4]],
+           "adopted_pages_bit_equal_bytes": compared,
+           "transfers": client.transfers.by_label(),
+           "bytes_total": client.transfer_bytes.value,
+           "leg_s": time.perf_counter() - t0}
+    log("fleet (int8): " + json.dumps(res))
+    worker.stop()
+    disagg.close()
+    return total
+
+
+# ------------------------------------------------------------- resilience
+RES_STEPS = 6
+RES_DIR = os.path.join(HERE, "build", "chip_smoke_resilience")
+
+
+def resilience_phase(torch, np, dev, card):
+    """The resilient training runtime on the checkpoint phase's model
+    (Llama-2-7B widths, CKPT_LAYERS layers, fp32, AdamW with its warmup
+    and clip; B 2 x S 2048, a batch of its own each step):
+
+    - skip, ``sync=True``, NaN through ``train.loss`` at step 3 of 5: the
+      parameters and moments after the run equal a run over batches 1, 2,
+      4, 5 bit for bit;
+    - skip, ``sync=False``, NaN at step 3 of 8 (made on the device, with
+      no synchronization): the detection lag in steps (printed);
+    - rollback, NaN at step 5 after the commit of step 4: ``run_resilient``
+      ends with the losses and every parameter of the uninterrupted
+      RES_STEPS-step run, bit for bit;
+    - the watchdog (``stall_seconds`` 2, started): a 3 s block at
+      ``train.step_begin`` fires ``wedged_step`` once, with a flight
+      bundle; a 3 s stall reported through ``note_blocked`` fires none.
+
+    Every trainer call launches the training kernels the structure gives.
+    Returns the launch counts."""
+    import gc
+    import shutil
+
+    from paddle_tpu_torch import chaos, kernels
+    from paddle_tpu_torch.checkpoint import CheckpointManager, CheckpointPolicy
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.observability import (FlightRecorder,
+                                                get_step_meter)
+    from paddle_tpu_torch.training import (AnomalySentinel, SentinelPolicy,
+                                           TrainWatchdog, run_resilient)
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(RES_DIR, ignore_errors=True)
+    os.makedirs(RES_DIR)
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=CKPT_LAYERS)
+    batches = {}
+    for s in range(1, 9):
+        ids = torch.as_tensor(np.random.RandomState(1000 + s).randint(
+            0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)),
+            dtype=torch.long, device=dev)
+        batches[s] = ([ids[:, :-1].contiguous()], [ids[:, 1:].contiguous()])
+    calls = [0]
+    total = {}
+    per_step = _train_per_step(CKPT_LAYERS)
+
+    def fresh():
+        net = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=0)
+        step, opt, sched = _trainer(torch, net)
+        return net, step, opt, sched
+
+    def drive(step, sched, order, steps, losses=None):
+        """``run_resilient`` over the batches of ``order``, the schedule
+        stepped after each step that stood (a skipped step's batch is
+        dropped, its update undone, so the schedule does not move)."""
+
+        def batch_fn(i):
+            calls[0] += 1
+            return batches[order[i - 1]]
+
+        def on_step(i, loss, action):
+            if action is None:
+                sched.step()
+                if losses is not None:
+                    losses[i] = float(loss)
+
+        return run_resilient(step, batch_fn, steps=steps, on_step=on_step)
+
+    def check_counts(label, n):
+        counts = kernels.launch_counts()
+        want = {k: v * n for k, v in per_step.items()}
+        if counts != want:
+            fail(f"resilience ({label}): launches {counts}, expected {want} "
+                 f"for {n} trainer calls")
+        _add_counts(total, counts)
+
+    def state(net, opt):
+        return ([p for p in net.parameters()]
+                + [opt._accumulators[k] for k in sorted(opt._accumulators)])
+
+    def nan(value=None, **_):
+        return float("nan")
+
+    def device_nan(value=None, **_):
+        # the NaN made on the device, after the step's work: a host float
+        # would cross in a synchronous copy, and the lag would read 0
+        return value * float("nan")
+
+    out = {"card": card}
+    # ---- skip, synchronous
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    calls[0] = 0
+    net, step, opt, sched = fresh()
+    sentinel = AnomalySentinel(SentinelPolicy(nan_action="skip"), sync=True)
+    sentinel.attach(step)
+    with chaos.chaos() as m:
+        m.on("train.loss", nan, after=2, times=1)
+        summary = drive(step, sched, [1, 2, 3, 4, 5], 5)
+    ref_net, ref_step, ref_opt, ref_sched = fresh()
+    drive(ref_step, ref_sched, [1, 2, 4, 5], 4)
+    torch.cuda.synchronize()
+    check_counts("skip", calls[0])
+    a, b = state(net, opt), state(ref_net, ref_opt)
+    equal = len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+    if summary["skipped_steps"] != 1 or opt._step_count != 4 or not equal:
+        fail(f"resilience (skip): {summary}, step count {opt._step_count}, "
+             f"parameters and moments "
+             f"{'equal' if equal else 'different'} to a run without batch 3")
+    out["skip"] = {"summary": summary, "bit_equal_tensors": len(a),
+                   "leg_s": time.perf_counter() - t0}
+    log("resilience (skip): " + json.dumps(out["skip"]))
+    del net, step, opt, sched, ref_net, ref_step, ref_opt, ref_sched
+    del sentinel, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- skip, asynchronous: the detection lag
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    calls[0] = 0
+    net, step, opt, sched = fresh()
+    sentinel = AnomalySentinel(SentinelPolicy(nan_action="skip"), sync=False)
+    sentinel.attach(step)
+    seen = {}
+
+    def on_step(i, loss, action):
+        if action is not None:
+            seen.update(step=i, dropped=action.dropped_steps,
+                        bad_step=action.step)
+        else:
+            sched.step()
+
+    with chaos.chaos() as m:
+        m.on("train.loss", device_nan, after=2, times=1)
+
+        def batch_fn(i):
+            calls[0] += 1
+            return batches[i]
+
+        summary = run_resilient(step, batch_fn, steps=8, on_step=on_step)
+    if not seen:
+        # not ready within the run: the blocking check judges it now
+        act = sentinel.check(block=True)
+        seen.update(step=9, dropped=act.dropped_steps, bad_step=act.step)
+    torch.cuda.synchronize()
+    check_counts("skip async", calls[0])
+    if seen["bad_step"] != 3:
+        fail(f"resilience (skip async): the skip judged step "
+             f"{seen['bad_step']}, not 3")
+    out["skip_async"] = {"summary": summary,
+                         "detected_at_step": seen["step"],
+                         "lag_steps": seen["step"] - 3,
+                         "dropped_steps": seen["dropped"],
+                         "leg_s": time.perf_counter() - t0}
+    log("resilience (skip async): " + json.dumps(out["skip_async"]))
+    del net, step, opt, sched, sentinel
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- rollback and replay
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    calls[0] = 0
+    order = list(range(1, RES_STEPS + 1))
+    ref_losses = {}
+    ref_net, ref_step, ref_opt, ref_sched = fresh()
+    drive(ref_step, ref_sched, order, RES_STEPS, ref_losses)
+    net, step, opt, sched = fresh()
+    # a blocking save: step 4 is committed before step 5 is judged (the
+    # ladder offers a rollback only over a committed checkpoint)
+    mgr = step.attach_checkpoint(CheckpointManager(
+        RES_DIR, async_saves=False,
+        policy=CheckpointPolicy(save_every_steps=4, keep_last_k=1)))
+    sentinel = AnomalySentinel(SentinelPolicy(nan_action="rollback"),
+                               manager=mgr, sync=True)
+    step.attach_sentinel(sentinel)
+    losses = {}
+    with chaos.chaos() as m:
+        m.on("train.loss", nan, after=4, times=1)
+        summary = drive(step, sched, order, RES_STEPS, losses)
+    mgr.close()
+    torch.cuda.synchronize()
+    check_counts("rollback", calls[0])
+    a, b = state(net, opt), state(ref_net, ref_opt)
+    equal = len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+    if summary["replays"] != 1 or summary["completed_steps"] != RES_STEPS \
+            or [losses[i] for i in order] != [ref_losses[i] for i in order] \
+            or not equal:
+        fail(f"resilience (rollback): {summary}, losses {losses} against "
+             f"{ref_losses}, parameters and moments "
+             f"{'equal' if equal else 'different'}")
+    out["rollback"] = {"summary": summary, "losses": [losses[i]
+                                                      for i in order],
+                       "bit_equal_tensors": len(a), "calls": calls[0],
+                       "leg_s": time.perf_counter() - t0}
+    log("resilience (rollback): " + json.dumps(out["rollback"]))
+    del ref_net, ref_step, ref_opt, ref_sched, a, b, mgr, sentinel
+    del net, step, opt, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- the watchdog, on a trainer of its own (the rollback leg's
+    # manager would save at step 8, and a blocking save reports its stall
+    # only once it ends: the watchdog would see a wedge)
+    t0 = time.perf_counter()
+    net, step, opt, sched = fresh()
+    kernels.reset_launch_counts()
+    calls[0] = 0
+    rec = FlightRecorder(dump_dir=os.path.join(RES_DIR, "flight"))
+    wd = TrainWatchdog(stall_seconds=2.0, recorder=rec)
+    wd.attach(step)
+    wd.start()
+    try:
+        with chaos.chaos() as m:
+            m.on("train.step_begin", lambda **_: time.sleep(3.0), times=1)
+            calls[0] += 1
+            step(*batches[1])
+            torch.cuda.synchronize()
+        wedged = dict(wd.fires.series())
+        bundle = wd.last_dump_path
+        with chaos.chaos() as m:
+            m.on("train.step_begin", lambda **_: (
+                get_step_meter().note_blocked(3.0), time.sleep(3.0)),
+                times=1)
+            calls[0] += 1
+            step(*batches[2])
+            torch.cuda.synchronize()
+        fires = dict(wd.fires.series())
+    finally:
+        wd.stop()
+    check_counts("watchdog", calls[0])
+    want = {(("kind", "wedged_step"),): 1}
+    if wedged != want or fires != want or not bundle \
+            or not os.path.isfile(bundle):
+        fail(f"resilience (watchdog): fires {wedged} after the wedged step, "
+             f"{fires} after the blocked one, bundle {bundle}")
+    with open(bundle) as f:
+        reason = json.load(f)["reason"]
+    out["watchdog"] = {"fires": 1, "bundle_reason": reason,
+                       "leg_s": time.perf_counter() - t0}
+    del net, step, opt, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(RES_DIR, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("resilience: " + json.dumps(out))
+    return total
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile-steps", type=int, default=0,
@@ -6076,6 +6895,7 @@ def main():
                     help="after the training phase, profile this many "
                          "more training steps")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import numpy as np
     import torch
@@ -6171,12 +6991,13 @@ def main():
      fused_fp32_train_counts, opt_counts) = training_phase(
         torch, np, dev, card, args.profile_train_steps)
     checkpoint_counts = checkpoint_phase(torch, np, dev, card)
+    resilience_counts = resilience_phase(torch, np, dev, card)
     (serve_counts, serve_eager_counts,
      (fused_serve_counts, fused_serve_eager_counts),
      (prefix_counts, prefix_eager_counts), session_counts, spec_counts,
-     beam_counts, reload_counts, frontend_counts) = serving_phase(
-        torch, np, dev, card, args.profile_steps)
-    quant_counts, quant_eager_counts = quant_serving_phase(
+     beam_counts, reload_counts, frontend_counts,
+     fleet_counts) = serving_phase(torch, np, dev, card, args.profile_steps)
+    quant_counts, quant_eager_counts, fleet_int8_counts = quant_serving_phase(
         torch, np, dev, card, args.profile_steps)
 
     leaked = [m for m in sys.modules
@@ -6211,6 +7032,9 @@ def main():
                     "checkpoint": checkpoint_counts.get(name, 0),
                     "full_reload": reload_counts.get(name, 0),
                     "frontend": frontend_counts.get(name, 0),
+                    "fleet": fleet_counts.get(name, 0),
+                    "fleet_int8": fleet_int8_counts.get(name, 0),
+                    "resilience": resilience_counts.get(name, 0),
                     "fused_training": fused_train_counts[name],
                     "fp32_training": fp32_train_counts[name],
                     "fused_fp32_training": fused_fp32_train_counts[name],
@@ -6260,6 +7084,7 @@ def main():
                     8, TRAIN_BATCH * TRAIN_SEQ)
                 and c["shape"].get("s", TRAIN_SEQ) == TRAIN_SEQ
                 and c["shape"].get("d", 128) == 128}
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

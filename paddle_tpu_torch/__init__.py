@@ -4,11 +4,14 @@ This package stands beside ``paddle_tpu`` (the JAX reference, which it
 never imports) and mirrors its module paths. It serves and trains the
 Llama family: the model (``models.llama``), KV-cache generation
 (``models.generation``), the slab and paged continuous-batching engines
-(``serving``, with live weight reload), quantized serving (int8 KV
+(``serving``, with live weight reload, the HTTP/SSE front end and the
+fleet tier: remote prefill over the KV wire, the router, the launch
+entry points), quantized serving (int8 KV
 caches and int8 weights, ``quantization``), the train step
 (``jit.CompiledTrainStep`` with ``optimizer`` and ``amp``), and
 checkpoints (``checkpoint``, the format in ``distributed.checkpoint``,
-fault injection in ``chaos``), with hand-written Hopper kernels for RMSNorm
+fault injection in ``chaos``), the resilient training runtime
+(``training``: the anomaly sentinel, the watchdog, ``run_resilient``), with hand-written Hopper kernels for RMSNorm
 and rope (forward and backward), paged decode attention (float and int8
 arenas), flash attention (forward and backward), the W8A16 matmul, the two
 fusions and the multi-tensor optimizer updates (``kernels``, sources in

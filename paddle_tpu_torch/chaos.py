@@ -21,10 +21,13 @@ drive the refusal, timeout and rollback paths directly:
 
 Instrumented sites in the port: ``reload.prepare`` and ``reload.apply``
 (the live weight swap, ``serving/reload.py`` and the engines' apply:
-arming ``reload.apply`` is the deterministic "kill mid-swap"). The JAX
-package's KV-transfer and training seams (``kv.send_frame``,
-``train.step_begin``, ``train.loss``) wait for the modules that fire
-them.
+arming ``reload.apply`` is the deterministic "kill mid-swap");
+``kv.send_frame`` and ``kv.recv_frame`` (the KV transfer wire,
+``serving/fleet/kv_transfer.py``: a fault there is a socket drop
+mid-exchange); ``train.step_begin`` (a blocking callback is the
+deterministic wedged step) and ``train.loss`` (a value seam: a callback
+returning ``float("nan")`` is the deterministic anomaly), both in
+``jit/trainer.py``. ``serving.chaos`` re-exports this module verbatim.
 """
 from __future__ import annotations
 

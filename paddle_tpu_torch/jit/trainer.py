@@ -42,6 +42,19 @@ snapshot's device-to-host copies while the forward and backward overlap
 them. The fp8 extra state the JAX trainer registers waits for AMP O3
 (``ROADMAP.md`` queue A item 3).
 
+``attach_sentinel(sentinel)`` and ``attach_watchdog(watchdog)`` wire the
+resilient runtime (``training/resilience.py``, JAX ``trainer.py:132-148``):
+before each step the sentinel may take its pre-step snapshot
+(:meth:`_memory_snapshot`: device copies of the parameters, buffers and
+every optimizer accumulator, enqueued on the step's stream before the
+update writes them in place, plus the step count and the scaler's
+state), the watchdog timestamps the dispatch and the chaos seam
+``train.step_begin`` fires; after it the loss passes the value seam
+``train.loss`` and goes to the sentinel as a lazy device value (a CUDA
+event a step), which may undo the step (:meth:`_restore_memory_snapshot`,
+copies back into the same storage) or raise for a rollback or an abort;
+a step the sentinel undid is not checkpointed.
+
 Each step is published into the process ``StepMeter``
 (``observability.get_step_meter()``, JAX ``trainer.py:717-740``): batch
 geometry from the inputs' shapes, the loss as a lazy device value, the
@@ -62,6 +75,7 @@ import time
 import numpy as np
 import torch
 
+from .. import chaos as _chaos
 from .. import optimizer as opt_mod
 from ..amp.auto_cast import auto_cast
 
@@ -103,6 +117,8 @@ class CompiledTrainStep:
         self._plan = None
         self._inv = {}
         self._checkpoint = None
+        self._sentinel = None
+        self._watchdog = None
         self._telemetry = collections.deque()  # steps not published yet
         self._calls = 0
 
@@ -115,6 +131,72 @@ class CompiledTrainStep:
         manager._step_fences = True
         self._checkpoint = manager
         return manager
+
+    def attach_sentinel(self, sentinel):
+        """Wire a ``training.AnomalySentinel`` into the step loop: it sees
+        every step's loss as a lazy device value and walks its
+        skip/rollback/abort ladder on a NaN/inf loss or a spike. Its own
+        checkpoint manager (if any) is what a rollback restores from;
+        :meth:`attach_checkpoint` wires saving separately. Returns the
+        sentinel."""
+        sentinel.bind(self)
+        self._sentinel = sentinel
+        return sentinel
+
+    def attach_watchdog(self, watchdog):
+        """Wire a ``training.TrainWatchdog``: each step's dispatch is
+        timestamped (one host clock read), so a wedged step or a
+        straggling peer fires before the job dies silently. Returns the
+        watchdog."""
+        self._watchdog = watchdog
+        return watchdog
+
+    # -------------------------------------------------- sentinel snapshots
+    def _memory_snapshot(self):
+        """The sentinel's pre-step snapshot for its skip rung (JAX
+        ``trainer.py:150-180``): a device copy of every parameter, buffer
+        and optimizer accumulator, enqueued on the current stream (so
+        before this step's in-place update; no host sync), with the step
+        count and the scaler's state. The RNG is not captured: a skipped
+        batch keeps later draws where they would have been."""
+        opt = self.optimizer
+        with torch.no_grad():
+            snap = {
+                "params": [(p, p.detach().clone())
+                           for p in self.network.parameters()],
+                "buffers": [(b, b.clone()) for b in self.network.buffers()],
+                "opt_state": {k: v.clone()
+                              for k, v in opt._accumulators.items()},
+                "step_count": opt._step_count,
+            }
+        if self.scaler is not None:
+            sc = self.scaler
+            snap["scaler"] = (sc._scale, sc._good_steps, sc._bad_steps)
+        return snap
+
+    def _restore_memory_snapshot(self, snap):
+        """Undo the steps since ``snap`` was taken (skip-step, JAX
+        ``trainer.py:182-200``), copying into the same storage (the
+        optimizer's and the checkpoint snapshot's tensors stay valid). An
+        accumulator born after the snapshot returns to its birth value,
+        zeros."""
+        opt = self.optimizer
+        if self._checkpoint is not None:
+            # the last save's device-to-host copies read these tensors
+            self._checkpoint.fence()
+        with torch.no_grad():
+            for t, v in snap["params"] + snap["buffers"]:
+                t.copy_(v)
+            for k, acc in opt._accumulators.items():
+                old = snap["opt_state"].get(k)
+                if old is None:
+                    acc.zero_()
+                else:
+                    acc.copy_(old)
+        opt._step_count = snap["step_count"]
+        if self.scaler is not None and "scaler" in snap:
+            (self.scaler._scale, self.scaler._good_steps,
+             self.scaler._bad_steps) = snap["scaler"]
 
     @staticmethod
     def _normalize_scaler(scaler):
@@ -233,6 +315,16 @@ class CompiledTrainStep:
         arguments) and ``labels`` (the loss function's arguments after
         the network's outputs)."""
         opt = self.optimizer
+        step_next = opt._step_count + 1
+        if self._sentinel is not None:
+            # the skip rung's pre-step snapshot, enqueued before this
+            # step's update writes the tensors in place
+            self._sentinel.before_step(step_next)
+        if self._watchdog is not None:
+            self._watchdog.note_dispatch(step_next)
+        # chaos seam: a blocking callback here is the deterministic
+        # wedged step
+        _chaos.poke("train.step_begin", step=step_next)
         mark = self._begin_telemetry(next(self.network.parameters()).device)
         if self._plan is None:
             self._plan = self._build_plan()
@@ -259,7 +351,23 @@ class CompiledTrainStep:
             self._update_scaler(stats.finite())
         opt.clear_grad()
         loss = loss.detach()
+        # chaos value seam: a callback returning float("nan") is the
+        # deterministic anomaly the sentinel's ladder must recover from
+        injected = _chaos.poke_value("train.loss", loss,
+                                     step=opt._step_count)
+        if injected is not loss:
+            loss = torch.as_tensor(injected, dtype=torch.float32,
+                                   device=loss.device)
         self._end_telemetry(mark, inputs, loss)
-        if self._checkpoint is not None:
+        action = None
+        if self._sentinel is not None:
+            from ..observability.registry import device_value
+
+            # may raise RollbackAndReplay (restored to the last commit) or
+            # TrainingAborted (bundle dumped); returns the Action of a skip
+            action = self._sentinel.after_step(opt._step_count,
+                                               device_value(loss))
+        if self._checkpoint is not None and action is None:
+            # after the sentinel's verdict: a step it undid is not saved
             self._checkpoint.on_step(opt._step_count)
         return loss, [o.detach() for o in outs]

@@ -2,11 +2,20 @@
 ``paddle_tpu/serving``): the slab engine, the paged engine with its
 prefix cache and the KV spill tier below it, speculative decoding for
 both, sessions, live weight reload, the HTTP/SSE front end
-(``ServingFrontend``), and the host-side pieces they share. ``chaos`` is ``paddle_tpu_torch.chaos``, as the JAX package's
-``serving.chaos`` re-exports its harness."""
-from .. import chaos  # noqa: F401
+(``ServingFrontend``), the fleet tier above it (``fleet``: the KV wire's
+``PrefillWorker`` and ``RemotePrefillClient``, the ``FleetRouter``, the
+launch entry points), and the host-side pieces they share.
+``serving.chaos`` re-exports ``paddle_tpu_torch.chaos``, as the JAX
+package's does."""
+from . import chaos  # noqa: F401
 from .engine import ServingEngine  # noqa: F401
-from .fleet.kv_transfer import TransferError  # noqa: F401
+from .fleet import (  # noqa: F401
+    FleetRouter,
+    PrefillWorker,
+    RemotePrefillClient,
+    RouterMetrics,
+    TransferError,
+)
 from .http_frontend import (  # noqa: F401
     FrontendMetrics,
     HTTPRejected,

@@ -103,6 +103,22 @@ from .scheduler import (
 from .sessions import SessionStore
 
 
+def prefill_program(net, caches, bucket, device):
+    """The bucketed prefill every prefill site runs (JAX
+    ``build_prefill_body``, ``engine.py:75``): ids ``[1, bucket]`` through
+    ``net`` over the block ``caches``, written in place -> logits ``[1,
+    bucket, V]``. The engines' per-bucket programs and the fleet's
+    :class:`~.fleet.kv_transfer.PrefillWorker` capture this same body,
+    which is what makes a remote prefill's block and first token
+    bit-identical to a local one. Returns ``(body, [ids])``."""
+    ids = torch.zeros((1, int(bucket)), dtype=torch.int64, device=device)
+
+    def body(ids):
+        return net(ids, caches=caches, pos=0)[0]
+
+    return body, [ids]
+
+
 class _Seq:
     """Host-side state of one running sequence (one decode row)."""
 
@@ -420,14 +436,9 @@ class ServingEngine:
         return body, inputs, self._keep()
 
     def _build_prefill(self, blk):
-        net = self.net
-        ids = torch.zeros((1, blk.bucket), dtype=torch.int64,
-                          device=self.device)
-
-        def body(ids):
-            return net(ids, caches=blk.caches, pos=0)[0]
-
-        return body, [ids], (self._keep(), blk.caches)
+        body, inputs = prefill_program(self.net, blk.caches, blk.bucket,
+                                       self.device)
+        return body, inputs, (self._keep(), blk.caches)
 
     def _build_adopt(self, blk):
         index = torch.from_numpy(self._adopt_zeros(blk)).to(self.device)
@@ -972,6 +983,12 @@ class ServingEngine:
         self._pending_swap = None
         self.reload_in_progress = False
         self._on_weights_swapped()
+        # disaggregation stays exact across the rotation: the transport's
+        # version-skew refusal now turns old-weights blocks away
+        tr = getattr(self, "prefill_transport", None)
+        if tr is not None and getattr(tr, "expected_weights_version",
+                                      None) is not None:
+            tr.expected_weights_version = staged.weights_version
         if staged.staged_at is not None:
             pause = self.clock() - staged.staged_at
             self.metrics.reload_ttft_spike.observe(pause)

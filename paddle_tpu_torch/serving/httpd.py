@@ -36,7 +36,10 @@ def start_http_server(host, port, on_get, on_post, name):
             on_post(self)
 
     httpd = _Server((host, int(port)), Handler)
-    thread = threading.Thread(target=httpd.serve_forever, name=name,
+    # a short poll: shutdown() returns within 50 ms, not socketserver's
+    # default half second
+    thread = threading.Thread(target=httpd.serve_forever,
+                              kwargs={"poll_interval": 0.05}, name=name,
                               daemon=True)
     thread.start()
     return httpd, thread

@@ -63,8 +63,18 @@ their device inputs), and ``warmup()`` captures them all before traffic.
 A failing program raises: the admission releases what it claimed, and
 nothing falls back to another path. A live reload (``engine.py``,
 ``reload.py``) flushes the prefix cache, and with it the spill tier,
-with reason ``"weights_reload"``. Not ported: remote prefill
-(``prefill_transport``, ``ROADMAP.md`` queue A item 1.7).
+with reason ``"weights_reload"``.
+
+**Remote prefill** (``prefill_transport=``, a
+:class:`~.fleet.kv_transfer.RemotePrefillClient`): a cold admission ships
+its prompt to a prefill worker, and the pages that come back are copied
+into the bucket's pooled block (pinned staging on a card) and adopted by
+the same adopt program as a local prefill's block, so the arena is
+bit-identical to a local prefill's. The sampling key is drawn once,
+before the attempt, so a fallback consumes the key the local path
+would. A transfer failure falls back to a local prefill
+(``remote_prefill_fallbacks``); the prefill span's ``mode`` says
+``remote``, ``local``, ``fallback`` or ``chunk``.
 """
 from __future__ import annotations
 
@@ -73,7 +83,7 @@ import time
 import numpy as np
 import torch
 
-from ..models.generation import _select_next
+from ..models.generation import _select_next, normalize_cache_dtype
 from ..observability.tracing import get_tracer
 from ..quantization.kv import (
     adopt_into_pages,
@@ -128,10 +138,6 @@ class PagedServingEngine(ServingEngine):
                 f"max_seq_len {max_seq_len} must be a multiple of "
                 f"page_size {ps}"
             )
-        if prefill_transport is not None:
-            raise NotImplementedError(
-                "prefill_transport=...: remote prefill is not ported "
-                "(ROADMAP.md queue A item 1.7)")
         if kv_tiering not in (None, False) \
                 and prefix_cache in (None, False):
             raise ValueError(
@@ -150,6 +156,15 @@ class PagedServingEngine(ServingEngine):
             None if max_prefills_per_step is None
             else int(max_prefills_per_step)
         )
+        # cross-process disaggregation: with a transport (a
+        # fleet.kv_transfer.RemotePrefillClient) attached, admission ships
+        # the prompt to the prefill pool and adopts the returned pages;
+        # any transfer failure falls back to a LOCAL prefill, counted. A
+        # prefix-cache hit skips the transport (the tail chunk is cheaper
+        # than the wire)
+        self.prefill_transport = prefill_transport
+        self.remote_prefills = 0
+        self.remote_prefill_fallbacks = 0
         self.local_prefills = 0
         self.chunk_prefills = 0
         # the prefix probe of the head the scheduler last asked about:
@@ -436,6 +451,18 @@ class PagedServingEngine(ServingEngine):
         if psp is not None and plan is not None:
             psp.set(chunk_start=plan[0], tail_bucket=plan[1],
                     cached_tokens=plan[0])
+        fb0 = self.remote_prefill_fallbacks
+        # a cold admission tries the prefill pool first; its block (the
+        # received pages in a pooled block) is this admission's to free
+        remote = (self._remote_prefill(req, bucket, key, trace=psp)
+                  if match is None else None)
+        if psp is not None:
+            psp.set(mode=(
+                "chunk" if match is not None
+                else "remote" if remote is not None
+                else "fallback" if self.remote_prefill_fallbacks > fb0
+                else "local"))
+        blk = None if remote is None else remote[1]
         asp = None
         try:
             if n_ref:
@@ -449,7 +476,11 @@ class PagedServingEngine(ServingEngine):
             row_pages = ref_pages + fresh
             self._tables[row, :] = 0
             self._tables[row, :n_init] = row_pages
-            if match is None:
+            if remote is not None:
+                # the prefill pool ran the bucket program; its pages adopt
+                # through the same adopt program as a local block's
+                t0 = remote[0]
+            elif match is None:
                 self.local_prefills += 1
                 t0, blk = self._prefill(req, key)
             else:
@@ -460,16 +491,15 @@ class PagedServingEngine(ServingEngine):
                 psp = None
                 asp = get_tracer().start_span("engine.adopt", handle.trace,
                                               bucket=bucket)
-            try:
-                # the fresh pages within the block land in the claim; the
-                # shared ones (indices < n_ref) and the block's pad pages
-                # go to the garbage page 0: a shared page is never written
-                ids = np.zeros((bucket // ps,), np.int64)
-                k1 = min(n_init, bucket // ps)
-                ids[n_ref:k1] = row_pages[n_ref:k1]
-                self._run_adopt(blk, ids)
-            finally:
-                self.pool.free(blk)
+            # the fresh pages within the block land in the claim; the
+            # shared ones (indices < n_ref) and the block's pad pages go to
+            # the garbage page 0: a shared page is never written
+            ids = np.zeros((bucket // ps,), np.int64)
+            k1 = min(n_init, bucket // ps)
+            ids[n_ref:k1] = row_pages[n_ref:k1]
+            self._run_adopt(blk, ids)
+            self.pool.free(blk)
+            blk = None
             if self.prefix_cache is not None:
                 # full prompt pages are final once written (decode writes
                 # start at prompt_len): later requests hit them at once
@@ -479,6 +509,10 @@ class PagedServingEngine(ServingEngine):
             for sp in (psp, asp):
                 if sp is not None:
                     sp.finish(error="admission_error")
+            if blk is not None:
+                # the failed admission's block (a received one, or one a
+                # prefill filled) goes back to the pool
+                self.pool.free(blk)
             if row is not None:
                 self._tables[row, :] = 0
                 self._free_rows.append(row)
@@ -495,6 +529,61 @@ class PagedServingEngine(ServingEngine):
         self._row_meta[row] = (tuple(int(t) for t in req.input_ids),
                                req.prompt_len)
         self._start_seq(handle, row, t0, key, now)
+
+    # ---------------------------------------------- remote prefill
+    def _remote_prefill(self, req, bucket, key, trace=None):
+        """Try the attached prefill pool (JAX ``paged_engine.py:754-
+        776``): ``(first token, block)``, the received pages copied into
+        the bucket's pooled block (live: the caller adopts and frees it),
+        or None when the transport is absent, cooling down or failing (the
+        caller prefills locally; a failure counts in
+        ``remote_prefill_fallbacks``). ``trace`` (the admission's prefill
+        span) parents the transport's wire span."""
+        tr = self.prefill_transport
+        if tr is None or not tr.available():
+            return None
+        from .fleet.kv_transfer import TransferError
+
+        try:
+            t0, flat = tr.prefill(
+                [int(t) for t in req.input_ids], req.prompt_len, bucket,
+                self.page_size, normalize_cache_dtype(self.cache_dtype),
+                float(self.temperature), key, trace=trace,
+            )
+            blk = self.pool.alloc(req.prompt_len)
+            try:
+                self._load_block(blk, flat)
+            except BaseException:
+                self.pool.free(blk)
+                raise
+        except TransferError:
+            self.remote_prefill_fallbacks += 1
+            return None
+        self.remote_prefills += 1
+        return t0, blk
+
+    def _load_block(self, blk, flat):
+        """Copy a received flat block (CPU tensors, per layer K then V)
+        into ``blk``'s caches on the current stream, through pinned
+        staging on a card: the adopt program reads the pooled block at its
+        address, so the bytes go into it, unchanged. A block of another
+        geometry is a :class:`TransferError`."""
+        from .fleet.kv_transfer import TransferError, _flat_leaves
+
+        dst = self._page_leaves(blk.caches)
+        src = _flat_leaves(flat)
+        if len(src) != len(dst) or any(
+                s.shape != d.shape or s.dtype != d.dtype
+                for s, d in zip(src, dst)):
+            raise TransferError(
+                f"received block does not match the bucket-{blk.bucket} "
+                f"block of this engine")
+        pin = self.device.type == "cuda"
+        with torch.inference_mode():
+            for s, d in zip(src, dst):
+                # a pinned copy is asynchronous; the host allocator keeps
+                # the staging buffer until the stream has read it
+                d.copy_(s.pin_memory() if pin else s, non_blocking=pin)
 
     # --------------------------------------------------- the warm path
     def _gather_body(self, blk):
@@ -825,4 +914,6 @@ class PagedServingEngine(ServingEngine):
         super().close()
         if self.prefix_cache is not None:
             self.prefix_cache.flush(reason="engine_closed")
+        if self.prefill_transport is not None:
+            self.prefill_transport.close()
         self._tables = None

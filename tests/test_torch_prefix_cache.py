@@ -43,6 +43,7 @@ from paddle_tpu_torch.serving import (  # noqa: E402
     PagedKVPool,
     PagedServingEngine,
     PrefixCache,
+    RemotePrefillClient,
 )
 from test_torch_kernels import _one_thread  # noqa: E402,F401  (autouse)
 
@@ -519,8 +520,12 @@ def test_warmup_captures_gather_and_chunk_inventory(nets):
     for a, b in zip(hg, he):
         np.testing.assert_array_equal(a.output_ids, b.output_ids)
     assert eng.compile_counts() == counts
-    with pytest.raises(NotImplementedError, match="queue A item 1.7"):
-        _warm(tnet, prefill_transport=object())
+    # remote prefill (queue A item 1.7) is ported: an engine holding a
+    # transport captures the same inventory (its local-fallback programs)
+    held = _warm(tnet, prefill_transport=RemotePrefillClient("127.0.0.1", 1))
+    held.warmup()
+    assert held.compile_counts() == counts
+    held.close()
     for e in (eng, eager):
         e.close()
         _drained(e)

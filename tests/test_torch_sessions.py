@@ -162,17 +162,31 @@ def test_parameter_lists_equal_jax(port, ref, extra):
             assert q.default == p.default, name
 
 
+class _IdleTransport:
+    """A prefill transport the engine holds and closes but never calls
+    here (no cold admission runs)."""
+
+    closed = False
+
+    def available(self):
+        return False
+
+    def close(self):
+        self.closed = True
+
+
 @pytest.mark.parametrize("kind,kw,item", [
     ("slab", dict(recompile_guard_max=4), "queue A item 1.6"),
     ("slab", dict(reload_template=object()), "queue A item 1.5"),
     ("paged", dict(recompile_guard_max=4), "queue A item 1.6"),
     ("paged", dict(reload_template=object()), "queue A item 1.5"),
-    ("paged", dict(prefill_transport=object()), "queue A item 1.7")])
+    ("paged", dict(prefill_transport=_IdleTransport()), "queue A item 1.7")])
 def test_refusals_name_their_items(net, kind, kw, item):
-    """Unported parameters raise naming their item. Live reload (item
-    1.5) is ported since: ``reload_template`` is taken, as the default
-    template of ``prepare_reload``; so is the trace guard (item 1.6):
-    ``recompile_guard_max`` sets its storm bar."""
+    """The parameters these items once refused are taken now. Live reload
+    (item 1.5): ``reload_template`` is the default template of
+    ``prepare_reload``; the trace guard (item 1.6): ``recompile_guard_max``
+    sets its storm bar; remote prefill (item 1.7): ``prefill_transport``
+    is held, and ``close()`` closes it."""
     if item == "queue A item 1.5":
         eng = _engine(kind, net, **kw)
         assert eng._reload_template is kw["reload_template"]
@@ -183,8 +197,12 @@ def test_refusals_name_their_items(net, kind, kw, item):
         assert eng.trace_guard.max_compiles == kw["recompile_guard_max"]
         eng.close()
         return
-    with pytest.raises(NotImplementedError, match=item):
-        _engine(kind, net, **kw)
+    transport = kw["prefill_transport"]
+    eng = _engine(kind, net, **kw)
+    assert eng.prefill_transport is transport and not transport.closed
+    assert (eng.remote_prefills, eng.remote_prefill_fallbacks) == (0, 0)
+    eng.close()
+    assert transport.closed
 
 
 def test_store_refusals_and_tier_needs_prefix_cache(net):
