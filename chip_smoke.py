@@ -343,6 +343,34 @@ engine, streams equal the quantized graph engine's, adopted codes and
 scales bit-equal. ``launches_by_phase`` gains ``fleet``, ``fleet_int8``
 and ``resilience``; the script's total seconds are printed.
 
+fp16, the eager optimizers and the NaN/Inf sweep add: to phase 3, the
+fp16 kernel cases (``fp16_kernel_cases``: RMSNorm and rope forward and
+backward, flash attention forward and backward at the training shapes,
+and ``mt_sumsq`` / ``mt_adam`` over the 75 tensors with fp16 parameters
+and gradients, each against its plain version in fp16 on the card; the
+fp16 flash forward at head dim 256 checked, its backward refused naming
+ROADMAP.md queue B; an inf gradient must set the skip flag and leave
+every parameter and moment bit-equal); after the optimizer sub-phase of
+phase 6: ``fp16 training`` (the training model, O1 fp16 with JAX's
+``GradScaler`` defaults, 10 steps: every loss finite after the scaler's
+first skips, step 1's loss within FP16_LOSS_RTOL of the bf16 O1 step 1,
+the structure's launch counts with rope and flash attention all on fp16
+tensors), ``eager optimizer <case>`` (each eager-only optimizer,
+``LookAhead`` and a ``ModelAverage`` for 3 eager O1 bf16 steps beside
+the multi-tensor AdamW: finite losses, one parameter's update on the
+card equal to a CPU copy's, the average applied and restored bit for
+bit; LBFGS on the 2-layer model: finite, lower), ``fp16 O2 (decorate)``
+(the README's eager O2 path, 3 steps: every RMSNorm, rope and flash
+launch fp16 and the fp16 multi-tensor launches the scaler's skips give),
+then ``naninf`` (``FLAGS_check_nan_inf`` on the 2-layer model: step p50
+with the flag off and on, nothing trips on finite weights; a NaN weight
+makes the eager forward and the compiled step name the same op, the
+flight recorder writes a ``naninf`` bundle, and with the flag off the
+step runs through). The kernels line gains the fp16 kernels
+(``<kernel>_fp16``, their launches the fp16 counters'), and
+``launches_by_phase`` gains ``fp16_training``, ``fp16_o2``,
+``eager_optimizers`` and ``naninf``.
+
 ``--profile-steps N`` profiles N replays of the spec phase's decode
 program (its verify) and draft decode, and N decode steps after each serving phase
 (the graph engine's, and the bf16 and quantized eager engines'), with
@@ -362,8 +390,11 @@ no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -378,7 +409,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # products on the tensor cores: every fp32 product is six bf16 products,
 # so its operations count at a sixth of the bf16 rate
 HBM_BYTES_PER_S = 3.35e12
-FLOP_PER_S = {"bfloat16": 989e12, "float32": 67e12,
+FLOP_PER_S = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12,
               "float32_split": 989e12 / 6}
 
 # teacher-forced check: a generated token that is not the argmax of the
@@ -425,7 +456,10 @@ NEAR_TIE = 0.125
 #   splits the rotated q and k and P into bf16 hi and lo parts: each bf16
 #   entry also gets what those split products may move it by
 #   (``fused_rope_attention.split_product_slack``).
-REL_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
+# - fp16 as bf16 with its own ulp: 2^-10 of the entry (11 significant
+#   bits); flash attention's slack also covers P or dS entries that fp16
+#   flushes below 2^-24 on one side and not the other.
+REL_TOL = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10, "float32": 1e-5}
 PAGED_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 SUM_TOL32 = 1e-4
 
@@ -493,7 +527,7 @@ def cast_once(name, got, want, tol32, dname, slack=None):
     entry by (the fused head's normed row)."""
     if dname == "float32":
         return name, got, want, tol32, None, slack
-    return name, got, want, 2.0 ** -7, tol32, slack
+    return name, got, want, REL_TOL[dname], tol32, slack
 
 
 def checks(torch, pairs):
@@ -703,13 +737,14 @@ def paged_cases(torch, mod, dev):
     return out
 
 
-def rms_norm_bwd_cases(torch, mod, dev):
+def rms_norm_bwd_cases(torch, mod, dev, dtypes=None):
     """[4096, 4096]: the 7B training batch's rows (2 x 2048) at hidden
-    4096, fp32 (the O1 residual stream the norms see) and bf16."""
+    4096, fp32 (the O1 residual stream the norms see) and bf16 (or
+    ``dtypes``)."""
     out = []
     g = torch.Generator(device=dev).manual_seed(7)
     rows, h = TRAIN_BATCH * TRAIN_SEQ, 4096
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes or (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
         x = torch.randn(rows, h, generator=g, device=dev).to(dtype)
         w = (1 + 0.1 * torch.randn(h, generator=g, device=dev)).to(dtype)
@@ -748,23 +783,26 @@ def rms_norm_bwd_cases(torch, mod, dev):
     return out
 
 
-def rope_bwd_cases(torch, mod, dev):
-    """The training shape: q and k gradients [2, 2048, 32, 128] bf16 with
-    the shared [1, 2048, 1, 64] table."""
+def rope_bwd_cases(torch, mod, dev, dtypes=None, inverse=True):
+    """The training shape: q and k gradients [2, 2048, 32, 128] bf16 (or
+    ``dtypes``) with the shared [1, 2048, 1, 64] table; with ``inverse``
+    False the forward rotation of q and k at that shape."""
     g = torch.Generator(device=dev).manual_seed(8)
     b, s, h, d = TRAIN_BATCH, TRAIN_SEQ, 32, 128
     cos, sin = mod.build_rope_cache(s, d, device=dev)
+    plain = mod.rope_backward_reference if inverse else mod.rope_reference
     out = []
-    for dtype in (torch.bfloat16,):
+    for dtype in dtypes or (torch.bfloat16,):
         dname = str(dtype).replace("torch.", "")
         gq = torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
         gk = torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
-        dq, dk = mod.rope_cuda(gq, gk, cos, sin, inverse=True)
-        rq = mod.rope_backward_reference(gq, cos, sin)
-        rk = mod.rope_backward_reference(gk, cos, sin)
+        dq, dk = mod.rope_cuda(gq, gk, cos, sin, inverse=inverse)
+        rq = plain(gq, cos, sin)
+        rk = plain(gk, cos, sin)
+        names = ("dq", "dk") if inverse else ("q", "k")
         cs, worst = checks(torch, [
-            cast_once("dq", dq, rq, REL_TOL["float32"], dname),
-            cast_once("dk", dk, rk, REL_TOL["float32"], dname)])
+            cast_once(names[0], dq, rq, REL_TOL["float32"], dname),
+            cast_once(names[1], dk, rk, REL_TOL["float32"], dname)])
         es = gq.element_size()
         b_ms, b_by = bound(4 * gq.numel() * es + 2 * s * (d // 2) * 4,
                            3 * 2 * gq.numel(), dname)
@@ -774,10 +812,9 @@ def rope_bwd_cases(torch, mod, dev):
             "tolerance": worst["tolerance"],
             "err_over_tol": worst["err_over_tol"],
             "ms": gpu_time_ms(torch, lambda: mod.rope_cuda(
-                gq, gk, cos, sin, inverse=True)),
+                gq, gk, cos, sin, inverse=inverse)),
             "plain_ms": gpu_time_ms(torch, lambda: (
-                mod.rope_backward_reference(gq, cos, sin),
-                mod.rope_backward_reference(gk, cos, sin))),
+                plain(gq, cos, sin), plain(gk, cos, sin))),
             "library_ms": None,
             "bound_ms": b_ms, "bound_by": b_by,
         })
@@ -1159,15 +1196,16 @@ def _flash_bound(mod, dtype, dname, d, backward, bytes_moved, flops):
     return out
 
 
-def flash_cases(torch, mod, dev):
-    """Both flash kernels at H 32 and the shapes above: returns (forward
-    cases, backward cases). bf16 entries also get the slack of rounding P
-    and dS at other points than the plain version (the tensor-core
-    kernels round the unnormalised P tile by tile)."""
+def flash_cases(torch, mod, dev, shapes=FLASH_SHAPES):
+    """Both flash kernels at H 32 and the shapes above (or ``shapes``):
+    returns (forward cases, backward cases). bf16 and fp16 entries also
+    get the slack of rounding P and dS at other points than the plain
+    version (the tensor-core kernels round the unnormalised P tile by
+    tile)."""
     fwd, bwd = [], []
     h = 32
     g = torch.Generator(device=dev).manual_seed(9)
-    for dname, causal, b, sq, sk, d in FLASH_SHAPES:
+    for dname, causal, b, sq, sk, d in shapes:
         dtype = getattr(torch, dname)
         design = mod.DESIGNS[mod.design(dtype, d)]
         bwd_design = mod.DESIGNS[mod.design(dtype, d, backward=True)]
@@ -1737,7 +1775,7 @@ def _bitwise(torch, name, got, want):
 
 def _bits_equal(torch, a, b):
     """Bit equality (NaNs included)."""
-    if a.dtype == torch.bfloat16:
+    if a.element_size() == 2:
         return torch.equal(a.view(torch.int16), b.view(torch.int16))
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
@@ -2095,6 +2133,186 @@ def multi_tensor_cases(torch, mod, dev):
     return {k: [main[k]] + checks[k] for k in MT_KERNELS}
 
 
+# ------------------------------------------------------------ fp16
+# the fp16 flash cases (the O1 and O2 fp16 steps attend in fp16): the
+# training shape, head dim 64, a ragged causal S 1000 and head dim 80
+# (padded to the 128-wide kernels); the backward takes head dims up to
+# 128 in fp16 (above: ROADMAP.md queue B, fp16 item 3)
+FP16_FLASH_SHAPES = (
+    ("float16", True, TRAIN_BATCH, 2048, 2048, 128),
+    ("float16", True, TRAIN_BATCH, 2048, 2048, 64),
+    ("float16", True, 1, 1000, 1000, 128),
+    ("float16", True, TRAIN_BATCH, 2048, 2048, 80),
+)
+
+
+def mt_fp16_cases(torch, mod, dev):
+    """``mt_sumsq`` and ``mt_adam`` over the training model's parameter
+    list with fp16 parameters and gradients and fp32 moments (the
+    ``decorate`` O2 step): the scaler's unscale and finite check with the
+    global-norm clip (``inv`` 2^-10), then AdamW with that prologue, held
+    against the plain versions (the sums within SUMSQ_RTOL and bit-equal
+    on a repeat, the update bit for bit) and timed beside their bounds
+    (fp16 p and g, fp32 m and v), the plain versions and
+    ``torch._foreach_norm`` / ``torch._fused_adamw_``; then one gradient
+    made inf (an overflow, the common case under fp16) must set the skip
+    flag and leave every parameter and moment bit-equal."""
+    gen = torch.Generator(device=dev).manual_seed(24)
+    shapes = train_param_shapes()
+    f16 = torch.float16
+    ps = [(torch.randn(s, generator=gen, device=dev) * 0.02).to(f16)
+          for s in shapes]
+    gs = [(torch.randn(s, generator=gen, device=dev) * 1e-3).to(f16)
+          for s in shapes]
+    ms = [torch.zeros(s, device=dev) for s in shapes]
+    vs = [torch.zeros(s, device=dev) for s in shapes]
+    n = sum(p.numel() for p in ps)
+    shape = {"tensors": len(ps), "elements": n,
+             "dtype": "float16 parameters and gradients, float32 moments",
+             "model": f"Llama-2-7B widths, {TRAIN_LAYERS} layers"}
+    inv = torch.full((), 2.0 ** -10, dtype=torch.float32, device=dev)
+    sk = dict(inv=inv, clip_norm=1.0, skip_nonfinite=True)
+    slow = dict(n=2, repeats=3)
+    out = {}
+
+    stats = mod.grad_sumsq_cuda(gs, **sk)
+    again = mod.grad_sumsq_cuda(gs, **sk)
+    ref = mod.grad_sumsq_reference(gs, **sk)
+    k = 4 + len(gs)
+    rel = float(((stats.buf[:k] - ref.buf[:k]).abs()
+                 / ref.buf[:k].abs().clamp(min=1e-30)).max())
+    checks = [{"output": "sums of squares, total, coefficient (relative)",
+               "max_abs_err": rel, "tolerance": SUMSQ_RTOL,
+               "err_over_tol": rel / SUMSQ_RTOL},
+              _bitwise(torch, "repeat", [stats.buf], [again.buf])]
+    if float(stats.skip) != 0.0:
+        fail("mt_sumsq fp16: the skip flag is set on finite gradients")
+    b_ms, b_by = bound(2 * n, 3 * n, "float32")
+    case = _mt_case("float16", shape, checks)
+    case.update(
+        ms=gpu_time_ms(torch, lambda: mod.grad_sumsq_cuda(gs, **sk)),
+        plain_ms=gpu_time_ms(torch, lambda: mod.grad_sumsq_reference(
+            gs, **sk), **slow),
+        library_ms=_library_ms(torch, lambda: torch._foreach_norm(gs)),
+        library="torch._foreach_norm", bound_ms=b_ms, bound_by=b_by)
+    out["mt_sumsq_fp16"] = [case]
+
+    pro = mod.Prologue(inv, mod.CLIP_GLOBAL, stats, skip=True)
+    kw = dict(lr=3e-4, beta1=0.9, beta2=0.999, eps=1e-8, t=1,
+              decoupled=True, weight_decay=0.01, prologue=pro)
+    a = [_clones(c) for c in (ps, ms, vs)]
+    mod.fused_adam_update_cuda(a[0], a[1], a[2], gs, **kw)
+    checks = _per_tensor(torch, mod.fused_adam_update_reference, a,
+                         (ps, ms, vs), gs, kw, "pmv")
+    del a
+    # p, g read (2 bytes), m, v read (4), p written (2), m, v written (4)
+    b_ms, b_by = bound(22 * n, 17 * n, "float32")
+    case = _mt_case("float16", shape, checks)
+    steps = [torch.zeros((), device=dev) for _ in ps]
+
+    def fused_adamw():
+        torch._fused_adamw_(ps, gs, ms, vs, [], steps, lr=3e-4, beta1=0.9,
+                            beta2=0.999, weight_decay=0.01, eps=1e-8,
+                            amsgrad=False, maximize=False)
+
+    case.update(
+        ms=gpu_time_ms(torch, lambda: mod.fused_adam_update_cuda(
+            ps, ms, vs, gs, **kw)),
+        plain_ms=gpu_time_ms(torch, lambda: mod.fused_adam_update_reference(
+            ps, ms, vs, gs, **kw), **slow),
+        library_ms=_library_ms(torch, fused_adamw),
+        library="torch._fused_adamw_ (fp16 parameters, fp32 moments)",
+        bound_ms=b_ms, bound_by=b_by)
+
+    # an overflowed fp16 gradient: found, and the update skipped
+    bad = _clones(gs)
+    bad[3].view(-1)[5] = float("inf")
+    bad_stats = mod.grad_sumsq_cuda(bad, **sk)
+    before = [_clones(c) for c in (ps, ms, vs)]
+    mod.fused_adam_update_cuda(
+        ps, ms, vs, bad, **dict(kw, prologue=mod.Prologue(
+            inv, mod.CLIP_GLOBAL, bad_stats, skip=True)))
+    kept = all(_bits_equal(torch, x, y) for c, b in zip((ps, ms, vs), before)
+               for x, y in zip(c, b))
+    if float(bad_stats.skip) != 1.0 or float(bad_stats.nonfinite) < 1 \
+            or not kept:
+        fail(f"mt_adam fp16: an inf gradient gave skip "
+             f"{float(bad_stats.skip)}, non-finite "
+             f"{float(bad_stats.nonfinite)}, state kept {kept}")
+    case["overflow_skipped"] = True
+    out["mt_adam_fp16"] = [case]
+    del ps, gs, ms, vs, bad, before
+    torch.cuda.empty_cache()
+    return out
+
+
+def fp16_kernel_cases(torch, kernels, dev):
+    """The fp16 kernels at the training shapes, each against its plain
+    version run in fp16 on the card (tolerances as bf16's with fp16's
+    ulp, ``REL_TOL``): RMSNorm forward and backward at [4096, 4096] (the
+    O2 residual stream), rope forward and backward at [2, 2048, 32, 128],
+    flash attention forward and backward (``FP16_FLASH_SHAPES``), and
+    ``mt_sumsq`` / ``mt_adam`` (:func:`mt_fp16_cases`). Also: the fp16
+    forward at head dim 256 runs and matches, and the fp16 backward there
+    raises a TypeError naming ROADMAP.md queue B."""
+    f16 = torch.float16
+    rms, rope, flash = (kernels.rms_norm, kernels.rope,
+                        kernels.flash_attention)
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(25)
+    rows, h = TRAIN_BATCH * TRAIN_SEQ, 4096
+    x = torch.randn(rows, h, generator=g, device=dev).to(f16)
+    w = (1 + 0.1 * torch.randn(h, generator=g, device=dev)).to(f16)
+    y = rms.rms_norm_cuda(x, w, 1e-5)
+    cs, worst = checks(torch, [cast_once(
+        "y", y, rms.rms_norm_reference(x, w, 1e-5), REL_TOL["float32"],
+        "float16")])
+    b_ms, b_by = bound(2 * rows * h * 2 + h * 2, 4 * rows * h, "float16")
+    out["rms_norm_fp16"] = [{
+        "shape": [rows, h], "dtype": "float16", "checks": cs,
+        "max_abs_err": worst["max_abs_err"], "tolerance": worst["tolerance"],
+        "err_over_tol": worst["err_over_tol"],
+        "ms": gpu_time_ms(torch, lambda: rms.rms_norm_cuda(x, w, 1e-5)),
+        "plain_ms": gpu_time_ms(torch, lambda: rms.rms_norm_reference(
+            x, w, 1e-5)),
+        "library_ms": gpu_time_ms(torch, lambda: torch.nn.functional.rms_norm(
+            x, (h,), w, 1e-5)),
+        "library_call": "F.rms_norm", "bound_ms": b_ms, "bound_by": b_by}]
+    del x, w, y
+    out["rms_norm_bwd_fp16"] = rms_norm_bwd_cases(torch, rms, dev, (f16,))
+    out["rope_fp16"] = rope_bwd_cases(torch, rope, dev, (f16,),
+                                      inverse=False)
+    out["rope_bwd_fp16"] = rope_bwd_cases(torch, rope, dev, (f16,))
+    fwd, bwd = flash_cases(torch, flash, dev, FP16_FLASH_SHAPES)
+    out["flash_attention_fwd_fp16"], out["flash_attention_bwd_fp16"] = \
+        fwd, bwd
+    # head dim 256: the forward on the 256-wide fp16 kernel, the backward
+    # refused
+    q, k, v = (torch.randn(1, 512, 8, 256, generator=g, device=dev).to(f16)
+               for _ in range(3))
+    o, lse = flash.flash_attention_cuda(q, k, v, True)
+    ro, _ = flash.flash_attention_reference(q, k, v, True)
+    cs, worst = checks(torch, [cast_once(
+        "o", o, ro, REL_TOL["float32"], "float16",
+        flash.probability_rounding_slack(q, k, v, lse, causal=True))])
+    if worst["err_over_tol"] > 1.0:
+        fail(f"flash forward fp16 D 256: {worst}")
+    try:
+        flash.flash_attention_backward_cuda(q, k, v, o, lse, o, True)
+    except TypeError as e:
+        if "queue B" not in str(e):
+            fail(f"flash backward fp16 D 256 raised without its ROADMAP "
+                 f"line: {e}")
+    else:
+        fail("flash backward fp16 D 256 ran: it has no fp16 kernel")
+    log("kernel flash_attention fp16 D 256: " + json.dumps(
+        {"forward": worst, "backward": "TypeError naming queue B"}))
+    del q, k, v, o, lse, ro
+    out.update(mt_fp16_cases(torch, kernels.fused_adam, dev))
+    torch.cuda.empty_cache()
+    return out
+
+
 KERNELS = [
     # name, source, replaces (file:line of the TPU kernel)
     ("rms_norm", "paddle_tpu_torch/csrc/rms_norm.cu",
@@ -2145,6 +2363,13 @@ KERNELS = [
      "paddle_tpu/optimizer/optimizer.py:60 (_lamb_update; plain jax, no "
      "pl.pallas_call)"),
 ]
+# the fp16 kernels in the kernels line: the same kernels at fp16 (cases:
+# fp16_kernel_cases; launches: the fp16 phases' fp16 counters)
+FP16_LINE = [(f"{name}_fp16", src, replaces) for name, src, replaces in
+             KERNELS if name in ("rms_norm", "rms_norm_bwd", "rope",
+                                 "rope_bwd", "flash_attention_fwd",
+                                 "flash_attention_bwd", "mt_sumsq",
+                                 "mt_adam")]
 # launches per training step, from the model's structure: two RMSNorms
 # per layer and the final one; one rope launch (q and k) per layer; one
 # flash attention per layer; forward and backward each; and from the
@@ -3120,10 +3345,25 @@ def training_phase(torch, np, dev, card, profile_train_steps=0):
     gc.collect()
     torch.cuda.empty_cache()
     opt_counts = optimizer_phase(torch, np, net, inputs, labels, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp16_counts = fp16_training(torch, np, net, inputs, labels, losses[0],
+                                card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    eager_counts = eager_optimizer_phase(torch, np, net, inputs, labels,
+                                         card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # last: decorate leaves the net in fp16
+    o2_counts = fp16_o2(torch, np, net, inputs, labels, card)
     del net
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, fused_counts, fp32_counts, fused_fp32_counts, opt_counts
+    naninf_counts = naninf_phase(torch, np, dev, card)
+    return (counts, fused_counts, fp32_counts, fused_fp32_counts, opt_counts,
+            {"fp16_training": fp16_counts, "fp16_o2": o2_counts,
+             "eager_optimizers": eager_counts, "naninf": naninf_counts})
 
 
 def fp32_training(torch, np, net, inputs, labels, card,
@@ -3467,6 +3707,544 @@ def optimizer_phase(torch, np, net, inputs, labels, card):
         gc.collect()
         torch.cuda.empty_cache()
     return total
+
+
+# ------------------------------------------- fp16, eager optimizers, naninf
+FP16_TRAIN_STEPS = 10
+# the fp16 O1 step-1 loss against the bf16 O1 one (same seed, batch and
+# schedule), relative: both round the projections' inputs and outputs,
+# rope's and attention's to their low type (fp16 keeps 3 more bits) and
+# keep the residual stream, norms and loss in fp32; the differences are
+# round-to-nearest errors of at most 2^-9 per logit that average out over
+# 4096 tokens (the bound FUSED_LOSS_RTOL takes for rounding at other
+# places)
+FP16_LOSS_RTOL = 1e-3
+# the launches over fp16 tensors a fp16 O1 step makes: rope and flash
+# attention (q and k come out of the fp16 projections); the residual
+# stream, the norms and the optimizer stay fp32
+FP16_O1_PER_STEP = {
+    "rms_norm_fp16": 0, "rms_norm_bwd_fp16": 0,
+    "rope_fp16": TRAIN_LAYERS, "rope_bwd_fp16": TRAIN_LAYERS,
+    "flash_attention_fwd_fp16": TRAIN_LAYERS,
+    "flash_attention_bwd_fp16": TRAIN_LAYERS,
+    "mt_sumsq_fp16": 0, "mt_adam_fp16": 0}
+O2_STEPS = 3
+EAGER_OPT_STEPS = 3
+# the eager optimizers' single-parameter check: the card's update of one
+# parameter (layer 0's input norm weight, fp32) against the same update
+# of a CPU copy (its gradient and state copied before the step): within
+# 1e-6 of the parameter's largest |p| (fp32 elementwise math in the same
+# order; the CPU's sqrt and division round as the card's, and a libm
+# difference moves an entry by an ulp)
+EAGER_OPT_ATOL = 1e-6
+EAGER_OPT_PARAM = "model.layers.0.input_layernorm.weight"
+# name -> (learning rate, builder(o, named, lr)): the nine eager-only
+# optimizers at their reference defaults but the rate, no clip (the
+# single-parameter check needs an update that depends on that parameter
+# alone)
+EAGER_OPT_CASES = {
+    "adagrad": (1e-2, lambda o, named, lr: o.Adagrad(lr, parameters=named)),
+    "rmsprop": (1e-3, lambda o, named, lr: o.RMSProp(
+        lr, parameters=named, momentum=0.9, centered=True)),
+    "adadelta": (1.0, lambda o, named, lr: o.Adadelta(lr, parameters=named)),
+    "adamax": (2e-3, lambda o, named, lr: o.Adamax(lr, parameters=named)),
+    "nadam": (2e-3, lambda o, named, lr: o.NAdam(lr, parameters=named)),
+    "radam": (1e-3, lambda o, named, lr: o.RAdam(lr, parameters=named)),
+    "asgd": (1e-2, lambda o, named, lr: o.ASGD(lr, t0=1, parameters=named)),
+    "rprop": (1e-3, lambda o, named, lr: o.Rprop(lr, parameters=named)),
+    "adamw_multi_tensor": (3e-4, lambda o, named, lr: o.AdamW(
+        lr, parameters=named, use_multi_tensor=True)),
+}
+# LBFGS on Llama-2-7B widths at 2 layers (666.9M fp32 parameters): a
+# history of LBFGS_HISTORY (s, y) pairs of flat fp32 vectors
+LBFGS_LAYERS, LBFGS_HISTORY, LBFGS_STEPS = 2, 4, 2
+NANINF_LAYERS = 2
+NANINF_STEPS = 4
+NANINF_DIR = os.path.join(HERE, "build", "chip_smoke_naninf")
+
+
+def _all_counts(kernels):
+    """Every launch counter: the totals and the fp16 ones."""
+    return {**kernels.launch_counts(), **kernels.fp16_launch_counts()}
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _timed_ms(torch, dev, fn):
+    """``fn()`` and its time in ms: CUDA events on a card (synchronized
+    before and after), the host clock on the CPU (a CPU rehearsal's)."""
+    _sync(torch, dev)
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1)
+
+
+def _free(torch, dev):
+    """Return a phase's dead tensors to the card between its cases (a
+    full collection: reference cycles hold the optimizers' state); on a
+    CPU rehearsal there is nothing to return."""
+    if dev.type == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _peak_reset(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak(torch, dev):
+    return torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+
+
+def fp16_training(torch, np, net, inputs, labels, bf16_loss0, card):
+    """The fp16 path, entry (a): the training model reset to its seed,
+    ``CompiledTrainStep(..., AdamW, amp_level="O1", amp_dtype="float16",
+    scaler=GradScaler())`` (JAX's scaler defaults: scale 2^15, x2 after
+    1000 good steps, x0.5 after 2 bad ones), FP16_TRAIN_STEPS steps with
+    the clip and schedule of the bf16 step. Every loss finite after the
+    scaler's first skips; step 1's loss within FP16_LOSS_RTOL of the bf16
+    O1 step 1's; every kernel launched as the bf16 O1 step launches, and
+    rope and flash attention (both ways) all on fp16 tensors
+    (FP16_O1_PER_STEP). Returns the launch counts."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.models import causal_lm_loss
+    from paddle_tpu_torch.optimizer import (AdamW, ClipGradByGlobalNorm,
+                                            LinearWarmup)
+
+    net.reset_parameters(0)
+    sched = LinearWarmup(3e-4, 3, 3e-5, 3e-4)
+    opt = AdamW(sched, parameters=net.named_parameters(), weight_decay=0.01,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    scaler = GradScaler()
+    step = CompiledTrainStep(
+        net, lambda lo, lb: causal_lm_loss(lo, lb).mean(), opt,
+        amp_level="O1", amp_dtype="float16", scaler=scaler)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, times, states = [], [], []
+    for _ in range(FP16_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss, _ = step([inputs], [labels])
+        sched.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        states.append(_scaler_state(scaler, opt))
+    counts = _all_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    skipped = [s[3] for s in states]
+    first_good = skipped.index(False) if False in skipped else len(skipped)
+    rel = abs(losses[0] - bf16_loss0) / abs(bf16_loss0)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    p50 = statistics.median(times)
+    res = {
+        "card": card, "amp_level": "O1", "amp_dtype": "float16",
+        "scaler": "GradScaler() (JAX defaults)", "steps": FP16_TRAIN_STEPS,
+        "losses": losses, "step_s": times, "step_p50_s": p50,
+        "tokens_per_s": tokens / p50, "peak_mem_bytes": peak,
+        "scaler_states": [{"scale": s[0], "good": s[1], "bad": s[2],
+                           "found_inf": s[3], "step_count": s[4]}
+                          for s in states],
+        "loss0_vs_bf16_o1": {"fp16": losses[0], "bf16": bf16_loss0,
+                             "rel": rel, "rtol": FP16_LOSS_RTOL},
+        "launches_per_step": {k: n / FP16_TRAIN_STEPS
+                              for k, n in counts.items()},
+    }
+    log("fp16 training: " + json.dumps(res))
+    if first_good == len(skipped) or not all(
+            np.isfinite(losses[first_good:])):
+        fail(f"fp16 training: non-finite loss after the scaler's first "
+             f"skips ({first_good}): {losses}")
+    if not rel <= FP16_LOSS_RTOL:
+        fail(f"fp16 training: step 1's loss {losses[0]} is {rel} from the "
+             f"bf16 O1 step's {bf16_loss0} (relative; {FP16_LOSS_RTOL})")
+    want = {k: n * FP16_TRAIN_STEPS for k, n in TRAIN_PER_STEP.items()}
+    want.update({k: n * FP16_TRAIN_STEPS
+                 for k, n in FP16_O1_PER_STEP.items()})
+    if counts != want:
+        fail(f"fp16 training: launches {counts}, expected {want}")
+    _flash_on_tensor_cores(kernels, want, "fp16 training")
+    del step, opt, sched, scaler, loss
+    return counts
+
+
+def fp16_o2(torch, np, net, inputs, labels, card):
+    """The fp16 path, entry (b), the eager O2 step as the README starts
+    it: the training model reset to its seed, ``net, opt =
+    amp.decorate(net, AdamW(... ClipGradByGlobalNorm(1.0)), level="O2",
+    dtype="float16")`` (fp16 parameters; AdamW's moments fp32), then
+    O2_STEPS eager steps: the loss of the fp16 net's logits cast to fp32
+    (as the CPU test runs JAX's: its eager tape cannot differentiate
+    through the O2 ``auto_cast``), ``scaler.scale(loss).backward()``,
+    ``scaler.step(opt)``, ``scaler.update()``. The residual stream is
+    fp16, so every RMSNorm, rope and flash launch is fp16, and so are the
+    scaler's unscale check (``mt_sumsq``), the clip's and the eager
+    update's (``mt_adam``, a call a parameter) when the scaler does not
+    skip. Leaves the net in fp16. Returns the launch counts."""
+    from paddle_tpu_torch import amp, kernels
+    from paddle_tpu_torch.models import causal_lm_loss
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+
+    net.reset_parameters(0)
+    opt = AdamW(3e-4, parameters=net.named_parameters(), weight_decay=0.01,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    net, opt = amp.decorate(net, opt, level="O2", dtype="float16")
+    if {p.dtype for p in net.parameters()} != {torch.float16}:
+        fail("fp16 O2: decorate left a parameter in another dtype")
+    scaler = amp.GradScaler()
+    n = net.num_params()
+    reckoned = {"params_fp16": 2 * n, "grads_fp16": 2 * n,
+                "adam_moments_fp32": 8 * n, "total": 12 * n}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, times, states = [], [], []
+    for _ in range(O2_STEPS):
+        t0 = time.perf_counter()
+        loss = causal_lm_loss(net(inputs).float(), labels).mean()
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss.detach()))
+        states.append(_scaler_state(scaler, opt))
+    counts = _all_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    skips = sum(st[3] for st in states)
+    res = {
+        "card": card, "amp_level": "O2 (decorate)", "amp_dtype": "float16",
+        "steps": O2_STEPS, "losses": losses, "step_s": times,
+        "step_p50_s": statistics.median(times), "peak_mem_bytes": peak,
+        "reckoned_state_bytes": reckoned,
+        "scaler_states": [{"scale": s[0], "good": s[1], "bad": s[2],
+                           "found_inf": s[3], "step_count": s[4]}
+                          for s in states],
+        "launches": counts,
+    }
+    log("fp16 O2 (decorate): " + json.dumps(res))
+    if not all(np.isfinite(losses)):
+        fail(f"fp16 O2: non-finite loss in {losses}")
+    if skips == O2_STEPS:
+        fail("fp16 O2: the scaler skipped every step")
+    layers = net.config.num_hidden_layers
+    tensors = len(list(net.parameters()))
+    good = O2_STEPS - skips
+    per = {"rms_norm_fp16": 2 * layers + 1,
+           "rms_norm_bwd_fp16": 2 * layers + 1,
+           "rope_fp16": layers, "rope_bwd_fp16": layers,
+           "flash_attention_fwd_fp16": layers,
+           "flash_attention_bwd_fp16": layers}
+    want = {k: v * O2_STEPS for k, v in per.items()}
+    # the unscale check every step; the clip's sum and one eager update
+    # call a parameter on the steps the scaler does not skip
+    want["mt_sumsq_fp16"] = (O2_STEPS + good) * mt_launches("mt_sumsq",
+                                                            tensors)
+    want["mt_adam_fp16"] = good * tensors * mt_launches("mt_adam", 1)
+    got = {k: counts[k] for k in want}
+    if got != want:
+        fail(f"fp16 O2: fp16 launches {got}, expected {want}")
+    del opt, scaler, loss
+    return counts
+
+
+def _replica_update(torch, opt, p, name, rate, build):
+    """The update ``opt.step()`` is about to make to ``p``, made by a new
+    optimizer of the same kind on a CPU copy of ``p`` with its gradient,
+    its state and the step count copied: the CPU parameter after it."""
+    from paddle_tpu_torch import optimizer as o
+
+    cpu = p.detach().cpu().clone().requires_grad_(True)
+    twin = build(o, [(name, cpu)], rate)
+    for (pname, acc), v in opt._accumulators.items():
+        if pname == name:
+            twin._accumulators[(pname, acc)] = v.detach().cpu().clone()
+    twin._step_count = opt._step_count
+    if hasattr(opt, "_t"):
+        twin._t = opt._t
+    cpu.grad = p.grad.detach().cpu().clone()
+    twin.step()
+    return cpu.detach()
+
+
+def eager_optimizer_phase(torch, np, net, inputs, labels, card,
+                          lbfgs_cfg=None):
+    """The eager optimizers on the training model reset to its seed, AMP O1
+    bf16 eager steps (the loss under ``auto_cast``, ``backward()``,
+    ``opt.step()``): each of EAGER_OPT_CASES, ``LookAhead(AdamW, k=2)`` and
+    AdamW with a ``ModelAverage`` for EAGER_OPT_STEPS steps; the update's
+    time (CUDA events around ``step()``) beside AdamW with
+    ``use_multi_tensor=True`` (one ``mt_adam`` call a step). Every loss
+    finite; for the nine, the last update of EAGER_OPT_PARAM equal to the
+    same update of a CPU copy within EAGER_OPT_ATOL of its largest |p|;
+    the model average applied and restored bit for bit. Then LBFGS on a
+    2-layer model (:func:`lbfgs_leg`; ``lbfgs_cfg``: another config). On
+    the CPU (a rehearsal at a tiny size) the same with host times and no
+    launch gate. Returns the launch counts."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch import optimizer as o
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.incubate.optimizer import LookAhead, ModelAverage
+    from paddle_tpu_torch.models import causal_lm_loss
+
+    total = dict.fromkeys(_all_counts(kernels), 0)
+    dev = inputs.device
+
+    def run(label, opt, after_step=None, params=None, rate=None, build=None):
+        named = dict(net.named_parameters())
+        losses, upd = [], []
+        err = None
+        for i in range(EAGER_OPT_STEPS):
+            with auto_cast(level="O1", dtype="bfloat16"):
+                loss = causal_lm_loss(net(inputs), labels).mean()
+            loss.backward()
+            losses.append(float(loss.detach()))
+            want = None
+            if build is not None and i == EAGER_OPT_STEPS - 1:
+                want = _replica_update(torch, opt, named[EAGER_OPT_PARAM],
+                                       EAGER_OPT_PARAM, rate, build)
+            upd.append(_timed_ms(torch, dev, opt.step))
+            if after_step is not None:
+                after_step()
+            opt.clear_grad()
+            if want is not None:
+                got = named[EAGER_OPT_PARAM].detach().cpu()
+                err = float((got - want).abs().max()) / max(
+                    float(want.abs().max()), 1e-30)
+        if not all(np.isfinite(losses)):
+            fail(f"eager optimizer {label}: non-finite loss in {losses}")
+        if err is not None and not err <= EAGER_OPT_ATOL:
+            fail(f"eager optimizer {label}: the card's update of "
+                 f"{EAGER_OPT_PARAM} is {err} (of its largest |p|) from "
+                 f"the CPU copy's; tolerance {EAGER_OPT_ATOL}")
+        return {"losses": losses, "update_ms": upd,
+                "update_ms_p50": statistics.median(upd),
+                "card_vs_cpu_update": None if err is None else {
+                    "param": EAGER_OPT_PARAM, "max_abs_err_over_max_p": err,
+                    "tolerance": EAGER_OPT_ATOL}}
+
+    results = {}
+    kernels.reset_launch_counts()
+    for case, (rate, build) in EAGER_OPT_CASES.items():
+        net.reset_parameters(0)
+        opt = build(o, list(net.named_parameters()), rate)
+        results[case] = run(case, opt, rate=rate,
+                            build=None if case == "adamw_multi_tensor"
+                            else build)
+        results[case]["optimizer"] = type(opt).__name__
+        del opt
+        _free(torch, dev)
+    # LookAhead over AdamW (k 2: the slow weights move at step 2)
+    net.reset_parameters(0)
+    la = LookAhead(o.AdamW(3e-4, parameters=list(net.named_parameters())),
+                   alpha=0.5, k=2)
+    results["lookahead_adamw"] = run("lookahead_adamw", la)
+    if la._step_count != EAGER_OPT_STEPS or len(la._slow) != len(
+            list(net.parameters())):
+        fail("eager optimizer lookahead_adamw: its slow weights or step "
+             "count are wrong")
+    del la
+    _free(torch, dev)
+    # a ModelAverage of AdamW's steps, applied and restored
+    net.reset_parameters(0)
+    opt = o.AdamW(3e-4, parameters=list(net.named_parameters()))
+    avg = ModelAverage(parameters=list(net.named_parameters()))
+    results["model_average"] = run("model_average", opt,
+                                   after_step=avg.step)
+    before = [p.detach().clone() for p in net.parameters()]
+    with avg.apply():
+        mean0 = float(avg._sums[0].float().mean()) / avg._count
+        got0 = float(next(net.parameters()).detach().float().mean())
+    same = all(_bits_equal(torch, a, p)
+               for a, p in zip(before, net.parameters()))
+    if not same or abs(got0 - mean0) > 1e-6 * max(abs(mean0), 1e-3):
+        fail(f"eager optimizer model_average: apply gave a mean {got0} "
+             f"against {mean0}, restore bit-equal {same}")
+    results["model_average"]["apply_restore_bitwise"] = same
+    del opt, avg, before
+    _free(torch, dev)
+    counts = _all_counts(kernels)
+    results["lbfgs"], lb_counts = lbfgs_leg(torch, np, inputs, labels,
+                                            lbfgs_cfg)
+    for k in total:
+        total[k] = counts[k] + lb_counts[k]
+    mt_ms = results["adamw_multi_tensor"]["update_ms_p50"]
+    for case, r in results.items():
+        r["update_ms_over_mt_adam_step"] = r["update_ms_p50"] / mt_ms
+        log(f"eager optimizer {case}: " + json.dumps(dict(r, card=card)))
+    if dev.type == "cuda" and not total["mt_adam"]:
+        fail("eager optimizers: the multi-tensor AdamW never launched "
+             "mt_adam")
+    return total
+
+
+def lbfgs_leg(torch, np, inputs, labels, cfg=None):
+    """LBFGS on Llama-2-7B widths at LBFGS_LAYERS layers (fp32 weights
+    from seed 0), O1 bf16 closures, ``line_search_fn="strong_wolfe"``
+    (Armijo backtracking), history LBFGS_HISTORY: LBFGS_STEPS steps of at
+    most 3 iterations and 8 evaluations each; every loss finite and the
+    first one below the first. Returns its numbers and the launch
+    counts."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         causal_lm_loss)
+    from paddle_tpu_torch.optimizer import LBFGS
+
+    cfg = cfg or LlamaConfig.llama2_7b(num_hidden_layers=LBFGS_LAYERS)
+    dev = inputs.device
+    net = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=0)
+    n = net.num_params()
+    opt = LBFGS(1.0, max_iter=3, max_eval=8, history_size=LBFGS_HISTORY,
+                line_search_fn="strong_wolfe",
+                parameters=list(net.named_parameters()))
+    evals = []
+
+    def closure():
+        with auto_cast(level="O1", dtype="bfloat16"):
+            loss = causal_lm_loss(net(inputs), labels).mean()
+        loss.backward()
+        evals.append(float(loss.detach()))
+        return loss
+
+    _peak_reset(torch, dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [float(opt.step(closure).detach())
+              for _ in range(LBFGS_STEPS)]
+    _sync(torch, dev)
+    dt = time.perf_counter() - t0
+    counts = _all_counts(kernels)
+    res = {"model": f"hidden {cfg.hidden_size}, "
+                    f"{cfg.num_hidden_layers} layers, fp32",
+           "params": n, "history_size": LBFGS_HISTORY,
+           "reckoned_history_bytes": 2 * LBFGS_HISTORY * 4 * n,
+           "losses": losses, "evaluations": evals, "seconds": dt,
+           "update_ms": [dt * 1e3 / LBFGS_STEPS],
+           "update_ms_p50": dt * 1e3 / LBFGS_STEPS,
+           "peak_mem_bytes": _peak(torch, dev), "optimizer": "LBFGS"}
+    if not all(np.isfinite(evals)) or not min(evals[1:]) < evals[0]:
+        fail(f"eager optimizer lbfgs: losses {evals} (finite, one below "
+             f"the first)")
+    del net, opt
+    _free(torch, dev)
+    return res, counts
+
+
+def naninf_phase(torch, np, dev, card, cfg=None, batch=TRAIN_BATCH,
+                 seq=TRAIN_SEQ, dump_dir=NANINF_DIR):
+    """``FLAGS_check_nan_inf`` on Llama-2-7B widths at NANINF_LAYERS
+    layers (fp32 weights, O1 bf16 ``CompiledTrainStep`` with AdamW), a
+    flight recorder installed: NANINF_STEPS steps with the flag off and
+    then on (step p50 of each; nothing trips on finite weights); a NaN
+    planted in layer 0's ``q_proj`` weight: the eager forward with the
+    flag on raises naming the first op that reads it, the compiled step
+    raises at its end naming the same op, the recorder's bundle is
+    written with a ``naninf`` reason; with the flag off the step runs
+    through the NaN. ``cfg``, ``batch``, ``seq``: a tiny CPU rehearsal's.
+    Returns the launch counts."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         causal_lm_loss)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.utils import set_flags
+
+    cfg = cfg or LlamaConfig.llama2_7b(num_hidden_layers=NANINF_LAYERS)
+    net = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=0)
+    ids = np.random.RandomState(1).randint(0, cfg.vocab_size,
+                                           (batch, seq + 1))
+    ids = torch.as_tensor(ids, dtype=torch.long, device=dev)
+    inputs, labels = ids[:, :-1].contiguous(), ids[:, 1:].contiguous()
+    opt = AdamW(3e-4, parameters=list(net.named_parameters()))
+    step = CompiledTrainStep(net, lambda lo, lb: causal_lm_loss(
+        lo, lb).mean(), opt, amp_level="O1", amp_dtype="bfloat16")
+    shutil.rmtree(dump_dir, ignore_errors=True)
+    rec = obs.FlightRecorder(capacity=4, dump_dir=dump_dir,
+                             registry=obs.MetricsRegistry())
+    prev = obs.set_flight_recorder(rec)
+    rec.install(excepthook=False)
+    kernels.reset_launch_counts()
+    res = {"card": card, "model": f"hidden {cfg.hidden_size}, "
+           f"{cfg.num_hidden_layers} layers, fp32, O1 bf16",
+           "steps": NANINF_STEPS}
+    try:
+        for flag in (False, True):
+            set_flags({"FLAGS_check_nan_inf": flag})
+            times = []
+            for _ in range(NANINF_STEPS):
+                t0 = time.perf_counter()
+                loss, _ = step([inputs], [labels])
+                _sync(torch, dev)
+                times.append(time.perf_counter() - t0)
+            res[f"step_p50_s_flag_{'on' if flag else 'off'}"] = \
+                statistics.median(times[1:])
+            if not np.isfinite(float(loss)):
+                fail(f"naninf: a non-finite loss on finite weights (flag "
+                     f"{flag})")
+        with torch.no_grad():
+            net.model.layers[0].self_attn.q_proj.weight[0, 0] = float("nan")
+        names = []
+        try:
+            with auto_cast(level="O1", dtype="bfloat16"):
+                net(inputs)
+        except RuntimeError as e:
+            names.append(str(e))
+        try:
+            step([inputs], [labels])
+        except RuntimeError as e:
+            names.append(str(e))
+        set_flags({"FLAGS_check_nan_inf": False})
+        loss, _ = step([inputs], [labels])
+        off_loss = float(loss)
+    finally:
+        set_flags({"FLAGS_check_nan_inf": False})
+        rec.uninstall()
+        obs.set_flight_recorder(prev)
+    ops = [re.search(r"operator \[([^\]]*)\]", m) for m in names]
+    ops = [m.group(1) if m else None for m in ops]
+    bundle = None
+    if rec.last_dump_path:
+        with open(rec.last_dump_path) as f:
+            bundle = json.load(f)
+    res.update({"eager_error": names[0] if names else None,
+                "compiled_error": names[1] if len(names) > 1 else None,
+                "ops": ops, "flag_off_loss_with_nan": off_loss,
+                "bundle": rec.last_dump_path,
+                "bundle_reason": bundle and bundle.get("reason")})
+    log("naninf: " + json.dumps(res))
+    if len(ops) != 2 or ops[0] is None or ops[0] != ops[1]:
+        fail(f"naninf: the eager forward and the compiled step named "
+             f"{ops}, not one op each, the same")
+    if bundle is None or not str(bundle.get("reason")).startswith("naninf"):
+        fail(f"naninf: no flight-recorder bundle with a naninf reason "
+             f"({rec.last_dump_path})")
+    if np.isfinite(off_loss):
+        fail("naninf: the flag-off step with a NaN weight gave a finite "
+             "loss")
+    counts = _all_counts(kernels)
+    del step, opt, net
+    _free(torch, dev)
+    return counts
 
 
 # --------------------------------------------------- checkpoints, publish
@@ -6946,8 +7724,10 @@ def main():
              rope_attention_cases),
             ("rope_attention_bwd", "fused_rope_attention",
              rope_attention_bwd_cases),
-            ("multi_tensor", "fused_adam", multi_tensor_cases)):
-        cases = cases_fn(torch, getattr(kernels, modname), dev)
+            ("multi_tensor", "fused_adam", multi_tensor_cases),
+            ("fp16", None, fp16_kernel_cases)):
+        cases = cases_fn(torch, getattr(kernels, modname) if modname
+                         else kernels, dev)
         torch.cuda.synchronize()
         named = (dict(zip(("flash_attention_fwd", "flash_attention_bwd"),
                           cases)) if name == "flash_attention"
@@ -6988,7 +7768,7 @@ def main():
     fused_parity(torch, np, dev)
     tiny_train_parity(torch, np, dev)
     (train_counts, fused_train_counts, fp32_train_counts,
-     fused_fp32_train_counts, opt_counts) = training_phase(
+     fused_fp32_train_counts, opt_counts, new_counts) = training_phase(
         torch, np, dev, card, args.profile_train_steps)
     checkpoint_counts = checkpoint_phase(torch, np, dev, card)
     resilience_counts = resilience_phase(torch, np, dev, card)
@@ -7007,7 +7787,7 @@ def main():
         fail(f"the port imported {leaked[:5]}")
 
     line = []
-    for name, src, replaces in KERNELS:
+    for name, src, replaces in KERNELS + FP16_LINE:
         # the first case is the main path's shape: bf16 at the decode
         # shape for the serving kernels (the W8A16 matmul: q/k/v/o's
         # [8, 4096] x [4096, 4096]; the fused head: [8, 4096] x [4096,
@@ -7016,29 +7796,28 @@ def main():
         main_case = results[name][0]
         # the serving phases: their first run through the programs (CUDA
         # graphs, the default) and their first eager run
-        by_phase = {"serving": serve_counts[name],
-                    "serving_eager": serve_eager_counts[name],
-                    "training": train_counts[name],
-                    "quantized_serving": quant_counts[name],
-                    "quantized_serving_eager": quant_eager_counts[name],
-                    "fused_serving": fused_serve_counts[name],
-                    "fused_serving_eager": fused_serve_eager_counts[name],
-                    "prefix_serving": prefix_counts[name],
-                    "prefix_serving_eager": prefix_eager_counts[name],
-                    "session_serving": session_counts.get(name, 0),
-                    "spec_parity": spec_parity_counts[name],
-                    "spec_serving": spec_counts.get(name, 0),
-                    "beam": beam_counts[name],
-                    "checkpoint": checkpoint_counts.get(name, 0),
-                    "full_reload": reload_counts.get(name, 0),
-                    "frontend": frontend_counts.get(name, 0),
-                    "fleet": fleet_counts.get(name, 0),
-                    "fleet_int8": fleet_int8_counts.get(name, 0),
-                    "resilience": resilience_counts.get(name, 0),
-                    "fused_training": fused_train_counts[name],
-                    "fp32_training": fp32_train_counts[name],
-                    "fused_fp32_training": fused_fp32_train_counts[name],
-                    "optimizers": opt_counts[name]}
+        # (the fp16 kernels' counts are only in the new phases' dicts)
+        by_phase = {"serving": serve_counts, "serving_eager":
+                    serve_eager_counts, "training": train_counts,
+                    "quantized_serving": quant_counts,
+                    "quantized_serving_eager": quant_eager_counts,
+                    "fused_serving": fused_serve_counts,
+                    "fused_serving_eager": fused_serve_eager_counts,
+                    "prefix_serving": prefix_counts,
+                    "prefix_serving_eager": prefix_eager_counts,
+                    "session_serving": session_counts,
+                    "spec_parity": spec_parity_counts,
+                    "spec_serving": spec_counts, "beam": beam_counts,
+                    "checkpoint": checkpoint_counts,
+                    "full_reload": reload_counts,
+                    "frontend": frontend_counts, "fleet": fleet_counts,
+                    "fleet_int8": fleet_int8_counts,
+                    "resilience": resilience_counts,
+                    "fused_training": fused_train_counts,
+                    "fp32_training": fp32_train_counts,
+                    "fused_fp32_training": fused_fp32_train_counts,
+                    "optimizers": opt_counts, **new_counts}
+        by_phase = {k: v.get(name, 0) for k, v in by_phase.items()}
         line.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
@@ -7084,6 +7863,9 @@ def main():
                     8, TRAIN_BATCH * TRAIN_SEQ)
                 and c["shape"].get("s", TRAIN_SEQ) == TRAIN_SEQ
                 and c["shape"].get("d", 128) == 128}
+    idle = [k["name"] for k in line if not k["launches"]]
+    if idle:
+        fail(f"kernels never launched on a main path: {idle}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,14 @@
-"""Automatic mixed precision (counterpart of ``paddle_tpu/amp``)."""
+"""Automatic mixed precision (counterpart of ``paddle_tpu/amp``): the O1
+casts, ``decorate`` (O2), the loss scaler, and ``debugging`` with the
+NaN/Inf sweep it builds on (``naninf``)."""
+from . import debugging, naninf  # noqa: F401
 from .auto_cast import (  # noqa: F401
     BLACK_LIST,
     WHITE_LIST,
     amp_cast,
+    amp_guard,
     auto_cast,
+    decorate,
     get_amp_dtype,
     is_auto_cast_enabled,
 )

@@ -15,8 +15,13 @@ run in bf16. ``torch.autocast`` is not used: its op lists differ, and
 the casts must sit where the JAX package puts them.
 
 O2 behaves as O1 inside the train step, as in the JAX trainer
-(``trainer.py:322-331``), since the casts are the same hook; the
-parameters stay fp32 either way.
+(``trainer.py:322-331``), since the casts are the same hook. What makes
+O2 different is :func:`decorate` (``auto_cast.py:108-118``): it casts the
+net's floating parameters and buffers to the low dtype, and the
+optimizers keep their fp32 accumulators and compute each update in fp32,
+casting the result back (master-weight semantics, as JAX's update rules
+upcast). RMSNorm (``fused_rms_norm``, on neither list) then runs on the
+low-dtype residual stream.
 """
 from __future__ import annotations
 
@@ -101,6 +106,38 @@ def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
     finally:
         (st.enabled, st.dtype, st.level, st.custom_white,
          st.custom_black) = prev
+
+
+amp_guard = auto_cast
+
+
+def _as_dtype(dtype):
+    if isinstance(dtype, str):
+        if dtype not in _DTYPES and dtype != "float32":
+            raise ValueError(f"decorate dtype must be one of "
+                             f"{sorted(_DTYPES)}, got {dtype!r}")
+        return _DTYPES.get(dtype, torch.float32)
+    return dtype
+
+
+def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
+             master_weight=None, save_dtype=None):
+    """O2: cast each model's floating parameters and buffers to the low
+    dtype (``nn.Module.to``: in place, the same parameter objects, so an
+    optimizer built on them keeps them); the optimizers' math stays fp32
+    (their accumulators are fp32 and each update upcasts, as JAX's
+    ``_adam_update`` does). Any other level leaves the models as they
+    are. Returns the models (and the optimizers, when given) as they
+    came: one or a list."""
+    single_model = not isinstance(models, (list, tuple))
+    model_list = [models] if single_model else list(models)
+    if level == "O2":
+        low = _as_dtype(dtype)
+        for m in model_list:
+            m.to(dtype=low)
+    if optimizers is None:
+        return models if single_model else model_list
+    return (models if single_model else model_list), optimizers
 
 
 def is_auto_cast_enabled():

@@ -7,6 +7,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -14,7 +15,7 @@
 namespace ptt {
 
 // dtype codes, shared with paddle_tpu_torch/kernels/_build.py DTYPE_CODES
-enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
+enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2, kF16 = 3 };
 
 // the (batch, seq, head) strides of a [batch, seq, heads, d] tensor, in
 // elements
@@ -25,6 +26,9 @@ struct Strides {
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_float(__half v) {
+  return __half2float(v);
 }
 __device__ __forceinline__ float to_float(int8_t v) {
   return static_cast<float>(v);
@@ -40,6 +44,12 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   // round to nearest even, as torch's .to(torch.bfloat16)
   return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float v) {
+  // round to nearest even; past the fp16 range inf, as torch's
+  // .to(torch.float16)
+  return __float2half_rn(v);
 }
 
 // Load N consecutive elements of T starting at p (aligned to N*sizeof(T)

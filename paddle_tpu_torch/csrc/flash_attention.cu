@@ -59,6 +59,14 @@
 // repeat bit for bit. Causal blocks wholly above the diagonal are
 // skipped; only blocks that cross it or the ragged end are masked.
 //
+// fp16 (the fp16 O1 and decorate O2 steps): the same tensor-core kernels
+// instantiated on the element type E = __half (fp16 wgmma, fp16 tensor
+// maps, P and dS packed with cvt.rn.f16x2.f32), forward at every d and
+// backward up to d 128; an fp16 P, dS or O past 65504 becomes inf, as the
+// stock kernel's astype does, so a loss scaler sees it. The fp16 backward
+// above d 128 and the CUDA-core kernels in fp16 are refused (the split
+// kernels read bf16 parts): ROADMAP.md queue B, fp16 item 3.
+//
 // fp32 at every d, and the bf16 backward above d 128: the split design
 // (tc, "the split design" below). fp32 reaches the tensor cores through
 // a three-part bf16 split of every operand, six bf16 products a product,
@@ -828,32 +836,32 @@ __device__ __forceinline__ uint32_t setup(uint8_t* raw, const Layout& L,
 // 32) / 4 (entries 4j, 4j+1) and that + 8 (entries 4j+2, 4j+3), columns
 // 8j + 2 (t % 4) + {0, 1}. Two neighbouring blocks are exactly the
 // register A fragment of a k-step of 16: k-step kk of a score tile is
-// entries [8 kk, 8 kk + 8) rounded to bf16 pairs (the stock kernel's
-// p.astype / ds.astype).
-template <int KSTEPS>
+// entries [8 kk, 8 kk + 8) rounded to bf16 (or fp16: E) pairs (the stock
+// kernel's p.astype / ds.astype; an fp16 value past 65504 becomes inf).
+template <int KSTEPS, typename E = bf16>
 __device__ __forceinline__ void to_a_operand(const float* acc,
                                              uint32_t (*a)[4]) {
 #pragma unroll
   for (int kk = 0; kk < KSTEPS; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      a[kk][i] = pack_bf16(acc[8 * kk + 2 * i], acc[8 * kk + 2 * i + 1]);
+      a[kk][i] = pack2<E>(acc[8 * kk + 2 * i], acc[8 * kk + 2 * i + 1]);
 }
 
 // O (+)= P V for k-step kk of a V tile of R rows (MN-major): D = 256
 // runs as two m64n128 products over V's column halves, whose fragments
 // laid end to end are the m64n256 fragment (entries 4j.. of 8-column
 // block j)
-template <int D, int R>
+template <int D, int R, typename E = bf16>
 __device__ __forceinline__ void pv_step(float (&acc)[D / 2],
                                         const uint32_t (&p)[4], uint32_t sV,
                                         int kk) {
   if constexpr (D <= 128) {
-    wgmma_rs<D>(acc, p, desc_mn_major<R>(sV, kk));
+    wgmma_rs<D, E>(acc, p, desc_mn_major<R>(sV, kk));
   } else {
 #pragma unroll
     for (int h = 0; h < D / 128; ++h)
-      wgmma_rs<128>(*reinterpret_cast<float(*)[64]>(acc + 64 * h), p,
+      wgmma_rs<128, E>(*reinterpret_cast<float(*)[64]>(acc + 64 * h), p,
                     desc_mn_major<R>(sV + h * 2 * R * 128, kk));
   }
 }
@@ -878,7 +886,7 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // one output row of a thread's accumulator of D columns (entries 4j +
-// half*2 + {0,1}) to a contiguous bf16 or fp32 row, times `mul`; columns
+// half*2 + {0,1}) to a contiguous bf16, fp16 or fp32 row, times `mul`; columns
 // from d (a multiple of 8; the head dim, less the row's first column) on
 // are not stored
 template <int D, typename T>
@@ -891,7 +899,7 @@ __device__ __forceinline__ void store_row(T* __restrict__ row,
     const float x = acc[4 * j + 2 * half] * mul;
     const float y = acc[4 * j + 2 * half + 1] * mul;
     if constexpr (sizeof(T) == 2)
-      *reinterpret_cast<uint32_t*>(row + 8 * j + cq) = pack_bf16(x, y);
+      *reinterpret_cast<uint32_t*>(row + 8 * j + cq) = pack2<T>(x, y);
     else
       *reinterpret_cast<float2*>(row + 8 * j + cq) = make_float2(x, y);
   }
@@ -963,15 +971,15 @@ __device__ __forceinline__ void softmax_block(float (&sc)[kN / 2],
 // warpgroup: S = Q K^T (wgmma m64n128k16, both operands K-major in
 // shared memory), scale and mask in registers, online softmax in the
 // log2 domain (a row's max and sum over the 4 lanes of a quad), P =
-// exp2(S - m) rounded to bf16 in registers (unnormalised, tile by tile,
-// as the stock kernel's p.astype(v.dtype)) and O += P V (wgmma
+// exp2(S - m) rounded to bf16 (fp16: E) in registers (unnormalised, tile
+// by tile, as the stock kernel's p.astype(v.dtype)) and O += P V (wgmma
 // m64nDk16, P from registers, V MN-major). l sums the unrounded p.
-template <int D, bool kPad>
+template <typename E, int D, bool kPad>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq,
                         const __grid_constant__ CUtensorMap mk,
                         const __grid_constant__ CUtensorMap mv,
-                        bf16* __restrict__ o, float* __restrict__ lse,
+                        E* __restrict__ o, float* __restrict__ lse,
                         int heads, int sq, int sk, int d, float scale_log2,
                         int causal) {
   if (!kPad) d = D;  // a compile-time head dim where the width is exact
@@ -1033,7 +1041,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss<kN>(sc, desc_k_major<kM>(sQ, 64 * wg, kk),
+          wgmma_ss<kN, E>(sc, desc_k_major<kM>(sQ, 64 * wg, kk),
                         desc_k_major<kN>(sK, 0, kk), kk > 0);
         wgmma_commit();
         wgmma_wait_all();
@@ -1045,10 +1053,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         softmax_block<kN>(sc, acc, ma, mb, la, lb, mask, k0, cq, ra, rb, sk,
                           shift, causal, scale_log2);
         uint32_t p[kN / 16][4];
-        to_a_operand<kN / 16>(sc, p);
+        to_a_operand<kN / 16, E>(sc, p);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kN / 16; ++kk) pv_step<D, kN>(acc, p[kk], sV, kk);
+        for (int kk = 0; kk < kN / 16; ++kk)
+          pv_step<D, kN, E>(acc, p[kk], sV, kk);
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(acc);
@@ -1084,7 +1093,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // dO and dK += bf16(dS^T) Q (wgmma m64nDk16, the rounded tiles from
 // registers, dO and Q MN-major): the stock kernel's p.T.astype and
 // ds.T.astype, with ds scaled first as it does.
-template <int D, bool kPad>
+template <typename E, int D, bool kPad>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap mq,
                              const __grid_constant__ CUtensorMap mdo,
@@ -1092,7 +1101,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                              const __grid_constant__ CUtensorMap mv,
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
-                             bf16* __restrict__ dk, bf16* __restrict__ dv,
+                             E* __restrict__ dk, E* __restrict__ dv,
                              int heads, int sq, int sk, int d, float scale,
                              float scale_log2, int causal) {
   if (!kPad) d = D;
@@ -1172,11 +1181,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss<kM>(st, desc_k_major<kN>(sK, 64 * wg, kk),
+          wgmma_ss<kM, E>(st, desc_k_major<kN>(sK, 64 * wg, kk),
                        desc_k_major<kM>(sQ, 0, kk), kk > 0);
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss<kM>(dpt, desc_k_major<kN>(sV, 64 * wg, kk),
+          wgmma_ss<kM, E>(dpt, desc_k_major<kN>(sV, 64 * wg, kk),
                        desc_k_major<kM>(sG, 0, kk), kk > 0);
         wgmma_commit();
         wgmma_wait_all();
@@ -1201,15 +1210,15 @@ __global__ void __launch_bounds__(kThreads, 1)
             }
           }
         uint32_t pa[kM / 16][4], da[kM / 16][4];
-        to_a_operand<kM / 16>(st, pa);
-        to_a_operand<kM / 16>(dpt, da);
+        to_a_operand<kM / 16, E>(st, pa);
+        to_a_operand<kM / 16, E>(dpt, da);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kM / 16; ++kk)
-          wgmma_rs<D>(adv, pa[kk], desc_mn_major<kM>(sG, kk));
+          wgmma_rs<D, E>(adv, pa[kk], desc_mn_major<kM>(sG, kk));
 #pragma unroll
         for (int kk = 0; kk < kM / 16; ++kk)
-          wgmma_rs<D>(adk, da[kk], desc_mn_major<kM>(sQ, kk));
+          wgmma_rs<D, E>(adk, da[kk], desc_mn_major<kM>(sQ, kk));
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(adv);
@@ -1240,7 +1249,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // warpgroup: S = Q K^T and dP = dO V^T (wgmma m64n64k16), P and dS =
 // P (dP - Delta) scale in fp32 registers, dQ += bf16(dS) K (wgmma
 // m64nDk16, dS from registers, K MN-major: the stock ds.astype(k.dtype)).
-template <int D, bool kPad>
+template <typename E, int D, bool kPad>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap mq,
                            const __grid_constant__ CUtensorMap mdo,
@@ -1248,7 +1257,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                            const __grid_constant__ CUtensorMap mv,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
-                           bf16* __restrict__ dq, int heads, int sq, int sk,
+                           E* __restrict__ dq, int heads, int sq, int sk,
                            int d, float scale, float scale_log2, int causal) {
   if (!kPad) d = D;
   constexpr int kM = 128, kN = 64;  // q rows per CTA, k rows per block
@@ -1314,11 +1323,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss<kN>(sc, desc_k_major<kM>(sQ, 64 * wg, kk),
+          wgmma_ss<kN, E>(sc, desc_k_major<kM>(sQ, 64 * wg, kk),
                        desc_k_major<kN>(sK, 0, kk), kk > 0);
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss<kN>(dp, desc_k_major<kM>(sG, 64 * wg, kk),
+          wgmma_ss<kN, E>(dp, desc_k_major<kM>(sG, 64 * wg, kk),
                        desc_k_major<kN>(sV, 0, kk), kk > 0);
         wgmma_commit();
         wgmma_wait_all();
@@ -1341,11 +1350,11 @@ __global__ void __launch_bounds__(kThreads, 1)
             }
           }
         uint32_t dsa[kN / 16][4];
-        to_a_operand<kN / 16>(dp, dsa);
+        to_a_operand<kN / 16, E>(dp, dsa);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kN / 16; ++kk)
-          wgmma_rs<D>(adq, dsa[kk], desc_mn_major<kN>(sK, kk));
+          wgmma_rs<D, E>(adq, dsa[kk], desc_mn_major<kN>(sK, kk));
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(adq);
@@ -2335,7 +2344,8 @@ __global__ void __launch_bounds__(kSplitThreads, 1)
 }
 
 // ------------------------------------------------------------ launches
-// The tensor map of a bf16 [batch, seq, heads, d] tensor read through its
+// The tensor map of a bf16 (or `type`: fp16) [batch, seq, heads, d] tensor
+// read through its
 // strides (elements; multiples of 8, so 16-byte multiples in bytes, as
 // TMA needs), as (d, heads, seq, batch) innermost first: boxes of 64
 // columns x `box_rows` rows of one head, 128-byte swizzle, rows past seq
@@ -2344,41 +2354,44 @@ __global__ void __launch_bounds__(kSplitThreads, 1)
 // d to D: they add nothing to q . k, and the P V columns they give are
 // never stored.
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int batch, int seq,
-                     int heads, int d, Strides st, int box_rows) {
+                     int heads, int d, Strides st, int box_rows,
+                     CUtensorMapDataType type =
+                         CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
                               (cuuint64_t)seq, (cuuint64_t)batch};
   const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2,
                                  (cuuint64_t)st.b * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
-  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr, dims,
-                    strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  return encode_map(map, type, 4, ptr, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-template <int D, bool kPad>
+template <typename E, int D, bool kPad>
 cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   cudaError_t err;
-  if ((err = make_map(&mq, a.q, a.batch, a.sq, a.heads, a.d, a.qs, 128)) ||
+  if ((err = make_map(&mq, a.q, a.batch, a.sq, a.heads, a.d, a.qs,
+                      128, map_type<E>())) ||
       (err = make_map(&mk, a.k, a.batch, a.sk, a.heads, a.d, a.ks,
-                      fwd_keys<D>())) ||
+                      fwd_keys<D>(), map_type<E>())) ||
       (err = make_map(&mv, a.v, a.batch, a.sk, a.heads, a.d, a.vs,
-                      fwd_keys<D>())))
+                      fwd_keys<D>(), map_type<E>())))
     return err;
   constexpr int smem = fwd_layout<D>().bytes();
-  if ((err = allow_smem(flash_fwd_tc_kernel<D, kPad>, smem))) return err;
+  if ((err = allow_smem(flash_fwd_tc_kernel<E, D, kPad>, smem))) return err;
   dim3 grid((a.sq + 127) / 128, a.batch * a.heads);
-  flash_fwd_tc_kernel<D, kPad><<<grid, kThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<bf16*>(a.o), static_cast<float*>(a.lse),
+  flash_fwd_tc_kernel<E, D, kPad><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<E*>(a.o), static_cast<float*>(a.lse),
       a.heads, a.sq, a.sk, a.d, a.scale * kLog2e, a.causal);
   return cudaGetLastError();
 }
 
-template <int D, bool kPad>
+template <typename E, int D, bool kPad>
 cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   const long long rows = (long long)a.batch * a.heads * a.sq;
-  flash_bwd_delta_kernel<bf16, D><<<(unsigned)((rows + 7) / 8), 256, 0,
+  flash_bwd_delta_kernel<E, D><<<(unsigned)((rows + 7) / 8), 256, 0,
                                      stream>>>(
-      static_cast<const bf16*>(a.o), static_cast<const bf16*>(a.dout),
+      static_cast<const E*>(a.o), static_cast<const E*>(a.dout),
       static_cast<float*>(a.delta), a.os, a.dos, a.batch, a.heads, a.sq,
       a.d);
   cudaError_t err = cudaGetLastError();
@@ -2386,36 +2399,44 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
 
   // dK/dV: q and dO in blocks of 64 rows, k and v resident (128 rows)
   CUtensorMap mq, mdo, mk, mv;
-  if ((err = make_map(&mq, a.q, a.batch, a.sq, a.heads, a.d, a.qs, 64)) ||
-      (err = make_map(&mdo, a.dout, a.batch, a.sq, a.heads, a.d, a.dos, 64)) ||
-      (err = make_map(&mk, a.k, a.batch, a.sk, a.heads, a.d, a.ks, 128)) ||
-      (err = make_map(&mv, a.v, a.batch, a.sk, a.heads, a.d, a.vs, 128)))
+  if ((err = make_map(&mq, a.q, a.batch, a.sq, a.heads, a.d, a.qs,
+                      64, map_type<E>())) ||
+      (err = make_map(&mdo, a.dout, a.batch, a.sq, a.heads, a.d, a.dos,
+                      64, map_type<E>())) ||
+      (err = make_map(&mk, a.k, a.batch, a.sk, a.heads, a.d, a.ks,
+                      128, map_type<E>())) ||
+      (err = make_map(&mv, a.v, a.batch, a.sk, a.heads, a.d, a.vs,
+                      128, map_type<E>())))
     return err;
   constexpr int smem_kv = dkdv_layout<D>().bytes();
-  if ((err = allow_smem(flash_bwd_dkdv_tc_kernel<D, kPad>, smem_kv)))
+  if ((err = allow_smem(flash_bwd_dkdv_tc_kernel<E, D, kPad>, smem_kv)))
     return err;
   dim3 grid_k((a.sk + 127) / 128, a.batch * a.heads);
   const float scale_log2 = a.scale * kLog2e;
-  flash_bwd_dkdv_tc_kernel<D, kPad><<<grid_k, kThreads, smem_kv, stream>>>(
+  flash_bwd_dkdv_tc_kernel<E, D, kPad><<<grid_k, kThreads, smem_kv, stream>>>(
       mq, mdo, mk, mv, static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<bf16*>(a.dk),
-      static_cast<bf16*>(a.dv), a.heads, a.sq, a.sk, a.d, a.scale,
+      static_cast<const float*>(a.delta), static_cast<E*>(a.dk),
+      static_cast<E*>(a.dv), a.heads, a.sq, a.sk, a.d, a.scale,
       scale_log2, a.causal);
   if ((err = cudaGetLastError())) return err;
 
   // dQ: q and dO resident (128 rows), k and v in blocks of 64 rows
-  if ((err = make_map(&mq, a.q, a.batch, a.sq, a.heads, a.d, a.qs, 128)) ||
+  if ((err = make_map(&mq, a.q, a.batch, a.sq, a.heads, a.d, a.qs,
+                      128, map_type<E>())) ||
       (err = make_map(&mdo, a.dout, a.batch, a.sq, a.heads, a.d, a.dos,
-                      128)) ||
-      (err = make_map(&mk, a.k, a.batch, a.sk, a.heads, a.d, a.ks, 64)) ||
-      (err = make_map(&mv, a.v, a.batch, a.sk, a.heads, a.d, a.vs, 64)))
+                      128, map_type<E>())) ||
+      (err = make_map(&mk, a.k, a.batch, a.sk, a.heads, a.d, a.ks,
+                      64, map_type<E>())) ||
+      (err = make_map(&mv, a.v, a.batch, a.sk, a.heads, a.d, a.vs,
+                      64, map_type<E>())))
     return err;
   constexpr int smem_q = dq_layout<D>().bytes();
-  if ((err = allow_smem(flash_bwd_dq_tc_kernel<D, kPad>, smem_q))) return err;
+  if ((err = allow_smem(flash_bwd_dq_tc_kernel<E, D, kPad>, smem_q)))
+    return err;
   dim3 grid_q((a.sq + 127) / 128, a.batch * a.heads);
-  flash_bwd_dq_tc_kernel<D, kPad><<<grid_q, kThreads, smem_q, stream>>>(
+  flash_bwd_dq_tc_kernel<E, D, kPad><<<grid_q, kThreads, smem_q, stream>>>(
       mq, mdo, mk, mv, static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<bf16*>(a.dq), a.heads,
+      static_cast<const float*>(a.delta), static_cast<E*>(a.dq), a.heads,
       a.sq, a.sk, a.d, a.scale, scale_log2, a.causal);
   return cudaGetLastError();
 }
@@ -2704,6 +2725,28 @@ cudaError_t cc_fwd(const FwdArgs& a, cudaStream_t s) {
   }
 }
 
+// The tensor-core forward of a 16-bit type E at the padded width of the
+// head dim, at least one 128-byte span (a separate instantiation where the
+// head dim fills the width)
+template <typename E>
+cudaError_t tc_fwd(const FwdArgs& a, cudaStream_t s) {
+  if (a.d == 64) return tc::launch_fwd<E, 64, false>(a, s);
+  if (a.d < 64) return tc::launch_fwd<E, 64, true>(a, s);
+  if (a.d == 128) return tc::launch_fwd<E, 128, false>(a, s);
+  if (a.d < 128) return tc::launch_fwd<E, 128, true>(a, s);
+  if (a.d == 256) return tc::launch_fwd<E, 256, false>(a, s);
+  return tc::launch_fwd<E, 256, true>(a, s);
+}
+
+// The tensor-core backward of a 16-bit type E, head dims up to 128
+template <typename E>
+cudaError_t tc_bwd(const BwdArgs& a, cudaStream_t s) {
+  if (a.d == 64) return tc::launch_bwd<E, 64, false>(a, s);
+  if (a.d < 64) return tc::launch_bwd<E, 64, true>(a, s);
+  if (a.d == 128) return tc::launch_bwd<E, 128, false>(a, s);
+  return tc::launch_bwd<E, 128, true>(a, s);
+}
+
 template <typename T>
 cudaError_t cc_bwd(const BwdArgs& a, cudaStream_t s) {
   if (!served(a.d)) return cudaErrorInvalidValue;
@@ -2737,8 +2780,10 @@ extern "C" int ptt_flash_attention_fwd(
     int causal, float scale, int dtype, void* work, int cuda_cores,
     void* stream) {
   if (batch == 0 || heads == 0 || sq == 0) return cudaSuccess;
-  if (!served(head_dim) || (dtype != ptt::kF32 && dtype != ptt::kBF16))
+  if (!served(head_dim) || (dtype != ptt::kF32 && dtype != ptt::kBF16 &&
+                            dtype != ptt::kF16))
     return cudaErrorInvalidValue;
+  if (dtype == ptt::kF16 && cuda_cores) return cudaErrorInvalidValue;
   FwdArgs a{q, k, v, o, lse, {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh},
             {v_sb, v_ss, v_sh}, batch, heads, sq, sk, head_dim, causal,
             scale, nullptr, nullptr, 0};
@@ -2753,14 +2798,10 @@ extern "C" int ptt_flash_attention_fwd(
            : head_dim <= 128 ? tc::launch_fwd_split<128>(a, work, s)
                              : tc::launch_fwd_split<256>(a, work, s);
   }
-  // bf16: tensor cores at the padded width, at least one 128-byte span
-  // (a separate instantiation where the head dim fills the width)
-  if (head_dim == 64) return tc::launch_fwd<64, false>(a, s);
-  if (head_dim < 64) return tc::launch_fwd<64, true>(a, s);
-  if (head_dim == 128) return tc::launch_fwd<128, false>(a, s);
-  if (head_dim < 128) return tc::launch_fwd<128, true>(a, s);
-  if (head_dim == 256) return tc::launch_fwd<256, false>(a, s);
-  return tc::launch_fwd<256, true>(a, s);
+  // bf16 and fp16: tensor cores at the padded width, at least one 128-byte
+  // span (a separate instantiation where the head dim fills the width)
+  return dtype == ptt::kF16 ? tc_fwd<__half>(a, s)
+                            : tc_fwd<__nv_bfloat16>(a, s);
 }
 
 // The split rope-on-load forward at the padded width of the head dim
@@ -2825,7 +2866,12 @@ extern "C" int ptt_flash_attention_bwd(
     long long g_sb, long long g_ss, long long g_sh, int causal, float scale,
     int dtype, void* work, int cuda_cores, void* stream) {
   if (batch == 0 || heads == 0 || sq == 0) return cudaSuccess;
-  if (!served(head_dim) || (dtype != ptt::kF32 && dtype != ptt::kBF16))
+  if (!served(head_dim) || (dtype != ptt::kF32 && dtype != ptt::kBF16 &&
+                            dtype != ptt::kF16))
+    return cudaErrorInvalidValue;
+  // fp16: the tensor-core kernels up to 128 only (the split kernels read
+  // bf16 parts)
+  if (dtype == ptt::kF16 && (cuda_cores || head_dim > 128))
     return cudaErrorInvalidValue;
   BwdArgs a{q, k, v, o, dout, lse, delta, dq, dk, dv,
             {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh},
@@ -2841,11 +2887,9 @@ extern "C" int ptt_flash_attention_bwd(
            : head_dim <= 128 ? tc::launch_bwd_split<float, 128, 3>(a, work, s)
                              : tc::launch_bwd_split<float, 256, 3>(a, work, s);
   }
-  // bf16: the tensor-core kernels up to 128 (padded, at least 64), the
-  // split design's (one part) above
-  if (head_dim == 64) return tc::launch_bwd<64, false>(a, s);
-  if (head_dim < 64) return tc::launch_bwd<64, true>(a, s);
-  if (head_dim == 128) return tc::launch_bwd<128, false>(a, s);
-  if (head_dim < 128) return tc::launch_bwd<128, true>(a, s);
+  // bf16 and fp16: the tensor-core kernels up to 128 (padded, at least
+  // 64); bf16 runs the split design's (one part) above
+  if (dtype == ptt::kF16) return tc_bwd<__half>(a, s);
+  if (head_dim <= 128) return tc_bwd<__nv_bfloat16>(a, s);
   return tc::launch_bwd_split<__nv_bfloat16, 256, 1>(a, work, s);
 }

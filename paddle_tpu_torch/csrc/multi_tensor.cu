@@ -525,6 +525,14 @@ int with_types(int p_dtype, int g_dtype, F&& f) {
     return f(Types<bf16, float>{});
   if (p_dtype == ptt::kBF16 && g_dtype == ptt::kBF16)
     return f(Types<bf16, bf16>{});
+  // fp16 (a net cast by amp.decorate, O2): fp16 parameters with fp16 or
+  // fp32 gradients, or fp32 parameters with fp16 gradients
+  if (p_dtype == ptt::kF16 && g_dtype == ptt::kF16)
+    return f(Types<__half, __half>{});
+  if (p_dtype == ptt::kF16 && g_dtype == ptt::kF32)
+    return f(Types<__half, float>{});
+  if (p_dtype == ptt::kF32 && g_dtype == ptt::kF16)
+    return f(Types<float, __half>{});
   return cudaErrorInvalidValue;
 }
 
@@ -608,7 +616,7 @@ static_assert(sizeof(Table<1>) + 16 <= 4096,
 
 }  // namespace
 
-// ptrs [count] gradients, fp32 or bf16 by dtypes[count] (one pass over
+// ptrs [count] gradients, fp32, bf16 or fp16 by dtypes[count] (one pass over
 // each dtype's tensors; each writes its tensors' slots, their positions
 // in the list); stats [4 + 2 * count] fp32 (see mt_finalize_kernel);
 // partial [2 * workspace_chunks] fp32; inv (fp32 scalar) or null;
@@ -623,13 +631,14 @@ extern "C" int ptt_mt_sumsq(void* const* ptrs, const long long* numel,
   float* part = static_cast<float*>(partial);
   const float* iv = static_cast<const float*>(inv);
   for (int i = 0; i < count; ++i)
-    if (dtypes[i] != ptt::kF32 && dtypes[i] != ptt::kBF16)
+    if (dtypes[i] != ptt::kF32 && dtypes[i] != ptt::kBF16 &&
+        dtypes[i] != ptt::kF16)
       return cudaErrorInvalidValue;
   int n = 0;
   std::vector<void*> ptr;
   std::vector<long long> num;
   std::vector<int> slot;
-  for (const int code : {ptt::kF32, ptt::kBF16}) {
+  for (const int code : {ptt::kF32, ptt::kBF16, ptt::kF16}) {
     ptr.clear();
     num.clear();
     slot.clear();
@@ -647,9 +656,12 @@ extern "C" int ptt_mt_sumsq(void* const* ptrs, const long long* numel,
             if (code == ptt::kF32)
               mt_sumsq_kernel<float><<<chunks, kThreads, 0, st>>>(t, iv,
                                                                    part);
-            else
+            else if (code == ptt::kBF16)
               mt_sumsq_kernel<__nv_bfloat16>
                   <<<chunks, kThreads, 0, st>>>(t, iv, part);
+            else
+              mt_sumsq_kernel<__half><<<chunks, kThreads, 0, st>>>(t, iv,
+                                                                   part);
             ++n;
           }
           mt_reduce_kernel<1, true><<<t.count, kThreads, 0, st>>>(

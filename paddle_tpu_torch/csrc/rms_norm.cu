@@ -7,6 +7,9 @@
 //             y = (x * rstd) * w, in fp32, cast once to x's type
 //   backward: dx = rstd * g*w - x * rstd^3 * mean(g*w*x)  (fp32, one cast)
 //             dw = sum over rows of g * (x * rstd)        (fp32)
+// x, w, y, g and dx are fp32, bf16 or fp16 (one type a call); rstd and
+// the dw partials stay fp32 in every type, and y, dx and dw are rounded
+// once (an fp16 value past 65504 becomes inf, as a cast does).
 // The weight is multiplied in fp32 before the single cast, as the TPU
 // kernel does at rms_norm.py:38; the forward also writes the fp32 rstd
 // (one per row) that the backward reads, as _fwd_kernel does at :39.
@@ -17,8 +20,8 @@
 // below the ~295 flop/byte ridge. At decode (8 rows) the launch dominates.
 //
 // Design: one CTA per row in the forward; every thread moves 16-byte
-// vectors (8 bf16 or 4 fp32), so a warp touches 512 contiguous bytes per
-// load. Sums are kept in fp32, reduced through warp shuffles and one
+// vectors (8 bf16 or fp16, or 4 fp32), so a warp touches 512 contiguous
+// bytes per load. Sums are kept in fp32, reduced through warp shuffles and one
 // shared 32-float scratch. The block has ceil(H / vector) threads (a
 // multiple of 32, at most 1024), so for Llama widths each thread owns one
 // vector.
@@ -199,6 +202,8 @@ extern "C" int ptt_rms_norm_fwd(const void* x, const void* w, void* y,
     return launch_fwd<float>(x, w, y, rstd, rows, hidden, eps, s);
   if (dtype == ptt::kBF16)
     return launch_fwd<__nv_bfloat16>(x, w, y, rstd, rows, hidden, eps, s);
+  if (dtype == ptt::kF16)
+    return launch_fwd<__half>(x, w, y, rstd, rows, hidden, eps, s);
   return cudaErrorInvalidValue;
 }
 
@@ -217,5 +222,8 @@ extern "C" int ptt_rms_norm_bwd(const void* x, const void* w, const void* g,
   if (dtype == ptt::kBF16)
     return launch_bwd<__nv_bfloat16>(x, w, g, rstd, dx, dw, partials, rows,
                                      hidden, ctas, s);
+  if (dtype == ptt::kF16)
+    return launch_bwd<__half>(x, w, g, rstd, dx, dw, partials, rows, hidden,
+                              ctas, s);
   return cudaErrorInvalidValue;
 }

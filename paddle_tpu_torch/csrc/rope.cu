@@ -5,7 +5,8 @@
 // backward _rope_bwd (:85-88: the same kernel over the incoming gradient
 // with -sin, the inverse rotation).
 //   o1 = x1 * cos - x2 * sin,  o2 = x2 * cos + x1 * sin   (fp32)
-// with x1 = x[..., :D/2], x2 = x[..., D/2:], cast back to x's type. The
+// with x1 = x[..., :D/2], x2 = x[..., D/2:], cast back to x's type
+// (fp32, bf16 or fp16: each element is rounded once, from fp32). The
 // backward entry point (ptt_rope_bwd) is the same kernel instantiated
 // with the sign of sin flipped in registers: no negated table is built.
 //
@@ -13,7 +14,7 @@
 // At decode ([8, 1, 32, 128]) the launch dominates.
 //
 // Design: one thread per 16-byte vector of the first half of a head row
-// (8 bf16 or 4 fp32) and the matching vector of the second half, so a
+// (8 bf16 or fp16, or 4 fp32) and the matching vector of the second half, so a
 // warp reads and writes contiguous 512-byte runs. q and k are rotated in
 // ONE launch (the grid covers heads_q + heads_k heads per token). The
 // table row is found in the kernel: position_ids (when given) index the
@@ -123,6 +124,10 @@ int dispatch(const void* q, void* q_out, int heads_q, const void* k,
                                    head_dim, tab_batch, tab_rows, s);
   if (dtype == ptt::kBF16)
     return launch<__nv_bfloat16, kInverse>(
+        q, q_out, heads_q, k, k_out, heads_k, cos_tab, sin_tab, pos_ids,
+        batch, seq, head_dim, tab_batch, tab_rows, s);
+  if (dtype == ptt::kF16)
+    return launch<__half, kInverse>(
         q, q_out, heads_q, k, k_out, heads_k, cos_tab, sin_tab, pos_ids,
         batch, seq, head_dim, tab_batch, tab_rows, s);
   return cudaErrorInvalidValue;

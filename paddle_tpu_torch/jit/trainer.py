@@ -9,9 +9,10 @@ captured as they are). Each call runs, in the order of the JAX step
 (``trainer.py:319-560``):
 
 1. the forward and the loss, under the O1 casts when ``amp_level`` is
-   "O1" or "O2" (O2 behaves as O1 inside the step, as in the JAX
-   trainer: the parameters stay fp32); with a ``scaler``, the loss times
-   the loss scale;
+   "O1" or "O2" in ``amp_dtype`` (bfloat16 or float16; O2 behaves as O1
+   inside the step, as in the JAX trainer: the parameters keep the
+   dtype they have, fp32 unless ``amp.decorate`` cast them); with a
+   ``scaler``, the loss times the loss scale;
 2. the backward through torch autograd (the RMSNorm, rope and flash
    attention kernels' backward kernels on the card); a parameter the loss
    does not reach gets a zero gradient, as ``jax.value_and_grad`` gives
@@ -65,6 +66,17 @@ taken between two CUDA events recorded at its start and end, and the
 step is published once its end event has completed: at a later call,
 or at :meth:`flush_telemetry`. On the CPU the host clock is the step's
 time and the step is published at once. Telemetry never fails a step.
+
+With ``FLAGS_check_nan_inf`` on (``utils.flags``), every op of the
+forward and the backward is swept (``amp/naninf.py``) without a read
+back per op: each op's finite flag stays on the device, and the step
+reads them once after the backward, before the update, and raises
+naming the first op whose output was not finite (JAX's traced check
+raises when the step executes, so its update never lands either).
+
+The optimizers JAX runs only eagerly (``EagerOptimizer``,
+``optimizer/optimizer.py``: Adagrad, RMSProp, Adadelta, Adamax, NAdam,
+RAdam, ASGD, Rprop, LBFGS) are refused with JAX's message.
 """
 from __future__ import annotations
 
@@ -77,6 +89,7 @@ import torch
 
 from .. import chaos as _chaos
 from .. import optimizer as opt_mod
+from ..amp import naninf as _naninf
 from ..amp.auto_cast import auto_cast
 
 _F32 = np.float32
@@ -98,8 +111,7 @@ class CompiledTrainStep:
         if not any(isinstance(optimizer, cls) for cls in self.SUPPORTED):
             raise NotImplementedError(
                 f"CompiledTrainStep does not support "
-                f"{type(optimizer).__name__}; it takes "
-                f"{', '.join(c.__name__ for c in self.SUPPORTED)}"
+                f"{type(optimizer).__name__}; use the eager path"
             )
         if amp_level not in (None, "O0", "O1", "O2"):
             raise NotImplementedError(
@@ -330,15 +342,19 @@ class CompiledTrainStep:
             self._plan = self._build_plan()
         opt.clear_grad()
         self.network.train()
-        with self._amp():
-            out = self.network(*inputs)
-            outs = list(out) if isinstance(out, (list, tuple)) else [out]
-            loss = self.loss_fn(*outs, *labels).float()
         sc = self.scaler
-        if sc is not None:
-            (loss * float(_F32(sc._scale))).backward()
-        else:
-            loss.backward()
+        with _naninf.deferred() as sweep:
+            with self._amp():
+                out = self.network(*inputs)
+                outs = list(out) if isinstance(out, (list, tuple)) else [out]
+                loss = self.loss_fn(*outs, *labels).float()
+            if sc is not None:
+                (loss * float(_F32(sc._scale))).backward()
+            else:
+                loss.backward()
+        if sweep is not None:
+            # the step's one read of the sweep's flags, before the update
+            sweep.check()
         items = [(p, torch.zeros_like(p) if p.grad is None else p.grad, g)
                  for g, p in opt._all_params()]
         opt._step_count += 1

@@ -39,7 +39,9 @@ With these every ``pl.pallas_call`` of the JAX package has a hand-written
 counterpart. Each module counts the kernel launches it made
 (``launches`` for the forward, ``bwd_launches`` for the backward (the
 fused rope + attention's: one per composition of its kernels),
-``int8_launches`` for the int8 paged attention; flash attention, the
+``int8_launches`` for the int8 paged attention; ``fp16_launches`` and
+``fp16_bwd_launches`` (``fp16_sumsq_launches``, ``fp16_adam_launches``)
+for the kernels that take fp16, :func:`fp16_launch_counts`; flash attention, the
 W8A16 matmul and the two fusions also per design,
 :func:`flash_design_counts`, :func:`int8_matmul_design_counts` and
 :func:`fusion_design_counts`); a serving program captured as a CUDA
@@ -79,6 +81,18 @@ KERNELS = {
     "mt_lamb": (fused_adam, "lamb_launches"),
 }
 
+# the launches over fp16 tensors, of the totals above
+FP16_KERNELS = {
+    "rms_norm_fp16": (rms_norm, "fp16_launches"),
+    "rms_norm_bwd_fp16": (rms_norm, "fp16_bwd_launches"),
+    "rope_fp16": (rope, "fp16_launches"),
+    "rope_bwd_fp16": (rope, "fp16_bwd_launches"),
+    "flash_attention_fwd_fp16": (flash_attention, "fp16_launches"),
+    "flash_attention_bwd_fp16": (flash_attention, "fp16_bwd_launches"),
+    "mt_sumsq_fp16": (fused_adam, "fp16_sumsq_launches"),
+    "mt_adam_fp16": (fused_adam, "fp16_adam_launches"),
+}
+
 
 # modules that also count their launches by design (tensor cores "tc",
 # the fusions' fp32 split products "split", CUDA cores "cc")
@@ -88,7 +102,7 @@ DESIGN_MODULES = (flash_attention, int8_matmul, fused_norm_matmul,
 
 # every launch counter, once: (module, attribute)
 COUNTERS = tuple(dict.fromkeys(
-    [*KERNELS.values()]
+    [*KERNELS.values(), *FP16_KERNELS.values()]
     + [(mod, attr) for mod in DESIGN_MODULES for attr in mod.DESIGN_COUNTERS]))
 
 
@@ -122,6 +136,14 @@ def add_launches(launches):
 def launch_counts():
     return {name: getattr(mod, attr) for name, (mod, attr) in
             KERNELS.items()}
+
+
+def fp16_launch_counts():
+    """The launches over fp16 tensors of the kernels that take fp16
+    (:data:`FP16_KERNELS`: RMSNorm, rope and flash attention forward and
+    backward, the sum of squares and the Adam update)."""
+    return {name: getattr(mod, attr) for name, (mod, attr) in
+            FP16_KERNELS.items()}
 
 
 def flash_design_counts():

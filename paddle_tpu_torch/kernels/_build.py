@@ -118,7 +118,19 @@ SIGNATURES = {
 }
 
 # dtype codes shared with csrc/common.cuh
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+               torch.float16: 3}
+# the floating types the training kernels take (rows 1, 2, 3a, 3b, 6a, 6b
+# of PERF.md's table, and the multi-tensor updates)
+FLOAT_TYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def fp16_refused(kernel, item):
+    """The TypeError of a kernel that has no fp16 version yet, naming
+    the ``ROADMAP.md`` queue B fp16 line that holds it."""
+    return TypeError(
+        f"{kernel} has no float16 version on the card yet (ROADMAP.md "
+        f"queue B, fp16 item {item}); run it in float32 or bfloat16")
 
 _LIB = None
 _LOCK = threading.Lock()

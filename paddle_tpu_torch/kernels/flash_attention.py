@@ -10,9 +10,11 @@ that.
 
 Two designs, chosen by dtype and head dim (:func:`design`). The
 tensor-core design (``"tc"``: wgmma products with fp32 accumulators, TMA
-tile loads) runs every head dim in both dtypes: bf16 at its padded
-width, at least 64 (the tensor-core tiles' 64-column unit; zero columns
-add exact zeros to every fp32 sum); fp32 through split products, each
+tile loads) runs every head dim in every dtype: bf16 and fp16 at their
+padded width, at least 64 (the tensor-core tiles' 64-column unit; zero
+columns add exact zeros to every fp32 sum; fp16's backward up to 128,
+above it a ``TypeError`` naming ROADMAP.md queue B); fp32 through split
+products, each
 fp32 operand written as three bf16 parts (hi, mid, lo, which keep its 24
 significant bits) and each product as the six bf16 products of parts
 whose terms are larger than about 2^-22 of it, so the result keeps the
@@ -61,6 +63,7 @@ import math
 
 import torch
 
+from ..amp import naninf as _naninf
 from . import _build
 
 # kernel launches made by this process: forward, and backward (one per
@@ -68,6 +71,9 @@ from . import _build
 # design: tensor cores ("tc") and CUDA cores ("cc"), as design() says
 launches = 0
 bwd_launches = 0
+# of those, the launches over fp16 tensors
+fp16_launches = 0
+fp16_bwd_launches = 0
 tc_launches = 0
 tc_bwd_launches = 0
 cc_launches = 0
@@ -278,34 +284,64 @@ def probability_rounding_slack(q, k, v, lse, o=None, do=None, causal=False,
     running max) and rescales in fp32 afterwards; a relative rounding
     error survives that rescaling unchanged, so the same bound holds. The
     fp32 rescaling and the cast of the result are covered by the
-    cast-once tolerance beside this slack."""
+    cast-once tolerance beside this slack. fp16 keeps 11 significant
+    bits (``2u = 2^-10``) but flushes values below 2^-24 (its smallest
+    subnormal) where bf16 keeps them: an entry of P or (scaled) dS
+    rounds by at most ``u |x|`` or half the subnormal spacing 2^-25,
+    so the two sides differ by at most ``2^-10 |x| + 2^-24``."""
     _check_shapes(q, k, v, causal)
     scale = _scale_of(q, scale)
-    rel = 0.0 if q.dtype == torch.float32 else 2.0 ** -7
+    rel, tiny = _ROUNDING.get(q.dtype, (0.0, 0.0))
     backward = o is not None and do is not None
     if backward:
         p, ds, g = _probabilities(q, k, v, o, lse, do, causal, scale)
     else:
         p = torch.exp(_scores(q, k, causal, scale) - lse[..., None])
-    o_slack = rel * torch.matmul(p, v.float().abs().transpose(1, 2))
+
+    def moved(x, mul=1.0):
+        # what two roundings of each entry of x apart can move it by
+        # (tiny: twice the half spacing of fp16's subnormals, where a
+        # small P or dS flushes; zero where x is masked on both sides)
+        x = x.abs() * mul
+        return rel * x + tiny * (x > 0) if tiny else rel * x
+
+    o_slack = torch.matmul(moved(p), v.float().abs().transpose(1, 2))
     if not backward:
         return o_slack.transpose(1, 2)
-    ds = ds.abs()
-    dv = rel * torch.matmul(p.transpose(-1, -2), g.abs())
-    dq = rel * scale * torch.matmul(ds, k.float().abs().transpose(1, 2))
-    dk = rel * scale * torch.matmul(ds.transpose(-1, -2),
-                                    q.float().abs().transpose(1, 2))
+    dv = torch.matmul(moved(p).transpose(-1, -2), g.abs())
+    ds = moved(ds, scale)
+    dq = torch.matmul(ds, k.float().abs().transpose(1, 2))
+    dk = torch.matmul(ds.transpose(-1, -2), q.float().abs().transpose(1, 2))
     return o_slack.transpose(1, 2), tuple(
         t.transpose(1, 2) for t in (dq, dk, dv))
+
+
+# (2u, twice the subnormal half spacing) of the inputs' dtype: what two
+# roundings of one fp32 value to it can differ by (probability_rounding_
+# slack)
+_ROUNDING = {torch.bfloat16: (2.0 ** -7, 0.0),
+             torch.float16: (2.0 ** -10, 2.0 ** -24)}
+
+
+def _forward(q, k, v, causal, scale):
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal, scale)
+    return flash_attention_cuda(q, k, v, causal, scale)
+
+
+def _backward(q, k, v, o, lse, do, causal, scale):
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(q, k, v, o, lse, do,
+                                                  causal, scale)
+    return flash_attention_backward_cuda(q, k, v, o, lse, do, causal,
+                                         scale)
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        if q.device.type == "cpu":
-            o, lse = flash_attention_reference(q, k, v, causal, scale)
-        else:
-            o, lse = flash_attention_cuda(q, k, v, causal, scale)
+        o, lse = _naninf.kernel_op("flash_attention", _forward, q, k, v,
+                                   causal, scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale = causal, scale
         ctx.mark_non_differentiable(lse)
@@ -314,12 +350,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, _dlse):
         q, k, v, o, lse = ctx.saved_tensors
-        if q.device.type == "cpu":
-            dq, dk, dv = flash_attention_backward_reference(
-                q, k, v, o, lse, do, ctx.causal, ctx.scale)
-        else:
-            dq, dk, dv = flash_attention_backward_cuda(
-                q, k, v, o, lse, do, ctx.causal, ctx.scale)
+        dq, dk, dv = _naninf.kernel_op("flash_attention", _backward, q, k,
+                                       v, o, lse, do, ctx.causal, ctx.scale)
         return dq, dk, dv, None, None
 
 
@@ -358,10 +390,25 @@ def _check_cuda(tensors, dtype):
         if t.dtype != dtype:
             raise TypeError(f"flash attention kernel takes one dtype: "
                             f"{name} is {t.dtype}, q is {dtype}")
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash attention kernel takes float32/bfloat16, "
-                        f"got {dtype}")
+    if dtype not in _build.FLOAT_TYPES:
+        raise TypeError(f"flash attention kernel takes float32/bfloat16/"
+                        f"float16, got {dtype}")
     return dev
+
+
+def _check_fp16(dtype, head_dim, backward, cuda_cores):
+    """fp16 runs the bf16 tensor-core kernels' fp16 instantiations: the
+    forward at every head dim, the backward up to 128 (above, bf16 runs
+    the one-part split kernels, which read bf16 only)."""
+    if dtype != torch.float16:
+        return
+    if cuda_cores:
+        raise _build.fp16_refused("the CUDA-core flash attention kernels",
+                                  3)
+    if backward and padded_head_dim(head_dim) > 128:
+        raise _build.fp16_refused(
+            f"the flash attention backward above head_dim 128 (got "
+            f"{head_dim})", 3)
 
 
 def _count(dtype, head_dim, backward, cuda_cores=False):
@@ -371,6 +418,8 @@ def _count(dtype, head_dim, backward, cuda_cores=False):
     total = "bwd_launches" if backward else "launches"
     counters = globals()
     counters[total] += 1
+    if dtype == torch.float16:
+        counters[f"fp16_{total}"] += 1
     kind = "cc" if cuda_cores else design(dtype, head_dim, backward)
     counters[f"{kind}_{total}"] += 1
 
@@ -383,6 +432,7 @@ def flash_attention_cuda(q, k, v, causal=False, scale=None,
     _, _, _, _, d = _check_shapes(q, k, v, causal)
     _check_cuda((("q", q), ("k", k), ("v", v)), q.dtype)
     check_head_dim(d)
+    _check_fp16(q.dtype, d, False, cuda_cores)
     out = padded_forward(functools.partial(_launch_fwd, cuda_cores=cuda_cores),
                          q, k, v, causal, _scale_of(q, scale))
     _count(q.dtype, d, False, cuda_cores)
@@ -425,6 +475,7 @@ def flash_attention_backward_cuda(q, k, v, o, lse, do, causal=False,
     dev = _check_cuda((("q", q), ("k", k), ("v", v), ("o", o),
                        ("dout", do)), q.dtype)
     check_head_dim(d)
+    _check_fp16(q.dtype, d, True, cuda_cores)
     if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
         raise ValueError("flash attention backward: o and dout must have "
                          "q's shape")

@@ -24,7 +24,8 @@ unscale, one of the three clips, then the L2 or L1 decay; and writes nothing
 when the prologue's skip flag (a non-finite gradient under a loss scaler)
 is set. Scalars that change from step to step (the inverse loss scale, the
 clip coefficient, the skip flag) stay in device buffers: nothing is read
-back. Parameters are fp32 or bf16, gradients fp32 or bf16 (rounded to their
+back. Parameters are fp32, bf16 or fp16, gradients fp32, bf16 or fp16 (a
+bf16 parameter takes no fp16 gradient, nor the reverse; rounded to their
 own type after each prologue step, as ``.astype(g.dtype)`` does), moments
 fp32; all are updated in place.
 
@@ -60,13 +61,17 @@ sumsq_launches = 0
 adam_launches = 0
 momentum_launches = 0
 lamb_launches = 0
+# of those, the launches over fp16 tensors (a sum of squares whose list
+# holds an fp16 gradient; an update of an fp16 parameter or gradient)
+fp16_sumsq_launches = 0
+fp16_adam_launches = 0
 
 # clip kinds and decay kinds, shared with csrc/multi_tensor.cu
 CLIP_NONE, CLIP_GLOBAL, CLIP_NORM, CLIP_VALUE = 0, 1, 2, 3
 DECAY_NONE, DECAY_L2, DECAY_L1 = 0, 1, 2
 
 _F32 = np.float32
-_TYPES = (torch.float32, torch.bfloat16)
+_TYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _round(x32, dtype):
@@ -75,7 +80,7 @@ def _round(x32, dtype):
 
 
 def in_type(x, dtype):
-    """The Python float ``x`` rounded to ``dtype`` (fp32 or bf16), as a
+    """The Python float ``x`` rounded to ``dtype`` (fp32, bf16 or fp16), as a
     Python scalar meets a tensor of that type in the JAX step."""
     return float(torch.tensor(float(x), dtype=torch.float64).to(dtype))
 
@@ -158,7 +163,7 @@ def grad_sumsq_reference(grads, inv=None, clip_norm=0.0,
 
 @torch.no_grad()
 def grad_sumsq(grads, inv=None, clip_norm=0.0, skip_nonfinite=False):
-    """The sums of squares of ``grads`` (each fp32 or bf16), each
+    """The sums of squares of ``grads`` (each fp32, bf16 or fp16), each
     value first unscaled to ``G(g * inv)`` when ``inv`` (an fp32 one-element
     tensor) is given; the global-norm clip coefficient ``min(1, clip_norm /
     max(sqrt(total), 1e-12))`` when ``clip_norm`` > 0 (else 1); the skip
@@ -425,7 +430,7 @@ def lamb_update(params, m, v, grads, lr, beta1, beta2, eps, t,
 def _check_rows(name, rows, fp32_cols):
     """Every tensor of ``rows`` (tuples: parameter, gradient, state...) on
     one CUDA device, dense, with its row's numel; parameters and gradients
-    fp32 or bf16, the state columns fp32."""
+    fp32, bf16 or fp16 (not bf16 beside fp16), the state columns fp32."""
     dev = rows[0][0].device
     if dev.type != "cuda":
         raise ValueError(f"{name} kernel needs CUDA tensors, got {dev}")
@@ -446,6 +451,11 @@ def _check_rows(name, rows, fp32_cols):
             if x.dtype not in want:
                 raise TypeError(f"{name} kernel takes {want} in column {j}, "
                                 f"got {x.dtype}")
+        if len(row) > 1 and row[1] is not None and {
+                row[0].dtype, row[1].dtype} == {torch.bfloat16,
+                                                torch.float16}:
+            raise TypeError(f"{name} kernel takes no bf16 parameter with an "
+                            f"fp16 gradient or the reverse")
     return dev
 
 
@@ -498,8 +508,9 @@ def _by_types(rows, slots):
 
 def _launch(name, fn, rows, slots, pro, decay_kind, decay, *tail):
     """Calls the C entry point ``fn`` once per (p, g) dtype pair of
-    ``rows``; returns the kernels it launched."""
-    total = 0
+    ``rows``; returns the kernels it launched, and of those the ones over
+    fp16 tensors."""
+    total = fp16 = 0
     for (pd, gd), (rs, ss) in _by_types(rows, slots).items():
         ptrs, numel = _pointer_table(rs)
         sl = (ctypes.c_int * len(ss))(*ss)
@@ -511,7 +522,9 @@ def _launch(name, fn, rows, slots, pro, decay_kind, decay, *tail):
                      ctypes.byref(launches), _build.stream_of(rs[0][0]))
         _build.check(err, name)
         total += launches.value
-    return total
+        if torch.float16 in (pd, gd):
+            fp16 += launches.value
+    return total, fp16
 
 
 def _slots(slots, n):
@@ -523,7 +536,7 @@ def _slots(slots, n):
 
 def grad_sumsq_cuda(grads, inv=None, clip_norm=0.0, skip_nonfinite=False):
     """Launch ``mt_sumsq`` (see :func:`grad_sumsq`)."""
-    global sumsq_launches
+    global sumsq_launches, fp16_sumsq_launches
     dev = _check_rows("mt_sumsq", [(g,) for g in grads], ())
     if inv is not None and (inv.device != dev or inv.dtype != torch.float32):
         raise ValueError("inv must be an fp32 tensor on the gradients' "
@@ -545,6 +558,8 @@ def grad_sumsq_cuda(grads, inv=None, clip_norm=0.0, skip_nonfinite=False):
             ctypes.byref(launches), _build.stream_of(buf))
     _build.check(err, "ptt_mt_sumsq")
     sumsq_launches += launches.value
+    if any(g.dtype == torch.float16 for g in grads):
+        fp16_sumsq_launches += launches.value
     return GradStats(buf, t)
 
 
@@ -552,7 +567,7 @@ def fused_adam_update_cuda(params, m, v, grads, lr, beta1, beta2, eps, t,
                            decoupled=False, weight_decay=0.0, *, l1=0.0,
                            prologue=None, slots=None):
     """Launch ``mt_adam`` (see :func:`fused_adam_update`)."""
-    global adam_launches
+    global adam_launches, fp16_adam_launches
     pro = prologue or NO_PROLOGUE
     rows = list(zip(params, grads, m, v))
     dev = _check_rows("mt_adam", rows, (2, 3))
@@ -561,9 +576,11 @@ def fused_adam_update_cuda(params, m, v, grads, lr, beta1, beta2, eps, t,
     h = adam_hyper(lr, beta1, beta2, eps, t, 0.0 if l1 else weight_decay,
                    decoupled)
     kind, coeff = _decay_args(0.0, l1)
-    adam_launches += _launch(
+    n, n16 = _launch(
         "ptt_mt_adam", lib.ptt_mt_adam, rows, _slots(slots, len(rows)), pro,
         kind, coeff, (ctypes.c_float * 10)(*h), int(bool(decoupled)))
+    adam_launches += n
+    fp16_adam_launches += n16
     return params, m, v
 
 
@@ -582,7 +599,7 @@ def momentum_update_cuda(params, velocity, grads, lr, momentum=0.0,
     momentum_launches += _launch(
         "ptt_mt_momentum", lib.ptt_mt_momentum, rows,
         _slots(slots, len(rows)), pro, kind, coeff, float(_F32(lr)),
-        float(_F32(momentum)), int(bool(use_nesterov)))
+        float(_F32(momentum)), int(bool(use_nesterov)))[0]
     return params, velocity
 
 
@@ -604,5 +621,5 @@ def lamb_update_cuda(params, m, v, grads, lr, beta1, beta2, eps, t,
     lamb_launches += _launch(
         "ptt_mt_lamb", lib.ptt_mt_lamb, rows, _slots(slots, len(rows)), pro,
         DECAY_NONE, 0.0, (ctypes.c_float * 9)(*h), _build.ptr(sums),
-        _build.ptr(partial), chunks)
+        _build.ptr(partial), chunks)[0]
     return params, m, v

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import torch
 
+from ..amp import naninf as _naninf
 from . import _build
 from .int8_matmul import SWAP_TILES, TC_KTILE, swap_kchunk
 
@@ -145,13 +146,23 @@ def normed_rounding_slack(x, w, wm, eps=1e-6, rel=2.0 ** -20):
     return slack.reshape(shape)
 
 
+def _forward(x, w, wm, eps):
+    if x.device.type == "cpu":
+        return rms_norm_matmul_reference(x, w, wm, eps)
+    return rms_norm_matmul_cuda(x, w, wm, eps)
+
+
+def _vjp(x, w, wm, eps, g):
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (x, w, wm)]
+        out = rms_norm_matmul_reference(*ins, eps)
+        return torch.autograd.grad(out, ins, g)
+
+
 class _RmsNormMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, wm, eps):
-        if x.device.type == "cpu":
-            out = rms_norm_matmul_reference(x, w, wm, eps)
-        else:
-            out = rms_norm_matmul_cuda(x, w, wm, eps)
+        out = _naninf.kernel_op("rms_norm_matmul", _forward, x, w, wm, eps)
         ctx.save_for_backward(x, w, wm)
         ctx.eps = eps
         return out
@@ -161,10 +172,8 @@ class _RmsNormMatmul(torch.autograd.Function):
         # the VJP of the plain version, as the JAX _bwd takes the VJP of
         # _composed_2d: recomputed from the saved inputs
         x, w, wm = ctx.saved_tensors
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(True) for t in (x, w, wm)]
-            out = rms_norm_matmul_reference(*ins, ctx.eps)
-            dx, dw, dwm = torch.autograd.grad(out, ins, g)
+        dx, dw, dwm = _naninf.kernel_op("rms_norm_matmul", _vjp, x, w, wm,
+                                        ctx.eps, g)
         return dx, dw, dwm, None
 
 
@@ -270,6 +279,8 @@ def _checked(x, w, wm):
         if t.device != dev:
             raise ValueError(f"rms_norm_matmul: {name} on {t.device}, x on "
                              f"{dev}")
+    if torch.float16 in (x.dtype, w.dtype, wm.dtype):
+        raise _build.fp16_refused("the fused RMSNorm + matmul", 1)
     if x.dtype not in X_DTYPES or wm.dtype != x.dtype \
             or w.dtype not in (x.dtype, torch.float32):
         raise TypeError(

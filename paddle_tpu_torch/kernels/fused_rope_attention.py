@@ -75,6 +75,7 @@ import math
 
 import torch
 
+from ..amp import naninf as _naninf
 from . import _build
 from . import flash_attention as _flash
 from . import rope as _rope
@@ -223,13 +224,17 @@ def rope_attention_reference(q, k, v, cos, sin, causal=True, scale=None):
     return _composed(q, k, v, cos2, sin2, bool(causal), _scale_of(q, scale))
 
 
+def _forward(q, k, v, cos2, sin2, causal, scale):
+    if q.device.type == "cpu":
+        return _composed(q, k, v, cos2, sin2, causal, scale)
+    return rope_attention_cuda(q, k, v, cos2, sin2, causal, scale)
+
+
 class _RopeAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, cos2, sin2, causal, scale):
-        if q.device.type == "cpu":
-            out = _composed(q, k, v, cos2, sin2, causal, scale)
-        else:
-            out = rope_attention_cuda(q, k, v, cos2, sin2, causal, scale)
+        out = _naninf.kernel_op("rope_attention", _forward, q, k, v, cos2,
+                                sin2, causal, scale)
         ctx.save_for_backward(q, k, v, cos2, sin2)
         ctx.causal, ctx.scale = causal, scale
         return out
@@ -237,8 +242,9 @@ class _RopeAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, cos2, sin2 = ctx.saved_tensors
-        dq, dk, dv = rope_attention_backward(q, k, v, g, cos2, sin2,
-                                             ctx.causal, ctx.scale)
+        dq, dk, dv = _naninf.kernel_op(
+            "rope_attention", rope_attention_backward, q, k, v, g, cos2,
+            sin2, ctx.causal, ctx.scale)
         return dq, dk, dv, None, None, None, None
 
 
@@ -352,6 +358,8 @@ def _check_cuda(q, k, v, cos2, sin2):
         if t.device != dev:
             raise ValueError(f"rope attention: {name} on {t.device}, q on "
                              f"{dev}")
+    if q.dtype == torch.float16:
+        raise _build.fp16_refused("the rope-on-load attention kernel", 2)
     if q.dtype not in (torch.float32, torch.bfloat16) \
             or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"rope attention kernel takes q, k, v of one dtype, "

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from ..amp import naninf as _naninf
 from . import _build
 
 launches = 0
@@ -105,6 +106,10 @@ def int8_matmul_reference(x, w_q, scale):
 def int8_matmul(x, w_q, scale):
     """``x @ dequant(w_q, scale)``; routes on x's device (CPU: the plain
     version; CUDA: the kernel, or a raise)."""
+    return _naninf.kernel_op("int8_matmul", _route, x, w_q, scale)
+
+
+def _route(x, w_q, scale):
     if x.device.type == "cpu":
         return int8_matmul_reference(x, w_q, scale)
     return int8_matmul_cuda(x, w_q, scale)
@@ -145,6 +150,8 @@ def _checked(x, w_q, scale):
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"int8 matmul kernel needs CUDA tensors, got {dev}")
+    if x.dtype == torch.float16:
+        raise _build.fp16_refused("the W8A16 matmul", 4)
     if x.dtype not in X_DTYPES:
         raise TypeError(f"int8 matmul kernel takes float32 or bfloat16 x, "
                         f"got {x.dtype}")

@@ -37,6 +37,7 @@ import math
 import torch
 
 from ..quantization.kv import is_quantized
+from ..amp import naninf as _naninf
 from . import _build
 from .flash_attention import check_head_dim, pad_head_dim, padded_head_dim
 
@@ -121,6 +122,11 @@ def paged_attention(q, k_pages, v_pages, page_table, pos, scale=None):
     """Paged decode attention over float or int8 (``QuantizedKV``)
     arenas; routes on q's device (CPU: the plain version; CUDA: the
     kernel of the arenas' flavour, or a raise)."""
+    return _naninf.kernel_op("paged_attention", _route, q, k_pages, v_pages,
+                             page_table, pos, scale)
+
+
+def _route(q, k_pages, v_pages, page_table, pos, scale):
     quant = is_quantized(k_pages)
     if quant != is_quantized(v_pages):
         raise ValueError("k_pages and v_pages must share quantization")
@@ -210,6 +216,8 @@ def _workspace(q, kv_itemsize, b, h, d, ps, kvh, width):
 def paged_attention_cuda(q, k_pages, v_pages, page_table, pos, scale=None):
     """Launch ``csrc/paged_attention.cu`` over float arenas."""
     global launches
+    if torch.float16 in (q.dtype, k_pages.dtype, v_pages.dtype):
+        raise _build.fp16_refused("paged attention", 4)
     if (q.dtype, k_pages.dtype) not in KV_DTYPES \
             or v_pages.dtype != k_pages.dtype:
         raise TypeError(
@@ -249,6 +257,8 @@ def paged_attention_int8_cuda(q, k_pages, v_pages, page_table, pos,
     if not (is_quantized(k_pages) and is_quantized(v_pages)):
         raise TypeError("the int8 paged attention kernel takes QuantizedKV "
                         "arenas")
+    if q.dtype == torch.float16:
+        raise _build.fp16_refused("int8 paged attention", 4)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"int8 paged attention kernel takes a float32 or "
                         f"bfloat16 q, got {q.dtype}")

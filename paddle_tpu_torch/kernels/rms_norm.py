@@ -18,12 +18,16 @@ from __future__ import annotations
 
 import torch
 
+from ..amp import naninf as _naninf
 from . import _build
 
 # kernel launches made by this process (CUDA tensors through rms_norm):
 # the forward kernel and the backward kernels (one per backward call)
 launches = 0
 bwd_launches = 0
+# of those, the launches over fp16 tensors
+fp16_launches = 0
+fp16_bwd_launches = 0
 
 # CTAs of the backward's first pass: each owns a fixed run of rows and
 # writes its fp32 dw column sums; the second pass adds them in CTA order
@@ -60,28 +64,35 @@ def rms_norm_backward_reference(x, w, g, rstd):
     return dx.to(x.dtype).reshape(x.shape), dw.to(w.dtype)
 
 
+def _forward(x, w, eps):
+    if x.device.type == "cpu":
+        return rms_norm_reference(x, w, eps, return_rstd=True)
+    return rms_norm_cuda(x, w, eps, return_rstd=True)
+
+
+def _backward(x, w, g, rstd):
+    if x.device.type == "cpu":
+        return rms_norm_backward_reference(x, w, g, rstd)
+    return rms_norm_backward_cuda(x, w, g, rstd)
+
+
 class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, eps):
-        if x.device.type == "cpu":
-            y, rstd = rms_norm_reference(x, w, eps, return_rstd=True)
-        else:
-            y, rstd = rms_norm_cuda(x, w, eps, return_rstd=True)
+        y, rstd = _naninf.kernel_op("fused_rms_norm", _forward, x, w, eps)
         ctx.save_for_backward(x, w, rstd)
         return y
 
     @staticmethod
     def backward(ctx, g):
         x, w, rstd = ctx.saved_tensors
-        if x.device.type == "cpu":
-            dx, dw = rms_norm_backward_reference(x, w, g, rstd)
-        else:
-            dx, dw = rms_norm_backward_cuda(x, w, g, rstd)
+        dx, dw = _naninf.kernel_op("fused_rms_norm", _backward, x, w, g,
+                                   rstd)
         return dx, dw, None
 
 
 def rms_norm(x, w, eps=1e-6):
-    """``x`` [..., H] fp32/bf16, ``w`` [H] -> normalised ``x * w`` in
+    """``x`` [..., H] fp32/bf16/fp16, ``w`` [H] -> normalised ``x * w`` in
     x's dtype; differentiable in x and w."""
     return _RMSNorm.apply(x, w, float(eps))
 
@@ -92,10 +103,10 @@ def _check(x, w, name):
             f"{name} kernel needs x and w on one CUDA device, got "
             f"{x.device} and {w.device}"
         )
-    if x.dtype not in _build.DTYPE_CODES or w.dtype != x.dtype:
+    if x.dtype not in _build.FLOAT_TYPES or w.dtype != x.dtype:
         raise TypeError(
-            f"{name} kernel takes float32/bfloat16 x and w of one dtype, "
-            f"got x {x.dtype}, w {w.dtype}"
+            f"{name} kernel takes float32/bfloat16/float16 x and w of one "
+            f"dtype, got x {x.dtype}, w {w.dtype}"
         )
     h = int(x.shape[-1])
     vec = 16 // x.element_size()
@@ -116,7 +127,7 @@ def _check(x, w, name):
 def rms_norm_cuda(x, w, eps=1e-6, return_rstd=False):
     """Launch the forward of ``csrc/rms_norm.cu``; raises on anything it
     does not take. With ``return_rstd`` also the fp32 rstd per row."""
-    global launches
+    global launches, fp16_launches
     h = _check(x, w, "rms_norm")
     lib = _build.load()
     y = torch.empty_like(x)
@@ -131,13 +142,14 @@ def rms_norm_cuda(x, w, eps=1e-6, return_rstd=False):
         )
     _build.check(err, "ptt_rms_norm_fwd")
     launches += 1
+    fp16_launches += x.dtype == torch.float16
     return (y, rstd) if return_rstd else y
 
 
 def rms_norm_backward_cuda(x, w, g, rstd):
     """Launch the backward of ``csrc/rms_norm.cu``: ``(dx, dw)`` with dx
     in x's type and dw in w's type."""
-    global bwd_launches
+    global bwd_launches, fp16_bwd_launches
     h = _check(x, w, "rms_norm backward")
     # the incoming gradient in x's type, as _vjp_bwd casts it
     g = g.to(x.dtype).contiguous()
@@ -170,4 +182,5 @@ def rms_norm_backward_cuda(x, w, g, rstd):
         )
     _build.check(err, "ptt_rms_norm_bwd")
     bwd_launches += 1
+    fp16_bwd_launches += x.dtype == torch.float16
     return dx, dw

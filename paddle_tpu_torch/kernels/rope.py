@@ -24,11 +24,15 @@ from __future__ import annotations
 
 import torch
 
+from ..amp import naninf as _naninf
 from . import _build
 
 # kernel launches made by this process: forward and backward entry points
 launches = 0
 bwd_launches = 0
+# of those, the launches over fp16 tensors
+fp16_launches = 0
+fp16_bwd_launches = 0
 
 
 def build_rope_cache(seq_len, head_dim, base=10000.0, dtype=torch.float32,
@@ -107,7 +111,8 @@ class _Rope(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, cos, sin, position_ids):
-        q_out, k_out = _rotate(q, k, cos, sin, position_ids, inverse=False)
+        q_out, k_out = _naninf.kernel_op("fused_rope", _rotate, q, k, cos,
+                                         sin, position_ids, False)
         ctx.save_for_backward(cos, sin, position_ids)
         ctx.has_k = k is not None
         return q_out if k is None else (q_out, k_out)
@@ -116,9 +121,10 @@ class _Rope(torch.autograd.Function):
     def backward(ctx, gq, gk=None):
         # an unused output's gradient arrives as zeros (materialized)
         cos, sin, position_ids = ctx.saved_tensors
-        dq, dk = _rotate(gq.contiguous(),
-                         gk.contiguous() if ctx.has_k else None,
-                         cos, sin, position_ids, inverse=True)
+        dq, dk = _naninf.kernel_op(
+            "fused_rope", _rotate, gq.contiguous(),
+            gk.contiguous() if ctx.has_k else None, cos, sin, position_ids,
+            True)
         return dq, dk, None, None, None
 
 
@@ -144,7 +150,7 @@ def _check_x(x, name, dtype, b, s, d):
 def rope_cuda(q, k, cos, sin, position_ids=None, inverse=False):
     """Launch ``csrc/rope.cu`` over q (and k) in one go; with ``inverse``
     the backward entry point (rotation by -theta)."""
-    global launches, bwd_launches
+    global launches, bwd_launches, fp16_launches, fp16_bwd_launches
     dev = q.device
     for t in (k, cos, sin, position_ids):
         if t is not None and t.device != dev:
@@ -153,8 +159,9 @@ def rope_cuda(q, k, cos, sin, position_ids=None, inverse=False):
             )
     if dev.type != "cuda":
         raise ValueError(f"rope kernel needs CUDA tensors, got {dev}")
-    if q.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"rope kernel takes float32/bfloat16, got {q.dtype}")
+    if q.dtype not in _build.FLOAT_TYPES:
+        raise TypeError(f"rope kernel takes float32/bfloat16/float16, got "
+                        f"{q.dtype}")
     b, s, _, d = (int(v) for v in q.shape)
     if d % 2:
         raise ValueError(f"rope needs an even head_dim, got {d}")
@@ -215,8 +222,10 @@ def rope_cuda(q, k, cos, sin, position_ids=None, inverse=False):
     _build.check(err, name)
     if inverse:
         bwd_launches += 1
+        fp16_bwd_launches += q.dtype == torch.float16
     else:
         launches += 1
+        fp16_launches += q.dtype == torch.float16
     if hp != h2:
         q_out, k_out = (None if t is None else unpad_halves(t, h2)
                         for t in (q_out, k_out))

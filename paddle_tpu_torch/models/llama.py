@@ -58,6 +58,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from ..amp import naninf as _naninf
 from ..device import resolve_device
 from ..kernels.paged_attention import paged_attention
 from ..kernels.rope import build_rope_cache
@@ -443,6 +444,7 @@ class LlamaForCausalLM(nn.Module):
 
     def forward(self, input_ids, attn_mask=None, caches=None, pos=None,
                 page_table=None, exit_layer=None):
+        _naninf.ensure()  # the NaN/Inf sweep's seam on this thread
         fused = self._head_fused()
         if caches is not None:
             h, new_caches = self.model(

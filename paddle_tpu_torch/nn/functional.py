@@ -20,6 +20,7 @@ import math
 
 import torch
 
+from ..amp import naninf as _naninf
 from ..amp.auto_cast import amp_cast
 from ..kernels import flash_attention as _flash
 from ..kernels import fused_norm_matmul as _fnm
@@ -112,6 +113,13 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         query, key, value = (t.to(ct) for t in (query, key, value))
         return _flash.flash_attention(query, key, value, causal=is_causal,
                                       scale=scale)
+    # one op for the NaN/Inf sweep, as JAX dispatches it (its masked
+    # scores are -inf inside the op)
+    return _naninf.kernel_op("scaled_dot_product_attention", _composed,
+                             query, key, value, attn_mask, is_causal, scale)
+
+
+def _composed(query, key, value, attn_mask, is_causal, scale):
     qt = query.transpose(1, 2)
     kt = key.transpose(1, 2)
     vt = value.transpose(1, 2)
@@ -173,23 +181,44 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0, name=None):
-    """Hard-label cross entropy with the reference's parameter list
-    (``loss.py:73``; ``_cross_entropy`` ``:26-70``): log-softmax over
-    ``axis`` in the input's dtype (fp32 under AMP, where the op is
-    black-listed), or the log of the input clamped at 1e-30 without
-    ``use_softmax``; the label's entry picked, mixed with the mean over
-    classes by ``label_smoothing``, zero at ``ignore_index``; ``mean``
-    divides by the count of kept labels (at least 1). A class weight and
-    soft labels are refused."""
+    """Cross entropy with the reference's parameter list (``loss.py:73``;
+    ``_cross_entropy`` ``:26-70``): log-softmax over ``axis`` in the
+    input's dtype (fp32 under AMP, where the op is black-listed), or the
+    log of the input clamped at 1e-30 without ``use_softmax``.
+
+    Soft labels (``soft_label``, or a label of the input's shape): the
+    loss is ``-sum(soft * logp)`` over the classes, ``soft`` mixed with
+    ``1 / classes`` by ``label_smoothing``; a class ``weight`` scales each
+    row by ``sum(soft * weight)``; ``mean`` is the plain mean. Hard
+    labels: the label's entry picked, mixed with the mean over classes by
+    ``label_smoothing``, times ``weight[label]``, zero at
+    ``ignore_index``; ``mean`` divides by the kept labels' summed weight,
+    or without a weight by their count (at least 1)."""
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"reduction must be 'mean', 'sum' or 'none', got "
                          f"{reduction!r}")
-    if weight is not None:
-        _not_ported("cross_entropy's class weight")
-    if soft_label or label.dtype.is_floating_point:
-        _not_ported("cross_entropy with soft labels")
-    input = amp_cast("cross_entropy", input)
+    input, label, weight = amp_cast("cross_entropy", input, label, weight)
     ax = axis % input.dim()
+    if use_softmax:
+        logp = torch.log_softmax(input, dim=ax)
+    else:
+        logp = torch.log(torch.clamp_min(input, 1e-30))
+    n_classes = int(input.shape[ax])
+    wshape = (1,) * ax + (-1,) + (1,) * (input.dim() - ax - 1)
+    if soft_label or tuple(label.shape) == tuple(input.shape):
+        soft = label
+        if label_smoothing > 0:
+            soft = soft * (1 - label_smoothing) + label_smoothing / n_classes
+        loss = -torch.sum(soft * logp, dim=ax)
+        if weight is not None:
+            loss = loss * torch.sum(soft * weight.reshape(wshape), dim=ax)
+        if reduction == "mean":
+            return loss.mean()
+        return loss.sum() if reduction == "sum" else loss
+    if label.dtype.is_floating_point:
+        raise TypeError(f"cross_entropy: a hard label must be an integer "
+                        f"tensor, got {label.dtype} (soft labels take "
+                        f"soft_label=True)")
     lbl = label
     if lbl.dim() == input.dim() and int(lbl.shape[ax]) == 1:
         lbl = lbl.squeeze(ax)
@@ -202,16 +231,18 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     lbl = lbl.long()
     valid = lbl != ignore_index
     safe = torch.where(valid, lbl, torch.zeros_like(lbl))
-    if use_softmax:
-        logp = torch.log_softmax(input, dim=ax)
-    else:
-        logp = torch.log(torch.clamp_min(input, 1e-30))
     loss = -torch.gather(logp, ax, safe.unsqueeze(ax)).squeeze(ax)
     if label_smoothing > 0:
         loss = (1 - label_smoothing) * loss \
             + label_smoothing * -logp.mean(dim=ax)
+    if weight is not None:
+        w = weight[safe]
+        loss = loss * w
     loss = torch.where(valid, loss, torch.zeros_like(loss))
     if reduction == "mean":
+        if weight is not None:
+            return loss.sum() / torch.where(valid, w,
+                                            torch.zeros_like(w)).sum()
         return loss.sum() / valid.sum().to(loss.dtype).clamp_min(1.0)
     if reduction == "sum":
         return loss.sum()

@@ -475,3 +475,193 @@ class Lamb(Optimizer):
         fa.lamb_update(ps, ms, vs, gs, lr, self._beta1, self._beta2,
                        self._eps, self._step_count, wd, prologue=prologue,
                        slots=slots)
+
+
+# ------------------------------------------------- the eager-only optimizers
+def _f32(x):
+    """The Python scalar ``x`` as JAX's ``jnp.float32(x)`` (a Python
+    float of fp32 value: it meets an fp32 tensor unchanged)."""
+    return float(_F32(x))
+
+
+class EagerOptimizer(Optimizer):
+    """The optimizers the JAX package runs only eagerly (``CompiledTrainStep``
+    refuses them): its base ``step()`` (``optimizer.py:229-254``) clips
+    the gradients with the clip object, then updates each parameter with
+    one update rule at ``lr x multiplier``. The rules are plain PyTorch,
+    as JAX's are plain jitted XLA outside any Pallas kernel: each in JAX's
+    op order, in fp32 (the parameter and gradient upcast), cast back once
+    to the parameter's type, its accumulators fp32 under JAX's names. The
+    scalars are rounded to fp32 first, as ``jnp.float32(...)`` does; a
+    scalar divisor is a 0-dim fp32 tensor, so that the card divides
+    instead of multiplying by a reciprocal."""
+
+    # accumulator name -> its initial value (a float, or a callable of the
+    # parameter); unlisted ones start at zeros, as JAX's ``_acc``
+    _acc_init = {}
+
+    def step(self):
+        items = self._params_grads()
+        if not items:
+            return
+        if self._grad_clip is not None:
+            clipped = self._grad_clip([(p, g) for p, g, _ in items])
+            items = [(p, g, grp)
+                     for (p, g), (_, _, grp) in zip(clipped, items)]
+        self._step_count += 1
+        lr = self.get_lr()
+        with torch.no_grad():
+            for p, g, group in items:
+                self._update_param(p, g, lr * self.lr_multiplier(group, p),
+                                   group)
+
+    def _update_param(self, p, g, lr, group):
+        raise NotImplementedError
+
+    def _decayed(self, group, p, g):
+        """``g`` with ``p``'s decay added as JAX's eager step adds it:
+        ``g + coeff * sign(p)`` (L1), ``g + wd * p`` (L2), in g's type."""
+        wd, l1 = self._decay_value(group, p)
+        if l1:
+            return g + wd * torch.sign(p)
+        return g + wd * p if wd else g
+
+    def _acc(self, p, name):
+        key = (self._names[id(p)], name)
+        if key not in self._accumulators:
+            init = self._acc_init.get(name)
+            if callable(init):
+                v = init(self, p)
+            else:
+                v = torch.zeros_like(p, dtype=torch.float32,
+                                     memory_format=torch.contiguous_format)
+                if init:
+                    v.fill_(init)
+            self._accumulators[key] = v
+        return self._accumulators[key]
+
+    def _set_acc(self, p, name, value):
+        self._accumulators[(self._names[id(p)], name)] = value
+
+
+def _div(x, d):
+    """``x / d`` for a Python scalar ``d``, divided (not multiplied by a
+    reciprocal) on every device."""
+    return x / fa._scalar(d, x)
+
+
+class Adagrad(EagerOptimizer):
+    """``acc += g^2``; ``p - lr * g / (sqrt(acc) + eps)``
+    (``_adagrad_update``, ``optimizer.py:75-79``)."""
+
+    _acc_names = ("moment",)
+    _acc_init = {"moment": lambda self, p: torch.full_like(
+        p, self._init_acc, dtype=torch.float32,
+        memory_format=torch.contiguous_format)}
+
+    def __init__(self, learning_rate, epsilon=1e-06, parameters=None,
+                 weight_decay=None, grad_clip=None,
+                 initial_accumulator_value=0.0, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._eps = epsilon
+        self._init_acc = initial_accumulator_value
+
+    def _update_param(self, p, g, lr, group):
+        g32 = self._decayed(group, p, g).float()
+        acc2 = self._acc(p, "moment") + g32 * g32
+        upd = (_f32(lr) * g32) / (torch.sqrt(acc2) + _f32(self._eps))
+        p.copy_(p.float() - upd)
+        self._set_acc(p, "moment", acc2)
+
+
+class RMSProp(EagerOptimizer):
+    """``ms = rho ms + (1 - rho) g^2``, centered ``mg = rho mg + (1 -
+    rho) g`` and ``sqrt(ms - mg^2 + eps)``, else ``sqrt(ms + eps)``;
+    ``mom = momentum mom + lr g / denom``; ``p - mom``
+    (``_rmsprop_update``, ``optimizer.py:113-127``)."""
+
+    _acc_names = ("mean_square", "momentum", "mean_grad")
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-06, momentum=0.0,
+                 centered=False, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._rho, self._eps = rho, epsilon
+        self._momentum, self._centered = momentum, centered
+
+    def _update_param(self, p, g, lr, group):
+        g32 = self._decayed(group, p, g).float()
+        rho, omr = _f32(self._rho), float(_F32(1) - _F32(self._rho))
+        ms = self._acc(p, "mean_square")
+        mom = self._acc(p, "momentum")
+        mg = self._acc(p, "mean_grad")
+        ms2 = rho * ms + omr * (g32 * g32)
+        if self._centered:
+            mg2 = rho * mg + omr * g32
+            denom = torch.sqrt(ms2 - mg2 * mg2 + _f32(self._eps))
+        else:
+            mg2 = mg
+            denom = torch.sqrt(ms2 + _f32(self._eps))
+        mom2 = _f32(self._momentum) * mom + (_f32(lr) * g32) / denom
+        p.copy_(p.float() - mom2)
+        self._set_acc(p, "mean_square", ms2)
+        self._set_acc(p, "momentum", mom2)
+        self._set_acc(p, "mean_grad", mg2)
+
+
+class Adadelta(EagerOptimizer):
+    """``avg_sq = rho avg_sq + (1 - rho) g^2``; ``upd = sqrt(avg_upd +
+    eps) / sqrt(avg_sq + eps) g``; ``avg_upd = rho avg_upd + (1 - rho)
+    upd^2``; ``p - lr upd`` (``_adadelta_update``, ``optimizer.py:87-96``)."""
+
+    _acc_names = ("avg_squared_grad", "avg_squared_update")
+
+    def __init__(self, learning_rate=0.001, epsilon=1e-06, rho=0.95,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._eps, self._rho = epsilon, rho
+
+    def _update_param(self, p, g, lr, group):
+        g32 = self._decayed(group, p, g).float()
+        rho, omr = _f32(self._rho), float(_F32(1) - _F32(self._rho))
+        eps = _f32(self._eps)
+        avg_sq = self._acc(p, "avg_squared_grad")
+        avg_upd = self._acc(p, "avg_squared_update")
+        avg_sq2 = rho * avg_sq + omr * (g32 * g32)
+        upd = torch.sqrt(avg_upd + eps) / torch.sqrt(avg_sq2 + eps) * g32
+        avg_upd2 = rho * avg_upd + omr * (upd * upd)
+        p.copy_(p.float() - _f32(lr) * upd)
+        self._set_acc(p, "avg_squared_grad", avg_sq2)
+        self._set_acc(p, "avg_squared_update", avg_upd2)
+
+
+class Adamax(EagerOptimizer):
+    """``m = beta1 m + (1 - beta1) g``; ``u = max(beta2 u, |g|)``; ``p -
+    lr / (1 - beta1^t) m / (u + eps)`` (``_adamax_update``,
+    ``optimizer.py:99-109``)."""
+
+    _acc_names = ("moment", "inf_norm")
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-08, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
+
+    def _update_param(self, p, g, lr, group):
+        g32 = self._decayed(group, p, g).float()
+        b1 = _F32(self._beta1)
+        m = self._acc(p, "moment")
+        u = self._acc(p, "inf_norm")
+        m2 = float(b1) * m + float(_F32(1) - b1) * g32
+        u2 = torch.maximum(_f32(self._beta2) * u, g32.abs())
+        denom = _F32(1) - np.power(b1, _F32(self._step_count))
+        step = float(_F32(lr) / denom) * m2 / (u2 + _f32(self._eps))
+        p.copy_(p.float() - step)
+        self._set_acc(p, "moment", m2)
+        self._set_acc(p, "inf_norm", u2)

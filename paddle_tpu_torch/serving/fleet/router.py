@@ -954,8 +954,8 @@ class FleetRouter:
         if client.headers_sent:
             # stream already open (a replica died mid-handshake after
             # we committed to SSE): terminal error event, not a status
-            client.error_event({"reason": reason})
             self.metrics.stream_aborts.inc(label=reason, trace_id=tid)
+            client.error_event({"reason": reason})
         else:
             self._send_json(h, _SHED_STATUS[reason], {
                 "error": "rejected", "reason": reason,
@@ -1085,13 +1085,15 @@ class FleetRouter:
                 self.metrics.retries.inc(label="midstream_unstarted",
                                          trace_id=tid)
                 return "midstream_unstarted"
+            # counted before the client hears of it: a client that reads
+            # the counter after its error event sees the abort
+            self.metrics.stream_aborts.inc(label=ABORT_REPLICA_FAILED,
+                                           trace_id=tid)
             client.error_event({
                 "reason": ABORT_REPLICA_FAILED,
                 "replica": r.index,
                 "tokens_forwarded": tokens_forwarded,
             })
-            self.metrics.stream_aborts.inc(label=ABORT_REPLICA_FAILED,
-                                           trace_id=tid)
             return "failed_after_tokens"
 
 

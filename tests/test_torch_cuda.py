@@ -298,8 +298,11 @@ def test_int8_paged_attention_refuses(dev):
 
     q, kp, vp, tbl, pos = _arena(dev, torch.float32, 2, 64, seed=7)
     kq, vq = QuantizedKV(*quantize_kv(kp)), QuantizedKV(*quantize_kv(vp))
-    with pytest.raises(TypeError, match="float32 or bfloat16 q"):
+    # an fp16 q names its ROADMAP line (no fp16 paged kernel yet)
+    with pytest.raises(TypeError, match="queue B, fp16 item 4"):
         tpa.paged_attention(q.half(), kq, vq, tbl, pos)
+    with pytest.raises(TypeError, match="float32 or bfloat16 q"):
+        tpa.paged_attention(q.double(), kq, vq, tbl, pos)
     bad = QuantizedKV(kq.q, kq.scale[..., :1].contiguous())
     with pytest.raises(ValueError, match="scales"):
         tpa.paged_attention(q, bad, vq, tbl, pos)
@@ -340,8 +343,10 @@ def test_int8_matmul_leading_dims_and_refusals(dev):
     y = tim.int8_matmul(x, wq, sc)
     assert y.shape == (2, 5, 48)
     assert _cast_once_ok(y, tim.int8_matmul_reference(x, wq, sc), 1e-5)
-    with pytest.raises(TypeError, match="float32 or bfloat16 x"):
+    with pytest.raises(TypeError, match="queue B, fp16 item 4"):
         tim.int8_matmul(x.half(), wq, sc)
+    with pytest.raises(TypeError, match="float32 or bfloat16 x"):
+        tim.int8_matmul(x.double(), wq, sc)
     with pytest.raises(TypeError, match="int8 weight"):
         tim.int8_matmul(x, wq.float(), sc)
     with pytest.raises(ValueError, match="multiples of 8"):

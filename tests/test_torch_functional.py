@@ -6,8 +6,8 @@ package's (``paddle_tpu/nn/functional/{attention,norm,loss,common}.py``):
 every reference call below, positional and by keyword, either gives the
 JAX result on the CPU (fp32, 1e-5 relative and 1e-6 absolute: the same
 math summed in other orders) or raises a ``NotImplementedError`` that
-names ROADMAP.md queue A item 5 (dropout while training, a bias, a class
-weight, soft labels, a norm over more than the last axis). Inputs are
+names ROADMAP.md queue A item 5 (dropout while training, a bias, a norm
+over more than the last axis). Inputs are
 made with numpy from a seed and handed to both sides.
 """
 import numpy as np
@@ -76,11 +76,11 @@ CALLS = {
     "cross_entropy_smoothing": ("cross_entropy", (LOGITS, LABEL),
                                 {"label_smoothing": 0.1}, False),
     "cross_entropy_weight_pos": ("cross_entropy", (LOGITS, LABEL, CLASS_W),
-                                 {}, True),
+                                 {}, False),
     "cross_entropy_weight_kw": ("cross_entropy", (LOGITS, LABEL),
-                                {"weight": CLASS_W}, True),
+                                {"weight": CLASS_W}, False),
     "cross_entropy_soft": ("cross_entropy", (LOGITS, SOFT),
-                           {"soft_label": True}, True),
+                           {"soft_label": True}, False),
     "linear_pos": ("linear", (X, WLIN), {}, False),
     "linear_none_bias_kw": ("linear", (X, WLIN), {"bias": None}, False),
     "linear_bias_pos": ("linear", (X, WLIN, B16[:10]), {}, True),

@@ -212,7 +212,9 @@ def test_paged_attention_plain_matches_jax(dtype, case, ref):
     fn = {"fused": jpa.paged_attention_fused,
           "reference": jpa.paged_attention_reference,
           "composed": jpa.paged_attention_composed}[ref]
-    want = fn(qj, kj, vj, tj, pj)
+    # one compiled program a case (op-by-op dispatch compiles every
+    # primitive at each new shape, several times slower on the CPU)
+    want = jax.jit(fn)(qj, kj, vj, tj, pj)
     got = tpa.paged_attention(qt, kt, vt, tt, pt)
     assert got.dtype == qt.dtype and tuple(got.shape) == tuple(qt.shape)
     tol = 3e-2 if dtype == "bfloat16" else 1e-5
@@ -426,10 +428,15 @@ def test_flash_attention_matches_jax(dtype, case):
     (qj, qt), (kj, kt), (vj, vt), (gj, gt) = (
         _both(a, dtype) for a in (qn, kn, vn, gn))
     scale = 1.0 / np.sqrt(d)
-    want_o, vjp = jax.vjp(
-        lambda q, k, v: jfa.flash_attention_fwd(q, k, v, causal=causal,
-                                                scale=scale), qj, kj, vj)
-    want = vjp(gj)
+
+    @jax.jit  # one compiled program a case (see the paged test)
+    def forward_and_vjp(q, k, v, g):
+        o, vjp = jax.vjp(
+            lambda q, k, v: jfa.flash_attention_fwd(q, k, v, causal=causal,
+                                                    scale=scale), q, k, v)
+        return o, vjp(g)
+
+    want_o, want = forward_and_vjp(qj, kj, vj, gj)
     ts = [t.clone().requires_grad_(True) for t in (qt, kt, vt)]
     o, lse = tfa.flash_attention(*ts, causal=causal, return_lse=True)
     o.backward(gt)
@@ -551,11 +558,15 @@ def _stock_flash(qn, kn, vn, gn, dtype, causal):
     q, k, v, g = (_both(a, dtype)[0].transpose(0, 2, 1, 3)
                   for a in (qn, kn, vn, gn))
     scale = 1.0 / np.sqrt(qn.shape[-1])
-    with pltpu.force_tpu_interpret_mode(), jax.enable_x64(False):
+    @jax.jit  # one compiled program (op-by-op is several times slower)
+    def forward_and_vjp(q, k, v, g):
         o, vjp = jax.vjp(lambda q, k, v: stock.flash_attention(
             q, k, v, causal=causal, sm_scale=scale, block_sizes=blocks),
             q, k, v)
-        grads = vjp(g)
+        return o, vjp(g)
+
+    with pltpu.force_tpu_interpret_mode(), jax.enable_x64(False):
+        o, grads = forward_and_vjp(q, k, v, g)
     return [_np(x).transpose(0, 2, 1, 3) for x in (o, *grads)]
 
 

@@ -149,7 +149,9 @@ def _jax_loss_and_grads(jnet, ids, labels):
             logits = jnet(Tensor(jnp.asarray(ids)))
             return jloss(logits, Tensor(jnp.asarray(labels))).mean().value
 
-    loss, grads = jax.value_and_grad(f)(params)
+    # one compiled program (op-by-op dispatch compiles every primitive
+    # of the model and its backward at first use, several times slower)
+    loss, grads = jax.jit(jax.value_and_grad(f))(params)
     jnet.load_functional_state(params)
     return loss, grads
 
