@@ -1,4 +1,4 @@
-"""Automatic mixed precision, level O1 (counterpart of
+"""Automatic mixed precision, the O1 casts (counterpart of
 ``paddle_tpu/amp/auto_cast.py``).
 
 A thread-local state, switched by :func:`auto_cast`, that the port's
@@ -14,7 +14,9 @@ to fp32), RMSNorm sees fp32, and the projections, rope and attention
 run in bf16. ``torch.autocast`` is not used: its op lists differ, and
 the casts must sit where the JAX package puts them.
 
-O2 behaves as O1 inside the train step, as in the JAX trainer
+Every level casts as O1 here, as JAX's hook does (it records the level
+and never reads it). O3 adds fp8 products to O1's casts, in the train
+step (``amp/fp8.py``). O2 behaves as O1 inside the train step, as in the JAX trainer
 (``trainer.py:322-331``), since the casts are the same hook. What makes
 O2 different is :func:`decorate` (``auto_cast.py:108-118``): it casts the
 net's floating parameters and buffers to the low dtype, and the
@@ -44,6 +46,8 @@ BLACK_LIST = frozenset({
     "binary_cross_entropy", "bce_with_logits", "mse_loss", "l1_loss",
     "kl_div", "exp", "log", "pow", "erf",
 })
+
+white_list = WHITE_LIST  # paddle exposes these names
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -83,11 +87,12 @@ def amp_cast(op_name, *tensors):
 
 @contextlib.contextmanager
 def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
-              level="O1", dtype="bfloat16"):
-    """Turn the O1 casts on (or off) for the calling thread."""
-    if level not in ("O0", "O1", "O2"):
-        raise ValueError(f"auto_cast level must be O0, O1 or O2, got "
-                         f"{level!r} (fp8 O3 is not ported)")
+              level="O1", dtype="bfloat16", use_promote=True):
+    """Turn the O1 casts on (or off) for the calling thread. As in JAX
+    (``auto_cast.py:85-105``) ``level`` is recorded and not read: any
+    level with ``enable`` casts as O1 ("O0" too; "O3" is O1's casts, its
+    fp8 products are the trainer's, ``amp/fp8.py``), and ``use_promote``
+    is taken and unused."""
     if isinstance(dtype, str):
         if dtype not in _DTYPES:
             raise ValueError(f"auto_cast dtype must be one of "
@@ -96,7 +101,7 @@ def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
     st = _STATE
     prev = (st.enabled, st.dtype, st.level, st.custom_white,
             st.custom_black)
-    st.enabled = bool(enable) and level != "O0"
+    st.enabled = bool(enable)
     st.dtype = dtype
     st.level = level
     st.custom_white = frozenset(custom_white_list or ())

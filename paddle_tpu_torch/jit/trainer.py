@@ -9,9 +9,12 @@ captured as they are). Each call runs, in the order of the JAX step
 (``trainer.py:319-560``):
 
 1. the forward and the loss, under the O1 casts when ``amp_level`` is
-   "O1" or "O2" in ``amp_dtype`` (bfloat16 or float16; O2 behaves as O1
-   inside the step, as in the JAX trainer: the parameters keep the
-   dtype they have, fp32 unless ``amp.decorate`` cast them); with a
+   "O1", "O2" or "O3" in ``amp_dtype`` (bfloat16 or float16; O2 behaves
+   as O1 inside the step, as in the JAX trainer: the parameters keep the
+   dtype they have, fp32 unless ``amp.decorate`` cast them); O3 also arms
+   ``amp.fp8.fp8_autocast`` with the carried amax histories, so every
+   ``F.linear`` multiplies fp8 operands (e4m3 forward, e5m2 gradient,
+   delayed scaling; ``amp/fp8.py``, JAX ``trainer.py:320-361``); with a
    ``scaler``, the loss times the loss scale;
 2. the backward through torch autograd (the RMSNorm, rope and flash
    attention kernels' backward kernels on the card); a parameter the loss
@@ -40,16 +43,24 @@ a save (``on_step(optimizer._step_count)``, ``:859-864``), and before
 each update the step fences the last snapshot (``manager.fence()``), so
 the update, which writes parameters and moments in place, waits for the
 snapshot's device-to-host copies while the forward and backward overlap
-them. The fp8 extra state the JAX trainer registers waits for AMP O3
-(``ROADMAP.md`` queue A item 3).
+them; it also registers the O3 amax histories as the manager's ``"fp8"``
+extra state (:meth:`fp8_state_dict`, :meth:`load_fp8_state`), so an O3
+resume continues with the saved scales.
+
+Under O3 the histories (``{"linear<n>/x" | "linear<n>/w": [16] fp32}``,
+device tensors) are made at the first step from the sites the forward
+meets, each starting empty (scale 1), as JAX's ``eval_shape`` discovery
+gives them (``trainer.py:794-806``); each step replaces them with the
+forward's updated ones after the backward. Nothing is read back for
+them.
 
 ``attach_sentinel(sentinel)`` and ``attach_watchdog(watchdog)`` wire the
 resilient runtime (``training/resilience.py``, JAX ``trainer.py:132-148``):
 before each step the sentinel may take its pre-step snapshot
-(:meth:`_memory_snapshot`: device copies of the parameters, buffers and
-every optimizer accumulator, enqueued on the step's stream before the
-update writes them in place, plus the step count and the scaler's
-state), the watchdog timestamps the dispatch and the chaos seam
+(:meth:`_memory_snapshot`: device copies of the parameters, buffers,
+every optimizer accumulator and the O3 histories, enqueued on the step's
+stream before the update writes them in place, plus the step count and
+the scaler's state), the watchdog timestamps the dispatch and the chaos seam
 ``train.step_begin`` fires; after it the loss passes the value seam
 ``train.loss`` and goes to the sentinel as a lazy device value (a CUDA
 event a step), which may undo the step (:meth:`_restore_memory_snapshot`,
@@ -89,6 +100,7 @@ import torch
 
 from .. import chaos as _chaos
 from .. import optimizer as opt_mod
+from ..amp import fp8 as _fp8_mod
 from ..amp import naninf as _naninf
 from ..amp.auto_cast import auto_cast
 
@@ -113,9 +125,10 @@ class CompiledTrainStep:
                 f"CompiledTrainStep does not support "
                 f"{type(optimizer).__name__}; use the eager path"
             )
-        if amp_level not in (None, "O0", "O1", "O2"):
+        if amp_level not in (None, "O0", "O1", "O2", "O3"):
             raise NotImplementedError(
-                f"amp_level {amp_level!r} is not ported (None, O0, O1, O2)")
+                f"amp_level {amp_level!r} is not one of None, O0, O1, O2, "
+                f"O3")
         if layout_policy is not None:
             raise NotImplementedError(
                 "layout_policy is not ported: sharded layouts wait for the "
@@ -133,6 +146,10 @@ class CompiledTrainStep:
         self._watchdog = None
         self._telemetry = collections.deque()  # steps not published yet
         self._calls = 0
+        # AMP O3: the delayed-scaling amax histories, carried from step to
+        # step (made at the first step)
+        self._fp8_state = None
+        self._fp8_bytes_saved = 0
 
     def attach_checkpoint(self, manager):
         """Wire a ``checkpoint.CheckpointManager`` into the step loop: it
@@ -142,6 +159,8 @@ class CompiledTrainStep:
         manager.bind(self.network, self.optimizer)
         manager._step_fences = True
         self._checkpoint = manager
+        manager.register_extra_state("fp8", self.fp8_state_dict,
+                                     self.load_fp8_state)
         return manager
 
     def attach_sentinel(self, sentinel):
@@ -179,6 +198,8 @@ class CompiledTrainStep:
                 "buffers": [(b, b.clone()) for b in self.network.buffers()],
                 "opt_state": {k: v.clone()
                               for k, v in opt._accumulators.items()},
+                "fp8": (None if self._fp8_state is None else
+                        {k: v.clone() for k, v in self._fp8_state.items()}),
                 "step_count": opt._step_count,
             }
         if self.scaler is not None:
@@ -205,10 +226,37 @@ class CompiledTrainStep:
                     acc.zero_()
                 else:
                     acc.copy_(old)
+        if "fp8" in snap:
+            # the histories are replaced, never written in place; a
+            # snapshot taken before the first O3 step restores none, so
+            # the next step starts from empty histories again (scale 1)
+            self._fp8_state = (None if snap["fp8"] is None
+                               else dict(snap["fp8"]))
         opt._step_count = snap["step_count"]
         if self.scaler is not None and "scaler" in snap:
             (self.scaler._scale, self.scaler._good_steps,
              self.scaler._bad_steps) = snap["scaler"]
+
+    def fp8_state_dict(self):
+        """The AMP O3 delayed-scaling state as host numpy arrays
+        (``{site/operand: amax history}``), for saving beside a
+        checkpoint; empty when O3 is off or no step ran yet."""
+        if self._fp8_state is None:
+            return {}
+        return {k: v.detach().cpu().numpy()
+                for k, v in self._fp8_state.items()}
+
+    def load_fp8_state(self, state):
+        """Restore histories saved by :meth:`fp8_state_dict` (the keys
+        must be the model's sites: the same architecture and call order),
+        onto the network's device."""
+        if not state:
+            return
+        dev = next(self.network.parameters()).device
+        self._fp8_state = {
+            k: torch.as_tensor(np.asarray(v), dtype=torch.float32,
+                               device=dev)
+            for k, v in state.items()}
 
     @staticmethod
     def _normalize_scaler(scaler):
@@ -218,9 +266,15 @@ class CompiledTrainStep:
         return None
 
     def _amp(self):
-        if self.amp_level in ("O1", "O2"):
+        if self.amp_level in ("O1", "O2", "O3"):
+            # every level casts as O1 (auto_cast records it, as JAX's)
             return auto_cast(True, level=self.amp_level,
                              dtype=self.amp_dtype)
+        return contextlib.nullcontext()
+
+    def _fp8(self):
+        if self.amp_level == "O3":
+            return _fp8_mod.fp8_autocast(self._fp8_state)
         return contextlib.nullcontext()
 
     def _build_plan(self):
@@ -318,6 +372,9 @@ class CompiledTrainStep:
                 examples, tokens = obs.batch_geometry(inputs)
                 meter.observe_step(dt, examples=examples, tokens=tokens,
                                    loss=loss, warmup=warmup)
+                if self.amp_level == "O3" and self._fp8_bytes_saved:
+                    # the analytic per-step HBM delta of the fp8 weights
+                    meter.note_fp8_bytes_saved(self._fp8_bytes_saved)
         except Exception:
             pending.clear()
         return len(pending)
@@ -344,7 +401,7 @@ class CompiledTrainStep:
         self.network.train()
         sc = self.scaler
         with _naninf.deferred() as sweep:
-            with self._amp():
+            with self._amp(), self._fp8() as fp8_ctx:
                 out = self.network(*inputs)
                 outs = list(out) if isinstance(out, (list, tuple)) else [out]
                 loss = self.loss_fn(*outs, *labels).float()
@@ -355,6 +412,10 @@ class CompiledTrainStep:
         if sweep is not None:
             # the step's one read of the sweep's flags, before the update
             sweep.check()
+        if fp8_ctx is not None:
+            # the histories with this step's amaxes, device tensors
+            self._fp8_bytes_saved = fp8_ctx.weight_bytes_saved
+            self._fp8_state = fp8_ctx.new_state
         items = [(p, torch.zeros_like(p) if p.grad is None else p.grad, g)
                  for g, p in opt._all_params()]
         opt._step_count += 1

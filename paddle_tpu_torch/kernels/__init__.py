@@ -35,6 +35,12 @@ PyTorch version (counterpart of ``paddle_tpu/kernels``).
   sum of squares and the Adam/AdamW, SGD/Momentum and Lamb updates, each a
   few launches for a whole parameter list
 
+- :mod:`.fp8_matmul` (``csrc/fp8_matmul.cu``) <- no Pallas kernel: the
+  fp8 ``dot_general`` and ``_quantize`` that ``amp/fp8.py`` (AMP O3)
+  leaves to XLA; the fp8 GEMM on the tensor cores (wgmma k32 on e4m3 and
+  e5m2 operands, fp32 promotion every 128 of K) in its three operand
+  forms, and the fp8 quantize (codes, transposed codes, amax)
+
 With these every ``pl.pallas_call`` of the JAX package has a hand-written
 counterpart. Each module counts the kernel launches it made
 (``launches`` for the forward, ``bwd_launches`` for the backward (the
@@ -52,6 +58,7 @@ with nvcc at first use.
 """
 from . import (  # noqa: F401
     flash_attention,
+    fp8_matmul,
     fused_adam,
     fused_norm_matmul,
     fused_rope_attention,
@@ -79,6 +86,8 @@ KERNELS = {
     "mt_adam": (fused_adam, "adam_launches"),
     "mt_momentum": (fused_adam, "momentum_launches"),
     "mt_lamb": (fused_adam, "lamb_launches"),
+    "fp8_gemm": (fp8_matmul, "launches"),
+    "fp8_quantize": (fp8_matmul, "quantize_launches"),
 }
 
 # the launches over fp16 tensors, of the totals above

@@ -91,6 +91,12 @@ SIGNATURES = {
     # x, w, wm, out, rstd, work, rows, K, N, eps, stream (fp32, the
     # split design)
     "ptt_rms_norm_matmul_split": [_P] * 6 + [_I] * 3 + [_F, _P],
+    # a, bt, sa, sb, out, M, N, K, a format, bt format (0 e4m3, 1 e5m2),
+    # out dtype, stream (csrc/fp8_matmul.cu)
+    "ptt_fp8_gemm": [_P] * 5 + [_I] * 6 + [_P],
+    # x, q (or null), qt (or null), amax (or null), scale (or null), rows,
+    # cols, x dtype, e5m2, stream
+    "ptt_fp8_quantize": [_P] * 5 + [_I] * 4 + [_P],
     # stream: an empty kernel (the launch floor)
     "ptt_empty": [_P],
     # q, k, v, o, dout, lse, delta, dq, dk, dv, batch, heads, sq, sk,

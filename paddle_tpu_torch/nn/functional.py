@@ -20,6 +20,7 @@ import math
 
 import torch
 
+from ..amp import fp8 as _fp8
 from ..amp import naninf as _naninf
 from ..amp.auto_cast import amp_cast
 from ..kernels import flash_attention as _flash
@@ -39,10 +40,14 @@ def _not_ported(what):
 def linear(x, weight, bias=None, name=None):
     """``x @ weight`` with paddle's ``[in, out]`` weight, the reference's
     parameter list (``common.py:31``); a bias is refused (the Llama
-    projections carry none)."""
+    projections carry none). Inside an armed fp8 context (AMP O3,
+    ``amp/fp8.py``) the product runs on fp8 operands, after the O1 cast,
+    as JAX's ``_linear`` routes it (``common.py:17-27``)."""
     if bias is not None:
         _not_ported("linear's bias")
     x, weight = amp_cast("linear", x, weight)
+    if _fp8.active():
+        return _fp8.fp8_linear_value(x, weight, None)
     return torch.matmul(x, weight)
 
 

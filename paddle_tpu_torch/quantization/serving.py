@@ -7,21 +7,22 @@ buffers (not parameters), and runs through the W8A16 matmul
 (``kernels/int8_matmul.py``: the hand-written kernel on a CUDA tensor,
 its plain version on the CPU) for every input shape.
 
-The pass is idempotent: a QuantizedLinear is never re-rounded. PTQ and
-QAT (``ObservedLayer`` and its calibrated scales, ``_from_observed``)
-are not ported; a model holding such a layer is refused.
+The pass is idempotent: a QuantizedLinear is never re-rounded. A
+PTQ/QAT-converted ``ObservedLayer`` around a Linear keeps its calibrated
+per-channel weight scales (``_from_observed``: the weight divided by the
+frozen scales, by the same rounding rule); a per-tensor or non-8-bit
+observed scale gets fresh per-channel scales from the weight, as a bare
+Linear does.
 """
 from __future__ import annotations
 
 import copy
 
+import numpy as np
 import torch
 from torch import nn
 
-PTQ_QAT_NOT_PORTED = (
-    "PTQ/QAT ObservedLayer conversion (_from_observed) is not ported yet: "
-    "ROADMAP.md queue A item 3"
-)
+from .qat import ObservedLayer, _swap_layers
 
 
 class QuantizedLinear(nn.Module):
@@ -74,41 +75,66 @@ def quantize_linear_weight(weight):
     return quantize_weight(weight.detach())
 
 
+def _requantize_with_scales(weight, scales):
+    """Quantize ``[in, out]`` with calibrated per-channel scales (the
+    PTQ/QAT observed absmax path: the weight divided by the frozen
+    scales instead of fresh ones; the rounding rule itself is
+    ``kernels/int8_matmul.quantize_weight_with_scales``)."""
+    from ..kernels.int8_matmul import quantize_weight_with_scales
+
+    w = weight.detach()
+    return quantize_weight_with_scales(
+        w, torch.as_tensor(np.asarray(scales, np.float32), device=w.device))
+
+
+def _is_linear(layer):
+    from ..nn import Linear
+
+    return isinstance(layer, Linear)
+
+
 def _from_linear(lin):
     with torch.no_grad():
         wq, ws = quantize_linear_weight(lin.weight)
     return QuantizedLinear(wq, ws, bias=getattr(lin, "bias", None))
 
 
-def _swap_layers(model, make):
-    """Replace matching submodules in place (``qat.py:86``); does not
-    recurse into a QuantizedLinear."""
-    for name, child in list(model.named_children()):
-        replacement = make(child)
-        if replacement is not None:
-            setattr(model, name, replacement)
-        elif not isinstance(child, QuantizedLinear):
-            _swap_layers(child, make)
-    return model
+def _from_observed(obs):
+    inner = obs._inner
+    if not _is_linear(inner):
+        return None
+    ws = obs.weight_scale
+    per_channel = (
+        ws is not None
+        and int(obs.weight_bits) == 8
+        and np.ndim(ws) == 1
+        and np.shape(ws)[0] == int(inner.weight.shape[-1])
+    )
+    if per_channel:
+        with torch.no_grad():
+            wq, s = _requantize_with_scales(inner.weight, ws)
+        return QuantizedLinear(wq, s, bias=getattr(inner, "bias", None))
+    # per-tensor or non-8-bit observed scales: fresh per-channel absmax
+    # (tighter than a per-tensor scale)
+    return _from_linear(inner)
 
 
 def quantize_for_serving(model, inplace=False):
-    """Convert every Linear's weight to an (int8, scale) pair run by the
-    W8A16 kernel. Returns the converted model (a deep copy unless
+    """Convert every Linear's weight (and every PTQ/QAT ``ObservedLayer``
+    around one, with its calibrated scales) to an (int8, scale) pair run
+    by the W8A16 kernel. Returns the converted model (a deep copy unless
     ``inplace=True``; in place, the float weights are freed as their
     layers are swapped, so the peak stays near the float model's size).
     Calling it again on the result changes nothing."""
-    from ..nn import Linear
-
     if not inplace:
         model = copy.deepcopy(model)
 
     def make(layer):
         if isinstance(layer, QuantizedLinear):
             return None  # idempotence: int8 weights are never re-rounded
-        if type(layer).__name__ == "ObservedLayer":
-            raise NotImplementedError(PTQ_QAT_NOT_PORTED)
-        if isinstance(layer, Linear):
+        if isinstance(layer, ObservedLayer):
+            return _from_observed(layer)
+        if _is_linear(layer):
             return _from_linear(layer)
         return None
 

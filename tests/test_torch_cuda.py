@@ -1603,3 +1603,99 @@ def test_reload_swap_keeps_addresses_on_card(dev, tmp_path):
     assert eng.compile_counts() == captures
     assert ptrs == [p.data_ptr()
                     for p in net.state_dict(keep_vars=True).values()]
+
+
+# ------------------------------------------------------------------ fp8
+def _fp8_operands(dev, m, n, k, fa, fb, seed=0):
+    """fp8 codes ``a [m, k]`` and ``bt [n, k]`` of normal values through
+    the plain quantize, and two scales."""
+    from paddle_tpu_torch.kernels import fp8_matmul as tf8
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn(m, k, device=dev, generator=g)
+    b = torch.randn(n, k, device=dev, generator=g) * 3
+    sa = torch.tensor(0.011, device=dev)
+    sb = torch.tensor(0.02, device=dev)
+    return (tf8.quantize_reference(a, sa, fa)[0],
+            tf8.quantize_reference(b, sb, fb)[0], sa, sb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forms", [("e4m3", "e4m3"), ("e5m2", "e4m3"),
+                                   ("e4m3", "e5m2")])
+@pytest.mark.parametrize("shape", [(256, 384, 2048), (200, 136, 2064),
+                                   (129, 77, 2056)])
+def test_fp8_gemm_kernel(dev, forms, shape):
+    """The three operand forms, every output type, ragged tiles (and a
+    K that is no multiple of 16: the wrapper pads it): within the fp32
+    summation bound plus half an ulp of the output, bit-equal on a
+    repeat. With the fp32 promotion every 128 of K the kernel's sums came
+    to 0.74 of the fp32 bound at K 1024 and 0.086 at K 4096 (fp32 out, on
+    the H100): the tests keep K at 2048 and more."""
+    from paddle_tpu_torch.kernels import fp8_matmul as tf8
+
+    m, n, k = shape
+    a, bt, sa, sb = _fp8_operands(dev, m, n, k, *forms)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        before = tf8.launches
+        out = tf8.gemm(a, bt, sa, sb, dtype)
+        assert tf8.launches == before + 1 and out.dtype == dtype
+        err, tol, over = tf8.gemm_error(out, a, bt, sa, sb)
+        assert over <= 1.0, (dtype, err, tol, over)
+        assert torch.equal(out, tf8.gemm(a, bt, sa, sb, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_fp8_quantize_kernel(dev, fmt, dtype):
+    """Codes bit-equal to the plain version's (clip, then the cast's
+    round to nearest even), in both layouts, and the amax exact, over
+    values from 1e-4 to past the format's range; the amax alone."""
+    from paddle_tpu_torch.kernels import fp8_matmul as tf8
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    shape = (300, 520)
+    mag = 10.0 ** (torch.rand(shape, device=dev, generator=g) * 8 - 4)
+    sign = torch.randint(0, 2, shape, device=dev, generator=g) * 2 - 1
+    x = (mag * sign).to(dtype)
+    for s in (1.0, 0.37, 3.1e-3):
+        scale = torch.tensor(s, device=dev)
+        before = tf8.quantize_launches
+        q, qt, am = tf8.quantize(x, scale, fmt, rows=True, transposed=True,
+                                 amax=True)
+        assert tf8.quantize_launches == before + 1
+        wq, wqt, wam = tf8.quantize_reference(x, scale, fmt, True, True, True)
+        assert torch.equal(q.view(torch.uint8), wq.view(torch.uint8))
+        assert torch.equal(qt.view(torch.uint8), wqt.view(torch.uint8))
+        assert float(am) == float(wam)
+    _, _, am = tf8.quantize(x, None, fmt, rows=False, amax=True)
+    assert float(am) == float(x.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_o3_linear_on_the_card_matches_cpu(dev):
+    """One fp8 linear forward and backward on the card against the CPU
+    (the plain versions) from the same inputs: the codes the same, the
+    products within the summation bound plus the rounding to bf16."""
+    from paddle_tpu_torch.amp import fp8
+
+    gen = np.random.RandomState(3)
+    x = torch.from_numpy(gen.randn(512, 1024).astype(np.float32))
+    w = torch.from_numpy((gen.randn(1024, 384) * 0.05).astype(np.float32))
+    g = torch.from_numpy(gen.randn(512, 384).astype(np.float32))
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        xd = x.to(d, torch.bfloat16).requires_grad_(True)
+        wd = w.to(d, torch.bfloat16).requires_grad_(True)
+        with fp8.fp8_autocast(None) as ctx:
+            out = fp8.fp8_linear_value(xd, wd, None)
+        out.backward(g.to(d, torch.bfloat16))
+        outs[d.type] = [t.float().cpu() for t in (out, xd.grad, wd.grad)]
+        outs[d.type].append({k: v.cpu() for k, v in ctx.new_state.items()})
+    for got, want in zip(outs["cuda"][:3], outs["cpu"][:3]):
+        # K 1024 fp32 sums in another order; both sides round to bf16
+        assert _err(got, want) <= 2.0 ** -7 * float(want.abs().max())
+    for k, v in outs["cpu"][3].items():
+        assert torch.equal(outs["cuda"][3][k], v), k

@@ -358,12 +358,37 @@ def test_quantized_llama_matches_jax(qnets):
 
 
 def test_quantize_for_serving_refuses_observed_layers():
-    class ObservedLayer(torch.nn.Module):  # the JAX PTQ/QAT wrapper's name
-        pass
+    """An ``ObservedLayer`` is no longer refused: one around a Linear
+    becomes a QuantizedLinear with its calibrated per-channel scales
+    (floored at 1e-8, as JAX's), one with a per-tensor scale gets fresh
+    per-channel scales, and one around another layer stays as it is."""
+    from paddle_tpu_torch.kernels.int8_matmul import quantize_weight
+    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.quantization.qat import ObservedLayer
 
-    model = torch.nn.Sequential(ObservedLayer())
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        quantize_for_serving(model)
+    rng = np.random.RandomState(12)
+    lins = [Linear(8, 4, device="cpu") for _ in range(2)]
+    for lin in lins:
+        with torch.no_grad():
+            lin.weight.copy_(torch.from_numpy(
+                rng.randn(8, 4).astype(np.float32)))
+    scales = (np.abs(rng.randn(4)) * 0.01).astype(np.float32)
+    scales[1] = 0.0
+    model = torch.nn.Sequential(
+        ObservedLayer(lins[0], 0.1, scales),
+        ObservedLayer(lins[1], None, 0.02),
+        ObservedLayer(torch.nn.ReLU(), 0.1, None))
+    out = quantize_for_serving(model)
+    assert type(out[0]).__name__ == type(out[1]).__name__ == \
+        "QuantizedLinear"
+    assert isinstance(out[2], ObservedLayer)
+    s = np.maximum(scales, 1e-8)
+    want = np.clip(np.round(lins[0].weight.detach().numpy() / s), -127, 127)
+    np.testing.assert_array_equal(out[0].weight_q.numpy(), want)
+    np.testing.assert_array_equal(out[0].weight_scale.numpy(), s)
+    wq, ws = quantize_weight(lins[1].weight.detach())
+    assert torch.equal(out[1].weight_q, wq)
+    assert torch.equal(out[1].weight_scale, ws)
 
 
 def test_int8_streams_equal_jax_generate():

@@ -118,9 +118,12 @@ def test_auto_cast_places_casts_like_jax():
         with auto_cast(False):
             assert amp_cast("linear", x32).dtype == torch.float32
     assert amp_cast("linear", x32).dtype == torch.float32
-    with pytest.raises(ValueError):
-        with auto_cast(True, level="O3"):
-            pass
+    # every level casts as O1, as JAX's hook (it records the level and
+    # never reads it): O3 included, O0 with enable too
+    for level in ("O0", "O3"):
+        with auto_cast(True, level=level, use_promote=True):
+            assert amp_cast("linear", x32).dtype == torch.bfloat16
+            assert amp_cast("cross_entropy", x16).dtype == torch.float32
 
 
 # ------------------------------------------------------- the tiny Llama
