@@ -347,10 +347,9 @@ fp16, the eager optimizers and the NaN/Inf sweep add: to phase 3, the
 fp16 kernel cases (``fp16_kernel_cases``: RMSNorm and rope forward and
 backward, flash attention forward and backward at the training shapes,
 and ``mt_sumsq`` / ``mt_adam`` over the 75 tensors with fp16 parameters
-and gradients, each against its plain version in fp16 on the card; the
-fp16 flash forward at head dim 256 checked, its backward refused naming
-ROADMAP.md queue B; an inf gradient must set the skip flag and leave
-every parameter and moment bit-equal); after the optimizer sub-phase of
+and gradients, each against its plain version in fp16 on the card; an
+inf gradient must set the skip flag and leave every parameter and
+moment bit-equal); after the optimizer sub-phase of
 phase 6: ``fp16 training`` (the training model, O1 fp16 with JAX's
 ``GradScaler`` defaults, 10 steps: every loss finite after the scaler's
 first skips, step 1's loss within FP16_LOSS_RTOL of the bf16 O1 step 1,
@@ -403,6 +402,26 @@ from its frozen scales bit-equal to a direct quantization, checked one
 layer at a time) before ``quantize_for_serving``. The kernels line gains
 ``fp8_gemm`` and ``fp8_quantize``, and ``launches_by_phase`` gains
 ``o3_training`` and ``o3_tiny_parity``.
+
+fp16 to the end adds: to ``fp16_kernel_cases``, every other kernel in
+fp16 (a decorate O2 net's dtype): paged attention with an fp16 q over
+bf16, fp32 and int8 arenas at the 7B decode shape, the W8A16 matmul and
+the fused head at 8 and 1024 rows, the rope-on-load attention at head
+dims 128 (tensor cores), 32 and 256 (split design) and its backward,
+the flash backward at head dims 160, 192 and 256 (the split kernels on
+two exact bf16 parts of each operand), and the CUDA-core flash kernels
+in fp16; after each fp16 training step, the same step with both
+fusions (``fused fp16 training``: O1, the rope-on-load attention on fp16
+q, k and v; ``fused fp16 O2 (decorate)``: the fused head in fp16 too;
+step 1's loss within FUSED_LOSS_RTOL of the unfused one, the launch
+counts by structure, the fused kernels on their tensor-core designs);
+and after the quantized serving phase, ``fp16 serving``: Llama-2-7B
+decorated O2 fp16 through the engines as CUDA-graph programs, five legs
+(paged over a bf16 arena; with the fused head; the slab engine; paged
+over an int8 arena; the net quantized in place), each leg's launches by
+formula and every token teacher-forced against the cache-free forward.
+``launches_by_phase`` gains ``fp16_serving``, ``fp16_fused_training``
+and ``fp16_fused_o2``.
 
 ``--profile-steps N`` profiles N replays of the spec phase's decode
 program (its verify) and draft decode, and N decode steps after each serving phase
@@ -735,13 +754,37 @@ def paged_bound(pos, q, kvh, d, kv_bytes, dname):
     return bound(nbytes, 4 * slots * h * d, dname)
 
 
-def paged_cases(torch, mod, dev):
+def paged_check(torch, dname, o, ref, v_live):
+    """The paged attention check: bf16 and fp32 within PAGED_TOL of the
+    plain version; an fp16 q entry by entry within 2^-10 of the entry plus
+    2^-10 of the largest live |v| (``v_live``: both sides round the
+    normalised probabilities to fp16, and two fp32 softmaxes summed in
+    other orders may round one probability an fp16 ulp apart, which moves
+    an entry by at most 2^-11 max|v|; the CPU tests' bound). Returns the
+    case's fields."""
+    if dname != "float16":
+        return {"max_abs_err": max_err(torch, o, ref),
+                "tolerance": PAGED_TOL[dname]}
+    vmax = float(v_live.float().abs().max())
+    cs, worst = checks(torch, [("o", o, ref, REL_TOL["float16"], 0.0,
+                                REL_TOL["float16"] * vmax)])
+    return {"checks": cs, "max_abs_err": worst["max_abs_err"],
+            "tolerance": worst["tolerance"],
+            "err_over_tol": worst["err_over_tol"]}
+
+
+def paged_cases(torch, mod, dev, shapes=PAGED_SHAPES):
+    """Each shape ``(q dtype, heads, kv heads, head_dim, positions[, arena
+    dtype])`` (the arena in q's dtype unless named) against the plain
+    version, bit-equal on a repeat, timed beside its bound."""
     out = []
     g = torch.Generator(device=dev).manual_seed(3)
-    for dname, h, kvh, d, positions in PAGED_SHAPES:
+    for dname, h, kvh, d, positions, *arena in shapes:
         dtype = getattr(torch, dname)
-        q, kp, vp, tbl, pos = paged_inputs(torch, dev, dtype, kvh, g, d, h,
-                                           positions)
+        q, kp, vp, tbl, pos = paged_inputs(
+            torch, dev, getattr(torch, arena[0]) if arena else dtype, kvh,
+            g, d, h, positions)
+        q = q.to(dtype)
         o = mod.paged_attention_cuda(q, kp, vp, tbl, pos)
         ref = mod.paged_attention_reference(q, kp, vp, tbl, pos)
         if not torch.isfinite(o).all():
@@ -749,14 +792,14 @@ def paged_cases(torch, mod, dev):
         if not torch.equal(o, mod.paged_attention_cuda(q, kp, vp, tbl, pos)):
             fail(f"paged attention {dname} H {h} kvH {kvh} D {d} does not "
                  f"repeat bit for bit")
-        b_ms, b_by = paged_bound(pos, q, kvh, d, d * q.element_size(), dname)
+        b_ms, b_by = paged_bound(pos, q, kvh, d, d * kp.element_size(),
+                                 dname)
         out.append({
             "shape": {"q": list(q.shape), "pages": list(kp.shape),
                       "pos": [int(p) for p in pos]},
-            "dtype": dname, "heads": h, "kv_heads": kvh, "head_dim": d,
-            "repeats_bitwise": True,
-            "max_abs_err": max_err(torch, o, ref),
-            "tolerance": PAGED_TOL[dname],
+            "dtype": dname, "arena": str(kp.dtype)[6:], "heads": h,
+            "kv_heads": kvh, "head_dim": d, "repeats_bitwise": True,
+            **paged_check(torch, dname, o, ref, vp[1:]),
             "ms": gpu_time_ms(torch, lambda: mod.paged_attention_cuda(
                 q, kp, vp, tbl, pos)),
             "plain_ms": gpu_time_ms(
@@ -869,20 +912,22 @@ PAGED_INT8_SHAPES = (
 )
 
 
-def paged_int8_cases(torch, mod, dev):
-    """Kernel A at the decode shapes of the float flavour: arenas made in
-    fp32 (garbage page 0 at 1e4) and quantized with quantize_kv; q bf16
-    and fp32."""
+def paged_int8_cases(torch, mod, dev, shapes=PAGED_INT8_SHAPES):
+    """Kernel A at the decode shapes of the float flavour (or ``shapes``):
+    arenas made in fp32 (garbage page 0 at 1e4) and quantized with
+    quantize_kv; q bf16 and fp32 (fp16: :func:`paged_check`, over the
+    arena's largest live |v|)."""
     from paddle_tpu_torch.quantization.kv import QuantizedKV, quantize_kv
 
     out = []
     g = torch.Generator(device=dev).manual_seed(4)
-    for dname, h, kvh, d, positions in PAGED_INT8_SHAPES:
+    for dname, h, kvh, d, positions in shapes:
         dtype = getattr(torch, dname)
         q, kp, vp, tbl, pos = paged_inputs(torch, dev, torch.float32, kvh, g,
                                            d, h, positions)
         q = q.to(dtype)
         kq, vq = QuantizedKV(*quantize_kv(kp)), QuantizedKV(*quantize_kv(vp))
+        v_live = vp[1:]
         del kp, vp
         o = mod.paged_attention_int8_cuda(q, kq, vq, tbl, pos)
         ref = mod.paged_attention_reference(q, kq, vq, tbl, pos)
@@ -899,8 +944,7 @@ def paged_int8_cases(torch, mod, dev):
                       "pos": [int(p) for p in pos]},
             "dtype": dname, "heads": h, "kv_heads": kvh, "head_dim": d,
             "arena": "int8", "repeats_bitwise": True,
-            "max_abs_err": max_err(torch, o, ref),
-            "tolerance": PAGED_TOL[dname],
+            **paged_check(torch, dname, o, ref, v_live),
             "ms": gpu_time_ms(torch, lambda: mod.paged_attention_int8_cuda(
                 q, kq, vq, tbl, pos)),
             "plain_ms": gpu_time_ms(
@@ -909,7 +953,7 @@ def paged_int8_cases(torch, mod, dev):
             "library_ms": None,
             "bound_ms": b_ms, "bound_by": b_by,
         })
-        del q, kq, vq, o, ref
+        del q, kq, vq, o, ref, v_live
     torch.cuda.empty_cache()
     return out
 
@@ -1017,23 +1061,25 @@ def int8pack_ms(torch, x, wqs, sc, n_t):
     return ms, None
 
 
-def int8_matmul_cases(torch, mod, dev):
+def int8_matmul_cases(torch, mod, dev, shapes=INT8_MM_SHAPES,
+                      dtypes=None):
     """Kernel B at the decode and prefill shapes against its plain version:
     bf16 x on the tensor-core design (the kernel its row count selects:
     swap-AB up to SWAP_MAX_ROWS, tiled above), fp32 x on the CUDA-core
     one. Timed beside the composed dequantize-then-matmul, the float
     weight's torch.matmul in x's dtype (the float path's cost), and for
     bf16 torch._weight_int8pack_mm where it runs, each over enough
-    weight copies to miss in L2."""
+    weight copies to miss in L2. ``shapes`` and ``dtypes`` (of x) default
+    to the bf16 and fp32 rows."""
     out = []
     g = torch.Generator(device=dev).manual_seed(10)
-    for rows, h, n in INT8_MM_SHAPES:
+    for rows, h, n in shapes:
         w = torch.randn(h, n, generator=g, device=dev) * 0.02
         wq, sc = mod.quantize_weight(w)
         del w
         copies = max(1, -(-L2_FLUSH_BYTES // wq.numel()))
         wqs = [wq] + [wq.clone() for _ in range(copies - 1)]
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes or (torch.bfloat16, torch.float32):
             dname = str(dtype).replace("torch.", "")
             kernel = ("cc" if mod.design(dtype) == "cc" else
                       "swap" if rows <= mod.SWAP_MAX_ROWS else "tiled")
@@ -1364,7 +1410,7 @@ def _norm_matmul_bound(rows, h, n, es, rate):
                  2 * rows * h * n + 4 * rows * h, rate)
 
 
-def norm_matmul_cases(torch, mod, dev):
+def norm_matmul_cases(torch, mod, dev, shapes=NORM_MATMUL_SHAPES):
     """The fused norm + head against its plain version; timed beside
     the unfused path (the port's RMSNorm kernel, then torch.matmul) and,
     for the fp32 split design, beside the CUDA-core kernels it replaced
@@ -1374,7 +1420,7 @@ def norm_matmul_cases(torch, mod, dev):
     out = []
     g = torch.Generator(device=dev).manual_seed(11)
     h, n = 4096, 32000
-    for dname, rows in NORM_MATMUL_SHAPES:
+    for dname, rows in shapes:
         dtype = getattr(torch, dname)
         x = torch.randn(rows, h, generator=g, device=dev).to(dtype)
         w = (1 + 0.1 * torch.randn(h, generator=g, device=dev)).to(dtype)
@@ -1383,7 +1429,7 @@ def norm_matmul_cases(torch, mod, dev):
         before = getattr(mod, f"{design}_launches")
         y = mod.rms_norm_matmul_cuda(x, w, wm, 1e-5)
         if getattr(mod, f"{design}_launches") != before + 1 or design != (
-                "tc" if dname == "bfloat16" else "split"):
+                "split" if dname == "float32" else "tc"):
             fail(f"rms_norm_matmul {dname} {[rows, h, n]} did not run its "
                  f"{design} design")
         ref = mod.rms_norm_matmul_reference(x, w, wm, 1e-5)
@@ -1580,7 +1626,7 @@ ROPE_ATTENTION_SHAPES = (
 )
 
 
-def rope_attention_cases(torch, mod, dev):
+def rope_attention_cases(torch, mod, dev, shapes=ROPE_ATTENTION_SHAPES):
     """The rope-on-load attention against its plain version; timed
     beside the unfused path (the port's rope kernel, then its flash
     forward kernel) and, for the split design, beside the CUDA-core
@@ -1591,7 +1637,7 @@ def rope_attention_cases(torch, mod, dev):
     out = []
     h = 32
     g = torch.Generator(device=dev).manual_seed(12)
-    for dname, causal, b, s, d in ROPE_ATTENTION_SHAPES:
+    for dname, causal, b, s, d in shapes:
         cos_full, sin_full = rope.build_rope_cache(4096, d, device=dev)
         dtype = getattr(torch, dname)
         q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
@@ -1599,10 +1645,10 @@ def rope_attention_cases(torch, mod, dev):
         # leading rows of a longer table, as the model passes them
         cos, sin = cos_full[:, :s], sin_full[:, :s]
         design = mod.design(dtype, d)
-        # bf16 at a padded 64 to 128 on the tensor-core kernel, every
-        # other case on the split design
+        # bf16 and fp16 at a padded 64 to 128 on the tensor-core kernel,
+        # every other case on the split design
         padded = -(-d // 16) * 16
-        want = ("tc" if dname == "bfloat16" and 64 <= padded <= 128
+        want = ("tc" if dname != "float32" and 64 <= padded <= 128
                 else "split")
         before = getattr(mod, f"{design}_launches")
         o = mod.rope_attention_cuda(q, k, v, cos, sin, causal)
@@ -1669,7 +1715,8 @@ ROPE_ATTENTION_BWD_SHAPES = (("bfloat16", 128), ("float32", 128),
                              ("float32", 256))
 
 
-def rope_attention_bwd_cases(torch, mod, dev):
+def rope_attention_bwd_cases(torch, mod, dev,
+                             shapes=ROPE_ATTENTION_BWD_SHAPES):
     """The fused attention's backward (``rope_attention_backward``: the
     rope and flash kernels composed in fp32, the JAX ``_bwd``) against the
     plain VJP on the card (autograd through the plain forward), within
@@ -1683,7 +1730,7 @@ def rope_attention_bwd_cases(torch, mod, dev):
     h = 32
     b, s = TRAIN_BATCH, TRAIN_SEQ
     g = torch.Generator(device=dev).manual_seed(13)
-    for dname, d in ROPE_ATTENTION_BWD_SHAPES:
+    for dname, d in shapes:
         dtype = getattr(torch, dname)
         q, k, v, gr = (torch.randn(b, s, h, d, generator=g, device=dev)
                        .to(dtype) for _ in range(4))
@@ -2169,14 +2216,41 @@ def multi_tensor_cases(torch, mod, dev):
 # ------------------------------------------------------------ fp16
 # the fp16 flash cases (the O1 and O2 fp16 steps attend in fp16): the
 # training shape, head dim 64, a ragged causal S 1000 and head dim 80
-# (padded to the 128-wide kernels); the backward takes head dims up to
-# 128 in fp16 (above: ROADMAP.md queue B, fp16 item 3)
+# (padded to the 128-wide kernels)
 FP16_FLASH_SHAPES = (
     ("float16", True, TRAIN_BATCH, 2048, 2048, 128),
     ("float16", True, TRAIN_BATCH, 2048, 2048, 64),
     ("float16", True, 1, 1000, 1000, 128),
     ("float16", True, TRAIN_BATCH, 2048, 2048, 80),
+    # above 128 the backward runs the split kernels on two exact bf16
+    # parts of each fp16 operand (and times the CUDA-core kernels beside)
+    ("float16", True, TRAIN_BATCH, 2048, 2048, 160),
+    ("float16", True, TRAIN_BATCH, 2048, 2048, 192),
+    ("float16", True, TRAIN_BATCH, 2048, 2048, 256),
 )
+# the serving and fusion kernels in fp16, a decorate O2 net's: paged
+# attention with an fp16 q over the bf16 (the serving default) and fp32
+# arenas and over int8 ones at the 7B decode shape; the W8A16 matmul and
+# the fused head at the decode step's 8 rows and a 1024-row prefill
+# bucket; the rope-on-load attention at the training shape (D 128 on the
+# tensor-core kernel, D 32 and 256 on the split design) and its backward
+FP16_PAGED_SHAPES = (
+    ("float16", 32, 32, 128, DECODE_POS, "bfloat16"),
+    ("float16", 32, 32, 128, DECODE_POS, "float32"),
+)
+FP16_PAGED_INT8_SHAPES = (("float16", 32, 32, 128, DECODE_POS),)
+FP16_INT8_MM_SHAPES = ((8, 4096, 4096), (1024, 4096, 22016))
+FP16_NORM_MATMUL_SHAPES = (("float16", 8), ("float16", 1024))
+FP16_ROPE_ATTENTION_SHAPES = (
+    ("float16", True, TRAIN_BATCH, TRAIN_SEQ, 128),
+    ("float16", True, TRAIN_BATCH, TRAIN_SEQ, 32),
+    ("float16", True, TRAIN_BATCH, TRAIN_SEQ, 256),
+)
+FP16_ROPE_ATTENTION_BWD_SHAPES = (("float16", 128),)
+# the CUDA-core flash kernels in fp16 (cuda_cores=True, the design the
+# tensor-core ones replaced, kept to compare with): held to the plain
+# version at these head dims, B 1, S 512, H 8
+FP16_FLASH_CC_DIMS = (128, 256)
 
 
 def mt_fp16_cases(torch, mod, dev):
@@ -2468,15 +2542,56 @@ def fp8_kernel_cases(torch, mod, dev):
             "fp8_quantize": fp8_quantize_cases(torch, mod, dev)}
 
 
+def flash_cuda_core_fp16_cases(torch, flash, dev):
+    """The CUDA-core flash kernels on fp16 (``cuda_cores=True``) at
+    FP16_FLASH_CC_DIMS: forward and backward against the plain version in
+    fp16, cast once plus the probability rounding slack (they keep P and
+    dS in fp32, which moves an entry by less than it). Returns one record
+    a head dim."""
+    g = torch.Generator(device=dev).manual_seed(26)
+    out = []
+    for d in FP16_FLASH_CC_DIMS:
+        q, k, v, do = (torch.randn(1, 512, 8, d, generator=g, device=dev)
+                       .half() for _ in range(4))
+        before = flash.cc_launches, flash.cc_bwd_launches
+        o, lse = flash.flash_attention_cuda(q, k, v, True, cuda_cores=True)
+        grads = flash.flash_attention_backward_cuda(q, k, v, o, lse, do, True,
+                                                    cuda_cores=True)
+        if (flash.cc_launches, flash.cc_bwd_launches) != (
+                before[0] + 1, before[1] + 1):
+            fail(f"flash fp16 cuda_cores D {d}: not counted on the CUDA "
+                 f"cores")
+        ro, _ = flash.flash_attention_reference(q, k, v, True)
+        want = flash.flash_attention_backward_reference(q, k, v, o, lse, do,
+                                                        True)
+        o_slack, slacks = flash.probability_rounding_slack(q, k, v, lse, o,
+                                                           do, True)
+        cs, worst = checks(torch, [
+            cast_once("o", o, ro, REL_TOL["float32"], "float16", o_slack)] + [
+            cast_once(n, gr, w, SUM_TOL32, "float16", sl)
+            for n, gr, w, sl in zip(("dq", "dk", "dv"), grads, want,
+                                    slacks)])
+        if worst["err_over_tol"] > 1.0:
+            fail(f"flash fp16 cuda_cores D {d}: {worst}")
+        out.append({"d": d, "shape": [1, 512, 8, d], "checks": cs,
+                    "err_over_tol": worst["err_over_tol"]})
+        del q, k, v, do, o, lse, grads, ro, want, o_slack, slacks
+    return out
+
+
 def fp16_kernel_cases(torch, kernels, dev):
-    """The fp16 kernels at the training shapes, each against its plain
-    version run in fp16 on the card (tolerances as bf16's with fp16's
-    ulp, ``REL_TOL``): RMSNorm forward and backward at [4096, 4096] (the
-    O2 residual stream), rope forward and backward at [2, 2048, 32, 128],
-    flash attention forward and backward (``FP16_FLASH_SHAPES``), and
-    ``mt_sumsq`` / ``mt_adam`` (:func:`mt_fp16_cases`). Also: the fp16
-    forward at head dim 256 runs and matches, and the fp16 backward there
-    raises a TypeError naming ROADMAP.md queue B."""
+    """The fp16 kernels, each against its plain version run in fp16 on
+    the card (tolerances as bf16's with fp16's ulp, ``REL_TOL``): at the
+    training shapes RMSNorm forward and backward at [4096, 4096] (the O2
+    residual stream), rope forward and backward at [2, 2048, 32, 128],
+    flash attention forward and backward (``FP16_FLASH_SHAPES``, the
+    backward above head dim 128 on the split kernels' two-part operands),
+    ``mt_sumsq`` / ``mt_adam`` (:func:`mt_fp16_cases`); a decorate O2
+    net's serving and fusion kernels (``FP16_*_SHAPES``: paged attention
+    with an fp16 q over bf16, fp32 and int8 arenas, the W8A16 matmul and
+    the fused head at decode and prefill, the rope-on-load attention and
+    its backward); and the CUDA-core flash kernels in fp16
+    (:func:`flash_cuda_core_fp16_cases`, logged)."""
     f16 = torch.float16
     rms, rope, flash = (kernels.rms_norm, kernels.rope,
                         kernels.flash_attention)
@@ -2508,29 +2623,22 @@ def fp16_kernel_cases(torch, kernels, dev):
     fwd, bwd = flash_cases(torch, flash, dev, FP16_FLASH_SHAPES)
     out["flash_attention_fwd_fp16"], out["flash_attention_bwd_fp16"] = \
         fwd, bwd
-    # head dim 256: the forward on the 256-wide fp16 kernel, the backward
-    # refused
-    q, k, v = (torch.randn(1, 512, 8, 256, generator=g, device=dev).to(f16)
-               for _ in range(3))
-    o, lse = flash.flash_attention_cuda(q, k, v, True)
-    ro, _ = flash.flash_attention_reference(q, k, v, True)
-    cs, worst = checks(torch, [cast_once(
-        "o", o, ro, REL_TOL["float32"], "float16",
-        flash.probability_rounding_slack(q, k, v, lse, causal=True))])
-    if worst["err_over_tol"] > 1.0:
-        fail(f"flash forward fp16 D 256: {worst}")
-    try:
-        flash.flash_attention_backward_cuda(q, k, v, o, lse, o, True)
-    except TypeError as e:
-        if "queue B" not in str(e):
-            fail(f"flash backward fp16 D 256 raised without its ROADMAP "
-                 f"line: {e}")
-    else:
-        fail("flash backward fp16 D 256 ran: it has no fp16 kernel")
-    log("kernel flash_attention fp16 D 256: " + json.dumps(
-        {"forward": worst, "backward": "TypeError naming queue B"}))
-    del q, k, v, o, lse, ro
+    for rec in flash_cuda_core_fp16_cases(torch, flash, dev):
+        log("kernel flash_attention fp16 cuda_cores: " + json.dumps(rec))
     out.update(mt_fp16_cases(torch, kernels.fused_adam, dev))
+    out["paged_attention_fp16"] = paged_cases(
+        torch, kernels.paged_attention, dev, FP16_PAGED_SHAPES)
+    out["paged_attention_int8_fp16"] = paged_int8_cases(
+        torch, kernels.paged_attention, dev, FP16_PAGED_INT8_SHAPES)
+    out["int8_matmul_fp16"] = int8_matmul_cases(
+        torch, kernels.int8_matmul, dev, FP16_INT8_MM_SHAPES, (f16,))
+    out["rms_norm_matmul_fp16"] = norm_matmul_cases(
+        torch, kernels.fused_norm_matmul, dev, FP16_NORM_MATMUL_SHAPES)
+    out["rope_attention_fp16"] = rope_attention_cases(
+        torch, kernels.fused_rope_attention, dev, FP16_ROPE_ATTENTION_SHAPES)
+    out["rope_attention_bwd_fp16"] = rope_attention_bwd_cases(
+        torch, kernels.fused_rope_attention, dev,
+        FP16_ROPE_ATTENTION_BWD_SHAPES)
     torch.cuda.empty_cache()
     return out
 
@@ -2593,12 +2701,11 @@ KERNELS = [
      ":195-202; plain jax, no pl.pallas_call)"),
 ]
 # the fp16 kernels in the kernels line: the same kernels at fp16 (cases:
-# fp16_kernel_cases; launches: the fp16 phases' fp16 counters)
+# fp16_kernel_cases; launches: the fp16 phases' fp16 counters), every
+# kernel of the table and the two updates the eager O2 step runs in fp16
 FP16_LINE = [(f"{name}_fp16", src, replaces) for name, src, replaces in
-             KERNELS if name in ("rms_norm", "rms_norm_bwd", "rope",
-                                 "rope_bwd", "flash_attention_fwd",
-                                 "flash_attention_bwd", "mt_sumsq",
-                                 "mt_adam")]
+             KERNELS if name not in ("mt_momentum", "mt_lamb", "fp8_gemm",
+                                     "fp8_quantize")]
 # launches per training step, from the model's structure: two RMSNorms
 # per layer and the final one; one rope launch (q and k) per layer; one
 # flash attention per layer; forward and backward each; and from the
@@ -3742,8 +3849,12 @@ def training_phase(torch, np, dev, card, profile_train_steps=0):
     opt_counts = optimizer_phase(torch, np, net, inputs, labels, card)
     gc.collect()
     torch.cuda.empty_cache()
-    fp16_counts = fp16_training(torch, np, net, inputs, labels, losses[0],
-                                card)
+    fp16_counts, fp16_loss0 = fp16_training(torch, np, net, inputs, labels,
+                                            losses[0], card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp16_fused_counts = fp16_fused_training(torch, np, net, inputs, labels,
+                                            fp16_loss0, card)
     gc.collect()
     torch.cuda.empty_cache()
     eager_counts = eager_optimizer_phase(torch, np, net, inputs, labels,
@@ -3751,13 +3862,19 @@ def training_phase(torch, np, dev, card, profile_train_steps=0):
     gc.collect()
     torch.cuda.empty_cache()
     # last: decorate leaves the net in fp16
-    o2_counts = fp16_o2(torch, np, net, inputs, labels, card)
+    o2_counts, o2_loss0 = fp16_o2(torch, np, net, inputs, labels, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    o2_fused_counts = fp16_fused_o2(torch, np, net, inputs, labels, o2_loss0,
+                                    card)
     del net
     gc.collect()
     torch.cuda.empty_cache()
     naninf_counts = naninf_phase(torch, np, dev, card)
     return (counts, fused_counts, fp32_counts, fused_fp32_counts, opt_counts,
             {"fp16_training": fp16_counts, "fp16_o2": o2_counts,
+             "fp16_fused_training": fp16_fused_counts,
+             "fp16_fused_o2": o2_fused_counts,
              "eager_optimizers": eager_counts, "naninf": naninf_counts,
              "o3_training": o3_counts})
 
@@ -4123,7 +4240,10 @@ FP16_O1_PER_STEP = {
     "rope_fp16": TRAIN_LAYERS, "rope_bwd_fp16": TRAIN_LAYERS,
     "flash_attention_fwd_fp16": TRAIN_LAYERS,
     "flash_attention_bwd_fp16": TRAIN_LAYERS,
-    "mt_sumsq_fp16": 0, "mt_adam_fp16": 0}
+    "mt_sumsq_fp16": 0, "mt_adam_fp16": 0, "paged_attention_fp16": 0,
+    "paged_attention_int8_fp16": 0, "int8_matmul_fp16": 0,
+    "rms_norm_matmul_fp16": 0, "rope_attention_fp16": 0,
+    "rope_attention_bwd_fp16": 0}
 O2_STEPS = 3
 EAGER_OPT_STEPS = 3
 # the eager optimizers' single-parameter check: the card's update of one
@@ -4474,6 +4594,103 @@ def fp16_training(torch, np, net, inputs, labels, bf16_loss0, card):
         fail(f"fp16 training: launches {counts}, expected {want}")
     _flash_on_tensor_cores(kernels, want, "fp16 training")
     del step, opt, sched, scaler, loss
+    return counts, losses[0]
+
+
+# the fp16 steps with both fusions (FUSED_TRAIN_STEPS each), on the
+# training model reset to its seed: O1 (q, k and v leave the white-listed
+# projections in fp16 and enter the rope-on-load attention in fp16; the
+# head fuses in fp32, the op being on neither AMP list) and the decorated
+# O2 step (the head fused in fp16 too). Per step: the fused attention and
+# its backward (the rope and flash kernels composed in fp32 after one
+# cast) one each a layer, all on fp16 inputs; O2 adds the fused head on
+# fp16 and its RMSNorms in fp16
+FP16_FUSED_O1_PER_STEP = dict(
+    FP16_O1_PER_STEP, rope_fp16=0, rope_bwd_fp16=0,
+    flash_attention_fwd_fp16=0, flash_attention_bwd_fp16=0,
+    rope_attention_fp16=TRAIN_LAYERS, rope_attention_bwd_fp16=TRAIN_LAYERS)
+
+
+def _fused_fp16_gates(np, kernels, label, losses, first_good, loss0,
+                      ref_loss0, steps):
+    """The fused fp16 steps' shared gates: finite losses after the
+    scaler's first skips, step 1's loss within FUSED_LOSS_RTOL of the
+    unfused fp16 step 1's on the same weights, and the fused attention on
+    its tensor-core design (fp16 at head dim 128) at every call."""
+    if first_good == len(losses) or not all(
+            np.isfinite(losses[first_good:])):
+        fail(f"{label}: non-finite loss after the scaler's first skips "
+             f"({first_good}): {losses}")
+    rel = abs(loss0 - ref_loss0) / abs(ref_loss0)
+    if not rel <= FUSED_LOSS_RTOL:
+        fail(f"{label}: step 1's loss {loss0} is {rel} from the unfused "
+             f"fp16 step's {ref_loss0} (relative; {FUSED_LOSS_RTOL})")
+    designs = kernels.fusion_design_counts()["rope_attention"]
+    if designs["tc_launches"] != TRAIN_LAYERS * steps:
+        fail(f"{label}: the fused attention ran {designs}, expected "
+             f"{TRAIN_LAYERS * steps} launches on the tensor cores")
+    return rel
+
+
+def fp16_fused_training(torch, np, net, inputs, labels, fp16_loss0, card):
+    """The O1 fp16 step of :func:`fp16_training` with both fusions: the
+    training model reset to its seed, ``net.fusions = BOTH_FUSIONS``, a
+    fresh AdamW and ``GradScaler()``, FUSED_TRAIN_STEPS steps. Gates:
+    :func:`_fused_fp16_gates` (step 1 against the unfused fp16 O1 step
+    1), and the fused step's launches (FUSED_TRAIN_PER_STEP) with the
+    fused attention and its backward on fp16 inputs
+    (FP16_FUSED_O1_PER_STEP). Leaves the net unfused. Returns the launch
+    counts."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.models import causal_lm_loss
+    from paddle_tpu_torch.optimizer import (AdamW, ClipGradByGlobalNorm,
+                                            LinearWarmup)
+
+    net.reset_parameters(0)
+    net.fusions = BOTH_FUSIONS
+    sched = LinearWarmup(3e-4, 3, 3e-5, 3e-4)
+    opt = AdamW(sched, parameters=net.named_parameters(), weight_decay=0.01,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    scaler = GradScaler()
+    step = CompiledTrainStep(
+        net, lambda lo, lb: causal_lm_loss(lo, lb).mean(), opt,
+        amp_level="O1", amp_dtype="float16", scaler=scaler)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    losses, times, states = [], [], []
+    for _ in range(FUSED_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss, _ = step([inputs], [labels])
+        sched.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        states.append(_scaler_state(scaler, opt))
+    counts = _all_counts(kernels)
+    skipped = [st[3] for st in states]
+    first_good = skipped.index(False) if False in skipped else len(skipped)
+    rel = _fused_fp16_gates(np, kernels, "fused fp16 training", losses,
+                            first_good, losses[0], fp16_loss0,
+                            FUSED_TRAIN_STEPS)
+    want = {k: n * FUSED_TRAIN_STEPS for k, n in FUSED_TRAIN_PER_STEP.items()}
+    want.update({k: n * FUSED_TRAIN_STEPS
+                 for k, n in FP16_FUSED_O1_PER_STEP.items()})
+    res = {"card": card, "amp_level": "O1", "amp_dtype": "float16",
+           "fusions": list(BOTH_FUSIONS), "steps": FUSED_TRAIN_STEPS,
+           "losses": losses, "step_s": times,
+           "step_p50_s": statistics.median(times),
+           "loss0_vs_unfused_fp16": {"fused": losses[0],
+                                     "unfused": fp16_loss0, "rel": rel,
+                                     "rtol": FUSED_LOSS_RTOL},
+           "launches_per_step": {k: n / FUSED_TRAIN_STEPS
+                                 for k, n in counts.items() if n}}
+    log("fused fp16 training: " + json.dumps(res))
+    if counts != want:
+        fail(f"fused fp16 training: launches {counts}, expected {want}")
+    net.fusions = ()
+    del step, opt, sched, scaler, loss
     return counts
 
 
@@ -4555,6 +4772,82 @@ def fp16_o2(torch, np, net, inputs, labels, card):
     if got != want:
         fail(f"fp16 O2: fp16 launches {got}, expected {want}")
     del opt, scaler, loss
+    return counts, losses[0]
+
+
+def fp16_fused_o2(torch, np, net, inputs, labels, o2_loss0, card):
+    """The decorated O2 step of :func:`fp16_o2` with both fusions: the
+    training model back in fp32, reset to its seed and decorated again
+    (the same fp16 weights as the unfused O2 steps), ``net.fusions =
+    BOTH_FUSIONS``, a fresh AdamW and eager scaler, FUSED_TRAIN_STEPS
+    steps as the unfused ones take them. The fused head now runs in
+    fp16 (x, the norm weight and the lm_head weight fp16: the tensor-core
+    kernel's tiled design at the step's 4096 rows), and the fused
+    attention on fp16 q, k and v. Gates: :func:`_fused_fp16_gates` (step
+    1 against the unfused O2 step 1), and per step the fused head once,
+    the fused attention and its backward once a layer, every RMSNorm but
+    the final one both ways, all on fp16 inputs, and no unfused fp16
+    rope or flash launch. Leaves the net in fp16, unfused. Returns the
+    launch counts."""
+    from paddle_tpu_torch import amp, kernels
+    from paddle_tpu_torch.models import causal_lm_loss
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+
+    net.float()
+    net.reset_parameters(0)
+    opt = AdamW(3e-4, parameters=net.named_parameters(), weight_decay=0.01,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    net, opt = amp.decorate(net, opt, level="O2", dtype="float16")
+    net.fusions = BOTH_FUSIONS
+    scaler = amp.GradScaler()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    losses, times, states = [], [], []
+    for _ in range(FUSED_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        logits = net(inputs)
+        if logits.dtype != torch.float16:
+            fail(f"fused fp16 O2: logits in {logits.dtype}")
+        loss = causal_lm_loss(logits.float(), labels).mean()
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss.detach()))
+        states.append(_scaler_state(scaler, opt))
+    counts = _all_counts(kernels)
+    skipped = [st[3] for st in states]
+    first_good = skipped.index(False) if False in skipped else len(skipped)
+    rel = _fused_fp16_gates(np, kernels, "fused fp16 O2", losses,
+                            first_good, losses[0], o2_loss0,
+                            FUSED_TRAIN_STEPS)
+    layers = net.config.num_hidden_layers
+    per = {"rms_norm_fp16": 2 * layers, "rms_norm_bwd_fp16": 2 * layers,
+           "rms_norm_matmul_fp16": 1, "rope_attention_fp16": layers,
+           "rope_attention_bwd_fp16": layers, "rope_fp16": 0,
+           "rope_bwd_fp16": 0, "flash_attention_fwd_fp16": 0,
+           "flash_attention_bwd_fp16": 0}
+    want = {k: v * FUSED_TRAIN_STEPS for k, v in per.items()}
+    got = {k: counts[k] for k in want}
+    head = kernels.fusion_design_counts()["rms_norm_matmul"]
+    res = {"card": card, "amp_level": "O2 (decorate)",
+           "amp_dtype": "float16", "fusions": list(BOTH_FUSIONS),
+           "steps": FUSED_TRAIN_STEPS, "losses": losses, "step_s": times,
+           "step_p50_s": statistics.median(times),
+           "loss0_vs_unfused_o2": {"fused": losses[0], "unfused": o2_loss0,
+                                   "rel": rel, "rtol": FUSED_LOSS_RTOL},
+           "head_by_design": head,
+           "launches": {k: n for k, n in counts.items() if n}}
+    log("fused fp16 O2 (decorate): " + json.dumps(res))
+    if got != want:
+        fail(f"fused fp16 O2: fp16 launches {got}, expected {want}")
+    if head["tc_launches"] != FUSED_TRAIN_STEPS:
+        fail(f"fused fp16 O2: the fused head ran {head}, expected "
+             f"{FUSED_TRAIN_STEPS} launches on the tensor cores")
+    net.fusions = ()
+    del opt, scaler, loss, logits
     return counts
 
 
@@ -5307,14 +5600,15 @@ def serving_prompts(np, cfg):
     return lens, [rng.randint(0, cfg.vocab_size, (int(n),)) for n in lens]
 
 
-def drive_requests(torch, np, eng, cfg, mode, label):
+def drive_requests(torch, np, eng, cfg, mode, label, max_new=SERVE_MAX_NEW):
     """The serving traffic: 12 requests, prompts of 32-1024 tokens from
-    seed 1234, 64 new tokens each, six at once and six more after 24
-    steps, so late requests take rows that early ones free. The launch
-    counts are zeroed just before and read just after. Returns the run:
-    its handles, prompt lengths, decode steps and prefills, launch
-    counts (and by design), the engine's capture counts before and
-    after, and ``result``, the numbers it prints."""
+    seed 1234, ``max_new`` new tokens each (64), six at once and six more
+    after 24 steps, so late requests take rows that early ones free. The
+    launch counts are zeroed just before and read just after. Returns the
+    run: its handles, prompt lengths, decode steps and prefills, launch
+    counts (and by design, and those over fp16 inputs), the engine's
+    capture counts before and after, and ``result``, the numbers it
+    prints. Works for the paged and the slab engine."""
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.serving.metrics import ServingMetrics
 
@@ -5325,23 +5619,27 @@ def drive_requests(torch, np, eng, cfg, mode, label):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    handles = [eng.submit(p, SERVE_MAX_NEW) for p in prompts[:6]]
+    handles = [eng.submit(p, max_new) for p in prompts[:6]]
     for _ in range(24):
         eng.step()
-    handles += [eng.submit(p, SERVE_MAX_NEW) for p in prompts[6:]]
+    handles += [eng.submit(p, max_new) for p in prompts[6:]]
     steps = 24 + eng.run_until_idle()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
+    fp16_counts = kernels.fp16_launch_counts()
     designs = {"fusions": kernels.fusion_design_counts(),
                "int8_matmul": kernels.int8_matmul_design_counts()}
     peak = torch.cuda.max_memory_allocated()
     for h in handles:
-        if h.status != "DONE" or len(h.tokens) != SERVE_MAX_NEW:
+        if h.status != "DONE" or len(h.tokens) != max_new:
             fail(f"{label} ({mode}): request {h.request.request_id}: "
                  f"status {h.status}, {len(h.tokens)} tokens")
-    if eng.page_pool.pages_in_use:
-        fail(f"{label} ({mode}): {eng.page_pool.pages_in_use} pages leaked")
+    pages = getattr(eng, "page_pool", None)
+    if pages is not None and pages.pages_in_use:
+        fail(f"{label} ({mode}): {pages.pages_in_use} pages leaked")
+    if pages is None and eng.pool.occupancy:  # the slab engine's rows
+        fail(f"{label} ({mode}): {eng.pool.occupancy} rows still held")
     if min(h.admitted_step for h in handles[6:]) < 24:
         fail(f"{label} ({mode}): late requests were not admitted after "
              f"the first wave")
@@ -5367,6 +5665,7 @@ def drive_requests(torch, np, eng, cfg, mode, label):
     return {"mode": mode, "handles": handles, "lens": lens,
             "decode_steps": m.decode_step_time.count,
             "prefills": m.prefill_time.count, "counts": counts,
+            "fp16_counts": fp16_counts,
             "designs": designs, "captures_before": captures,
             "captures": result["captures"], "result": result}
 
@@ -7368,6 +7667,195 @@ def quant_serving_phase(torch, np, dev, card, profile_steps=0):
     return graph_run["counts"], runs[0]["counts"], int8_fleet_counts
 
 
+# the fp16 serving phase: Llama-2-7B decorated O2 fp16 (every parameter
+# fp16, as ``amp.decorate(net, level="O2", dtype="float16")`` leaves it),
+# served through the engines' programs over the caches they keep (JAX
+# keeps no fp16 cache), then with the fused head, then quantized; the
+# requests are the serving traffic's 12 with FP16_SERVE_MAX_NEW new
+# tokens each (half the bf16 phase's: the legs are five)
+FP16_SERVE_MAX_NEW = 32
+FP16_HEAD = frozenset({"rms_norm_matmul"})
+
+
+def _fp16_serve_want(run, layers, attention, head_fused=False, quant=False):
+    """The launches of a run of the decorated net, by the model's
+    structure: per forward (a decode step or a prefill) two RMSNorms a
+    layer and the final one (which the fused head takes over: one fused
+    launch), one rope launch a layer, 193 W8A16 launches when quantized;
+    per decode step one ``attention`` launch a layer (paged, or int8
+    paged; none on the slab, whose attention is composed). Every one of
+    them on fp16 inputs, so each fp16 counter equals its total."""
+    fwd = run["decode_steps"] + run["prefills"]
+    want = dict.fromkeys({**run["counts"], **run["fp16_counts"]}, 0)
+    per = {"rms_norm": (2 * layers + (0 if head_fused else 1)) * fwd,
+           "rope": layers * fwd}
+    if attention:
+        per[attention] = layers * run["decode_steps"]
+    if head_fused:
+        per["rms_norm_matmul"] = fwd
+    if quant:
+        per["int8_matmul"] = QUANT_MM_PER_FORWARD * fwd
+    for k, n in per.items():
+        want[k] = want[f"{k}_fp16"] = n
+    return want
+
+
+def _fp16_serve_leg(torch, np, dev, eng, label, want, logits_of,
+                    programs):
+    """One leg: ``warmup()`` (``programs`` captured, none on a second
+    call), the 12 requests through the programs, the launches ``want(run)``
+    (the totals and those on fp16 inputs), no capture during traffic, and
+    every generated token teacher-forced against ``logits_of``. Returns
+    the run's counts (totals and fp16) and its printed result."""
+    cfg = eng.config
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = eng.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    if stats["programs"] != programs or eng.warmup()["programs"]:
+        fail(f"{label}: warmup() captured {stats['programs']} programs, "
+             f"expected {programs} and none on a second call")
+    run = drive_requests(torch, np, eng, cfg, "graphs", label,
+                         FP16_SERVE_MAX_NEW)
+    counts = {**run["counts"], **run["fp16_counts"]}
+    expected = want(run)
+    if counts != expected:
+        fail(f"{label}: launches {counts}, expected {expected} "
+             f"({run['decode_steps']} decode steps, {run['prefills']} "
+             f"prefills)")
+    moved = {k: run["captures"][k] - run["captures_before"][k]
+             for k in run["captures"]}
+    if any(moved.values()):
+        fail(f"{label}: captures moved {moved} during traffic")
+    ties, gap = teacher_forced(torch, dev, run["handles"], logits_of, label)
+    res = {"warmup_s": warm_s, "programs": stats["programs"],
+           "decode_steps": run["decode_steps"], "prefills": run["prefills"],
+           **{k: run["result"][k] for k in MODE_KEYS},
+           "near_ties": ties, "near_tie_max_gap": gap,
+           "launches": {k: n for k, n in counts.items() if n},
+           "designs": run["designs"]}
+    log(f"{label}: " + json.dumps(res))
+    return counts, res
+
+
+def fp16_serving_phase(torch, np, dev, card):
+    """Llama-2-7B at full width and depth, random weights (seed 0),
+    decorated O2 fp16, served through the engines as CUDA-graph programs
+    (``warmup()``, then the serving traffic), five legs: the paged engine
+    over a bf16 arena (paged attention with an fp16 q), the same engine
+    with the fused head (``fusions={"rms_norm_matmul"}``: the fp16 swap-AB
+    kernel at decode, the tiled one at the larger prefill buckets), the
+    slab engine over a bf16 cache, the paged engine over an int8 arena
+    (int8 paged attention with an fp16 q), and the net quantized in place
+    (``quantize_for_serving``: the W8A16 matmul on fp16 x at decode and
+    prefill) over a bf16 arena. Each leg's launches by formula, every
+    token teacher-forced against the cache-free forward on the card (the
+    int8 arena's against one slab prefill with an int8 cache). Returns
+    the phase's launch counts (totals and fp16), summed over the legs."""
+    import gc
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.generation import alloc_kv_caches
+    from paddle_tpu_torch.quantization import quantize_for_serving
+    from paddle_tpu_torch.serving import PagedServingEngine, ServingEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = LlamaConfig.llama2_7b()
+    layers = cfg.num_hidden_layers
+    net = amp.decorate(LlamaForCausalLM(cfg, device=dev,
+                                        dtype=torch.bfloat16, seed=0),
+                       level="O2", dtype="float16")
+    if {p.dtype for p in net.parameters()} != {torch.float16}:
+        fail("fp16 serving: decorate left a parameter in another dtype")
+    torch.cuda.synchronize()
+    log(f"fp16 serving: Llama-2-7B, {layers} layers, decorated O2 fp16, "
+        f"built in {time.perf_counter() - t_phase:.1f} s")
+    total = {}
+    legs = {}
+
+    def forward(ids):
+        return net(ids)[0]
+
+    def int8_prefill(ids):
+        caches = alloc_kv_caches(cfg, 1, int(ids.shape[1]), "int8",
+                                 device=dev)
+        return net(ids, caches=caches, pos=0)[0][0]
+
+    def leg(name, eng, want, logits_of, programs):
+        counts, legs[name] = _fp16_serve_leg(
+            torch, np, dev, eng, f"fp16 serving ({name})", want, logits_of,
+            programs)
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    eng = PagedServingEngine(net, cache_dtype="bfloat16", **ENGINE_KW)
+    buckets = len(eng._warmup_buckets())
+    leg("paged", eng,
+        lambda run: _fp16_serve_want(run, layers, "paged_attention"),
+        forward, 1 + 2 * buckets)
+    net.fusions = FP16_HEAD  # decode and prefills are captured again
+    leg("fused head", eng,
+        lambda run: _fp16_serve_want(run, layers, "paged_attention",
+                                     head_fused=True),
+        forward, 1 + buckets)
+    designs = legs["fused head"]["designs"]["fusions"]["rms_norm_matmul"]
+    if designs["tc_launches"] != total["rms_norm_matmul_fp16"]:
+        fail(f"fp16 serving: the fused head ran {designs}, expected all on "
+             f"the tensor cores")
+    net.fusions = ()
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = ServingEngine(net, cache_dtype="bfloat16",
+                        max_batch_size=ENGINE_KW["max_batch_size"],
+                        max_seq_len=ENGINE_KW["max_seq_len"])
+    leg("slab", eng,
+        lambda run: _fp16_serve_want(run, layers, None), forward,
+        1 + 2 * buckets)
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = PagedServingEngine(net, cache_dtype="int8", **ENGINE_KW)
+    leg("int8 arena", eng,
+        lambda run: _fp16_serve_want(run, layers, "paged_attention_int8"),
+        int8_prefill, 1 + 2 * buckets)
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    quantize_for_serving(net, inplace=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = PagedServingEngine(net, cache_dtype="bfloat16", **ENGINE_KW)
+    leg("int8 weights", eng,
+        lambda run: _fp16_serve_want(run, layers, "paged_attention",
+                                     quant=True), forward,
+        1 + 2 * buckets)
+    designs = legs["int8 weights"]["designs"]["int8_matmul"]
+    if designs != {"tc_launches": total["int8_matmul_fp16"],
+                   "cc_launches": 0}:
+        fail(f"fp16 serving: the W8A16 matmul ran {designs}, expected all "
+             f"on the tensor cores")
+    eng.close()
+    del eng, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {"card": card,
+           "model": f"Llama-2-7B, {layers} layers, random weights, "
+                    f"decorated O2 fp16",
+           "requests": 12, "max_new_tokens": FP16_SERVE_MAX_NEW,
+           "legs": legs, "launches": {k: n for k, n in total.items() if n},
+           "phase_s": time.perf_counter() - t_phase}
+    log("fp16 serving: " + json.dumps(res))
+    return total
+
+
 def quant_decode_published(torch, np, net):
     """Decode-written KV against one prefill on the quantized 7B (int8
     weights and arena): the prefix traffic's first prompt with 64 new
@@ -8440,6 +8928,7 @@ def main():
      fleet_counts) = serving_phase(torch, np, dev, card, args.profile_steps)
     quant_counts, quant_eager_counts, fleet_int8_counts = quant_serving_phase(
         torch, np, dev, card, args.profile_steps)
+    fp16_serve_counts = fp16_serving_phase(torch, np, dev, card)
 
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "paddle_tpu."))
@@ -8473,6 +8962,7 @@ def main():
                     "full_reload": reload_counts,
                     "frontend": frontend_counts, "fleet": fleet_counts,
                     "fleet_int8": fleet_int8_counts,
+                    "fp16_serving": fp16_serve_counts,
                     "resilience": resilience_counts,
                     "fused_training": fused_train_counts,
                     "fp32_training": fp32_train_counts,

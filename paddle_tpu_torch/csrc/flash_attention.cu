@@ -64,8 +64,11 @@
 // maps, P and dS packed with cvt.rn.f16x2.f32), forward at every d and
 // backward up to d 128; an fp16 P, dS or O past 65504 becomes inf, as the
 // stock kernel's astype does, so a loss scaler sees it. The fp16 backward
-// above d 128 and the CUDA-core kernels in fp16 are refused (the split
-// kernels read bf16 parts): ROADMAP.md queue B, fp16 item 3.
+// above d 128 runs the split design's kernels on two parts (NP = 2): a
+// pre-pass writes each fp16 operand as its two exact bf16 parts, P and
+// dS are rounded to fp16 at the stock kernel's points and split the same
+// way, and every product is the four bf16 products of parts, exact
+// (split.cuh), on a cluster of two CTAs as fp32's.
 //
 // fp32 at every d, and the bf16 backward above d 128: the split design
 // (tc, "the split design" below). fp32 reaches the tensor cores through
@@ -86,8 +89,8 @@
 // The CUDA-core design (the port's first flash kernels, below; fp32
 // FMAs, 67 TFLOP/s at most) runs only on request (cuda_cores: the design
 // the tensor-core kernels replaced, kept to compare with), at every width
-// and in both dtypes (bf16 keeps P and dS in fp32 there, which moves an
-// entry by less than probability_rounding_slack). One CTA of 256 threads
+// and in every dtype (bf16 and fp16 keep P and dS in fp32 there, which
+// moves an entry by less than probability_rounding_slack). One CTA of 256 threads
 // owns a 64-row q-block (forward, dQ) or a 64-row k-block (dK/dV) and
 // loops over the other side's 64-row blocks itself, from the causal start
 // to the causal end. Tiles are staged in shared memory as fp32 with a row
@@ -99,7 +102,8 @@
 // blocks have 32 rows (a thread a 2 x 2 patch): shared memory forward 101
 // KB, dK/dV 137 KB, dQ 133 KB.
 //
-// Rope-on-load forward (ptt_rope_attention_fwd, fp32 and bf16). Replaces:
+// Rope-on-load forward (ptt_rope_attention_fwd, fp32, bf16 and fp16).
+// Replaces:
 // paddle_tpu/kernels/fused_rope_attention.py rope_attention_fused (:167;
 // pl.pallas_call at :111 over _fused_kernel :84, _rotate :58, _attn_rows
 // :69). q and k are rotated in fp32 (neox half split, by the fp32
@@ -117,17 +121,21 @@
 // head dim d the kernel is given (the wrapper pads each half of a head
 // dim that is not a multiple of 16, so the pairing is the true one). Two
 // designs, and the CUDA cores on request:
-// - bf16 at d 64 to 128: the tensor-core kernel
-//   (tc::rope_attention_fwd_tc_kernel, below): the rotated q and k and
+// - bf16 and fp16 at d 64 to 128: the tensor-core kernel
+//   (tc::rope_attention_fwd_tc_kernel<T>, below): the rotated q and k and
 //   P are split into bf16 hi and lo parts and multiplied in five bf16
 //   products with fp32 accumulators (S = q_hi k_hi^T + q_hi k_lo^T +
 //   q_lo k_hi^T, O = P_hi V + P_lo V), which keeps about 16 bits of each
 //   fp32 value (fused_rope_attention.split_product_slack bounds the
 //   rest); its bound is still the algorithm's 4 d flops a visible pair,
-//   so it can reach at most 40% of it;
-// - everything else (fp32 at every d, bf16 below 64 and above 128): the
+//   so it can reach at most 40% of it. An fp16 V is split too, into its
+//   two exact bf16 parts (in place and into the k_lo tile, free between
+//   a block's score products and the next rotation): O = P_lo v_lo + P_lo
+//   v_hi + P_hi v_lo + P_hi v_hi, seven products, the same bound;
+// - everything else (fp32 at every d, bf16 and fp16 below 64 and above
+//   128): the
 //   split design. A pre-pass (tc::rope_split3_kernel) rotates q and k in
-//   fp32 in _rotate's op order (a bf16 input cast to fp32 exactly) and
+//   fp32 in _rotate's op order (a 16-bit input cast to fp32 exactly) and
 //   writes each rotated value as three bf16 parts (all 24 bits: nothing
 //   is rounded, the JAX kernel's contract) into the workspace layout the
 //   split flash forward reads; v goes through split3_kernel; then
@@ -1381,13 +1389,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 // every product runs on the tensor cores with fp32 accumulators:
 //   S = q_hi k_lo^T + q_lo k_hi^T + q_hi k_hi^T   (q_lo k_lo^T dropped)
 //   O += P_lo V + P_hi V                          (V is a bf16 input)
-// Five bf16 products where plain flash has two; the error bound is
-// fused_rope_attention.split_product_slack. Nothing is rounded to bf16
-// as a value: the rotated q and k and P are only ever split.
+//   O += P_lo v_lo + P_lo v_hi + P_hi v_lo + P_hi v_hi  (fp16 V = v_hi +
+//                                                  v_lo, exactly)
+// Five bf16 products where plain flash has two (seven with an fp16 V);
+// the error bound is fused_rope_attention.split_product_slack. Nothing is
+// rounded to bf16 as a value: the rotated q and k and P are only ever
+// split.
 //
 // A CTA owns 128 q rows (64 per consumer warpgroup) and walks the k/v
 // blocks of 128 rows from 0 to its causal end (self-attention: column c
-// is visible to row r iff c <= r). The raw bf16 Q tile, and each stage's
+// is visible to row r iff c <= r). The raw Q tile, and each stage's
 // raw K and V tiles, arrive by TMA. The two consumer warpgroups rotate
 // a raw tile together, 8 columns and their partners d/2 on a thread at a
 // time, in _rotate's op order: the hi parts over the raw tile (in place;
@@ -1397,8 +1408,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 // score products keeps the next rotation from overwriting k_lo while
 // the other warpgroup still reads it. The online softmax is the
 // tensor-core forward's; P_hi and P_lo are register A operands of the
-// two P V products. Shared memory at D = 128: Q hi and lo 64 KB, two
-// stages of K and V 128 KB, k_lo 32 KB (225 KB of 227).
+// two P V products. fp16 (T = __half): the raw tiles are fp16 (rotated
+// from it in fp32 the same way); after the score products both
+// warpgroups split the stage's V tile, v_hi in place and v_lo into the
+// k_lo tile, and a barrier after the four P V products keeps the next
+// rotation from overwriting v_lo. Shared memory at D = 128: Q hi and lo
+// 64 KB, two stages of K and V 128 KB, k_lo 32 KB (225 KB of 227).
 template <int D>
 __host__ __device__ constexpr Layout rope_layout() {
   return {2 * tile_bytes<D>(128), 2 * tile_bytes<D>(128), tile_bytes<D>(128)};
@@ -1433,7 +1448,8 @@ __device__ __forceinline__ void to_a_split(const float* acc,
              lo[kk][i]);
 }
 
-// Rotate a raw bf16 tile of R rows (generic address `xt`, positions p0 ..)
+// Rotate a raw tile of R rows of T (bf16 or fp16; generic address `xt`,
+// positions p0 ..)
 // in place into its hi parts and write the lo parts into `lo` (same
 // layout), by the 256 consumer threads (ct): item (row r, 8-column chunk
 // c / 8 < d / 16) takes columns c .. c + 7 and their partners c + d/2 ..
@@ -1442,7 +1458,7 @@ __device__ __forceinline__ void to_a_split(const float* acc,
 // seq hold TMA's zeros and rotate to zero; columns past d are left as
 // they are. (Holding two items' tables in registers, so that their L2
 // round trips overlap, takes 32 more and spills at D 128.)
-template <int R>
+template <int R, typename T>
 __device__ __forceinline__ void rope_tile(uint8_t* xt, uint8_t* lo, int p0,
                                           int seq, int d,
                                           const float* __restrict__ cos,
@@ -1468,11 +1484,9 @@ __device__ __forceinline__ void rope_tile(uint8_t* xt, uint8_t* lo, int p0,
     uint32_t hi1[4], lo1[4], hi2[4], lo2[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      // a bf16 is the high half of its fp32 value
-      const float a0 = __uint_as_float(x1[j] << 16);
-      const float a1 = __uint_as_float(x1[j] & 0xffff0000u);
-      const float b0 = __uint_as_float(x2[j] << 16);
-      const float b1 = __uint_as_float(x2[j] & 0xffff0000u);
+      float a0, a1, b0, b1;
+      unpack2<T>(x1[j], a0, a1);
+      unpack2<T>(x2[j], b0, b1);
       const float c0 = cv[2 * j], c1 = cv[2 * j + 1];
       const float s0 = sv[2 * j], s1 = sv[2 * j + 1];
       split2(__fsub_rn(__fmul_rn(a0, c0), __fmul_rn(b0, s0)),
@@ -1489,12 +1503,38 @@ __device__ __forceinline__ void rope_tile(uint8_t* xt, uint8_t* lo, int p0,
   }
 }
 
-template <int D, bool kPad>
+// An fp16 V tile of R rows (generic address `vt`) split in place into
+// its bf16 hi parts, and the lo parts written into `lo` (same layout), by
+// the 256 consumer threads (ct): hi = bf16(v), lo = bf16(v - hi). fp16's
+// 11 significant bits fit in the two parts' 8 + 8, and bf16's range holds
+// fp16's (subnormals included), so hi + lo is v exactly and P V over the
+// parts is P V. Columns past d hold TMA's zeros and split to zeros.
+template <int R, int D>
+__device__ __forceinline__ void split_v_tile(uint8_t* vt, uint8_t* lo,
+                                             int ct) {
+  for (int i = ct; i < R * D / 8; i += 128 * kConsumers) {
+    uint4* p = reinterpret_cast<uint4*>(vt + 16 * i);
+    const uint4 a = *p;
+    const uint32_t x[4] = {a.x, a.y, a.z, a.w};
+    uint32_t hi[4], lw[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float v0, v1;
+      unpack2<__half>(x[j], v0, v1);
+      split2(v0, v1, hi[j], lw[j]);
+    }
+    *p = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(lo + 16 * i) =
+        make_uint4(lw[0], lw[1], lw[2], lw[3]);
+  }
+}
+
+template <typename T, int D, bool kPad>
 __global__ void __launch_bounds__(kThreads, 1)
     rope_attention_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq,
                                  const __grid_constant__ CUtensorMap mk,
                                  const __grid_constant__ CUtensorMap mv,
-                                 bf16* __restrict__ o,
+                                 T* __restrict__ o,
                                  const float* __restrict__ cos,
                                  const float* __restrict__ sin, long long tab,
                                  int heads, int seq, int d, float scale_log2,
@@ -1561,9 +1601,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   float ma = -INFINITY, mb = -INFINITY, sum_a = 0.0f, sum_b = 0.0f;
 
   mbar_wait(bars.resident, 0);
-  rope_tile<kM>(gbase, gQlo, q0, seq, d, cos, sin, tab, ct);
+  rope_tile<kM, T>(gbase, gQlo, q0, seq, d, cos, sin, tab, ct);
   mbar_wait(bars.full(0), 0);
-  rope_tile<kN>(gbase + L.stage_at(0), gKlo, 0, seq, d, cos, sin, tab, ct);
+  rope_tile<kN, T>(gbase + L.stage_at(0), gKlo, 0, seq, d, cos, sin, tab,
+                   ct);
   fence_proxy_async();
   named_sync(1, 128 * kConsumers);
   for (int it = 0; it < nblk; ++it) {
@@ -1594,6 +1635,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     // both warpgroups are done with k_lo: the next rotation may write it
     named_sync(1, 128 * kConsumers);
+    constexpr bool kF16 = is_f16<T>();
+    if constexpr (kF16) {
+      // fp16 V: its bf16 hi parts in place, its lo parts in the k_lo tile
+      // (free until the next rotation), for the four P V products
+      split_v_tile<kN, D>(gbase + L.stage_at(s) + tile_bytes<D>(kN), gKlo,
+                          ct);
+      fence_proxy_async();
+      named_sync(1, 128 * kConsumers);
+    }
     if (work) {
       // only blocks that cross the last key or the diagonal are masked;
       // zero-filled rows past seq give scores of 0, so they are masked too
@@ -1604,8 +1654,18 @@ __global__ void __launch_bounds__(kThreads, 1)
       uint32_t ph[kN / 16][4], pl[kN / 16][4];
       to_a_split<kN / 16>(sc, ph, pl);
       wgmma_fence();
+      if constexpr (kF16) {  // P_lo v_lo, P_lo v_hi, P_hi v_lo, P_hi v_hi
+#pragma unroll
+        for (int kk = 0; kk < kN / 16; ++kk)
+          pv_step<D, kN>(acc, pl[kk], sKlo, kk);
+      }
 #pragma unroll
       for (int kk = 0; kk < kN / 16; ++kk) pv_step<D, kN>(acc, pl[kk], sV, kk);
+      if constexpr (kF16) {
+#pragma unroll
+        for (int kk = 0; kk < kN / 16; ++kk)
+          pv_step<D, kN>(acc, ph[kk], sKlo, kk);
+      }
 #pragma unroll
       for (int kk = 0; kk < kN / 16; ++kk) pv_step<D, kN>(acc, ph[kk], sV, kk);
       wgmma_commit();
@@ -1614,12 +1674,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs(ph);
       fence_regs(pl);
     }
+    // fp16: both warpgroups are done with v_lo before the next rotation
+    // writes the k_lo tile
+    if constexpr (kF16) named_sync(1, 128 * kConsumers);
     mbar_arrive(bars.empty(s));
     // the next block's K, rotated by both warpgroups before its products
     if (it + 1 < nblk) {
       mbar_wait(bars.full((it + 1) % kStages), ((it + 1) / kStages) & 1);
-      rope_tile<kN>(gbase + L.stage_at((it + 1) % kStages), gKlo, k0 + kN,
-                    seq, d, cos, sin, tab, ct);
+      rope_tile<kN, T>(gbase + L.stage_at((it + 1) % kStages), gKlo,
+                       k0 + kN, seq, d, cos, sin, tab, ct);
       fence_proxy_async();
       named_sync(1, 128 * kConsumers);
     }
@@ -1716,7 +1779,7 @@ constexpr int kSplitThreads = 128 * kConsumers;
 // columns of D each holds
 template <int D, int NP>
 __host__ __device__ constexpr int split_ctas() {
-  return NP == 3 && D > 128 ? 2 : 1;
+  return NP >= 2 && D > 128 ? 2 : 1;
 }
 template <int D, int NP>
 __host__ __device__ constexpr int cta_cols() {
@@ -1759,7 +1822,8 @@ template <int NP, int W, int RA, int N>
 __device__ __forceinline__ void split_ss(float (&acc)[N / 2], uint32_t a,
                                          int row0, uint32_t b) {
 #pragma unroll
-  for (int t = first_term<NP>(); t < 6; ++t)
+  for (int t = first_term<NP>(); t < 6; ++t) {
+    if (!has_term<NP>(t)) continue;
 #pragma unroll
     for (int kk = 0; kk < W / 16; ++kk)
       wgmma_ss<N>(acc,
@@ -1767,6 +1831,7 @@ __device__ __forceinline__ void split_ss(float (&acc)[N / 2], uint32_t a,
                                    kk),
                   desc_k_major<N>(b + term_b(t) * tile_bytes<W>(N), 0, kk),
                   t > first_term<NP>() || kk > 0);
+  }
 }
 
 // acc += A B: A the register parts of a 64 x R score tile (K axis R), B a
@@ -1777,12 +1842,14 @@ __device__ __forceinline__ void split_rs(float (&acc)[N / 2],
                                          const uint32_t (&a)[NP][R / 16][4],
                                          uint32_t b, uint32_t region) {
 #pragma unroll
-  for (int t = first_term<NP>(); t < 6; ++t)
+  for (int t = first_term<NP>(); t < 6; ++t) {
+    if (!has_term<NP>(t)) continue;
 #pragma unroll
     for (int kk = 0; kk < R / 16; ++kk)
       wgmma_rs<N>(acc, a[term_a(t)][kk],
                   desc_mn_major<R>(b + term_b(t) * tile_bytes<W>(R) + region,
                                    kk));
+  }
 }
 
 // The exchange slot of warpgroup wg's thread t: 32 entries of a 64 x 64
@@ -2038,7 +2105,7 @@ __global__ void __launch_bounds__(kSplitThreads, 1)
 // registers, then dV += P^T dO (slot 1 released) and dK += dS^T Q (slot 0
 // released), each warpgroup over its columns (m64nCk16, the operands'
 // parts from registers, dO and Q MN-major). NP = 1 rounds P^T and dS^T to
-// bf16 (the stock kernel's p.T.astype, ds.T.astype).
+// bf16 (the stock kernel's p.T.astype, ds.T.astype), NP = 2 to fp16.
 template <int D, int NP>
 __host__ __device__ constexpr Layout dkdv_split_layout() {
   constexpr int W = cta_cols<D, NP>();
@@ -2208,7 +2275,7 @@ __global__ void __launch_bounds__(kSplitThreads, 1)
 // them, after the cluster's exchange at split_ctas 2: score_tiles), P and
 // dS = P (dP - Delta) scale in fp32 registers, dQ += dS K over the
 // warpgroup's columns (slot 0 released; K MN-major). NP = 1 rounds dS to
-// bf16 (the stock ds.astype(k.dtype)).
+// bf16 (the stock ds.astype(k.dtype)), NP = 2 to fp16.
 template <int D, int NP>
 __host__ __device__ constexpr Layout dq_split_layout() {
   constexpr int W = cta_cols<D, NP>();
@@ -2441,20 +2508,23 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int D, bool kPad>
+template <typename T, int D, bool kPad>
 cudaError_t launch_rope_fwd(const FwdArgs& a, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   cudaError_t err;
-  if ((err = make_map(&mq, a.q, a.batch, a.sq, a.heads, a.d, a.qs, 128)) ||
-      (err = make_map(&mk, a.k, a.batch, a.sk, a.heads, a.d, a.ks, 128)) ||
-      (err = make_map(&mv, a.v, a.batch, a.sk, a.heads, a.d, a.vs, 128)))
+  if ((err = make_map(&mq, a.q, a.batch, a.sq, a.heads, a.d, a.qs, 128,
+                      map_type<T>())) ||
+      (err = make_map(&mk, a.k, a.batch, a.sk, a.heads, a.d, a.ks, 128,
+                      map_type<T>())) ||
+      (err = make_map(&mv, a.v, a.batch, a.sk, a.heads, a.d, a.vs, 128,
+                      map_type<T>())))
     return err;
   constexpr int smem = rope_layout<D>().bytes();
-  if ((err = allow_smem(rope_attention_fwd_tc_kernel<D, kPad>, smem)))
+  if ((err = allow_smem(rope_attention_fwd_tc_kernel<T, D, kPad>, smem)))
     return err;
   dim3 grid((a.sq + 127) / 128, a.batch * a.heads);
-  rope_attention_fwd_tc_kernel<D, kPad><<<grid, kThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<bf16*>(a.o), static_cast<const float*>(a.cos),
+  rope_attention_fwd_tc_kernel<T, D, kPad><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<T*>(a.o), static_cast<const float*>(a.cos),
       static_cast<const float*>(a.sin), a.tab_stride,
       a.heads, a.sq, a.d, a.scale * kLog2e, a.causal);
   return cudaGetLastError();
@@ -2463,7 +2533,8 @@ cudaError_t launch_rope_fwd(const FwdArgs& a, cudaStream_t stream) {
 // An operand of a split-design kernel as its tensor map reads it: a bf16
 // tensor as it is (NP = 1), or an fp32 (or bf16: T) one split by
 // split3_kernel into the next 3 x batch x seq x heads x D values of the
-// workspace `*work` (NP = 3), at the map's batch 3 x batch and head dim D.
+// workspace `*work` (NP = 3), or an fp16 one into its two exact parts (NP
+// = 2), at the map's batch NP x batch and head dim D.
 struct Operand {
   const void* ptr;
   Strides st;
@@ -2474,18 +2545,20 @@ template <int D, int NP, typename T = float>
 cudaError_t operand(Operand* op, const void* x, Strides st, int batch,
                     int seq, int heads, int d, bf16** work,
                     cudaStream_t stream) {
-  if (NP == 1) {
+  if constexpr (NP == 1) {
     *op = {x, st, batch, d};
     return cudaSuccess;
+  } else {
+    bf16* out = *work;
+    *work += (long long)NP * batch * seq * heads * D;
+    const long long chunks = (long long)batch * seq * heads * (D / 8);
+    split3_kernel<T, NP><<<(unsigned)((chunks + 255) / 256), 256, 0,
+                           stream>>>(static_cast<const T*>(x), out, st,
+                                     batch, seq, heads, d, D);
+    *op = {out, {(long long)seq * heads * D, (long long)heads * D, D},
+           NP * batch, D};
+    return cudaGetLastError();
   }
-  bf16* out = *work;
-  *work += 3LL * batch * seq * heads * D;
-  const long long chunks = (long long)batch * seq * heads * (D / 8);
-  split3_kernel<T><<<(unsigned)((chunks + 255) / 256), 256, 0, stream>>>(
-      static_cast<const T*>(x), out, st, batch, seq, heads, d, D);
-  *op = {out, {(long long)seq * heads * D, (long long)heads * D, D},
-         3 * batch, D};
-  return cudaGetLastError();
 }
 
 cudaError_t make_map(CUtensorMap* map, const Operand& op, int seq, int heads,
@@ -2639,8 +2712,8 @@ cudaError_t launch_rope_fwd_split(const FwdArgs& a, void* work,
   return fwd_split<T, D>(a, q, k, v, stream);
 }
 
-// The Delta pass, the operands (fp32: split into the workspace), the dK/dV
-// pass and the dQ pass
+// The Delta pass, the operands (fp32, fp16: split into the workspace), the
+// dK/dV pass and the dQ pass
 template <typename T, int D, int NP>
 cudaError_t launch_bwd_split(const BwdArgs& a, void* work,
                              cudaStream_t stream) {
@@ -2654,14 +2727,14 @@ cudaError_t launch_bwd_split(const BwdArgs& a, void* work,
   if (err) return err;
   bf16* w = static_cast<bf16*>(work);
   Operand q, k, v, g;
-  if ((err = operand<D, NP>(&q, a.q, a.qs, a.batch, a.sq, a.heads, a.d, &w,
-                            stream)) ||
-      (err = operand<D, NP>(&k, a.k, a.ks, a.batch, a.sk, a.heads, a.d, &w,
-                            stream)) ||
-      (err = operand<D, NP>(&v, a.v, a.vs, a.batch, a.sk, a.heads, a.d, &w,
-                            stream)) ||
-      (err = operand<D, NP>(&g, a.dout, a.dos, a.batch, a.sq, a.heads, a.d,
-                            &w, stream)))
+  if ((err = operand<D, NP, T>(&q, a.q, a.qs, a.batch, a.sq, a.heads, a.d,
+                               &w, stream)) ||
+      (err = operand<D, NP, T>(&k, a.k, a.ks, a.batch, a.sk, a.heads, a.d,
+                               &w, stream)) ||
+      (err = operand<D, NP, T>(&v, a.v, a.vs, a.batch, a.sk, a.heads, a.d,
+                               &w, stream)) ||
+      (err = operand<D, NP, T>(&g, a.dout, a.dos, a.batch, a.sq, a.heads,
+                               a.d, &w, stream)))
     return err;
   constexpr int CL = split_ctas<D, NP>();
   constexpr int kR = owned_rows<cta_cols<D, NP>(), NP>();
@@ -2711,7 +2784,7 @@ inline int padded(int d) {
   return d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 256;
 }
 
-// The CUDA-core kernels at every served head dim, both dtypes, flash and
+// The CUDA-core kernels at every served head dim, every dtype, flash and
 // rope-on-load (run on request only: cuda_cores)
 template <typename T, bool kRope>
 cudaError_t cc_fwd(const FwdArgs& a, cudaStream_t s) {
@@ -2783,15 +2856,15 @@ extern "C" int ptt_flash_attention_fwd(
   if (!served(head_dim) || (dtype != ptt::kF32 && dtype != ptt::kBF16 &&
                             dtype != ptt::kF16))
     return cudaErrorInvalidValue;
-  if (dtype == ptt::kF16 && cuda_cores) return cudaErrorInvalidValue;
   FwdArgs a{q, k, v, o, lse, {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh},
             {v_sb, v_ss, v_sh}, batch, heads, sq, sk, head_dim, causal,
             scale, nullptr, nullptr, 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool f32 = dtype == ptt::kF32;
   if (cuda_cores)
-    return f32 ? cc_fwd<float, false>(a, s)
-               : cc_fwd<__nv_bfloat16, false>(a, s);
+    return f32                  ? cc_fwd<float, false>(a, s)
+           : dtype == ptt::kF16 ? cc_fwd<__half, false>(a, s)
+                                : cc_fwd<__nv_bfloat16, false>(a, s);
   if (f32) {  // split products at width 64, 128 or 256 (the pre-pass pads)
     if (work == nullptr) return cudaErrorInvalidValue;
     return head_dim <= 64    ? tc::launch_fwd_split<64>(a, work, s)
@@ -2813,15 +2886,26 @@ cudaError_t rope_fwd_split(const FwdArgs& a, void* work, cudaStream_t s) {
                       : tc::launch_rope_fwd_split<T, 256>(a, work, s);
 }
 
-// Rope-on-load forward: q, k, v [batch, seq, heads, head_dim] with their
-// strides as above (one sequence length); cos and sin fp32 [seq,
-// head_dim / 2] with row stride tab_stride (a multiple of 4, 16-byte
-// aligned); o contiguous [batch, seq, heads, head_dim] of q's type. No
-// LSE. head_dim a multiple of 16 up to 256 (the Python wrapper checks all
-// of this). work: the split design's bf16 scratch (fp32, and bf16 outside
-// head_dim 64 to 128), as the flash forward's (3 x 3 x batch x seq x
-// heads x W values, W = 64 up to head_dim 64, 128 up to 128, else 256;
-// null otherwise). cuda_cores: run the CUDA-core kernel whatever the
+// The 16-bit rope-on-load forward (T bf16 or fp16): at d 64 to 128 the
+// tensor-core kernel, hi/lo products (d 80-112 padded); at the other head
+// dims rotated in fp32 and split, as fp32
+template <typename T>
+cudaError_t rope_fwd_tc(const FwdArgs& a, void* work, cudaStream_t s) {
+  if (a.d == 64) return tc::launch_rope_fwd<T, 64, false>(a, s);
+  if (a.d == 128) return tc::launch_rope_fwd<T, 128, false>(a, s);
+  if (a.d > 64 && a.d < 128) return tc::launch_rope_fwd<T, 128, true>(a, s);
+  return rope_fwd_split<T>(a, work, s);
+}
+
+// Rope-on-load forward: q, k, v [batch, seq, heads, head_dim] of one
+// dtype (fp32, bf16 or fp16) with their strides as above (one sequence
+// length); cos and sin fp32 [seq, head_dim / 2] with row stride
+// tab_stride (a multiple of 4, 16-byte aligned); o contiguous [batch,
+// seq, heads, head_dim] of q's type. No LSE. head_dim a multiple of 16 up
+// to 256 (the Python wrapper checks all of this). work: the split
+// design's bf16 scratch (fp32, and bf16 and fp16 outside head_dim 64 to
+// 128), as the flash forward's (3 x 3 x batch x seq x heads x W values,
+// W = 64 up to head_dim 64, 128 up to 128, else 256; null otherwise). cuda_cores: run the CUDA-core kernel whatever the
 // dtype and head dim (the design the tensor-core ones replaced, kept for
 // comparison).
 extern "C" int ptt_rope_attention_fwd(
@@ -2832,30 +2916,29 @@ extern "C" int ptt_rope_attention_fwd(
     long long v_ss, long long v_sh, int causal, float scale, int dtype,
     void* work, int cuda_cores, void* stream) {
   if (batch == 0 || heads == 0 || seq == 0) return cudaSuccess;
-  if (!served(head_dim) || (dtype != ptt::kF32 && dtype != ptt::kBF16))
+  if (!served(head_dim) || (dtype != ptt::kF32 && dtype != ptt::kBF16 &&
+                            dtype != ptt::kF16))
     return cudaErrorInvalidValue;
   FwdArgs a{q, k, v, o, nullptr, {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh},
             {v_sb, v_ss, v_sh}, batch, heads, seq, seq, head_dim, causal,
             scale, cos, sin, tab_stride};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool f32 = dtype == ptt::kF32;
-  if (cuda_cores)
-    return f32 ? cc_fwd<float, true>(a, s) : cc_fwd<__nv_bfloat16, true>(a, s);
-  if (f32) return rope_fwd_split<float>(a, work, s);
-  // bf16 at d 64 to 128: tensor cores, hi/lo products (d 80-112 padded);
-  // the other head dims: rotated in fp32 and split, as fp32
-  if (head_dim == 64) return tc::launch_rope_fwd<64, false>(a, s);
-  if (head_dim == 128) return tc::launch_rope_fwd<128, false>(a, s);
-  if (head_dim > 64 && head_dim < 128)
-    return tc::launch_rope_fwd<128, true>(a, s);
-  return rope_fwd_split<__nv_bfloat16>(a, work, s);
+  if (dtype == ptt::kF32)
+    return cuda_cores ? cc_fwd<float, true>(a, s)
+                      : rope_fwd_split<float>(a, work, s);
+  if (dtype == ptt::kF16)
+    return cuda_cores ? cc_fwd<__half, true>(a, s)
+                      : rope_fwd_tc<__half>(a, work, s);
+  return cuda_cores ? cc_fwd<__nv_bfloat16, true>(a, s)
+                    : rope_fwd_tc<__nv_bfloat16>(a, work, s);
 }
 
 // The three backward passes in order (Delta, dK/dV, dQ). o and dout have
 // q's shape, lse is the forward's; delta is fp32 scratch [batch, heads,
 // sq]; dq, dk, dv are contiguous with the shapes of q, k, v. work: as in
 // the forward, for q, k, v and dout: 3 x (2 x batch x sq + 2 x batch x
-// sk) x heads x W values (fp32; null for bf16); cuda_cores as there.
+// sk) x heads x W values (fp32; fp16 above head_dim 128: 2 x (...), its
+// two exact bf16 parts; null otherwise); cuda_cores as there.
 extern "C" int ptt_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
@@ -2869,10 +2952,6 @@ extern "C" int ptt_flash_attention_bwd(
   if (!served(head_dim) || (dtype != ptt::kF32 && dtype != ptt::kBF16 &&
                             dtype != ptt::kF16))
     return cudaErrorInvalidValue;
-  // fp16: the tensor-core kernels up to 128 only (the split kernels read
-  // bf16 parts)
-  if (dtype == ptt::kF16 && (cuda_cores || head_dim > 128))
-    return cudaErrorInvalidValue;
   BwdArgs a{q, k, v, o, dout, lse, delta, dq, dk, dv,
             {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh},
             {o_sb, o_ss, o_sh}, {g_sb, g_ss, g_sh},
@@ -2880,7 +2959,9 @@ extern "C" int ptt_flash_attention_bwd(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool f32 = dtype == ptt::kF32;
   if (cuda_cores)
-    return f32 ? cc_bwd<float>(a, s) : cc_bwd<__nv_bfloat16>(a, s);
+    return f32                  ? cc_bwd<float>(a, s)
+           : dtype == ptt::kF16 ? cc_bwd<__half>(a, s)
+                                : cc_bwd<__nv_bfloat16>(a, s);
   if (f32) {  // split products at width 64, 128 or 256
     if (work == nullptr) return cudaErrorInvalidValue;
     return head_dim <= 64    ? tc::launch_bwd_split<float, 64, 3>(a, work, s)
@@ -2888,8 +2969,13 @@ extern "C" int ptt_flash_attention_bwd(
                              : tc::launch_bwd_split<float, 256, 3>(a, work, s);
   }
   // bf16 and fp16: the tensor-core kernels up to 128 (padded, at least
-  // 64); bf16 runs the split design's (one part) above
-  if (dtype == ptt::kF16) return tc_bwd<__half>(a, s);
-  if (head_dim <= 128) return tc_bwd<__nv_bfloat16>(a, s);
-  return tc::launch_bwd_split<__nv_bfloat16, 256, 1>(a, work, s);
+  // 64); above, the split design's: bf16 as its one part, fp16 as its two
+  // exact bf16 parts (split into the workspace) on a cluster of two CTAs
+  if (head_dim <= 128)
+    return dtype == ptt::kF16 ? tc_bwd<__half>(a, s)
+                              : tc_bwd<__nv_bfloat16>(a, s);
+  if (dtype == ptt::kBF16)
+    return tc::launch_bwd_split<__nv_bfloat16, 256, 1>(a, work, s);
+  if (work == nullptr) return cudaErrorInvalidValue;
+  return tc::launch_bwd_split<__half, 256, 2>(a, work, s);
 }

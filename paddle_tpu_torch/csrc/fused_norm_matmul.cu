@@ -18,7 +18,10 @@
 //
 // Three designs, chosen by x's dtype and, in fp32, the row count:
 //
-// bf16: the tensor-core design (namespace tc, below; hopper.cuh). A
+// bf16 and fp16 (the decorate O2 head: x and wm fp16, w fp16 or fp32):
+// the tensor-core design (namespace tc, below; hopper.cuh), on the
+// element type E (bf16 or fp16 wgmma, tensor maps of E, the normed row
+// rounded to E where _normed_rows rounds it). A
 // first kernel takes every row's rstd over the whole K into an fp32
 // [rows] buffer (a warp per row), so that no CTA re-reads its rows' whole
 // x before its first product. Then TMA brings the k-tiles of x and of wm
@@ -467,7 +470,7 @@ __global__ void __launch_bounds__(256)
   if ((threadIdx.x & 31) == 0) rstd[r] = rs;
 }
 
-// ================================================ bf16: tensor-core design
+// ======================================== bf16, fp16: tensor-core design
 // (ptt::hopper: TMA, mbarriers, wgmma with fp32 accumulators). A CTA owns
 // NT weight columns (128 swap-AB, 256 tiled); its producer warpgroup's
 // first thread keeps the k-tiles of x (XR rows x 64) and of wm (64 K rows
@@ -513,14 +516,15 @@ __host__ __device__ constexpr int stages() {
   return kSwap && XR <= 16 ? 6 : 4;
 }
 
-// _normed_rows' op order on a bf16 pair (lo in the low half): (x * rstd)
-// * w in fp32, rounded to bf16
+// _normed_rows' op order on a pair of E (lo in the low half): (x * rstd)
+// * w in fp32, rounded to E
+template <typename E>
 __device__ __forceinline__ uint32_t normed_pair(uint32_t x, float rs,
                                                 float w0, float w1) {
-  // a bf16 is the high half of its fp32 value
-  return pack_bf16(__fmul_rn(__fmul_rn(__uint_as_float(x << 16), rs), w0),
-                   __fmul_rn(__fmul_rn(__uint_as_float(x & 0xffff0000u), rs),
-                             w1));
+  float a, b;
+  unpack2<E>(x, a, b);
+  return pack2<E>(__fmul_rn(__fmul_rn(a, rs), w0),
+                  __fmul_rn(__fmul_rn(b, rs), w1));
 }
 
 // kSwap false (tiled, prefill; XR = 128): the CTA owns rows [row0, row0
@@ -536,13 +540,13 @@ __device__ __forceinline__ uint32_t normed_pair(uint32_t x, float rs,
 // the transpose flag), B = the y tile of XR rows (K-major). One chunk
 // writes out directly; more write fp32 partials that a second kernel
 // sums in chunk order.
-template <bool kSwap, int XR, typename TW>
+template <typename E, bool kSwap, int XR, typename TW>
 __global__ void __launch_bounds__(kThreads, kSwap && XR <= 16 ? 2 : 1)
     norm_matmul_tc_kernel(const __grid_constant__ CUtensorMap mx,
                           const __grid_constant__ CUtensorMap mw,
                           const TW* __restrict__ w,
                           const float* __restrict__ rstd,
-                          bf16* __restrict__ out, float* __restrict__ partial,
+                          E* __restrict__ out, float* __restrict__ partial,
                           int rows, int K, int N, int kchunk) {
   constexpr int S = stages<kSwap, XR>();
   constexpr int NT = cols<kSwap>();
@@ -636,7 +640,7 @@ __global__ void __launch_bounds__(kThreads, kSwap && XR <= 16 ? 2 : 1)
       uint32_t o[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        o[j] = normed_pair(in[j], rs[m], wv[2 * j], wv[2 * j + 1]);
+        o[j] = normed_pair<E>(in[j], rs[m], wv[2 * j], wv[2 * j + 1]);
       *p = make_uint4(o[0], o[1], o[2], o[3]);
     }
   };
@@ -658,11 +662,12 @@ __global__ void __launch_bounds__(kThreads, kSwap && XR <= 16 ? 2 : 1)
 #pragma unroll
     for (int kk = 0; kk < kKT / 16; ++kk) {
       if constexpr (kSwap)
-        wgmma_ss_t<XR, 1, 0>(acc, desc_mn_major<kKT>(sW + wg * kKT * 128, kk),
-                             desc_k_major<XR>(sX, 0, kk), 1);
+        wgmma_ss_t<XR, 1, 0, E>(acc,
+                                desc_mn_major<kKT>(sW + wg * kKT * 128, kk),
+                                desc_k_major<XR>(sX, 0, kk), 1);
       else
-        wgmma_ss_t<NT, 0, 1>(acc, desc_k_major<XR>(sX, 64 * wg, kk),
-                             desc_mn_major<kKT>(sW, kk), 1);
+        wgmma_ss_t<NT, 0, 1, E>(acc, desc_k_major<XR>(sX, 64 * wg, kk),
+                                desc_mn_major<kKT>(sW, kk), 1);
     }
     wgmma_commit();
     fence_regs(acc);
@@ -693,7 +698,7 @@ __global__ void __launch_bounds__(kThreads, kSwap && XR <= 16 ? 2 : 1)
         if (n >= N || r >= rows) continue;
         const float v = acc[4 * j + e];
         if (direct)
-          out[(size_t)r * N + n] = __float2bfloat16_rn(v);
+          out[(size_t)r * N + n] = ptt::from_float<E>(v);
         else
           partial[((size_t)blockIdx.y * rows + r) * N + n] = v;
       }
@@ -707,28 +712,26 @@ __global__ void __launch_bounds__(kThreads, kSwap && XR <= 16 ? 2 : 1)
         const int r = row0 + 64 * wg + fr + 8 * half;
         if (r < rows)
           *reinterpret_cast<uint32_t*>(out + (size_t)r * N + n) =
-              pack_bf16(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+              pack2<E>(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
       }
     }
   }
 }
 
-template <bool kSwap, int XR, typename TW>
+template <typename E, bool kSwap, int XR, typename TW>
 cudaError_t launch(const void* x, const void* w, const void* wm,
                    const float* rstd, void* out, void* partial, int rows,
                    int K, int N, int kchunk, cudaStream_t stream) {
   CUtensorMap mx, mw;
   cudaError_t err;
-  if ((err = make_map_2d(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, rows,
-                         (uint64_t)K * 2, 64, XR,
-                         CU_TENSOR_MAP_SWIZZLE_128B)) ||
-      (err = make_map_2d(&mw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, wm, N, K,
-                         (uint64_t)N * 2, 64, kKT,
-                         CU_TENSOR_MAP_SWIZZLE_128B)))
+  if ((err = make_map_2d(&mx, map_type<E>(), x, K, rows, (uint64_t)K * 2, 64,
+                         XR, CU_TENSOR_MAP_SWIZZLE_128B)) ||
+      (err = make_map_2d(&mw, map_type<E>(), wm, N, K, (uint64_t)N * 2, 64,
+                         kKT, CU_TENSOR_MAP_SWIZZLE_128B)))
     return err;
   constexpr int NT = cols<kSwap>();
   constexpr int smem = Smem<XR, stages<kSwap, XR>(), NT>::kBytes;
-  auto kernel = norm_matmul_tc_kernel<kSwap, XR, TW>;
+  auto kernel = norm_matmul_tc_kernel<E, kSwap, XR, TW>;
   if ((err = cudaFuncSetAttribute(
            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)))
     return err;
@@ -738,44 +741,44 @@ cudaError_t launch(const void* x, const void* w, const void* wm,
   const dim3 grid = kSwap ? dim3(col_tiles, chunks)
                           : dim3((rows + XR - 1) / XR, col_tiles);
   kernel<<<grid, kThreads, smem, stream>>>(
-      mx, mw, static_cast<const TW*>(w), rstd, static_cast<bf16*>(out),
+      mx, mw, static_cast<const TW*>(w), rstd, static_cast<E*>(out),
       static_cast<float*>(partial), rows, K, N, kchunk);
   if (chunks == 1) return cudaGetLastError();
   if ((err = cudaGetLastError())) return err;
   const int count = rows * N;
-  norm_matmul_split_sum_kernel<bf16><<<(count + 255) / 256, 256, 0, stream>>>(
-      static_cast<const float*>(partial), static_cast<bf16*>(out), chunks,
+  norm_matmul_split_sum_kernel<E><<<(count + 255) / 256, 256, 0, stream>>>(
+      static_cast<const float*>(partial), static_cast<E*>(out), chunks,
       count);
   return cudaGetLastError();
 }
 
-template <typename TW>
+template <typename E, typename TW>
 cudaError_t dispatch(const void* x, const void* w, const void* wm,
                      const float* rstd, void* out, void* partial, int rows,
                      int K, int N, int kchunk, int swap_rows,
                      cudaStream_t s) {
   switch (swap_rows) {
     case 0:
-      return launch<false, 128, TW>(x, w, wm, rstd, out, partial, rows, K, N,
-                                    kchunk, s);
+      return launch<E, false, 128, TW>(x, w, wm, rstd, out, partial,
+                                       rows, K, N, kchunk, s);
     case 8:
-      return launch<true, 8, TW>(x, w, wm, rstd, out, partial, rows, K, N,
-                                 kchunk, s);
+      return launch<E, true, 8, TW>(x, w, wm, rstd, out, partial,
+                                      rows, K, N, kchunk, s);
     case 16:
-      return launch<true, 16, TW>(x, w, wm, rstd, out, partial, rows, K, N,
-                                  kchunk, s);
+      return launch<E, true, 16, TW>(x, w, wm, rstd, out, partial,
+                                      rows, K, N, kchunk, s);
     case 32:
-      return launch<true, 32, TW>(x, w, wm, rstd, out, partial, rows, K, N,
-                                  kchunk, s);
+      return launch<E, true, 32, TW>(x, w, wm, rstd, out, partial,
+                                      rows, K, N, kchunk, s);
     case 64:
-      return launch<true, 64, TW>(x, w, wm, rstd, out, partial, rows, K, N,
-                                  kchunk, s);
+      return launch<E, true, 64, TW>(x, w, wm, rstd, out, partial,
+                                      rows, K, N, kchunk, s);
     case 128:
-      return launch<true, 128, TW>(x, w, wm, rstd, out, partial, rows, K, N,
-                                   kchunk, s);
+      return launch<E, true, 128, TW>(x, w, wm, rstd, out, partial,
+                                      rows, K, N, kchunk, s);
     case 256:
-      return launch<true, 256, TW>(x, w, wm, rstd, out, partial, rows, K, N,
-                                   kchunk, s);
+      return launch<E, true, 256, TW>(x, w, wm, rstd, out, partial,
+                                      rows, K, N, kchunk, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -1008,35 +1011,48 @@ extern "C" int ptt_rms_norm_matmul(const void* x, const void* w,
                               eps, static_cast<cudaStream_t>(stream));
 }
 
-// The tensor-core design, bf16: x [rows, K] and wm [K, N] bf16, w [K]
-// of w_dtype (bf16 or fp32), out bf16 [rows, N]; rstd fp32 scratch of
-// rows (the first kernel writes it). All contiguous and 16-byte aligned,
-// K and N multiples of 8. swap_rows 0 runs the tiled kernel; 8, 16, 32,
-// 64, 128 or 256 the swap-AB kernel with a tile of that many rows (>=
-// rows), over K chunks of kchunk rows (a multiple of 64); with more than
-// one chunk, `partial` is fp32 scratch of ceil(K / kchunk) * rows * N.
+// The tensor-core design, bf16 or fp16 (x_dtype): x [rows, K] and wm
+// [K, N] of x_dtype, w [K] of w_dtype (x_dtype or fp32), out [rows, N]
+// of x_dtype; rstd fp32 scratch of rows (the first kernel writes it).
+// All contiguous and 16-byte aligned, K and N multiples of 8. swap_rows 0
+// runs the tiled kernel; 8, 16, 32, 64, 128 or 256 the swap-AB kernel
+// with a tile of that many rows (>= rows), over K chunks of kchunk rows
+// (a multiple of 64); with more than one chunk, `partial` is fp32 scratch
+// of ceil(K / kchunk) * rows * N.
+template <typename E>
+cudaError_t norm_matmul_tc(const void* x, const void* w, const void* wm,
+                           void* out, void* rstd, void* partial, int rows,
+                           int K, int N, int kchunk, int swap_rows,
+                           int w_dtype, float eps, cudaStream_t s) {
+  norm_rstd_kernel<E><<<(rows + 7) / 8, 256, 0, s>>>(
+      static_cast<const E*>(x), static_cast<float*>(rstd), rows, K, eps);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const float* rs = static_cast<const float*>(rstd);
+  if (w_dtype == ptt::kF32)
+    return tc::dispatch<E, float>(x, w, wm, rs, out, partial, rows, K, N,
+                                  kchunk, swap_rows, s);
+  return tc::dispatch<E, E>(x, w, wm, rs, out, partial, rows, K, N, kchunk,
+                            swap_rows, s);
+}
+
 extern "C" int ptt_rms_norm_matmul_tc(const void* x, const void* w,
                                       const void* wm, void* out, void* rstd,
                                       void* partial, int rows, int K, int N,
-                                      int kchunk, int swap_rows, int w_dtype,
-                                      float eps, void* stream) {
+                                      int kchunk, int swap_rows, int x_dtype,
+                                      int w_dtype, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows == 0 || N == 0) return cudaSuccess;
   if (K % 8 || N % 8 || kchunk < tc::kKT || kchunk % tc::kKT ||
       (swap_rows != 0 && rows > swap_rows) ||
-      (w_dtype != ptt::kBF16 && w_dtype != ptt::kF32))
+      (x_dtype != ptt::kBF16 && x_dtype != ptt::kF16) ||
+      (w_dtype != x_dtype && w_dtype != ptt::kF32))
     return cudaErrorInvalidValue;
-  norm_rstd_kernel<__nv_bfloat16><<<(rows + 7) / 8, 256, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<float*>(rstd), rows,
-      K, eps);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const float* rs = static_cast<const float*>(rstd);
-  if (w_dtype == ptt::kBF16)
-    return tc::dispatch<__nv_bfloat16>(x, w, wm, rs, out, partial, rows, K,
-                                       N, kchunk, swap_rows, s);
-  return tc::dispatch<float>(x, w, wm, rs, out, partial, rows, K, N, kchunk,
-                             swap_rows, s);
+  if (x_dtype == ptt::kF16)
+    return norm_matmul_tc<__half>(x, w, wm, out, rstd, partial, rows, K, N,
+                                  kchunk, swap_rows, w_dtype, eps, s);
+  return norm_matmul_tc<__nv_bfloat16>(x, w, wm, out, rstd, partial, rows, K,
+                                       N, kchunk, swap_rows, w_dtype, eps, s);
 }
 
 // The split design, fp32: x [rows, K], w [K] and wm [K, N] fp32, out fp32

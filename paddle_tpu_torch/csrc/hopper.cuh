@@ -312,6 +312,18 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
     return pack_bf16(lo, hi);
 }
 
+// the two 16-bit values of E in a pair (lo in the low half) as fp32
+template <typename E>
+__device__ __forceinline__ void unpack2(uint32_t x, float& lo, float& hi) {
+  if constexpr (is_f16<E>()) {
+    lo = __half2float(__ushort_as_half((unsigned short)(x & 0xffffu)));
+    hi = __half2float(__ushort_as_half((unsigned short)(x >> 16)));
+  } else {  // a bf16 is the high half of its fp32 value
+    lo = __uint_as_float(x << 16);
+    hi = __uint_as_float(x & 0xffff0000u);
+  }
+}
+
 // D[64 x N] (+)= A[64 x 16] * B[16 x N], A and B in shared memory
 // (descriptors), fp32 accumulators; scale_d 0 overwrites D. TA / TB are
 // wgmma's transpose flags: 0 for a K-major operand (a row's K values

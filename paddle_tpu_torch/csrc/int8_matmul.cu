@@ -14,11 +14,13 @@
 //
 // Two designs, chosen by x's dtype:
 //
-// bf16: the tensor-core design (namespace tc, below; hopper.cuh). TMA
+// bf16 and fp16 (a decorate O2 net's quantized projections): the
+// tensor-core design (namespace tc, below; hopper.cuh) on the element type
+// E of x (bf16 or fp16 wgmma and tensor maps). TMA
 // brings the k-tiles of x (128-byte swizzled) and of the int8 weight
 // (unswizzled, through a map of its rows taken in pairs) into a ring of
 // stages; the consumer warpgroups dequantize each int8 tile in shared
-// memory, float(q) * scale -> bf16 in _dequant's order, into the MN-major
+// memory, float(q) * scale -> E in _dequant's order, into the MN-major
 // swizzled layout wgmma reads, and multiply with fp32 accumulators; the
 // dequantization of the next tile overlaps the products of this one. Each
 // weight is dequantized once per CTA. Two kernels of one template:
@@ -408,17 +410,18 @@ __host__ __device__ constexpr int stages() {
   return kSwap && XR <= 16 ? 6 : 4;
 }
 
-// The dequantization rule of the bf16 tile (_dequant: float(q) * scale,
-// rounded to bf16), 8 weights -> one 16-byte row chunk
+// The dequantization rule of the tile of E (_dequant: float(q) * scale,
+// rounded to x's dtype, bf16 or fp16), 8 weights -> one 16-byte row chunk
+template <typename E>
 __device__ __forceinline__ uint4 dequant8(uint2 raw, const float (&s)[8]) {
   float f[8];
   i8x4_to_float(raw.x, f);
   i8x4_to_float(raw.y, f + 4);
   uint4 v;
-  v.x = pack_bf16(__fmul_rn(f[0], s[0]), __fmul_rn(f[1], s[1]));
-  v.y = pack_bf16(__fmul_rn(f[2], s[2]), __fmul_rn(f[3], s[3]));
-  v.z = pack_bf16(__fmul_rn(f[4], s[4]), __fmul_rn(f[5], s[5]));
-  v.w = pack_bf16(__fmul_rn(f[6], s[6]), __fmul_rn(f[7], s[7]));
+  v.x = pack2<E>(__fmul_rn(f[0], s[0]), __fmul_rn(f[1], s[1]));
+  v.y = pack2<E>(__fmul_rn(f[2], s[2]), __fmul_rn(f[3], s[3]));
+  v.z = pack2<E>(__fmul_rn(f[4], s[4]), __fmul_rn(f[5], s[5]));
+  v.w = pack2<E>(__fmul_rn(f[6], s[6]), __fmul_rn(f[7], s[7]));
   return v;
 }
 
@@ -438,13 +441,13 @@ __device__ __forceinline__ uint4 dequant8(uint2 raw, const float (&s)[8]) {
 // the transpose flag), B = the x tile of XR rows (K-major). One chunk
 // writes out directly; more write fp32 partials that a second kernel
 // sums in chunk order.
-template <bool kSwap, int XR>
+template <typename E, bool kSwap, int XR>
 __global__ void __launch_bounds__(kThreads, kSwap && XR <= 16 ? 2 : 1)
     int8_matmul_tc_kernel(const __grid_constant__ CUtensorMap mx,
                           const __grid_constant__ CUtensorMap mw,
                           const __grid_constant__ CUtensorMap mwo,
                           const float* __restrict__ scale,
-                          bf16* __restrict__ out, float* __restrict__ partial,
+                          E* __restrict__ out, float* __restrict__ partial,
                           int rows, int K, int N, int kchunk) {
   constexpr int S = stages<kSwap, XR>();
   using L = Smem<XR, S>;
@@ -517,7 +520,7 @@ __global__ void __launch_bounds__(kThreads, kSwap && XR <= 16 ? 2 : 1)
                                  : wq + (k >> 1) * kNT;
       const uint2 raw = *reinterpret_cast<const uint2*>(row + 8 * g);
       *reinterpret_cast<uint4*>(dst + k * 128 + ((chunk ^ (k & 7)) << 4)) =
-          dequant8(raw, sc);
+          dequant8<E>(raw, sc);
     }
   };
 
@@ -543,15 +546,15 @@ __global__ void __launch_bounds__(kThreads, kSwap && XR <= 16 ? 2 : 1)
 #pragma unroll
     for (int kk = 0; kk < kKT / 16; ++kk) {
       if constexpr (kSwap) {
-        wgmma_ss_t<XR, 1, 0>(acc[0],
-                             desc_mn_major<kKT>(sB + wg * kKT * 128, kk),
-                             desc_k_major<XR>(sX, 0, kk), 1);
+        wgmma_ss_t<XR, 1, 0, E>(acc[0],
+                                desc_mn_major<kKT>(sB + wg * kKT * 128, kk),
+                                desc_k_major<XR>(sX, 0, kk), 1);
       } else {
 #pragma unroll
         for (int i = 0; i < MI; ++i)
-          wgmma_ss_t<kNT, 0, 1>(acc[i],
-                                desc_k_major<XR>(sX, 128 * wg + 64 * i, kk),
-                                desc_mn_major<kKT>(sB, kk), 1);
+          wgmma_ss_t<kNT, 0, 1, E>(acc[i],
+                                   desc_k_major<XR>(sX, 128 * wg + 64 * i, kk),
+                                   desc_mn_major<kKT>(sB, kk), 1);
       }
     }
     wgmma_commit();
@@ -585,7 +588,7 @@ __global__ void __launch_bounds__(kThreads, kSwap && XR <= 16 ? 2 : 1)
         if (n >= N || r >= rows) continue;
         const float v = acc[0][4 * j + e];
         if (direct)
-          out[(size_t)r * N + n] = __float2bfloat16_rn(v);
+          out[(size_t)r * N + n] = ptt::from_float<E>(v);
         else
           partial[((size_t)blockIdx.y * rows + r) * N + n] = v;
       }
@@ -601,21 +604,21 @@ __global__ void __launch_bounds__(kThreads, kSwap && XR <= 16 ? 2 : 1)
           const int r = row0 + 128 * wg + 64 * i + fr + 8 * half;
           if (r < rows)
             *reinterpret_cast<uint32_t*>(out + (size_t)r * N + n) =
-                pack_bf16(acc[i][4 * j + 2 * half],
-                          acc[i][4 * j + 2 * half + 1]);
+                pack2<E>(acc[i][4 * j + 2 * half],
+                         acc[i][4 * j + 2 * half + 1]);
         }
     }
   }
 }
 
-template <bool kSwap, int XR>
+template <typename E, bool kSwap, int XR>
 cudaError_t launch(const void* x, const void* wq, const void* scale,
                    void* out, void* partial, int rows, int K, int N,
                    int kchunk, cudaStream_t stream) {
   CUtensorMap mx, mw, mwo;
   cudaError_t err;
   const uint32_t odd_box = kNT + (N % 16 ? 16 : 0);
-  if ((err = make_map_2d(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, rows,
+  if ((err = make_map_2d(&mx, map_type<E>(), x, K, rows,
                          (uint64_t)K * 2, 64, XR,
                          CU_TENSOR_MAP_SWIZZLE_128B)) ||
       (err = make_map_2d(&mw, CU_TENSOR_MAP_DATA_TYPE_UINT8, wq,
@@ -626,7 +629,7 @@ cudaError_t launch(const void* x, const void* wq, const void* scale,
                          kKT / 2, CU_TENSOR_MAP_SWIZZLE_NONE)))
     return err;
   constexpr int smem = Smem<XR, stages<kSwap, XR>()>::kBytes;
-  auto kernel = int8_matmul_tc_kernel<kSwap, XR>;
+  auto kernel = int8_matmul_tc_kernel<E, kSwap, XR>;
   if ((err = cudaFuncSetAttribute(
            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)))
     return err;
@@ -636,13 +639,13 @@ cudaError_t launch(const void* x, const void* wq, const void* scale,
   const dim3 grid = kSwap ? dim3(col_tiles, chunks)
                           : dim3((rows + XR - 1) / XR, col_tiles);
   kernel<<<grid, kThreads, smem, stream>>>(
-      mx, mw, mwo, static_cast<const float*>(scale), static_cast<bf16*>(out),
+      mx, mw, mwo, static_cast<const float*>(scale), static_cast<E*>(out),
       static_cast<float*>(partial), rows, K, N, kchunk);
   if (chunks == 1) return cudaGetLastError();
   if ((err = cudaGetLastError())) return err;
   const int count = rows * N;
-  int8_matmul_split_sum_kernel<bf16><<<(count + 255) / 256, 256, 0, stream>>>(
-      static_cast<const float*>(partial), static_cast<bf16*>(out), chunks,
+  int8_matmul_split_sum_kernel<E><<<(count + 255) / 256, 256, 0, stream>>>(
+      static_cast<const float*>(partial), static_cast<E*>(out), chunks,
       count);
   return cudaGetLastError();
 }
@@ -667,44 +670,58 @@ extern "C" int ptt_int8_matmul(const void* x, const void* wq,
                 static_cast<cudaStream_t>(stream));
 }
 
-// The tensor-core design, bf16 x: x [rows, K], w_q int8 [K, N], scale
-// fp32 [N], out bf16 [rows, N]; all contiguous and 16-byte aligned, K and
-// N multiples of 8. swap_rows 0 runs the tiled kernel; 8, 16, 32, 64,
-// 128 or 256 the swap-AB kernel with an x tile of that many rows (>=
-// rows), over K
-// chunks of kchunk rows (a multiple of 64); with more than one chunk,
-// `partial` is fp32 scratch of ceil(K / kchunk) * rows * N.
+// The tensor-core design, bf16 or fp16 x (x_dtype): x [rows, K], w_q int8
+// [K, N], scale fp32 [N], out [rows, N] of x's dtype (the weight is
+// dequantized to it); all contiguous and 16-byte aligned, K and N
+// multiples of 8. swap_rows 0 runs the tiled kernel; 8, 16, 32, 64, 128
+// or 256 the swap-AB kernel with an x tile of that many rows (>= rows),
+// over K chunks of kchunk rows (a multiple of 64); with more than one
+// chunk, `partial` is fp32 scratch of ceil(K / kchunk) * rows * N.
+template <typename E>
+cudaError_t int8_matmul_tc(const void* x, const void* wq, const void* scale,
+                           void* out, void* partial, int rows, int K, int N,
+                           int kchunk, int swap_rows, cudaStream_t s) {
+  switch (swap_rows) {
+    case 0:
+      return tc::launch<E, false, 256>(x, wq, scale, out, partial, rows, K,
+                                       N, kchunk, s);
+    case 8:
+      return tc::launch<E, true, 8>(x, wq, scale, out, partial, rows, K, N,
+                                    kchunk, s);
+    case 16:
+      return tc::launch<E, true, 16>(x, wq, scale, out, partial, rows, K, N,
+                                     kchunk, s);
+    case 32:
+      return tc::launch<E, true, 32>(x, wq, scale, out, partial, rows, K, N,
+                                     kchunk, s);
+    case 64:
+      return tc::launch<E, true, 64>(x, wq, scale, out, partial, rows, K, N,
+                                     kchunk, s);
+    case 128:
+      return tc::launch<E, true, 128>(x, wq, scale, out, partial, rows, K, N,
+                                      kchunk, s);
+    case 256:
+      return tc::launch<E, true, 256>(x, wq, scale, out, partial, rows, K, N,
+                                      kchunk, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 extern "C" int ptt_int8_matmul_tc(const void* x, const void* wq,
                                   const void* scale, void* out,
                                   void* partial, int rows, int K, int N,
-                                  int kchunk, int swap_rows, void* stream) {
+                                  int kchunk, int swap_rows, int x_dtype,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows == 0 || N == 0) return cudaSuccess;
   if (K % 8 || N % 8 || kchunk < tc::kKT || kchunk % tc::kKT)
     return cudaErrorInvalidValue;
   if (swap_rows != 0 && rows > swap_rows) return cudaErrorInvalidValue;
-  switch (swap_rows) {
-    case 0:
-      return tc::launch<false, 256>(x, wq, scale, out, partial, rows, K, N,
-                                    kchunk, s);
-    case 8:
-      return tc::launch<true, 8>(x, wq, scale, out, partial, rows, K, N,
-                                 kchunk, s);
-    case 16:
-      return tc::launch<true, 16>(x, wq, scale, out, partial, rows, K, N,
-                                  kchunk, s);
-    case 32:
-      return tc::launch<true, 32>(x, wq, scale, out, partial, rows, K, N,
-                                  kchunk, s);
-    case 64:
-      return tc::launch<true, 64>(x, wq, scale, out, partial, rows, K, N,
-                                  kchunk, s);
-    case 128:
-      return tc::launch<true, 128>(x, wq, scale, out, partial, rows, K, N,
-                                   kchunk, s);
-    case 256:
-      return tc::launch<true, 256>(x, wq, scale, out, partial, rows, K, N,
-                                   kchunk, s);
-  }
+  if (x_dtype == ptt::kF16)
+    return int8_matmul_tc<__half>(x, wq, scale, out, partial, rows, K, N,
+                                  kchunk, swap_rows, s);
+  if (x_dtype == ptt::kBF16)
+    return int8_matmul_tc<__nv_bfloat16>(x, wq, scale, out, partial, rows, K,
+                                         N, kchunk, swap_rows, s);
   return cudaErrorInvalidValue;
 }

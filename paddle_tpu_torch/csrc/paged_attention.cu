@@ -540,7 +540,8 @@ cudaError_t launch(const void* q, const void* k_pages, const void* k_scale,
 // and 16-byte aligned; head_dim a multiple of 16 up to 256; heads a
 // multiple of kv_heads; page_size a power of two; max_chunks * chunk >=
 // table_width * page_size; q_dtype equal to kv_dtype, or fp32 q over a
-// bf16 arena (the Python wrapper checks all of this).
+// bf16 arena, or fp16 q over an fp32 or bf16 arena (the Python wrapper
+// checks all of this).
 extern "C" int ptt_paged_attention_fwd(
     const void* q, const void* k_pages, const void* v_pages,
     const void* table, const void* pos, void* out, void* scores, void* stats,
@@ -562,13 +563,19 @@ extern "C" int ptt_paged_attention_fwd(
   if (q_dtype == ptt::kF32 && kv_dtype == ptt::kF32) PTT_DISPATCH(float, float);
   if (q_dtype == ptt::kF32 && kv_dtype == ptt::kBF16)
     PTT_DISPATCH(float, __nv_bfloat16);
+  // an fp16 q (a decorate O2 net's) over the float arenas the engines
+  // keep (JAX has no fp16 cache): P rounded to fp16, fp16 out
+  if (q_dtype == ptt::kF16 && kv_dtype == ptt::kBF16)
+    PTT_DISPATCH(__half, __nv_bfloat16);
+  if (q_dtype == ptt::kF16 && kv_dtype == ptt::kF32)
+    PTT_DISPATCH(__half, float);
 #undef PTT_DISPATCH
   return cudaErrorInvalidValue;
 }
 
 // The int8 arena flavour: k_q/v_q int8 [N, page_size, kv_heads,
-// kv_dim], k_scale/v_scale fp32 [N, page_size, kv_heads]; q fp32 or
-// bf16. Otherwise as ptt_paged_attention_fwd.
+// kv_dim], k_scale/v_scale fp32 [N, page_size, kv_heads]; q fp32, bf16
+// or fp16. Otherwise as ptt_paged_attention_fwd.
 extern "C" int ptt_paged_attention_int8_fwd(
     const void* q, const void* k_q, const void* k_scale, const void* v_q,
     const void* v_scale, const void* table, const void* pos, void* out,
@@ -588,6 +595,7 @@ extern "C" int ptt_paged_attention_int8_fwd(
                             ws, batch, geo, scale, s)
   if (q_dtype == ptt::kBF16) PTT_DISPATCH(__nv_bfloat16);
   if (q_dtype == ptt::kF32) PTT_DISPATCH(float);
+  if (q_dtype == ptt::kF16) PTT_DISPATCH(__half);
 #undef PTT_DISPATCH
   return cudaErrorInvalidValue;
 }

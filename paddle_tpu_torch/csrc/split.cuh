@@ -11,7 +11,12 @@
 // it (hi.lo, mid.mid, lo.hi, hi.mid, mid.hi, hi.hi), issued smallest first
 // into fp32 accumulators; the three dropped terms (mid.lo, lo.mid, lo.lo)
 // are below 2^-24 of the product. One part (NP = 1) is a bf16 operand
-// taken as it is: only the last term, hi.hi.
+// taken as it is: only the last term, hi.hi. Two parts (NP = 2) are an
+// fp16 value's hi = bf16(x) and lo = bf16(x - hi): fp16's 11 significant
+// bits fit in the two parts' 8 + 8 and bf16's range holds fp16's, so hi +
+// lo is x exactly, and the four terms of parts 0 and 1 (mid.mid, hi.mid,
+// mid.hi, hi.hi in the order above: lo is the second part) give the
+// product exactly.
 #pragma once
 #include "common.cuh"
 #include "hopper.cuh"
@@ -26,14 +31,22 @@ __host__ __device__ constexpr int term_a(int t) {
 __host__ __device__ constexpr int term_b(int t) {
   return t == 0 ? 2 : t == 1 || t == 3 ? 1 : 0;
 }
+// whether a product of NP-part operands takes term t (both its parts
+// exist), and the first term it takes
+template <int NP>
+__host__ __device__ constexpr bool has_term(int t) {
+  return term_a(t) < NP && term_b(t) < NP;
+}
 template <int NP>
 __host__ __device__ constexpr int first_term() {
-  return NP == 1 ? 5 : 0;
+  return NP == 1 ? 5 : NP == 2 ? 1 : 0;
 }
 
 // the accumulator fragment of a score tile (to_a_operand's layout in
 // flash_attention.cu) as NP register A operands: rounded to bf16 once
-// (NP = 1, the stock kernel's astype) or split into hi, mid, lo (NP = 3)
+// (NP = 1, the stock kernel's astype), rounded to fp16 once (the same
+// point for fp16 inputs) and written as its two exact bf16 parts (NP =
+// 2), or split into hi, mid, lo (NP = 3)
 template <int NP, int KSTEPS>
 __device__ __forceinline__ void to_a_parts(const float* acc,
                                            uint32_t (&a)[NP][KSTEPS][4]) {
@@ -42,6 +55,10 @@ __device__ __forceinline__ void to_a_parts(const float* acc,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float x = acc[8 * kk + 2 * i], y = acc[8 * kk + 2 * i + 1];
+      if constexpr (NP == 2) {
+        x = __half2float(__float2half_rn(x));
+        y = __half2float(__float2half_rn(y));
+      }
 #pragma unroll
       for (int p = 0; p < NP; ++p) {
         const uint32_t v = hopper::pack_bf16(x, y);
@@ -52,12 +69,13 @@ __device__ __forceinline__ void to_a_parts(const float* acc,
     }
 }
 
-// the three bf16 parts of 8 fp32 values into dst, dst + part, dst + 2 part
-// (elements; 16-byte aligned): 16 bytes a part
+// the NP bf16 parts (three by default) of 8 fp32 values into dst, dst +
+// part, dst + 2 part (elements; 16-byte aligned): 16 bytes a part
+template <int NP = 3>
 __device__ __forceinline__ void store_parts8(__nv_bfloat16* dst,
                                              long long part, float (&v)[8]) {
 #pragma unroll
-  for (int p = 0; p < 3; ++p) {
+  for (int p = 0; p < NP; ++p) {
     uint32_t w[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -70,14 +88,15 @@ __device__ __forceinline__ void store_parts8(__nv_bfloat16* dst,
   }
 }
 
-// The three bf16 parts of an fp32 (or bf16: T) [batch, seq, heads, d]
-// tensor (read through its strides, d a multiple of 8) into the
-// contiguous scratch [3, batch, seq, heads, D], columns d to D zero. A
-// bf16 value becomes fp32 exactly and is its own hi part (mid and lo are
-// zero). A thread splits 8 columns of a row. (A contiguous [K, N] matrix
-// is batch 1, seq K, heads 1, d = D = N.) Static: every source that
-// includes this header has its own copy.
-template <typename T>
+// The three bf16 parts of an fp32 (or bf16, fp16: T) [batch, seq, heads,
+// d] tensor (read through its strides, d a multiple of 8) into the
+// contiguous scratch [3, batch, seq, heads, D], columns d to D zero; NP =
+// 2 writes the first two parts only, [2, batch, ...] (an fp16 tensor's
+// exact two). A bf16 value becomes fp32 exactly and is its own hi part
+// (mid and lo are zero). A thread splits 8 columns of a row. (A
+// contiguous [K, N] matrix is batch 1, seq K, heads 1, d = D = N.)
+// Static: every source that includes this header has its own copy.
+template <typename T, int NP = 3>
 static __global__ void split3_kernel(const T* __restrict__ x,
                                      __nv_bfloat16* __restrict__ out,
                                      Strides st, int batch, int seq,
@@ -98,7 +117,7 @@ static __global__ void split3_kernel(const T* __restrict__ x,
 #pragma unroll
     for (int j = 0; j < 8; ++j) v[j] = 0.0f;
   }
-  store_parts8(out + row * D + c, rows * D, v);
+  store_parts8<NP>(out + row * D + c, rows * D, v);
 }
 
 }  // namespace split

@@ -47,7 +47,8 @@ counterpart. Each module counts the kernel launches it made
 fused rope + attention's: one per composition of its kernels),
 ``int8_launches`` for the int8 paged attention; ``fp16_launches`` and
 ``fp16_bwd_launches`` (``fp16_sumsq_launches``, ``fp16_adam_launches``)
-for the kernels that take fp16, :func:`fp16_launch_counts`; flash attention, the
+for the launches on fp16 inputs, :func:`fp16_launch_counts`; flash
+attention, the
 W8A16 matmul and the two fusions also per design,
 :func:`flash_design_counts`, :func:`int8_matmul_design_counts` and
 :func:`fusion_design_counts`); a serving program captured as a CUDA
@@ -100,6 +101,12 @@ FP16_KERNELS = {
     "flash_attention_bwd_fp16": (flash_attention, "fp16_bwd_launches"),
     "mt_sumsq_fp16": (fused_adam, "fp16_sumsq_launches"),
     "mt_adam_fp16": (fused_adam, "fp16_adam_launches"),
+    "paged_attention_fp16": (paged_attention, "fp16_launches"),
+    "paged_attention_int8_fp16": (paged_attention, "fp16_int8_launches"),
+    "int8_matmul_fp16": (int8_matmul, "fp16_launches"),
+    "rms_norm_matmul_fp16": (fused_norm_matmul, "fp16_launches"),
+    "rope_attention_fp16": (fused_rope_attention, "fp16_launches"),
+    "rope_attention_bwd_fp16": (fused_rope_attention, "fp16_bwd_launches"),
 }
 
 
@@ -148,9 +155,9 @@ def launch_counts():
 
 
 def fp16_launch_counts():
-    """The launches over fp16 tensors of the kernels that take fp16
-    (:data:`FP16_KERNELS`: RMSNorm, rope and flash attention forward and
-    backward, the sum of squares and the Adam update)."""
+    """The launches over fp16 tensors (:data:`FP16_KERNELS`: every kernel
+    of the table in fp16, the fused attention's backward compositions on
+    fp16 inputs, the sum of squares and the Adam update)."""
     return {name: getattr(mod, attr) for name, (mod, attr) in
             FP16_KERNELS.items()}
 
@@ -165,16 +172,17 @@ def flash_design_counts():
 
 def int8_matmul_design_counts():
     """W8A16 launches by design: ``tc_launches`` the tensor-core kernels
-    (bf16 x), ``cc_launches`` the CUDA-core kernels (fp32 x)."""
+    (bf16 and fp16 x), ``cc_launches`` the CUDA-core kernels (fp32 x)."""
     return {attr: getattr(int8_matmul, attr)
             for attr in int8_matmul.DESIGN_COUNTERS}
 
 
 def fusion_design_counts():
     """The two fusions' launches by design: ``{"rms_norm_matmul": {...},
-    "rope_attention": {...}}``, each ``tc_launches`` (tensor cores: bf16),
-    ``split_launches`` (tensor cores through three-part split products:
-    fp32, and the rope-on-load forward's other bf16 head dims) and
+    "rope_attention": {...}}``, each ``tc_launches`` (tensor cores: bf16
+    and fp16), ``split_launches`` (tensor cores through three-part split
+    products: fp32, and the rope-on-load forward's other 16-bit head
+    dims) and
     ``cc_launches`` (CUDA cores); the rope attention's also
     ``bwd_launches`` (its backward's compositions of the rope and flash
     kernels)."""

@@ -70,8 +70,8 @@ SIGNATURES = {
     # stream
     "ptt_int8_matmul": [_P] * 5 + [_I] * 4 + [_P],
     # x, w_q, scale, out, partial (or null), rows, K, N, kchunk,
-    # swap_rows (0: the tiled kernel), stream
-    "ptt_int8_matmul_tc": [_P] * 5 + [_I] * 5 + [_P],
+    # swap_rows (0: the tiled kernel), x dtype (bf16 or fp16), stream
+    "ptt_int8_matmul_tc": [_P] * 5 + [_I] * 6 + [_P],
     # q, k, v, o, lse, batch, heads, sq, sk, head_dim, (batch, seq, head)
     # strides of q, k, v, causal, scale, dtype, work (or null),
     # cuda_cores, stream
@@ -86,8 +86,9 @@ SIGNATURES = {
     # (fp32)
     "ptt_rms_norm_matmul": [_P] * 5 + [_I] * 4 + [_F, _P],
     # x, w, wm, out, rstd, partial (or null), rows, K, N, kchunk,
-    # swap_rows (0: the tiled kernel), w_dtype, eps, stream (bf16)
-    "ptt_rms_norm_matmul_tc": [_P] * 6 + [_I] * 6 + [_F, _P],
+    # swap_rows (0: the tiled kernel), x_dtype, w_dtype, eps, stream
+    # (bf16 or fp16)
+    "ptt_rms_norm_matmul_tc": [_P] * 6 + [_I] * 7 + [_F, _P],
     # x, w, wm, out, rstd, work, rows, K, N, eps, stream (fp32, the
     # split design)
     "ptt_rms_norm_matmul_split": [_P] * 6 + [_I] * 3 + [_F, _P],
@@ -126,17 +127,9 @@ SIGNATURES = {
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                torch.float16: 3}
-# the floating types the training kernels take (rows 1, 2, 3a, 3b, 6a, 6b
-# of PERF.md's table, and the multi-tensor updates)
+# the floating types the kernels take (every row of PERF.md's table, and
+# the multi-tensor updates)
 FLOAT_TYPES = (torch.float32, torch.bfloat16, torch.float16)
-
-
-def fp16_refused(kernel, item):
-    """The TypeError of a kernel that has no fp16 version yet, naming
-    the ``ROADMAP.md`` queue B fp16 line that holds it."""
-    return TypeError(
-        f"{kernel} has no float16 version on the card yet (ROADMAP.md "
-        f"queue B, fp16 item {item}); run it in float32 or bfloat16")
 
 _LIB = None
 _LOCK = threading.Lock()

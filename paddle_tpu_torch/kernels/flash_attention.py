@@ -12,9 +12,10 @@ Two designs, chosen by dtype and head dim (:func:`design`). The
 tensor-core design (``"tc"``: wgmma products with fp32 accumulators, TMA
 tile loads) runs every head dim in every dtype: bf16 and fp16 at their
 padded width, at least 64 (the tensor-core tiles' 64-column unit; zero
-columns add exact zeros to every fp32 sum; fp16's backward up to 128,
-above it a ``TypeError`` naming ROADMAP.md queue B); fp32 through split
-products, each
+columns add exact zeros to every fp32 sum; the fp16 backward above 128
+runs the split kernels on each fp16 operand's two exact bf16 parts, four
+bf16 products a product, P and dS rounded to fp16 where the stock kernel
+rounds them); fp32 through split products, each
 fp32 operand written as three bf16 parts (hi, mid, lo, which keep its 24
 significant bits) and each product as the six bf16 products of parts
 whose terms are larger than about 2^-22 of it, so the result keeps the
@@ -147,21 +148,37 @@ def split_width(head_dim):
     return 64 if head_dim <= 64 else 128 if head_dim <= 128 else 256
 
 
-def split_workspace_elems(b, sq, sk, h, d, n_q, n_k):
-    """bf16 values of the split design's three-part operands: ``3 x rows
-    x heads x split_width`` (the C entry points' layout) for ``n_q``
-    operands of ``b x sq`` rows and ``n_k`` of ``b x sk``."""
-    return 3 * b * (n_q * sq + n_k * sk) * h * split_width(d)
+def split_workspace_elems(b, sq, sk, h, d, n_q, n_k, parts=3):
+    """bf16 values of the split design's operands of ``parts`` parts:
+    ``parts x rows x heads x split_width`` (the C entry points' layout)
+    for ``n_q`` operands of ``b x sq`` rows and ``n_k`` of ``b x sk``."""
+    return parts * b * (n_q * sq + n_k * sk) * h * split_width(d)
 
 
-def split_workspace(q, sk, n_q, n_k, cuda_cores):
-    """The bf16 workspace of an fp32 call's three-part operands (None for
-    bf16, or on the CUDA cores): :func:`split_workspace_elems` values."""
+def split_parts(dtype, head_dim, backward):
+    """The bf16 parts a pre-pass writes of each operand of a call (0: the
+    kernels read the inputs as they are): three of fp32 (the split
+    design), two of fp16 in the backward above head dim 128 (its exact
+    bf16 parts, for the split kernels)."""
+    if dtype == torch.float32:
+        return 3
+    if dtype == torch.float16 and backward and padded_head_dim(head_dim) \
+            > 128:
+        return 2
+    return 0
+
+
+def split_workspace(q, sk, n_q, n_k, cuda_cores, backward=False):
+    """The bf16 workspace of a call's split operands (None where there
+    are none, :func:`split_parts`, or on the CUDA cores):
+    :func:`split_workspace_elems` values."""
     b, sq, h, d = (int(x) for x in q.shape)
-    if cuda_cores or q.dtype != torch.float32:
+    parts = split_parts(q.dtype, d, backward)
+    if cuda_cores or not parts:
         return None
-    return torch.empty(split_workspace_elems(b, sq, sk, h, d, n_q, n_k),
-                       dtype=torch.bfloat16, device=q.device)
+    return torch.empty(
+        split_workspace_elems(b, sq, sk, h, d, n_q, n_k, parts),
+        dtype=torch.bfloat16, device=q.device)
 
 
 def check_head_dim(d, what="flash attention kernel"):
@@ -396,21 +413,6 @@ def _check_cuda(tensors, dtype):
     return dev
 
 
-def _check_fp16(dtype, head_dim, backward, cuda_cores):
-    """fp16 runs the bf16 tensor-core kernels' fp16 instantiations: the
-    forward at every head dim, the backward up to 128 (above, bf16 runs
-    the one-part split kernels, which read bf16 only)."""
-    if dtype != torch.float16:
-        return
-    if cuda_cores:
-        raise _build.fp16_refused("the CUDA-core flash attention kernels",
-                                  3)
-    if backward and padded_head_dim(head_dim) > 128:
-        raise _build.fp16_refused(
-            f"the flash attention backward above head_dim 128 (got "
-            f"{head_dim})", 3)
-
-
 def _count(dtype, head_dim, backward, cuda_cores=False):
     """Add one launch to the total and to the counter of the design that
     ran (:func:`design`, the C entry points' dispatch, or the CUDA cores
@@ -432,7 +434,6 @@ def flash_attention_cuda(q, k, v, causal=False, scale=None,
     _, _, _, _, d = _check_shapes(q, k, v, causal)
     _check_cuda((("q", q), ("k", k), ("v", v)), q.dtype)
     check_head_dim(d)
-    _check_fp16(q.dtype, d, False, cuda_cores)
     out = padded_forward(functools.partial(_launch_fwd, cuda_cores=cuda_cores),
                          q, k, v, causal, _scale_of(q, scale))
     _count(q.dtype, d, False, cuda_cores)
@@ -475,7 +476,6 @@ def flash_attention_backward_cuda(q, k, v, o, lse, do, causal=False,
     dev = _check_cuda((("q", q), ("k", k), ("v", v), ("o", o),
                        ("dout", do)), q.dtype)
     check_head_dim(d)
-    _check_fp16(q.dtype, d, True, cuda_cores)
     if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
         raise ValueError("flash attention backward: o and dout must have "
                          "q's shape")
@@ -502,7 +502,7 @@ def _launch_bwd(q, k, v, o, lse, do, causal, scale, cuda_cores=False):
     dk = torch.empty((b, sk, h, d), dtype=q.dtype, device=dev)
     dv = torch.empty((b, sk, h, d), dtype=q.dtype, device=dev)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
-    work = split_workspace(q, sk, 2, 2, cuda_cores)  # q, dout; k, v
+    work = split_workspace(q, sk, 2, 2, cuda_cores, True)  # q, dout; k, v
     with torch.cuda.device(dev):
         err = lib.ptt_flash_attention_bwd(
             _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),

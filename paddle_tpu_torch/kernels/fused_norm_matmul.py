@@ -26,7 +26,9 @@ selects its TPU kernel through the tune cache (``head_fusion_select``),
 which is not ported.
 
 Three designs, chosen by x's dtype and row count (:func:`design`):
-bf16 runs the tensor-core kernels (``"tc"``, ``ptt_rms_norm_matmul_tc``:
+bf16 and fp16 run the tensor-core kernels (``"tc"``,
+``ptt_rms_norm_matmul_tc`` on the element type of x, the fp16 one the
+decorate O2 head's; ``fp16_launches`` counts its calls:
 an rstd pre-pass, then wgmma on the normed tile built in shared memory;
 the swap-AB kernel up to :data:`SWAP_MAX_ROWS` rows, split over K
 chunks, the tiled kernel above). fp32 from :data:`SPLIT_MIN_ROWS` rows
@@ -55,12 +57,13 @@ from .int8_matmul import SWAP_TILES, TC_KTILE, swap_kchunk
 # the same by design: tensor cores (bf16), split products on the tensor
 # cores (fp32 from SPLIT_MIN_ROWS rows), CUDA cores (fp32 below)
 launches = 0
+fp16_launches = 0
 tc_launches = 0
 split_launches = 0
 cc_launches = 0
 DESIGN_COUNTERS = ("tc_launches", "split_launches", "cc_launches")
 
-X_DTYPES = (torch.float32, torch.bfloat16)
+X_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 K_CHUNK = 512  # K rows per CTA of the narrow (rows <= 16) CUDA-core kernel
 NARROW_ROWS = 16
 VEC = 8  # elements of the kernels' vectors: H and N are multiples
@@ -86,10 +89,11 @@ SPLIT_ROW_ALIGN = 8
 
 
 def design(dtype, rows):
-    """``"tc"`` (tensor cores, bf16 x), ``"split"`` (split products on the
-    tensor cores, fp32 x of at least :data:`SPLIT_MIN_ROWS` rows) or
-    ``"cc"`` (CUDA cores, fp32 x of fewer rows)."""
-    if dtype == torch.bfloat16:
+    """``"tc"`` (tensor cores, bf16 or fp16 x), ``"split"`` (split
+    products on the tensor cores, fp32 x of at least
+    :data:`SPLIT_MIN_ROWS` rows) or ``"cc"`` (CUDA cores, fp32 x of fewer
+    rows)."""
+    if dtype in (torch.bfloat16, torch.float16):
         return "tc"
     return "split" if rows >= SPLIT_MIN_ROWS else "cc"
 
@@ -186,7 +190,8 @@ def rms_norm_matmul(x, w, wm, eps=1e-6):
 def rms_norm_matmul_cuda(x, w, wm, eps=1e-6, cuda_cores=False):
     """Launch ``csrc/fused_norm_matmul.cu``: the design :func:`design`
     gives for x's dtype and row count (bf16: the swap-AB kernel up to
-    :data:`SWAP_MAX_ROWS` rows, the tiled one above; ``cuda_cores``: the
+    :data:`SWAP_MAX_ROWS` rows, the tiled one above, fp16 likewise;
+    ``cuda_cores``: the
     fp32 CUDA-core kernels at any row count, to compare with); raises on
     anything it does not take."""
     x2, h, n = _checked(x, w, wm)
@@ -279,14 +284,12 @@ def _checked(x, w, wm):
         if t.device != dev:
             raise ValueError(f"rms_norm_matmul: {name} on {t.device}, x on "
                              f"{dev}")
-    if torch.float16 in (x.dtype, w.dtype, wm.dtype):
-        raise _build.fp16_refused("the fused RMSNorm + matmul", 1)
     if x.dtype not in X_DTYPES or wm.dtype != x.dtype \
             or w.dtype not in (x.dtype, torch.float32):
         raise TypeError(
-            f"rms_norm_matmul kernel takes x and wm of one dtype (float32 "
-            f"or bfloat16) and w in x's dtype or float32, got x {x.dtype}, "
-            f"w {w.dtype}, wm {wm.dtype}")
+            f"rms_norm_matmul kernel takes x and wm of one dtype (float32, "
+            f"bfloat16 or float16) and w in x's dtype or float32, got x "
+            f"{x.dtype}, w {w.dtype}, wm {wm.dtype}")
     h = int(x.shape[-1])
     if wm.dim() != 2 or int(wm.shape[0]) != h or tuple(w.shape) != (h,):
         raise ValueError(f"rms_norm_matmul: x [..., H], w [H], wm [H, N]; "
@@ -308,13 +311,14 @@ def _checked(x, w, wm):
 
 def _tc_kernel(x2, w, wm, eps, kernel):
     """One tensor-core kernel, "swap" or "tiled" (each after the rstd
-    pre-pass), on checked bf16 x2 ``[rows, H]``: the out ``[rows, N]``.
+    pre-pass), on checked bf16 or fp16 x2 ``[rows, H]``: the out ``[rows,
+    N]`` in x's dtype.
     :func:`rms_norm_matmul_cuda` picks the kernel; ``chip_smoke.py``'s
     crossover sweep names each one."""
-    global launches, tc_launches
+    global launches, tc_launches, fp16_launches
     rows, h = (int(v) for v in x2.shape)
     n = int(wm.shape[1])
-    if x2.dtype != torch.bfloat16 or kernel not in ("swap", "tiled") or (
+    if design(x2.dtype, rows) != "tc" or kernel not in ("swap", "tiled") or (
             kernel == "swap" and rows > SWAP_TILES[-1]):
         raise ValueError(f"rms_norm_matmul: no {kernel!r} kernel for "
                          f"{x2.dtype} x of {rows} rows")
@@ -334,10 +338,11 @@ def _tc_kernel(x2, w, wm, eps, kernel):
             _build.ptr(x2), _build.ptr(w), _build.ptr(wm), _build.ptr(out),
             _build.ptr(rstd),
             None if partial is None else _build.ptr(partial),
-            rows, h, n, kchunk, swap_rows, _build.DTYPE_CODES[w.dtype],
-            float(eps), _build.stream_of(x2),
+            rows, h, n, kchunk, swap_rows, _build.DTYPE_CODES[x2.dtype],
+            _build.DTYPE_CODES[w.dtype], float(eps), _build.stream_of(x2),
         )
     _build.check(err, "ptt_rms_norm_matmul_tc")
     tc_launches += 1
+    fp16_launches += x2.dtype == torch.float16
     launches += 1
     return out

@@ -44,26 +44,30 @@ selects its TPU kernel through the tune cache
 ``S % block_q`` restriction is a tiling artefact and is not ported: the
 kernel takes any S and masks the ragged tail.
 
-Two designs, chosen by dtype and head dim (:func:`design`): bf16 whose
-padded head dim is 64 to 128 runs the tensor-core kernel (``"tc"``,
-``tc::rope_attention_fwd_tc_kernel``), which keeps the fp32 contract by
-splitting each rotated q and k value and each probability into bf16 hi
-and lo parts (five bf16 products, fp32 accumulators;
-:func:`split_product_slack` bounds what that moves); every other case
-(fp32 at every head dim, bf16 below a padded 64 and above 128) runs the
-split design (``"split"``): a pre-pass rotates q and k in fp32 in
-``_rotate``'s op order and writes each rotated value as three bf16 parts
-(all 24 bits: nothing is rounded; a bf16 input is cast to fp32 first,
-exactly) into the bf16 workspace that flash attention's split forward
-reads, v is split the same way, and that forward (six bf16 products a
-product; at a padded head dim above 128 a pair of CTAs, each on half of
-the head dim) runs on them with no LSE stored and writes O in the
-inputs' dtype. So bf16 outside 64 to 128 keeps the fp32 contract
-exactly, with no slack. ``cuda_cores=True`` runs the CUDA-core kernel
+Two designs, chosen by dtype and head dim (:func:`design`): bf16 and
+fp16 whose padded head dim is 64 to 128 run the tensor-core kernel
+(``"tc"``, ``tc::rope_attention_fwd_tc_kernel``), which keeps the fp32
+contract by splitting each rotated q and k value and each probability
+into bf16 hi and lo parts (five bf16 products, fp32 accumulators;
+:func:`split_product_slack` bounds what that moves; an fp16 v is split
+into its two exact bf16 parts too, so its P V is four products of parts
+and the bound stays); every other case (fp32 at every head dim, bf16
+and fp16 below a padded 64 and above 128) runs the split design
+(``"split"``): a pre-pass rotates q and k in fp32 in ``_rotate``'s op
+order and writes each rotated value as three bf16 parts (all 24 bits:
+nothing is rounded; a 16-bit input is cast to fp32 first, exactly) into
+the bf16 workspace that flash attention's split forward reads, v is
+split the same way, and that forward (six bf16 products a product; at a
+padded head dim above 128 a pair of CTAs, each on half of the head dim)
+runs on them with no LSE stored and writes O in the inputs' dtype. So
+bf16 and fp16 outside 64 to 128 keep the fp32 contract exactly, with no
+slack. ``cuda_cores=True`` runs the CUDA-core kernel
 (fp32 FMAs) at any head dim and dtype (the design the tensor-core ones
 replaced, kept to compare with). ``tc_launches``, ``split_launches`` and
 ``cc_launches`` count each design beside ``launches``; ``bwd_launches``
-counts the backward's compositions on a CUDA tensor. A head dim
+counts the backward's compositions on a CUDA tensor; ``fp16_launches``
+and ``fp16_bwd_launches`` the calls of each on fp16 inputs (the fp16
+backward casts once to fp32, as every dtype's does). A head dim
 that is not a multiple of 16 is padded into a copy half by half
 (``[x1, 0, x2, 0]``, the tables with zero columns), so column c still
 pairs with c + D/2 of the true D, and the output is sliced back.
@@ -94,19 +98,22 @@ tc_launches = 0
 split_launches = 0
 cc_launches = 0
 bwd_launches = 0
+fp16_launches = 0
+fp16_bwd_launches = 0
 DESIGN_COUNTERS = ("tc_launches", "split_launches", "cc_launches",
                    "bwd_launches")
 TC_MAX_HEAD_DIM = 128
 
 
 def design(dtype, head_dim):
-    """``"tc"`` (tensor cores, bf16 hi/lo products) or ``"split"`` (the
+    """``"tc"`` (tensor cores, bf16 hi/lo products; bf16 and fp16 inputs)
+    or ``"split"`` (the
     rotate-and-split pre-pass and flash attention's split forward): the
     design ``ptt_rope_attention_fwd`` runs for this dtype and head dim
     (the CUDA cores run only on request)."""
     padded = padded_head_dim(head_dim)
-    if dtype == torch.bfloat16 and TC_MIN_HEAD_DIM <= padded \
-            <= TC_MAX_HEAD_DIM:
+    if dtype in (torch.bfloat16, torch.float16) \
+            and TC_MIN_HEAD_DIM <= padded <= TC_MAX_HEAD_DIM:
         return "tc"
     return "split"
 
@@ -271,7 +278,7 @@ def rope_attention_backward(q, k, v, g, cos2, sin2, causal, scale):
     the port's kernels on a CUDA tensor (or a raise) and of their plain
     versions on the CPU, all in fp32: rotate q and k, the flash forward
     for O and LSE, the flash backward, the rope backward, one cast."""
-    global bwd_launches
+    global bwd_launches, fp16_bwd_launches
     cuda = q.device.type == "cuda"
     rope_fwd, flash_fwd, flash_bwd, rope_bwd = (
         _kernel_steps() if cuda else _plain_steps())
@@ -287,6 +294,7 @@ def rope_attention_backward(q, k, v, g, cos2, sin2, causal, scale):
     del drq, drk
     if cuda:
         bwd_launches += 1
+        fp16_bwd_launches += q.dtype == torch.float16
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -334,7 +342,7 @@ def rope_attention_cuda(q, k, v, cos, sin, causal=True, scale=None,
     """Launch ``ptt_rope_attention_fwd`` of ``csrc/flash_attention.cu``:
     the design :func:`design` gives (``cuda_cores``: the CUDA-core
     kernel, to compare with); raises on anything it does not take."""
-    global launches
+    global launches, fp16_launches
     cos2, sin2 = _check(q, k, v, cos, sin)
     d = int(q.shape[3])
     _check_cuda(q, k, v, cos2, sin2)
@@ -343,6 +351,7 @@ def rope_attention_cuda(q, k, v, cos, sin, causal=True, scale=None,
         functools.partial(_launch, cuda_cores=cuda_cores), q, k, v, cos2,
         sin2, bool(causal), _scale_of(q, scale))
     launches += 1
+    fp16_launches += q.dtype == torch.float16
     kind = "cc" if cuda_cores else design(q.dtype, d)
     globals()[f"{kind}_launches"] += 1
     return o
@@ -358,13 +367,11 @@ def _check_cuda(q, k, v, cos2, sin2):
         if t.device != dev:
             raise ValueError(f"rope attention: {name} on {t.device}, q on "
                              f"{dev}")
-    if q.dtype == torch.float16:
-        raise _build.fp16_refused("the rope-on-load attention kernel", 2)
-    if q.dtype not in (torch.float32, torch.bfloat16) \
+    if q.dtype not in _build.FLOAT_TYPES \
             or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"rope attention kernel takes q, k, v of one dtype, "
-                        f"float32 or bfloat16, got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
+                        f"float32, bfloat16 or float16, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
     if cos2.dtype != torch.float32 or sin2.dtype != torch.float32:
         raise TypeError(f"rope attention kernel takes float32 tables, got "
                         f"{cos2.dtype} and {sin2.dtype}")

@@ -6,7 +6,7 @@ Counterpart of ``paddle_tpu/kernels/int8_matmul.py`` (``int8_matmul``,
 CUDA source is ``paddle_tpu_torch/csrc/int8_matmul.cu``.
 
 The function: ``x @ ((float(w_q) * scale) cast to x's dtype)`` with x
-``[..., H]`` fp32 or bf16, ``w_q`` int8 ``[H, N]`` and ``scale`` fp32
+``[..., H]`` fp32, bf16 or fp16, ``w_q`` int8 ``[H, N]`` and ``scale`` fp32
 ``[N]``, summed in fp32 and cast once to x's dtype. The dequantized
 weight is rounded to x's dtype BEFORE the product, as ``_dequant`` and
 the JAX default path ``int8_matmul_composed`` do.
@@ -16,13 +16,14 @@ In the port this kernel IS the quantized projection on the card: every
 JAX package selects its TPU kernel through the tune cache,
 ``int8_matmul_select``, which is not ported).
 
-Two designs, chosen by x's dtype (:func:`design`): bf16 runs the
-tensor-core kernels (``ptt_int8_matmul_tc``: wgmma on the weight
-dequantized in shared memory; the swap-AB kernel up to
-:data:`SWAP_MAX_ROWS` rows, split over K chunks, the tiled kernel above),
-fp32 the CUDA-core ones (``ptt_int8_matmul``), because the tensor cores
-take fp32 only as TF32. ``tc_launches`` and ``cc_launches`` count each
-design beside ``launches``.
+Two designs, chosen by x's dtype (:func:`design`): bf16 and fp16 run
+the tensor-core kernels (``ptt_int8_matmul_tc`` on x's element type:
+wgmma on the weight dequantized in shared memory to x's dtype; the
+swap-AB kernel up to :data:`SWAP_MAX_ROWS` rows, split over K chunks, the
+tiled kernel above), fp32 the CUDA-core ones (``ptt_int8_matmul``),
+because the tensor cores take fp32 only as TF32. ``tc_launches`` and
+``cc_launches`` count each design beside ``launches``, and
+``fp16_launches`` the calls on fp16 x (a decorate O2 net's).
 """
 from __future__ import annotations
 
@@ -32,11 +33,12 @@ from ..amp import naninf as _naninf
 from . import _build
 
 launches = 0
+fp16_launches = 0
 tc_launches = 0
 cc_launches = 0
 DESIGN_COUNTERS = ("tc_launches", "cc_launches")
 
-X_DTYPES = (torch.float32, torch.bfloat16)
+X_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 K_CHUNK = 512  # K rows per CTA of the narrow (rows <= 16) CUDA-core kernel
 NARROW_ROWS = 16
 # the tensor-core design: x rows up to which the swap-AB kernel runs (its
@@ -51,8 +53,9 @@ SWAP_CTAS_PER_SM = 2
 
 
 def design(dtype):
-    """``"tc"`` (tensor cores, bf16 x) or ``"cc"`` (CUDA cores, fp32 x)."""
-    return "tc" if dtype == torch.bfloat16 else "cc"
+    """``"tc"`` (tensor cores, bf16 or fp16 x) or ``"cc"`` (CUDA cores,
+    fp32 x)."""
+    return "cc" if dtype == torch.float32 else "tc"
 
 
 def swap_kchunk(h, n, sms, ctas_per_sm=SWAP_CTAS_PER_SM):
@@ -117,8 +120,8 @@ def _route(x, w_q, scale):
 
 def int8_matmul_cuda(x, w_q, scale):
     """Launch ``csrc/int8_matmul.cu``: the design :func:`design` gives
-    for x's dtype (bf16: the swap-AB kernel up to :data:`SWAP_MAX_ROWS`
-    rows, the tiled one above)."""
+    for x's dtype (bf16 and fp16: the swap-AB kernel up to
+    :data:`SWAP_MAX_ROWS` rows, the tiled one above)."""
     global launches, cc_launches
     x2, h, n = _checked(x, w_q, scale)
     rows = int(x2.shape[0])
@@ -150,11 +153,9 @@ def _checked(x, w_q, scale):
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"int8 matmul kernel needs CUDA tensors, got {dev}")
-    if x.dtype == torch.float16:
-        raise _build.fp16_refused("the W8A16 matmul", 4)
     if x.dtype not in X_DTYPES:
-        raise TypeError(f"int8 matmul kernel takes float32 or bfloat16 x, "
-                        f"got {x.dtype}")
+        raise TypeError(f"int8 matmul kernel takes float32, bfloat16 or "
+                        f"float16 x, got {x.dtype}")
     if w_q.dtype != torch.int8 or scale.dtype != torch.float32:
         raise TypeError(f"int8 matmul kernel takes an int8 weight and "
                         f"float32 scales, got {w_q.dtype} and {scale.dtype}")
@@ -182,13 +183,13 @@ def _checked(x, w_q, scale):
 
 
 def _tc_kernel(x2, w_q, scale, kernel):
-    """One tensor-core kernel, "swap" or "tiled", on checked bf16 x2
-    ``[rows, H]``: the out ``[rows, N]``. :func:`int8_matmul_cuda` picks
+    """One tensor-core kernel, "swap" or "tiled", on checked bf16 or fp16
+    x2 ``[rows, H]``: the out ``[rows, N]`` in x's dtype. :func:`int8_matmul_cuda` picks
     the kernel; ``chip_smoke.py``'s crossover sweep names each one."""
-    global launches, tc_launches
+    global launches, tc_launches, fp16_launches
     rows, h = (int(v) for v in x2.shape)
     n = int(w_q.shape[1])
-    if x2.dtype != torch.bfloat16 or kernel not in ("swap", "tiled") or (
+    if design(x2.dtype) != "tc" or kernel not in ("swap", "tiled") or (
             kernel == "swap" and rows > SWAP_MAX_ROWS):
         raise ValueError(f"int8 matmul: no {kernel!r} kernel for "
                          f"{x2.dtype} x of {rows} rows")
@@ -207,9 +208,11 @@ def _tc_kernel(x2, w_q, scale, kernel):
             _build.ptr(x2), _build.ptr(w_q), _build.ptr(scale),
             _build.ptr(out),
             None if partial is None else _build.ptr(partial),
-            rows, h, n, kchunk, swap_rows, _build.stream_of(x2),
+            rows, h, n, kchunk, swap_rows, _build.DTYPE_CODES[x2.dtype],
+            _build.stream_of(x2),
         )
     _build.check(err, "ptt_int8_matmul_tc")
     tc_launches += 1
+    fp16_launches += x2.dtype == torch.float16
     launches += 1
     return out

@@ -5,7 +5,9 @@ Counterpart of ``paddle_tpu/kernels/paged_attention.py``
 (``paged_attention_fused``: float flavour ``_paged_kernel`` and int8
 flavour ``_paged_kernel_quant``, both over ``_paged_body``;
 ``gather_pages`` for the plain versions). The CUDA source is
-``paddle_tpu_torch/csrc/paged_attention.cu``.
+``paddle_tpu_torch/csrc/paged_attention.cu``. q may be fp32, bf16 or
+fp16 (a decorate O2 net's), over fp32 or bf16 arenas (fp32 q over bf16,
+bf16 q over bf16, fp16 q over either) or int8 ones.
 
 Shape contract (as in the TPU module): q ``[B, 1, H, D]``, k_pages /
 v_pages ``[N, page_size, kvH, D]``, page_table ``[B, P]`` int32 (page 0
@@ -43,10 +45,17 @@ from .flash_attention import check_head_dim, pad_head_dim, padded_head_dim
 
 launches = 0
 int8_launches = 0
+# of those, the calls with an fp16 q (a decorate O2 net's)
+fp16_launches = 0
+fp16_int8_launches = 0
 
-# (q dtype, arena dtype) pairs the kernel is built for
+# (q dtype, arena dtype) pairs the kernel is built for: the arenas are
+# fp32, bf16 (or int8) only, as the JAX engines' caches (JAX refuses an
+# fp16 cache); an fp16 q reads either float arena
 KV_DTYPES = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-             (torch.float32, torch.bfloat16))
+             (torch.float32, torch.bfloat16), (torch.float16, torch.float32),
+             (torch.float16, torch.bfloat16))
+Q_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 CHUNK_BYTES = 32 * 1024   # K or V rows of one chunk staged in shared memory
 MAX_CHUNK = 256           # slots of a chunk, at most
 CHUNK_WORK = 2048         # slots x query heads of one chunk, at most
@@ -215,15 +224,14 @@ def _workspace(q, kv_itemsize, b, h, d, ps, kvh, width):
 
 def paged_attention_cuda(q, k_pages, v_pages, page_table, pos, scale=None):
     """Launch ``csrc/paged_attention.cu`` over float arenas."""
-    global launches
-    if torch.float16 in (q.dtype, k_pages.dtype, v_pages.dtype):
-        raise _build.fp16_refused("paged attention", 4)
+    global launches, fp16_launches
     if (q.dtype, k_pages.dtype) not in KV_DTYPES \
             or v_pages.dtype != k_pages.dtype:
         raise TypeError(
             f"paged attention kernel takes q and arenas of one dtype "
-            f"(float32 or bfloat16), or a float32 q over bfloat16 arenas; "
-            f"got q {q.dtype}, k {k_pages.dtype}, v {v_pages.dtype}"
+            f"(float32 or bfloat16), or a float32 q over bfloat16 arenas, "
+            f"or a float16 q over float32 or bfloat16 arenas; got q "
+            f"{q.dtype}, k {k_pages.dtype}, v {v_pages.dtype}"
         )
     b, h, d, ps, kvh, width = _check_common(
         q, (("k_pages", k_pages), ("v_pages", v_pages)), page_table, pos)
@@ -246,6 +254,7 @@ def paged_attention_cuda(q, k_pages, v_pages, page_table, pos, scale=None):
         )
     _build.check(err, "ptt_paged_attention_fwd")
     launches += 1
+    fp16_launches += q.dtype == torch.float16
     return out if dp == d else out[..., :d].contiguous()
 
 
@@ -253,15 +262,13 @@ def paged_attention_int8_cuda(q, k_pages, v_pages, page_table, pos,
                               scale=None):
     """Launch ``csrc/paged_attention.cu`` over int8 arenas
     (``QuantizedKV`` k_pages and v_pages)."""
-    global int8_launches
+    global int8_launches, fp16_int8_launches
     if not (is_quantized(k_pages) and is_quantized(v_pages)):
         raise TypeError("the int8 paged attention kernel takes QuantizedKV "
                         "arenas")
-    if q.dtype == torch.float16:
-        raise _build.fp16_refused("int8 paged attention", 4)
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"int8 paged attention kernel takes a float32 or "
-                        f"bfloat16 q, got {q.dtype}")
+    if q.dtype not in Q_DTYPES:
+        raise TypeError(f"int8 paged attention kernel takes a float32, "
+                        f"bfloat16 or float16 q, got {q.dtype}")
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         if t.q.dtype != torch.int8 or t.scale.dtype != torch.float32:
             raise TypeError(
@@ -293,4 +300,5 @@ def paged_attention_int8_cuda(q, k_pages, v_pages, page_table, pos,
         )
     _build.check(err, "ptt_paged_attention_int8_fwd")
     int8_launches += 1
+    fp16_int8_launches += q.dtype == torch.float16
     return out if dp == d else out[..., :d].contiguous()

@@ -72,8 +72,10 @@ from paddle_tpu_torch.kernels import rms_norm as trms  # noqa: E402
 from paddle_tpu_torch.kernels import rope as trope  # noqa: E402
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the kernels that take fp16 inputs too (every row of PERF.md's table)
+DTYPES16 = dict(DTYPES, float16=torch.float16)
 REL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
-PAGED = {"float32": 1e-5, "bfloat16": 1e-2}
+PAGED = {"float32": 1e-5, "bfloat16": 1e-2, "float16": 2e-3}
 
 
 @pytest.fixture
@@ -92,13 +94,15 @@ def _rel_ok(got, want, tol):
 
 
 def _cast_once_ok(got, want, tol32, slack=None):
-    """fp32: within ``tol32`` of the largest entry; bf16: each entry
-    within 2^-7 of it plus that fp32 tolerance, plus its ``slack`` (what
-    rounding an operand at another point may move it by)."""
+    """fp32: within ``tol32`` of the largest entry; bf16 (fp16): each
+    entry within 2^-7 (2^-10) of it plus that fp32 tolerance, plus its
+    ``slack`` (what rounding an operand at another point may move it
+    by)."""
     if got.dtype == torch.float32:
         return _rel_ok(got, want, tol32)
     ref = want.float().abs()
-    tol = 2.0 ** -7 * ref + tol32 * float(ref.max())
+    ulp = 2.0 ** -10 if got.dtype == torch.float16 else 2.0 ** -7
+    tol = ulp * ref + tol32 * float(ref.max())
     if slack is not None:
         tol = tol + slack
     return bool(((got.float() - want.float()).abs() <= tol).all())
@@ -262,18 +266,32 @@ def test_paged_attention_refuses_head_dims(dev):
 
 @pytest.mark.cuda
 def test_paged_attention_kernel_mixed_dtypes(dev):
-    """An fp32 model over the default bf16 arena runs; a bf16 q over an
-    fp32 arena is refused, not computed some other way."""
+    """An fp32 model over the default bf16 arena runs, and an fp16 q (a
+    decorate O2 net's) over a bf16 or an fp32 arena, each within its
+    tolerance, bit-equal on a repeat and counted as fp16; a bf16 q over
+    an fp32 arena is refused, not computed some other way, and so is an
+    fp16 arena (the engines keep none, as JAX's)."""
     q, kp, vp, tbl, pos = _arena(dev, torch.bfloat16, 2, 64, seed=3)
     args = (q.float(), kp, vp, tbl, pos)
     assert _err(tpa.paged_attention(*args),
                 tpa.paged_attention_reference(*args)) <= 1e-5
+    for arena in (torch.bfloat16, torch.float32):
+        args = (q.half(), kp.to(arena), vp.to(arena), tbl, pos)
+        before = tpa.fp16_launches
+        got = tpa.paged_attention(*args)
+        assert tpa.fp16_launches == before + 1
+        assert got.dtype == torch.float16 and torch.isfinite(got).all()
+        assert _err(got, tpa.paged_attention_reference(*args)) \
+            <= PAGED["float16"]
+        assert torch.equal(tpa.paged_attention(*args), got)
     with pytest.raises(TypeError, match="arenas"):
         tpa.paged_attention(q, kp.float(), vp.float(), tbl, pos)
+    with pytest.raises(TypeError, match="arenas"):
+        tpa.paged_attention(q.half(), kp.half(), vp.half(), tbl, pos)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("dtype", sorted(DTYPES16))
 @pytest.mark.parametrize("kvh", [8, 2])
 @pytest.mark.parametrize("d", [16, 32, 64, 128, 256, 80, 96, 72, 40, 51])
 def test_int8_paged_attention_kernel(dev, dtype, kvh, d):
@@ -282,10 +300,11 @@ def test_int8_paged_attention_kernel(dev, dtype, kvh, d):
     q, kp, vp, tbl, pos = _arena(dev, torch.float32, kvh, d,
                                  seed=kvh * 100 + d)
     kq, vq = QuantizedKV(*quantize_kv(kp)), QuantizedKV(*quantize_kv(vp))
-    q = q.to(DTYPES[dtype])
-    before = tpa.int8_launches
+    q = q.to(DTYPES16[dtype])
+    before = tpa.int8_launches, tpa.fp16_int8_launches
     got = tpa.paged_attention(q, kq, vq, tbl, pos)
-    assert tpa.int8_launches == before + 1
+    assert (tpa.int8_launches, tpa.fp16_int8_launches) == (
+        before[0] + 1, before[1] + (q.dtype == torch.float16))
     want = tpa.paged_attention_reference(q, kq, vq, tbl, pos)
     assert got.dtype == q.dtype and torch.isfinite(got).all()
     assert _err(got, want) <= PAGED[dtype]
@@ -298,10 +317,7 @@ def test_int8_paged_attention_refuses(dev):
 
     q, kp, vp, tbl, pos = _arena(dev, torch.float32, 2, 64, seed=7)
     kq, vq = QuantizedKV(*quantize_kv(kp)), QuantizedKV(*quantize_kv(vp))
-    # an fp16 q names its ROADMAP line (no fp16 paged kernel yet)
-    with pytest.raises(TypeError, match="queue B, fp16 item 4"):
-        tpa.paged_attention(q.half(), kq, vq, tbl, pos)
-    with pytest.raises(TypeError, match="float32 or bfloat16 q"):
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16 q"):
         tpa.paged_attention(q.double(), kq, vq, tbl, pos)
     bad = QuantizedKV(kq.q, kq.scale[..., :1].contiguous())
     with pytest.raises(ValueError, match="scales"):
@@ -311,7 +327,7 @@ def test_int8_paged_attention_refuses(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("dtype", sorted(DTYPES16))
 @pytest.mark.parametrize("rows", [1, 3, 8, 17, 130])
 def test_int8_matmul_kernel(dev, dtype, rows):
     """K 1040 (three K chunks of the narrow kernel, the last ragged; not
@@ -319,7 +335,7 @@ def test_int8_matmul_kernel(dev, dtype, rows):
     128-column tile, nor of 16)."""
     g = torch.Generator(device=dev).manual_seed(rows)
     k, n = 1040, 200
-    x = torch.randn(rows, k, generator=g, device=dev).to(DTYPES[dtype])
+    x = torch.randn(rows, k, generator=g, device=dev).to(DTYPES16[dtype])
     wq, sc = tim.quantize_weight(torch.randn(k, n, generator=g, device=dev))
     before = tim.launches
     counter = f"{tim.design(x.dtype)}_launches"
@@ -343,9 +359,13 @@ def test_int8_matmul_leading_dims_and_refusals(dev):
     y = tim.int8_matmul(x, wq, sc)
     assert y.shape == (2, 5, 48)
     assert _cast_once_ok(y, tim.int8_matmul_reference(x, wq, sc), 1e-5)
-    with pytest.raises(TypeError, match="queue B, fp16 item 4"):
-        tim.int8_matmul(x.half(), wq, sc)
-    with pytest.raises(TypeError, match="float32 or bfloat16 x"):
+    # fp16 x (a decorate O2 net's) on the tensor cores, counted as fp16
+    before = tim.fp16_launches
+    y16 = tim.int8_matmul(x.half(), wq, sc)
+    assert tim.fp16_launches == before + 1 and y16.dtype == torch.float16
+    assert _cast_once_ok(y16, tim.int8_matmul_reference(x.half(), wq, sc),
+                         1e-5)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16 x"):
         tim.int8_matmul(x.double(), wq, sc)
     with pytest.raises(TypeError, match="int8 weight"):
         tim.int8_matmul(x, wq.float(), sc)
@@ -357,16 +377,17 @@ def test_int8_matmul_leading_dims_and_refusals(dev):
 @pytest.mark.parametrize("rows", [1, 8, 16, 17, 64, 130, 1024])
 @pytest.mark.parametrize("k", [1040, 4096])
 @pytest.mark.parametrize("n", [264, 22016])
-def test_int8_matmul_tensor_cores(dev, rows, k, n):
-    """The bf16 design: the swap-AB kernel up to SWAP_MAX_ROWS rows, the
-    tiled one above; K 1040 is not a multiple of the 64-row k-tile (its
-    ragged tile is zero-filled), N 264 is not a multiple of 16 nor of the
-    128-column tile. Cast once (bf16 entry by entry), bit-equal on
-    repeat, and counted on the tensor-core design."""
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float16])
+def test_int8_matmul_tensor_cores(dev, rows, k, n, dt):
+    """The bf16 and fp16 design: the swap-AB kernel up to SWAP_MAX_ROWS
+    rows, the tiled one above; K 1040 is not a multiple of the 64-row
+    k-tile (its ragged tile is zero-filled), N 264 is not a multiple of
+    16 nor of the 128-column tile. Cast once (entry by entry), bit-equal
+    on repeat, and counted on the tensor-core design."""
     from paddle_tpu_torch import kernels
 
     g = torch.Generator(device=dev).manual_seed(rows * 7 + k + n)
-    x = torch.randn(rows, k, generator=g, device=dev).to(torch.bfloat16)
+    x = torch.randn(rows, k, generator=g, device=dev).to(dt)
     wq, sc = tim.quantize_weight(
         0.02 * torch.randn(k, n, generator=g, device=dev))
     kernels.reset_launch_counts()
@@ -383,13 +404,14 @@ def test_int8_matmul_tensor_cores(dev, rows, k, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["swap", "tiled"])
 @pytest.mark.parametrize("rows", [8, 64])
-def test_int8_matmul_each_kernel(dev, kernel, rows):
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float16])
+def test_int8_matmul_each_kernel(dev, kernel, rows, dt):
     """Each tensor-core kernel named explicitly (as chip_smoke.py's
     crossover sweep runs them side by side) at the 7B decode widths,
     within cast-once of the plain version, bit-equal on repeat and
     counted on the tensor-core design."""
     g = torch.Generator(device=dev).manual_seed(rows)
-    x = torch.randn(rows, 4096, generator=g, device=dev).to(torch.bfloat16)
+    x = torch.randn(rows, 4096, generator=g, device=dev).to(dt)
     wq, sc = tim.quantize_weight(
         0.02 * torch.randn(4096, 4096, generator=g, device=dev))
     before = (tim.tc_launches, tim.cc_launches)
@@ -501,11 +523,11 @@ FLASH_CASES = {
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("dtype", sorted(DTYPES16))
 @pytest.mark.parametrize("case", sorted(FLASH_CASES))
 def test_flash_attention_kernels(dev, dtype, case):
     causal, sq, sk, d, strided = FLASH_CASES[case]
-    dt = DTYPES[dtype]
+    dt = DTYPES16[dtype]
     q, k, v, do = _flash_inputs(dev, dt, 2, sq, sk, 3, d, seed=sq + sk,
                                 strided=strided)
     o, lse = tfa.flash_attention_cuda(q, k, v, causal)
@@ -532,14 +554,15 @@ def test_flash_attention_kernels(dev, dtype, case):
 @pytest.mark.parametrize("d", [16, 32, 64, 128, 256, 80, 96, 160, 192, 72,
                                40])
 def test_flash_attention_dispatches_by_dtype(dev, d):
-    """The tensor-core kernels run every head dim in both dtypes, both
-    ways (bf16 below 64 at the 64-wide kernels, above 128 the backward on
-    the split design's one-part kernels; fp32 through split products,
-    above 128 on pairs of CTAs). ``cuda_cores=True`` runs the CUDA-core
-    kernels at any head dim and counts them there."""
+    """The tensor-core kernels run every head dim in every dtype, both
+    ways (bf16 and fp16 below 64 at the 64-wide kernels, above 128 the
+    backward on the split design's one-part (bf16) and two-part (fp16)
+    kernels; fp32 through split products, above 128 on pairs of CTAs).
+    ``cuda_cores=True`` runs the CUDA-core kernels at any head dim and
+    dtype and counts them there."""
     from paddle_tpu_torch import kernels
 
-    for dt in (torch.bfloat16, torch.float32):
+    for dt in (torch.bfloat16, torch.float32, torch.float16):
         q, k, v, do = _flash_inputs(dev, dt, 1, 64, 64, 2, d, seed=3)
         kernels.reset_launch_counts()
         o, lse = tfa.flash_attention_cuda(q, k, v, True)
@@ -655,11 +678,11 @@ NORM_MATMUL_CASES = {
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("dtype", sorted(DTYPES16))
 @pytest.mark.parametrize("case", sorted(NORM_MATMUL_CASES))
 def test_rms_norm_matmul_kernel(dev, dtype, case):
     rows, k, n, w32, tol = NORM_MATMUL_CASES[case]
-    dt = DTYPES[dtype]
+    dt = DTYPES16[dtype]
     g = torch.Generator(device=dev).manual_seed(rows + k)
     x = torch.randn(rows, k, generator=g, device=dev).to(dt)
     w = (1 + 0.1 * torch.randn(k, generator=g, device=dev)).to(
@@ -676,8 +699,9 @@ def test_rms_norm_matmul_kernel(dev, dtype, case):
     # cast once, plus what the kernel's own rstd may move the rounding of
     # the normed row by (zero in fp32)
     top = float(ref.abs().max())
+    ulp = 2.0 ** -10 if dt == torch.float16 else 2.0 ** -7
     bound = (tol * top if dt == torch.float32
-             else 2.0 ** -7 * ref.abs() + tol * top)
+             else ulp * ref.abs() + tol * top)
     bound = bound + tfnm.normed_rounding_slack(x, w, wm, 1e-5)
     assert bool(((y.float() - ref).abs() <= bound).all())
     # no atomics: a second run is bit-equal
@@ -687,18 +711,20 @@ def test_rms_norm_matmul_kernel(dev, dtype, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["swap", "tiled"])
 @pytest.mark.parametrize("rows", [8, 64, 256])
-def test_rms_norm_matmul_each_kernel(dev, kernel, rows):
-    """Each bf16 tensor-core kernel by name at the rows the crossover
-    sweep visits: within cast-once plus the rounding slack, bit-equal on
-    repeat."""
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float16])
+def test_rms_norm_matmul_each_kernel(dev, kernel, rows, dt):
+    """Each bf16 and fp16 tensor-core kernel by name at the rows the
+    crossover sweep visits: within cast-once plus the rounding slack,
+    bit-equal on repeat."""
     g = torch.Generator(device=dev).manual_seed(rows)
     k, n = 1040, 264
-    x = torch.randn(rows, k, generator=g, device=dev).bfloat16()
-    w = (1 + 0.1 * torch.randn(k, generator=g, device=dev)).bfloat16()
-    wm = (0.02 * torch.randn(k, n, generator=g, device=dev)).bfloat16()
+    x = torch.randn(rows, k, generator=g, device=dev).to(dt)
+    w = (1 + 0.1 * torch.randn(k, generator=g, device=dev)).to(dt)
+    wm = (0.02 * torch.randn(k, n, generator=g, device=dev)).to(dt)
     y = tfnm._tc_kernel(x, w, wm, 1e-5, kernel)
     ref = tfnm.rms_norm_matmul_reference(x, w, wm, 1e-5).float()
-    bound = 2.0 ** -7 * ref.abs() + 1e-5 * float(ref.abs().max()) \
+    ulp = 2.0 ** -10 if dt == torch.float16 else 2.0 ** -7
+    bound = ulp * ref.abs() + 1e-5 * float(ref.abs().max()) \
         + tfnm.normed_rounding_slack(x, w, wm, 1e-5)
     assert bool(((y.float() - ref).abs() <= bound).all())
     assert torch.equal(y, tfnm._tc_kernel(x, w, wm, 1e-5, kernel))
@@ -773,11 +799,11 @@ ROPE_ATTENTION_CASES = {
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("dtype", sorted(DTYPES16))
 @pytest.mark.parametrize("case", sorted(ROPE_ATTENTION_CASES))
 def test_rope_attention_kernel(dev, dtype, case):
     causal, s, d, tol, strided = ROPE_ATTENTION_CASES[case]
-    dt = DTYPES[dtype]
+    dt = DTYPES16[dtype]
     q, k, v, _ = _flash_inputs(dev, dt, 1, s, s, 4, d, seed=s + d,
                                strided=strided)
     # leading rows of a longer table, as the model passes them
@@ -789,7 +815,7 @@ def test_rope_attention_kernel(dev, dtype, case):
     assert (tfra.launches, getattr(tfra, f"{design}_launches")) == (
         before[0] + 1, before[1] + 1)
     padded = -(-d // 16) * 16
-    assert design == ("tc" if dt == torch.bfloat16 and 64 <= padded <= 128
+    assert design == ("tc" if dt != torch.float32 and 64 <= padded <= 128
                       else "split")
     ref = tfra.rope_attention_reference(q, k, v, cos, sin, causal=causal)
     assert o.dtype == dt and o.shape == q.shape and torch.isfinite(o).all()
@@ -800,7 +826,7 @@ def test_rope_attention_kernel(dev, dtype, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("dtype", sorted(DTYPES16))
 @pytest.mark.parametrize("d", [16, 72, 128, 256])
 def test_rope_attention_backward_composes_the_kernels(dev, dtype, d):
     """The fused backward on the card: one rope and one rope-backward
@@ -810,7 +836,7 @@ def test_rope_attention_backward_composes_the_kernels(dev, dtype, d):
     flash backward's tolerance, and bit for bit on a repeat."""
     from paddle_tpu_torch import kernels
 
-    dt = DTYPES[dtype]
+    dt = DTYPES16[dtype]
     s = 130
     q, k, v, g = _flash_inputs(dev, dt, 2, s, s, 3, d, seed=d + 7)
     cos, sin = trope.build_rope_cache(s, d, device=dev)
@@ -831,6 +857,9 @@ def test_rope_attention_backward_composes_the_kernels(dev, dtype, d):
     assert kernels.flash_design_counts() == {
         "tc_launches": 1, "tc_bwd_launches": 1, "cc_launches": 0,
         "cc_bwd_launches": 0}
+    # an fp16 input is counted as such (the composition runs in fp32)
+    assert kernels.fp16_launch_counts()["rope_attention_bwd_fp16"] == (
+        dt == torch.float16)
     again = grads(lambda *ins: tfra.rope_attention_fused(*ins, cos, sin))
     plain = grads(lambda *ins: tfra.rope_attention_reference(*ins, cos, sin))
     for a, b, w in zip(got, again, plain):

@@ -27,6 +27,12 @@ Tolerances:
   the eager scaler against JAX's step over the same decorated net:
   losses within 1e-3 relative, scaler state exactly equal, the
   parameters fp16 and the Adam moments fp32.
+- The same two fp16 paths with both fusions (``fusions=("rms_norm_matmul",
+  "rope_attention")``; the JAX model on its fused Pallas kernels through
+  tune-cache entries for these shapes, in a throwaway cache file): three
+  O1 steps and three decorated O2 steps, under the same bounds (the
+  fused paths keep more in fp32 on both sides, so the two packages
+  round at the same points).
 """
 import numpy as np
 import pytest
@@ -37,6 +43,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import paddle_tpu as paddle  # noqa: E402
+import paddle_tpu.kernels.autotune as at  # noqa: E402
 from paddle_tpu.core.tensor import Tensor  # noqa: E402
 from paddle_tpu.jit.trainer import CompiledTrainStep as JStep  # noqa: E402
 from paddle_tpu.kernels import rope as jrope  # noqa: E402
@@ -48,6 +55,10 @@ from paddle_tpu_torch import optimizer as topt  # noqa: E402
 from paddle_tpu_torch.jit import CompiledTrainStep  # noqa: E402
 from paddle_tpu_torch.kernels import _build  # noqa: E402
 from paddle_tpu_torch.kernels import flash_attention as tfa  # noqa: E402
+from paddle_tpu_torch.kernels import fused_norm_matmul as tfnm  # noqa: E402
+from paddle_tpu_torch.kernels import fused_rope_attention as tfra  # noqa
+from paddle_tpu_torch.kernels import int8_matmul as tim  # noqa: E402
+from paddle_tpu_torch.kernels import paged_attention as tpa  # noqa: E402
 from paddle_tpu_torch.kernels import rms_norm as trms  # noqa: E402
 from paddle_tpu_torch.kernels import rope as trope  # noqa: E402
 from paddle_tpu_torch.models import causal_lm_loss  # noqa: E402
@@ -175,8 +186,13 @@ def test_flash_fp16_plain_matches_stock_pallas_kernel():
 
 def test_fp16_rounding_slack_and_refusals():
     """fp16's slack is fp16's ulp plus its subnormal flush (zero for
-    fp32); the kernels fp16 does not reach yet raise a TypeError naming
-    ROADMAP.md queue B."""
+    fp32). Every kernel that once refused fp16 on the card (ROADMAP.md
+    queue B's fp16 items) now dispatches it: the flash backward above
+    head dim 128 to the split kernels on each operand's two exact bf16
+    parts (and a workspace of them), the rope-on-load attention, the
+    fused head and the W8A16 matmul to their tensor-core designs, paged
+    attention to an fp16 q over the fp32 and bf16 arenas; the refusal
+    helper is gone."""
     rng = np.random.RandomState(33)
     q, k, v = (torch.from_numpy(rng.randn(1, 8, 2, 16).astype(np.float32))
                for _ in range(3))
@@ -186,14 +202,25 @@ def test_fp16_rounding_slack_and_refusals():
     s16 = tfa.probability_rounding_slack(q16, k16, v16, lse, causal=True)
     assert float(s32.abs().max()) == 0.0
     assert 0.0 < float(s16.max()) < 2.0 ** -9 * float(v.abs().sum(1).max())
-    for backward, dim, cc in ((True, 256, False), (True, 160, False),
-                              (False, 128, True)):
-        with pytest.raises(TypeError, match="queue B, fp16 item 3"):
-            tfa._check_fp16(torch.float16, dim, backward, cc)
-    tfa._check_fp16(torch.float16, 256, False, False)
-    tfa._check_fp16(torch.float16, 128, True, False)
-    assert _build.DTYPE_CODES[torch.float16] == 3
-    assert torch.float16 in _build.FLOAT_TYPES
+    f16 = torch.float16
+    for backward, dim, parts in ((True, 256, 2), (True, 160, 2),
+                                 (True, 128, 0), (False, 256, 0),
+                                 (False, 72, 0)):
+        assert tfa.split_parts(f16, dim, backward) == parts
+        assert tfa.design(f16, dim, backward) == "tc"
+    assert tfa.split_workspace_elems(1, 8, 8, 2, 256, 2, 2, 2) == \
+        2 * 32 * 2 * 256
+    for dim, kind in ((128, "tc"), (64, "tc"), (80, "tc"), (32, "split"),
+                      (256, "split")):
+        assert tfra.design(f16, dim) == kind
+    assert tfnm.design(f16, 8) == tfnm.design(f16, 4096) == "tc"
+    assert f16 in tfnm.X_DTYPES and f16 in tim.X_DTYPES
+    assert tim.design(f16) == "tc"
+    assert {(f16, torch.float32), (f16, torch.bfloat16)} <= set(
+        tpa.KV_DTYPES) and f16 in tpa.Q_DTYPES
+    assert not hasattr(_build, "fp16_refused")
+    assert _build.DTYPE_CODES[f16] == 3
+    assert f16 in _build.FLOAT_TYPES
 
 
 # ------------------------------------------------------ training paths
@@ -291,3 +318,104 @@ def test_fp16_decorate_o2_eager_steps_match_jax():
     want = {k: np.asarray(p.value) for k, p in jnet.named_parameters()}
     for k, p in tnet.named_parameters():
         assert str(want[k].dtype) == "float16", k
+
+
+# ------------------------------------------- the fp16 paths, both fusions
+BOTH = ("rms_norm_matmul", "rope_attention")
+
+
+@pytest.fixture
+def fused_jax(tmp_path, monkeypatch):
+    """A throwaway JAX tune cache holding both fusions' entries for the
+    tiny Llama at ``_batch()``'s [2, 16] (its opt-in to the fused paths):
+    one grid step each way."""
+    monkeypatch.setenv(at.ENV_CACHE, str(tmp_path / "tune_cache.json"))
+    at.reset_cache()
+    cache = at.get_cache()
+    cache.record("rope_attention", at.rope_attention_sig(2, 16, 4, 16),
+                 {"block_q": 16}, save=False)
+    cache.record("rms_norm_matmul", at.norm_matmul_sig(32, 64, 96),
+                 {"block_rows": 32, "block_cols": 96}, save=False)
+    before = at.selection_counter().series()
+    yield
+    after = at.selection_counter().series()
+    at.reset_cache()
+    for kernel in BOTH:  # the JAX model did take both fused paths
+        key = (("kernel", kernel), ("path", "fused:cached"))
+        assert after.get(key, 0) > before.get(key, 0), kernel
+
+
+def test_fp16_o1_fused_trajectory_and_scaler_state_match_jax_trainer(
+        fused_jax):
+    """O1 fp16 with both fusions: q, k, v leave the white-listed
+    projections in fp16 and enter the rope-on-load attention in fp16;
+    the head fuses in fp32 (the op is on neither AMP list). Three steps
+    against JAX's trainer, the first overflowing."""
+    jnet, tnet = _pair("mha", seed=6)
+    tnet.fusions = BOTH
+    ids, labels = _batch(seed=3)
+    jopt = paddle.optimizer.AdamW(
+        2e-3, parameters=jnet.parameters(), weight_decay=0.01,
+        grad_clip=paddle.optimizer.ClipGradByGlobalNorm(1.0))
+    topt_ = topt.AdamW(2e-3, parameters=tnet.named_parameters(),
+                       weight_decay=0.01,
+                       grad_clip=topt.ClipGradByGlobalNorm(1.0))
+    js = paddle.amp.GradScaler(**SCALER16)
+    ts = tamp.GradScaler(**SCALER16)
+    jstep = JStep(jnet, lambda lo, lb: jloss(lo, lb).mean(), jopt,
+                  amp_level="O1", amp_dtype="float16", scaler=js)
+    tstep = CompiledTrainStep(
+        tnet, lambda lo, lb: causal_lm_loss(lo, lb).mean(), topt_,
+        amp_level="O1", amp_dtype="float16", scaler=ts)
+    jl, tl = [], []
+    for step in range(3):
+        loss, _ = jstep([Tensor(jnp.asarray(ids))],
+                        [Tensor(jnp.asarray(labels))])
+        jl.append(float(np.asarray(loss.value)))
+        loss, _ = tstep([torch.from_numpy(ids).long()],
+                        [torch.from_numpy(labels).long()])
+        tl.append(float(loss))
+        assert _state(ts, topt_) == _state(js, jopt), step
+    np.testing.assert_allclose(tl, jl, rtol=1e-3)
+    assert _state(ts, topt_) == (2.0 ** 12, 2, 0, False, 2)
+
+
+def test_fp16_decorate_o2_fused_eager_steps_match_jax(fused_jax):
+    """The decorated O2 fp16 net with both fusions: the fused head in
+    fp16 (x, the norm weight and the lm_head weight fp16) and the
+    rope-on-load attention on fp16 q, k, v; three eager steps as
+    ``test_fp16_decorate_o2_eager_steps_match_jax`` takes them."""
+    jnet, tnet = _pair("mha", seed=8)
+    ids, labels = _batch(seed=4)
+    jopt = paddle.optimizer.AdamW(
+        2e-3, parameters=jnet.parameters(), weight_decay=0.01,
+        grad_clip=paddle.optimizer.ClipGradByGlobalNorm(1.0))
+    topt_ = topt.AdamW(2e-3, parameters=tnet.named_parameters(),
+                       weight_decay=0.01,
+                       grad_clip=topt.ClipGradByGlobalNorm(1.0))
+    jnet, jopt = paddle.amp.decorate(jnet, jopt, level="O2",
+                                     dtype="float16")
+    tnet, topt_ = tamp.decorate(tnet, topt_, level="O2", dtype="float16")
+    tnet.fusions = BOTH
+    js = paddle.amp.GradScaler(init_loss_scaling=1024.0)
+    ts = tamp.GradScaler(init_loss_scaling=1024.0)
+    jstep = JStep(jnet, lambda lo, lb: jloss(lo, lb).mean(), jopt,
+                  amp_level="O2", amp_dtype="float16", scaler=js)
+    tl = []
+    for step in range(3):
+        loss, _ = jstep([Tensor(jnp.asarray(ids))],
+                        [Tensor(jnp.asarray(labels))])
+        want = float(np.asarray(loss.value))
+        logits = tnet(torch.from_numpy(ids).long())
+        assert logits.dtype == torch.float16
+        loss = causal_lm_loss(logits.float(),
+                              torch.from_numpy(labels).long()).mean()
+        ts.scale(loss).backward()
+        ts.step(topt_)
+        ts.update()
+        topt_.clear_grad()
+        tl.append(float(loss.detach()))
+        np.testing.assert_allclose(tl[-1], want, rtol=1e-3)
+        assert _state(ts, topt_) == _state(js, jopt), step
+    assert tl[-1] < tl[0]
+    assert {p.dtype for p in tnet.parameters()} == {torch.float16}
